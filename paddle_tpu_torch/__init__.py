@@ -1,0 +1,24 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of ``paddle_tpu`` for NVIDIA
+Hopper (H100).
+
+The JAX package ``paddle_tpu`` stays the reference; this package never
+imports it, nor JAX.  It is ported slice by slice (ROADMAP.md queue 1).
+This slice serves: ``GPTStackedForPretraining`` behind the
+continuous-batching ``ServingEngine``, whose fused mixed prefill/decode
+step runs the hand-written ragged-paged-attention kernel
+(``ops/kernels/csrc/ragged_paged_attention.cu``).
+
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``); on the CPU every kernel is replaced by its plain
+PyTorch version.
+"""
+from . import core, models, serving, telemetry
+from .models import (
+    GPTConfig, GPTStackedForPretraining, gpt_1p3b, gpt_13b, gpt_small,
+    gpt_tiny,
+)
+from .serving import SamplingParams, ServingEngine
+
+__all__ = ["core", "models", "serving", "telemetry", "GPTConfig",
+           "GPTStackedForPretraining", "gpt_tiny", "gpt_small", "gpt_1p3b",
+           "gpt_13b", "ServingEngine", "SamplingParams"]

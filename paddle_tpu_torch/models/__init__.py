@@ -1,0 +1,7 @@
+from .gpt import (
+    GPTConfig, GPTStackedForPretraining, gpt_1p3b, gpt_13b, gpt_small,
+    gpt_tiny,
+)
+
+__all__ = ["GPTConfig", "GPTStackedForPretraining", "gpt_tiny", "gpt_small",
+           "gpt_1p3b", "gpt_13b"]

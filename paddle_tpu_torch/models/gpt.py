@@ -1,0 +1,278 @@
+"""GPT on the serving path, in PyTorch (port of the serving half of
+``paddle_tpu/models/gpt.py``).
+
+``GPTStackedForPretraining`` keeps the JAX model's layout: every decoder
+weight is one ``[L, ...]`` slab (``x @ w`` with ``w`` as ``[in, out]``, not
+``nn.Linear``'s ``[out, in]``), the QKV output splits as ``(3, heads,
+head_dim)``, and the LM head is tied to the word embeddings.  Its
+``state_dict`` keys are the JAX model's, so ``load_jax_state`` carries
+trained weights across unchanged.
+
+This slice serves: the model runs the fused mixed prefill/decode step
+of ``ServingEngine`` (one flat token per row, C == 1, with a ragged
+plan), through ``ops/kernels/ragged_paged_attention.py``.  Training,
+``generate()`` and the chunked-prefill path without a plan wait for later
+slices (ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core import resolve_device, to_torch_dtype
+from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
+
+__all__ = [
+    "GPTConfig",
+    "GPTStackedForPretraining",
+    "gpt_tiny",
+    "gpt_small",
+    "gpt_1p3b",
+    "gpt_13b",
+]
+
+
+@dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: Optional[int] = None  # default 4*hidden
+    max_position_embeddings: int = 1024
+    layer_norm_eps: float = 1e-5
+    initializer_range: float = 0.02
+
+    @property
+    def ffn_size(self) -> int:
+        return self.intermediate_size or 4 * self.hidden_size
+
+    @property
+    def head_dim(self) -> int:
+        if self.hidden_size % self.num_heads:
+            raise ValueError(f"hidden_size={self.hidden_size} is not a "
+                             f"multiple of num_heads={self.num_heads}")
+        return self.hidden_size // self.num_heads
+
+
+def _preset(defaults, kw):
+    return GPTConfig(**{**defaults, **kw})
+
+
+def gpt_tiny(**kw) -> GPTConfig:
+    return _preset(dict(vocab_size=1024, hidden_size=64, num_layers=2,
+                        num_heads=4, max_position_embeddings=128), kw)
+
+
+def gpt_small(**kw) -> GPTConfig:
+    """GPT-2 small class (117M)."""
+    return _preset(dict(hidden_size=768, num_layers=12, num_heads=12,
+                        max_position_embeddings=1024), kw)
+
+
+def gpt_1p3b(**kw) -> GPTConfig:
+    """GPT-3 1.3B."""
+    return _preset(dict(hidden_size=2048, num_layers=24, num_heads=16,
+                        max_position_embeddings=2048), kw)
+
+
+def gpt_13b(**kw) -> GPTConfig:
+    """GPT-3 13B."""
+    return _preset(dict(hidden_size=5120, num_layers=40, num_heads=40,
+                        max_position_embeddings=2048), kw)
+
+
+def _layer_norm(x, g, b, eps):
+    """The JAX ``_ln_f32`` followed by the cast back to the weight dtype:
+    ``F.layer_norm`` accumulates in fp32 for bf16 inputs and rounds the
+    result once, in one kernel."""
+    return F.layer_norm(x, (x.shape[-1],), g, b, eps)
+
+
+class GPTEmbeddings(nn.Module):
+    def __init__(self, cfg: GPTConfig, **factory):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                            **factory)
+        self.position_embeddings = nn.Embedding(
+            cfg.max_position_embeddings, cfg.hidden_size, **factory)
+
+    def forward(self, input_ids, position_ids):
+        return (self.word_embeddings(input_ids)
+                + self.position_embeddings(position_ids))
+
+
+class GPTStackedDecoder(nn.Module):
+    """All decoder blocks as stacked ``[L, ...]`` parameters, run as a
+    loop over the leading layer axis.  Activations share the weights'
+    dtype (the pool may hold another); LayerNorm statistics and
+    matrix-product sums are fp32 inside their kernels."""
+
+    PARAM_NAMES = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
+                   "ln2_g", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+
+    def __init__(self, cfg: GPTConfig, **factory):
+        super().__init__()
+        self._cfg = cfg
+        L, h, f = cfg.num_layers, cfg.hidden_size, cfg.ffn_size
+        shapes = {"ln1_g": (L, h), "ln1_b": (L, h), "qkv_w": (L, h, 3 * h),
+                  "qkv_b": (L, 3 * h), "proj_w": (L, h, h), "proj_b": (L, h),
+                  "ln2_g": (L, h), "ln2_b": (L, h), "fc1_w": (L, h, f),
+                  "fc1_b": (L, f), "fc2_w": (L, f, h), "fc2_b": (L, h)}
+        for name in self.PARAM_NAMES:
+            self.register_parameter(
+                name, nn.Parameter(torch.empty(shapes[name], **factory),
+                                   requires_grad=False))
+
+    def forward_paged(self, h, k_pool, v_pool, tables, pos, ragged_plan):
+        """One fused serving step over every layer.  ``h`` [T, hidden];
+        ``k_pool``/``v_pool`` the stacked ``[L, P, H, page_size, D]`` pool,
+        written in place; ``tables`` [T, max_pages] and ``pos`` [T] the
+        per-token page-table rows and positions."""
+        cfg = self._cfg
+        nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
+        t = h.shape[0]
+        page_size = k_pool.shape[3]
+        max_pages = tables.shape[1]
+        scale = float(1.0 / np.sqrt(hd))
+        tbl = tables.long()
+        pos = pos.long()
+        # each token's K/V lands at pool[page_ids[t], :, offs[t]]; padding
+        # tokens carry the null-page table and position 0, so their writes
+        # sink into page 0, which no valid read ever resolves to.  The clip
+        # is defensive: admission reserves every page a token can touch.
+        page_slot = torch.clamp(pos // page_size, 0, max_pages - 1)
+        page_ids = torch.gather(tbl, 1, page_slot[:, None])        # [T, 1]
+        offs = (pos % page_size)[:, None]                          # [T, 1]
+        heads = torch.arange(nh, device=h.device)[None, :]         # [1, H]
+        lengths = (pos + 1).to(torch.int32)
+        weights = zip(*(getattr(self, n).unbind(0) for n in self.PARAM_NAMES))
+        for (l1g, l1b, qkvw, qkvb, pw, pb, l2g, l2b, f1w, f1b, f2w, f2b), \
+                kp, vp in zip(weights, k_pool.unbind(0), v_pool.unbind(0)):
+            x = _layer_norm(h, l1g, l1b, eps)
+            qkv = torch.addmm(qkvb, x, qkvw).view(t, 3, nh, hd)
+            q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]              # [T, H, D]
+            # ALL of the step's K/V rows go into the pool BEFORE the
+            # attention launch, so a prefill chunk's tokens see each other
+            # through the pool.  In place: index_put_ on the pool tensor.
+            kp.index_put_((page_ids, heads, offs), k.to(kp.dtype))
+            vp.index_put_((page_ids, heads, offs), v.to(vp.dtype))
+            out = ragged_paged_attention(q, kp, vp, tables, lengths,
+                                         ragged_plan, sm_scale=scale)
+            out = out.reshape(t, nh * hd).to(pw.dtype)   # pool dtype may differ
+            h = h + torch.addmm(pb, out, pw)
+            y = _layer_norm(h, l2g, l2b, eps)
+            g = F.gelu(torch.addmm(f1b, y, f1w), approximate="tanh")
+            h = h + torch.addmm(f2b, g, f2w)
+        return h
+
+
+class GPTStackedForPretraining(nn.Module):
+    """Embeddings + stacked decoder + tied LM head, on the serving path.
+
+    ``device=None`` means ``"cuda"`` and raises when no CUDA device is
+    present; pass ``device="cpu"`` to run on the CPU.  Weights are drawn
+    N(0, initializer_range) from ``torch.Generator(seed)`` on the model's
+    device (LayerNorm gains 1, biases 0, as the JAX model initialises).
+    """
+
+    def __init__(self, cfg: GPTConfig, device=None, dtype="float32",
+                 seed: int = 0):
+        super().__init__()
+        self.config = cfg
+        self.device = resolve_device(device)
+        self.dtype = to_torch_dtype(dtype)
+        factory = dict(device=self.device, dtype=self.dtype)
+        self.embeddings = GPTEmbeddings(cfg, **factory)
+        self.decoder = GPTStackedDecoder(cfg, **factory)
+        self.final_ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
+                                     **factory)
+        self.requires_grad_(False)
+        self._init_weights(seed)
+
+    @torch.no_grad()
+    def _init_weights(self, seed: int):
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        std = self.config.initializer_range
+        for name, p in self.named_parameters():
+            short = name.rsplit(".", 1)[-1]
+            if short in ("ln1_g", "ln2_g") or name == "final_ln.weight":
+                p.fill_(1.0)
+            elif short.endswith("_b") or name == "final_ln.bias":
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen,
+                                    device=self.device) * std)
+
+    def load_jax_state(self, state: Mapping[str, np.ndarray]):
+        """Carry the JAX model's weights across: ``state`` maps every key
+        of ``paddle_tpu``'s ``GPTStackedForPretraining.state_dict()``
+        (``embeddings.word_embeddings.weight``, ``decoder.qkv_w``, ...,
+        ``final_ln.bias``) to a numpy array of the same shape.  Missing,
+        unknown or mis-shaped keys raise."""
+        own = dict(self.named_parameters())
+        missing = sorted(set(own) - set(state))
+        unknown = sorted(set(state) - set(own))
+        if missing or unknown:
+            raise KeyError(f"load_jax_state: missing {missing}, unknown "
+                           f"{unknown}")
+        with torch.no_grad():
+            for name, p in own.items():
+                a = np.array(state[name], np.float32)
+                if tuple(a.shape) != tuple(p.shape):
+                    raise ValueError(f"load_jax_state: {name} has shape "
+                                     f"{a.shape}, expected "
+                                     f"{tuple(p.shape)}")
+                p.copy_(torch.from_numpy(a).to(p.dtype))
+
+    def forward(self, input_ids, kv_cache=None, cache_index=None,
+                page_tables=None, ragged_plan=None, out_rows=None):
+        """The fused serving step: ``input_ids`` [T, 1] flat tokens,
+        ``cache_index`` [T] their positions, ``page_tables`` [T, max_pages]
+        their slots' table rows, ``ragged_plan`` the plan tensors and
+        ``out_rows`` [S] the flat row of each slot's output token.
+        Returns [S, 1, V] logits, the LM head applied to those rows only.
+        The K/V of every token is written into ``kv_cache`` in place."""
+        if not getattr(kv_cache, "paged", False) or ragged_plan is None \
+                or page_tables is None or input_ids.shape[-1] != 1:
+            raise NotImplementedError(
+                "this slice serves the fused ragged step only (a paged "
+                "cache, a ragged plan and one token per row); training, "
+                "generate() and chunked prefill are ROADMAP.md queue 1 "
+                "items")
+        cfg = self.config
+        pos = cache_index.long()
+        ids = input_ids[:, 0].long()
+        pos_ids = torch.clamp(pos, 0, cfg.max_position_embeddings - 1)
+        h = self.embeddings(ids, pos_ids)                       # [T, hidden]
+        h = self.decoder.forward_paged(h, kv_cache.k, kv_cache.v,
+                                       page_tables, pos, ragged_plan)
+        if out_rows is not None:
+            # gather each slot's output row BEFORE the vocab projection:
+            # the LM head projects [S] rows, not the padded token axis
+            h = h[out_rows.long()]
+        h = self.final_ln(h)
+        logits = h @ self.embeddings.word_embeddings.weight.t()
+        return logits[:, None, :]
+
+    # -- ServingEngine paged-cache contract --------------------------------
+    def new_paged_kv_cache(self, num_pages: int, page_size: int,
+                           dtype="bfloat16"):
+        from ..serving.paged_cache import PagedKVCache
+
+        cfg = self.config
+        return PagedKVCache(cfg.num_layers, num_pages, cfg.num_heads,
+                            page_size, cfg.head_dim, dtype=dtype,
+                            device=self.device)
+
+    def _paged_lm_logits(self, input_ids, paged_cache, page_tables,
+                         positions, ragged_plan=None, out_rows=None):
+        return self.forward(input_ids, kv_cache=paged_cache,
+                            cache_index=positions, page_tables=page_tables,
+                            ragged_plan=ragged_plan, out_rows=out_rows)

@@ -1,0 +1,270 @@
+"""Admission layer: the continuous-batching slot scheduler (host-side
+bookkeeping), copied from ``paddle_tpu/serving/admission.py``.
+
+A fixed number of *slots* share the fused step; the scheduler owns which
+request occupies which slot, each slot's page-table row, position, and
+not-yet-prefilled prompt remainder, and the block-pool accounting:
+
+- **admission** reserves every page a request can ever touch up front
+  (``ceil((prompt + max_new_tokens) / page_size)``).  All-or-nothing: a
+  request the pool cannot fully serve stays queued (backpressure) -- a
+  mid-decode out-of-pages condition therefore cannot exist.
+- **per-step token planning** (``plan_step``): each tick, a seated slot
+  contributes either one decode token or a budgeted run of prefill tokens
+  from its pending prompt.
+- **retirement** frees the slot's pages back to the allocator immediately
+  and zeroes its table row to the null page.
+
+The numpy arrays (``tables`` [num_slots, max_pages] int32, ``positions``
+[num_slots] int32) are the host mirrors the engine packs into each step.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from .paged_cache import NULL_PAGE, BlockAllocator, pages_for_tokens
+
+__all__ = ["Slot", "AdmissionScheduler", "StepWork"]
+
+
+class Slot:
+    """One decode slot: the request occupying it + its page reservation.
+
+    ``pending`` holds the prompt tokens not yet written into the pool
+    (set at admission, consumed by the fused step's prefill runs); an
+    empty/None pending means the slot is decoding.  ``seq`` is the
+    admission sequence number — ``plan_step`` drains the prefill budget
+    oldest-admission-first, so slot INDEX (which admission reuses as soon
+    as a slot frees) never decides who prefills.
+
+    ``shared`` counts the slot's LEADING pages that live in the prefix
+    cache (spliced in at admission on a hit, or registered at harvest
+    once completed — pages complete strictly in order, so shared pages
+    are always a prefix of ``pages``); ``nodes`` holds the cache nodes
+    the slot keeps reader references on, released at retirement.  A slot
+    never writes its first ``shared`` pages — that is the COW ownership
+    rule (serving/prefix_cache.py)."""
+
+    __slots__ = ("request", "pages", "pos", "pending", "seq",
+                 "shared", "nodes")
+
+    def __init__(self, request, pages: List[int], pos: int = 0,
+                 pending: Optional[np.ndarray] = None, seq: int = 0,
+                 shared: int = 0, nodes: Optional[list] = None):
+        self.request = request
+        self.pages = pages
+        self.pos = pos       # tokens written into the slot's pages so far
+        self.pending = pending
+        self.seq = seq
+        self.shared = shared
+        self.nodes = nodes if nodes is not None else []
+
+
+class StepWork:
+    """One slot's share of a fused step: ``count`` tokens starting at
+    absolute position ``base`` — a prefill run (``kind='prefill'``,
+    ``completes`` when it exhausts the slot's pending prompt, so the
+    step's sampled token is the request's FIRST generated token), one
+    decode token (``kind='decode'``), or a speculative verification run
+    (``kind='verify'``: the slot's last sampled token plus the draft
+    model's k proposals — ``count = 1 + k`` — whose accepted prefix the
+    engine commits via ``advance(idx, n_accepted + 1)``; see
+    serving/speculative.py).  ``drafts`` carries the proposed token ids
+    on verify runs (None otherwise)."""
+
+    __slots__ = ("slot", "kind", "count", "base", "completes", "drafts")
+
+    def __init__(self, slot: int, kind: str, count: int, base: int,
+                 completes: bool, drafts=None):
+        self.slot = slot
+        self.kind = kind
+        self.count = count
+        self.base = base
+        self.completes = completes
+        self.drafts = drafts
+
+    @property
+    def has_output(self) -> bool:
+        """Whether this run samples a token (decode/verify always; a
+        prefill run only when it completes the prompt — mid-prefill runs
+        emit nothing)."""
+        return self.kind in ("decode", "verify") or self.completes
+
+    def __repr__(self) -> str:
+        return (f"StepWork(slot={self.slot}, {self.kind}, count={self.count},"
+                f" base={self.base}, completes={self.completes})")
+
+
+class AdmissionScheduler:
+    def __init__(self, num_slots: int, max_pages_per_slot: int,
+                 page_size: int, allocator: BlockAllocator):
+        if num_slots < 1:
+            raise ValueError("num_slots must be >= 1")
+        self.num_slots = num_slots
+        self.max_pages_per_slot = max_pages_per_slot
+        self.page_size = page_size
+        self.allocator = allocator
+        self.slots: List[Optional[Slot]] = [None] * num_slots
+        self.tables = np.full((num_slots, max_pages_per_slot), NULL_PAGE,
+                              np.int32)
+        self.positions = np.zeros((num_slots,), np.int32)
+        self._admit_seq = 0          # monotonic admission counter (fairness)
+        # optional global prefix cache (serving/prefix_cache.py) — the
+        # engine installs it; retirement releases slot references here
+        self.prefix_cache = None
+
+    # -- queries -----------------------------------------------------------
+    @property
+    def active_slots(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
+
+    def free_slot_indices(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def seated(self) -> List[Tuple[int, Slot]]:
+        """(index, slot) of every occupied slot — snapshot list, safe to
+        retire slots while iterating (the reap/recovery paths do)."""
+        return [(i, s) for i, s in enumerate(self.slots) if s is not None]
+
+    def active_mask(self) -> np.ndarray:
+        return np.array([s is not None for s in self.slots], bool)
+
+    @property
+    def occupancy(self) -> float:
+        """Fraction of the allocatable pool currently reserved."""
+        cap = self.allocator.capacity
+        return self.allocator.used_pages / cap if cap else 0.0
+
+    def pages_needed(self, total_tokens: int) -> int:
+        return pages_for_tokens(total_tokens, self.page_size)
+
+    # -- admission / retirement --------------------------------------------
+    def try_admit(self, request, total_tokens: int, cached_pages=(),
+                  cached_nodes=(), n_cached: int = 0) -> Optional[int]:
+        """Seat ``request`` in a free slot with pages reserved for
+        ``total_tokens``; None (nothing changed) when no slot is free, the
+        request cannot fit a slot's table, or the pool lacks pages.
+
+        A prefix-cache hit passes the matched ``cached_pages`` (reader
+        references already taken on ``cached_nodes``) and ``n_cached``
+        tokens they hold: the TAIL-ONLY reservation allocates just
+        ``pages_needed(total) - len(cached_pages)`` fresh pages, the
+        cached pages are spliced into the front of the table row, and the
+        slot seats at position ``n_cached`` so prefill starts at the
+        first uncached token.  On None the caller still owns the
+        references (release them before requeueing)."""
+        free = self.free_slot_indices()
+        if not free:
+            return None
+        n = self.pages_needed(total_tokens)
+        if n > self.max_pages_per_slot:
+            raise ValueError(
+                f"request needs {n} pages but a slot holds at most "
+                f"{self.max_pages_per_slot} (max_context "
+                f"{self.max_pages_per_slot * self.page_size})")
+        n_shared = len(cached_pages)
+        tail = self.allocator.alloc(n - n_shared)
+        if tail is None:
+            return None          # pool backpressure: stays queued
+        pages = list(cached_pages) + tail
+        idx = free[0]
+        self.slots[idx] = Slot(request, pages, pos=int(n_cached),
+                               seq=self._admit_seq, shared=n_shared,
+                               nodes=list(cached_nodes))
+        self._admit_seq += 1
+        row = np.full((self.max_pages_per_slot,), NULL_PAGE, np.int32)
+        row[:n] = pages
+        self.tables[idx] = row
+        self.positions[idx] = int(n_cached)
+        return idx
+
+    def adopt(self, request, pages: List[int], pos: int) -> Optional[int]:
+        """Seat a request whose pages were transferred in from another
+        replica (serving/disagg.py hand-off).  The pages must ALREADY sit
+        in this pool's allocated ledger — the transfer commits its
+        destination-side reservation (``commit_spec``) before seating, so
+        adoption touches no allocator state; it only writes the slot and
+        the table/position mirrors.  Seats at ``pos`` (every KV position
+        the source wrote) with no pending prompt: the slot decodes from
+        its first step here.  None when no slot is free (caller rolls the
+        transfer back)."""
+        free = self.free_slot_indices()
+        if not free:
+            return None
+        if len(pages) > self.max_pages_per_slot:
+            raise ValueError(
+                f"transferred request holds {len(pages)} pages but a slot "
+                f"holds at most {self.max_pages_per_slot}")
+        idx = free[0]
+        self.slots[idx] = Slot(request, list(pages), pos=int(pos),
+                               seq=self._admit_seq, shared=0, nodes=[])
+        self._admit_seq += 1
+        row = np.full((self.max_pages_per_slot,), NULL_PAGE, np.int32)
+        row[:len(pages)] = pages
+        self.tables[idx] = row
+        self.positions[idx] = int(pos)
+        return idx
+
+    def retire(self, idx: int):
+        """Release slot ``idx``: private pages back to the pool NOW,
+        reader references on shared (prefix-cache) pages dropped, table
+        row to the null page, position to 0 (the inactive-slot
+        encoding)."""
+        slot = self.slots[idx]
+        if slot is None:
+            raise ValueError(f"retire({idx}): slot is already free")
+        if slot.nodes:
+            self.prefix_cache.release(slot.nodes)
+        self.allocator.free(slot.pages[slot.shared:])
+        self.slots[idx] = None
+        self.tables[idx] = NULL_PAGE
+        self.positions[idx] = 0
+
+    def reset_mirrors(self):
+        """Re-derive the host mirrors from the slot list (engine recovery:
+        after every implicated slot is retired, the mirrors must encode
+        exactly the inactive-slot pattern the fresh pool expects)."""
+        assert all(s is None for s in self.slots), \
+            "reset_mirrors with seated requests would corrupt their tables"
+        self.tables[:] = NULL_PAGE
+        self.positions[:] = 0
+
+    def advance(self, idx: int, n: int = 1):
+        """Record ``n`` more tokens written into slot ``idx`` (any n — the
+        variable-tokens-per-step contract; the pages those tokens touch
+        were reserved at admission)."""
+        slot = self.slots[idx]
+        assert slot is not None
+        slot.pos += n
+        self.positions[idx] = slot.pos
+
+    # -- variable tokens per step (the fused mixed prefill/decode plan) ----
+    def plan_step(self, prefill_token_budget: int) -> List[StepWork]:
+        """Plan one fused step: every seated slot contributes a
+        :class:`StepWork` — a run of up to the remaining shared
+        ``prefill_token_budget`` pending-prompt tokens, or one decode
+        token.  Slots are visited OLDEST ADMISSION FIRST (``Slot.seq``,
+        not slot index — admission reuses a freed index immediately, so
+        index order would let a low-index slot that churns through
+        budget-sized prompts starve an older mid-prefill slot forever);
+        a pending slot that gets no budget this tick simply waits (its
+        entry is omitted).  The plan never touches allocator or mirror
+        state — it is pure bookkeeping the engine turns into the step's
+        flat token arrays, and it only commits (``advance`` + pending
+        consumption) after the step succeeds, which is what makes a
+        failed step's retry idempotent."""
+        budget = int(prefill_token_budget)
+        work: List[StepWork] = []
+        for i, slot in sorted(self.seated(), key=lambda t: t[1].seq):
+            if slot.pending is not None and len(slot.pending):
+                if budget <= 0:
+                    continue
+                k = min(budget, len(slot.pending))
+                work.append(StepWork(i, "prefill", k, slot.pos,
+                                     k == len(slot.pending)))
+                budget -= k
+            else:
+                work.append(StepWork(i, "decode", 1, slot.pos, False))
+        return work

@@ -1,0 +1,299 @@
+"""Paged KV cache: a global pool of fixed-size KV pages + free-list
+allocator (port of ``paddle_tpu/serving/paged_cache.py``).
+
+ONE pool of ``[num_pages, H, page_size, D]`` pages per layer, stacked as
+``[L, num_pages, H, page_size, D]`` torch tensors on the model's device,
+is shared by every decode slot; a slot's context is named by its *page
+table* (an int32 row of pool page ids), so memory scales with live tokens.
+
+Page 0 is the **null page**: never handed out by the allocator, it absorbs
+the writes of inactive slots and prefill padding (their page-table entries
+all point at it) so the fused step needs no branching -- garbage lands in a
+page no read ever resolves to validly.
+
+The fused step writes the pool IN PLACE (``index_put_``): PyTorch tensors
+are mutable, so the pool needs no donation to be updated without a copy.
+``BlockAllocator`` is host bookkeeping, copied whole from the JAX package
+with its 4-term ledger (free + used + spec + shared == capacity).
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import List, Optional
+
+import torch
+
+from ..core import dtype_name, resolve_device, to_torch_dtype
+
+__all__ = ["NULL_PAGE", "PagedKVCache", "BlockAllocator",
+           "pages_for_tokens"]
+
+# pool page 0: reserved sink for inactive-slot / padding writes
+NULL_PAGE = 0
+
+
+def pages_for_tokens(tokens: int, page_size: int) -> int:
+    """Pages needed to hold ``tokens`` positions: ``ceil(tokens /
+    page_size)``.
+
+    THE page-math helper -- admission sizing and every later ledger route
+    through this one function so a rounding change can never diverge the
+    ledgers (the all-or-nothing reservation discipline only keeps
+    accounting exact while everyone agrees on the ceiling)."""
+    tokens = int(tokens)
+    page_size = int(page_size)
+    if tokens < 0:
+        raise ValueError(f"pages_for_tokens(tokens={tokens})")
+    if page_size < 1:
+        raise ValueError(f"pages_for_tokens(page_size={page_size})")
+    return -(-tokens // page_size)
+
+
+class PagedKVCache:
+    """Global KV page pool: ``k``/``v`` are ``[L, num_pages, H, page_size,
+    D]`` tensors on ``device``, zero-initialised.  ``paged`` is the marker
+    the model dispatches on."""
+
+    paged = True
+
+    def __init__(self, num_layers: int, num_pages: int, num_heads: int,
+                 page_size: int, head_dim: int, dtype="bfloat16",
+                 device=None):
+        if num_pages < 2:
+            raise ValueError(
+                f"num_pages={num_pages}: the pool needs the null page plus "
+                "at least one allocatable page")
+        self.num_layers = num_layers
+        self.num_pages = num_pages
+        self.num_heads = num_heads
+        self.page_size = page_size
+        self.head_dim = head_dim
+        self.dtype = dtype_name(dtype)
+        self.device = resolve_device(device)
+        shape = (num_layers, num_pages, num_heads, page_size, head_dim)
+        td = to_torch_dtype(dtype)
+        self.k: Optional[torch.Tensor] = torch.zeros(shape, dtype=td,
+                                                     device=self.device)
+        self.v: Optional[torch.Tensor] = torch.zeros(shape, dtype=td,
+                                                     device=self.device)
+
+    @property
+    def nbytes(self) -> int:
+        if self.k is None:
+            return 0
+        return 2 * self.k.numel() * self.k.element_size()
+
+    def release(self):
+        """Drop the pool tensors (their device memory returns to the
+        caching allocator)."""
+        self.k = self.v = None
+
+
+class BlockAllocator:
+    """Free-list allocator over pool pages ``1..num_pages-1`` (page 0 is
+    the null page and is never handed out).
+
+    ``alloc`` is all-or-nothing: a request that cannot be fully served
+    leaves the free list untouched and returns None — the caller
+    backpressures (keeps the request queued) instead of corrupting live
+    slots with partial reservations."""
+
+    def __init__(self, num_pages: int):
+        if num_pages < 2:
+            raise ValueError("num_pages must be >= 2 (null page + 1)")
+        self.num_pages = num_pages
+        self._free: deque = deque(range(1, num_pages))
+        self._allocated: set = set()
+        self._spec: set = set()
+        # shared (prefix-cache) pages: page id -> reader refcount.  A page
+        # at refcount 0 is cache-held: not free (its KV is live and
+        # indexed) but reclaimable under pool pressure via ``reclaimer``.
+        self._shared: dict = {}
+        # pool-pressure escape hatch: fn(deficit) -> pages reclaimed.  The
+        # prefix cache installs its LRU evictor here so cache-held pages
+        # are reclaimed BEFORE admission backpressures (never while
+        # referenced — ``reclaim`` refuses refcount > 0).
+        self.reclaimer = None
+        # test-only fault injection: fn("alloc", ctx) may set
+        # ctx["force_none"] to simulate pool exhaustion (serving/faults.py;
+        # same discipline as checkpoint/manager.py's _fault_hook)
+        self._fault_hook = None
+
+    @property
+    def capacity(self) -> int:
+        """Allocatable pages (the null page is not counted)."""
+        return self.num_pages - 1
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return len(self._allocated)
+
+    @property
+    def spec_pages(self) -> int:
+        """Pages held under a speculative reservation: taken from the free
+        list but not yet committed — a rejected speculation rolls them
+        straight back (docs/serving.md "Speculative decoding")."""
+        return len(self._spec)
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages owned by the prefix cache (any refcount, including the
+        evictable refcount-0 ones).  Every page is in exactly one of
+        {free, allocated, speculative, shared}:
+        ``free + used + spec + shared == capacity`` at all times."""
+        return len(self._shared)
+
+    def _reclaim_for(self, n: int):
+        """Ask the installed reclaimer to evict cache-held pages when the
+        free list cannot cover ``n`` — eviction before backpressure."""
+        if n > len(self._free) and self.reclaimer is not None:
+            self.reclaimer(n - len(self._free))
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n pages, or None (state unchanged) when fewer than n are free."""
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        if self._fault_hook is not None:
+            ctx = {"force_none": False, "n": n}
+            self._fault_hook("alloc", ctx)
+            if ctx["force_none"]:
+                return None          # injected exhaustion: state unchanged
+        self._reclaim_for(n)
+        if n > len(self._free):
+            return None
+        pages = [self._free.popleft() for _ in range(n)]
+        self._allocated.update(pages)
+        return pages
+
+    def free(self, pages: List[int]):
+        """Return pages to the pool.  Double-free and foreign ids raise —
+        silent acceptance would eventually hand one page to two slots."""
+        for p in pages:
+            if p not in self._allocated:
+                raise ValueError(
+                    f"free({p}): page is not currently allocated "
+                    "(double free or foreign id)")
+            self._allocated.discard(p)
+            self._free.append(p)
+
+    # -- speculative reservations ------------------------------------------
+    # The propose/verify loop (serving/speculative.py) writes K/V for
+    # tokens the target model may REJECT.  Pages backing only-speculative
+    # positions are reserved through this API instead of ``alloc`` so the
+    # accounting invariant stays exact through partial acceptance, faults,
+    # and retirement: every page is in exactly one of {free, allocated,
+    # speculative, shared}, and free + used + spec + shared == capacity at
+    # all times.
+
+    def reserve_spec(self, n: int) -> Optional[List[int]]:
+        """Reserve ``n`` pages speculatively (all-or-nothing, like
+        ``alloc``).  None when fewer than ``n`` are free — the caller
+        degrades (proposes fewer tokens) instead of corrupting state.
+
+        The disaggregated hand-off (serving/disagg.py) reuses this exact
+        ledger as its DESTINATION-side transfer reservation: pages sit in
+        ``spec`` while the copy is in flight, ``commit_spec`` lands them
+        atomically at harvest, ``rollback_spec`` returns them on a
+        mid-transfer fault — so free+used+spec+shared==capacity is exact
+        on both pools at every step boundary, transfers in flight
+        included."""
+        if n < 0:
+            raise ValueError(f"reserve_spec({n})")
+        if self._fault_hook is not None:
+            ctx = {"force_none": False, "n": n, "spec": True}
+            self._fault_hook("alloc", ctx)
+            if ctx["force_none"]:
+                return None
+        self._reclaim_for(n)
+        if n > len(self._free):
+            return None
+        pages = [self._free.popleft() for _ in range(n)]
+        self._spec.update(pages)
+        return pages
+
+    def commit_spec(self, pages: List[int]):
+        """Promote speculatively reserved pages to regular allocations
+        (their positions were ACCEPTED — from here they free through the
+        normal ``free`` path at retirement).  Non-speculative ids raise."""
+        for p in pages:
+            if p not in self._spec:
+                raise ValueError(
+                    f"commit_spec({p}): page holds no speculative "
+                    "reservation (double commit or foreign id)")
+            self._spec.discard(p)
+            self._allocated.add(p)
+
+    def rollback_spec(self, pages: List[int]):
+        """Return speculatively reserved pages to the free list (their
+        positions were REJECTED, or the step they backed failed).
+        Non-speculative ids raise — exactly like ``free``."""
+        for p in pages:
+            if p not in self._spec:
+                raise ValueError(
+                    f"rollback_spec({p}): page holds no speculative "
+                    "reservation (double rollback or foreign id)")
+            self._spec.discard(p)
+            self._free.append(p)
+
+    # -- shared (prefix-cache) pages ----------------------------------------
+    # The prefix cache (serving/prefix_cache.py) indexes COMPLETED,
+    # immutable full pages so later admissions splice them into their page
+    # tables instead of re-prefilling.  Such pages move out of the
+    # ``allocated`` ledger into ``shared`` with a reader refcount: the
+    # registering slot keeps one reference, every admission that splices
+    # the page takes another, retirement drops it.  Refcount 0 leaves the
+    # page CACHE-HELD (evictable LRU), not free — ``reclaim`` is the only
+    # path back to the free list and it refuses referenced pages, so a
+    # page one slot still reads can never be handed to another.
+
+    def share(self, page: int):
+        """Move an allocated page into the shared ledger with refcount 1
+        (the registering slot's own reference).  Non-allocated ids raise —
+        only a page some slot exclusively owned (and therefore finished
+        writing) can become shared."""
+        if page not in self._allocated:
+            raise ValueError(
+                f"share({page}): page is not currently allocated "
+                "(already shared, free, or foreign id)")
+        self._allocated.discard(page)
+        self._shared[page] = 1
+
+    def ref(self, page: int):
+        """Take a reader reference on a shared page (a cache hit splices
+        it into another slot's page table)."""
+        if page not in self._shared:
+            raise ValueError(f"ref({page}): page is not shared")
+        self._shared[page] += 1
+
+    def unref(self, page: int):
+        """Drop a reader reference (slot retirement).  The page stays
+        shared at refcount 0 — cache-held and evictable.  Over-release
+        raises, exactly like a double ``free``."""
+        rc = self._shared.get(page)
+        if rc is None:
+            raise ValueError(f"unref({page}): page is not shared")
+        if rc <= 0:
+            raise ValueError(
+                f"unref({page}): refcount already 0 (over-release)")
+        self._shared[page] = rc - 1
+
+    def refcount(self, page: int) -> Optional[int]:
+        """Current reader refcount of a shared page (None if not shared)."""
+        return self._shared.get(page)
+
+    def reclaim(self, page: int):
+        """Return a refcount-0 shared page to the free list (prefix-cache
+        eviction).  Referenced pages raise — eviction must never race a
+        live reader."""
+        rc = self._shared.get(page)
+        if rc is None:
+            raise ValueError(f"reclaim({page}): page is not shared")
+        if rc != 0:
+            raise ValueError(
+                f"reclaim({page}): page still has {rc} reader(s)")
+        del self._shared[page]
+        self._free.append(page)

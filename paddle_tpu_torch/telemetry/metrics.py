@@ -1,0 +1,502 @@
+"""Process-wide metrics registry: Counters, Gauges, and log-bucketed
+Histograms.  A copy of ``paddle_tpu/telemetry/metrics.py`` (host code
+only): the port keeps its own so it never imports the JAX package.
+
+Design constraints (docs/observability.md):
+
+- **lock-cheap** — one small lock per *child* (a metric family resolved
+  to a concrete label set); the hot serving path holds the engine step
+  lock anyway, so a child ``inc``/``observe`` is a dict hit + a guarded
+  float add.  No global lock is ever taken on the record path.
+- **labeled** — a family (``registry().counter("serving_shed_total")``)
+  fans out to children per label set (``.labels(engine="3")``); children
+  are cached, so steady-state label resolution is one dict lookup.
+- **log-bucketed histograms** — geometric bucket bounds (default
+  1 µs → 10 000 s at 6 buckets/decade) sized for latency distributions
+  spanning decades: TTFT under load and a single dispatch live in the
+  same histogram without losing tail resolution.  Quantiles interpolate
+  geometrically inside the landing bucket and clamp to the observed
+  min/max, so p50/p95/p99 are stable even with few samples.
+- **two export surfaces** — ``snapshot()`` (JSON-safe dict, the bench
+  and tests consume it) and ``prometheus_text()`` (the standard text
+  exposition: ``_bucket{le=...}``/``_sum``/``_count`` for histograms).
+
+``CounterSet`` is the migration shim for code that kept cumulative
+totals in a plain dict (the serving engine's fault/shed/occupancy
+counters): it preserves ``totals[k] += n`` / ``dict(totals)`` semantics
+bit-for-bit while the values live in registry counters.
+"""
+from __future__ import annotations
+
+import math
+import threading
+from bisect import bisect_left
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "Registry", "CounterSet",
+    "registry", "log_buckets", "LATENCY_BUCKETS",
+]
+
+
+def log_buckets(lo: float = 1e-6, hi: float = 1e4,
+                per_decade: int = 6) -> Tuple[float, ...]:
+    """Geometric histogram bucket upper bounds covering [lo, hi]."""
+    if not (lo > 0 and hi > lo and per_decade >= 1):
+        raise ValueError(f"bad bucket spec lo={lo} hi={hi} "
+                         f"per_decade={per_decade}")
+    n = int(math.ceil((math.log10(hi) - math.log10(lo)) * per_decade))
+    return tuple(10.0 ** (math.log10(lo) + i / per_decade)
+                 for i in range(n + 1))
+
+
+#: default latency bounds: 1 µs .. 10 000 s, 6 buckets per decade
+LATENCY_BUCKETS = log_buckets()
+
+
+def _label_key(labels: Dict[str, Any]) -> Tuple[Tuple[str, str], ...]:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+# ---------------------------------------------------------------------------
+# children (one per concrete label set)
+# ---------------------------------------------------------------------------
+
+class _Child:
+    __slots__ = ("labels", "_lock")
+
+    def __init__(self, label_key):
+        self.labels = dict(label_key)
+        self._lock = threading.Lock()
+
+
+class _CounterChild(_Child):
+    __slots__ = ("_v",)
+
+    def __init__(self, label_key):
+        super().__init__(label_key)
+        self._v = 0.0
+
+    def inc(self, n: float = 1.0):
+        if n < 0:
+            raise ValueError(f"counters are monotonic (inc by {n})")
+        with self._lock:
+            self._v += n
+
+    @property
+    def value(self) -> float:
+        return self._v
+
+
+class _GaugeChild(_Child):
+    __slots__ = ("_v",)
+
+    def __init__(self, label_key):
+        super().__init__(label_key)
+        self._v = 0.0
+
+    def set(self, v: float):
+        self._v = float(v)
+
+    def inc(self, n: float = 1.0):
+        with self._lock:
+            self._v += n
+
+    def dec(self, n: float = 1.0):
+        self.inc(-n)
+
+    @property
+    def value(self) -> float:
+        return self._v
+
+
+class _HistogramChild(_Child):
+    __slots__ = ("bounds", "counts", "sum", "count", "min", "max")
+
+    def __init__(self, label_key, bounds):
+        super().__init__(label_key)
+        self.bounds = bounds
+        # counts[i] = observations <= bounds[i]; counts[-1] = overflow
+        self.counts = [0] * (len(bounds) + 1)
+        self.sum = 0.0
+        self.count = 0
+        self.min = math.inf
+        self.max = -math.inf
+
+    def observe(self, v: float):
+        v = float(v)
+        i = bisect_left(self.bounds, v)
+        with self._lock:
+            self.counts[i] += 1
+            self.sum += v
+            self.count += 1
+            if v < self.min:
+                self.min = v
+            if v > self.max:
+                self.max = v
+
+    def snapshot(self) -> tuple:
+        """Consistent (counts, sum, count, min, max) copy under the
+        child lock — observe() updates those fields as a group, so
+        unlocked readers could see a cumulative +Inf bucket that
+        disagrees with _count (the exact invariant the obs gate
+        checks)."""
+        with self._lock:
+            return list(self.counts), self.sum, self.count, \
+                self.min, self.max
+
+    def _quantile(self, counts, count, vmin, vmax, q: float) -> float:
+        """Quantile over a consistent snapshot: geometric interpolation
+        inside the landing bucket, clamped to the observed [min, max]."""
+        target = q * count
+        seen = 0.0
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            if seen + c >= target:
+                frac = min(max((target - seen) / c, 0.0), 1.0)
+                if i >= len(self.bounds):        # overflow bucket
+                    lo, hi = self.bounds[-1], max(vmax, self.bounds[-1])
+                elif i == 0:
+                    lo, hi = max(vmin, 1e-12), self.bounds[0]
+                else:
+                    lo, hi = self.bounds[i - 1], self.bounds[i]
+                if lo <= 0 or hi <= 0:
+                    v = lo + (hi - lo) * frac
+                else:
+                    v = lo * (hi / lo) ** frac
+                return float(min(max(v, vmin), vmax))
+            seen += c
+        return float(vmax)
+
+    def quantile(self, q: float) -> float:
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile {q} not in [0, 1]")
+        counts, _s, count, vmin, vmax = self.snapshot()
+        if count == 0:
+            return 0.0
+        return self._quantile(counts, count, vmin, vmax, q)
+
+    def summary(self) -> Dict[str, float]:
+        """JSON-safe digest: count/sum/mean/min/max + p50/p95/p99,
+        computed from ONE consistent snapshot."""
+        counts, total, count, vmin, vmax = self.snapshot()
+        if count == 0:
+            return {"count": 0, "sum": 0.0, "mean": 0.0, "min": 0.0,
+                    "max": 0.0, "p50": 0.0, "p95": 0.0, "p99": 0.0}
+        return {
+            "count": count,
+            "sum": total,
+            "mean": total / count,
+            "min": vmin,
+            "max": vmax,
+            "p50": self._quantile(counts, count, vmin, vmax, 0.50),
+            "p95": self._quantile(counts, count, vmin, vmax, 0.95),
+            "p99": self._quantile(counts, count, vmin, vmax, 0.99),
+        }
+
+
+# ---------------------------------------------------------------------------
+# families
+# ---------------------------------------------------------------------------
+
+class _Family:
+    kind = "untyped"
+    _child_cls: type = _Child
+
+    def __init__(self, name: str, help: str = "", unit: str = ""):  # noqa: A002
+        self.name = name
+        self.help = help
+        self.unit = unit
+        self._lock = threading.Lock()
+        self._children: Dict[tuple, _Child] = {}
+
+    def labels(self, **labels):
+        key = _label_key(labels)
+        child = self._children.get(key)
+        if child is None:
+            with self._lock:
+                child = self._children.get(key)
+                if child is None:
+                    child = self._make_child(key)
+                    self._children[key] = child
+        return child
+
+    def _make_child(self, key):
+        return self._child_cls(key)
+
+    def children(self) -> List[_Child]:
+        with self._lock:
+            return list(self._children.values())
+
+    def drop_labels(self, **labels):
+        """Remove every child whose label set CONTAINS ``labels``.
+        Dropped children keep working for holders of the handle; they
+        just stop being exported."""
+        if not labels:
+            raise ValueError("drop_labels() needs at least one label "
+                             "(an empty filter would drop every child)")
+        items = _label_key(labels)
+        with self._lock:
+            for key in [k for k in self._children
+                        if set(items) <= set(k)]:
+                del self._children[key]
+
+    # unlabeled convenience: the empty-label child
+    def _default(self):
+        return self.labels()
+
+
+class Counter(_Family):
+    kind = "counter"
+    _child_cls = _CounterChild
+
+    def inc(self, n: float = 1.0, **labels):
+        self.labels(**labels).inc(n)
+
+    def value(self, **labels) -> float:
+        return self.labels(**labels).value
+
+
+class Gauge(_Family):
+    kind = "gauge"
+    _child_cls = _GaugeChild
+
+    def set(self, v: float, **labels):
+        self.labels(**labels).set(v)
+
+    def value(self, **labels) -> float:
+        return self.labels(**labels).value
+
+
+class Histogram(_Family):
+    kind = "histogram"
+
+    def __init__(self, name, help="", unit="",  # noqa: A002
+                 buckets: Optional[Tuple[float, ...]] = None):
+        super().__init__(name, help, unit)
+        self.buckets = tuple(buckets) if buckets else LATENCY_BUCKETS
+        if list(self.buckets) != sorted(self.buckets):
+            raise ValueError("histogram buckets must be sorted ascending")
+
+    def _make_child(self, key):
+        return _HistogramChild(key, self.buckets)
+
+    def observe(self, v: float, **labels):
+        self.labels(**labels).observe(v)
+
+    def summary(self, **labels) -> Dict[str, float]:
+        return self.labels(**labels).summary()
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+class Registry:
+    """Name -> metric family.  ``registry()`` returns the process-wide
+    default; tests may instantiate private registries."""
+
+    def __init__(self):
+        self._metrics: Dict[str, _Family] = {}
+        self._lock = threading.Lock()
+
+    def _get_or_make(self, cls, name, help, unit, **kw):  # noqa: A002
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is not None:
+                if not isinstance(m, cls):
+                    raise ValueError(
+                        f"metric {name!r} already registered as {m.kind}, "
+                        f"requested {cls.kind}")
+                return m
+            m = cls(name, help=help, unit=unit, **kw)
+            self._metrics[name] = m
+            return m
+
+    def counter(self, name: str, help: str = "",  # noqa: A002
+                unit: str = "") -> Counter:
+        return self._get_or_make(Counter, name, help, unit)
+
+    def gauge(self, name: str, help: str = "",  # noqa: A002
+              unit: str = "") -> Gauge:
+        return self._get_or_make(Gauge, name, help, unit)
+
+    def histogram(self, name: str, help: str = "", unit: str = "",  # noqa: A002
+                  buckets: Optional[Tuple[float, ...]] = None) -> Histogram:
+        return self._get_or_make(Histogram, name, help, unit,
+                                 buckets=buckets)
+
+    def get(self, name: str) -> Optional[_Family]:
+        return self._metrics.get(name)
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
+    def unregister(self, name: str):
+        with self._lock:
+            self._metrics.pop(name, None)
+
+    def drop_labels(self, **labels):
+        """Remove every family's children whose labels contain
+        ``labels`` (e.g. a closing ServingEngine dropping its
+        ``engine=<n>`` series).  Families stay registered."""
+        for name in self.names():
+            fam = self._metrics.get(name)
+            if fam is not None:
+                fam.drop_labels(**labels)
+
+    def clear(self):
+        with self._lock:
+            self._metrics.clear()
+
+    # -- export ------------------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-safe dump of every family and child."""
+        out: Dict[str, Any] = {}
+        for name in self.names():
+            fam = self._metrics.get(name)
+            if fam is None:
+                continue
+            series = []
+            for ch in fam.children():
+                if isinstance(ch, _HistogramChild):
+                    series.append({"labels": ch.labels, **ch.summary()})
+                else:
+                    series.append({"labels": ch.labels, "value": ch.value})
+            out[name] = {"kind": fam.kind, "help": fam.help,
+                         "unit": fam.unit, "series": series}
+        return out
+
+    def prometheus_text(self) -> str:
+        """Standard Prometheus text exposition (version 0.0.4)."""
+        lines: List[str] = []
+        for name in self.names():
+            fam = self._metrics.get(name)
+            if fam is None:
+                continue
+            if fam.help:
+                lines.append(f"# HELP {name} {fam.help}")
+            lines.append(f"# TYPE {name} {fam.kind}")
+            for ch in fam.children():
+                if isinstance(ch, _HistogramChild):
+                    counts, total, count, _mn, _mx = ch.snapshot()
+                    cum = 0
+                    for bound, c in zip(ch.bounds, counts):
+                        cum += c
+                        lbl = _prom_labels(ch.labels, le=_fmt_float(bound))
+                        lines.append(f"{name}_bucket{lbl} {cum}")
+                    cum += counts[-1]
+                    lbl = _prom_labels(ch.labels, le="+Inf")
+                    lines.append(f"{name}_bucket{lbl} {cum}")
+                    lbl = _prom_labels(ch.labels)
+                    lines.append(f"{name}_sum{lbl} {_fmt_float(total)}")
+                    lines.append(f"{name}_count{lbl} {count}")
+                else:
+                    lbl = _prom_labels(ch.labels)
+                    lines.append(f"{name}{lbl} {_fmt_float(ch.value)}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+def _fmt_float(v: float) -> str:
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _prom_labels(labels: Dict[str, str], **extra) -> str:
+    kv = dict(labels)
+    kv.update(extra)
+    if not kv:
+        return ""
+    def esc(v):
+        return str(v).replace("\\", "\\\\").replace('"', '\\"')
+
+    inner = ",".join(f'{k}="{esc(v)}"' for k, v in sorted(kv.items()))
+    return "{" + inner + "}"
+
+
+_GLOBAL = Registry()
+
+
+def registry() -> Registry:
+    """The process-wide default registry."""
+    return _GLOBAL
+
+
+# ---------------------------------------------------------------------------
+# CounterSet: dict-of-totals facade over registry counters
+# ---------------------------------------------------------------------------
+
+class CounterSet:
+    """Dict-like bundle of registry counters.
+
+    Hot code keeps its historical ``totals["failed"] += 1`` /
+    ``dict(totals)`` idiom while every key lives in the registry as
+    ``<prefix>_<key>`` (one counter family per key, one child per label
+    set).  Reads return ints when the value is integral, so snapshots
+    stay bit-compatible with the plain-dict era.  Counters are
+    monotonic: a net-decreasing ``__setitem__`` raises."""
+
+    def __init__(self, prefix: str, initial: Dict[str, float],
+                 labels: Optional[Dict[str, str]] = None,
+                 reg: Optional[Registry] = None):
+        reg = reg or registry()
+        self._labels = dict(labels or {})
+        self._ctrs: Dict[str, _CounterChild] = {}
+        for k, v in initial.items():
+            fam = reg.counter(f"{prefix}_{k}")
+            child = fam.labels(**self._labels)
+            self._ctrs[k] = child
+            if v:
+                child.inc(v)
+
+    @staticmethod
+    def _cast(v: float):
+        return int(v) if float(v).is_integer() else v
+
+    def __getitem__(self, k: str):
+        return self._cast(self._ctrs[k].value)
+
+    def __setitem__(self, k: str, v: float):
+        child = self._ctrs[k]
+        delta = v - child.value
+        if delta < 0:
+            raise ValueError(
+                f"CounterSet[{k!r}]: counters are monotonic "
+                f"(old={child.value}, new={v})")
+        if delta:
+            child.inc(delta)
+
+    def inc(self, k: str, n: float = 1.0):
+        """Atomic increment.  The ``cs[k] += n`` idiom is a read-modify-
+        write: safe under the caller's lock (the serving step path), but
+        a call-site that runs UNLOCKED on multiple threads must use this
+        instead — the dict idiom can interleave into a stale write that
+        trips the monotonicity check."""
+        self._ctrs[k].inc(n)
+
+    def __contains__(self, k) -> bool:
+        return k in self._ctrs
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._ctrs)
+
+    def __len__(self) -> int:
+        return len(self._ctrs)
+
+    def keys(self):
+        return self._ctrs.keys()
+
+    def values(self):
+        return [self._cast(c.value) for c in self._ctrs.values()]
+
+    def items(self):
+        return [(k, self._cast(c.value)) for k, c in self._ctrs.items()]
+
+    def get(self, k, default=None):
+        return self[k] if k in self._ctrs else default
+
+    def as_dict(self) -> Dict[str, float]:
+        return dict(self.items())
