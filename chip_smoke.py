@@ -24,12 +24,40 @@ result line:
    must end DONE with 32 tokens, every page must come back, and the
    kernel must have launched once per layer of every fused step;
 4. card vs CPU -- gpt_tiny in fp32 served on the card and on the CPU
-   from the same weights must give the same greedy tokens.
+   from the same weights must give the same greedy tokens;
+5. train kernels vs plain -- the flash-attention forward (O, lse) and
+   backward (dq, dk, dv through the autograd Function, both kernels)
+   against the plain version under autograd, in bf16 at (B, N, S, D) =
+   (2, 16, 1024, 128) causal and in fp32 at the same shape, at
+   (1, 4, 128, 64) causal and full, and at (1, 2, 384, 64) causal; the
+   AdamW kernel against its plain version on a bf16 [24, 2048, 8192] slab
+   over two consecutive steps and on an unaligned fp32 [3, 257]; then the
+   kernels' times beside the bound, the plain version and one library
+   call each: flash at the trained shape (8, 16, 1024, 128) bf16 causal
+   against ``F.scaled_dot_product_attention(is_causal=True)`` forward and
+   backward, AdamW over every tensor of GPT-3 1.3B (bf16 parameters and
+   moments; times are for the whole update, 16 launches) against
+   ``torch.optim.AdamW(fused=True)``;
+6. train -- GPT-3 1.3B at full width and depth (hidden 2048, 24 layers,
+   16 heads, vocab 50304, max_position_embeddings 1024) with random bf16
+   weights from a fixed seed, dropout 0, recompute_interval 1,
+   ``AdamW(lr=1e-4, weight_decay=0.01, multi_precision=False)`` through
+   ``FusedTrainStep(amp_level="O1")``, batch 8 x seq 1024 cycling 4 fixed
+   random (ids, labels) batches: 2 warm-up steps, then 6 timed steps.
+   Every loss must be finite, and every step must launch the flash
+   forward 48 times (24 layers, and 24 again in the recompute), each
+   backward kernel 24 times and the AdamW kernel once per parameter
+   tensor.  Prints step time, tokens/s, MFU (bench.py's formula over
+   989 TFLOP/s) and peak device memory;
+7. train card vs CPU -- gpt_tiny(hidden 128, 2 heads: head_dim 64, so the
+   flash gate passes) in fp32, batch 2 x seq 128, 3 steps from the same
+   weights on the card and on the CPU: the losses must agree, and the
+   card must have launched the flash kernels.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
 Output: the card's name and power limit (nvidia-smi), one JSON line with
-the kernel's numbers, and as the last line
+the kernels' numbers, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 """
 from __future__ import annotations
@@ -48,6 +76,25 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, same source
 # output and the probabilities are each rounded once to bf16 (2^-8
 # relative), and a different summation order can flip a rounding
 TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-2, 1e-2)}
+# flash kernels vs plain under autograd: |kernel - plain| <= atol + rtol *
+# |plain|.  fp32: the same arithmetic summed in another order over up to
+# 1024 keys and 64 head elements; bf16: the outputs are rounded once to
+# bf16 (2^-8 relative) and the plain backward rounds P and dS at other
+# points than the kernels (autograd through the forward's casts)
+FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+# AdamW kernel vs plain: the same fp32 formula, which the compiler
+# contracts into FMAs: a value at a bf16 rounding midpoint can round
+# either way (one bf16 ulp, at most 2^-7 relative), and a sum that cancels
+# to ~0 keeps a residue of a few fp32 ulps of its terms (the 1e-6 atol)
+ADAMW_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-6, 2.0 ** -7)}
+FLASH_CASES = (("bfloat16", (2, 16, 1024, 128), True),
+               ("float32", (2, 16, 1024, 128), True),
+               ("float32", (1, 4, 128, 64), True),
+               ("float32", (1, 4, 128, 64), False),
+               ("float32", (1, 2, 384, 64), True))
+TRAIN_SHAPE = (8, 16, 1024, 128)           # (B, N, S, D) of GPT-3 1.3B
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 SERVE_LAYERS = 24
 DEVICE = "cuda"
 
@@ -59,11 +106,15 @@ def import_port():
     from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_1p3b, \
         gpt_tiny
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_adamw as fw
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
     from paddle_tpu_torch.serving import RequestState, ServingEngine
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
-                gpt_tiny=gpt_tiny, build=_build, rpa=rpa,
+                gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
+                AdamW=AdamW, FusedTrainStep=FusedTrainStep,
                 RequestState=RequestState, ServingEngine=ServingEngine)
 
 
@@ -180,21 +231,25 @@ def _bound(c, heads, head_dim, itemsize):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _time_ms(torch, fn, iters):
+def _time_ms(torch, fn, iters, hold=True):
     """(device ms per call, host ms per call).  A sleep kernel holds the
     stream while the host queues every call, so the events time the
-    card's work back to back, not the rate at which Python launches."""
+    card's work back to back, not the rate at which Python launches.
+    ``hold=False`` times without the sleep, for a call that may wait on
+    the card itself (a library's optimizer step) and whose device time
+    dwarfs its launches."""
     fn(0)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)        # ~0.1 s of device clock cycles
+    if hold:
+        torch.cuda._sleep(200_000_000)    # ~0.1 s of device clock cycles
     start.record()
     t0 = time.perf_counter()
     for i in range(iters):
         fn(i)
     host = (time.perf_counter() - t0) / iters
-    queued_ahead = not start.query()      # the sleep still held the stream
+    queued_ahead = not hold or not start.query()   # the sleep still held it
     stop.record()
     torch.cuda.synchronize()
     _check(queued_ahead, "the host did not queue the timed calls within "
@@ -365,6 +420,377 @@ def phase_card_vs_cpu(port):
     _check(same, f"card and CPU greedy tokens differ: {outs}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: train kernels vs plain
+# ---------------------------------------------------------------------------
+
+def _qkv(torch, shape, dtype, seed):
+    """q, k, v as [B, N, S, D] views into one fused [B, S, 3, N, D] buffer,
+    as the training block passes them, and a dO of the same shape."""
+    b, n, s, d = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    td = getattr(torch, dtype)
+    buf = torch.randn((b, s, 3, n, d), generator=gen, device=DEVICE).to(td)
+    do = torch.randn((b, s, n, d), generator=gen, device=DEVICE).to(td)
+    return [t.transpose(1, 2) for t in buf.unbind(2)], do.transpose(1, 2)
+
+
+def _over(got, want, tol):
+    """(max |got - want|, max of |got - want| - atol - rtol |want|)."""
+    diff = (got.float() - want.float()).abs()
+    atol, rtol = tol
+    return (diff.max().item(),
+            (diff - atol - rtol * want.float().abs()).max().item())
+
+
+def _flash_compare(port, dtype, shape, causal, seed):
+    """Kernels (forward, then both backward kernels through the autograd
+    Function) against the plain version under autograd, on the same
+    inputs.  Returns the max abs errors (forward, dK/dV, dQ)."""
+    (q, k, v), do = _qkv(port["torch"], shape, dtype, seed)
+    scale = 1.0 / shape[-1] ** 0.5
+    errs = {}
+    for name, (a, b) in _flash_pair(port, q, k, v, do, causal, scale).items():
+        errs[name], over = _over(a, b, FLASH_TOL[dtype])
+        _check(over <= 0, f"flash {name} {dtype} {shape} causal={causal}: "
+               f"kernel vs plain off by {errs[name]}")
+    print(f"[train_kernels] flash {dtype} {shape} causal={causal}: "
+          + " ".join(f"{k}={v!r}" for k, v in errs.items()))
+    return (max(errs["O"], errs["lse"]), max(errs["dk"], errs["dv"]),
+            errs["dq"])
+
+
+def _flash_pair(port, q, k, v, do, causal, scale):
+    """{output: (kernel, plain)} for O, lse, dq, dk and dv."""
+    torch, fa = port["torch"], port["fa"]
+    kq, kk, kv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fa.FlashAttention.apply(kq, kk, kv, causal, scale)
+    out.backward(do)
+    _, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    pq, pk, pv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    want, want_lse = fa.flash_attention_plain(pq, pk, pv, causal, scale)
+    want.backward(do)
+    torch.cuda.synchronize()
+    _check(all(bool(torch.isfinite(t).all()) for t in
+               (out, lse, kq.grad, kk.grad, kv.grad)), "flash: non-finite")
+    return {"O": (out, want), "lse": (lse, want_lse),
+            "dq": (kq.grad, pq.grad), "dk": (kk.grad, pk.grad),
+            "dv": (kv.grad, pv.grad)}
+
+
+def _flash_bounds(shape, causal, itemsize):
+    """{kernel: (bound ms, "bytes" | "operations")} for the forward, the
+    dK/dV and the dQ kernel, and the whole backward, at ``shape``: each
+    input read once and each output written once, over HBM bandwidth;
+    the multiply-adds the causal (or full) score pairs need, over the
+    tensor-core (bf16) or FMA (fp32) peak.  The backward's least work is
+    five products (S recomputed, dP, dV, dK, dQ); dK/dV alone needs four
+    of them, dQ alone three."""
+    b, n, s, d = shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    prod = 2.0 * b * n * d * pairs          # flops of one S-sized product
+    tile = b * n * s * d * itemsize          # one [B, N, S, D] operand
+    row = b * n * s * 4                      # one fp32 [B * N, S] vector
+    peak = PEAK_FLOPS["bfloat16" if itemsize == 2 else "float32"]
+    work = {"fwd": (2 * prod, 4 * tile + row),
+            "dkv": (4 * prod, 6 * tile + 2 * row),
+            "dq": (3 * prod, 5 * tile + 2 * row),
+            "bwd": (5 * prod, 7 * tile + 2 * row)}
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+        out[name] = (1e3 * max(t_ops, t_bytes),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _time_flash(port):
+    """Device ms of the kernels, the plain version and SDPA at the trained
+    shape (bf16, causal)."""
+    torch, fa = port["torch"], port["fa"]
+    import torch.nn.functional as F
+
+    (q, k, v), do = _qkv(torch, TRAIN_SHAPE, "bfloat16", 7)
+    scale = 1.0 / TRAIN_SHAPE[-1] ** 0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    delta = fa.backward_delta(do, out)
+
+    def backward(i):
+        # what FlashAttention.backward runs: delta, then both kernels
+        d = fa.backward_delta(do, out)
+        fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, True, scale, d)
+        fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True, scale, d)
+
+    t = {}
+    t["fwd"], _ = _time_ms(
+        torch, lambda i: fa.flash_attention_fwd(q, k, v, True, scale), 40)
+    t["dkv"], _ = _time_ms(torch, lambda i: fa.flash_attention_bwd_dkv(
+        q, k, v, out, lse, do, True, scale, delta), 20)
+    t["dq"], _ = _time_ms(torch, lambda i: fa.flash_attention_bwd_dq(
+        q, k, v, out, lse, do, True, scale, delta), 20)
+    t["bwd"], _ = _time_ms(torch, backward, 20)
+    t["plain_fwd"], _ = _time_ms(
+        torch, lambda i: fa.flash_attention_plain(q, k, v, True, scale), 5)
+    pq, pk, pv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    pout = fa.flash_attention_plain(pq, pk, pv, True, scale)[0]
+    t["plain_bwd"], _ = _time_ms(torch, lambda i: torch.autograd.grad(
+        pout, (pq, pk, pv), do, retain_graph=True), 5)
+    del pout
+    t["sdpa_fwd"], _ = _time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale), 40)
+    sout = F.scaled_dot_product_attention(pq, pk, pv, is_causal=True,
+                                          scale=scale)
+    t["sdpa_bwd"], _ = _time_ms(torch, lambda i: torch.autograd.grad(
+        sout, (pq, pk, pv), do, retain_graph=True), 20)
+    return t
+
+
+def _adamw_compare(port, shape, dtype, seed):
+    """Two consecutive AdamW steps (the beta powers advance between them),
+    kernel and plain version on copies of the same tensors, compared
+    after each step; the plain copies then take the kernel's state, so
+    each step starts both from the same values and a rounding flip of one
+    step is not carried into the next.  Returns the max abs error over
+    p, m1 and m2."""
+    torch, fw = port["torch"], port["fw"]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    td = getattr(torch, dtype)
+
+    def randn(scale):
+        return (torch.randn(shape, generator=gen, device=DEVICE)
+                * scale).to(td)
+
+    kern = [randn(1.0), randn(0.01), randn(0.001).abs()]   # p, m1, m2
+    plain = [t.clone() for t in kern]
+    b1p, b2p = np.float32(1.0), np.float32(1.0)
+    err = 0.0
+    for step in (1, 2):
+        g = randn(0.1)
+        b1p, b2p = np.float32(b1p * np.float32(0.9)), np.float32(
+            b2p * np.float32(0.999))
+        fw.fused_adamw_update(kern[0], g, kern[1], kern[2], 1e-3, b1p, b2p)
+        fw.fused_adamw_plain(plain[0], g, plain[1], plain[2],
+                             fw.adamw_scalars(1e-3, b1p, b2p))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("p", "m1", "m2"), kern, plain):
+            e, over = _over(a, b, ADAMW_TOL[dtype])
+            _check(over <= 0, f"adamw {name} {dtype} {shape} step {step}: "
+                   f"kernel vs plain off by {e}")
+            err = max(err, e)
+            b.copy_(a)
+    print(f"[train_kernels] adamw {dtype} {list(shape)} two steps: "
+          f"max_abs_err={err!r}")
+    return err
+
+
+def _time_adamw(port):
+    """Device ms of one AdamW update over every tensor of GPT-3 1.3B in
+    bf16 (16 launches): the kernel, the plain version and
+    torch.optim.AdamW(fused=True); and the bound of that update."""
+    torch, fw = port["torch"], port["fw"]
+    model = port["GPT"](port["gpt_1p3b"](max_position_embeddings=1024),
+                        device=DEVICE, dtype="bfloat16", seed=3)
+    params = [p.detach() for p in model.parameters()]
+    grads = [torch.randn_like(p) * 0.01 for p in params]
+    m1 = [torch.zeros_like(p) for p in params]
+    m2 = [torch.zeros_like(p) for p in params]
+
+    def kernel(i):
+        for p, g, a, b in zip(params, grads, m1, m2):
+            fw.fused_adamw_update(p, g, a, b, 1e-4, 0.9, 0.999)
+
+    def plain(i):
+        sc = fw.adamw_scalars(1e-4, 0.9, 0.999)
+        for p, g, a, b in zip(params, grads, m1, m2):
+            fw.fused_adamw_plain(p, g, a, b, sc)
+
+    lib_params = [torch.nn.Parameter(p) for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=1e-4, weight_decay=0.01,
+                            fused=True)
+    t = {"ms": _time_ms(torch, kernel, 20)[0],
+         "plain_ms": _time_ms(torch, plain, 3, hold=False)[0],
+         "library_ms": _time_ms(torch, lambda i: lib.step(), 20,
+                                hold=False)[0]}
+    n = sum(p.numel() for p in params)
+    t_bytes = 7 * 2 * n / HBM_BYTES_PER_S          # read p g m1 m2, write 3
+    t_ops = 14.0 * n / PEAK_FLOPS["float32"]        # ~14 fp32 ops / element
+    t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    t["tensors"], t["elements"] = len(params), n
+    del model, lib, lib_params
+    return t
+
+
+def phase_train_kernels(port):
+    torch = port["torch"]
+    errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    for i, (dtype, shape, causal) in enumerate(FLASH_CASES):
+        e = _flash_compare(port, dtype, shape, causal, seed=10 + i)
+        for name, x in zip(("fwd", "dkv", "dq"), e):
+            errs[name] = max(errs[name], x)
+    errs["adamw"] = max(
+        _adamw_compare(port, (24, 2048, 8192), "bfloat16", 20),
+        _adamw_compare(port, (3, 257), "float32", 21))
+    torch.cuda.empty_cache()
+
+    t = _time_flash(port)
+    bounds = _flash_bounds(TRAIN_SHAPE, True, 2)
+    print(f"[train_kernels] flash bf16 {TRAIN_SHAPE} causal timing (device "
+          f"ms per call): forward {t['fwd']!r}, dK/dV {t['dkv']!r}, dQ "
+          f"{t['dq']!r}, backward with delta {t['bwd']!r}; plain forward "
+          f"{t['plain_fwd']!r}, plain backward {t['plain_bwd']!r}; SDPA "
+          f"forward {t['sdpa_fwd']!r}, SDPA backward {t['sdpa_bwd']!r}; "
+          "bounds " + ", ".join(f"{k} {v[0]!r} ({v[1]})"
+                                for k, v in bounds.items()))
+    torch.cuda.empty_cache()
+    a = _time_adamw(port)
+    print(f"[train_kernels] adamw over GPT-3 1.3B ({a['tensors']} bf16 "
+          f"tensors, {a['elements']} elements), device ms per update: "
+          f"kernel {a['ms']!r}, plain {a['plain_ms']!r}, "
+          f"torch.optim.AdamW(fused=True) {a['library_ms']!r}, bound "
+          f"{a['bound_ms']!r} ({a['bound_by']})")
+    torch.cuda.empty_cache()
+    rows = {}
+    for name, plain, lib in (("fwd", "plain_fwd", "sdpa_fwd"),
+                             ("dkv", "plain_bwd", "sdpa_bwd"),
+                             ("dq", "plain_bwd", "sdpa_bwd")):
+        rows[name] = dict(max_abs_err=errs[name], ms=t[name],
+                          plain_ms=t[plain], bound_ms=bounds[name][0],
+                          bound_by=bounds[name][1], library_ms=t[lib])
+    rows["adamw"] = dict(max_abs_err=errs["adamw"], ms=a["ms"],
+                         plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+                         bound_by=a["bound_by"], library_ms=a["library_ms"])
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train GPT-3 1.3B at full width and depth
+# ---------------------------------------------------------------------------
+
+def train_setup(port):
+    """GPT-3 1.3B (max_position_embeddings 1024, dropout 0,
+    recompute_interval 1) with random bf16 weights (seed 0), AdamW(lr
+    1e-4, wd 0.01, bf16 moments) through FusedTrainStep(O1), and 4 fixed
+    random (ids, labels) batches of 8 x 1024 on the card.  Returns
+    ``(model, step, batches)``."""
+    torch = port["torch"]
+    cfg = port["gpt_1p3b"](hidden_dropout=0.0, attention_dropout=0.0,
+                           max_position_embeddings=1024,
+                           recompute_interval=1, use_flash_attention=True)
+    model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    opt = port["AdamW"](model.parameters(), learning_rate=1e-4,
+                        weight_decay=0.01, multi_precision=False)
+    step = port["FusedTrainStep"](
+        lambda ids, labels: model(ids, labels=labels), opt, amp_level="O1")
+    rng = np.random.RandomState(0)
+    batches = [tuple(torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to(DEVICE)
+        for _ in range(2)) for _ in range(4)]
+    return model, step, batches
+
+
+def train_steps(port, step, batches, n, first=0):
+    """``n`` steps cycling ``batches``, ending in a synchronize.  Returns
+    (losses as floats, wall seconds)."""
+    torch = port["torch"]
+    t0 = time.perf_counter()
+    losses = [step(*batches[(first + i) % len(batches)]) for i in range(n)]
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], time.perf_counter() - t0
+
+
+def _launch_counts(port):
+    fa, fw = port["fa"], port["fw"]
+    return {"fwd": fa.flash_attention_fwd.launches,
+            "dkv": fa.flash_attention_bwd_dkv.launches,
+            "dq": fa.flash_attention_bwd_dq.launches,
+            "adamw": fw.fused_adamw_update.launches}
+
+
+def _reset_launches(port):
+    fa, fw = port["fa"], port["fw"]
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fw.fused_adamw_update.launches = 0
+
+
+def phase_train(port):
+    torch = port["torch"]
+    t0 = time.perf_counter()
+    model, step, batches = train_setup(port)
+    cfg = model.config
+    n_tensors = len(list(model.parameters()))
+    warm, _ = train_steps(port, step, batches, TRAIN_WARMUP)
+    print(f"[train] gpt_1p3b bf16 set-up and {TRAIN_WARMUP} warm-up steps "
+          f"{time.perf_counter() - t0:.2f} s, losses {warm}")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(port)
+    losses, wall = train_steps(port, step, batches, TRAIN_STEPS,
+                               first=TRAIN_WARMUP)
+    launches = _launch_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    _check(all(np.isfinite(losses)), f"non-finite train losses {losses}")
+    L = cfg.num_layers
+    want = {"fwd": 2 * L, "dkv": L, "dq": L, "adamw": n_tensors}
+    _check(all(launches[k] == want[k] * TRAIN_STEPS for k in want),
+           f"launches over {TRAIN_STEPS} steps {launches}, expected per "
+           f"step {want}")
+    step_s = wall / TRAIN_STEPS
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    h, V, s = cfg.hidden_size, cfg.vocab_size, TRAIN_SEQ
+    flops = 72 * TRAIN_BATCH * s * L * h * h * (1 + s / (6 * h)
+                                                + V / (12 * L * h))
+    mfu = flops / step_s / PEAK_FLOPS["bfloat16"]
+    print(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"losses {losses}; mean step {1e3 * step_s:.2f} ms (host clock), "
+          f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} (bench.py "
+          f"formula over 989 TFLOP/s); launches per step "
+          f"{ {k: v // TRAIN_STEPS for k, v in launches.items()} }; peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+    del model, step, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: train card vs CPU on gpt_tiny, fp32
+# ---------------------------------------------------------------------------
+
+# the same fp32 arithmetic summed in another order: losses of ~7 agree to
+# a few fp32 ulps after three AdamW steps
+TRAIN_LOSS_ATOL = 1e-4
+
+
+def phase_train_card_vs_cpu(port):
+    torch = port["torch"]
+    cfg = port["gpt_tiny"](hidden_size=128, num_heads=2, hidden_dropout=0.0,
+                           attention_dropout=0.0, recompute_interval=1)
+    rng = np.random.RandomState(2)
+    batch = [rng.randint(0, cfg.vocab_size, (2, 128)) for _ in range(2)]
+    cpu = port["GPT"](cfg, device="cpu", dtype="float32", seed=4)
+    card = port["GPT"](cfg, device=DEVICE, dtype="float32", seed=4)
+    card.load_state_dict(cpu.state_dict())
+    _reset_launches(port)
+    out = []
+    for m in (cpu, card):
+        opt = port["AdamW"](m.parameters(), learning_rate=1e-4)
+        step = port["FusedTrainStep"](
+            lambda ids, labels, m=m: m(ids, labels=labels), opt)
+        dev_batch = [torch.from_numpy(x).to(m.device) for x in batch]
+        out.append([float(step(*dev_batch)) for _ in range(3)])
+    launches = _launch_counts(port)
+    diff = max(abs(a - b) for a, b in zip(*out))
+    print(f"[train_card_vs_cpu] gpt_tiny fp32 losses cpu {out[0]} card "
+          f"{out[1]}: max diff {diff!r} (tol {TRAIN_LOSS_ATOL}); card "
+          f"launches {launches}")
+    _check(diff <= TRAIN_LOSS_ATOL, "card and CPU train losses differ")
+    _check(launches["fwd"] > 0 and launches["dkv"] > 0 and launches["dq"] > 0,
+           "the card's train steps did not launch the flash kernels")
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -390,16 +816,32 @@ def main() -> int:
     k = phase_kernels(port)
     launches = phase_serve(port)
     phase_card_vs_cpu(port)
+    tk = phase_train_kernels(port)
+    train_launches = phase_train(port)
+    phase_train_card_vs_cpu(port)
     print(card)
-    print(json.dumps({"kernels": [{
+    csrc = "paddle_tpu_torch/ops/kernels/csrc/"
+    pallas = "paddle_tpu/ops/pallas_kernels/"
+    kernels = [{
         "name": "ragged_paged_attention", "route": "cuda",
-        "source": "paddle_tpu_torch/ops/kernels/csrc/"
-                  "ragged_paged_attention.cu",
-        "replaces": "paddle_tpu/ops/pallas_kernels/"
-                    "ragged_paged_attention.py:237",
+        "source": csrc + "ragged_paged_attention.cu",
+        "replaces": pallas + "ragged_paged_attention.py:237",
         "launches": launches, "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]}))
+        "bound_by": k["bound_by"], "library_ms": None}]
+    for key, name, source, replaces in (
+            ("fwd", "flash_attention_fwd", "flash_attention.cu",
+             "flash_attention.py:97"),
+            ("dkv", "flash_attention_bwd_dkv", "flash_attention.cu",
+             "flash_attention.py:195"),
+            ("dq", "flash_attention_bwd_dq", "flash_attention.cu",
+             "flash_attention.py:243"),
+            ("adamw", "fused_adamw", "fused_adamw.cu", "fused_adamw.py:38")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": csrc + source,
+                        "replaces": pallas + replaces,
+                        "launches": train_launches[key], **tk[key]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

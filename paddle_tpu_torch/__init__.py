@@ -3,22 +3,27 @@ Hopper (H100).
 
 The JAX package ``paddle_tpu`` stays the reference; this package never
 imports it, nor JAX.  It is ported slice by slice (ROADMAP.md queue 1).
-This slice serves: ``GPTStackedForPretraining`` behind the
+Two slices are ported.  Serving: ``GPTStackedForPretraining`` behind the
 continuous-batching ``ServingEngine``, whose fused mixed prefill/decode
 step runs the hand-written ragged-paged-attention kernel
-(``ops/kernels/csrc/ragged_paged_attention.cu``).
+(``ops/kernels/csrc/ragged_paged_attention.cu``).  Training: the same
+model's ``forward(ids, labels=...)`` with ``optimizer.AdamW`` through
+``optimizer.FusedTrainStep``, on the hand-written flash-attention forward
+and backward (``ops/kernels/csrc/flash_attention.cu``) and fused-AdamW
+(``ops/kernels/csrc/fused_adamw.cu``) kernels.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); on the CPU every kernel is replaced by its plain
 PyTorch version.
 """
-from . import core, models, serving, telemetry
+from . import core, models, nn, optimizer, serving, telemetry
 from .models import (
     GPTConfig, GPTStackedForPretraining, gpt_1p3b, gpt_13b, gpt_small,
     gpt_tiny,
 )
 from .serving import SamplingParams, ServingEngine
 
-__all__ = ["core", "models", "serving", "telemetry", "GPTConfig",
+__all__ = ["core", "models", "nn", "optimizer", "serving", "telemetry",
+           "GPTConfig",
            "GPTStackedForPretraining", "gpt_tiny", "gpt_small", "gpt_1p3b",
            "gpt_13b", "ServingEngine", "SamplingParams"]

@@ -1,4 +1,4 @@
-"""GPT on the serving path, in PyTorch (port of the serving half of
+"""GPT for serving and training, in PyTorch (port of the stacked GPT of
 ``paddle_tpu/models/gpt.py``).
 
 ``GPTStackedForPretraining`` keeps the JAX model's layout: every decoder
@@ -8,11 +8,20 @@ head_dim)``, and the LM head is tied to the word embeddings.  Its
 ``state_dict`` keys are the JAX model's, so ``load_jax_state`` carries
 trained weights across unchanged.
 
-This slice serves: the model runs the fused mixed prefill/decode step
-of ``ServingEngine`` (one flat token per row, C == 1, with a ragged
-plan), through ``ops/kernels/ragged_paged_attention.py``.  Training,
-``generate()`` and the chunked-prefill path without a plan wait for later
-slices (ROADMAP.md queue 1).
+The model serves and trains:
+
+- serving runs the fused mixed prefill/decode step of ``ServingEngine``
+  (one flat token per row, C == 1, with a ragged plan), through
+  ``ops/kernels/ragged_paged_attention.py``;
+- training runs ``forward(input_ids, labels=...)``: the stacked block of
+  the reference's ``_block_fn`` per layer, with causal attention through
+  ``ops/kernels/flash_attention.py``, groups of ``recompute_interval``
+  blocks under activation checkpointing (as ``scan_blocks`` remats them),
+  and the chunked loss head of ``nn/functional.py``.
+
+``generate()`` over a contiguous KV cache, the chunked-prefill path
+without a plan, and dropout in training wait for later slices (ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
@@ -23,8 +32,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import resolve_device, to_torch_dtype
+from ..nn.functional import fused_linear_cross_entropy
+from ..ops.kernels.flash_attention import (
+    flash_attention_bnsd, flash_attention_plain, shape_supported,
+)
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 
 __all__ = [
@@ -45,8 +59,14 @@ class GPTConfig:
     num_heads: int = 12
     intermediate_size: Optional[int] = None  # default 4*hidden
     max_position_embeddings: int = 1024
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
+    recompute_interval: int = 0         # 0 = off; k = remat every k blocks
+    # None or True: the flash kernel when the shape gate passes; False:
+    # the plain attention expression
+    use_flash_attention: Optional[bool] = None
 
     @property
     def ffn_size(self) -> int:
@@ -126,8 +146,61 @@ class GPTStackedDecoder(nn.Module):
                   "fc1_b": (L, f), "fc2_w": (L, f, h), "fc2_b": (L, h)}
         for name in self.PARAM_NAMES:
             self.register_parameter(
-                name, nn.Parameter(torch.empty(shapes[name], **factory),
-                                   requires_grad=False))
+                name, nn.Parameter(torch.empty(shapes[name], **factory)))
+
+    def _block(self, h, l1g, l1b, qkvw, qkvb, pw, pb, l2g, l2b, f1w, f1b,
+               f2w, f2b):
+        """One training block (the reference's ``_block_fn`` body):
+        ``h`` [B, S, hidden] -> [B, S, hidden]."""
+        cfg = self._cfg
+        nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
+        b, s, hidden = h.shape
+        x = _layer_norm(h, l1g, l1b, eps).reshape(b * s, hidden)
+        qkv = torch.addmm(qkvb, x, qkvw).view(b, s, 3, nh, hd)
+        # [B, N, S, D] views into the fused output: no copy; the backward
+        # of unbind stacks dQ/dK/dV into the QKV gradient in one pass
+        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+        scale = float(1.0 / np.sqrt(hd))
+        if cfg.use_flash_attention is not False and shape_supported(s, hd):
+            out = flash_attention_bnsd(q, k, v, causal=True, sm_scale=scale)
+        else:
+            # the reference's XLA attention expression for shapes the
+            # flash kernel does not take
+            out = flash_attention_plain(q, k, v, True, scale)[0]
+        out = out.transpose(1, 2).reshape(b * s, hidden)
+        h = h + torch.addmm(pb, out, pw).view(b, s, hidden)
+        y = _layer_norm(h, l2g, l2b, eps).reshape(b * s, hidden)
+        y = F.gelu(torch.addmm(f1b, y, f1w), approximate="tanh")
+        return h + torch.addmm(f2b, y, f2w).view(b, s, hidden)
+
+    def _blocks(self, h, *weights):
+        """Consecutive blocks; ``weights`` holds each block's 12 slices,
+        block after block."""
+        n = len(self.PARAM_NAMES)
+        for i in range(0, len(weights), n):
+            h = self._block(h, *weights[i:i + n])
+        return h
+
+    def forward(self, h):
+        """The training stack: ``h`` [B, S, hidden] through every layer.
+        With ``recompute_interval`` k > 0 (and the module in training
+        mode) each group of k blocks runs under
+        ``torch.utils.checkpoint``: the backward recomputes the group's
+        forward from its input instead of keeping its activations."""
+        cfg = self._cfg
+        k = cfg.recompute_interval if self.training else 0
+        if k > 0 and cfg.num_layers % k:
+            raise ValueError(f"recompute_interval={k} must divide "
+                             f"num_layers={cfg.num_layers}")
+        # one unbind per slab: its backward stacks the layers' gradients
+        layers = list(zip(*(getattr(self, n).unbind(0)
+                            for n in self.PARAM_NAMES)))
+        if k <= 0:
+            return self._blocks(h, *(w for layer in layers for w in layer))
+        for g0 in range(0, cfg.num_layers, k):
+            group = [w for layer in layers[g0:g0 + k] for w in layer]
+            h = checkpoint(self._blocks, h, *group, use_reentrant=False)
+        return h
 
     def forward_paged(self, h, k_pool, v_pool, tables, pos, ragged_plan):
         """One fused serving step over every layer.  ``h`` [T, hidden];
@@ -173,7 +246,8 @@ class GPTStackedDecoder(nn.Module):
 
 
 class GPTStackedForPretraining(nn.Module):
-    """Embeddings + stacked decoder + tied LM head, on the serving path.
+    """Embeddings + stacked decoder + tied LM head, for training and
+    serving.
 
     ``device=None`` means ``"cuda"`` and raises when no CUDA device is
     present; pass ``device="cpu"`` to run on the CPU.  Weights are drawn
@@ -192,7 +266,6 @@ class GPTStackedForPretraining(nn.Module):
         self.decoder = GPTStackedDecoder(cfg, **factory)
         self.final_ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
                                      **factory)
-        self.requires_grad_(False)
         self._init_weights(seed)
 
     @torch.no_grad()
@@ -231,21 +304,30 @@ class GPTStackedForPretraining(nn.Module):
                                      f"{tuple(p.shape)}")
                 p.copy_(torch.from_numpy(a).to(p.dtype))
 
-    def forward(self, input_ids, kv_cache=None, cache_index=None,
-                page_tables=None, ragged_plan=None, out_rows=None):
-        """The fused serving step: ``input_ids`` [T, 1] flat tokens,
-        ``cache_index`` [T] their positions, ``page_tables`` [T, max_pages]
-        their slots' table rows, ``ragged_plan`` the plan tensors and
-        ``out_rows`` [S] the flat row of each slot's output token.
-        Returns [S, 1, V] logits, the LM head applied to those rows only.
-        The K/V of every token is written into ``kv_cache`` in place."""
+    def forward(self, input_ids, labels=None, kv_cache=None,
+                cache_index=None, page_tables=None, ragged_plan=None,
+                out_rows=None):
+        """Without a cache: ``input_ids`` [B, S] at positions ``0..S-1``;
+        with ``labels`` [B, S] (used as given, no shift) returns the mean
+        token loss of the chunked fused head, without them the [B, S, V]
+        logits.
+
+        With a paged ``kv_cache``, the fused serving step:
+        ``input_ids`` [T, 1] flat tokens, ``cache_index`` [T] their
+        positions, ``page_tables`` [T, max_pages] their slots' table rows,
+        ``ragged_plan`` the plan tensors and ``out_rows`` [S] the flat row
+        of each slot's output token.  Returns [S, 1, V] logits, the LM
+        head applied to those rows only.  The K/V of every token is
+        written into ``kv_cache`` in place."""
+        if kv_cache is None:
+            return self._forward_train(input_ids, labels)
         if not getattr(kv_cache, "paged", False) or ragged_plan is None \
                 or page_tables is None or input_ids.shape[-1] != 1:
             raise NotImplementedError(
-                "this slice serves the fused ragged step only (a paged "
-                "cache, a ragged plan and one token per row); training, "
-                "generate() and chunked prefill are ROADMAP.md queue 1 "
-                "items")
+                "with a KV cache this slice runs the fused ragged step only "
+                "(a paged cache, a ragged plan and one token per row); "
+                "generate() over a contiguous cache and chunked prefill "
+                "are ROADMAP.md queue 1 items")
         cfg = self.config
         pos = cache_index.long()
         ids = input_ids[:, 0].long()
@@ -260,6 +342,23 @@ class GPTStackedForPretraining(nn.Module):
         h = self.final_ln(h)
         logits = h @ self.embeddings.word_embeddings.weight.t()
         return logits[:, None, :]
+
+    def _forward_train(self, input_ids, labels):
+        cfg = self.config
+        if self.training and (cfg.hidden_dropout > 0
+                              or cfg.attention_dropout > 0):
+            raise NotImplementedError(
+                "dropout in training is not ported yet (ROADMAP.md queue "
+                "1, slice 5 'later' items): set hidden_dropout and "
+                "attention_dropout to 0, or call eval()")
+        ids = input_ids.long()
+        pos = torch.arange(ids.shape[-1], device=ids.device).expand_as(ids)
+        h = self.embeddings(ids, pos)                       # [B, S, hidden]
+        h = self.final_ln(self.decoder(h))
+        w = self.embeddings.word_embeddings.weight
+        if labels is not None:
+            return fused_linear_cross_entropy(h, w, labels)
+        return h @ w.t()
 
     # -- ServingEngine paged-cache contract --------------------------------
     def new_paged_kv_cache(self, num_pages: int, page_size: int,

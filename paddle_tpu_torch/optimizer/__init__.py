@@ -1,0 +1,4 @@
+from .fused_step import FusedTrainStep
+from .optimizers import AdamW
+
+__all__ = ["AdamW", "FusedTrainStep"]

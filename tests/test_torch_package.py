@@ -2,10 +2,11 @@
 anything of ``paddle_tpu`` (checked in a fresh interpreter, for the
 package and for ``chip_smoke.py``), its entry points refuse to run on the
 CPU unless asked, ``chip_smoke.py`` refuses to run without a card, and
-the engine knobs that wait for later slices raise."""
+the engine knobs and model paths that wait for later slices raise."""
 import os
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
@@ -39,18 +40,19 @@ def _run_clean(imports: str):
 
 
 def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
-    _run_clean("\n".join([
-        "import paddle_tpu_torch",
-        "import paddle_tpu_torch.core.device, paddle_tpu_torch.core.dtype",
-        "import paddle_tpu_torch.ops.kernels._build",
-        "import paddle_tpu_torch.ops.kernels.ragged_paged_attention",
-        "import paddle_tpu_torch.models.gpt",
-        "import paddle_tpu_torch.serving.engine",
-        "import paddle_tpu_torch.serving.admission",
-        "import paddle_tpu_torch.serving.paged_cache",
-        "import paddle_tpu_torch.telemetry.metrics",
-        "import paddle_tpu_torch.telemetry.trace",
-    ]))
+    """Every module of the package, found by walking it, imported in one
+    fresh interpreter."""
+    _run_clean("""
+import pkgutil
+import paddle_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                               "paddle_tpu_torch.")]
+for name in names:
+    __import__(name)
+assert len(names) >= 20, names
+assert "paddle_tpu_torch.ops.kernels.flash_attention" in names
+assert "paddle_tpu_torch.optimizer.fused_step" in names
+""")
 
 
 def test_chip_smoke_imports_no_jax_and_nothing_of_paddle_tpu():
@@ -103,6 +105,10 @@ def test_unported_engine_knobs_raise(knob, value):
 
 
 def test_model_serves_only_the_fused_ragged_step():
+    """With a KV cache the model runs the paged fused step only: the
+    contiguous-cache ``generate()`` path of the JAX model still raises."""
     m = GPTStackedForPretraining(gpt_tiny(), device="cpu")
+    contiguous = types.SimpleNamespace(paged=False)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m(torch.zeros((1, 4), dtype=torch.long))
+        m(torch.zeros((1, 4), dtype=torch.long), kv_cache=contiguous,
+          cache_index=torch.zeros((), dtype=torch.long))

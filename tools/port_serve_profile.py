@@ -39,6 +39,53 @@ def _group(name: str) -> str:
     return "elementwise, norms, reductions, copies"
 
 
+def report(prof, steps: int, wall: float, group, unit: str) -> bool:
+    """Print the profiled window's kernel launches, the device busy share
+    (union of CUDA kernel intervals over ``wall`` seconds) and kernel time
+    by ``group(name)`` and by name, per ``unit`` (``steps`` of them).
+    False when the profiler recorded no device activity."""
+    import torch
+
+    # device events, without the spans record_function also draws on the
+    # device timeline (their time is their kernels')
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    if not kernels:
+        print("profiler recorded no device activity; no breakdown")
+        return False
+    by_name, by_group = defaultdict(float), defaultdict(float)
+    spans = []
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_name[e.name] += us
+        by_group[group(e.name)] += us
+        spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    total = sum(by_name.values())
+    print(f"profiled: wall {wall:.4f} s, {steps} {unit}s, "
+          f"{len(kernels)} kernel launches ({len(kernels) / steps:.1f} per "
+          f"{unit}); device busy {busy / 1e6:.4f} s = "
+          f"{busy / 1e6 / wall:.3f} of wall; kernel time per {unit} "
+          f"{total / steps / 1e3:.3f} ms")
+    for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  group {g}: {us / 1e3:.3f} ms total, "
+              f"{us / steps / 1e3:.4f} ms per {unit}, {us / total:.3f} of "
+              "kernel time")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  kernel {us / 1e3:9.3f} ms  {name[:110]}")
+    return True
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace", help="write the Chrome trace here")
@@ -68,40 +115,8 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         _, _, pwall = chip_smoke.serve_workload(port, eng, rng)
     fused = eng.metrics()["fused_steps"] - f0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        print("profiler recorded no device activity; no breakdown")
+    if not report(prof, fused, pwall, _group, "fused step"):
         return 1
-    by_name, by_group = defaultdict(float), defaultdict(float)
-    spans = []
-    for e in kernels:
-        us = e.time_range.elapsed_us()
-        by_name[e.name] += us
-        by_group[_group(e.name)] += us
-        spans.append((e.time_range.start, e.time_range.end))
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    total = sum(by_name.values())
-    print(f"profiled: wall {pwall:.4f} s, {fused} fused steps, "
-          f"{len(kernels)} kernel launches ({len(kernels) / fused:.1f} per "
-          f"step); device busy {busy / 1e6:.4f} s = "
-          f"{busy / 1e6 / pwall:.3f} of wall; kernel time per step "
-          f"{total / fused / 1e3:.3f} ms")
-    for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"  group {g}: {us / 1e3:.3f} ms total, "
-              f"{us / fused / 1e3:.4f} ms per step, {us / total:.3f} of "
-              "kernel time")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  kernel {us / 1e3:9.3f} ms  {name[:110]}")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
                     exist_ok=True)
