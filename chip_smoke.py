@@ -25,17 +25,21 @@ result line:
    kernel must have launched once per layer of every fused step;
 4. card vs CPU -- gpt_tiny in fp32 served on the card and on the CPU
    from the same weights must give the same greedy tokens;
-5. train kernels vs plain -- the flash-attention forward (O, lse) and
-   backward (dq, dk, dv through the autograd Function, both kernels)
-   against the plain version under autograd, in bf16 at (B, N, S, D) =
-   (2, 16, 1024, 128) causal and in fp32 at the same shape, at
+5. train kernels vs plain -- each flash-attention kernel against its
+   own plain version on the same inputs (the forward's O and lse; dK/dV
+   and dQ from the kernel's lse and delta), elementwise and over each
+   whole output; the autograd Function's gradients must be the kernels'
+   own, bit for bit, and are held against autograd of the plain forward;
+   in bf16 at (B, N, S, D) = (8, 16, 1024, 128), the trained shape, and
+   (2, 16, 1024, 128) causal, in fp32 at (2, 16, 1024, 128), at
    (1, 4, 128, 64) causal and full, and at (1, 2, 384, 64) causal; the
    AdamW kernel against its plain version on a bf16 [24, 2048, 8192] slab
    over two consecutive steps and on an unaligned fp32 [3, 257]; then the
-   kernels' times beside the bound, the plain version and one library
-   call each: flash at the trained shape (8, 16, 1024, 128) bf16 causal
-   against ``F.scaled_dot_product_attention(is_causal=True)`` forward and
-   backward, AdamW over every tensor of GPT-3 1.3B (bf16 parameters and
+   kernels' times beside the bound and their plain versions: flash at the
+   trained shape bf16 causal, with the whole backward (delta and both
+   kernels) against autograd of the plain forward and
+   ``F.scaled_dot_product_attention(is_causal=True)``'s forward and
+   backward; AdamW over every tensor of GPT-3 1.3B (bf16 parameters and
    moments; times are for the whole update, 16 launches) against
    ``torch.optim.AdamW(fused=True)``;
 6. train -- GPT-3 1.3B at full width and depth (hidden 2048, 24 layers,
@@ -76,23 +80,50 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, same source
 # output and the probabilities are each rounded once to bf16 (2^-8
 # relative), and a different summation order can flip a rounding
 TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-2, 1e-2)}
-# flash kernels vs plain under autograd: |kernel - plain| <= atol + rtol *
-# |plain|.  fp32: the same arithmetic summed in another order over up to
-# 1024 keys and 64 head elements; bf16: the outputs are rounded once to
-# bf16 (2^-8 relative) and the plain backward rounds P and dS at other
-# points than the kernels (autograd through the forward's casts)
-FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+# flash kernels vs plain, each kernel against its own plain version on the
+# same inputs (the backward kernels' plain versions take the kernel's lse
+# and delta), held to (atol, rtol, norm):
+# - elementwise, |kernel - plain| <= atol + rtol * m, where m is the sum of
+#   the absolute terms of the output's product (P|V| for O, P^T|dO| for
+#   dV, scale |dS|^T|q| for dK, scale |dS||k| for dQ; |lse| for lse).  A
+#   rounding of a term or of the output moves the output by a fraction of
+#   m, whatever cancels in the output itself.  bf16: the forward rounds P
+#   against the running row max, the plain version after normalising
+#   (2^-9 of each term, twice), and both round O once (2^-9 of m, twice);
+#   the backward kernels share the plain versions' rounding points, and
+#   differ where an fp32 sum lands on the other side of a bf16 rounding of
+#   P, dS or the output.  fp32: the same arithmetic summed in another order
+#   over up to 1024 keys and 128 head elements;
+# - over a whole output, ||kernel - plain|| <= norm * ||plain|| (Frobenius):
+#   rounding differences are scattered and of both signs, a fault (a
+#   dropped or repeated block, a wrong row, a shift of some rows) is not,
+#   so this catches what an elementwise bound of a rounding's size cannot.
+#   The backward kernels share their plain versions' rounding points (bf16
+#   differences ~1.5e-4 of the norm); O does not (~2.9e-3), and takes
+#   FLASH_O_NORM.
+FLASH_TOL = {"float32": (2e-5, 1e-5, 1e-6),
+             "bfloat16": (1e-3, 2.0 ** -7, 2.0 ** -11)}
+FLASH_O_NORM = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
+# the gradients of the autograd Function against autograd of the plain
+# forward (elementwise against |plain|): in bf16 that backward rounds dP
+# (the gradient of the bf16 P) instead of dS, and takes delta from the
+# unrounded probabilities instead of rowsum(dO * O) over the bf16 O, which
+# moves many elements of dq and dk, by up to two bf16 ulps of the largest
+# gradients (|g| up to ~4, where an ulp is 2^-6)
+FLASH_GRAD_TOL = {"float32": (2e-5, 1e-5, 1e-5),
+                  "bfloat16": (2.0 ** -6, 2.0 ** -7, 2.0 ** -7)}
 # AdamW kernel vs plain: the same fp32 formula, which the compiler
 # contracts into FMAs: a value at a bf16 rounding midpoint can round
 # either way (one bf16 ulp, at most 2^-7 relative), and a sum that cancels
 # to ~0 keeps a residue of a few fp32 ulps of its terms (the 1e-6 atol)
 ADAMW_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-6, 2.0 ** -7)}
-FLASH_CASES = (("bfloat16", (2, 16, 1024, 128), True),
+TRAIN_SHAPE = (8, 16, 1024, 128)           # (B, N, S, D) of GPT-3 1.3B
+FLASH_CASES = (("bfloat16", TRAIN_SHAPE, True),
+               ("bfloat16", (2, 16, 1024, 128), True),
                ("float32", (2, 16, 1024, 128), True),
                ("float32", (1, 4, 128, 64), True),
                ("float32", (1, 4, 128, 64), False),
                ("float32", (1, 2, 384, 64), True))
-TRAIN_SHAPE = (8, 16, 1024, 128)           # (B, N, S, D) of GPT-3 1.3B
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 SERVE_LAYERS = 24
@@ -435,47 +466,94 @@ def _qkv(torch, shape, dtype, seed):
     return [t.transpose(1, 2) for t in buf.unbind(2)], do.transpose(1, 2)
 
 
-def _over(got, want, tol):
-    """(max |got - want|, max of |got - want| - atol - rtol |want|)."""
+def _over(got, want, tol, mag=None):
+    """(max |got - want|, max of |got - want| - atol - rtol * mag), with
+    the magnitude ``mag`` |want| unless given."""
     diff = (got.float() - want.float()).abs()
     atol, rtol = tol
-    return (diff.max().item(),
-            (diff - atol - rtol * want.float().abs()).max().item())
+    mag = want.float().abs() if mag is None else mag.float()
+    return diff.max().item(), (diff - atol - rtol * mag).max().item()
 
 
 def _flash_compare(port, dtype, shape, causal, seed):
-    """Kernels (forward, then both backward kernels through the autograd
-    Function) against the plain version under autograd, on the same
-    inputs.  Returns the max abs errors (forward, dK/dV, dQ)."""
-    (q, k, v), do = _qkv(port["torch"], shape, dtype, seed)
-    scale = 1.0 / shape[-1] ** 0.5
-    errs = {}
-    for name, (a, b) in _flash_pair(port, q, k, v, do, causal, scale).items():
-        errs[name], over = _over(a, b, FLASH_TOL[dtype])
-        _check(over <= 0, f"flash {name} {dtype} {shape} causal={causal}: "
-               f"kernel vs plain off by {errs[name]}")
-    print(f"[train_kernels] flash {dtype} {shape} causal={causal}: "
-          + " ".join(f"{k}={v!r}" for k, v in errs.items()))
-    return (max(errs["O"], errs["lse"]), max(errs["dk"], errs["dv"]),
-            errs["dq"])
-
-
-def _flash_pair(port, q, k, v, do, causal, scale):
-    """{output: (kernel, plain)} for O, lse, dq, dk and dv."""
+    """The three kernels against their plain versions on the same inputs
+    (the forward's O and lse; dK, dV and dQ from the kernel's lse and
+    delta); the autograd Function's gradients must be the kernels' own,
+    bit for bit, and are held against autograd of the plain forward.
+    Every error is printed beside the plain value's RMS and the relative
+    norm of the difference before any check.
+    Returns the kernels' max abs errors against their plain versions
+    (forward, dK/dV, dQ)."""
     torch, fa = port["torch"], port["fa"]
+    (q, k, v), do = _qkv(torch, shape, dtype, seed)
+    scale = 1.0 / shape[-1] ** 0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    delta = fa.backward_delta(do, out)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    (dk, dv), dq = fa.flash_attention_bwd_dkv(*args), \
+        fa.flash_attention_bwd_dq(*args)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal, scale)
+    pdk, pdv = fa.flash_attention_bwd_dkv_plain(*args)
+    m = _term_magnitudes(torch, *args)
+    # (name, kernel, plain, m (None: |plain|), (atol, rtol, norm)); lse is
+    # fp32 on both sides whatever the operands' dtype
+    tol, grad_tol = FLASH_TOL[dtype], FLASH_GRAD_TOL[dtype]
+    checks = [("O", out, want, m["O"], tol[:2] + (FLASH_O_NORM[dtype],)),
+              ("lse", lse, want_lse, None, FLASH_TOL["float32"]),
+              ("dk", dk, pdk, m["dk"], tol), ("dv", dv, pdv, m["dv"], tol),
+              ("dq", dq, fa.flash_attention_bwd_dq_plain(*args), m["dq"],
+               tol)]
+    del m
     kq, kk, kv = (t.detach().requires_grad_(True) for t in (q, k, v))
-    out = fa.FlashAttention.apply(kq, kk, kv, causal, scale)
-    out.backward(do)
-    _, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    fa.FlashAttention.apply(kq, kk, kv, causal, scale).backward(do)
+    own = all(torch.equal(a, b) for a, b in
+              ((kq.grad, dq), (kk.grad, dk), (kv.grad, dv)))
     pq, pk, pv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    want, want_lse = fa.flash_attention_plain(pq, pk, pv, causal, scale)
-    want.backward(do)
+    fa.flash_attention_plain(pq, pk, pv, causal, scale)[0].backward(do)
+    checks += [("autograd " + n, a.grad, b.grad, None, grad_tol)
+               for n, a, b in (("dq", kq, pq), ("dk", kk, pk),
+                               ("dv", kv, pv))]
     torch.cuda.synchronize()
-    _check(all(bool(torch.isfinite(t).all()) for t in
-               (out, lse, kq.grad, kk.grad, kv.grad)), "flash: non-finite")
-    return {"O": (out, want), "lse": (lse, want_lse),
-            "dq": (kq.grad, pq.grad), "dk": (kk.grad, pk.grad),
-            "dv": (kv.grad, pv.grad)}
+    _check(all(bool(torch.isfinite(c[1]).all()) for c in checks),
+           "flash: non-finite")
+    errs, overs, text = {}, [], []
+    for name, a, b, mag, (atol, rtol, norm) in checks:
+        errs[name], over = _over(a, b, (atol, rtol), mag)
+        a, b = a.float(), b.float()
+        rel = ((a - b).norm() / b.norm()).item()
+        overs += [(over, name), (rel - norm, name + " norm")]
+        text.append(f"{name}={errs[name]!r} (rms {b.pow(2).mean().sqrt():.4g}"
+                    f", norm {rel:.3g}; tol {atol:.3g}+{rtol:.3g}*"
+                    f"{'|plain|' if mag is None else 'm'}, norm {norm:.3g})")
+    print(f"[train_kernels] flash {dtype} {shape} causal={causal}: kernel vs "
+          "plain " + " ".join(text) + f"; Function's gradients are the "
+          f"kernels' own: {own}")
+    _check(own, "the autograd Function's gradients are not the kernels'")
+    for over, what in overs:
+        _check(over <= 0, f"flash {what} {dtype} {shape} causal={causal}: "
+               "off by more than the tolerance")
+    e = errs
+    return max(e["O"], e["lse"]), max(e["dk"], e["dv"]), e["dq"]
+
+
+def _term_magnitudes(torch, q, k, v, do, lse, delta, causal, scale):
+    """{O, dv, dk, dq: the sum of the absolute terms of its product} in
+    fp32, with P and dS from the plain formulas: P|V|, P^T|dO|,
+    scale |dS|^T|q| and scale |dS||k|."""
+    b, n, s, _ = q.shape
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    sc = torch.einsum("bnqd,bnkd->bnqk", q, k) * scale
+    if causal:
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    p = torch.exp(sc - lse.view(b, n, s, 1))
+    del sc
+    ds = (p * (torch.einsum("bnqd,bnkd->bnqk", do, v)
+               - delta.view(b, n, s, 1))).abs_()
+    return {"O": torch.einsum("bnqk,bnkd->bnqd", p, v.abs()),
+            "dv": torch.einsum("bnqk,bnqd->bnkd", p, do.abs()),
+            "dk": scale * torch.einsum("bnqk,bnqd->bnkd", ds, q.abs()),
+            "dq": scale * torch.einsum("bnqk,bnkd->bnqd", ds, k.abs())}
 
 
 def _flash_bounds(shape, causal, itemsize):
@@ -514,21 +592,26 @@ def _time_flash(port):
     scale = 1.0 / TRAIN_SHAPE[-1] ** 0.5
     out, lse = fa.flash_attention_fwd(q, k, v, True, scale)
     delta = fa.backward_delta(do, out)
+    args = (q, k, v, do, lse, delta, True, scale)
 
     def backward(i):
         # what FlashAttention.backward runs: delta, then both kernels
         d = fa.backward_delta(do, out)
-        fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, True, scale, d)
-        fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True, scale, d)
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, d, True, scale)
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, d, True, scale)
 
     t = {}
     t["fwd"], _ = _time_ms(
         torch, lambda i: fa.flash_attention_fwd(q, k, v, True, scale), 40)
-    t["dkv"], _ = _time_ms(torch, lambda i: fa.flash_attention_bwd_dkv(
-        q, k, v, out, lse, do, True, scale, delta), 20)
-    t["dq"], _ = _time_ms(torch, lambda i: fa.flash_attention_bwd_dq(
-        q, k, v, out, lse, do, True, scale, delta), 20)
+    t["dkv"], _ = _time_ms(torch, lambda i: fa.flash_attention_bwd_dkv(*args),
+                           20)
+    t["dq"], _ = _time_ms(torch, lambda i: fa.flash_attention_bwd_dq(*args),
+                          20)
     t["bwd"], _ = _time_ms(torch, backward, 20)
+    t["plain_dkv"], _ = _time_ms(
+        torch, lambda i: fa.flash_attention_bwd_dkv_plain(*args), 5)
+    t["plain_dq"], _ = _time_ms(
+        torch, lambda i: fa.flash_attention_bwd_dq_plain(*args), 5)
     t["plain_fwd"], _ = _time_ms(
         torch, lambda i: fa.flash_attention_plain(q, k, v, True, scale), 5)
     pq, pk, pv = (x.detach().requires_grad_(True) for x in (q, k, v))
@@ -639,11 +722,16 @@ def phase_train_kernels(port):
     bounds = _flash_bounds(TRAIN_SHAPE, True, 2)
     print(f"[train_kernels] flash bf16 {TRAIN_SHAPE} causal timing (device "
           f"ms per call): forward {t['fwd']!r}, dK/dV {t['dkv']!r}, dQ "
-          f"{t['dq']!r}, backward with delta {t['bwd']!r}; plain forward "
-          f"{t['plain_fwd']!r}, plain backward {t['plain_bwd']!r}; SDPA "
-          f"forward {t['sdpa_fwd']!r}, SDPA backward {t['sdpa_bwd']!r}; "
-          "bounds " + ", ".join(f"{k} {v[0]!r} ({v[1]})"
-                                for k, v in bounds.items()))
+          f"{t['dq']!r}; plain forward {t['plain_fwd']!r}, plain dK/dV "
+          f"{t['plain_dkv']!r}, plain dQ {t['plain_dq']!r}; SDPA forward "
+          f"{t['sdpa_fwd']!r}; bounds " + ", ".join(
+              f"{k} {v[0]!r} ({v[1]})" for k, v in bounds.items()
+              if k != "bwd"))
+    print(f"[train_kernels] flash bf16 {TRAIN_SHAPE} causal whole backward "
+          f"(dq, dk, dv; device ms per call): delta and both kernels "
+          f"{t['bwd']!r}, autograd of the plain forward {t['plain_bwd']!r}, "
+          f"SDPA backward {t['sdpa_bwd']!r}, bound {bounds['bwd'][0]!r} "
+          f"({bounds['bwd'][1]})")
     torch.cuda.empty_cache()
     a = _time_adamw(port)
     print(f"[train_kernels] adamw over GPT-3 1.3B ({a['tensors']} bf16 "
@@ -653,12 +741,13 @@ def phase_train_kernels(port):
           f"{a['bound_ms']!r} ({a['bound_by']})")
     torch.cuda.empty_cache()
     rows = {}
-    for name, plain, lib in (("fwd", "plain_fwd", "sdpa_fwd"),
-                             ("dkv", "plain_bwd", "sdpa_bwd"),
-                             ("dq", "plain_bwd", "sdpa_bwd")):
+    # no single PyTorch call computes dK/dV alone or dQ alone: the
+    # library's backward is compared whole on the line above
+    for name, lib in (("fwd", t["sdpa_fwd"]), ("dkv", None), ("dq", None)):
         rows[name] = dict(max_abs_err=errs[name], ms=t[name],
-                          plain_ms=t[plain], bound_ms=bounds[name][0],
-                          bound_by=bounds[name][1], library_ms=t[lib])
+                          plain_ms=t["plain_" + name],
+                          bound_ms=bounds[name][0],
+                          bound_by=bounds[name][1], library_ms=lib)
     rows["adamw"] = dict(max_abs_err=errs["adamw"], ms=a["ms"],
                          plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                          bound_by=a["bound_by"], library_ms=a["library_ms"])

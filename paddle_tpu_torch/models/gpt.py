@@ -36,9 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import resolve_device, to_torch_dtype
 from ..nn.functional import fused_linear_cross_entropy
-from ..ops.kernels.flash_attention import (
-    flash_attention_bnsd, flash_attention_plain, shape_supported,
-)
+from ..ops.kernels.flash_attention import flash_attention_bnsd
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 
 __all__ = [
@@ -64,8 +62,10 @@ class GPTConfig:
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     recompute_interval: int = 0         # 0 = off; k = remat every k blocks
-    # None or True: the flash kernel when the shape gate passes; False:
-    # the plain attention expression
+    # taken across from JAX configs: attention always runs through
+    # flash_attention_bnsd (the kernels on the card, their plain version
+    # on the CPU); False -- the JAX package's plain XLA route -- raises
+    # on the card, where that route is not ported
     use_flash_attention: Optional[bool] = None
 
     @property
@@ -160,13 +160,9 @@ class GPTStackedDecoder(nn.Module):
         # [B, N, S, D] views into the fused output: no copy; the backward
         # of unbind stacks dQ/dK/dV into the QKV gradient in one pass
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
-        scale = float(1.0 / np.sqrt(hd))
-        if cfg.use_flash_attention is not False and shape_supported(s, hd):
-            out = flash_attention_bnsd(q, k, v, causal=True, sm_scale=scale)
-        else:
-            # the reference's XLA attention expression for shapes the
-            # flash kernel does not take
-            out = flash_attention_plain(q, k, v, True, scale)[0]
+        # on the card a shape or dtype the kernels refuse raises here
+        out = flash_attention_bnsd(q, k, v, causal=True,
+                                   sm_scale=float(1.0 / np.sqrt(hd)))
         out = out.transpose(1, 2).reshape(b * s, hidden)
         h = h + torch.addmm(pb, out, pw).view(b, s, hidden)
         y = _layer_norm(h, l2g, l2b, eps).reshape(b * s, hidden)
@@ -351,6 +347,11 @@ class GPTStackedForPretraining(nn.Module):
                 "dropout in training is not ported yet (ROADMAP.md queue "
                 "1, slice 5 'later' items): set hidden_dropout and "
                 "attention_dropout to 0, or call eval()")
+        if cfg.use_flash_attention is False and input_ids.device.type != "cpu":
+            raise NotImplementedError(
+                "use_flash_attention=False (the plain attention route) is "
+                "not ported to the card; attention there runs the flash "
+                "kernels: leave use_flash_attention None or True")
         ids = input_ids.long()
         pos = torch.arange(ids.shape[-1], device=ids.device).expand_as(ids)
         h = self.embeddings(ids, pos)                       # [B, S, hidden]

@@ -3,13 +3,17 @@ operands: the training block's attention.
 
 Port of ``paddle_tpu/ops/pallas_kernels/flash_attention.py``.  Parts:
 
-- the shape gate, ``shape_unsupported_reason``/``shape_supported``,
+- the shape gate, ``shape_unsupported_reason``,
   copied from the JAX package's ``analysis/codes.py`` rule (seq a multiple
   of 128, at least 128; head_dim a multiple of 64);
-- the plain PyTorch version, ``flash_attention_plain``: the counterpart
+- the plain PyTorch versions: ``flash_attention_plain``, the counterpart
   of ``_xla_reference_bnsd`` (fp32 scores, the finite ``NEG_INF`` causal
   mask, fp32 softmax, probabilities cast to the V dtype before PV), which
-  also returns the per-row logsumexp;
+  also returns the per-row logsumexp; ``flash_attention_bwd_dkv_plain``
+  and ``flash_attention_bwd_dq_plain``, the counterparts of the two
+  backward Pallas kernels (P recomputed from q, k and lse, P rounded to
+  the dO dtype before dV, dS to the q/k dtype before dK and dQ, fp32
+  sums);
 - ``FlashAttention``, a ``torch.autograd.Function`` -- the counterpart of
   the ``_flash_bnsd`` custom VJP -- that saves q, k, v, O and lse and
   runs the two backward kernels, with ``delta = rowsum(dO * O)`` as a
@@ -17,10 +21,12 @@ Port of ``paddle_tpu/ops/pallas_kernels/flash_attention.py``.  Parts:
   Pallas;
 - the public ``flash_attention_bnsd(q, k, v, *, causal, sm_scale)``.
 
-CPU tensors take the plain version (autograd differentiates it) and
-count no launch.  CUDA tensors launch the Hopper kernels of
+Every wrapper takes its plain version on CPU tensors and counts no
+launch (``flash_attention_bnsd`` lets autograd differentiate the plain
+forward).  Any other tensor launches the Hopper kernels of
 ``csrc/flash_attention.cu`` -- forward, dK/dV and dQ, each counted on
-its own function attribute ``launches`` -- or raise; nothing falls back.
+its own function attribute ``launches`` -- or raises; nothing falls
+back.
 q, k, v and dO may be strided views (the training block passes views
 into its fused QKV output); O, dQ, dK and dV are returned as ``[B, N, S,
 D]`` views of ``[B, S, N, D]`` memory, so the block's transpose back to
@@ -39,12 +45,13 @@ from . import _build
 __all__ = [
     "flash_attention_bnsd",
     "flash_attention_plain",
+    "flash_attention_bwd_dkv_plain",
+    "flash_attention_bwd_dq_plain",
     "flash_attention_fwd",
     "flash_attention_bwd_dkv",
     "flash_attention_bwd_dq",
     "backward_delta",
     "FlashAttention",
-    "shape_supported",
     "shape_unsupported_reason",
     "kernel_unsupported_reason",
     "NEG_INF",
@@ -78,13 +85,21 @@ def shape_unsupported_reason(seq_len: int, head_dim: int) -> Optional[str]:
     return "[GL002] flash_attention: " + "; ".join(problems)
 
 
-def shape_supported(seq_len: int, head_dim: int) -> bool:
-    return shape_unsupported_reason(seq_len, head_dim) is None
-
-
 # ---------------------------------------------------------------------------
 # the plain PyTorch version
 # ---------------------------------------------------------------------------
+
+def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+    """fp32 ``scale * q k^T`` [B, N, S, S], causal-masked with the finite
+    ``NEG_INF``."""
+    s = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=s.device).tril(sk - sq)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return s
+
 
 def flash_attention_plain(q, k, v, causal: bool, scale: float
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -93,17 +108,44 @@ def flash_attention_plain(q, k, v, causal: bool, scale: float
     softmax, probabilities cast to the q dtype before the PV product with
     an fp32 sum -- ``_xla_reference_bnsd`` -- and the per-row logsumexp of
     the scaled, masked scores, as the forward kernel returns it."""
-    s = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
-    if causal:
-        sq, sk = s.shape[-2], s.shape[-1]
-        mask = torch.ones((sq, sk), dtype=torch.bool,
-                          device=s.device).tril(sk - sq)
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s = _scores(q, k, causal, scale)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bnqk,bnkd->bnqd", p.float(), v.float()).to(q.dtype)
     b, n, sq = lse.shape
     return out, lse.reshape(b * n, sq)
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """(P, dS) in fp32, as the backward kernels recompute them:
+    ``P = exp(scale q k^T - lse)``, ``dS = P * (dO v^T - delta)``."""
+    b, n, sq, _ = q.shape
+    p = torch.exp(_scores(q, k, causal, scale) - lse.view(b, n, sq, 1))
+    dp = torch.einsum("bnqd,bnkd->bnqk", do.float(), v.float())
+    return p, p * (dp - delta.view(b, n, sq, 1))
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
+                                  scale: float):
+    """The dK/dV kernel's plain version: ``(dK, dV)`` in the q dtype from
+    the forward's lse and ``delta = rowsum(dO * O)``; P is rounded to the
+    dO dtype before dV, dS to the q dtype before dK, and the scale enters
+    dK only (the reference's ``_bwd_dkv_kernel``)."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    dv = torch.einsum("bnqk,bnqd->bnkd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bnqk,bnqd->bnkd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool,
+                                 scale: float):
+    """The dQ kernel's plain version: dQ in the q dtype, dS rounded to the
+    k dtype before the product (the reference's ``_bwd_dq_kernel``)."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.einsum("bnqk,bnkd->bnqd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    return dq.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +237,8 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float):
     """Forward kernel: ``(O, lse)`` as :func:`flash_attention_plain`
     returns them; O is a ``[B, N, S, D]`` view of ``[B, S, N, D]``
     memory."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, scale)
     b, n, s, _ = q.shape
     out = _bsnd_empty(q)
     lse = torch.empty((b * n, s), dtype=torch.float32, device=q.device)
@@ -211,11 +255,13 @@ def backward_delta(do, out):
     return (do.float() * out.float()).sum(-1).reshape(b * n, s)
 
 
-def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal: bool,
-                            scale: float, delta=None):
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
+                            scale: float):
     """dK/dV kernel: ``(dK, dV)``, each a ``[B, N, S, D]`` view of
-    ``[B, S, N, D]`` memory."""
-    delta = backward_delta(do, out) if delta is None else delta
+    ``[B, S, N, D]`` memory; ``delta`` from :func:`backward_delta`."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                             causal, scale)
     dk, dv = _bsnd_empty(k), _bsnd_empty(v)
     _launch("bwd_dkv", causal, scale,
             dict(q=q, k=k, v=v, do=do, dk=dk, dv=dv), lse, delta)
@@ -223,11 +269,13 @@ def flash_attention_bwd_dkv(q, k, v, out, lse, do, causal: bool,
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, do, causal: bool,
-                           scale: float, delta=None):
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
+                           scale: float):
     """dQ kernel: dQ as a ``[B, N, S, D]`` view of ``[B, S, N, D]``
-    memory."""
-    delta = backward_delta(do, out) if delta is None else delta
+    memory; ``delta`` from :func:`backward_delta`."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                            scale)
     dq = _bsnd_empty(q)
     _launch("bwd_dq", causal, scale, dict(q=q, k=k, v=v, do=do, dq=dq),
             lse, delta)
@@ -245,7 +293,7 @@ flash_attention_bwd_dq.launches = 0
 class FlashAttention(torch.autograd.Function):
     """The kernels under autograd: the forward saves q, k, v, O and lse;
     the backward computes delta once and runs the dK/dV and dQ
-    kernels.  CUDA tensors only."""
+    kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
@@ -261,10 +309,10 @@ class FlashAttention(torch.autograd.Function):
         if do.stride(3) != 1:
             do = do.contiguous()
         delta = backward_delta(do, out)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, do, ctx.causal,
-                                         ctx.scale, delta)
-        dq = flash_attention_bwd_dq(q, k, v, out, lse, do, ctx.causal,
-                                    ctx.scale, delta)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                         ctx.causal, ctx.scale)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal,
+                                    ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -274,10 +322,11 @@ def flash_attention_bnsd(q, k, v, *, causal: bool = False,
     softmax scale ``sm_scale`` or ``1/sqrt(D)``.
 
     CPU tensors run the plain version, which autograd differentiates;
-    CUDA tensors run the forward kernel and, under autograd, the two
+    any other tensor runs the forward kernel and, under autograd, the two
     backward kernels (counted in ``flash_attention_fwd.launches``,
     ``flash_attention_bwd_dkv.launches`` and
-    ``flash_attention_bwd_dq.launches``), or raise."""
+    ``flash_attention_bwd_dq.launches``), or raises: a shape or dtype the
+    kernels do not take raises ``ValueError`` with the reason."""
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
     if q.device.type == "cpu":

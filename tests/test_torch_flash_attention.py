@@ -5,7 +5,9 @@ The same numpy inputs go through four paths: the port's plain version
 package's ``_xla_reference_bnsd`` (and ``jax.vjp`` of it), and the JAX
 package's own Pallas kernels ``_flash_fwd``/``_flash_bwd`` run in
 interpret mode (``pltpu.force_tpu_interpret_mode``).  O, the per-row
-logsumexp, dq, dk and dv must agree: fp32 within 1e-5 (the same
+logsumexp, dq, dk and dv must agree; so must the port's plain versions of
+the two backward kernels, fed the Pallas forward's lse and delta, and
+the Pallas backward kernels: fp32 within 1e-5 (the same
 arithmetic summed in another order), bf16 within 2e-2 absolute plus 2e-2
 relative (each path rounds its outputs, and the probabilities and dS, to
 bf16 at its own points; a bf16 ulp is 2^-8 relative).
@@ -61,7 +63,8 @@ def _jax_reference(arrays, dtype, causal, scale):
 
 def _jax_pallas(arrays, dtype, causal, scale):
     """O, lse, dq, dk, dv of the Pallas kernels in interpret mode, on the
-    flattened [B * N, S, D] layout they take."""
+    flattened [B * N, S, D] layout they take (O, dq, dk, dv reshaped to
+    [B, N, S, D], lse as [B * N, S])."""
     b, n, s, d = arrays[0].shape
     q, k, v, do = (jnp.asarray(a.reshape(b * n, s, d), getattr(jnp, dtype))
                    for a in arrays)
@@ -95,13 +98,45 @@ def test_plain_matches_jax_reference_and_pallas_kernels(dtype, causal, s, d):
                                    **tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(128, 64), (384, 128)])
+def test_backward_kernels_plain_versions_match_pallas_kernels(dtype, causal,
+                                                               s, d):
+    """Each backward kernel's plain version, fed the Pallas forward's O and
+    lse and ``delta = rowsum(dO * O)``, against the Pallas dK/dV and dQ
+    kernels; the CPU wrappers return the same and count no launch."""
+    arrays = _inputs(1, 2, s, d, seed=2 * s + d + int(causal))
+    scale = 1.0 / np.sqrt(d)
+    o, lse, want_dq, want_dk, want_dv = _jax_pallas(arrays, dtype, causal,
+                                                    scale)
+    td = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(a).to(td) for a in arrays)
+    lse = torch.from_numpy(np.array(lse))
+    delta = tfa.backward_delta(do, torch.from_numpy(np.array(o)).to(td))
+    args = (q, k, v, do, lse, delta, causal, scale)
+    dk, dv = tfa.flash_attention_bwd_dkv_plain(*args)
+    dq = tfa.flash_attention_bwd_dq_plain(*args)
+    tol = TOL[dtype]
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        assert got.dtype == td
+        np.testing.assert_allclose(got.float().numpy(), want, err_msg=name,
+                                   **tol)
+    before = _launch_counts()
+    wk, wv = tfa.flash_attention_bwd_dkv(*args)
+    wq = tfa.flash_attention_bwd_dq(*args)
+    assert _launch_counts() == before
+    for got, want in ((wq, dq), (wk, dk), (wv, dv)):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("seq", [64, 127, 128, 200, 256, 384, 1024])
 @pytest.mark.parametrize("head_dim", [16, 64, 96, 128, 256])
 def test_gate_is_the_jax_packages_rule(seq, head_dim):
     mine = tfa.shape_unsupported_reason(seq, head_dim)
     theirs = flash_gate_reason(seq, head_dim)
     assert (mine is None) == (theirs is None)
-    assert tfa.shape_supported(seq, head_dim) == (theirs is None)
     if theirs is not None:
         assert theirs.detail in mine and mine.startswith("[GL002]")
 
@@ -124,19 +159,38 @@ def _launch_counts():
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    """The public wrapper on CPU tensors: the plain version's forward and
-    autograd backward, equal to calling it directly, and no launch
-    counted."""
+    """The public wrapper and the forward kernel's wrapper on CPU tensors:
+    the plain version's forward and autograd backward, equal to calling
+    it directly, and no launch counted."""
     q, k, v, do = (torch.from_numpy(a).requires_grad_(i < 3)
                    for i, a in enumerate(_inputs(2, 2, 128, 64, seed=5)))
     before = _launch_counts()
     out = tfa.flash_attention_bnsd(q, k, v, causal=True)
     out.backward(do)
+    fwd_out, fwd_lse = tfa.flash_attention_fwd(q, k, v, True, 1.0 / 8.0)
     assert _launch_counts() == before
-    want, _ = tfa.flash_attention_plain(q, k, v, True, 1.0 / 8.0)
-    np.testing.assert_array_equal(out.detach().numpy(),
-                                  want.detach().numpy())
+    want, want_lse = tfa.flash_attention_plain(q, k, v, True, 1.0 / 8.0)
+    for got in (out, fwd_out):
+        np.testing.assert_array_equal(got.detach().numpy(),
+                                      want.detach().numpy())
+    assert torch.equal(fwd_lse, want_lse)
     assert q.grad is not None and k.grad is not None and v.grad is not None
+
+
+@pytest.mark.parametrize("s,d,dtype,reason", [
+    (100, 64, torch.float32, "seq_len=100"),
+    (128, 16, torch.float32, "head_dim=16"),
+    (128, 64, torch.float16, "float16")])
+def test_a_device_tensor_the_kernels_refuse_raises(s, d, dtype, reason):
+    """Off the CPU there is no plain route: a shape or dtype the kernels
+    refuse raises before any kernel is built or launched (meta tensors
+    stand in for the card's)."""
+    q, k, v = (torch.empty((1, 2, s, d), dtype=dtype, device="meta")
+               for _ in range(3))
+    before = _launch_counts()
+    with pytest.raises(ValueError, match=reason):
+        tfa.flash_attention_bnsd(q, k, v, causal=True)
+    assert _launch_counts() == before
 
 
 def test_strided_views_into_a_fused_qkv_buffer_give_the_same_result():

@@ -147,9 +147,9 @@ def test_logits_without_labels_match_jax(state):
 
 def test_recompute_and_the_plain_attention_give_the_same_gradients(state):
     """Per-block recompute (every block, or groups of two) replays the same
-    forward; ``use_flash_attention=False`` takes the plain expression the
-    flash path's plain version computes: all give bitwise-equal
-    gradients on the CPU."""
+    forward; ``use_flash_attention=False``, taken across from a JAX
+    config, runs the same plain version on the CPU: all give
+    bitwise-equal gradients."""
     (ids, labels), = _batches(1, seed=4)
     grads = []
     for kw in (dict(recompute_interval=0), dict(recompute_interval=1),
@@ -187,6 +187,28 @@ def test_dropout_and_a_recompute_interval_that_does_not_divide_raise():
                                  device="cpu")
     with pytest.raises(ValueError, match="recompute_interval"):
         m(ids, labels=ids)
+
+
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(), ValueError, "head_dim=16"),
+    (dict(hidden_size=128, num_heads=2, max_position_embeddings=256),
+     ValueError, "seq_len=200"),
+    (dict(hidden_size=128, num_heads=2, use_flash_attention=False),
+     NotImplementedError, "use_flash_attention=False")])
+def test_training_off_the_cpu_raises_where_the_kernels_do_not_run(kw, error,
+                                                                  match):
+    """Off the CPU the block's attention is the flash kernels or an error,
+    never the plain version: a head_dim or seq the kernels refuse, or
+    ``use_flash_attention=False``, raises (meta tensors stand in for the
+    card's) and nothing is launched."""
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0, **kw)
+    m = GPTStackedForPretraining(cfg, device="cpu").to("meta")
+    seq = 200 if "max_position_embeddings" in kw else 128
+    ids = torch.zeros((1, seq), dtype=torch.long, device="meta")
+    before = tfa.flash_attention_fwd.launches
+    with pytest.raises(error, match=match):
+        m(ids, labels=ids)
+    assert tfa.flash_attention_fwd.launches == before
 
 
 def test_serving_step_builds_no_autograd_graph(state):
