@@ -56,7 +56,39 @@ result line:
 7. train card vs CPU -- gpt_tiny(hidden 128, 2 heads: head_dim 64, so the
    flash gate passes) in fp32, batch 2 x seq 128, 3 steps from the same
    weights on the card and on the CPU: the losses must agree, and the
-   card must have launched the flash kernels.
+   card must have launched the flash kernels;
+8. decode kernels vs plain -- the decode-attention kernel at the
+   generated shape (B 8, H 16, max_seq 1024, D 128) in bf16 and fp32 at
+   lengths 1, 200, 201 and 1024, and at (2, 4, 64, 16) in fp32; the paged
+   kernel over 8 slots x 16 heads, page 128, shuffled pool pages, lengths
+   0, 1, 128, 129, 512 (and more), and at page 16, D 16; the flash
+   forward at ragged lengths (bf16 (8, 16, 200, 128) causal, fp32 (1, 2,
+   77, 64) causal and full).  Each is held to phase 5's two bounds
+   (elementwise against the sum of the absolute terms, and over the whole
+   output); a cache holding NaN past the length must give a finite output
+   equal to that of the same cache with zeros there.  Then both decode
+   kernels' times at (B 8, H 16, length 264) and at length 1024 beside the
+   bytes bound, the plain versions and, for the contiguous cache,
+   ``F.scaled_dot_product_attention`` on the length-sliced cache;
+9. generate -- GPT-3 1.3B at full width and depth with random bf16
+   weights from a fixed seed and a bf16 cache: ``generate`` of batch 8,
+   prompt 200, 64 new tokens, ``max_seq_len`` 1024, greedy with
+   ``return_logits``.  The output must be [8, 264] with every logit
+   finite, and the run must launch the flash forward exactly 24 times (the
+   prefill) and the decode kernel exactly 24 x 63 times; then a sampled
+   ``generate`` (temperature 0.8, top-k 50, top-p 0.9) twice from one
+   generator seed must give the same in-vocab tokens.  Prints the prefill
+   ms, the mean decode ms per token, tokens/s and peak memory;
+10. paged step without a plan -- the same model and prompts in 8 slots of
+   page 128 over shuffled pool pages: chunked prefill in chunks of 64,
+   then 16 decode steps (C == 1) teacher-forced with phase 9's greedy
+   tokens.  Every step's logits must lie within a bf16 tolerance of phase
+   9's, and each decode step must launch the paged kernel exactly 24
+   times;
+11. generate card vs CPU -- gpt_tiny(hidden 128, 2 heads) in fp32: greedy
+   ``generate`` from a prompt of 77 and the paged path without a plan must
+   give the CPU's tokens, and the card must have launched the flash
+   forward, decode and paged kernels.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -112,6 +144,19 @@ FLASH_O_NORM = {"float32": 1e-6, "bfloat16": 2.0 ** -8}
 # gradients (|g| up to ~4, where an ulp is 2^-6)
 FLASH_GRAD_TOL = {"float32": (2e-5, 1e-5, 1e-5),
                   "bfloat16": (2.0 ** -6, 2.0 ** -7, 2.0 ** -7)}
+# decode and paged kernels vs plain: held to the flash forward's bounds
+# (FLASH_TOL[dtype][:2] elementwise against m = P|V|, FLASH_O_NORM over the
+# whole output).  The kernels round P against the running max of each
+# 256-key chunk, the plain versions after normalising -- the flash
+# forward's case -- and both round O once.
+# phase 10 against phase 9 (bf16 GPT-3 1.3B logits, teacher-forced):
+# the two runs feed the same tokens and differ where their attention
+# rounds in bf16 (the prefill: flash kernel vs the chunked path's plain
+# attention; decode: the same arithmetic over K/V that the differing
+# prefill left in the caches), carried through 24 bf16 layers.  Held over
+# each step's [8, V] logits: ||paged - generate|| <= GEN_NORM ||generate||
+# and max |paged - generate| <= GEN_ATOL
+GEN_NORM, GEN_ATOL = 2.0 ** -4, 0.25
 # AdamW kernel vs plain: the same fp32 formula, which the compiler
 # contracts into FMAs: a value at a bf16 rounding midpoint can round
 # either way (one bf16 ulp, at most 2^-7 relative), and a sum that cancels
@@ -126,6 +171,12 @@ FLASH_CASES = (("bfloat16", TRAIN_SHAPE, True),
                ("float32", (1, 2, 384, 64), True))
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_WARMUP, TRAIN_STEPS = 2, 6
+# generate at GPT-3 1.3B: batch, prompt, new tokens, cache length
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_MAX_SEQ = 8, 200, 64, 1024
+GEN_PAGE, GEN_CHUNK, GEN_PAGED_STEPS = 128, 64, 16
+# decode kernels' timing lengths: the end of phase 9's generate, and a
+# full cache
+DECODE_TIMED_LENGTHS = (GEN_PROMPT + GEN_NEW, GEN_MAX_SEQ)
 SERVE_LAYERS = 24
 DEVICE = "cuda"
 
@@ -137,14 +188,17 @@ def import_port():
     from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_1p3b, \
         gpt_tiny
     from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import decode_attention as da
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_adamw as fw
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
     from paddle_tpu_torch.serving import RequestState, ServingEngine
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
                 gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
+                da=da, pa=pa,
                 AdamW=AdamW, FusedTrainStep=FusedTrainStep,
                 RequestState=RequestState, ServingEngine=ServingEngine)
 
@@ -790,20 +844,24 @@ def train_steps(port, step, batches, n, first=0):
     return [float(x) for x in losses], time.perf_counter() - t0
 
 
+def _counted(port):
+    """Every kernel wrapper that counts its launches, by short name."""
+    fa = port["fa"]
+    return {"fwd": fa.flash_attention_fwd, "dkv": fa.flash_attention_bwd_dkv,
+            "dq": fa.flash_attention_bwd_dq,
+            "adamw": port["fw"].fused_adamw_update,
+            "decode": port["da"].decode_attention,
+            "paged": port["pa"].paged_attention,
+            "ragged": port["rpa"].ragged_paged_attention}
+
+
 def _launch_counts(port):
-    fa, fw = port["fa"], port["fw"]
-    return {"fwd": fa.flash_attention_fwd.launches,
-            "dkv": fa.flash_attention_bwd_dkv.launches,
-            "dq": fa.flash_attention_bwd_dq.launches,
-            "adamw": fw.fused_adamw_update.launches}
+    return {k: f.launches for k, f in _counted(port).items()}
 
 
 def _reset_launches(port):
-    fa, fw = port["fa"], port["fw"]
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_bwd_dkv.launches = 0
-    fa.flash_attention_bwd_dq.launches = 0
-    fw.fused_adamw_update.launches = 0
+    for f in _counted(port).values():
+        f.launches = 0
 
 
 def phase_train(port):
@@ -880,6 +938,465 @@ def phase_train_card_vs_cpu(port):
            "the card's train steps did not launch the flash kernels")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: decode kernels vs plain
+# ---------------------------------------------------------------------------
+
+def _randn(torch, shape, dtype, gen):
+    return torch.randn(shape, generator=gen, device=DEVICE).to(
+        getattr(torch, dtype))
+
+
+def _hold(torch, name, dtype, got, want, m):
+    """``got`` against ``want`` under the flash forward's two bounds:
+    elementwise against ``m`` (the sum of the absolute terms of each
+    output element) and over the whole output.  Returns the max abs
+    error."""
+    atol, rtol, _ = FLASH_TOL[dtype]
+    norm = FLASH_O_NORM[dtype]
+    err, over = _over(got, want, (atol, rtol), m)
+    a, b = got.float(), want.float()
+    rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    finite = bool(torch.isfinite(a).all())
+    print(f"[decode_kernels] {name} {dtype}: max_abs_err={err!r} (tol "
+          f"{atol:.3g}+{rtol:.3g}*m), norm {rel:.3g} (tol {norm:.3g})")
+    _check(finite, f"{name} {dtype}: non-finite output")
+    _check(over <= 0 and rel <= norm,
+           f"{name} {dtype}: kernel vs plain off by more than the tolerance")
+    return err
+
+
+def _masked_probs(torch, q, k, lengths, scale):
+    """fp32 softmax P [R, keys] of q [R, D] over k [R, keys, D], masked to
+    each row's length (a length-0 row is all zeros)."""
+    s = torch.einsum("rd,rkd->rk", q.float(), k.float()) * scale
+    valid = torch.arange(k.shape[1], device=k.device)[None] < lengths[:, None]
+    p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    return torch.nan_to_num(p, nan=0.0)
+
+
+def _decode_case(port, dtype, shape, lengths, seed):
+    """The decode kernel against its plain version at every length, with
+    q a view into a fused QKV buffer; a cache holding NaN past the length
+    must give the output of the same cache with zeros there."""
+    torch, da = port["torch"], port["da"]
+    b, h, s, d = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = _randn(torch, (b, 3, h, d), dtype, gen)[:, 0]
+    k, v = (_randn(torch, shape, dtype, gen) for _ in range(2))
+    scale = 1.0 / d ** 0.5
+    err = 0.0
+    for n in lengths:
+        got = da.decode_attention(q, k, v, torch.tensor(n, device=DEVICE))
+        want = da.decode_attention_plain(q, k, v, n, scale)
+        p = _masked_probs(torch, q.reshape(b * h, d), k.reshape(b * h, s, d),
+                          torch.full((b * h,), n, device=DEVICE), scale)
+        m = torch.einsum("rk,rkd->rd", p, v.reshape(b * h, s, d).float().abs())
+        err = max(err, _hold(torch, f"decode {shape} length {n}", dtype,
+                             got, want,
+                             m.reshape(b, h, d)))
+    n = lengths[1]
+    stale_k, stale_v, zero_k, zero_v = (t.clone() for t in (k, v, k, v))
+    for t, fill in ((stale_k, float("nan")), (stale_v, float("nan")),
+                    (zero_k, 0.0), (zero_v, 0.0)):
+        t[:, :, n:] = fill
+    a = da.decode_attention(q, stale_k, stale_v, n)
+    z = da.decode_attention(q, zero_k, zero_v, n)
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(a.float()).all()) and torch.equal(a, z),
+           f"decode {dtype} {shape}: NaN past the length reached the output")
+    return err
+
+
+def _paged_tables(rng, slots, max_pages, num_pages):
+    perm = rng.permutation(np.arange(1, num_pages)).astype(np.int32)
+    return perm[:slots * max_pages].reshape(slots, max_pages)
+
+
+def _paged_case(port, dtype, slots, heads, page, d, lengths, seed):
+    """The paged kernel against its plain version over shuffled pool
+    pages; a pool holding NaN in every position its slots may not see
+    must give the output of the same pool with zeros there."""
+    torch, pa = port["torch"], port["pa"]
+    rng = np.random.RandomState(seed)
+    max_pages = max(-(-n // page) for n in lengths) + 1
+    num_pages = slots * max_pages + 1
+    tables_np = _paged_tables(rng, slots, max_pages, num_pages)
+    tables = torch.from_numpy(tables_np).to(DEVICE)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = _randn(torch, (slots, 3, heads, d), dtype, gen)[:, 0]
+    kp, vp = (_randn(torch, (num_pages, heads, page, d), dtype, gen)
+              for _ in range(2))
+    scale = 1.0 / d ** 0.5
+    got = pa.paged_attention(q, kp, vp, tables, lens)
+    want = pa.paged_attention_plain(q, kp, vp, tables, lens, scale)
+    kg, vg = pa.gather_pages(kp, tables), pa.gather_pages(vp, tables)
+    ctx = kg.shape[2]
+    p = _masked_probs(torch, q.reshape(slots * heads, d),
+                      kg.reshape(slots * heads, ctx, d),
+                      lens.repeat_interleave(heads), scale)
+    m = torch.einsum("rk,rkd->rd", p,
+                     vg.reshape(slots * heads, ctx, d).float().abs())
+    err = _hold(torch, f"paged {slots} slots x {heads} heads page {page} "
+                f"D {d} lengths {list(lengths)}", dtype, got, want,
+                m.reshape(slots, heads, d))
+    _check(not bool(got[lens == 0].float().any()),
+           "paged: a length-0 slot must give zeros")
+    # every position no slot may see: NaN (stale) or 0
+    seen_np = np.zeros((num_pages, page), bool)
+    for s_, n in enumerate(lengths):
+        pos = np.arange(n)
+        seen_np[tables_np[s_, pos // page], pos % page] = True
+    seen = torch.from_numpy(seen_np).to(DEVICE)
+    outs = []
+    for fill in (float("nan"), 0.0):
+        kf, vf = kp.clone(), vp.clone()
+        for t in (kf, vf):
+            t.masked_fill_(~seen[:, None, :, None], fill)
+        outs.append(pa.paged_attention(q, kf, vf, tables, lens))
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(outs[0].float()).all())
+           and torch.equal(outs[0], outs[1]),
+           f"paged {dtype}: NaN past the lengths reached the output")
+    return err
+
+
+def _flash_ragged_case(port, dtype, shape, causal, seed):
+    """The flash forward at a length that is not a 128-multiple: O and lse
+    against the plain version, O under the two bounds, lse fp32."""
+    torch, fa = port["torch"], port["fa"]
+    b, n, s, d = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    buf = _randn(torch, (b, s, 3, n, d), dtype, gen)
+    q, k, v = (t.transpose(1, 2) for t in buf.unbind(2))
+    scale = 1.0 / d ** 0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    want, want_lse = fa.flash_attention_plain(q, k, v, causal, scale)
+    sc = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
+    if causal:
+        keep = torch.ones((s, s), dtype=torch.bool, device=DEVICE).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    m = torch.einsum("bnqk,bnkd->bnqd", torch.softmax(sc, dim=-1),
+                     v.float().abs())
+    err = _hold(torch, f"flash forward {shape} causal={causal} O", dtype, out,
+                want, m)
+    e_lse, over = _over(lse, want_lse, FLASH_TOL["float32"][:2])
+    _check(over <= 0, f"flash forward {shape}: lse off by {e_lse}")
+    return max(err, e_lse)
+
+
+def _decode_bound(b, h, n, d, itemsize):
+    """(bound ms, "bytes" | "operations") of one decode-kernel launch over
+    ``n`` valid positions per row: K and V of those positions, q and the
+    output read or written once, over HBM bandwidth; the QK and PV
+    multiply-adds over the peak of the cache dtype."""
+    nbytes = 2 * b * h * n * d * itemsize + 2 * b * h * d * itemsize + 4 * b
+    flops = 4.0 * b * h * n * d
+    peak = PEAK_FLOPS["bfloat16" if itemsize == 2 else "float32"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _time_decode_kernels(port, n):
+    """Device ms per launch at (B 8, H 16, D 128, bf16) over ``n`` valid
+    positions: the decode kernel (max_seq 1024), its plain version and
+    SDPA on the length-sliced cache; the paged kernel (page 128, shuffled
+    pages) and its plain version.  One cache per layer (24 x 64 MiB), so
+    each launch finds its keys cold in the 50 MB L2."""
+    torch, da, pa = port["torch"], port["da"], port["pa"]
+    import torch.nn.functional as F
+
+    b, h, d, L = GEN_BATCH, 16, 128, SERVE_LAYERS
+    gen = torch.Generator(device=DEVICE).manual_seed(30 + n)
+    q = _randn(torch, (b, h, d), "bfloat16", gen)
+    scale = 1.0 / d ** 0.5
+    cache = [_randn(torch, (L, b, h, GEN_MAX_SEQ, d), "bfloat16", gen)
+             for _ in range(2)]
+    length = torch.tensor(n, dtype=torch.int32, device=DEVICE)
+    t = {}
+    t["decode"], _ = _time_ms(torch, lambda i: da.decode_attention(
+        q, cache[0][i % L], cache[1][i % L], length), 240)
+    t["decode_plain"], _ = _time_ms(torch, lambda i: da.decode_attention_plain(
+        q, cache[0][i % L], cache[1][i % L], n, scale), 24)
+    q4 = q[:, :, None]
+    t["sdpa"], _ = _time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q4, cache[0][i % L][:, :, :n], cache[1][i % L][:, :, :n],
+        scale=scale), 240)
+    t["decode_again"], _ = _time_ms(torch, lambda i: da.decode_attention(
+        q, cache[0][i % L], cache[1][i % L], length), 240)
+    del cache
+    max_pages = GEN_MAX_SEQ // GEN_PAGE
+    num_pages = b * max_pages + 1
+    tables = torch.from_numpy(_paged_tables(
+        np.random.RandomState(n), b, max_pages, num_pages)).to(DEVICE)
+    lens = torch.full((b,), n, dtype=torch.int32, device=DEVICE)
+    pools = [_randn(torch, (L, num_pages, h, GEN_PAGE, d), "bfloat16", gen)
+             for _ in range(2)]
+    t["paged"], _ = _time_ms(torch, lambda i: pa.paged_attention(
+        q, pools[0][i % L], pools[1][i % L], tables, lens), 240)
+    t["paged_plain"], _ = _time_ms(torch, lambda i: pa.paged_attention_plain(
+        q, pools[0][i % L], pools[1][i % L], tables, lens, scale), 24)
+    t["paged_again"], _ = _time_ms(torch, lambda i: pa.paged_attention(
+        q, pools[0][i % L], pools[1][i % L], tables, lens), 240)
+    del pools
+    torch.cuda.empty_cache()
+    t["bound"] = _decode_bound(b, h, n, d, 2)
+    return t
+
+
+def phase_decode_kernels(port):
+    errs = {"decode": 0.0, "paged": 0.0, "fwd": 0.0}
+    for i, (dtype, shape, lengths) in enumerate((
+            ("bfloat16", (GEN_BATCH, 16, GEN_MAX_SEQ, 128),
+             (1, 200, 201, 1024)),
+            ("float32", (GEN_BATCH, 16, GEN_MAX_SEQ, 128),
+             (1, 200, 201, 1024)),
+            ("float32", (2, 4, 64, 16), (1, 17, 64)))):
+        errs["decode"] = max(errs["decode"],
+                             _decode_case(port, dtype, shape, lengths, 40 + i))
+    for i, (dtype, slots, heads, page, d, lengths) in enumerate((
+            ("bfloat16", 8, 16, 128, 128, (0, 1, 128, 129, 512, 264, 300, 64)),
+            ("float32", 8, 16, 128, 128, (0, 1, 128, 129, 512, 264, 300, 64)),
+            ("float32", 5, 4, 16, 16, (0, 1, 16, 17, 40)))):
+        errs["paged"] = max(errs["paged"], _paged_case(
+            port, dtype, slots, heads, page, d, lengths, 50 + i))
+    for i, (dtype, shape, causal) in enumerate((
+            ("bfloat16", (GEN_BATCH, 16, GEN_PROMPT, 128), True),
+            ("float32", (1, 2, 77, 64), True),
+            ("float32", (1, 2, 77, 64), False))):
+        errs["fwd"] = max(errs["fwd"], _flash_ragged_case(port, dtype, shape,
+                                                          causal, 60 + i))
+    times = {}
+    for n in DECODE_TIMED_LENGTHS:
+        t = times[n] = _time_decode_kernels(port, n)
+        print(f"[decode_kernels] bf16 (B 8, H 16, D 128) length {n} timing "
+              f"(device ms per launch): decode kernel {t['decode']!r} then "
+              f"{t['decode_again']!r}, plain {t['decode_plain']!r}, SDPA on "
+              f"the sliced cache {t['sdpa']!r}; paged kernel {t['paged']!r} "
+              f"then {t['paged_again']!r}, plain {t['paged_plain']!r}; bound "
+              f"{t['bound'][0]!r} ms ({t['bound'][1]})")
+    t = times[DECODE_TIMED_LENGTHS[0]]
+    bound_ms, bound_by = t["bound"]
+    return {"decode": dict(max_abs_err=errs["decode"],
+                           ms=min(t["decode"], t["decode_again"]),
+                           plain_ms=t["decode_plain"], bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=t["sdpa"]),
+            # no one PyTorch call computes it: a gather plus attention is
+            # two calls
+            "paged": dict(max_abs_err=errs["paged"],
+                          ms=min(t["paged"], t["paged_again"]),
+                          plain_ms=t["paged_plain"], bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None),
+            "flash_ragged_err": errs["fwd"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: generate with GPT-3 1.3B at full width and depth
+# ---------------------------------------------------------------------------
+
+# the generate workload's cache, defined once here;
+# tools/port_generate_profile.py profiles the same one
+GEN_KW = dict(max_seq_len=GEN_MAX_SEQ, cache_dtype="bfloat16")
+
+
+def generate_setup(port):
+    """GPT-3 1.3B at full width and depth with random bf16 weights (seed
+    0) and GEN_BATCH fixed random prompts of GEN_PROMPT tokens on the
+    card, warmed up by one short ``generate`` (cuBLAS handles, the
+    allocator, the bf16 cache).  Returns ``(model, ids)``."""
+    torch = port["torch"]
+    cfg = port["gpt_1p3b"]()
+    _check(cfg.num_layers == SERVE_LAYERS, "gpt_1p3b has 24 layers")
+    model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    rng = np.random.RandomState(9)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (GEN_BATCH, GEN_PROMPT))).to(DEVICE)
+    model.generate(ids, 2, **GEN_KW)
+    torch.cuda.synchronize()
+    return model, ids
+
+
+def phase_generate(port):
+    torch = port["torch"]
+    t0 = time.perf_counter()
+    model, ids = generate_setup(port)
+    cfg, kw = model.config, GEN_KW
+    t1 = time.perf_counter()
+    model.generate(ids, 1, **kw)                 # the prefill alone
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    print(f"[generate] gpt_1p3b bf16 set-up and warm-up "
+          f"{t1 - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(port)
+    t1 = time.perf_counter()
+    # without eos_token_id the loop must make no host sync: any
+    # synchronizing CUDA call raises while this mode is on
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, logits = model.generate(ids, GEN_NEW, return_logits=True, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _launch_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    _check(tuple(out.shape) == (GEN_BATCH, GEN_PROMPT + GEN_NEW),
+           f"generate output shape {tuple(out.shape)}")
+    _check(tuple(logits.shape) == (GEN_BATCH, GEN_NEW, cfg.vocab_size)
+           and bool(torch.isfinite(logits).all()),
+           "generate logits not finite / of the wrong shape")
+    _check(torch.equal(out[:, :GEN_PROMPT], ids),
+           "the prompt came back changed")
+    _check(launches["fwd"] == L and launches["decode"] == L * (GEN_NEW - 1)
+           and launches["paged"] == 0 and launches["ragged"] == 0,
+           f"generate launches {launches}, expected flash forward {L} and "
+           f"decode {L * (GEN_NEW - 1)}")
+    decode_ms = 1e3 * (wall - prefill_s) / (GEN_NEW - 1)
+    print(f"[generate] batch {GEN_BATCH} prompt {GEN_PROMPT} + {GEN_NEW} new "
+          f"tokens (greedy, return_logits, no host sync): {1e3 * wall:.2f} "
+          f"ms, prefill "
+          f"{1e3 * prefill_s:.2f} ms, mean decode {decode_ms:.3f} ms per "
+          f"token (host clock), {GEN_BATCH * GEN_NEW / wall:.1f} tokens/s; "
+          f"launches {launches}; peak device memory {peak / 2**30:.2f} GiB")
+    samples = []
+    for _ in range(2):
+        g = torch.Generator(device=DEVICE).manual_seed(1234)
+        samples.append(model.generate(ids, 16, do_sample=True,
+                                      temperature=0.8, top_k=50, top_p=0.9,
+                                      generator=g, **kw))
+    same = torch.equal(*samples)
+    in_vocab = bool(((samples[0] >= 0) & (samples[0] < cfg.vocab_size)).all())
+    print(f"[generate] sampled (temperature 0.8, top-k 50, top-p 0.9) twice "
+          f"from one seed: equal {same}, in vocab {in_vocab}")
+    _check(same and in_vocab, "sampled generate not reproducible / in vocab")
+    model.clear_decode_cache()
+    return model, ids, out, logits, launches["decode"]
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the paged step without a plan at full width
+# ---------------------------------------------------------------------------
+
+def phase_paged(port, model, ids, out, logits):
+    torch = port["torch"]
+    cfg = model.config
+    b = GEN_BATCH
+    max_pages = -(-(GEN_PROMPT + GEN_PAGED_STEPS) // GEN_PAGE) + 1
+    num_pages = b * max_pages + 1
+    cache = model.new_paged_kv_cache(num_pages, GEN_PAGE, dtype="bfloat16")
+    tables = torch.from_numpy(_paged_tables(
+        np.random.RandomState(11), b, max_pages, num_pages)).to(DEVICE)
+
+    def step(tok, pos):
+        with torch.no_grad():
+            return model._paged_lm_logits(
+                tok, cache, tables,
+                torch.full((b,), pos, dtype=torch.int32, device=DEVICE))
+
+    diffs = []
+
+    def compare(got, j):
+        want = logits[:, j]
+        got = got.float()
+        rel = ((got - want).norm() / want.norm()).item()
+        err = (got - want).abs().max().item()
+        diffs.append((rel, err))
+        _check(bool(torch.isfinite(got).all()), "paged logits not finite")
+        _check(rel <= GEN_NORM and err <= GEN_ATOL,
+               f"paged step {j}: logits off phase 9's by norm {rel} / max "
+               f"{err}")
+
+    _reset_launches(port)
+    for lo in range(0, GEN_PROMPT, GEN_CHUNK):
+        hi = min(GEN_PROMPT, lo + GEN_CHUNK)
+        last = step(ids[:, lo:hi], lo)[:, -1]
+    compare(last, 0)
+    prefill = _launch_counts(port)
+    _check(all(v == 0 for v in prefill.values()),
+           f"the chunked prefill launched kernels {prefill}")
+    per_step = []
+    for j in range(GEN_PAGED_STEPS):
+        before = port["pa"].paged_attention.launches
+        got = step(out[:, GEN_PROMPT + j:GEN_PROMPT + j + 1], GEN_PROMPT + j)
+        per_step.append(port["pa"].paged_attention.launches - before)
+        compare(got[:, 0], j + 1)
+    torch.cuda.synchronize()
+    launches = _launch_counts(port)
+    L = cfg.num_layers
+    print(f"[paged] 8 slots, page {GEN_PAGE}, chunks of {GEN_CHUNK}, then "
+          f"{GEN_PAGED_STEPS} teacher-forced decode steps: logits vs phase 9 "
+          f"max norm {max(r for r, _ in diffs):.4g} (tol {GEN_NORM:.4g}), "
+          f"max abs {max(e for _, e in diffs):.4g} (tol {GEN_ATOL}); paged "
+          f"launches per step {sorted(set(per_step))}, total {launches}")
+    _check(all(n == L for n in per_step) and launches["paged"] == L *
+           GEN_PAGED_STEPS and launches["decode"] == 0
+           and launches["fwd"] == 0 and launches["ragged"] == 0,
+           f"paged launches {launches}, per step {per_step}")
+    del cache
+    torch.cuda.empty_cache()
+    return launches["paged"]
+
+
+# ---------------------------------------------------------------------------
+# phase 11: generate card vs CPU on gpt_tiny, fp32
+# ---------------------------------------------------------------------------
+
+def _paged_greedy(port, model, ids, new):
+    """Greedy tokens of the paged path without a plan: the prompt in
+    chunks of 32, then ``new`` one-token steps."""
+    torch = port["torch"]
+    b, s0 = ids.shape
+    cache = model.new_paged_kv_cache(b * 8 + 1, 16, dtype="float32")
+    tables = torch.arange(1, b * 8 + 1, dtype=torch.int32,
+                          device=model.device).reshape(b, 8)
+    toks = []
+    with torch.no_grad():
+        for lo in range(0, s0, 32):
+            hi = min(s0, lo + 32)
+            pos = torch.full((b,), lo, dtype=torch.int32, device=model.device)
+            last = model._paged_lm_logits(ids[:, lo:hi], cache, tables,
+                                          pos)[:, -1]
+        for j in range(new):
+            tok = last.argmax(-1)
+            toks.append(tok)
+            pos = torch.full((b,), s0 + j, dtype=torch.int32,
+                             device=model.device)
+            last = model._paged_lm_logits(tok[:, None], cache, tables,
+                                          pos)[:, 0]
+    return torch.stack(toks, 1).cpu().numpy()
+
+
+def phase_generate_card_vs_cpu(port):
+    torch = port["torch"]
+    cfg = port["gpt_tiny"](hidden_size=128, num_heads=2)
+    cpu = port["GPT"](cfg, device="cpu", dtype="float32", seed=5)
+    card = port["GPT"](cfg, device=DEVICE, dtype="float32", seed=5)
+    card.load_state_dict(cpu.state_dict())
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 77))
+    _reset_launches(port)
+    outs, paged = [], []
+    for m in (cpu, card):
+        outs.append(m.generate(ids, 16, max_seq_len=128,
+                               cache_dtype="float32").cpu().numpy())
+        paged.append(_paged_greedy(port, m, torch.from_numpy(ids).to(
+            m.device), 16))
+    launches = _launch_counts(port)
+    same = np.array_equal(*outs)
+    same_paged = np.array_equal(*paged)
+    print(f"[generate_card_vs_cpu] gpt_tiny fp32 prompt 77: generate tokens "
+          f"equal {same}, paged path tokens equal {same_paged}; card "
+          f"launches {launches}")
+    _check(same and same_paged, f"card and CPU tokens differ: {outs} "
+           f"{paged}")
+    _check(launches["fwd"] > 0 and launches["decode"] > 0
+           and launches["paged"] > 0,
+           "the card did not launch the flash, decode and paged kernels")
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -908,6 +1425,15 @@ def main() -> int:
     tk = phase_train_kernels(port)
     train_launches = phase_train(port)
     phase_train_card_vs_cpu(port)
+    dk = phase_decode_kernels(port)
+    # the flash forward's error over phase 5 and its ragged lengths here
+    tk["fwd"]["max_abs_err"] = max(tk["fwd"]["max_abs_err"],
+                                   dk["flash_ragged_err"])
+    model, ids, out, logits, decode_launches = phase_generate(port)
+    paged_launches = phase_paged(port, model, ids, out, logits)
+    del model, ids, out, logits
+    torch.cuda.empty_cache()
+    phase_generate_card_vs_cpu(port)
     print(card)
     csrc = "paddle_tpu_torch/ops/kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
@@ -930,6 +1456,15 @@ def main() -> int:
                         "source": csrc + source,
                         "replaces": pallas + replaces,
                         "launches": train_launches[key], **tk[key]})
+    for key, name, replaces, launched in (
+            ("decode", "decode_attention", "decode_attention.py:86",
+             decode_launches),
+            ("paged", "paged_attention", "paged_attention.py:83",
+             paged_launches)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": csrc + "decode_attention.cu",
+                        "replaces": pallas + replaces, "launches": launched,
+                        **dk[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,20 +8,29 @@ head_dim)``, and the LM head is tied to the word embeddings.  Its
 ``state_dict`` keys are the JAX model's, so ``load_jax_state`` carries
 trained weights across unchanged.
 
-The model serves and trains:
+The model serves, generates and trains:
 
 - serving runs the fused mixed prefill/decode step of ``ServingEngine``
   (one flat token per row, C == 1, with a ragged plan), through
   ``ops/kernels/ragged_paged_attention.py``;
+- the paged step without a plan (``_paged_lm_logits`` with no
+  ``ragged_plan``, ``[S, C]`` ids at per-slot positions): C == 1 decodes
+  one token per slot through ``ops/kernels/paged_attention.py``; C > 1 is
+  the chunked prefill, attention over each slot's gathered pages with the
+  absolute-position mask (XLA code in the JAX package, plain torch here);
+- ``generate()`` (``models/generation.py``) over a contiguous stacked
+  ``[L, B, H, max_seq, D]`` cache: the whole-prompt prefill at position 0
+  through the flash forward kernel at any prompt length, every later
+  token through ``ops/kernels/decode_attention.py``, and a chunked
+  prefill at any other position through masked attention over the whole
+  cache (XLA code in the JAX package, plain torch here);
 - training runs ``forward(input_ids, labels=...)``: the stacked block of
   the reference's ``_block_fn`` per layer, with causal attention through
   ``ops/kernels/flash_attention.py``, groups of ``recompute_interval``
   blocks under activation checkpointing (as ``scan_blocks`` remats them),
   and the chunked loss head of ``nn/functional.py``.
 
-``generate()`` over a contiguous KV cache, the chunked-prefill path
-without a plan, and dropout in training wait for later slices (ROADMAP.md
-queue 1).
+Dropout in training waits for a later slice (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -36,8 +45,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import resolve_device, to_torch_dtype
 from ..nn.functional import fused_linear_cross_entropy
-from ..ops.kernels.flash_attention import flash_attention_bnsd
+from ..ops.kernels.decode_attention import decode_attention
+from ..ops.kernels.flash_attention import (
+    flash_attention_bnsd, flash_attention_fwd,
+)
+from ..ops.kernels.paged_attention import gather_pages, paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
+from .generation import GenerationMixin, KVCache
 
 __all__ = [
     "GPTConfig",
@@ -148,34 +162,47 @@ class GPTStackedDecoder(nn.Module):
             self.register_parameter(
                 name, nn.Parameter(torch.empty(shapes[name], **factory)))
 
-    def _block(self, h, l1g, l1b, qkvw, qkvb, pw, pb, l2g, l2b, f1w, f1b,
-               f2w, f2b):
-        """One training block (the reference's ``_block_fn`` body):
-        ``h`` [B, S, hidden] -> [B, S, hidden]."""
+    def _block(self, h, weights, attend):
+        """One block (the reference's ``_block_fn``, ``_cached_block_fn``
+        and ``_paged_block_fn`` bodies): ``h`` [B, S, hidden] -> [B, S,
+        hidden].  ``attend(q, k, v)`` takes the fresh [B, S, H, D] views
+        into the fused QKV output (the backward of unbind stacks dQ/dK/dV
+        into the QKV gradient in one pass) and returns the attention
+        output as [B, S, H, D], in any dtype; a cached ``attend`` also
+        writes K/V into its cache."""
         cfg = self._cfg
         nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
+        l1g, l1b, qkvw, qkvb, pw, pb, l2g, l2b, f1w, f1b, f2w, f2b = weights
         b, s, hidden = h.shape
         x = _layer_norm(h, l1g, l1b, eps).reshape(b * s, hidden)
         qkv = torch.addmm(qkvb, x, qkvw).view(b, s, 3, nh, hd)
-        # [B, N, S, D] views into the fused output: no copy; the backward
-        # of unbind stacks dQ/dK/dV into the QKV gradient in one pass
-        q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
-        # on the card a shape or dtype the kernels refuse raises here
-        out = flash_attention_bnsd(q, k, v, causal=True,
-                                   sm_scale=float(1.0 / np.sqrt(hd)))
-        out = out.transpose(1, 2).reshape(b * s, hidden)
+        out = attend(*qkv.unbind(2))
+        out = out.reshape(b * s, hidden).to(pw.dtype)  # cache dtype may differ
         h = h + torch.addmm(pb, out, pw).view(b, s, hidden)
         y = _layer_norm(h, l2g, l2b, eps).reshape(b * s, hidden)
         y = F.gelu(torch.addmm(f1b, y, f1w), approximate="tanh")
         return h + torch.addmm(f2b, y, f2w).view(b, s, hidden)
 
+    def _train_attend(self, q, k, v):
+        """Causal attention of the training block through the flash
+        kernels (on the card a shape or dtype they refuse raises here)."""
+        out = flash_attention_bnsd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, sm_scale=float(1.0 / np.sqrt(self._cfg.head_dim)))
+        return out.transpose(1, 2)
+
     def _blocks(self, h, *weights):
-        """Consecutive blocks; ``weights`` holds each block's 12 slices,
-        block after block."""
+        """Consecutive training blocks; ``weights`` holds each block's 12
+        slices, block after block."""
         n = len(self.PARAM_NAMES)
         for i in range(0, len(weights), n):
-            h = self._block(h, *weights[i:i + n])
+            h = self._block(h, weights[i:i + n], self._train_attend)
         return h
+
+    def _layers(self):
+        """Each layer's 12 weight slices, layer after layer (one unbind per
+        slab: its backward stacks the layers' gradients)."""
+        return zip(*(getattr(self, n).unbind(0) for n in self.PARAM_NAMES))
 
     def forward(self, h):
         """The training stack: ``h`` [B, S, hidden] through every layer.
@@ -188,9 +215,7 @@ class GPTStackedDecoder(nn.Module):
         if k > 0 and cfg.num_layers % k:
             raise ValueError(f"recompute_interval={k} must divide "
                              f"num_layers={cfg.num_layers}")
-        # one unbind per slab: its backward stacks the layers' gradients
-        layers = list(zip(*(getattr(self, n).unbind(0)
-                            for n in self.PARAM_NAMES)))
+        layers = list(self._layers())
         if k <= 0:
             return self._blocks(h, *(w for layer in layers for w in layer))
         for g0 in range(0, cfg.num_layers, k):
@@ -198,52 +223,128 @@ class GPTStackedDecoder(nn.Module):
             h = checkpoint(self._blocks, h, *group, use_reentrant=False)
         return h
 
+    def forward_cached(self, h, k_cache, v_cache, pos):
+        """Prefill or decode over a contiguous cache (the reference's
+        ``_forward_cached`` with ``_raw_attend_with_cache``).  ``h``
+        [B, S, hidden]; ``k_cache``/``v_cache`` the stacked
+        ``[L, B, H, max_seq, D]`` cache, written in place at positions
+        ``pos .. pos + S - 1``; ``pos`` the Python int 0 (the whole-prompt
+        prefill) or a 0-d integer tensor on the cache's device.
+
+        - S == 1: the decode kernel over ``pos + 1`` positions;
+        - S > 1 at a Python 0: the flash forward kernel, causal, over the
+          fresh q/k/v;
+        - S > 1 at any other position (chunked prefill): attention over
+          the whole cache, each query row seeing the positions up to its
+          own (the reference's XLA code, in plain torch)."""
+        hd = self._cfg.head_dim
+        s = h.shape[1]
+        scale = float(1.0 / np.sqrt(hd))
+        prefill = isinstance(pos, int) and pos == 0 and s > 1
+        # device indices: a Python slice at a tensor position would sync
+        idx = torch.arange(s, device=h.device) + (
+            pos if isinstance(pos, int) else pos.long())
+        length = pos + 1
+
+        def attend(q, k, v, kc, vc):
+            kc.index_copy_(2, idx, k.transpose(1, 2).to(kc.dtype))
+            vc.index_copy_(2, idx, v.transpose(1, 2).to(vc.dtype))
+            if s == 1:
+                return decode_attention(q[:, 0], kc, vc, length,
+                                        sm_scale=scale)
+            if prefill:
+                # [B, N, S, D] views of [B, S, N, D] memory both ways
+                out, _ = flash_attention_fwd(*(t.transpose(1, 2)
+                                               for t in (q, k, v)),
+                                             True, scale)
+                return out.transpose(1, 2)
+            return _masked_attention(q.transpose(1, 2), kc, vc, idx,
+                                     scale).transpose(1, 2)
+
+        for weights, kc, vc in zip(self._layers(), k_cache.unbind(0),
+                                   v_cache.unbind(0)):
+            h = self._block(h, weights,
+                            lambda q, k, v: attend(q, k, v, kc, vc))
+        return h
+
     def forward_paged(self, h, k_pool, v_pool, tables, pos, ragged_plan):
-        """One fused serving step over every layer.  ``h`` [T, hidden];
+        """One paged step over every layer.  ``h`` [S, C, hidden]: C tokens
+        of each of S rows at positions ``pos[s] .. pos[s] + C - 1``;
         ``k_pool``/``v_pool`` the stacked ``[L, P, H, page_size, D]`` pool,
-        written in place; ``tables`` [T, max_pages] and ``pos`` [T] the
-        per-token page-table rows and positions."""
+        written in place; ``tables`` [S, max_pages] the rows' page tables.
+
+        - C == 1 with a ``ragged_plan``: the serving engine's fused step
+          (each row one flat token), through the ragged kernel;
+        - C == 1 without one: the paged kernel over ``pos + 1``;
+        - C > 1: the chunked prefill, attention over each row's gathered
+          pages with the absolute-position mask (the reference's XLA
+          code, in plain torch)."""
         cfg = self._cfg
-        nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
-        t = h.shape[0]
+        nh, hd = cfg.num_heads, cfg.head_dim
+        c = h.shape[1]
         page_size = k_pool.shape[3]
         max_pages = tables.shape[1]
         scale = float(1.0 / np.sqrt(hd))
         tbl = tables.long()
-        pos = pos.long()
-        # each token's K/V lands at pool[page_ids[t], :, offs[t]]; padding
-        # tokens carry the null-page table and position 0, so their writes
-        # sink into page 0, which no valid read ever resolves to.  The clip
-        # is defensive: admission reserves every page a token can touch.
-        page_slot = torch.clamp(pos // page_size, 0, max_pages - 1)
-        page_ids = torch.gather(tbl, 1, page_slot[:, None])        # [T, 1]
-        offs = (pos % page_size)[:, None]                          # [T, 1]
-        heads = torch.arange(nh, device=h.device)[None, :]         # [1, H]
+        abs_pos = pos.long()[:, None] + torch.arange(c, device=h.device)
+        # each token's K/V lands at pool[page_ids, :, offs]; padding rows
+        # carry the null-page table and position 0, so their writes sink
+        # into page 0, which no valid read ever resolves to.  The clip is
+        # defensive: admission reserves every page a token can touch.
+        page_slot = torch.clamp(abs_pos // page_size, 0, max_pages - 1)
+        page_ids = torch.gather(tbl, 1, page_slot)[..., None]    # [S, C, 1]
+        offs = (abs_pos % page_size)[..., None]                  # [S, C, 1]
+        heads = torch.arange(nh, device=h.device)                # [H]
         lengths = (pos + 1).to(torch.int32)
-        weights = zip(*(getattr(self, n).unbind(0) for n in self.PARAM_NAMES))
-        for (l1g, l1b, qkvw, qkvb, pw, pb, l2g, l2b, f1w, f1b, f2w, f2b), \
-                kp, vp in zip(weights, k_pool.unbind(0), v_pool.unbind(0)):
-            x = _layer_norm(h, l1g, l1b, eps)
-            qkv = torch.addmm(qkvb, x, qkvw).view(t, 3, nh, hd)
-            q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]              # [T, H, D]
-            # ALL of the step's K/V rows go into the pool BEFORE the
-            # attention launch, so a prefill chunk's tokens see each other
-            # through the pool.  In place: index_put_ on the pool tensor.
+
+        def attend(q, k, v, kp, vp):
+            # ALL of the step's K/V rows go into the pool BEFORE attention,
+            # so a chunk's tokens see each other through the pool.  In
+            # place: index_put_ on the pool tensor.
             kp.index_put_((page_ids, heads, offs), k.to(kp.dtype))
             vp.index_put_((page_ids, heads, offs), v.to(vp.dtype))
-            out = ragged_paged_attention(q, kp, vp, tables, lengths,
-                                         ragged_plan, sm_scale=scale)
-            out = out.reshape(t, nh * hd).to(pw.dtype)   # pool dtype may differ
-            h = h + torch.addmm(pb, out, pw)
-            y = _layer_norm(h, l2g, l2b, eps)
-            g = F.gelu(torch.addmm(f1b, y, f1w), approximate="tanh")
-            h = h + torch.addmm(f2b, g, f2w)
+            if c == 1 and ragged_plan is not None:
+                out = ragged_paged_attention(q[:, 0], kp, vp, tables,
+                                             lengths, ragged_plan,
+                                             sm_scale=scale)
+                return out[:, None]
+            if c == 1:
+                return paged_attention(q[:, 0], kp, vp, tables, lengths,
+                                       sm_scale=scale)[:, None]
+            out = _masked_attention(q.transpose(1, 2),
+                                    gather_pages(kp, tbl),
+                                    gather_pages(vp, tbl), abs_pos, scale)
+            return out.transpose(1, 2)
+
+        for weights, kp, vp in zip(self._layers(), k_pool.unbind(0),
+                                   v_pool.unbind(0)):
+            h = self._block(h, weights,
+                            lambda q, k, v: attend(q, k, v, kp, vp))
         return h
 
 
-class GPTStackedForPretraining(nn.Module):
-    """Embeddings + stacked decoder + tied LM head, for training and
-    serving.
+def _masked_attention(q, k, v, q_pos, scale: float) -> torch.Tensor:
+    """Attention of queries at absolute positions ``q_pos`` ([S] shared by
+    every row, or [B, S] per row) over a whole context ``k``/``v``
+    [B, N, ctx, D]: a query sees the context positions up to its own.
+    The reference's XLA chunked-prefill code: fp32 scores of q in the
+    context dtype, the -1e9 mask, an fp32 softmax, probabilities in the
+    context dtype, the output in the q dtype.  ``q`` [B, N, S, D]."""
+    scores = torch.einsum("bnqd,bnkd->bnqk", q.to(k.dtype).float(),
+                          k.float()) * scale
+    cols = torch.arange(k.shape[2], device=k.device)
+    mask = cols <= q_pos[..., None]             # [S, ctx] or [B, S, ctx]
+    if mask.dim() == 3:
+        mask = mask[:, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e9))
+    att = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bnqk,bnkd->bnqd", att.float(),
+                        v.float()).to(v.dtype).to(q.dtype)
+
+
+class GPTStackedForPretraining(nn.Module, GenerationMixin):
+    """Embeddings + stacked decoder + tied LM head, for training, serving
+    and ``generate()``.
 
     ``device=None`` means ``"cuda"`` and raises when no CUDA device is
     present; pass ``device="cpu"`` to run on the CPU.  Weights are drawn
@@ -308,36 +409,48 @@ class GPTStackedForPretraining(nn.Module):
         token loss of the chunked fused head, without them the [B, S, V]
         logits.
 
-        With a paged ``kv_cache``, the fused serving step:
-        ``input_ids`` [T, 1] flat tokens, ``cache_index`` [T] their
-        positions, ``page_tables`` [T, max_pages] their slots' table rows,
-        ``ragged_plan`` the plan tensors and ``out_rows`` [S] the flat row
-        of each slot's output token.  Returns [S, 1, V] logits, the LM
-        head applied to those rows only.  The K/V of every token is
-        written into ``kv_cache`` in place."""
+        With a contiguous ``kv_cache`` (:class:`KVCache`): ``input_ids``
+        [B, S] at positions ``cache_index + arange(S)``, where
+        ``cache_index`` is the Python int 0 (the whole-prompt prefill) or
+        a 0-d integer tensor on the model's device.  Returns [B, S, V]
+        logits; the step's K/V are written into the cache in place.
+
+        With a paged ``kv_cache``: ``input_ids`` [S, C] -- C tokens of
+        each of S rows -- at positions ``cache_index[s] + arange(C)``
+        (``cache_index`` [S]), ``page_tables`` [S, max_pages] the rows'
+        page tables.  With ``ragged_plan`` (C == 1) it is the serving
+        engine's fused step: each row is one flat token and ``out_rows``
+        [S'] selects the rows the LM head projects.  Returns [S, C, V]
+        logits ([S', 1, V] with ``out_rows``); every token's K/V is
+        written into the pool in place."""
         if kv_cache is None:
             return self._forward_train(input_ids, labels)
-        if not getattr(kv_cache, "paged", False) or ragged_plan is None \
-                or page_tables is None or input_ids.shape[-1] != 1:
-            raise NotImplementedError(
-                "with a KV cache this slice runs the fused ragged step only "
-                "(a paged cache, a ragged plan and one token per row); "
-                "generate() over a contiguous cache and chunked prefill "
-                "are ROADMAP.md queue 1 items")
         cfg = self.config
-        pos = cache_index.long()
-        ids = input_ids[:, 0].long()
-        pos_ids = torch.clamp(pos, 0, cfg.max_position_embeddings - 1)
-        h = self.embeddings(ids, pos_ids)                       # [T, hidden]
-        h = self.decoder.forward_paged(h, kv_cache.k, kv_cache.v,
-                                       page_tables, pos, ragged_plan)
-        if out_rows is not None:
-            # gather each slot's output row BEFORE the vocab projection:
-            # the LM head projects [S] rows, not the padded token axis
-            h = h[out_rows.long()]
+        ids = input_ids.long()
+        s = ids.shape[1]
+        rel = torch.arange(s, device=ids.device)
+        if not getattr(kv_cache, "paged", False):
+            pos = int(cache_index) if isinstance(
+                cache_index, (int, np.integer)) else cache_index.reshape(())
+            pos_ids = (rel + pos).expand_as(ids)
+            h = self.embeddings(ids, pos_ids)                # [B, S, hidden]
+            h = self.decoder.forward_cached(h, kv_cache.k, kv_cache.v, pos)
+        else:
+            if page_tables is None:
+                raise ValueError("a paged KV cache needs page_tables")
+            pos = cache_index.long()
+            pos_ids = torch.clamp(pos[:, None] + rel, 0,
+                                  cfg.max_position_embeddings - 1)
+            h = self.embeddings(ids, pos_ids)                # [S, C, hidden]
+            h = self.decoder.forward_paged(h, kv_cache.k, kv_cache.v,
+                                           page_tables, pos, ragged_plan)
+            if out_rows is not None:
+                # gather each slot's output row BEFORE the vocab
+                # projection: the LM head projects [S'] rows, not the
+                # padded token axis
+                h = h[out_rows.long()]
         h = self.final_ln(h)
-        logits = h @ self.embeddings.word_embeddings.weight.t()
-        return logits[:, None, :]
+        return h @ self.embeddings.word_embeddings.weight.t()
 
     def _forward_train(self, input_ids, labels):
         cfg = self.config
@@ -360,6 +473,17 @@ class GPTStackedForPretraining(nn.Module):
         if labels is not None:
             return fused_linear_cross_entropy(h, w, labels)
         return h @ w.t()
+
+    # -- GenerationMixin cache contract ------------------------------------
+    def new_kv_cache(self, batch_size: int, max_seq: int,
+                     dtype="bfloat16") -> KVCache:
+        cfg = self.config
+        return KVCache(cfg.num_layers, batch_size, cfg.num_heads, max_seq,
+                       cfg.head_dim, dtype=dtype, device=self.device)
+
+    def _cached_lm_logits(self, input_ids, kv_cache, cache_index):
+        return self.forward(input_ids, kv_cache=kv_cache,
+                            cache_index=cache_index)
 
     # -- ServingEngine paged-cache contract --------------------------------
     def new_paged_kv_cache(self, num_pages: int, page_size: int,

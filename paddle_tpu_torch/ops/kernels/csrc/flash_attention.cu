@@ -112,16 +112,23 @@ __device__ __forceinline__ const T* row_ptr(const Operand& x, int b, int n, int 
 }
 
 // rows x D elements of T from device memory (row stride ss) into shared
-// memory (row stride ld), 16 bytes per thread and step
+// memory (row stride ld), 16 bytes per thread and step; rows at or past
+// `valid` are never read and hold zeros
 template <typename T, int D>
-__device__ void load_tile(T* dst, int ld, const T* src, long long ss, int rows) {
+__device__ void load_tile(T* dst, int ld, const T* src, long long ss, int rows,
+                          int valid) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPR = D / VEC;
   for (int i = threadIdx.x; i < rows * VPR; i += THREADS) {
     const int r = i / VPR, c = (i - r * VPR) * VEC;
     *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        *reinterpret_cast<const uint4*>(src + r * ss + c);
+        r < valid ? *reinterpret_cast<const uint4*>(src + r * ss + c) : make_uint4(0, 0, 0, 0);
   }
+}
+
+template <typename T, int D>
+__device__ void load_tile(T* dst, int ld, const T* src, long long ss, int rows) {
+  load_tile<T, D>(dst, ld, src, ss, rows, rows);
 }
 
 // rows x D fp32 sums from shared memory (row stride ld) to device memory
@@ -210,7 +217,10 @@ __device__ void mm(const __nv_bfloat16* a, int lda, const __nv_bfloat16* b, int 
 }
 
 // ---------------------------------------------------------------------------
-// forward: one CTA per (64 query rows, b * n); loops over KV blocks
+// forward: one CTA per (64 query rows, b * n); loops over KV blocks.  Any
+// seq >= 1: the last block's rows and keys at or past seq load as zeros,
+// those keys are masked to NEG_INF before the row max, and O and lse are
+// stored for rows below seq only.
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -233,10 +243,11 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
   using G = FwdGeom<T, D>;
   constexpr int TS = G::TS, SS = G::SS, PS = G::PS, OS = G::OS;
-  const int n_blk = a.seq / BLK;
+  const int n_blk = (a.seq + BLK - 1) / BLK;
   const int qb = n_blk - 1 - blockIdx.x;       // most KV blocks first
   const int bn = blockIdx.y, b = bn / a.heads, n = bn - b * a.heads;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q_rows = min(BLK, a.seq - qb * BLK);   // rows below seq
   extern __shared__ __align__(128) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
   T* k_s = reinterpret_cast<T*>(smem + G::TILE);
@@ -249,7 +260,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
   T* p_s = G::F32 ? reinterpret_cast<T*>(s_s)
                   : reinterpret_cast<T*>(smem + G::SMEM - G::P_BYTES);
 
-  load_tile<T, D>(q_s, TS, row_ptr<T>(a.t[Q], b, n, qb * BLK), a.t[Q].ss, BLK);
+  load_tile<T, D>(q_s, TS, row_ptr<T>(a.t[Q], b, n, qb * BLK), a.t[Q].ss, BLK, q_rows);
   for (int i = tid; i < BLK * D; i += THREADS) o_s[(i / D) * OS + i % D] = 0.f;
   if (tid < BLK) {
     m_s[tid] = NEG_INF;
@@ -258,8 +269,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
   const int kv_end = a.causal ? qb + 1 : n_blk;
   for (int kb = 0; kb < kv_end; ++kb) {
     __syncthreads();   // the last iteration's readers of k/v/p are done
-    load_tile<T, D>(k_s, TS, row_ptr<T>(a.t[K], b, n, kb * BLK), a.t[K].ss, BLK);
-    load_tile<T, D>(v_s, TS, row_ptr<T>(a.t[V], b, n, kb * BLK), a.t[V].ss, BLK);
+    const int kv_rows = min(BLK, a.seq - kb * BLK);
+    load_tile<T, D>(k_s, TS, row_ptr<T>(a.t[K], b, n, kb * BLK), a.t[K].ss, BLK, kv_rows);
+    load_tile<T, D>(v_s, TS, row_ptr<T>(a.t[V], b, n, kb * BLK), a.t[V].ss, BLK, kv_rows);
     __syncthreads();
     mm<BLK, BLK, D, true, false>(q_s, TS, k_s, TS, s_s, SS);       // S = Q K^T
     __syncthreads();
@@ -272,7 +284,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
       for (int j = 0; j < BLK / 32; ++j) {
         const int c = lane + 32 * j;
         float s = s_s[r * SS + c] * a.scale;
-        if (a.causal && kb * BLK + c > qpos) s = NEG_INF;
+        if ((a.causal && kb * BLK + c > qpos) || c >= kv_rows) s = NEG_INF;
         sv[j] = s;
         mx = fmaxf(mx, s);
       }
@@ -304,11 +316,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Args a) {
     const float l = l_s[tid];
     const float l_safe = l == 0.f ? 1.f : l;
     l_s[tid] = l_safe;
-    a.lse[(long long)bn * a.seq + qb * BLK + tid] = m_s[tid] + logf(l_safe);
+    if (tid < q_rows) a.lse[(long long)bn * a.seq + qb * BLK + tid] = m_s[tid] + logf(l_safe);
   }
   __syncthreads();
   store_tile<T, D>(const_cast<T*>(row_ptr<T>(a.t[O], b, n, qb * BLK)), a.t[O].ss, o_s,
-                   OS, BLK, 1.f, l_s);
+                   OS, q_rows, 1.f, l_s);
 }
 
 // ---------------------------------------------------------------------------
@@ -493,7 +505,7 @@ int launch(int which, const Args& a, int bn, cudaStream_t stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(a.seq / BLK, bn);
+  dim3 grid((a.seq + BLK - 1) / BLK, bn);
   kernel<<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -510,7 +522,8 @@ int dispatch_head_dim(int head_dim, int which, const Args& a, int bn, cudaStream
 int run(int which, int device, int dtype, int head_dim, int causal, int batch, int heads,
         int seq, float scale, const void* const* ptrs, const long long* strides,
         void* stream) {
-  if (seq < BLK || seq % BLK != 0 || batch < 1 || heads < 1 ||
+  // the backward kernels take whole 64-row blocks; the forward any seq
+  if (seq < 1 || (which != FWD && seq % BLK != 0) || batch < 1 || heads < 1 ||
       (long long)batch * heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
@@ -537,7 +550,8 @@ extern "C" {
 
 // device: the CUDA device index every pointer lives on (this library links
 // its own CUDA runtime, whose current device is not PyTorch's).  dtype:
-// 0 = float32, 1 = bfloat16; head_dim 64 or 128; seq a multiple of 64.
+// 0 = float32, 1 = bfloat16; head_dim 64 or 128; seq >= 1 for the
+// forward, a multiple of 64 for the backward.
 // ptrs: 10 device pointers in the order q, k, v, o, do, dq, dk, dv (each
 // [batch, heads, seq, head_dim] through its strides), lse, delta ([batch *
 // heads, seq] fp32, contiguous); an entry a kernel does not use may be

@@ -1,0 +1,173 @@
+"""Decode attention: ONE query per (batch, head) over a contiguous KV cache,
+the decode step of ``generate()``.
+
+Port of ``paddle_tpu/ops/pallas_kernels/decode_attention.py``.  Two parts:
+
+- the plain PyTorch version, ``decode_attention_plain``, the counterpart
+  of ``_xla_decode_reference``: fp32 scores times ``scale``, the finite
+  ``NEG_INF`` length mask over every cache position, an fp32 softmax, and
+  the probabilities cast to the q dtype before the PV product (fp32 sum);
+- the Hopper kernel (``csrc/decode_attention.cu``) behind the public
+  wrapper ``decode_attention``, which keeps the JAX signature.  The kernel
+  reads only the first ``length`` positions, and reads ``length`` itself
+  from device memory, so a decode step needs no host sync.
+
+The wrapper takes the plain version only for tensors on the CPU.  Any
+other tensor launches the kernel (counted in
+``decode_attention.launches``) or raises ``ValueError`` naming what the
+kernel does not take; nothing falls back.  The int8 cache of the JAX
+function (``k_scale``/``v_scale``) is not ported yet (ROADMAP.md queue 1,
+item 4).  Forward only: decode never differentiates through the cache.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Union
+
+import torch
+
+from . import _build
+
+__all__ = [
+    "decode_attention",
+    "decode_attention_plain",
+    "kernel_unsupported_reason",
+    "NEG_INF",
+]
+
+NEG_INF = -1e30
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decode_attention_plain(q, k_cache, v_cache, length, scale: float
+                           ) -> torch.Tensor:
+    """Masked single-query attention: q ``[B, H, D]`` over the first
+    ``length`` positions of ``[B, H, max_seq, D]`` caches, returning
+    ``[B, H, D]`` in the q dtype.  ``length`` is an int or a 0-d tensor.
+    Every cache position is read; masked ones weigh 0 (so a non-finite
+    value past ``length`` reaches the output, as in the reference)."""
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), k_cache.float()) * scale
+    valid = torch.arange(k_cache.shape[2], device=k_cache.device) < length
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhs,bhsd->bhd", p.float(),
+                        v_cache.float()).to(q.dtype)
+
+
+def kernel_unsupported_reason(head_dim: int, dtype: torch.dtype
+                              ) -> Optional[str]:
+    """``None`` when the kernel takes caches of this head_dim and dtype,
+    else why not (any ``max_seq`` is taken)."""
+    if dtype not in KERNEL_DTYPES:
+        return f"cache dtype {dtype} (the kernel takes float32 and bfloat16)"
+    if head_dim not in KERNEL_HEAD_DIMS:
+        return f"head_dim={head_dim} (the kernel takes {KERNEL_HEAD_DIMS})"
+    return None
+
+
+_fn = None
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        lib = _build.library("decode_attention")
+        fn = lib.decode_attention_forward
+        i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+        fn.argtypes = [i32, i32, i32, ptr, i64, i64, ptr, ptr, i64, i64, i64,
+                       ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
+        fn.restype = i32
+        lib.decode_attention_error_string.argtypes = [i32]
+        lib.decode_attention_error_string.restype = ctypes.c_char_p
+        _fn = (fn, lib.decode_attention_error_string)
+    return _fn
+
+
+def check_rows(name: str, t: torch.Tensor, dims: int, dev: torch.device,
+               dtype: torch.dtype) -> None:
+    """Raise unless ``t`` has ``dims`` dimensions, ``dtype``, lies on
+    ``dev`` and has 16-byte aligned rows of contiguous elements."""
+    if t.dim() != dims or t.dtype != dtype or t.device != dev:
+        raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)} on {t.device}"
+                         f"; expected {dims} dimensions of {dtype} on {dev}")
+    align = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % align for s in t.stride()[:-1]) \
+            or t.data_ptr() % 16:
+        raise ValueError(f"{name} strides {t.stride()}: rows must be "
+                         "contiguous and 16-byte aligned")
+
+
+def device_lengths(length, n: int, dev: torch.device) -> torch.Tensor:
+    """``length`` (an int, or an integer tensor of ``n`` elements on
+    ``dev``) as a contiguous int32 ``[n]`` tensor on ``dev``, made without
+    a host sync."""
+    if isinstance(length, torch.Tensor):
+        if length.device != dev or length.numel() != n \
+                or length.dtype.is_floating_point:
+            raise ValueError(f"length must be an integer tensor of {n} "
+                             f"element(s) on {dev}; got {length.dtype} "
+                             f"{tuple(length.shape)} on {length.device}")
+        return length.reshape(n).to(torch.int32).contiguous()
+    return torch.full((n,), int(length), dtype=torch.int32, device=dev)
+
+
+def _launch(q, k_cache, v_cache, length, scale: float) -> torch.Tensor:
+    """Check everything the kernel assumes, then launch it on the current
+    stream."""
+    dev = k_cache.device
+    b, h, s, d = k_cache.shape
+    reason = kernel_unsupported_reason(d, k_cache.dtype)
+    if reason is not None:
+        raise ValueError(f"decode_attention kernel: {reason}")
+    check_rows("k_cache", k_cache, 4, dev, k_cache.dtype)
+    check_rows("v_cache", v_cache, 4, dev, k_cache.dtype)
+    if v_cache.shape != k_cache.shape or v_cache.stride() != k_cache.stride():
+        raise ValueError(f"v_cache {tuple(v_cache.shape)} {v_cache.stride()} "
+                         f"must match k_cache {tuple(k_cache.shape)} "
+                         f"{k_cache.stride()}")
+    if q.shape != (b, h, d) or q.dtype != k_cache.dtype or q.device != dev \
+            or q.stride(2) != 1:
+        raise ValueError(f"q is {q.dtype} {tuple(q.shape)} {q.stride()} on "
+                         f"{q.device}; expected {k_cache.dtype} ({b}, {h}, "
+                         f"{d}) with contiguous rows on {dev}")
+    lengths = device_lengths(length, 1, dev)
+    out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
+    fn, err_str = _kernel_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(dev.index, KERNEL_DTYPES[k_cache.dtype], d, q.data_ptr(),
+             q.stride(0), q.stride(1), k_cache.data_ptr(), v_cache.data_ptr(),
+             *k_cache.stride()[:3], out.data_ptr(), lengths.data_ptr(), b, h,
+             s, float(scale), stream)
+    if err != 0:
+        raise RuntimeError("decode_attention kernel launch failed: "
+                           f"{err_str(err).decode()} (cudaError {err})")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, length: Union[int, torch.Tensor],
+                     *, sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Single-query attention over a preallocated KV cache.
+
+    q:        [B, H, D] -- the ONE new query per (batch, head); rows may be
+              strided (a view into the fused QKV output)
+    k_cache:  [B, H, max_seq, D] (a layer's view of the stacked cache)
+    v_cache:  [B, H, max_seq, D]
+    length:   valid cache positions: an int, or a 0-d integer tensor on
+              the cache's device (read there, with no host sync)
+    returns   [B, H, D] in the cache dtype (q is cast to it first)
+
+    CPU tensors run the plain version; any other tensor launches the
+    Hopper kernel or raises."""
+    d = k_cache.shape[-1]
+    scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    q = q.to(k_cache.dtype)
+    if k_cache.device.type == "cpu" and q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, length, scale)
+    return _launch(q, k_cache, v_cache, length, scale)
+
+
+# kernel launches made through the wrapper (plain-version calls on the
+# CPU never count); callers reset it to 0 before a run they measure
+decode_attention.launches = 0

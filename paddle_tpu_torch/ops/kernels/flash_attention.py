@@ -5,7 +5,9 @@ Port of ``paddle_tpu/ops/pallas_kernels/flash_attention.py``.  Parts:
 
 - the shape gate, ``shape_unsupported_reason``,
   copied from the JAX package's ``analysis/codes.py`` rule (seq a multiple
-  of 128, at least 128; head_dim a multiple of 64);
+  of 128, at least 128; head_dim a multiple of 64), which the backward
+  kernels keep; the forward kernel takes any seq (the whole-prompt
+  prefill of ``generate()`` runs it at every prompt length);
 - the plain PyTorch versions: ``flash_attention_plain``, the counterpart
   of ``_xla_reference_bnsd`` (fp32 scores, the finite ``NEG_INF`` causal
   mask, fp32 softmax, probabilities cast to the V dtype before PV), which
@@ -53,6 +55,7 @@ __all__ = [
     "backward_delta",
     "FlashAttention",
     "shape_unsupported_reason",
+    "fwd_kernel_unsupported_reason",
     "kernel_unsupported_reason",
     "NEG_INF",
 ]
@@ -152,15 +155,28 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool,
 # the Hopper kernels
 # ---------------------------------------------------------------------------
 
-def kernel_unsupported_reason(seq_len: int, head_dim: int,
-                              dtype: torch.dtype) -> Optional[str]:
-    """``None`` when the kernels take this shape and dtype, else why
-    not."""
+def fwd_kernel_unsupported_reason(seq_len: int, head_dim: int,
+                                  dtype: torch.dtype) -> Optional[str]:
+    """``None`` when the forward kernel takes this shape and dtype, else
+    why not.  It takes any ``seq_len >= 1``: the last block's rows past
+    the sequence are masked."""
     if dtype not in KERNEL_DTYPES:
         return f"dtype {dtype} (the kernels take float32 and bfloat16)"
     if head_dim not in KERNEL_HEAD_DIMS:
         return f"head_dim={head_dim} (the kernels take {KERNEL_HEAD_DIMS})"
-    return shape_unsupported_reason(seq_len, head_dim)
+    if seq_len < 1:
+        return f"seq_len={seq_len}"
+    return None
+
+
+def kernel_unsupported_reason(seq_len: int, head_dim: int,
+                              dtype: torch.dtype) -> Optional[str]:
+    """``None`` when the backward kernels -- and so training through
+    ``FlashAttention`` -- take this shape and dtype, else why not: the
+    forward's gate plus the JAX package's shape rule (seq a multiple of
+    128)."""
+    return (fwd_kernel_unsupported_reason(seq_len, head_dim, dtype)
+            or shape_unsupported_reason(seq_len, head_dim))
 
 
 _fns = None
@@ -198,7 +214,9 @@ def _launch(which: str, causal: bool, scale: float, ops: dict,
     q = ops["q"]
     b, n, s, d = q.shape
     dev = q.device
-    reason = kernel_unsupported_reason(s, d, q.dtype)
+    gate = (fwd_kernel_unsupported_reason if which == "fwd"
+            else kernel_unsupported_reason)
+    reason = gate(s, d, q.dtype)
     if reason is not None:
         raise ValueError(f"flash_attention kernel: {reason}")
     align = 16 // q.element_size()
@@ -235,8 +253,8 @@ def _launch(which: str, causal: bool, scale: float, ops: dict,
 
 def flash_attention_fwd(q, k, v, causal: bool, scale: float):
     """Forward kernel: ``(O, lse)`` as :func:`flash_attention_plain`
-    returns them; O is a ``[B, N, S, D]`` view of ``[B, S, N, D]``
-    memory."""
+    returns them, at any seq; O is a ``[B, N, S, D]`` view of ``[B, S,
+    N, D]`` memory."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale)
     b, n, s, _ = q.shape
@@ -297,6 +315,11 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
+        # a shape the backward kernels refuse raises here, before the
+        # forward runs, not in the backward
+        reason = kernel_unsupported_reason(q.shape[2], q.shape[3], q.dtype)
+        if reason is not None:
+            raise ValueError(f"flash_attention kernel: {reason}")
         out, lse = flash_attention_fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale

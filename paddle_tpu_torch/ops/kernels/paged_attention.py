@@ -1,0 +1,159 @@
+"""Paged decode attention: ONE query per (slot, head) over that slot's
+pages of the global KV pool, the C == 1 paged step without a ragged plan.
+
+Port of ``paddle_tpu/ops/pallas_kernels/paged_attention.py``.  Parts:
+
+- ``gather_pages``, each slot's pages as one contiguous context (the
+  chunked-prefill path and the plain versions use it);
+- the plain PyTorch version, ``paged_attention_plain``, the counterpart
+  of ``_xla_paged_reference``: gather, fp32 scores, the ``NEG_INF``
+  length mask, an fp32 softmax, probabilities cast to the q dtype before
+  PV; a length-0 slot returns zeros;
+- the Hopper kernel (``csrc/decode_attention.cu``, the paged addressing
+  of the decode kernel) behind the public wrapper ``paged_attention``,
+  which keeps the JAX signature.  Each CTA reads its slot's table row and
+  length from device memory and only the pages below its length.
+
+The wrapper takes the plain version only for tensors on the CPU.  Any
+other tensor launches the kernel (counted in ``paged_attention.launches``)
+or raises ``ValueError``; nothing falls back.  The int8 pool
+(``k_scale``/``v_scale``) is not ported yet (ROADMAP.md queue 1, item 4).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .decode_attention import (
+    KERNEL_DTYPES, NEG_INF, check_rows, device_lengths,
+    kernel_unsupported_reason,
+)
+
+__all__ = [
+    "paged_attention",
+    "paged_attention_plain",
+    "gather_pages",
+    "kernel_unsupported_reason",
+]
+
+
+def gather_pages(pool: torch.Tensor, page_tables: torch.Tensor
+                 ) -> torch.Tensor:
+    """Each row's paged context as a contiguous view: pool
+    ``[P, H, page_size, D]``, page_tables ``[S, max_pages]`` ->
+    ``[S, H, max_pages * page_size, D]``.  Position p of row s lives at
+    ``pool[page_tables[s, p // page_size], :, p % page_size]``."""
+    g = pool[page_tables.long()]                 # [S, MP, H, ps, D]
+    s, mp, h, ps, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(s, h, mp * ps, d)
+
+
+def paged_attention_plain(q, k_pool, v_pool, page_tables, lengths,
+                          scale: float) -> torch.Tensor:
+    """Gather plus masked single-query attention: q ``[S, H, D]`` over the
+    first ``lengths[s]`` positions of each slot's pages, returning
+    ``[S, H, D]`` in the q dtype; length-0 slots return zeros."""
+    k = gather_pages(k_pool, page_tables)
+    v = gather_pages(v_pool, page_tables)
+    s = torch.einsum("shd,shkd->shk", q.float(), k.float()) * scale
+    lengths = lengths.to(torch.int64)
+    valid = torch.arange(k.shape[2], device=k.device)[None, :] \
+        < lengths[:, None]
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(lengths[:, None, None] > 0, p, torch.zeros_like(p))
+    p = p.to(q.dtype).float()
+    return torch.einsum("shk,shkd->shd", p, v.float()).to(q.dtype)
+
+
+_fn = None
+
+
+def _kernel_fn():
+    global _fn
+    if _fn is None:
+        lib = _build.library("decode_attention")
+        fn = lib.paged_attention_forward
+        i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+        fn.argtypes = [i32, i32, i32, ptr, i64, i64, ptr, ptr, ptr, ptr, ptr,
+                       i32, i32, i32, i32, ctypes.c_float, ptr]
+        fn.restype = i32
+        lib.decode_attention_error_string.argtypes = [i32]
+        lib.decode_attention_error_string.restype = ctypes.c_char_p
+        _fn = (fn, lib.decode_attention_error_string)
+    return _fn
+
+
+def _launch(q, k_pool, v_pool, page_tables, lengths, scale: float
+            ) -> torch.Tensor:
+    """Check everything the kernel assumes, then launch it on the current
+    stream."""
+    dev = k_pool.device
+    _, h, page_size, d = k_pool.shape
+    reason = kernel_unsupported_reason(d, k_pool.dtype)
+    if reason is not None:
+        raise ValueError(f"paged_attention kernel: {reason}")
+    for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
+        check_rows(name, pool, 4, dev, k_pool.dtype)
+        if not pool.is_contiguous() or pool.shape != k_pool.shape:
+            raise ValueError(f"{name} must be a contiguous "
+                             f"{tuple(k_pool.shape)} pool")
+    if page_tables.dim() != 2 or page_tables.device != dev \
+            or page_tables.dtype.is_floating_point:
+        raise ValueError(f"page_tables must be an integer [S, max_pages] "
+                         f"tensor on {dev}; got {page_tables.dtype} "
+                         f"{tuple(page_tables.shape)} on "
+                         f"{page_tables.device}")
+    slots, max_pages = page_tables.shape
+    if q.shape != (slots, h, d) or q.dtype != k_pool.dtype \
+            or q.device != dev or q.stride(2) != 1:
+        raise ValueError(f"q is {q.dtype} {tuple(q.shape)} {q.stride()} on "
+                         f"{q.device}; expected {k_pool.dtype} ({slots}, "
+                         f"{h}, {d}) with contiguous rows on {dev}")
+    tables = page_tables.to(torch.int32).contiguous()
+    lens = device_lengths(lengths, slots, dev)
+    out = torch.empty((slots, h, d), dtype=q.dtype, device=dev)
+    fn, err_str = _kernel_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(dev.index, KERNEL_DTYPES[k_pool.dtype], d, q.data_ptr(),
+             q.stride(0), q.stride(1), k_pool.data_ptr(), v_pool.data_ptr(),
+             tables.data_ptr(), lens.data_ptr(), out.data_ptr(), slots, h,
+             page_size, max_pages, float(scale), stream)
+    if err != 0:
+        raise RuntimeError("paged_attention kernel launch failed: "
+                           f"{err_str(err).decode()} (cudaError {err})")
+    paged_attention.launches += 1
+    return out
+
+
+def paged_attention(q, k_pool, v_pool, page_tables, lengths, *,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Single-query attention over a paged KV block pool.
+
+    q:           [S, H, D] -- the ONE new query per (slot, head); rows may
+                 be strided (a view into the fused QKV output)
+    k_pool:      [P, H, page_size, D] -- the global page pool
+    v_pool:      [P, H, page_size, D]
+    page_tables: [S, max_pages] int32 -- per-slot page ids, table order;
+                 every entry the kernel reads must name a pool page
+    lengths:     [S] int32 -- valid positions per slot (0 = inactive slot,
+                 defined to return zeros)
+    returns      [S, H, D] in the pool dtype (q is cast to it first)
+
+    CPU tensors run the plain version; any other tensor launches the
+    Hopper kernel or raises."""
+    d = k_pool.shape[-1]
+    scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    q = q.to(k_pool.dtype)
+    if k_pool.device.type == "cpu" and q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, page_tables, lengths,
+                                     scale)
+    return _launch(q, k_pool, v_pool, page_tables, lengths, scale)
+
+
+# kernel launches made through the wrapper (plain-version calls on the
+# CPU never count); callers reset it to 0 before a run they measure
+paged_attention.launches = 0

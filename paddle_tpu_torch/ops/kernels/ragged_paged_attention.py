@@ -10,8 +10,9 @@ work list of (token block, pool page, page slot) items.  Three parts:
 - the host plan builder, ``build_ragged_plan`` and ``RAGGED_PLAN_FIELDS``,
   copied verbatim from the JAX package (numpy);
 - the plain PyTorch version, ``ragged_paged_attention_plain``: each token
-  gathers its slot's pages and runs masked single-query attention with an
-  fp32 softmax, as ``paged_attention._xla_paged_reference`` does;
+  gathers its slot's pages (``paged_attention.gather_pages``) and runs
+  masked single-query attention with an fp32 softmax, as
+  ``paged_attention._xla_paged_reference`` does;
 - the Hopper kernel (``csrc/ragged_paged_attention.cu``) behind the public
   wrapper ``ragged_paged_attention``, which keeps the JAX signature.
 
@@ -28,11 +29,11 @@ import numpy as np
 import torch
 
 from . import _build
+from .paged_attention import gather_pages
 
 __all__ = [
     "ragged_paged_attention",
     "ragged_paged_attention_plain",
-    "gather_pages",
     "build_ragged_plan",
     "kernel_unsupported_reason",
     "RAGGED_PLAN_FIELDS",
@@ -162,17 +163,6 @@ def build_ragged_plan(runs: Sequence[Tuple[int, int, np.ndarray]], *,
 # ---------------------------------------------------------------------------
 # the plain PyTorch version
 # ---------------------------------------------------------------------------
-
-def gather_pages(pool: torch.Tensor, page_tables: torch.Tensor
-                 ) -> torch.Tensor:
-    """Each row's paged context as a contiguous view: pool
-    ``[P, H, page_size, D]``, page_tables ``[S, max_pages]`` ->
-    ``[S, H, max_pages * page_size, D]``.  Position p of row s lives at
-    ``pool[page_tables[s, p // page_size], :, p % page_size]``."""
-    g = pool[page_tables.long()]                 # [S, MP, H, ps, D]
-    s, mp, h, ps, d = g.shape
-    return g.permute(0, 2, 1, 3, 4).reshape(s, h, mp * ps, d)
-
 
 def ragged_paged_attention_plain(q, k_pool, v_pool, token_tables, lengths,
                                  scale: float) -> torch.Tensor:

@@ -32,9 +32,12 @@ passed, or the request overstayed ``max_queue_wait_s``), ``FAILED`` (the
 finiteness sentry caught non-finite logits: ``NaNLogitsError``).  Page
 accounting stays exact through every one of them.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the prefix cache, int8 KV pages and weights, LoRA, mesh-sharded
-and disaggregated replicas, the watchdog, and retry/rebuild.  Without
+The model's other cache paths -- ``generate()`` over a contiguous cache
+and the paged step without a plan -- are ported too (``models/gpt.py``);
+the engine itself always passes a plan.  Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP.md item): the prefix cache,
+int8 KV pages and weights, LoRA, mesh-sharded and disaggregated replicas,
+the watchdog, and retry/rebuild.  Without
 retry a step that raises propagates to the caller with the host mirrors
 untouched (they advance only on success), so calling ``step()`` again
 re-runs the same idempotent step.

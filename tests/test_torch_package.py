@@ -2,11 +2,10 @@
 anything of ``paddle_tpu`` (checked in a fresh interpreter, for the
 package and for ``chip_smoke.py``), its entry points refuse to run on the
 CPU unless asked, ``chip_smoke.py`` refuses to run without a card, and
-the engine knobs and model paths that wait for later slices raise."""
+the engine knobs that wait for later slices raise."""
 import os
 import subprocess
 import sys
-import types
 
 import pytest
 import torch
@@ -103,12 +102,3 @@ def test_unported_engine_knobs_raise(knob, value):
         ServingEngine(m, num_slots=2, page_size=16, max_context=64,
                       **{knob: value})
 
-
-def test_model_serves_only_the_fused_ragged_step():
-    """With a KV cache the model runs the paged fused step only: the
-    contiguous-cache ``generate()`` path of the JAX model still raises."""
-    m = GPTStackedForPretraining(gpt_tiny(), device="cpu")
-    contiguous = types.SimpleNamespace(paged=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m(torch.zeros((1, 4), dtype=torch.long), kv_cache=contiguous,
-          cache_index=torch.zeros((), dtype=torch.long))
