@@ -88,7 +88,36 @@ result line:
 11. generate card vs CPU -- gpt_tiny(hidden 128, 2 heads) in fp32: greedy
    ``generate`` from a prompt of 77 and the paged path without a plan must
    give the CPU's tokens, and the card must have launched the flash
-   forward, decode and paged kernels.
+   forward, decode and paged kernels;
+12. int8 kernels vs plain -- ``torch._int_mm``'s shape rules probed (the
+   row counts ``quantization/int8.py`` pads to must be taken); the int8
+   variants, fp32 q and scales, each against its plain version under
+   the fp32 bounds of phase 8: the ragged kernel at phase 2's served
+   shape (mixed and decode-heavy runs over shuffled pages, padding blocks
+   and a repeated work-list tail) and at the tiny shape, the paged kernel
+   over 8 slots x 16 heads (lengths 0, 1, 128, 129, 512 and more; NaN
+   scales on pages no slot sees and other values past the lengths must
+   not change the output) and at page 16, D 16, the decode kernel at
+   (8, 16, 1024, 128) and (2, 4, 64, 16); then each int8 kernel's time
+   beside its bytes bound, its plain version and the bf16 kernel at the
+   same shape (ragged at the decode-heavy served shape, decode and paged
+   at phase 8's timed lengths), and ``quantized_matmul`` of [136, 2048]
+   x [2048, 6144] and [8, 2048] x [2048, 50304] equal bit for bit on the
+   card and the CPU, timed beside ``torch.addmm`` in bf16;
+13. int8 serve -- phase 3's model and traffic from an int8 pool, first
+   with bf16 weights, then with ``weight_dtype="int8"``: every request
+   DONE with 32 tokens, every page back, every scale finite, exactly 24
+   ragged launches in every fused step; prints tokens/s, the mean step,
+   the pool's bytes against the bf16 pool's and peak memory;
+14. int8 paged step without a plan -- phase 9's model quantized, phase
+   10's prompts and pages with an int8 pool: chunked prefill in chunks of
+   64, then 16 teacher-forced decode steps, each launching the paged
+   kernel exactly 24 times; every step's logits within ``INT8_GEN_NORM``
+   of phase 9's bf16 logits by relative norm; prints the top-1 agreement;
+15. int8 card vs CPU -- gpt_tiny in fp32 with ``kv_dtype="int8"`` and
+   ``weight_dtype="int8"``: the engine and the paged path without a plan
+   must give the CPU's greedy tokens, and the card must have launched the
+   ragged and paged kernels (all over int8 pools).
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -194,11 +223,12 @@ def import_port():
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
+    from paddle_tpu_torch.quantization import int8 as qi8
     from paddle_tpu_torch.serving import RequestState, ServingEngine
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
                 gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
-                da=da, pa=pa,
+                da=da, pa=pa, qi8=qi8,
                 AdamW=AdamW, FusedTrainStep=FusedTrainStep,
                 RequestState=RequestState, ServingEngine=ServingEngine)
 
@@ -235,7 +265,8 @@ def _case(port, runs, *, num_pages, heads, page_size, head_dim, t_max,
     """Device tensors for one ragged case.  ``layers`` > 1 gives that many
     separate pools (as the model's layers have), for L2-cold timing;
     ``qkv_view`` makes q a view into a fused [T, 3, H, D] QKV buffer, as
-    the model passes it, instead of a contiguous tensor."""
+    the model passes it, instead of a contiguous tensor.  ``dtype``
+    "int8": int8 pools with their scales, fp32 q."""
     torch, rpa = port["torch"], port["rpa"]
     plan_np, stats = rpa.build_ragged_plan(
         runs, token_block=rpa.TOKEN_BLOCK, page_size=page_size,
@@ -246,7 +277,7 @@ def _case(port, runs, *, num_pages, heads, page_size, head_dim, t_max,
         tables[start:start + count] = tbl
         lengths[start:start + count] = base + np.arange(count) + 1
     dev = torch.device(DEVICE)
-    td = getattr(torch, dtype)
+    td = torch.float32 if dtype == "int8" else getattr(torch, dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
@@ -255,9 +286,14 @@ def _case(port, runs, *, num_pages, heads, page_size, head_dim, t_max,
     pool_shape = (layers, num_pages, heads, page_size, head_dim)
     q = (randn(t_max, 3, heads, head_dim)[:, 0] if qkv_view
          else randn(t_max, heads, head_dim))
+    if dtype == "int8":
+        (k, ks), (v, vs) = (_int8_pages(torch, pool_shape, gen)
+                            for _ in range(2))
+    else:
+        k, v, ks, vs = randn(*pool_shape), randn(*pool_shape), None, None
     return dict(
-        q=q, k=randn(*pool_shape),
-        v=randn(*pool_shape), tables=torch.from_numpy(tables).to(dev),
+        q=q, k=k, v=v, k_scale=ks, v_scale=vs,
+        tables=torch.from_numpy(tables).to(dev),
         lengths=torch.from_numpy(lengths).to(dev),
         plan=tuple(torch.from_numpy(plan_np[k]).to(dev)
                    for k in rpa.RAGGED_PLAN_FIELDS),
@@ -300,18 +336,22 @@ def _bound(c, heads, head_dim, itemsize):
     sees base+n keys of its slot), the real tokens' q rows read once, all
     t_max output rows written once (padding rows get zeros), the plan
     read once -- over HBM bandwidth; and the QK and PV multiply-adds over
-    the peak rate of the pool dtype.  Returns (ms, "bytes" |
-    "operations")."""
+    the peak rate of the pool dtype.  An int8 pool (``itemsize`` 1):
+    fp32 q and output, two fp32 scales per (work item, head), and the
+    products in fp32.  Returns (ms, "bytes" | "operations")."""
     plan = c["plan_np"]
     keys = sum(base + count for base, count, _ in c["runs"])
     kv = keys * heads * head_dim * itemsize * 2
     rows = c["stats"]["n_tokens"] + c["q"].shape[0]     # q read, out written
-    qo = rows * heads * head_dim * itemsize
+    q_item = c["q"].element_size()
+    qo = rows * heads * head_dim * q_item
     plan_bytes = sum(a.nbytes for a in plan.values())
+    if c["k_scale"] is not None:
+        plan_bytes += c["stats"]["n_items"] * heads * 4 * 2
     lengths = c["lengths"].cpu().numpy()
     flops = 4.0 * heads * head_dim * float(lengths.sum())
     t_bytes = (kv + qo + plan_bytes) / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[c["dtype"]]
+    t_ops = flops / PEAK_FLOPS["bfloat16" if q_item == 2 else "float32"]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -416,34 +456,43 @@ SERVE_REQUESTS = 16
 SERVE_NEW_TOKENS = 32
 
 
-def serve_engine(port):
-    """GPT-3 1.3B at full width with random bf16 weights (seed 0), a bf16
-    pool, 8 slots, page 128, max_context 512, warmed up by one request
-    (cuBLAS handles and allocator pools).  Returns ``(engine, rng)``: the
-    workload draws its prompts from ``rng``."""
+def serve_engine(port, kv_dtype="bfloat16", weight_dtype=None):
+    """GPT-3 1.3B at full width with random bf16 weights (seed 0), a pool
+    of ``kv_dtype`` (bf16, or int8 with its scales), the weights quantized
+    to int8 with ``weight_dtype="int8"``, 8 slots, page 128, max_context
+    512, warmed up by one request (cuBLAS handles and allocator pools).
+    Returns ``(engine, rng)``: the workload draws its prompts from
+    ``rng``."""
     cfg = port["gpt_1p3b"]()
     _check(cfg.num_layers == SERVE_LAYERS, "gpt_1p3b has 24 layers")
     model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
     eng = port["ServingEngine"](model, num_slots=8, page_size=128,
-                                max_context=512, cache_dtype="bfloat16")
+                                max_context=512, kv_dtype=kv_dtype,
+                                weight_dtype=weight_dtype)
     rng = np.random.RandomState(0)
     eng.generate_batch([rng.randint(0, cfg.vocab_size, (64,))], 2)
     port["torch"].cuda.synchronize()
     return eng, rng
 
 
-def serve_workload(port, eng, rng):
+def serve_workload(port, eng, rng, launch_log=None):
     """Submit the 16 requests at once and step ``eng`` until it is idle;
     every request must end DONE with its 32 tokens and every page come
-    back.  Returns ``(requests, host seconds per step, wall seconds)``."""
+    back.  With ``launch_log`` (a list), each step appends its ragged
+    kernel launches.  Returns ``(requests, host seconds per step, wall
+    seconds)``."""
     vocab = eng.model.config.vocab_size
     prompts = [rng.randint(0, vocab, (SERVE_PROMPT_LENS[i % 4],))
                for i in range(SERVE_REQUESTS)]
+    rpa = port["rpa"].ragged_paged_attention
     t0 = time.perf_counter()
     reqs = [eng.submit(p, SERVE_NEW_TOKENS) for p in prompts]
     step_s = []
     while eng.queue.depth or eng.scheduler.active_slots:
+        r0 = rpa.launches
         step_s.append(eng.step()["step_seconds"])
+        if launch_log is not None:
+            launch_log.append(rpa.launches - r0)
     port["torch"].cuda.synchronize()
     wall = time.perf_counter() - t0
     done = port["RequestState"].DONE
@@ -947,7 +996,7 @@ def _randn(torch, shape, dtype, gen):
         getattr(torch, dtype))
 
 
-def _hold(torch, name, dtype, got, want, m):
+def _hold(torch, name, dtype, got, want, m, tag="decode_kernels"):
     """``got`` against ``want`` under the flash forward's two bounds:
     elementwise against ``m`` (the sum of the absolute terms of each
     output element) and over the whole output.  Returns the max abs
@@ -958,7 +1007,7 @@ def _hold(torch, name, dtype, got, want, m):
     a, b = got.float(), want.float()
     rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
     finite = bool(torch.isfinite(a).all())
-    print(f"[decode_kernels] {name} {dtype}: max_abs_err={err!r} (tol "
+    print(f"[{tag}] {name} {dtype}: max_abs_err={err!r} (tol "
           f"{atol:.3g}+{rtol:.3g}*m), norm {rel:.3g} (tol {norm:.3g})")
     _check(finite, f"{name} {dtype}: non-finite output")
     _check(over <= 0 and rel <= norm,
@@ -1086,14 +1135,18 @@ def _flash_ragged_case(port, dtype, shape, causal, seed):
     return max(err, e_lse)
 
 
-def _decode_bound(b, h, n, d, itemsize):
+def _decode_bound(b, h, n, d, itemsize, scales=0):
     """(bound ms, "bytes" | "operations") of one decode-kernel launch over
     ``n`` valid positions per row: K and V of those positions, q and the
     output read or written once, over HBM bandwidth; the QK and PV
-    multiply-adds over the peak of the cache dtype."""
-    nbytes = 2 * b * h * n * d * itemsize + 2 * b * h * d * itemsize + 4 * b
+    multiply-adds over the peak of the cache dtype.  An int8 cache
+    (``itemsize`` 1): fp32 q and output, ``scales`` fp32 scales read, and
+    the products in fp32."""
+    q_item = 4 if itemsize == 1 else itemsize
+    nbytes = (2 * b * h * n * d * itemsize + 2 * b * h * d * q_item + 4 * b
+              + 4 * scales)
     flops = 4.0 * b * h * n * d
-    peak = PEAK_FLOPS["bfloat16" if itemsize == 2 else "float32"]
+    peak = PEAK_FLOPS["bfloat16" if q_item == 2 else "float32"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
@@ -1345,12 +1398,13 @@ def phase_paged(port, model, ids, out, logits):
 # phase 11: generate card vs CPU on gpt_tiny, fp32
 # ---------------------------------------------------------------------------
 
-def _paged_greedy(port, model, ids, new):
-    """Greedy tokens of the paged path without a plan: the prompt in
-    chunks of 32, then ``new`` one-token steps."""
+def _paged_greedy(port, model, ids, new, dtype="float32"):
+    """Greedy tokens of the paged path without a plan over a pool of
+    ``dtype``: the prompt in chunks of 32, then ``new`` one-token
+    steps."""
     torch = port["torch"]
     b, s0 = ids.shape
-    cache = model.new_paged_kv_cache(b * 8 + 1, 16, dtype="float32")
+    cache = model.new_paged_kv_cache(b * 8 + 1, 16, dtype=dtype)
     tables = torch.arange(1, b * 8 + 1, dtype=torch.int32,
                           device=model.device).reshape(b, 8)
     toks = []
@@ -1397,6 +1451,519 @@ def phase_generate_card_vs_cpu(port):
            "the card did not launch the flash, decode and paged kernels")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: int8 kernels vs plain
+# ---------------------------------------------------------------------------
+
+# the int8 kernels take fp32 q, dequantize K and V in fp32 exactly as their
+# plain versions do (float(int8) * scale) and leave P unrounded: the fp32
+# case of the flash forward's two bounds, FLASH_TOL["float32"][:2]
+# elementwise against m and FLASH_O_NORM["float32"] over the whole output
+INT8_MM_SHAPES = ((136, 2048, 6144), (8, 2048, 50304))
+
+
+def _int8_pages(torch, shape, gen):
+    """int8 pages of ``shape`` [..., H, rows, D], uniform in [-127, 127],
+    and fp32 scales [..., H] in [0.005, 0.035) (an absmax-quantized N(0,
+    1) page of 128 x 128 has a scale of about 4 / 127 = 0.031)."""
+    q = torch.randint(-127, 128, shape, generator=gen, device=DEVICE,
+                      dtype=torch.int8)
+    s = torch.rand(shape[:-2], generator=gen, device=DEVICE) * 0.03 + 0.005
+    return q, s
+
+
+def _p_abs_v(torch, q, k, v, lengths, scale):
+    """m = P |V| per (row, head): q [R, H, D] over the fp32 contexts k, v
+    [R, H, ctx, D], each row masked to its length."""
+    r, h, ctx, d = k.shape
+    p = _masked_probs(torch, q.reshape(r * h, d), k.reshape(r * h, ctx, d),
+                      lengths.repeat_interleave(h), scale)
+    return torch.einsum("rk,rkd->rd", p,
+                        v.reshape(r * h, ctx, d).abs()).reshape(r, h, d)
+
+
+def _ragged_int8_compare(port, name, c):
+    torch, rpa, pa = port["torch"], port["rpa"], port["pa"]
+    scale = 1.0 / c["q"].shape[-1] ** 0.5
+    kp, vp, ks, vs = c["k"][0], c["v"][0], c["k_scale"][0], c["v_scale"][0]
+    got = rpa.ragged_paged_attention(c["q"], kp, vp, c["tables"],
+                                     c["lengths"], c["plan"], k_scale=ks,
+                                     v_scale=vs)
+    want = rpa.ragged_paged_attention_plain(c["q"], kp, vp, c["tables"],
+                                            c["lengths"], scale, ks, vs)
+    real = c["stats"]["n_tokens"]
+    tbl = c["tables"][:real]
+    m = _p_abs_v(torch, c["q"][:real], pa.gather_pages(kp, tbl, ks),
+                 pa.gather_pages(vp, tbl, vs), c["lengths"][:real], scale)
+    torch.cuda.synchronize()
+    _check(got.dtype == torch.float32, "ragged int8: output not fp32")
+    err = _hold(torch, f"ragged int8 {name} (blocks "
+                f"{c['stats']['n_blocks']}, items {c['stats']['n_items']})",
+                "float32", got[:real], want[:real], m, tag="int8_kernels")
+    _check(bool((got[real:] == 0).all()), f"ragged int8 {name}: padding "
+           "rows not zero")
+    return err
+
+
+def _paged_int8_case(port, slots, heads, page, d, lengths, seed):
+    """The paged int8 kernel against its plain version over shuffled pool
+    pages; pages no slot may see hold NaN scales and positions no slot may
+    see other values: the output must not change, bit for bit."""
+    torch, pa = port["torch"], port["pa"]
+    rng = np.random.RandomState(seed)
+    max_pages = max(-(-n // page) for n in lengths) + 1
+    num_pages = slots * max_pages + 1
+    tables_np = _paged_tables(rng, slots, max_pages, num_pages)
+    tables = torch.from_numpy(tables_np).to(DEVICE)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = _randn(torch, (slots, 3, heads, d), "float32", gen)[:, 0]
+    (kp, ks), (vp, vs) = (_int8_pages(torch, (num_pages, heads, page, d), gen)
+                          for _ in range(2))
+    scale = 1.0 / d ** 0.5
+    got = pa.paged_attention(q, kp, vp, tables, lens, k_scale=ks, v_scale=vs)
+    want = pa.paged_attention_plain(q, kp, vp, tables, lens, scale, ks, vs)
+    m = _p_abs_v(torch, q, pa.gather_pages(kp, tables, ks),
+                 pa.gather_pages(vp, tables, vs), lens, scale)
+    err = _hold(torch, f"paged int8 {slots} slots x {heads} heads page "
+                f"{page} D {d} lengths {list(lengths)}", "float32", got, want,
+                m, tag="int8_kernels")
+    _check(not bool(got[lens == 0].any()),
+           "paged int8: a length-0 slot must give zeros")
+    seen_np = np.zeros((num_pages, page), bool)
+    for s_, n in enumerate(lengths):
+        pos = np.arange(n)
+        seen_np[tables_np[s_, pos // page], pos % page] = True
+    seen = torch.from_numpy(seen_np).to(DEVICE)
+    kf, vf = kp.clone(), vp.clone()
+    for t in (kf, vf):
+        t.masked_fill_(~seen[:, None, :, None], 127)
+    unseen_page = ~seen.any(dim=1)
+    ksf, vsf = ks.clone(), vs.clone()
+    for t in (ksf, vsf):
+        t.masked_fill_(unseen_page[:, None], float("nan"))
+    stale = pa.paged_attention(q, kf, vf, tables, lens, k_scale=ksf,
+                               v_scale=vsf)
+    torch.cuda.synchronize()
+    _check(torch.equal(stale, got), "paged int8: values past the lengths "
+           "reached the output")
+    return err
+
+
+def _decode_int8_case(port, shape, lengths, seed):
+    """The decode int8 kernel against its plain version at every length,
+    with q a view into a fused QKV buffer."""
+    torch, da = port["torch"], port["da"]
+    b, h, s, d = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = _randn(torch, (b, 3, h, d), "float32", gen)[:, 0]
+    (k, ks), (v, vs) = (_int8_pages(torch, shape, gen) for _ in range(2))
+    kd, vd = (x.float() * sc[:, :, None, None] for x, sc in ((k, ks), (v, vs)))
+    scale = 1.0 / d ** 0.5
+    err = 0.0
+    for n in lengths:
+        got = da.decode_attention(q, k, v, torch.tensor(n, device=DEVICE),
+                                  k_scale=ks, v_scale=vs)
+        want = da.decode_attention_plain(q, k, v, n, scale, ks, vs)
+        m = _p_abs_v(torch, q, kd, vd, torch.full((b,), n, device=DEVICE),
+                     scale)
+        err = max(err, _hold(torch, f"decode int8 {shape} length {n}",
+                             "float32", got, want, m, tag="int8_kernels"))
+    return err
+
+
+def _int_mm_rules(torch):
+    """Which shapes ``torch._int_mm`` takes on this card: ``{case: None
+    (taken and exact) or the refusal's message}``, for the row counts and
+    widths around the rules ``quantization/int8.py`` assumes."""
+    out = {}
+    for m, k, n in ((8, 64, 64), (16, 64, 64), (17, 64, 64), (20, 64, 64),
+                    (24, 64, 64), (25, 64, 64), (136, 64, 64),
+                    (137, 64, 64), (24, 64, 192), (24, 2048, 50304),
+                    (136, 2048, 6144), (32, 60, 64), (32, 64, 60)):
+        a = torch.ones((m, k), dtype=torch.int8, device=DEVICE)
+        # the right operand K-contiguous, as quantization/int8.py stores it
+        b = torch.ones((n, k), dtype=torch.int8, device=DEVICE).t()
+        try:
+            ok = bool((torch._int_mm(a, b) == k).all())
+            out[f"{m}x{k}x{n}"] = None if ok else "inexact"
+        except RuntimeError as e:
+            out[f"{m}x{k}x{n}"] = str(e).splitlines()[0][:160]
+    return out
+
+
+def _int8_matmul_case(port, m, k, n, seed):
+    """``quantized_matmul`` of x [m, k] by an int8 [k, n] on the card
+    against the CPU, bit for bit (weights quantized on both devices, which
+    must agree too); then its device ms beside ``torch.addmm`` in bf16 at
+    the same shape."""
+    torch, qi8 = port["torch"], port["qi8"]
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)
+                         * np.float32(0.02))
+    bias = torch.from_numpy(rng.standard_normal(n, dtype=np.float32)
+                            * np.float32(0.02))
+    wq, ws = qi8.quantize_weight(w, 0)
+    cpu = qi8.quantized_matmul(x, wq, ws, bias)
+    xd, wd, bd = x.to(DEVICE), w.to(DEVICE), bias.to(DEVICE)
+    wqd, wsd = qi8.quantize_weight(wd, 0)
+    wqd = qi8.k_major(wqd)                      # as the model stores it
+    card = qi8.quantized_matmul(xd, wqd, wsd, bd)
+    same_w = torch.equal(wqd.cpu(), wq) and torch.equal(wsd.cpu(), ws)
+    same = torch.equal(card.cpu(), cpu)
+    print(f"[int8_kernels] quantized_matmul [{m}, {k}] x [{k}, {n}]: card "
+          f"equals the CPU bit for bit: {same} (weights quantized equal: "
+          f"{same_w}; max abs {(card.cpu() - cpu).abs().max().item()!r})")
+    _check(same and same_w, f"quantized_matmul [{m}, {k}] x [{k}, {n}]: "
+           "card and CPU differ")
+    xb, wb, bb = xd.bfloat16(), wd.bfloat16(), bd.bfloat16()
+    t = {"int8": _time_ms(torch, lambda i: qi8.quantized_matmul(
+             xd, wqd, wsd, bd), 40)[0],
+         "bf16": _time_ms(torch, lambda i: torch.addmm(bb, xb, wb), 40)[0]}
+    print(f"[int8_kernels] quantized_matmul [{m}, {k}] x [{k}, {n}] device ms "
+          f"(quantize, int32 product on {port['qi8'].int_mm_rows(m)} rows, "
+          f"epilogue): "
+          f"{t['int8']!r}; torch.addmm bf16 {t['bf16']!r}")
+    return t
+
+
+def _time_int8_attention(port, n):
+    """Device ms per launch at (B 8, H 16, D 128) over ``n`` valid
+    positions: the decode and paged int8 kernels, their plain versions,
+    and the bf16 kernels at the same shape, one cache or pool per layer
+    (L2 cold)."""
+    torch, da, pa = port["torch"], port["da"], port["pa"]
+    b, h, d, L = GEN_BATCH, 16, 128, SERVE_LAYERS
+    gen = torch.Generator(device=DEVICE).manual_seed(70 + n)
+    q = _randn(torch, (b, h, d), "float32", gen)
+    qb = q.bfloat16()
+    scale = 1.0 / d ** 0.5
+    length = torch.tensor(n, dtype=torch.int32, device=DEVICE)
+    t = {}
+    (k, ks), (v, vs) = (_int8_pages(torch, (L, b, h, GEN_MAX_SEQ, d), gen)
+                        for _ in range(2))
+    t["decode"], _ = _time_ms(torch, lambda i: da.decode_attention(
+        q, k[i % L], v[i % L], length, k_scale=ks[i % L], v_scale=vs[i % L]),
+        240)
+    t["decode_plain"], _ = _time_ms(torch, lambda i: da.decode_attention_plain(
+        q, k[i % L], v[i % L], n, scale, ks[i % L], vs[i % L]), 24)
+    del k, v
+    kb, vb = (_randn(torch, (L, b, h, GEN_MAX_SEQ, d), "bfloat16", gen)
+              for _ in range(2))
+    t["decode_bf16"], _ = _time_ms(torch, lambda i: da.decode_attention(
+        qb, kb[i % L], vb[i % L], length), 240)
+    del kb, vb
+    max_pages = GEN_MAX_SEQ // GEN_PAGE
+    num_pages = b * max_pages + 1
+    tables = torch.from_numpy(_paged_tables(
+        np.random.RandomState(n), b, max_pages, num_pages)).to(DEVICE)
+    lens = torch.full((b,), n, dtype=torch.int32, device=DEVICE)
+    (kp, ks), (vp, vs) = (_int8_pages(torch, (L, num_pages, h, GEN_PAGE, d),
+                                      gen) for _ in range(2))
+    t["paged"], _ = _time_ms(torch, lambda i: pa.paged_attention(
+        q, kp[i % L], vp[i % L], tables, lens, k_scale=ks[i % L],
+        v_scale=vs[i % L]), 240)
+    t["paged_plain"], _ = _time_ms(torch, lambda i: pa.paged_attention_plain(
+        q, kp[i % L], vp[i % L], tables, lens, scale, ks[i % L], vs[i % L]),
+        24)
+    del kp, vp
+    kb, vb = (_randn(torch, (L, num_pages, h, GEN_PAGE, d), "bfloat16", gen)
+              for _ in range(2))
+    t["paged_bf16"], _ = _time_ms(torch, lambda i: pa.paged_attention(
+        qb, kb[i % L], vb[i % L], tables, lens), 240)
+    del kb, vb
+    torch.cuda.empty_cache()
+    t["decode_bound"] = _decode_bound(b, h, n, d, 1, scales=2 * b * h)
+    t["paged_bound"] = _decode_bound(b, h, n, d, 1,
+                                     scales=2 * b * h * -(-n // GEN_PAGE))
+    return t
+
+
+def _time_ragged_int8(port):
+    """Device ms per launch at phase 2's decode-heavy served shape, one
+    pool per layer: the int8 kernel, its plain version and the bf16
+    kernel; and the int8 launch's bound."""
+    torch, rpa = port["torch"], port["rpa"]
+    H, D, PS, MP = 16, 128, 128, 4
+    P = 8 * MP + 1
+    served = dict(num_pages=P, heads=H, page_size=PS, head_dim=D,
+                  t_max=8 + 128, nb_max=8 + 128 // rpa.TOKEN_BLOCK,
+                  wl_max=(8 + 128 // rpa.TOKEN_BLOCK) * MP, max_pages=MP)
+    tb = _served_runs(np.random.RandomState(7), P)
+    runs = [(380 + 3 * i, 1, tb[i]) for i in range(8)]
+    t = {}
+    c = _case(port, runs, dtype="int8", seed=98, layers=SERVE_LAYERS,
+              **served)
+    args = (c["tables"], c["lengths"])
+    t["ms"], _ = _time_ms(torch, lambda i: rpa.ragged_paged_attention(
+        c["q"], c["k"][i % SERVE_LAYERS], c["v"][i % SERVE_LAYERS], *args,
+        c["plan"], k_scale=c["k_scale"][i % SERVE_LAYERS],
+        v_scale=c["v_scale"][i % SERVE_LAYERS]), 240)
+    t["plain_ms"], _ = _time_ms(
+        torch, lambda i: rpa.ragged_paged_attention_plain(
+            c["q"], c["k"][i % SERVE_LAYERS], c["v"][i % SERVE_LAYERS],
+            *args, 1.0 / D ** 0.5, c["k_scale"][i % SERVE_LAYERS],
+            c["v_scale"][i % SERVE_LAYERS]), 24)
+    t["bound"] = _bound(c, H, D, 1)
+    del c
+    c = _case(port, runs, dtype="bfloat16", seed=98, layers=SERVE_LAYERS,
+              **served)
+    t["bf16_ms"], _ = _time_ms(torch, lambda i: rpa.ragged_paged_attention(
+        c["q"], c["k"][i % SERVE_LAYERS], c["v"][i % SERVE_LAYERS], *args,
+        c["plan"]), 240)
+    del c
+    torch.cuda.empty_cache()
+    return t
+
+
+def phase_int8_kernels(port):
+    torch, rpa = port["torch"], port["rpa"]
+    rules = _int_mm_rules(torch)
+    for case, why in rules.items():
+        print(f"[int8_kernels] torch._int_mm {case}: "
+              f"{'taken' if why is None else 'refused: ' + why}")
+
+    errs = {"ragged": 0.0, "paged": 0.0, "decode": 0.0}
+    H, D, PS, MP = 16, 128, 128, 4
+    T_MAX, NB_MAX = 8 + 128, 8 + 128 // rpa.TOKEN_BLOCK
+    WL_MAX, P = NB_MAX * MP, 8 * MP + 1
+    served = dict(num_pages=P, heads=H, page_size=PS, head_dim=D,
+                  t_max=T_MAX, nb_max=NB_MAX, wl_max=WL_MAX, max_pages=MP)
+    rng = np.random.RandomState(12)
+    tb = _served_runs(rng, P)
+    mixed = [(0, 1, tb[0]), (400, 1, tb[1]), (120, 40, tb[2]),
+             (0, 16, tb[3]), (255, 1, tb[4]), (127, 2, tb[5])]
+    decode = [(380 + 3 * i, 1, tb[i]) for i in range(8)]
+    for i, (name, runs) in enumerate((("mixed", mixed),
+                                      ("decode_heavy", decode))):
+        c = _case(port, runs, dtype="int8", seed=80 + i, **served)
+        _check(c["stats"]["n_blocks"] < NB_MAX
+               and c["stats"]["n_items"] < WL_MAX,
+               "cases must leave padding blocks and a repeated tail")
+        errs["ragged"] = max(errs["ragged"], _ragged_int8_compare(port, name,
+                                                                  c))
+    tiny_tb = [np.array(t, np.int32) for t in
+               ([5, 3, 1, 7], [2, 0, 0, 0], [4, 6, 8, 9])]
+    tiny = _case(port, [(30, 20, tiny_tb[0]), (0, 1, tiny_tb[1]),
+                        (47, 1, tiny_tb[2])],
+                 num_pages=10, heads=4, page_size=16, head_dim=16, t_max=28,
+                 nb_max=6, wl_max=24, max_pages=4, dtype="int8", seed=82,
+                 qkv_view=False)
+    errs["ragged"] = max(errs["ragged"], _ragged_int8_compare(port, "tiny",
+                                                              tiny))
+    for i, (slots, heads, page, d, lengths) in enumerate((
+            (8, 16, 128, 128, (0, 1, 128, 129, 512, 264, 300, 64)),
+            (5, 4, 16, 16, (0, 1, 16, 17, 40)))):
+        errs["paged"] = max(errs["paged"], _paged_int8_case(
+            port, slots, heads, page, d, lengths, 84 + i))
+    decode0 = port["da"].decode_attention.launches
+    for i, (shape, lengths) in enumerate((
+            ((GEN_BATCH, 16, GEN_MAX_SEQ, 128), (1, 200, 201, 1024)),
+            ((2, 4, 64, 16), (1, 17, 64)))):
+        errs["decode"] = max(errs["decode"], _decode_int8_case(
+            port, shape, lengths, 86 + i))
+    decode_launches = port["da"].decode_attention.launches - decode0
+    torch.cuda.empty_cache()
+
+    r = _time_ragged_int8(port)
+    print(f"[int8_kernels] ragged decode_heavy timing (device ms per "
+          f"launch): int8 kernel {r['ms']!r}, plain {r['plain_ms']!r}, bf16 "
+          f"kernel {r['bf16_ms']!r}; int8 bound {r['bound'][0]!r} "
+          f"({r['bound'][1]})")
+    times = {}
+    for n in DECODE_TIMED_LENGTHS:
+        t = times[n] = _time_int8_attention(port, n)
+        print(f"[int8_kernels] (B 8, H 16, D 128) length {n} timing (device "
+              f"ms per launch): decode int8 kernel {t['decode']!r}, plain "
+              f"{t['decode_plain']!r}, bf16 kernel {t['decode_bf16']!r}, "
+              f"bound {t['decode_bound'][0]!r} ({t['decode_bound'][1]}); "
+              f"paged int8 kernel {t['paged']!r}, plain {t['paged_plain']!r},"
+              f" bf16 kernel {t['paged_bf16']!r}, bound "
+              f"{t['paged_bound'][0]!r} ({t['paged_bound'][1]})")
+    mm = [_int8_matmul_case(port, *shape, seed=90 + i)
+          for i, shape in enumerate(INT8_MM_SHAPES)]
+    t = times[DECODE_TIMED_LENGTHS[0]]
+    # no one PyTorch call computes any of them: dequantization and
+    # attention are two calls
+    rows = {"ragged": dict(max_abs_err=errs["ragged"], ms=r["ms"],
+                           plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                           bound_by=r["bound"][1], library_ms=None)}
+    for key in ("paged", "decode"):
+        rows[key] = dict(max_abs_err=errs[key], ms=t[key],
+                         plain_ms=t[key + "_plain"],
+                         bound_ms=t[key + "_bound"][0],
+                         bound_by=t[key + "_bound"][1], library_ms=None)
+    rows["matmul_ms"] = mm
+    rows["decode_launches"] = decode_launches
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 13: int8 serve at full width and depth
+# ---------------------------------------------------------------------------
+
+def phase_serve_int8(port):
+    """Phase 3's engine and traffic with an int8 pool, first alone, then
+    with int8 weights too.  Returns the ragged kernel's launches over
+    both runs."""
+    torch = port["torch"]
+    total = 0
+    for wd in (None, "int8"):
+        t0 = time.perf_counter()
+        eng, rng = serve_engine(port, "int8", wd)
+        cache = eng.cache
+        bf16_bytes = 2 * cache.k.numel() * 2
+        print(f"[serve_int8] gpt_1p3b kv int8, weights {wd or 'bf16'}: "
+              f"set-up {time.perf_counter() - t0:.2f} s; pool "
+              f"{cache.nbytes} bytes = {cache.nbytes / bf16_bytes:.4f} of "
+              f"the bf16 pool's {bf16_bytes}")
+        fused0 = eng.metrics()["fused_steps"]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(port)
+        per_step = []
+        reqs, step_s, dt = serve_workload(port, eng, rng, per_step)
+        counts = _launch_counts(port)
+        launches = counts.pop("ragged")
+        peak = torch.cuda.max_memory_allocated()
+        m = eng.metrics()
+        fused = m["fused_steps"] - fused0
+        _check(fused == len(per_step) and set(per_step) == {SERVE_LAYERS}
+               and not any(counts.values()),
+               f"int8 serve: ragged launches per step {sorted(set(per_step))}"
+               f" over {len(per_step)} steps ({fused} fused), expected "
+               f"{SERVE_LAYERS} each; other kernels {counts}")
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (cache.k_scale, cache.v_scale))
+        _check(finite, "int8 serve: non-finite scales")
+        tokens = sum(len(r.tokens) for r in reqs)
+        print(f"[serve_int8] weights {wd or 'bf16'}: {len(reqs)} requests "
+              f"DONE, {tokens} tokens in {dt:.3f} s: {tokens / dt:.1f} "
+              f"tokens/s; {fused} fused steps, mean step "
+              f"{1e3 * float(np.mean(step_s)):.2f} ms (host clock, p50 "
+              f"{1e3 * float(np.median(step_s)):.2f} ms); ragged launches "
+              f"{launches} ({SERVE_LAYERS} every step); scales finite; peak "
+              f"device memory {peak / 2**30:.2f} GiB")
+        total += launches
+        eng.close()
+        del eng, cache
+        torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the int8 paged step without a plan at full width
+# ---------------------------------------------------------------------------
+
+# phase 14 against phase 9 (int8 pool and int8 weights against bf16
+# logits, teacher-forced): an element quantized with a step of absmax/127
+# is off by at most half a step, an RMS of (absmax/rms)/(127 sqrt 12) of
+# its vector's RMS, at most 0.0137 for an absmax of 6 RMS; each layer
+# quantizes K, V and the four projections' inputs and weights (10
+# independent errors, sqrt(10) x 0.0137 = 0.043 of its contribution),
+# which the residual stream carries as ~0.043 over 24 layers; with phase
+# 10's bf16 difference (0.0148) about 0.046.  Held, per step over the
+# [8, V] logits, to ||int8 - generate|| <= INT8_GEN_NORM ||generate||:
+# 2^-3 before the first card run, tightened to 2^-4 after two runs read
+# at most 0.0459 on an H100
+INT8_GEN_NORM = 2.0 ** -4
+
+
+def phase_paged_int8(port, model, ids, out, logits):
+    torch = port["torch"]
+    cfg = model.config
+    b = GEN_BATCH
+    model.quantize_weights()
+    max_pages = -(-(GEN_PROMPT + GEN_PAGED_STEPS) // GEN_PAGE) + 1
+    num_pages = b * max_pages + 1
+    cache = model.new_paged_kv_cache(num_pages, GEN_PAGE, dtype="int8")
+    tables = torch.from_numpy(_paged_tables(
+        np.random.RandomState(11), b, max_pages, num_pages)).to(DEVICE)
+
+    def step(tok, pos):
+        with torch.no_grad():
+            return model._paged_lm_logits(
+                tok, cache, tables,
+                torch.full((b,), pos, dtype=torch.int32, device=DEVICE))
+
+    rels, agree = [], []
+
+    def compare(got, j):
+        want = logits[:, j]
+        _check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+               "int8 paged logits not fp32 / not finite")
+        rels.append(((got - want).norm() / want.norm()).item())
+        agree.append((got.argmax(-1) == want.argmax(-1)).float().mean().item())
+
+    _reset_launches(port)
+    for lo in range(0, GEN_PROMPT, GEN_CHUNK):
+        hi = min(GEN_PROMPT, lo + GEN_CHUNK)
+        last = step(ids[:, lo:hi], lo)[:, -1]
+    compare(last, 0)
+    prefill = _launch_counts(port)
+    _check(all(v == 0 for v in prefill.values()),
+           f"the int8 chunked prefill launched kernels {prefill}")
+    per_step = []
+    for j in range(GEN_PAGED_STEPS):
+        before = port["pa"].paged_attention.launches
+        got = step(out[:, GEN_PROMPT + j:GEN_PROMPT + j + 1], GEN_PROMPT + j)
+        per_step.append(port["pa"].paged_attention.launches - before)
+        compare(got[:, 0], j + 1)
+    torch.cuda.synchronize()
+    launches = _launch_counts(port)
+    L = cfg.num_layers
+    print(f"[paged_int8] int8 pool and weights, 8 slots, page {GEN_PAGE}, "
+          f"chunks of {GEN_CHUNK}, then {GEN_PAGED_STEPS} teacher-forced "
+          f"decode steps: logits vs phase 9's bf16 relative norm max "
+          f"{max(rels):.4g} mean {float(np.mean(rels)):.4g} (tol "
+          f"{INT8_GEN_NORM:.4g}); top-1 agreement {float(np.mean(agree)):.4f}"
+          f" (min per step {min(agree):.3f}); paged launches per step "
+          f"{sorted(set(per_step))}, total {launches}")
+    _check(max(rels) <= INT8_GEN_NORM,
+           f"int8 paged logits off phase 9's by norm {max(rels)}")
+    _check(all(n == L for n in per_step)
+           and launches["paged"] == L * GEN_PAGED_STEPS
+           and launches["decode"] == 0 and launches["fwd"] == 0
+           and launches["ragged"] == 0,
+           f"int8 paged launches {launches}, per step {per_step}")
+    del cache
+    torch.cuda.empty_cache()
+    return launches["paged"]
+
+
+# ---------------------------------------------------------------------------
+# phase 15: int8 card vs CPU on gpt_tiny, fp32
+# ---------------------------------------------------------------------------
+
+def phase_int8_card_vs_cpu(port):
+    torch = port["torch"]
+    cfg = port["gpt_tiny"]()
+    cpu = port["GPT"](cfg, device="cpu", dtype="float32", seed=6)
+    card = port["GPT"](cfg, device=DEVICE, dtype="float32", seed=6)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, cfg.vocab_size, (s,))
+               for s in (4, 17, 7, 21, 11, 5)]
+    kw = dict(num_slots=2, page_size=16, max_context=64, kv_dtype="int8",
+              weight_dtype="int8", prefill_token_budget=6)
+    _reset_launches(port)
+    outs, paged = [], []
+    for m in (cpu, card):
+        outs.append(port["ServingEngine"](m, **kw).generate_batch(prompts, 8))
+        ids = torch.from_numpy(np.stack([p[:4] for p in prompts[:2]]))
+        paged.append(_paged_greedy(port, m, ids.to(m.device), 8, "int8"))
+    launches = _launch_counts(port)
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    same_paged = np.array_equal(*paged)
+    print(f"[int8_card_vs_cpu] gpt_tiny fp32, int8 KV and weights: engine "
+          f"greedy tokens equal {same}, paged path tokens equal "
+          f"{same_paged}; card launches {launches}")
+    _check(same and same_paged, f"card and CPU int8 tokens differ: {outs} "
+           f"{paged}")
+    _check(launches["ragged"] > 0 and launches["paged"] > 0,
+           "the card did not launch the ragged and paged int8 kernels")
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1431,9 +1998,14 @@ def main() -> int:
                                    dk["flash_ragged_err"])
     model, ids, out, logits, decode_launches = phase_generate(port)
     paged_launches = phase_paged(port, model, ids, out, logits)
+    phase_generate_card_vs_cpu(port)
+    ik = phase_int8_kernels(port)
+    ragged_int8_launches = phase_serve_int8(port)
+    # phase 9's model, kept for phase 14, which quantizes it
+    paged_int8_launches = phase_paged_int8(port, model, ids, out, logits)
     del model, ids, out, logits
     torch.cuda.empty_cache()
-    phase_generate_card_vs_cpu(port)
+    phase_int8_card_vs_cpu(port)
     print(card)
     csrc = "paddle_tpu_torch/ops/kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
@@ -1465,6 +2037,20 @@ def main() -> int:
                         "source": csrc + "decode_attention.cu",
                         "replaces": pallas + replaces, "launches": launched,
                         **dk[key]})
+    # the int8 variants: each TPU kernel's quantized branch; the decode
+    # variant has no model path, its launches are phase 12's checks
+    for key, name, source, replaces, launched in (
+            ("ragged", "ragged_paged_attention_int8",
+             "ragged_paged_attention.cu", "ragged_paged_attention.py:269",
+             ragged_int8_launches),
+            ("paged", "paged_attention_int8", "decode_attention.cu",
+             "paged_attention.py:109", paged_int8_launches),
+            ("decode", "decode_attention_int8", "decode_attention.cu",
+             "decode_attention.py:106", ik["decode_launches"])):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": csrc + source,
+                        "replaces": pallas + replaces, "launches": launched,
+                        **ik[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

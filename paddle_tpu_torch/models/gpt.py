@@ -18,6 +18,11 @@ The model serves, generates and trains:
   one token per slot through ``ops/kernels/paged_attention.py``; C > 1 is
   the chunked prefill, attention over each slot's gathered pages with the
   absolute-position mask (XLA code in the JAX package, plain torch here);
+- both paged paths over an int8 pool (``k_scale``/``v_scale``): every K/V
+  write is quantized by ``quantization/kv.py``, and the kernels' int8
+  variants read the pages; after ``quantize_weights()`` the projections
+  and the tied LM head run as int8 products (``quantization/int8.py``).
+  A quantized model serves only: training and ``generate()`` refuse it;
 - ``generate()`` (``models/generation.py``) over a contiguous stacked
   ``[L, B, H, max_seq, D]`` cache: the whole-prompt prefill at position 0
   through the flash forward kernel at any prompt length, every later
@@ -30,7 +35,7 @@ The model serves, generates and trains:
   blocks under activation checkpointing (as ``scan_blocks`` remats them),
   and the chunked loss head of ``nn/functional.py``.
 
-Dropout in training waits for a later slice (ROADMAP.md queue 1).
+Dropout in training waits for a later slice (ROADMAP.md queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -51,6 +56,8 @@ from ..ops.kernels.flash_attention import (
 )
 from ..ops.kernels.paged_attention import gather_pages, paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
+from ..quantization.int8 import k_major, quantize_weight, quantized_matmul
+from ..quantization.kv import quantize_kv_write
 from .generation import GenerationMixin, KVCache
 
 __all__ = [
@@ -149,10 +156,18 @@ class GPTStackedDecoder(nn.Module):
 
     PARAM_NAMES = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                    "ln2_g", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+    # the block's weights after quantize_weights(): each projection's int8
+    # [L, in, out] buffer and fp32 [L, out] scales in place of its weight
+    QUANTIZED = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
+    INT8_NAMES = ("ln1_g", "ln1_b", "qkv_w_int8", "qkv_w_s", "qkv_b",
+                  "proj_w_int8", "proj_w_s", "proj_b", "ln2_g", "ln2_b",
+                  "fc1_w_int8", "fc1_w_s", "fc1_b", "fc2_w_int8", "fc2_w_s",
+                  "fc2_b")
 
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
         self._cfg = cfg
+        self.weight_int8 = False
         L, h, f = cfg.num_layers, cfg.hidden_size, cfg.ffn_size
         shapes = {"ln1_g": (L, h), "ln1_b": (L, h), "qkv_w": (L, h, 3 * h),
                   "qkv_b": (L, 3 * h), "proj_w": (L, h, h), "proj_b": (L, h),
@@ -162,26 +177,49 @@ class GPTStackedDecoder(nn.Module):
             self.register_parameter(
                 name, nn.Parameter(torch.empty(shapes[name], **factory)))
 
-    def _block(self, h, weights, attend):
+    def _block(self, h, weights, attend, int8: bool = False):
         """One block (the reference's ``_block_fn``, ``_cached_block_fn``
         and ``_paged_block_fn`` bodies): ``h`` [B, S, hidden] -> [B, S,
         hidden].  ``attend(q, k, v)`` takes the fresh [B, S, H, D] views
         into the fused QKV output (the backward of unbind stacks dQ/dK/dV
         into the QKV gradient in one pass) and returns the attention
         output as [B, S, H, D], in any dtype; a cached ``attend`` also
-        writes K/V into its cache."""
+        writes K/V into its cache.
+
+        ``int8``: ``weights`` are the 16 of :data:`INT8_NAMES`, and each
+        projection is ``quantized_matmul``, which takes the fp32 LayerNorm
+        output (not rounded to the weight dtype) and returns fp32; the
+        residual adds are cast back to ``h``'s dtype, as the reference's
+        ``_paged_block_fn`` does."""
         cfg = self._cfg
         nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
-        l1g, l1b, qkvw, qkvb, pw, pb, l2g, l2b, f1w, f1b, f2w, f2b = weights
+        if int8:
+            (l1g, l1b, qkvw, qkvs, qkvb, pw, pws, pb, l2g, l2b, f1w, f1s, f1b,
+             f2w, f2s, f2b) = weights
+
+            def norm(x, g, beta):
+                return _layer_norm(x.float(), g.float(), beta.float(), eps)
+
+            proj = quantized_matmul
+        else:
+            (l1g, l1b, qkvw, qkvb, pw, pb, l2g, l2b, f1w, f1b, f2w,
+             f2b) = weights
+            qkvs = pws = f1s = f2s = None
+
+            def norm(x, g, beta):
+                return _layer_norm(x, g, beta, eps)
+
+            def proj(x, w, ws, bias):
+                return torch.addmm(bias, x, w)
         b, s, hidden = h.shape
-        x = _layer_norm(h, l1g, l1b, eps).reshape(b * s, hidden)
-        qkv = torch.addmm(qkvb, x, qkvw).view(b, s, 3, nh, hd)
+        x = norm(h, l1g, l1b).reshape(b * s, hidden)
+        qkv = proj(x, qkvw, qkvs, qkvb).view(b, s, 3, nh, hd)
         out = attend(*qkv.unbind(2))
-        out = out.reshape(b * s, hidden).to(pw.dtype)  # cache dtype may differ
-        h = h + torch.addmm(pb, out, pw).view(b, s, hidden)
-        y = _layer_norm(h, l2g, l2b, eps).reshape(b * s, hidden)
-        y = F.gelu(torch.addmm(f1b, y, f1w), approximate="tanh")
-        return h + torch.addmm(f2b, y, f2w).view(b, s, hidden)
+        out = out.reshape(b * s, hidden).to(x.dtype)  # cache dtype may differ
+        h = h + proj(out, pw, pws, pb).view(b, s, hidden).to(h.dtype)
+        y = norm(h, l2g, l2b).reshape(b * s, hidden)
+        y = F.gelu(proj(y, f1w, f1s, f1b), approximate="tanh")
+        return h + proj(y, f2w, f2s, f2b).view(b, s, hidden).to(h.dtype)
 
     def _train_attend(self, q, k, v):
         """Causal attention of the training block through the flash
@@ -199,10 +237,36 @@ class GPTStackedDecoder(nn.Module):
             h = self._block(h, weights[i:i + n], self._train_attend)
         return h
 
-    def _layers(self):
-        """Each layer's 12 weight slices, layer after layer (one unbind per
-        slab: its backward stacks the layers' gradients)."""
-        return zip(*(getattr(self, n).unbind(0) for n in self.PARAM_NAMES))
+    def _layers(self, names=PARAM_NAMES):
+        """Each layer's weight slices (the 12 of ``PARAM_NAMES``, or the
+        16 of ``INT8_NAMES``), layer after layer (one unbind per slab: its
+        backward stacks the layers' gradients)."""
+        return zip(*(getattr(self, n).unbind(0) for n in names))
+
+    def _check_fp_weights(self, what: str):
+        if self.weight_int8:
+            raise ValueError(
+                f"the decoder was quantized for serving (quantize_weights); "
+                f"{what} needs the fp weights: serve it through the paged "
+                "engine")
+
+    @torch.no_grad()
+    def quantize_weights(self):
+        """Quantize the four projection slabs to int8 for serving: per
+        (layer, output channel) absmax scales, stored as the buffers of
+        :data:`INT8_NAMES` (``qkv_w_int8``/``qkv_w_s`` and so on) in the
+        reference's fp32 arithmetic.  The fp weights stay (the serving step
+        reads only the int8 ones).  Each int8 ``[in, out]`` matrix is stored
+        :func:`k_major` (its values and shape are the reference's).
+        Idempotent; a quantized decoder serves only: training and the
+        contiguous-cache path refuse it."""
+        if self.weight_int8:
+            return
+        for name in self.QUANTIZED:
+            q, s = quantize_weight(getattr(self, name), 1)   # [L, in, out]
+            self.register_buffer(name + "_int8", k_major(q))
+            self.register_buffer(name + "_s", s)
+        self.weight_int8 = True
 
     def forward(self, h):
         """The training stack: ``h`` [B, S, hidden] through every layer.
@@ -211,6 +275,7 @@ class GPTStackedDecoder(nn.Module):
         ``torch.utils.checkpoint``: the backward recomputes the group's
         forward from its input instead of keeping its activations."""
         cfg = self._cfg
+        self._check_fp_weights("the training forward")
         k = cfg.recompute_interval if self.training else 0
         if k > 0 and cfg.num_layers % k:
             raise ValueError(f"recompute_interval={k} must divide "
@@ -237,6 +302,7 @@ class GPTStackedDecoder(nn.Module):
         - S > 1 at any other position (chunked prefill): attention over
           the whole cache, each query row seeing the positions up to its
           own (the reference's XLA code, in plain torch)."""
+        self._check_fp_weights("the contiguous-cache path (generate)")
         hd = self._cfg.head_dim
         s = h.shape[1]
         scale = float(1.0 / np.sqrt(hd))
@@ -267,18 +333,25 @@ class GPTStackedDecoder(nn.Module):
                             lambda q, k, v: attend(q, k, v, kc, vc))
         return h
 
-    def forward_paged(self, h, k_pool, v_pool, tables, pos, ragged_plan):
+    def forward_paged(self, h, k_pool, v_pool, tables, pos, ragged_plan,
+                      k_scale=None, v_scale=None):
         """One paged step over every layer.  ``h`` [S, C, hidden]: C tokens
         of each of S rows at positions ``pos[s] .. pos[s] + C - 1``;
         ``k_pool``/``v_pool`` the stacked ``[L, P, H, page_size, D]`` pool,
-        written in place; ``tables`` [S, max_pages] the rows' page tables.
+        written in place; ``tables`` [S, max_pages] the rows' page tables;
+        ``k_scale``/``v_scale`` the stacked ``[L, P, H]`` scales of an int8
+        pool, updated in place (None for a float pool).
 
         - C == 1 with a ``ragged_plan``: the serving engine's fused step
           (each row one flat token), through the ragged kernel;
         - C == 1 without one: the paged kernel over ``pos + 1``;
         - C > 1: the chunked prefill, attention over each row's gathered
-          pages with the absolute-position mask (the reference's XLA
-          code, in plain torch)."""
+          (for an int8 pool, dequantized) pages with the absolute-position
+          mask (the reference's XLA code, in plain torch).
+
+        An int8 pool's K/V rows go through ``quantize_kv_write`` (which
+        updates the layer's scales) before they are written, and the
+        kernels read the pages with the updated scales."""
         cfg = self._cfg
         nh, hd = cfg.num_heads, cfg.head_dim
         c = h.shape[1]
@@ -297,29 +370,42 @@ class GPTStackedDecoder(nn.Module):
         heads = torch.arange(nh, device=h.device)                # [H]
         lengths = (pos + 1).to(torch.int32)
 
-        def attend(q, k, v, kp, vp):
+        def attend(q, k, v, kp, vp, ks, vs):
             # ALL of the step's K/V rows go into the pool BEFORE attention,
             # so a chunk's tokens see each other through the pool.  In
-            # place: index_put_ on the pool tensor.
+            # place: index_put_ on the pool tensor (and, for an int8 pool,
+            # the quantizer's scatters on the scales).
+            if ks is not None:
+                k, _ = quantize_kv_write(k, page_ids[..., 0], offs[..., 0],
+                                         ks)
+                v, _ = quantize_kv_write(v, page_ids[..., 0], offs[..., 0],
+                                         vs)
             kp.index_put_((page_ids, heads, offs), k.to(kp.dtype))
             vp.index_put_((page_ids, heads, offs), v.to(vp.dtype))
             if c == 1 and ragged_plan is not None:
                 out = ragged_paged_attention(q[:, 0], kp, vp, tables,
                                              lengths, ragged_plan,
-                                             sm_scale=scale)
+                                             sm_scale=scale, k_scale=ks,
+                                             v_scale=vs)
                 return out[:, None]
             if c == 1:
                 return paged_attention(q[:, 0], kp, vp, tables, lengths,
-                                       sm_scale=scale)[:, None]
+                                       sm_scale=scale, k_scale=ks,
+                                       v_scale=vs)[:, None]
             out = _masked_attention(q.transpose(1, 2),
-                                    gather_pages(kp, tbl),
-                                    gather_pages(vp, tbl), abs_pos, scale)
+                                    gather_pages(kp, tbl, ks),
+                                    gather_pages(vp, tbl, vs), abs_pos, scale)
             return out.transpose(1, 2)
 
-        for weights, kp, vp in zip(self._layers(), k_pool.unbind(0),
-                                   v_pool.unbind(0)):
-            h = self._block(h, weights,
-                            lambda q, k, v: attend(q, k, v, kp, vp))
+        int8 = self.weight_int8
+        names = self.INT8_NAMES if int8 else self.PARAM_NAMES
+        pools = [k_pool.unbind(0), v_pool.unbind(0)]
+        pools += ([k_scale.unbind(0), v_scale.unbind(0)]
+                  if k_scale is not None else [[None] * cfg.num_layers] * 2)
+        for weights, kp, vp, ks, vs in zip(self._layers(names), *pools):
+            h = self._block(
+                h, weights,
+                lambda q, k, v: attend(q, k, v, kp, vp, ks, vs), int8=int8)
         return h
 
 
@@ -380,18 +466,75 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
                 p.copy_(torch.randn(p.shape, generator=gen,
                                     device=self.device) * std)
 
+    @property
+    def weight_int8(self) -> bool:
+        """Whether ``quantize_weights`` (or ``load_jax_state`` of a
+        quantized JAX model) made this model serve on int8 weights."""
+        return self.decoder.weight_int8
+
+    def _int8_shapes(self):
+        """The int8 buffers of a quantized model and their shapes, keyed
+        as the JAX model's ``state_dict`` keys them."""
+        cfg = self.config
+        L, h, f, v = (cfg.num_layers, cfg.hidden_size, cfg.ffn_size,
+                      cfg.vocab_size)
+        out = {"qkv_w": (h, 3 * h), "proj_w": (h, h), "fc1_w": (h, f),
+               "fc2_w": (f, h)}
+        shapes = {}
+        for name, (i, o) in out.items():
+            shapes[f"decoder.{name}_int8"] = (L, i, o)
+            shapes[f"decoder.{name}_s"] = (L, o)
+        shapes["lm_head_int8"] = (h, v)
+        shapes["lm_head_scale"] = (v,)
+        return shapes
+
+    @torch.no_grad()
+    def quantize_weights(self):
+        """Quantize the decoder's projections (``GPTStackedDecoder.
+        quantize_weights``) and the tied LM head to int8 for serving: the
+        head as ``lm_head_int8`` [hidden, V] (the transposed embedding) with
+        ``lm_head_scale`` [V], one absmax scale per vocabulary row.
+        Idempotent."""
+        if self.weight_int8:
+            return
+        self.decoder.quantize_weights()
+        q, s = quantize_weight(self.embeddings.word_embeddings.weight, 1)
+        self.register_buffer("lm_head_int8", q.t())        # k_major already
+        self.register_buffer("lm_head_scale", s)
+
     def load_jax_state(self, state: Mapping[str, np.ndarray]):
         """Carry the JAX model's weights across: ``state`` maps every key
         of ``paddle_tpu``'s ``GPTStackedForPretraining.state_dict()``
         (``embeddings.word_embeddings.weight``, ``decoder.qkv_w``, ...,
-        ``final_ln.bias``) to a numpy array of the same shape.  Missing,
-        unknown or mis-shaped keys raise."""
+        ``final_ln.bias``) to a numpy array of the same shape.  A quantized
+        JAX model's int8 buffers (``decoder.qkv_w_int8``, ...,
+        ``lm_head_scale``), when present, are carried across unchanged and
+        mark this model quantized.  Missing, unknown or mis-shaped keys
+        raise."""
         own = dict(self.named_parameters())
+        int8_shapes = self._int8_shapes()
+        int8 = {k: state[k] for k in int8_shapes if k in state}
+        if int8 and len(int8) != len(int8_shapes):
+            raise KeyError("load_jax_state: int8 buffers missing "
+                           f"{sorted(set(int8_shapes) - set(int8))}")
+        if self.weight_int8 and not int8:
+            raise ValueError("load_jax_state: this model is quantized; load "
+                             "fp weights into a fresh model")
         missing = sorted(set(own) - set(state))
-        unknown = sorted(set(state) - set(own))
+        unknown = sorted(set(state) - set(own) - set(int8_shapes))
         if missing or unknown:
             raise KeyError(f"load_jax_state: missing {missing}, unknown "
                            f"{unknown}")
+        loaded = {}
+        for name, a in int8.items():
+            a = np.asarray(a)
+            want = np.int8 if name.endswith("int8") else np.float32
+            if a.dtype != want or tuple(a.shape) != int8_shapes[name]:
+                raise ValueError(f"load_jax_state: {name} is {a.dtype} "
+                                 f"{a.shape}, expected {np.dtype(want)} "
+                                 f"{int8_shapes[name]}")
+            t = torch.from_numpy(a.copy()).to(self.device)
+            loaded[name] = k_major(t) if name.endswith("int8") else t
         with torch.no_grad():
             for name, p in own.items():
                 a = np.array(state[name], np.float32)
@@ -400,6 +543,11 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
                                      f"{a.shape}, expected "
                                      f"{tuple(p.shape)}")
                 p.copy_(torch.from_numpy(a).to(p.dtype))
+        for name, t in loaded.items():
+            owner, _, short = name.rpartition(".")
+            (self.decoder if owner else self).register_buffer(short, t)
+        if loaded:
+            self.decoder.weight_int8 = True
 
     def forward(self, input_ids, labels=None, kv_cache=None,
                 cache_index=None, page_tables=None, ragged_plan=None,
@@ -442,14 +590,20 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
             pos_ids = torch.clamp(pos[:, None] + rel, 0,
                                   cfg.max_position_embeddings - 1)
             h = self.embeddings(ids, pos_ids)                # [S, C, hidden]
-            h = self.decoder.forward_paged(h, kv_cache.k, kv_cache.v,
-                                           page_tables, pos, ragged_plan)
+            # a pool without scales is a float pool
+            h = self.decoder.forward_paged(
+                h, kv_cache.k, kv_cache.v, page_tables, pos, ragged_plan,
+                getattr(kv_cache, "k_scale", None),
+                getattr(kv_cache, "v_scale", None))
             if out_rows is not None:
                 # gather each slot's output row BEFORE the vocab
                 # projection: the LM head projects [S'] rows, not the
                 # padded token axis
                 h = h[out_rows.long()]
         h = self.final_ln(h)
+        if self.weight_int8:
+            # the tied head as one int8 product (fp32 logits)
+            return quantized_matmul(h, self.lm_head_int8, self.lm_head_scale)
         return h @ self.embeddings.word_embeddings.weight.t()
 
     def _forward_train(self, input_ids, labels):
@@ -458,13 +612,14 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
                               or cfg.attention_dropout > 0):
             raise NotImplementedError(
                 "dropout in training is not ported yet (ROADMAP.md queue "
-                "1, slice 5 'later' items): set hidden_dropout and "
+                "1, item 2, training): set hidden_dropout and "
                 "attention_dropout to 0, or call eval()")
         if cfg.use_flash_attention is False and input_ids.device.type != "cpu":
             raise NotImplementedError(
                 "use_flash_attention=False (the plain attention route) is "
-                "not ported to the card; attention there runs the flash "
-                "kernels: leave use_flash_attention None or True")
+                "not ported to the card (ROADMAP.md queue 1, item 2, "
+                "training); attention there runs the flash kernels: leave "
+                "use_flash_attention None or True")
         ids = input_ids.long()
         pos = torch.arange(ids.shape[-1], device=ids.device).expand_as(ids)
         h = self.embeddings(ids, pos)                       # [B, S, hidden]

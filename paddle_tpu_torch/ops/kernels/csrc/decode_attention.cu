@@ -14,6 +14,14 @@
 // O = acc / l with the l == 0 guard, so a length-0 row writes zeros.
 // fp32 caches are computed in plain fp32 FMA (no TF32).
 //
+// The int8 variants (the TPU kernels' quantized=True): an int8 cache or
+// pool with one fp32 scale per (batch, head) or per (page, head), q and
+// the output fp32.  Each key and value is dequantized as it is read,
+// float(int8) * scale, before it meets q or P (the TPU kernels' order:
+// k.astype(f32) * scale right after the DMA); P stays unrounded, since
+// the TPU kernel's p.astype(v.dtype) is fp32 there.  K and V then cost one
+// byte per element, half of bf16's, plus 4 bytes per scale.
+//
 // What bounds it on this card: bytes.  A decode row reads K and V of its
 // valid positions once and does 2 x head_dim multiply-adds per key and
 // element pair it reads: one operation per byte in bf16, far below the
@@ -44,7 +52,10 @@
 // The two kernels are one template over how (row, key) becomes an element
 // offset: contiguous (batch, head, position) strides, where each layer's
 // cache is a view of the stacked [L, B, H, max_seq, D] cache, or the
-// slot's page-table row.
+// slot's page-table row.  The same policy says where a key's scale lives:
+// scale[b * H + h] for the contiguous cache, scale[page * H + h] for the
+// pool.  The template's T is the type of q and the output, KV the type the
+// cache stores (T itself, or int8_t).
 //
 // Interface: plain C, loaded through ctypes by
 // paddle_tpu_torch/ops/kernels/decode_attention.py and paged_attention.py.
@@ -53,6 +64,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "vec16.cuh"
 
@@ -81,24 +94,28 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 // head) to its valid length and to a Row whose key(c) is the element
 // offset of key c's head_dim elements in the K (and V) tensor.
 //
-// Contiguous cache: key c of (b, h) at b*sb + h*sh + c*ss.
+// Contiguous cache: key c of (b, h) at b*sb + h*sh + c*ss; its scale (an
+// int8 cache) at b * heads + h, the CTA row itself.
 struct Contig {
   long long sb, sh, ss;
   int heads, max_seq;
   const int* length;   // one int32 on the device
   struct Row {
     long long base, ss;
+    int row;
     __device__ long long key(int c) const { return base + c * ss; }
+    __device__ long long scale_at(int) const { return row; }
   };
   __device__ int len(int) const { return min(max(*length, 0), max_seq); }
   __device__ Row at(int r) const {
     const int b = r / heads;
-    return Row{b * sb + (r - b * heads) * sh, ss};
+    return Row{b * sb + (r - b * heads) * sh, ss, r};
   }
 };
 
 // Paged pool: key c of (s, h) at pool page tables[s, c / page_size], head
-// h, offset c % page_size.
+// h, offset c % page_size; its scale (an int8 pool) at that page * heads +
+// h.
 struct Paged {
   const int* tables;    // [slots, max_pages]
   const int* lengths;   // [slots]
@@ -106,10 +123,13 @@ struct Paged {
   struct Row {
     const int* table;   // the slot's table row
     long long head_off, page_stride;
-    int page_size, head_dim;
+    int page_size, head_dim, h, heads;
     __device__ long long key(int c) const {
       return table[c / page_size] * page_stride + head_off +
              (long long)(c % page_size) * head_dim;
+    }
+    __device__ long long scale_at(int c) const {
+      return (long long)table[c / page_size] * heads + h;
     }
   };
   __device__ int len(int r) const {
@@ -119,7 +139,7 @@ struct Paged {
     const int s = r / heads, h = r - s * heads;
     const long long page = (long long)page_size * head_dim;
     return Row{tables + (long long)s * max_pages, h * page, heads * page, page_size,
-               head_dim};
+               head_dim, h, heads};
   }
 };
 
@@ -129,6 +149,8 @@ struct Args {
   long long q_s0, q_s1;
   const void* k;
   const void* v;
+  const float* k_scale;  // int8 caches only: where Row::scale_at points
+  const float* v_scale;
   void* out;           // [rows, D] contiguous
   int heads;
   float scale;
@@ -156,9 +178,13 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <typename T, int D, typename Addr>
+template <typename T, typename KV, int D, typename Addr>
 __global__ void __launch_bounds__(THREADS) decode_kernel(const Args<Addr> a) {
-  constexpr int VEC = Vec16<T>::N;            // elements per 16-byte load
+  // int8 storage: dequantize each key and value as it is read
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  static_assert(QUANT || std::is_same<KV, T>::value,
+                "a float cache shares the type of q and the output");
+  constexpr int VEC = Vec16<KV>::N;           // elements per 16-byte load
   constexpr int NVD = D / VEC;                // 16-byte chunks per row
   // scores: TPK threads per key, each owning NV chunks of the row
   constexpr int TPK = NVD < 32 ? NVD : 32;
@@ -171,8 +197,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args<Addr> a) {
 
   const int row = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const T* __restrict__ k = static_cast<const T*>(a.k);
-  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const KV* __restrict__ k = static_cast<const KV*>(a.k);
+  const KV* __restrict__ v = static_cast<const KV*>(a.v);
   __shared__ float q_s[D];
   __shared__ float p_s[KC];
   __shared__ float red_m[WARPS], red_s[WARPS];
@@ -203,7 +229,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args<Addr> a) {
       for (int u = 0; u < UNROLL; ++u) {
         const int c = cb + u * KPP + grp;
         if (c < nk) {
-          const T* kr = k + at.key(c0 + c);
+          const KV* kr = k + at.key(c0 + c);
 #pragma unroll
           for (int j = 0; j < NV; ++j)
             kv[u][j] = *reinterpret_cast<const uint4*>(kr + (lig + j * TPK) * VEC);
@@ -214,10 +240,15 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args<Addr> a) {
         const int c = cb + u * KPP + grp;
         float dot = 0.f;
         if (c < nk) {
+          const float sk = QUANT ? a.k_scale[at.scale_at(c0 + c)] : 1.f;
 #pragma unroll
           for (int j = 0; j < NV; ++j) {
             float kf[VEC];
-            Vec16<T>::unpack(kv[u][j], kf);
+            Vec16<KV>::unpack(kv[u][j], kf);
+            if (QUANT) {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) kf[e] *= sk;
+            }
             const float* qe = q_s + (lig + j * TPK) * VEC;
 #pragma unroll
             for (int e = 0; e < VEC; ++e) dot = fmaf(qe[e], kf[e], dot);
@@ -269,7 +300,12 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args<Addr> a) {
         const int c = cb + u * NSPLIT;
         if (c < nk) {
           float vf[VEC];
-          Vec16<T>::unpack(vv[u], vf);
+          Vec16<KV>::unpack(vv[u], vf);
+          if (QUANT) {
+            const float sv = a.v_scale[at.scale_at(c0 + c)];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) vf[e] *= sv;
+          }
           const float p = p_s[c];
 #pragma unroll
           for (int e = 0; e < VEC; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
@@ -290,25 +326,29 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const Args<Addr> a) {
     float o[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) o[e] = acc[e] / l_safe;
-    *reinterpret_cast<uint4*>(static_cast<T*>(a.out) + (long long)row * D + cv * VEC) =
-        Vec16<T>::pack(o);
+    // a column chunk of an int8 cache is 16 elements: four fp32 vectors
+    constexpr int OV = Vec16<T>::N;
+    T* dst = static_cast<T*>(a.out) + (long long)row * D + cv * VEC;
+#pragma unroll
+    for (int j = 0; j < VEC / OV; ++j)
+      *reinterpret_cast<uint4*>(dst + j * OV) = Vec16<T>::pack(o + j * OV);
   }
 }
 
-template <typename T, int D, typename Addr>
+template <typename T, typename KV, int D, typename Addr>
 int launch(const Args<Addr>& a, long long rows, cudaStream_t stream) {
-  decode_kernel<T, D, Addr><<<(unsigned)rows, THREADS, 0, stream>>>(a);
+  decode_kernel<T, KV, D, Addr><<<(unsigned)rows, THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename Addr>
+template <typename T, typename KV, typename Addr>
 int dispatch_head_dim(int head_dim, const Args<Addr>& a, long long rows, cudaStream_t s) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(a, rows, s);
-    case 32: return launch<T, 32>(a, rows, s);
-    case 64: return launch<T, 64>(a, rows, s);
-    case 128: return launch<T, 128>(a, rows, s);
-    case 256: return launch<T, 256>(a, rows, s);
+    case 16: return launch<T, KV, 16>(a, rows, s);
+    case 32: return launch<T, KV, 32>(a, rows, s);
+    case 64: return launch<T, KV, 64>(a, rows, s);
+    case 128: return launch<T, KV, 128>(a, rows, s);
+    case 256: return launch<T, KV, 256>(a, rows, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -317,11 +357,16 @@ template <typename Addr>
 int run(int device, int dtype, int head_dim, const Args<Addr>& a, long long rows,
         void* stream) {
   if (rows < 1 || rows > 0x7fffffffLL || a.heads < 1) return (int)cudaErrorInvalidValue;
+  // scales with an int8 cache, and only then
+  if ((dtype == 2) != (a.k_scale != nullptr && a.v_scale != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_head_dim<float>(head_dim, a, rows, s);
-  if (dtype == 1) return dispatch_head_dim<__nv_bfloat16>(head_dim, a, rows, s);
+  if (dtype == 0) return dispatch_head_dim<float, float>(head_dim, a, rows, s);
+  if (dtype == 1)
+    return dispatch_head_dim<__nv_bfloat16, __nv_bfloat16>(head_dim, a, rows, s);
+  if (dtype == 2) return dispatch_head_dim<float, int8_t>(head_dim, a, rows, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -331,37 +376,42 @@ extern "C" {
 
 // device: the CUDA device index every pointer lives on (this library links
 // its own CUDA runtime, whose current device is not PyTorch's).  dtype:
-// 0 = float32, 1 = bfloat16, for q, the cache and out alike; head_dim one
-// of 16, 32, 64, 128, 256.  q: [batch, heads, head_dim] with element
-// strides (q_sb, q_sh, 1); out: [batch, heads, head_dim], contiguous.
-// Every returns a cudaError_t (0 on success).
+// 0 = float32, 1 = bfloat16, for q, the cache and out alike; 2 = an int8
+// cache with fp32 q and out, and fp32 k_scale/v_scale (null for dtypes 0
+// and 1); head_dim one of 16, 32, 64, 128, 256.  q: [batch, heads,
+// head_dim] with element strides (q_sb, q_sh, 1); out: [batch, heads,
+// head_dim], contiguous.  Every returns a cudaError_t (0 on success).
 //
 // Contiguous cache: k, v [batch, heads, max_seq, head_dim], both with the
-// element strides (sb, sh, ss, 1), rows 16-byte aligned; length: one
-// int32 on the device, the valid positions (clamped to [0, max_seq]).
+// element strides (sb, sh, ss, 1), rows 16-byte aligned; k_scale, v_scale
+// [batch, heads] contiguous; length: one int32 on the device, the valid
+// positions (clamped to [0, max_seq]).
 int decode_attention_forward(int device, int dtype, int head_dim, const void* q,
                              long long q_sb, long long q_sh, const void* k, const void* v,
+                             const float* k_scale, const float* v_scale,
                              long long sb, long long sh, long long ss, void* out,
                              const int* length, int batch, int heads, int max_seq,
                              float scale, void* stream) {
   if (batch < 1 || max_seq < 1) return (int)cudaErrorInvalidValue;
-  const Args<Contig> a{q, q_sb, q_sh, k, v, out, heads, scale,
+  const Args<Contig> a{q, q_sb, q_sh, k, v, k_scale, v_scale, out, heads, scale,
                        Contig{sb, sh, ss, heads, max_seq, length}};
   return run(device, dtype, head_dim, a, (long long)batch * heads, stream);
 }
 
 // Paged pool: k_pool, v_pool [num_pages, heads, page_size, head_dim],
-// contiguous; tables [slots, max_pages] int32, contiguous, every entry read
-// a page id below num_pages; lengths [slots] int32, the valid positions of
-// each slot (clamped to [0, max_pages * page_size]; 0 gives zeros).  q:
-// [slots, heads, head_dim] with strides (q_ss, q_sh, 1).
+// contiguous; k_scale, v_scale [num_pages, heads] contiguous; tables
+// [slots, max_pages] int32, contiguous, every entry read a page id below
+// num_pages; lengths [slots] int32, the valid positions of each slot
+// (clamped to [0, max_pages * page_size]; 0 gives zeros).  q: [slots,
+// heads, head_dim] with strides (q_ss, q_sh, 1).
 int paged_attention_forward(int device, int dtype, int head_dim, const void* q,
                             long long q_ss, long long q_sh, const void* k_pool,
-                            const void* v_pool, const int* tables, const int* lengths,
+                            const void* v_pool, const float* k_scale,
+                            const float* v_scale, const int* tables, const int* lengths,
                             void* out, int slots, int heads, int page_size, int max_pages,
                             float scale, void* stream) {
   if (slots < 1 || page_size < 1 || max_pages < 1) return (int)cudaErrorInvalidValue;
-  const Args<Paged> a{q, q_ss, q_sh, k_pool, v_pool, out, heads, scale,
+  const Args<Paged> a{q, q_ss, q_sh, k_pool, v_pool, k_scale, v_scale, out, heads, scale,
                       Paged{tables, lengths, heads, page_size, max_pages, head_dim}};
   return run(device, dtype, head_dim, a, (long long)slots * heads, stream);
 }

@@ -36,6 +36,17 @@
 // decode-heavy step needs to fill the card: 8 slots x 16 heads is 128
 // CTAs) are left for later work.
 //
+// The int8 variant (the TPU kernel's quantized=True): int8 pools with one
+// fp32 scale per (page, head), q and the output fp32.  The int8 page goes
+// through the same cp.async double buffer (a 16-byte copy now carries 16
+// elements, so a chunk holds 64 keys of head_dim 128 in 16 KiB + 16 KiB);
+// each K and V element is dequantized in fp32 as the chunk is read,
+// float(int8) * scale, with the scale of the chunk's work-item page,
+// before it meets q or P: the TPU kernel's order (k.astype(f32) * scale
+// right after the DMA), rather than folding the K scale into the score.
+// P is not rounded before PV, since the TPU kernel's p.astype(v.dtype) is
+// fp32 there.  K and V cost one byte per element, half of bf16's.
+//
 // Where a straight port of the TPU kernel goes wrong, and what this does:
 //   - the TPU grid runs the work list in order and carries the online
 //     softmax across grid steps; here a CTA finds its own item range by
@@ -59,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int QB = 16;               // token-block rows (the port's block)
@@ -73,17 +86,14 @@ constexpr int KV_CHUNK_BYTES = 32768;  // K + V bytes staged per chunk
 // the end.  A decode block (1 row) thus uses all 128 threads.
 static_assert(THREADS % QB == 0, "at least one PV thread per row");
 
+// T: the type of q and the output (and of P before PV)
 template <typename T> struct Traits;
 template <> struct Traits<float> {
-  static constexpr int VEC = 4;      // elements per 16-byte vector
-  static constexpr int PAD = 4;      // row padding in shared memory
   static __device__ float to_f(float x) { return x; }
   static __device__ float from_f(float x) { return x; }
   static __device__ float round_p(float x) { return x; }
 };
 template <> struct Traits<__nv_bfloat16> {
-  static constexpr int VEC = 8;
-  static constexpr int PAD = 8;
   static __device__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
   static __device__ __nv_bfloat16 from_f(float x) { return __float2bfloat16(x); }
   // the probabilities are cast to the pool dtype before the PV product,
@@ -93,13 +103,21 @@ template <> struct Traits<__nv_bfloat16> {
   }
 };
 
-template <typename T, int D>
+// KV: the type the pool stores (T itself, or int8_t); a 16-byte vector
+// holds 16 / sizeof(KV) elements, and a shared-memory row is padded by one
+// vector
+template <typename KV> struct Stage {
+  static constexpr int VEC = 16 / (int)sizeof(KV);
+  static constexpr int PAD = VEC;
+};
+
+template <typename KV, int D>
 struct Geometry {
-  static constexpr int KC_RAW = KV_CHUNK_BYTES / (2 * D * (int)sizeof(T));
+  static constexpr int KC_RAW = KV_CHUNK_BYTES / (2 * D * (int)sizeof(KV));
   // key rows per staged chunk: a power of two in [16, 64]
   static constexpr int KC = KC_RAW >= 64 ? 64 : (KC_RAW >= 32 ? 32 : 16);
   static constexpr int QS = D + 4;                 // q row stride (floats)
-  static constexpr int KS = D + Traits<T>::PAD;    // K/V row stride (T)
+  static constexpr int KS = D + Stage<KV>::PAD;    // K/V row stride (KV)
   static constexpr int NDC = D / 8;                // 8-element chunks/row
   // most chunks one thread owns (at THREADS / QB threads per row)
   static constexpr int MAXDC = NDC * QB / THREADS > 1 ? NDC * QB / THREADS
@@ -107,7 +125,10 @@ struct Geometry {
   // q, scores, m/l/alpha, then K and V chunks, each double-buffered
   static constexpr size_t SMEM =
       sizeof(float) * (QB * QS + QB * KC + 3 * QB) +
-      sizeof(T) * 2 * 2 * KC * KS;
+      sizeof(KV) * 2 * 2 * KC * KS;
+  // the K buffers hold the key splits' partial sums at the end
+  static_assert(sizeof(KV) * 2 * KC * KS >= sizeof(float) * THREADS * 8,
+                "K buffers too small for the PV partial sums");
 };
 
 __device__ __forceinline__ void load8(const float* p, float* o) {
@@ -115,6 +136,16 @@ __device__ __forceinline__ void load8(const float* p, float* o) {
   float4 b = *reinterpret_cast<const float4*>(p + 4);
   o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+
+// eight int8 elements (8 bytes, 8-byte aligned), converted exactly
+__device__ __forceinline__ void load8(const int8_t* p, float* o) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[i] = (float)(int)(signed char)((u.x >> (8 * i)) & 0xffu);
+    o[4 + i] = (float)(int)(signed char)((u.y >> (8 * i)) & 0xffu);
+  }
 }
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
@@ -177,6 +208,8 @@ struct Args {
   const void* q;           // [num_tokens, num_heads, D], rows strided
   const void* k_pool;      // [P, num_heads, page_size, D]
   const void* v_pool;
+  const float* k_scale;    // [P, num_heads], int8 pools only
+  const float* v_scale;
   void* out;               // [num_tokens, num_heads, D], contiguous
   const int* blk_tok;      // the nine plan arrays (RAGGED_PLAN_FIELDS)
   const int* tok_blk;
@@ -192,15 +225,19 @@ struct Args {
   float scale;
 };
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(THREADS)
 ragged_paged_attention_kernel(const Args a) {
-  using G = Geometry<T, D>;
+  using G = Geometry<KV, D>;
   using TR = Traits<T>;
+  // int8 storage: dequantize each element as the staged chunk is read
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  static_assert(QUANT || std::is_same<KV, T>::value,
+                "a float pool shares the type of q and the output");
   constexpr int KC = G::KC, QS = G::QS, KS = G::KS;
   const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k_pool = static_cast<const T*>(a.k_pool);
-  const T* __restrict__ v_pool = static_cast<const T*>(a.v_pool);
+  const KV* __restrict__ k_pool = static_cast<const KV*>(a.k_pool);
+  const KV* __restrict__ v_pool = static_cast<const KV*>(a.v_pool);
   T* __restrict__ out = static_cast<T*>(a.out);
   const int* __restrict__ blk_tok = a.blk_tok;
   const int* __restrict__ wl_blk = a.wl_blk;
@@ -239,26 +276,27 @@ ragged_paged_attention_kernel(const Args a) {
   float* m_s = s_s + QB * KC;                            // [QB]
   float* l_s = m_s + QB;                                 // [QB]
   float* a_s = l_s + QB;                                 // [QB] rescale
-  T* k_s = reinterpret_cast<T*>(a_s + QB);               // [2][KC][KS]
-  T* v_s = k_s + 2 * KC * KS;                            // [2][KC][KS]
-  constexpr int VPR = D / TR::VEC;             // 16-byte vectors per row
+  KV* k_s = reinterpret_cast<KV*>(a_s + QB);             // [2][KC][KS]
+  KV* v_s = k_s + 2 * KC * KS;                           // [2][KC][KS]
+  constexpr int VEC = Stage<KV>::VEC;
+  constexpr int VPR = D / VEC;                 // 16-byte vectors per row
 
   // stage chunk (item w, key rows c0..) into buffer buf: one commit group
   auto stage = [&](int w, int c0, int buf) {
     const int nk = min(KC, page_size - c0);
     const size_t src =
         (((size_t)wl_page[w] * num_heads + h) * page_size + c0) * D;
-    T* kd = k_s + buf * KC * KS;
-    T* vd = v_s + buf * KC * KS;
+    KV* kd = k_s + buf * KC * KS;
+    KV* vd = v_s + buf * KC * KS;
 #pragma unroll
     for (int j = 0; j < (KC * VPR + THREADS - 1) / THREADS; ++j) {
       const int i = tid + j * THREADS;
       const int rr = i / VPR, cv = i - rr * VPR;
       if (rr < nk) {
-        cp_async16(kd + rr * KS + cv * TR::VEC,
-                   k_pool + src + (size_t)rr * D + cv * TR::VEC);
-        cp_async16(vd + rr * KS + cv * TR::VEC,
-                   v_pool + src + (size_t)rr * D + cv * TR::VEC);
+        cp_async16(kd + rr * KS + cv * VEC,
+                   k_pool + src + (size_t)rr * D + cv * VEC);
+        cp_async16(vd + rr * KS + cv * VEC,
+                   v_pool + src + (size_t)rr * D + cv * VEC);
       }
     }
     cp_async_commit();
@@ -313,20 +351,28 @@ ragged_paged_attention_kernel(const Args a) {
     __syncthreads();
     const int pos0 = wl_pageslot[w] * page_size + c0;   // key row 0
     const int nk = min(KC, page_size - c0);
-    const T* kb = k_s + buf * KC * KS;
-    const T* vb = v_s + buf * KC * KS;
+    const KV* kb = k_s + buf * KC * KS;
+    const KV* vb = v_s + buf * KC * KS;
+    // an int8 chunk's (page, head) scales
+    const size_t si = (size_t)wl_page[w] * num_heads + h;
+    const float ksc = QUANT ? a.k_scale[si] : 1.f;
+    const float vsc = QUANT ? a.v_scale[si] : 1.f;
     // 2. masked scores of the valid rows
     for (int i = tid; i < rows * KC; i += THREADS) {
       int r = i / KC, c = i - r * KC;
       float s = NEG_INF;
       if (c < nk && pos0 + c <= base + r) {
         const float* qr = q_s + r * QS;
-        const T* kr = kb + c * KS;
+        const KV* kr = kb + c * KS;
         float dot = 0.f;
 #pragma unroll
         for (int d = 0; d < D; d += 8) {
           float kf[8], qf[8];
           load8(kr + d, kf);
+          if (QUANT) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) kf[e] *= ksc;
+          }
           load8(qr + d, qf);
 #pragma unroll
           for (int e = 0; e < 8; ++e) dot = fmaf(qf[e], kf[e], dot);
@@ -369,12 +415,16 @@ ragged_paged_attention_kernel(const Args a) {
       const int c_end = min(nk, base + pr - pos0 + 1);
       for (int c = split; c < c_end; c += nsplit) {
         const float p = pr_s[c];
-        const T* vr = vb + c * KS;
+        const KV* vr = vb + c * KS;
 #pragma unroll
         for (int k = 0; k < G::MAXDC; ++k) {
           if (k < ndc) {
             float vf[8];
             load8(vr + (dc0 + k * tpr) * 8, vf);
+            if (QUANT) {
+#pragma unroll
+              for (int e = 0; e < 8; ++e) vf[e] *= vsc;
+            }
 #pragma unroll
             for (int e = 0; e < 8; ++e)
               acc[k * 8 + e] = fmaf(p, vf[e], acc[k * 8 + e]);
@@ -419,10 +469,10 @@ ragged_paged_attention_kernel(const Args a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = Geometry<T, D>::SMEM;
-  auto kernel = ragged_paged_attention_kernel<T, D>;
+  const size_t smem = Geometry<KV, D>::SMEM;
+  auto kernel = ragged_paged_attention_kernel<T, KV, D>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -433,14 +483,14 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 int dispatch_head_dim(int head_dim, const Args& a, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(a, stream);
-    case 32: return launch<T, 32>(a, stream);
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
-    case 256: return launch<T, 256>(a, stream);
+    case 16: return launch<T, KV, 16>(a, stream);
+    case 32: return launch<T, KV, 32>(a, stream);
+    case 64: return launch<T, KV, 64>(a, stream);
+    case 128: return launch<T, KV, 128>(a, stream);
+    case 256: return launch<T, KV, 256>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -451,14 +501,17 @@ extern "C" {
 
 // device: the CUDA device index every pointer lives on (this library
 // links its own CUDA runtime, whose current device is not PyTorch's).
-// dtype: 0 = float32, 1 = bfloat16.  q: [num_tokens, num_heads, head_dim]
+// dtype: 0 = float32, 1 = bfloat16, for q, the pools and out alike; 2 =
+// int8 pools with fp32 q and out, and fp32 k_scale/v_scale [P, num_heads]
+// (null for dtypes 0 and 1).  q: [num_tokens, num_heads, head_dim]
 // with heads and elements contiguous and q_row_stride elements between
 // tokens (3 x hidden when q is a view into the fused QKV output); out:
 // [num_tokens, num_heads, head_dim], contiguous; k_pool, v_pool: [P,
 // num_heads, page_size, head_dim]; the plan arrays are int32 as
 // RAGGED_PLAN_FIELDS documents.  Returns a cudaError_t (0 on success).
 int rpa_forward(int device, int dtype, const void* q, const void* k_pool,
-                const void* v_pool, void* out, const int* blk_tok,
+                const void* v_pool, const float* k_scale,
+                const float* v_scale, void* out, const int* blk_tok,
                 const int* tok_blk, const int* tok_row, const int* blk_base,
                 const int* blk_rows, const int* wl_blk, const int* wl_page,
                 const int* wl_pageslot, const int* n_items,
@@ -468,16 +521,19 @@ int rpa_forward(int device, int dtype, const void* q, const void* k_pool,
   if (token_block != QB || page_size < 16 || page_size > 128 ||
       page_size % 16 != 0 || num_tokens < 1 || num_heads < 1 ||
       num_heads > 65535 || nb_max < 1 || wl_max < 1 ||
-      q_row_stride < (long long)num_heads * head_dim)
+      q_row_stride < (long long)num_heads * head_dim ||
+      (dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const Args a{q, k_pool, v_pool, out, blk_tok, tok_blk, tok_row, blk_base,
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, out, blk_tok, tok_blk, tok_row, blk_base,
                blk_rows, wl_blk, wl_page, wl_pageslot, n_items, q_row_stride,
                num_tokens, num_heads, page_size, nb_max, wl_max, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_head_dim<float>(head_dim, a, s);
-  if (dtype == 1) return dispatch_head_dim<__nv_bfloat16>(head_dim, a, s);
+  if (dtype == 0) return dispatch_head_dim<float, float>(head_dim, a, s);
+  if (dtype == 1)
+    return dispatch_head_dim<__nv_bfloat16, __nv_bfloat16>(head_dim, a, s);
+  if (dtype == 2) return dispatch_head_dim<float, int8_t>(head_dim, a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,10 @@
-// 16-byte vectors of fp32 or bf16 elements, unpacked to and packed from
-// fp32 registers by bit arithmetic (no type punning through pointers).
+// 16-byte vectors of fp32, bf16 or int8 elements, unpacked to (and, for
+// the float types, packed from) fp32 registers by bit arithmetic (no type
+// punning through pointers).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 template <typename T> struct Vec16;
 
@@ -41,5 +43,23 @@ template <> struct Vec16<__nv_bfloat16> {
   static __device__ __forceinline__ uint4 pack(const float* f) {
     return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
                       pack2(f[6], f[7]));
+  }
+};
+
+// int8 storage (a quantized KV cache): 16 elements, each converted exactly
+// to fp32; there is no pack, nothing is written back as int8
+template <> struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  // the four signed bytes of w, low byte first
+  static __device__ __forceinline__ void unpack4(unsigned w, float* f) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = (float)(int)(signed char)((w >> (8 * i)) & 0xffu);
+  }
+  static __device__ __forceinline__ void unpack(const uint4& u, float* f) {
+    unpack4(u.x, f);
+    unpack4(u.y, f + 4);
+    unpack4(u.z, f + 8);
+    unpack4(u.w, f + 12);
   }
 };

@@ -12,12 +12,18 @@ Port of ``paddle_tpu/ops/pallas_kernels/decode_attention.py``.  Two parts:
   reads only the first ``length`` positions, and reads ``length`` itself
   from device memory, so a decode step needs no host sync.
 
+An int8 cache comes with ``k_scale``/``v_scale``, one fp32 scale per
+(batch, head): q joins the fp32 dequantization, the kernel dequantizes
+each key and value as it reads it (``float(int8) * scale``) and the
+output is fp32.  No model path of the JAX package passes scales here (its
+``generate()`` refuses a quantized model); the int8 variant is the kernel
+API, held against its plain version on the card.
+
 The wrapper takes the plain version only for tensors on the CPU.  Any
 other tensor launches the kernel (counted in
 ``decode_attention.launches``) or raises ``ValueError`` naming what the
-kernel does not take; nothing falls back.  The int8 cache of the JAX
-function (``k_scale``/``v_scale``) is not ported yet (ROADMAP.md queue 1,
-item 4).  Forward only: decode never differentiates through the cache.
+kernel does not take; nothing falls back.  Forward only: decode never
+differentiates through the cache.
 """
 from __future__ import annotations
 
@@ -32,21 +38,29 @@ __all__ = [
     "decode_attention",
     "decode_attention_plain",
     "kernel_unsupported_reason",
+    "check_scales",
     "NEG_INF",
 ]
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the cache dtype's code in the C interface: q and the output share a
+# float cache's dtype; an int8 cache takes fp32 q and gives fp32
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def decode_attention_plain(q, k_cache, v_cache, length, scale: float
-                           ) -> torch.Tensor:
+def decode_attention_plain(q, k_cache, v_cache, length, scale: float,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
     """Masked single-query attention: q ``[B, H, D]`` over the first
     ``length`` positions of ``[B, H, max_seq, D]`` caches, returning
     ``[B, H, D]`` in the q dtype.  ``length`` is an int or a 0-d tensor.
     Every cache position is read; masked ones weigh 0 (so a non-finite
-    value past ``length`` reaches the output, as in the reference)."""
+    value past ``length`` reaches the output, as in the reference).  An
+    int8 cache is dequantized whole first with its ``[B, H]`` scales (q
+    is then fp32, so P is not rounded)."""
+    if k_scale is not None:
+        k_cache = k_cache.float() * k_scale[:, :, None, None]
+        v_cache = v_cache.float() * v_scale[:, :, None, None]
     s = torch.einsum("bhd,bhsd->bhs", q.float(), k_cache.float()) * scale
     valid = torch.arange(k_cache.shape[2], device=k_cache.device) < length
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
@@ -60,10 +74,26 @@ def kernel_unsupported_reason(head_dim: int, dtype: torch.dtype
     """``None`` when the kernel takes caches of this head_dim and dtype,
     else why not (any ``max_seq`` is taken)."""
     if dtype not in KERNEL_DTYPES:
-        return f"cache dtype {dtype} (the kernel takes float32 and bfloat16)"
+        return (f"cache dtype {dtype} (the kernel takes float32, bfloat16 "
+                "and int8)")
     if head_dim not in KERNEL_HEAD_DIMS:
         return f"head_dim={head_dim} (the kernel takes {KERNEL_HEAD_DIMS})"
     return None
+
+
+def q_dtype(cache_dtype: torch.dtype) -> torch.dtype:
+    """The dtype q is cast to, and the output's: the cache's for a float
+    cache, fp32 for an int8 one (an int8 q would destroy the queries)."""
+    return torch.float32 if cache_dtype == torch.int8 else cache_dtype
+
+
+def scale_pointers(k_scale, v_scale):
+    """Device pointers of contiguous scales (0 for a float cache)."""
+    if k_scale is None:
+        return 0, 0
+    if not (k_scale.is_contiguous() and v_scale.is_contiguous()):
+        raise ValueError("the kernels take contiguous k_scale/v_scale")
+    return k_scale.data_ptr(), v_scale.data_ptr()
 
 
 _fn = None
@@ -75,8 +105,8 @@ def _kernel_fn():
         lib = _build.library("decode_attention")
         fn = lib.decode_attention_forward
         i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-        fn.argtypes = [i32, i32, i32, ptr, i64, i64, ptr, ptr, i64, i64, i64,
-                       ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
+        fn.argtypes = [i32, i32, i32, ptr, i64, i64, ptr, ptr, ptr, ptr, i64,
+                       i64, i64, ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
         fn.restype = i32
         lib.decode_attention_error_string.argtypes = [i32]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -98,6 +128,27 @@ def check_rows(name: str, t: torch.Tensor, dims: int, dev: torch.device,
                          "contiguous and 16-byte aligned")
 
 
+def check_scales(pool: torch.Tensor, k_scale, v_scale, shape) -> None:
+    """Raise ``ValueError`` unless an int8 ``pool`` (a KV cache or page
+    pool) comes with fp32 ``k_scale`` and ``v_scale`` of ``shape`` on its
+    device, and a float one with neither."""
+    given = (k_scale is not None, v_scale is not None)
+    if pool.dtype != torch.int8:
+        if any(given):
+            raise ValueError(f"k_scale/v_scale given with a {pool.dtype} KV "
+                             "cache: scales belong to an int8 cache only")
+        return
+    if not all(given):
+        raise ValueError("an int8 KV cache needs both k_scale and v_scale "
+                         f"(fp32 {tuple(shape)})")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
+                or t.device != pool.device:
+            raise ValueError(f"{name} is {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}; expected float32 {tuple(shape)} "
+                             f"on {pool.device}")
+
+
 def device_lengths(length, n: int, dev: torch.device) -> torch.Tensor:
     """``length`` (an int, or an integer tensor of ``n`` elements on
     ``dev``) as a contiguous int32 ``[n]`` tensor on ``dev``, made without
@@ -112,7 +163,8 @@ def device_lengths(length, n: int, dev: torch.device) -> torch.Tensor:
     return torch.full((n,), int(length), dtype=torch.int32, device=dev)
 
 
-def _launch(q, k_cache, v_cache, length, scale: float) -> torch.Tensor:
+def _launch(q, k_cache, v_cache, length, scale: float, k_scale=None,
+            v_scale=None) -> torch.Tensor:
     """Check everything the kernel assumes, then launch it on the current
     stream."""
     dev = k_cache.device
@@ -126,19 +178,21 @@ def _launch(q, k_cache, v_cache, length, scale: float) -> torch.Tensor:
         raise ValueError(f"v_cache {tuple(v_cache.shape)} {v_cache.stride()} "
                          f"must match k_cache {tuple(k_cache.shape)} "
                          f"{k_cache.stride()}")
-    if q.shape != (b, h, d) or q.dtype != k_cache.dtype or q.device != dev \
+    qd = q_dtype(k_cache.dtype)
+    if q.shape != (b, h, d) or q.dtype != qd or q.device != dev \
             or q.stride(2) != 1:
         raise ValueError(f"q is {q.dtype} {tuple(q.shape)} {q.stride()} on "
-                         f"{q.device}; expected {k_cache.dtype} ({b}, {h}, "
+                         f"{q.device}; expected {qd} ({b}, {h}, "
                          f"{d}) with contiguous rows on {dev}")
+    ks, vs = scale_pointers(k_scale, v_scale)
     lengths = device_lengths(length, 1, dev)
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     fn, err_str = _kernel_fn()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(dev.index, KERNEL_DTYPES[k_cache.dtype], d, q.data_ptr(),
              q.stride(0), q.stride(1), k_cache.data_ptr(), v_cache.data_ptr(),
-             *k_cache.stride()[:3], out.data_ptr(), lengths.data_ptr(), b, h,
-             s, float(scale), stream)
+             ks, vs, *k_cache.stride()[:3], out.data_ptr(),
+             lengths.data_ptr(), b, h, s, float(scale), stream)
     if err != 0:
         raise RuntimeError("decode_attention kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
@@ -147,7 +201,8 @@ def _launch(q, k_cache, v_cache, length, scale: float) -> torch.Tensor:
 
 
 def decode_attention(q, k_cache, v_cache, length: Union[int, torch.Tensor],
-                     *, sm_scale: Optional[float] = None) -> torch.Tensor:
+                     *, sm_scale: Optional[float] = None, k_scale=None,
+                     v_scale=None) -> torch.Tensor:
     """Single-query attention over a preallocated KV cache.
 
     q:        [B, H, D] -- the ONE new query per (batch, head); rows may be
@@ -156,16 +211,21 @@ def decode_attention(q, k_cache, v_cache, length: Union[int, torch.Tensor],
     v_cache:  [B, H, max_seq, D]
     length:   valid cache positions: an int, or a 0-d integer tensor on
               the cache's device (read there, with no host sync)
-    returns   [B, H, D] in the cache dtype (q is cast to it first)
+    k_scale/v_scale: [B, H] fp32 dequantization scales of an int8 cache
+              (given with an int8 cache, and only then)
+    returns   [B, H, D] in the cache dtype (q is cast to it first); fp32
+              for an int8 cache
 
     CPU tensors run the plain version; any other tensor launches the
     Hopper kernel or raises."""
-    d = k_cache.shape[-1]
+    b, h, _, d = k_cache.shape
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
-    q = q.to(k_cache.dtype)
+    check_scales(k_cache, k_scale, v_scale, (b, h))
+    q = q.to(q_dtype(k_cache.dtype))
     if k_cache.device.type == "cpu" and q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, length, scale)
-    return _launch(q, k_cache, v_cache, length, scale)
+        return decode_attention_plain(q, k_cache, v_cache, length, scale,
+                                      k_scale, v_scale)
+    return _launch(q, k_cache, v_cache, length, scale, k_scale, v_scale)
 
 
 # kernel launches made through the wrapper (plain-version calls on the

@@ -4,7 +4,8 @@ pages of the global KV pool, the C == 1 paged step without a ragged plan.
 Port of ``paddle_tpu/ops/pallas_kernels/paged_attention.py``.  Parts:
 
 - ``gather_pages``, each slot's pages as one contiguous context (the
-  chunked-prefill path and the plain versions use it);
+  chunked-prefill path and the plain versions use it), dequantized page
+  by page for an int8 pool;
 - the plain PyTorch version, ``paged_attention_plain``, the counterpart
   of ``_xla_paged_reference``: gather, fp32 scores, the ``NEG_INF``
   length mask, an fp32 softmax, probabilities cast to the q dtype before
@@ -14,10 +15,14 @@ Port of ``paddle_tpu/ops/pallas_kernels/paged_attention.py``.  Parts:
   which keeps the JAX signature.  Each CTA reads its slot's table row and
   length from device memory and only the pages below its length.
 
+An int8 pool comes with ``k_scale``/``v_scale``, one fp32 scale per
+(page, head): q joins the fp32 dequantization, the kernel dequantizes each
+key and value as it reads it with its page's scale, and the output is
+fp32.
+
 The wrapper takes the plain version only for tensors on the CPU.  Any
 other tensor launches the kernel (counted in ``paged_attention.launches``)
-or raises ``ValueError``; nothing falls back.  The int8 pool
-(``k_scale``/``v_scale``) is not ported yet (ROADMAP.md queue 1, item 4).
+or raises ``ValueError``; nothing falls back.
 """
 from __future__ import annotations
 
@@ -28,8 +33,8 @@ import torch
 
 from . import _build
 from .decode_attention import (
-    KERNEL_DTYPES, NEG_INF, check_rows, device_lengths,
-    kernel_unsupported_reason,
+    KERNEL_DTYPES, NEG_INF, scale_pointers, check_rows, check_scales,
+    device_lengths, kernel_unsupported_reason, q_dtype,
 )
 
 __all__ = [
@@ -40,24 +45,32 @@ __all__ = [
 ]
 
 
-def gather_pages(pool: torch.Tensor, page_tables: torch.Tensor
-                 ) -> torch.Tensor:
+def gather_pages(pool: torch.Tensor, page_tables: torch.Tensor,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Each row's paged context as a contiguous view: pool
     ``[P, H, page_size, D]``, page_tables ``[S, max_pages]`` ->
     ``[S, H, max_pages * page_size, D]``.  Position p of row s lives at
-    ``pool[page_tables[s, p // page_size], :, p % page_size]``."""
-    g = pool[page_tables.long()]                 # [S, MP, H, ps, D]
+    ``pool[page_tables[s, p // page_size], :, p % page_size]``.  With
+    ``scale`` ([P, H] fp32, an int8 pool) each gathered page is
+    dequantized by its (page, head) scale and the result is fp32."""
+    tbl = page_tables.long()
+    g = pool[tbl]                                # [S, MP, H, ps, D]
+    if scale is not None:
+        g = g.float() * scale[tbl][..., None, None]
     s, mp, h, ps, d = g.shape
     return g.permute(0, 2, 1, 3, 4).reshape(s, h, mp * ps, d)
 
 
 def paged_attention_plain(q, k_pool, v_pool, page_tables, lengths,
-                          scale: float) -> torch.Tensor:
+                          scale: float, k_scale=None, v_scale=None
+                          ) -> torch.Tensor:
     """Gather plus masked single-query attention: q ``[S, H, D]`` over the
     first ``lengths[s]`` positions of each slot's pages, returning
-    ``[S, H, D]`` in the q dtype; length-0 slots return zeros."""
-    k = gather_pages(k_pool, page_tables)
-    v = gather_pages(v_pool, page_tables)
+    ``[S, H, D]`` in the q dtype; length-0 slots return zeros.  An int8
+    pool's pages are dequantized as they are gathered (q is then fp32, so
+    P is not rounded)."""
+    k = gather_pages(k_pool, page_tables, k_scale)
+    v = gather_pages(v_pool, page_tables, v_scale)
     s = torch.einsum("shd,shkd->shk", q.float(), k.float()) * scale
     lengths = lengths.to(torch.int64)
     valid = torch.arange(k.shape[2], device=k.device)[None, :] \
@@ -79,7 +92,7 @@ def _kernel_fn():
         fn = lib.paged_attention_forward
         i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
         fn.argtypes = [i32, i32, i32, ptr, i64, i64, ptr, ptr, ptr, ptr, ptr,
-                       i32, i32, i32, i32, ctypes.c_float, ptr]
+                       ptr, ptr, i32, i32, i32, i32, ctypes.c_float, ptr]
         fn.restype = i32
         lib.decode_attention_error_string.argtypes = [i32]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -87,8 +100,8 @@ def _kernel_fn():
     return _fn
 
 
-def _launch(q, k_pool, v_pool, page_tables, lengths, scale: float
-            ) -> torch.Tensor:
+def _launch(q, k_pool, v_pool, page_tables, lengths, scale: float,
+            k_scale=None, v_scale=None) -> torch.Tensor:
     """Check everything the kernel assumes, then launch it on the current
     stream."""
     dev = k_pool.device
@@ -108,11 +121,13 @@ def _launch(q, k_pool, v_pool, page_tables, lengths, scale: float
                          f"{tuple(page_tables.shape)} on "
                          f"{page_tables.device}")
     slots, max_pages = page_tables.shape
-    if q.shape != (slots, h, d) or q.dtype != k_pool.dtype \
+    qd = q_dtype(k_pool.dtype)
+    if q.shape != (slots, h, d) or q.dtype != qd \
             or q.device != dev or q.stride(2) != 1:
         raise ValueError(f"q is {q.dtype} {tuple(q.shape)} {q.stride()} on "
-                         f"{q.device}; expected {k_pool.dtype} ({slots}, "
+                         f"{q.device}; expected {qd} ({slots}, "
                          f"{h}, {d}) with contiguous rows on {dev}")
+    ks, vs = scale_pointers(k_scale, v_scale)
     tables = page_tables.to(torch.int32).contiguous()
     lens = device_lengths(lengths, slots, dev)
     out = torch.empty((slots, h, d), dtype=q.dtype, device=dev)
@@ -120,8 +135,8 @@ def _launch(q, k_pool, v_pool, page_tables, lengths, scale: float
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(dev.index, KERNEL_DTYPES[k_pool.dtype], d, q.data_ptr(),
              q.stride(0), q.stride(1), k_pool.data_ptr(), v_pool.data_ptr(),
-             tables.data_ptr(), lens.data_ptr(), out.data_ptr(), slots, h,
-             page_size, max_pages, float(scale), stream)
+             ks, vs, tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+             slots, h, page_size, max_pages, float(scale), stream)
     if err != 0:
         raise RuntimeError("paged_attention kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
@@ -130,7 +145,8 @@ def _launch(q, k_pool, v_pool, page_tables, lengths, scale: float
 
 
 def paged_attention(q, k_pool, v_pool, page_tables, lengths, *,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None, k_scale=None,
+                    v_scale=None) -> torch.Tensor:
     """Single-query attention over a paged KV block pool.
 
     q:           [S, H, D] -- the ONE new query per (slot, head); rows may
@@ -141,17 +157,22 @@ def paged_attention(q, k_pool, v_pool, page_tables, lengths, *,
                  every entry the kernel reads must name a pool page
     lengths:     [S] int32 -- valid positions per slot (0 = inactive slot,
                  defined to return zeros)
-    returns      [S, H, D] in the pool dtype (q is cast to it first)
+    k_scale/v_scale: [P, H] fp32 per-(page, head) scales of an int8 pool
+                 (given with an int8 pool, and only then)
+    returns      [S, H, D] in the pool dtype (q is cast to it first); fp32
+                 for an int8 pool
 
     CPU tensors run the plain version; any other tensor launches the
     Hopper kernel or raises."""
-    d = k_pool.shape[-1]
+    p, h, _, d = k_pool.shape
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
-    q = q.to(k_pool.dtype)
+    check_scales(k_pool, k_scale, v_scale, (p, h))
+    q = q.to(q_dtype(k_pool.dtype))
     if k_pool.device.type == "cpu" and q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, page_tables, lengths,
-                                     scale)
-    return _launch(q, k_pool, v_pool, page_tables, lengths, scale)
+                                     scale, k_scale, v_scale)
+    return _launch(q, k_pool, v_pool, page_tables, lengths, scale, k_scale,
+                   v_scale)
 
 
 # kernel launches made through the wrapper (plain-version calls on the

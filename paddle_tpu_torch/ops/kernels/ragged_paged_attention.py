@@ -16,6 +16,10 @@ work list of (token block, pool page, page slot) items.  Three parts:
 - the Hopper kernel (``csrc/ragged_paged_attention.cu``) behind the public
   wrapper ``ragged_paged_attention``, which keeps the JAX signature.
 
+An int8 pool comes with ``k_scale``/``v_scale``, one fp32 scale per
+(page, head): q joins the fp32 dequantization, the kernel dequantizes each
+staged page chunk as it reads it, and the output is fp32.
+
 The wrapper takes the plain version only for tensors on the CPU.  A CUDA
 tensor launches the kernel or raises; nothing falls back.  Forward only:
 serving never differentiates through the pool.
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .decode_attention import check_scales, q_dtype, scale_pointers
 from .paged_attention import gather_pages
 
 __all__ = [
@@ -46,7 +51,9 @@ NEG_INF = -1e30
 # compile-time row count
 TOKEN_BLOCK = 16
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the pool dtype's code in the C interface: q and the output share a
+# float pool's dtype; an int8 pool takes fp32 q and gives fp32
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # the ordered field names of a ragged plan -- the host builder emits them,
 # the serving engine ships them (as int32 tensors) into the fused step,
@@ -165,14 +172,17 @@ def build_ragged_plan(runs: Sequence[Tuple[int, int, np.ndarray]], *,
 # ---------------------------------------------------------------------------
 
 def ragged_paged_attention_plain(q, k_pool, v_pool, token_tables, lengths,
-                                 scale: float) -> torch.Tensor:
+                                 scale: float, k_scale=None, v_scale=None
+                                 ) -> torch.Tensor:
     """Per-token gather plus masked single-query attention: each flat
     token attends over its own ``lengths[t]`` positions of its table row.
     fp32 scores and softmax with the finite ``NEG_INF``; the probabilities
-    are cast to the pool dtype before the PV product; length-0 tokens
-    return zeros.  ``q`` is already in the pool dtype; the result is too."""
-    k = gather_pages(k_pool, token_tables)
-    v = gather_pages(v_pool, token_tables)
+    are cast to the q dtype before the PV product; length-0 tokens
+    return zeros.  ``q`` is already in the pool dtype (fp32 for an int8
+    pool, whose pages are dequantized as they are gathered); the result
+    is too."""
+    k = gather_pages(k_pool, token_tables, k_scale)
+    v = gather_pages(v_pool, token_tables, v_scale)
     s = torch.einsum("shd,shkd->shk", q.float(), k.float()) * scale
     lengths = lengths.to(torch.int64)
     pos = torch.arange(k.shape[2], device=k.device)
@@ -193,7 +203,8 @@ def kernel_unsupported_reason(page_size: int, head_dim: int,
                               ) -> Optional[str]:
     """``None`` when the kernel takes this layout, else why not."""
     if dtype not in KERNEL_DTYPES:
-        return f"pool dtype {dtype} (the kernel takes float32 and bfloat16)"
+        return (f"pool dtype {dtype} (the kernel takes float32, bfloat16 "
+                "and int8)")
     if head_dim not in KERNEL_HEAD_DIMS:
         return f"head_dim={head_dim} (the kernel takes {KERNEL_HEAD_DIMS})"
     if page_size % 16 or not 16 <= page_size <= 128:
@@ -214,7 +225,7 @@ def _kernel_fn():
         lib = _build.library("ragged_paged_attention")
         fn = lib.rpa_forward
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i32, i32] + [ptr] * 13 + [ctypes.c_longlong] + [
+        fn.argtypes = [i32, i32] + [ptr] * 15 + [ctypes.c_longlong] + [
             i32] * 7 + [ctypes.c_float, ptr]
         fn.restype = i32
         lib.rpa_error_string.argtypes = [i32]
@@ -245,7 +256,8 @@ def _check_plan(plan, dev: torch.device):
                              f"{dev}; got {a.device}")
 
 
-def _launch(q, k_pool, v_pool, plan, scale: float) -> torch.Tensor:
+def _launch(q, k_pool, v_pool, plan, scale: float, k_scale=None,
+            v_scale=None) -> torch.Tensor:
     """Check everything the kernel assumes, then launch it on the current
     stream.  Raises on anything it does not take."""
     dev = k_pool.device
@@ -260,8 +272,9 @@ def _launch(q, k_pool, v_pool, plan, scale: float) -> torch.Tensor:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k_pool "
                          f"{tuple(k_pool.shape)}, v_pool "
                          f"{tuple(v_pool.shape)}")
-    if q.dtype != k_pool.dtype or v_pool.dtype != k_pool.dtype:
-        raise ValueError("q, k_pool and v_pool must share the pool dtype")
+    if q.dtype != q_dtype(k_pool.dtype) or v_pool.dtype != k_pool.dtype:
+        raise ValueError("k_pool and v_pool must share a dtype, and q must "
+                         "be in it (fp32 for an int8 pool)")
     if q.device != dev or v_pool.device != dev:
         raise ValueError(f"q, k_pool and v_pool must be on {dev}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
@@ -275,11 +288,12 @@ def _launch(q, k_pool, v_pool, plan, scale: float) -> torch.Tensor:
     if plan[1].shape[0] != t:
         raise ValueError(f"the plan is for {plan[1].shape[0]} tokens; q "
                          f"has {t}")
+    ks, vs = scale_pointers(k_scale, v_scale)
     out = torch.empty((t, h, d), dtype=q.dtype, device=dev)
     fn, err_str = _kernel_fn()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(dev.index, KERNEL_DTYPES[k_pool.dtype], q.data_ptr(),
-             k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
+             k_pool.data_ptr(), v_pool.data_ptr(), ks, vs, out.data_ptr(),
              *(a.data_ptr() for a in plan), q.stride(0), t, h, d, page_size,
              qb, nb, wl, float(scale), stream)
     if err != 0:
@@ -290,7 +304,8 @@ def _launch(q, k_pool, v_pool, plan, scale: float) -> torch.Tensor:
 
 
 def ragged_paged_attention(q, k_pool, v_pool, token_tables, lengths, plan,
-                           *, sm_scale=None) -> torch.Tensor:
+                           *, sm_scale=None, k_scale=None, v_scale=None
+                           ) -> torch.Tensor:
     """Token-granular attention over the paged KV pool for one fused
     mixed prefill/decode step.
 
@@ -303,18 +318,21 @@ def ragged_paged_attention(q, k_pool, v_pool, token_tables, lengths, plan,
     lengths:      [T] int32 -- valid context per token (position + 1)
     plan:         the :data:`RAGGED_PLAN_FIELDS` arrays of
                   :func:`build_ragged_plan`, as int32 tensors
-    returns       [T, H, D] in the pool dtype
+    k_scale/v_scale: [P, H] fp32 per-(page, head) scales of an int8 pool
+                  (given with an int8 pool, and only then)
+    returns       [T, H, D] in the pool dtype; fp32 for an int8 pool
 
     CPU tensors run the plain version; CUDA tensors launch the Hopper
     kernel (and count it in ``ragged_paged_attention.launches``) or
     raise.  On the kernel path the rows of padding tokens are zeros."""
-    d = k_pool.shape[-1]
+    p, h, _, d = k_pool.shape
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
-    q = q.to(k_pool.dtype)
+    check_scales(k_pool, k_scale, v_scale, (p, h))
+    q = q.to(q_dtype(k_pool.dtype))
     if k_pool.device.type == "cpu" and q.device.type == "cpu":
         return ragged_paged_attention_plain(q, k_pool, v_pool, token_tables,
-                                            lengths, scale)
-    return _launch(q, k_pool, v_pool, plan, scale)
+                                            lengths, scale, k_scale, v_scale)
+    return _launch(q, k_pool, v_pool, plan, scale, k_scale, v_scale)
 
 
 # kernel launches made through the wrapper (plain-version calls on the

@@ -37,7 +37,7 @@ class FusedTrainStep:
                 for g in optimizer.param_groups for p in g["params"]):
             raise NotImplementedError(
                 "FusedTrainStep: amp_level='O1' over fp32 parameters is not "
-                "ported yet (ROADMAP.md queue 1, slice 5 'later' items); "
+                "ported yet (ROADMAP.md queue 1, item 2, training); "
                 "cast the model to bfloat16 first")
         self._loss_fn = loss_fn
         self._optimizer = optimizer

@@ -27,8 +27,8 @@ __all__ = ["AdamW"]
 
 def _unported(what: str):
     return NotImplementedError(
-        f"AdamW: {what} is not ported yet (ROADMAP.md queue 1, slice 5 "
-        "'later' items)")
+        f"AdamW: {what} is not ported yet (ROADMAP.md queue 1, item 2, "
+        "training)")
 
 
 class AdamW(torch.optim.Optimizer):

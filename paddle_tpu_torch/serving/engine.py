@@ -32,12 +32,18 @@ passed, or the request overstayed ``max_queue_wait_s``), ``FAILED`` (the
 finiteness sentry caught non-finite logits: ``NaNLogitsError``).  Page
 accounting stays exact through every one of them.
 
+Quantized serving: ``kv_dtype="int8"`` (or ``cache_dtype="int8"``) keeps
+the pool as int8 pages with per-(page, head) fp32 scales, quantized as the
+fused step writes them and dequantized inside the ragged kernel;
+``weight_dtype="int8"`` quantizes the model's projections and LM head in
+place (``quantization.quantize_for_serving``) before the first step.
+
 The model's other cache paths -- ``generate()`` over a contiguous cache
 and the paged step without a plan -- are ported too (``models/gpt.py``);
 the engine itself always passes a plan.  Not ported yet (each raises
 ``NotImplementedError`` naming its ROADMAP.md item): the prefix cache,
-int8 KV pages and weights, LoRA, mesh-sharded and disaggregated replicas,
-the watchdog, and retry/rebuild.  Without
+LoRA, mesh-sharded and disaggregated replicas, the watchdog, and
+retry/rebuild.  Without
 retry a step that raises propagates to the caller with the host mirrors
 untouched (they advance only on success), so calling ``step()`` again
 re-runs the same idempotent step.
@@ -59,6 +65,7 @@ from ..core import dtype_name, to_torch_dtype
 from ..ops.kernels.ragged_paged_attention import (
     RAGGED_PLAN_FIELDS, TOKEN_BLOCK, build_ragged_plan,
 )
+from ..quantization.int8 import quantize_for_serving
 from ..telemetry import metrics as _tmetrics
 from ..telemetry import trace as _ttrace
 from .admission import AdmissionScheduler
@@ -313,7 +320,10 @@ class ServingEngine:
     oversubscribe device memory -- admission then backpressures on pool
     occupancy, not just on free slots.  ``max_queue_depth`` /
     ``max_queue_wait_s`` bound the queue (typed ``Overloaded``);
-    ``seed`` seeds the engine's sampling generator."""
+    ``seed`` seeds the engine's sampling generator.  ``kv_dtype`` names
+    the pool dtype and wins over ``cache_dtype``; "int8" makes a quantized
+    pool.  ``weight_dtype="int8"`` quantizes ``model`` in place for
+    serving (any other value raises ``ValueError``)."""
 
     def __init__(self, model, *, num_slots: int = 4,
                  page_size: int = 128, max_context: Optional[int] = None,
@@ -329,27 +339,28 @@ class ServingEngine:
                  weight_dtype: Optional[str] = None,
                  role: Optional[str] = None):
         # knobs of the JAX engine that wait for later slices, each with
-        # the ROADMAP.md queue-1 item that brings it.  ``kv_dtype`` is
-        # accepted only to raise: ``cache_dtype`` sets the pool dtype
+        # the ROADMAP.md queue-1 item that brings it
         for knob, asked, item in (
-                ("prefix_cache", bool(prefix_cache), "2, prefix cache"),
-                ("kv_dtype", kv_dtype is not None,
-                 "3, int8 KV pages and weights"),
-                ("cache_dtype='int8'", str(cache_dtype) == "int8",
-                 "3, int8 KV pages and weights"),
-                ("weight_dtype", weight_dtype is not None,
-                 "3, int8 KV pages and weights"),
+                ("prefix_cache", bool(prefix_cache), "6, prefix cache"),
                 ("stall_budget_s", stall_budget_s is not None,
-                 "6, watchdog and retry/rebuild"),
-                ("lora", lora is not None, "7, speculative decoding and LoRA"),
+                 "7, watchdog and retry/rebuild"),
+                ("lora", lora is not None, "8, speculative decoding and LoRA"),
                 ("mesh", mesh is not None,
-                 "8, sharded, elastic and disaggregated serving"),
+                 "9, sharded, elastic and disaggregated serving"),
                 ("role", role is not None,
-                 "8, sharded, elastic and disaggregated serving")):
+                 "9, sharded, elastic and disaggregated serving")):
             if asked:
                 raise NotImplementedError(
                     f"ServingEngine({knob}) is not ported yet: ROADMAP.md "
                     f"queue 1, item {item}")
+        if kv_dtype is not None:
+            cache_dtype = kv_dtype
+        if weight_dtype is not None:
+            if str(weight_dtype) != "int8":
+                raise ValueError(
+                    f"weight_dtype={weight_dtype!r}: only 'int8' (or None "
+                    "for the model's own weights) is supported")
+            quantize_for_serving(model)
         cfg = model.config
         max_context = int(max_context or cfg.max_position_embeddings)
         if max_context > cfg.max_position_embeddings:
@@ -692,7 +703,7 @@ class ServingEngine:
         waste = ragged_padding_waste(
             stats["n_tokens"], stats["n_blocks"], stats["n_items"],
             self.token_block, self.page_size, self.head_dim,
-            itemsize=to_torch_dtype(self.cache_dtype).itemsize)
+            itemsize=to_torch_dtype(self.cache_dtype, storage=True).itemsize)
         self._totals["padded_rows"] += waste["padded_rows"]
         self._totals["padded_flops"] += waste["wasted_flops"]
         self._last_occupancy = (

@@ -13,6 +13,12 @@ page no read ever resolves to validly.
 
 The fused step writes the pool IN PLACE (``index_put_``): PyTorch tensors
 are mutable, so the pool needs no donation to be updated without a copy.
+
+``dtype="int8"`` is the quantized pool: int8 pages plus ``k_scale`` /
+``v_scale``, stacked ``[L, num_pages, H]`` fp32 absmax scales, one per
+(page, head).  A scale row is addressed by the page id it describes, so it
+needs no allocator of its own: it travels with its page through every
+ledger transition.
 ``BlockAllocator`` is host bookkeeping, copied whole from the JAX package
 with its 4-term ledger (free + used + spec + shared == capacity).
 """
@@ -52,7 +58,9 @@ def pages_for_tokens(tokens: int, page_size: int) -> int:
 class PagedKVCache:
     """Global KV page pool: ``k``/``v`` are ``[L, num_pages, H, page_size,
     D]`` tensors on ``device``, zero-initialised.  ``paged`` is the marker
-    the model dispatches on."""
+    the model dispatches on.  An int8 pool (``quantized``) also holds
+    ``k_scale``/``v_scale`` ``[L, num_pages, H]`` fp32 zeros (the
+    quantizer's fresh-page sentinel); a float pool holds None there."""
 
     paged = True
 
@@ -70,23 +78,32 @@ class PagedKVCache:
         self.head_dim = head_dim
         self.dtype = dtype_name(dtype)
         self.device = resolve_device(device)
+        self.quantized = self.dtype == "int8"
         shape = (num_layers, num_pages, num_heads, page_size, head_dim)
-        td = to_torch_dtype(dtype)
+        td = to_torch_dtype(dtype, storage=True)
         self.k: Optional[torch.Tensor] = torch.zeros(shape, dtype=td,
                                                      device=self.device)
         self.v: Optional[torch.Tensor] = torch.zeros(shape, dtype=td,
                                                      device=self.device)
+        self.k_scale = self.v_scale = None
+        if self.quantized:
+            ss = (num_layers, num_pages, num_heads)
+            self.k_scale = torch.zeros(ss, dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros(ss, dtype=torch.float32,
+                                       device=self.device)
 
     @property
     def nbytes(self) -> int:
-        if self.k is None:
-            return 0
-        return 2 * self.k.numel() * self.k.element_size()
+        """Device bytes of the pool, its scales included."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.k_scale, self.v_scale)
+                   if t is not None)
 
     def release(self):
-        """Drop the pool tensors (their device memory returns to the
-        caching allocator)."""
-        self.k = self.v = None
+        """Drop the pool tensors and their scales (their device memory
+        returns to the caching allocator)."""
+        self.k = self.v = self.k_scale = self.v_scale = None
 
 
 class BlockAllocator:

@@ -2,8 +2,11 @@
 anything of ``paddle_tpu`` (checked in a fresh interpreter, for the
 package and for ``chip_smoke.py``), its entry points refuse to run on the
 CPU unless asked, ``chip_smoke.py`` refuses to run without a card, and
-the engine knobs that wait for later slices raise."""
+the knobs that wait for later slices raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` item that brings them -- an item that exists, whose
+title names the feature."""
 import os
+import re
 import subprocess
 import sys
 
@@ -11,6 +14,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_tiny
+from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
+from paddle_tpu_torch.quantization import quantize_for_serving
 from paddle_tpu_torch.serving import ServingEngine
 
 torch.set_num_threads(2)
@@ -87,10 +92,6 @@ def test_engine_follows_the_model_device():
 
 @pytest.mark.parametrize("knob,value", [
     ("prefix_cache", True),
-    ("kv_dtype", "int8"),
-    ("kv_dtype", "bfloat16"),
-    ("cache_dtype", "int8"),
-    ("weight_dtype", "int8"),
     ("stall_budget_s", 1.0),
     ("lora", object()),
     ("mesh", object()),
@@ -102,3 +103,93 @@ def test_unported_engine_knobs_raise(knob, value):
         ServingEngine(m, num_slots=2, page_size=16, max_context=64,
                       **{knob: value})
 
+
+@pytest.mark.parametrize("knob,value", [
+    ("kv_dtype", "int8"),
+    ("kv_dtype", "bfloat16"),
+    ("cache_dtype", "int8"),
+    ("weight_dtype", "int8"),
+])
+def test_int8_engine_knobs_are_accepted(knob, value):
+    """Quantized serving is ported: the knobs that raised until then make
+    the pool and the weights they name."""
+    m = GPTStackedForPretraining(gpt_tiny(), device="cpu")
+    eng = ServingEngine(m, num_slots=2, page_size=16, max_context=64,
+                        **{knob: value})
+    assert eng.cache.quantized == (value == "int8" and knob != "weight_dtype")
+    assert m.weight_int8 == (knob == "weight_dtype")
+
+
+def _roadmap_queue1():
+    """{item number: its bold title} of ROADMAP.md's queue 1."""
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        text = f.read()
+    queue = text.split("### 1. ", 1)[1].split("\n### ", 1)[0]
+    return {int(n): t for n, t in
+            re.findall(r"^(\d+)\. \*\*(.+?)\*\*", queue, re.M)}
+
+
+def _engine(**kw):
+    ServingEngine(GPTStackedForPretraining(gpt_tiny(), device="cpu"),
+                  num_slots=2, page_size=16, max_context=64, **kw)
+
+
+def _train_forward(**cfg):
+    m = GPTStackedForPretraining(gpt_tiny(**cfg), device="cpu")
+    ids = torch.zeros((1, 8), dtype=torch.long)
+    if cfg.get("use_flash_attention") is False:
+        ids = ids.to("meta")     # refused off the CPU only
+    m(ids, labels=ids)
+
+
+def _params(dtype=torch.float32):
+    return [torch.nn.Parameter(torch.zeros(4, dtype=dtype))]
+
+
+class _Layered(torch.nn.Module):
+    gpt = object()          # the layered GPT's shape, not ported
+
+
+# every refused knob: (how to provoke it, words its item's title must hold)
+REFUSALS = {
+    "engine prefix_cache": (lambda: _engine(prefix_cache=True),
+                            "prefix cache"),
+    "engine stall_budget_s": (lambda: _engine(stall_budget_s=1.0),
+                              "watchdog"),
+    "engine lora": (lambda: _engine(lora=object()), "lora"),
+    "engine mesh": (lambda: _engine(mesh=object()), "sharded"),
+    "engine role": (lambda: _engine(role="prefill"), "disaggregated"),
+    "adamw lr scheduler": (lambda: AdamW(_params(), learning_rate=object()),
+                           "training"),
+    "adamw grad_clip": (lambda: AdamW(_params(), grad_clip=1.0), "training"),
+    "adamw lr_ratio": (lambda: AdamW(_params(), lr_ratio=lambda p: 1.0),
+                       "training"),
+    "adamw apply_decay_param_fun": (
+        lambda: AdamW(_params(), apply_decay_param_fun=lambda n: True),
+        "training"),
+    "adamw multi_precision": (lambda: AdamW(_params(torch.bfloat16)),
+                              "training"),
+    "fused_train_step amp O1 over fp32": (
+        lambda: FusedTrainStep(lambda: None, AdamW(_params()),
+                               amp_level="O1"), "training"),
+    "training dropout": (lambda: _train_forward(), "training"),
+    "training use_flash_attention=False": (
+        lambda: _train_forward(hidden_dropout=0.0, attention_dropout=0.0,
+                               use_flash_attention=False), "training"),
+    "quantize_for_serving layered": (lambda: quantize_for_serving(_Layered()),
+                                     "quantized serving"),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(REFUSALS))
+def test_refusals_name_their_roadmap_item(knob):
+    provoke, words = REFUSALS[knob]
+    with pytest.raises(NotImplementedError) as info:
+        provoke()
+    found = re.search(r"ROADMAP\.md queue 1, item (\d+)", str(info.value))
+    assert found, f"{knob}: {info.value}"
+    titles = _roadmap_queue1()
+    item = int(found.group(1))
+    assert item in titles, f"{knob}: ROADMAP.md queue 1 has no item {item}"
+    assert words in titles[item].lower(), \
+        f"{knob}: item {item} is {titles[item]!r}, not {words!r}"

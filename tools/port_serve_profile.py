@@ -5,13 +5,15 @@ Serves ``chip_smoke.py``'s serve workload (``serve_engine`` and
 ``serve_workload``: GPT-3 1.3B at full width with random bf16 weights,
 16 requests of 32 new tokens each) twice on one engine: first without the
 profiler (host-clock step times, tokens/s), then under ``torch.profiler``
-for device time by kernel.  Prints the card's name and power limit, the
+for device time by kernel.  ``--kv-dtype int8`` serves from an int8 pool
+and ``--weight-dtype int8`` on int8 weights (phase 13's two runs).  Prints the card's name and power limit, the
 step times, the device busy share (union of CUDA kernel intervals over
 the profiled wall time) and the kernels ranked by device time, grouped
 into attention (the port's kernel), matrix products and the rest.  Run
 from the repository root:
 
-    python3 tools/port_serve_profile.py [--trace chiprun_out/serve.json]
+    python3 tools/port_serve_profile.py [--kv-dtype int8] \
+        [--weight-dtype int8] [--trace chiprun_out/serve.json]
 """
 from __future__ import annotations
 
@@ -32,9 +34,13 @@ def _group(name: str) -> str:
     n = name.lower()
     if "ragged_paged_attention" in n:
         return "ragged_paged_attention (port kernel)"
+    if "gemm_s8" in n or "imma" in n:
+        return "int8 matrix products (cuBLASLt, torch._int_mm)"
     if any(k in n for k in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
         return "matrix products (cuBLAS)"
-    if "index_put" in n or "scatter" in n or "indexing" in n:
+    if "scatter" in n:
+        return "KV quantizer scatters (scales)"
+    if "index_put" in n or "indexing" in n:
         return "pool writes / gathers"
     return "elementwise, norms, reductions, copies"
 
@@ -88,6 +94,10 @@ def report(prof, steps: int, wall: float, group, unit: str) -> bool:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kv-dtype", default="bfloat16",
+                    choices=("bfloat16", "int8"), help="the pool's dtype")
+    ap.add_argument("--weight-dtype", default=None, choices=("int8",),
+                    help="quantize the weights to int8")
     ap.add_argument("--trace", help="write the Chrome trace here")
     args = ap.parse_args()
     import torch
@@ -98,7 +108,9 @@ def main() -> int:
         return 2
     port = chip_smoke.import_port()
     print(f"card: {chip_smoke.card_line()}")
-    eng, rng = chip_smoke.serve_engine(port)
+    eng, rng = chip_smoke.serve_engine(port, args.kv_dtype,
+                                       args.weight_dtype)
+    print(f"kv {args.kv_dtype}, weights {args.weight_dtype or 'bfloat16'}")
 
     f0 = eng.metrics()["fused_steps"]
     reqs, steps, wall = chip_smoke.serve_workload(port, eng, rng)
