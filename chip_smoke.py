@@ -117,7 +117,41 @@ result line:
 15. int8 card vs CPU -- gpt_tiny in fp32 with ``kv_dtype="int8"`` and
    ``weight_dtype="int8"``: the engine and the paged path without a plan
    must give the CPU's greedy tokens, and the card must have launched the
-   ragged and paged kernels (all over int8 pools).
+   ragged and paged kernels (all over int8 pools);
+16. norm kernels vs plain -- the fused residual add + LayerNorm and
+   RMSNorm kernel (``csrc/rms_norm.cu``) against its plain versions in
+   fp32 and bf16 at eps 1e-12 and 1e-5, at the BERT-base encoder's rows
+   [16 x 512, 768], GPT-3 1.3B's [8 x 1024, 2048], [257, 100] (a hidden
+   size the TPU gate refuses), one row, zero rows (no launch) and [64,
+   20000] (longer than a thread holds); then bf16 activations with fp32
+   parameters, operands off a 16-byte boundary, and x and residual of two
+   dtypes.  h must equal the plain version bit for bit, normed lie within
+   ``NORM_TOL`` elementwise and by norm; a NaN in one row must leave every
+   other row unchanged; the bf16 flash kernels at BERT's attention (16,
+   12, 512, 64), non-causal, against their plain versions under phase 5's
+   bounds.  Then both kernels' times at the BERT and GPT rows beside the
+   bytes bound, the plain version and the two calls ``torch.add`` +
+   ``F.layer_norm`` / ``F.rms_norm``, and the flash forward's at BERT's
+   attention beside SDPA;
+17. fused encoder -- twelve post-LN ``FusedMultiHeadAttention`` +
+   ``FusedFeedForward`` pairs at BERT-base width (768, 12 heads, 3072,
+   eps 1e-12, GELU), built from a ``bert_base`` ``BertModel``'s weights,
+   against that model's encoder layers on one input in fp32 and bf16
+   (``ENC_NORM``); then in bf16 at batch 16 x seq 512 in eval: every
+   forward must launch the norm kernel 24 times and the flash forward 12
+   times (prints ms per forward, tokens/s and peak memory); a pre-LN stack
+   launches the norm kernel 0 times; two fp32 pairs' forward and backward
+   give finite gradients within ``ENC_GRAD_NORM`` of autograd of the plain
+   forward and launch the flash backward kernels;
+18. BERT -- ``BertForPretraining(bert_base())`` in eval, bf16, batch 16 x
+   seq 512, 80 masked positions a row: without ``attention_mask`` 12 flash
+   launches per forward, with a padding mask (lengths cycling 512, 384,
+   200, 77) none; MLM and NSP logits and the criterion finite; prints ms
+   per forward and tokens/s;
+19. BERT card vs CPU -- ``bert_tiny(hidden 128, 2 heads)`` with and
+   without a padding mask, and two fused post-LN pairs at hidden 128, fp32,
+   2 x 128, the same weights on the card and the CPU: outputs within
+   ``CARD_CPU_NORM``, and the card launched the flash and norm kernels.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -214,21 +248,28 @@ def import_port():
     """Everything of the port this script drives (kept in one place so a
     test can check the imports without a card)."""
     import torch
-    from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_1p3b, \
-        gpt_tiny
+    from paddle_tpu_torch import incubate
+    from paddle_tpu_torch.models import BertForPretraining, BertModel, \
+        BertPretrainingCriterion, GPTStackedForPretraining, bert_base, \
+        bert_tiny, gpt_1p3b, gpt_tiny
+    from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_adamw as fw
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
     from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
     from paddle_tpu_torch.quantization import int8 as qi8
     from paddle_tpu_torch.serving import RequestState, ServingEngine
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
                 gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
-                da=da, pa=pa, qi8=qi8,
+                da=da, pa=pa, qi8=qi8, rn=rn, F=F, incubate=incubate,
+                BertModel=BertModel, BertForPretraining=BertForPretraining,
+                BertPretrainingCriterion=BertPretrainingCriterion,
+                bert_base=bert_base, bert_tiny=bert_tiny,
                 AdamW=AdamW, FusedTrainStep=FusedTrainStep,
                 RequestState=RequestState, ServingEngine=ServingEngine)
 
@@ -901,7 +942,9 @@ def _counted(port):
             "adamw": port["fw"].fused_adamw_update,
             "decode": port["da"].decode_attention,
             "paged": port["pa"].paged_attention,
-            "ragged": port["rpa"].ragged_paged_attention}
+            "ragged": port["rpa"].ragged_paged_attention,
+            "ln": port["rn"].fused_add_layer_norm,
+            "rms": port["rn"].fused_add_rms_norm}
 
 
 def _launch_counts(port):
@@ -1964,6 +2007,589 @@ def phase_int8_card_vs_cpu(port):
            "the card did not launch the ragged and paged int8 kernels")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the fused add + norm kernels vs plain
+# ---------------------------------------------------------------------------
+
+# rows x hidden: the BERT-base encoder's rows (batch 16 x seq 512), GPT-3
+# 1.3B's trained rows (8 x 1024), a shape the TPU gate refuses (hidden not
+# a 128-multiple; bf16 rows not 16-byte multiples, so scalar loads), one
+# row, zero rows, and rows longer than the kernel holds in registers
+BERT_ROWS, GPT_ROWS = (16 * 512, 768), (8 * 1024, 2048)
+NORM_SHAPES = (BERT_ROWS, GPT_ROWS, (257, 100), (1, 768), (0, 768),
+               (64, 20000))
+NORM_EPS = (1e-12, 1e-5)
+# kernel vs plain, normed held to (atol, rtol, norm) as phase 5 holds the
+# flash kernels: elementwise |kernel - plain| <= atol + rtol * m, where m
+# is the sum of the absolute terms of the output (|h - mu| inv |g| + |b|
+# for LayerNorm, |h| inv |g| for RMSNorm), and over the whole output by
+# relative norm.  fp32: the statistics summed in another order (a tree of
+# warp shuffles against the plain version's reduction), ~1e-7 of each
+# term; bf16: the same fp32 values rounded once, so an element near a
+# rounding midpoint may round to the neighbouring bf16 value (one ulp,
+# at most 2^-7 of m); few do, so the norm stays far below an ulp.
+# h is one fp32 add and one cast: held bit for bit.
+NORM_TOL = {"float32": (1e-6, 1e-5, 1e-6),
+            "bfloat16": (1e-5, 2.0 ** -7, 2.0 ** -11)}
+# BERT-base's attention, bf16 and non-causal: the flash forward at the
+# shape phases 17 and 18 run
+BERT_ATTN_SHAPE = (16, 12, 512, 64)
+NORM_TIMING_SETS = 4          # input sets rotated, so the L2 is cold
+
+
+def _norm_inputs(torch, rows, hidden, dtype, param_dtype, seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x, r = (_randn(torch, (rows, hidden), dtype, gen) for _ in range(2))
+    g, b = (_randn(torch, (hidden,), param_dtype, gen) for _ in range(2))
+    return x, r, g, b
+
+
+def _norm_magnitude(torch, h, g, b, eps, layer_norm):
+    """m: the sum of the absolute terms of each normed element, in fp32."""
+    h, g = h.float(), g.float()
+    if layer_norm:
+        d = h - h.mean(-1, keepdim=True)
+        inv = 1.0 / torch.sqrt((d * d).mean(-1, keepdim=True) + eps)
+        return d.abs() * inv * g.abs() + b.float().abs()
+    inv = 1.0 / torch.sqrt((h * h).mean(-1, keepdim=True) + eps)
+    return h.abs() * inv * g.abs()
+
+
+def _norm_case(port, layer_norm, dtype, shape, eps, seed, param_dtype=None,
+               residual_dtype=None, misaligned=False):
+    """One kernel call against its plain version: h bit for bit, normed
+    under NORM_TOL.  ``misaligned`` offsets every operand by one element
+    (the kernel's scalar-load path).  Returns the max abs error of
+    normed."""
+    torch, rn = port["torch"], port["rn"]
+    rows, hidden = shape
+    x, r, g, b = _norm_inputs(torch, rows + misaligned, hidden, dtype,
+                              param_dtype or dtype, seed)
+    if misaligned:
+        x, r = (t.view(-1)[1:1 + rows * hidden].view(rows, hidden)
+                for t in (x, r))
+    if residual_dtype:
+        r = r.to(getattr(torch, residual_dtype))
+    kernel = rn.fused_add_layer_norm if layer_norm else rn.fused_add_rms_norm
+    params = (g, b) if layer_norm else (g,)
+    before = kernel.launches
+    out, h = kernel(x, r, *params, eps=eps)
+    want, want_h = (rn.fused_add_layer_norm_plain if layer_norm
+                    else rn.fused_add_rms_norm_plain)(x, r, *params, eps=eps)
+    torch.cuda.synchronize()
+    name = (f"{'layer_norm' if layer_norm else 'rms_norm'} {dtype} "
+            f"{shape} eps {eps:g}" + (f" params {param_dtype}" if param_dtype
+                                      else "")
+            + (f" residual {residual_dtype}" if residual_dtype else "")
+            + (" misaligned" if misaligned else ""))
+    _check(kernel.launches - before == (1 if rows else 0),
+           f"{name}: {kernel.launches - before} launches")
+    _check(out.shape == h.shape == x.shape and out.dtype == x.dtype,
+           f"{name}: outputs {out.shape} {out.dtype}")
+    if not rows:
+        print(f"[norm_kernels] {name}: empty outputs, no launch")
+        return 0.0
+    same_h = torch.equal(h, want_h)
+    atol, rtol, norm = NORM_TOL[dtype]
+    m = _norm_magnitude(torch, x.float() + r.float(), g, b, eps, layer_norm)
+    err, over = _over(out, want, (atol, rtol), m)
+    rel = ((out.float() - want.float()).norm()
+           / want.float().norm().clamp_min(1e-30)).item()
+    finite = bool(torch.isfinite(out).all())
+    print(f"[norm_kernels] {name}: normed max_abs_err={err!r} (tol "
+          f"{atol:.3g}+{rtol:.3g}*m), norm {rel:.3g} (tol {norm:.3g}); h "
+          f"equal bit for bit: {same_h}")
+    _check(finite and same_h, f"{name}: non-finite output or h differs")
+    _check(over <= 0 and rel <= norm,
+           f"{name}: normed off by more than the tolerance")
+    return err
+
+
+def _norm_nan_rows(port):
+    """A NaN in one row of x leaves every other row of both outputs
+    unchanged, bit for bit."""
+    torch, rn = port["torch"], port["rn"]
+    x, r, g, b = _norm_inputs(torch, *BERT_ROWS, "bfloat16", "bfloat16", 70)
+    clean = rn.fused_add_layer_norm(x, r, g, b, eps=1e-12)
+    x[3, 100] = float("nan")
+    dirty = rn.fused_add_layer_norm(x, r, g, b, eps=1e-12)
+    keep = torch.ones(x.shape[0], dtype=torch.bool, device=DEVICE)
+    keep[3] = False
+    same = all(torch.equal(a[keep], c[keep]) for a, c in zip(clean, dirty))
+    print(f"[norm_kernels] NaN in row 3 of {BERT_ROWS}: other rows "
+          f"unchanged: {same}; row 3 normed all NaN: "
+          f"{bool(dirty[0][3].float().isnan().all())}")
+    _check(same, "a NaN in one row changed another row")
+
+
+def _norm_bound(rows, hidden, itemsize, params):
+    """(bound ms, "bytes"): x and residual read, normed and h written once,
+    the parameters read once, over HBM bandwidth (~10 operations an
+    element are far below the card's rate)."""
+    nbytes = 4 * rows * hidden * itemsize + params * hidden * itemsize
+    return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
+
+
+def _time_norms(port, shape):
+    """Device ms per call at ``shape`` in bf16 (the L2 cold: NORM_TIMING_SETS
+    input sets in turn): each kernel, its plain version, and the two
+    PyTorch calls ``torch.add`` then ``F.layer_norm`` / ``F.rms_norm``."""
+    torch, rn = port["torch"], port["rn"]
+    import torch.nn.functional as F
+
+    sets = [_norm_inputs(torch, *shape, "bfloat16", "bfloat16", 80 + i)
+            for i in range(NORM_TIMING_SETS)]
+    n = NORM_TIMING_SETS
+    hidden = shape[1]
+    t = {}
+    t["ln"], _ = _time_ms(torch, lambda i: rn.fused_add_layer_norm(
+        *sets[i % n], eps=1e-12), 200)
+    t["ln_plain"], _ = _time_ms(torch, lambda i: rn.fused_add_layer_norm_plain(
+        *sets[i % n], eps=1e-12), 20)
+    t["ln_library"], _ = _time_ms(torch, lambda i: F.layer_norm(
+        torch.add(sets[i % n][0], sets[i % n][1]), (hidden,), sets[i % n][2],
+        sets[i % n][3], 1e-12), 200)
+    t["rms"], _ = _time_ms(torch, lambda i: rn.fused_add_rms_norm(
+        *sets[i % n][:3], eps=1e-6), 200)
+    t["rms_plain"], _ = _time_ms(torch, lambda i: rn.fused_add_rms_norm_plain(
+        *sets[i % n][:3], eps=1e-6), 20)
+    t["rms_library"] = None
+    if hasattr(F, "rms_norm"):
+        t["rms_library"], _ = _time_ms(torch, lambda i: F.rms_norm(
+            torch.add(sets[i % n][0], sets[i % n][1]), (hidden,),
+            sets[i % n][2], 1e-6), 200)
+    t["ln_again"], _ = _time_ms(torch, lambda i: rn.fused_add_layer_norm(
+        *sets[i % n], eps=1e-12), 200)
+    del sets
+    torch.cuda.empty_cache()
+    return t
+
+
+def _time_bert_flash(port):
+    """Device ms of the flash forward at BERT_ATTN_SHAPE (bf16,
+    non-causal), its plain version and SDPA, beside its bound."""
+    torch, fa = port["torch"], port["fa"]
+    import torch.nn.functional as F
+
+    (q, k, v), _ = _qkv(torch, BERT_ATTN_SHAPE, "bfloat16", 90)
+    scale = 1.0 / BERT_ATTN_SHAPE[-1] ** 0.5
+    t = {}
+    t["fwd"], _ = _time_ms(
+        torch, lambda i: fa.flash_attention_fwd(q, k, v, False, scale), 40)
+    t["plain"], _ = _time_ms(
+        torch, lambda i: fa.flash_attention_plain(q, k, v, False, scale), 5)
+    t["sdpa"], _ = _time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q, k, v, scale=scale), 40)
+    t["bound"] = _flash_bounds(BERT_ATTN_SHAPE, False, 2)["fwd"]
+    return t
+
+
+def phase_norm_kernels(port):
+    torch, rn = port["torch"], port["rn"]
+    errs = {"ln": 0.0, "rms": 0.0}
+    _reset_launches(port)
+    seed = 100
+    for layer_norm in (True, False):
+        key = "ln" if layer_norm else "rms"
+        for dtype in ("float32", "bfloat16"):
+            for shape in NORM_SHAPES:
+                for eps in NORM_EPS:
+                    seed += 1
+                    errs[key] = max(errs[key], _norm_case(
+                        port, layer_norm, dtype, shape, eps, seed))
+        # bf16 activations with fp32 parameters; operands off a 16-byte
+        # boundary (scalar loads); x and residual of two dtypes
+        for kw in (dict(param_dtype="float32"), dict(misaligned=True),
+                   dict(residual_dtype="bfloat16")):
+            seed += 1
+            dtype = "float32" if "residual_dtype" in kw else "bfloat16"
+            errs[key] = max(errs[key], _norm_case(
+                port, layer_norm, dtype, BERT_ROWS, 1e-12, seed, **kw))
+    rms_launches = rn.fused_add_rms_norm.launches
+    _norm_nan_rows(port)
+    flash_err = max(_flash_compare(port, "bfloat16", BERT_ATTN_SHAPE, False,
+                                   seed=110))
+    torch.cuda.empty_cache()
+    times = {}
+    for shape in (BERT_ROWS, GPT_ROWS):
+        t = times[shape] = _time_norms(port, shape)
+        ln_bound = _norm_bound(*shape, 2, 2)
+        rms_bound = _norm_bound(*shape, 2, 1)
+        print(f"[norm_kernels] bf16 {shape} timing (device ms per call): "
+              f"layer_norm kernel {t['ln']!r} (again, as a spread check: "
+              f"{t['ln_again']!r}), plain "
+              f"{t['ln_plain']!r}, torch.add + F.layer_norm (two calls) "
+              f"{t['ln_library']!r}, bound {ln_bound[0]!r} ({ln_bound[1]}); "
+              f"rms_norm kernel {t['rms']!r}, plain {t['rms_plain']!r}, "
+              f"torch.add + F.rms_norm (two calls) {t['rms_library']!r}, "
+              f"bound {rms_bound[0]!r} ({rms_bound[1]})")
+    fb = _time_bert_flash(port)
+    print(f"[norm_kernels] flash forward bf16 {BERT_ATTN_SHAPE} non-causal "
+          f"timing (device ms per call): kernel {fb['fwd']!r}, plain "
+          f"{fb['plain']!r}, SDPA {fb['sdpa']!r}, bound {fb['bound'][0]!r} "
+          f"({fb['bound'][1]})")
+    t = times[BERT_ROWS]
+    # no one PyTorch call computes it: the add and the norm are two calls
+    return {"ln": dict(max_abs_err=errs["ln"], ms=t["ln"],
+                       plain_ms=t["ln_plain"],
+                       bound_ms=_norm_bound(*BERT_ROWS, 2, 2)[0],
+                       bound_by="bytes", library_ms=None),
+            "rms": dict(max_abs_err=errs["rms"], ms=t["rms"],
+                        plain_ms=t["rms_plain"],
+                        bound_ms=_norm_bound(*BERT_ROWS, 2, 1)[0],
+                        bound_by="bytes", library_ms=None),
+            "rms_launches": rms_launches, "flash_err": flash_err}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the fused post-LN encoder at BERT-base width
+# ---------------------------------------------------------------------------
+
+ENC_BATCH, ENC_SEQ = 16, 512
+ENC_FORWARDS = 5
+# the fused stack against BertModel's layers built from the same weights,
+# by relative norm of the encoder output.  The stacks differ only in the
+# norms: the fused kernel normalises the fp32 sum x + y, BertLayer the sum
+# rounded to the activation dtype, then F.layer_norm.  fp32: the sums'
+# order (~1e-7 a norm) carried through 12 layers; bf16: one bf16 rounding
+# of h (2^-9 of each element) at each of 24 norms, a random walk of
+# ~sqrt(24) 2^-9 = 0.01 that the bf16 products after it keep
+ENC_NORM = {"float32": 2.0 ** -16, "bfloat16": 2.0 ** -5}
+# phase 17's two-pair backward, fp32, against autograd of the plain
+# forward, per gradient by relative norm: the flash backward kernels'
+# fp32 sums (FLASH_GRAD_TOL's 1e-5 of the norm per kernel) through two layers
+ENC_GRAD_NORM = 2.0 ** -14
+ENC_GRAD_BATCH = 4
+
+
+def _fused_pairs(port, cfg, dtype, normalize_before=False, seed=0,
+                 layers=None, dropout=(0.5, 0.5, 0.1), device=None):
+    """``layers`` (MHA, FFN) pairs of the incubate layers at ``cfg``'s
+    width (GELU, BERT's eps; all of cfg's layers by default), in eval
+    mode, on ``device`` (the card by default)."""
+    inc, torch = port["incubate"], port["torch"]
+    device = device or DEVICE
+    pairs = []
+    for i in range(cfg.num_layers if layers is None else layers):
+        mha = inc.FusedMultiHeadAttention(
+            cfg.hidden_size, cfg.num_heads, dropout[0], dropout[1],
+            normalize_before=normalize_before, epsilon=cfg.layer_norm_eps,
+            device=device, dtype=dtype, seed=seed + 2 * i)
+        ffn = inc.FusedFeedForward(
+            cfg.hidden_size, cfg.intermediate_size, dropout[2],
+            cfg.layer_norm_eps, "gelu", normalize_before=normalize_before,
+            device=device, dtype=dtype, seed=seed + 2 * i + 1)
+        pairs.append(torch.nn.ModuleList([mha, ffn]))
+    return torch.nn.ModuleList(pairs).eval()
+
+
+def _copy_bert_layers(pairs, bert):
+    """The fused pairs take ``bert``'s encoder weights: qkv -> qkv, out ->
+    out_proj, ln1 -> the attention's ln, fc1/fc2 -> linear1/linear2, ln2
+    -> the feed-forward's ln."""
+    for (mha, ffn), layer in zip(pairs, bert.layers):
+        for dst, src in ((mha.qkv, layer.attention.qkv),
+                         (mha.out_proj, layer.attention.out),
+                         (mha.ln, layer.ln1), (ffn.linear1, layer.fc1),
+                         (ffn.linear2, layer.fc2), (ffn.ln, layer.ln2)):
+            dst.load_state_dict(src.state_dict())
+
+
+def _run_pairs(pairs, x):
+    for mha, ffn in pairs:
+        x = ffn(mha(x))
+    return x
+
+
+def _plain_pairs(port, pairs, x):
+    """The pairs' post-LN forward from plain versions only: the flash
+    forward's and the fused norm's (autograd differentiates them)."""
+    fa, rn, F = port["fa"], port["rn"], port["F"]
+    for mha, ffn in pairs:
+        b, s, e = x.shape
+        nh, hd = mha.num_heads, mha.head_dim
+        q, k, v = (t.transpose(1, 2) for t in F.linear(
+            x, mha.qkv.weight, mha.qkv.bias).view(b, s, 3, nh,
+                                                   hd).unbind(2))
+        o = fa.flash_attention_plain(q, k, v, False, hd ** -0.5)[0]
+        o = F.linear(o.transpose(1, 2).reshape(b, s, e), mha.out_proj.weight,
+                     mha.out_proj.bias)
+        x = rn.fused_add_layer_norm_plain(o, x, mha.ln.weight, mha.ln.bias,
+                                          mha.ln.epsilon)[0]
+        y = F.linear(F.gelu(F.linear(x, ffn.linear1.weight,
+                                     ffn.linear1.bias)),
+                     ffn.linear2.weight, ffn.linear2.bias)
+        x = rn.fused_add_layer_norm_plain(y, x, ffn.ln.weight, ffn.ln.bias,
+                                          ffn.ln.epsilon)[0]
+    return x
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _enc_input(torch, dtype, hidden, batch=ENC_BATCH, seed=120):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return _randn(torch, (batch, ENC_SEQ, hidden), dtype, gen)
+
+
+def _enc_vs_bert(port, dtype):
+    """The fused stack against a bert_base BertModel's encoder layers
+    whose weights it took, on one input: relative norm within
+    ENC_NORM."""
+    torch = port["torch"]
+    bert = port["BertModel"](port["bert_base"](), device=DEVICE, dtype=dtype,
+                             seed=7).eval()
+    pairs = _fused_pairs(port, bert.config, dtype)
+    _copy_bert_layers(pairs, bert)
+    x = _enc_input(torch, dtype, bert.config.hidden_size)
+    with torch.no_grad():
+        got = _run_pairs(pairs, x)
+        want = x
+        for layer in bert.layers:
+            want = layer(want)
+    torch.cuda.synchronize()
+    rel = _rel(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"[encoder] fused post-LN stack vs BertModel layers, {dtype} "
+          f"{tuple(x.shape)}: relative norm {rel:.4g} (tol "
+          f"{ENC_NORM[dtype]:.4g}), max abs {err!r}")
+    _check(bool(torch.isfinite(got).all()), f"encoder {dtype}: non-finite")
+    _check(rel <= ENC_NORM[dtype], f"encoder {dtype}: the fused stack and "
+           "BertModel's layers differ by more than the tolerance")
+    return bert
+
+
+def _enc_backward(port):
+    """Two post-LN pairs in training mode (dropout 0: the fused branch),
+    fp32, BERT-base width: one forward and backward through the kernels
+    against autograd of the plain forward, gradient by gradient."""
+    torch = port["torch"]
+    cfg = port["bert_base"]()
+    pairs = _fused_pairs(port, cfg, "float32", seed=30, layers=2,
+                         dropout=(0.0, 0.0, 0.0)).train()
+    x = _enc_input(torch, "float32", cfg.hidden_size, ENC_GRAD_BATCH, 121)
+    gen = torch.Generator(device=DEVICE).manual_seed(122)
+    cot = torch.randn(x.shape, generator=gen, device=DEVICE)
+    params = list(pairs.parameters())
+    _reset_launches(port)
+    xk = x.clone().requires_grad_(True)
+    (_run_pairs(pairs, xk) * cot).sum().backward()
+    launches = _launch_counts(port)
+    got = [xk.grad] + [p.grad.clone() for p in params]
+    pairs.zero_grad(set_to_none=True)
+    xp = x.clone().requires_grad_(True)
+    (_plain_pairs(port, pairs, xp) * cot).sum().backward()
+    want = [xp.grad] + [p.grad for p in params]
+    torch.cuda.synchronize()
+    rels = [_rel(a, b) for a, b in zip(got, want)]
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    print(f"[encoder] two fp32 post-LN pairs, forward and backward at "
+          f"{tuple(x.shape)}: {len(got)} gradients, max "
+          f"relative norm {max(rels):.4g} (tol {ENC_GRAD_NORM:.4g}) against "
+          f"autograd of the plain forward; launches {launches}")
+    _check(finite, "encoder backward: non-finite gradients")
+    _check(max(rels) <= ENC_GRAD_NORM, "encoder backward: gradients off by "
+           "more than the tolerance")
+    _check(launches["ln"] == 4 and launches["fwd"] == 2
+           and launches["dkv"] == 2 and launches["dq"] == 2,
+           f"encoder backward launches {launches}")
+
+
+def phase_encoder(port):
+    torch = port["torch"]
+    _enc_vs_bert(port, "float32")
+    bert = _enc_vs_bert(port, "bfloat16")
+    pairs = _fused_pairs(port, bert.config, "bfloat16")
+    _copy_bert_layers(pairs, bert)
+    del bert
+    x = _enc_input(torch, "bfloat16", pairs[0][0].embed_dim)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        _run_pairs(pairs, x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(port)
+        t0 = time.perf_counter()
+        for _ in range(ENC_FORWARDS):
+            out = _run_pairs(pairs, x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / ENC_FORWARDS
+        launches = _launch_counts(port)
+        peak = torch.cuda.max_memory_allocated()
+        _check(bool(torch.isfinite(out).all()), "encoder: non-finite output")
+        L = len(pairs)
+        _check(launches["ln"] == 2 * L * ENC_FORWARDS
+               and launches["fwd"] == L * ENC_FORWARDS,
+               f"encoder launches over {ENC_FORWARDS} forwards {launches}, "
+               f"expected {2 * L} norm and {L} flash forward per forward")
+        tokens = ENC_BATCH * ENC_SEQ
+        print(f"[encoder] {L} post-LN pairs bf16 at {ENC_BATCH} x {ENC_SEQ}: "
+              f"{1e3 * wall:.3f} ms per forward (host clock), "
+              f"{tokens / wall:.1f} tokens/s; launches per forward "
+              f"{ {k: v // ENC_FORWARDS for k, v in launches.items()} }; "
+              f"peak device memory {peak / 2**30:.2f} GiB")
+        pre = _fused_pairs(port, port["bert_base"](), "bfloat16",
+                           normalize_before=True, seed=50)
+        _reset_launches(port)
+        _run_pairs(pre, x)
+        torch.cuda.synchronize()
+        pre_launches = _launch_counts(port)
+        print(f"[encoder] pre-LN stack: launches {pre_launches}")
+        _check(pre_launches["ln"] == 0 and pre_launches["fwd"] == L,
+               f"pre-LN stack launches {pre_launches}")
+    del pairs, pre, x, out
+    torch.cuda.empty_cache()
+    _enc_backward(port)
+    torch.cuda.empty_cache()
+    return launches["ln"]
+
+
+# ---------------------------------------------------------------------------
+# phase 18: BERT-base forward
+# ---------------------------------------------------------------------------
+
+# Google BERT's max_predictions_per_seq at seq 512, and its masked_lm_prob
+BERT_MASKED, BERT_MASK_PROB = 80, 0.15
+BERT_PAD_LENGTHS = (512, 384, 200, 77)
+BERT_FORWARDS = 3
+
+
+def _bert_batch(torch, cfg, lengths, seed):
+    """ids, token types, masked positions (each row's ~15 % of its valid
+    tokens past [CLS], at most BERT_MASKED, padded with position 0 and
+    weight 0), MLM labels and weights, NSP labels and the 1/0 attention
+    mask of rows of ``lengths``."""
+    rng = np.random.RandomState(seed)
+    b = len(lengths)
+    ids = rng.randint(0, cfg.vocab_size, (b, ENC_SEQ))
+    types = rng.randint(0, 2, (b, ENC_SEQ))
+    mask = np.zeros((b, ENC_SEQ), np.int64)
+    pos = np.zeros((b, BERT_MASKED), np.int64)
+    weights = np.zeros((b, BERT_MASKED), np.float32)
+    for i, n in enumerate(lengths):
+        mask[i, :n] = 1
+        k = (BERT_MASKED if n == ENC_SEQ
+             else min(BERT_MASKED, max(1, round(n * BERT_MASK_PROB))))
+        pos[i, :k] = np.sort(rng.choice(np.arange(1, n), k, replace=False))
+        weights[i, :k] = 1.0
+    labels = rng.randint(0, cfg.vocab_size, (b, BERT_MASKED))
+    nsp = rng.randint(0, 2, (b,))
+    to = lambda a: torch.from_numpy(a).to(DEVICE)   # noqa: E731
+    return dict(ids=to(ids), types=to(types), mask=to(mask), pos=to(pos),
+                weights=to(weights), labels=to(labels), nsp=to(nsp))
+
+
+def _bert_forwards(port, model, d, masked, n):
+    """``n`` timed forwards after one warm-up; returns (logits, loss, ms
+    per forward, launches per forward)."""
+    torch = port["torch"]
+    kw = dict(token_type_ids=d["types"], masked_positions=d["pos"],
+              attention_mask=d["mask"] if masked else None)
+    with torch.no_grad():
+        model(d["ids"], **kw)
+        torch.cuda.synchronize()
+        _reset_launches(port)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            mlm, nsp = model(d["ids"], **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n
+        launches = {k: v // n for k, v in _launch_counts(port).items()}
+        loss = port["BertPretrainingCriterion"]()(
+            mlm, nsp, d["labels"], d["nsp"], d["weights"])
+    return mlm, nsp, float(loss), 1e3 * wall, launches
+
+
+def phase_bert(port):
+    torch = port["torch"]
+    cfg = port["bert_base"]()
+    model = port["BertForPretraining"](cfg, device=DEVICE, dtype="bfloat16",
+                                       seed=0).eval()
+    torch.cuda.reset_peak_memory_stats()
+    full = _bert_batch(torch, cfg, (ENC_SEQ,) * ENC_BATCH, 130)
+    lengths = [BERT_PAD_LENGTHS[i % len(BERT_PAD_LENGTHS)]
+               for i in range(ENC_BATCH)]
+    padded = _bert_batch(torch, cfg, lengths, 131)
+    tokens = ENC_BATCH * ENC_SEQ
+    for name, d, masked, want_flash in (
+            ("no attention_mask", full, False, cfg.num_layers),
+            (f"padding mask, lengths cycling {BERT_PAD_LENGTHS}", padded,
+             True, 0)):
+        mlm, nsp, loss, ms, launches = _bert_forwards(port, model, d, masked,
+                                                      BERT_FORWARDS)
+        finite = (bool(torch.isfinite(mlm).all())
+                  and bool(torch.isfinite(nsp).all()) and np.isfinite(loss))
+        print(f"[bert] bert_base bf16 {ENC_BATCH} x {ENC_SEQ}, "
+              f"{BERT_MASKED} masked positions a row, {name}: {ms:.3f} ms "
+              f"per forward (host clock), {tokens / (ms / 1e3):.1f} "
+              f"tokens/s; mlm logits {tuple(mlm.shape)} {mlm.dtype}, "
+              f"criterion {loss!r}; launches per forward {launches}")
+        _check(tuple(mlm.shape) == (ENC_BATCH, BERT_MASKED, cfg.vocab_size)
+               and tuple(nsp.shape) == (ENC_BATCH, 2),
+               f"bert {name}: logits {tuple(mlm.shape)} {tuple(nsp.shape)}")
+        _check(finite, f"bert {name}: non-finite logits or criterion")
+        _check(launches["fwd"] == want_flash,
+               f"bert {name}: {launches['fwd']} flash launches per forward, "
+               f"expected {want_flash}")
+    print(f"[bert] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, full, padded, mlm, nsp
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 19: BERT and the fused stack, card vs CPU
+# ---------------------------------------------------------------------------
+
+# fp32 on both sides (TF32 off): the same arithmetic summed in another
+# order (the card's flash kernel and fused norm, the CPU's plain versions)
+# through two layers, by relative norm of each output
+CARD_CPU_NORM = 1e-5
+
+
+def phase_bert_card_vs_cpu(port):
+    torch = port["torch"]
+    cfg = port["bert_tiny"](hidden_size=128, num_heads=2)
+    cpu = port["BertForPretraining"](cfg, device="cpu", seed=5).eval()
+    card = port["BertForPretraining"](cfg, device=DEVICE, seed=5).eval()
+    card.load_state_dict(cpu.state_dict())
+    d = _bert_batch(torch, cfg, (128, 77), 140)
+    d = {k: v[:, :128] if k in ("ids", "types", "mask") else v
+         for k, v in d.items()}
+    rels = {}
+    _reset_launches(port)
+    with torch.no_grad():
+        for masked in (False, True):
+            outs = []
+            for m in (cpu, card):
+                dev = {k: v.to(m.device) for k, v in d.items()}
+                outs.append(m(dev["ids"], dev["types"],
+                              attention_mask=dev["mask"] if masked else None,
+                              masked_positions=dev["pos"]))
+            for i, name in enumerate(("mlm", "nsp")):
+                rels[f"bert {name} mask={masked}"] = _rel(
+                    outs[1][i].cpu(), outs[0][i])
+        pair_cpu, pair_card = (_fused_pairs(
+            port, cfg, "float32", seed=60, layers=2, dropout=(0.0,) * 3,
+            device=dev) for dev in ("cpu", DEVICE))
+        pair_card.load_state_dict(pair_cpu.state_dict())
+        x = torch.from_numpy(np.random.RandomState(141).randn(
+            2, 128, 128).astype(np.float32))
+        rels["fused pairs"] = _rel(_run_pairs(pair_card, x.to(DEVICE)).cpu(),
+                                   _run_pairs(pair_cpu, x))
+    launches = _launch_counts(port)
+    print(f"[bert_card_vs_cpu] bert_tiny(hidden 128, 2 heads) and two fused "
+          f"post-LN pairs, fp32, 2 x 128: relative norms "
+          f"{ {k: float(f'{v:.4g}') for k, v in rels.items()} } (tol "
+          f"{CARD_CPU_NORM}); card launches {launches}")
+    _check(max(rels.values()) <= CARD_CPU_NORM,
+           "card and CPU BERT / fused outputs differ")
+    _check(launches["fwd"] > 0 and launches["ln"] > 0,
+           "the card did not launch the flash and norm kernels")
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2006,6 +2632,12 @@ def main() -> int:
     del model, ids, out, logits
     torch.cuda.empty_cache()
     phase_int8_card_vs_cpu(port)
+    nk = phase_norm_kernels(port)
+    # the flash forward's error over phases 5 and 8 and BERT's shape here
+    tk["fwd"]["max_abs_err"] = max(tk["fwd"]["max_abs_err"], nk["flash_err"])
+    ln_launches = phase_encoder(port)
+    phase_bert(port)
+    phase_bert_card_vs_cpu(port)
     print(card)
     csrc = "paddle_tpu_torch/ops/kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
@@ -2051,6 +2683,14 @@ def main() -> int:
                         "source": csrc + source,
                         "replaces": pallas + replaces, "launches": launched,
                         **ik[key]})
+    # the RMS variant has no model path: its launches are phase 16's
+    for key, name, launched in (
+            ("ln", "fused_add_layer_norm", ln_launches),
+            ("rms", "fused_add_rms_norm", nk["rms_launches"])):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": csrc + "rms_norm.cu",
+                        "replaces": pallas + "rms_norm.py:69",
+                        "launches": launched, **nk[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,8 @@
 from . import generation
+from .bert import (
+    BertConfig, BertForPretraining, BertModel, BertPretrainingCriterion,
+    bert_base, bert_tiny,
+)
 from .generation import GenerationMixin, KVCache, generate
 from .gpt import (
     GPTConfig, GPTStackedForPretraining, gpt_1p3b, gpt_13b, gpt_small,
@@ -7,4 +11,5 @@ from .gpt import (
 
 __all__ = ["GPTConfig", "GPTStackedForPretraining", "gpt_tiny", "gpt_small",
            "gpt_1p3b", "gpt_13b", "generation", "KVCache", "GenerationMixin",
-           "generate"]
+           "generate", "BertConfig", "BertModel", "BertForPretraining",
+           "BertPretrainingCriterion", "bert_tiny", "bert_base"]

@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import resolve_device, to_torch_dtype
 from ..nn.functional import fused_linear_cross_entropy
+from ..nn.layers import load_jax_state
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import (
     flash_attention_bnsd, flash_attention_fwd,
@@ -511,7 +512,6 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
         ``lm_head_scale``), when present, are carried across unchanged and
         mark this model quantized.  Missing, unknown or mis-shaped keys
         raise."""
-        own = dict(self.named_parameters())
         int8_shapes = self._int8_shapes()
         int8 = {k: state[k] for k in int8_shapes if k in state}
         if int8 and len(int8) != len(int8_shapes):
@@ -520,11 +520,6 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
         if self.weight_int8 and not int8:
             raise ValueError("load_jax_state: this model is quantized; load "
                              "fp weights into a fresh model")
-        missing = sorted(set(own) - set(state))
-        unknown = sorted(set(state) - set(own) - set(int8_shapes))
-        if missing or unknown:
-            raise KeyError(f"load_jax_state: missing {missing}, unknown "
-                           f"{unknown}")
         loaded = {}
         for name, a in int8.items():
             a = np.asarray(a)
@@ -535,14 +530,8 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
                                  f"{int8_shapes[name]}")
             t = torch.from_numpy(a.copy()).to(self.device)
             loaded[name] = k_major(t) if name.endswith("int8") else t
-        with torch.no_grad():
-            for name, p in own.items():
-                a = np.array(state[name], np.float32)
-                if tuple(a.shape) != tuple(p.shape):
-                    raise ValueError(f"load_jax_state: {name} has shape "
-                                     f"{a.shape}, expected "
-                                     f"{tuple(p.shape)}")
-                p.copy_(torch.from_numpy(a).to(p.dtype))
+        load_jax_state(self, {k: v for k, v in state.items()
+                              if k not in int8_shapes})
         for name, t in loaded.items():
             owner, _, short = name.rpartition(".")
             (self.decoder if owner else self).register_buffer(short, t)

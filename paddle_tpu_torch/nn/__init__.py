@@ -1,3 +1,3 @@
-from . import functional
+from . import functional, layers
 
-__all__ = ["functional"]
+__all__ = ["functional", "layers"]

@@ -1,5 +1,6 @@
-"""The training loss head (port of ``fused_linear_cross_entropy`` and
-``_lm_head_dot`` of ``paddle_tpu/nn/functional/loss.py``).
+"""Losses (port of ``paddle_tpu/nn/functional/loss.py``): ``cross_entropy``
+and the training loss head, ``fused_linear_cross_entropy`` with
+``_lm_head_dot``.
 
 The LM head of a 50k-word vocabulary makes logits too large to keep for
 the backward ([8192, 50304] fp32 is 1.6 GB).  As in the reference, tokens
@@ -20,7 +21,30 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["fused_linear_cross_entropy"]
+__all__ = ["cross_entropy", "fused_linear_cross_entropy"]
+
+
+def cross_entropy(input, label, ignore_index: int = -100,  # noqa: A002
+                  reduction: str = "mean", axis: int = -1) -> torch.Tensor:
+    """Softmax cross entropy against integer labels (the reference's hard
+    label path): ``-log_softmax(input)[label]`` along ``axis``, 0 where the
+    label is ``ignore_index``; ``reduction`` "mean" divides the sum by the
+    number of labels that are not ignored (at least 1), "sum" sums, "none"
+    keeps each row's loss.  ``label`` may carry a trailing unit axis."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"reduction {reduction!r}: expected 'mean', 'sum' "
+                         "or 'none'")
+    lp = torch.log_softmax(input, dim=axis)
+    lab = label.long()
+    if lab.dim() == lp.dim():
+        lab = lab.squeeze(axis)
+    valid = lab != ignore_index
+    safe = torch.where(valid, lab, 0)
+    picked = lp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+    loss = torch.where(valid, -picked, torch.zeros_like(picked))
+    if reduction == "mean":
+        return loss.sum() / valid.sum().clamp_min(1).to(loss.dtype)
+    return loss.sum() if reduction == "sum" else loss
 
 
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

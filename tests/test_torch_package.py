@@ -13,6 +13,7 @@ import sys
 import pytest
 import torch
 
+from paddle_tpu_torch.incubate import FusedMultiTransformer
 from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_tiny
 from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
 from paddle_tpu_torch.quantization import quantize_for_serving
@@ -56,6 +57,9 @@ for name in names:
 assert len(names) >= 20, names
 assert "paddle_tpu_torch.ops.kernels.flash_attention" in names
 assert "paddle_tpu_torch.optimizer.fused_step" in names
+for name in ("ops.kernels.rms_norm", "incubate.nn", "models.bert",
+             "nn.layers", "nn.functional.attention", "nn.functional.loss"):
+    assert "paddle_tpu_torch." + name in names, name
 """)
 
 
@@ -146,6 +150,11 @@ def _params(dtype=torch.float32):
     return [torch.nn.Parameter(torch.zeros(4, dtype=dtype))]
 
 
+def _stack_train_forward():
+    m = FusedMultiTransformer(16, 2, 32, dropout_rate=0.1, device="cpu")
+    m.train()(torch.zeros((1, 4, 16)))
+
+
 class _Layered(torch.nn.Module):
     gpt = object()          # the layered GPT's shape, not ported
 
@@ -176,6 +185,8 @@ REFUSALS = {
     "training use_flash_attention=False": (
         lambda: _train_forward(hidden_dropout=0.0, attention_dropout=0.0,
                                use_flash_attention=False), "training"),
+    "fused_multi_transformer training dropout": (_stack_train_forward,
+                                                 "training"),
     "quantize_for_serving layered": (lambda: quantize_for_serving(_Layered()),
                                      "quantized serving"),
 }
