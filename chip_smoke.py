@@ -9,7 +9,10 @@ result line:
 
 1. build -- compile every kernel library from ``paddle_tpu_torch/ops/
    kernels/csrc`` with nvcc (sm_90a) and print the build seconds and
-   ptxas's register/shared-memory report;
+   ptxas's register and spill report for every kernel entry; the bf16
+   flash kernels at head_dim 64 and 128 must spill nothing; print each
+   bf16 flash kernel's shared memory per CTA, registers and CTAs per SM
+   as the runtime reports them;
 2. kernel vs plain -- the hand-written ragged-paged-attention kernel
    against its plain PyTorch version on the card, at the served shape
    (16 heads, head_dim 128, page 128) in bf16 and fp32 and at the tiny
@@ -30,8 +33,10 @@ result line:
    and dQ from the kernel's lse and delta), elementwise and over each
    whole output; the autograd Function's gradients must be the kernels'
    own, bit for bit, and are held against autograd of the plain forward;
-   in bf16 at (B, N, S, D) = (8, 16, 1024, 128), the trained shape, and
-   (2, 16, 1024, 128) causal, in fp32 at (2, 16, 1024, 128), at
+   in bf16 at (B, N, S, D) = (8, 16, 1024, 128), the trained shape,
+   (2, 16, 1024, 128) causal, (1, 2, 4096, 128) causal (a long ring of
+   streamed blocks), (2, 4, 384, 64) causal and (2, 4, 384, 128) full,
+   in fp32 at (2, 16, 1024, 128), at
    (1, 4, 128, 64) causal and full, and at (1, 2, 384, 64) causal; the
    AdamW kernel against its plain version on a bf16 [24, 2048, 8192] slab
    over two consecutive steps and on an unaligned fp32 [3, 257]; then the
@@ -39,7 +44,8 @@ result line:
    trained shape bf16 causal, with the whole backward (delta and both
    kernels) against autograd of the plain forward and
    ``F.scaled_dot_product_attention(is_causal=True)``'s forward and
-   backward; AdamW over every tensor of GPT-3 1.3B (bf16 parameters and
+   backward, each with its ratio to SDPA and its share of the bound;
+   AdamW over every tensor of GPT-3 1.3B (bf16 parameters and
    moments; times are for the whole update, 16 launches) against
    ``torch.optim.AdamW(fused=True)``;
 6. train -- GPT-3 1.3B at full width and depth (hidden 2048, 24 layers,
@@ -62,8 +68,11 @@ result line:
    lengths 1, 200, 201 and 1024, and at (2, 4, 64, 16) in fp32; the paged
    kernel over 8 slots x 16 heads, page 128, shuffled pool pages, lengths
    0, 1, 128, 129, 512 (and more), and at page 16, D 16; the flash
-   forward at ragged lengths (bf16 (8, 16, 200, 128) causal, fp32 (1, 2,
-   77, 64) causal and full).  Each is held to phase 5's two bounds
+   forward at ragged lengths (``FLASH_RAGGED_CASES``: bf16 at S 1, 50,
+   77, 200 and 1000, causal and full, head_dim 64, 128, 192 and 256;
+   views of a fused buffer holding NaN past S, which must give bit for
+   bit what zeros there give; fp32 (1, 2, 77, 64) causal and full).  Each
+   is held to phase 5's two bounds
    (elementwise against the sum of the absolute terms, and over the whole
    output); a cache holding NaN past the length must give a finite output
    equal to that of the same cache with zeros there.  Then both decode
@@ -132,7 +141,8 @@ result line:
    bounds.  Then both kernels' times at the BERT and GPT rows beside the
    bytes bound, the plain version and the two calls ``torch.add`` +
    ``F.layer_norm`` / ``F.rms_norm``, and the flash forward's at BERT's
-   attention beside SDPA;
+   attention beside SDPA, with its ratio to SDPA and its share of the
+   bound;
 17. fused encoder -- twelve post-LN ``FusedMultiHeadAttention`` +
    ``FusedFeedForward`` pairs at BERT-base width (768, 12 heads, 3072,
    eps 1e-12, GELU), built from a ``bert_base`` ``BertModel``'s weights,
@@ -156,12 +166,16 @@ result line:
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
 Output: the card's name and power limit (nvidia-smi), one JSON line with
-the kernels' numbers, and as the last line
+the kernels' numbers (the flash rows also carry their ratio to SDPA,
+their share of the bound, the whole backward's time against SDPA's
+backward, and the forward's time at BERT's attention), and as the last
+line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -228,6 +242,10 @@ ADAMW_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-6, 2.0 ** -7)}
 TRAIN_SHAPE = (8, 16, 1024, 128)           # (B, N, S, D) of GPT-3 1.3B
 FLASH_CASES = (("bfloat16", TRAIN_SHAPE, True),
                ("bfloat16", (2, 16, 1024, 128), True),
+               # a long ring: 64 key blocks, 32 query blocks per key block
+               ("bfloat16", (1, 2, 4096, 128), True),
+               ("bfloat16", (2, 4, 384, 64), True),
+               ("bfloat16", (2, 4, 384, 128), False),
                ("float32", (2, 16, 1024, 128), True),
                ("float32", (1, 4, 128, 64), True),
                ("float32", (1, 4, 128, 64), False),
@@ -237,6 +255,28 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 # generate at GPT-3 1.3B: batch, prompt, new tokens, cache length
 GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_MAX_SEQ = 8, 200, 64, 1024
 GEN_PAGE, GEN_CHUNK, GEN_PAGED_STEPS = 128, 64, 16
+# the flash forward at lengths that are not 128-multiples (dtype, shape,
+# causal, rows of NaN past S in the fused buffer the views come from):
+# phase 9's prefill; one row; causal with S below one 64-key block and
+# one 128-row block; 77, 200 and 1000; head dims 192 and 256 (the bf16
+# forward's other instantiations); views into a wider buffer that holds
+# NaN past S
+FLASH_RAGGED_CASES = (
+    ("bfloat16", (GEN_BATCH, 16, GEN_PROMPT, 128), True, 0),
+    ("bfloat16", (2, 4, 1, 128), True, 0),
+    ("bfloat16", (2, 4, 50, 128), True, 0),
+    ("bfloat16", (2, 4, 77, 64), True, 0),
+    ("bfloat16", (2, 4, 77, 128), False, 0),
+    ("bfloat16", (1, 4, 1000, 128), True, 0),
+    ("bfloat16", (1, 4, 1000, 64), False, 0),
+    ("bfloat16", (2, 4, 200, 192), True, 0),
+    ("bfloat16", (2, 4, 1000, 192), False, 0),
+    ("bfloat16", (2, 4, 200, 256), True, 0),
+    ("bfloat16", (2, 4, 1000, 256), False, 0),
+    ("bfloat16", (2, 4, 200, 128), True, 56),
+    ("bfloat16", (2, 4, 77, 64), False, 51),
+    ("float32", (1, 2, 77, 64), True, 0),
+    ("float32", (1, 2, 77, 64), False, 0))
 # decode kernels' timing lengths: the end of phase 9's generate, and a
 # full cache
 DECODE_TIMED_LENGTHS = (GEN_PROMPT + GEN_NEW, GEN_MAX_SEQ)
@@ -283,17 +323,54 @@ def _check(cond, msg):
 # phase 1: build
 # ---------------------------------------------------------------------------
 
+def _ptxas_entries(log):
+    """{kernel entry (mangled name): {registers, spill_stores,
+    spill_loads}} from ptxas's -v report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w.$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+# the bf16 flash kernels (template <D, block>) of the main paths, which
+# must not spill: D 64 and 128
+FLASH_NO_SPILL = re.compile(r"flash_(?:fwd|bwd_dkv|bwd_dq)_bf16ILi(?:64|128)E")
+
+
 def phase_build(port):
+    torch, fa = port["torch"], port["fa"]
     t0 = time.perf_counter()
     secs = port["build"].build()
     total = time.perf_counter() - t0
     for name, s in secs.items():
         print(f"[build] {name}: {s:.2f} s")
+    spills = []
     for name, log in port["build"].build_logs().items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas] {name}: {line.strip()}")
+        for entry, r in _ptxas_entries(log).items():
+            print(f"[ptxas] {name}: {entry}: {r}")
+            if FLASH_NO_SPILL.search(entry) and (
+                    r.get("spill_stores", 1) or r.get("spill_loads", 1)):
+                spills.append(entry)
     print(f"[build] all kernels: {total:.2f} s")
+    for which, dims in (("fwd", (64, 128, 192, 256)),
+                        ("bwd_dkv", (64, 128)), ("bwd_dq", (64, 128))):
+        for d in dims:
+            print(f"[build] flash {which} bf16 D {d}: "
+                  f"{fa.kernel_info(which, torch.bfloat16, d)}")
+    if port["build"].build_logs():     # this process ran the builds
+        _check(not spills, f"bf16 flash kernels spill: {spills}")
     return total
 
 
@@ -864,18 +941,21 @@ def phase_train_kernels(port):
 
     t = _time_flash(port)
     bounds = _flash_bounds(TRAIN_SHAPE, True, 2)
+    share = {k: bounds[k][0] / t[k] for k in ("fwd", "dkv", "dq", "bwd")}
     print(f"[train_kernels] flash bf16 {TRAIN_SHAPE} causal timing (device "
           f"ms per call): forward {t['fwd']!r}, dK/dV {t['dkv']!r}, dQ "
           f"{t['dq']!r}; plain forward {t['plain_fwd']!r}, plain dK/dV "
           f"{t['plain_dkv']!r}, plain dQ {t['plain_dq']!r}; SDPA forward "
-          f"{t['sdpa_fwd']!r}; bounds " + ", ".join(
-              f"{k} {v[0]!r} ({v[1]})" for k, v in bounds.items()
-              if k != "bwd"))
+          f"{t['sdpa_fwd']!r}; forward / SDPA forward "
+          f"{t['fwd'] / t['sdpa_fwd']!r}; bounds " + ", ".join(
+              f"{k} {v[0]!r} ({v[1]}; share of it {share[k]!r})"
+              for k, v in bounds.items() if k != "bwd"))
     print(f"[train_kernels] flash bf16 {TRAIN_SHAPE} causal whole backward "
           f"(dq, dk, dv; device ms per call): delta and both kernels "
           f"{t['bwd']!r}, autograd of the plain forward {t['plain_bwd']!r}, "
-          f"SDPA backward {t['sdpa_bwd']!r}, bound {bounds['bwd'][0]!r} "
-          f"({bounds['bwd'][1]})")
+          f"SDPA backward {t['sdpa_bwd']!r} (ratio "
+          f"{t['bwd'] / t['sdpa_bwd']!r}), bound {bounds['bwd'][0]!r} "
+          f"({bounds['bwd'][1]}; share of it {share['bwd']!r})")
     torch.cuda.empty_cache()
     a = _time_adamw(port)
     print(f"[train_kernels] adamw over GPT-3 1.3B ({a['tensors']} bf16 "
@@ -891,7 +971,15 @@ def phase_train_kernels(port):
         rows[name] = dict(max_abs_err=errs[name], ms=t[name],
                           plain_ms=t["plain_" + name],
                           bound_ms=bounds[name][0],
-                          bound_by=bounds[name][1], library_ms=lib)
+                          bound_by=bounds[name][1], library_ms=lib,
+                          bound_share=share[name])
+    rows["fwd"]["library_ratio"] = t["fwd"] / t["sdpa_fwd"]
+    # the whole backward (delta and both kernels) against SDPA's backward
+    for name in ("dkv", "dq"):
+        rows[name].update(whole_backward_ms=t["bwd"],
+                          sdpa_backward_ms=t["sdpa_bwd"],
+                          whole_backward_ratio=t["bwd"] / t["sdpa_bwd"],
+                          whole_backward_bound_share=share["bwd"])
     rows["adamw"] = dict(max_abs_err=errs["adamw"], ms=a["ms"],
                          plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                          bound_by=a["bound_by"], library_ms=a["library_ms"])
@@ -1154,16 +1242,32 @@ def _paged_case(port, dtype, slots, heads, page, d, lengths, seed):
     return err
 
 
-def _flash_ragged_case(port, dtype, shape, causal, seed):
+def _flash_ragged_case(port, dtype, shape, causal, seed, pad=0):
     """The flash forward at a length that is not a 128-multiple: O and lse
-    against the plain version, O under the two bounds, lse fp32."""
+    against the plain version, O under the two bounds, lse fp32.  With
+    ``pad`` > 0, q, k and v are views of the first S rows of a fused
+    [B, S + pad, 3, N, D] buffer whose rows past S hold NaN: the kernel
+    must read none of them, and give bit for bit what it gives when those
+    rows hold zeros."""
     torch, fa = port["torch"], port["fa"]
     b, n, s, d = shape
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    buf = _randn(torch, (b, s, 3, n, d), dtype, gen)
-    q, k, v = (t.transpose(1, 2) for t in buf.unbind(2))
+    buf = _randn(torch, (b, s + pad, 3, n, d), dtype, gen)
+    q, k, v = (t[:, :s].transpose(1, 2) for t in buf.unbind(2))
     scale = 1.0 / d ** 0.5
+    if pad:
+        buf[:, s:] = 0.0
+        zero_out, zero_lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+        buf[:, s:] = float("nan")
     out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    if pad:
+        torch.cuda.synchronize()
+        _check(torch.equal(out, zero_out) and torch.equal(lse, zero_lse),
+               f"flash forward {shape}: NaN rows past seq in the fused "
+               "buffer changed the output")
+        print(f"[decode_kernels] flash forward {shape} causal={causal}: "
+              f"{pad} NaN rows past seq in the fused buffer give O and lse "
+              "bit for bit those of zeros there")
     want, want_lse = fa.flash_attention_plain(q, k, v, causal, scale)
     sc = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
     if causal:
@@ -1258,12 +1362,9 @@ def phase_decode_kernels(port):
             ("float32", 5, 4, 16, 16, (0, 1, 16, 17, 40)))):
         errs["paged"] = max(errs["paged"], _paged_case(
             port, dtype, slots, heads, page, d, lengths, 50 + i))
-    for i, (dtype, shape, causal) in enumerate((
-            ("bfloat16", (GEN_BATCH, 16, GEN_PROMPT, 128), True),
-            ("float32", (1, 2, 77, 64), True),
-            ("float32", (1, 2, 77, 64), False))):
-        errs["fwd"] = max(errs["fwd"], _flash_ragged_case(port, dtype, shape,
-                                                          causal, 60 + i))
+    for i, (dtype, shape, causal, pad) in enumerate(FLASH_RAGGED_CASES):
+        errs["fwd"] = max(errs["fwd"], _flash_ragged_case(
+            port, dtype, shape, causal, 60 + i, pad))
     times = {}
     for n in DECODE_TIMED_LENGTHS:
         t = times[n] = _time_decode_kernels(port, n)
@@ -2226,8 +2327,9 @@ def phase_norm_kernels(port):
     fb = _time_bert_flash(port)
     print(f"[norm_kernels] flash forward bf16 {BERT_ATTN_SHAPE} non-causal "
           f"timing (device ms per call): kernel {fb['fwd']!r}, plain "
-          f"{fb['plain']!r}, SDPA {fb['sdpa']!r}, bound {fb['bound'][0]!r} "
-          f"({fb['bound'][1]})")
+          f"{fb['plain']!r}, SDPA {fb['sdpa']!r} (kernel / SDPA "
+          f"{fb['fwd'] / fb['sdpa']!r}), bound {fb['bound'][0]!r} "
+          f"({fb['bound'][1]}; share of it {fb['bound'][0] / fb['fwd']!r})")
     t = times[BERT_ROWS]
     # no one PyTorch call computes it: the add and the norm are two calls
     return {"ln": dict(max_abs_err=errs["ln"], ms=t["ln"],
@@ -2238,7 +2340,11 @@ def phase_norm_kernels(port):
                         plain_ms=t["rms_plain"],
                         bound_ms=_norm_bound(*BERT_ROWS, 2, 1)[0],
                         bound_by="bytes", library_ms=None),
-            "rms_launches": rms_launches, "flash_err": flash_err}
+            "rms_launches": rms_launches, "flash_err": flash_err,
+            "bert_flash": dict(bert_ms=fb["fwd"], bert_sdpa_ms=fb["sdpa"],
+                               bert_ratio=fb["fwd"] / fb["sdpa"],
+                               bert_bound_ms=fb["bound"][0],
+                               bert_bound_share=fb["bound"][0] / fb["fwd"])}
 
 
 # ---------------------------------------------------------------------------
@@ -2635,6 +2741,7 @@ def main() -> int:
     nk = phase_norm_kernels(port)
     # the flash forward's error over phases 5 and 8 and BERT's shape here
     tk["fwd"]["max_abs_err"] = max(tk["fwd"]["max_abs_err"], nk["flash_err"])
+    tk["fwd"].update(nk["bert_flash"])
     ln_launches = phase_encoder(port)
     phase_bert(port)
     phase_bert_card_vs_cpu(port)

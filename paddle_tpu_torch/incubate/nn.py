@@ -211,11 +211,17 @@ class FusedMultiTransformer(PortModule):
                                     device=self.device) * 0.02)
 
     def forward(self, src, attn_mask=None, caches=None, pre_caches=None,
-                time_step=None):
+                rotary_embs=None, rotary_emb_dims=0, seq_lens=None,
+                time_step=None, name=None):
+        """The reference's parameters, in its order.  ``rotary_embs``,
+        ``rotary_emb_dims``, ``seq_lens`` and ``name`` are accepted and
+        ignored, as the JAX layer ignores them."""
         if attn_mask is not None:
             raise NotImplementedError(
-                "FusedMultiTransformer runs the causal fast path; "
-                "arbitrary masks go through nn.TransformerEncoder")
+                "FusedMultiTransformer runs the causal fast path; a mask "
+                "goes through FusedMultiHeadAttention(attn_mask=) or "
+                "paddle_tpu_torch.nn.functional."
+                "scaled_dot_product_attention")
         if caches is not None or pre_caches is not None \
                 or time_step is not None:
             raise NotImplementedError(

@@ -538,19 +538,24 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
         if loaded:
             self.decoder.weight_int8 = True
 
-    def forward(self, input_ids, labels=None, kv_cache=None,
-                cache_index=None, page_tables=None, ragged_plan=None,
-                out_rows=None):
-        """Without a cache: ``input_ids`` [B, S] at positions ``0..S-1``;
-        with ``labels`` [B, S] (used as given, no shift) returns the mean
-        token loss of the chunked fused head, without them the [B, S, V]
-        logits.
+    def forward(self, input_ids, position_ids=None, labels=None,
+                kv_cache=None, cache_index=None, page_tables=None,
+                ragged_plan=None, out_rows=None, lora=None):
+        """The reference's parameters, in its order.
+
+        Without a cache: ``input_ids`` [B, S] at ``position_ids`` [B, S]
+        (or [S]; default ``0..S-1``: packed or offset sequences pass their
+        own); with ``labels`` [B, S] (used as given, no shift) returns the
+        mean token loss of the chunked fused head, without them the [B, S,
+        V] logits.
 
         With a contiguous ``kv_cache`` (:class:`KVCache`): ``input_ids``
-        [B, S] at positions ``cache_index + arange(S)``, where
+        [B, S] written at cache slots ``cache_index + arange(S)``, where
         ``cache_index`` is the Python int 0 (the whole-prompt prefill) or
-        a 0-d integer tensor on the model's device.  Returns [B, S, V]
-        logits; the step's K/V are written into the cache in place.
+        a 0-d integer tensor on the model's device; the position
+        embeddings read ``position_ids`` when given, else those slots.
+        Returns [B, S, V] logits; the step's K/V are written into the
+        cache in place.
 
         With a paged ``kv_cache``: ``input_ids`` [S, C] -- C tokens of
         each of S rows -- at positions ``cache_index[s] + arange(C)``
@@ -559,9 +564,17 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
         engine's fused step: each row is one flat token and ``out_rows``
         [S'] selects the rows the LM head projects.  Returns [S, C, V]
         logits ([S', 1, V] with ``out_rows``); every token's K/V is
-        written into the pool in place."""
+        written into the pool in place.  The positions come from
+        ``cache_index`` here: a ``position_ids`` that disagrees raises.
+
+        ``lora`` (per-request adapters) is not ported yet: it raises."""
+        if lora is not None:
+            raise NotImplementedError(
+                "lora= (per-request LoRA adapters) is not ported yet "
+                "(ROADMAP.md queue 1, item 8, speculative decoding and "
+                "LoRA)")
         if kv_cache is None:
-            return self._forward_train(input_ids, labels)
+            return self._forward_train(input_ids, labels, position_ids)
         cfg = self.config
         ids = input_ids.long()
         s = ids.shape[1]
@@ -569,13 +582,20 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
         if not getattr(kv_cache, "paged", False):
             pos = int(cache_index) if isinstance(
                 cache_index, (int, np.integer)) else cache_index.reshape(())
-            pos_ids = (rel + pos).expand_as(ids)
+            pos_ids = (rel + pos).expand_as(ids) if position_ids is None \
+                else position_ids.long().expand_as(ids)
             h = self.embeddings(ids, pos_ids)                # [B, S, hidden]
             h = self.decoder.forward_cached(h, kv_cache.k, kv_cache.v, pos)
         else:
             if page_tables is None:
                 raise ValueError("a paged KV cache needs page_tables")
             pos = cache_index.long()
+            if position_ids is not None and not torch.equal(
+                    position_ids.long().expand_as(ids), pos[:, None] + rel):
+                raise ValueError(
+                    "position_ids disagree with cache_index: the paged and "
+                    "ragged paths place each token at cache_index[s] + "
+                    "arange(C), and read positions from there")
             pos_ids = torch.clamp(pos[:, None] + rel, 0,
                                   cfg.max_position_embeddings - 1)
             h = self.embeddings(ids, pos_ids)                # [S, C, hidden]
@@ -595,7 +615,7 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
             return quantized_matmul(h, self.lm_head_int8, self.lm_head_scale)
         return h @ self.embeddings.word_embeddings.weight.t()
 
-    def _forward_train(self, input_ids, labels):
+    def _forward_train(self, input_ids, labels, position_ids=None):
         cfg = self.config
         if self.training and (cfg.hidden_dropout > 0
                               or cfg.attention_dropout > 0):
@@ -610,8 +630,9 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
                 "training); attention there runs the flash kernels: leave "
                 "use_flash_attention None or True")
         ids = input_ids.long()
-        pos = torch.arange(ids.shape[-1], device=ids.device).expand_as(ids)
-        h = self.embeddings(ids, pos)                       # [B, S, hidden]
+        pos = (torch.arange(ids.shape[-1], device=ids.device)
+               if position_ids is None else position_ids.long())
+        h = self.embeddings(ids, pos.expand_as(ids))        # [B, S, hidden]
         h = self.final_ln(self.decoder(h))
         w = self.embeddings.word_embeddings.weight
         if labels is not None:

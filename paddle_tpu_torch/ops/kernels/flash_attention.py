@@ -57,13 +57,16 @@ __all__ = [
     "shape_unsupported_reason",
     "fwd_kernel_unsupported_reason",
     "kernel_unsupported_reason",
+    "kernel_info",
     "NEG_INF",
 ]
 
 NEG_INF = -1e30
 # the JAX package's KV blocking tile (analysis/codes.py TILE_LANE)
 TILE_LANE = 128
-KERNEL_HEAD_DIMS = (64, 128)
+# head dims each kernel takes: (forward, backward) by dtype
+KERNEL_HEAD_DIMS = {torch.float32: ((64, 128), (64, 128)),
+                    torch.bfloat16: ((64, 128, 192, 256), (64, 128))}
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # operand slots of csrc/flash_attention.cu's pointer and stride arrays
 _SLOTS = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
@@ -155,27 +158,37 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool,
 # the Hopper kernels
 # ---------------------------------------------------------------------------
 
+def _head_dim_reason(head_dim: int, dtype: torch.dtype,
+                     backward: bool) -> Optional[str]:
+    if dtype not in KERNEL_DTYPES:
+        return f"dtype {dtype} (the kernels take float32 and bfloat16)"
+    dims = KERNEL_HEAD_DIMS[dtype][int(backward)]
+    if head_dim not in dims:
+        which = "backward" if backward else "forward"
+        return (f"head_dim={head_dim} (the {which} kernels take {dims} in "
+                f"{dtype}; other head dims are ROADMAP.md queue 2)")
+    return None
+
+
 def fwd_kernel_unsupported_reason(seq_len: int, head_dim: int,
                                   dtype: torch.dtype) -> Optional[str]:
     """``None`` when the forward kernel takes this shape and dtype, else
     why not.  It takes any ``seq_len >= 1``: the last block's rows past
     the sequence are masked."""
-    if dtype not in KERNEL_DTYPES:
-        return f"dtype {dtype} (the kernels take float32 and bfloat16)"
-    if head_dim not in KERNEL_HEAD_DIMS:
-        return f"head_dim={head_dim} (the kernels take {KERNEL_HEAD_DIMS})"
-    if seq_len < 1:
-        return f"seq_len={seq_len}"
-    return None
+    reason = _head_dim_reason(head_dim, dtype, backward=False)
+    if reason is None and seq_len < 1:
+        reason = f"seq_len={seq_len}"
+    return reason
 
 
 def kernel_unsupported_reason(seq_len: int, head_dim: int,
                               dtype: torch.dtype) -> Optional[str]:
     """``None`` when the backward kernels -- and so training through
-    ``FlashAttention`` -- take this shape and dtype, else why not: the
-    forward's gate plus the JAX package's shape rule (seq a multiple of
+    ``FlashAttention`` -- take this shape and dtype, else why not: their
+    head dims plus the JAX package's shape rule (seq a multiple of
     128)."""
     return (fwd_kernel_unsupported_reason(seq_len, head_dim, dtype)
+            or _head_dim_reason(head_dim, dtype, backward=True)
             or shape_unsupported_reason(seq_len, head_dim))
 
 
@@ -193,11 +206,34 @@ def _kernel_fns():
             fn.argtypes = [i32] * 7 + [ctypes.c_float, ptr, ptr, ptr]
             fn.restype = i32
             fns[name] = fn
+        lib.flash_attention_kernel_info.argtypes = [i32] * 4 + [ptr]
+        lib.flash_attention_kernel_info.restype = i32
+        fns["info"] = lib.flash_attention_kernel_info
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         fns["error"] = lib.flash_attention_error_string
         _fns = fns
     return _fns
+
+
+_WHICH = {"fwd": 0, "bwd_dkv": 1, "bwd_dq": 2}
+
+
+def kernel_info(which: str, dtype: torch.dtype, head_dim: int,
+                device: int = 0) -> dict:
+    """What a launch of kernel ``which`` ("fwd", "bwd_dkv", "bwd_dq") at
+    this dtype and head_dim runs on CUDA device ``device``: its dynamic
+    shared memory per CTA (bytes), registers per thread, CTAs resident per
+    SM, threads per CTA and local memory per thread (bytes)."""
+    fns = _kernel_fns()
+    info = (ctypes.c_int * 5)()
+    err = fns["info"](device, _WHICH[which], KERNEL_DTYPES[dtype], head_dim,
+                      info)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel_info: "
+                           f"{fns['error'](err).decode()} (cudaError {err})")
+    return dict(zip(("smem", "registers", "ctas_per_sm", "threads",
+                     "local_bytes"), info))
 
 
 def _bsnd_empty(like: torch.Tensor) -> torch.Tensor:
@@ -233,9 +269,10 @@ def _launch(which: str, causal: bool, scale: float, ops: dict,
     for name, t in (("lse", lse), ("delta", delta)):
         if t is not None and (t.dtype != torch.float32 or t.device != dev
                               or t.shape != (b * n, s)
-                              or not t.is_contiguous()):
+                              or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"flash_attention kernel: {name} must be "
-                             f"contiguous fp32 [{b * n}, {s}] on {dev}")
+                             f"contiguous 16-byte aligned fp32 [{b * n}, "
+                             f"{s}] on {dev}")
     ptrs = (ctypes.c_void_p * 10)(
         *[ops[k].data_ptr() if k in ops else None for k in _SLOTS],
         lse.data_ptr(), None if delta is None else delta.data_ptr())

@@ -210,6 +210,13 @@ class Request:
         return np.concatenate([self.prompt,
                                np.asarray(self.tokens, np.int64)])
 
+    def timestamps(self) -> dict:
+        """The per-request SLO timestamps (monotonic seconds; None means
+        the request never reached that stage)."""
+        return {"submitted": self.t_submitted, "admitted": self.t_admitted,
+                "first_token": self.t_first_token,
+                "terminal": self.t_terminal}
+
 
 class RequestQueue:
     """Thread-safe FIFO; ``submit`` may be called from any thread.
@@ -323,17 +330,23 @@ class ServingEngine:
     ``seed`` seeds the engine's sampling generator.  ``kv_dtype`` names
     the pool dtype and wins over ``cache_dtype``; "int8" makes a quantized
     pool.  ``weight_dtype="int8"`` quantizes ``model`` in place for
-    serving (any other value raises ``ValueError``)."""
+    serving (any other value raises ``ValueError``).  ``prefill_chunk``
+    is the reference's alias of ``prefill_token_budget``, which wins when
+    both are given."""
 
     def __init__(self, model, *, num_slots: int = 4,
                  page_size: int = 128, max_context: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  cache_dtype: str = "bfloat16",
                  prefill_token_budget: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
                  max_queue_depth: Optional[int] = None,
                  max_queue_wait_s: Optional[float] = None,
                  seed: int = 0,
                  stall_budget_s: Optional[float] = None,
+                 compile_budget_s: Optional[float] = None,
+                 readmission_backoff_s: Optional[float] = None,
+                 backoff_max_s: Optional[float] = None,
                  mesh=None, lora=None, prefix_cache: bool = False,
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
@@ -343,6 +356,12 @@ class ServingEngine:
         for knob, asked, item in (
                 ("prefix_cache", bool(prefix_cache), "6, prefix cache"),
                 ("stall_budget_s", stall_budget_s is not None,
+                 "7, watchdog and retry/rebuild"),
+                ("compile_budget_s", compile_budget_s is not None,
+                 "7, watchdog and retry/rebuild"),
+                ("readmission_backoff_s", readmission_backoff_s is not None,
+                 "7, watchdog and retry/rebuild"),
+                ("backoff_max_s", backoff_max_s is not None,
                  "7, watchdog and retry/rebuild"),
                 ("lora", lora is not None, "8, speculative decoding and LoRA"),
                 ("mesh", mesh is not None,
@@ -371,6 +390,10 @@ class ServingEngine:
             raise ValueError(
                 f"max_context={max_context} must be a multiple of "
                 f"page_size={page_size}")
+        # prefill_chunk: the reference's alias, read only when
+        # prefill_token_budget is not given
+        if prefill_token_budget is None:
+            prefill_token_budget = prefill_chunk
         prefill_token_budget = int(prefill_token_budget
                                    or min(page_size, max_context))
         if prefill_token_budget < 1:

@@ -152,6 +152,27 @@ def test_kernel_takes_fp32_and_bf16_at_head_dims_64_and_128():
                                                           torch.float32)
 
 
+def test_kernel_head_dims_by_dtype_and_direction():
+    """The bf16 forward takes head_dim 64, 128, 192 and 256; the backward
+    and every fp32 kernel 64 and 128.  A head dim still refused names
+    ROADMAP.md queue 2, and is refused off the CPU before anything
+    launches (meta tensors stand in for the card's)."""
+    for d in (64, 128, 192, 256):
+        assert tfa.fwd_kernel_unsupported_reason(200, d, torch.bfloat16) \
+            is None
+    for d in (64, 128):
+        assert tfa.kernel_unsupported_reason(1024, d, torch.bfloat16) is None
+    for reason in (tfa.fwd_kernel_unsupported_reason(200, 192, torch.float32),
+                   tfa.fwd_kernel_unsupported_reason(200, 96, torch.bfloat16),
+                   tfa.kernel_unsupported_reason(1024, 192, torch.bfloat16)):
+        assert "ROADMAP.md queue 2" in reason, reason
+    q = torch.zeros((1, 2, 200, 96), dtype=torch.bfloat16, device="meta")
+    before = tfa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="head_dim=96"):
+        tfa.flash_attention_fwd(q, q, q, True, 0.1)
+    assert tfa.flash_attention_fwd.launches == before
+
+
 def _launch_counts():
     return (tfa.flash_attention_fwd.launches,
             tfa.flash_attention_bwd_dkv.launches,

@@ -11,6 +11,8 @@ fp32 the two are the same arithmetic, so every comparison here is fp32:
 another order, through two layers), as the JAX test holds its layers to
 the numpy composition.  Dropout is held by property, not against JAX's
 bits."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -103,6 +105,44 @@ def test_fused_multi_transformer_matches_composition():
     got = _np(m(torch.from_numpy(x)))
     np.testing.assert_allclose(got, expect, **TOL)
     np.testing.assert_allclose(got, jm(pt.to_tensor(x)).numpy(), **TOL)
+
+
+def test_fused_multi_transformer_takes_the_references_arguments():
+    """The reference's positional order (src, attn_mask, caches,
+    pre_caches, rotary_embs, rotary_emb_dims, seq_lens, time_step, name):
+    rotary_embs, rotary_emb_dims, seq_lens and name are accepted and
+    ignored, as the JAX layer ignores them (its source reads none of them
+    past the signature), and the result is the JAX layer's."""
+    import inspect
+
+    src = inspect.getsource(jnn.FusedMultiTransformer.forward)
+    params = list(inspect.signature(
+        jnn.FusedMultiTransformer.forward).parameters)
+    assert params == list(inspect.signature(
+        FusedMultiTransformer.forward).parameters)
+    body = src.split(":\n", 1)[1]
+    for name in ("rotary_embs", "rotary_emb_dims", "seq_lens", "name"):
+        assert not re.search(rf"\b{name}\b", body), name
+    E, NH, FFN = 16, 2, 32
+    pt.seed(4)
+    jm = jnn.FusedMultiTransformer(embed_dim=E, num_heads=NH,
+                                   dim_feedforward=FFN, num_layers=2,
+                                   dropout_rate=0.0)
+    m = _carry(jm, FusedMultiTransformer(E, NH, FFN, num_layers=2,
+                                         device="cpu"))
+    jm.eval()
+    m.eval()
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 4, E).astype(np.float32)
+    rot = rng.randn(2, 2, 4, 1, E // NH).astype(np.float32)
+    seq_lens = np.array([4, 3], np.int32)
+    want = jm(pt.to_tensor(x), None, None, None, pt.to_tensor(rot), 1,
+              pt.to_tensor(seq_lens)).numpy()
+    got = m(torch.from_numpy(x), None, None, None, torch.from_numpy(rot), 1,
+            torch.from_numpy(seq_lens), None, "stack")
+    np.testing.assert_allclose(_np(got), want, **TOL)
+    np.testing.assert_allclose(_np(got), _np(m(torch.from_numpy(x))),
+                               rtol=0, atol=0)
 
 
 def test_fused_multi_transformer_refusals():

@@ -423,3 +423,57 @@ def test_fp32_model_serves_from_a_bf16_pool(models):
     eng.run_until_idle()
     assert all(r.finished and len(r.tokens) == 5 for r in reqs)
     assert eng.allocator.used_pages == 0
+
+
+def _stamped(engine):
+    """One request served to the end and one cancelled while queued (it
+    never seats): their ``timestamps()``."""
+    prompts = _prompts(2, seed=12)
+    served = engine.submit(prompts[0], 3)
+    queued = engine.submit(prompts[1], 3)
+    queued.cancel()
+    engine.run_until_idle()
+    engine.close()
+    return served.timestamps(), queued.timestamps()
+
+
+def test_request_timestamps_match_the_jax_engines(models):
+    jm, tm, _ = models
+    want = _stamped(JaxEngine(jm, num_slots=1, **ENGINE_KW))
+    got = _stamped(ServingEngine(tm, num_slots=1, **ENGINE_KW))
+    for g, w in zip(got, want):
+        assert list(g) == list(w) == ["submitted", "admitted",
+                                      "first_token", "terminal"]
+        assert [v is None for v in g.values()] == \
+            [v is None for v in w.values()]
+    served, queued = got
+    assert None not in served.values()
+    assert list(served.values()) == sorted(served.values())
+    assert queued["admitted"] is None and queued["first_token"] is None
+    assert queued["submitted"] <= queued["terminal"]
+
+
+def _progress(engine, prompts, n_new):
+    """Each request's generated-token count after every step."""
+    reqs = [engine.submit(p, n_new) for p in prompts]
+    steps = []
+    while engine.queue.depth or engine.scheduler.active_slots:
+        engine.step()
+        steps.append([len(r.tokens) for r in reqs])
+    engine.close()
+    return steps
+
+
+def test_prefill_chunk_is_the_alias_of_prefill_token_budget(models):
+    jm, tm, _ = models
+    prompts = _prompts(4, seed=13, lo=12, hi=30)
+    kw = dict(num_slots=2, **ENGINE_KW)
+    want = _progress(JaxEngine(jm, prefill_chunk=8, **kw), prompts, 3)
+    assert _progress(ServingEngine(tm, prefill_chunk=8, **kw), prompts,
+                     3) == want
+    assert _progress(ServingEngine(tm, prefill_token_budget=8, **kw),
+                     prompts, 3) == want
+    # the reference's rule when both are given: the budget wins
+    both = dict(prefill_token_budget=8, prefill_chunk=16, **kw)
+    assert ServingEngine(tm, **both).prefill_token_budget == \
+        JaxEngine(jm, **both).prefill_token_budget == 8

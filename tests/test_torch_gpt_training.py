@@ -231,3 +231,64 @@ def test_serving_step_builds_no_autograd_graph(state):
     assert [len(t) for t in toks] == [5 + 4, 9 + 4] and outs
     assert all(not o.requires_grad and o.grad_fn is None for o in outs)
     assert all(p.grad is None for p in tm.parameters())
+
+
+def _offset_positions(seed=7, seq=64):
+    """Positions of offset / packed rows: row 0 starts at 50, row 1 is two
+    packed sequences (0..31, then 0..31)."""
+    pos = np.stack([np.arange(seq) + 50, np.arange(seq) % 32])
+    (ids, _), = _batches(1, seed=seed)
+    return ids[:, :seq], pos
+
+
+def test_explicit_position_ids_give_the_jax_logits(state):
+    ids, pos = _offset_positions()
+    jm = _jax_model(state)
+    want = np.asarray(jm(_jt(ids), position_ids=_jt(pos)).numpy())
+    tm = _port_model(state)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(ids), position_ids=torch.from_numpy(pos))
+    assert got.shape == (BATCH, 64, 1024)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+    # the default positions differ: the offsets were really read
+    assert not np.allclose(tm(torch.from_numpy(ids)).detach().numpy(), want,
+                           atol=1e-3)
+
+
+def test_second_positional_argument_is_position_ids_as_in_jax(state):
+    """``model(ids, pos)``: the reference reads ``pos`` as position ids and
+    returns logits, not a loss."""
+    ids, pos = _offset_positions(seed=8)
+    want = np.asarray(_jax_model(state)(_jt(ids), _jt(pos)).numpy())
+    with torch.no_grad():
+        got = _port_model(state)(torch.from_numpy(ids),
+                                 torch.from_numpy(pos))
+    assert got.shape == want.shape == (BATCH, 64, 1024)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_position_ids_on_the_cache_paths(state):
+    """The contiguous cache's prefill honours explicit positions (the
+    logits path's result); the paged path reads positions from
+    ``cache_index`` and refuses ids that disagree."""
+    ids, pos = _offset_positions(seed=9)
+    tm = _port_model(state)
+    tids, tpos = torch.from_numpy(ids), torch.from_numpy(pos)
+    with torch.no_grad():
+        want = tm(tids, position_ids=tpos)
+        cache = tm.new_kv_cache(BATCH, 64, dtype="float32")
+        got = tm(tids, position_ids=tpos, kv_cache=cache, cache_index=0)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+        pool = tm.new_paged_kv_cache(5, 16, dtype="float32")
+        step = dict(kv_cache=pool, cache_index=torch.tensor([0, 3]),
+                    page_tables=torch.tensor([[1, 2], [3, 4]]))
+        short = tids[:, :4]
+        plain = tm(short, **step)
+        same = tm(short, position_ids=torch.tensor([[0, 1, 2, 3],
+                                                    [3, 4, 5, 6]]), **step)
+        np.testing.assert_allclose(same.numpy(), plain.numpy(), rtol=1e-6)
+        with pytest.raises(ValueError, match="cache_index"):
+            tm(short, position_ids=torch.arange(4), **step)

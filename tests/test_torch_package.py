@@ -146,6 +146,11 @@ def _train_forward(**cfg):
     m(ids, labels=ids)
 
 
+def _gpt_forward(**kw):
+    m = GPTStackedForPretraining(gpt_tiny(), device="cpu")
+    m(torch.zeros((1, 8), dtype=torch.long), **kw)
+
+
 def _params(dtype=torch.float32):
     return [torch.nn.Parameter(torch.zeros(4, dtype=dtype))]
 
@@ -165,6 +170,13 @@ REFUSALS = {
                             "prefix cache"),
     "engine stall_budget_s": (lambda: _engine(stall_budget_s=1.0),
                               "watchdog"),
+    "engine compile_budget_s": (lambda: _engine(compile_budget_s=300.0),
+                                "watchdog"),
+    "engine readmission_backoff_s": (
+        lambda: _engine(readmission_backoff_s=0.05), "watchdog"),
+    "engine backoff_max_s": (lambda: _engine(backoff_max_s=5.0),
+                             "watchdog"),
+    "gpt forward lora": (lambda: _gpt_forward(lora=object()), "lora"),
     "engine lora": (lambda: _engine(lora=object()), "lora"),
     "engine mesh": (lambda: _engine(mesh=object()), "sharded"),
     "engine role": (lambda: _engine(role="prefill"), "disaggregated"),
