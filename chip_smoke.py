@@ -10,16 +10,24 @@ result line:
 1. build -- compile every kernel library from ``paddle_tpu_torch/ops/
    kernels/csrc`` with nvcc (sm_90a) and print the build seconds and
    ptxas's register and spill report for every kernel entry; the bf16
-   flash kernels at head_dim 64 and 128 must spill nothing; print each
-   bf16 flash kernel's shared memory per CTA, registers and CTAs per SM
-   as the runtime reports them;
+   flash kernels at head_dim 64 and 128, and the split decode and the
+   ragged kernels at head_dim 128 in every dtype, must spill nothing;
+   print each bf16 flash kernel's, and the split decode and ragged
+   kernels' (fp32, bf16, int8; head_dim 128 and 192), shared memory per
+   CTA, registers and CTAs per SM as the runtime reports them;
 2. kernel vs plain -- the hand-written ragged-paged-attention kernel
    against its plain PyTorch version on the card, at the served shape
    (16 heads, head_dim 128, page 128) in bf16 and fp32 and at the tiny
    shape (head_dim 16, page 16): a decode at position 0, blocks
-   straddling a page edge, shuffled pool pages, padding blocks and a
-   repeated work-list tail; then the kernel's and the plain version's
-   times at the decode-heavy served shape beside the bytes bound;
+   straddling a page edge, 16-row prefill blocks straddling the page
+   edges at 128 and 256 (every row on a different prefix), shuffled pool
+   pages, padding blocks and a repeated work-list tail.  Every case is
+   launched again on the same inputs (bit for bit), and over a pool
+   holding NaN at every position no run may see -- pages no run owns,
+   and past each run's last position on the pages it does own -- which
+   must give bit for bit the output of the same pool with zeros there.
+   Then the kernel's and the plain version's times at the decode-heavy
+   and the mixed served shapes beside the bytes bound;
 3. serve -- GPT-3 1.3B at full width (hidden 2048, 24 layers, 16 heads,
    vocab 50304) with random bf16 weights from a fixed seed, a bf16 pool,
    8 slots, page 128, max_context 512: 16 requests with prompt lengths
@@ -75,10 +83,14 @@ result line:
    is held to phase 5's two bounds
    (elementwise against the sum of the absolute terms, and over the whole
    output); a cache holding NaN past the length must give a finite output
-   equal to that of the same cache with zeros there.  Then both decode
-   kernels' times at (B 8, H 16, length 264) and at length 1024 beside the
-   bytes bound, the plain versions and, for the contiguous cache,
-   ``F.scaled_dot_product_attention`` on the length-sliced cache;
+   equal to that of the same cache with zeros there.  The decode kernel
+   (its keys split over CTAs) also at lengths 0, 1, one key either side of
+   the first two split boundaries and max_seq, in bf16 and fp32 at (8, 16,
+   1024, 128) and (4, 8, 520, 192): length 0 gives zeros, every length is
+   launched again bit for bit and with NaN past the length.  Then both
+   decode kernels' times at (B 8, H 16, length 264) and at length 1024
+   beside the bytes bound, the plain versions and, for the contiguous
+   cache, ``F.scaled_dot_product_attention`` on the length-sliced cache;
 9. generate -- GPT-3 1.3B at full width and depth with random bf16
    weights from a fixed seed and a bf16 cache: ``generate`` of batch 8,
    prompt 200, 64 new tokens, ``max_seq_len`` 1024, greedy with
@@ -102,8 +114,11 @@ result line:
    row counts ``quantization/int8.py`` pads to must be taken); the int8
    variants, fp32 q and scales, each against its plain version under
    the fp32 bounds of phase 8: the ragged kernel at phase 2's served
-   shape (mixed and decode-heavy runs over shuffled pages, padding blocks
-   and a repeated work-list tail) and at the tiny shape, the paged kernel
+   shape (mixed, decode-heavy and straddling-prefill runs over shuffled
+   pages, padding blocks and a repeated work-list tail; each launched
+   again bit for bit, and with NaN scales on the pages no run owns and
+   127 at every position no run may see, which must not change the
+   output) and at the tiny shape, the paged kernel
    over 8 slots x 16 heads (lengths 0, 1, 128, 129, 512 and more; NaN
    scales on pages no slot sees and other values past the lengths must
    not change the output) and at page 16, D 16, the decode kernel at
@@ -168,7 +183,8 @@ TF32 is off throughout: fp32 runs in full fp32 on the card.
 Output: the card's name and power limit (nvidia-smi), one JSON line with
 the kernels' numbers (the flash rows also carry their ratio to SDPA,
 their share of the bound, the whole backward's time against SDPA's
-backward, and the forward's time at BERT's attention), and as the last
+backward, and the forward's time at BERT's attention; the ragged row its
+time, plain time and bound at the mixed served shape), and as the last
 line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 """
@@ -223,9 +239,10 @@ FLASH_GRAD_TOL = {"float32": (2e-5, 1e-5, 1e-5),
                   "bfloat16": (2.0 ** -6, 2.0 ** -7, 2.0 ** -7)}
 # decode and paged kernels vs plain: held to the flash forward's bounds
 # (FLASH_TOL[dtype][:2] elementwise against m = P|V|, FLASH_O_NORM over the
-# whole output).  The kernels round P against the running max of each
-# 256-key chunk, the plain versions after normalising -- the flash
-# forward's case -- and both round O once.
+# whole output).  The kernels round P against a local max (the decode
+# kernel each split's, the paged kernel the running max of each 256-key
+# chunk), the plain versions after normalising -- the flash forward's
+# case -- and both round O once.
 # phase 10 against phase 9 (bf16 GPT-3 1.3B logits, teacher-forced):
 # the two runs feed the same tokens and differ where their attention
 # rounds in bf16 (the prefill: flash kernel vs the chunked path's plain
@@ -344,9 +361,26 @@ def _ptxas_entries(log):
     return out
 
 
-# the bf16 flash kernels (template <D, block>) of the main paths, which
-# must not spill: D 64 and 128
-FLASH_NO_SPILL = re.compile(r"flash_(?:fwd|bwd_dkv|bwd_dq)_bf16ILi(?:64|128)E")
+# the kernels of the main paths, which must not spill: the bf16 flash
+# kernels (template <D, block>) at D 64 and 128, the split decode kernel
+# and the ragged kernel (template <T, KV, D>) at D 128 in every dtype
+NO_SPILL = re.compile(r"flash_(?:fwd|bwd_dkv|bwd_dq)_bf16ILi(?:64|128)E"
+                      r"|(?:decode_split_kernel|ragged_paged_attention_kernel)"
+                      r"I\w*?Li128EE")
+# the dtypes whose decode and ragged kernels phase 1 reports
+ATTN_DTYPES = ("float32", "bfloat16", "int8")
+
+
+def attention_kernel_info(port, dims=(128, 192)):
+    """The split decode and ragged kernels' shared memory per CTA,
+    registers, CTAs per SM, threads and keys per split, as the runtime
+    reports them, printed by (kernel, dtype, head_dim)."""
+    torch = port["torch"]
+    for name, mod in (("decode split", port["da"]), ("ragged", port["rpa"])):
+        for dt in ATTN_DTYPES:
+            for d in dims:
+                print(f"[build] {name} {dt} D {d}: "
+                      f"{mod.kernel_info(getattr(torch, dt), d)}")
 
 
 def phase_build(port):
@@ -360,7 +394,7 @@ def phase_build(port):
     for name, log in port["build"].build_logs().items():
         for entry, r in _ptxas_entries(log).items():
             print(f"[ptxas] {name}: {entry}: {r}")
-            if FLASH_NO_SPILL.search(entry) and (
+            if NO_SPILL.search(entry) and (
                     r.get("spill_stores", 1) or r.get("spill_loads", 1)):
                 spills.append(entry)
     print(f"[build] all kernels: {total:.2f} s")
@@ -369,8 +403,9 @@ def phase_build(port):
         for d in dims:
             print(f"[build] flash {which} bf16 D {d}: "
                   f"{fa.kernel_info(which, torch.bfloat16, d)}")
+    attention_kernel_info(port)
     if port["build"].build_logs():     # this process ran the builds
-        _check(not spills, f"bf16 flash kernels spill: {spills}")
+        _check(not spills, f"kernels of the main paths spill: {spills}")
     return total
 
 
@@ -418,6 +453,61 @@ def _case(port, runs, *, num_pages, heads, page_size, head_dim, t_max,
         stats=stats, plan_np=plan_np, dtype=dtype, runs=runs)
 
 
+def _unseen(torch, c):
+    """[P, page_size] bool on the card: the pool positions that no run of
+    case ``c`` may see -- pages no run owns, and positions past each run's
+    last one on the pages it does own."""
+    num_pages, page = c["k"].shape[1], c["k"].shape[3]
+    seen = np.zeros((num_pages, page), bool)
+    for base, count, tbl in c["runs"]:
+        pos = np.arange(base + count)
+        seen[np.asarray(tbl)[pos // page], pos % page] = True
+    return torch.from_numpy(~seen).to(DEVICE)
+
+
+def _ragged_reruns(port, name, c, got, kw=None):
+    """Two more launches on ``c``: the same inputs must give ``got`` bit
+    for bit; a pool holding stale values at every position no run may see
+    must give bit for bit what the same pool with zeros there gives (NaN
+    for a float pool; for an int8 pool, 127 there and NaN scales on the
+    pages no run owns, which must give ``got`` itself)."""
+    torch, rpa = port["torch"], port["rpa"]
+    kw = kw or {}
+    kp, vp = c["k"][0], c["v"][0]
+    args = (c["tables"], c["lengths"], c["plan"])
+    again = rpa.ragged_paged_attention(c["q"], kp, vp, *args, **kw)
+    unseen = _unseen(torch, c)
+    if c["dtype"] == "int8":
+        kf, vf = kp.clone(), vp.clone()
+        for t in (kf, vf):
+            t.masked_fill_(unseen[:, None, :, None], 127)
+        page_unseen = unseen.all(dim=1)
+        ks, vs = kw["k_scale"].clone(), kw["v_scale"].clone()
+        for t in (ks, vs):
+            t.masked_fill_(page_unseen[:, None], float("nan"))
+        stale = rpa.ragged_paged_attention(c["q"], kf, vf, *args,
+                                           k_scale=ks, v_scale=vs)
+        zero = got
+    else:
+        outs = []
+        for fill in (float("nan"), 0.0):
+            kf, vf = kp.clone(), vp.clone()
+            for t in (kf, vf):
+                t.masked_fill_(unseen[:, None, :, None], fill)
+            outs.append(rpa.ragged_paged_attention(c["q"], kf, vf, *args))
+        stale, zero = outs
+    torch.cuda.synchronize()
+    same = torch.equal(again, got)
+    clean = bool(torch.isfinite(stale).all()) and torch.equal(stale, zero)
+    print(f"[kernel] {name} {c['dtype']}: a second launch equal bit for bit: "
+          f"{same}; stale values at the {int(unseen.sum())} unseen pool "
+          f"positions give the clean pool's output bit for bit: {clean}")
+    _check(same, f"{name} {c['dtype']}: two launches on the same inputs "
+           "differ")
+    _check(clean, f"{name} {c['dtype']}: stale pool values reached the "
+           "output")
+
+
 def _compare(port, name, c):
     torch, rpa = port["torch"], port["rpa"]
     scale = 1.0 / c["q"].shape[-1] ** 0.5
@@ -438,6 +528,7 @@ def _compare(port, name, c):
           f"items={c['stats']['n_items']} padding_rows_zero={pad_zero}")
     _check(over <= 0, f"{name} {c['dtype']}: kernel vs plain off by {err}")
     _check(pad_zero and finite, f"{name}: padding rows not zero / non-finite")
+    _ragged_reruns(port, name, c, got)
     return err
 
 
@@ -500,29 +591,55 @@ def _time_ms(torch, fn, iters, hold=True):
     return start.elapsed_time(stop) / iters, 1e3 * host
 
 
-def phase_kernels(port):
-    torch, rpa = port["torch"], port["rpa"]
-    H, D, PS, MP = 16, 128, 128, 4
-    # the served engine's geometry: 8 slots + a 128-token prefill budget
-    T_MAX, NB_MAX = 8 + 128, 8 + 128 // rpa.TOKEN_BLOCK
-    WL_MAX, P = NB_MAX * MP, 8 * MP + 1
+# the served engine's geometry: 16 heads, head_dim 128, page 128, 4 pages
+# a slot, 8 slots + a 128-token prefill budget
+def served_geometry(rpa):
+    mp, nb_max = 4, 8 + 128 // rpa.TOKEN_BLOCK
+    return dict(num_pages=8 * mp + 1, heads=16, page_size=128, head_dim=128,
+                t_max=8 + 128, nb_max=nb_max, wl_max=nb_max * mp,
+                max_pages=mp)
+
+
+def mixed_runs(tb):
+    """The mixed served step."""
+    return [(0, 1, tb[0]),                  # decode at position 0
+            (400, 1, tb[1]),                # decode over 4 pages
+            (120, 40, tb[2]),               # prefill across a page edge
+            (0, 16, tb[3]),                 # prefill from position 0
+            (255, 1, tb[4]),                # decode at a page's end
+            (127, 2, tb[5])]                # 2-token run over the edge
+
+
+def decode_runs(tb):
+    """The decode-heavy served step: 8 decodes at positions 380..401."""
+    return [(380 + 3 * i, 1, tb[i]) for i in range(8)]
+
+
+def straddle_runs(tb):
+    """16-row prefill blocks that straddle the page edges at 128 and 256,
+    every row of a block on a different prefix, and a short prefill."""
+    return [(120, 16, tb[0]), (250, 16, tb[1]), (5, 3, tb[2])]
+
+
+def ragged_checks(port, dtypes=("bfloat16", "float32")):
+    """Phase 2's checks of the ragged kernel: the served cases and the
+    tiny one in each dtype, each against the plain version, rerun bit for
+    bit and with a stale pool.  Returns the largest error."""
+    rpa = port["rpa"]
+    served = served_geometry(rpa)
     rng = np.random.RandomState(0)
     errs = []
-    served = dict(num_pages=P, heads=H, page_size=PS, head_dim=D,
-                  t_max=T_MAX, nb_max=NB_MAX, wl_max=WL_MAX, max_pages=MP)
-    for dtype in ("bfloat16", "float32"):
-        tb = _served_runs(rng, P)
-        mixed = [(0, 1, tb[0]),                  # decode at position 0
-                 (400, 1, tb[1]),                # decode over 4 pages
-                 (120, 40, tb[2]),               # prefill across a page edge
-                 (0, 16, tb[3]),                 # prefill from position 0
-                 (255, 1, tb[4]),                # decode at a page's end
-                 (127, 2, tb[5])]                # 2-token run over the edge
-        decode = [(380 + 3 * i, 1, tb[i]) for i in range(8)]
-        for name, runs in (("mixed", mixed), ("decode_heavy", decode)):
-            c = _case(port, runs, dtype=dtype, seed=len(errs), **served)
-            _check(c["stats"]["n_blocks"] < NB_MAX
-                   and c["stats"]["n_items"] < WL_MAX,
+    for i, dtype in enumerate(dtypes):
+        tb = _served_runs(rng, served["num_pages"])
+        # seeds: 0, 1, 2 for the first dtype's mixed, decode-heavy and tiny
+        # cases, 3, 4, 5 for the second's; 50 + i for the straddling one
+        for name, runs, seed in (
+                ("mixed", mixed_runs(tb), 3 * i),
+                ("decode_heavy", decode_runs(tb), 3 * i + 1),
+                ("prefill_straddle", straddle_runs(tb), 50 + i)):
+            c = _case(port, runs, dtype=dtype, seed=seed, **served)
+            _check(c["stats"]["n_blocks"] < served["nb_max"]
+                   and c["stats"]["n_items"] < served["wl_max"],
                    "cases must leave padding blocks and a repeated tail")
             errs.append(_compare(port, name, c))
         tiny_tb = [np.array(t, np.int32) for t in
@@ -531,36 +648,79 @@ def phase_kernels(port):
                             (47, 1, tiny_tb[2])],
                      num_pages=10, heads=4, page_size=16, head_dim=16,
                      t_max=28, nb_max=6, wl_max=24, max_pages=4,
-                     dtype=dtype, seed=len(errs), qkv_view=False)
+                     dtype=dtype, seed=3 * i + 2, qkv_view=False)
         errs.append(_compare(port, "tiny", tiny))
+    return max(errs)
 
-    # timing at the decode-heavy served shape, bf16, one pool per layer
-    # (24 x 35 MiB) so each launch finds its pages cold in the 50 MB L2
-    tb = _served_runs(rng, P)
-    c = _case(port, [(380 + 3 * i, 1, tb[i]) for i in range(8)],
-              dtype="bfloat16", seed=99, layers=SERVE_LAYERS, **served)
+
+def time_ragged(port, runs, dtype="bfloat16", plain=True, seed=99,
+                launch=None):
+    """Device ms per launch of the ragged kernel at the served geometry
+    over ``runs``, one pool per layer (24 x 35 MiB) so each launch finds
+    its pages cold in the 50 MB L2: the kernel twice, its plain version,
+    and the launch's bound.  ``dtype`` "int8": int8 pools and scales.
+    ``launch`` (the wrapper's arguments) times another build of the
+    kernel in the wrapper's place."""
+    torch, rpa = port["torch"], port["rpa"]
+    launch = launch or rpa.ragged_paged_attention
+    served = served_geometry(rpa)
+    c = _case(port, runs, dtype=dtype, seed=seed, layers=SERVE_LAYERS,
+              **served)
     args = (c["tables"], c["lengths"])
+    L = SERVE_LAYERS
+
+    def scales(i):
+        if c["k_scale"] is None:
+            return {}
+        return dict(k_scale=c["k_scale"][i % L], v_scale=c["v_scale"][i % L])
 
     def kernel(i):
-        rpa.ragged_paged_attention(c["q"], c["k"][i % SERVE_LAYERS],
-                                   c["v"][i % SERVE_LAYERS], *args,
-                                   c["plan"])
+        launch(c["q"], c["k"][i % L], c["v"][i % L], *args, c["plan"],
+               **scales(i))
 
-    def plain(i):
-        rpa.ragged_paged_attention_plain(c["q"], c["k"][i % SERVE_LAYERS],
-                                         c["v"][i % SERVE_LAYERS], *args,
-                                         1.0 / D ** 0.5)
+    def plain_fn(i):
+        sc = scales(i)
+        rpa.ragged_paged_attention_plain(
+            c["q"], c["k"][i % L], c["v"][i % L], *args,
+            1.0 / served["head_dim"] ** 0.5, sc.get("k_scale"),
+            sc.get("v_scale"))
 
-    (ms, host), (plain_ms, _) = (_time_ms(torch, kernel, 240),
-                                 _time_ms(torch, plain, 24))
-    ms2, _ = _time_ms(torch, kernel, 240)
-    bound_ms, bound_by = _bound(c, H, D, 2)
-    print(f"[kernel] decode_heavy bf16 timing: kernel {ms!r} ms then "
-          f"{ms2!r} ms per launch on the device (wrapper host time "
-          f"{host!r} ms per call), plain {plain_ms!r} ms, bound "
-          f"{bound_ms!r} ms ({bound_by})")
-    return dict(max_abs_err=max(errs), ms=min(ms, ms2), plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    t = {}
+    t["ms"], t["host_ms"] = _time_ms(torch, kernel, 240)
+    if plain:
+        t["plain_ms"], _ = _time_ms(torch, plain_fn, 24)
+    t["ms_again"], _ = _time_ms(torch, kernel, 240)
+    t["bound"] = _bound(c, served["heads"], served["head_dim"],
+                        1 if dtype == "int8" else 2)
+    del c
+    torch.cuda.empty_cache()
+    return t
+
+
+def phase_kernels(port):
+    err = ragged_checks(port)
+    # timing in bf16 at the decode-heavy and the mixed served shapes, the
+    # pages drawn from the checks' stream after their two draws
+    rng = np.random.RandomState(0)
+    P = served_geometry(port["rpa"])["num_pages"]
+    for _ in range(2):
+        _served_runs(rng, P)
+    times = {}
+    for name, runs in (("decode_heavy", decode_runs(_served_runs(rng, P))),
+                       ("mixed", mixed_runs(_served_runs(rng, P)))):
+        t = times[name] = time_ragged(port, runs)
+        print(f"[kernel] {name} bf16 timing: kernel {t['ms']!r} ms then "
+              f"{t['ms_again']!r} ms per launch on the device (wrapper host "
+              f"time {t['host_ms']!r} ms per call), plain {t['plain_ms']!r} "
+              f"ms, bound {t['bound'][0]!r} ms ({t['bound'][1]}), share of "
+              f"the bound {t['bound'][0] / min(t['ms'], t['ms_again']):.3f}")
+    t, m = times["decode_heavy"], times["mixed"]
+    return dict(max_abs_err=err, ms=min(t["ms"], t["ms_again"]),
+                plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
+                bound_by=t["bound"][1],
+                mixed_ms=min(m["ms"], m["ms_again"]),
+                mixed_plain_ms=m["plain_ms"], mixed_bound_ms=m["bound"][0],
+                mixed_bound_by=m["bound"][1])
 
 
 # ---------------------------------------------------------------------------
@@ -1188,6 +1348,68 @@ def _decode_case(port, dtype, shape, lengths, seed):
     return err
 
 
+def decode_split_case(port, dtype, shape, seed):
+    """The split decode kernel around its split boundaries: lengths 0, 1,
+    one key either side of the first and second split boundary and
+    max_seq.  Each length against the plain version (length 0: zeros, the
+    Pallas kernel's l == 0 guard, where the plain version averages V), a
+    cache holding NaN past the length against the same cache with zeros
+    there, bit for bit, and a second launch bit for bit."""
+    torch, da = port["torch"], port["da"]
+    b, h, s, d = shape
+    keys = da.keys_per_split(d, getattr(torch, dtype))
+    lengths = sorted({0, 1, keys - 1, keys, keys + 1, 2 * keys - 1,
+                      2 * keys + 1, s})
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q = _randn(torch, (b, 3, h, d), dtype, gen)[:, 0]
+    k, v = (_randn(torch, shape, dtype, gen) for _ in range(2))
+    scale = 1.0 / d ** 0.5
+    err = 0.0
+    for n in lengths:
+        length = torch.tensor(n, device=DEVICE)
+        got = da.decode_attention(q, k, v, length)
+        again = da.decode_attention(q, k, v, length)
+        if n == 0:
+            torch.cuda.synchronize()
+            _check(not bool(got.float().any()),
+                   f"decode {dtype} {shape}: length 0 must give zeros")
+        else:
+            want = da.decode_attention_plain(q, k, v, n, scale)
+            p = _masked_probs(torch, q.reshape(b * h, d),
+                              k.reshape(b * h, s, d),
+                              torch.full((b * h,), n, device=DEVICE), scale)
+            m = torch.einsum("rk,rkd->rd", p,
+                             v.reshape(b * h, s, d).float().abs())
+            err = max(err, _hold(torch, f"decode {shape} length {n} ({keys} "
+                                 "keys a split)", dtype, got, want,
+                                 m.reshape(b, h, d)))
+        stale = []
+        for fill in (float("nan"), 0.0):
+            kf, vf = k.clone(), v.clone()
+            kf[:, :, n:] = fill
+            vf[:, :, n:] = fill
+            stale.append(da.decode_attention(q, kf, vf, length))
+        torch.cuda.synchronize()
+        _check(torch.equal(again, got), f"decode {dtype} {shape} length {n}: "
+               "two launches on the same inputs differ")
+        _check(bool(torch.isfinite(stale[0].float()).all())
+               and torch.equal(stale[0], stale[1]),
+               f"decode {dtype} {shape} length {n}: NaN past the length "
+               "reached the output")
+    print(f"[decode_kernels] decode {dtype} {shape}, {keys} keys a split: "
+          f"lengths {lengths} each rerun bit for bit, and NaN past the "
+          "length gives bit for bit what zeros there give")
+    return err
+
+
+# the split decode kernel's boundary cases (dtype, shape): the generated
+# shape and head_dim 192
+DECODE_SPLIT_CASES = (("bfloat16", (GEN_BATCH, 16, GEN_MAX_SEQ, 128)),
+                      ("float32", (GEN_BATCH, 16, GEN_MAX_SEQ, 128)),
+                      ("bfloat16", (4, 8, 520, 192)),
+                      ("float32", (4, 8, 520, 192)))
+
+
 def _paged_tables(rng, slots, max_pages, num_pages):
     perm = rng.permutation(np.arange(1, num_pages)).astype(np.int32)
     return perm[:slots * max_pages].reshape(slots, max_pages)
@@ -1356,6 +1578,9 @@ def phase_decode_kernels(port):
             ("float32", (2, 4, 64, 16), (1, 17, 64)))):
         errs["decode"] = max(errs["decode"],
                              _decode_case(port, dtype, shape, lengths, 40 + i))
+    for i, (dtype, shape) in enumerate(DECODE_SPLIT_CASES):
+        errs["decode"] = max(errs["decode"],
+                             decode_split_case(port, dtype, shape, 45 + i))
     for i, (dtype, slots, heads, page, d, lengths) in enumerate((
             ("bfloat16", 8, 16, 128, 128, (0, 1, 128, 129, 512, 264, 300, 64)),
             ("float32", 8, 16, 128, 128, (0, 1, 128, 129, 512, 264, 300, 64)),
@@ -1646,6 +1871,8 @@ def _ragged_int8_compare(port, name, c):
                 "float32", got[:real], want[:real], m, tag="int8_kernels")
     _check(bool((got[real:] == 0).all()), f"ragged int8 {name}: padding "
            "rows not zero")
+    _ragged_reruns(port, f"ragged int8 {name}", c, got,
+                   dict(k_scale=ks, v_scale=vs))
     return err
 
 
@@ -1828,62 +2055,28 @@ def _time_ragged_int8(port):
     """Device ms per launch at phase 2's decode-heavy served shape, one
     pool per layer: the int8 kernel, its plain version and the bf16
     kernel; and the int8 launch's bound."""
-    torch, rpa = port["torch"], port["rpa"]
-    H, D, PS, MP = 16, 128, 128, 4
-    P = 8 * MP + 1
-    served = dict(num_pages=P, heads=H, page_size=PS, head_dim=D,
-                  t_max=8 + 128, nb_max=8 + 128 // rpa.TOKEN_BLOCK,
-                  wl_max=(8 + 128 // rpa.TOKEN_BLOCK) * MP, max_pages=MP)
-    tb = _served_runs(np.random.RandomState(7), P)
-    runs = [(380 + 3 * i, 1, tb[i]) for i in range(8)]
-    t = {}
-    c = _case(port, runs, dtype="int8", seed=98, layers=SERVE_LAYERS,
-              **served)
-    args = (c["tables"], c["lengths"])
-    t["ms"], _ = _time_ms(torch, lambda i: rpa.ragged_paged_attention(
-        c["q"], c["k"][i % SERVE_LAYERS], c["v"][i % SERVE_LAYERS], *args,
-        c["plan"], k_scale=c["k_scale"][i % SERVE_LAYERS],
-        v_scale=c["v_scale"][i % SERVE_LAYERS]), 240)
-    t["plain_ms"], _ = _time_ms(
-        torch, lambda i: rpa.ragged_paged_attention_plain(
-            c["q"], c["k"][i % SERVE_LAYERS], c["v"][i % SERVE_LAYERS],
-            *args, 1.0 / D ** 0.5, c["k_scale"][i % SERVE_LAYERS],
-            c["v_scale"][i % SERVE_LAYERS]), 24)
-    t["bound"] = _bound(c, H, D, 1)
-    del c
-    c = _case(port, runs, dtype="bfloat16", seed=98, layers=SERVE_LAYERS,
-              **served)
-    t["bf16_ms"], _ = _time_ms(torch, lambda i: rpa.ragged_paged_attention(
-        c["q"], c["k"][i % SERVE_LAYERS], c["v"][i % SERVE_LAYERS], *args,
-        c["plan"]), 240)
-    del c
-    torch.cuda.empty_cache()
-    return t
+    P = served_geometry(port["rpa"])["num_pages"]
+    runs = decode_runs(_served_runs(np.random.RandomState(7), P))
+    t = time_ragged(port, runs, "int8", seed=98)
+    b = time_ragged(port, runs, "bfloat16", plain=False, seed=98)
+    return {"ms": min(t["ms"], t["ms_again"]), "plain_ms": t["plain_ms"],
+            "bound": t["bound"], "bf16_ms": min(b["ms"], b["ms_again"])}
 
 
-def phase_int8_kernels(port):
-    torch, rpa = port["torch"], port["rpa"]
-    rules = _int_mm_rules(torch)
-    for case, why in rules.items():
-        print(f"[int8_kernels] torch._int_mm {case}: "
-              f"{'taken' if why is None else 'refused: ' + why}")
-
+def int8_attention_checks(port):
+    """Phase 12's checks of the int8 ragged, paged and decode kernels
+    against their plain versions; returns the largest error of each and
+    the decode kernel's launches ("decode_launches")."""
+    rpa = port["rpa"]
     errs = {"ragged": 0.0, "paged": 0.0, "decode": 0.0}
-    H, D, PS, MP = 16, 128, 128, 4
-    T_MAX, NB_MAX = 8 + 128, 8 + 128 // rpa.TOKEN_BLOCK
-    WL_MAX, P = NB_MAX * MP, 8 * MP + 1
-    served = dict(num_pages=P, heads=H, page_size=PS, head_dim=D,
-                  t_max=T_MAX, nb_max=NB_MAX, wl_max=WL_MAX, max_pages=MP)
-    rng = np.random.RandomState(12)
-    tb = _served_runs(rng, P)
-    mixed = [(0, 1, tb[0]), (400, 1, tb[1]), (120, 40, tb[2]),
-             (0, 16, tb[3]), (255, 1, tb[4]), (127, 2, tb[5])]
-    decode = [(380 + 3 * i, 1, tb[i]) for i in range(8)]
-    for i, (name, runs) in enumerate((("mixed", mixed),
-                                      ("decode_heavy", decode))):
-        c = _case(port, runs, dtype="int8", seed=80 + i, **served)
-        _check(c["stats"]["n_blocks"] < NB_MAX
-               and c["stats"]["n_items"] < WL_MAX,
+    served = served_geometry(rpa)
+    tb = _served_runs(np.random.RandomState(12), served["num_pages"])
+    for name, runs, seed in (("mixed", mixed_runs(tb), 80),
+                             ("decode_heavy", decode_runs(tb), 81),
+                             ("prefill_straddle", straddle_runs(tb), 88)):
+        c = _case(port, runs, dtype="int8", seed=seed, **served)
+        _check(c["stats"]["n_blocks"] < served["nb_max"]
+               and c["stats"]["n_items"] < served["wl_max"],
                "cases must leave padding blocks and a repeated tail")
         errs["ragged"] = max(errs["ragged"], _ragged_int8_compare(port, name,
                                                                   c))
@@ -1907,7 +2100,19 @@ def phase_int8_kernels(port):
             ((2, 4, 64, 16), (1, 17, 64)))):
         errs["decode"] = max(errs["decode"], _decode_int8_case(
             port, shape, lengths, 86 + i))
-    decode_launches = port["da"].decode_attention.launches - decode0
+    errs["decode_launches"] = port["da"].decode_attention.launches - decode0
+    return errs
+
+
+def phase_int8_kernels(port):
+    torch = port["torch"]
+    rules = _int_mm_rules(torch)
+    for case, why in rules.items():
+        print(f"[int8_kernels] torch._int_mm {case}: "
+              f"{'taken' if why is None else 'refused: ' + why}")
+
+    errs = int8_attention_checks(port)
+    decode_launches = errs.pop("decode_launches")
     torch.cuda.empty_cache()
 
     r = _time_ragged_int8(port)
@@ -2754,7 +2959,11 @@ def main() -> int:
         "replaces": pallas + "ragged_paged_attention.py:237",
         "launches": launches, "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]
+        "bound_by": k["bound_by"], "library_ms": None,
+        # the same kernel at the mixed served shape
+        "mixed_ms": k["mixed_ms"], "mixed_plain_ms": k["mixed_plain_ms"],
+        "mixed_bound_ms": k["mixed_bound_ms"],
+        "mixed_bound_by": k["mixed_bound_by"]}]
     for key, name, source, replaces in (
             ("fwd", "flash_attention_fwd", "flash_attention.cu",
              "flash_attention.py:97"),

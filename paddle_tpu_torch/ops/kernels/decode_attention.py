@@ -10,7 +10,14 @@ Port of ``paddle_tpu/ops/pallas_kernels/decode_attention.py``.  Two parts:
 - the Hopper kernel (``csrc/decode_attention.cu``) behind the public
   wrapper ``decode_attention``, which keeps the JAX signature.  The kernel
   reads only the first ``length`` positions, and reads ``length`` itself
-  from device memory, so a decode step needs no host sync.
+  from device memory, so a decode step needs no host sync.  It splits each
+  (batch, head) row's keys over CTAs of ``keys_per_split`` keys each
+  (flash-decoding); each CTA writes a partial (m, l, acc) to a workspace
+  and the last one of a row merges them in split order;
+- ``split_merge_plain``, the same split-and-merge arithmetic in plain
+  PyTorch (partials over key ranges, merged in order), used only by the
+  tests and ``chip_smoke.py`` to hold the kernel's design against the
+  reference on the CPU.
 
 An int8 cache comes with ``k_scale``/``v_scale``, one fp32 scale per
 (batch, head): q joins the fp32 dequantization, the kernel dequantizes
@@ -28,7 +35,7 @@ differentiates through the cache.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -37,13 +44,21 @@ from . import _build
 __all__ = [
     "decode_attention",
     "decode_attention_plain",
+    "split_merge_plain",
+    "merge_partials",
     "kernel_unsupported_reason",
+    "kernel_info",
+    "keys_per_split",
+    "num_splits",
+    "workspace_shapes",
     "check_scales",
     "NEG_INF",
 ]
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+# the bytes of K and V that one CTA of the split kernel stages at most
+SPLIT_KV_BYTES = 32768
 # the cache dtype's code in the C interface: q and the output share a
 # float cache's dtype; an int8 cache takes fp32 q and gives fp32
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -69,6 +84,56 @@ def decode_attention_plain(q, k_cache, v_cache, length, scale: float,
                         v_cache.float()).to(q.dtype)
 
 
+def split_merge_plain(q, k_cache, v_cache, length: int, scale: float,
+                      keys: int, k_scale=None, v_scale=None) -> torch.Tensor:
+    """The split kernel's arithmetic in plain PyTorch: the first ``length``
+    positions cut into ranges of ``keys``; each range's partial (m, l,
+    acc) -- fp32 scores, ``p = exp(s - m)`` against the range's own max,
+    ``l`` the sum of the unrounded p, ``acc`` the sum of p rounded to the
+    q dtype times V -- then the ranges merged in order, ``O = sum_s
+    e^(m_s - m) acc_s / sum_s e^(m_s - m) l_s`` with the ``l == 0``
+    guard.  Positions at or past ``length`` are never read, so a
+    non-finite value there does not reach the output; ``length`` 0 gives
+    zeros.  ``length`` is an int here (the kernel reads it on the device).
+    q ``[B, H, D]``, caches ``[B, H, max_seq, D]`` -> ``[B, H, D]`` in the
+    q dtype; an int8 cache with its ``[B, H]`` scales, dequantized as it
+    is read (q fp32, P unrounded)."""
+    b, h, _, d = k_cache.shape
+    n = max(0, min(int(length), k_cache.shape[2]))
+    parts = []
+    for c0 in range(0, n, keys):
+        k = k_cache[:, :, c0:min(c0 + keys, n)].float()
+        v = v_cache[:, :, c0:min(c0 + keys, n)].float()
+        if k_scale is not None:
+            k = k * k_scale[:, :, None, None]
+            v = v * v_scale[:, :, None, None]
+        s = torch.einsum("bhd,bhkd->bhk", q.float(), k) * scale
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        acc = torch.einsum("bhk,bhkd->bhd", p.to(q.dtype).float(), v)
+        parts.append((m, p.sum(dim=-1), acc))
+    if not parts:
+        return torch.zeros((b, h, d), dtype=q.dtype, device=q.device)
+    return merge_partials(parts).to(q.dtype)
+
+
+def merge_partials(parts):
+    """``[(m, l, acc), ...]`` partials of key ranges, in range order ->
+    ``sum e^(m_s - m) acc_s / sum e^(m_s - m) l_s`` (fp32, the ``l == 0``
+    guard), summed in that order.  ``m`` and ``l`` are ``[...]``, ``acc``
+    ``[..., D]``."""
+    m = parts[0][0]
+    for mi, _, _ in parts[1:]:
+        m = torch.maximum(m, mi)
+    o = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for mi, li, ai in parts:
+        w = torch.exp(mi - m)
+        den = den + w * li
+        o = o + w[..., None] * ai
+    return o / torch.where(den == 0, torch.ones_like(den), den)[..., None]
+
+
 def kernel_unsupported_reason(head_dim: int, dtype: torch.dtype
                               ) -> Optional[str]:
     """``None`` when the kernel takes caches of this head_dim and dtype,
@@ -79,6 +144,70 @@ def kernel_unsupported_reason(head_dim: int, dtype: torch.dtype
     if head_dim not in KERNEL_HEAD_DIMS:
         return f"head_dim={head_dim} (the kernel takes {KERNEL_HEAD_DIMS})"
     return None
+
+
+def keys_per_split(head_dim: int, dtype: torch.dtype) -> int:
+    """Keys one CTA of the split kernel takes (the kernel's ``Split::KS``):
+    the largest of 128, 64, 32 whose K and V fit ``SPLIT_KV_BYTES``, else
+    16.  Raises ``ValueError`` for what the kernel does not take."""
+    reason = kernel_unsupported_reason(head_dim, dtype)
+    if reason is not None:
+        raise ValueError(f"decode_attention kernel: {reason}")
+    raw = SPLIT_KV_BYTES // (2 * head_dim * torch.empty(
+        (), dtype=dtype).element_size())
+    return next((k for k in (128, 64, 32) if raw >= k), 16)
+
+
+def num_splits(max_seq: int, head_dim: int, dtype: torch.dtype) -> int:
+    """CTAs per row of the launch: ``ceil(max_seq / keys_per_split)``,
+    sized from the cache on the host (the length stays on the device).
+    Raises ``ValueError`` for an empty cache or more splits than a grid
+    dimension holds (65535)."""
+    keys = keys_per_split(head_dim, dtype)
+    if max_seq < 1:
+        raise ValueError(f"decode_attention kernel: max_seq={max_seq}")
+    n = -(-max_seq // keys)
+    if n > 65535:
+        raise ValueError(f"decode_attention kernel: max_seq={max_seq} needs "
+                         f"{n} splits of {keys} keys (at most 65535)")
+    return n
+
+
+def workspace_shapes(rows: int, splits: int, head_dim: int
+                     ) -> Dict[str, tuple]:
+    """The split kernel's workspace for ``rows`` = batch x heads rows:
+    fp32 partials, ``acc`` [rows, splits, head_dim] then ``(m, l)``
+    [rows, splits, 2], as one flat buffer, and one int32 ticket a row.
+    Raises ``ValueError`` for no rows or more than a grid dimension
+    holds."""
+    if rows < 1 or rows > 0x7fffffff or splits < 1:
+        raise ValueError(f"decode_attention kernel: {rows} rows x {splits} "
+                         "splits (the grid takes 1 to 2**31 - 1 rows)")
+    return {"partials": (rows * splits * (head_dim + 2),),
+            "tickets": (rows,)}
+
+
+# workspaces of the split kernels, by (device index, stream): fp32
+# partials grown as needed, int32 tickets zeroed when made (the kernels
+# leave them 0); launches on one stream run in order, so they share one
+_workspaces: Dict[tuple, Dict[str, torch.Tensor]] = {}
+
+
+def workspace(dev: torch.device, stream: int, shapes: Dict[str, tuple]
+              ) -> Dict[str, torch.Tensor]:
+    """Cached buffers of at least ``shapes`` (fp32 ``partials``, zeroed
+    int32 ``tickets``) on ``dev`` for launches on ``stream``; made with
+    ``torch.empty``/``torch.zeros``, with no host sync."""
+    key = (dev.index, stream)
+    ws = _workspaces.get(key, {})
+    for name, shape in shapes.items():
+        t = ws.get(name)
+        if t is None or t.numel() < shape[0]:
+            ws[name] = (torch.zeros(shape, dtype=torch.int32, device=dev)
+                        if name == "tickets" else
+                        torch.empty(shape, dtype=torch.float32, device=dev))
+    _workspaces[key] = ws
+    return ws
 
 
 def q_dtype(cache_dtype: torch.dtype) -> torch.dtype:
@@ -96,6 +225,37 @@ def scale_pointers(k_scale, v_scale):
     return k_scale.data_ptr(), v_scale.data_ptr()
 
 
+def kernel_info(dtype: torch.dtype, head_dim: int, device: int = 0) -> dict:
+    """What a launch of the split kernel at this cache dtype and head_dim
+    runs on CUDA device ``device``: its shared memory per CTA (bytes),
+    registers per thread, CTAs resident per SM, threads per CTA, local
+    memory per thread (bytes) and keys per split."""
+    return query_kernel_info("decode_attention",
+                             "decode_attention_kernel_info",
+                             "decode_attention_error_string",
+                             KERNEL_DTYPES[dtype], head_dim, device)
+
+
+def query_kernel_info(lib_name: str, entry: str, error_entry: str,
+                      dtype_code: int, head_dim: int, device: int) -> dict:
+    """Call a library's ``<entry>(device, dtype, head_dim, int info[6])``
+    and name its six numbers; raise with the library's error string."""
+    lib = _build.library(lib_name)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * 6)()
+    err = fn(device, dtype_code, head_dim, info)
+    if err != 0:
+        err_fn = getattr(lib, error_entry)
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{lib_name} kernel_info: "
+                           f"{err_fn(err).decode()} (cudaError {err})")
+    return dict(zip(("smem", "registers", "ctas_per_sm", "threads",
+                     "local_bytes", "keys_per_split"), info))
+
+
 _fn = None
 
 
@@ -106,7 +266,8 @@ def _kernel_fn():
         fn = lib.decode_attention_forward
         i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
         fn.argtypes = [i32, i32, i32, ptr, i64, i64, ptr, ptr, ptr, ptr, i64,
-                       i64, i64, ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
+                       i64, i64, ptr, ptr, i32, i32, i32, ctypes.c_float,
+                       i32, i32, ptr, ptr, ptr]
         fn.restype = i32
         lib.decode_attention_error_string.argtypes = [i32]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -185,14 +346,19 @@ def _launch(q, k_cache, v_cache, length, scale: float, k_scale=None,
                          f"{q.device}; expected {qd} ({b}, {h}, "
                          f"{d}) with contiguous rows on {dev}")
     ks, vs = scale_pointers(k_scale, v_scale)
+    keys = keys_per_split(d, k_cache.dtype)
+    splits = num_splits(s, d, k_cache.dtype)
+    shapes = workspace_shapes(b * h, splits, d)
     lengths = device_lengths(length, 1, dev)
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     fn, err_str = _kernel_fn()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = workspace(dev, stream, shapes)
     err = fn(dev.index, KERNEL_DTYPES[k_cache.dtype], d, q.data_ptr(),
              q.stride(0), q.stride(1), k_cache.data_ptr(), v_cache.data_ptr(),
              ks, vs, *k_cache.stride()[:3], out.data_ptr(),
-             lengths.data_ptr(), b, h, s, float(scale), stream)
+             lengths.data_ptr(), b, h, s, float(scale), keys, splits,
+             ws["partials"].data_ptr(), ws["tickets"].data_ptr(), stream)
     if err != 0:
         raise RuntimeError("decode_attention kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")

@@ -32,9 +32,10 @@ from typing import Optional
 import torch
 
 from . import _build
+from . import decode_attention as _decode
 from .decode_attention import (
     KERNEL_DTYPES, NEG_INF, scale_pointers, check_rows, check_scales,
-    device_lengths, kernel_unsupported_reason, q_dtype,
+    device_lengths, q_dtype,
 )
 
 __all__ = [
@@ -80,6 +81,24 @@ def paged_attention_plain(q, k_pool, v_pool, page_tables, lengths,
     p = torch.where(lengths[:, None, None] > 0, p, torch.zeros_like(p))
     p = p.to(q.dtype).float()
     return torch.einsum("shk,shkd->shd", p, v.float()).to(q.dtype)
+
+
+# the paged kernel's head dims: the decode kernel's less 192, which its
+# one-CTA-per-row template does not tile (ROADMAP.md queue 2)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def kernel_unsupported_reason(head_dim: int, dtype: torch.dtype
+                              ) -> Optional[str]:
+    """``None`` when the paged kernel takes pools of this head_dim and
+    dtype, else why not."""
+    if dtype not in KERNEL_DTYPES:
+        return _decode.kernel_unsupported_reason(head_dim, dtype)
+    if head_dim not in KERNEL_HEAD_DIMS:
+        return (f"head_dim={head_dim} (the paged kernel takes "
+                f"{KERNEL_HEAD_DIMS}; other head dims are ROADMAP.md "
+                "queue 2)")
+    return None
 
 
 _fn = None

@@ -14,7 +14,15 @@ work list of (token block, pool page, page slot) items.  Three parts:
   masked single-query attention with an fp32 softmax, as
   ``paged_attention._xla_paged_reference`` does;
 - the Hopper kernel (``csrc/ragged_paged_attention.cu``) behind the public
-  wrapper ``ragged_paged_attention``, which keeps the JAX signature.
+  wrapper ``ragged_paged_attention``, which keeps the JAX signature.  It
+  runs one CTA per (split, head), a split being ``keys_per_split`` keys of
+  one work item's page (bf16 on the tensor cores); each CTA writes a
+  partial (m, l, O) to a workspace and the last one of a (block, head)
+  merges the block's splits in work-list order;
+- ``split_merge_plain``, the same split-and-merge arithmetic in plain
+  PyTorch (partials over each block's page splits, merged in order), used
+  only by the tests and ``chip_smoke.py`` to hold the kernel's design
+  against the reference on the CPU.
 
 An int8 pool comes with ``k_scale``/``v_scale``, one fp32 scale per
 (page, head): q joins the fp32 dequantization, the kernel dequantizes each
@@ -33,14 +41,22 @@ import numpy as np
 import torch
 
 from . import _build
-from .decode_attention import check_scales, q_dtype, scale_pointers
+from .decode_attention import (
+    SPLIT_KV_BYTES, check_scales, merge_partials, q_dtype, query_kernel_info,
+    scale_pointers, workspace,
+)
 from .paged_attention import gather_pages
 
 __all__ = [
     "ragged_paged_attention",
     "ragged_paged_attention_plain",
+    "split_merge_plain",
     "build_ragged_plan",
     "kernel_unsupported_reason",
+    "kernel_info",
+    "keys_per_split",
+    "splits_per_page",
+    "workspace_shapes",
     "RAGGED_PLAN_FIELDS",
     "TOKEN_BLOCK",
     "NEG_INF",
@@ -50,7 +66,7 @@ NEG_INF = -1e30
 # the port's token block: rows per block of the plan, and the kernel's
 # compile-time row count
 TOKEN_BLOCK = 16
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 # the pool dtype's code in the C interface: q and the output share a
 # float pool's dtype; an int8 pool takes fp32 q and gives fp32
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -194,6 +210,63 @@ def ragged_paged_attention_plain(q, k_pool, v_pool, token_tables, lengths,
     return torch.einsum("shk,shkd->shd", p, v.float()).to(q.dtype)
 
 
+def split_merge_plain(q, k_pool, v_pool, plan, scale: float, keys: int,
+                      k_scale=None, v_scale=None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, from the plan alone: for
+    each block and each of its items (in work-list order, the first
+    ``n_items``), the page cut into splits of ``keys`` keys, only those up
+    to the block's last position ``max_pos`` read; each split's partial
+    (m, l, O) over its visible keys -- fp32 scores, the causal mask before
+    the max, ``p = exp(s - m)`` against the split's own max (0 where
+    masked), ``l`` the sum of the unrounded p, O the sum of p rounded to
+    the q dtype times V -- then the block's splits merged in order,
+    ``O = sum_s e^(m_s - m) O_s / sum_s e^(m_s - m) l_s``, and each valid
+    row written to its flat token; padding tokens are zeros.  ``plan`` as
+    the kernel takes it (int32 tensors of ``RAGGED_PLAN_FIELDS``); an int8
+    pool with its ``[P, H]`` scales is dequantized as it is read (q fp32,
+    P unrounded).  Returns ``[T, H, D]`` in the q dtype."""
+    p = dict(zip(RAGGED_PLAN_FIELDS, (a.tolist() for a in plan)))
+    t, h, d = q.shape
+    page_size = k_pool.shape[2]
+    out = torch.zeros((t, h, d), dtype=torch.float32, device=q.device)
+    n = min(p["n_items"][0], len(p["wl_blk"]))
+    items: Dict[int, list] = {}
+    for w in range(n):
+        items.setdefault(p["wl_blk"][w], []).append(w)
+    for blk, ws in items.items():
+        rows, base = p["blk_rows"][blk], p["blk_base"][blk]
+        if rows <= 0:
+            continue
+        max_pos = base + rows - 1
+        toks = p["blk_tok"][blk][:rows]
+        qb = q[toks].float()                                # [rows, H, D]
+        row_pos = torch.arange(base, base + rows, device=q.device)
+        parts = []
+        for w in ws:
+            page, ps = p["wl_page"][w], p["wl_pageslot"][w]
+            for k0 in range(0, page_size, keys):
+                pos0 = ps * page_size + k0
+                if pos0 > max_pos:
+                    break
+                nk = min(keys, page_size - k0, max_pos - pos0 + 1)
+                k = k_pool[page, :, k0:k0 + nk].float()     # [H, nk, D]
+                v = v_pool[page, :, k0:k0 + nk].float()
+                if k_scale is not None:
+                    k = k * k_scale[page][:, None, None]
+                    v = v * v_scale[page][:, None, None]
+                s = torch.einsum("rhd,hkd->hrk", qb, k) * scale
+                vis = (pos0 + torch.arange(nk, device=q.device))[None, :] \
+                    <= row_pos[:, None]                     # [rows, nk]
+                s = torch.where(vis[None], s, torch.full_like(s, NEG_INF))
+                m = s.amax(dim=-1)                          # [H, rows]
+                pr = torch.where(vis[None], torch.exp(s - m[..., None]),
+                                 torch.zeros_like(s))
+                o = torch.einsum("hrk,hkd->hrd", pr.to(q.dtype).float(), v)
+                parts.append((m, pr.sum(dim=-1), o))
+        out[toks] = merge_partials(parts).transpose(0, 1)
+    return out.to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the Hopper kernel
 # ---------------------------------------------------------------------------
@@ -216,6 +289,61 @@ def kernel_unsupported_reason(page_size: int, head_dim: int,
     return None
 
 
+def keys_per_split(head_dim: int, dtype: torch.dtype) -> int:
+    """Keys one CTA takes (the kernel's ``Geometry::KS``): the largest of
+    128 (bf16 only: the FMA path's 16-row blocks are bound by
+    instructions), 64 and 32 whose K and V fit ``SPLIT_KV_BYTES``, else 16.
+    Raises ``ValueError`` for a head_dim or dtype the kernel does not
+    take."""
+    reason = kernel_unsupported_reason(16, head_dim, TOKEN_BLOCK, dtype)
+    if reason is not None:
+        raise ValueError(f"ragged_paged_attention kernel: {reason}")
+    raw = SPLIT_KV_BYTES // (2 * head_dim * torch.empty(
+        (), dtype=dtype).element_size())
+    sizes = (128, 64, 32) if dtype == torch.bfloat16 else (64, 32)
+    return next((k for k in sizes if raw >= k), 16)
+
+
+def splits_per_page(page_size: int, head_dim: int, dtype: torch.dtype
+                    ) -> int:
+    """CTAs per work item and head: ``ceil(page_size / keys_per_split)``.
+    Raises ``ValueError`` for a layout the kernel does not take."""
+    reason = kernel_unsupported_reason(page_size, head_dim, TOKEN_BLOCK,
+                                       dtype)
+    if reason is not None:
+        raise ValueError(f"ragged_paged_attention kernel: {reason}")
+    return -(-page_size // keys_per_split(head_dim, dtype))
+
+
+def workspace_shapes(wl_max: int, nb_max: int, heads: int, page_size: int,
+                     head_dim: int, dtype: torch.dtype) -> Dict[str, tuple]:
+    """The kernel's workspace for a plan of ``wl_max`` items and
+    ``nb_max`` blocks: fp32 partials, ``O`` [wl_max * splits_per_page,
+    heads, 16, head_dim] then ``(m, l)`` [..., 16, 2], as one flat buffer,
+    and one int32 ticket per (block, head).  Raises ``ValueError`` for
+    what the kernel does not take."""
+    spp = splits_per_page(page_size, head_dim, dtype)
+    if wl_max < 1 or nb_max < 1 or not 1 <= heads <= 65535 \
+            or wl_max * spp + 1 > 65535:
+        raise ValueError(f"ragged_paged_attention kernel: wl_max={wl_max}, "
+                         f"nb_max={nb_max}, heads={heads} (the grid takes "
+                         "nb_max >= 1, 1 to 65535 heads, and 1 to 65534 "
+                         f"splits: wl_max x {spp} splits a page)")
+    return {"partials": (wl_max * spp * heads * TOKEN_BLOCK
+                         * (head_dim + 2),),
+            "tickets": (nb_max * heads,)}
+
+
+def kernel_info(dtype: torch.dtype, head_dim: int, device: int = 0) -> dict:
+    """What a launch of the kernel at this pool dtype and head_dim runs on
+    CUDA device ``device``: its shared memory per CTA (bytes), registers
+    per thread, CTAs resident per SM, threads per CTA, local memory per
+    thread (bytes) and keys per split."""
+    return query_kernel_info("ragged_paged_attention", "rpa_kernel_info",
+                             "rpa_error_string", KERNEL_DTYPES[dtype],
+                             head_dim, device)
+
+
 _fn = None
 
 
@@ -226,7 +354,7 @@ def _kernel_fn():
         fn = lib.rpa_forward
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i32, i32] + [ptr] * 15 + [ctypes.c_longlong] + [
-            i32] * 7 + [ctypes.c_float, ptr]
+            i32] * 7 + [ctypes.c_float, i32, i32, ptr, ptr, ptr]
         fn.restype = i32
         lib.rpa_error_string.argtypes = [i32]
         lib.rpa_error_string.restype = ctypes.c_char_p
@@ -289,13 +417,18 @@ def _launch(q, k_pool, v_pool, plan, scale: float, k_scale=None,
         raise ValueError(f"the plan is for {plan[1].shape[0]} tokens; q "
                          f"has {t}")
     ks, vs = scale_pointers(k_scale, v_scale)
+    keys = keys_per_split(d, k_pool.dtype)
+    spp = splits_per_page(page_size, d, k_pool.dtype)
+    shapes = workspace_shapes(wl, nb, h, page_size, d, k_pool.dtype)
     out = torch.empty((t, h, d), dtype=q.dtype, device=dev)
     fn, err_str = _kernel_fn()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = workspace(dev, stream, shapes)
     err = fn(dev.index, KERNEL_DTYPES[k_pool.dtype], q.data_ptr(),
              k_pool.data_ptr(), v_pool.data_ptr(), ks, vs, out.data_ptr(),
              *(a.data_ptr() for a in plan), q.stride(0), t, h, d, page_size,
-             qb, nb, wl, float(scale), stream)
+             qb, nb, wl, float(scale), keys, spp, ws["partials"].data_ptr(),
+             ws["tickets"].data_ptr(), stream)
     if err != 0:
         raise RuntimeError("ragged_paged_attention kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")

@@ -239,7 +239,7 @@ def test_flash_gates_forward_any_length_backward_128_multiples():
 # what the kernels take, and refusals off the CPU
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 192, 256])
 def test_kernels_take_the_ragged_kernels_head_dims(head_dim):
     for dtype in (torch.float32, torch.bfloat16):
         assert tda.kernel_unsupported_reason(head_dim, dtype) is None
@@ -270,4 +270,133 @@ def test_a_device_tensor_the_kernels_refuse_raises(head_dim, dtype, reason):
     with pytest.raises(ValueError, match=reason):
         tfa.flash_attention_fwd(*(meta(1, 2, 77, head_dim)
                                   for _ in range(3)), True, 0.1)
+    assert _launches() == before
+
+
+# ---------------------------------------------------------------------------
+# the split kernel: its arithmetic in plain PyTorch, and its host pieces
+# ---------------------------------------------------------------------------
+
+def _around_splits(keys, n_max):
+    """Lengths 0 and 1, a key either side of the first two split
+    boundaries, and the whole cache."""
+    return sorted(n for n in {0, 1, keys - 1, keys, keys + 1, 2 * keys - 1,
+                              2 * keys + 1, n_max} if 0 <= n <= n_max)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_merge_plain_matches_jax_pallas_kernel_and_reference(dtype):
+    """The split kernel's arithmetic (``split_merge_plain``: partials over
+    ranges of keys, merged in order), with the kernel's own keys per split
+    and with 16 (many splits), against the Pallas kernel in interpret mode
+    at lengths around the split boundaries, and against the XLA reference
+    at every length but 0: there the Pallas kernel's l == 0 guard gives
+    zeros, as the kernel does, where the reference averages V.  Tolerance
+    ``TOL[dtype]``: fp32, the same arithmetic in another order over at
+    most 256 keys; bf16, both round P once (against a split's or a
+    block's max) and the output once."""
+    q, k, v = _decode_inputs(seed=11)
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    q8 = jnp.broadcast_to(jq.reshape(B * H, 1, D), (B * H, 8, D))
+    tq, tk, tv = (_port(a, dtype) for a in (q, k, v))
+    kernel_keys = tda.keys_per_split(D, getattr(torch, dtype))
+    for n in _around_splits(kernel_keys, MAX_SEQ):
+        pallas = _f32(jda._decode_pallas(
+            q8, jk.reshape(B * H, MAX_SEQ, D), jv.reshape(B * H, MAX_SEQ, D),
+            jnp.int32(n), SCALE, interpret=True)[:, 0].reshape(B, H, D))
+        for keys in (kernel_keys, 16):
+            got = tda.split_merge_plain(tq, tk, tv, n, SCALE, keys)
+            assert got.dtype == getattr(torch, dtype)
+            got = got.float().numpy()
+            np.testing.assert_allclose(got, pallas, err_msg=f"{n} {keys}",
+                                       **TOL[dtype])
+            if n == 0:
+                assert not got.any(), "length 0 must give zeros"
+            else:
+                ref = _f32(jda._xla_decode_reference(jq, jk, jv,
+                                                     jnp.int32(n), SCALE))
+                np.testing.assert_allclose(got, ref, err_msg=f"{n} {keys}",
+                                           **TOL[dtype])
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 200])
+def test_split_merge_plain_never_reads_past_the_length(n):
+    """NaN at every position at or past the length gives, bit for bit,
+    the output of the same cache with zeros there (the kernel reads no key
+    past the length; the plain version's 0 x NaN would not be 0)."""
+    q, k, v = (torch.from_numpy(a) for a in _decode_inputs(seed=12))
+    outs = []
+    for fill in (float("nan"), 0.0):
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, n:] = fill
+        v2[:, :, n:] = fill
+        outs.append(tda.split_merge_plain(q, k2, v2, n, SCALE, 64))
+    assert torch.isfinite(outs[0]).all()
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_merge_partials_skips_a_split_with_no_key():
+    """A partial with no valid key (m = NEG_INF, l = 0, acc = 0) adds
+    nothing to the merge: no NaN from exp(-inf - -inf), the others' result
+    unchanged; all partials empty give zeros (the l == 0 guard)."""
+    rng = np.random.RandomState(13)
+    m, l = (torch.from_numpy(rng.randn(3).astype(np.float32)) for _ in "ml")
+    l = l.abs() + 0.5
+    acc = torch.from_numpy(rng.randn(3, D).astype(np.float32))
+    empty = (torch.full((3,), tda.NEG_INF), torch.zeros(3), torch.zeros(3, D))
+    want = tda.merge_partials([(m, l, acc)])
+    for parts in ([(m, l, acc), empty], [empty, (m, l, acc)]):
+        got = tda.merge_partials(parts)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    zeros = tda.merge_partials([empty, empty])
+    assert torch.isfinite(zeros).all() and not zeros.any()
+
+
+def test_split_host_pieces_and_what_they_refuse():
+    """The wrapper's split count and workspace, from the cache shape on the
+    host (the length stays on the device), and ``ValueError`` for what the
+    kernel cannot take."""
+    assert tda.keys_per_split(128, torch.bfloat16) == 64
+    assert tda.keys_per_split(128, torch.float32) == 32
+    assert tda.keys_per_split(128, torch.int8) == 128
+    assert tda.keys_per_split(192, torch.bfloat16) == 32
+    assert tda.keys_per_split(16, torch.bfloat16) == 128
+    assert tda.num_splits(1024, 128, torch.bfloat16) == 16
+    assert tda.num_splits(1025, 128, torch.bfloat16) == 17
+    assert tda.num_splits(1, 192, torch.float32) == 1
+    assert tda.workspace_shapes(128, 16, 128) == {
+        "partials": (128 * 16 * 130,), "tickets": (128,)}
+    with pytest.raises(ValueError, match="head_dim=80"):
+        tda.keys_per_split(80, torch.bfloat16)
+    with pytest.raises(ValueError, match="float16"):
+        tda.num_splits(64, 64, torch.float16)
+    with pytest.raises(ValueError, match="max_seq=0"):
+        tda.num_splits(0, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="65535"):
+        tda.num_splits(65535 * 128 + 1, 64, torch.bfloat16)
+    for rows in (0, 2 ** 31):
+        with pytest.raises(ValueError, match="rows"):
+            tda.workspace_shapes(rows, 4, 64)
+
+
+def test_paged_kernel_refuses_head_dim_192_naming_roadmap_queue_2():
+    """Decode takes head_dim 192; the paged kernel, unchanged in this
+    slice, refuses it naming ROADMAP.md queue 2, off the CPU before
+    anything launches (meta tensors stand in for the card's)."""
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        assert tda.kernel_unsupported_reason(192, dtype) is None
+        reason = tpa.kernel_unsupported_reason(192, dtype)
+        assert "head_dim=192" in reason and "ROADMAP.md queue 2" in reason
+        assert tpa.kernel_unsupported_reason(128, dtype) is None
+
+    def meta(*shape, dt=torch.bfloat16):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    before = _launches()
+    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+        tpa.paged_attention(meta(2, 4, 192), meta(5, 4, 16, 192),
+                            meta(5, 4, 16, 192), meta(2, 3, dt=torch.int32),
+                            meta(2, dt=torch.int32))
     assert _launches() == before

@@ -184,7 +184,7 @@ def test_decode_int8_plain_matches_jax_reference_and_pallas_kernel(length):
 # what the kernels take, and what every wrapper refuses
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("head_dim", [16, 64, 128, 256])
+@pytest.mark.parametrize("head_dim", [16, 64, 128, 192, 256])
 def test_kernels_take_int8_pools(head_dim):
     assert tda.kernel_unsupported_reason(head_dim, torch.int8) is None
     assert tra.kernel_unsupported_reason(16, head_dim, tra.TOKEN_BLOCK,
@@ -256,3 +256,87 @@ def test_an_int8_pool_without_scales_raises_on_the_cpu_too():
                             torch.zeros(2, 3, dtype=torch.int32),
                             torch.ones(2, dtype=torch.int32),
                             k_scale=torch.zeros(5, 4))
+
+
+# ---------------------------------------------------------------------------
+# the split kernels' arithmetic over int8 pools and caches
+# ---------------------------------------------------------------------------
+
+def test_decode_int8_split_merge_plain_matches_jax():
+    """``split_merge_plain`` over an int8 cache (dequantized as it is
+    read, P unrounded), with the kernel's keys per split and with 16,
+    against the Pallas kernel in interpret mode at lengths around the
+    split boundaries (0 gives zeros, the Pallas kernel's l == 0 guard) and
+    the XLA reference at every length but 0; this file's TOL."""
+    rng = np.random.RandomState(21)
+    b, h, max_seq, d = 2, 2, 256, 64
+    q = rng.randn(b, h, d).astype(np.float32)
+    kc, vc = _int8(rng, b, h, max_seq, d), _int8(rng, b, h, max_seq, d)
+    ks, vs = _scales(rng, b, h), _scales(rng, b, h)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, kc, vc))
+    jsc = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    q8 = jnp.broadcast_to(jq.reshape(b * h, 1, d), (b * h, 8, d))
+    kernel_keys = tda.keys_per_split(d, torch.int8)
+    for n in (0, 1, kernel_keys - 1, kernel_keys, kernel_keys + 1, max_seq):
+        pallas = np.asarray(jda._decode_pallas(
+            q8, jk.reshape(b * h, max_seq, d), jv.reshape(b * h, max_seq, d),
+            jnp.int32(n), SCALE, interpret=True,
+            **jsc))[:, 0].reshape(b, h, d)
+        for keys in (kernel_keys, 16):
+            got = tda.split_merge_plain(_t(q), _t(kc), _t(vc), n, SCALE,
+                                        keys, _t(ks), _t(vs))
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), pallas, **TOL)
+            if n:
+                ref = np.asarray(jda._xla_decode_reference(
+                    jq, jk, jv, jnp.int32(n), SCALE, **jsc))
+                np.testing.assert_allclose(got.numpy(), ref, **TOL)
+            else:
+                assert not got.numpy().any()
+
+
+def test_ragged_int8_split_merge_plain_matches_jax():
+    """``split_merge_plain`` over int8 pools, with the kernel's keys per
+    split and with 16, against the JAX reference and the Pallas kernel in
+    interpret mode (this file's runs, the kernel's token block); NaN
+    scales on the pages no run owns and 127 at every position no run may
+    see leave the output unchanged bit for bit; this file's TOL."""
+    rng = np.random.RandomState(22)
+    plan_np, stats = tra.build_ragged_plan(
+        RUNS, token_block=tra.TOKEN_BLOCK, page_size=PS, t_max=T_MAX,
+        nb_max=NB_MAX, wl_max=WL_MAX)
+    tables = np.zeros((T_MAX, MP), np.int32)
+    lengths = np.zeros((T_MAX,), np.int32)
+    for (base, count, tbl), start in zip(RUNS, stats["run_starts"]):
+        tables[start:start + count] = tbl
+        lengths[start:start + count] = base + np.arange(count) + 1
+    q = rng.randn(T_MAX, H, D).astype(np.float32)
+    kp, vp = _int8(rng, P, H, PS, D), _int8(rng, P, H, PS, D)
+    ks, vs = _scales(rng, P, H), _scales(rng, P, H)
+    j = [jnp.asarray(a) for a in (q, kp, vp, tables, lengths)]
+    jsc = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    jplan = tuple(jnp.asarray(plan_np[k]) for k in jra.RAGGED_PLAN_FIELDS)
+    ref = np.asarray(jra._xla_ragged_reference(*j, SCALE, **jsc))
+    interp = np.asarray(jra.ragged_paged_attention(
+        *j, jplan, sm_scale=SCALE, interpret=True, **jsc))
+    seen = np.zeros((P, PS), bool)
+    for base, count, tbl in RUNS:
+        pos = np.arange(base + count)
+        seen[tbl[pos // PS], pos % PS] = True
+    unseen = ~seen[:, None, :, None]
+    kf, vf = (np.where(unseen, np.int8(127), a) for a in (kp, vp))
+    page_unseen = ~seen.any(axis=1)[:, None]
+    ksf, vsf = (np.where(page_unseen, np.float32(np.nan), a)
+                for a in (ks, vs))
+    plan = tuple(_t(plan_np[k]) for k in tra.RAGGED_PLAN_FIELDS)
+    real = stats["n_tokens"]
+    for keys in (tra.keys_per_split(D, torch.int8), 16):
+        got = tra.split_merge_plain(_t(q), _t(kp), _t(vp), plan, SCALE, keys,
+                                    _t(ks), _t(vs))
+        stale = tra.split_merge_plain(_t(q), _t(kf), _t(vf), plan, SCALE,
+                                      keys, _t(ksf), _t(vsf))
+        assert got.dtype == torch.float32
+        assert torch.equal(stale, got), f"keys {keys}: stale values"
+        assert not got[real:].any()
+        np.testing.assert_allclose(got.numpy()[:real], ref[:real], **TOL)
+        np.testing.assert_allclose(got.numpy()[:real], interp[:real], **TOL)

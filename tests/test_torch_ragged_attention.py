@@ -164,6 +164,7 @@ def test_wrapper_on_cpu_runs_plain_and_counts_no_launch(dtype):
     (128, 128, 16, torch.bfloat16, True),
     (16, 16, 16, torch.float32, True),
     (48, 256, 16, torch.float32, True),
+    (128, 192, 16, torch.bfloat16, True),     # head_dim 192
     (128, 128, 8, torch.bfloat16, False),      # not the port's block
     (128, 80, 16, torch.bfloat16, False),      # head_dim not supported
     (256, 128, 16, torch.bfloat16, False),     # page above 128
@@ -200,3 +201,131 @@ def test_kernel_plan_check_rejects_what_the_kernel_cannot_take(break_it,
     tra._check_plan(tuple(plan), torch.device("cpu"))
     with pytest.raises(ValueError, match=match):
         tra._check_plan(tuple(break_it(plan)), torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the split kernel: its arithmetic in plain PyTorch, the plan layout it
+# relies on, and its host pieces
+# ---------------------------------------------------------------------------
+
+def _kernel_block_case(seed, dtype):
+    """RUNS planned with the kernel's token block (16), a pool whose
+    positions no run may see hold NaN (and the same pool with zeros
+    there), q, and the JAX results on the clean pool."""
+    rng = np.random.RandomState(seed)
+    plan_np, stats = tra.build_ragged_plan(
+        RUNS, token_block=tra.TOKEN_BLOCK, page_size=PS, t_max=T_MAX,
+        nb_max=NB_MAX, wl_max=WL_MAX)
+    tables, lengths = _tables_lengths(RUNS, stats, T_MAX, MP)
+    q = rng.randn(T_MAX, H, D).astype(np.float32)
+    kp = rng.randn(P, H, PS, D).astype(np.float32)
+    vp = rng.randn(P, H, PS, D).astype(np.float32)
+    seen = np.zeros((P, PS), bool)
+    for base, count, tbl in RUNS:
+        pos = np.arange(base + count)
+        seen[tbl[pos // PS], pos % PS] = True
+    unseen = ~seen[:, None, :, None]
+    kz, vz = (np.where(unseen, np.float32(0), a) for a in (kp, vp))
+    kn, vn = (np.where(unseen, np.float32(np.nan), a) for a in (kp, vp))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, kz, vz))
+    jplan = tuple(jnp.asarray(plan_np[k]) for k in tra.RAGGED_PLAN_FIELDS)
+    ref = np.asarray(jra._xla_ragged_reference(
+        jq, jk, jv, jnp.asarray(tables), jnp.asarray(lengths), 0.125),
+        np.float32)
+    interp = np.asarray(jra.ragged_paged_attention(
+        jq, jk, jv, jnp.asarray(tables), jnp.asarray(lengths), jplan,
+        sm_scale=0.125, interpret=True), np.float32)
+    plan = tuple(torch.tensor(plan_np[k]) for k in tra.RAGGED_PLAN_FIELDS)
+    tdt = getattr(torch, dtype)
+    return dict(q=torch.tensor(q).to(tdt), clean=(torch.tensor(kz).to(tdt),
+                torch.tensor(vz).to(tdt)), stale=(torch.tensor(kn).to(tdt),
+                torch.tensor(vn).to(tdt)), plan=plan, ref=ref, interp=interp,
+                real=stats["n_tokens"])
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 5e-6),
+                                       ("bfloat16", 2e-2)])
+def test_split_merge_plain_matches_jax_reference_and_interpret_kernel(dtype,
+                                                                      tol):
+    """The ragged kernel's arithmetic (``split_merge_plain``: each block's
+    pages cut into splits, partials merged in work-list order) with the
+    kernel's own keys per split and with 16 -- many splits, some of them
+    with no key a prefill row may see -- against the JAX reference and the
+    Pallas kernel in interpret mode: runs straddling page edges, shuffled
+    pool pages, a decode at position 0.  A pool holding NaN wherever no run
+    may look gives the zero-filled pool's output bit for bit, and the
+    padding tokens are zeros.  Tolerances are this file's (5e-6 fp32: the
+    same arithmetic in another order; 2e-2 bf16: one rounding of the
+    output and of P, against a split's max here)."""
+    c = _kernel_block_case(3, dtype)
+    for keys in (tra.keys_per_split(D, c["q"].dtype), 16):
+        got = tra.split_merge_plain(c["q"], *c["clean"], c["plan"], 0.125,
+                                    keys)
+        stale = tra.split_merge_plain(c["q"], *c["stale"], c["plan"], 0.125,
+                                      keys)
+        assert got.dtype == c["q"].dtype and got.shape == (T_MAX, H, D)
+        assert torch.equal(stale, got), f"keys {keys}: stale pool"
+        got = got.float().numpy()
+        real = c["real"]
+        assert not got[real:].any(), "padding tokens must be zeros"
+        np.testing.assert_allclose(got[:real], c["ref"][:real], rtol=tol,
+                                   atol=tol, err_msg=f"keys {keys}")
+        np.testing.assert_allclose(got[:real], c["interp"][:real], rtol=tol,
+                                   atol=tol, err_msg=f"keys {keys}")
+
+
+@pytest.mark.parametrize("runs", [RUNS, RUNS[::-1], RUNS[2:3],
+                                  [(130, 40, np.array([3, 1, 2, 0],
+                                                      np.int32))]],
+                         ids=["mixed", "reversed", "prefill_only",
+                              "three_blocks_two_pages"])
+def test_plan_lists_each_blocks_page_slots_in_order(runs):
+    """The kernel finds a block's first split at w - wl_pageslot[w] and
+    counts the block's splits from its last position: build_ragged_plan
+    lists each block's page slots 0 .. max_pos // page_size, one item
+    each, in order and together."""
+    plan, stats = tra.build_ragged_plan(
+        runs, token_block=tra.TOKEN_BLOCK, page_size=PS, t_max=T_MAX + 16,
+        nb_max=NB_MAX, wl_max=WL_MAX)
+    n = stats["n_items"]
+    for w in range(n):
+        blk, ps = plan["wl_blk"][w], plan["wl_pageslot"][w]
+        w0 = w - ps
+        max_pos = plan["blk_base"][blk] + plan["blk_rows"][blk] - 1
+        assert ps <= max_pos // PS
+        assert list(plan["wl_pageslot"][w0:w + 1]) == list(range(ps + 1))
+        assert (plan["wl_blk"][w0:w0 + max_pos // PS + 1] == blk).all()
+    # every real block's items, counted as the kernel counts them
+    blocks = [b for b in range(NB_MAX) if plan["blk_rows"][b] > 0]
+    counted = sum((plan["blk_base"][b] + plan["blk_rows"][b] - 1) // PS + 1
+                  for b in blocks)
+    assert counted == n
+
+
+def test_split_host_pieces_and_what_they_refuse():
+    """The wrapper's keys per split, splits per page and workspace, and
+    ``ValueError`` for what the kernel cannot take."""
+    assert tra.keys_per_split(128, torch.bfloat16) == 64
+    assert tra.keys_per_split(64, torch.bfloat16) == 128
+    assert tra.keys_per_split(192, torch.bfloat16) == 32
+    assert tra.keys_per_split(128, torch.float32) == 32
+    assert tra.keys_per_split(128, torch.int8) == 64
+    assert tra.splits_per_page(128, 128, torch.bfloat16) == 2
+    assert tra.splits_per_page(48, 192, torch.bfloat16) == 2
+    assert tra.splits_per_page(16, 64, torch.bfloat16) == 1
+    assert tra.workspace_shapes(64, 16, 16, 128, 128, torch.bfloat16) == {
+        "partials": (64 * 2 * 16 * 16 * 130,), "tickets": (16 * 16,)}
+    with pytest.raises(ValueError, match="head_dim=80"):
+        tra.keys_per_split(80, torch.bfloat16)
+    with pytest.raises(ValueError, match="float16"):
+        tra.keys_per_split(128, torch.float16)
+    with pytest.raises(ValueError, match="page_size=24"):
+        tra.splits_per_page(24, 128, torch.bfloat16)
+    for bad in (dict(wl_max=40000), dict(wl_max=0), dict(nb_max=0),
+                dict(heads=0), dict(heads=70000)):
+        kw = dict(wl_max=64, nb_max=16, heads=16, page_size=128,
+                  head_dim=128, dtype=torch.bfloat16)
+        kw.update(bad)
+        with pytest.raises(ValueError, match="wl_max="):
+            tra.workspace_shapes(**kw)
