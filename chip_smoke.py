@@ -10,11 +10,13 @@ result line:
 1. build -- compile every kernel library from ``paddle_tpu_torch/ops/
    kernels/csrc`` with nvcc (sm_90a) and print the build seconds and
    ptxas's register and spill report for every kernel entry; the bf16
-   flash kernels at head_dim 64 and 128, and the split decode and the
-   ragged kernels at head_dim 128 in every dtype, must spill nothing;
-   print each bf16 flash kernel's, and the split decode and ragged
-   kernels' (fp32, bf16, int8; head_dim 128 and 192), shared memory per
-   CTA, registers and CTAs per SM as the runtime reports them;
+   flash kernels at head_dim 64 and 128, and the split decode kernel
+   (its contiguous and paged launches) and the ragged kernel at head_dim
+   128 in every dtype, must spill nothing; print each bf16 flash
+   kernel's, and the split decode kernel's two launches' and the ragged
+   kernel's (fp32, bf16, int8; head_dim 128 and 192), shared memory per
+   CTA, registers, CTAs per SM and local memory as the runtime reports
+   them;
 2. kernel vs plain -- the hand-written ragged-paged-attention kernel
    against its plain PyTorch version on the card, at the served shape
    (16 heads, head_dim 128, page 128) in bf16 and fp32 and at the tiny
@@ -75,7 +77,13 @@ result line:
    generated shape (B 8, H 16, max_seq 1024, D 128) in bf16 and fp32 at
    lengths 1, 200, 201 and 1024, and at (2, 4, 64, 16) in fp32; the paged
    kernel over 8 slots x 16 heads, page 128, shuffled pool pages, lengths
-   0, 1, 128, 129, 512 (and more), and at page 16, D 16; the flash
+   0, 1, 128, 129, 512 (and more), at page 16, D 16, and with one slot per
+   split-boundary length (``PAGED_SPLIT_CASES``: 0, 1, a key either side
+   of the first split boundary, one past the second, a page edge and one
+   past it, the full table) at page 16 (splits straddle pages) and 128,
+   head_dim 128 and 192, in bf16 and fp32, each launched again bit for
+   bit and with NaN at every position no slot may see read through tables
+   whose entries past each length name no pool page; the flash
    forward at ragged lengths (``FLASH_RAGGED_CASES``: bf16 at S 1, 50,
    77, 200 and 1000, causal and full, head_dim 64, 128, 192 and 256;
    views of a fused buffer holding NaN past S, which must give bit for
@@ -120,8 +128,10 @@ result line:
    127 at every position no run may see, which must not change the
    output) and at the tiny shape, the paged kernel
    over 8 slots x 16 heads (lengths 0, 1, 128, 129, 512 and more; NaN
-   scales on pages no slot sees and other values past the lengths must
-   not change the output) and at page 16, D 16, the decode kernel at
+   scales on pages no slot sees, other values past the lengths and table
+   entries past them naming no pool page must not change the output; each
+   launched again bit for bit), at page 16, D 16, and at phase 8's
+   split-boundary cases, the decode kernel at
    (8, 16, 1024, 128) and (2, 4, 64, 16); then each int8 kernel's time
    beside its bytes bound, its plain version and the bf16 kernel at the
    same shape (ragged at the decode-heavy served shape, decode and paged
@@ -239,10 +249,9 @@ FLASH_GRAD_TOL = {"float32": (2e-5, 1e-5, 1e-5),
                   "bfloat16": (2.0 ** -6, 2.0 ** -7, 2.0 ** -7)}
 # decode and paged kernels vs plain: held to the flash forward's bounds
 # (FLASH_TOL[dtype][:2] elementwise against m = P|V|, FLASH_O_NORM over the
-# whole output).  The kernels round P against a local max (the decode
-# kernel each split's, the paged kernel the running max of each 256-key
-# chunk), the plain versions after normalising -- the flash forward's
-# case -- and both round O once.
+# whole output).  The kernels round P against a local max (each split's,
+# in both launches), the plain versions after normalising -- the flash
+# forward's case -- and both round O once.
 # phase 10 against phase 9 (bf16 GPT-3 1.3B logits, teacher-forced):
 # the two runs feed the same tokens and differ where their attention
 # rounds in bf16 (the prefill: flash kernel vs the chunked path's plain
@@ -363,20 +372,23 @@ def _ptxas_entries(log):
 
 # the kernels of the main paths, which must not spill: the bf16 flash
 # kernels (template <D, block>) at D 64 and 128, the split decode kernel
-# and the ragged kernel (template <T, KV, D>) at D 128 in every dtype
+# (template <T, KV, D, Addr>: its contiguous and paged launches) and the
+# ragged kernel (template <T, KV, D>) at D 128 in every dtype
 NO_SPILL = re.compile(r"flash_(?:fwd|bwd_dkv|bwd_dq)_bf16ILi(?:64|128)E"
                       r"|(?:decode_split_kernel|ragged_paged_attention_kernel)"
-                      r"I\w*?Li128EE")
-# the dtypes whose decode and ragged kernels phase 1 reports
+                      r"I\w*?Li128E")
+# the dtypes whose decode, paged and ragged kernels phase 1 reports
 ATTN_DTYPES = ("float32", "bfloat16", "int8")
 
 
 def attention_kernel_info(port, dims=(128, 192)):
-    """The split decode and ragged kernels' shared memory per CTA,
-    registers, CTAs per SM, threads and keys per split, as the runtime
+    """The split decode kernel's contiguous and paged launches' and the
+    ragged kernel's shared memory per CTA, registers, CTAs per SM,
+    threads, local memory (spills) and keys per split, as the runtime
     reports them, printed by (kernel, dtype, head_dim)."""
     torch = port["torch"]
-    for name, mod in (("decode split", port["da"]), ("ragged", port["rpa"])):
+    for name, mod in (("decode split", port["da"]), ("paged", port["pa"]),
+                      ("ragged", port["rpa"])):
         for dt in ATTN_DTYPES:
             for d in dims:
                 print(f"[build] {name} {dt} D {d}: "
@@ -1415,23 +1427,69 @@ def _paged_tables(rng, slots, max_pages, num_pages):
     return perm[:slots * max_pages].reshape(slots, max_pages)
 
 
-def _paged_case(port, dtype, slots, heads, page, d, lengths, seed):
-    """The paged kernel against its plain version over shuffled pool
-    pages; a pool holding NaN in every position its slots may not see
-    must give the output of the same pool with zeros there."""
-    torch, pa = port["torch"], port["pa"]
+# the paged kernel's split-boundary cases (page, head_dim, max_pages):
+# splits that straddle pages (page 16) and splits inside one page (128),
+# at head_dim 128 and 192, each table holding 2 x 128 + 1 positions or
+# more; the lengths are paged_split_lengths'
+PAGED_SPLIT_CASES = ((16, 128, 17), (128, 128, 3), (16, 192, 17),
+                     (128, 192, 3))
+
+
+def paged_split_lengths(keys, page, max_pages):
+    """Per-slot lengths of one paged launch: 0 and 1, a key either side
+    of the first split boundary, one past the second, a page edge and one
+    past it, and the full table (none past it)."""
+    full = max_pages * page
+    return tuple(sorted({min(n, full) for n in (
+        0, 1, keys - 1, keys, keys + 1, 2 * keys + 1, page, page + 1,
+        full)}))
+
+
+def _paged_pool_setup(port, lengths, page, seed, max_pages=None):
+    """Shuffled page tables for one slot a length (``max_pages`` pages
+    each; by default one more than the longest length needs), the
+    lengths on the card, the pool positions no slot may see, and the
+    tables with every entry past a slot's last live page naming a page
+    far outside the pool (which the kernel must never follow)."""
+    torch = port["torch"]
     rng = np.random.RandomState(seed)
-    max_pages = max(-(-n // page) for n in lengths) + 1
+    slots = len(lengths)
+    if max_pages is None:
+        max_pages = max(-(-n // page) for n in lengths) + 1
     num_pages = slots * max_pages + 1
     tables_np = _paged_tables(rng, slots, max_pages, num_pages)
-    tables = torch.from_numpy(tables_np).to(DEVICE)
-    lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    seen_np = np.zeros((num_pages, page), bool)
+    poisoned = tables_np.copy()
+    for s_, n in enumerate(lengths):
+        pos = np.arange(n)
+        seen_np[tables_np[s_, pos // page], pos % page] = True
+        poisoned[s_, -(-n // page):] = 1 << 30
+    return dict(num_pages=num_pages,
+                tables=torch.from_numpy(tables_np).to(DEVICE),
+                poisoned=torch.from_numpy(poisoned).to(DEVICE),
+                lens=torch.tensor(lengths, dtype=torch.int32, device=DEVICE),
+                seen=torch.from_numpy(seen_np).to(DEVICE))
+
+
+def _paged_case(port, dtype, slots, heads, page, d, lengths, seed,
+                max_pages=None):
+    """The paged kernel against its plain version over shuffled pool
+    pages, one slot a length (``slots`` is ``len(lengths)``); a second
+    launch must give the same bits, and a pool holding NaN in every
+    position its slots may not see, read through tables whose entries
+    past each length name no pool page, must give the output of the same
+    pool with zeros there."""
+    torch, pa = port["torch"], port["pa"]
+    assert slots == len(lengths)
+    c = _paged_pool_setup(port, lengths, page, seed, max_pages)
+    tables, lens = c["tables"], c["lens"]
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     q = _randn(torch, (slots, 3, heads, d), dtype, gen)[:, 0]
-    kp, vp = (_randn(torch, (num_pages, heads, page, d), dtype, gen)
+    kp, vp = (_randn(torch, (c["num_pages"], heads, page, d), dtype, gen)
               for _ in range(2))
     scale = 1.0 / d ** 0.5
     got = pa.paged_attention(q, kp, vp, tables, lens)
+    again = pa.paged_attention(q, kp, vp, tables, lens)
     want = pa.paged_attention_plain(q, kp, vp, tables, lens, scale)
     kg, vg = pa.gather_pages(kp, tables), pa.gather_pages(vp, tables)
     ctx = kg.shape[2]
@@ -1446,21 +1504,42 @@ def _paged_case(port, dtype, slots, heads, page, d, lengths, seed):
     _check(not bool(got[lens == 0].float().any()),
            "paged: a length-0 slot must give zeros")
     # every position no slot may see: NaN (stale) or 0
-    seen_np = np.zeros((num_pages, page), bool)
-    for s_, n in enumerate(lengths):
-        pos = np.arange(n)
-        seen_np[tables_np[s_, pos // page], pos % page] = True
-    seen = torch.from_numpy(seen_np).to(DEVICE)
     outs = []
-    for fill in (float("nan"), 0.0):
+    for fill, tbl in ((float("nan"), c["poisoned"]), (0.0, tables)):
         kf, vf = kp.clone(), vp.clone()
         for t in (kf, vf):
-            t.masked_fill_(~seen[:, None, :, None], fill)
-        outs.append(pa.paged_attention(q, kf, vf, tables, lens))
+            t.masked_fill_(~c["seen"][:, None, :, None], fill)
+        outs.append(pa.paged_attention(q, kf, vf, tbl, lens))
     torch.cuda.synchronize()
+    _check(torch.equal(again, got), f"paged {dtype} page {page} D {d}: two "
+           "launches on the same inputs differ")
     _check(bool(torch.isfinite(outs[0].float()).all())
            and torch.equal(outs[0], outs[1]),
            f"paged {dtype}: NaN past the lengths reached the output")
+    return err
+
+
+def paged_checks(port):
+    """Phase 8's paged cases: 8 slots x 16 heads at page 128 and D 128,
+    a tiny one at D 16, and the split-boundary cases in bf16 and fp32.
+    Returns the largest error."""
+    torch, pa = port["torch"], port["pa"]
+    err = 0.0
+    for i, (dtype, slots, heads, page, d, lengths) in enumerate((
+            ("bfloat16", 8, 16, 128, 128, (0, 1, 128, 129, 512, 264, 300, 64)),
+            ("float32", 8, 16, 128, 128, (0, 1, 128, 129, 512, 264, 300, 64)),
+            ("float32", 5, 4, 16, 16, (0, 1, 16, 17, 40)))):
+        err = max(err, _paged_case(port, dtype, slots, heads, page, d,
+                                   lengths, 50 + i))
+    for i, (page, d, max_pages) in enumerate(PAGED_SPLIT_CASES):
+        for dtype in ("bfloat16", "float32"):
+            keys = pa.keys_per_split(d, getattr(torch, dtype))
+            lengths = paged_split_lengths(keys, page, max_pages)
+            err = max(err, _paged_case(port, dtype, len(lengths), 4, page, d,
+                                       lengths, 53 + i, max_pages))
+        print(f"[decode_kernels] paged page {page} D {d}: split-boundary "
+              "lengths in bf16 and fp32, each rerun bit for bit, NaN past "
+              "the lengths and table entries naming no page never read")
     return err
 
 
@@ -1581,12 +1660,7 @@ def phase_decode_kernels(port):
     for i, (dtype, shape) in enumerate(DECODE_SPLIT_CASES):
         errs["decode"] = max(errs["decode"],
                              decode_split_case(port, dtype, shape, 45 + i))
-    for i, (dtype, slots, heads, page, d, lengths) in enumerate((
-            ("bfloat16", 8, 16, 128, 128, (0, 1, 128, 129, 512, 264, 300, 64)),
-            ("float32", 8, 16, 128, 128, (0, 1, 128, 129, 512, 264, 300, 64)),
-            ("float32", 5, 4, 16, 16, (0, 1, 16, 17, 40)))):
-        errs["paged"] = max(errs["paged"], _paged_case(
-            port, dtype, slots, heads, page, d, lengths, 50 + i))
+    errs["paged"] = paged_checks(port)
     for i, (dtype, shape, causal, pad) in enumerate(FLASH_RAGGED_CASES):
         errs["fwd"] = max(errs["fwd"], _flash_ragged_case(
             port, dtype, shape, causal, 60 + i, pad))
@@ -1876,23 +1950,25 @@ def _ragged_int8_compare(port, name, c):
     return err
 
 
-def _paged_int8_case(port, slots, heads, page, d, lengths, seed):
+def _paged_int8_case(port, slots, heads, page, d, lengths, seed,
+                     max_pages=None):
     """The paged int8 kernel against its plain version over shuffled pool
-    pages; pages no slot may see hold NaN scales and positions no slot may
-    see other values: the output must not change, bit for bit."""
+    pages, one slot a length; a second launch must give the same bits,
+    and with NaN scales on the pages no slot may see, other values at the
+    positions no slot may see and table entries past each length naming
+    no pool page, the output must not change, bit for bit."""
     torch, pa = port["torch"], port["pa"]
-    rng = np.random.RandomState(seed)
-    max_pages = max(-(-n // page) for n in lengths) + 1
-    num_pages = slots * max_pages + 1
-    tables_np = _paged_tables(rng, slots, max_pages, num_pages)
-    tables = torch.from_numpy(tables_np).to(DEVICE)
-    lens = torch.tensor(lengths, dtype=torch.int32, device=DEVICE)
+    assert slots == len(lengths)
+    c = _paged_pool_setup(port, lengths, page, seed, max_pages)
+    tables, lens, seen = c["tables"], c["lens"], c["seen"]
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     q = _randn(torch, (slots, 3, heads, d), "float32", gen)[:, 0]
-    (kp, ks), (vp, vs) = (_int8_pages(torch, (num_pages, heads, page, d), gen)
-                          for _ in range(2))
+    (kp, ks), (vp, vs) = (_int8_pages(torch, (c["num_pages"], heads, page, d),
+                                      gen) for _ in range(2))
     scale = 1.0 / d ** 0.5
     got = pa.paged_attention(q, kp, vp, tables, lens, k_scale=ks, v_scale=vs)
+    again = pa.paged_attention(q, kp, vp, tables, lens, k_scale=ks,
+                               v_scale=vs)
     want = pa.paged_attention_plain(q, kp, vp, tables, lens, scale, ks, vs)
     m = _p_abs_v(torch, q, pa.gather_pages(kp, tables, ks),
                  pa.gather_pages(vp, tables, vs), lens, scale)
@@ -1901,11 +1977,6 @@ def _paged_int8_case(port, slots, heads, page, d, lengths, seed):
                 m, tag="int8_kernels")
     _check(not bool(got[lens == 0].any()),
            "paged int8: a length-0 slot must give zeros")
-    seen_np = np.zeros((num_pages, page), bool)
-    for s_, n in enumerate(lengths):
-        pos = np.arange(n)
-        seen_np[tables_np[s_, pos // page], pos % page] = True
-    seen = torch.from_numpy(seen_np).to(DEVICE)
     kf, vf = kp.clone(), vp.clone()
     for t in (kf, vf):
         t.masked_fill_(~seen[:, None, :, None], 127)
@@ -1913,9 +1984,11 @@ def _paged_int8_case(port, slots, heads, page, d, lengths, seed):
     ksf, vsf = ks.clone(), vs.clone()
     for t in (ksf, vsf):
         t.masked_fill_(unseen_page[:, None], float("nan"))
-    stale = pa.paged_attention(q, kf, vf, tables, lens, k_scale=ksf,
+    stale = pa.paged_attention(q, kf, vf, c["poisoned"], lens, k_scale=ksf,
                                v_scale=vsf)
     torch.cuda.synchronize()
+    _check(torch.equal(again, got), f"paged int8 page {page} D {d}: two "
+           "launches on the same inputs differ")
     _check(torch.equal(stale, got), "paged int8: values past the lengths "
            "reached the output")
     return err
@@ -2094,6 +2167,12 @@ def int8_attention_checks(port):
             (5, 4, 16, 16, (0, 1, 16, 17, 40)))):
         errs["paged"] = max(errs["paged"], _paged_int8_case(
             port, slots, heads, page, d, lengths, 84 + i))
+    pa, torch = port["pa"], port["torch"]
+    for i, (page, d, max_pages) in enumerate(PAGED_SPLIT_CASES):
+        lengths = paged_split_lengths(pa.keys_per_split(d, torch.int8), page,
+                                      max_pages)
+        errs["paged"] = max(errs["paged"], _paged_int8_case(
+            port, len(lengths), 4, page, d, lengths, 92 + i, max_pages))
     decode0 = port["da"].decode_attention.launches
     for i, (shape, lengths) in enumerate((
             ((GEN_BATCH, 16, GEN_MAX_SEQ, 128), (1, 200, 201, 1024)),

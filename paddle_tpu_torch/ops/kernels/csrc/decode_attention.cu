@@ -1,6 +1,6 @@
 // Single-query decode attention for Hopper (sm_90a): one new query per
 // (batch, head) over a contiguous KV cache, and one per (slot, head) over
-// that slot's pages of the paged KV pool.
+// that slot's pages of the paged KV pool, by one split-and-merge kernel.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas_kernels/:
 //   - decode_attention.py: _decode_kernel / _decode_pallas (contiguous
@@ -34,17 +34,17 @@
 // 0 x NaN would not; the length is read from device memory, so a decode
 // step needs no host sync.
 //
-// The contiguous cache (decode_split_kernel): the keys of each (batch,
-// head) are split over CTAs (flash-decoding).  A CTA takes KS keys
-// (Split::KS: K and V of the split fill at most 32 KiB of shared memory,
-// 64 keys at head_dim 128 in bf16) and puts all of its K and V in flight
-// at once with cp.async, K and V as two commit groups, before any
-// arithmetic: at the generated shape 5 live CTAs of 128 threads a row, 640
-// in all, ~5 an SM, so an SM has ~160 KB in flight where one CTA a row
-// with a chunked K pass and then a V pass had ~16 KB.  The grid is sized
-// from max_seq on the host (rows x ceil(max_seq / KS)); each CTA reads the
-// length on the device and one whose keys start at or past it exits at
-// once.  Scores: a group of threads per key, 16-byte reads of shared
+// The design (decode_split_kernel, flash-decoding): the keys of each row
+// -- a (batch, head) of the cache, a (slot, head) of the pool -- are split
+// over CTAs.  A CTA takes KS keys (Split::KS: K and V of the split fill at
+// most 32 KiB of shared memory, 64 keys at head_dim 128 in bf16) and puts
+// all of its K and V in flight at once with cp.async, K and V as two
+// commit groups, before any arithmetic: at the generated shape 5 live
+// CTAs of 128 threads a row, 640 in all, ~5 an SM, so an SM has ~160 KB
+// in flight.  The grid is rows x ceil(capacity / KS), the capacity being
+// max_seq or max_pages * page_size, sized on the host; each CTA reads its
+// row's length on the device and one whose keys start at or past it exits
+// at once.  Scores: a group of threads per key, 16-byte reads of shared
 // memory, a shuffle sum per group; the split's max and denominator by
 // every warp alike (no CTA-wide reduction); PV: threads over 16-byte
 // column chunks of V rows and the keys split over the rest of the CTA,
@@ -52,24 +52,27 @@
 // fp32; the last CTA of a row to finish -- found by an atomic ticket,
 // which it resets to 0 itself -- merges the row's partials in split order
 // (never in order of arrival, so two runs give the same bits):
-// O = sum_s e^(m_s - m) acc_s / sum_s e^(m_s - m) l_s.  P is rounded
-// against each split's own max, the one bf16 rounding the kernels already
-// made against a running max.  A row with one live split writes its
-// output straight away.  One launch: no combine kernel.  The partials and
-// tickets are a workspace the wrapper allocates (zeroed tickets), cached
-// per device and stream; the kernel allocates nothing.
+// O = sum_s e^(m_s - m) acc_s / sum_s e^(m_s - m) l_s.  Every CTA of a row
+// counts the row's live splits from the row's own length, so the ticket
+// count is that of the CTAs that take one.  P is rounded against each
+// split's own max.  A row with one live split writes its output straight
+// away.  One launch: no combine kernel.  The partials and tickets are a
+// workspace the wrapper allocates (zeroed tickets), cached per device and
+// stream; the kernel allocates nothing.
 //
-// The paged pool (decode_kernel with the Paged addressing): one CTA of
-// 256 threads per (slot, head), walking its keys in chunks of 256 with the
-// softmax state in registers and the chunk's probabilities in shared
-// memory; each CTA reads its slot's table row and length from device
-// memory (the TPU took it by scalar prefetch).  Scores: a group of threads
-// per key, four keys' loads in flight per thread; PV: threads over column
-// chunks, the keys split over the rest of the CTA.  Splitting its keys
-// over CTAs as the contiguous kernel does is later work (ROADMAP.md queue
-// 2).  The template's addressing maps (row, key) to an element offset and
-// a key to its scale: scale[page * H + h] for the pool.  T is the type of
-// q and the output, KV the type the cache stores (T itself, or int8_t).
+// The two addressings (the template's Addr) differ only in where a key
+// lies.  Contig: key c of (b, h) at b * sb + h * sh + c * ss, one length
+// for every row, its scale at [b * heads + h].  Paged: key c of (s, h) at
+// pool page tables[s, c / page_size], head h, offset c % page_size, the
+// slot's own length.  Before its loads a paged CTA reads the table
+// entries of the pages its live keys touch, one thread a page, each once
+// (one entry when KS divides page_size), and turns them into each key's
+// offset, so its copies do not wait on table reads page by page; entries
+// past the length are never read, so a stale entry naming a page outside
+// the pool is never followed.  An int8 pool's two scales of each of those
+// pages ride in shared memory beside K, copied in K's commit group.  T is
+// the type of q and the output, KV the type the cache stores (T itself,
+// or int8_t).
 //
 // Interface: plain C, loaded through ctypes by
 // paddle_tpu_torch/ops/kernels/decode_attention.py and paged_attention.py.
@@ -85,11 +88,8 @@
 
 namespace {
 
-constexpr int THREADS = 256;   // 8 warps (the paged kernel)
-constexpr int WARPS = THREADS / 32;
-constexpr int KC = 256;        // keys per chunk of the online softmax
-constexpr int UNROLL = 4;      // keys whose loads a thread has in flight
 constexpr float NEG_INF = -1e30f;
+constexpr int SPLIT_THREADS = 128;   // 4 warps a CTA
 
 template <typename T> struct Round;
 template <> struct Round<float> {
@@ -108,52 +108,6 @@ template <> __device__ __forceinline__ float from_f<float>(float x) { return x; 
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
-
-// Paged pool: key c of (s, h) at pool page tables[s, c / page_size], head
-// h, offset c % page_size; its scale (an int8 pool) at that page * heads +
-// h.  Maps CTA row r (slot * heads + head) to its valid length and to a
-// Row whose key(c) is the element offset of key c's head_dim elements in
-// the K (and V) pool.
-struct Paged {
-  const int* tables;    // [slots, max_pages]
-  const int* lengths;   // [slots]
-  int heads, page_size, max_pages, head_dim;
-  struct Row {
-    const int* table;   // the slot's table row
-    long long head_off, page_stride;
-    int page_size, head_dim, h, heads;
-    __device__ long long key(int c) const {
-      return table[c / page_size] * page_stride + head_off +
-             (long long)(c % page_size) * head_dim;
-    }
-    __device__ long long scale_at(int c) const {
-      return (long long)table[c / page_size] * heads + h;
-    }
-  };
-  __device__ int len(int r) const {
-    return min(max(lengths[r / heads], 0), max_pages * page_size);
-  }
-  __device__ Row at(int r) const {
-    const int s = r / heads, h = r - s * heads;
-    const long long page = (long long)page_size * head_dim;
-    return Row{tables + (long long)s * max_pages, h * page, heads * page, page_size,
-               head_dim, h, heads};
-  }
-};
-
-template <typename Addr>
-struct Args {
-  const void* q;       // [rows / heads, heads, D]: (q_s0, q_s1, 1) strides
-  long long q_s0, q_s1;
-  const void* k;
-  const void* v;
-  const float* k_scale;  // int8 caches only: where Row::scale_at points
-  const float* v_scale;
-  void* out;           // [rows, D] contiguous
-  int heads;
-  float scale;
-  Addr addr;
-};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -176,170 +130,6 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-template <typename T, typename KV, int D, typename Addr>
-__global__ void __launch_bounds__(THREADS) decode_kernel(const Args<Addr> a) {
-  // int8 storage: dequantize each key and value as it is read
-  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
-  static_assert(QUANT || std::is_same<KV, T>::value,
-                "a float cache shares the type of q and the output");
-  constexpr int VEC = Vec16<KV>::N;           // elements per 16-byte load
-  constexpr int NVD = D / VEC;                // 16-byte chunks per row
-  // scores: TPK threads per key, each owning NV chunks of the row
-  constexpr int TPK = NVD < 32 ? NVD : 32;
-  constexpr int NV = NVD / TPK;
-  constexpr int KPP = THREADS / TPK;          // keys per pass of the CTA
-  // PV: thread = (key split, column chunk)
-  static_assert(THREADS % NVD == 0, "PV: whole rows of column chunks");
-  constexpr int NSPLIT = THREADS / NVD;
-  static_assert(D % VEC == 0 && (TPK & (TPK - 1)) == 0, "head_dim tiling");
-
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const KV* __restrict__ k = static_cast<const KV*>(a.k);
-  const KV* __restrict__ v = static_cast<const KV*>(a.v);
-  __shared__ float q_s[D];
-  __shared__ float p_s[KC];
-  __shared__ float red_m[WARPS], red_s[WARPS];
-  __shared__ __align__(16) float part[THREADS * VEC];
-
-  const int len = a.addr.len(row);
-  const typename Addr::Row at = a.addr.at(row);
-  {
-    const int b = row / a.heads, h = row - b * a.heads;
-    const T* q = static_cast<const T*>(a.q) + b * a.q_s0 + h * a.q_s1;
-    for (int i = tid; i < D; i += THREADS) q_s[i] = to_f(q[i]);
-  }
-  const int grp = tid / TPK, lig = tid - grp * TPK;    // score group, lane in it
-  const int split = tid / NVD, cv = tid - split * NVD; // PV split, column chunk
-  float m = NEG_INF, l = 0.f;
-  float acc[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-
-  for (int c0 = 0; c0 < len; c0 += KC) {
-    const int nk = min(KC, len - c0);
-    __syncthreads();   // q_s written; the last chunk's readers of p_s done
-    // 1. scaled scores of keys c0 .. c0 + nk - 1 (nk is uniform, so every
-    //    lane of a warp runs the same shuffles)
-    for (int cb = 0; cb < nk; cb += KPP * UNROLL) {
-      uint4 kv[UNROLL][NV];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int c = cb + u * KPP + grp;
-        if (c < nk) {
-          const KV* kr = k + at.key(c0 + c);
-#pragma unroll
-          for (int j = 0; j < NV; ++j)
-            kv[u][j] = *reinterpret_cast<const uint4*>(kr + (lig + j * TPK) * VEC);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int c = cb + u * KPP + grp;
-        float dot = 0.f;
-        if (c < nk) {
-          const float sk = QUANT ? a.k_scale[at.scale_at(c0 + c)] : 1.f;
-#pragma unroll
-          for (int j = 0; j < NV; ++j) {
-            float kf[VEC];
-            Vec16<KV>::unpack(kv[u][j], kf);
-            if (QUANT) {
-#pragma unroll
-              for (int e = 0; e < VEC; ++e) kf[e] *= sk;
-            }
-            const float* qe = q_s + (lig + j * TPK) * VEC;
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) dot = fmaf(qe[e], kf[e], dot);
-          }
-        }
-        dot = group_sum<TPK>(dot);
-        if (c < nk && lig == 0) p_s[c] = dot * a.scale;
-      }
-    }
-    __syncthreads();
-    // 2. online softmax over the chunk
-    float mx = NEG_INF;
-    for (int c = tid; c < nk; c += THREADS) mx = fmaxf(mx, p_s[c]);
-    mx = warp_max(mx);
-    if (lane == 0) red_m[warp] = mx;
-    __syncthreads();
-    mx = red_m[0];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) mx = fmaxf(mx, red_m[w]);
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
-    for (int c = tid; c < nk; c += THREADS) {
-      const float p = expf(p_s[c] - m_new);
-      sum += p;
-      p_s[c] = Round<T>::p(p);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) red_s[warp] = sum;
-    __syncthreads();   // also publishes p_s
-    sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += red_s[w];
-    const float alpha = expf(m - m_new);
-    l = alpha * l + sum;
-    m = m_new;
-    // 3. acc = acc * alpha + P V over this thread's keys and columns
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] *= alpha;
-    for (int cb = split; cb < nk; cb += NSPLIT * UNROLL) {
-      uint4 vv[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int c = cb + u * NSPLIT;
-        if (c < nk)
-          vv[u] = *reinterpret_cast<const uint4*>(v + at.key(c0 + c) + cv * VEC);
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int c = cb + u * NSPLIT;
-        if (c < nk) {
-          float vf[VEC];
-          Vec16<KV>::unpack(vv[u], vf);
-          if (QUANT) {
-            const float sv = a.v_scale[at.scale_at(c0 + c)];
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) vf[e] *= sv;
-          }
-          const float p = p_s[c];
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
-        }
-      }
-    }
-  }
-  // sum the key splits of each column chunk, normalise, write the row
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) part[tid * VEC + e] = acc[e];
-  __syncthreads();
-  if (split == 0) {
-    for (int j = 1; j < NSPLIT; ++j) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] += part[(j * NVD + cv) * VEC + e];
-    }
-    const float l_safe = l == 0.f ? 1.f : l;
-    float o[VEC];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) o[e] = acc[e] / l_safe;
-    // a column chunk of an int8 cache is 16 elements: four fp32 vectors
-    constexpr int OV = Vec16<T>::N;
-    T* dst = static_cast<T*>(a.out) + (long long)row * D + cv * VEC;
-#pragma unroll
-    for (int j = 0; j < VEC / OV; ++j)
-      *reinterpret_cast<uint4*>(dst + j * OV) = Vec16<T>::pack(o + j * OV);
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// The contiguous cache: the keys of a row split over CTAs
-// ---------------------------------------------------------------------------
-
-constexpr int SPLIT_THREADS = 128;   // 4 warps a CTA
-
 // keys one CTA takes: K and V of the split fill at most 32 KiB of shared
 // memory before their rows are padded, between 16 and 128 keys (a power
 // of two).
@@ -353,6 +143,12 @@ struct Split {
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src)
                : "memory");
 }
 
@@ -398,27 +194,50 @@ __device__ __forceinline__ int ticket_add(int* p) {
   return old;
 }
 
-// The split launch's arguments, as decode_attention_forward documents them.
-struct SplitArgs {
-  const void* q;       // [batch, heads, D]: (q_sb, q_sh, 1) strides
-  long long q_sb, q_sh;
-  const void* k;       // [batch, heads, max_seq, D]: (sb, sh, ss, 1) strides
-  const void* v;
-  const float* k_scale;  // [batch, heads], int8 caches only
-  const float* v_scale;
-  long long sb, sh, ss;
-  void* out;           // [batch * heads, D] contiguous
+// The contiguous cache [batch, heads, max_seq, D] with element strides
+// (sb, sh, ss, 1); one length for every row.
+struct Contig {
   const int* length;   // one int32 on the device
-  float* ws;           // [rows, nsplit, D] partial sums, then [rows, nsplit, 2] (m, l)
-  int* tickets;        // [rows], 0 between launches
-  long long rows;      // batch * heads
-  int heads, max_seq, nsplit;
-  float scale;
+  long long sb, sh, ss;
+  int max_seq;
+  __device__ int len(int) const { return min(max(*length, 0), max_seq); }
 };
 
-template <typename T, typename KV, int D>
-__global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const SplitArgs a) {
+// The paged pool [pages, heads, page_size, D], contiguous: key c of slot
+// s at page tables[s, c / page_size], offset c % page_size; each slot's
+// own length.
+struct Paged {
+  const int* tables;   // [slots, max_pages]
+  const int* lengths;  // [slots]
+  int page_size, max_pages;
+  __device__ int len(int s) const {
+    return min(max(lengths[s], 0), max_pages * page_size);
+  }
+};
+
+// The launch's arguments, as decode_attention_forward and
+// paged_attention_forward document them.
+template <typename Addr>
+struct SplitArgs {
+  const void* q;       // [rows / heads, heads, D]: (q_s0, q_s1, 1) strides
+  long long q_s0, q_s1;
+  const void* k;       // the cache or the pool
+  const void* v;
+  const float* k_scale;  // int8 only: [batch, heads] or [pages, heads]
+  const float* v_scale;
+  void* out;           // [rows, D] contiguous
+  float* ws;           // [rows, nsplit, D] partial sums, then [rows, nsplit, 2] (m, l)
+  int* tickets;        // [rows], 0 between launches
+  long long rows;      // batch (or slots) * heads
+  int heads, nsplit;
+  float scale;
+  Addr addr;
+};
+
+template <typename T, typename KV, int D, typename Addr>
+__global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const SplitArgs<Addr> a) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  constexpr bool PAGED = std::is_same<Addr, Paged>::value;
   static_assert(QUANT || std::is_same<KV, T>::value,
                 "a float cache shares the type of q and the output");
   constexpr int NT = SPLIT_THREADS;
@@ -436,14 +255,19 @@ __global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const Split
   constexpr int NG = NT / NVD;
   static_assert(D % VEC == 0 && NG >= 1 && TPK >= 1 && NVD % TPK == 0,
                 "head_dim tiling");
+  static_assert(KS <= NT, "paged: a thread a key, and so a page, of the split");
   // shared memory: K and V of the split, q (fp32), the scores, then the
   // key groups' partial sums (over K, once K is no longer read, when they
-  // fit there)
+  // fit there); paged: each key's offset in the pool and, int8, the
+  // scales of the split's pages and each key's page among them
   constexpr int TILE = KS * KP * (int)sizeof(KV);
   constexpr int PART = NG * D * 4;
   constexpr int Q_AT = 2 * TILE, S_AT = Q_AT + D * 4;
   constexpr int PART_AT = PART <= TILE ? 0 : S_AT + KS * 4;
-  constexpr int SMEM = S_AT + KS * 4 + (PART <= TILE ? 0 : PART);
+  constexpr int OFF_AT = S_AT + KS * 4 + (PART <= TILE ? 0 : PART);
+  constexpr int SC_AT = OFF_AT + (PAGED ? KS * 8 : 0);
+  constexpr int PJ_AT = SC_AT + (PAGED && QUANT ? 2 * KS * 4 : 0);
+  constexpr int SMEM = PJ_AT + (PAGED && QUANT ? KS : 0);
   __shared__ __align__(16) unsigned char smem[SMEM];
   __shared__ int last;
   KV* k_s = reinterpret_cast<KV*>(smem);
@@ -451,12 +275,17 @@ __global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const Split
   float* q_s = reinterpret_cast<float*>(smem + Q_AT);
   float* s_s = reinterpret_cast<float*>(smem + S_AT);
   float* part = reinterpret_cast<float*>(smem + PART_AT);
+  long long* off_s = reinterpret_cast<long long*>(smem + OFF_AT);
+  float* ksc_s = reinterpret_cast<float*>(smem + SC_AT);
+  float* vsc_s = ksc_s + KS;
+  unsigned char* pj_s = smem + PJ_AT;
 
   const long long row = blockIdx.x;
   const int split = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31;
   T* out = static_cast<T*>(a.out) + row * D;
-  const int len = min(max(*a.length, 0), a.max_seq);
+  const int b = (int)(row / a.heads), h = (int)(row - (long long)b * a.heads);
+  const int len = a.addr.len(b);
   if (len == 0) {                      // a length-0 row writes zeros
     if (split == 0)
       for (int i = tid; i < D; i += NT) out[i] = from_f<T>(0.f);
@@ -466,39 +295,82 @@ __global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const Split
   if (c0 >= len) return;               // every key of this split is past the length
   const int nk = min(KS, len - c0);
   const int nlive = (len + KS - 1) / KS;
-  const int b = (int)(row / a.heads), h = (int)(row - (long long)b * a.heads);
 
-  // 1. all of the split's K, then all of its V, in flight before any
+  // 1. where key c0 + r of the split lies: its element offset in the
+  //    cache or the pool
+  long long base = 0;
+  if constexpr (PAGED) {
+    // the table entries of the pages the live keys touch (np <= nk <= NT),
+    // one thread a page, into K's tile before its copies; an int8 pool's
+    // scales of those pages copied beside them, in K's commit group
+    const int ps = a.addr.page_size;
+    const int p0 = c0 / ps, np = (c0 + nk - 1) / ps - p0 + 1;
+    int* pg_s = reinterpret_cast<int*>(smem);
+    if (tid < np) {
+      const int pg = a.addr.tables[(long long)b * a.addr.max_pages + p0 + tid];
+      pg_s[tid] = pg;
+      if constexpr (QUANT) {
+        cp_async4(ksc_s + tid, a.k_scale + (long long)pg * a.heads + h);
+        cp_async4(vsc_s + tid, a.v_scale + (long long)pg * a.heads + h);
+      }
+    }
+    __syncthreads();                   // the split's pages in place
+    if (tid < nk) {
+      const int j = (c0 - p0 * ps + tid) / ps;   // the key's page in the split
+      off_s[tid] = ((long long)pg_s[j] * a.heads + h) * ps * D +
+                   (long long)(c0 + tid - (p0 + j) * ps) * D;
+      if constexpr (QUANT) pj_s[tid] = (unsigned char)j;
+    }
+    __syncthreads();                   // offsets in place; K's tile free again
+  } else {
+    base = b * a.addr.sb + h * a.addr.sh + c0 * a.addr.ss;
+  }
+  const auto key_at = [&](int r) -> long long {
+    if constexpr (PAGED) {
+      return off_s[r];
+    } else {
+      return base + r * a.addr.ss;
+    }
+  };
+
+  // 2. all of the split's K, then all of its V, in flight before any
   //    arithmetic: two commit groups
   {
-    const KV* kg = static_cast<const KV*>(a.k) + b * a.sb + h * a.sh + c0 * a.ss;
-    const KV* vg = static_cast<const KV*>(a.v) + b * a.sb + h * a.sh + c0 * a.ss;
+    const KV* kg = static_cast<const KV*>(a.k);
+    const KV* vg = static_cast<const KV*>(a.v);
     for (int i = tid; i < nk * NVD; i += NT) {
       const int r = i / NVD, c = i - r * NVD;
-      cp_async16(k_s + r * KP + c * VEC, kg + r * a.ss + c * VEC);
+      cp_async16(k_s + r * KP + c * VEC, kg + key_at(r) + c * VEC);
     }
     cp_async_commit();
     for (int i = tid; i < nk * NVD; i += NT) {
       const int r = i / NVD, c = i - r * NVD;
-      cp_async16(v_s + r * KP + c * VEC, vg + r * a.ss + c * VEC);
+      cp_async16(v_s + r * KP + c * VEC, vg + key_at(r) + c * VEC);
     }
     cp_async_commit();
   }
   // q, as fp32, while the copies fly
   {
-    const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const T* q = static_cast<const T*>(a.q) + b * a.q_s0 + h * a.q_s1;
     for (int i = tid; i < D; i += NT) q_s[i] = to_f(q[i]);
   }
   cp_async_wait<1>();
   __syncthreads();                     // K and q in place
 
-  // 2. scaled scores: key c = tid / TPK; each lane sums its chunks one
+  // 3. scaled scores: key c = tid / TPK; each lane sums its chunks one
   //    by one, adds the chunks' sums pairwise, and the TPK lanes are
   //    summed by shuffles (no long serial chain: fp32 error stays at the
   //    size of a 16-term sum)
   {
     const int c = tid / TPK, lig = tid - c * TPK;
-    const float sk = QUANT ? a.k_scale[row] : 1.f;
+    float sk = 1.f;
+    if constexpr (QUANT) {
+      if constexpr (PAGED) {
+        sk = c < nk ? ksc_s[pj_s[c]] : 1.f;
+      } else {
+        sk = a.k_scale[row];
+      }
+    }
     float dot = 0.f;
     if (c < nk) {
       float cs[NV];
@@ -523,7 +395,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const Split
   }
   __syncthreads();                     // scores in place; K no longer read
 
-  // 3. the split's max and denominator (the unrounded P), each warp for
+  // 4. the split's max and denominator (the unrounded P), each warp for
   //    itself: the same sums in the same order, so the same bits
   float m = NEG_INF;
   for (int c = lane; c < nk; c += 32) m = fmaxf(m, s_s[c]);
@@ -532,7 +404,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const Split
   for (int c = lane; c < nk; c += 32) l += expf(s_s[c] - m);
   l = warp_sum(l);
 
-  // 4. P V: P rounded to the cache dtype against the split's max
+  // 5. P V: P rounded to the cache dtype against the split's max
   cp_async_wait<0>();
   __syncthreads();                     // V in place
   const int g = tid / NVD, cv = tid - g * NVD;
@@ -540,9 +412,11 @@ __global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const Split
 #pragma unroll
   for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
   if (g < NG) {
-    const float sv = QUANT ? a.v_scale[row] : 1.f;
+    float sv = 1.f;
+    if constexpr (QUANT && !PAGED) sv = a.v_scale[row];
 #pragma unroll 4
     for (int c = g; c < nk; c += NG) {
+      if constexpr (QUANT && PAGED) sv = vsc_s[pj_s[c]];
       const float p = Round<T>::p(expf(s_s[c] - m));
       float vf[VEC];
       unpack_kv<KV>(*reinterpret_cast<const uint4*>(v_s + c * KP + cv * VEC), vf);
@@ -561,7 +435,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const Split
     }
   }
 
-  // 5. one live split: the output straight away
+  // 6. one live split: the output straight away
   if (nlive == 1) {
     if (tid < NVD) {
 #pragma unroll
@@ -569,7 +443,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const Split
     }
     return;
   }
-  // 6. else the partial (m, l, acc) into the workspace; the last CTA of
+  // 7. else the partial (m, l, acc) into the workspace; the last CTA of
   //    the row to arrive merges the row's partials in split order
   float* const ws_ml = a.ws + a.rows * a.nsplit * D + row * a.nsplit * 2;
   float* const ws_o = a.ws + row * a.nsplit * D;
@@ -623,23 +497,58 @@ __global__ void __launch_bounds__(SPLIT_THREADS) decode_split_kernel(const Split
   }
 }
 
-template <typename T, typename KV, int D>
-int launch_split(const SplitArgs& a, int keys_per_split, cudaStream_t stream) {
+template <typename T, typename KV, int D, typename Addr>
+int launch_split(const SplitArgs<Addr>& a, long long capacity, int keys_per_split,
+                 cudaStream_t stream) {
   // the wrapper sizes the grid and the workspace from the same split
   if (keys_per_split != Split<KV, D>::KS ||
-      a.nsplit != (a.max_seq + keys_per_split - 1) / keys_per_split || a.nsplit > 65535)
+      a.nsplit != (capacity + keys_per_split - 1) / keys_per_split || a.nsplit > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)a.rows, (unsigned)a.nsplit);
-  decode_split_kernel<T, KV, D><<<grid, SPLIT_THREADS, 0, stream>>>(a);
+  decode_split_kernel<T, KV, D, Addr><<<grid, SPLIT_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// what a launch of the split kernel runs: static shared memory per CTA,
-// registers per thread, CTAs resident per SM, threads per CTA, local
-// memory per thread, keys per split
-template <typename T, typename KV, int D>
+template <typename T, typename KV, typename Addr>
+int dispatch_split(int head_dim, const SplitArgs<Addr>& a, long long capacity, int ks,
+                   cudaStream_t s) {
+  switch (head_dim) {
+    case 16: return launch_split<T, KV, 16>(a, capacity, ks, s);
+    case 32: return launch_split<T, KV, 32>(a, capacity, ks, s);
+    case 64: return launch_split<T, KV, 64>(a, capacity, ks, s);
+    case 128: return launch_split<T, KV, 128>(a, capacity, ks, s);
+    case 192: return launch_split<T, KV, 192>(a, capacity, ks, s);
+    case 256: return launch_split<T, KV, 256>(a, capacity, ks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename Addr>
+int run_split(int device, int dtype, int head_dim, const SplitArgs<Addr>& a,
+              long long capacity, int keys_per_split, void* stream) {
+  if (a.rows < 1 || a.rows > 0x7fffffffLL || a.heads < 1 || capacity < 1 ||
+      keys_per_split < 1 || a.ws == nullptr || a.tickets == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // scales with an int8 cache, and only then
+  if ((dtype == 2) != (a.k_scale != nullptr && a.v_scale != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_split<float, float>(head_dim, a, capacity, keys_per_split, s);
+  if (dtype == 1)
+    return dispatch_split<__nv_bfloat16, __nv_bfloat16>(head_dim, a, capacity,
+                                                        keys_per_split, s);
+  if (dtype == 2) return dispatch_split<float, int8_t>(head_dim, a, capacity, keys_per_split, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// what a launch runs: static shared memory per CTA, registers per thread,
+// CTAs resident per SM, threads per CTA, local memory per thread, keys
+// per split
+template <typename T, typename KV, int D, typename Addr>
 int info_split(int* info) {
-  auto fn = decode_split_kernel<T, KV, D>;
+  auto fn = decode_split_kernel<T, KV, D, Addr>;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   int ctas = 0;
@@ -655,68 +564,26 @@ int info_split(int* info) {
   return 0;
 }
 
-template <typename T, typename KV>
+template <typename T, typename KV, typename Addr>
 int info_head_dim(int head_dim, int* info) {
   switch (head_dim) {
-    case 16: return info_split<T, KV, 16>(info);
-    case 32: return info_split<T, KV, 32>(info);
-    case 64: return info_split<T, KV, 64>(info);
-    case 128: return info_split<T, KV, 128>(info);
-    case 192: return info_split<T, KV, 192>(info);
-    case 256: return info_split<T, KV, 256>(info);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T, typename KV>
-int dispatch_split(int head_dim, const SplitArgs& a, int ks, cudaStream_t s) {
-  switch (head_dim) {
-    case 16: return launch_split<T, KV, 16>(a, ks, s);
-    case 32: return launch_split<T, KV, 32>(a, ks, s);
-    case 64: return launch_split<T, KV, 64>(a, ks, s);
-    case 128: return launch_split<T, KV, 128>(a, ks, s);
-    case 192: return launch_split<T, KV, 192>(a, ks, s);
-    case 256: return launch_split<T, KV, 256>(a, ks, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The paged pool: one CTA per (slot, head)
-// ---------------------------------------------------------------------------
-
-template <typename T, typename KV, int D, typename Addr>
-int launch(const Args<Addr>& a, long long rows, cudaStream_t stream) {
-  decode_kernel<T, KV, D, Addr><<<(unsigned)rows, THREADS, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, typename KV, typename Addr>
-int dispatch_head_dim(int head_dim, const Args<Addr>& a, long long rows, cudaStream_t s) {
-  switch (head_dim) {
-    case 16: return launch<T, KV, 16>(a, rows, s);
-    case 32: return launch<T, KV, 32>(a, rows, s);
-    case 64: return launch<T, KV, 64>(a, rows, s);
-    case 128: return launch<T, KV, 128>(a, rows, s);
-    case 256: return launch<T, KV, 256>(a, rows, s);
+    case 16: return info_split<T, KV, 16, Addr>(info);
+    case 32: return info_split<T, KV, 32, Addr>(info);
+    case 64: return info_split<T, KV, 64, Addr>(info);
+    case 128: return info_split<T, KV, 128, Addr>(info);
+    case 192: return info_split<T, KV, 192, Addr>(info);
+    case 256: return info_split<T, KV, 256, Addr>(info);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename Addr>
-int run(int device, int dtype, int head_dim, const Args<Addr>& a, long long rows,
-        void* stream) {
-  if (rows < 1 || rows > 0x7fffffffLL || a.heads < 1) return (int)cudaErrorInvalidValue;
-  // scales with an int8 cache, and only then
-  if ((dtype == 2) != (a.k_scale != nullptr && a.v_scale != nullptr))
-    return (int)cudaErrorInvalidValue;
+int kernel_info(int device, int dtype, int head_dim, int* info) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_head_dim<float, float>(head_dim, a, rows, s);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16, __nv_bfloat16>(head_dim, a, rows, s);
-  if (dtype == 2) return dispatch_head_dim<float, int8_t>(head_dim, a, rows, s);
+  if (dtype == 0) return info_head_dim<float, float, Addr>(head_dim, info);
+  if (dtype == 1) return info_head_dim<__nv_bfloat16, __nv_bfloat16, Addr>(head_dim, info);
+  if (dtype == 2) return info_head_dim<float, int8_t, Addr>(head_dim, info);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -728,20 +595,20 @@ extern "C" {
 // its own CUDA runtime, whose current device is not PyTorch's).  dtype:
 // 0 = float32, 1 = bfloat16, for q, the cache and out alike; 2 = an int8
 // cache with fp32 q and out, and fp32 k_scale/v_scale (null for dtypes 0
-// and 1).  out: [batch, heads, head_dim], contiguous.  Each returns a
-// cudaError_t (0 on success).
+// and 1).  head_dim: one of 16, 32, 64, 128, 192, 256.  out: [rows / heads,
+// heads, head_dim], contiguous.  keys_per_split: the keys one CTA takes
+// (the kernel's own Split::KS, which the wrappers compute alike);
+// num_splits = ceil(capacity / keys_per_split), the capacity being
+// max_seq or max_pages * page_size; workspace: rows * num_splits *
+// (head_dim + 2) fp32; tickets: rows int32, all 0 (the kernel leaves them
+// 0).  Launches on one stream may share a workspace; launches that may run
+// at the same time may not.  Each returns a cudaError_t (0 on success).
 //
-// Contiguous cache: head_dim one of 16, 32, 64, 128, 192, 256.  q: [batch,
-// heads, head_dim] with element strides (q_sb, q_sh, 1); k, v [batch,
-// heads, max_seq, head_dim], both with the element strides (sb, sh, ss,
-// 1), rows 16-byte aligned; k_scale, v_scale [batch, heads] contiguous;
-// length: one int32 on the device, the valid positions (clamped to [0,
-// max_seq]).  keys_per_split: the keys one CTA takes (the kernel's own
-// Split::KS, which the wrapper computes alike); num_splits = ceil(max_seq
-// / keys_per_split); workspace: batch * heads * num_splits * (head_dim +
-// 2) fp32; tickets: batch * heads int32, all 0 (the kernel leaves them 0).
-// Launches on one stream may share a workspace; launches that may run at
-// the same time may not.
+// Contiguous cache: q [batch, heads, head_dim] with element strides (q_sb,
+// q_sh, 1); k, v [batch, heads, max_seq, head_dim], both with the element
+// strides (sb, sh, ss, 1), rows 16-byte aligned; k_scale, v_scale [batch,
+// heads] contiguous; length: one int32 on the device, the valid positions
+// (clamped to [0, max_seq]).
 int decode_attention_forward(int device, int dtype, int head_dim, const void* q,
                              long long q_sb, long long q_sh, const void* k, const void* v,
                              const float* k_scale, const float* v_scale,
@@ -749,55 +616,47 @@ int decode_attention_forward(int device, int dtype, int head_dim, const void* q,
                              const int* length, int batch, int heads, int max_seq,
                              float scale, int keys_per_split, int num_splits,
                              float* workspace, int* tickets, void* stream) {
-  const long long rows = (long long)batch * heads;
-  if (batch < 1 || heads < 1 || max_seq < 1 || rows > 0x7fffffffLL ||
-      keys_per_split < 1 || workspace == nullptr || tickets == nullptr)
-    return (int)cudaErrorInvalidValue;
-  // scales with an int8 cache, and only then
-  if ((dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
-    return (int)cudaErrorInvalidValue;
-  const SplitArgs a{q, q_sb, q_sh, k, v, k_scale, v_scale, sb, sh, ss, out, length,
-                    workspace, tickets, rows, heads, max_seq, num_splits, scale};
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_split<float, float>(head_dim, a, keys_per_split, s);
-  if (dtype == 1)
-    return dispatch_split<__nv_bfloat16, __nv_bfloat16>(head_dim, a, keys_per_split, s);
-  if (dtype == 2) return dispatch_split<float, int8_t>(head_dim, a, keys_per_split, s);
-  return (int)cudaErrorInvalidValue;
+  if (batch < 1 || max_seq < 1) return (int)cudaErrorInvalidValue;
+  const SplitArgs<Contig> a{q, q_sb, q_sh, k, v, k_scale, v_scale, out, workspace, tickets,
+                            (long long)batch * heads, heads, num_splits, scale,
+                            Contig{length, sb, sh, ss, max_seq}};
+  return run_split(device, dtype, head_dim, a, max_seq, keys_per_split, stream);
 }
 
-// Paged pool: head_dim one of 16, 32, 64, 128, 256.  k_pool, v_pool
-// [num_pages, heads, page_size, head_dim], contiguous; k_scale, v_scale
-// [num_pages, heads] contiguous; tables [slots, max_pages] int32,
-// contiguous, every entry read a page id below num_pages; lengths [slots]
-// int32, the valid positions of each slot (clamped to [0, max_pages *
-// page_size]; 0 gives zeros).  q: [slots, heads, head_dim] with strides
-// (q_ss, q_sh, 1).
+// Paged pool: q [slots, heads, head_dim] with element strides (q_ss, q_sh,
+// 1); k_pool, v_pool [num_pages, heads, page_size, head_dim], contiguous;
+// k_scale, v_scale [num_pages, heads] contiguous; tables [slots,
+// max_pages] int32, contiguous, every entry of a page below a slot's
+// length a page id below num_pages (entries past it are never read);
+// lengths [slots] int32, the valid positions of each slot (clamped to [0,
+// max_pages * page_size]; 0 gives zeros).
 int paged_attention_forward(int device, int dtype, int head_dim, const void* q,
                             long long q_ss, long long q_sh, const void* k_pool,
                             const void* v_pool, const float* k_scale,
                             const float* v_scale, const int* tables, const int* lengths,
                             void* out, int slots, int heads, int page_size, int max_pages,
-                            float scale, void* stream) {
-  if (slots < 1 || page_size < 1 || max_pages < 1) return (int)cudaErrorInvalidValue;
-  const Args<Paged> a{q, q_ss, q_sh, k_pool, v_pool, k_scale, v_scale, out, heads, scale,
-                      Paged{tables, lengths, heads, page_size, max_pages, head_dim}};
-  return run(device, dtype, head_dim, a, (long long)slots * heads, stream);
+                            float scale, int keys_per_split, int num_splits,
+                            float* workspace, int* tickets, void* stream) {
+  const long long capacity = (long long)max_pages * page_size;
+  if (slots < 1 || page_size < 1 || max_pages < 1 || capacity > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const SplitArgs<Paged> a{q, q_ss, q_sh, k_pool, v_pool, k_scale, v_scale, out, workspace,
+                           tickets, (long long)slots * heads, heads, num_splits, scale,
+                           Paged{tables, lengths, page_size, max_pages}};
+  return run_split(device, dtype, head_dim, a, capacity, keys_per_split, stream);
 }
 
-// The contiguous-cache (split) kernel of this dtype and head_dim: info[0]
-// static shared memory per CTA (bytes), [1] registers per thread, [2] CTAs
+// The contiguous-cache launch of this dtype and head_dim: info[0] static
+// shared memory per CTA (bytes), [1] registers per thread, [2] CTAs
 // resident per SM, [3] threads per CTA, [4] local memory per thread
 // (bytes), [5] keys per split.
 int decode_attention_kernel_info(int device, int dtype, int head_dim, int* info) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  if (dtype == 0) return info_head_dim<float, float>(head_dim, info);
-  if (dtype == 1) return info_head_dim<__nv_bfloat16, __nv_bfloat16>(head_dim, info);
-  if (dtype == 2) return info_head_dim<float, int8_t>(head_dim, info);
-  return (int)cudaErrorInvalidValue;
+  return kernel_info<Contig>(device, dtype, head_dim, info);
+}
+
+// The same for the paged launch.
+int paged_attention_kernel_info(int device, int dtype, int head_dim, int* info) {
+  return kernel_info<Paged>(device, dtype, head_dim, info);
 }
 
 const char* decode_attention_error_string(int err) {

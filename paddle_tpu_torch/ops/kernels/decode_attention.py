@@ -45,6 +45,7 @@ __all__ = [
     "decode_attention",
     "decode_attention_plain",
     "split_merge_plain",
+    "range_partial",
     "merge_partials",
     "kernel_unsupported_reason",
     "kernel_info",
@@ -107,14 +108,23 @@ def split_merge_plain(q, k_cache, v_cache, length: int, scale: float,
         if k_scale is not None:
             k = k * k_scale[:, :, None, None]
             v = v * v_scale[:, :, None, None]
-        s = torch.einsum("bhd,bhkd->bhk", q.float(), k) * scale
-        m = s.amax(dim=-1)
-        p = torch.exp(s - m[..., None])
-        acc = torch.einsum("bhk,bhkd->bhd", p.to(q.dtype).float(), v)
-        parts.append((m, p.sum(dim=-1), acc))
+        parts.append(range_partial(q, k, v, scale))
     if not parts:
         return torch.zeros((b, h, d), dtype=q.dtype, device=q.device)
     return merge_partials(parts).to(q.dtype)
+
+
+def range_partial(q, k, v, scale: float):
+    """One key range's partial (m, l, acc), as a CTA of the split kernel
+    forms it: q ``[..., D]`` over fp32 (dequantized) k, v ``[..., n, D]``;
+    fp32 scores, ``p = exp(s - m)`` against the range's own max, ``l`` the
+    sum of the unrounded p, ``acc`` the sum of p rounded to the q dtype
+    times V."""
+    s = torch.einsum("...d,...kd->...k", q.float(), k) * scale
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("...k,...kd->...d", p.to(q.dtype).float(), v)
+    return m, p.sum(dim=-1), acc
 
 
 def merge_partials(parts):
@@ -153,8 +163,7 @@ def keys_per_split(head_dim: int, dtype: torch.dtype) -> int:
     reason = kernel_unsupported_reason(head_dim, dtype)
     if reason is not None:
         raise ValueError(f"decode_attention kernel: {reason}")
-    raw = SPLIT_KV_BYTES // (2 * head_dim * torch.empty(
-        (), dtype=dtype).element_size())
+    raw = SPLIT_KV_BYTES // (2 * head_dim * dtype.itemsize)
     return next((k for k in (128, 64, 32) if raw >= k), 16)
 
 
@@ -226,10 +235,11 @@ def scale_pointers(k_scale, v_scale):
 
 
 def kernel_info(dtype: torch.dtype, head_dim: int, device: int = 0) -> dict:
-    """What a launch of the split kernel at this cache dtype and head_dim
-    runs on CUDA device ``device``: its shared memory per CTA (bytes),
-    registers per thread, CTAs resident per SM, threads per CTA, local
-    memory per thread (bytes) and keys per split."""
+    """What a contiguous-cache launch of the split kernel at this cache
+    dtype and head_dim runs on CUDA device ``device``: its shared memory
+    per CTA (bytes), registers per thread, CTAs resident per SM, threads
+    per CTA, local memory per thread (bytes) and keys per split
+    (``paged_attention.kernel_info`` reports the paged launch)."""
     return query_kernel_info("decode_attention",
                              "decode_attention_kernel_info",
                              "decode_attention_error_string",

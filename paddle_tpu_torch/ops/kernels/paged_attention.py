@@ -10,10 +10,18 @@ Port of ``paddle_tpu/ops/pallas_kernels/paged_attention.py``.  Parts:
   of ``_xla_paged_reference``: gather, fp32 scores, the ``NEG_INF``
   length mask, an fp32 softmax, probabilities cast to the q dtype before
   PV; a length-0 slot returns zeros;
-- the Hopper kernel (``csrc/decode_attention.cu``, the paged addressing
-  of the decode kernel) behind the public wrapper ``paged_attention``,
-  which keeps the JAX signature.  Each CTA reads its slot's table row and
-  length from device memory and only the pages below its length.
+- the Hopper kernel (``csrc/decode_attention.cu``: the decode kernel's
+  split-and-merge design with the paged addressing) behind the public
+  wrapper ``paged_attention``, which keeps the JAX signature.  Each
+  (slot, head) row's keys are split over CTAs of ``keys_per_split`` keys;
+  each CTA reads its slot's length from device memory, then the table
+  entries of the pages its live keys touch, and only those pages.  Each
+  writes a partial (m, l, acc) to a workspace and the last one of a row
+  merges them in split order;
+- ``split_merge_plain``, the same split-and-merge arithmetic over the
+  pool in plain PyTorch (per-slot lengths, partials over key ranges that
+  may straddle pages, merged in order), used only by the tests and
+  ``chip_smoke.py`` to hold the kernel's design against the reference.
 
 An int8 pool comes with ``k_scale``/``v_scale``, one fp32 scale per
 (page, head): q joins the fp32 dequantization, the kernel dequantizes each
@@ -35,14 +43,19 @@ from . import _build
 from . import decode_attention as _decode
 from .decode_attention import (
     KERNEL_DTYPES, NEG_INF, scale_pointers, check_rows, check_scales,
-    device_lengths, q_dtype,
+    device_lengths, q_dtype, merge_partials, query_kernel_info,
+    range_partial, workspace, workspace_shapes,
 )
 
 __all__ = [
     "paged_attention",
     "paged_attention_plain",
+    "split_merge_plain",
     "gather_pages",
     "kernel_unsupported_reason",
+    "kernel_info",
+    "keys_per_split",
+    "num_splits",
 ]
 
 
@@ -83,9 +96,46 @@ def paged_attention_plain(q, k_pool, v_pool, page_tables, lengths,
     return torch.einsum("shk,shkd->shd", p, v.float()).to(q.dtype)
 
 
-# the paged kernel's head dims: the decode kernel's less 192, which its
-# one-CTA-per-row template does not tile (ROADMAP.md queue 2)
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+def split_merge_plain(q, k_pool, v_pool, page_tables, lengths,
+                      scale: float, keys: int, k_scale=None, v_scale=None
+                      ) -> torch.Tensor:
+    """The paged launch's arithmetic in plain PyTorch: for each slot, its
+    first ``lengths[s]`` positions (clamped to the table's capacity) cut
+    into ranges of ``keys``, each range's keys read from their own pages
+    (a range may straddle pages); each range's partial by
+    ``range_partial``, then the ranges merged in order by
+    ``merge_partials``.  Positions at or past a slot's
+    length, and the table entries of pages holding only such positions,
+    are never read, so a non-finite value there, or an entry naming no
+    pool page, does not reach the output; a length-0 slot gives zeros.
+    q ``[S, H, D]``, pools ``[P, H, page_size, D]``, page_tables ``[S,
+    max_pages]``, lengths ``[S]`` -> ``[S, H, D]`` in the q dtype; an
+    int8 pool with its ``[P, H]`` scales, dequantized as it is read (q
+    fp32, P unrounded)."""
+    slots, h, d = q.shape
+    page = k_pool.shape[2]
+    capacity = page_tables.shape[1] * page
+    out = torch.zeros((slots, h, d), dtype=q.dtype, device=q.device)
+    for s in range(slots):
+        n = max(0, min(int(lengths[s]), capacity))
+        parts = []
+        for c0 in range(0, n, keys):
+            pos = torch.arange(c0, min(c0 + keys, n), device=q.device)
+            pages = page_tables[s, pos // page].long()
+            k = k_pool[pages, :, pos % page].float()          # [nk, H, D]
+            v = v_pool[pages, :, pos % page].float()
+            if k_scale is not None:
+                k = k * k_scale[pages][..., None]
+                v = v * v_scale[pages][..., None]
+            parts.append(range_partial(q[s], k.transpose(0, 1),
+                                       v.transpose(0, 1), scale))
+        if parts:
+            out[s] = merge_partials(parts).to(q.dtype)
+    return out
+
+
+# the kernel's head dims: the decode kernel's
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 
 
 def kernel_unsupported_reason(head_dim: int, dtype: torch.dtype
@@ -101,6 +151,41 @@ def kernel_unsupported_reason(head_dim: int, dtype: torch.dtype
     return None
 
 
+def keys_per_split(head_dim: int, dtype: torch.dtype) -> int:
+    """Keys one CTA of the paged launch takes (the kernel's ``Split::KS``,
+    the decode launch's rule).  Raises ``ValueError`` for what the kernel
+    does not take."""
+    reason = kernel_unsupported_reason(head_dim, dtype)
+    if reason is not None:
+        raise ValueError(f"paged_attention kernel: {reason}")
+    return _decode.keys_per_split(head_dim, dtype)
+
+
+def num_splits(max_pages: int, page_size: int, head_dim: int,
+               dtype: torch.dtype) -> int:
+    """CTAs per (slot, head) row of the launch: the decode launch's count
+    over the table's ``max_pages * page_size`` positions, sized on the
+    host (the lengths stay on the device).  Raises ``ValueError`` for what
+    the kernel does not take, an empty table, or more splits than a grid
+    dimension holds (65535)."""
+    keys_per_split(head_dim, dtype)
+    if max_pages < 1 or page_size < 1:
+        raise ValueError(f"paged_attention kernel: max_pages={max_pages}, "
+                         f"page_size={page_size}")
+    return _decode.num_splits(max_pages * page_size, head_dim, dtype)
+
+
+def kernel_info(dtype: torch.dtype, head_dim: int, device: int = 0) -> dict:
+    """What a paged launch at this pool dtype and head_dim runs on CUDA
+    device ``device``: shared memory per CTA (bytes), registers per
+    thread, CTAs resident per SM, threads per CTA, local memory per
+    thread (bytes, the spills) and keys per split."""
+    return query_kernel_info("decode_attention",
+                             "paged_attention_kernel_info",
+                             "decode_attention_error_string",
+                             KERNEL_DTYPES[dtype], head_dim, device)
+
+
 _fn = None
 
 
@@ -111,7 +196,8 @@ def _kernel_fn():
         fn = lib.paged_attention_forward
         i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
         fn.argtypes = [i32, i32, i32, ptr, i64, i64, ptr, ptr, ptr, ptr, ptr,
-                       ptr, ptr, i32, i32, i32, i32, ctypes.c_float, ptr]
+                       ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, i32,
+                       ptr, ptr, ptr]
         fn.restype = i32
         lib.decode_attention_error_string.argtypes = [i32]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -125,9 +211,7 @@ def _launch(q, k_pool, v_pool, page_tables, lengths, scale: float,
     stream."""
     dev = k_pool.device
     _, h, page_size, d = k_pool.shape
-    reason = kernel_unsupported_reason(d, k_pool.dtype)
-    if reason is not None:
-        raise ValueError(f"paged_attention kernel: {reason}")
+    keys = keys_per_split(d, k_pool.dtype)
     for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
         check_rows(name, pool, 4, dev, k_pool.dtype)
         if not pool.is_contiguous() or pool.shape != k_pool.shape:
@@ -147,15 +231,19 @@ def _launch(q, k_pool, v_pool, page_tables, lengths, scale: float,
                          f"{q.device}; expected {qd} ({slots}, "
                          f"{h}, {d}) with contiguous rows on {dev}")
     ks, vs = scale_pointers(k_scale, v_scale)
+    splits = num_splits(max_pages, page_size, d, k_pool.dtype)
+    shapes = workspace_shapes(slots * h, splits, d)
     tables = page_tables.to(torch.int32).contiguous()
     lens = device_lengths(lengths, slots, dev)
     out = torch.empty((slots, h, d), dtype=q.dtype, device=dev)
     fn, err_str = _kernel_fn()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = workspace(dev, stream, shapes)
     err = fn(dev.index, KERNEL_DTYPES[k_pool.dtype], d, q.data_ptr(),
              q.stride(0), q.stride(1), k_pool.data_ptr(), v_pool.data_ptr(),
              ks, vs, tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-             slots, h, page_size, max_pages, float(scale), stream)
+             slots, h, page_size, max_pages, float(scale), keys, splits,
+             ws["partials"].data_ptr(), ws["tickets"].data_ptr(), stream)
     if err != 0:
         raise RuntimeError("paged_attention kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
@@ -173,7 +261,8 @@ def paged_attention(q, k_pool, v_pool, page_tables, lengths, *,
     k_pool:      [P, H, page_size, D] -- the global page pool
     v_pool:      [P, H, page_size, D]
     page_tables: [S, max_pages] int32 -- per-slot page ids, table order;
-                 every entry the kernel reads must name a pool page
+                 every entry of a page below the slot's length must name a
+                 pool page (the kernel reads no entry past it)
     lengths:     [S] int32 -- valid positions per slot (0 = inactive slot,
                  defined to return zeros)
     k_scale/v_scale: [P, H] fp32 per-(page, head) scales of an int8 pool

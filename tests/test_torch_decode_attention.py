@@ -382,13 +382,18 @@ def test_split_host_pieces_and_what_they_refuse():
 
 
 def test_paged_kernel_refuses_head_dim_192_naming_roadmap_queue_2():
-    """Decode takes head_dim 192; the paged kernel, unchanged in this
-    slice, refuses it naming ROADMAP.md queue 2, off the CPU before
-    anything launches (meta tensors stand in for the card's)."""
+    """The paged kernel's head-dim refusal: it refused head_dim 192 until
+    the paged launch moved onto the split kernel, which takes it; now it
+    takes 192 in every dtype, as the decode kernel does, and refuses the
+    head dims past 256 (320 here) naming ROADMAP.md queue 2, off the CPU
+    before anything launches (meta tensors stand in for the card's)."""
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         assert tda.kernel_unsupported_reason(192, dtype) is None
-        reason = tpa.kernel_unsupported_reason(192, dtype)
-        assert "head_dim=192" in reason and "ROADMAP.md queue 2" in reason
+        assert tpa.kernel_unsupported_reason(192, dtype) is None
+        assert tpa.keys_per_split(192, dtype) == tda.keys_per_split(192,
+                                                                    dtype)
+        reason = tpa.kernel_unsupported_reason(320, dtype)
+        assert "head_dim=320" in reason and "ROADMAP.md queue 2" in reason
         assert tpa.kernel_unsupported_reason(128, dtype) is None
 
     def meta(*shape, dt=torch.bfloat16):
@@ -396,7 +401,139 @@ def test_paged_kernel_refuses_head_dim_192_naming_roadmap_queue_2():
 
     before = _launches()
     with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
-        tpa.paged_attention(meta(2, 4, 192), meta(5, 4, 16, 192),
-                            meta(5, 4, 16, 192), meta(2, 3, dt=torch.int32),
+        tpa.paged_attention(meta(2, 4, 320), meta(5, 4, 16, 320),
+                            meta(5, 4, 16, 320), meta(2, 3, dt=torch.int32),
                             meta(2, dt=torch.int32))
     assert _launches() == before
+
+
+# ---------------------------------------------------------------------------
+# the paged launch of the split kernel: its arithmetic over the pool in
+# plain PyTorch, and its host pieces
+# ---------------------------------------------------------------------------
+
+# (page, max_pages): splits that straddle pages, and splits inside one
+# page; each table holds 2 x 128 + 1 positions or more
+PAGED_SPLIT_TABLES = [(16, 17), (128, 3)]
+
+
+def _paged_split_lengths(keys, page, max_pages):
+    """One slot per length: 0 and 1, a key either side of the first split
+    boundary, one past the second, a page edge and one past it, and the
+    full table."""
+    full = max_pages * page
+    return sorted({min(n, full) for n in (0, 1, keys - 1, keys, keys + 1,
+                                          2 * keys + 1, page, page + 1,
+                                          full)})
+
+
+def _paged_split_inputs(seed, page, max_pages, lengths):
+    """fp32 q, pools and shuffled tables (one slot a length), and the
+    pool positions no slot may see."""
+    rng = np.random.RandomState(seed)
+    slots = len(lengths)
+    num_pages = slots * max_pages + 1
+    tables = rng.permutation(np.arange(1, num_pages)).astype(
+        np.int32)[:slots * max_pages].reshape(slots, max_pages)
+    seen = np.zeros((num_pages, page), bool)
+    for s, n in enumerate(lengths):
+        pos = np.arange(n)
+        seen[tables[s, pos // page], pos % page] = True
+    return (rng.randn(slots, H, D).astype(np.float32),
+            rng.randn(num_pages, H, page, D).astype(np.float32),
+            rng.randn(num_pages, H, page, D).astype(np.float32),
+            tables, seen)
+
+
+@pytest.mark.parametrize("page,max_pages", PAGED_SPLIT_TABLES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_split_merge_plain_matches_jax_pallas_kernel_and_reference(
+        dtype, page, max_pages):
+    """The paged launch's arithmetic (``paged_attention.split_merge_plain``:
+    per-slot lengths, partials over key ranges read page by page, merged
+    in order), with the kernel's keys per split and with 16 (many splits,
+    each inside a page of 16 or 128), against the Pallas kernel in
+    interpret mode and the XLA reference, all lengths in one call.
+    Tolerance ``TOL[dtype]``: fp32, the same arithmetic in another order
+    over at most 384 keys; bf16, each rounds P once (against a split's, a
+    page's or the row's max) and the output once."""
+    keys = tpa.keys_per_split(D, getattr(torch, dtype))
+    lengths = _paged_split_lengths(keys, page, max_pages)
+    q, kp, vp, tables, _ = _paged_split_inputs(7 + page, page, max_pages,
+                                               lengths)
+    slots = len(lengths)
+    jd = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, kp, vp))
+    jt, jl = jnp.asarray(tables), jnp.asarray(np.array(lengths, np.int32))
+    ref = _f32(jpa._xla_paged_reference(jq, jk, jv, jt, jl, SCALE))
+    q8 = jnp.broadcast_to(jq.reshape(slots * H, 1, D), (slots * H, 8, D))
+    pallas = _f32(jpa._paged_pallas(q8, jk, jv, jt, jl, SCALE,
+                                    interpret=True)[:, 0].reshape(slots, H,
+                                                                  D))
+    args = (_port(q, dtype), _port(kp, dtype), _port(vp, dtype),
+            torch.from_numpy(tables), torch.tensor(lengths, dtype=torch.int32),
+            SCALE)
+    for k in (keys, 16):
+        got = tpa.split_merge_plain(*args, k)
+        assert got.dtype == getattr(torch, dtype) and got.shape == (slots, H,
+                                                                    D)
+        got = got.float().numpy()
+        np.testing.assert_allclose(got, pallas, err_msg=f"keys {k}",
+                                   **TOL[dtype])
+        np.testing.assert_allclose(got, ref, err_msg=f"keys {k}",
+                                   **TOL[dtype])
+        assert not got[np.array(lengths) == 0].any(), "length 0 gives zeros"
+
+
+@pytest.mark.parametrize("page,max_pages", PAGED_SPLIT_TABLES)
+def test_paged_split_merge_plain_never_reads_past_the_lengths(page,
+                                                              max_pages):
+    """NaN at every pool position no slot may see, read through tables
+    whose entries past each slot's last live page name no pool page (an
+    index that would raise if it were followed), gives bit for bit the
+    output of the same pool with zeros there."""
+    lengths = _paged_split_lengths(64, page, max_pages)
+    q, kp, vp, tables, seen = _paged_split_inputs(8 + page, page, max_pages,
+                                                  lengths)
+    poisoned = tables.copy()
+    for s, n in enumerate(lengths):
+        poisoned[s, -(-n // page):] = 10 ** 6
+    outs = []
+    for fill, tbl in ((np.nan, poisoned), (0.0, tables)):
+        kf, vf = (np.where(seen[:, None, :, None], a, np.float32(fill))
+                  for a in (kp, vp))
+        outs.append(tpa.split_merge_plain(
+            torch.from_numpy(q), torch.from_numpy(kf), torch.from_numpy(vf),
+            torch.from_numpy(tbl), torch.tensor(lengths), SCALE, 64))
+    assert torch.isfinite(outs[0]).all()
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_paged_split_host_pieces_and_what_they_refuse():
+    """The paged launch's keys per split (the decode launch's), its split
+    count from the table on the host (the lengths stay on the device), its
+    workspace over slots x heads rows, and ``ValueError`` for what the
+    kernel cannot take (a table past 65535 splits, int32 positions
+    included)."""
+    for d in tpa.KERNEL_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            assert tpa.keys_per_split(d, dtype) == tda.keys_per_split(d,
+                                                                      dtype)
+    assert tpa.num_splits(8, 128, 128, torch.bfloat16) == 16
+    assert tpa.num_splits(8, 128, 128, torch.int8) == 8
+    assert tpa.num_splits(17, 16, 64, torch.bfloat16) == 3
+    assert tpa.num_splits(3, 16, 64, torch.float32) == 1
+    assert tpa.num_splits(4, 128, 192, torch.bfloat16) == 16
+    assert tda.workspace_shapes(8 * 16, tpa.num_splits(
+        8, 128, 128, torch.bfloat16), 128) == {
+            "partials": (128 * 16 * 130,), "tickets": (128,)}
+    with pytest.raises(ValueError, match="ROADMAP.md queue 2"):
+        tpa.keys_per_split(320, torch.bfloat16)
+    with pytest.raises(ValueError, match="float16"):
+        tpa.num_splits(4, 16, 64, torch.float16)
+    for max_pages, page in ((0, 16), (4, 0)):
+        with pytest.raises(ValueError, match="max_pages"):
+            tpa.num_splits(max_pages, page, 64, torch.bfloat16)
+    for max_pages, page in ((65536, 128), (2 ** 24, 2 ** 8)):
+        with pytest.raises(ValueError, match="65535"):
+            tpa.num_splits(max_pages, page, 128, torch.bfloat16)

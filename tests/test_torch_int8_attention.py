@@ -187,6 +187,7 @@ def test_decode_int8_plain_matches_jax_reference_and_pallas_kernel(length):
 @pytest.mark.parametrize("head_dim", [16, 64, 128, 192, 256])
 def test_kernels_take_int8_pools(head_dim):
     assert tda.kernel_unsupported_reason(head_dim, torch.int8) is None
+    assert tpa.kernel_unsupported_reason(head_dim, torch.int8) is None
     assert tra.kernel_unsupported_reason(16, head_dim, tra.TOKEN_BLOCK,
                                          torch.int8) is None
 
@@ -340,3 +341,57 @@ def test_ragged_int8_split_merge_plain_matches_jax():
         assert not got[real:].any()
         np.testing.assert_allclose(got.numpy()[:real], ref[:real], **TOL)
         np.testing.assert_allclose(got.numpy()[:real], interp[:real], **TOL)
+
+
+@pytest.mark.parametrize("page,max_pages", [(16, 17), (128, 3)])
+def test_paged_int8_split_merge_plain_matches_jax(page, max_pages):
+    """``paged_attention.split_merge_plain`` over int8 pools (dequantized
+    as they are read with each page's scales, P unrounded), with the
+    kernel's keys per split and with 16, one slot a length -- 0, 1, a key
+    either side of the first split boundary, one past the second, a page
+    edge and one past it, the full table -- against the XLA reference and
+    the Pallas kernel in interpret mode; NaN scales on the pages no slot
+    sees, 127 at every position no slot may see and table entries past
+    each slot's last live page naming no pool page leave the output
+    unchanged bit for bit; this file's TOL."""
+    keys = tpa.keys_per_split(D, torch.int8)
+    full = max_pages * page
+    lengths = sorted({min(n, full) for n in (0, 1, keys - 1, keys, keys + 1,
+                                             2 * keys + 1, page, page + 1,
+                                             full)})
+    rng = np.random.RandomState(23 + page)
+    s, num_pages = len(lengths), len(lengths) * max_pages + 1
+    tables = rng.permutation(np.arange(1, num_pages)).astype(
+        np.int32)[:s * max_pages].reshape(s, max_pages)
+    lens = np.array(lengths, np.int32)
+    q = rng.randn(s, H, D).astype(np.float32)
+    kp, vp = _int8(rng, num_pages, H, page, D), _int8(rng, num_pages, H, page,
+                                                      D)
+    ks, vs = _scales(rng, num_pages, H), _scales(rng, num_pages, H)
+    j = [jnp.asarray(a) for a in (q, kp, vp, tables, lens)]
+    jsc = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    ref = np.asarray(jpa._xla_paged_reference(*j, SCALE, **jsc))
+    q8 = jnp.broadcast_to(j[0].reshape(s * H, 1, D), (s * H, 8, D))
+    pallas = np.asarray(jpa._paged_pallas(
+        q8, *j[1:], SCALE, interpret=True, **jsc))[:, 0].reshape(s, H, D)
+    seen = np.zeros((num_pages, page), bool)
+    poisoned = tables.copy()
+    for i, n in enumerate(lengths):
+        pos = np.arange(n)
+        seen[tables[i, pos // page], pos % page] = True
+        poisoned[i, -(-n // page):] = 10 ** 6
+    kf, vf = (np.where(seen[:, None, :, None], a, np.int8(127))
+              for a in (kp, vp))
+    page_unseen = ~seen.any(axis=1)[:, None]
+    ksf, vsf = (np.where(page_unseen, np.float32(np.nan), a)
+                for a in (ks, vs))
+    for k in (keys, 16):
+        got = tpa.split_merge_plain(_t(q), _t(kp), _t(vp), _t(tables),
+                                    _t(lens), SCALE, k, _t(ks), _t(vs))
+        stale = tpa.split_merge_plain(_t(q), _t(kf), _t(vf), _t(poisoned),
+                                      _t(lens), SCALE, k, _t(ksf), _t(vsf))
+        assert got.dtype == torch.float32
+        assert torch.equal(stale, got), f"keys {k}: stale values"
+        assert not got.numpy()[lens == 0].any()
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+        np.testing.assert_allclose(got.numpy(), pallas, **TOL)

@@ -3,27 +3,32 @@
 kernels on the card, for the first call after a change to
 ``csrc/decode_attention.cu`` or ``csrc/ragged_paged_attention.cu``: build
 those two libraries alone, print ptxas's report and the runtime's view
-(shared memory, registers, CTAs per SM) of the split decode and ragged
-kernels, and run ``chip_smoke.py``'s own checks of them: phase 2's ragged
-cases (bf16 and fp32), phase 8's decode and paged cases with the split
-boundaries, and phase 12's int8 cases.  With ``--time`` it prints their
-times beside the bound and SDPA (phases 2, 8 and 12's timing), and with
-``--parent DIR`` also those of the kernels built from the sources under
-``DIR`` (an unpacked earlier tree of the repository, e.g. ``git archive``
-of the parent commit), in turns on the same card.  Run from the
-repository root:
+(shared memory, registers, CTAs per SM, spills) of the split decode
+kernel's contiguous and paged launches and of the ragged kernel, and run
+``chip_smoke.py``'s own checks of them: phase 2's ragged cases (bf16 and
+fp32), phase 8's decode cases with the split boundaries and paged cases
+with per-slot lengths at the split boundaries, and phase 12's int8 cases.
+With ``--time`` it prints their times beside the bound and SDPA (phases
+2, 8 and 12's timing: the contiguous decode kernel beside the paged one at
+the same shape), and with ``--parent DIR`` also those of the ragged,
+decode and paged kernels of an earlier tree's ``ops/kernels`` package
+unpacked under ``DIR`` (its own wrappers, built from its own sources),
+and phase 10's paged step with each paged kernel, in turns on the same
+card (earlier, current, current, earlier).  Run from the repository
+root:
 
-    python3 tools/port_attention_probe.py [--time] [--parent DIR]
+    git archive <commit> paddle_tpu_torch/ops/kernels | tar -x -C _cmp/parent
+    python3 tools/port_attention_probe.py [--time] [--parent _cmp/parent]
 
 It exits nonzero when a case fails or there is no card.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib
+import importlib.util
 import os
 import re
-import subprocess
 import sys
 import time
 import traceback
@@ -36,8 +41,7 @@ import numpy as np  # noqa: E402
 import chip_smoke as cs  # noqa: E402  (the checks and timings, defined once there)
 
 LIBS = ("decode_attention", "ragged_paged_attention")
-KERNELS = re.compile(r"decode_split_kernel|decode_kernel|"
-                     r"ragged_paged_attention_kernel")
+KERNELS = re.compile(r"decode_split_kernel|ragged_paged_attention_kernel")
 
 
 def checks(port):
@@ -50,9 +54,7 @@ def checks(port):
     cases.append(("decode (phase 8 lengths)", lambda: cs._decode_case(
         port, "bfloat16", (cs.GEN_BATCH, 16, cs.GEN_MAX_SEQ, 128),
         (1, 200, 201, 1024), 40)))
-    cases.append(("paged", lambda: cs._paged_case(
-        port, "bfloat16", 8, 16, 128, 128, (0, 1, 128, 129, 512, 264, 300,
-                                            64), 50)))
+    cases.append(("paged (phase 8)", lambda: cs.paged_checks(port)))
     cases.append(("int8 ragged, paged, decode",
                   lambda: cs.int8_attention_checks(port)))
     fails = 0
@@ -68,63 +70,25 @@ def checks(port):
     return fails
 
 
-def parent_kernels(root, port):
-    """Wrappers with the current wrappers' arguments around the decode and
-    ragged kernels built from ``root``'s sources (their C interface before
-    the split: no workspace), for timing in turns with the current ones."""
-    torch, da, rpa = port["torch"], port["da"], port["rpa"]
-    csrc = os.path.join(root, "paddle_tpu_torch", "ops", "kernels", "csrc")
-    out = os.path.join(root, "build")
-    os.makedirs(out, exist_ok=True)
-    procs = {}
-    for name in LIBS:
-        so = os.path.join(out, f"lib{name}.so")
-        procs[name] = (so, subprocess.Popen(
-            [port["build"]._nvcc(), *port["build"].NVCC_FLAGS, "-o", so,
-             os.path.join(csrc, name + ".cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, p) in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"parent {name} build failed:\n{log}")
-        libs[name] = ctypes.CDLL(so)
-    i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    dfn = libs["decode_attention"].decode_attention_forward
-    dfn.argtypes = [i32, i32, i32, ptr, i64, i64, ptr, ptr, ptr, ptr, i64,
-                    i64, i64, ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
-    rfn = libs["ragged_paged_attention"].rpa_forward
-    rfn.argtypes = [i32, i32] + [ptr] * 15 + [i64] + [i32] * 7 + [
-        ctypes.c_float, ptr]
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def decode(q, k, v, length):
-        b, h, s, d = k.shape
-        out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-        lengths = da.device_lengths(length, 1, k.device)
-        err = dfn(k.device.index, da.KERNEL_DTYPES[k.dtype], d, q.data_ptr(),
-                  q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(), 0, 0,
-                  *k.stride()[:3], out.data_ptr(), lengths.data_ptr(), b, h,
-                  s, 1.0 / d ** 0.5, stream())
-        assert err == 0, f"parent decode launch: cudaError {err}"
-        return out
-
-    def ragged(q, kp, vp, tables, lengths, plan, k_scale=None,
-               v_scale=None):
-        t, h, d = q.shape
-        ks, vs = da.scale_pointers(k_scale, v_scale)
-        out = torch.empty((t, h, d), dtype=q.dtype, device=q.device)
-        err = rfn(kp.device.index, rpa.KERNEL_DTYPES[kp.dtype], q.data_ptr(),
-                  kp.data_ptr(), vp.data_ptr(), ks, vs, out.data_ptr(),
-                  *(a.data_ptr() for a in plan), q.stride(0), t, h, d,
-                  kp.shape[2], rpa.TOKEN_BLOCK, plan[0].shape[0],
-                  plan[5].shape[0], 1.0 / d ** 0.5, stream())
-        assert err == 0, f"parent ragged launch: cudaError {err}"
-        return out
-
-    return decode, ragged
+def parent_kernels(root):
+    """The decode, paged and ragged wrappers of the tree unpacked at
+    ``root`` (its ``paddle_tpu_torch/ops/kernels`` package, loaded beside
+    the current one as ``parent_kernels`` and built from its own sources
+    into its own ``build/``), for timing in turns with the current ones:
+    ``{"decode": fn, "paged": fn, "ragged": fn}``."""
+    path = os.path.join(root, "paddle_tpu_torch", "ops", "kernels")
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernels", os.path.join(path, "__init__.py"),
+        submodule_search_locations=[path])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["parent_kernels"] = pkg
+    spec.loader.exec_module(pkg)
+    mods = {name: importlib.import_module(f"parent_kernels.{name}")
+            for name in ("_build",) + LIBS + ("paged_attention",)}
+    mods["_build"].build(list(LIBS))
+    return {"decode": mods["decode_attention"].decode_attention,
+            "paged": mods["paged_attention"].paged_attention,
+            "ragged": mods["ragged_paged_attention"].ragged_paged_attention}
 
 
 def time_decode(port, n, launch):
@@ -144,9 +108,107 @@ def time_decode(port, n, launch):
     return ms
 
 
+def time_paged(port, n, dtype, launch):
+    """(device ms, host ms) per launch at 8 slots x H 16, D 128, over
+    ``n`` valid positions of 8 shuffled pages of 128 each (phases 8 and
+    12's timed shape), one pool per layer (L2 cold): a bf16 pool, or
+    (``dtype`` "int8") an int8 pool with its scales and fp32 q."""
+    torch = port["torch"]
+    b, h, d, L = cs.GEN_BATCH, 16, 128, cs.SERVE_LAYERS
+    max_pages = cs.GEN_MAX_SEQ // cs.GEN_PAGE
+    num_pages = b * max_pages + 1
+    tables = torch.from_numpy(cs._paged_tables(
+        np.random.RandomState(n), b, max_pages, num_pages)).to(cs.DEVICE)
+    lens = torch.full((b,), n, dtype=torch.int32, device=cs.DEVICE)
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(30 + n)
+    shape = (L, num_pages, h, cs.GEN_PAGE, d)
+    if dtype == "int8":
+        q = cs._randn(torch, (b, h, d), "float32", gen)
+        (kp, ks), (vp, vs) = (cs._int8_pages(torch, shape, gen)
+                              for _ in range(2))
+
+        def scales(i):
+            return dict(k_scale=ks[i % L], v_scale=vs[i % L])
+    else:
+        q = cs._randn(torch, (b, h, d), "bfloat16", gen)
+        kp, vp = (cs._randn(torch, shape, "bfloat16", gen) for _ in range(2))
+
+        def scales(i):
+            return {}
+    ms = cs._time_ms(torch, lambda i: launch(
+        q, kp[i % L], vp[i % L], tables, lens, **scales(i)), 240)
+    del kp, vp
+    torch.cuda.empty_cache()
+    return ms
+
+
+def time_paged_step(port, parent_paged, steps=16):
+    """Phase 10's paged step without a plan, end to end: GPT-3 1.3B bf16
+    over 8 slots of page 128, the prompts' 200 positions written by the
+    chunked prefill, then ``steps`` decode steps at positions 200 onward.
+    The model's paged kernel is ``parent_paged`` and the current one in
+    turns (earlier, current, current, earlier).  Each turn: the mean ms a
+    step on the host clock to a synchronize, then the same steps under
+    ``torch.profiler``: kernel time a step, all kernels and the paged
+    kernel's.  Returns one ``(wall, kernels, paged)`` a turn."""
+    import paddle_tpu_torch.models.gpt as gpt
+    from torch.profiler import ProfilerActivity, profile
+
+    torch = port["torch"]
+    model, ids = cs.generate_setup(port)
+    b = cs.GEN_BATCH
+    max_pages = -(-(cs.GEN_PROMPT + steps) // cs.GEN_PAGE) + 1
+    num_pages = b * max_pages + 1
+    cache = model.new_paged_kv_cache(num_pages, cs.GEN_PAGE,
+                                     dtype="bfloat16")
+    tables = torch.from_numpy(cs._paged_tables(
+        np.random.RandomState(11), b, max_pages, num_pages)).to(cs.DEVICE)
+
+    def step(tok, pos):
+        with torch.no_grad():
+            return model._paged_lm_logits(
+                tok, cache, tables,
+                torch.full((b,), pos, dtype=torch.int32, device=cs.DEVICE))
+
+    def run():
+        for j in range(steps):
+            step(tok, cs.GEN_PROMPT + j)
+            torch.cuda.synchronize()
+
+    for lo in range(0, cs.GEN_PROMPT, cs.GEN_CHUNK):
+        step(ids[:, lo:lo + cs.GEN_CHUNK], lo)
+    tok = ids[:, -1:]
+    current = gpt.paged_attention
+    turns = []
+    for fn in (parent_paged, current, current, parent_paged):
+        gpt.paged_attention = fn
+        try:
+            step(tok, cs.GEN_PROMPT)            # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            wall = 1e3 * (time.perf_counter() - t0) / steps
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+        finally:
+            gpt.paged_attention = current
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        us = sum(e.time_range.elapsed_us() for e in kernels)
+        paged_us = sum(e.time_range.elapsed_us() for e in kernels
+                       if "decode_split_kernel" in e.name
+                       or "decode_kernel" in e.name)
+        turns.append((wall, us / 1e3 / steps, paged_us / 1e3 / steps))
+    del model, cache
+    torch.cuda.empty_cache()
+    return turns
+
+
 def timing(port, parent):
-    """The kernels' times; with ``parent`` also the earlier build's, in the
-    order earlier, current, current, earlier."""
+    """The kernels' times; with ``parent`` also the earlier build's decode
+    and paged kernels, in the order earlier, current, current, earlier."""
     torch = port["torch"]
     P = cs.served_geometry(port["rpa"])["num_pages"]
     rng = np.random.RandomState(1)
@@ -154,43 +216,57 @@ def timing(port, parent):
               ("mixed", cs.mixed_runs(cs._served_runs(rng, P))))
     for name, runs in shapes:
         for dtype in ("bfloat16", "int8"):
-            if parent:
-                before = cs.time_ragged(port, runs, dtype, plain=False,
-                                        launch=parent[1])
             t = cs.time_ragged(port, runs, dtype, plain=False)
-            if parent:
-                after = cs.time_ragged(port, runs, dtype, plain=False,
-                                       launch=parent[1])
             bound = t["bound"][0]
             ms = min(t["ms"], t["ms_again"])
             line = (f"ragged {name} {dtype}: kernel {t['ms']!r} then "
                     f"{t['ms_again']!r} ms, bound {bound!r} "
                     f"({t['bound'][1]}), share {bound / ms:.3f}")
             if parent:
+                before = cs.time_ragged(port, runs, dtype, plain=False,
+                                        launch=parent["ragged"])
                 line += (f"; earlier build {before['ms']!r}, "
-                         f"{before['ms_again']!r}, {after['ms']!r}, "
-                         f"{after['ms_again']!r} ms")
+                         f"{before['ms_again']!r} ms")
             print(line, flush=True)
     for n in cs.DECODE_TIMED_LENGTHS:
         t = cs._time_decode_kernels(port, n)
-        line = (f"decode bf16 (B 8, H 16, D 128) length {n}: kernel "
-                f"{t['decode']!r} then {t['decode_again']!r} ms, SDPA on the "
-                f"sliced cache {t['sdpa']!r} (ratio "
-                f"{min(t['decode'], t['decode_again']) / t['sdpa']:.3f}), "
-                f"bound {t['bound'][0]!r} ({t['bound'][1]}); paged "
-                f"{t['paged']!r} then {t['paged_again']!r} ms")
-        if parent:
-            decode = port["da"].decode_attention
-            order = [time_decode(port, n, parent[0]),
-                     time_decode(port, n, decode),
-                     time_decode(port, n, decode),
-                     time_decode(port, n, parent[0])]
-            line += f"; earlier, current, current, earlier: {order!r} ms"
-        print(line, flush=True)
         i = cs._time_int8_attention(port, n)
+        dec = min(t["decode"], t["decode_again"])
+        pag = min(t["paged"], t["paged_again"])
+        print(f"bf16 (B 8, H 16, D 128) length {n}: decode kernel "
+              f"{t['decode']!r} then {t['decode_again']!r} ms, SDPA on the "
+              f"sliced cache {t['sdpa']!r} (ratio {dec / t['sdpa']:.3f}); "
+              f"paged kernel {t['paged']!r} then {t['paged_again']!r} ms; "
+              f"bound {t['bound'][0]!r} ({t['bound'][1]}), share decode "
+              f"{t['bound'][0] / dec:.3f}, paged {t['bound'][0] / pag:.3f}",
+              flush=True)
         print(f"int8 length {n}: decode {i['decode']!r} ms (bound "
-              f"{i['decode_bound'][0]!r}), paged {i['paged']!r} ms (bound "
-              f"{i['paged_bound'][0]!r})", flush=True)
+              f"{i['decode_bound'][0]!r}, share "
+              f"{i['decode_bound'][0] / i['decode']:.3f}), paged "
+              f"{i['paged']!r} ms (bound {i['paged_bound'][0]!r}, share "
+              f"{i['paged_bound'][0] / i['paged']:.3f})", flush=True)
+        if not parent:
+            continue
+        decode = port["da"].decode_attention
+        order = [time_decode(port, n, f)
+                 for f in (parent["decode"], decode, decode, parent["decode"])]
+        print(f"decode bf16 length {n}, earlier, current, current, earlier: "
+              f"{order!r} ms", flush=True)
+        paged = port["pa"].paged_attention
+        for dtype in ("bfloat16", "int8"):
+            order = [time_paged(port, n, dtype, f)
+                     for f in (parent["paged"], paged, paged,
+                               parent["paged"])]
+            print(f"paged {dtype} length {n}, earlier, current, current, "
+                  f"earlier: device {[t[0] for t in order]!r} ms, host "
+                  f"{[t[1] for t in order]!r} ms a call", flush=True)
+    if parent:
+        turns = time_paged_step(port, parent["paged"])
+        print("paged step (phase 10's, GPT-3 1.3B bf16, 8 slots at positions "
+              "200-215), earlier, current, current, earlier, ms a step: host "
+              f"clock to a synchronize {[t[0] for t in turns]!r}; profiled "
+              f"kernel time {[t[1] for t in turns]!r}, of it the paged "
+              f"kernel {[t[2] for t in turns]!r}", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -228,7 +304,7 @@ def main() -> int:
     cs.attention_kernel_info(port)
     fails = checks(port)
     if args.time and not fails:
-        parent = (parent_kernels(os.path.abspath(args.parent), port)
+        parent = (parent_kernels(os.path.abspath(args.parent))
                   if args.parent else None)
         timing(port, parent)
     if spills:

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the split decode and ragged kernels goes, on the card.
+"""Where the time of the split decode (contiguous and paged) and ragged
+kernels goes, on the card.
 
 Builds variants of ``csrc/decode_attention.cu`` and
 ``csrc/ragged_paged_attention.cu``, each cut short at one stage (its
 output is then wrong: only its time is read), and times each beside the
 kernel itself at ``chip_smoke.py``'s shapes (ragged: the decode-heavy and
 the mixed served steps, bf16 and int8; decode: bf16 over 264 and 1024 of
-1024 positions), one pool or cache per layer so every launch finds its
+1024 positions; paged: bf16 and int8 over 264 and 1024 positions of 8
+pages of 128), one pool or cache per layer so every launch finds its
 bytes cold in L2.  The stages, cumulative:
 
 - ``prologue``: every CTA exits once it knows its keys (the launch, the
-  grid and the reads of the length or the plan);
+  grid and the reads of the length, the page table or the plan);
 - ``loads``: ... once its K and V have landed in shared memory;
 - ``compute``: ... once its scores, softmax and P V are done (ragged);
 - ``ticket``: ... once it has written its partial and taken the ticket,
@@ -18,9 +20,10 @@ bytes cold in L2.  The stages, cumulative:
 - ``kernel``: the kernel as it is.
 
 and, for the ragged kernel's FMA path (fp32, int8), 32 and 128 keys a
-split in place of its 64.  Prints the card's name and power limit and one
-line of device ms per launch for each shape.  Run from the repository
-root:
+split in place of its 64, and for the paged int8 launch 64 keys a split
+in place of its 128 (``int8_keys_64``).  Prints the card's name and power
+limit and one line of device ms per launch for each shape.  Run from the
+repository root:
 
     python3 tools/port_attention_variants.py
 """
@@ -59,15 +62,23 @@ RAGGED = {
     "fma_keys_128": ([(_KS, _KS.replace("MMA && RAW >= 128", "RAW >= 128 || !MMA"))],
                      128),
 }
+_SPLIT_KS = ("  static constexpr int KS = RAW >= 128 ? 128 : RAW >= 64 ? 64 : "
+             "RAW >= 32 ? 32 : 16;")
+# the split decode kernel serves the contiguous and the paged launches:
+# each variant cuts both; (source edits, int8 keys a split or None)
 DECODE = {
     "prologue": ([(
-        "  const int b = (int)(row / a.heads), h = (int)(row - (long long)b * a.heads);\n",
-        "  const int b = (int)(row / a.heads), h = (int)(row - (long long)b * a.heads);\n"
-        "  if (nk > 0) return;\n")], None),
+        "  // 2. all of the split's K, then all of its V, in flight before any\n",
+        "  if (nk > 0) return;\n"
+        "  // 2. all of the split's K, then all of its V, in flight before any\n")],
+        None),
     "loads": ([("  __syncthreads();                     // K and q in place",
                 "  cp_async_wait<0>();\n  __syncthreads();\n  return;")], None),
     "ticket": ([("  if (!last) return;", "  return;")], None),
     "kernel": ([], None),
+    "int8_keys_64": ([(_SPLIT_KS, _SPLIT_KS.replace(
+        "RAW >= 128 ? 128", "RAW >= 128 && (sizeof(KV) > 1 || D != 128) ? 128"))],
+        64),
 }
 
 
@@ -141,7 +152,8 @@ def ragged_launch(port, lib, fma_keys):
 
 
 def decode_launch(port, lib):
-    """A bf16 launch of variant ``lib`` with the wrapper's arguments."""
+    """A bf16 launch of variant ``lib``'s contiguous kernel with the
+    wrapper's arguments."""
     torch, da = port["torch"], port["da"]
     i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     fn = lib.decode_attention_forward
@@ -163,6 +175,39 @@ def decode_launch(port, lib):
         err = fn(k.device.index, da.KERNEL_DTYPES[k.dtype], d, q.data_ptr(),
                  q.stride(0), q.stride(1), k.data_ptr(), v.data_ptr(), 0, 0,
                  *k.stride()[:3], out.data_ptr(), lengths.data_ptr(), b, h, s,
+                 1.0 / d ** 0.5, keys, splits, ws["p"].data_ptr(),
+                 ws["t"].data_ptr(), torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"launch: cudaError {err}"
+        return out
+    return launch
+
+
+def paged_launch(port, lib, int8_keys=None):
+    """A launch of variant ``lib``'s paged kernel with the wrapper's
+    arguments; an int8 pool takes ``int8_keys`` keys a split when given."""
+    torch, da, pa = port["torch"], port["da"], port["pa"]
+    i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    fn = lib.paged_attention_forward
+    fn.argtypes = [i32, i32, i32, ptr, i64, i64, ptr, ptr, ptr, ptr, ptr,
+                   ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32, i32,
+                   ptr, ptr, ptr]
+    ws = {}
+
+    def launch(q, kp, vp, tables, lengths, k_scale=None, v_scale=None):
+        s, h, d = q.shape
+        page, max_pages = kp.shape[2], tables.shape[1]
+        keys = (int8_keys if int8_keys and kp.dtype == torch.int8
+                else pa.keys_per_split(d, kp.dtype))
+        splits = -(-max_pages * page // keys)
+        if not ws:
+            ws["p"] = torch.empty(s * h * splits * (d + 2),
+                                  dtype=torch.float32, device=q.device)
+            ws["t"] = torch.zeros(s * h, dtype=torch.int32, device=q.device)
+        out = torch.empty((s, h, d), dtype=q.dtype, device=q.device)
+        err = fn(q.device.index, da.KERNEL_DTYPES[kp.dtype], d, q.data_ptr(),
+                 q.stride(0), q.stride(1), kp.data_ptr(), vp.data_ptr(),
+                 *da.scale_pointers(k_scale, v_scale), tables.data_ptr(),
+                 lengths.data_ptr(), out.data_ptr(), s, h, page, max_pages,
                  1.0 / d ** 0.5, keys, splits, ws["p"].data_ptr(),
                  ws["t"].data_ptr(), torch.cuda.current_stream().cuda_stream)
         assert err == 0, f"launch: cudaError {err}"
@@ -196,8 +241,15 @@ def main() -> int:
             print(f"ragged {shape} {dtype} device ms: {ms}", flush=True)
     for n in cs.DECODE_TIMED_LENGTHS:
         ms = {name: probe.time_decode(port, n, decode_launch(
-            port, libs[("decode_attention", name)])) for name in DECODE}
+            port, libs[("decode_attention", name)]))
+            for name, (_, keys) in DECODE.items() if keys is None}
         print(f"decode bf16 length {n} device ms: {ms}", flush=True)
+        for dtype in ("bfloat16", "int8"):
+            ms = {name: probe.time_paged(port, n, dtype, paged_launch(
+                port, libs[("decode_attention", name)], keys))
+                for name, (_, keys) in DECODE.items()
+                if keys is None or dtype == "int8"}
+            print(f"paged {dtype} length {n} device ms: {ms}", flush=True)
     return 0
 
 

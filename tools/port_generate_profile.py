@@ -31,7 +31,7 @@ def _group(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash forward (port kernel, prefill)"
-    if "decode_kernel" in n or "decode_split_kernel" in n:
+    if "decode_split_kernel" in n:
         return "decode attention (port kernel)"
     if any(k in n for k in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
         return "matrix products (cuBLAS)"
