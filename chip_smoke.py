@@ -186,7 +186,43 @@ result line:
 19. BERT card vs CPU -- ``bert_tiny(hidden 128, 2 heads)`` with and
    without a padding mask, and two fused post-LN pairs at hidden 128, fp32,
    2 x 128, the same weights on the card and the CPU: outputs within
-   ``CARD_CPU_NORM``, and the card launched the flash and norm kernels.
+   ``CARD_CPU_NORM``, and the card launched the flash and norm kernels;
+20. AdamW master form vs plain -- the fused AdamW kernel's fp32-master
+   form (bf16 p and g; fp32 master, m1 and m2) against its plain version
+   over two consecutive steps at BERT-base's word embeddings [30522,
+   768], a GPT-3 1.3B slab [24, 2048, 8192] and [3, 257] in bf16, each
+   also with every operand off a 16-byte boundary, and [3, 257] in fp16:
+   master and moments within ``ADAMW_TOL["float32"]``, p within
+   ``ADAMW_TOL[dtype]`` of the plain p and exactly the kernel's new master
+   rounded.  Then its device ms per update over every tensor of BERT-base
+   and of GPT-3 1.3B beside the bound (28 bytes an element over 3.35
+   TB/s) and the plain version;
+21. BERT-base train -- ``BertForPretraining(bert_base())`` cast to bf16
+   by ``amp.decorate`` O2, then the recipe (``AdamW`` on fp32 masters,
+   ``LinearWarmup`` over ``PolynomialDecay(power=1)``,
+   ``ClipGradByGlobalNorm(1.0)``, weight decay 0.01 off every name that
+   holds ``bias``, ``ln`` or ``layer_norm``, lr 1e-4) through
+   ``FusedTrainStep``, 16 x 512 with 80 masked positions a row, 10 steps
+   on one fixed batch, with attention dropout 0.1 (the plain route: no
+   flash launch) and 0 (12 flash forward and 12 of each backward kernel a
+   step).  Every step must launch the master form once per parameter
+   tensor, the loss must be finite and fall, and the rate must follow the
+   schedule (``recipe_lr``).  Prints ms a step, tokens/s, MFU (formula in
+   ``bert_train_flops``) and peak memory;
+22. GPT-3 1.3B train with dropout -- phase 6's workload with the config's
+   default dropout 0.1 (attention on the plain causal route: no flash
+   launch), then with attention dropout 0 (48 flash forward launches a
+   step); finite losses, one AdamW launch per tensor a step; prints ms a
+   step, tokens/s and peak memory;
+23. determinism -- GPT-3 1.3B's width at 2 layers, bf16, dropout 0.1, 2 x
+   1024: two runs of two steps from the same seeds give the same bits;
+   recompute on and off give the same gradients (bit for bit), with
+   attention dropout (plain route) and without (flash kernels);
+24. recipe card vs CPU -- gpt_tiny and bert_tiny (hidden 128, 2 heads),
+   fp32, dropout 0: three steps of the whole recipe on the card and on
+   the CPU from the same weights: losses within ``TRAIN_LOSS_ATOL``,
+   parameters within two rate-sized steps plus 1e-5 relative and 99.9 %
+   of them within 1e-6; the card launched the flash and AdamW kernels.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -194,8 +230,9 @@ Output: the card's name and power limit (nvidia-smi), one JSON line with
 the kernels' numbers (the flash rows also carry their ratio to SDPA,
 their share of the bound, the whole backward's time against SDPA's
 backward, and the forward's time at BERT's attention; the ragged row its
-time, plain time and bound at the mixed served shape), and as the last
-line
+time, plain time and bound at the mixed served shape; the AdamW master
+form's row its times at BERT-base and, beside them, at GPT-3 1.3B), and
+as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 """
 from __future__ import annotations
@@ -263,8 +300,10 @@ GEN_NORM, GEN_ATOL = 2.0 ** -4, 0.25
 # AdamW kernel vs plain: the same fp32 formula, which the compiler
 # contracts into FMAs: a value at a bf16 rounding midpoint can round
 # either way (one bf16 ulp, at most 2^-7 relative), and a sum that cancels
-# to ~0 keeps a residue of a few fp32 ulps of its terms (the 1e-6 atol)
-ADAMW_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-6, 2.0 ** -7)}
+# to ~0 keeps a residue of a few fp32 ulps of its terms (the 1e-6 atol);
+# fp16 (the master form's other parameter dtype): one fp16 ulp, 2^-10
+ADAMW_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-6, 2.0 ** -7),
+             "float16": (1e-6, 2.0 ** -10)}
 TRAIN_SHAPE = (8, 16, 1024, 128)           # (B, N, S, D) of GPT-3 1.3B
 FLASH_CASES = (("bfloat16", TRAIN_SHAPE, True),
                ("bfloat16", (2, 16, 1024, 128), True),
@@ -314,10 +353,11 @@ def import_port():
     """Everything of the port this script drives (kept in one place so a
     test can check the imports without a card)."""
     import torch
-    from paddle_tpu_torch import incubate
+    from paddle_tpu_torch import amp, incubate
     from paddle_tpu_torch.models import BertForPretraining, BertModel, \
         BertPretrainingCriterion, GPTStackedForPretraining, bert_base, \
         bert_tiny, gpt_1p3b, gpt_tiny
+    from paddle_tpu_torch.nn import clip
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import decode_attention as da
@@ -326,7 +366,7 @@ def import_port():
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
-    from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
+    from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep, lr
     from paddle_tpu_torch.quantization import int8 as qi8
     from paddle_tpu_torch.serving import RequestState, ServingEngine
 
@@ -336,8 +376,9 @@ def import_port():
                 BertModel=BertModel, BertForPretraining=BertForPretraining,
                 BertPretrainingCriterion=BertPretrainingCriterion,
                 bert_base=bert_base, bert_tiny=bert_tiny,
-                AdamW=AdamW, FusedTrainStep=FusedTrainStep,
-                RequestState=RequestState, ServingEngine=ServingEngine)
+                AdamW=AdamW, FusedTrainStep=FusedTrainStep, amp=amp, lr=lr,
+                clip=clip, RequestState=RequestState,
+                ServingEngine=ServingEngine)
 
 
 def _check(cond, msg):
@@ -1216,6 +1257,16 @@ def _reset_launches(port):
         f.launches = 0
 
 
+def gpt_train_mfu(cfg, step_s):
+    """bench.py's MFU of a GPT train step of TRAIN_BATCH x TRAIN_SEQ taking
+    ``step_s`` seconds: 72 b s L h^2 (1 + s/6h + V/12Lh) over 989
+    TFLOP/s."""
+    L, h, V, s = cfg.num_layers, cfg.hidden_size, cfg.vocab_size, TRAIN_SEQ
+    flops = 72 * TRAIN_BATCH * s * L * h * h * (1 + s / (6 * h)
+                                                + V / (12 * L * h))
+    return flops / step_s / PEAK_FLOPS["bfloat16"]
+
+
 def phase_train(port):
     torch = port["torch"]
     t0 = time.perf_counter()
@@ -1239,10 +1290,7 @@ def phase_train(port):
            f"step {want}")
     step_s = wall / TRAIN_STEPS
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    h, V, s = cfg.hidden_size, cfg.vocab_size, TRAIN_SEQ
-    flops = 72 * TRAIN_BATCH * s * L * h * h * (1 + s / (6 * h)
-                                                + V / (12 * L * h))
-    mfu = flops / step_s / PEAK_FLOPS["bfloat16"]
+    mfu = gpt_train_mfu(cfg, step_s)
     print(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: "
           f"losses {losses}; mean step {1e3 * step_s:.2f} ms (host clock), "
           f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} (bench.py "
@@ -2979,6 +3027,502 @@ def phase_bert_card_vs_cpu(port):
     _check(launches["fwd"] > 0 and launches["ln"] > 0,
            "the card did not launch the flash and norm kernels")
 
+# ---------------------------------------------------------------------------
+# phase 20: the AdamW kernel's fp32-master form vs plain
+# ---------------------------------------------------------------------------
+
+# BERT-base's word embeddings, GPT-3 1.3B's fc1 slab, an odd tail (the
+# scalar loop alone), each also with every operand off a 16-byte boundary
+ADAMW_MASTER_SHAPES = ((30522, 768), (24, 2048, 8192), (3, 257))
+# per element: read g 2, master 4, m1 4, m2 4; write master 4, m1 4,
+# m2 4, p 2 (bf16 parameters)
+ADAMW_MASTER_BYTES = 28
+
+
+def _adamw_master_compare(port, shape, dtype, seed, misaligned=False):
+    """Two consecutive master-form steps, the kernel and the plain version
+    on copies of the same tensors (as ``_adamw_compare``: each step starts
+    both from the kernel's state).  ``misaligned``: every operand is a
+    view one element into its buffer, off a 16-byte boundary.  The master
+    and the fp32 moments are held to ``ADAMW_TOL["float32"]``, p to the
+    plain p by ``ADAMW_TOL[dtype]``, and p must be exactly the kernel's
+    own new master rounded.  Returns the max abs error over master, m1,
+    m2 and p."""
+    torch, fw = port["torch"], port["fw"]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    td = getattr(torch, dtype)
+    n = int(np.prod(shape))
+    off = 1 if misaligned else 0
+
+    def tensor(scale, dt):
+        buf = torch.empty(n + off, device=DEVICE, dtype=dt)
+        t = buf[off:].view(shape)
+        t.copy_(torch.randn(shape, generator=gen, device=DEVICE) * scale)
+        return t
+
+    master = tensor(1.0, torch.float32)
+    kern = [master.to(td), master, tensor(0.01, torch.float32),
+            tensor(0.001, torch.float32).abs_()]         # p, master, m1, m2
+    if misaligned:
+        kern[0] = tensor(0.0, td)
+        kern[0].copy_(master)
+    plain = [t.clone() for t in kern]
+    b1p, b2p = np.float32(1.0), np.float32(1.0)
+    err = 0.0
+    for step in (1, 2):
+        g = tensor(0.1, td)
+        b1p, b2p = np.float32(b1p * np.float32(0.9)), np.float32(
+            b2p * np.float32(0.999))
+        fw.fused_adamw_update(kern[0], g, kern[2], kern[3], 1e-3, b1p, b2p,
+                              master=kern[1])
+        fw.fused_adamw_plain(plain[0], g, plain[2], plain[3],
+                             fw.adamw_scalars(1e-3, b1p, b2p),
+                             master=plain[1])
+        torch.cuda.synchronize()
+        _check(torch.equal(kern[0], kern[1].to(td)),
+               f"adamw master {dtype} {shape}: p is not the new master "
+               "rounded")
+        for name, a, b, tol in zip(
+                ("p", "master", "m1", "m2"), kern, plain,
+                (ADAMW_TOL[dtype],) + (ADAMW_TOL["float32"],) * 3):
+            e, over = _over(a, b, tol)
+            _check(over <= 0, f"adamw master {name} {dtype} {shape} "
+                   f"misaligned={misaligned} step {step}: kernel vs plain "
+                   f"off by {e}")
+            err = max(err, e)
+            b.copy_(a)
+    print(f"[adamw_master] {dtype} {list(shape)} misaligned={misaligned} "
+          f"two steps: max_abs_err={err!r}")
+    return err
+
+
+def _time_adamw_master(port, params):
+    """Device ms of one master-form update over ``params`` (bf16 tensors of
+    a model, each with an fp32 master and fp32 moments; one launch a
+    tensor): the kernel and the plain version; the bytes bound."""
+    torch, fw = port["torch"], port["fw"]
+    grads = [torch.randn_like(p) * 0.01 for p in params]
+    masters = [p.float() for p in params]
+    m1 = [torch.zeros_like(w) for w in masters]
+    m2 = [torch.zeros_like(w) for w in masters]
+    sc = fw.adamw_scalars(1e-4, 0.9, 0.999)
+
+    def kernel(i):
+        for p, g, w, a, b in zip(params, grads, masters, m1, m2):
+            fw.fused_adamw_update(p, g, a, b, 1e-4, 0.9, 0.999, master=w)
+
+    def plain(i):
+        for p, g, w, a, b in zip(params, grads, masters, m1, m2):
+            fw.fused_adamw_plain(p, g, a, b, sc, master=w)
+
+    n = sum(p.numel() for p in params)
+    t_bytes = ADAMW_MASTER_BYTES * n / HBM_BYTES_PER_S
+    t_ops = 14.0 * n / PEAK_FLOPS["float32"]
+    # few enough updates that the host queues every launch while the
+    # sleep kernel holds the stream (BERT-base: 157 launches an update)
+    iters = max(2, min(10, 320 // len(params)))
+    return dict(ms=_time_ms(torch, kernel, iters)[0],
+                plain_ms=_time_ms(torch, plain, 2, hold=False)[0],
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                tensors=len(params), elements=n)
+
+
+def phase_adamw_master(port):
+    torch = port["torch"]
+    err = 0.0
+    for i, shape in enumerate(ADAMW_MASTER_SHAPES):
+        for misaligned in (False, True):
+            err = max(err, _adamw_master_compare(port, shape, "bfloat16",
+                                                 200 + i, misaligned))
+            torch.cuda.empty_cache()
+    err = max(err, _adamw_master_compare(port, (3, 257), "float16", 210))
+    times = {}
+    for name, build in (
+            ("bert_base", lambda: port["BertForPretraining"](
+                port["bert_base"](), device=DEVICE, dtype="bfloat16")),
+            ("gpt_1p3b", lambda: port["GPT"](
+                port["gpt_1p3b"](max_position_embeddings=1024),
+                device=DEVICE, dtype="bfloat16", seed=3))):
+        model = build()
+        times[name] = t = _time_adamw_master(
+            port, [p.detach() for p in model.parameters()])
+        del model
+        torch.cuda.empty_cache()
+        print(f"[adamw_master] {name} ({t['tensors']} bf16 tensors, "
+              f"{t['elements']} elements, fp32 masters and moments), device "
+              f"ms per update: kernel {t['ms']!r}, plain {t['plain_ms']!r}, "
+              f"bound {t['bound_ms']!r} ({t['bound_by']}, "
+              f"{ADAMW_MASTER_BYTES} B/element; share of it "
+              f"{t['bound_ms'] / t['ms']!r}); {t['tensors']} launches an "
+              f"update; no single PyTorch call updates fp32 masters and a "
+              f"bf16 copy")
+    b, g = times["bert_base"], times["gpt_1p3b"]
+    return dict(max_abs_err=err, ms=b["ms"], plain_ms=b["plain_ms"],
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                library_ms=None, gpt_1p3b_ms=g["ms"],
+                gpt_1p3b_plain_ms=g["plain_ms"],
+                gpt_1p3b_bound_ms=g["bound_ms"])
+
+
+# ---------------------------------------------------------------------------
+# phase 21: BERT-base pretraining, the whole recipe
+# ---------------------------------------------------------------------------
+
+# the recipe of the original BERT release's optimization.py and
+# PaddleNLP's run_pretrain.py: linear warmup, then linear decay to 0;
+# AdamW, weight decay 0.01 off biases and LayerNorm parameters; global-
+# norm clipping at 1.0; bf16 weights on fp32 masters
+RECIPE_LR, RECIPE_WD, RECIPE_CLIP = 1e-4, 0.01, 1.0
+RECIPE_WARMUP, RECIPE_DECAY = 3, 20
+BERT_TRAIN_STEPS = 10
+
+
+def recipe_no_decay(name):
+    """``apply_decay_param_fun``: decay every parameter but biases and
+    LayerNorm parameters (by name)."""
+    return not any(w in name for w in ("bias", "ln", "layer_norm"))
+
+
+def recipe_lr(t):
+    """The schedule's rate at step ``t``, computed here from its
+    definition: ``LinearWarmup(PolynomialDecay(lr, RECIPE_DECAY, end_lr=0,
+    power=1), RECIPE_WARMUP, 0, lr)``."""
+    if t < RECIPE_WARMUP:
+        return RECIPE_LR * t / RECIPE_WARMUP
+    return RECIPE_LR * (1 - min(t - RECIPE_WARMUP, RECIPE_DECAY)
+                        / RECIPE_DECAY)
+
+
+def recipe_optimizer(port, model):
+    """AdamW over ``model.named_parameters()`` with the recipe's schedule,
+    clip and decay mask (fp32 masters over bf16 weights: AdamW's
+    default); returns (optimizer, scheduler)."""
+    lr = port["lr"]
+    sched = lr.LinearWarmup(lr.PolynomialDecay(RECIPE_LR, RECIPE_DECAY,
+                                               end_lr=0.0, power=1.0),
+                            RECIPE_WARMUP, 0.0, RECIPE_LR)
+    opt = port["AdamW"](model.named_parameters(), learning_rate=sched,
+                        weight_decay=RECIPE_WD,
+                        grad_clip=port["clip"].ClipGradByGlobalNorm(
+                            RECIPE_CLIP),
+                        apply_decay_param_fun=recipe_no_decay)
+    return opt, sched
+
+
+def bert_train_flops(cfg, batch, seq, masked):
+    """Training FLOPs of one step, 3x the forward's products: per layer
+    2 b s (4 h^2 + 2 h f) for the projections and 4 b s^2 h for the
+    scores and P V; the MLM head 2 b m (h^2 + h V)."""
+    h, f, L, V = (cfg.hidden_size, cfg.intermediate_size, cfg.num_layers,
+                  cfg.vocab_size)
+    fwd = (2 * batch * seq * L * (4 * h * h + 2 * h * f)
+           + 4 * batch * L * seq * seq * h
+           + 2 * batch * masked * (h * h + h * V))
+    return 3 * fwd
+
+
+def bert_train_setup(port, attention_dropout):
+    """BERT-base (``attention_dropout`` as given, hidden dropout 0.1) cast
+    to bf16 by ``amp.decorate`` O2, then the recipe's AdamW (fp32 masters)
+    through ``FusedTrainStep``, and one fixed batch of 16 x 512 with 80
+    masked positions a row on the card.  Returns ``(model, opt, sched,
+    step, batch)``."""
+    torch = port["torch"]
+    cfg = port["bert_base"](attention_dropout=attention_dropout)
+    model = port["BertForPretraining"](cfg, device=DEVICE, seed=0)
+    port["amp"].decorate(model, level="O2", dtype="bfloat16")
+    opt, sched = recipe_optimizer(port, model)
+    crit = port["BertPretrainingCriterion"]()
+
+    def loss_fn(ids, types, pos, labels, nsp, weights):
+        mlm, ns = model(ids, types, masked_positions=pos)
+        return crit(mlm, ns, labels, nsp, weights)
+
+    step = port["FusedTrainStep"](loss_fn, opt)
+    d = _bert_batch(torch, cfg, (ENC_SEQ,) * ENC_BATCH, 150)
+    batch = tuple(d[k] for k in ("ids", "types", "pos", "labels", "nsp",
+                                 "weights"))
+    return model, opt, sched, step, batch
+
+
+def _bert_train(port, attention_dropout):
+    torch = port["torch"]
+    model, opt, sched, step, batch = bert_train_setup(port,
+                                                      attention_dropout)
+    cfg = model.config
+    n_tensors = len(list(model.parameters()))
+    masters = sum(k.startswith("master_") for k in opt.state_dict())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, lrs = [], []
+    _reset_launches(port)
+    t0 = time.perf_counter()
+    for t in range(BERT_TRAIN_STEPS):
+        lrs.append(opt.get_lr())
+        losses.append(step(*batch))
+        sched.step()
+        if t == 0:                        # the first step builds, warms up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _launch_counts(port)
+    losses = [float(x) for x in losses]
+    step_s = wall / (BERT_TRAIN_STEPS - 1)
+    tokens = ENC_BATCH * ENC_SEQ
+    mfu = (bert_train_flops(cfg, ENC_BATCH, ENC_SEQ, BERT_MASKED) / step_s
+           / PEAK_FLOPS["bfloat16"])
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / BERT_TRAIN_STEPS for k, v in launches.items()}
+    print(f"[bert_train] bert_base bf16 on fp32 masters ({masters} of "
+          f"{n_tensors} tensors), hidden_dropout {cfg.hidden_dropout}, "
+          f"attention_dropout {attention_dropout}, {ENC_BATCH} x {ENC_SEQ}, "
+          f"{BERT_MASKED} masked positions a row, one fixed batch: losses "
+          f"{losses}; lr {lrs}; mean step {1e3 * step_s:.2f} ms (host "
+          f"clock, steps 2-{BERT_TRAIN_STEPS}), {tokens / step_s:.1f} "
+          f"tokens/s, MFU {mfu:.4f} (3 x forward products: per layer "
+          f"2bs(4h^2 + 2hf) + 4bs^2h, MLM head 2bm(h^2 + hV); over 989 "
+          f"TFLOP/s); launches per step {per_step}; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    _check(masters == n_tensors, f"bert_train: {masters} masters for "
+           f"{n_tensors} bf16 tensors")
+    _check(all(np.isfinite(losses)), f"bert_train: non-finite losses "
+           f"{losses}")
+    _check(losses[-1] < losses[0], f"bert_train: the loss did not fall "
+           f"over {BERT_TRAIN_STEPS} steps on one batch: {losses}")
+    _check(all(abs(a - recipe_lr(t)) <= 1e-12 * RECIPE_LR
+               for t, a in enumerate(lrs)),
+           f"bert_train: lr {lrs} is not the schedule's "
+           f"{[recipe_lr(t) for t in range(BERT_TRAIN_STEPS)]}")
+    flash = cfg.num_layers if attention_dropout == 0.0 else 0
+    want = {"adamw": n_tensors, "fwd": flash, "dkv": flash, "dq": flash}
+    _check(all(launches[k] == v * BERT_TRAIN_STEPS for k, v in want.items()),
+           f"bert_train: launches {launches} over {BERT_TRAIN_STEPS} steps, "
+           f"expected per step {want}")
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return launches["adamw"], dict(ms_per_step=1e3 * step_s,
+                                   tokens_per_s=tokens / step_s, mfu=mfu)
+
+
+def phase_bert_train(port):
+    """BERT-base trained by its recipe, attention dropout 0.1 (the plain
+    route) and 0 (the flash kernels); returns the master-form AdamW
+    launches of the run."""
+    launches = 0
+    for p in (0.1, 0.0):
+        n, _ = _bert_train(port, p)
+        launches += n
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 22: GPT-3 1.3B training with dropout
+# ---------------------------------------------------------------------------
+
+TRAIN_DROPOUT_STEPS = 3
+
+
+def train_dropout_setup(port, attention_dropout=0.1):
+    """Phase 6's workload (GPT-3 1.3B, bf16, recompute every block, bf16
+    moments, O1) with the config's dropout: hidden 0.1 and
+    ``attention_dropout``.  Returns ``(model, step, batches)``."""
+    torch = port["torch"]
+    cfg = port["gpt_1p3b"](max_position_embeddings=1024,
+                           recompute_interval=1,
+                           attention_dropout=attention_dropout)
+    model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    opt = port["AdamW"](model.parameters(), learning_rate=1e-4,
+                        weight_decay=0.01, multi_precision=False)
+    step = port["FusedTrainStep"](
+        lambda ids, labels: model(ids, labels=labels), opt, amp_level="O1")
+    rng = np.random.RandomState(1)
+    batches = [tuple(torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to(DEVICE)
+        for _ in range(2)) for _ in range(2)]
+    return model, step, batches
+
+
+def phase_train_dropout(port):
+    """GPT-3 1.3B at bench.py rung 0's shape with the config's default
+    dropout 0.1 (attention on the plain causal route), then with
+    attention dropout 0 (the flash kernels, hidden dropout 0.1)."""
+    torch = port["torch"]
+    for name, p in (("dropout 0.1", 0.1),
+                    ("hidden dropout 0.1, attention dropout 0", 0.0)):
+        model, step, batches = train_dropout_setup(port, p)
+        cfg = model.config
+        warm, _ = train_steps(port, step, batches, 1)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(port)
+        losses, wall = train_steps(port, step, batches, TRAIN_DROPOUT_STEPS,
+                                   first=1)
+        launches = _launch_counts(port)
+        peak = torch.cuda.max_memory_allocated()
+        L, n = cfg.num_layers, TRAIN_DROPOUT_STEPS
+        flash = cfg.attention_dropout == 0.0
+        want = {"fwd": 2 * L if flash else 0, "dkv": L if flash else 0,
+                "dq": L if flash else 0,
+                "adamw": len(list(model.parameters()))}
+        step_s = wall / n
+        print(f"[train_dropout] gpt_1p3b bf16, {name}, recompute every "
+              f"block, {TRAIN_BATCH} x {TRAIN_SEQ}: losses {warm + losses}; "
+              f"mean step {1e3 * step_s:.2f} ms (host clock, {n} steps after "
+              f"one warm-up), {TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} "
+              f"tokens/s, MFU {gpt_train_mfu(cfg, step_s):.4f} (phase 6's "
+              f"formula); launches per step "
+              f"{ {k: v // n for k, v in launches.items()} }; peak device "
+              f"memory {peak / 2**30:.2f} GiB")
+        _check(all(np.isfinite(warm + losses)),
+               f"train_dropout {name}: non-finite losses")
+        _check(all(launches[k] == v * n for k, v in want.items()),
+               f"train_dropout {name}: launches {launches} over {n} steps, "
+               f"expected per step {want}")
+        del model, step, batches
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 23: determinism and recompute under dropout, on the card
+# ---------------------------------------------------------------------------
+
+DET_BATCH, DET_LAYERS = 2, 2
+
+
+def _det_model(port, **kw):
+    cfg = port["gpt_1p3b"](num_layers=DET_LAYERS, max_position_embeddings=1024,
+                           **kw)
+    return port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=7)
+
+
+def phase_determinism(port):
+    """GPT-3 1.3B's width at 2 layers, bf16, dropout 0.1: two runs of two
+    steps from the same seeds give the same bits; recompute on and off
+    give the same gradients, with attention dropout (plain route) and
+    without it (flash kernels)."""
+    torch = port["torch"]
+    rng = np.random.RandomState(3)
+    vocab = port["gpt_1p3b"]().vocab_size
+    ids, labels = (torch.from_numpy(rng.randint(
+        0, vocab, (DET_BATCH, TRAIN_SEQ))).to(DEVICE) for _ in range(2))
+    runs = []
+    for _ in range(2):
+        m = _det_model(port, recompute_interval=1)
+        opt = port["AdamW"](m.parameters(), learning_rate=1e-4,
+                            multi_precision=False)
+        step = port["FusedTrainStep"](lambda i, l: m(i, labels=l), opt,
+                                      amp_level="O1")
+        losses = [step(ids, labels) for _ in range(2)]
+        runs.append((torch.stack(losses), [p.detach().clone()
+                                           for p in m.parameters()]))
+        del m, opt, step
+    same_steps = (torch.equal(runs[0][0], runs[1][0])
+                  and all(torch.equal(a, b)
+                          for a, b in zip(runs[0][1], runs[1][1])))
+    diffs = {}
+    for name, kw in (("dropout 0.1", {}),
+                     ("attention dropout 0", dict(attention_dropout=0.0))):
+        grads = []
+        for k in (0, 1):
+            m = _det_model(port, recompute_interval=k, **kw)
+            m(ids, labels=labels).backward()
+            grads.append([p.grad for p in m.parameters()])
+            del m
+        diffs[name] = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(*grads))
+    del runs
+    torch.cuda.empty_cache()
+    print(f"[determinism] gpt_1p3b width, {DET_LAYERS} layers, bf16, "
+          f"{DET_BATCH} x {TRAIN_SEQ}: two runs of two steps from one seed "
+          f"bit for bit: {same_steps}; recompute on vs off, max abs gradient "
+          f"difference {diffs}")
+    _check(same_steps, "two runs from the same seeds differ")
+    _check(all(v == 0.0 for v in diffs.values()),
+           f"recompute on and off give different gradients: {diffs}")
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the recipe, card vs CPU
+# ---------------------------------------------------------------------------
+
+RECIPE_CPU_STEPS = 3
+
+
+def _recipe_runs(port, build, loss_fn, batch):
+    """``RECIPE_CPU_STEPS`` recipe steps of the model ``build(device)``
+    makes, on the CPU and on the card from the CPU's weights; returns
+    (losses, parameters) of each."""
+    torch = port["torch"]
+    cpu = build("cpu")
+    card = build(DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    out = []
+    for m in (cpu, card):
+        opt, sched = recipe_optimizer(port, m)
+        step = port["FusedTrainStep"](lambda *b, m=m: loss_fn(m, *b), opt)
+        dev = [t.to(m.device) for t in batch]
+        losses = []
+        for _ in range(RECIPE_CPU_STEPS):
+            losses.append(float(step(*dev)))
+            sched.step()
+        out.append((losses, {n: p.detach().cpu()
+                             for n, p in m.named_parameters()}))
+    return out
+
+
+def phase_recipe_card_vs_cpu(port):
+    """gpt_tiny and bert_tiny (hidden 128, 2 heads), fp32, TF32 off,
+    dropout 0: three steps of the whole recipe on the card and on the CPU
+    from the same weights."""
+    torch = port["torch"]
+    rng = np.random.RandomState(4)
+    ids = torch.from_numpy(rng.randint(0, 1024, (2, 128)))
+    gcfg = port["gpt_tiny"](hidden_size=128, num_heads=2, hidden_dropout=0.0,
+                            attention_dropout=0.0, recompute_interval=1)
+    bcfg = port["bert_tiny"](hidden_size=128, num_heads=2, hidden_dropout=0.0,
+                             attention_dropout=0.0)
+    d = _bert_batch(torch, bcfg, (128, 128), 160)
+    bert_batch = [d["ids"][:, :128].cpu()] + [
+        d[k].cpu() for k in ("types", "pos", "labels", "nsp", "weights")]
+    bert_batch[1] = bert_batch[1][:, :128]
+    crit = port["BertPretrainingCriterion"]()
+
+    def bert_loss(m, ids, types, pos, labels, nsp, weights):
+        mlm, ns = m(ids, types, masked_positions=pos)
+        return crit(mlm, ns, labels, nsp, weights)
+
+    cases = (
+        ("gpt_tiny", lambda dev: port["GPT"](gcfg, device=dev, seed=8),
+         lambda m, i: m(i, labels=i), [ids]),
+        ("bert_tiny", lambda dev: port["BertForPretraining"](
+            bcfg, device=dev, seed=9), bert_loss, bert_batch))
+    _reset_launches(port)
+    worst = {}
+    for name, build, loss_fn, batch in cases:
+        (lc, pc), (lg, pg) = _recipe_runs(port, build, loss_fn, batch)
+        loss_diff = max(abs(a - b) for a, b in zip(lc, lg))
+        allowance = 2 * RECIPE_LR * RECIPE_CPU_STEPS
+        over = max(((pg[n] - pc[n]).abs() - allowance
+                    - 1e-5 * pc[n].abs()).max().item() for n in pc)
+        bulk = max(torch.quantile((pg[n] - pc[n]).abs().flatten()[:2**24],
+                                  0.999).item() for n in pc)
+        worst[name] = (loss_diff, over, bulk)
+        print(f"[recipe_card_vs_cpu] {name} fp32, {RECIPE_CPU_STEPS} recipe "
+              f"steps: losses cpu {lc} card {lg}, max diff {loss_diff!r} "
+              f"(tol {TRAIN_LOSS_ATOL}); parameters: max excess over "
+              f"2 lr steps + 1e-5 relative {over!r} (must be <= 0), 99.9th "
+              f"percentile difference {bulk!r} (tol 1e-6)")
+    launches = _launch_counts(port)
+    print(f"[recipe_card_vs_cpu] card launches {launches}")
+    for name, (loss_diff, over, bulk) in worst.items():
+        _check(loss_diff <= TRAIN_LOSS_ATOL and over <= 0 and bulk <= 1e-6,
+               f"{name}: the card's recipe steps differ from the CPU's")
+    _check(all(launches[k] > 0 for k in ("fwd", "dkv", "dq", "adamw")),
+           "the card's recipe steps did not launch the flash and AdamW "
+           "kernels")
+
+
 
 def card_line():
     res = subprocess.run(
@@ -2995,6 +3539,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     port = import_port()
     # fp32 stays fp32 wherever a kernel is compared with its plain version
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3029,6 +3574,12 @@ def main() -> int:
     ln_launches = phase_encoder(port)
     phase_bert(port)
     phase_bert_card_vs_cpu(port)
+    mk = phase_adamw_master(port)
+    master_launches = phase_bert_train(port)
+    phase_train_dropout(port)
+    phase_determinism(port)
+    phase_recipe_card_vs_cpu(port)
+    print(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
     print(card)
     csrc = "paddle_tpu_torch/ops/kernels/csrc/"
     pallas = "paddle_tpu/ops/pallas_kernels/"
@@ -3055,6 +3606,15 @@ def main() -> int:
                         "source": csrc + source,
                         "replaces": pallas + replaces,
                         "launches": train_launches[key], **tk[key]})
+    # the fp32-master form: the same kernel library and TPU kernel, with
+    # the arithmetic of the reference's composed master path; launches
+    # from phase 21's BERT-base recipe steps, times at BERT-base's
+    # tensors (GPT-3 1.3B's beside them)
+    kernels.append({"name": "fused_adamw_master", "route": "cuda",
+                    "source": csrc + "fused_adamw.cu",
+                    "replaces": pallas + "fused_adamw.py:38",
+                    "computes": "paddle_tpu/optimizer/optimizers.py:266",
+                    "launches": master_launches, **mk})
     for key, name, replaces, launched in (
             ("decode", "decode_attention", "decode_attention.py:86",
              decode_launches),

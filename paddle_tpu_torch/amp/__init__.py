@@ -1,0 +1,3 @@
+from .auto_cast import decorate
+
+__all__ = ["decorate"]

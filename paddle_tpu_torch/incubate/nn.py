@@ -26,7 +26,9 @@ import torch
 from torch import nn
 
 from ..core import resolve_device, to_torch_dtype
-from ..models.gpt import GPTConfig, GPTStackedDecoder
+from ..models.gpt import (
+    GPTConfig, GPTStackedDecoder, _dropout_seeds, _host_generator,
+)
 from ..nn import functional as F
 from ..nn.layers import Dropout, LayerNorm, Linear, PortModule, init_weights
 from ..ops.kernels.rms_norm import fused_add_layer_norm
@@ -163,16 +165,21 @@ class FusedMultiTransformer(PortModule):
     """The whole pre-LN stack as one module: the port's
     ``GPTStackedDecoder`` (every block's weights as ``[L, ...]`` slabs,
     causal attention through the flash kernels on the card) and a final
-    LayerNorm ``norm``, as the JAX layer wraps its stacked decoder.  The
-    reference's refusals are kept: post-LN, an activation other than GELU,
-    a mask and incremental caches raise ``NotImplementedError``; on the
-    card a shape the flash kernels refuse raises ``ValueError``."""
+    LayerNorm ``norm``, as the JAX layer wraps its stacked decoder.
+    ``dropout_rate`` is both the block's hidden and attention rate; in
+    training above 0, attention takes the block's plain causal route and
+    the masks come from one seed a layer, drawn from ``generator`` (a CPU
+    ``torch.Generator``; ``None``: one seeded with ``seed``), so the
+    recompute of every block redraws the same masks.  The reference's
+    refusals are kept: post-LN, an activation other than GELU, a mask and
+    incremental caches raise ``NotImplementedError``; on the card a shape
+    the flash kernels refuse raises ``ValueError``."""
 
     def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int,
                  dropout_rate: float = 0.0, activation: str = "gelu",
                  normalize_before: bool = True, *, epsilon: float = 1e-5,
                  num_layers: int = 1, device=None, dtype="float32",
-                 seed: int = 0):
+                 seed: int = 0, generator: Optional[torch.Generator] = None):
         super().__init__()
         if not normalize_before:
             raise NotImplementedError(
@@ -193,6 +200,7 @@ class FusedMultiTransformer(PortModule):
         self.embed_dim, self.num_layers = embed_dim, num_layers
         self.decoder = GPTStackedDecoder(self._cfg, **factory)
         self.norm = LayerNorm(embed_dim, epsilon, **factory)
+        self.generator = _host_generator(generator, seed)
         self._init_decoder(seed)
 
     @torch.no_grad()
@@ -227,9 +235,6 @@ class FusedMultiTransformer(PortModule):
             raise NotImplementedError(
                 "FusedMultiTransformer: incremental KV-cached decoding "
                 "is not implemented — run full-sequence forwards")
-        if self.training and self._cfg.hidden_dropout > 0.0:
-            raise NotImplementedError(
-                "dropout in the stacked block's training is not ported yet "
-                "(ROADMAP.md queue 1, item 2, training): set dropout_rate "
-                "to 0, or call eval()")
-        return self.norm(self.decoder(src))
+        seeds = (_dropout_seeds(self.generator, self.num_layers)
+                 if self.decoder.dropout_active() else None)
+        return self.norm(self.decoder(src, seeds))

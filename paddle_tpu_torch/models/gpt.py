@@ -30,12 +30,24 @@ The model serves, generates and trains:
   prefill at any other position through masked attention over the whole
   cache (XLA code in the JAX package, plain torch here);
 - training runs ``forward(input_ids, labels=...)``: the stacked block of
-  the reference's ``_block_fn`` per layer, with causal attention through
-  ``ops/kernels/flash_attention.py``, groups of ``recompute_interval``
-  blocks under activation checkpointing (as ``scan_blocks`` remats them),
-  and the chunked loss head of ``nn/functional.py``.
+  the reference's ``_block_fn`` per layer, groups of
+  ``recompute_interval`` blocks under activation checkpointing (as
+  ``scan_blocks`` remats them), and the chunked loss head of
+  ``nn/functional.py``.  Causal attention goes through
+  ``ops/kernels/flash_attention.py``, except where the reference leaves
+  its flash kernel: with attention dropout in training, or with
+  ``use_flash_attention=False``, it is the reference's plain causal
+  expression (:func:`causal_attention_plain`, on any device).
 
-Dropout in training waits for a later slice (ROADMAP.md queue 1, item 2).
+Dropout in training is the reference's: hidden dropout after the
+embeddings and after each block's attention projection and MLP, attention
+dropout on the probabilities.  Each training forward draws one host seed
+per layer (and one for the embeddings) from the model's CPU
+``torch.Generator``; a layer draws its masks, in block order, from a
+generator on the activations' device seeded with its seed.  The
+recompute of a checkpointed group reseeds from the same seeds, so it
+redraws the same masks, as the reference recomputes with the same
+per-layer key.  Nothing is read back from the card.
 """
 from __future__ import annotations
 
@@ -49,7 +61,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core import resolve_device, to_torch_dtype
-from ..nn.functional import fused_linear_cross_entropy
+from ..nn.functional import (
+    cross_entropy, dropout, fused_linear_cross_entropy,
+)
 from ..nn.layers import load_jax_state
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import (
@@ -64,6 +78,8 @@ from .generation import GenerationMixin, KVCache
 __all__ = [
     "GPTConfig",
     "GPTStackedForPretraining",
+    "GPTPretrainingCriterion",
+    "causal_attention_plain",
     "gpt_tiny",
     "gpt_small",
     "gpt_1p3b",
@@ -84,10 +100,10 @@ class GPTConfig:
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     recompute_interval: int = 0         # 0 = off; k = remat every k blocks
-    # taken across from JAX configs: attention always runs through
-    # flash_attention_bnsd (the kernels on the card, their plain version
-    # on the CPU); False -- the JAX package's plain XLA route -- raises
-    # on the card, where that route is not ported
+    # None or True: training attention runs through flash_attention_bnsd
+    # (the kernels on the card, their plain version on the CPU) unless
+    # attention dropout is active; False: the reference's plain causal
+    # expression (causal_attention_plain) on every device
     use_flash_attention: Optional[bool] = None
 
     @property
@@ -127,6 +143,42 @@ def gpt_13b(**kw) -> GPTConfig:
     """GPT-3 13B."""
     return _preset(dict(hidden_size=5120, num_layers=40, num_heads=40,
                         max_position_embeddings=2048), kw)
+
+
+def causal_attention_plain(q, k, v, scale: float, dropout_p: float = 0.0,
+                           generator: Optional[torch.Generator] = None):
+    """The reference block's plain causal attention
+    (``paddle_tpu/models/gpt.py`` ``_block_fn``'s ``sdpa`` off the flash
+    kernel): scores ``q k^T`` summed in fp32 (the operands are widened,
+    which keeps every product of two bf16 values exact, as
+    ``preferred_element_type=float32`` does), times ``scale``; the causal
+    mask sets -1e9; softmax in fp32; dropout on the probabilities (drawn
+    from ``generator``); the probabilities cast to q's dtype for the
+    product with v.  ``q``/``k``/``v`` [B, N, S, D] -> [B, N, S, D]."""
+    s = q.shape[2]
+    scores = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(causal, scores, torch.full_like(scores, -1e9))
+    att = dropout(torch.softmax(scores, dim=-1), dropout_p, True, generator)
+    return torch.einsum("bnqk,bnkd->bnqd", att.to(q.dtype), v)
+
+
+def _dropout_seeds(generator: torch.Generator, n: int):
+    """``n`` host seeds for one training forward's dropout, drawn from the
+    model's CPU generator (no device work, nothing read back)."""
+    return torch.randint(0, 2 ** 62, (n,), generator=generator).tolist()
+
+
+def _seeded(seed: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``seed``: the same seed gives
+    the same masks, in the recompute as in the forward."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _identity(x):
+    return x
 
 
 def _layer_norm(x, g, b, eps):
@@ -178,14 +230,18 @@ class GPTStackedDecoder(nn.Module):
             self.register_parameter(
                 name, nn.Parameter(torch.empty(shapes[name], **factory)))
 
-    def _block(self, h, weights, attend, int8: bool = False):
+    def _block(self, h, weights, attend, int8: bool = False,
+               drop=_identity):
         """One block (the reference's ``_block_fn``, ``_cached_block_fn``
         and ``_paged_block_fn`` bodies): ``h`` [B, S, hidden] -> [B, S,
         hidden].  ``attend(q, k, v)`` takes the fresh [B, S, H, D] views
         into the fused QKV output (the backward of unbind stacks dQ/dK/dV
         into the QKV gradient in one pass) and returns the attention
         output as [B, S, H, D], in any dtype; a cached ``attend`` also
-        writes K/V into its cache.
+        writes K/V into its cache.  ``drop`` is the hidden dropout, applied
+        to the attention projection and to the MLP output in their dtype,
+        before the cast to ``h``'s (the training block's; the identity
+        elsewhere).
 
         ``int8``: ``weights`` are the 16 of :data:`INT8_NAMES`, and each
         projection is ``quantized_matmul``, which takes the fp32 LayerNorm
@@ -217,25 +273,45 @@ class GPTStackedDecoder(nn.Module):
         qkv = proj(x, qkvw, qkvs, qkvb).view(b, s, 3, nh, hd)
         out = attend(*qkv.unbind(2))
         out = out.reshape(b * s, hidden).to(x.dtype)  # cache dtype may differ
-        h = h + proj(out, pw, pws, pb).view(b, s, hidden).to(h.dtype)
+        h = h + drop(proj(out, pw, pws, pb).view(b, s, hidden)).to(h.dtype)
         y = norm(h, l2g, l2b).reshape(b * s, hidden)
         y = F.gelu(proj(y, f1w, f1s, f1b), approximate="tanh")
-        return h + proj(y, f2w, f2s, f2b).view(b, s, hidden).to(h.dtype)
+        return h + drop(proj(y, f2w, f2s, f2b).view(b, s, hidden)).to(h.dtype)
 
-    def _train_attend(self, q, k, v):
-        """Causal attention of the training block through the flash
-        kernels (on the card a shape or dtype they refuse raises here)."""
-        out = flash_attention_bnsd(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, sm_scale=float(1.0 / np.sqrt(self._cfg.head_dim)))
+    def _train_attend(self, q, k, v, gen=None):
+        """Causal attention of the training block, [B, S, H, D] views in
+        and out.  ``gen``: the layer's dropout generator, given when
+        dropout is active.  The flash kernels (on the card a shape or
+        dtype they refuse raises here), unless attention dropout is active
+        or ``use_flash_attention`` is False: then the reference's plain
+        expression, :func:`causal_attention_plain`."""
+        cfg = self._cfg
+        scale = float(1.0 / np.sqrt(cfg.head_dim))
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        attn_p = cfg.attention_dropout if gen is not None else 0.0
+        if attn_p > 0.0 or cfg.use_flash_attention is False:
+            out = causal_attention_plain(q, k, v, scale, attn_p, gen)
+        else:
+            out = flash_attention_bnsd(q, k, v, causal=True, sm_scale=scale)
         return out.transpose(1, 2)
 
-    def _blocks(self, h, *weights):
+    def _blocks(self, h, seeds, *weights):
         """Consecutive training blocks; ``weights`` holds each block's 12
-        slices, block after block."""
+        slices, block after block; ``seeds`` one dropout seed per block,
+        or None without dropout.  A block draws its masks from a generator
+        seeded with its seed, in block order: the attention probabilities,
+        the attention projection, the MLP output."""
         n = len(self.PARAM_NAMES)
-        for i in range(0, len(weights), n):
-            h = self._block(h, weights[i:i + n], self._train_attend)
+        hid_p = self._cfg.hidden_dropout
+        for j, i in enumerate(range(0, len(weights), n)):
+            if seeds is None:
+                h = self._block(h, weights[i:i + n], self._train_attend)
+                continue
+            gen = _seeded(seeds[j], h.device)
+            h = self._block(
+                h, weights[i:i + n],
+                lambda q, k, v: self._train_attend(q, k, v, gen),
+                drop=lambda x: dropout(x, hid_p, True, gen))
         return h
 
     def _layers(self, names=PARAM_NAMES):
@@ -269,24 +345,39 @@ class GPTStackedDecoder(nn.Module):
             self.register_buffer(name + "_s", s)
         self.weight_int8 = True
 
-    def forward(self, h):
+    def dropout_active(self) -> bool:
+        """Whether a forward now applies dropout: in training mode with a
+        hidden or attention rate above 0."""
+        cfg = self._cfg
+        return self.training and (cfg.hidden_dropout > 0.0
+                                  or cfg.attention_dropout > 0.0)
+
+    def forward(self, h, seeds=None):
         """The training stack: ``h`` [B, S, hidden] through every layer.
-        With ``recompute_interval`` k > 0 (and the module in training
-        mode) each group of k blocks runs under
-        ``torch.utils.checkpoint``: the backward recomputes the group's
-        forward from its input instead of keeping its activations."""
+        ``seeds``: one dropout seed per layer (a list of ints), given
+        exactly when :meth:`dropout_active`.  With ``recompute_interval``
+        k > 0 (and the module in training mode) each group of k blocks
+        runs under ``torch.utils.checkpoint``: the backward recomputes the
+        group's forward from its input and its seeds instead of keeping
+        its activations."""
         cfg = self._cfg
         self._check_fp_weights("the training forward")
+        if (seeds is not None) != self.dropout_active():
+            raise ValueError("GPTStackedDecoder.forward: pass one dropout "
+                             "seed per layer exactly when dropout is active")
         k = cfg.recompute_interval if self.training else 0
         if k > 0 and cfg.num_layers % k:
             raise ValueError(f"recompute_interval={k} must divide "
                              f"num_layers={cfg.num_layers}")
         layers = list(self._layers())
         if k <= 0:
-            return self._blocks(h, *(w for layer in layers for w in layer))
+            return self._blocks(h, seeds,
+                                *(w for layer in layers for w in layer))
         for g0 in range(0, cfg.num_layers, k):
             group = [w for layer in layers[g0:g0 + k] for w in layer]
-            h = checkpoint(self._blocks, h, *group, use_reentrant=False)
+            group_seeds = None if seeds is None else seeds[g0:g0 + k]
+            h = checkpoint(self._blocks, h, group_seeds, *group,
+                           use_reentrant=False)
         return h
 
     def forward_cached(self, h, k_cache, v_cache, pos):
@@ -429,6 +520,16 @@ def _masked_attention(q, k, v, q_pos, scale: float) -> torch.Tensor:
                         v.float()).to(v.dtype).to(q.dtype)
 
 
+def _host_generator(generator, seed: int) -> torch.Generator:
+    """The CPU generator a module draws its dropout seeds from."""
+    if generator is None:
+        return torch.Generator().manual_seed(int(seed))
+    if generator.device.type != "cpu":
+        raise ValueError("the dropout seeds come from a CPU "
+                         f"torch.Generator, got one on {generator.device}")
+    return generator
+
+
 class GPTStackedForPretraining(nn.Module, GenerationMixin):
     """Embeddings + stacked decoder + tied LM head, for training, serving
     and ``generate()``.
@@ -437,14 +538,17 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
     present; pass ``device="cpu"`` to run on the CPU.  Weights are drawn
     N(0, initializer_range) from ``torch.Generator(seed)`` on the model's
     device (LayerNorm gains 1, biases 0, as the JAX model initialises).
+    Dropout seeds come from ``generator``, a CPU ``torch.Generator``
+    (``None``: a CPU generator seeded with ``seed``).
     """
 
     def __init__(self, cfg: GPTConfig, device=None, dtype="float32",
-                 seed: int = 0):
+                 seed: int = 0, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = cfg
         self.device = resolve_device(device)
         self.dtype = to_torch_dtype(dtype)
+        self.generator = _host_generator(generator, seed)
         factory = dict(device=self.device, dtype=self.dtype)
         self.embeddings = GPTEmbeddings(cfg, **factory)
         self.decoder = GPTStackedDecoder(cfg, **factory)
@@ -617,23 +721,17 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
 
     def _forward_train(self, input_ids, labels, position_ids=None):
         cfg = self.config
-        if self.training and (cfg.hidden_dropout > 0
-                              or cfg.attention_dropout > 0):
-            raise NotImplementedError(
-                "dropout in training is not ported yet (ROADMAP.md queue "
-                "1, item 2, training): set hidden_dropout and "
-                "attention_dropout to 0, or call eval()")
-        if cfg.use_flash_attention is False and input_ids.device.type != "cpu":
-            raise NotImplementedError(
-                "use_flash_attention=False (the plain attention route) is "
-                "not ported to the card (ROADMAP.md queue 1, item 2, "
-                "training); attention there runs the flash kernels: leave "
-                "use_flash_attention None or True")
         ids = input_ids.long()
         pos = (torch.arange(ids.shape[-1], device=ids.device)
                if position_ids is None else position_ids.long())
         h = self.embeddings(ids, pos.expand_as(ids))        # [B, S, hidden]
-        h = self.final_ln(self.decoder(h))
+        seeds = None
+        if self.decoder.dropout_active():
+            # the embeddings' seed, then one per layer
+            seeds = _dropout_seeds(self.generator, cfg.num_layers + 1)
+            h = dropout(h, cfg.hidden_dropout, True,
+                        _seeded(seeds.pop(0), h.device))
+        h = self.final_ln(self.decoder(h, seeds))
         w = self.embeddings.word_embeddings.weight
         if labels is not None:
             return fused_linear_cross_entropy(h, w, labels)
@@ -665,3 +763,21 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
         return self.forward(input_ids, kv_cache=paged_cache,
                             cache_index=positions, page_tables=page_tables,
                             ragged_plan=ragged_plan, out_rows=out_rows)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Next-token cross entropy with an optional loss mask (the reference's
+    ``GPTPretrainingCriterion``): the mean of the per-token losses, or
+    ``sum(loss * mask) / max(sum(mask), 1)`` with ``loss_mask``.
+    ``logits`` [B, S, V], ``labels`` [B, S] (used as given, no shift).
+    ``cfg`` is accepted, as the reference takes it."""
+
+    def __init__(self, cfg: Optional[GPTConfig] = None):
+        super().__init__()
+
+    def forward(self, logits, labels, loss_mask=None):
+        losses = cross_entropy(logits, labels, reduction="none").reshape(-1)
+        if loss_mask is None:
+            return losses.mean()
+        mask = loss_mask.reshape(-1).to(losses.dtype)
+        return (losses * mask).sum() / mask.sum().clamp_min(1.0)

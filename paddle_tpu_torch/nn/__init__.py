@@ -1,3 +1,7 @@
-from . import functional, layers
+from . import clip, functional, layers
+from .clip import (
+    ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue, clip_grad_norm_,
+)
 
-__all__ = ["functional", "layers"]
+__all__ = ["clip", "functional", "layers", "ClipGradByValue",
+           "ClipGradByNorm", "ClipGradByGlobalNorm", "clip_grad_norm_"]

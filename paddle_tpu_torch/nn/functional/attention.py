@@ -24,7 +24,7 @@ import torch
 from ...ops.kernels.flash_attention import (
     flash_attention_bnsd, shape_unsupported_reason,
 )
-from .common import promote
+from .common import dropout, promote
 
 __all__ = ["scaled_dot_product_attention", "sdpa_reference",
            "flash_eligible"]
@@ -63,12 +63,8 @@ def sdpa_reference(q, k, v, mask=None, dropout_p: float = 0.0,
             scores = scores.masked_fill(~mask, lowest)
         else:
             scores = scores + mask
-    probs = torch.softmax(scores, dim=-1)
-    if dropout_p > 0.0:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) >= dropout_p
-        probs = torch.where(keep, probs / (1.0 - dropout_p),
-                            torch.zeros_like(probs))
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_p, True,
+                    generator)
     probs, vh = promote(probs, vh)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vh).transpose(1, 2)
 

@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["promote", "linear", "dropout"]
+__all__ = ["promote", "linear", "dropout", "keep_mask"]
 
 
 def promote(*tensors):
@@ -43,5 +43,12 @@ def dropout(x, p: float = 0.5, training: bool = True,
         return x
     if not 0.0 <= p < 1.0:
         raise ValueError(f"dropout p={p}: expected 0 <= p < 1")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = keep_mask(x.shape, p, generator, x.device)
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def keep_mask(shape, p: float, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """Dropout's boolean keep mask of ``shape`` on ``device``: each element
+    True with probability ``1 - p``, drawn from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) >= p

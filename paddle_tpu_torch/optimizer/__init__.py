@@ -1,4 +1,5 @@
+from . import lr
 from .fused_step import FusedTrainStep
 from .optimizers import AdamW
 
-__all__ = ["AdamW", "FusedTrainStep"]
+__all__ = ["AdamW", "FusedTrainStep", "lr"]

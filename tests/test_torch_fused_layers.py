@@ -10,12 +10,18 @@ fp32 the two are the same arithmetic, so every comparison here is fp32:
 1e-5 absolute plus 1e-4 relative (sums of up to 256 terms taken in
 another order, through two layers), as the JAX test holds its layers to
 the numpy composition.  Dropout is held by property, not against JAX's
-bits."""
+bits, except in ``FusedMultiTransformer``'s training step, which is held
+to the JAX layer's gradients with both sides' mask draws patched, in the
+test only, to one fixed numpy mask per (shape, keep probability), as
+``tests/test_torch_gpt_training.py`` holds the stacked GPT."""
 import re
 
 import numpy as np
 import pytest
 import torch
+
+import jax
+import jax.numpy as jnp
 
 import paddle_tpu as pt
 from paddle_tpu.incubate import nn as jnn
@@ -24,6 +30,7 @@ from paddle_tpu_torch.incubate import (
     FusedFeedForward, FusedLinear, FusedMultiHeadAttention,
     FusedMultiTransformer,
 )
+from paddle_tpu_torch.nn.functional import common as tcommon
 from paddle_tpu_torch.ops.kernels import rms_norm as trn
 
 torch.set_num_threads(2)
@@ -146,8 +153,7 @@ def test_fused_multi_transformer_takes_the_references_arguments():
 
 
 def test_fused_multi_transformer_refusals():
-    """The reference's own refusals, and the stacked block's training
-    dropout, which waits for ROADMAP.md queue 1 item 2."""
+    """The reference's own refusals; training with dropout runs."""
     with pytest.raises(NotImplementedError, match="pre-LN"):
         FusedMultiTransformer(16, 2, 32, normalize_before=False,
                               device="cpu")
@@ -159,9 +165,7 @@ def test_fused_multi_transformer_refusals():
         m.eval()(x, attn_mask=torch.zeros(1, 1, 4, 4))
     with pytest.raises(NotImplementedError, match="incremental"):
         m(x, caches=[])
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        m.train()(x)
-    assert m.eval()(x).shape == (1, 4, 16)
+    assert m.train()(x).shape == m.eval()(x).shape == (1, 4, 16)
 
 
 def test_fused_mha_and_ffn_layers_gradients_flow():
@@ -343,3 +347,59 @@ def test_layers_count_no_launch_on_the_cpu():
     (_, _), (tm, tf) = _layers(normalize_before=False, seed=11)
     tf(tm(torch.zeros(1, 8, 128)))
     assert trn.fused_add_layer_norm.launches == before
+
+
+def test_fused_multi_transformer_trains_with_dropout(monkeypatch):
+    """Training with ``dropout_rate`` 0.1 (both rates; attention on the
+    block's plain causal route; recompute on every block): the JAX
+    layer's output and gradients with the same masks (fp32, 1e-5 of each
+    parameter's largest gradient), and the recompute redraws the same
+    masks: two steps from one generator seed give the same bits."""
+    rng = np.random.RandomState(9)
+    masks = {}
+
+    def mask(shape, keep):
+        key = (tuple(int(d) for d in shape), round(float(keep), 9))
+        if key not in masks:
+            masks[key] = rng.rand(*key[0]) < keep
+        return masks[key]
+
+    E, NH, FFN, L = 128, 2, 256, 2
+    pt.seed(10)
+    jm = jnn.FusedMultiTransformer(embed_dim=E, num_heads=NH,
+                                   dim_feedforward=FFN, num_layers=L,
+                                   dropout_rate=0.1)
+    x, r = np.random.RandomState(11).randn(2, 2, 16, E).astype(np.float32)
+    tr = torch.from_numpy(r)                   # the loss's random weights
+    runs = []
+    for _ in range(2):
+        m = _carry(jm, FusedMultiTransformer(E, NH, FFN, num_layers=L,
+                                             dropout_rate=0.1, device="cpu",
+                                             seed=12))
+        out = m.train()(torch.from_numpy(x))
+        (out * tr).sum().backward()
+        runs.append((out.detach(), {n: p.grad for n, p in
+                                    m.named_parameters()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(g, runs[1][1][n]) for n, g in runs[0][1].items())
+    monkeypatch.setattr(jax.random, "bernoulli",
+                        lambda key, p=0.5, shape=None: jnp.asarray(
+                            mask(shape, p)))
+    monkeypatch.setattr(tcommon, "keep_mask",
+                        lambda shape, p, generator, device: torch.from_numpy(
+                            mask(shape, 1.0 - p)).to(device))
+    jx = pt.to_tensor(x)
+    jout = jm(jx)
+    (jout * pt.to_tensor(r)).sum().backward()
+    m = _carry(jm, FusedMultiTransformer(E, NH, FFN, num_layers=L,
+                                         dropout_rate=0.1, device="cpu"))
+    out = m.train()(torch.from_numpy(x))
+    (out * tr).sum().backward()
+    assert {k[0] for k in masks} == {(2, 16, E), (2, NH, 16, 16)}
+    np.testing.assert_allclose(_np(out), jout.numpy(), **TOL)
+    jgrads = dict(jm.named_parameters())
+    for name, p in m.named_parameters():
+        want = np.asarray(jgrads[name].grad.numpy(), np.float32)
+        np.testing.assert_allclose(_np(p.grad), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)

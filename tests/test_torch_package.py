@@ -13,7 +13,6 @@ import sys
 import pytest
 import torch
 
-from paddle_tpu_torch.incubate import FusedMultiTransformer
 from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_tiny
 from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
 from paddle_tpu_torch.quantization import quantize_for_serving
@@ -138,14 +137,6 @@ def _engine(**kw):
                   num_slots=2, page_size=16, max_context=64, **kw)
 
 
-def _train_forward(**cfg):
-    m = GPTStackedForPretraining(gpt_tiny(**cfg), device="cpu")
-    ids = torch.zeros((1, 8), dtype=torch.long)
-    if cfg.get("use_flash_attention") is False:
-        ids = ids.to("meta")     # refused off the CPU only
-    m(ids, labels=ids)
-
-
 def _gpt_forward(**kw):
     m = GPTStackedForPretraining(gpt_tiny(), device="cpu")
     m(torch.zeros((1, 8), dtype=torch.long), **kw)
@@ -154,10 +145,6 @@ def _gpt_forward(**kw):
 def _params(dtype=torch.float32):
     return [torch.nn.Parameter(torch.zeros(4, dtype=dtype))]
 
-
-def _stack_train_forward():
-    m = FusedMultiTransformer(16, 2, 32, dropout_rate=0.1, device="cpu")
-    m.train()(torch.zeros((1, 4, 16)))
 
 
 class _Layered(torch.nn.Module):
@@ -180,25 +167,9 @@ REFUSALS = {
     "engine lora": (lambda: _engine(lora=object()), "lora"),
     "engine mesh": (lambda: _engine(mesh=object()), "sharded"),
     "engine role": (lambda: _engine(role="prefill"), "disaggregated"),
-    "adamw lr scheduler": (lambda: AdamW(_params(), learning_rate=object()),
-                           "training"),
-    "adamw grad_clip": (lambda: AdamW(_params(), grad_clip=1.0), "training"),
-    "adamw lr_ratio": (lambda: AdamW(_params(), lr_ratio=lambda p: 1.0),
-                       "training"),
-    "adamw apply_decay_param_fun": (
-        lambda: AdamW(_params(), apply_decay_param_fun=lambda n: True),
-        "training"),
-    "adamw multi_precision": (lambda: AdamW(_params(torch.bfloat16)),
-                              "training"),
     "fused_train_step amp O1 over fp32": (
         lambda: FusedTrainStep(lambda: None, AdamW(_params()),
                                amp_level="O1"), "training"),
-    "training dropout": (lambda: _train_forward(), "training"),
-    "training use_flash_attention=False": (
-        lambda: _train_forward(hidden_dropout=0.0, attention_dropout=0.0,
-                               use_flash_attention=False), "training"),
-    "fused_multi_transformer training dropout": (_stack_train_forward,
-                                                 "training"),
     "quantize_for_serving layered": (lambda: quantize_for_serving(_Layered()),
                                      "quantized serving"),
 }
