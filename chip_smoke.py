@@ -222,12 +222,46 @@ result line:
    fp32, dropout 0: three steps of the whole recipe on the card and on
    the CPU from the same weights: losses within ``TRAIN_LOSS_ATOL``,
    parameters within two rate-sized steps plus 1e-5 relative and 99.9 %
-   of them within 1e-6; the card launched the flash and AdamW kernels.
+   of them within 1e-6; the card launched the flash and AdamW kernels;
+25. ragged kernel at the new plans -- bf16, fp32 and int8 against
+   ``ragged_paged_attention_plain`` and ``split_merge_plain``, rerun bit
+   for bit and over a stale pool: verify runs of k + 1 = 5 rows (one
+   token block each) beside prefill chunks; a tail prefill from position
+   384 over three pages another slot wrote, beside a decode of that slot;
+   the draft's catch-up runs over the second layer of a 2-layer pool;
+26. prefix cache -- phase 3's engine with max_context 1024: a 384-token
+   system prompt registered by one warm request, then 16 requests of it
+   and a 16-200-token tail, 32 new tokens each, against the same traffic
+   with the cache off: hit rate, cached tokens, TTFT p50 and tokens/s;
+   24 ragged launches every fused step; the tokens under the parity rule
+   (``GAP_BOUND``); with an int8 pool, the adopted pages keep their
+   scales bit for bit; ``flush`` drains every page; then fp32 at 2 layers
+   (TF32 off), cache on against off;
+27. watchdog -- ``stall_budget_s`` 1 s, ``compile_budget_s`` 300 s, 32
+   requests; one stall of 3 s, one persistent non-intact exception, one
+   NaN on slot 0, one pool exhaustion: 2 recoveries, 2 rebuilds, 1 retry,
+   1 quarantine, the implicated requests FAILED with their typed errors,
+   the rest under the parity rule against an unfaulted run, the ledger
+   exact every step, the device memory back once the zombie returns;
+   bf16, then int8 (the rebuilt pool's scales finite);
+28. speculative -- phase 3's traffic, greedy, k = 4, with
+   ``truncated_draft(target, 2)`` and with the target as its own draft,
+   against the plain engine in the same run: acceptance, verify and draft
+   steps, tokens/s, target launches = verify steps x 24 and draft
+   launches = draft steps x its layers; one sampled run checked by
+   property; the int8-pool variant; fp32 at 2 layers: tokens equal;
+29. LoRA -- 4 adapters of rank 16 on qkv, out_proj, fc1 and fc2 (bf16
+   slabs), 16 requests over them and the null adapter: every adapter's
+   tokens against an engine serving ``merged_state_dict`` weights without
+   LoRA (the null adapter's against the base model), under the parity
+   rule; evicting a seated adapter raises ``AdapterInUse``; then the same
+   over ``weight_dtype="int8"``.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
 Output: the card's name and power limit (nvidia-smi), one JSON line with
-the kernels' numbers (the flash rows also carry their ratio to SDPA,
+the kernels' numbers (the ragged rows carry their launches on each
+main path, ``launches_by_path``; the flash rows also carry their ratio to SDPA,
 their share of the bound, the whole backward's time against SDPA's
 backward, and the forward's time at BERT's attention; the ragged row its
 time, plain time and bound at the mixed served shape; the AdamW master
@@ -354,9 +388,10 @@ def import_port():
     test can check the imports without a card)."""
     import torch
     from paddle_tpu_torch import amp, incubate
+    from paddle_tpu_torch import serving
     from paddle_tpu_torch.models import BertForPretraining, BertModel, \
         BertPretrainingCriterion, GPTStackedForPretraining, bert_base, \
-        bert_tiny, gpt_1p3b, gpt_tiny
+        bert_tiny, gpt_1p3b, gpt_tiny, truncated_draft
     from paddle_tpu_torch.nn import clip
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops.kernels import _build
@@ -368,7 +403,8 @@ def import_port():
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
     from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep, lr
     from paddle_tpu_torch.quantization import int8 as qi8
-    from paddle_tpu_torch.serving import RequestState, ServingEngine
+    from paddle_tpu_torch.serving import RequestState, ServingEngine, \
+        SpeculativeEngine
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
                 gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
@@ -378,7 +414,9 @@ def import_port():
                 bert_base=bert_base, bert_tiny=bert_tiny,
                 AdamW=AdamW, FusedTrainStep=FusedTrainStep, amp=amp, lr=lr,
                 clip=clip, RequestState=RequestState,
-                ServingEngine=ServingEngine)
+                ServingEngine=ServingEngine,
+                SpeculativeEngine=SpeculativeEngine, serving=serving,
+                truncated_draft=truncated_draft)
 
 
 def _check(cond, msg):
@@ -806,6 +844,16 @@ def serve_engine(port, kv_dtype="bfloat16", weight_dtype=None):
     return eng, rng
 
 
+def _no_recovery(name, eng):
+    """A phase that injects no fault: the engine retried, recovered,
+    rebuilt and quarantined nothing."""
+    m = eng.metrics()
+    got = {k: m[k] for k in ("step_retries", "recoveries", "rebuilds",
+                             "quarantined", "failed")}
+    _check(not any(got.values()), f"{name}: faults without an injection: "
+           f"{got}")
+
+
 def serve_workload(port, eng, rng, launch_log=None):
     """Submit the 16 requests at once and step ``eng`` until it is idle;
     every request must end DONE with its 32 tokens and every page come
@@ -833,6 +881,7 @@ def serve_workload(port, eng, rng, launch_log=None):
            f"{[(r.state, len(r.tokens)) for r in reqs]}")
     used = eng.metrics()["pages_used"]
     _check(used == 0, f"{used} pages leaked")
+    _no_recovery("serve", eng)
     return reqs, step_s, wall
 
 
@@ -860,7 +909,7 @@ def phase_serve(port):
     eng.close()
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, tokens / dt
 
 
 # ---------------------------------------------------------------------------
@@ -3524,6 +3573,766 @@ def phase_recipe_card_vs_cpu(port):
 
 
 
+
+# ---------------------------------------------------------------------------
+# phases 25-29: the prefix cache, the watchdog, speculation and LoRA
+# ---------------------------------------------------------------------------
+
+# The parity rule of these phases.  Two engines that run the same tokens
+# through different batch compositions (a verify run of k + 1 rows, a tail
+# prefill that starts past 0, a draft of other rows) do not reproduce each
+# other bit for bit on the card: a row's cuBLAS result can depend on how
+# many rows its product has.  So where two runs' tokens part, the first
+# parting is allowed only where the reference's top-2 logit gap at that
+# position (a third computation: the paged step without a plan over the
+# reference's own tokens) is below a bound:
+# - bf16 weights (bf16 or int8 pool): 2^-2.  Phase 10 measured two bf16
+#   paths of this model at a relative logit norm of 0.0148 (logits of RMS
+#   ~0.9: 0.02 * sqrt(2048) through the tied head), so a logit moves by
+#   ~0.013 RMS and ~0.07 at 5 sigma, and two logits' moves add: the top-2
+#   order can flip only within ~0.15 of a tie;
+# - int8 weights, LoRA against merged weights: 2^-1.  The oracle quantizes
+#   W + BA where the engine quantizes W and adds BA in fp32: two int8
+#   roundings of each weight, each moving the logits by up to phase 14's
+#   0.046 relative norm (~0.04 RMS, ~0.2 at 5 sigma; two logits, 0.4);
+# - fp32 with TF32 off (2 layers at full width): 2^-13.  The same fp32
+#   arithmetic summed in another order moves a logit by ~1e-6 of the
+#   logits' scale; the bound leaves a margin of ~100x for a near tie.
+GAP_BOUND = {"bfloat16": 2.0 ** -2, "int8_weights": 2.0 ** -1,
+             "float32": 2.0 ** -13}
+SPEC_K = 4
+PREFIX_SYSTEM, PREFIX_CONTEXT = 384, 1024
+LORA_RANK, LORA_ADAPTERS = 16, 4
+# the watchdog's budget: ~80x the serve step's ~12 ms (phase 3), small
+# beside the injected stall of three budgets
+WATCH_BUDGET = 1.0
+
+
+def _engine_kw(**kw):
+    """Phase 3's engine: 8 slots, page 128, max_context 512."""
+    return dict(dict(num_slots=8, page_size=128, max_context=512), **kw)
+
+
+def _serve_prompts(rng, vocab, n=SERVE_REQUESTS):
+    return [rng.randint(0, vocab, (SERVE_PROMPT_LENS[i % 4],))
+            for i in range(n)]
+
+
+def _ledger_ok(a):
+    return a.free_pages + a.used_pages + a.spec_pages + a.shared_pages \
+        == a.capacity
+
+
+def _drive(port, eng, prompts, new, adapters=None, sampling=None):
+    """Submit every prompt at once and step ``eng`` to idle, holding the
+    page ledger of each of its allocators at every step.  Returns
+    (requests, wall seconds, steps)."""
+    allocs = [eng.allocator]
+    if getattr(eng, "draft", None) is not None:
+        allocs.append(eng.draft.allocator)
+    adapters = adapters or [None] * len(prompts)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, new, adapter=a, sampling=sampling)
+            for p, a in zip(prompts, adapters)]
+    steps = 0
+    while eng.queue.depth or eng.scheduler.active_slots:
+        met = eng.step()
+        steps += 1
+        _check(all(_ledger_ok(a) for a in allocs),
+               "free + used + spec + shared != capacity")
+        _check(steps < 20000, "the engine made no progress")
+        if not met["active_slots"] and not met["tokens_this_step"]:
+            time.sleep(0.001)          # post-recovery backoff window
+    port["torch"].cuda.synchronize()
+    return reqs, time.perf_counter() - t0, steps
+
+
+def _all_done(port, name, reqs, new):
+    done = port["RequestState"].DONE
+    _check(all(r.state == done and len(r.tokens) == new for r in reqs),
+           f"{name}: requests not all DONE with {new} tokens: "
+           f"{[(r.state, len(r.tokens), r.error) for r in reqs]}")
+
+
+def _gap_at(port, model, ids, pos, kv_dtype):
+    """The top-2 gap of ``model``'s logits for token ``pos`` of ``ids``:
+    the paged step without a plan (a chunked prefill of ids[:pos] at
+    position 0, plain attention over its pages) in a pool of
+    ``kv_dtype``."""
+    torch = port["torch"]
+    pages = -(-pos // 128)
+    cache = model.new_paged_kv_cache(pages + 1, 128, dtype=kv_dtype)
+    tables = torch.arange(1, pages + 1, dtype=torch.int32,
+                          device=DEVICE)[None]
+    with torch.no_grad():
+        lg = model._paged_lm_logits(
+            torch.from_numpy(np.asarray(ids[:pos])[None]).to(DEVICE), cache,
+            tables, torch.zeros(1, dtype=torch.int32, device=DEVICE))
+    top = lg[0, -1].float().topk(2).values
+    cache.release()
+    return float(top[0] - top[1])
+
+
+def _parity(port, name, got, want, model, bound, kv_dtype):
+    """Hold ``got`` against ``want`` (output ids, prompt + tokens) under
+    the parity rule (``GAP_BOUND``), the gap read from ``model`` over the
+    reference's tokens; prints the agreement."""
+    same, agree, total, parted = 0, 0, 0, []
+    for g, w in zip(got, want):
+        _check(len(g) == len(w), f"{name}: lengths {len(g)} != {len(w)}")
+        diff = np.nonzero(np.asarray(g) != np.asarray(w))[0]
+        total += 1
+        if not len(diff):
+            same += 1
+            continue
+        pos = int(diff[0])
+        parted.append((pos, _gap_at(port, model, w, pos, kv_dtype)))
+    for g, w in zip(got, want):
+        diff = np.nonzero(np.asarray(g) != np.asarray(w))[0]
+        agree += int(diff[0]) if len(diff) else len(w)
+    print(f"[parity] {name}: {same}/{total} requests token for token, "
+          f"{agree / sum(len(w) for w in want):.4f} of the ids before a "
+          f"parting; partings (position, reference top-2 gap): {parted} "
+          f"(gap bound {bound!r})")
+    worst = max((gap for _, gap in parted), default=0.0)
+    _check(worst < bound, f"{name}: tokens part where the reference's "
+           f"top-2 gap is {worst} (bound {bound})")
+    return same, total
+
+
+def _p50_ttft(reqs):
+    return float(np.median([r.t_first_token - r.t_submitted for r in reqs]))
+
+
+# -- phase 25: the ragged kernel at the new plans ---------------------------
+
+def spec_geometry(rpa, draft=False, max_pages=4):
+    """The speculative engine's fused-step geometry over phase 3's engine
+    (8 slots, page 128, a 128-token budget, k = 4): verify runs of k + 1
+    rows a slot; the draft's shadow takes catch-up runs of up to k + 2."""
+    per = SPEC_K + (2 if draft else 1)
+    nb_max = 8 * -(-per // rpa.TOKEN_BLOCK) + 8 + 128 // rpa.TOKEN_BLOCK
+    return dict(num_pages=8 * max_pages + 1, heads=16, page_size=128,
+                head_dim=128, t_max=8 * per + 128, nb_max=nb_max,
+                wl_max=nb_max * max_pages, max_pages=max_pages)
+
+
+def prefix_geometry(rpa):
+    """The prefix-cache engine: phase 3's with max_context 1024."""
+    mp, nb_max = 8, 8 + 128 // rpa.TOKEN_BLOCK
+    return dict(num_pages=8 * mp + 1, heads=16, page_size=128, head_dim=128,
+                t_max=8 + 128, nb_max=nb_max, wl_max=nb_max * mp,
+                max_pages=mp)
+
+
+def new_plan_cases(rpa, rng):
+    """(name, runs, geometry) of the plans phases 26-29 launch."""
+    spec = spec_geometry(rpa)
+    tb = _served_runs(rng, spec["num_pages"])
+    k1 = SPEC_K + 1
+    verify = [(380, k1, tb[0]), (124, k1, tb[1]), (253, k1, tb[2]),
+              (300, k1, tb[3]), (64, 1, tb[4]), (507, k1, tb[5]),
+              (0, 64, tb[6]), (120, 40, tb[7])]
+    pre = prefix_geometry(rpa)
+    perm = rng.permutation(np.arange(1, pre["num_pages"])).astype(np.int32)
+    system = perm[:3]                  # pages another request wrote
+
+    def row(own):
+        return np.concatenate([system, own]).astype(np.int32)
+
+    tail = [(PREFIX_SYSTEM, 100, row(perm[3:8])),
+            (PREFIX_SYSTEM, 28, row(perm[8:13])),
+            (420, 1, row(perm[13:18])),
+            (700, 1, perm[18:26])]
+    draft = spec_geometry(rpa, draft=True)
+    td = _served_runs(rng, draft["num_pages"])
+    drafts = [(200, SPEC_K + 2, td[0]), (250, SPEC_K + 2, td[1]),
+              (300, 1, td[2]), (127, 1, td[3]), (0, 100, td[4]),
+              (383, 3, td[5])]
+    return (("verify_runs", verify, spec), ("tail_prefill", tail, pre),
+            ("draft_pool", drafts, draft))
+
+
+# the kernel against split_merge_plain, its own arithmetic in plain
+# PyTorch: bf16 as TOL (the output rounded once, summation order); fp32
+# the same sums in another order, with a relative term for int8 pages,
+# which dequantize to values up to 127 x 0.035 = 4.4
+SPLIT_MERGE_TOL = {"bfloat16": TOL["bfloat16"], "float32": (2e-5, 1e-5),
+                   "int8": (2e-5, 1e-5)}
+
+
+def _split_merge_check(port, name, c, layer):
+    """The kernel against ``split_merge_plain`` (its own split-and-merge
+    arithmetic in plain PyTorch, from the plan alone) under
+    ``SPLIT_MERGE_TOL``."""
+    torch, rpa = port["torch"], port["rpa"]
+    kp, vp = c["k"][layer], c["v"][layer]
+    sc = {}
+    if c["dtype"] == "int8":
+        sc = dict(k_scale=c["k_scale"][layer], v_scale=c["v_scale"][layer])
+    got = rpa.ragged_paged_attention(c["q"], kp, vp, c["tables"],
+                                     c["lengths"], c["plan"], **sc)
+    d = c["q"].shape[-1]
+    want = rpa.split_merge_plain(
+        c["q"].to(got.dtype), kp, vp, c["plan"], 1.0 / d ** 0.5,
+        rpa.keys_per_split(d, kp.dtype), sc.get("k_scale"),
+        sc.get("v_scale"))
+    torch.cuda.synchronize()
+    real = c["stats"]["n_tokens"]
+    atol, rtol = SPLIT_MERGE_TOL[c["dtype"]]
+    diff = (got[:real].float() - want[:real].float()).abs()
+    err = diff.max().item()
+    over = (diff - atol - rtol * want[:real].float().abs()).max().item()
+    print(f"[new_plans] {name} {c['dtype']} vs split_merge_plain: "
+          f"max_abs_err={err!r} tol={atol}+{rtol}*|plain|")
+    _check(over <= 0, f"{name} {c['dtype']}: kernel vs split_merge_plain "
+           f"off by {err}")
+    return err
+
+
+def phase_new_plans(port):
+    """Phase 25: the ragged kernel at the plans of phases 26-29, against
+    both plain versions, rerun bit for bit and over a stale pool."""
+    rpa = port["rpa"]
+    errs = {"float": [], "int8": []}
+    for name, runs, geo in new_plan_cases(rpa, np.random.RandomState(25)):
+        for i, dtype in enumerate(("bfloat16", "float32", "int8")):
+            layers = 2 if name == "draft_pool" else 1
+            c = _case(port, runs, dtype=dtype, seed=250 + i, layers=layers,
+                      **geo)
+            _check(c["stats"]["n_blocks"] < geo["nb_max"],
+                   f"{name}: the case must leave padding blocks")
+            # the draft's case holds its pool's second layer (a view of
+            # the stacked [2, ...] pool, as the draft model passes it)
+            lc = {**c, **{k: c[k][layers - 1:] for k in
+                          ("k", "v", "k_scale", "v_scale")
+                          if c[k] is not None}}
+            if dtype == "int8":
+                errs["int8"].append(_ragged_int8_compare(port, name, lc))
+            else:
+                errs["float"].append(_compare(port, name, lc))
+            err = _split_merge_check(port, name, c, layers - 1)
+            errs["int8" if dtype == "int8" else "float"].append(err)
+            del c, lc
+    port["torch"].cuda.empty_cache()
+    return {k: max(v) for k, v in errs.items()}
+
+
+# -- phase 26: the prefix cache ---------------------------------------------
+
+def _prefix_traffic(rng, vocab):
+    """A 384-token system prompt; a warming request and 16 requests, each
+    the system prompt and a 16-200-token tail."""
+    system = rng.randint(0, vocab, (PREFIX_SYSTEM,))
+    prompts = [np.concatenate([system, rng.randint(
+        0, vocab, (int(rng.randint(16, 201)),))]) for _ in range(17)]
+    return prompts[0], prompts[1:]
+
+
+def phase_prefix_cache(port, model, fp32_model):
+    torch = port["torch"]
+    se = port["ServingEngine"]
+    vocab = model.config.vocab_size
+    launches = {}
+    for kv in ("bfloat16", "int8"):
+        warm, prompts = _prefix_traffic(np.random.RandomState(26), vocab)
+        kw = _engine_kw(max_context=PREFIX_CONTEXT, kv_dtype=kv)
+        cold = se(model, **kw)
+        cold.generate_batch([warm], SERVE_NEW_TOKENS)
+        cfused = cold.metrics()["fused_steps"]
+        creqs, cdt, _ = _drive(port, cold, prompts, SERVE_NEW_TOKENS)
+        cfused = cold.metrics()["fused_steps"] - cfused
+        _no_recovery(f"prefix {kv} cache off", cold)
+        cold.close()
+        eng = se(model, prefix_cache=True, **kw)
+        eng.generate_batch([warm], SERVE_NEW_TOKENS)   # registers the pages
+        nodes, sys_pages, n = eng.prefix_cache.acquire(prompts[0])
+        eng.prefix_cache.release(nodes)
+        _check(n == PREFIX_SYSTEM, f"the warm request cached {n} tokens")
+        if kv == "int8":
+            scales = [t[:, sys_pages].clone()
+                      for t in (eng.cache.k_scale, eng.cache.v_scale)]
+        m0 = eng.metrics()
+        _reset_launches(port)
+        reqs, dt, steps = _drive(port, eng, prompts, SERVE_NEW_TOKENS)
+        counts = _launch_counts(port)
+        n_launch = counts.pop("ragged")
+        m = eng.metrics()
+        fused = m["fused_steps"] - m0["fused_steps"]
+        _check(n_launch == fused * SERVE_LAYERS and not any(counts.values()),
+               f"prefix {kv}: ragged launches {n_launch} != fused steps "
+               f"{fused} x 24 (others {counts})")
+        _all_done(port, f"prefix {kv}", reqs, SERVE_NEW_TOKENS)
+        _no_recovery(f"prefix {kv}", eng)
+        hits = {k: m[k] - m0[k] for k in ("prefix_hits",
+                                           "prefix_partial_hits",
+                                           "prefix_misses",
+                                           "prefix_cached_tokens",
+                                           "prefill_tokens")}
+        looked = hits["prefix_hits"] + hits["prefix_partial_hits"] + \
+            hits["prefix_misses"]
+        _check(looked == len(prompts) and hits["prefix_misses"] == 0,
+               f"prefix {kv}: {hits}")
+        tokens = len(reqs) * SERVE_NEW_TOKENS
+        print(f"[prefix] kv {kv}: hit rate "
+              f"{(looked - hits['prefix_misses']) / looked:.3f} "
+              f"({hits['prefix_hits']} hits, {hits['prefix_partial_hits']} "
+              f"partial), cached tokens {hits['prefix_cached_tokens']} = "
+              f"prefill tokens saved (prefilled "
+              f"{hits['prefill_tokens']}); TTFT p50 hits "
+              f"{1e3 * _p50_ttft(reqs):.1f} ms against cold misses "
+              f"{1e3 * _p50_ttft(creqs):.1f} ms; {tokens / dt:.1f} tokens/s "
+              f"against {tokens / cdt:.1f} cold; {fused} fused steps "
+              f"against {cfused} cold, ragged launches {n_launch}")
+        _parity(port, f"prefix {kv} cache on vs off",
+                [r.output_ids() for r in reqs],
+                [r.output_ids() for r in creqs], model,
+                GAP_BOUND["bfloat16"], kv)
+        if kv == "int8":
+            kept = all(torch.equal(t[:, sys_pages], s) for t, s in
+                       zip((eng.cache.k_scale, eng.cache.v_scale), scales))
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in (eng.cache.k_scale, eng.cache.v_scale))
+            print(f"[prefix] int8: the adopted pages {sys_pages} kept their "
+                  f"per-(page, head) scales bit for bit: {kept}; scales "
+                  f"finite: {finite}")
+            _check(kept and finite, "prefix int8: adopted pages' scales")
+        a = eng.allocator
+        shared = a.shared_pages
+        eng.prefix_cache.flush()
+        print(f"[prefix] kv {kv}: {shared} cache-held pages flushed; pages "
+              f"used {a.used_pages}, shared {a.shared_pages}, free "
+              f"{a.free_pages} of {a.capacity}")
+        _check(a.used_pages == 0 and a.shared_pages == 0
+               and a.free_pages == a.capacity, "prefix: pages did not drain")
+        launches[kv] = n_launch
+        eng.close()
+        del eng, cold
+        torch.cuda.empty_cache()
+    # fp32 with TF32 off, 2 layers at full width: cache on == cache off
+    warm, prompts = _prefix_traffic(np.random.RandomState(126), vocab)
+    outs = []
+    for cached in (False, True):
+        eng = se(fp32_model, prefix_cache=cached, **_engine_kw(
+            max_context=PREFIX_CONTEXT, kv_dtype="float32"))
+        eng.generate_batch([warm], 8)
+        reqs, _, _ = _drive(port, eng, prompts[:8], 8)
+        outs.append([r.output_ids() for r in reqs])
+        eng.close()
+    _parity(port, "prefix fp32 2 layers cache on vs off", outs[1], outs[0],
+            fp32_model, GAP_BOUND["float32"], "float32")
+    return launches
+
+
+# -- phase 27: the watchdog --------------------------------------------------
+
+def _zombie_threads(eng):
+    import threading
+
+    live = eng._worker._t if eng._worker is not None else None
+    return [t for t in threading.enumerate()
+            if t.name.startswith("serving-step-") and t is not live]
+
+
+def phase_watchdog(port, model, fp32_model):
+    torch = port["torch"]
+    se = port["ServingEngine"]
+    s = port["serving"]
+    vocab = model.config.vocab_size
+    launches = {}
+    for kv in ("bfloat16", "int8"):
+        prompts = _serve_prompts(np.random.RandomState(27), vocab, 32)
+        ref = se(model, **_engine_kw(kv_dtype=kv))
+        ref.generate_batch([prompts[0][:64]], 2)
+        rreqs, _, _ = _drive(port, ref, prompts, SERVE_NEW_TOKENS)
+        ref.close()
+        eng = se(model, stall_budget_s=WATCH_BUDGET, compile_budget_s=300.0,
+                 **_engine_kw(kv_dtype=kv))
+        eng.generate_batch([prompts[0][:64]], 2)     # every variant warm
+        pool_bytes = eng.cache.nbytes
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        inj = (s.FaultInjector()
+               .inject("before_decode", at=4, kind="step_stall",
+                       duration=3 * WATCH_BUDGET)
+               .inject("before_decode", at=40, times=2,
+                       kind="step_exception", state_intact=False)
+               .inject("after_decode", at=70, kind="nan_logits",
+                       slots=[0])
+               .inject("alloc", at=12, kind="alloc_exhausted")
+               .install(eng))
+        m0 = eng.metrics()
+        _reset_launches(port)
+        reqs, dt, steps = _drive(port, eng, prompts, SERVE_NEW_TOKENS)
+        counts = _launch_counts(port)
+        n_launch = counts.pop("ragged")
+        m = eng.metrics()
+        d = {k: m[k] - m0[k] for k in ("recoveries", "rebuilds",
+                                         "step_retries", "quarantined",
+                                         "failed", "fused_steps")}
+        fired = {k: inj.fired(k) for k in ("step_stall", "step_exception",
+                                            "nan_logits", "alloc_exhausted")}
+        zombies = _zombie_threads(eng)
+        alive = [t.is_alive() for t in zombies]
+        torch.cuda.synchronize()
+        mem_run = torch.cuda.memory_allocated()
+        for t in zombies:
+            t.join(timeout=30.0)
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        by_error = {}
+        for r in reqs:
+            key = type(r.error).__name__ if r.error is not None else r.state
+            by_error[key] = by_error.get(key, 0) + 1
+        print(f"[watchdog] kv {kv}: stall budget {WATCH_BUDGET} s, compile "
+              f"budget {eng.compile_budget_s} s; shots fired {fired}; "
+              f"recoveries {d['recoveries']}, rebuilds {d['rebuilds']}, "
+              f"retries {d['step_retries']}, quarantined "
+              f"{d['quarantined']}; requests {by_error}; {steps} steps in "
+              f"{dt:.2f} s; device memory {mem0} before, {mem_run} at the "
+              f"end of the run (zombie threads alive then: {alive}), "
+              f"{mem1} once they returned (pool {pool_bytes} bytes)")
+        _check(fired == {"step_stall": 1, "step_exception": 2,
+                         "nan_logits": 1, "alloc_exhausted": 1},
+               f"watchdog {kv}: the plan did not fire as set: {fired}")
+        # one recovery and one rebuild per stall and per persistent
+        # non-intact exception; the exception's first shot is retried
+        _check(d["recoveries"] == 2 and d["rebuilds"] == 2
+               and d["step_retries"] == 1,
+               f"watchdog {kv}: recoveries/rebuilds/retries {d}")
+        _check(d["quarantined"] == by_error.get("NaNLogitsError", 0) == 1
+               and by_error.get("StepStalledError", 0) >= 1
+               and by_error.get("InjectedFault", 0) >= 1
+               and d["failed"] == sum(v for k, v in by_error.items()
+                                      if k != "DONE"),
+               f"watchdog {kv}: the implicated requests {by_error}")
+        _check(n_launch == d["fused_steps"] * SERVE_LAYERS
+               and not any(counts.values()),
+               f"watchdog {kv}: launches {n_launch} != fused steps "
+               f"{d['fused_steps']} x 24 ({counts})")
+        _check(mem1 - mem0 < pool_bytes // 2,
+               f"watchdog {kv}: device memory did not come back "
+               f"({mem0} -> {mem1})")
+        if kv == "int8":
+            _check(all(bool(torch.isfinite(t).all()) and t.shape[1]
+                       == eng.num_pages for t in (eng.cache.k_scale,
+                                                  eng.cache.v_scale)),
+                   "watchdog int8: the rebuilt pool's scales")
+        done = [i for i, r in enumerate(reqs) if r.finished]
+        _parity(port, f"watchdog {kv} survivors vs unfaulted",
+                [reqs[i].output_ids() for i in done],
+                [rreqs[i].output_ids() for i in done], model,
+                GAP_BOUND["bfloat16"], kv)
+        launches[kv] = n_launch
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    # fp32 with TF32 off, 2 layers at full width: the survivors of a stall
+    # and a persistent exception against the unfaulted run
+    fp = _serve_prompts(np.random.RandomState(127), vocab, 24)
+    want = se(fp32_model, **_engine_kw(kv_dtype="float32")).generate_batch(
+        fp, 16)
+    eng = se(fp32_model, stall_budget_s=WATCH_BUDGET, compile_budget_s=300.0,
+             **_engine_kw(kv_dtype="float32"))
+    eng.generate_batch([fp[0][:64]], 2)
+    (s.FaultInjector()
+     .inject("before_decode", at=2, kind="step_stall",
+             duration=3 * WATCH_BUDGET)
+     .inject("before_decode", at=14, times=2, kind="step_exception",
+             state_intact=False)
+     .install(eng))
+    m0 = eng.metrics()
+    reqs, _, _ = _drive(port, eng, fp, 16)
+    m = eng.metrics()
+    rec = (m["recoveries"] - m0["recoveries"], m["rebuilds"] - m0["rebuilds"])
+    done = [i for i, r in enumerate(reqs) if r.finished]
+    print(f"[watchdog] fp32 2 layers: recoveries, rebuilds {rec}; "
+          f"{len(done)} of {len(reqs)} requests survive")
+    _check(rec == (2, 2) and 0 < len(done) < len(reqs),
+           f"watchdog fp32: recoveries/rebuilds {rec}, survivors {done}")
+    _parity(port, "watchdog fp32 2 layers survivors vs unfaulted",
+            [reqs[i].output_ids() for i in done], [want[i] for i in done],
+            fp32_model, GAP_BOUND["float32"], "float32")
+    for t in _zombie_threads(eng):
+        t.join(timeout=30.0)
+    eng.close()
+    return launches
+
+
+# -- phase 28: speculative decoding -----------------------------------------
+
+def _count_draft(port, eng, box):
+    """Wrap the speculative engine's draft dispatch to add the ragged
+    launches of its draft steps to ``box[0]`` (the verify step never
+    passes here, so the split holds for a self-draft too)."""
+    rpa = port["rpa"].ragged_paged_attention
+    inner = eng._draft_dispatch
+
+    def counted(*a, **k):
+        r0 = rpa.launches
+        out = inner(*a, **k)
+        box[0] += rpa.launches - r0
+        return out
+
+    eng._draft_dispatch = counted
+
+
+def phase_speculative(port, model, fp32_model, serve_tps):
+    """Phase 28; ``serve_tps``: phase 3's tokens/s, printed beside."""
+    torch = port["torch"]
+    se, spe = port["ServingEngine"], port["SpeculativeEngine"]
+    vocab = model.config.vocab_size
+    prompts = _serve_prompts(np.random.RandomState(28), vocab)
+    launches = {}
+    truncated = port["truncated_draft"](model, 2)
+    box = [0]
+    for kv in ("bfloat16", "int8"):
+        plain = se(model, **_engine_kw(kv_dtype=kv))
+        plain.generate_batch([prompts[0][:64]], 2)
+        preqs, pdt, psteps = _drive(port, plain, prompts, SERVE_NEW_TOKENS)
+        plain.close()
+        tokens = len(prompts) * SERVE_NEW_TOKENS
+        print(f"[speculative] kv {kv}: the plain engine {tokens / pdt:.1f} "
+              f"tokens/s, {1e3 * pdt / psteps:.2f} ms a step (host clock; "
+              f"phase 3: {serve_tps:.1f} tokens/s)")
+        drafts = [("truncated_draft(target, 2)", truncated, 2)]
+        if kv == "bfloat16":
+            drafts.append(("the target itself", model, SERVE_LAYERS))
+            # all but the last block: a draft that agrees in part, so
+            # verify runs commit partial acceptances on the card too
+            drafts.append((f"truncated_draft(target, {SERVE_LAYERS - 1})",
+                           port["truncated_draft"](model, SERVE_LAYERS - 1),
+                           SERVE_LAYERS - 1))
+        launches[kv] = 0
+        for name, draft, dl in drafts:
+            eng = spe(model, draft, spec_k=SPEC_K, **_engine_kw(kv_dtype=kv))
+            eng.generate_batch([prompts[0][:64]], 8)
+            _count_draft(port, eng, box)
+            m0 = eng.metrics()
+            _reset_launches(port)
+            box[0] = 0
+            reqs, dt, steps = _drive(port, eng, prompts, SERVE_NEW_TOKENS)
+            counts = _launch_counts(port)
+            total = counts.pop("ragged")
+            m = eng.metrics()
+            d = {k: m[k] - m0[k] for k in (
+                "spec_verify_steps", "spec_draft_steps", "fused_steps",
+                "spec_proposed_tokens", "spec_accepted_tokens",
+                "spec_draft_skips")}
+            acc = d["spec_accepted_tokens"] / max(d["spec_proposed_tokens"], 1)
+            draft_l = box[0]
+            target_l = total - draft_l
+            _all_done(port, f"speculative {kv} {name}", reqs,
+                      SERVE_NEW_TOKENS)
+            _no_recovery(f"speculative {kv} {name}", eng)
+            print(f"[speculative] kv {kv}, draft {name}, k {SPEC_K}: "
+                  f"acceptance {acc:.4f} ({d['spec_accepted_tokens']} of "
+                  f"{d['spec_proposed_tokens']}), verify steps "
+                  f"{d['spec_verify_steps']}, draft steps "
+                  f"{d['spec_draft_steps']}, draft skips "
+                  f"{d['spec_draft_skips']}; {tokens / dt:.1f} tokens/s "
+                  f"against the plain engine's {tokens / pdt:.1f} in this "
+                  f"run; ragged launches: target {target_l}, draft "
+                  f"{draft_l}")
+            _check(d["spec_verify_steps"] == d["fused_steps"]
+                   and target_l == d["spec_verify_steps"] * SERVE_LAYERS
+                   and draft_l == d["spec_draft_steps"] * dl
+                   and not any(counts.values()),
+                   f"speculative {kv} {name}: launches {total} (draft "
+                   f"{draft_l}) against verify {d['spec_verify_steps']} x "
+                   f"24 + draft {d['spec_draft_steps']} x {dl} ({counts})")
+            if draft is model:
+                # the draft is the target: a proposal is rejected only
+                # where the draft's bf16 argmax and the verify run's part,
+                # within rounding of a tie (the parity rule's bound)
+                _check(acc >= 0.95, f"speculative self-draft acceptance "
+                       f"{acc}")
+            _parity(port, f"speculative {kv} {name} vs plain",
+                    [r.output_ids() for r in reqs],
+                    [r.output_ids() for r in preqs], model,
+                    GAP_BOUND["bfloat16"], kv)
+            if kv == "int8":
+                _check(eng.draft.cache.quantized, "the draft pool not int8")
+            launches[kv] += total
+            eng.close()
+            del eng
+            torch.cuda.empty_cache()
+        drafts.clear()
+    # one sampled run, checked by property
+    eng = spe(model, truncated, spec_k=SPEC_K, seed=7, **_engine_kw())
+    sp = port["serving"].SamplingParams(do_sample=True, temperature=0.8,
+                                        top_k=50, top_p=0.95)
+    m0 = eng.metrics()
+    _reset_launches(port)
+    reqs, dt, _ = _drive(port, eng, prompts, SERVE_NEW_TOKENS, sampling=sp)
+    total = _launch_counts(port)["ragged"]
+    m = eng.metrics()
+    prop = m["spec_proposed_tokens"] - m0["spec_proposed_tokens"]
+    acc = (m["spec_accepted_tokens"] - m0["spec_accepted_tokens"]) / \
+        max(prop, 1)
+    _all_done(port, "speculative sampled", reqs, SERVE_NEW_TOKENS)
+    _no_recovery("speculative sampled", eng)
+    in_vocab = all(0 <= t < vocab for r in reqs for t in r.tokens)
+    distinct = len({tuple(r.tokens) for r in reqs})
+    print(f"[speculative] sampled (temperature 0.8, top-k 50, top-p 0.95), "
+          f"draft truncated_draft(target, 2): {len(reqs)} requests DONE, "
+          f"tokens in the vocabulary {in_vocab}, {distinct} distinct "
+          f"continuations, acceptance {acc:.4f} of {prop} proposed, "
+          f"{len(reqs) * SERVE_NEW_TOKENS / dt:.1f} tokens/s, ragged "
+          f"launches {total}")
+    _check(in_vocab and distinct == len(reqs) and 0 < acc <= 1
+           and eng.draft.allocator.spec_pages == 0,
+           "speculative sampled: property")
+    launches["bfloat16"] += total
+    eng.close()
+    del eng, truncated
+    torch.cuda.empty_cache()
+    # fp32 with TF32 off, 2 layers at full width: speculative == plain
+    fp = _serve_prompts(np.random.RandomState(128), vocab, 8)
+    want = se(fp32_model, **_engine_kw(kv_dtype="float32")).generate_batch(
+        fp, 16)
+    for name, draft in (("self", fp32_model),
+                        ("truncated 1", port["truncated_draft"](fp32_model,
+                                                                1))):
+        got = spe(fp32_model, draft, spec_k=SPEC_K, **_engine_kw(
+            kv_dtype="float32")).generate_batch(fp, 16)
+        _parity(port, f"speculative fp32 2 layers draft {name} vs plain",
+                got, want, fp32_model, GAP_BOUND["float32"], "float32")
+    return launches
+
+
+# -- phase 29: multi-tenant LoRA --------------------------------------------
+
+def phase_lora(port, model, fp32_model):
+    torch = port["torch"]
+    s = port["serving"]
+    se = port["ServingEngine"]
+    cfg = model.config
+    vocab = cfg.vocab_size
+    pool = s.LoRAAdapterPool(cfg, num_adapter_pages=LORA_ADAPTERS,
+                             rank=LORA_RANK, dtype="bfloat16", device=DEVICE)
+    names = [f"tenant{i}" for i in range(LORA_ADAPTERS)]
+    t0 = time.perf_counter()
+    for i, name in enumerate(names):
+        pool.register(name, s.random_adapter(cfg, LORA_RANK,
+                                             np.random.RandomState(290 + i)))
+    print(f"[lora] {LORA_ADAPTERS} adapters of rank {LORA_RANK} on qkv, "
+          f"out_proj, fc1, fc2 registered in "
+          f"{time.perf_counter() - t0:.2f} s; slabs {pool.nbytes} bytes "
+          f"({pool.num_pages} pages, the null page included)")
+    prompts = _serve_prompts(np.random.RandomState(29), vocab)
+    tenants = [names[i % 5] if i % 5 < LORA_ADAPTERS else None
+               for i in range(len(prompts))]
+    launches = {}
+    variants = (("bfloat16", None), ("int8", "int8"))
+    for tag, wd in variants:
+        base = model if wd is None else port["GPT"](
+            cfg, device=DEVICE, dtype="bfloat16", seed=0)
+        eng = se(base, lora=pool, weight_dtype=wd, **_engine_kw())
+        eng.generate_batch([prompts[0][:64]], 2, adapter=names[0])
+        m0 = eng.metrics()
+        _reset_launches(port)
+        reqs, dt, _ = _drive(port, eng, prompts, SERVE_NEW_TOKENS, tenants)
+        counts = _launch_counts(port)
+        n_launch = counts.pop("ragged")
+        fused = eng.metrics()["fused_steps"] - m0["fused_steps"]
+        _all_done(port, f"lora {tag}", reqs, SERVE_NEW_TOKENS)
+        _no_recovery(f"lora {tag}", eng)
+        _check(n_launch == fused * SERVE_LAYERS and not any(counts.values()),
+               f"lora {tag}: launches {n_launch} != {fused} x 24")
+        # evicting a seated tenant is refused, typed
+        r = eng.submit(prompts[1][:64], 4, adapter=names[1])
+        eng.step()
+        try:
+            pool.evict(names[1])
+            refused = False
+        except s.AdapterInUse:
+            refused = True
+        eng.run_until_idle()
+        print(f"[lora] weights {tag}: {len(reqs)} requests over "
+              f"{LORA_ADAPTERS} adapters and the null adapter DONE, "
+              f"{len(reqs) * SERVE_NEW_TOKENS / dt:.1f} tokens/s, {fused} "
+              f"fused steps, ragged launches {n_launch}; evict of a seated "
+              f"adapter raised AdapterInUse: {refused}")
+        _check(refused and r.finished and pool.refcount(names[1]) == 0,
+               "lora: evict of a seated adapter was not refused")
+        eng.close()
+        # each tenant's tokens against the same engine serving its merged
+        # weights without LoRA; the null adapter's against the base model,
+        # which also shows that the adapters move tokens
+        bound = GAP_BOUND["bfloat16" if wd is None else "int8_weights"]
+        plain = se(base, weight_dtype=wd, **_engine_kw()).generate_batch(
+            prompts, SERVE_NEW_TOKENS)
+        moved = sum(not np.array_equal(reqs[i].output_ids(), plain[i])
+                    for i, t in enumerate(tenants) if t is not None)
+        print(f"[lora] weights {tag}: {moved} of "
+              f"{sum(t is not None for t in tenants)} adapter requests give "
+              "other tokens than the base model")
+        _check(moved >= 1, f"lora {tag}: the adapters moved no token")
+        for name in names + [None]:
+            idx = [i for i, t in enumerate(tenants) if t == name]
+            if name is None:
+                oracle, want = base, [plain[i] for i in idx]
+            else:
+                oracle = port["GPT"](cfg, device=DEVICE, dtype="bfloat16",
+                                     seed=0)
+                oracle.load_state_dict(pool.merged_state_dict(model, name))
+                oeng = se(oracle, weight_dtype=wd, **_engine_kw())
+                want = oeng.generate_batch([prompts[i] for i in idx],
+                                           SERVE_NEW_TOKENS)
+                oeng.close()
+            _parity(port, f"lora weights {tag} adapter {name} vs "
+                    f"{'the base model' if name is None else 'merged'}",
+                    [reqs[i].output_ids() for i in idx], want, oracle,
+                    bound, "bfloat16")
+            if oracle is not base:
+                del oracle
+            torch.cuda.empty_cache()
+        launches[tag] = n_launch
+        if base is not model:
+            del base
+        torch.cuda.empty_cache()
+    # fp32 with TF32 off, 2 layers at full width: each tenant's tokens
+    # against the engine serving its merged weights, the null adapter's
+    # against the base model
+    fcfg = fp32_model.config
+    fpool = s.LoRAAdapterPool(fcfg, num_adapter_pages=LORA_ADAPTERS,
+                              rank=LORA_RANK, dtype="float32", device=DEVICE)
+    for i, name in enumerate(names):
+        fpool.register(name, s.random_adapter(
+            fcfg, LORA_RANK, np.random.RandomState(390 + i)))
+    fp = _serve_prompts(np.random.RandomState(129), vocab, 10)
+    ften = [names[i % 5] if i % 5 < LORA_ADAPTERS else None
+            for i in range(len(fp))]
+    fkw = _engine_kw(kv_dtype="float32")
+    eng = se(fp32_model, lora=fpool, **fkw)
+    reqs, _, _ = _drive(port, eng, fp, 16, ften)
+    eng.close()
+    _all_done(port, "lora fp32", reqs, 16)
+    plain = se(fp32_model, **fkw).generate_batch(fp, 16)
+    moved = sum(not np.array_equal(reqs[i].output_ids(), plain[i])
+                for i, t in enumerate(ften) if t is not None)
+    print(f"[lora] fp32 2 layers: {moved} of "
+          f"{sum(t is not None for t in ften)} adapter requests give other "
+          "tokens than the base model")
+    _check(moved >= 1, "lora fp32: the adapters moved no token")
+    for name in names + [None]:
+        idx = [i for i, t in enumerate(ften) if t == name]
+        if name is None:
+            oracle, want = fp32_model, [plain[i] for i in idx]
+        else:
+            oracle = port["GPT"](fcfg, device=DEVICE, dtype="float32", seed=1)
+            oracle.load_state_dict(fpool.merged_state_dict(fp32_model, name))
+            want = se(oracle, **fkw).generate_batch([fp[i] for i in idx], 16)
+        _parity(port, f"lora fp32 2 layers adapter {name} vs "
+                f"{'the base model' if name is None else 'merged'}",
+                [reqs[i].output_ids() for i in idx], want, oracle,
+                GAP_BOUND["float32"], "float32")
+    del fpool
+    torch.cuda.empty_cache()
+    return launches
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3548,7 +4357,7 @@ def main() -> int:
     print(f"[card] {card}")
     phase_build(port)
     k = phase_kernels(port)
-    launches = phase_serve(port)
+    launches, serve_tps = phase_serve(port)
     phase_card_vs_cpu(port)
     tk = phase_train_kernels(port)
     train_launches = phase_train(port)
@@ -3579,6 +4388,29 @@ def main() -> int:
     phase_train_dropout(port)
     phase_determinism(port)
     phase_recipe_card_vs_cpu(port)
+    npk = phase_new_plans(port)
+    k["max_abs_err"] = max(k["max_abs_err"], npk["float"])
+    ik["ragged"]["max_abs_err"] = max(ik["ragged"]["max_abs_err"],
+                                      npk["int8"])
+    # phases 26-29 share GPT-3 1.3B bf16 (seed 0), and a 2-layer fp32 copy
+    # of its width for the exact checks
+    model = port["GPT"](port["gpt_1p3b"](), device=DEVICE, dtype="bfloat16",
+                        seed=0)
+    fp32_model = port["GPT"](port["gpt_1p3b"](num_layers=2), device=DEVICE,
+                             dtype="float32", seed=1)
+    by_path = {"serve": {"bfloat16": launches,
+                         "int8": ragged_int8_launches}}
+    by_path["prefix_cache"] = phase_prefix_cache(port, model, fp32_model)
+    by_path["watchdog"] = phase_watchdog(port, model, fp32_model)
+    by_path["speculative"] = phase_speculative(port, model, fp32_model,
+                                               serve_tps)
+    by_path["lora"] = {"bfloat16": sum(phase_lora(port, model,
+                                                  fp32_model).values())}
+    del model, fp32_model
+    torch.cuda.empty_cache()
+    ragged_launches = {
+        kv: sum(p.get(kv, 0) for p in by_path.values())
+        for kv in ("bfloat16", "int8")}
     print(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
     print(card)
     csrc = "paddle_tpu_torch/ops/kernels/csrc/"
@@ -3587,7 +4419,10 @@ def main() -> int:
         "name": "ragged_paged_attention", "route": "cuda",
         "source": csrc + "ragged_paged_attention.cu",
         "replaces": pallas + "ragged_paged_attention.py:237",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
+        "launches": ragged_launches["bfloat16"],
+        "launches_by_path": {p: v.get("bfloat16", 0)
+                             for p, v in by_path.items()},
+        "max_abs_err": k["max_abs_err"],
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
         # the same kernel at the mixed served shape
@@ -3629,7 +4464,7 @@ def main() -> int:
     for key, name, source, replaces, launched in (
             ("ragged", "ragged_paged_attention_int8",
              "ragged_paged_attention.cu", "ragged_paged_attention.py:269",
-             ragged_int8_launches),
+             ragged_launches["int8"]),
             ("paged", "paged_attention_int8", "decode_attention.cu",
              "paged_attention.py:109", paged_int8_launches),
             ("decode", "decode_attention_int8", "decode_attention.cu",
@@ -3638,6 +4473,9 @@ def main() -> int:
                         "source": csrc + source,
                         "replaces": pallas + replaces, "launches": launched,
                         **ik[key]})
+        if key == "ragged":
+            kernels[-1]["launches_by_path"] = {
+                p: v.get("int8", 0) for p, v in by_path.items()}
     # the RMS variant has no model path: its launches are phase 16's
     for key, name, launched in (
             ("ln", "fused_add_layer_norm", ln_launches),

@@ -71,6 +71,7 @@ from ..ops.kernels.flash_attention import (
 )
 from ..ops.kernels.paged_attention import gather_pages, paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
+from ..ops.lora import lora_delta_raw
 from ..quantization.int8 import k_major, quantize_weight, quantized_matmul
 from ..quantization.kv import quantize_kv_write
 from .generation import GenerationMixin, KVCache
@@ -84,6 +85,7 @@ __all__ = [
     "gpt_small",
     "gpt_1p3b",
     "gpt_13b",
+    "truncated_draft",
 ]
 
 
@@ -231,7 +233,7 @@ class GPTStackedDecoder(nn.Module):
                 name, nn.Parameter(torch.empty(shapes[name], **factory)))
 
     def _block(self, h, weights, attend, int8: bool = False,
-               drop=_identity):
+               drop=_identity, lora=None):
         """One block (the reference's ``_block_fn``, ``_cached_block_fn``
         and ``_paged_block_fn`` bodies): ``h`` [B, S, hidden] -> [B, S,
         hidden].  ``attend(q, k, v)`` takes the fresh [B, S, H, D] views
@@ -247,7 +249,15 @@ class GPTStackedDecoder(nn.Module):
         projection is ``quantized_matmul``, which takes the fp32 LayerNorm
         output (not rounded to the weight dtype) and returns fp32; the
         residual adds are cast back to ``h``'s dtype, as the reference's
-        ``_paged_block_fn`` does."""
+        ``_paged_block_fn`` does.
+
+        ``lora``: ``(slabs, ids, scaling)`` -- this layer's eight adapter
+        slabs (``serving/lora.py`` order), one adapter-page id per token
+        row of ``h`` and the pool's scaling.  Each projection then adds
+        its gathered low-rank delta (``ops/lora.py``) on the same input as
+        its base product: in the weight dtype, or, for int8 projections,
+        on the fp32 input rounded to the slab dtype, added in fp32 (the
+        reference's ``_paged_block_fn``)."""
         cfg = self._cfg
         nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
         if int8:
@@ -269,14 +279,33 @@ class GPTStackedDecoder(nn.Module):
             def proj(x, w, ws, bias):
                 return torch.addmm(bias, x, w)
         b, s, hidden = h.shape
+        if lora is not None:
+            slabs, ids, lscale = lora
+
+        def lin(x, w, ws, bias, j):
+            """Projection ``j`` (qkv, out, fc1, fc2), with its delta (each
+            row's ``s`` positions share the row's adapter)."""
+            y = proj(x, w, ws, bias)
+            if lora is None:
+                return y
+            a, bb = slabs[2 * j], slabs[2 * j + 1]
+            xr = x.view(b, s, x.shape[-1])
+            if int8:
+                d = lora_delta_raw(xr.to(a.dtype), a, bb, ids,
+                                   lscale).float()
+            else:
+                d = lora_delta_raw(xr, a, bb, ids, lscale)
+            return y + d.view(b * s, -1)
+
         x = norm(h, l1g, l1b).reshape(b * s, hidden)
-        qkv = proj(x, qkvw, qkvs, qkvb).view(b, s, 3, nh, hd)
+        qkv = lin(x, qkvw, qkvs, qkvb, 0).view(b, s, 3, nh, hd)
         out = attend(*qkv.unbind(2))
         out = out.reshape(b * s, hidden).to(x.dtype)  # cache dtype may differ
-        h = h + drop(proj(out, pw, pws, pb).view(b, s, hidden)).to(h.dtype)
+        h = h + drop(lin(out, pw, pws, pb, 1).view(b, s, hidden)).to(h.dtype)
         y = norm(h, l2g, l2b).reshape(b * s, hidden)
-        y = F.gelu(proj(y, f1w, f1s, f1b), approximate="tanh")
-        return h + drop(proj(y, f2w, f2s, f2b).view(b, s, hidden)).to(h.dtype)
+        y = F.gelu(lin(y, f1w, f1s, f1b, 2), approximate="tanh")
+        return h + drop(lin(y, f2w, f2s, f2b, 3).view(b, s, hidden)
+                        ).to(h.dtype)
 
     def _train_attend(self, q, k, v, gen=None):
         """Causal attention of the training block, [B, S, H, D] views in
@@ -426,7 +455,7 @@ class GPTStackedDecoder(nn.Module):
         return h
 
     def forward_paged(self, h, k_pool, v_pool, tables, pos, ragged_plan,
-                      k_scale=None, v_scale=None):
+                      k_scale=None, v_scale=None, lora=None):
         """One paged step over every layer.  ``h`` [S, C, hidden]: C tokens
         of each of S rows at positions ``pos[s] .. pos[s] + C - 1``;
         ``k_pool``/``v_pool`` the stacked ``[L, P, H, page_size, D]`` pool,
@@ -443,7 +472,11 @@ class GPTStackedDecoder(nn.Module):
 
         An int8 pool's K/V rows go through ``quantize_kv_write`` (which
         updates the layer's scales) before they are written, and the
-        kernels read the pages with the updated scales."""
+        kernels read the pages with the updated scales.
+
+        ``lora``: ``(LoRAAdapterPool, ids)`` with ``ids`` [S] the adapter
+        page of each row; the pool's stacked slabs are read layer by layer
+        beside the stacked weights."""
         cfg = self._cfg
         nh, hd = cfg.num_heads, cfg.head_dim
         c = h.shape[1]
@@ -494,10 +527,18 @@ class GPTStackedDecoder(nn.Module):
         pools = [k_pool.unbind(0), v_pool.unbind(0)]
         pools += ([k_scale.unbind(0), v_scale.unbind(0)]
                   if k_scale is not None else [[None] * cfg.num_layers] * 2)
-        for weights, kp, vp, ks, vs in zip(self._layers(names), *pools):
+        if lora is not None:
+            pool_, ids = lora
+            layer_slabs = zip(*(t.unbind(0) for t in pool_.stacked_slabs()))
+            loras = [(sl, ids, pool_.scaling) for sl in layer_slabs]
+        else:
+            loras = [None] * cfg.num_layers
+        for weights, kp, vp, ks, vs, lr in zip(self._layers(names), *pools,
+                                               loras):
             h = self._block(
                 h, weights,
-                lambda q, k, v: attend(q, k, v, kp, vp, ks, vs), int8=int8)
+                lambda q, k, v: attend(q, k, v, kp, vp, ks, vs), int8=int8,
+                lora=lr)
         return h
 
 
@@ -671,12 +712,12 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
         written into the pool in place.  The positions come from
         ``cache_index`` here: a ``position_ids`` that disagrees raises.
 
-        ``lora`` (per-request adapters) is not ported yet: it raises."""
-        if lora is not None:
-            raise NotImplementedError(
-                "lora= (per-request LoRA adapters) is not ported yet "
-                "(ROADMAP.md queue 1, item 8, speculative decoding and "
-                "LoRA)")
+        ``lora`` (paged cache only): ``(LoRAAdapterPool, ids)``, ``ids``
+        [S] int the adapter page of each row (0 = the null adapter); every
+        projection of every layer adds its row's low-rank delta."""
+        if lora is not None and not getattr(kv_cache, "paged", False):
+            raise ValueError("per-request LoRA adapters ride the paged "
+                             "serving step (kv_cache + page_tables)")
         if kv_cache is None:
             return self._forward_train(input_ids, labels, position_ids)
         cfg = self.config
@@ -707,7 +748,7 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
             h = self.decoder.forward_paged(
                 h, kv_cache.k, kv_cache.v, page_tables, pos, ragged_plan,
                 getattr(kv_cache, "k_scale", None),
-                getattr(kv_cache, "v_scale", None))
+                getattr(kv_cache, "v_scale", None), lora=lora)
             if out_rows is not None:
                 # gather each slot's output row BEFORE the vocab
                 # projection: the LM head projects [S'] rows, not the
@@ -759,10 +800,42 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
                             device=self.device)
 
     def _paged_lm_logits(self, input_ids, paged_cache, page_tables,
-                         positions, ragged_plan=None, out_rows=None):
+                         positions, ragged_plan=None, out_rows=None,
+                         lora=None):
         return self.forward(input_ids, kv_cache=paged_cache,
                             cache_index=positions, page_tables=page_tables,
-                            ragged_plan=ragged_plan, out_rows=out_rows)
+                            ragged_plan=ragged_plan, out_rows=out_rows,
+                            lora=lora)
+
+
+def truncated_draft(model, num_layers: int = 1):
+    """A weight-sharing TRUNCATED draft for speculative serving
+    (``serving/speculative.py``; the reference's ``truncated_draft``): the
+    same class and config but only the first ``num_layers`` decoder
+    blocks, with the target's embeddings, final LayerNorm and tied head.
+    The weights are copied from ``model`` (the stacked slabs sliced on
+    their layer axis), on its device and in its dtype; a model quantized
+    for serving gives a draft quantized the same way (the same absmax
+    scales of the same weights).  The draft owns its own paged pool
+    inside the engine."""
+    import dataclasses
+
+    cfg = model.config
+    n = int(num_layers)
+    if not 1 <= n <= cfg.num_layers:
+        raise ValueError(f"truncated_draft: num_layers={n} not in "
+                         f"[1, {cfg.num_layers}]")
+    draft = type(model)(dataclasses.replace(cfg, num_layers=n),
+                        device=model.device, dtype=model.dtype)
+    with torch.no_grad():
+        src = dict(model.named_parameters())
+        for name, p in draft.named_parameters():
+            p.copy_(src[name][:n] if name.startswith("decoder.")
+                    else src[name])
+    if model.weight_int8:
+        draft.quantize_weights()
+    draft.eval()
+    return draft
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -11,6 +11,10 @@ flags, so an edited kernel is never served from a stale build.
 them; ``library(name)`` returns the loaded library, building it first if
 needed.  Nothing here runs at import time: this module is imported on
 hosts with no CUDA toolkit.
+
+A kernel that cannot be built, loaded, queried or launched raises
+``KernelError``.  The serving engine never contains it: a kernel that
+failed once fails the same way on every retry and after every rebuild.
 """
 from __future__ import annotations
 
@@ -24,8 +28,8 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "sources", "build", "library",
-           "build_logs"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "KernelError", "sources", "build",
+           "library", "build_logs"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -35,6 +39,13 @@ BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
+
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded, queried or
+    launched (the CUDA error string rides in the message)."""
+
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -55,8 +66,8 @@ def _nvcc() -> str:
     for c in cands:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                       "PATH): the port's kernels are built from source")
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on "
+                      "PATH): the port's kernels are built from source")
 
 
 def _target(name: str) -> str:
@@ -97,7 +108,7 @@ def build(names: Optional[List[str]] = None) -> Dict[str, float]:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise KernelError("kernel build failed: " + "\n".join(failed))
     return secs
 
 
@@ -112,6 +123,9 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(_target(name))
+            try:
+                lib = ctypes.CDLL(_target(name))
+            except OSError as e:
+                raise KernelError(f"kernel library {name}: {e}") from e
             _libs[name] = lib
         return lib

@@ -40,6 +40,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from . import _build
+from ._build import KernelError
 
 __all__ = [
     "decode_attention",
@@ -260,8 +261,8 @@ def query_kernel_info(lib_name: str, entry: str, error_entry: str,
         err_fn = getattr(lib, error_entry)
         err_fn.argtypes = [ctypes.c_int]
         err_fn.restype = ctypes.c_char_p
-        raise RuntimeError(f"{lib_name} kernel_info: "
-                           f"{err_fn(err).decode()} (cudaError {err})")
+        raise KernelError(f"{lib_name} kernel_info: "
+                        f"{err_fn(err).decode()} (cudaError {err})")
     return dict(zip(("smem", "registers", "ctas_per_sm", "threads",
                      "local_bytes", "keys_per_split"), info))
 
@@ -370,8 +371,8 @@ def _launch(q, k_cache, v_cache, length, scale: float, k_scale=None,
              lengths.data_ptr(), b, h, s, float(scale), keys, splits,
              ws["partials"].data_ptr(), ws["tickets"].data_ptr(), stream)
     if err != 0:
-        raise RuntimeError("decode_attention kernel launch failed: "
-                           f"{err_str(err).decode()} (cudaError {err})")
+        raise KernelError("decode_attention kernel launch failed: "
+                        f"{err_str(err).decode()} (cudaError {err})")
     decode_attention.launches += 1
     return out
 

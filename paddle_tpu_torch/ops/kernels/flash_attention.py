@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ._build import KernelError
 
 __all__ = [
     "flash_attention_bnsd",
@@ -230,8 +231,8 @@ def kernel_info(which: str, dtype: torch.dtype, head_dim: int,
     err = fns["info"](device, _WHICH[which], KERNEL_DTYPES[dtype], head_dim,
                       info)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel_info: "
-                           f"{fns['error'](err).decode()} (cudaError {err})")
+        raise KernelError(f"flash_attention kernel_info: "
+                        f"{fns['error'](err).decode()} (cudaError {err})")
     return dict(zip(("smem", "registers", "ctas_per_sm", "threads",
                      "local_bytes"), info))
 
@@ -284,8 +285,8 @@ def _launch(which: str, causal: bool, scale: float, ops: dict,
     err = fns[which](dev.index, KERNEL_DTYPES[q.dtype], d, int(causal), b,
                      n, s, float(scale), ptrs, strides, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention {which} kernel launch failed: "
-                           f"{fns['error'](err).decode()} (cudaError {err})")
+        raise KernelError(f"flash_attention {which} kernel launch failed: "
+                        f"{fns['error'](err).decode()} (cudaError {err})")
 
 
 def flash_attention_fwd(q, k, v, causal: bool, scale: float):

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._build import KernelError
 
 __all__ = ["fused_adamw_update", "fused_adamw_plain", "adamw_scalars"]
 
@@ -145,8 +146,8 @@ def _launch(p, g, m1, m2, scalars, master=None) -> None:
                         g.data_ptr(), master.data_ptr(), m1.data_ptr(),
                         m2.data_ptr(), p.numel(), sc, stream)
     if err != 0:
-        raise RuntimeError("fused_adamw kernel launch failed: "
-                           f"{err_str(err).decode()} (cudaError {err})")
+        raise KernelError("fused_adamw kernel launch failed: "
+                        f"{err_str(err).decode()} (cudaError {err})")
 
 
 def fused_adamw_update(p, g, m1, m2, lr, b1p, b2p, *, beta1=0.9,

@@ -40,6 +40,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._build import KernelError
 from . import decode_attention as _decode
 from .decode_attention import (
     KERNEL_DTYPES, NEG_INF, scale_pointers, check_rows, check_scales,
@@ -245,8 +246,8 @@ def _launch(q, k_pool, v_pool, page_tables, lengths, scale: float,
              slots, h, page_size, max_pages, float(scale), keys, splits,
              ws["partials"].data_ptr(), ws["tickets"].data_ptr(), stream)
     if err != 0:
-        raise RuntimeError("paged_attention kernel launch failed: "
-                           f"{err_str(err).decode()} (cudaError {err})")
+        raise KernelError("paged_attention kernel launch failed: "
+                        f"{err_str(err).decode()} (cudaError {err})")
     paged_attention.launches += 1
     return out
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._build import KernelError
 from .decode_attention import (
     SPLIT_KV_BYTES, check_scales, merge_partials, q_dtype, query_kernel_info,
     scale_pointers, workspace,
@@ -430,8 +431,8 @@ def _launch(q, k_pool, v_pool, plan, scale: float, k_scale=None,
              qb, nb, wl, float(scale), keys, spp, ws["partials"].data_ptr(),
              ws["tickets"].data_ptr(), stream)
     if err != 0:
-        raise RuntimeError("ragged_paged_attention kernel launch failed: "
-                           f"{err_str(err).decode()} (cudaError {err})")
+        raise KernelError("ragged_paged_attention kernel launch failed: "
+                        f"{err_str(err).decode()} (cudaError {err})")
     ragged_paged_attention.launches += 1
     return out
 

@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import KernelError
 
 __all__ = ["fused_add_rms_norm", "fused_add_layer_norm",
            "fused_add_rms_norm_plain", "fused_add_layer_norm_plain",
@@ -143,8 +144,8 @@ def _launch(layer_norm: bool, x, residual, params, eps):
              out.data_ptr(), h.data_ptr(), xs.shape[0], hidden, float(eps),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError("fused_add_norm kernel launch failed: "
-                           f"{err_str(err).decode()} (cudaError {err})")
+        raise KernelError("fused_add_norm kernel launch failed: "
+                        f"{err_str(err).decode()} (cudaError {err})")
     counted = fused_add_layer_norm if layer_norm else fused_add_rms_norm
     counted.launches += 1
     return (out.reshape(x.shape).to(x.dtype), h.reshape(x.shape).to(x.dtype))

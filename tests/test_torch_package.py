@@ -1,22 +1,26 @@
 """Package boundaries of the PyTorch port: it imports neither JAX nor
 anything of ``paddle_tpu`` (checked in a fresh interpreter, for the
 package and for ``chip_smoke.py``), its entry points refuse to run on the
-CPU unless asked, ``chip_smoke.py`` refuses to run without a card, and
-the knobs that wait for later slices raise ``NotImplementedError`` naming
+CPU unless asked, ``chip_smoke.py`` refuses to run without a card, the
+knobs that wait for later slices raise ``NotImplementedError`` naming
 the ``ROADMAP.md`` item that brings them -- an item that exists, whose
-title names the feature."""
+title names the feature -- and the knobs ported since are taken (an
+engine built with each steps once) and their item's title says so."""
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_tiny
 from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
 from paddle_tpu_torch.quantization import quantize_for_serving
-from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.serving import (
+    LoRAAdapterPool, ServingEngine, random_adapter,
+)
 
 torch.set_num_threads(2)
 
@@ -94,9 +98,6 @@ def test_engine_follows_the_model_device():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("prefix_cache", True),
-    ("stall_budget_s", 1.0),
-    ("lora", object()),
     ("mesh", object()),
     ("role", "prefill"),
 ])
@@ -123,6 +124,60 @@ def test_int8_engine_knobs_are_accepted(knob, value):
     assert m.weight_int8 == (knob == "weight_dtype")
 
 
+def _lora_pool(cfg):
+    pool = LoRAAdapterPool(cfg, num_adapter_pages=2, rank=2, device="cpu")
+    pool.register("a", random_adapter(cfg, 2, np.random.RandomState(0)))
+    return pool
+
+
+def _engine_step(**kw):
+    """Construct an engine with ``kw`` and step it once over one request
+    (on the LoRA pool's adapter when there is one): the knob is taken."""
+    m = GPTStackedForPretraining(gpt_tiny(), device="cpu")
+    if kw.get("lora") == "pool":
+        kw["lora"] = _lora_pool(m.config)
+    eng = ServingEngine(m, num_slots=2, page_size=16, max_context=64, **kw)
+    r = eng.submit([1, 2, 3], 2,
+                   adapter="a" if eng.lora is not None else None)
+    met = eng.step()
+    assert met["tokens_this_step"] == 1 and len(r.tokens) == 1
+    assert eng.metrics()["fused_steps"] == 1
+    return eng
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("prefix_cache", True),
+    ("stall_budget_s", 1.0),
+    ("compile_budget_s", 300.0),
+    ("readmission_backoff_s", 0.05),
+    ("backoff_max_s", 5.0),
+    ("lora", "pool"),
+])
+def test_ported_engine_knobs_construct_and_step(knob, value):
+    eng = _engine_step(**{knob: value})
+    if knob == "prefix_cache":
+        assert eng.prefix_cache is not None
+    elif knob == "lora":
+        assert eng.lora.refcount("a") == 1
+    else:
+        assert getattr(eng, knob) == value
+
+
+def _gpt_paged_lora():
+    """``forward(lora=)`` on the paged step without a plan: the null
+    adapter's row is the base model's, the adapter's row is not."""
+    m = GPTStackedForPretraining(gpt_tiny(), device="cpu")
+    pool = _lora_pool(m.config)
+    ids = torch.tensor([[3], [4]])
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    pos = torch.zeros(2, dtype=torch.int32)
+    with torch.no_grad():
+        got, base = (m._paged_lm_logits(
+            ids, m.new_paged_kv_cache(5, 16, dtype="float32"), tables, pos,
+            lora=lora) for lora in ((pool, torch.tensor([1, 0])), None))
+    assert torch.equal(got[1], base[1]) and not torch.equal(got[0], base[0])
+
+
 def _roadmap_queue1():
     """{item number: its bold title} of ROADMAP.md's queue 1."""
     with open(os.path.join(REPO, "ROADMAP.md")) as f:
@@ -137,11 +192,6 @@ def _engine(**kw):
                   num_slots=2, page_size=16, max_context=64, **kw)
 
 
-def _gpt_forward(**kw):
-    m = GPTStackedForPretraining(gpt_tiny(), device="cpu")
-    m(torch.zeros((1, 8), dtype=torch.long), **kw)
-
-
 def _params(dtype=torch.float32):
     return [torch.nn.Parameter(torch.zeros(4, dtype=dtype))]
 
@@ -153,18 +203,6 @@ class _Layered(torch.nn.Module):
 
 # every refused knob: (how to provoke it, words its item's title must hold)
 REFUSALS = {
-    "engine prefix_cache": (lambda: _engine(prefix_cache=True),
-                            "prefix cache"),
-    "engine stall_budget_s": (lambda: _engine(stall_budget_s=1.0),
-                              "watchdog"),
-    "engine compile_budget_s": (lambda: _engine(compile_budget_s=300.0),
-                                "watchdog"),
-    "engine readmission_backoff_s": (
-        lambda: _engine(readmission_backoff_s=0.05), "watchdog"),
-    "engine backoff_max_s": (lambda: _engine(backoff_max_s=5.0),
-                             "watchdog"),
-    "gpt forward lora": (lambda: _gpt_forward(lora=object()), "lora"),
-    "engine lora": (lambda: _engine(lora=object()), "lora"),
     "engine mesh": (lambda: _engine(mesh=object()), "sharded"),
     "engine role": (lambda: _engine(role="prefill"), "disaggregated"),
     "fused_train_step amp O1 over fp32": (
@@ -175,14 +213,40 @@ REFUSALS = {
 }
 
 
-@pytest.mark.parametrize("knob", sorted(REFUSALS))
+# knobs refused until their item was ported: (how to use one, its item,
+# words its title must hold); each is now taken, and its item's title
+# says it is ported
+PORTED = {
+    "engine prefix_cache": (lambda: _engine_step(prefix_cache=True), 6,
+                            "prefix cache"),
+    "engine stall_budget_s": (lambda: _engine_step(stall_budget_s=1.0), 7,
+                              "watchdog"),
+    "engine compile_budget_s": (
+        lambda: _engine_step(compile_budget_s=300.0), 7, "watchdog"),
+    "engine readmission_backoff_s": (
+        lambda: _engine_step(readmission_backoff_s=0.05), 7, "watchdog"),
+    "engine backoff_max_s": (lambda: _engine_step(backoff_max_s=5.0), 7,
+                             "watchdog"),
+    "gpt forward lora": (_gpt_paged_lora, 8, "lora"),
+    "engine lora": (lambda: _engine_step(lora="pool"), 8, "lora"),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(REFUSALS) + sorted(PORTED))
 def test_refusals_name_their_roadmap_item(knob):
+    titles = _roadmap_queue1()
+    if knob in PORTED:
+        use, item, words = PORTED[knob]
+        use()
+        title = titles[item].lower()
+        assert words in title and "ported in pr" in title, \
+            f"{knob}: item {item} is {titles[item]!r}"
+        return
     provoke, words = REFUSALS[knob]
     with pytest.raises(NotImplementedError) as info:
         provoke()
     found = re.search(r"ROADMAP\.md queue 1, item (\d+)", str(info.value))
     assert found, f"{knob}: {info.value}"
-    titles = _roadmap_queue1()
     item = int(found.group(1))
     assert item in titles, f"{knob}: ROADMAP.md queue 1 has no item {item}"
     assert words in titles[item].lower(), \

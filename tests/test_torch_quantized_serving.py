@@ -10,7 +10,13 @@ stacked GPT.
 - the paged step without a plan, chunked prefill (C > 1) and decode steps
   (C == 1), against the JAX model;
 - ``load_jax_state`` of a quantized JAX model, and the refusals of a
-  quantized model (``generate()``, training).
+  quantized model (``generate()``, training);
+- the int8 case of the prefix cache (cache on == cache off == the JAX
+  engine, adopted pages keep their scales), of the watchdog (a randomized
+  fault schedule with an exact ledger; a stall's rebuild makes a fresh
+  pool with fresh, finite scales), of speculation (int8 target and draft
+  pools give the plain engine's tokens) and of LoRA on int8 projections
+  (the JAX engine's tokens).
 
 Tolerances.  Logits: 1e-5 (fp32, the same arithmetic summed in another
 order, as tests/test_torch_gpt_serving.py states).  Pools: an fp32
@@ -18,6 +24,8 @@ difference of an ulp in a K/V value or its scale can move a value across
 a rounding midpoint, so at most 0.5 % of the written elements may differ,
 each by one int8 step.  Scales: 1e-6 relative (absmax / 127 of values that
 differ by ulps)."""
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -311,3 +319,168 @@ def test_a_quantized_model_refuses_generate_and_training(served):
             m(ids, labels=ids)
         with pytest.raises(ValueError, match="quantized for serving"):
             m(ids)
+
+
+# ---------------------------------------------------------------------------
+# the int8 cases of the prefix cache, the watchdog, speculation and LoRA
+# (tests/test_quantized_serving.py:180-283 and the composition of each)
+# ---------------------------------------------------------------------------
+
+def test_int8_prefix_cache_cow_is_bitwise_and_keeps_scales(served):
+    """Cache on == cache off == the JAX int8 engine with the cache on,
+    token for token, through real hits; the adopted pages keep the
+    per-(page, head) scales their writer gave them (no reader rewrites
+    them), so a cached prefix dequantizes as a re-prefilled one."""
+    state, _, _ = served
+    rng = np.random.RandomState(9)
+    shared = rng.randint(0, 1024, (32,))     # two whole pages
+    fam = [np.concatenate([shared, rng.randint(0, 1024, (3 + 2 * i,))])
+           for i in range(4)]
+    je = JaxEngine(_jax_model(state, False), kv_dtype="int8",
+                   prefix_cache=True, **ENGINE_KW)
+    jout = [je.generate_batch([fam[0]], N_NEW)[0]] + \
+        je.generate_batch(fam[1:], N_NEW)
+    outs = {}
+    for cached in (False, True):
+        eng = ServingEngine(_port_model(state), kv_dtype="int8",
+                            prefix_cache=cached, **ENGINE_KW)
+        first = eng.generate_batch([fam[0]], N_NEW)[0]
+        if cached:
+            pages = sorted(eng.allocator._shared)
+            assert len(pages) == 2
+            scales = [t[:, pages].clone()
+                      for t in (eng.cache.k_scale, eng.cache.v_scale)]
+            assert all(bool((s > 0).all()) for s in scales)
+        rest = eng.generate_batch(fam[1:], N_NEW)
+        outs[cached] = [first] + rest
+        if cached:
+            m = eng.metrics()
+            assert m["prefix_hits"] == 3
+            assert m["prefix_cached_tokens"] == 3 * 32
+            for s, t in zip(scales, (eng.cache.k_scale, eng.cache.v_scale)):
+                np.testing.assert_array_equal(t[:, pages].numpy(),
+                                              s.numpy())
+        assert eng.allocator.used_pages == 0
+    for a, b, j in zip(outs[False], outs[True], jout):
+        np.testing.assert_array_equal(b, a)
+        np.testing.assert_array_equal(b, j)
+
+
+@pytest.mark.parametrize("seed", [7, 23])
+def test_int8_randomized_fault_schedule_accounting(served, seed):
+    """The fault property in the int8 regime: the ledger holds at every
+    step, the pool drains, every request ends typed, DONE survivors give
+    the unfaulted fp32 tokens, and every scale stays finite."""
+    from paddle_tpu_torch.serving import random_schedule
+
+    state, prompts, refs = served
+    eng = ServingEngine(_port_model(state), kv_dtype="int8", **ENGINE_KW)
+    random_schedule(np.random.RandomState(seed), horizon=25, n_faults=4,
+                    num_slots=3).install(eng)
+    reqs = [eng.submit(p, N_NEW) for p in prompts]
+    steps = 0
+    while eng.queue.depth or eng.scheduler.active_slots:
+        eng.step()
+        steps += 1
+        a = eng.allocator
+        assert a.used_pages + a.free_pages + a.spec_pages + \
+            a.shared_pages == a.capacity
+        assert steps < 2000
+        time.sleep(0.001 if not eng.scheduler.active_slots else 0)
+    assert eng.allocator.free_pages == eng.allocator.capacity
+    for r, ref in zip(reqs, refs):
+        assert r.terminal and (r.finished or r.error is not None)
+        if r.finished:
+            np.testing.assert_array_equal(r.output_ids(), ref)
+    for t in (eng.cache.k_scale, eng.cache.v_scale):
+        assert bool(torch.isfinite(t).all())
+
+
+def test_int8_watchdog_rebuild_recreates_pool_and_scales(served):
+    from paddle_tpu_torch.serving import FaultInjector, StepStalledError
+
+    state, prompts, refs = served
+    eng = ServingEngine(_port_model(state), kv_dtype="int8",
+                        stall_budget_s=0.5, **ENGINE_KW)
+    eng.generate_batch(prompts[:1], 2)
+    old, worker = eng.cache, eng._worker
+    old_ks = old.k_scale
+    FaultInjector().inject("before_decode", at=0, kind="step_stall",
+                           duration=2.0).install(eng)
+    reqs = [eng.submit(p, N_NEW) for p in prompts[:4]]
+    eng.run_until_idle()
+    m = eng.metrics()
+    assert m["recoveries"] == 1 and m["rebuilds"] == 1
+    assert len([r for r in reqs
+                if isinstance(r.error, StepStalledError)]) == 3
+    # the rebuilt pool is a fresh int8 pool with fresh, finite scales
+    c = eng.cache
+    assert c is not old and c.quantized and c.k_scale is not old_ks
+    assert c.k_scale.shape == (2, eng.num_pages, 4)
+    for t in (c.k_scale, c.v_scale):
+        assert bool(torch.isfinite(t).all())
+    # the zombie releases the suspect pool's pages AND scales
+    worker._t.join(timeout=5.0)
+    assert old.k is None and old.k_scale is None and old.v_scale is None
+    for r, ref in zip(reqs, refs):
+        if r.finished:
+            np.testing.assert_array_equal(r.output_ids(), ref)
+    assert eng.allocator.used_pages == 0
+
+
+@pytest.mark.parametrize("draft_layers", [2, 1])
+def test_int8_target_and_draft_pools_under_speculation(served,
+                                                       draft_layers):
+    """Target and draft pools int8: the speculative tokens are the int8
+    plain engine's (and fp32 generate()'s), both pools drain."""
+    from paddle_tpu_torch.models import truncated_draft
+    from paddle_tpu_torch.serving import SpeculativeEngine
+
+    state, prompts, refs = served
+    tm = _port_model(state)
+    draft = tm if draft_layers == 2 else truncated_draft(tm, 1)
+    eng = SpeculativeEngine(tm, draft, spec_k=3, kv_dtype="int8",
+                            **ENGINE_KW)
+    assert eng.draft.cache.quantized and eng.cache.quantized
+    got = eng.generate_batch(prompts, N_NEW)
+    for g, r in zip(got, refs):
+        np.testing.assert_array_equal(g, r)
+    m = eng.metrics()
+    assert m["spec_proposed_tokens"] > 0
+    if draft_layers == 2:
+        assert m["spec_acceptance_rate"] == 1.0
+    for a in (eng.allocator, eng.draft.allocator):
+        assert a.used_pages == 0 and a.spec_pages == 0
+    for t in (eng.draft.cache.k_scale, eng.cache.v_scale):
+        assert bool(torch.isfinite(t).all())
+
+
+def test_lora_on_int8_projections_matches_jax(served):
+    """LoRA deltas on weight_dtype="int8" projections: the delta of the
+    fp32 LayerNorm output rounded to the slab dtype, added in fp32 (the
+    reference's int8 branch) -- the same tokens as the JAX engine."""
+    from paddle_tpu.serving import LoRAAdapterPool as JaxPool
+    from paddle_tpu_torch.serving import LoRAAdapterPool, random_adapter
+
+    state, prompts, _ = served
+    cfg = gpt_tiny()
+    # factors large enough that the delta moves tokens
+    w = random_adapter(cfg, 3, np.random.RandomState(7), scale=0.3)
+    jp = JaxPool(cfg, num_adapter_pages=2, rank=3, stacked=True)
+    tp = LoRAAdapterPool(cfg, num_adapter_pages=2, rank=3, device="cpu")
+    jp.register("t1", w)
+    tp.register("t1", w)
+    jm = _jax_model(state, True)
+    want = JaxEngine(jm, kv_dtype="int8", lora=jp,
+                     **ENGINE_KW).generate_batch(prompts[:4], N_NEW,
+                                                 adapter="t1")
+    base = ServingEngine(_port_model(state), kv_dtype="int8",
+                         weight_dtype="int8",
+                         **ENGINE_KW).generate_batch(prompts[:4], N_NEW)
+    eng = ServingEngine(_port_model(state), kv_dtype="int8",
+                        weight_dtype="int8", lora=tp, **ENGINE_KW)
+    got = eng.generate_batch(prompts[:4], N_NEW, adapter="t1")
+    for g, j in zip(got, want):
+        np.testing.assert_array_equal(g, j)
+    assert any(not np.array_equal(g, b) for g, b in zip(got, base)), \
+        "the adapter changed no token"
