@@ -243,7 +243,10 @@ result line:
    1 quarantine, the implicated requests FAILED with their typed errors,
    the rest under the parity rule against an unfaulted run, the ledger
    exact every step, the device memory back once the zombie returns;
-   bf16, then int8 (the rebuilt pool's scales finite);
+   bf16, then int8 (the rebuilt pool's scales finite); then five stall
+   recoveries in a row on one bf16 engine, ``memory_allocated()`` read
+   after each zombie returns: it must not grow by more than one pool from
+   the second reading to the fifth;
 28. speculative -- phase 3's traffic, greedy, k = 4, with
    ``truncated_draft(target, 2)`` and with the target as its own draft,
    against the plain engine in the same run: acceptance, verify and draft
@@ -255,7 +258,42 @@ result line:
    tokens against an engine serving ``merged_state_dict`` weights without
    LoRA (the null adapter's against the base model), under the parity
    rule; evicting a seated adapter raises ``AdapterInUse``; then the same
-   over ``weight_dtype="int8"``.
+   over ``weight_dtype="int8"``;
+30. AdamW with the step's flag -- the fused AdamW kernel's three forms
+   (fp32, bf16, the fp32-master form) with a device finiteness flag and
+   device beta powers against ``fused_adamw_plain`` given the same flag
+   and pair: a false flag writes nothing (bit for bit), a true one equals
+   the host-scalar launch bit for bit and the plain version within
+   ``ADAMW_TOL``; then the fp32 form's ms per update over every tensor of
+   GPT-3 1.3B in fp32 (16 launches, 1.31 B elements) with and without the
+   flag, beside the plain version, ``torch.optim.AdamW(fused=True)`` with
+   ``found_inf`` and the bound (28 B/element over 3.35 TB/s);
+31. O1 training -- GPT-3 1.3B at full width and depth with fp32 weights,
+   ``auto_cast`` O1 bf16, an enabled dynamic ``GradScaler``, ``AdamW``
+   and ``FusedTrainStep(scaler=)``, phase 6's shape (8 x 1024,
+   recompute every block), batches through ``DevicePrefetcher``: finite
+   losses; per step 48 flash forward, 24 dK/dV, 24 dQ and 16 AdamW
+   launches; step time, tokens/s, MFU and peak memory beside phase 6's;
+   then a forced overflow (a scale of 3e38 for one step, or, where that
+   does not overflow, a hook making the word embedding's gradient
+   non-finite) under ``torch.cuda.set_sync_debug_mode("error")`` (a host
+   sync inside the step raises): not applied, parameters and moments
+   unchanged (``torch.equal`` on a sample, a checksum of all), the beta
+   powers unchanged, the scale halved; the next two steps apply;
+32. O1 card vs CPU -- gpt_tiny(hidden 128, 2 heads) with fp32 weights
+   under O1 bf16 with a scaler, three steps on the card and on the CPU
+   from the same weights: losses within ``O1_CARD_CPU_ATOL``;
+33. recompute policies -- phase 31's set-up under ``recompute_policy``
+   "full" and "dots", four steps each from the same weights: losses bit
+   for bit, the same flash forward launches; step time, peak memory and
+   the memory a forward holds for its backward, of each;
+34. crash-consistent resume -- GPT-3 1.3B's width at 2 layers, fp32
+   weights, O1 + scaler: train 6 against train 3, an asynchronous save
+   (~2.5 GB), 3 steps while the writer runs, a restore into a model from
+   another seed and 3 steps: losses and parameters bit for bit; then a
+   SIGTERM to this process under ``PreemptionHandler`` saves at the next
+   step boundary and raises ``GracefulExit``, and that checkpoint is the
+   newest.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -265,8 +303,10 @@ main path, ``launches_by_path``; the flash rows also carry their ratio to SDPA,
 their share of the bound, the whole backward's time against SDPA's
 backward, and the forward's time at BERT's attention; the ragged row its
 time, plain time and bound at the mixed served shape; the AdamW master
-form's row its times at BERT-base and, beside them, at GPT-3 1.3B), and
-as the last line
+form's row its times at BERT-base and, beside them, at GPT-3 1.3B; the
+fp32 form's row, launched by phase 31, its time with the flag and the
+library's with ``found_inf``; the flash rows their launches on phases 6
+and 31), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 """
 from __future__ import annotations
@@ -387,11 +427,12 @@ def import_port():
     """Everything of the port this script drives (kept in one place so a
     test can check the imports without a card)."""
     import torch
-    from paddle_tpu_torch import amp, incubate
+    from paddle_tpu_torch import amp, checkpoint, incubate
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.models import BertForPretraining, BertModel, \
         BertPretrainingCriterion, GPTStackedForPretraining, bert_base, \
         bert_tiny, gpt_1p3b, gpt_tiny, truncated_draft
+    from paddle_tpu_torch.io import DevicePrefetcher
     from paddle_tpu_torch.nn import clip
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.ops.kernels import _build
@@ -416,7 +457,8 @@ def import_port():
                 clip=clip, RequestState=RequestState,
                 ServingEngine=ServingEngine,
                 SpeculativeEngine=SpeculativeEngine, serving=serving,
-                truncated_draft=truncated_draft)
+                truncated_draft=truncated_draft, checkpoint=checkpoint,
+                DevicePrefetcher=DevicePrefetcher)
 
 
 def _check(cond, msg):
@@ -1263,7 +1305,7 @@ def train_setup(port):
                            max_position_embeddings=1024,
                            recompute_interval=1, use_flash_attention=True)
     model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
-    opt = port["AdamW"](model.parameters(), learning_rate=1e-4,
+    opt = port["AdamW"](parameters=model.parameters(), learning_rate=1e-4,
                         weight_decay=0.01, multi_precision=False)
     step = port["FusedTrainStep"](
         lambda ids, labels: model(ids, labels=labels), opt, amp_level="O1")
@@ -1348,7 +1390,7 @@ def phase_train(port):
           f"device memory {peak / 2**30:.2f} GiB")
     del model, step, batches
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(step_s=step_s, mfu=mfu, peak=peak)
 
 
 # ---------------------------------------------------------------------------
@@ -1372,7 +1414,7 @@ def phase_train_card_vs_cpu(port):
     _reset_launches(port)
     out = []
     for m in (cpu, card):
-        opt = port["AdamW"](m.parameters(), learning_rate=1e-4)
+        opt = port["AdamW"](parameters=m.parameters(), learning_rate=1e-4)
         step = port["FusedTrainStep"](
             lambda ids, labels, m=m: m(ids, labels=labels), opt)
         dev_batch = [torch.from_numpy(x).to(m.device) for x in batch]
@@ -3251,7 +3293,7 @@ def recipe_optimizer(port, model):
     sched = lr.LinearWarmup(lr.PolynomialDecay(RECIPE_LR, RECIPE_DECAY,
                                                end_lr=0.0, power=1.0),
                             RECIPE_WARMUP, 0.0, RECIPE_LR)
-    opt = port["AdamW"](model.named_parameters(), learning_rate=sched,
+    opt = port["AdamW"](sched, parameters=model.named_parameters(),
                         weight_decay=RECIPE_WD,
                         grad_clip=port["clip"].ClipGradByGlobalNorm(
                             RECIPE_CLIP),
@@ -3382,7 +3424,7 @@ def train_dropout_setup(port, attention_dropout=0.1):
                            recompute_interval=1,
                            attention_dropout=attention_dropout)
     model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
-    opt = port["AdamW"](model.parameters(), learning_rate=1e-4,
+    opt = port["AdamW"](parameters=model.parameters(), learning_rate=1e-4,
                         weight_decay=0.01, multi_precision=False)
     step = port["FusedTrainStep"](
         lambda ids, labels: model(ids, labels=labels), opt, amp_level="O1")
@@ -3458,7 +3500,7 @@ def phase_determinism(port):
     runs = []
     for _ in range(2):
         m = _det_model(port, recompute_interval=1)
-        opt = port["AdamW"](m.parameters(), learning_rate=1e-4,
+        opt = port["AdamW"](parameters=m.parameters(), learning_rate=1e-4,
                             multi_precision=False)
         step = port["FusedTrainStep"](lambda i, l: m(i, labels=l), opt,
                                       amp_level="O1")
@@ -3934,6 +3976,48 @@ def _zombie_threads(eng):
             if t.name.startswith("serving-step-") and t is not live]
 
 
+STALL_ROUNDS = 5
+
+
+def _stall_memory(port, model):
+    """Five stall recoveries in a row on one bf16 engine: each round
+    injects one stall of three budgets, drives four short requests through
+    the recovery and rebuild, waits for the zombie to return and reads
+    ``torch.cuda.memory_allocated()``.  Fails if memory grows from the
+    second reading to the fifth by more than one pool.  Returns the
+    readings (bytes) and the pool's bytes."""
+    torch, s = port["torch"], port["serving"]
+    eng = port["ServingEngine"](model, stall_budget_s=WATCH_BUDGET,
+                                compile_budget_s=300.0,
+                                **_engine_kw(kv_dtype="bfloat16"))
+    prompts = _serve_prompts(np.random.RandomState(270),
+                             model.config.vocab_size, 4)
+    eng.generate_batch([prompts[0][:64]], 2)     # every variant warm
+    pool = eng.cache.nbytes
+    readings, recoveries = [], []
+    for _ in range(STALL_ROUNDS):
+        m0 = eng.metrics()["recoveries"]
+        (s.FaultInjector().inject("before_decode", at=2, kind="step_stall",
+                                  duration=3 * WATCH_BUDGET).install(eng))
+        _drive(port, eng, prompts, 8)
+        for t in _zombie_threads(eng):
+            t.join(timeout=30.0)
+        torch.cuda.synchronize()
+        readings.append(torch.cuda.memory_allocated())
+        recoveries.append(eng.metrics()["recoveries"] - m0)
+    eng.close()
+    growth = readings[-1] - readings[1]
+    print(f"[watchdog] {STALL_ROUNDS} stall recoveries in a row (bf16): "
+          f"recoveries per round {recoveries}; device memory after each "
+          f"zombie returned {readings} bytes; growth from the second to "
+          f"the last {growth} bytes (pool {pool} bytes)")
+    _check(recoveries == [1] * STALL_ROUNDS,
+           f"watchdog: stall rounds recovered {recoveries}")
+    _check(growth <= pool, f"watchdog: device memory grew {growth} bytes "
+           f"over {STALL_ROUNDS - 2} stall recoveries (pool {pool})")
+    return readings, pool
+
+
 def phase_watchdog(port, model, fp32_model):
     torch = port["torch"]
     se = port["ServingEngine"]
@@ -4027,6 +4111,8 @@ def phase_watchdog(port, model, fp32_model):
         eng.close()
         del eng
         torch.cuda.empty_cache()
+    _stall_memory(port, model)
+    torch.cuda.empty_cache()
     # fp32 with TF32 off, 2 layers at full width: the survivors of a stall
     # and a persistent exception against the unfaulted run
     fp = _serve_prompts(np.random.RandomState(127), vocab, 24)
@@ -4333,6 +4419,535 @@ def phase_lora(port, model, fp32_model):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 30-34: AMP O1 over fp32 weights with the gradient scaler, the
+# recompute policies, crash-consistent training
+# ---------------------------------------------------------------------------
+
+# per element of the fp32 form: read p, g, m1, m2 (16 B), write p, m1, m2
+# (12 B)
+ADAMW_FP32_BYTES = 28
+ADAMW_FLAG_CASES = (("float32", (4096, 8192)), ("float32", (3, 257)),
+                    ("bfloat16", (4096, 8192)), ("master", (4096, 8192)),
+                    ("master", (3, 257)))
+
+
+def _adamw_flag_compare(port, form, shape, seed):
+    """One update of ``form`` ("float32", "bfloat16", or "master": bf16 p
+    and g on fp32 master and moments) with a device flag and device beta
+    powers (beta^2 of each, as after two steps): with the flag false the
+    kernel writes nothing (bit for bit); with it true the kernel equals
+    the kernel with the same powers as host scalars bit for bit, and the
+    plain version given the same flag and pair within ``ADAMW_TOL``.
+    Returns the max abs error against the plain version."""
+    torch, fw = port["torch"], port["fw"]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(scale, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device=DEVICE)
+                * scale).to(dt)
+
+    low = torch.bfloat16
+    dtype = "bfloat16" if form == "master" else form
+    td = getattr(torch, dtype)
+    if form == "master":
+        master = randn(1.0)
+        state = [master.to(low), randn(0.01), randn(0.001).abs(), master]
+    else:
+        state = [randn(1.0, td), randn(0.01, td), randn(0.001, td).abs(),
+                 None]
+    g = randn(0.1, td)
+    b1p = np.float32(np.float32(0.9) * np.float32(0.9))
+    b2p = np.float32(np.float32(0.999) * np.float32(0.999))
+    pows = torch.tensor([b1p, b2p], dtype=torch.float32, device=DEVICE)
+    flags = {v: torch.tensor(v, device=DEVICE) for v in (False, True)}
+
+    def run(finite=None, plain=False):
+        s = [None if t is None else t.clone() for t in state]
+        kw = dict(master=s[3])
+        if finite is not None:
+            kw.update(finite=flags[finite], pows=pows)
+        if plain:
+            fw.fused_adamw_plain(s[0], g, s[1], s[2],
+                                 fw.adamw_scalars(1e-3, 1.0, 1.0), **kw)
+        else:
+            fw.fused_adamw_update(s[0], g, s[1], s[2], 1e-3,
+                                  None if finite is not None else b1p,
+                                  None if finite is not None else b2p, **kw)
+        return [t for t in s if t is not None]
+
+    kept = [t for t in state if t is not None]
+    off = run(False)
+    dev, host, plain = run(True), run(), run(True, plain=True)
+    torch.cuda.synchronize()
+    _check(all(torch.equal(a, b) for a, b in zip(off, kept)),
+           f"adamw flag {form} {shape}: a false flag wrote")
+    _check(all(torch.equal(a, b) for a, b in zip(dev, host)),
+           f"adamw flag {form} {shape}: device powers differ from host "
+           "scalars")
+    err = 0.0
+    tols = [ADAMW_TOL[dtype]] + [ADAMW_TOL["float32" if form == "master"
+                                           else dtype]] * 3
+    for name, a, b, tol in zip(("p", "m1", "m2", "master"), dev, plain,
+                               tols):
+        e, over = _over(a, b, tol)
+        _check(over <= 0, f"adamw flag {form} {shape} {name}: kernel vs "
+               f"plain off by {e}")
+        err = max(err, e)
+    print(f"[adamw_flag] {form} {list(shape)}: flag false writes nothing "
+          f"(bit for bit); flag true with device powers == host scalars "
+          f"bit for bit; vs plain max_abs_err={err!r}")
+    return err
+
+
+def _time_adamw_fp32(port):
+    """Device ms of one fp32-form update over every tensor of GPT-3 1.3B
+    in fp32 (16 launches): the kernel with host scalars, with a device
+    flag and powers, the plain version, and torch.optim.AdamW(fused=True)
+    with ``found_inf`` (the one PyTorch call for the same function); the
+    bytes bound."""
+    torch, fw = port["torch"], port["fw"]
+    model = port["GPT"](port["gpt_1p3b"](max_position_embeddings=1024),
+                        device=DEVICE, dtype="float32", seed=3)
+    params = [p.detach() for p in model.parameters()]
+    grads = [torch.randn_like(p) * 0.01 for p in params]
+    m1 = [torch.zeros_like(p) for p in params]
+    m2 = [torch.zeros_like(p) for p in params]
+    flag = torch.tensor(True, device=DEVICE)
+    pows = torch.tensor([0.9, 0.999], dtype=torch.float32, device=DEVICE)
+
+    def kernel(i, **kw):
+        for p, g, a, b in zip(params, grads, m1, m2):
+            fw.fused_adamw_update(p, g, a, b, 1e-4, 0.9, 0.999, **kw)
+
+    def plain(i):
+        sc = fw.adamw_scalars(1e-4, 0.9, 0.999)
+        for p, g, a, b in zip(params, grads, m1, m2):
+            fw.fused_adamw_plain(p, g, a, b, sc)
+
+    t = {"ms": _time_ms(torch, kernel, 10)[0],
+         "flag_ms": _time_ms(torch, lambda i: kernel(i, finite=flag,
+                                                     pows=pows), 10)[0],
+         "plain_ms": _time_ms(torch, plain, 2, hold=False)[0]}
+    del m1, m2
+    lib_params = [torch.nn.Parameter(p) for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=1e-4, weight_decay=0.01,
+                            fused=True)
+    lib.found_inf = torch.zeros((), device=DEVICE)
+    t["library_ms"] = _time_ms(torch, lambda i: lib.step(), 10,
+                               hold=False)[0]
+    n = sum(p.numel() for p in params)
+    t_bytes = ADAMW_FP32_BYTES * n / HBM_BYTES_PER_S
+    t_ops = 14.0 * n / PEAK_FLOPS["float32"]
+    t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    t["tensors"], t["elements"] = len(params), n
+    del model, lib, lib_params, grads, params
+    return t
+
+
+def phase_adamw_flag(port):
+    torch = port["torch"]
+    errs = {}
+    for i, (form, shape) in enumerate(ADAMW_FLAG_CASES):
+        errs[form] = max(errs.get(form, 0.0),
+                         _adamw_flag_compare(port, form, shape, 300 + i))
+    torch.cuda.empty_cache()
+    t = _time_adamw_fp32(port)
+    torch.cuda.empty_cache()
+    print(f"[adamw_flag] fp32 form over GPT-3 1.3B ({t['tensors']} fp32 "
+          f"tensors, {t['elements']} elements), device ms per update: "
+          f"kernel {t['ms']!r}, with the device flag and powers "
+          f"{t['flag_ms']!r} (flag cost {t['flag_ms'] - t['ms']!r}), plain "
+          f"{t['plain_ms']!r}, torch.optim.AdamW(fused=True) with found_inf "
+          f"{t['library_ms']!r}, bound {t['bound_ms']!r} ({t['bound_by']}, "
+          f"{ADAMW_FP32_BYTES} B/element; share of it "
+          f"{t['bound_ms'] / t['ms']!r})")
+    # the row's error is the fp32 form's; the other forms' flag checks
+    # ride beside it
+    return dict(max_abs_err=errs["float32"], ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                flag_ms=t["flag_ms"], flag_false_writes_nothing=True,
+                flag_max_abs_err_by_form=errs)
+
+
+# -- phase 31: O1 training over fp32 weights ---------------------------------
+
+O1_INIT_SCALE = 2.0 ** 15
+# the scale of the forced-overflow step, as the reference's tests force
+# one; if it does not overflow this model's gradients, a hook makes the
+# word embedding's gradient non-finite for one step instead
+O1_FORCED_SCALE = 3e38
+
+
+def o1_train_setup(port, policy=None, num_layers=None, seed=0):
+    """GPT-3 1.3B (``num_layers`` cuts the depth) with random fp32
+    weights from ``seed``, dropout 0, recompute every block under
+    ``policy``; ``AdamW(1e-4)`` with fp32 moments, an enabled dynamic
+    ``GradScaler`` and ``FusedTrainStep(scaler=, amp_level="O1")`` in
+    bf16.  Returns ``(model, optimizer, scaler, step)``."""
+    kw = {} if num_layers is None else dict(num_layers=num_layers)
+    cfg = port["gpt_1p3b"](hidden_dropout=0.0, attention_dropout=0.0,
+                           max_position_embeddings=1024,
+                           recompute_interval=1, recompute_policy=policy,
+                           use_flash_attention=True, **kw)
+    model = port["GPT"](cfg, device=DEVICE, dtype="float32", seed=seed)
+    opt = port["AdamW"](1e-4, parameters=model.parameters(),
+                        weight_decay=0.01)
+    scaler = port["amp"].GradScaler(enable=True,
+                                    init_loss_scaling=O1_INIT_SCALE,
+                                    device=DEVICE)
+    step = port["FusedTrainStep"](
+        lambda ids, labels: model(ids, labels=labels), opt, scaler=scaler,
+        amp_level="O1", amp_dtype="bfloat16")
+    return model, opt, scaler, step
+
+
+def o1_host_batches(vocab, n, seed=31, batch=None):
+    """``n`` (ids, labels) numpy batches of ``batch`` (default
+    ``TRAIN_BATCH``) x ``TRAIN_SEQ``."""
+    batch = batch or TRAIN_BATCH
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, (batch, TRAIN_SEQ)),
+             rng.randint(0, vocab, (batch, TRAIN_SEQ))) for _ in range(n)]
+
+
+def _state_checksum(torch, tensors):
+    """One int64 over the bits of every tensor (fp32 viewed as int32),
+    computed on the card."""
+    return torch.stack([t.detach().view(torch.int32).sum(dtype=torch.int64)
+                        for t in tensors]).sum()
+
+
+def _o1_forced_overflow(port, model, opt, scaler, step, batches):
+    """The no-sync skip: one step under ``set_sync_debug_mode("error")``
+    (any host sync inside the step raises) at scale 3e38 -- or, where that
+    scale does not overflow this model's gradients, with a hook making the
+    word embedding's gradient non-finite -- then the checks on the card:
+    not applied, a sample of parameters ``torch.equal`` and a checksum of
+    every parameter and moment unchanged, the beta powers unchanged, the
+    scale halved; then two finite steps apply.  Returns what it saw."""
+    torch = port["torch"]
+    params = list(model.parameters())
+    sample = [model.embeddings.word_embeddings.weight,
+              model.decoder.qkv_w, model.final_ln.weight]
+    every = params + [opt.state[p][k] for p in params
+                      for k in ("moment1", "moment2")]
+
+    def guarded(batch):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    out = {}
+    for how in ("scale 3e38", "hook"):
+        snap = [t.detach().clone() for t in sample]
+        pows, scale = opt._pows.clone(), scaler._scale.clone()
+        checksum = _state_checksum(torch, every)
+        hook = None
+        if how == "scale 3e38":
+            scaler._scale.fill_(O1_FORCED_SCALE)
+            scale = scaler._scale.clone()
+        else:
+            hook = model.embeddings.word_embeddings.weight.register_hook(
+                lambda g: g * float("inf"))
+        guarded(next(batches))
+        if hook is not None:
+            hook.remove()
+        applied = step.last_step_applied
+        out[how] = applied
+        print(f"[train_o1] forced overflow by {how}: step applied "
+              f"{applied} (no host sync inside the step: "
+              f"set_sync_debug_mode('error') raised nothing)")
+        if not applied:
+            _check(all(torch.equal(a, b.detach())
+                       for a, b in zip(snap, sample))
+                   and bool(_state_checksum(torch, every) == checksum)
+                   and torch.equal(opt._pows, pows)
+                   and bool(scaler._scale == scale * 0.5),
+                   f"train_o1: the skipped step ({how}) changed state, or "
+                   "the scale did not halve")
+            out["skipped_by"] = how
+            break
+        scaler._scale.fill_(O1_INIT_SCALE)
+    _check("skipped_by" in out, "train_o1: no step was skipped")
+    out["scale_after"] = float(scaler._scale)
+    scaler._scale.fill_(O1_INIT_SCALE)
+    checksum = _state_checksum(torch, every)
+    applied = []
+    for _ in range(2):
+        step(*next(batches))
+        applied.append(step.last_step_applied)
+    _check(all(applied) and not bool(_state_checksum(torch, every)
+                                     == checksum),
+           f"train_o1: the finite steps after the skip did not apply "
+           f"({applied})")
+    return out
+
+
+def phase_train_o1(port, o2):
+    """GPT-3 1.3B, fp32 weights, O1 bf16 with an enabled dynamic scaler,
+    AdamW, ``FusedTrainStep(scaler=)``, batch 8 x 1024, recompute every
+    block, batches through ``DevicePrefetcher``: launches and finite
+    losses, step time, tokens/s, MFU and peak memory beside phase 6's O2
+    numbers (``o2``), then the forced overflow."""
+    torch = port["torch"]
+    t0 = time.perf_counter()
+    model, opt, scaler, step = o1_train_setup(port)
+    cfg = model.config
+    n_tensors = len(list(model.parameters()))
+    n_batches = TRAIN_WARMUP + TRAIN_STEPS + 6
+    pf = port["DevicePrefetcher"](
+        iter(o1_host_batches(cfg.vocab_size, n_batches)), depth=2,
+        device=DEVICE)
+    warm = [float(step(*next(pf))) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    print(f"[train_o1] gpt_1p3b fp32 weights set-up and {TRAIN_WARMUP} "
+          f"warm-up steps {time.perf_counter() - t0:.2f} s, losses {warm}")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(port)
+    t1 = time.perf_counter()
+    losses = [step(*next(pf)) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _launch_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    _check(all(np.isfinite(losses)), f"non-finite O1 losses {losses}")
+    L = cfg.num_layers
+    want = {"fwd": 2 * L, "dkv": L, "dq": L, "adamw": n_tensors}
+    _check(all(launches[k] == want[k] * TRAIN_STEPS for k in want),
+           f"O1 launches over {TRAIN_STEPS} steps {launches}, expected per "
+           f"step {want}")
+    step_s = wall / TRAIN_STEPS
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = gpt_train_mfu(cfg, step_s)
+    st = pf.stats()
+    print(f"[train_o1] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"fp32 weights, O1 bf16, dynamic scaler: losses {losses}; mean "
+          f"step {1e3 * step_s:.2f} ms (host clock), {tokens / step_s:.1f} "
+          f"tokens/s, MFU {mfu:.4f}; launches per step "
+          f"{ {k: v // TRAIN_STEPS for k, v in launches.items()} }; peak "
+          f"device memory {peak / 2**30:.2f} GiB; prefetcher: "
+          f"{st['batches']} batches, input stall "
+          f"{st['stall_seconds_total']:.4f} s in all | phase 6 (bf16 weights, O2 + O1 step, no scaler), same "
+          f"run: mean step {1e3 * o2['step_s']:.2f} ms, "
+          f"{tokens / o2['step_s']:.1f} tokens/s, MFU {o2['mfu']:.4f}, peak "
+          f"{o2['peak'] / 2**30:.2f} GiB")
+    forced = _o1_forced_overflow(port, model, opt, scaler, step, pf)
+    pf.close()
+    del model, opt, scaler, step, pf
+    torch.cuda.empty_cache()
+    return launches, dict(step_s=step_s, mfu=mfu, peak=peak, **forced)
+
+
+# -- phase 32: O1 card vs CPU ------------------------------------------------
+
+# gpt_tiny(hidden 128) under O1 bf16 over fp32 weights, three steps: bf16
+# products and attention rounded at other points on each side (the flash
+# kernel's tiles against the plain version's rows, cuBLAS against the
+# CPU's sums), each a bf16 ulp (2^-8 relative) of an activation, carried
+# through 2 blocks and the loss head of ~6.9
+O1_CARD_CPU_ATOL = 5e-3
+
+
+def phase_o1_card_vs_cpu(port):
+    torch = port["torch"]
+    cfg = port["gpt_tiny"](hidden_size=128, num_heads=2, hidden_dropout=0.0,
+                           attention_dropout=0.0, recompute_interval=1)
+    rng = np.random.RandomState(32)
+    batch = [rng.randint(0, cfg.vocab_size, (2, 128)) for _ in range(2)]
+    cpu = port["GPT"](cfg, device="cpu", dtype="float32", seed=5)
+    card = port["GPT"](cfg, device=DEVICE, dtype="float32", seed=5)
+    card.load_state_dict(cpu.state_dict())
+    _reset_launches(port)
+    out = []
+    for m in (cpu, card):
+        opt = port["AdamW"](1e-4, parameters=m.parameters())
+        scaler = port["amp"].GradScaler(init_loss_scaling=O1_INIT_SCALE,
+                                        device=m.device)
+        step = port["FusedTrainStep"](
+            lambda ids, labels, m=m: m(ids, labels=labels), opt,
+            scaler=scaler, amp_level="O1")
+        dev_batch = [torch.from_numpy(x).to(m.device) for x in batch]
+        out.append([float(step(*dev_batch)) for _ in range(3)])
+    launches = _launch_counts(port)
+    diff = max(abs(a - b) for a, b in zip(*out))
+    print(f"[o1_card_vs_cpu] gpt_tiny fp32 weights, O1 bf16, scaler: losses "
+          f"cpu {out[0]} card {out[1]}: max diff {diff!r} (tol "
+          f"{O1_CARD_CPU_ATOL}); card launches {launches}")
+    _check(diff <= O1_CARD_CPU_ATOL, "card and CPU O1 losses differ")
+    _check(launches["fwd"] > 0 and launches["dq"] > 0
+           and launches["adamw"] > 0,
+           "the card's O1 steps did not launch the flash and AdamW kernels")
+
+
+# -- phase 33: recompute policies --------------------------------------------
+
+POLICY_STEPS = 4
+
+
+def phase_recompute_policies(port):
+    """GPT-3 1.3B O1 (phase 31's set-up), four steps each under
+    recompute_policy "full" and "dots" from the same weights and batches:
+    losses bit for bit, the same flash forward launches (the recompute
+    reruns them under both); the mean step time of steps 2-4, the peak
+    memory, and the memory a forward holds for its backward (allocated
+    after one more O1 forward, before its backward) of each."""
+    torch = port["torch"]
+    vocab = port["gpt_1p3b"]().vocab_size
+    batches = [tuple(torch.from_numpy(a).to(DEVICE) for a in b)
+               for b in o1_host_batches(vocab, POLICY_STEPS, seed=33)]
+    runs = {}
+    for policy in ("full", "dots"):
+        model, opt, scaler, step = o1_train_setup(port, policy)
+        layers = model.config.num_layers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(port)
+        times, losses = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            losses.append(step(*b))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = _launch_counts(port)
+        peak = torch.cuda.max_memory_allocated()
+        base = torch.cuda.memory_allocated()
+        with port["amp"].auto_cast(level="O1"):
+            loss = model(*batches[0][:1], labels=batches[0][1])
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        loss.backward()
+        opt.zero_grad(set_to_none=True)
+        runs[policy] = dict(losses=torch.stack(losses), launches=launches,
+                            peak=peak, held=held,
+                            step_s=float(np.mean(times[1:])))
+        del model, opt, scaler, step, loss
+        torch.cuda.empty_cache()
+    for policy, r in runs.items():
+        print(f"[recompute] {policy}: losses {r['losses'].tolist()}; mean "
+              f"step (steps 2-{POLICY_STEPS}) {1e3 * r['step_s']:.2f} ms; "
+              f"peak device memory {r['peak'] / 2**30:.2f} GiB; held by a "
+              f"forward for its backward {r['held'] / 2**30:.2f} GiB; flash "
+              f"forward launches {r['launches']['fwd']}")
+    full, dots = runs["full"], runs["dots"]
+    _check(torch.equal(full["losses"], dots["losses"]),
+           "recompute policies full and dots give different losses")
+    _check(full["launches"]["fwd"] == dots["launches"]["fwd"]
+           == 2 * layers * POLICY_STEPS,
+           f"flash forward launches full {full['launches']['fwd']}, dots "
+           f"{dots['launches']['fwd']}")
+    return runs
+
+
+# -- phase 34: crash-consistent resume --------------------------------------
+
+RESUME_LAYERS, RESUME_BATCH = 2, 2
+
+
+def phase_resume(port):
+    """GPT-3 1.3B's width at 2 layers, fp32 weights, O1 bf16 with a
+    scaler: six steps straight, against three steps, an asynchronous save,
+    three more steps while the writer runs, and a restore into a model
+    from another seed that trains the last three: losses and parameters
+    bit for bit.  Then a SIGTERM to this process under
+    ``PreemptionHandler``: the next step boundary saves and raises
+    ``GracefulExit``, and that checkpoint is the newest."""
+    import os
+    import shutil
+    import signal
+
+    torch = port["torch"]
+    ck = port["checkpoint"]
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "chip_smoke_ckpt")
+    shutil.rmtree(directory, ignore_errors=True)
+    vocab = port["gpt_1p3b"]().vocab_size
+    batches = [tuple(torch.from_numpy(a).to(DEVICE) for a in b)
+               for b in o1_host_batches(vocab, 7, seed=34,
+                                        batch=RESUME_BATCH)]
+
+    def build(seed):
+        return o1_train_setup(port, num_layers=RESUME_LAYERS, seed=seed)
+
+    a_model, _, _, a_step = build(0)
+    ref = torch.stack([a_step(*b) for b in batches[:6]])
+    b_model, b_opt, b_scaler, b_step = build(0)
+    pre = [b_step(*b) for b in batches[:3]]
+    mgr = ck.CheckpointManager(directory, keep_last_k=2, async_save=True)
+    t0 = time.perf_counter()
+    mgr.save(ck.TrainState(b_model, b_opt, b_scaler).capture(
+        position={"step": 3}), step=3)
+    save_s = time.perf_counter() - t0
+    writer_busy = mgr._inflight is not None and mgr._inflight.is_alive()
+    times, post_b = [], []
+    for b in batches[3:6]:
+        t1 = time.perf_counter()
+        post_b.append(b_step(*b))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    mgr.wait()
+    write_s = time.perf_counter() - t0
+    del b_model, b_opt, b_scaler, b_step
+    info = mgr.latest()
+    size = info.manifest["files"]["state.pkl"]["size"]
+    c_model, c_opt, c_scaler, c_step = build(1)
+    t2 = time.perf_counter()
+    tree, _ = mgr.restore()
+    pos = ck.TrainState(c_model, c_opt, c_scaler).restore(tree)
+    restore_s = time.perf_counter() - t2
+    del tree
+    post = torch.stack([c_step(*b) for b in batches[3:6]])
+    same = (torch.equal(torch.stack(pre), ref[:3])
+            and torch.equal(torch.stack(post_b), ref[3:])
+            and torch.equal(post, ref[3:])
+            and all(torch.equal(x, y) for x, y in
+                    zip(a_model.parameters(), c_model.parameters())))
+    print(f"[resume] gpt_1p3b width, {RESUME_LAYERS} layers, fp32 weights, "
+          f"O1 + scaler, {RESUME_BATCH} x {TRAIN_SEQ}: train 6 "
+          f"{ref.tolist()}; "
+          f"train 3 + async save + restore (position {pos}) into seed 1 + "
+          f"train 3: {post.tolist()}; bit for bit (losses and parameters): "
+          f"{same}; checkpoint {size} bytes; save() returned in "
+          f"{save_s:.3f} s (host snapshot), writer busy after it: "
+          f"{writer_busy}; steps while the writer ran "
+          f"{[round(1e3 * t, 2) for t in times]} ms; write committed "
+          f"{write_s:.2f} s after save(); restore {restore_s:.2f} s")
+    _check(same, "train 3 + save + restore + train 3 is not train 6 bit "
+           "for bit")
+    state = ck.TrainState(c_model, c_opt, c_scaler)
+    raised = False
+    with ck.PreemptionHandler() as handler:
+        os.kill(os.getpid(), signal.SIGTERM)
+        deadline = time.time() + 5
+        while not handler.requested and time.time() < deadline:
+            time.sleep(0.01)
+        c_step(*batches[6])
+        try:
+            handler.checkpoint_and_exit_if_requested(mgr, state, step=7)
+        except ck.GracefulExit as e:
+            raised = e.code == 0
+    newest = mgr.latest()
+    print(f"[resume] SIGTERM: requested {handler.requested}, GracefulExit "
+          f"raised {raised}, newest checkpoint step {newest.step} "
+          f"(preempted {newest.manifest['meta'].get('preempted')})")
+    _check(raised and newest.step == 7
+           and newest.manifest["meta"].get("preempted") is True,
+           "preemption did not save the newest checkpoint and exit")
+    shutil.rmtree(directory, ignore_errors=True)
+    del a_model, c_model, c_opt, c_scaler, c_step, state
+    torch.cuda.empty_cache()
+    return dict(save_s=save_s, write_s=write_s, bytes=size,
+                step_ms_while_writing=[1e3 * t for t in times])
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4360,7 +4975,7 @@ def main() -> int:
     launches, serve_tps = phase_serve(port)
     phase_card_vs_cpu(port)
     tk = phase_train_kernels(port)
-    train_launches = phase_train(port)
+    train_launches, train_o2 = phase_train(port)
     phase_train_card_vs_cpu(port)
     dk = phase_decode_kernels(port)
     # the flash forward's error over phase 5 and its ragged lengths here
@@ -4408,6 +5023,11 @@ def main() -> int:
                                                   fp32_model).values())}
     del model, fp32_model
     torch.cuda.empty_cache()
+    fk = phase_adamw_flag(port)
+    o1_launches, o1 = phase_train_o1(port, train_o2)
+    phase_o1_card_vs_cpu(port)
+    phase_recompute_policies(port)
+    phase_resume(port)
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -4441,6 +5061,17 @@ def main() -> int:
                         "source": csrc + source,
                         "replaces": pallas + replaces,
                         "launches": train_launches[key], **tk[key]})
+        if key != "adamw":
+            # phase 6's bf16-weight step and phase 31's O1 step
+            kernels[-1]["launches_by_path"] = {
+                "train_bf16": train_launches[key],
+                "train_o1_fp32_weights": o1_launches[key]}
+    # the fp32 form (fp32 p, g and moments) with phase 31's device flag
+    # and beta powers: launches from phase 31's O1 steps
+    kernels.append({"name": "fused_adamw_fp32", "route": "cuda",
+                    "source": csrc + "fused_adamw.cu",
+                    "replaces": pallas + "fused_adamw.py:38",
+                    "launches": o1_launches["adamw"], **fk})
     # the fp32-master form: the same kernel library and TPU kernel, with
     # the arithmetic of the reference's composed master path; launches
     # from phase 21's BERT-base recipe steps, times at BERT-base's

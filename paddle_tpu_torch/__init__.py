@@ -27,13 +27,24 @@ families: dropout (GPT's block redraws its masks in the recompute), the
 LR schedulers of ``optimizer.lr``, gradient clipping (``nn.clip``),
 ``AdamW``'s ``lr_ratio`` and decay mask, and bf16 weights on fp32 master
 weights (``amp.decorate`` O2 before ``AdamW(multi_precision=True)``),
-updated by the fused-AdamW kernel's master form.
+updated by the fused-AdamW kernel's master form.  Mixed precision over
+fp32 weights: ``amp.auto_cast`` O1 (the reference's op lists) with
+``amp.GradScaler``, taken by ``FusedTrainStep(scaler=, amp_level="O1")``,
+whose skipped steps make no host sync; ``GPTConfig.recompute_policy``;
+crash-consistent training (``checkpoint``: ``CheckpointManager``,
+``TrainState``, ``BadStepSentry``, ``PreemptionHandler``) fed by
+``io.DevicePrefetcher``.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); on the CPU every kernel is replaced by its plain
 PyTorch version.
 """
-from . import amp, core, incubate, models, nn, optimizer, serving, telemetry
+__version__ = "0.11.0"
+
+from . import (
+    amp, checkpoint, core, incubate, io, models, nn, optimizer, serving,
+    telemetry,
+)
 from .models import (
     BertConfig, BertForPretraining, BertModel, BertPretrainingCriterion,
     GenerationMixin, GPTConfig, GPTPretrainingCriterion,
@@ -43,8 +54,8 @@ from .models import (
 )
 from .serving import SamplingParams, ServingEngine
 
-__all__ = ["amp", "core", "incubate", "models", "nn", "optimizer", "serving",
-           "telemetry", "BertConfig", "BertModel", "BertForPretraining",
+__all__ = ["amp", "checkpoint", "core", "incubate", "io", "models", "nn",
+           "optimizer", "serving", "telemetry", "BertConfig", "BertModel", "BertForPretraining",
            "BertPretrainingCriterion", "bert_tiny", "bert_base",
            "GPTConfig", "GPTStackedForPretraining", "GPTPretrainingCriterion",
            "gpt_tiny", "gpt_small", "gpt_1p3b", "gpt_13b", "generation", "KVCache", "GenerationMixin", "generate",

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..amp.auto_cast import maybe_cast
 from ..core import resolve_device, to_torch_dtype
 from ..models.gpt import (
     GPTConfig, GPTStackedDecoder, _dropout_seeds, _host_generator,
@@ -39,9 +40,12 @@ __all__ = ["FusedMultiHeadAttention", "FusedFeedForward", "FusedLinear",
 
 def _fused_post_ln(residual, branch, ln: LayerNorm):
     """``ln(residual + branch)`` in one fused kernel launch (the JAX
-    ``_fused_post_ln``: x is the branch, the residual is added to it)."""
-    out, _ = fused_add_layer_norm(branch, residual, ln.weight, ln.bias,
-                                  ln.epsilon)
+    ``_fused_post_ln``: x is the branch, the residual is added to it).
+    Under ``auto_cast`` O1 every operand is cast to fp32 (a black-list
+    op)."""
+    branch, residual, w, b = maybe_cast("fused_add_layer_norm", branch,
+                                        residual, ln.weight, ln.bias)
+    out, _ = fused_add_layer_norm(branch, residual, w, b, ln.epsilon)
     return out
 
 
@@ -79,7 +83,7 @@ class FusedMultiHeadAttention(PortModule):
         self.qkv = Linear(embed_dim, 3 * embed_dim, **factory)
         self.out_proj = Linear(embed_dim, embed_dim, **factory)
         self.ln = LayerNorm(embed_dim, epsilon, **factory)
-        self.dropout = Dropout(dropout_rate, generator)
+        self.dropout = Dropout(dropout_rate, generator=generator)
         self.attn_dropout_rate = float(attn_dropout_rate)
         self.generator = generator
         init_weights(self, seed)
@@ -128,9 +132,10 @@ class FusedFeedForward(PortModule):
         self.linear1 = Linear(d_model, dim_feedforward, **factory)
         self.linear2 = Linear(dim_feedforward, d_model, **factory)
         self.ln = LayerNorm(d_model, epsilon, **factory)
-        self.dropout = Dropout(dropout_rate, generator)
+        self.dropout = Dropout(dropout_rate, generator=generator)
         self.act_dropout = Dropout(dropout_rate if act_dropout_rate is None
-                                   else act_dropout_rate, generator)
+                                   else act_dropout_rate,
+                                   generator=generator)
         self.activation = getattr(F, activation)
         init_weights(self, seed)
 

@@ -69,7 +69,7 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h,
                                                   **factory)
         self.layer_norm = LayerNorm(h, cfg.layer_norm_eps, **factory)
-        self.dropout = Dropout(cfg.hidden_dropout, generator)
+        self.dropout = Dropout(cfg.hidden_dropout, generator=generator)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         if position_ids is None:
@@ -90,7 +90,7 @@ class BertSelfAttention(nn.Module):
         h = cfg.hidden_size
         self.qkv = Linear(h, 3 * h, **factory)
         self.out = Linear(h, h, **factory)
-        self.dropout = Dropout(cfg.hidden_dropout, generator)
+        self.dropout = Dropout(cfg.hidden_dropout, generator=generator)
         self._cfg = cfg
         self.generator = generator
 
@@ -118,7 +118,7 @@ class BertLayer(nn.Module):
         self.fc1 = Linear(h, cfg.intermediate_size, **factory)
         self.fc2 = Linear(cfg.intermediate_size, h, **factory)
         self.ln2 = LayerNorm(h, eps, **factory)
-        self.dropout = Dropout(cfg.hidden_dropout, generator)
+        self.dropout = Dropout(cfg.hidden_dropout, generator=generator)
 
     def forward(self, x, attn_mask=None):
         x = self.ln1(x + self.attention(x, attn_mask))

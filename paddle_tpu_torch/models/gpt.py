@@ -52,14 +52,18 @@ per-layer key.  Nothing is read back from the card.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
+from ..amp.auto_cast import amp_state, maybe_cast, o1_dtype
 from ..core import resolve_device, to_torch_dtype
 from ..nn.functional import (
     cross_entropy, dropout, fused_linear_cross_entropy,
@@ -89,6 +93,26 @@ __all__ = [
 ]
 
 
+_ATEN = torch.ops.aten
+# recompute_policy -> the products whose outputs a recomputed group keeps
+# (None: it keeps nothing)
+RECOMPUTE_POLICIES = {
+    None: None, "full": None,
+    "dots": (_ATEN.mm.default, _ATEN.addmm.default),
+    "dots_saveable": (_ATEN.mm.default, _ATEN.addmm.default,
+                      _ATEN.bmm.default),
+}
+
+
+def _save_ops_policy(ops):
+    """A selective-checkpoint policy: keep the outputs of ``ops``,
+    recompute every other op."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
 @dataclass
 class GPTConfig:
     vocab_size: int = 50304
@@ -102,11 +126,26 @@ class GPTConfig:
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     recompute_interval: int = 0         # 0 = off; k = remat every k blocks
+    # what a recomputed group keeps (recompute_interval > 0): None or
+    # "full" recompute the whole group in the backward; "dots" keeps the
+    # outputs of the 2-D products (the projections: aten.mm/addmm) and
+    # recomputes the rest; "dots_saveable" also keeps batched products
+    # (aten.bmm) -- the reference's jax checkpoint policies
+    # dots_with_no_batch_dims_saveable and dots_saveable
+    recompute_policy: Optional[str] = None
     # None or True: training attention runs through flash_attention_bnsd
     # (the kernels on the card, their plain version on the CPU) unless
     # attention dropout is active; False: the reference's plain causal
     # expression (causal_attention_plain) on every device
     use_flash_attention: Optional[bool] = None
+
+    def __post_init__(self):
+        # a typo'd policy fails when the config is made, not only when
+        # recompute engages, as in the reference
+        if self.recompute_policy not in RECOMPUTE_POLICIES:
+            raise ValueError(
+                f"unknown remat policy {self.recompute_policy!r}; expected "
+                "one of [None, 'full', 'dots', 'dots_saveable']")
 
     @property
     def ffn_size(self) -> int:
@@ -161,7 +200,8 @@ def causal_attention_plain(q, k, v, scale: float, dropout_p: float = 0.0,
     scores = torch.einsum("bnqd,bnkd->bnqk", q.float(), k.float()) * scale
     causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     scores = torch.where(causal, scores, torch.full_like(scores, -1e9))
-    att = dropout(torch.softmax(scores, dim=-1), dropout_p, True, generator)
+    att = dropout(torch.softmax(scores, dim=-1), dropout_p,
+                  generator=generator)
     return torch.einsum("bnqk,bnkd->bnqd", att.to(q.dtype), v)
 
 
@@ -233,7 +273,7 @@ class GPTStackedDecoder(nn.Module):
                 name, nn.Parameter(torch.empty(shapes[name], **factory)))
 
     def _block(self, h, weights, attend, int8: bool = False,
-               drop=_identity, lora=None):
+               drop=_identity, lora=None, cdt=None):
         """One block (the reference's ``_block_fn``, ``_cached_block_fn``
         and ``_paged_block_fn`` bodies): ``h`` [B, S, hidden] -> [B, S,
         hidden].  ``attend(q, k, v)`` takes the fresh [B, S, H, D] views
@@ -257,7 +297,16 @@ class GPTStackedDecoder(nn.Module):
         its gathered low-rank delta (``ops/lora.py``) on the same input as
         its base product: in the weight dtype, or, for int8 projections,
         on the fp32 input rounded to the slab dtype, added in fp32 (the
-        reference's ``_paged_block_fn``)."""
+        reference's ``_paged_block_fn``).
+        ``cdt``: the amp dtype of an ``auto_cast`` at O1 the caller read
+        (:func:`~paddle_tpu_torch.amp.auto_cast.o1_dtype`; passed, not read
+        here, because a recompute runs outside the ``auto_cast`` block),
+        or None.  With it, the eight projection weights and biases are
+        cast to ``cdt`` and each LayerNorm output is rounded to it before
+        its product, while the LayerNorms and the residual stream keep
+        h's dtype -- the reference's block under ``auto_cast``
+        (``paddle_tpu/models/gpt.py`` ``_block_fn``); int8 projections
+        are never cast."""
         cfg = self._cfg
         nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
         if int8:
@@ -272,6 +321,13 @@ class GPTStackedDecoder(nn.Module):
             (l1g, l1b, qkvw, qkvb, pw, pb, l2g, l2b, f1w, f1b, f2w,
              f2b) = weights
             qkvs = pws = f1s = f2s = None
+            if cdt is not None:
+                # AMP O1 (the reference's block under auto_cast): the
+                # products run in the amp dtype, LayerNorm in the weights'
+                # (fp32) dtype, the residual stream stays in h's
+                qkvw, qkvb, pw, pb, f1w, f1b, f2w, f2b = (
+                    t.to(cdt) for t in (qkvw, qkvb, pw, pb, f1w, f1b, f2w,
+                                        f2b))
 
             def norm(x, g, beta):
                 return _layer_norm(x, g, beta, eps)
@@ -297,12 +353,15 @@ class GPTStackedDecoder(nn.Module):
                 d = lora_delta_raw(xr, a, bb, ids, lscale)
             return y + d.view(b * s, -1)
 
-        x = norm(h, l1g, l1b).reshape(b * s, hidden)
+        # the LayerNorm output is rounded to the projections' dtype (a
+        # no-op unless O1 casts the weights; int8 products take fp32)
+        pdt = torch.float32 if int8 else qkvw.dtype
+        x = norm(h, l1g, l1b).to(pdt).reshape(b * s, hidden)
         qkv = lin(x, qkvw, qkvs, qkvb, 0).view(b, s, 3, nh, hd)
         out = attend(*qkv.unbind(2))
         out = out.reshape(b * s, hidden).to(x.dtype)  # cache dtype may differ
         h = h + drop(lin(out, pw, pws, pb, 1).view(b, s, hidden)).to(h.dtype)
-        y = norm(h, l2g, l2b).reshape(b * s, hidden)
+        y = norm(h, l2g, l2b).to(pdt).reshape(b * s, hidden)
         y = F.gelu(lin(y, f1w, f1s, f1b, 2), approximate="tanh")
         return h + drop(lin(y, f2w, f2s, f2b, 3).view(b, s, hidden)
                         ).to(h.dtype)
@@ -324,23 +383,25 @@ class GPTStackedDecoder(nn.Module):
             out = flash_attention_bnsd(q, k, v, causal=True, sm_scale=scale)
         return out.transpose(1, 2)
 
-    def _blocks(self, h, seeds, *weights):
+    def _blocks(self, h, seeds, cdt, *weights):
         """Consecutive training blocks; ``weights`` holds each block's 12
         slices, block after block; ``seeds`` one dropout seed per block,
-        or None without dropout.  A block draws its masks from a generator
+        or None without dropout; ``cdt`` the amp dtype for :meth:`_block`.
+        A block draws its masks from a generator
         seeded with its seed, in block order: the attention probabilities,
         the attention projection, the MLP output."""
         n = len(self.PARAM_NAMES)
         hid_p = self._cfg.hidden_dropout
         for j, i in enumerate(range(0, len(weights), n)):
             if seeds is None:
-                h = self._block(h, weights[i:i + n], self._train_attend)
+                h = self._block(h, weights[i:i + n], self._train_attend,
+                                cdt=cdt)
                 continue
             gen = _seeded(seeds[j], h.device)
             h = self._block(
                 h, weights[i:i + n],
                 lambda q, k, v: self._train_attend(q, k, v, gen),
-                drop=lambda x: dropout(x, hid_p, True, gen))
+                drop=lambda x: dropout(x, hid_p, generator=gen), cdt=cdt)
         return h
 
     def _layers(self, names=PARAM_NAMES):
@@ -388,7 +449,15 @@ class GPTStackedDecoder(nn.Module):
         k > 0 (and the module in training mode) each group of k blocks
         runs under ``torch.utils.checkpoint``: the backward recomputes the
         group's forward from its input and its seeds instead of keeping
-        its activations."""
+        its activations -- all of it, or, under ``recompute_policy``
+        "dots"/"dots_saveable", all but the products the policy keeps
+        (``torch.utils.checkpoint``'s selective checkpoint).  The flash
+        kernels and the dropout masks are recomputed under every policy:
+        the kernels launch outside PyTorch's dispatcher, and each block
+        reseeds its generator from its seed.
+
+        Under ``amp.auto_cast`` O1 each block casts its projection
+        weights to the amp dtype (:meth:`_block`)."""
         cfg = self._cfg
         self._check_fp_weights("the training forward")
         if (seeds is not None) != self.dropout_active():
@@ -399,14 +468,18 @@ class GPTStackedDecoder(nn.Module):
             raise ValueError(f"recompute_interval={k} must divide "
                              f"num_layers={cfg.num_layers}")
         layers = list(self._layers())
+        cdt = o1_dtype()
         if k <= 0:
-            return self._blocks(h, seeds,
+            return self._blocks(h, seeds, cdt,
                                 *(w for layer in layers for w in layer))
+        saved = RECOMPUTE_POLICIES[cfg.recompute_policy]
+        kw = {} if saved is None else dict(context_fn=partial(
+            create_selective_checkpoint_contexts, _save_ops_policy(saved)))
         for g0 in range(0, cfg.num_layers, k):
             group = [w for layer in layers[g0:g0 + k] for w in layer]
             group_seeds = None if seeds is None else seeds[g0:g0 + k]
-            h = checkpoint(self._blocks, h, group_seeds, *group,
-                           use_reentrant=False)
+            h = checkpoint(self._blocks, h, group_seeds, cdt, *group,
+                           use_reentrant=False, **kw)
         return h
 
     def forward_cached(self, h, k_cache, v_cache, pos):
@@ -448,10 +521,11 @@ class GPTStackedDecoder(nn.Module):
             return _masked_attention(q.transpose(1, 2), kc, vc, idx,
                                      scale).transpose(1, 2)
 
+        cdt = o1_dtype()
         for weights, kc, vc in zip(self._layers(), k_cache.unbind(0),
                                    v_cache.unbind(0)):
             h = self._block(h, weights,
-                            lambda q, k, v: attend(q, k, v, kc, vc))
+                            lambda q, k, v: attend(q, k, v, kc, vc), cdt=cdt)
         return h
 
     def forward_paged(self, h, k_pool, v_pool, tables, pos, ragged_plan,
@@ -533,12 +607,13 @@ class GPTStackedDecoder(nn.Module):
             loras = [(sl, ids, pool_.scaling) for sl in layer_slabs]
         else:
             loras = [None] * cfg.num_layers
+        cdt = o1_dtype()
         for weights, kp, vp, ks, vs, lr in zip(self._layers(names), *pools,
                                                loras):
             h = self._block(
                 h, weights,
                 lambda q, k, v: attend(q, k, v, kp, vp, ks, vs), int8=int8,
-                lora=lr)
+                lora=lr, cdt=cdt)
         return h
 
 
@@ -581,12 +656,23 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
     device (LayerNorm gains 1, biases 0, as the JAX model initialises).
     Dropout seeds come from ``generator``, a CPU ``torch.Generator``
     (``None``: a CPU generator seeded with ``seed``).
+
+    ``(cfg, n_micro=1)`` is the reference's order; the port's own
+    arguments are keyword-only.  ``n_micro`` > 1 (pipelined microbatches
+    over a mesh) raises.
     """
 
-    def __init__(self, cfg: GPTConfig, device=None, dtype="float32",
-                 seed: int = 0, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: GPTConfig, n_micro: int = 1, *, device=None,
+                 dtype="float32", seed: int = 0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        if n_micro != 1:
+            raise NotImplementedError(
+                f"GPTStackedForPretraining(n_micro={n_micro}): pipeline "
+                "training over a mesh is not ported (ROADMAP.md queue 1, "
+                "item 2, training)")
         self.config = cfg
+        self.n_micro = 1
         self.device = resolve_device(device)
         self.dtype = to_torch_dtype(dtype)
         self.generator = _host_generator(generator, seed)
@@ -758,7 +844,8 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
         if self.weight_int8:
             # the tied head as one int8 product (fp32 logits)
             return quantized_matmul(h, self.lm_head_int8, self.lm_head_scale)
-        return h @ self.embeddings.word_embeddings.weight.t()
+        h, w = maybe_cast("matmul", h, self.embeddings.word_embeddings.weight)
+        return h @ w.t()
 
     def _forward_train(self, input_ids, labels, position_ids=None):
         cfg = self.config
@@ -770,12 +857,16 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
         if self.decoder.dropout_active():
             # the embeddings' seed, then one per layer
             seeds = _dropout_seeds(self.generator, cfg.num_layers + 1)
-            h = dropout(h, cfg.hidden_dropout, True,
-                        _seeded(seeds.pop(0), h.device))
+            h = dropout(h, cfg.hidden_dropout,
+                        generator=_seeded(seeds.pop(0), h.device))
         h = self.final_ln(self.decoder(h, seeds))
         w = self.embeddings.word_embeddings.weight
         if labels is not None:
-            return fused_linear_cross_entropy(h, w, labels)
+            # the reference passes the amp dtype whenever auto_cast is on
+            st = amp_state()
+            return fused_linear_cross_entropy(
+                h, w, labels, compute_dtype=st.dtype if st.enabled else None)
+        h, w = maybe_cast("matmul", h, w)
         return h @ w.t()
 
     # -- GenerationMixin cache contract ------------------------------------

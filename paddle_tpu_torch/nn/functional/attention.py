@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from ...amp.auto_cast import maybe_cast
 from ...ops.kernels.flash_attention import (
     flash_attention_bnsd, shape_unsupported_reason,
 )
@@ -63,8 +64,8 @@ def sdpa_reference(q, k, v, mask=None, dropout_p: float = 0.0,
             scores = scores.masked_fill(~mask, lowest)
         else:
             scores = scores + mask
-    probs = dropout(torch.softmax(scores, dim=-1), dropout_p, True,
-                    generator)
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_p,
+                    generator=generator)
     probs, vh = promote(probs, vh)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vh).transpose(1, 2)
 
@@ -77,7 +78,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Attention of ``[B, S, H, D]`` query, key and value with the softmax
     scale ``1 / sqrt(D)``, returning ``[B, S, H, D]``.  ``dropout_p``
     applies only when ``training``, drawn from ``generator``.  Routed as
-    the module docstring says."""
+    the module docstring says.  Under ``auto_cast`` O1 the operands (and a
+    float mask) are cast to the amp dtype, on either route (``sdpa`` and
+    ``flash_attention`` are white-list ops)."""
+    query, key, value, attn_mask = maybe_cast("sdpa", query, key, value,
+                                              attn_mask)
     if not training:
         dropout_p = 0.0
     if flash_eligible(tuple(query.shape), dropout_p, attn_mask):

@@ -21,30 +21,75 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ...amp.auto_cast import maybe_cast
+
 __all__ = ["cross_entropy", "fused_linear_cross_entropy"]
 
 
-def cross_entropy(input, label, ignore_index: int = -100,  # noqa: A002
-                  reduction: str = "mean", axis: int = -1) -> torch.Tensor:
-    """Softmax cross entropy against integer labels (the reference's hard
-    label path): ``-log_softmax(input)[label]`` along ``axis``, 0 where the
-    label is ``ignore_index``; ``reduction`` "mean" divides the sum by the
-    number of labels that are not ignored (at least 1), "sum" sums, "none"
-    keeps each row's loss.  ``label`` may carry a trailing unit axis."""
+def _reduce(loss, reduction: str):
+    if reduction == "mean":
+        return loss.mean()
+    return loss.sum() if reduction == "sum" else loss
+
+
+def cross_entropy(input, label, weight=None,  # noqa: A002
+                  ignore_index: int = -100, reduction: str = "mean",
+                  soft_label: bool = False,
+                  axis: int = -1, use_softmax: bool = True,
+                  label_smoothing: float = 0.0, name=None) -> torch.Tensor:
+    """Softmax cross entropy in the reference's order and arithmetic
+    (``paddle_tpu/nn/functional/loss.py`` ``cross_entropy``):
+
+    - ``use_softmax``: ``log_softmax(input)`` along ``axis``; False takes
+      ``input`` as probabilities, ``log(max(input, 1e-30))``;
+    - hard labels (integers; a trailing unit axis is allowed): the loss
+      ``-lp[label]``, with ``label_smoothing`` ``(1 - e) (-lp[label]) + e
+      mean(-lp)``, 0 where the label is ``ignore_index``; ``weight`` (one
+      per class) multiplies each row's loss by its class's weight, and
+      "mean" is then ``sum(loss) / max(sum(weights of the kept rows),
+      1e-12)``; without ``weight`` "mean" divides by the number of kept
+      labels (at least 1);
+    - ``soft_label``: ``label`` holds a distribution over classes (smoothed
+      by ``label_smoothing`` toward uniform), the loss ``-sum(label *
+      lp)``; ``weight`` and ``ignore_index`` play no part, as in the
+      reference;
+    - ``reduction`` "mean", "sum" or "none" (each row's loss).
+
+    Under ``amp.auto_cast`` O1 the operands are cast to fp32 (a black-list
+    op)."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction {reduction!r}: expected 'mean', 'sum' "
                          "or 'none'")
-    lp = torch.log_softmax(input, dim=axis)
+    input, weight = maybe_cast("cross_entropy", input, weight)  # noqa: A001
+    if use_softmax:
+        lp = torch.log_softmax(input, dim=axis)
+    else:
+        lp = torch.log(torch.clamp(input, min=1e-30))
+    if soft_label:
+        tgt = label.to(lp.dtype)
+        if label_smoothing > 0:
+            tgt = (tgt * (1 - label_smoothing)
+                   + label_smoothing / lp.shape[axis])
+        return _reduce(-(tgt * lp).sum(axis), reduction)
     lab = label.long()
     if lab.dim() == lp.dim():
         lab = lab.squeeze(axis)
     valid = lab != ignore_index
     safe = torch.where(valid, lab, 0)
     picked = lp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
-    loss = torch.where(valid, -picked, torch.zeros_like(picked))
+    loss = -picked
+    if label_smoothing > 0:
+        loss = ((1 - label_smoothing) * loss
+                + label_smoothing * -lp.mean(axis))
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    if weight is not None:
+        wv = torch.where(valid, weight[safe], torch.zeros_like(loss))
+        loss = loss * wv
+        if reduction == "mean":
+            return loss.sum() / torch.clamp(wv.sum(), min=1e-12)
     if reduction == "mean":
         return loss.sum() / valid.sum().clamp_min(1).to(loss.dtype)
-    return loss.sum() if reduction == "sum" else loss
+    return _reduce(loss, reduction)
 
 
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -81,17 +126,24 @@ def _chunk_loss(h, w, labels):
 
 def fused_linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
                                labels: torch.Tensor, *,
-                               chunk_tokens: int = 2048) -> torch.Tensor:
+                               chunk_tokens: int = 2048,
+                               compute_dtype=None) -> torch.Tensor:
     """Mean over tokens of ``logsumexp(h w^T) - (h w^T)[label]``.
 
     hidden: ``[..., H]``; weight: ``[V, H]`` (the tied LM head); labels:
-    integer ``[...]``, used as given (no shift).  Tokens are taken
-    ``chunk_tokens`` at a time, each chunk under
-    ``torch.utils.checkpoint``; the last chunk may be shorter."""
+    integer ``[...]``, used as given (no shift).  ``compute_dtype``: the
+    dtype both operands are cast to before the product (the reference's
+    ``compute_dtype``, which the stacked GPT passes under ``auto_cast``);
+    ``None`` keeps hidden's dtype for both.  The logits are summed in
+    fp32 either way.  Tokens are taken ``chunk_tokens`` at a time, each
+    chunk under ``torch.utils.checkpoint``; the last chunk may be
+    shorter."""
     hs = hidden.shape[-1]
-    h2 = hidden.reshape(-1, hs)
+    cdt = hidden.dtype if compute_dtype is None else compute_dtype
+    h2 = hidden.reshape(-1, hs).to(cdt)
+    w = weight.to(cdt)
     lab = labels.reshape(-1).to(device=hidden.device, dtype=torch.long)
-    losses = [checkpoint(_chunk_loss, h2[i:i + chunk_tokens], weight,
+    losses = [checkpoint(_chunk_loss, h2[i:i + chunk_tokens], w,
                          lab[i:i + chunk_tokens], use_reentrant=False)
               for i in range(0, h2.shape[0], chunk_tokens)]
     return torch.cat(losses).mean()

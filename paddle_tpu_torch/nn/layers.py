@@ -63,18 +63,24 @@ class LayerNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Inverted dropout with probability ``p`` in training mode, drawn from
-    ``generator`` (``None``: PyTorch's default generator); the identity in
-    eval mode."""
+    """:func:`F.dropout` as a layer, in the reference's order ``(p, axis,
+    mode)``: applied in training mode, drawn from ``generator`` (``None``:
+    PyTorch's default generator); in eval mode the identity
+    (``"upscale_in_train"``) or a multiplication by ``1 - p``
+    (``"downscale_in_infer"``)."""
 
-    def __init__(self, p: float = 0.5,
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train", name=None, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.p = float(p)
+        self.axis = axis
+        self.mode = mode
         self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training, self.generator)
+        return F.dropout(x, self.p, self.axis, self.training, self.mode,
+                         generator=self.generator)
 
 
 class PortModule(nn.Module):

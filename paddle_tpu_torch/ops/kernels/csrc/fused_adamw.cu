@@ -9,7 +9,19 @@
 //   m2 = beta2 * m2 + (1 - beta2) * g * g
 //   p  = p * (1 - lr * wd) - lr * (m1 / (1 - beta1^t)) / (sqrt(m2 / (1 - beta2^t)) + eps)
 // lr and the beta powers are arguments of every launch, so a schedule
-// never rebuilds anything.  Two forms:
+// never rebuilds anything.  Two optional device operands let a step run
+// without the host reading anything back (AdamW.step(finite=) under an
+// enabled GradScaler, as the reference's fused step gates every write on
+// where(finite, new, old) inside its one program):
+//
+// - finite: the step's finiteness flag (one byte); when it is 0 the
+//   kernel returns before any write, so parameters, moments and masters
+//   stay bitwise as they were;
+// - pows: beta1^t and beta2^t (fp32, on the device), from which every
+//   thread forms 1 - beta^t in fp32 -- the rounding of adamw_scalars on
+//   the host -- in place of the host values.
+//
+// Two forms:
 //
 // - adamw_kernel: p, m1 and m2 are written back in their storage dtype
 //   (bf16 or fp32, the same for all four tensors: the pure-bf16 regime
@@ -58,8 +70,21 @@ struct Args {
   // host-computed scalars, as the plain version uses them
   float lr, beta1, beta2, one_minus_beta1, one_minus_beta2, eps;
   float decay;             // 1 - lr * wd
-  float bc1, bc2;          // 1 - beta1^t, 1 - beta2^t
+  float bc1, bc2;          // 1 - beta1^t, 1 - beta2^t (unless pows)
+  const unsigned char* finite;   // nullptr, or the step's flag
+  const float* pows;             // nullptr, or {beta1^t, beta2^t}
 };
+
+// The flag and the bias corrections every thread starts from: false
+// when the step must write nothing.
+__device__ __forceinline__ bool prologue(Args& a) {
+  if (a.finite != nullptr && *a.finite == 0) return false;
+  if (a.pows != nullptr) {
+    a.bc1 = 1.0f - a.pows[0];
+    a.bc2 = 1.0f - a.pows[1];
+  }
+  return true;
+}
 
 __device__ __forceinline__ void update(float& p, float g, float& m1, float& m2,
                                        const Args& a) {
@@ -80,7 +105,8 @@ __device__ __forceinline__ void from_f(float x, __nv_bfloat16& out) {
 __device__ __forceinline__ void from_f(float x, __half& out) { out = __float2half(x); }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) adamw_kernel(const Args a) {
+__global__ void __launch_bounds__(THREADS) adamw_kernel(Args a) {
+  if (!prologue(a)) return;
   using V = Vec16<T>;
   T* p = static_cast<T*>(a.p);
   const T* g = static_cast<const T*>(a.g);
@@ -119,10 +145,11 @@ struct MasterArgs {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) adamw_master_kernel(const MasterArgs ma) {
+__global__ void __launch_bounds__(THREADS) adamw_master_kernel(MasterArgs ma) {
   using V = Vec16<T>;
   using F = Vec16<float>;
   static_assert(V::N == 2 * F::N, "a 16-byte T vector spans two fp32 vectors");
+  if (!prologue(ma.a)) return;
   const Args& a = ma.a;
   T* p = static_cast<T*>(a.p);
   const T* g = static_cast<const T*>(a.g);
@@ -169,9 +196,9 @@ long long grid_blocks(long long n, int elems) {
 }
 
 Args make_args(void* p, const void* g, void* m1, void* m2, long long n, int vec,
-               const float* scalars) {
+               const float* scalars, const unsigned char* finite, const float* pows) {
   return Args{p, g, m1, m2, n, vec, scalars[0], scalars[1], scalars[2], scalars[3],
-              scalars[4], scalars[5], scalars[6], scalars[7], scalars[8]};
+              scalars[4], scalars[5], scalars[6], scalars[7], scalars[8], finite, pows};
 }
 
 }  // namespace
@@ -181,15 +208,17 @@ extern "C" {
 // device: the CUDA device index every pointer lives on.  dtype: 0 =
 // float32, 1 = bfloat16, for all of p, g, m1 and m2 (each contiguous, n
 // elements).  scalars: lr, beta1, beta2, 1 - beta1, 1 - beta2, eps,
-// 1 - lr * wd, 1 - beta1^t, 1 - beta2^t.  Returns a cudaError_t (0 on
-// success).
+// 1 - lr * wd, 1 - beta1^t, 1 - beta2^t.  finite (device, one byte) and
+// pows (device, two fp32) may each be null: see the head of this file.
+// Returns a cudaError_t (0 on success).
 int fused_adamw(int device, int dtype, void* p, const void* g, void* m1, void* m2,
-                long long n, const float* scalars, void* stream) {
+                long long n, const float* scalars, const unsigned char* finite,
+                const float* pows, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int vec = ((uintptr_t)p | (uintptr_t)g | (uintptr_t)m1 | (uintptr_t)m2) % 16 == 0;
-  const Args a = make_args(p, g, m1, m2, n, vec, scalars);
+  const Args a = make_args(p, g, m1, m2, n, vec, scalars, finite, pows);
   const long long blocks = grid_blocks(n, dtype == 0 ? 4 : 8);  // elements a step
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -203,17 +232,17 @@ int fused_adamw(int device, int dtype, void* p, const void* g, void* m1, void* m
 
 // The fp32-master form.  dtype: 1 = bfloat16, 2 = float16, for p and g;
 // master, m1 and m2 are float32 (each contiguous, n elements).  p is
-// written, never read.  scalars as for fused_adamw.  Returns a
-// cudaError_t (0 on success).
+// written, never read.  scalars, finite and pows as for fused_adamw.
+// Returns a cudaError_t (0 on success).
 int fused_adamw_master(int device, int dtype, void* p, const void* g, float* master,
                        float* m1, float* m2, long long n, const float* scalars,
-                       void* stream) {
+                       const unsigned char* finite, const float* pows, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const int vec = ((uintptr_t)p | (uintptr_t)g | (uintptr_t)master | (uintptr_t)m1 |
                    (uintptr_t)m2) % 16 == 0;
-  const MasterArgs ma{make_args(p, g, m1, m2, n, vec, scalars), master};
+  const MasterArgs ma{make_args(p, g, m1, m2, n, vec, scalars, finite, pows), master};
   const long long blocks = grid_blocks(n, 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)

@@ -162,7 +162,8 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool,
 def _head_dim_reason(head_dim: int, dtype: torch.dtype,
                      backward: bool) -> Optional[str]:
     if dtype not in KERNEL_DTYPES:
-        return f"dtype {dtype} (the kernels take float32 and bfloat16)"
+        return (f"dtype {dtype} (the kernels take float32 and bfloat16; "
+                "float16 is ROADMAP.md queue 2)")
     dims = KERNEL_HEAD_DIMS[dtype][int(backward)]
     if head_dim not in dims:
         which = "backward" if backward else "forward"

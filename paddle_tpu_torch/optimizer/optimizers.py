@@ -10,10 +10,13 @@ p, moment1 and moment2 written back in place in their storage dtype.
 
 As in the reference, the bias-correction powers beta1^t and beta2^t are
 one pair for the optimizer, kept in fp32 and advanced once per
-``step()`` before any update; they live on the host and reach the kernel
+``step()`` before any update.  They live on the host and reach the kernel
 as launch arguments, as does the learning rate (a float, or an
-``LRScheduler``'s value).  ``grad_clip`` sees every ``(param, grad)``
-pair before any update.
+``LRScheduler``'s value) -- until a step is gated by a device finiteness
+flag (``step(finite=)``, which ``FusedTrainStep`` passes under an enabled
+``GradScaler``): from then on they live in a device fp32 pair that the
+kernel reads, so a skipped step needs no host sync.  ``grad_clip`` sees
+every ``(param, grad)`` pair before any update.
 
 Precision, as the reference's ``multi_precision``:
 
@@ -60,13 +63,14 @@ def _split_names(parameters):
 
 
 class AdamW(torch.optim.Optimizer):
-    """``AdamW(parameters, learning_rate=1e-3, beta1=0.9, beta2=0.999,
-    epsilon=1e-8, weight_decay=0.01, lr_ratio=None,
-    apply_decay_param_fun=None, grad_clip=None, multi_precision=True)``:
-    the reference's options and defaults.
+    """``AdamW(learning_rate=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8,
+    parameters=None, weight_decay=0.01, lr_ratio=None,
+    apply_decay_param_fun=None, grad_clip=None, lazy_mode=False,
+    multi_precision=True, use_fused_kernel=False, name=None)``: the
+    reference's options, defaults and order.
 
-    - ``parameters``: parameters, ``(name, param)`` pairs such as
-      ``model.named_parameters()``, or dicts of either as param groups:
+    - ``parameters`` (required): parameters, ``(name, param)`` pairs such
+      as ``model.named_parameters()``, or dicts of either as param groups:
       the names are what ``apply_decay_param_fun(name)`` sees (a bare
       parameter's ``p.name``, ``""`` without one);
     - ``learning_rate``: a float or an ``LRScheduler``, read at every
@@ -75,12 +79,23 @@ class AdamW(torch.optim.Optimizer):
     - ``apply_decay_param_fun(name)``: whether a parameter is decayed
       (every parameter is, without it);
     - ``grad_clip``: a ``ClipGradBy*`` object, applied to every
-      ``(param, grad)`` pair before any update."""
+      ``(param, grad)`` pair before any update;
+    - ``lazy_mode=True`` (the reference's sparse-row update) raises;
+      ``use_fused_kernel`` and ``name`` are accepted and ignored: every
+      update runs the fused kernel."""
 
-    def __init__(self, parameters, learning_rate=0.001, beta1=0.9,
-                 beta2=0.999, epsilon=1e-8, weight_decay=0.01,
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=True):
+                 lazy_mode=False, multi_precision=True,
+                 use_fused_kernel=False, name=None):
+        if parameters is None:
+            raise ValueError("AdamW: pass parameters= (the port has no "
+                             "global program to take them from)")
+        if lazy_mode:
+            raise NotImplementedError(
+                "AdamW(lazy_mode=True): the sparse-row update is not "
+                "ported (ROADMAP.md queue 1, item 10)")
         if not isinstance(weight_decay, (int, float)):
             raise TypeError("AdamW applies decoupled L2 decay: weight_decay "
                             "must be a float coefficient")
@@ -94,11 +109,41 @@ class AdamW(torch.optim.Optimizer):
         self._apply_decay_fun = apply_decay_param_fun
         self._grad_clip = grad_clip
         self._multi_precision = bool(multi_precision)
-        # beta1^t and beta2^t, fp32 as the reference keeps them
-        self.beta1_pow = np.float32(1.0)
-        self.beta2_pow = np.float32(1.0)
+        # beta1^t and beta2^t, fp32 as the reference keeps them: host
+        # scalars, until a step gated by a device flag moves them into
+        # the device pair _pows (see step)
+        self._host_pows = [np.float32(1.0), np.float32(1.0)]
+        self._pows = self._betas = None
         # torch's constructor hands every group to add_param_group below
         super().__init__(parameters, defaults)
+
+    @property
+    def beta1_pow(self) -> np.float32:
+        """beta1^t (read from the card, one sync, while the device pair
+        holds it)."""
+        return self._pow(0)
+
+    @beta1_pow.setter
+    def beta1_pow(self, v):
+        self._set_pow(0, v)
+
+    @property
+    def beta2_pow(self) -> np.float32:
+        return self._pow(1)
+
+    @beta2_pow.setter
+    def beta2_pow(self, v):
+        self._set_pow(1, v)
+
+    def _pow(self, i):
+        if self._pows is not None:
+            return np.float32(self._pows[i].item())
+        return self._host_pows[i]
+
+    def _set_pow(self, i, v):
+        self._host_pows[i] = np.float32(v)
+        if self._pows is not None:
+            self._pows[i] = float(self._host_pows[i])
 
     def add_param_group(self, param_group):
         """torch's ``add_param_group``, whose ``params`` may also be
@@ -148,13 +193,41 @@ class AdamW(torch.optim.Optimizer):
         return lr, sched
 
     @torch.no_grad()
-    def step(self):
+    def step(self, *, finite=None):
+        """One update of every parameter with a gradient.  ``finite``: a
+        0-d bool tensor on the parameters' device -- the step's
+        finiteness flag, as ``FusedTrainStep`` computes it under an
+        enabled ``GradScaler``.  With it, nothing waits for the card: the
+        beta powers move into a device fp32 pair (once) and advance there
+        as ``where(finite, pow * beta, pow)``; each kernel reads them and
+        the flag, and writes nothing when the flag is false, so a
+        non-finite step leaves parameters, moments, masters and the
+        powers bitwise unchanged.  Without it the powers are host scalars,
+        passed to each launch (or, once the pair exists, advanced there
+        unconditionally)."""
         params_grads = [(p, p.grad) for p in self._params()
                         if p.grad is not None]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
-        self.beta1_pow = np.float32(self.beta1_pow * np.float32(self.beta1))
-        self.beta2_pow = np.float32(self.beta2_pow * np.float32(self.beta2))
+        if finite is not None and self._pows is None and params_grads:
+            # filled on the device (no host-to-device copy waits here)
+            dev = params_grads[0][0].device
+            self._pows, self._betas = (
+                torch.empty(2, dtype=torch.float32, device=dev)
+                for _ in range(2))
+            for i in range(2):
+                self._pows[i] = float(self._host_pows[i])
+                self._betas[i] = (self.beta1, self.beta2)[i]
+        if self._pows is not None:
+            adv = self._pows * self._betas
+            self._pows.copy_(adv if finite is None
+                             else torch.where(finite, adv, self._pows))
+            b1p = b2p = None
+        else:
+            self._host_pows = [
+                np.float32(self._host_pows[0] * np.float32(self.beta1)),
+                np.float32(self._host_pows[1] * np.float32(self.beta2))]
+            b1p, b2p = self._host_pows
         group_of = {id(p): g for g in self.param_groups for p in g["params"]}
         for p, g in params_grads:
             group = group_of[id(p)]
@@ -163,26 +236,29 @@ class AdamW(torch.optim.Optimizer):
             decay = (self._apply_decay_fun is None
                      or self._apply_decay_fun(self._names[id(p)]))
             fused_adamw_update(
-                p, g, state["moment1"], state["moment2"], lr, self.beta1_pow,
-                self.beta2_pow, beta1=self.beta1, beta2=self.beta2,
-                eps=group["eps"],
+                p, g, state["moment1"], state["moment2"], lr, b1p, b2p,
+                beta1=self.beta1, beta2=self.beta2, eps=group["eps"],
                 wd=group["weight_decay"] if decay else 0.0, fp32_lr=fp32_lr,
-                master=state.get("master"))
+                master=state.get("master"), finite=finite, pows=self._pows)
 
     # -- the reference's state_dict --------------------------------------
     def state_dict(self):
         """The reference's keys: ``moment1_i``, ``moment2_i`` and, for a
         parameter with a master weight, ``master_i`` (i: the parameter's
         index in the list the optimizer was built from); ``aux_0`` and
-        ``aux_1``, beta1^t and beta2^t as fp32 0-d tensors; and
+        ``aux_1``, beta1^t and beta2^t as fp32 0-d tensors (on the card
+        while the device pair holds them); and
         ``LR_Scheduler`` when the rate is a scheduler."""
         sd = {}
         for i, p in enumerate(self._params()):
             for name in ("moment1", "moment2", "master"):
                 if name in self.state[p]:
                     sd[f"{name}_{i}"] = self.state[p][name]
-        sd["aux_0"] = torch.tensor(self.beta1_pow)
-        sd["aux_1"] = torch.tensor(self.beta2_pow)
+        if self._pows is not None:
+            sd["aux_0"], sd["aux_1"] = (t.clone() for t in self._pows)
+        else:
+            sd["aux_0"] = torch.tensor(self._host_pows[0])
+            sd["aux_1"] = torch.tensor(self._host_pows[1])
         if isinstance(self._learning_rate, LRScheduler):
             sd["LR_Scheduler"] = self._learning_rate.state_dict()
         return sd

@@ -275,7 +275,7 @@ def test_three_recipe_steps_match_jax(dtype):
         learning_rate=jsched, parameters=jm.parameters(), weight_decay=0.01,
         grad_clip=pt.nn.ClipGradByGlobalNorm(1.0),
         apply_decay_param_fun=_no_decay)
-    topt = AdamW(tm.named_parameters(), learning_rate=tsched,
+    topt = AdamW(parameters=tm.named_parameters(), learning_rate=tsched,
                  weight_decay=0.01, grad_clip=tnn.ClipGradByGlobalNorm(1.0),
                  apply_decay_param_fun=_no_decay)
     crit, jcrit = BertPretrainingCriterion(), jb.BertPretrainingCriterion()

@@ -9,7 +9,7 @@ advance.  Tolerances are those of the JAX package's own kernel test:
 1e-6 in fp32, 1e-2 in bf16 (the chain rounds ``beta1 * m1`` to bf16
 before adding; the kernels widen first).  Then the port's ``AdamW``
 optimizer and ``FusedTrainStep``: CPU tensors count no kernel launch, and
-O1 over fp32 weights, not ported, raises.
+O1 over fp32 weights gives the JAX fused step's losses.
 
 The master form (bf16/fp16 parameters with fp32 master weights) and the
 whole recipe -- a scheduler, ``lr_ratio``, ``apply_decay_param_fun``
@@ -32,6 +32,7 @@ import paddle_tpu as pt
 from paddle_tpu.ops.pallas_kernels.fused_adamw import (
     fused_adamw_update as jax_fused_adamw,
 )
+from paddle_tpu.optimizer import FusedTrainStep as FusedTrainStep_jax
 
 from paddle_tpu_torch import amp, nn as tnn
 from paddle_tpu_torch.ops.kernels import fused_adamw as tfw
@@ -108,7 +109,7 @@ def test_optimizer_matches_the_composed_chain_over_two_steps(shape, dtype):
                               multi_precision=False)
     tw = torch.nn.Parameter(torch.from_numpy(_f32(p0)).to(getattr(torch,
                                                                   dtype)))
-    topt = AdamW([tw], learning_rate=lr, multi_precision=False)
+    topt = AdamW(parameters=[tw], learning_rate=lr, multi_precision=False)
     for g in grads:
         (jw * pt.to_tensor(_f32(g)).astype(dtype)).sum().backward()
         jopt.step()
@@ -129,20 +130,51 @@ def test_cpu_tensors_count_no_launch():
     assert not torch.equal(p, torch.ones(8))      # updated in place
 
 
-def test_fused_step_refuses_o1_over_fp32():
-    w32 = torch.nn.Parameter(torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="O1"):
-        FusedTrainStep(lambda x: (w32 * x).sum(), AdamW([w32]),
-                       amp_level="O1")
+def _o1_loss(mod, F, x, w, b, label):
+    """``cross_entropy(linear(x, w, b), label)``: a white-list product and
+    a black-list loss, in either package."""
+    return F.cross_entropy(F.linear(x, w, b), label)
+
+
+def test_fused_step_o1_over_fp32_matches_jax():
+    """``FusedTrainStep(amp_level="O1")`` over fp32 parameters (refused
+    before this was ported): three steps of a linear layer and its loss
+    give the JAX fused step's losses (1e-3 relative: the product runs in
+    bf16 on both sides) and parameters (two rate-sized steps, AdamW's
+    sign-sized first moves); the parameters stay fp32.  O2 still
+    raises."""
+    from paddle_tpu_torch.nn import functional as tF
+    from paddle_tpu.nn import functional as jF
+
+    rng = np.random.RandomState(9)
+    x, w0 = rng.randn(8, 16).astype(np.float32), rng.randn(16, 10) * 0.3
+    b0, label = np.zeros(10, np.float32), rng.randint(0, 10, (8,))
+    jw, jb = pt.to_tensor(_f32(w0)), pt.to_tensor(b0)
+    jw.stop_gradient = jb.stop_gradient = False
+    jstep = FusedTrainStep_jax(
+        lambda: _o1_loss(pt, jF, pt.to_tensor(x), jw, jb,
+                         pt.to_tensor(label, dtype="int64")),
+        pt.optimizer.AdamW(1e-2, parameters=[jw, jb]), amp_level="O1")
+    tw = torch.nn.Parameter(torch.from_numpy(_f32(w0)))
+    tb = torch.nn.Parameter(torch.from_numpy(b0.copy()))
+    tstep = FusedTrainStep(
+        lambda: _o1_loss(torch, tF, torch.from_numpy(x), tw, tb,
+                         torch.from_numpy(label)),
+        AdamW(1e-2, parameters=[tw, tb]), amp_level="O1")
+    jl = [float(jstep()) for _ in range(3)]
+    tl = [float(tstep()) for _ in range(3)]
+    np.testing.assert_allclose(tl, jl, rtol=1e-3)
+    assert tw.dtype == torch.float32 and tw.grad is None
+    np.testing.assert_allclose(tw.detach().numpy(), _f32(jw.numpy()),
+                               rtol=0, atol=2 * 1e-2 * 3)
     with pytest.raises(ValueError, match="amp_level"):
-        FusedTrainStep(lambda x: (w32 * x).sum(), AdamW([w32]),
-                       amp_level="O2")
+        FusedTrainStep(lambda: None, AdamW(parameters=[tw]), amp_level="O2")
 
 
 def test_fused_step_runs_forward_backward_update_and_zeroes_grads():
     w = torch.nn.Parameter(torch.full((4,), 2.0, dtype=torch.bfloat16))
     step = FusedTrainStep(lambda x: (w.float() * x).sum(),
-                          AdamW([w], learning_rate=0.1,
+                          AdamW(parameters=[w], learning_rate=0.1,
                                 multi_precision=False), amp_level="O1")
     loss = step(torch.ones(4))
     assert float(loss) == 8.0 and not loss.requires_grad
@@ -240,16 +272,17 @@ def _port_adamw(tparams, how, **kw):
     added by ``add_param_group`` after the optimizer is built."""
     pairs = list(zip(NAMES, tparams))
     if how == "pairs":
-        return AdamW(pairs, **kw)
+        return AdamW(parameters=pairs, **kw)
     if how == "added":
-        opt = AdamW(pairs[:2], **kw)
+        opt = AdamW(parameters=pairs[:2], **kw)
         opt.add_param_group({"params": pairs[2:]})
         return opt
     for name, p in pairs:
         p.name = name
     if how == "bare":
-        return AdamW(tparams, **kw)
-    return AdamW([{"params": tparams[:2]}, {"params": tparams[2:]}], **kw)
+        return AdamW(parameters=tparams, **kw)
+    return AdamW(parameters=[{"params": tparams[:2]}, {"params": tparams[2:]}],
+                 **kw)
 
 
 def _recipe_pair(recipe, lr=1e-2, seed=7, how="pairs"):
@@ -412,7 +445,7 @@ def test_jax_state_dict_resumes_in_the_port():
     tparams = [torch.nn.Parameter(torch.from_numpy(
         _f32(jw.numpy())).to(torch.bfloat16)) for jw in jparams]
     tsched = _schedule(tlr, 1e-2)
-    topt = AdamW(list(zip(NAMES, tparams)), learning_rate=tsched,
+    topt = AdamW(parameters=list(zip(NAMES, tparams)), learning_rate=tsched,
                  grad_clip=tnn.ClipGradByGlobalNorm(1.0), weight_decay=0.01,
                  lr_ratio=_ratio, apply_decay_param_fun=_no_decay)
     topt.set_state_dict(sd)
@@ -457,10 +490,10 @@ def test_masters_are_made_from_what_the_optimizer_sees_when_built():
     masters (of the bf16 values); an optimizer built before it saw fp32
     parameters and keeps none, as in the reference."""
     m = torch.nn.Linear(8, 4)
-    before = AdamW(m.parameters())
+    before = AdamW(parameters=m.parameters())
     assert amp.decorate(m, level="O2") is m
     assert m.weight.dtype == torch.bfloat16
-    after = AdamW(m.parameters())
+    after = AdamW(parameters=m.parameters())
     assert not any(k.startswith("master_") for k in before.state_dict())
     sd = after.state_dict()
     assert torch.equal(sd["master_0"], m.weight.detach().float())
@@ -487,4 +520,109 @@ def test_card_tensors_launch_the_master_form_or_raise():
             tfw.fused_adamw_update(args["p"], args["g"], args["m1"],
                                    args["m2"], 1e-3, 0.9, 0.999,
                                    master=args["master"])
+    assert tfw.fused_adamw_update.launches == before
+
+
+# -- the step's finiteness flag and the device beta powers -------------------
+
+FORMS = ("float32", "bfloat16", "master")
+
+
+def _form_tensors(form, shape=(3, 257), seed=30):
+    """``(p, g, m1, m2, master)`` of a form of the update, from numpy."""
+    rng = np.random.RandomState(seed)
+    arr = [torch.from_numpy(rng.randn(*shape).astype(np.float32) * s)
+           for s in (1.0, 0.1, 0.01, 0.001)]
+    arr[3] = arr[3].abs()
+    if form == "float32":
+        return arr + [None]
+    if form == "bfloat16":
+        return [t.to(torch.bfloat16) for t in arr] + [None]
+    p, g = (t.to(torch.bfloat16) for t in arr[:2])
+    return [p, g, arr[2], arr[3], arr[0].clone()]
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_a_false_flag_writes_nothing(form):
+    """``finite=False``: parameters, moments and master stay bitwise as
+    they were, with host or device beta powers."""
+    for pows in (None, torch.tensor([0.9, 0.999])):
+        p, g, m1, m2, master = _form_tensors(form)
+        kept = [t for t in (p, m1, m2, master) if t is not None]
+        before = [t.clone() for t in kept]
+        g.fill_(float("inf"))
+        tfw.fused_adamw_update(p, g, m1, m2, 1e-3, 0.9, 0.999,
+                               master=master, finite=torch.tensor(False),
+                               pows=pows)
+        assert all(torch.equal(a, b) for a, b in zip(kept, before))
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_a_true_flag_and_device_powers_equal_the_host_scalars(form):
+    """``finite=True`` with beta1^t and beta2^t read from a device pair
+    gives the host-scalar update bit for bit over three steps (the kernel
+    forms ``1 - beta^t`` in fp32 as ``adamw_scalars`` does)."""
+    host, dev = _form_tensors(form), _form_tensors(form)
+    pows = torch.ones(2)
+    for (b1p, b2p), g in zip(_powers(3), (0.1, -0.2, 0.3)):
+        pows.mul_(torch.tensor([B1, B2], dtype=torch.float32))
+        assert (np.float32(pows[0]), np.float32(pows[1])) == (b1p, b2p)
+        for ts, kw in ((host, {}), (dev, dict(finite=torch.tensor(True),
+                                              pows=pows))):
+            ts[1].mul_(g)
+            tfw.fused_adamw_update(ts[0], ts[1], ts[2], ts[3], 1e-3,
+                                   None if kw else b1p,
+                                   None if kw else b2p, master=ts[4], **kw)
+    for a, b in zip(host, dev):
+        assert a is None or torch.equal(a, b)
+
+
+def test_optimizer_keeps_the_powers_on_the_device_once_flagged():
+    """``AdamW.step(finite=)``: the beta powers move into a device pair
+    that advances only on a true flag; a false step changes nothing, and
+    the finite steps give the host-scalar optimizer's parameters bit for
+    bit.  ``state_dict`` reads the pair as ``aux_0``/``aux_1`` and
+    ``set_state_dict`` writes it."""
+    rng = np.random.RandomState(31)
+    w0 = rng.randn(5, 7).astype(np.float32)
+    grads = [rng.randn(5, 7).astype(np.float32) for _ in range(3)]
+    ref = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    got = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    ropt, gopt = (AdamW(1e-2, parameters=[p]) for p in (ref, got))
+    for i, g in enumerate(grads):
+        ref.grad = torch.from_numpy(g)
+        ropt.step()
+        if i == 1:                       # a skipped step in between
+            got.grad = torch.full_like(got, float("nan"))
+            snap = got.detach().clone()
+            gopt.step(finite=torch.tensor(False))
+            assert torch.equal(got.detach(), snap)
+            assert gopt._pows is not None
+        got.grad = torch.from_numpy(g)
+        gopt.step(finite=torch.tensor(True))
+    assert torch.equal(ref.detach(), got.detach())
+    assert (gopt.beta1_pow, gopt.beta2_pow) == (ropt.beta1_pow,
+                                                ropt.beta2_pow)
+    sd = gopt.state_dict()
+    assert float(sd["aux_0"]) == float(ropt.beta1_pow)
+    other = AdamW(1e-2, parameters=[torch.nn.Parameter(torch.zeros(5, 7))])
+    other.step(finite=torch.tensor(True))        # no grads: no pair yet
+    other.set_state_dict(sd)
+    assert (other.beta1_pow, other.beta2_pow) == (gopt.beta1_pow,
+                                                  gopt.beta2_pow)
+
+
+def test_card_flag_and_powers_are_checked_before_any_launch():
+    """Off the CPU a flag that is not a 0-d bool, or powers that are not a
+    (2,) fp32 tensor, raise before anything is built or launched (meta
+    tensors stand in for the card's)."""
+    meta = dict(device="meta")
+    p = torch.empty(8, **meta)
+    before = tfw.fused_adamw_update.launches
+    for kw in (dict(finite=torch.empty((), **meta)),
+               dict(finite=torch.empty(2, dtype=torch.bool, **meta)),
+               dict(pows=torch.empty(3, **meta)),
+               dict(pows=torch.empty(2, dtype=torch.bfloat16, **meta))):
+        with pytest.raises(ValueError, match="fused_adamw kernel"):
+            tfw.fused_adamw_update(p, p, p, p, 1e-3, 0.9, 0.999, **kw)
     assert tfw.fused_adamw_update.launches == before

@@ -137,7 +137,8 @@ def test_three_train_steps_match_jax(state, dtype, recompute_interval):
     tm = _port_model(state, dtype, recompute_interval=recompute_interval)
     tstep = FusedTrainStep(
         lambda i, l: tm(i, labels=l),
-        AdamW(tm.parameters(), learning_rate=LR, multi_precision=False),
+        AdamW(parameters=tm.parameters(), learning_rate=LR,
+              multi_precision=False),
         amp_level=amp)
     batches = _batches(STEPS, seed=2)
     jl = [float(jstep(_jt(i), _jt(l))) for i, l in batches]
@@ -469,8 +470,8 @@ def test_kept_share_is_within_a_binomial_bound(state, monkeypatch, p):
     seen = []
     drop = tgpt.dropout
 
-    def spy(x, rate, training, gen):
-        out = drop(x, rate, training, gen)
+    def spy(x, rate, **kw):
+        out = drop(x, rate, **kw)
         if rate > 0:
             if x.dim() == 4:                       # probabilities
                 live = torch.ones(x.shape[-2:], dtype=torch.bool).tril()
@@ -512,3 +513,149 @@ def test_pretraining_criterion_matches_jax(mask):
     np.testing.assert_allclose(float(got), want, rtol=1e-6)
     if mask == "zeros":
         assert float(got) == 0.0
+
+
+# -- AMP O1 over fp32 weights with the gradient scaler ----------------------
+
+O1_STEPS = 5
+
+
+def _o1_pair(state, scale=2.0 ** 15, **kw):
+    """The JAX and the port's ``FusedTrainStep(amp_level="O1", scaler=)``
+    over the same fp32 weights, ``AdamW(LR)``."""
+    from paddle_tpu_torch import amp as tamp
+
+    jm = _jax_model(state, recompute_interval=1, **kw)
+    jsc = pt.amp.GradScaler(enable=True, init_loss_scaling=scale)
+    jstep = pt.optimizer.FusedTrainStep(
+        lambda i, l: jm(i, labels=l),
+        pt.optimizer.AdamW(learning_rate=LR, parameters=jm.parameters()),
+        scaler=jsc, amp_level="O1", amp_dtype="bfloat16")
+    tm = _port_model(state, recompute_interval=1, **kw)
+    topt = AdamW(LR, parameters=tm.parameters())
+    tsc = tamp.GradScaler(enable=True, init_loss_scaling=scale,
+                          device="cpu")
+    tstep = FusedTrainStep(lambda i, l: tm(i, labels=l), topt, scaler=tsc,
+                           amp_level="O1")
+    return (jm, jstep, jsc), (tm, tstep, tsc, topt)
+
+
+def test_o1_scaler_steps_match_jax(state):
+    """Five O1 steps over fp32 weights with an enabled scaler: the JAX
+    fused step's losses within 1e-3 (bf16 products rounded at the same
+    points, summed in another order), then its parameters within two
+    rate-sized steps each (AdamW's sign-sized first moves where a
+    gradient is ~0), fp32 throughout."""
+    (jm, jstep, jsc), (tm, tstep, tsc, _) = _o1_pair(state)
+    batches = _batches(O1_STEPS, seed=21)
+    jl = [float(jstep(_jt(i), _jt(l))) for i, l in batches]
+    tl = [float(tstep(torch.from_numpy(i), torch.from_numpy(l)))
+          for i, l in batches]
+    np.testing.assert_allclose(tl, jl, rtol=0, atol=1e-3)
+    assert tstep.last_step_applied and tstep.dispatch_count == O1_STEPS
+    want = {k: np.asarray(v.numpy(), np.float32)
+            for k, v in jm.state_dict().items()}
+    for name, p in tm.state_dict().items():
+        assert p.dtype == torch.float32
+        np.testing.assert_allclose(p.numpy(), want[name], rtol=1e-5,
+                                   atol=2 * LR * O1_STEPS, err_msg=name)
+    assert float(tsc._scale) == float(np.asarray(jsc._scale._value))
+
+
+def test_a_forced_overflow_leaves_every_state_bitwise(state):
+    """One step whose word-embedding gradient a hook makes non-finite (as
+    an overflow of the scaled gradients does): every parameter, moment and
+    beta power stays bitwise as it was and the scale halves -- the JAX
+    scaler's rule for the same flag; the next steps apply.  (A scale of
+    3e38 alone does not overflow this model's fp32 gradients: the largest
+    unscaled one is ~0.16.)"""
+    (_, _, jsc), (tm, tstep, tsc, topt) = _o1_pair(state)
+    batches = _batches(3, seed=22)
+    i, l = batches[0]
+    tstep(torch.from_numpy(i), torch.from_numpy(l))
+    snap = [t.clone() for p in tm.parameters()
+            for t in (p.detach(), topt.state[p]["moment1"],
+                      topt.state[p]["moment2"])]
+    pows, scale = topt._pows.clone(), float(tsc._scale)
+    hook = tm.embeddings.word_embeddings.weight.register_hook(
+        lambda g: g * float("inf"))
+    i, l = batches[1]
+    tstep(torch.from_numpy(i), torch.from_numpy(l))
+    hook.remove()
+    assert not tstep.last_step_applied
+    now = [t for p in tm.parameters()
+           for t in (p.detach(), topt.state[p]["moment1"],
+                     topt.state[p]["moment2"])]
+    assert all(torch.equal(a, b) for a, b in zip(snap, now))
+    assert torch.equal(topt._pows, pows)
+    jsc._found_inf = True
+    jsc.update()
+    assert float(tsc._scale) == scale / 2 == jsc.get_loss_scaling()
+    i, l = batches[2]
+    tstep(torch.from_numpy(i), torch.from_numpy(l))
+    assert tstep.last_step_applied
+    assert not torch.equal(topt._pows, pows)
+
+
+# -- recompute policies -------------------------------------------------------
+
+def _remat_losses(state, interval, policy, **kw):
+    tm = _port_model(state, recompute_interval=interval,
+                     recompute_policy=policy, **kw)
+    step = FusedTrainStep(lambda i, l: tm(i, labels=l),
+                          AdamW(LR, parameters=tm.parameters()), **(
+                              dict(amp_level="O1") if kw.pop("o1", False)
+                              else {}))
+    return [float(step(torch.from_numpy(i), torch.from_numpy(l)))
+            for i, l in _batches(3, seed=23)]
+
+
+@pytest.mark.parametrize("interval,policy", [(2, "full"), (2, "dots"),
+                                             (1, "dots"),
+                                             (1, "dots_saveable")])
+def test_recompute_policies_give_the_same_losses(state, interval, policy):
+    """The port of ``tests/test_train_perf.py::TestRematInterval``: what a
+    recomputed group keeps changes memory, never math -- three steps'
+    losses equal per-block full recompute exactly."""
+    assert (_remat_losses(state, interval, policy)
+            == _remat_losses(state, 1, "full"))
+
+
+def test_dots_keeps_the_products_and_recomputes_the_rest(state):
+    """Under "dots" the backward's recompute runs no 2-D product (their
+    outputs were kept: 4 a block fewer than under "full"), and with
+    dropout it redraws the same masks: the gradients equal full
+    recompute's bit for bit."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in (torch.ops.aten.mm.default,
+                               torch.ops.aten.addmm.default)
+            return func(*args, **(kwargs or {}))
+
+    (ids, labels), = _batches(1, seed=24)
+    counts, grads = {}, {}
+    for policy in ("full", "dots"):
+        torch.manual_seed(0)
+        tm = _port_model(state, recompute_interval=1, recompute_policy=policy,
+                         hidden_dropout=0.1, attention_dropout=0.1)
+        loss = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+        with Count() as c:
+            loss.backward()
+        counts[policy] = c.n
+        grads[policy] = {n: p.grad for n, p in tm.named_parameters()}
+    assert counts["full"] - counts["dots"] == 4 * 2
+    for name, g in grads["full"].items():
+        assert torch.equal(g, grads["dots"][name]), name
+
+
+def test_an_unknown_recompute_policy_raises_as_jax_does():
+    with pytest.raises(ValueError, match="remat policy"):
+        jax_gpt_tiny(recompute_policy="dot")
+    with pytest.raises(ValueError, match="remat policy"):
+        gpt_tiny(recompute_policy="dot")

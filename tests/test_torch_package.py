@@ -205,9 +205,9 @@ class _Layered(torch.nn.Module):
 REFUSALS = {
     "engine mesh": (lambda: _engine(mesh=object()), "sharded"),
     "engine role": (lambda: _engine(role="prefill"), "disaggregated"),
-    "fused_train_step amp O1 over fp32": (
-        lambda: FusedTrainStep(lambda: None, AdamW(_params()),
-                               amp_level="O1"), "training"),
+    "gpt n_micro": (
+        lambda: GPTStackedForPretraining(gpt_tiny(), 2, device="cpu"),
+        "training"),
     "quantize_for_serving layered": (lambda: quantize_for_serving(_Layered()),
                                      "quantized serving"),
 }
@@ -228,6 +228,9 @@ PORTED = {
     "engine backoff_max_s": (lambda: _engine_step(backoff_max_s=5.0), 7,
                              "watchdog"),
     "gpt forward lora": (_gpt_paged_lora, 8, "lora"),
+    "fused_train_step amp O1 over fp32": (
+        lambda: FusedTrainStep(lambda: None, AdamW(parameters=_params()),
+                               amp_level="O1"), 2, "training"),
     "engine lora": (lambda: _engine_step(lora="pool"), 8, "lora"),
 }
 

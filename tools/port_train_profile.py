@@ -12,6 +12,9 @@ draws and the rest.  Workloads (``--workload``, repeatable):
 - ``gpt``: phase 6, GPT-3 1.3B at full width and depth with random bf16
   weights, batch 8 x seq 1024, recompute every block, AdamW with bf16
   moments, dropout 0 (the default);
+- ``gpt_o1``: phase 31, the same model and shape with fp32 weights under
+  ``auto_cast`` O1 bf16, an enabled dynamic ``GradScaler`` and fp32
+  AdamW moments (``FusedTrainStep(scaler=, amp_level="O1")``);
 - ``gpt_dropout``: phase 22, the same with the config's dropout 0.1
   (attention on the plain causal route); ``gpt_dropout_flash``: hidden
   dropout 0.1, attention dropout 0 (the flash kernels);
@@ -61,6 +64,14 @@ def _workload(port, name):
     if name == "gpt":
         _, step, batches = cs.train_setup(port)
         return step, batches, gpt_tokens
+    if name == "gpt_o1":
+        import torch
+
+        _, _, _, step = cs.o1_train_setup(port)
+        vocab = port["gpt_1p3b"]().vocab_size
+        batches = [tuple(torch.from_numpy(a).to(cs.DEVICE) for a in b)
+                   for b in cs.o1_host_batches(vocab, 4)]
+        return step, batches, gpt_tokens
     if name in ("gpt_dropout", "gpt_dropout_flash"):
         p = 0.0 if name.endswith("flash") else 0.1
         _, step, batches = cs.train_dropout_setup(port, p)
@@ -70,7 +81,7 @@ def _workload(port, name):
     return step, [batch], cs.ENC_BATCH * cs.ENC_SEQ
 
 
-WORKLOADS = ("gpt", "gpt_dropout", "gpt_dropout_flash", "bert",
+WORKLOADS = ("gpt", "gpt_o1", "gpt_dropout", "gpt_dropout_flash", "bert",
              "bert_flash")
 
 
