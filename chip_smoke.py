@@ -293,7 +293,50 @@ result line:
    another seed and 3 steps: losses and parameters bit for bit; then a
    SIGTERM to this process under ``PreemptionHandler`` saves at the next
    step boundary and raises ``GracefulExit``, and that checkpoint is the
-   newest.
+   newest;
+35. layered generate -- the layered GPT (``GPTForPretraining``: per-layer
+   modules, ``Linear`` weights, a per-layer cache) at GPT-3 1.3B's width
+   and depth, random bf16 weights: phase 9's workload (``generate_setup``,
+   batch 8, prompt 200, 64 new tokens, no host sync): exactly 24 flash
+   forward and 24 x 63 decode launches; printed beside phase 9's stacked
+   numbers; its greedy tokens under the parity rule against a stacked GPT
+   carrying the same weights (``stacked_twin``: the layers' tensors
+   stacked on the layer axis); then fp32 at 2 layers of full width
+   (TF32 off): the twin's tokens exactly;
+36. layered serve -- phase 3's engine and traffic over phase 35's model
+   and over its stacked twin in turns (layered, stacked, stacked,
+   layered; a fresh engine each): 24 ragged launches every fused step,
+   tokens/s, TTFT and ITL p50/p99 of each run, tokens under the parity
+   rule; then phase 10's
+   paged step without a plan over the
+   layered model against phase 35's logits (24 paged launches a step);
+37. Predictor -- ``inference.Config`` over phase 35's model: the decode
+   mode equals ``model.generate()`` token for token (24 flash and 24 x
+   15 decode launches); a ``PredictorPool`` of 2 driven from 2 threads
+   gives the serial rows; the serving mode equals
+   ``ServingEngine.generate_batch`` on the same 8 rows of 120;
+38. layered int8 -- phase 35's model quantized by
+   ``quantize_for_serving`` (``Int8Linear``): phase 14's int8 paged step
+   (24 int8 paged launches a step, logits within ``INT8_GEN_NORM`` of
+   phase 35's), phase 36's serve from an int8 pool (24 int8 ragged
+   launches a step, every per-layer scale finite), and the layered int8
+   engine and paged path card vs CPU on gpt_tiny(hidden 128, 2 heads);
+39. layered paths -- 2 layers of GPT-3 1.3B's width in fp32, the card
+   against the CPU (``LAYERED_CPU_REQUESTS`` requests of
+   ``LAYERED_CPU_PROMPT`` prompt tokens and ``LAYERED_CPU_NEW`` new ones;
+   request states equal, tokens under the
+   fp32 parity rule): LoRA over a pool in the layered layout (the
+   default), speculation with ``truncated_draft(model, 1)``, the prefix
+   cache over a 128-token shared head (equal hit counts), the watchdog
+   (a persistent non-intact exception: one recovery and one rebuild of
+   the per-layer pool; a NaN on slot 0; equal fault counts);
+40. layered train -- 2 layers of GPT-3 1.3B's width, bf16, dropout 0,
+   one forward and backward at 8 x 1024 through
+   ``GPTPretrainingCriterion``: exactly 2 flash forward, 2 dK/dV and 2
+   dQ launches, finite loss and gradients; then at batch
+   ``LAYERED_TRAIN_CPU_BATCH`` the card's loss and gradients against the
+   CPU's in fp32 from the same weights (``TRAIN_LOSS_REL``,
+   ``TRAIN_GRAD_NORM``).
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -305,8 +348,10 @@ backward, and the forward's time at BERT's attention; the ragged row its
 time, plain time and bound at the mixed served shape; the AdamW master
 form's row its times at BERT-base and, beside them, at GPT-3 1.3B; the
 fp32 form's row, launched by phase 31, its time with the flag and the
-library's with ``found_inf``; the flash rows their launches on phases 6
-and 31), and as the last line
+library's with ``found_inf``; the flash rows their launches on phases 6,
+31 and 40, the forward's also on 35 and 37; the decode and paged rows,
+bf16 and int8, theirs on the stacked and the layered GPT's paths), and
+as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 """
 from __future__ import annotations
@@ -427,10 +472,11 @@ def import_port():
     """Everything of the port this script drives (kept in one place so a
     test can check the imports without a card)."""
     import torch
-    from paddle_tpu_torch import amp, checkpoint, incubate
+    from paddle_tpu_torch import amp, checkpoint, incubate, inference
     from paddle_tpu_torch import serving
     from paddle_tpu_torch.models import BertForPretraining, BertModel, \
-        BertPretrainingCriterion, GPTStackedForPretraining, bert_base, \
+        BertPretrainingCriterion, GPTForPretraining, \
+        GPTPretrainingCriterion, GPTStackedForPretraining, bert_base, \
         bert_tiny, gpt_1p3b, gpt_tiny, truncated_draft
     from paddle_tpu_torch.io import DevicePrefetcher
     from paddle_tpu_torch.nn import clip
@@ -458,7 +504,9 @@ def import_port():
                 ServingEngine=ServingEngine,
                 SpeculativeEngine=SpeculativeEngine, serving=serving,
                 truncated_draft=truncated_draft, checkpoint=checkpoint,
-                DevicePrefetcher=DevicePrefetcher)
+                DevicePrefetcher=DevicePrefetcher, Layered=GPTForPretraining,
+                Criterion=GPTPretrainingCriterion,
+                Int8Linear=qi8.Int8Linear, inference=inference)
 
 
 def _check(cond, msg):
@@ -867,16 +915,17 @@ SERVE_REQUESTS = 16
 SERVE_NEW_TOKENS = 32
 
 
-def serve_engine(port, kv_dtype="bfloat16", weight_dtype=None):
-    """GPT-3 1.3B at full width with random bf16 weights (seed 0), a pool
-    of ``kv_dtype`` (bf16, or int8 with its scales), the weights quantized
-    to int8 with ``weight_dtype="int8"``, 8 slots, page 128, max_context
-    512, warmed up by one request (cuBLAS handles and allocator pools).
-    Returns ``(engine, rng)``: the workload draws its prompts from
-    ``rng``."""
+def serve_engine(port, kv_dtype="bfloat16", weight_dtype=None, model=None):
+    """GPT-3 1.3B at full width with random bf16 weights (seed 0; or
+    ``model``, another GPT-3 1.3B), a pool of ``kv_dtype`` (bf16, or int8
+    with its scales), the weights quantized to int8 with
+    ``weight_dtype="int8"``, 8 slots, page 128, max_context 512, warmed up
+    by one request (cuBLAS handles and allocator pools).  Returns
+    ``(engine, rng)``: the workload draws its prompts from ``rng``."""
     cfg = port["gpt_1p3b"]()
     _check(cfg.num_layers == SERVE_LAYERS, "gpt_1p3b has 24 layers")
-    model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    if model is None:
+        model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
     eng = port["ServingEngine"](model, num_slots=8, page_size=128,
                                 max_context=512, kv_dtype=kv_dtype,
                                 weight_dtype=weight_dtype)
@@ -1836,15 +1885,17 @@ def phase_decode_kernels(port):
 GEN_KW = dict(max_seq_len=GEN_MAX_SEQ, cache_dtype="bfloat16")
 
 
-def generate_setup(port):
-    """GPT-3 1.3B at full width and depth with random bf16 weights (seed
-    0) and GEN_BATCH fixed random prompts of GEN_PROMPT tokens on the
-    card, warmed up by one short ``generate`` (cuBLAS handles, the
-    allocator, the bf16 cache).  Returns ``(model, ids)``."""
+def generate_setup(port, cls="GPT"):
+    """GPT-3 1.3B at full width and depth (``port[cls]``: the stacked GPT,
+    or ``"Layered"``) with random bf16 weights (seed 0) and GEN_BATCH
+    fixed random prompts of GEN_PROMPT tokens on the card, warmed up by
+    one short ``generate`` (cuBLAS handles, the allocator, the bf16
+    cache).  Returns ``(model, ids)``."""
     torch = port["torch"]
     cfg = port["gpt_1p3b"]()
     _check(cfg.num_layers == SERVE_LAYERS, "gpt_1p3b has 24 layers")
-    model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    model = port[cls](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    model.eval()
     rng = np.random.RandomState(9)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
                                        (GEN_BATCH, GEN_PROMPT))).to(DEVICE)
@@ -1909,7 +1960,9 @@ def phase_generate(port):
           f"from one seed: equal {same}, in vocab {in_vocab}")
     _check(same and in_vocab, "sampled generate not reproducible / in vocab")
     model.clear_decode_cache()
-    return model, ids, out, logits, launches["decode"]
+    stats = dict(tps=GEN_BATCH * GEN_NEW / wall, prefill_ms=1e3 * prefill_s,
+                 decode_ms=decode_ms)
+    return model, ids, out, logits, launches["decode"], stats
 
 
 # ---------------------------------------------------------------------------
@@ -4296,7 +4349,8 @@ def phase_lora(port, model, fp32_model):
     cfg = model.config
     vocab = cfg.vocab_size
     pool = s.LoRAAdapterPool(cfg, num_adapter_pages=LORA_ADAPTERS,
-                             rank=LORA_RANK, dtype="bfloat16", device=DEVICE)
+                             rank=LORA_RANK, dtype="bfloat16", stacked=True,
+                             device=DEVICE)
     names = [f"tenant{i}" for i in range(LORA_ADAPTERS)]
     t0 = time.perf_counter()
     for i, name in enumerate(names):
@@ -4383,7 +4437,8 @@ def phase_lora(port, model, fp32_model):
     # against the base model
     fcfg = fp32_model.config
     fpool = s.LoRAAdapterPool(fcfg, num_adapter_pages=LORA_ADAPTERS,
-                              rank=LORA_RANK, dtype="float32", device=DEVICE)
+                              rank=LORA_RANK, dtype="float32", stacked=True,
+                              device=DEVICE)
     for i, name in enumerate(names):
         fpool.register(name, s.random_adapter(
             fcfg, LORA_RANK, np.random.RandomState(390 + i)))
@@ -4948,6 +5003,517 @@ def phase_resume(port):
                 step_ms_while_writing=[1e3 * t for t in times])
 
 
+# ---------------------------------------------------------------------------
+# phases 35-40: the layered GPT (GPTForPretraining) and the Predictor
+# ---------------------------------------------------------------------------
+
+# the stacked decoder's slab of each layered parameter (layer_{i}.<key>)
+STACKED_OF_LAYERED = {
+    "ln1_g": "ln1.weight", "ln1_b": "ln1.bias",
+    "qkv_w": "attn.qkv_proj.weight", "qkv_b": "attn.qkv_proj.bias",
+    "proj_w": "attn.out_proj.weight", "proj_b": "attn.out_proj.bias",
+    "ln2_g": "ln2.weight", "ln2_b": "ln2.bias",
+    "fc1_w": "mlp.fc1.weight", "fc1_b": "mlp.fc1.bias",
+    "fc2_w": "mlp.fc2.weight", "fc2_b": "mlp.fc2.bias"}
+# phase 39 at 2 layers of GPT-3 1.3B's width, checked against the CPU:
+# the requests, their prompt tokens and the new tokens each CPU run
+# serves (a cut of phase 3's traffic, so the CPU halves take seconds)
+LAYERED_CPU_REQUESTS, LAYERED_CPU_PROMPT, LAYERED_CPU_NEW = 4, 48, 8
+# phase 40: bf16 on the card against fp32 on the CPU, from the same bf16
+# weights.  bf16 keeps 8 bits: each rounded activation, product output
+# and attention probability carries up to 2^-9 relative error, of both
+# signs, summed over thousands of terms; two layers and the head move the
+# mean loss by ~1e-3 relative and a parameter's gradient, which also
+# passes the bf16 rounding of dP/dS in the flash backward and of every
+# product output, by ~1e-2 of its norm.  Held at ~10x and ~6x:
+# |loss_card - loss_cpu| <= TRAIN_LOSS_REL |loss_cpu|, and for every
+# parameter ||g_card - g_cpu|| <= TRAIN_GRAD_NORM ||g_cpu||
+TRAIN_LOSS_REL, TRAIN_GRAD_NORM = 2.0 ** -7, 2.0 ** -4
+LAYERED_TRAIN_CPU_BATCH = 1
+
+
+def stacked_twin(port, layered):
+    """A stacked GPT carrying ``layered``'s weights, on its device and in
+    its dtype: each decoder slab is its layers' tensors stacked on the
+    layer axis; the embeddings and the final LayerNorm are copied."""
+    torch = port["torch"]
+    cfg = layered.config
+    twin = port["GPT"](cfg, device=layered.device, dtype=layered.dtype)
+    sd = layered.state_dict()
+    with torch.no_grad():
+        for slab, key in STACKED_OF_LAYERED.items():
+            getattr(twin.decoder, slab).copy_(torch.stack(
+                [sd[f"gpt.layer_{i}.{key}"] for i in range(cfg.num_layers)]))
+        for name, p in twin.named_parameters():
+            if not name.startswith("decoder."):
+                p.copy_(sd["gpt." + name])
+    twin.eval()
+    return twin
+
+
+def _layered(port, cfg, dtype, seed, device=None):
+    m = port["Layered"](cfg, device=device or DEVICE, dtype=dtype, seed=seed)
+    m.eval()
+    return m
+
+
+def phase_layered_generate(port, stacked_gen):
+    """Phase 35; ``stacked_gen``: phase 9's numbers, printed beside."""
+    torch = port["torch"]
+    t0 = time.perf_counter()
+    model, ids = generate_setup(port, "Layered")
+    cfg = model.config
+    t1 = time.perf_counter()
+    model.generate(ids, 1, **GEN_KW)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    print(f"[layered_generate] gpt_1p3b layered bf16 set-up and warm-up "
+          f"{t1 - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(port)
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, logits = model.generate(ids, GEN_NEW, return_logits=True,
+                                     **GEN_KW)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = _launch_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    _check(tuple(out.shape) == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
+           and bool(torch.isfinite(logits).all()),
+           "layered generate: output shape / logits not finite")
+    _check(launches["fwd"] == L and launches["decode"] == L * (GEN_NEW - 1)
+           and launches["paged"] == 0 and launches["ragged"] == 0,
+           f"layered generate launches {launches}, expected flash forward "
+           f"{L} and decode {L * (GEN_NEW - 1)}")
+    decode_ms = 1e3 * (wall - prefill_s) / (GEN_NEW - 1)
+    print(f"[layered_generate] batch {GEN_BATCH} prompt {GEN_PROMPT} + "
+          f"{GEN_NEW} new tokens (greedy, return_logits, no host sync): "
+          f"{1e3 * wall:.2f} ms, prefill {1e3 * prefill_s:.2f} ms, mean "
+          f"decode {decode_ms:.3f} ms per token (host clock), "
+          f"{GEN_BATCH * GEN_NEW / wall:.1f} tokens/s (stacked, phase 9: "
+          f"{stacked_gen['tps']:.1f} tokens/s, prefill "
+          f"{stacked_gen['prefill_ms']:.2f} ms, decode "
+          f"{stacked_gen['decode_ms']:.3f} ms); launches {launches}; peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+    # the stacked model carrying the same weights: bf16 at full depth
+    # under the parity rule
+    twin = stacked_twin(port, model)
+    want = twin.generate(ids, GEN_NEW, **GEN_KW)
+    rel = None
+    with torch.no_grad():
+        cache = twin.new_kv_cache(GEN_BATCH, GEN_MAX_SEQ)
+        tl = twin._cached_lm_logits(out[:, :GEN_PROMPT], cache, 0)[:, -1]
+        rel = ((logits[:, 0] - tl.float()).norm() / tl.float().norm()).item()
+    print(f"[layered_generate] bf16 prefill logits, layered vs stacked "
+          f"twin: relative norm {rel:.4g}")
+    _parity(port, "layered generate bf16 vs the stacked twin",
+            list(out.cpu().numpy()), list(want.cpu().numpy()), model,
+            GAP_BOUND["bfloat16"], "bfloat16")
+    del twin, cache
+    model.clear_decode_cache()
+    torch.cuda.empty_cache()
+    # fp32 with TF32 off at 2 layers of full width: tokens equal exactly
+    small = _layered(port, port["gpt_1p3b"](num_layers=2), "float32", 1)
+    stwin = stacked_twin(port, small)
+    kw = dict(max_seq_len=GEN_MAX_SEQ, cache_dtype="float32")
+    got = small.generate(ids, GEN_NEW, **kw).cpu().numpy()
+    want = stwin.generate(ids, GEN_NEW, **kw).cpu().numpy()
+    same = np.array_equal(got, want)
+    print(f"[layered_generate] fp32 2 layers: greedy tokens equal to the "
+          f"stacked twin's: {same}")
+    _check(same, "layered fp32 generate differs from the stacked twin")
+    del small, stwin
+    torch.cuda.empty_cache()
+    return model, ids, out, logits, launches
+
+
+def phase_layered_serve(port, model, ids, out, logits):
+    """Phase 36: phase 3's engine and traffic over ``model`` (phase 35's)
+    and over its stacked twin, in turns (layered, stacked, stacked,
+    layered: the host-bound step is noisy, and the first run of a process
+    pays for allocator growth); then phase 10's paged step without a plan
+    against phase 35's logits.  Each run is a fresh engine (phase 3's,
+    warmed up by one request).  Returns the layered model's ragged
+    launches (first run), the paged launches and every run's numbers."""
+    torch = port["torch"]
+    models = {"layered": model, "stacked": stacked_twin(port, model)}
+    runs = {"layered": [], "stacked": []}
+    for name in ("layered", "stacked", "stacked", "layered"):
+        e, r = serve_engine(port, model=models[name])
+        fused0 = e.metrics()["fused_steps"]
+        _reset_launches(port)
+        per_step = []
+        reqs, step_s, dt = serve_workload(port, e, r, per_step)
+        counts = _launch_counts(port)
+        m = e.metrics()
+        fused = m["fused_steps"] - fused0
+        tokens = sum(len(q.tokens) for q in reqs)
+        slo = m["slo"]
+        runs[name].append(dict(reqs=reqs, launches=counts["ragged"],
+                               tps=tokens / dt))
+        print(f"[layered_serve] {name} run {len(runs[name])}: "
+              f"{len(reqs)} requests DONE, {tokens} tokens in {dt:.3f} s: "
+              f"{tokens / dt:.1f} tokens/s; {fused} fused steps, mean step "
+              f"{1e3 * float(np.mean(step_s)):.2f} ms (host clock); ttft "
+              f"p50 {1e3 * slo['ttft']['p50']:.1f} p99 "
+              f"{1e3 * slo['ttft']['p99']:.1f} ms, itl p50 "
+              f"{1e3 * slo['itl']['p50']:.2f} p99 "
+              f"{1e3 * slo['itl']['p99']:.2f} ms; ragged launches "
+              f"{counts['ragged']}")
+        _check(fused == len(per_step) and set(per_step) == {SERVE_LAYERS}
+               and counts["ragged"] == fused * SERVE_LAYERS
+               and not any(v for k, v in counts.items() if k != "ragged"),
+               f"layered serve {name}: launches per step "
+               f"{sorted(set(per_step))}, other kernels {counts}")
+        e.close()
+    for i in range(2):
+        _parity(port, f"layered serve bf16 vs the stacked twin, run {i + 1}",
+                [q.output_ids() for q in runs["layered"][i]["reqs"]],
+                [q.output_ids() for q in runs["stacked"][i]["reqs"]], model,
+                GAP_BOUND["bfloat16"], "bfloat16")
+    del models
+    torch.cuda.empty_cache()
+    paged = phase_paged(port, model, ids, out, logits)
+    return runs["layered"][0]["launches"], paged, runs
+
+
+def phase_layered_int8(port, model, ids, out, logits):
+    """Phase 38: phase 14's int8 paged step on ``model`` (phase 35's,
+    quantized here by ``quantize_for_serving``: ``Int8Linear``), phase
+    36's serve from an int8 pool over it, and the layered int8 engine and
+    paged path card vs CPU at gpt_tiny(hidden 128, 2 heads) (phase 15's
+    check)."""
+    torch = port["torch"]
+    port["qi8"].quantize_for_serving(model)
+    _check(model.weight_int8 and isinstance(model.gpt.layer_0.mlp.fc1,
+                                            port["Int8Linear"]),
+           "layered int8: quantize_for_serving left a Linear")
+    paged = phase_paged_int8(port, model, ids, out, logits)
+    eng, rng = serve_engine(port, "int8", "int8", model=model)
+    fused0 = eng.metrics()["fused_steps"]
+    _reset_launches(port)
+    per_step = []
+    reqs, step_s, dt = serve_workload(port, eng, rng, per_step)
+    counts = _launch_counts(port)
+    fused = eng.metrics()["fused_steps"] - fused0
+    scales = list(eng.cache.k_scale) + list(eng.cache.v_scale)
+    tokens = sum(len(r.tokens) for r in reqs)
+    print(f"[layered_int8] serve, int8 pool and Int8Linear weights: "
+          f"{tokens} tokens in {dt:.3f} s: {tokens / dt:.1f} tokens/s; "
+          f"{fused} fused steps, mean step "
+          f"{1e3 * float(np.mean(step_s)):.2f} ms (host clock); int8 "
+          f"ragged launches {counts['ragged']}; {len(scales)} per-layer "
+          f"scale tensors")
+    _check(set(per_step) == {SERVE_LAYERS} and fused == len(per_step)
+           and not any(v for k, v in counts.items() if k != "ragged")
+           and all(bool(torch.isfinite(t).all()) for t in scales),
+           f"layered int8 serve: launches per step {sorted(set(per_step))}"
+           f", other kernels {counts}, or non-finite scales")
+    ragged = counts["ragged"]
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    # card vs CPU: the layered int8 engine and paged path on both
+    cfg = port["gpt_tiny"](hidden_size=128, num_heads=2)
+    card, cpu = _pair(port, cfg, 6)
+    prompts = [np.random.RandomState(6).randint(0, cfg.vocab_size, (s,))
+               for s in (4, 17, 7, 21, 11, 5)]
+    kw = dict(num_slots=2, page_size=16, max_context=64, kv_dtype="int8",
+              weight_dtype="int8", prefill_token_budget=6)
+    _reset_launches(port)
+    outs, pg = [], []
+    for m in (cpu, card):
+        outs.append(port["ServingEngine"](m, **kw).generate_batch(prompts, 8))
+        tid = torch.from_numpy(np.stack([p[:4] for p in prompts[:2]]))
+        pg.append(_paged_greedy(port, m, tid.to(m.device), 8, "int8"))
+    launches = _launch_counts(port)
+    same = all(np.array_equal(a, b) for a, b in zip(*outs))
+    print(f"[layered_int8] gpt_tiny(128, 2 heads) fp32, int8 KV and "
+          f"weights: engine tokens card == CPU {same}, paged path "
+          f"{np.array_equal(*pg)}; card launches {launches}")
+    _check(same and np.array_equal(*pg) and launches["ragged"] > 0
+           and launches["paged"] > 0,
+           "layered int8: card and CPU tokens differ or no kernel launched")
+    return ragged, paged
+
+
+def _pair(port, cfg, seed):
+    """A layered model of ``cfg`` in fp32 on the card and its copy on the
+    CPU."""
+    card = _layered(port, cfg, "float32", seed)
+    cpu = _layered(port, cfg, "float32", seed, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    return card, cpu
+
+
+def _card_vs_cpu(port, name, models, build, prompts, adapters=None,
+                 check=None):
+    """Serve ``prompts`` through ``build(model)`` for the card and the CPU
+    model of ``models``: the request states must agree and the tokens
+    follow the parity rule (fp32 bound); ``check(card_engine,
+    cpu_engine)`` holds anything else.  Returns the card's ragged
+    launches."""
+    card = models[0]
+    runs = []
+    for m in models:
+        eng = build(m)
+        _reset_launches(port)
+        reqs, dt, _ = _drive(port, eng, prompts, LAYERED_CPU_NEW, adapters)
+        runs.append((eng, reqs, dt, _launch_counts(port)))
+    (ce, creqs, cdt, counts), (pe, preqs, pdt, _) = runs
+    if check is not None:
+        check(ce, pe)
+    _check([r.state for r in creqs] == [r.state for r in preqs],
+           f"layered {name}: card and CPU request states differ")
+    done = [i for i, r in enumerate(preqs) if r.finished]
+    _parity(port, f"layered {name} fp32 2 layers, card vs CPU",
+            [creqs[i].output_ids() for i in done],
+            [preqs[i].output_ids() for i in done], card,
+            GAP_BOUND["float32"], "float32")
+    print(f"[layered_paths] {name}: {len(done)} of {len(preqs)} requests "
+          f"DONE; card {cdt:.2f} s, CPU {pdt:.2f} s; card launches {counts}")
+    _check(counts["ragged"] > 0, f"layered {name}: no ragged launch")
+    for e in (ce, pe):
+        e.close()
+    return counts["ragged"]
+
+
+def phase_layered_paths(port):
+    """Phase 39: LoRA, the truncated draft, the prefix cache and the
+    watchdog's rebuild over the layered model at 2 layers of full width
+    in fp32, each card against the CPU; returns the card's ragged launches
+    by path."""
+    torch = port["torch"]
+    s, se = port["serving"], port["ServingEngine"]
+    cfg = port["gpt_1p3b"](num_layers=2)
+    models = _pair(port, cfg, 38)
+    vocab = cfg.vocab_size
+    prompts = [p[:LAYERED_CPU_PROMPT] for p in _serve_prompts(
+        np.random.RandomState(38), vocab, LAYERED_CPU_REQUESTS)]
+    kw = _engine_kw(kv_dtype="float32")
+    launches = {}
+    # LoRA over the layered slabs (the default layout: page axis first)
+    pools = {}
+    for m in models:
+        pool = s.LoRAAdapterPool(cfg, num_adapter_pages=2, rank=LORA_RANK,
+                                 device=m.device)
+        _check(not pool.stacked, "the LoRA pool's default layout")
+        for i, n in enumerate(("a", "b")):
+            pool.register(n, s.random_adapter(cfg, LORA_RANK,
+                                              np.random.RandomState(380 + i)))
+        pools[id(m)] = pool
+    launches["lora"] = _card_vs_cpu(
+        port, "lora", models, lambda m: se(m, lora=pools[id(m)], **kw),
+        prompts, adapters=["a", None, "b", "a"])
+    # the truncated draft (gpt.layer_0, by key)
+    launches["speculative"] = _card_vs_cpu(
+        port, "speculative", models,
+        lambda m: port["SpeculativeEngine"](
+            m, port["truncated_draft"](m, 1), spec_k=SPEC_K, **kw),
+        prompts)
+
+    # the prefix cache: a 128-token head (one page) shared by every request
+    head = np.random.RandomState(381).randint(0, vocab, (128,))
+
+    def prefix_engine(m):
+        eng = se(m, prefix_cache=True, **kw)
+        eng.generate_batch([head], 2)            # registers the head's pages
+        return eng
+
+    def prefix_check(ce, pe):
+        keys = ("prefix_hits", "prefix_cached_tokens", "shared_pages")
+        cm, pm = ce.metrics(), pe.metrics()
+        _check({k: cm[k] for k in keys} == {k: pm[k] for k in keys}
+               and cm["prefix_cached_tokens"] > 0,
+               f"layered prefix cache: card {[cm[k] for k in keys]}, CPU "
+               f"{[pm[k] for k in keys]}")
+
+    launches["prefix_cache"] = _card_vs_cpu(
+        port, "prefix_cache", models, prefix_engine,
+        [np.concatenate([head, p[:16]]) for p in prompts],
+        check=prefix_check)
+
+    # the watchdog: a persistent non-intact exception (a recovery and a
+    # rebuild of the per-layer pool) and a NaN on slot 0
+    def faulted(m):
+        # 2 slots: the seated pair fails, the rest are served after the
+        # rebuild
+        eng = se(m, **_engine_kw(kv_dtype="float32", num_slots=2))
+        (s.FaultInjector()
+         .inject("before_decode", at=3, times=2, kind="step_exception",
+                 state_intact=False)
+         .inject("after_decode", at=6, kind="nan_logits", slots=[0])
+         .install(eng))
+        return eng
+
+    def watch_check(ce, pe):
+        keys = ("recoveries", "rebuilds", "quarantined", "failed")
+        cm, pm = ce.metrics(), pe.metrics()
+        _check({k: cm[k] for k in keys} == {k: pm[k] for k in keys}
+               and cm["rebuilds"] == 1 and not ce.cache.stacked,
+               f"layered watchdog: card {[cm[k] for k in keys]}, CPU "
+               f"{[pm[k] for k in keys]}")
+
+    launches["watchdog"] = _card_vs_cpu(
+        port, "watchdog", models, faulted,
+        [p[:LAYERED_CPU_PROMPT] for p in _serve_prompts(
+            np.random.RandomState(382), vocab, 6)],
+        check=watch_check)
+    del models, pools
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_predictor(port, model, ids):
+    """Phase 37: the inference Predictor over phase 35's model."""
+    torch, inf = port["torch"], port["inference"]
+    new = 16
+    config = inf.Config().set_causal_lm_model(model)
+    config.enable_causal_lm_decode(max_new_tokens=new, **GEN_KW)
+    p = inf.create_predictor(config)
+    p.get_input_handle("x0").copy_from_cpu(ids.cpu().numpy())
+    _reset_launches(port)
+    t0 = time.perf_counter()
+    p.run()
+    got = p.get_output_handle("out0").copy_to_cpu()
+    dt = time.perf_counter() - t0
+    counts = _launch_counts(port)
+    want = model.generate(ids, new, **GEN_KW).cpu().numpy()
+    same = np.array_equal(got, want)
+    print(f"[predictor] decode mode, batch {GEN_BATCH} prompt {GEN_PROMPT} "
+          f"+ {new}: {1e3 * dt:.1f} ms, equal to generate() {same}; "
+          f"launches {counts}")
+    _check(same and counts["fwd"] == SERVE_LAYERS
+           and counts["decode"] == SERVE_LAYERS * (new - 1),
+           f"predictor decode mode: equal {same}, launches {counts}")
+    launched = dict(fwd=counts["fwd"], decode=counts["decode"])
+    # a PredictorPool of 2 from 2 threads: the serial rows
+    import threading
+
+    pool = inf.PredictorPool(config, 2)
+    results, errors = [None, None], []
+
+    def work(i):
+        try:
+            with pool.predictor(timeout=120) as q:
+                results[i] = q.run([ids])[0].cpu().numpy()
+        except Exception as e:  # noqa: BLE001 -- reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    pool_ok = (not errors and not any(t.is_alive() for t in threads)
+               and all(r is not None and np.array_equal(r, want)
+                       for r in results))
+    print(f"[predictor] PredictorPool of 2 from 2 threads: rows equal to "
+          f"the serial run {pool_ok} {errors}")
+    _check(pool_ok, f"predictor pool: {errors}")
+    model.clear_decode_cache()
+    # serving mode against ServingEngine.generate_batch on the same rows
+    rows = np.random.RandomState(39).randint(0, model.config.vocab_size,
+                                             (8, 120))
+    sconfig = inf.Config().set_causal_lm_model(model)
+    sconfig.enable_serving_mode(max_new_tokens=new, num_slots=8,
+                                page_size=128, max_context=512)
+    sp = inf.create_predictor(sconfig)
+    _reset_launches(port)
+    t0 = time.perf_counter()
+    out = sp.run([rows])[0].numpy()
+    dt = time.perf_counter() - t0
+    counts = _launch_counts(port)
+    eng = port["ServingEngine"](model, **_engine_kw())
+    want = np.stack(eng.generate_batch(list(rows), new))
+    eng.close()
+    same = np.array_equal(out, want)
+    print(f"[predictor] serving mode, 8 rows of 120 + {new}: {1e3 * dt:.1f} "
+          f"ms, equal to ServingEngine.generate_batch {same}; ragged "
+          f"launches {counts['ragged']}")
+    _check(same and counts["ragged"] > 0 and counts["ragged"]
+           % SERVE_LAYERS == 0, f"predictor serving mode: equal {same}, "
+           f"launches {counts}")
+    sconfig._get_serving_engine().close()
+    torch.cuda.empty_cache()
+    launched["ragged_serving"] = counts["ragged"]
+    return launched
+
+
+def phase_layered_train(port):
+    """Phase 40: one forward and backward of the layered model at 2 layers
+    of full width, bf16, batch 8 x 1024 (launch counts, finite), then at
+    batch LAYERED_TRAIN_CPU_BATCH against the CPU in fp32 from the same
+    bf16 weights."""
+    torch = port["torch"]
+    cfg = port["gpt_1p3b"](num_layers=2, hidden_dropout=0.0,
+                           attention_dropout=0.0)
+    crit = port["Criterion"]()
+    model = _layered(port, cfg, "bfloat16", 40)
+    model.train()
+    rng = np.random.RandomState(40)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                       (TRAIN_BATCH, TRAIN_SEQ)))
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (TRAIN_BATCH, TRAIN_SEQ)))
+
+    def step(m, i, l):
+        m.zero_grad(set_to_none=True)
+        loss = crit(m(i.to(m.device)), l.to(m.device))
+        loss.backward()
+        return loss
+
+    step(model, ids[:1], labels[:1])            # warm-up
+    torch.cuda.synchronize()
+    _reset_launches(port)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = step(model, ids, labels)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _launch_counts(port)
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    print(f"[layered_train] 2 layers bf16, {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"loss {loss.item():.5f}, forward and backward {1e3 * dt:.1f} ms "
+          f"(host clock), peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; launches {counts}; finite {finite}")
+    _check(finite and counts["fwd"] == 2 and counts["dkv"] == 2
+           and counts["dq"] == 2,
+           f"layered train: finite {finite}, launches {counts}")
+    train_launches = counts
+    b = LAYERED_TRAIN_CPU_BATCH
+    card_loss = step(model, ids[:b], labels[:b]).item()
+    card_g = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    cpu = _layered(port, cfg, "float32", 40, device="cpu")
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in model.state_dict().items()})
+    cpu.train()
+    t0 = time.perf_counter()
+    cpu_loss = step(cpu, ids[:b], labels[:b]).item()
+    cpu_s = time.perf_counter() - t0
+    rels = {n: ((card_g[n] - p.grad).norm() / p.grad.norm()).item()
+            for n, p in cpu.named_parameters()}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"[layered_train] batch {b} x {TRAIN_SEQ}, card bf16 vs CPU fp32 "
+          f"({cpu_s:.1f} s): loss {card_loss:.6f} vs {cpu_loss:.6f} "
+          f"(relative {loss_rel:.3g}, tol {TRAIN_LOSS_REL:.3g}); gradient "
+          f"relative norm max {rels[worst]:.4g} ({worst}), median "
+          f"{float(np.median(list(rels.values()))):.4g} (tol "
+          f"{TRAIN_GRAD_NORM:.4g})")
+    _check(loss_rel <= TRAIN_LOSS_REL and rels[worst] <= TRAIN_GRAD_NORM,
+           "layered train: card and CPU loss or gradients part")
+    del model, cpu
+    torch.cuda.empty_cache()
+    return train_launches
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4981,7 +5547,8 @@ def main() -> int:
     # the flash forward's error over phase 5 and its ragged lengths here
     tk["fwd"]["max_abs_err"] = max(tk["fwd"]["max_abs_err"],
                                    dk["flash_ragged_err"])
-    model, ids, out, logits, decode_launches = phase_generate(port)
+    model, ids, out, logits, decode_launches, gen_stats = phase_generate(
+        port)
     paged_launches = phase_paged(port, model, ids, out, logits)
     phase_generate_card_vs_cpu(port)
     ik = phase_int8_kernels(port)
@@ -5028,6 +5595,22 @@ def main() -> int:
     phase_o1_card_vs_cpu(port)
     phase_recompute_policies(port)
     phase_resume(port)
+    # phases 35-40: the layered GPT, phase 35's model through 38
+    lmodel, lids, lout, llogits, lgen = phase_layered_generate(port,
+                                                               gen_stats)
+    lserve, lpaged, _ = phase_layered_serve(port, lmodel, lids, lout,
+                                            llogits)
+    pred = phase_predictor(port, lmodel, lids)
+    lint8, lpaged_int8 = phase_layered_int8(port, lmodel, lids, lout,
+                                            llogits)
+    del lmodel, lids, lout, llogits
+    torch.cuda.empty_cache()
+    # the fp32 launches of phase 39 ride the fp32/bf16 kernel's row
+    by_path["serve_layered"] = {"bfloat16": lserve, "int8": lint8}
+    by_path["predictor_serving"] = {"bfloat16": pred["ragged_serving"]}
+    by_path["layered_paths_fp32"] = {
+        "bfloat16": sum(phase_layered_paths(port).values())}
+    ltrain = phase_layered_train(port)
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -5062,10 +5645,17 @@ def main() -> int:
                         "replaces": pallas + replaces,
                         "launches": train_launches[key], **tk[key]})
         if key != "adamw":
-            # phase 6's bf16-weight step and phase 31's O1 step
+            # phase 6's bf16-weight step, phase 31's O1 step and phase
+            # 40's layered step; the forward also phase 35's layered
+            # prefill and phase 37's Predictor
             kernels[-1]["launches_by_path"] = {
                 "train_bf16": train_launches[key],
-                "train_o1_fp32_weights": o1_launches[key]}
+                "train_o1_fp32_weights": o1_launches[key],
+                "train_layered": ltrain[key]}
+            if key == "fwd":
+                kernels[-1]["launches_by_path"].update(
+                    generate_layered=lgen["fwd"],
+                    predictor_decode=pred["fwd"])
     # the fp32 form (fp32 p, g and moments) with phase 31's device flag
     # and beta powers: launches from phase 31's O1 steps
     kernels.append({"name": "fused_adamw_fp32", "route": "cuda",
@@ -5081,15 +5671,18 @@ def main() -> int:
                     "replaces": pallas + "fused_adamw.py:38",
                     "computes": "paddle_tpu/optimizer/optimizers.py:266",
                     "launches": master_launches, **mk})
-    for key, name, replaces, launched in (
+    for key, name, replaces, launched, by in (
             ("decode", "decode_attention", "decode_attention.py:86",
-             decode_launches),
+             decode_launches, {"generate": decode_launches,
+                               "generate_layered": lgen["decode"],
+                               "predictor_decode": pred["decode"]}),
             ("paged", "paged_attention", "paged_attention.py:83",
-             paged_launches)):
+             paged_launches, {"paged": paged_launches,
+                              "paged_layered": lpaged})):
         kernels.append({"name": name, "route": "cuda",
                         "source": csrc + "decode_attention.cu",
                         "replaces": pallas + replaces, "launches": launched,
-                        **dk[key]})
+                        "launches_by_path": by, **dk[key]})
     # the int8 variants: each TPU kernel's quantized branch; the decode
     # variant has no model path, its launches are phase 12's checks
     for key, name, source, replaces, launched in (
@@ -5107,6 +5700,10 @@ def main() -> int:
         if key == "ragged":
             kernels[-1]["launches_by_path"] = {
                 p: v.get("int8", 0) for p, v in by_path.items()}
+        elif key == "paged":
+            kernels[-1]["launches_by_path"] = {
+                "paged_int8": paged_int8_launches,
+                "paged_int8_layered": lpaged_int8}
     # the RMS variant has no model path: its launches are phase 16's
     for key, name, launched in (
             ("ln", "fused_add_layer_norm", ln_launches),

@@ -3,8 +3,8 @@ Hopper (H100).
 
 The JAX package ``paddle_tpu`` stays the reference; this package never
 imports it, nor JAX.  It is ported slice by slice (ROADMAP.md queue 1).
-Serving: ``GPTStackedForPretraining`` behind the
-continuous-batching ``ServingEngine``, whose fused mixed prefill/decode
+Serving: ``GPTStackedForPretraining`` and the layered
+``GPTForPretraining`` behind the continuous-batching ``ServingEngine``, whose fused mixed prefill/decode
 step runs the hand-written ragged-paged-attention kernel
 (``ops/kernels/csrc/ragged_paged_attention.cu``).  Training: the same
 model's ``forward(ids, labels=...)`` with ``optimizer.AdamW`` through
@@ -33,30 +33,35 @@ fp32 weights: ``amp.auto_cast`` O1 (the reference's op lists) with
 whose skipped steps make no host sync; ``GPTConfig.recompute_policy``;
 crash-consistent training (``checkpoint``: ``CheckpointManager``,
 ``TrainState``, ``BadStepSentry``, ``PreemptionHandler``) fed by
-``io.DevicePrefetcher``.
+``io.DevicePrefetcher``.  The layered GPT (``GPTForPretraining``, the
+reference's flagship class) generates, serves, quantizes (``Int8Linear``),
+takes LoRA adapters and drafts on the same kernels, and ``inference``'s
+Predictor runs a live model's decode and serving modes.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); on the CPU every kernel is replaced by its plain
 PyTorch version.
 """
-__version__ = "0.11.0"
+__version__ = "0.12.0"
 
 from . import (
-    amp, checkpoint, core, incubate, io, models, nn, optimizer, serving,
-    telemetry,
+    amp, checkpoint, core, incubate, inference, io, models, nn, optimizer,
+    serving, telemetry,
 )
 from .models import (
     BertConfig, BertForPretraining, BertModel, BertPretrainingCriterion,
-    GenerationMixin, GPTConfig, GPTPretrainingCriterion,
+    GenerationMixin, GPTConfig, GPTForPretraining, GPTPretrainingCriterion,
     GPTStackedForPretraining, KVCache,
     bert_base, bert_tiny, generate, generation, gpt_1p3b, gpt_13b, gpt_small,
     gpt_tiny,
 )
 from .serving import SamplingParams, ServingEngine
 
-__all__ = ["amp", "checkpoint", "core", "incubate", "io", "models", "nn",
+__all__ = ["amp", "checkpoint", "core", "incubate", "inference", "io",
+           "models", "nn",
            "optimizer", "serving", "telemetry", "BertConfig", "BertModel", "BertForPretraining",
            "BertPretrainingCriterion", "bert_tiny", "bert_base",
-           "GPTConfig", "GPTStackedForPretraining", "GPTPretrainingCriterion",
+           "GPTConfig", "GPTForPretraining", "GPTStackedForPretraining",
+           "GPTPretrainingCriterion",
            "gpt_tiny", "gpt_small", "gpt_1p3b", "gpt_13b", "generation", "KVCache", "GenerationMixin", "generate",
            "ServingEngine", "SamplingParams"]

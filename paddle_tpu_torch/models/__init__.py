@@ -5,11 +5,13 @@ from .bert import (
 )
 from .generation import GenerationMixin, KVCache, generate
 from .gpt import (
-    GPTConfig, GPTPretrainingCriterion, GPTStackedForPretraining, gpt_1p3b,
+    GPTAttention, GPTConfig, GPTDecoderLayer, GPTForPretraining, GPTMLP,
+    GPTModel, GPTPretrainingCriterion, GPTStackedForPretraining, gpt_1p3b,
     gpt_13b, gpt_small, gpt_tiny, truncated_draft,
 )
 
-__all__ = ["GPTConfig", "GPTStackedForPretraining",
+__all__ = ["GPTConfig", "GPTForPretraining", "GPTModel", "GPTAttention",
+           "GPTMLP", "GPTDecoderLayer", "GPTStackedForPretraining",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt_small",
            "gpt_1p3b", "gpt_13b", "truncated_draft", "generation",
            "KVCache", "GenerationMixin",

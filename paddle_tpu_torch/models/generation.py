@@ -1,10 +1,12 @@
 """Autoregressive decode over a contiguous KV cache: ``generate()`` (port
 of ``paddle_tpu/models/generation.py``).
 
-- The KV cache is preallocated at ``[L, B, H, max_seq, D]`` on the
-  model's device and written in place, position by position; the position
-  of a decode step is a device int tensor, never a host int, so the loop
-  makes no host sync until it returns (without ``eos_token_id``).
+- The KV cache is preallocated on the model's device (``[L, B, H,
+  max_seq, D]`` for the stacked GPT, one ``[B, H, max_seq, D]`` pair a
+  layer for the layered one) and written in place, position by
+  position; the position of a decode step is a device int tensor, never
+  a host int, so the loop makes no host sync until it returns (without
+  ``eos_token_id``).
 - The whole-prompt prefill runs the flash forward kernel
   (``ops/kernels/flash_attention.py``) at any prompt length; every later
   token runs the decode-attention kernel
@@ -44,41 +46,77 @@ __all__ = [
 ]
 
 
-class KVCache:
-    """Preallocated KV cache: ``k``/``v`` are stacked ``[L, B, H, max_seq,
-    D]`` tensors on ``device``, zero-initialised; layer ``l``'s cache is
-    the view ``k[l]``.  Stale content past the current length is never
-    read by the kernels (every read is length-bounded), so a cache is
-    reused across ``generate()`` calls without re-zeroing."""
+class _KVBuffers:
+    """Size accounting and release shared by :class:`KVCache` and the
+    serving pool (``serving.paged_cache.PagedKVCache``), so the two cannot
+    drift: ``_FIELDS`` names the attributes that hold device tensors, each
+    a tensor (the stacked layout), a list of them (one a layer) or None."""
+
+    _FIELDS = ("k", "v")
+
+    def _tensors(self) -> List[torch.Tensor]:
+        out = []
+        for t in (getattr(self, f) for f in self._FIELDS):
+            if isinstance(t, list):
+                out.extend(t)
+            elif t is not None:
+                out.append(t)
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of every tensor the cache holds."""
+        return sum(t.numel() * t.element_size() for t in self._tensors())
+
+    def release(self):
+        """Drop the cache's tensors now; their memory goes back to
+        PyTorch's allocator for the next allocation.  The cache is unusable
+        afterwards."""
+        for f in self._FIELDS:
+            setattr(self, f, None)
+
+
+class KVCache(_KVBuffers):
+    """Preallocated KV cache on ``device``, zero-initialised.
+
+    ``stacked=False`` (the reference's default; the layered GPT's): per-
+    layer tensor pairs, ``k[i]``/``v[i]`` of ``[B, H, max_seq, D]``, read
+    through :meth:`layer`.  ``stacked=True`` (the stacked GPT's): one pair
+    of ``[L, B, H, max_seq, D]`` tensors read whole, layer ``l``'s cache
+    the view ``k[l]``.
+
+    Stale content past the current length is never read by the kernels
+    (every read is length-bounded), so a cache is reused across
+    ``generate()`` calls without re-zeroing."""
 
     paged = False
 
     def __init__(self, num_layers: int, batch_size: int, num_heads: int,
-                 max_seq: int, head_dim: int, dtype="bfloat16", device=None):
+                 max_seq: int, head_dim: int, dtype="bfloat16",
+                 stacked: bool = False, *, device=None):
         self.num_layers = num_layers
         self.batch_size = batch_size
         self.num_heads = num_heads
         self.max_seq = max_seq
         self.head_dim = head_dim
         self.dtype = dtype_name(dtype)
+        self.stacked = bool(stacked)
         self.device = resolve_device(device)
-        shape = (num_layers, batch_size, num_heads, max_seq, head_dim)
         td = to_torch_dtype(dtype)
-        self.k: Optional[torch.Tensor] = torch.zeros(shape, dtype=td,
-                                                     device=self.device)
-        self.v: Optional[torch.Tensor] = torch.zeros(shape, dtype=td,
-                                                     device=self.device)
+        shape = (batch_size, num_heads, max_seq, head_dim)
+        self.k, self.v = (
+            torch.zeros((num_layers,) + shape, dtype=td, device=self.device)
+            if stacked else [torch.zeros(shape, dtype=td, device=self.device)
+                             for _ in range(num_layers)]
+            for _ in range(2))
 
-    @property
-    def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.k, self.v)
-                   if t is not None)
+    def layer(self, i: int):
+        """(k, v) of layer ``i`` (the per-layer layout only)."""
+        if self.stacked:
+            raise ValueError("layer() is for the per-layer cache layout; "
+                             "the stacked cache is read whole")
+        return self.k[i], self.v[i]
 
-    def release(self):
-        """Drop the cache tensors now; their memory goes back to PyTorch's
-        allocator for the next allocation.  The cache is unusable
-        afterwards."""
-        self.k = self.v = None
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,15 @@
-"""GPT for serving and training, in PyTorch (port of the stacked GPT of
-``paddle_tpu/models/gpt.py``).
+"""GPT for serving and training, in PyTorch (port of the stacked and the
+layered GPT of ``paddle_tpu/models/gpt.py``).
+
+``GPTForPretraining`` is the reference's layered flagship class
+(``GPTModel`` of ``GPTDecoderLayer``s, each ``GPTAttention`` and
+``GPTMLP`` over the port's ``Linear``/``LayerNorm``/``Dropout`` layers),
+with the reference's ``state_dict`` keys and per-layer caches; its blocks
+follow the layered code (LayerNorm in the input's dtype, ``Int8Linear``
+after ``quantize_weights``).  Both classes attend through the same
+module-level bodies, :func:`attend_with_cache` and :func:`attend_paged`
+(the reference's ``_raw_attend_with_cache`` and ``_attend_paged_shard``),
+so every route below and every kernel is shared.
 
 ``GPTStackedForPretraining`` keeps the JAX model's layout: every decoder
 weight is one ``[L, ...]`` slab (``x @ w`` with ``w`` as ``[in, out]``, not
@@ -53,7 +63,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Mapping, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,12 +73,15 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from ..amp.auto_cast import amp_state, maybe_cast, o1_dtype
+from ..amp.auto_cast import amp_state, auto_cast, maybe_cast, o1_dtype
 from ..core import resolve_device, to_torch_dtype
+from ..nn import functional as NF
 from ..nn.functional import (
-    cross_entropy, dropout, fused_linear_cross_entropy,
+    cross_entropy, dropout, fused_linear_cross_entropy, promote,
 )
-from ..nn.layers import load_jax_state
+from ..nn.layers import (
+    Dropout, LayerNorm, Linear, init_weights, load_jax_state,
+)
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import (
     flash_attention_bnsd, flash_attention_fwd,
@@ -76,12 +89,19 @@ from ..ops.kernels.flash_attention import (
 from ..ops.kernels.paged_attention import gather_pages, paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 from ..ops.lora import lora_delta_raw
-from ..quantization.int8 import k_major, quantize_weight, quantized_matmul
+from ..quantization.int8 import (
+    Int8Linear, k_major, quantize_weight, quantized_matmul,
+)
 from ..quantization.kv import quantize_kv_write
 from .generation import GenerationMixin, KVCache
 
 __all__ = [
     "GPTConfig",
+    "GPTModel",
+    "GPTForPretraining",
+    "GPTAttention",
+    "GPTMLP",
+    "GPTDecoderLayer",
     "GPTStackedForPretraining",
     "GPTPretrainingCriterion",
     "causal_attention_plain",
@@ -488,44 +508,17 @@ class GPTStackedDecoder(nn.Module):
         [B, S, hidden]; ``k_cache``/``v_cache`` the stacked
         ``[L, B, H, max_seq, D]`` cache, written in place at positions
         ``pos .. pos + S - 1``; ``pos`` the Python int 0 (the whole-prompt
-        prefill) or a 0-d integer tensor on the cache's device.
-
-        - S == 1: the decode kernel over ``pos + 1`` positions;
-        - S > 1 at a Python 0: the flash forward kernel, causal, over the
-          fresh q/k/v;
-        - S > 1 at any other position (chunked prefill): attention over
-          the whole cache, each query row seeing the positions up to its
-          own (the reference's XLA code, in plain torch)."""
+        prefill) or a 0-d integer tensor on the cache's device.  Each
+        layer attends through :func:`attend_with_cache`."""
         self._check_fp_weights("the contiguous-cache path (generate)")
-        hd = self._cfg.head_dim
-        s = h.shape[1]
-        scale = float(1.0 / np.sqrt(hd))
-        prefill = isinstance(pos, int) and pos == 0 and s > 1
-        # device indices: a Python slice at a tensor position would sync
-        idx = torch.arange(s, device=h.device) + (
-            pos if isinstance(pos, int) else pos.long())
-        length = pos + 1
-
-        def attend(q, k, v, kc, vc):
-            kc.index_copy_(2, idx, k.transpose(1, 2).to(kc.dtype))
-            vc.index_copy_(2, idx, v.transpose(1, 2).to(vc.dtype))
-            if s == 1:
-                return decode_attention(q[:, 0], kc, vc, length,
-                                        sm_scale=scale)
-            if prefill:
-                # [B, N, S, D] views of [B, S, N, D] memory both ways
-                out, _ = flash_attention_fwd(*(t.transpose(1, 2)
-                                               for t in (q, k, v)),
-                                             True, scale)
-                return out.transpose(1, 2)
-            return _masked_attention(q.transpose(1, 2), kc, vc, idx,
-                                     scale).transpose(1, 2)
-
+        scale = float(1.0 / np.sqrt(self._cfg.head_dim))
+        idx = cache_positions(h.shape[1], pos, h.device)
         cdt = o1_dtype()
         for weights, kc, vc in zip(self._layers(), k_cache.unbind(0),
                                    v_cache.unbind(0)):
-            h = self._block(h, weights,
-                            lambda q, k, v: attend(q, k, v, kc, vc), cdt=cdt)
+            h = self._block(h, weights, partial(
+                attend_with_cache, kc=kc, vc=vc, pos=pos, idx=idx,
+                scale=scale), cdt=cdt)
         return h
 
     def forward_paged(self, h, k_pool, v_pool, tables, pos, ragged_plan,
@@ -535,67 +528,18 @@ class GPTStackedDecoder(nn.Module):
         ``k_pool``/``v_pool`` the stacked ``[L, P, H, page_size, D]`` pool,
         written in place; ``tables`` [S, max_pages] the rows' page tables;
         ``k_scale``/``v_scale`` the stacked ``[L, P, H]`` scales of an int8
-        pool, updated in place (None for a float pool).
-
-        - C == 1 with a ``ragged_plan``: the serving engine's fused step
-          (each row one flat token), through the ragged kernel;
-        - C == 1 without one: the paged kernel over ``pos + 1``;
-        - C > 1: the chunked prefill, attention over each row's gathered
-          (for an int8 pool, dequantized) pages with the absolute-position
-          mask (the reference's XLA code, in plain torch).
-
-        An int8 pool's K/V rows go through ``quantize_kv_write`` (which
-        updates the layer's scales) before they are written, and the
-        kernels read the pages with the updated scales.
+        pool, updated in place (None for a float pool).  Each layer
+        attends through :func:`attend_paged` (the ragged kernel with a
+        ``ragged_plan``, the paged kernel for C == 1 without one, the
+        chunked prefill for C > 1).
 
         ``lora``: ``(LoRAAdapterPool, ids)`` with ``ids`` [S] the adapter
         page of each row; the pool's stacked slabs are read layer by layer
         beside the stacked weights."""
         cfg = self._cfg
-        nh, hd = cfg.num_heads, cfg.head_dim
-        c = h.shape[1]
-        page_size = k_pool.shape[3]
-        max_pages = tables.shape[1]
-        scale = float(1.0 / np.sqrt(hd))
-        tbl = tables.long()
-        abs_pos = pos.long()[:, None] + torch.arange(c, device=h.device)
-        # each token's K/V lands at pool[page_ids, :, offs]; padding rows
-        # carry the null-page table and position 0, so their writes sink
-        # into page 0, which no valid read ever resolves to.  The clip is
-        # defensive: admission reserves every page a token can touch.
-        page_slot = torch.clamp(abs_pos // page_size, 0, max_pages - 1)
-        page_ids = torch.gather(tbl, 1, page_slot)[..., None]    # [S, C, 1]
-        offs = (abs_pos % page_size)[..., None]                  # [S, C, 1]
-        heads = torch.arange(nh, device=h.device)                # [H]
-        lengths = (pos + 1).to(torch.int32)
-
-        def attend(q, k, v, kp, vp, ks, vs):
-            # ALL of the step's K/V rows go into the pool BEFORE attention,
-            # so a chunk's tokens see each other through the pool.  In
-            # place: index_put_ on the pool tensor (and, for an int8 pool,
-            # the quantizer's scatters on the scales).
-            if ks is not None:
-                k, _ = quantize_kv_write(k, page_ids[..., 0], offs[..., 0],
-                                         ks)
-                v, _ = quantize_kv_write(v, page_ids[..., 0], offs[..., 0],
-                                         vs)
-            kp.index_put_((page_ids, heads, offs), k.to(kp.dtype))
-            vp.index_put_((page_ids, heads, offs), v.to(vp.dtype))
-            if c == 1 and ragged_plan is not None:
-                out = ragged_paged_attention(q[:, 0], kp, vp, tables,
-                                             lengths, ragged_plan,
-                                             sm_scale=scale, k_scale=ks,
-                                             v_scale=vs)
-                return out[:, None]
-            if c == 1:
-                return paged_attention(q[:, 0], kp, vp, tables, lengths,
-                                       sm_scale=scale, k_scale=ks,
-                                       v_scale=vs)[:, None]
-            out = _masked_attention(q.transpose(1, 2),
-                                    gather_pages(kp, tbl, ks),
-                                    gather_pages(vp, tbl, vs), abs_pos, scale)
-            return out.transpose(1, 2)
-
+        geo = paged_geometry(tables, pos, h.shape[1], k_pool.shape[3],
+                             cfg.num_heads)
+        scale = float(1.0 / np.sqrt(cfg.head_dim))
         int8 = self.weight_int8
         names = self.INT8_NAMES if int8 else self.PARAM_NAMES
         pools = [k_pool.unbind(0), v_pool.unbind(0)]
@@ -611,10 +555,118 @@ class GPTStackedDecoder(nn.Module):
         for weights, kp, vp, ks, vs, lr in zip(self._layers(names), *pools,
                                                loras):
             h = self._block(
-                h, weights,
-                lambda q, k, v: attend(q, k, v, kp, vp, ks, vs), int8=int8,
-                lora=lr, cdt=cdt)
+                h, weights, partial(attend_paged, kp=kp, vp=vp, ks=ks, vs=vs,
+                                    geo=geo, ragged_plan=ragged_plan,
+                                    scale=scale),
+                int8=int8, lora=lr, cdt=cdt)
         return h
+
+
+def cache_positions(s: int, pos, device) -> torch.Tensor:
+    """The cache slots ``pos .. pos + s - 1`` of a step as a device index
+    tensor (a Python slice at a tensor position would sync)."""
+    return torch.arange(s, device=device) + (
+        pos if isinstance(pos, int) else pos.long())
+
+
+def attend_with_cache(q, k, v, *, kc, vc, pos, idx, scale: float):
+    """One layer's cache write and attention over a contiguous cache (the
+    reference's ``_raw_attend_with_cache``, shared by both GPT classes).
+    ``q``/``k``/``v`` [B, S, H, D], the fresh views into the fused QKV
+    output; ``kc``/``vc`` the layer's [B, H, max_seq, D] cache, written in
+    place at ``idx`` (:func:`cache_positions`); ``pos`` the Python int 0
+    or a 0-d integer tensor on the cache's device.  Returns [B, S, H, D]
+    in the cache's dtype (fp32 for fp32 q over a bf16 cache's decode).
+
+    - S == 1: the decode kernel over ``pos + 1`` positions;
+    - S > 1 at a Python 0 (the port's ``_pos_is_static_zero``: a tensor
+      position never syncs to decide it): the flash forward kernel,
+      causal, over the fresh q/k/v;
+    - S > 1 at any other position (chunked prefill): attention over the
+      whole cache, each query row seeing the positions up to its own
+      (the reference's XLA code, in plain torch)."""
+    kc.index_copy_(2, idx, k.transpose(1, 2).to(kc.dtype))
+    vc.index_copy_(2, idx, v.transpose(1, 2).to(vc.dtype))
+    if q.shape[1] == 1:
+        return decode_attention(q[:, 0], kc, vc, pos + 1,
+                                sm_scale=scale)[:, None]
+    if isinstance(pos, int) and pos == 0:
+        # [B, N, S, D] views of [B, S, N, D] memory both ways
+        out, _ = flash_attention_fwd(*(t.transpose(1, 2) for t in (q, k, v)),
+                                     True, scale)
+        return out.transpose(1, 2)
+    return _masked_attention(q.transpose(1, 2), kc, vc, idx,
+                             scale).transpose(1, 2)
+
+
+class PagedGeometry(NamedTuple):
+    """Where a paged step's tokens land, computed once per step and
+    shared by every layer (:func:`paged_geometry`)."""
+    tables: torch.Tensor      # [S, max_pages] as given (the kernels' table)
+    tbl: torch.Tensor         # the same, int64 (the gathers' index)
+    abs_pos: torch.Tensor     # [S, C] each token's absolute position
+    page_ids: torch.Tensor    # [S, C, 1] each token's pool page
+    offs: torch.Tensor        # [S, C, 1] its offset in the page
+    heads: torch.Tensor       # [H]
+    lengths: torch.Tensor     # [S] int32, pos + 1
+
+
+def paged_geometry(tables, pos, c: int, page_size: int,
+                   num_heads: int) -> PagedGeometry:
+    """The geometry of a paged step of ``c`` tokens a row at positions
+    ``pos[s] .. pos[s] + c - 1`` over ``tables`` [S, max_pages].  Each
+    token's K/V lands at ``pool[page_ids, :, offs]``; padding rows carry
+    the null-page table and position 0, so their writes sink into page 0,
+    which no valid read ever resolves to.  The clip is defensive:
+    admission reserves every page a token can touch."""
+    tbl = tables.long()
+    abs_pos = pos.long()[:, None] + torch.arange(c, device=tables.device)
+    page_slot = torch.clamp(abs_pos // page_size, 0, tbl.shape[1] - 1)
+    page_ids = torch.gather(tbl, 1, page_slot)[..., None]
+    offs = (abs_pos % page_size)[..., None]
+    return PagedGeometry(tables, tbl, abs_pos, page_ids, offs,
+                         torch.arange(num_heads, device=tables.device),
+                         (pos + 1).to(torch.int32))
+
+
+def attend_paged(q, k, v, *, kp, vp, ks, vs, geo: PagedGeometry,
+                 ragged_plan, scale: float):
+    """One layer's paged write and attention (the reference's
+    ``_attend_paged_shard``, shared by both GPT classes).  ``q``/``k``/
+    ``v`` [S, C, H, D]; ``kp``/``vp`` the layer's [P, H, page_size, D]
+    pool, written in place; ``ks``/``vs`` its [P, H] scales of an int8
+    pool (updated in place), or None.  Returns [S, C, H, D].
+
+    - C == 1 with a ``ragged_plan``: the serving engine's fused step
+      (each row one flat token), through the ragged kernel;
+    - C == 1 without one: the paged kernel over ``pos + 1``;
+    - C > 1: the chunked prefill, attention over each row's gathered
+      (for an int8 pool, dequantized) pages with the absolute-position
+      mask (the reference's XLA code, in plain torch).
+
+    ALL of the step's K/V rows go into the pool BEFORE attention, so a
+    chunk's tokens see each other through the pool.  An int8 pool's rows
+    go through ``quantize_kv_write`` (which updates the layer's scales)
+    first, and the kernels read the pages with the updated scales."""
+    if ks is not None:
+        k, _ = quantize_kv_write(k, geo.page_ids[..., 0], geo.offs[..., 0],
+                                 ks)
+        v, _ = quantize_kv_write(v, geo.page_ids[..., 0], geo.offs[..., 0],
+                                 vs)
+    kp.index_put_((geo.page_ids, geo.heads, geo.offs), k.to(kp.dtype))
+    vp.index_put_((geo.page_ids, geo.heads, geo.offs), v.to(vp.dtype))
+    if q.shape[1] == 1 and ragged_plan is not None:
+        return ragged_paged_attention(q[:, 0], kp, vp, geo.tables,
+                                      geo.lengths, ragged_plan,
+                                      sm_scale=scale, k_scale=ks,
+                                      v_scale=vs)[:, None]
+    if q.shape[1] == 1:
+        return paged_attention(q[:, 0], kp, vp, geo.tables, geo.lengths,
+                               sm_scale=scale, k_scale=ks,
+                               v_scale=vs)[:, None]
+    out = _masked_attention(q.transpose(1, 2), gather_pages(kp, geo.tbl, ks),
+                            gather_pages(vp, geo.tbl, vs), geo.abs_pos, scale)
+    return out.transpose(1, 2)
 
 
 def _masked_attention(q, k, v, q_pos, scale: float) -> torch.Tensor:
@@ -646,7 +698,46 @@ def _host_generator(generator, seed: int) -> torch.Generator:
     return generator
 
 
-class GPTStackedForPretraining(nn.Module, GenerationMixin):
+class _CacheContract(GenerationMixin):
+    """The cache contracts both GPT classes share, in the layout their
+    class attribute ``stacked`` names: ``generate()``'s
+    (``new_kv_cache``, ``_cached_lm_logits``) and the serving engine's
+    (``new_paged_kv_cache``, ``_paged_lm_logits``)."""
+
+    stacked: bool
+
+    # -- GenerationMixin cache contract ------------------------------------
+    def new_kv_cache(self, batch_size: int, max_seq: int,
+                     dtype="bfloat16") -> KVCache:
+        cfg = self.config
+        return KVCache(cfg.num_layers, batch_size, cfg.num_heads, max_seq,
+                       cfg.head_dim, dtype=dtype, stacked=self.stacked,
+                       device=self.device)
+
+    def _cached_lm_logits(self, input_ids, kv_cache, cache_index):
+        return self.forward(input_ids, kv_cache=kv_cache,
+                            cache_index=cache_index)
+
+    # -- ServingEngine paged-cache contract --------------------------------
+    def new_paged_kv_cache(self, num_pages: int, page_size: int,
+                           dtype="bfloat16"):
+        from ..serving.paged_cache import PagedKVCache
+
+        cfg = self.config
+        return PagedKVCache(cfg.num_layers, num_pages, cfg.num_heads,
+                            page_size, cfg.head_dim, dtype=dtype,
+                            stacked=self.stacked, device=self.device)
+
+    def _paged_lm_logits(self, input_ids, paged_cache, page_tables,
+                         positions, ragged_plan=None, out_rows=None,
+                         lora=None):
+        return self.forward(input_ids, kv_cache=paged_cache,
+                            cache_index=positions, page_tables=page_tables,
+                            ragged_plan=ragged_plan, out_rows=out_rows,
+                            lora=lora)
+
+
+class GPTStackedForPretraining(nn.Module, _CacheContract):
     """Embeddings + stacked decoder + tied LM head, for training, serving
     and ``generate()``.
 
@@ -661,6 +752,8 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
     arguments are keyword-only.  ``n_micro`` > 1 (pipelined microbatches
     over a mesh) raises.
     """
+
+    stacked = True        # the cache and LoRA layout this class reads
 
     def __init__(self, cfg: GPTConfig, n_micro: int = 1, *, device=None,
                  dtype="float32", seed: int = 0,
@@ -869,34 +962,339 @@ class GPTStackedForPretraining(nn.Module, GenerationMixin):
         h, w = maybe_cast("matmul", h, w)
         return h @ w.t()
 
-    # -- GenerationMixin cache contract ------------------------------------
-    def new_kv_cache(self, batch_size: int, max_seq: int,
-                     dtype="bfloat16") -> KVCache:
+
+class GPTAttention(nn.Module):
+    """Causal multi-head self-attention of the layered GPT (the
+    reference's ``GPTAttention``): the fused QKV ``Linear(h, 3h)``, its
+    output split as ``[B, S, 3, heads, head_dim]``, the attention route,
+    the output projection and the hidden dropout.  Without ``attend`` (no
+    cache) the route is ``scaled_dot_product_attention`` (the flash
+    kernels where the JAX flash gate takes the shape, the plain expression
+    elsewhere); with it, ``attend(q, k, v)`` (:func:`attend_with_cache` or
+    :func:`attend_paged` bound to the layer's cache).  ``lora``: ``(slabs,
+    ids, scaling)``, the layer's eight adapter slabs (``serving/lora.py``
+    order): qkv and out each add their gathered low-rank delta on the
+    same input as the base product."""
+
+    def __init__(self, cfg: GPTConfig, **factory):
+        super().__init__()
+        self._cfg = cfg
+        h = cfg.hidden_size
+        self.qkv_proj = Linear(h, 3 * h, **factory)
+        self.out_proj = Linear(h, h, **factory)
+        self.dropout = Dropout(cfg.hidden_dropout)
+
+    def forward(self, x, attn_mask=None, attend=None, lora=None,
+                generator=None):
+        cfg = self._cfg
+        b, s = x.shape[0], x.shape[1]
+        nh, hd = cfg.num_heads, cfg.head_dim
+        qkv = self.qkv_proj(x)                               # [B, S, 3H]
+        if lora is not None:
+            slabs, ids, lscale = lora
+            qkv = qkv + lora_delta_raw(x, slabs[0], slabs[1], ids, lscale)
+        q, k, v = qkv.view(b, s, 3, nh, hd).unbind(2)        # [B, S, nh, hd]
+        if attend is not None:
+            if attn_mask is not None:
+                raise ValueError(
+                    "attn_mask is not supported on the KV-cache path (it "
+                    "is causal+length-masked); left-padded batches would "
+                    "write pad positions into the cache -- right-pad or "
+                    "serve per-sequence")
+            out = attend(q, k, v).to(q.dtype)
+        else:
+            out = NF.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask,
+                dropout_p=cfg.attention_dropout, is_causal=attn_mask is None,
+                training=self.training, use_flash=cfg.use_flash_attention,
+                generator=generator)
+        out = out.reshape(b, s, nh * hd)
+        proj = self.out_proj(out)
+        if lora is not None:
+            proj = proj + lora_delta_raw(out, slabs[2], slabs[3], ids, lscale)
+        return self.dropout(proj, generator)
+
+
+class GPTMLP(nn.Module):
+    """``fc2(gelu_tanh(fc1(x)))`` and the hidden dropout, with the LoRA
+    deltas of fc1 and fc2 (slabs 4-7) when ``lora`` is given."""
+
+    def __init__(self, cfg: GPTConfig, **factory):
+        super().__init__()
+        h, f = cfg.hidden_size, cfg.ffn_size
+        self.fc1 = Linear(h, f, **factory)
+        self.fc2 = Linear(f, h, **factory)
+        self.dropout = Dropout(cfg.hidden_dropout)
+
+    def forward(self, x, lora=None, generator=None):
+        u = self.fc1(x)
+        if lora is not None:
+            slabs, ids, lscale = lora
+            u = u + lora_delta_raw(x, slabs[4], slabs[5], ids, lscale)
+        g = NF.gelu(u, approximate=True)
+        y = self.fc2(g)
+        if lora is not None:
+            y = y + lora_delta_raw(g, slabs[6], slabs[7], ids, lscale)
+        return self.dropout(y, generator)
+
+
+class GPTDecoderLayer(nn.Module):
+    """Pre-LN decoder block: ``x + attn(ln1(x))``, then ``x +
+    mlp(ln2(x))``.  The LayerNorms are the port's ``LayerNorm`` in the
+    input's dtype (the reference's layered ``layer_norm``), not the
+    stacked block's fp32 ``_ln_f32``.  ``seed``: the layer's dropout seed
+    when dropout is active; its masks are drawn, in order (attention
+    probabilities, attention projection, MLP output), from a generator on
+    the activations' device seeded with it, so a recompute redraws
+    them."""
+
+    def __init__(self, cfg: GPTConfig, **factory):
+        super().__init__()
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.ln1 = LayerNorm(h, eps, **factory)
+        self.attn = GPTAttention(cfg, **factory)
+        self.ln2 = LayerNorm(h, eps, **factory)
+        self.mlp = GPTMLP(cfg, **factory)
+
+    def forward(self, x, attn_mask=None, attend=None, lora=None, seed=None):
+        gen = None if seed is None else _seeded(seed, x.device)
+        x = x + self.attn(self.ln1(x), attn_mask, attend, lora, gen)
+        return x + self.mlp(self.ln2(x), lora, gen)
+
+
+class GPTModel(nn.Module):
+    """The layered decoder body (the reference's ``GPTModel``): embeddings,
+    ``layer_0`` .. ``layer_{L-1}`` and the final LayerNorm; returns the
+    final hidden states.  ``generator``: the CPU generator a training
+    forward draws its dropout seeds from (one for the embeddings, one per
+    layer).  With ``recompute_interval`` k > 0 in training, layers 0, k,
+    2k, ... each run under ``torch.utils.checkpoint`` (the reference's
+    eager per-layer ``recompute``; ``recompute_policy`` is the stacked
+    path's, as in the reference).  The cache paths route each layer's
+    attention through :func:`attend_with_cache` or :func:`attend_paged`
+    bound to its cache tensors (``kv_cache.layer(i)``)."""
+
+    def __init__(self, cfg: GPTConfig, generator: torch.Generator,
+                 **factory):
+        super().__init__()
+        self.config = cfg
+        self.generator = generator
+        self.embeddings = GPTEmbeddings(cfg, **factory)
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", GPTDecoderLayer(cfg, **factory))
+        self.final_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                                  **factory)
+
+    @property
+    def layers(self):
+        return [getattr(self, f"layer_{i}")
+                for i in range(self.config.num_layers)]
+
+    def dropout_active(self) -> bool:
         cfg = self.config
-        return KVCache(cfg.num_layers, batch_size, cfg.num_heads, max_seq,
-                       cfg.head_dim, dtype=dtype, device=self.device)
+        return self.training and (cfg.hidden_dropout > 0.0
+                                  or cfg.attention_dropout > 0.0)
 
-    def _cached_lm_logits(self, input_ids, kv_cache, cache_index):
-        return self.forward(input_ids, kv_cache=kv_cache,
-                            cache_index=cache_index)
-
-    # -- ServingEngine paged-cache contract --------------------------------
-    def new_paged_kv_cache(self, num_pages: int, page_size: int,
-                           dtype="bfloat16"):
-        from ..serving.paged_cache import PagedKVCache
-
+    def _attends(self, ids, position_ids, kv_cache, cache_index, page_tables,
+                 ragged_plan):
+        """(position ids, one attention route per layer) of a forward."""
         cfg = self.config
-        return PagedKVCache(cfg.num_layers, num_pages, cfg.num_heads,
-                            page_size, cfg.head_dim, dtype=dtype,
-                            device=self.device)
+        s = ids.shape[-1]
+        rel = torch.arange(s, device=ids.device)
+        if kv_cache is None:
+            pos_ids = rel if position_ids is None else position_ids.long()
+            return pos_ids.expand_as(ids), [None] * cfg.num_layers
+        scale = float(1.0 / np.sqrt(cfg.head_dim))
+        if not getattr(kv_cache, "paged", False):
+            pos = int(cache_index) if isinstance(
+                cache_index, (int, np.integer)) else cache_index.reshape(())
+            idx = cache_positions(s, pos, ids.device)
+            pos_ids = idx if position_ids is None else position_ids.long()
+            return pos_ids.expand_as(ids), [
+                partial(attend_with_cache, kc=kc, vc=vc, pos=pos, idx=idx,
+                        scale=scale)
+                for kc, vc in map(kv_cache.layer, range(cfg.num_layers))]
+        if page_tables is None:
+            raise ValueError("a paged KV cache needs page_tables "
+                             "([B, max_pages] int32 pool page ids)")
+        if position_ids is None:
+            # prefill padding may carry positions past the table; the
+            # write already sinks them into the null page -- keep the
+            # embedding lookup in range too
+            position_ids = torch.clamp(cache_index.long()[:, None] + rel, 0,
+                                       cfg.max_position_embeddings - 1)
+        geo = paged_geometry(page_tables, cache_index, s,
+                             kv_cache.page_size, cfg.num_heads)
+        return position_ids.long().expand_as(ids), [
+            partial(attend_paged, kp=kp, vp=vp, ks=ks, vs=vs, geo=geo,
+                    ragged_plan=ragged_plan, scale=scale)
+            for (kp, vp), (ks, vs) in zip(
+                map(kv_cache.layer, range(cfg.num_layers)),
+                map(kv_cache.layer_scales, range(cfg.num_layers)))]
 
-    def _paged_lm_logits(self, input_ids, paged_cache, page_tables,
-                         positions, ragged_plan=None, out_rows=None,
-                         lora=None):
-        return self.forward(input_ids, kv_cache=paged_cache,
-                            cache_index=positions, page_tables=page_tables,
-                            ragged_plan=ragged_plan, out_rows=out_rows,
-                            lora=lora)
+    def forward(self, input_ids, position_ids=None, attn_mask=None,
+                kv_cache=None, cache_index=None, page_tables=None,
+                ragged_plan=None, lora=None):
+        cfg = self.config
+        ids = input_ids.long()
+        pos_ids, attends = self._attends(ids, position_ids, kv_cache,
+                                         cache_index, page_tables,
+                                         ragged_plan)
+        h = self.embeddings(ids, pos_ids)
+        seeds = [None] * (cfg.num_layers + 1)
+        if self.dropout_active():
+            seeds = _dropout_seeds(self.generator, cfg.num_layers + 1)
+            h = dropout(h, cfg.hidden_dropout,
+                        generator=_seeded(seeds[0], h.device))
+        k = cfg.recompute_interval if self.training else 0
+        for i, (layer, attend) in enumerate(zip(self.layers, attends)):
+            lr = None
+            if lora is not None:
+                pool_, ids_ = lora
+                lr = (pool_.layer_slabs(i), ids_, pool_.scaling)
+            if attend is None and k and i % k == 0:
+                h = checkpoint(_amp_replayed(layer, amp_state()), h,
+                               attn_mask, None, None, seeds[i + 1],
+                               use_reentrant=False)
+            else:
+                h = layer(h, attn_mask, attend, lr, seeds[i + 1])
+        return self.final_ln(h)
+
+
+def _amp_replayed(fn, st):
+    """``fn`` run under the amp state ``st`` had when this was made: a
+    recompute runs in the backward, outside the forward's ``auto_cast``,
+    and must cast as the forward did."""
+    state = (st.enabled, st.custom_white, st.custom_black, st.level,
+             st.dtype)
+
+    def run(*args):
+        with auto_cast(*state):
+            return fn(*args)
+    return run
+
+
+class GPTForPretraining(nn.Module, _CacheContract):
+    """The layered GPT (the reference's ``GPTForPretraining``): ``gpt``, a
+    :class:`GPTModel`, and the LM head tied to the word embeddings.  Its
+    ``state_dict`` keys are the JAX model's (``gpt.layer_{i}.attn.qkv_proj
+    .weight``, ...), so :meth:`load_jax_state` carries weights across.
+
+    It trains (``forward`` gives the [B, S, V] logits, for
+    ``GPTPretrainingCriterion``), generates (``generate()`` over a
+    per-layer :class:`KVCache`) and serves (``ServingEngine`` over a
+    per-layer ``PagedKVCache``); after :meth:`quantize_weights`
+    (``quantize_for_serving``) its projections are ``Int8Linear`` and the
+    head an int8 product.  The attention routes, kernels and cache
+    arithmetic are the stacked model's (:func:`attend_with_cache`,
+    :func:`attend_paged`); the blocks are the reference's layered code.
+
+    ``device=None`` means ``"cuda"`` and raises when no CUDA device is
+    present; pass ``device="cpu"`` to run on the CPU.  Weights are drawn
+    N(0, initializer_range) from ``torch.Generator(seed)`` on the model's
+    device, in module order (LayerNorm gains 1, biases 0).  Dropout seeds
+    come from ``generator``, a CPU ``torch.Generator`` (``None``: one
+    seeded with ``seed``)."""
+
+    stacked = False       # the cache and LoRA layout this class reads
+
+    def __init__(self, cfg: GPTConfig, *, device=None, dtype="float32",
+                 seed: int = 0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.config = cfg
+        self.device = resolve_device(device)
+        self.dtype = to_torch_dtype(dtype)
+        self.generator = _host_generator(generator, seed)
+        self.gpt = GPTModel(cfg, self.generator, device=self.device,
+                            dtype=self.dtype)
+        self._weight_int8 = False
+        init_weights(self, seed, cfg.initializer_range)
+
+    @property
+    def weight_int8(self) -> bool:
+        """Whether :meth:`quantize_weights` (or ``load_jax_state`` of a
+        quantized JAX model) made this model run on int8 weights."""
+        return self._weight_int8
+
+    @torch.no_grad()
+    def quantize_weights(self):
+        """The reference's ``quantize_for_serving`` of the layered model:
+        qkv_proj, out_proj, fc1 and fc2 of every layer become
+        ``Int8Linear`` (per-output-channel absmax int8 weights, the fp
+        weights dropped), and the tied head ``lm_head_int8`` [hidden, V]
+        with ``lm_head_scale`` [V].  Idempotent."""
+        if self._weight_int8:
+            return
+        for layer in self.gpt.layers:
+            for owner, name in ((layer.attn, "qkv_proj"),
+                                (layer.attn, "out_proj"),
+                                (layer.mlp, "fc1"), (layer.mlp, "fc2")):
+                setattr(owner, name, Int8Linear(getattr(owner, name)))
+        q, s = quantize_weight(self.gpt.embeddings.word_embeddings.weight, 1)
+        self.register_buffer("lm_head_int8", q.t())        # k_major already
+        self.register_buffer("lm_head_scale", s)
+        self._weight_int8 = True
+
+    @torch.no_grad()
+    def load_jax_state(self, state: Mapping[str, np.ndarray]):
+        """Carry the JAX model's weights across: ``state`` maps every key
+        of ``paddle_tpu``'s ``GPTForPretraining.state_dict()`` to a numpy
+        array of the same shape.  A quantized JAX model's buffers
+        (``...weight_int8``, ``...w_scale``, ``lm_head_int8``,
+        ``lm_head_scale``) quantize this model's structure first and are
+        then copied unchanged.  Missing, unknown or mis-shaped keys
+        raise."""
+        int8 = any(k.endswith(".weight_int8") for k in state)
+        if self._weight_int8 and not int8:
+            raise ValueError("load_jax_state: this model is quantized; load "
+                             "fp weights into a fresh model")
+        if int8:
+            self.quantize_weights()
+        bufs = dict(self.named_buffers())
+        missing = sorted(set(bufs) - set(state))
+        if missing:
+            raise KeyError(f"load_jax_state: int8 buffers missing {missing}")
+        for name, b in bufs.items():
+            a = np.asarray(state[name])
+            want = np.int8 if name.endswith("int8") else np.float32
+            if a.dtype != want or tuple(a.shape) != tuple(b.shape):
+                raise ValueError(f"load_jax_state: {name} is {a.dtype} "
+                                 f"{a.shape}, expected {np.dtype(want)} "
+                                 f"{tuple(b.shape)}")
+            b.copy_(torch.from_numpy(a.copy()))    # keeps b's k_major layout
+        load_jax_state(self, {k: v for k, v in state.items()
+                              if k not in bufs})
+
+    def forward(self, input_ids, position_ids=None, attn_mask=None,
+                kv_cache=None, cache_index=None, page_tables=None,
+                ragged_plan=None, out_rows=None, lora=None):
+        """The reference's parameters, in its order.  Without a cache:
+        ``input_ids`` [B, S] at ``position_ids`` (default ``0..S-1``),
+        causal attention, or ``attn_mask`` (boolean or additive,
+        broadcastable to [B, heads, S, S]) in its place; returns the
+        [B, S, V] logits.  With a contiguous ``kv_cache`` (a per-layer
+        :class:`KVCache`) and ``cache_index`` (the Python int 0 for the
+        whole-prompt prefill, or a 0-d device tensor) or a paged one with
+        ``page_tables`` and per-row ``cache_index`` [S]: the step's K/V
+        are written in place and the logits returned; ``ragged_plan``
+        and ``out_rows`` are the serving engine's fused step's (``out_rows``
+        [S'] selects the rows the head projects).  ``lora``:
+        ``(LoRAAdapterPool, ids)``, ``ids`` [B] the adapter page of each
+        row; a contiguous cache refuses it."""
+        if lora is not None and kv_cache is not None and not getattr(
+                kv_cache, "paged", False):
+            raise ValueError("per-request LoRA adapters ride the paged "
+                             "serving step (page_tables required)")
+        h = self.gpt(input_ids, position_ids, attn_mask, kv_cache,
+                     cache_index, page_tables, ragged_plan, lora)
+        if out_rows is not None:
+            # gather each slot's output row BEFORE the vocab projection
+            h = h[out_rows.long()]
+        if self._weight_int8:
+            return quantized_matmul(h, self.lm_head_int8, self.lm_head_scale)
+        h, w = promote(*maybe_cast("matmul", h,
+                                   self.gpt.embeddings.word_embeddings.weight))
+        return h @ w.t()
 
 
 def truncated_draft(model, num_layers: int = 1):
@@ -904,11 +1302,12 @@ def truncated_draft(model, num_layers: int = 1):
     (``serving/speculative.py``; the reference's ``truncated_draft``): the
     same class and config but only the first ``num_layers`` decoder
     blocks, with the target's embeddings, final LayerNorm and tied head.
-    The weights are copied from ``model`` (the stacked slabs sliced on
-    their layer axis), on its device and in its dtype; a model quantized
-    for serving gives a draft quantized the same way (the same absmax
-    scales of the same weights).  The draft owns its own paged pool
-    inside the engine."""
+    The weights are copied from ``model`` by state-dict key (the layered
+    model's ``gpt.layer_{i}`` for i < ``num_layers``; the stacked slabs
+    sliced on their layer axis), on its device and in its dtype.  A model
+    quantized for serving gives a draft quantized the same way: the draft
+    takes the quantized structure, then the target's int8 buffers.  The
+    draft owns its own paged pool inside the engine."""
     import dataclasses
 
     cfg = model.config
@@ -918,13 +1317,13 @@ def truncated_draft(model, num_layers: int = 1):
                          f"[1, {cfg.num_layers}]")
     draft = type(model)(dataclasses.replace(cfg, num_layers=n),
                         device=model.device, dtype=model.dtype)
-    with torch.no_grad():
-        src = dict(model.named_parameters())
-        for name, p in draft.named_parameters():
-            p.copy_(src[name][:n] if name.startswith("decoder.")
-                    else src[name])
     if model.weight_int8:
         draft.quantize_weights()
+    src = model.state_dict()
+    with torch.no_grad():
+        for name, t in draft.state_dict().items():
+            s = src[name]
+            t.copy_(s[:n] if s.shape != t.shape else s)
     draft.eval()
     return draft
 

@@ -73,19 +73,24 @@ def sdpa_reference(q, k, v, mask=None, dropout_p: float = 0.0,
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True,
+                                 training: bool = True, name=None,
+                                 use_flash: Optional[bool] = None, *,
                                  generator: Optional[torch.Generator] = None):
     """Attention of ``[B, S, H, D]`` query, key and value with the softmax
     scale ``1 / sqrt(D)``, returning ``[B, S, H, D]``.  ``dropout_p``
     applies only when ``training``, drawn from ``generator``.  Routed as
-    the module docstring says.  Under ``auto_cast`` O1 the operands (and a
+    the module docstring says; ``use_flash=False`` takes the plain
+    expression whatever the shape (``None``, the JAX package's default
+    flag, and ``True`` leave it to the gate).  ``name`` is accepted, as
+    the reference accepts it.  Under ``auto_cast`` O1 the operands (and a
     float mask) are cast to the amp dtype, on either route (``sdpa`` and
     ``flash_attention`` are white-list ops)."""
     query, key, value, attn_mask = maybe_cast("sdpa", query, key, value,
                                               attn_mask)
     if not training:
         dropout_p = 0.0
-    if flash_eligible(tuple(query.shape), dropout_p, attn_mask):
+    if use_flash is not False and flash_eligible(tuple(query.shape),
+                                                 dropout_p, attn_mask):
         out = flash_attention_bnsd(query.transpose(1, 2),
                                    key.transpose(1, 2),
                                    value.transpose(1, 2), causal=is_causal)

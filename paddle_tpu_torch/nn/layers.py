@@ -65,9 +65,9 @@ class LayerNorm(nn.Module):
 class Dropout(nn.Module):
     """:func:`F.dropout` as a layer, in the reference's order ``(p, axis,
     mode)``: applied in training mode, drawn from ``generator`` (``None``:
-    PyTorch's default generator); in eval mode the identity
-    (``"upscale_in_train"``) or a multiplication by ``1 - p``
-    (``"downscale_in_infer"``)."""
+    PyTorch's default generator), or from the one a call passes; in eval
+    mode the identity (``"upscale_in_train"``) or a multiplication by
+    ``1 - p`` (``"downscale_in_infer"``)."""
 
     def __init__(self, p: float = 0.5, axis=None,
                  mode: str = "upscale_in_train", name=None, *,
@@ -78,9 +78,10 @@ class Dropout(nn.Module):
         self.mode = mode
         self.generator = generator
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         return F.dropout(x, self.p, self.axis, self.training, self.mode,
-                         generator=self.generator)
+                         generator=self.generator if generator is None
+                         else generator)
 
 
 class PortModule(nn.Module):

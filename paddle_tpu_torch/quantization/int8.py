@@ -12,11 +12,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
 from .kv import absmax_scale
 
-__all__ = ["quantize_weight", "quantized_matmul", "quantize_for_serving",
-           "int_mm_rows", "k_major"]
+__all__ = ["quantize_weight", "quantized_matmul", "Int8Linear",
+           "quantize_for_serving", "int_mm_rows", "k_major"]
 
 # torch._int_mm on the card (CUDA, cuBLASLt; chip_smoke.py phase 12
 # probes the rules and prints them): PyTorch refuses 16 rows or fewer and
@@ -100,24 +101,41 @@ def quantized_matmul(x: torch.Tensor, w_int8: torch.Tensor,
     return out
 
 
+class Int8Linear(nn.Module):
+    """Inference replacement for a ``Linear`` (the reference's
+    ``Int8Linear``): its ``[in, out]`` weight quantized with one absmax
+    scale per output channel and kept as the buffers ``weight_int8``
+    (int8, :func:`k_major`) and ``w_scale`` (fp32 [out]), so they persist
+    through ``state_dict``; the fp weight is dropped, the bias kept.
+    ``forward`` is :func:`quantized_matmul` with a per-row dynamic (or the
+    given static ``act_scale``) activation scale; it returns fp32."""
+
+    def __init__(self, linear, act_scale: Optional[float] = None):
+        super().__init__()
+        q, s = quantize_weight(linear.weight, 0)
+        self.register_buffer("weight_int8", k_major(q))
+        self.register_buffer("w_scale", s)
+        self.bias = getattr(linear, "bias", None)
+        self._act_scale = (float(act_scale) if act_scale is not None
+                           else None)
+
+    def forward(self, x):
+        return quantized_matmul(x, self.weight_int8, self.w_scale,
+                                bias=self.bias, act_scale=self._act_scale)
+
+
 def quantize_for_serving(model):
-    """Quantize the serving hot path's projections (qkv, proj, fc1, fc2 of
-    every block and the tied LM head) to int8 with per-output-channel
-    absmax scales, in place, for ``weight_dtype="int8"`` serving.
-    Idempotent; returns ``model``.  Takes the stacked GPT
-    (``GPTStackedDecoder.quantize_weights`` plus the LM head); the layered
-    model's ``Int8Linear`` is not ported."""
+    """Quantize the serving hot path's projections (qkv, out, fc1 and fc2
+    of every block) and the tied LM head to int8 with per-output-channel
+    absmax scales, in place, for ``weight_dtype="int8"`` serving: the
+    model's own ``quantize_weights`` (the stacked GPT's int8 slabs, the
+    layered GPT's :class:`Int8Linear` layers).  Idempotent; returns
+    ``model``."""
     if getattr(model, "weight_int8", False):
         return model
-    dec = getattr(model, "decoder", None)
-    if dec is not None and hasattr(dec, "quantize_weights"):
-        model.quantize_weights()
-        return model
-    if getattr(model, "gpt", None) is not None:
-        raise NotImplementedError(
-            "quantize_for_serving: the layered GPT's Int8Linear is not "
-            "ported yet (ROADMAP.md queue 1, item 4, quantized serving); "
-            "serve the stacked GPTStackedForPretraining")
-    raise ValueError("quantize_for_serving: expected a "
-                     "GPTStackedForPretraining instance (got "
-                     f"{type(model).__name__})")
+    if not hasattr(model, "quantize_weights"):
+        raise ValueError(
+            "quantize_for_serving: expected a GPTForPretraining or "
+            f"GPTStackedForPretraining instance (got {type(model).__name__})")
+    model.quantize_weights()
+    return model

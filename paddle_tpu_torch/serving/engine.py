@@ -88,6 +88,7 @@ import threading
 import time
 import warnings
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
@@ -582,6 +583,11 @@ class ServingEngine:
         if lora is not None and lora.device != model.device:
             raise ValueError(f"the LoRA pool is on {lora.device}, the model "
                              f"on {model.device}")
+        if lora is not None and lora.stacked != model.stacked:
+            raise ValueError(
+                f"LoRAAdapterPool(stacked={lora.stacked}) holds the "
+                f"{'stacked' if lora.stacked else 'layered'} slab layout; "
+                f"{type(model).__name__} reads stacked={model.stacked}")
         max_context = int(max_context or cfg.max_position_embeddings)
         if max_context > cfg.max_position_embeddings:
             raise ValueError(
@@ -812,6 +818,19 @@ class ServingEngine:
             raise
 
     # -- the serving loop --------------------------------------------------
+    @contextmanager
+    def _eval_mode(self):
+        """The model in eval mode for a step (no dropout on a layered
+        model built for training), back in its own mode after."""
+        was = self.model.training
+        if was:
+            self.model.eval()
+        try:
+            yield
+        finally:
+            if was:
+                self.model.train()
+
     def step(self) -> dict:
         """One scheduler tick: reap cancelled/expired requests, admit what
         fits (admission only reserves pages and seats), run ONE fused
@@ -820,7 +839,8 @@ class ServingEngine:
         requests (their pages free at once).  A crashed or stalled step
         fails the implicated requests and the engine recovers.  Returns
         this step's metrics."""
-        with self._lock, torch.no_grad(), _ttrace.span("serve.step"):
+        with self._lock, torch.no_grad(), self._eval_mode(), \
+                _ttrace.span("serve.step"):
             self._check_open()
             t0 = time.perf_counter()
             self._step_emitted = 0

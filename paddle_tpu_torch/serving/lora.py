@@ -3,10 +3,16 @@
 
 One fused step serves MANY fine-tuned tenants: every registered adapter's
 low-rank factors live in paged device SLABS -- per target matrix ``m``
-with base weight ``W_m`` of ``[in, out]``, an A-slab
-``[L, num_adapter_pages, in, r]`` and a B-slab ``[L, num_adapter_pages,
-r, out]`` (the stacked layout the stacked GPT reads layer by layer) --
-and each step token carries the int32 adapter-PAGE id of its request.
+with base weight ``W_m`` of ``[in, out]``, an A-slab and a B-slab of
+``num_adapter_pages`` pages of ``[in, r]`` and ``[r, out]`` factors a
+layer -- and each step token carries the int32 adapter-PAGE id of its
+request.  The slab layout matches the model class (``stacked``): the
+layered GPT's ``[P, L, in, r]`` / ``[P, L, r, out]``, page axis first
+(the reference's default, ``stacked=False``; :meth:`LoRAAdapterPool.
+layer_slabs` slices a layer), or the stacked GPT's ``[L, P, in, r]`` /
+``[L, P, r, out]`` (``stacked=True``; read layer by layer beside its
+stacked weights).  The engine refuses a pool whose layout is not its
+model's.
 Inside the step every projection computes
 
     x @ W_m  +  scaling * (x @ A_m[page]) @ B_m[page]
@@ -24,8 +30,7 @@ refcount: evicting it raises the typed :class:`AdapterInUse`.
 Target matrices: ``qkv``, ``out_proj``, ``fc1``, ``fc2``; the per-layer
 slab order is ``(qkv_A, qkv_B, proj_A, proj_B, fc1_A, fc1_B, fc2_A,
 fc2_B)``.  Slab bytes = 2 * r * (4h + 3h + f + f + h + h) * L * pages *
-itemsize.  The port has the stacked GPT only: the layered layout
-(``stacked=False``) comes with the layered GPT.
+itemsize.
 """
 from __future__ import annotations
 
@@ -42,12 +47,17 @@ from .paged_cache import BlockAllocator
 __all__ = ["LoRAAdapterPool", "AdapterError", "AdapterInUse",
            "UnknownAdapter", "random_adapter"]
 
-# the per-layer slab order the stacked GPT consumes (A then B per matrix)
+# the per-layer slab order both GPT classes consume (A then B per matrix)
 TARGETS = ("qkv", "out_proj", "fc1", "fc2")
 NULL_ADAPTER = 0
-# the stacked GPT's weight of each target matrix
-_WEIGHTS = {"qkv": "decoder.qkv_w", "out_proj": "decoder.proj_w",
-            "fc1": "decoder.fc1_w", "fc2": "decoder.fc2_w"}
+# the weight of each target matrix: the stacked GPT's [L, in, out] slab,
+# and the layered GPT's [in, out] weight of layer {i}
+_STACKED_WEIGHTS = {"qkv": "decoder.qkv_w", "out_proj": "decoder.proj_w",
+                    "fc1": "decoder.fc1_w", "fc2": "decoder.fc2_w"}
+_LAYERED_WEIGHTS = {"qkv": "gpt.layer_{}.attn.qkv_proj.weight",
+                    "out_proj": "gpt.layer_{}.attn.out_proj.weight",
+                    "fc1": "gpt.layer_{}.mlp.fc1.weight",
+                    "fc2": "gpt.layer_{}.mlp.fc2.weight"}
 
 
 class AdapterError(ServingError):
@@ -93,27 +103,23 @@ class LoRAAdapterPool:
     ``num_adapter_pages`` counts REGISTRABLE adapters (the null page is
     extra); ``rank`` is fixed per pool; ``alpha`` defaults to ``rank``
     (scaling = alpha / rank = 1.0); ``dtype`` is the slabs' (the adapter
-    precision).  ``stacked=False`` (the layered GPT's layout) raises:
-    ROADMAP.md queue 1, item 3 brings the layered GPT."""
+    precision).  ``stacked`` selects the slab layout of the model class
+    served: False (the default) for ``GPTForPretraining``, True for
+    ``GPTStackedForPretraining``."""
 
     def __init__(self, cfg, *, num_adapter_pages: int = 8, rank: int = 4,
                  alpha: Optional[float] = None, dtype: str = "float32",
-                 stacked: bool = True, device=None):
+                 stacked: bool = False, device=None):
         if rank < 1:
             raise ValueError(f"rank must be >= 1, got {rank}")
         if num_adapter_pages < 1:
             raise ValueError("num_adapter_pages must be >= 1")
-        if not stacked:
-            raise NotImplementedError(
-                "LoRAAdapterPool(stacked=False) serves the layered GPT, "
-                "which is not ported yet: ROADMAP.md queue 1, item 3, "
-                "generate() and the layered GPT")
         self.cfg = cfg
         self.rank = int(rank)
         self.alpha = float(alpha if alpha is not None else rank)
         self.scaling = self.alpha / self.rank
         self.dtype = dtype_name(dtype)
-        self.stacked = True
+        self.stacked = bool(stacked)
         self.device = resolve_device(device)
         self.num_pages = int(num_adapter_pages) + 1      # + null page
         self.allocator = BlockAllocator(self.num_pages)
@@ -123,15 +129,30 @@ class LoRAAdapterPool:
         td = to_torch_dtype(self.dtype)
         L, P, r = cfg.num_layers, self.num_pages, self.rank
         self._slabs: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        lead = (L, P) if stacked else (P, L)
         for m, (din, dout) in _matrix_dims(cfg).items():
             self._slabs[m] = (
-                torch.zeros((L, P, din, r), dtype=td, device=self.device),
-                torch.zeros((L, P, r, dout), dtype=td, device=self.device))
+                torch.zeros(lead + (din, r), dtype=td, device=self.device),
+                torch.zeros(lead + (r, dout), dtype=td, device=self.device))
 
     # -- slab views (models/gpt.py contract) -------------------------------
+    def layer_slabs(self, i: int):
+        """Layer ``i``'s 8-tuple of ``[P, dim, r]`` / ``[P, r, dim]`` slab
+        views (the layered layout; strided, page axis first, so a row's
+        gather stays one ``index_select``)."""
+        if self.stacked:
+            raise ValueError("layer_slabs() is for the layered layout; "
+                             "stacked models read stacked_slabs()")
+        out = []
+        for m in TARGETS:
+            out.extend(t[:, i] for t in self._slabs[m])
+        return tuple(out)
+
     def stacked_slabs(self):
         """8-tuple of stacked ``[L, P, dim, r]`` / ``[L, P, r, dim]`` slab
         tensors, read layer by layer beside the stacked parameters."""
+        if not self.stacked:
+            raise ValueError("stacked_slabs() is for the stacked layout")
         out = []
         for m in TARGETS:
             out.extend(self._slabs[m])
@@ -192,8 +213,12 @@ class LoRAAdapterPool:
         with torch.no_grad():
             for m, (a_np, b_np) in staged.items():
                 at, bt = self._slabs[m]
-                at[:, page].copy_(torch.from_numpy(a_np))
-                bt[:, page].copy_(torch.from_numpy(b_np))
+                if self.stacked:
+                    at, bt = at[:, page], bt[:, page]
+                else:
+                    at, bt = at[page], bt[page]
+                at.copy_(torch.from_numpy(a_np))
+                bt.copy_(torch.from_numpy(b_np))
 
     def evict(self, name: str):
         """Free the adapter's page.  Typed :class:`AdapterInUse` while any
@@ -256,9 +281,15 @@ class LoRAAdapterPool:
         with torch.no_grad():
             for m in TARGETS:
                 at, bt = self._slabs[m]
-                a = at[:, page].float().to(sd[_WEIGHTS[m]].device)
-                b = bt[:, page].float().to(a.device)
-                w = sd[_WEIGHTS[m]]
-                delta = torch.einsum("lir,lro->lio", a, b) * self.scaling
-                sd[_WEIGHTS[m]] = (w.float() + delta).to(w.dtype)
+                a, b = ((at[:, page], bt[:, page]) if self.stacked
+                        else (at[page], bt[page]))
+                delta = torch.einsum("lir,lro->lio", a.float(),
+                                     b.float()) * self.scaling
+                keys = ([_STACKED_WEIGHTS[m]] if self.stacked else
+                        [_LAYERED_WEIGHTS[m].format(i)
+                         for i in range(self.cfg.num_layers)])
+                for key, d in zip(keys, [delta] if self.stacked
+                                  else delta.unbind(0)):
+                    w = sd[key]
+                    sd[key] = (w.float() + d.to(w.device)).to(w.dtype)
         return sd

@@ -1,10 +1,11 @@
 """Paged KV cache: a global pool of fixed-size KV pages + free-list
 allocator (port of ``paddle_tpu/serving/paged_cache.py``).
 
-ONE pool of ``[num_pages, H, page_size, D]`` pages per layer, stacked as
-``[L, num_pages, H, page_size, D]`` torch tensors on the model's device,
-is shared by every decode slot; a slot's context is named by its *page
-table* (an int32 row of pool page ids), so memory scales with live tokens.
+ONE pool of ``[num_pages, H, page_size, D]`` pages per layer (one tensor
+a layer for the layered GPT, stacked as ``[L, num_pages, H, page_size,
+D]`` for the stacked one) on the model's device is shared by every decode
+slot; a slot's context is named by its *page table* (an int32 row of pool
+page ids), so memory scales with live tokens.
 
 Page 0 is the **null page**: never handed out by the allocator, it absorbs
 the writes of inactive slots and prefill padding (their page-table entries
@@ -15,8 +16,8 @@ The fused step writes the pool IN PLACE (``index_put_``): PyTorch tensors
 are mutable, so the pool needs no donation to be updated without a copy.
 
 ``dtype="int8"`` is the quantized pool: int8 pages plus ``k_scale`` /
-``v_scale``, stacked ``[L, num_pages, H]`` fp32 absmax scales, one per
-(page, head).  A scale row is addressed by the page id it describes, so it
+``v_scale`` fp32 absmax scales, one per (page, head), in the pages'
+layout.  A scale row is addressed by the page id it describes, so it
 needs no allocator of its own: it travels with its page through every
 ledger transition.
 ``BlockAllocator`` is host bookkeeping, copied whole from the JAX package
@@ -30,6 +31,7 @@ from typing import List, Optional
 import torch
 
 from ..core import dtype_name, resolve_device, to_torch_dtype
+from ..models.generation import _KVBuffers
 
 __all__ = ["NULL_PAGE", "PagedKVCache", "BlockAllocator",
            "pages_for_tokens"]
@@ -55,18 +57,26 @@ def pages_for_tokens(tokens: int, page_size: int) -> int:
     return -(-tokens // page_size)
 
 
-class PagedKVCache:
-    """Global KV page pool: ``k``/``v`` are ``[L, num_pages, H, page_size,
-    D]`` tensors on ``device``, zero-initialised.  ``paged`` is the marker
-    the model dispatches on.  An int8 pool (``quantized``) also holds
-    ``k_scale``/``v_scale`` ``[L, num_pages, H]`` fp32 zeros (the
-    quantizer's fresh-page sentinel); a float pool holds None there."""
+class PagedKVCache(_KVBuffers):
+    """Global KV page pool on ``device``, zero-initialised.  ``paged`` is
+    the marker the model dispatches on.
+
+    ``stacked=False`` (the reference's default; the layered GPT's): per-
+    layer ``k[i]``/``v[i]`` of ``[num_pages, H, page_size, D]``, read
+    through :meth:`layer` and :meth:`layer_scales`.  ``stacked=True`` (the
+    stacked GPT's): one pair of ``[L, num_pages, H, page_size, D]``
+    tensors read whole.  An int8 pool (``quantized``) also holds
+    ``k_scale``/``v_scale``, fp32 zeros (the quantizer's fresh-page
+    sentinel) of ``[num_pages, H]`` a layer, or ``[L, num_pages, H]``
+    stacked; a float pool holds None there."""
 
     paged = True
+    # nbytes counts the scales, and release drops them, with the pages
+    _FIELDS = ("k", "v", "k_scale", "v_scale")
 
     def __init__(self, num_layers: int, num_pages: int, num_heads: int,
                  page_size: int, head_dim: int, dtype="bfloat16",
-                 device=None):
+                 stacked: bool = False, *, device=None):
         if num_pages < 2:
             raise ValueError(
                 f"num_pages={num_pages}: the pool needs the null page plus "
@@ -77,33 +87,44 @@ class PagedKVCache:
         self.page_size = page_size
         self.head_dim = head_dim
         self.dtype = dtype_name(dtype)
+        self.stacked = bool(stacked)
         self.device = resolve_device(device)
         self.quantized = self.dtype == "int8"
-        shape = (num_layers, num_pages, num_heads, page_size, head_dim)
+
+        def alloc(shape, td):
+            if stacked:
+                return torch.zeros((num_layers,) + shape, dtype=td,
+                                   device=self.device)
+            return [torch.zeros(shape, dtype=td, device=self.device)
+                    for _ in range(num_layers)]
+
         td = to_torch_dtype(dtype, storage=True)
-        self.k: Optional[torch.Tensor] = torch.zeros(shape, dtype=td,
-                                                     device=self.device)
-        self.v: Optional[torch.Tensor] = torch.zeros(shape, dtype=td,
-                                                     device=self.device)
+        shape = (num_pages, num_heads, page_size, head_dim)
+        self.k, self.v = alloc(shape, td), alloc(shape, td)
         self.k_scale = self.v_scale = None
         if self.quantized:
-            ss = (num_layers, num_pages, num_heads)
-            self.k_scale = torch.zeros(ss, dtype=torch.float32,
-                                       device=self.device)
-            self.v_scale = torch.zeros(ss, dtype=torch.float32,
-                                       device=self.device)
+            ss = (num_pages, num_heads)
+            self.k_scale = alloc(ss, torch.float32)
+            self.v_scale = alloc(ss, torch.float32)
 
-    @property
-    def nbytes(self) -> int:
-        """Device bytes of the pool, its scales included."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.k, self.v, self.k_scale, self.v_scale)
-                   if t is not None)
+    def layer(self, i: int):
+        """(k, v) pool tensors of layer ``i`` (the per-layer layout
+        only)."""
+        if self.stacked:
+            raise ValueError("layer() is for the per-layer pool layout; "
+                             "the stacked pool is read whole")
+        return self.k[i], self.v[i]
 
-    def release(self):
-        """Drop the pool tensors and their scales (their device memory
-        returns to the caching allocator)."""
-        self.k = self.v = self.k_scale = self.v_scale = None
+    def layer_scales(self, i: int):
+        """(k_scale, v_scale) of layer ``i``, ``(None, None)`` for a float
+        pool (the per-layer layout only)."""
+        if self.stacked:
+            raise ValueError("layer_scales() is for the per-layer pool "
+                             "layout; the stacked pool is read whole")
+        if not self.quantized:
+            return None, None
+        return self.k_scale[i], self.v_scale[i]
+
 
 
 class BlockAllocator:

@@ -74,7 +74,7 @@ def _pools(cfg, names_seeds, rank=3, pages=3, dtype="float32"):
     jp = JaxPool(cfg, num_adapter_pages=pages, rank=rank, dtype=dtype,
                  stacked=True)
     tp = LoRAAdapterPool(cfg, num_adapter_pages=pages, rank=rank,
-                         dtype=dtype, device="cpu")
+                         dtype=dtype, stacked=True, device="cpu")
     for name, seed in names_seeds:
         w = random_adapter(cfg, rank, np.random.RandomState(seed))
         assert jp.register(name, w) == tp.register(name, w)
@@ -158,8 +158,10 @@ def test_pool_ledger_and_typed_errors():
     assert pool.allocator.used_pages == 1
     pool.evict("b")
     assert pool.allocator.free_pages == pool.allocator.capacity
-    with pytest.raises(NotImplementedError, match="item 3"):
-        LoRAAdapterPool(cfg, stacked=False, device="cpu")
+    # the reference's default layout is the layered GPT's, page axis first
+    layered = LoRAAdapterPool(cfg, device="cpu")
+    assert not layered.stacked
+    assert layered.layer_slabs(1)[0].shape == (9, cfg.hidden_size, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -298,13 +300,14 @@ def test_register_evict_churn_writes_the_slabs_in_place(models):
     weights = [random_adapter(cfg, 2, np.random.RandomState(i))
                for i in range(3)]
     scratch = LoRAAdapterPool(cfg, num_adapter_pages=3, rank=2,
-                              device="cpu")
+                              stacked=True, device="cpu")
     wants = []
     for i, w in enumerate(weights):
         scratch.register(f"gen{i}", w)
         wants.append(ServingEngine(_merged(tm, scratch, f"gen{i}"),
                                    **ENG_KW).generate_batch(prompts, 4))
-    pool = LoRAAdapterPool(cfg, num_adapter_pages=2, rank=2, device="cpu")
+    pool = LoRAAdapterPool(cfg, num_adapter_pages=2, rank=2, stacked=True,
+                           device="cpu")
     ptrs = [t.data_ptr() for t in pool.stacked_slabs()]
     eng = ServingEngine(tm, lora=pool, **ENG_KW)
     for i, w in enumerate(weights):

@@ -15,7 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_tiny
+from paddle_tpu_torch import inference
+from paddle_tpu_torch.models import (
+    GPTForPretraining, GPTStackedForPretraining, gpt_tiny,
+)
 from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
 from paddle_tpu_torch.quantization import quantize_for_serving
 from paddle_tpu_torch.serving import (
@@ -124,18 +127,20 @@ def test_int8_engine_knobs_are_accepted(knob, value):
     assert m.weight_int8 == (knob == "weight_dtype")
 
 
-def _lora_pool(cfg):
-    pool = LoRAAdapterPool(cfg, num_adapter_pages=2, rank=2, device="cpu")
+def _lora_pool(cfg, stacked=True):
+    pool = LoRAAdapterPool(cfg, num_adapter_pages=2, rank=2, stacked=stacked,
+                           device="cpu")
     pool.register("a", random_adapter(cfg, 2, np.random.RandomState(0)))
     return pool
 
 
-def _engine_step(**kw):
-    """Construct an engine with ``kw`` and step it once over one request
-    (on the LoRA pool's adapter when there is one): the knob is taken."""
-    m = GPTStackedForPretraining(gpt_tiny(), device="cpu")
+def _engine_step(model_cls=GPTStackedForPretraining, **kw):
+    """Construct an engine of a ``model_cls`` model with ``kw`` and step it
+    once over one request (on the LoRA pool's adapter when there is one):
+    the knob is taken."""
+    m = model_cls(gpt_tiny(), device="cpu")
     if kw.get("lora") == "pool":
-        kw["lora"] = _lora_pool(m.config)
+        kw["lora"] = _lora_pool(m.config, stacked=m.stacked)
     eng = ServingEngine(m, num_slots=2, page_size=16, max_context=64, **kw)
     r = eng.submit([1, 2, 3], 2,
                    adapter="a" if eng.lora is not None else None)
@@ -196,9 +201,23 @@ def _params(dtype=torch.float32):
     return [torch.nn.Parameter(torch.zeros(4, dtype=dtype))]
 
 
+def _layered_quantized():
+    m = quantize_for_serving(GPTForPretraining(gpt_tiny(), device="cpu"))
+    assert m.weight_int8 and m.gpt.layer_0.attn.qkv_proj.weight_int8.dtype \
+        == torch.int8
 
-class _Layered(torch.nn.Module):
-    gpt = object()          # the layered GPT's shape, not ported
+
+def _predictor(mode):
+    """A Predictor of a live layered model in ``mode`` runs one batch."""
+    m = GPTForPretraining(gpt_tiny(), device="cpu")
+    config = inference.Config().set_causal_lm_model(m)
+    if mode == "serving":
+        config.enable_serving_mode(max_new_tokens=2, page_size=16,
+                                   max_context=64)
+    else:
+        config.enable_causal_lm_decode(max_new_tokens=2, max_seq_len=64)
+    out = inference.create_predictor(config).run([np.array([[1, 2, 3]])])
+    assert tuple(out[0].shape) == (1, 5)
 
 
 # every refused knob: (how to provoke it, words its item's title must hold)
@@ -208,8 +227,9 @@ REFUSALS = {
     "gpt n_micro": (
         lambda: GPTStackedForPretraining(gpt_tiny(), 2, device="cpu"),
         "training"),
-    "quantize_for_serving layered": (lambda: quantize_for_serving(_Layered()),
-                                     "quantized serving"),
+    "predictor saved program": (
+        lambda: inference.create_predictor(inference.Config("model")),
+        "long-tail"),
 }
 
 
@@ -232,7 +252,34 @@ PORTED = {
         lambda: FusedTrainStep(lambda: None, AdamW(parameters=_params()),
                                amp_level="O1"), 2, "training"),
     "engine lora": (lambda: _engine_step(lora="pool"), 8, "lora"),
+    "quantize_for_serving layered": (_layered_quantized, 4,
+                                     "quantized serving"),
+    "lora pool stacked=False": (
+        lambda: _engine_step(GPTForPretraining, lora="pool"), 3,
+        "layered gpt"),
+    "engine layered gpt": (lambda: _engine_step(GPTForPretraining), 3,
+                           "layered gpt"),
+    "generate layered gpt": (
+        lambda: GPTForPretraining(gpt_tiny(), device="cpu").generate(
+            np.array([[1, 2]]), 2, max_seq_len=16), 3, "layered gpt"),
+    "predictor decode mode": (
+        lambda: _predictor("decode"), 3, "predictor"),
+    "predictor serving mode": (
+        lambda: _predictor("serving"), 3, "predictor"),
 }
+
+
+def test_lora_pool_defaults_to_the_layered_layout():
+    """The reference's default (``stacked=False``); a pool whose layout is
+    not the model's is refused when the engine is built."""
+    cfg = gpt_tiny()
+    assert not LoRAAdapterPool(cfg, device="cpu").stacked
+    for cls, stacked in ((GPTStackedForPretraining, False),
+                         (GPTForPretraining, True)):
+        pool = LoRAAdapterPool(cfg, stacked=stacked, device="cpu")
+        with pytest.raises(ValueError, match="layout"):
+            ServingEngine(cls(cfg, device="cpu"), lora=pool, num_slots=2,
+                          page_size=16, max_context=64)
 
 
 @pytest.mark.parametrize("knob", sorted(REFUSALS) + sorted(PORTED))

@@ -28,7 +28,9 @@ from paddle_tpu.quantization.int8 import (
     quantize_for_serving as jax_quantize_for_serving, quantized_matmul_raw,
 )
 
-from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_tiny
+from paddle_tpu_torch.models import (
+    GPTForPretraining, GPTStackedForPretraining, gpt_tiny,
+)
 from paddle_tpu_torch.quantization import (
     TINY_SCALE, dequant_pages, quantize_for_serving, quantize_kv_write,
     quantized_matmul,
@@ -151,11 +153,10 @@ def test_quantize_for_serving_is_idempotent_and_refuses_other_models(
     quantize_for_serving(tm)
     assert all(torch.equal(before[k], v) for k, v in tm.named_buffers())
 
-    class Layered(torch.nn.Module):       # the layered GPT's shape
-        gpt = object()
-
-    with pytest.raises(NotImplementedError, match="item 4"):
-        quantize_for_serving(Layered())
+    # the layered GPT is quantized too (Int8Linear), no longer refused
+    layered = quantize_for_serving(GPTForPretraining(gpt_tiny(),
+                                                     device="cpu"))
+    assert layered.weight_int8
     with pytest.raises(ValueError, match="GPTStackedForPretraining"):
         quantize_for_serving(torch.nn.Linear(2, 2))
 

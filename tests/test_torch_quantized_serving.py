@@ -145,14 +145,16 @@ def test_weight_dtype_other_than_int8_raises(served):
 
 
 def test_int8_pool_counts_and_releases_its_scales():
-    c = PagedKVCache(2, 9, 4, 16, 16, dtype="int8", device="cpu")
+    c = PagedKVCache(2, 9, 4, 16, 16, dtype="int8", stacked=True,
+                     device="cpu")
     assert c.quantized and c.k.dtype == torch.int8
     assert c.k_scale.shape == c.v_scale.shape == (2, 9, 4)
     assert c.k_scale.dtype == torch.float32 and not bool(c.k_scale.any())
     assert c.nbytes == 2 * 2 * 9 * 4 * 16 * 16 + 2 * 2 * 9 * 4 * 4
     c.release()
     assert c.nbytes == 0 and c.k_scale is None and c.v_scale is None
-    f = PagedKVCache(2, 9, 4, 16, 16, dtype="bfloat16", device="cpu")
+    f = PagedKVCache(2, 9, 4, 16, 16, dtype="bfloat16", stacked=True,
+                     device="cpu")
     assert not f.quantized and f.k_scale is None
     assert f.nbytes == 2 * 2 * 9 * 4 * 16 * 16 * 2
 
@@ -467,7 +469,8 @@ def test_lora_on_int8_projections_matches_jax(served):
     # factors large enough that the delta moves tokens
     w = random_adapter(cfg, 3, np.random.RandomState(7), scale=0.3)
     jp = JaxPool(cfg, num_adapter_pages=2, rank=3, stacked=True)
-    tp = LoRAAdapterPool(cfg, num_adapter_pages=2, rank=3, device="cpu")
+    tp = LoRAAdapterPool(cfg, num_adapter_pages=2, rank=3, stacked=True,
+                         device="cpu")
     jp.register("t1", w)
     tp.register("t1", w)
     jm = _jax_model(state, True)

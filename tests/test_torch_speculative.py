@@ -19,7 +19,9 @@ GPT by ``load_jax_state`` (fp32).
   ``free + used + spec + shared == capacity`` holds on both pools at every
   step.
 
-The layered GPT's cases wait for ROADMAP.md queue 1, item 3."""
+The layered GPT (``GPTForPretraining``) takes the greedy case with its
+truncated draft, against the JAX layered target and ``truncated_draft``
+of it."""
 import time
 
 import numpy as np
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 import paddle_tpu as pt
+from paddle_tpu.models import GPTForPretraining as JaxLayered
 from paddle_tpu.models import GPTStackedForPretraining as JaxGPT
 from paddle_tpu.models import gpt_tiny as jax_gpt_tiny
 from paddle_tpu.models import truncated_draft as jax_truncated_draft
@@ -34,7 +37,7 @@ from paddle_tpu.serving import ServingEngine as JaxEngine
 from paddle_tpu.serving import SpeculativeEngine as JaxSpeculativeEngine
 
 from paddle_tpu_torch.models import (
-    GPTStackedForPretraining, gpt_tiny, truncated_draft,
+    GPTForPretraining, GPTStackedForPretraining, gpt_tiny, truncated_draft,
 )
 from paddle_tpu_torch.serving import (
     RequestState, SamplingParams, ServingEngine, SpeculativeEngine,
@@ -74,6 +77,18 @@ def models():
     return jm, tm
 
 
+def layered_models():
+    """The layered JAX model (seed 0) and the port's with its weights."""
+    pt.seed(0)
+    jm = JaxLayered(jax_gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0))
+    jm.eval()
+    tm = GPTForPretraining(gpt_tiny(), device="cpu")
+    tm.load_jax_state({k: np.asarray(v.numpy())
+                       for k, v in jm.state_dict().items()})
+    tm.eval()
+    return jm, tm
+
+
 def _prompts(lengths=(5, 18, 9, 26, 13), seed=1):
     rng = np.random.RandomState(seed)
     return [rng.randint(0, 1024, (s,)) for s in lengths]
@@ -108,13 +123,17 @@ def _drain(eng, reqs, max_steps=3000):
 def test_greedy_speculation_matches_jax(models, draft):
     """Same tokens as the JAX plain engine and as the JAX speculative
     engine with the same draft, and the same speculation counts."""
-    if draft == "layered":
-        pytest.skip("the layered GPT (GPTForPretraining) is not ported: "
-                    "ROADMAP.md queue 1, item 3")
-    jm, tm = models
+    jm, tm = layered_models() if draft == "layered" else models
     prompts = _prompts()
     if draft == "same_model":
         jd, td = jm, tm
+    elif draft == "layered":
+        # the layered target and its truncated draft: gpt.layer_0 by key
+        jd, td = jax_truncated_draft(jm, 1), truncated_draft(tm, 1)
+        assert td.config.num_layers == 1 and not td.stacked
+        np.testing.assert_array_equal(
+            td.gpt.layer_0.attn.qkv_proj.weight.detach().numpy(),
+            tm.gpt.layer_0.attn.qkv_proj.weight.detach().numpy())
     else:
         jd, td = jax_truncated_draft(jm, 1), truncated_draft(tm, 1)
         assert td.config.num_layers == 1

@@ -9,9 +9,11 @@ same ``generate`` under ``torch.profiler`` for device time by kernel.
 Prints the card's name and power limit, the times, the device busy share
 and the kernels ranked by device time, grouped into the port's flash
 forward and decode-attention kernels, matrix products, cache writes and
-the rest, per generated token.  Run from the repository root:
+the rest, per generated token.  ``--layered`` runs the layered GPT
+(``GPTForPretraining``, phase 35) in place of the stacked one.  Run from
+the repository root:
 
-    python3 tools/port_generate_profile.py [--trace TRACE.json]
+    python3 tools/port_generate_profile.py [--layered] [--trace TRACE.json]
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ def _timed(torch, model, ids, new):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layered", action="store_true",
+                    help="the layered GPT (GPTForPretraining)")
     ap.add_argument("--trace", help="write the Chrome trace here")
     args = ap.parse_args()
     import torch
@@ -60,7 +64,9 @@ def main() -> int:
         return 2
     port = chip_smoke.import_port()
     print(f"card: {chip_smoke.card_line()}")
-    model, ids = chip_smoke.generate_setup(port)
+    model, ids = chip_smoke.generate_setup(
+        port, "Layered" if args.layered else "GPT")
+    print(f"model {type(model).__name__}")
     new = chip_smoke.GEN_NEW
     prefill = _timed(torch, model, ids, 1)
     wall = _timed(torch, model, ids, new)

@@ -13,10 +13,12 @@ into attention (the port's kernel), matrix products and the rest.
 ``--lora`` serves the same requests through phase 29's adapter pool (4
 adapters of rank 16 on all four targets, the requests spread over them
 and the null adapter); ``--spec-draft N`` through phase 28's speculative
-engine (k 4) with ``truncated_draft(model, N)`` as its draft.  Run from
-the repository root:
+engine (k 4) with ``truncated_draft(model, N)`` as its draft.
+``--layered`` serves the layered GPT (``GPTForPretraining``, phase 36;
+its LoRA pool in the layered layout) in place of the stacked one.  Run
+from the repository root:
 
-    python3 tools/port_serve_profile.py [--kv-dtype int8] \
+    python3 tools/port_serve_profile.py [--layered] [--kv-dtype int8] \
         [--weight-dtype int8] [--lora | --spec-draft N] \
         [--trace serve_trace.json]
 """
@@ -104,18 +106,21 @@ def _engine(port, args):
     adapters)``: ``adapters(n)`` names the adapter of each of n
     requests."""
     cs = chip_smoke
-    if not args.lora and args.spec_draft is None:
-        eng, rng = cs.serve_engine(port, args.kv_dtype, args.weight_dtype)
-        return eng, rng, lambda n: [None] * n
     cfg = port["gpt_1p3b"]()
-    model = port["GPT"](cfg, device=cs.DEVICE, dtype="bfloat16", seed=0)
+    model = port["Layered" if args.layered else "GPT"](
+        cfg, device=cs.DEVICE, dtype="bfloat16", seed=0)
+    model.eval()
+    if not args.lora and args.spec_draft is None:
+        eng, rng = cs.serve_engine(port, args.kv_dtype, args.weight_dtype,
+                                   model=model)
+        return eng, rng, lambda n: [None] * n
     kw = cs._engine_kw(kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype)
     names = [f"tenant{i}" for i in range(cs.LORA_ADAPTERS)]
     if args.lora:
         s = port["serving"]
         pool = s.LoRAAdapterPool(cfg, num_adapter_pages=cs.LORA_ADAPTERS,
                                  rank=cs.LORA_RANK, dtype="bfloat16",
-                                 device=cs.DEVICE)
+                                 stacked=model.stacked, device=cs.DEVICE)
         for i, name in enumerate(names):
             pool.register(name, s.random_adapter(
                 cfg, cs.LORA_RANK, np.random.RandomState(290 + i)))
@@ -154,6 +159,8 @@ def main() -> int:
                     help="serve through phase 29's LoRA adapter pool")
     ap.add_argument("--spec-draft", type=int, default=None, metavar="N",
                     help="speculate with truncated_draft(model, N), k 4")
+    ap.add_argument("--layered", action="store_true",
+                    help="the layered GPT (GPTForPretraining)")
     ap.add_argument("--trace", help="write the Chrome trace here")
     args = ap.parse_args()
     import torch
@@ -165,7 +172,8 @@ def main() -> int:
     port = chip_smoke.import_port()
     print(f"card: {chip_smoke.card_line()}")
     eng, rng, adapters = _engine(port, args)
-    print(f"kv {args.kv_dtype}, weights {args.weight_dtype or 'bfloat16'}, "
+    print(f"model {type(eng.model).__name__}, "
+          f"kv {args.kv_dtype}, weights {args.weight_dtype or 'bfloat16'}, "
           f"lora {args.lora}, speculative draft layers {args.spec_draft}")
     if args.lora or args.spec_draft is not None:
         def workload():
