@@ -229,6 +229,8 @@ result line:
    token block each) beside prefill chunks; a tail prefill from position
    384 over three pages another slot wrote, beside a decode of that slot;
    the draft's catch-up runs over the second layer of a 2-layer pool;
+   phase 3's mixed step at H/2 = 8 heads over one shard's own pool (int8
+   scales ``[P, H/2]``), the shape phases 41-43 launch at mp=2;
 26. prefix cache -- phase 3's engine with max_context 1024: a 384-token
    system prompt registered by one warm request, then 16 requests of it
    and a 16-200-token tail, 32 new tokens each, against the same traffic
@@ -336,7 +338,47 @@ result line:
    dQ launches, finite loss and gradients; then at batch
    ``LAYERED_TRAIN_CPU_BATCH`` the card's loss and gradients against the
    CPU's in fp32 from the same weights (``TRAIN_LOSS_REL``,
-   ``TRAIN_GRAD_NORM``).
+   ``TRAIN_GRAD_NORM``);
+41. sharded serve -- ``ShardedServingEngine`` over GPT-3 1.3B bf16 at
+   full width and depth (seed 0; the stacked and the layered GPT) at
+   (dp, mp) in ``SHARD_MESHES``, every replica and shard on ``cuda:0``
+   (``devices=["cuda:0"] * dp * mp``), phase 3's engine and traffic.  Each
+   request must sit on the replica least-loaded placement gives it, each
+   tick launch the ragged kernel exactly 24 x mp times per replica that
+   ran a fused step, each shard's pool hold ``nbytes / mp``
+   (``cache_bytes_per_chip`` too), every ledger come back to zero, and
+   the tokens follow the parity rule against phase 3's engine on the same
+   weights.  Co-resident replicas step in order; the stacked (2, 1) also
+   runs with the replicas on the cluster's thread pool (its rule
+   patched), as replicas on disjoint cards step.  At mp=2 replica 0's
+   weights on the card must not exceed the unsharded model's (the whole
+   projections are dropped once the shards hold them).  Prints tokens/s,
+   the mean tick, the launches, replica 0's weight bytes a shard's card
+   would hold on distinct cards and, for the stacked GPT, the device time
+   per fused step under ``torch.profiler``;
+42. sharded int8 -- an int8 pool and int8 weights at (dp, mp) = (1, 2),
+   whose tokens must be phase 13's engine's, every one (the int8 products
+   reduce exact int32 accumulators), then at (2, 2) under the parity rule
+   (two replicas chunk the prompts otherwise, and a page's int8 scale
+   follows its writes): the scales sharded ``[L, P, H/mp]`` and finite,
+   24 x 2 int8 ragged launches per replica step;
+43. disaggregated -- ``DisaggServingEngine`` roles (prefill, decode) with
+   bf16 pools, then int8 pools: tokens against the colocated (dp 2)
+   cluster under the parity rule, ``transferred_in`` = ``transferred_out``
+   = the hand-offs, both ledgers exact after every tick; pages copied and
+   host ms per hand-off; then one 4-page hand-off (a 380-token prompt)
+   timed alone with CUDA events between the stacked pools (4 copies) and
+   the layered ones (96) beside the bytes bound;
+44. cluster fp32 -- 2 layers of GPT-3 1.3B's width in fp32, the same
+   script on the card and on the CPU: the elastic controller (fake clock,
+   queue-driven) through scale-up, the four brownout rungs, their LIFO
+   release and scale-down; a drain of replica 1 at mid-run and
+   ``kill_replica(0)``; a disaggregated pair under a ``transfer_error``
+   and a ``transfer_partial``; the stacked GPT sharded at (dp, mp) =
+   (2, 2) and the layered one at (1, 2).  The card must give the CPU's
+   action sequence, replica states, request states and replicas, page
+   counts, ticks and transfer counts exactly, and its tokens under the
+   fp32 parity rule.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -492,6 +534,8 @@ def import_port():
     from paddle_tpu_torch.quantization import int8 as qi8
     from paddle_tpu_torch.serving import RequestState, ServingEngine, \
         SpeculativeEngine
+    from paddle_tpu_torch.serving import sharded
+    from paddle_tpu_torch.distributed import serving_mesh
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
                 gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
@@ -506,7 +550,8 @@ def import_port():
                 truncated_draft=truncated_draft, checkpoint=checkpoint,
                 DevicePrefetcher=DevicePrefetcher, Layered=GPTForPretraining,
                 Criterion=GPTPretrainingCriterion,
-                Int8Linear=qi8.Int8Linear, inference=inference)
+                Int8Linear=qi8.Int8Linear, inference=inference,
+                sharded=sharded, serving_mesh=serving_mesh)
 
 
 def _check(cond, msg):
@@ -3820,8 +3865,9 @@ def prefix_geometry(rpa):
                 max_pages=mp)
 
 
-def new_plan_cases(rpa, rng):
-    """(name, runs, geometry) of the plans phases 26-29 launch."""
+def new_plan_cases(rpa, rng, shard_heads):
+    """(name, runs, geometry) of the plans phases 26-29 launch, and of the
+    per-shard step of phases 41-43 (``shard_heads`` heads a shard)."""
     spec = spec_geometry(rpa)
     tb = _served_runs(rng, spec["num_pages"])
     k1 = SPEC_K + 1
@@ -3844,8 +3890,11 @@ def new_plan_cases(rpa, rng):
     drafts = [(200, SPEC_K + 2, td[0]), (250, SPEC_K + 2, td[1]),
               (300, 1, td[2]), (127, 1, td[3]), (0, 100, td[4]),
               (383, 3, td[5])]
+    shard = dict(served_geometry(rpa), heads=shard_heads)
+    ts = _served_runs(rng, shard["num_pages"])
     return (("verify_runs", verify, spec), ("tail_prefill", tail, pre),
-            ("draft_pool", drafts, draft))
+            ("draft_pool", drafts, draft),
+            (f"shard_step_{shard_heads}_heads", mixed_runs(ts), shard))
 
 
 # the kernel against split_merge_plain, its own arithmetic in plain
@@ -3886,11 +3935,14 @@ def _split_merge_check(port, name, c, layer):
 
 
 def phase_new_plans(port):
-    """Phase 25: the ragged kernel at the plans of phases 26-29, against
-    both plain versions, rerun bit for bit and over a stale pool."""
+    """Phase 25: the ragged kernel at the plans of phases 26-29 and at
+    the shard shape of phases 41-43 (GPT-3 1.3B at mp=2), against both
+    plain versions, rerun bit for bit and over a stale pool."""
     rpa = port["rpa"]
     errs = {"float": [], "int8": []}
-    for name, runs, geo in new_plan_cases(rpa, np.random.RandomState(25)):
+    shard_heads = port["gpt_1p3b"]().num_heads // 2
+    for name, runs, geo in new_plan_cases(rpa, np.random.RandomState(25),
+                                          shard_heads):
         for i, dtype in enumerate(("bfloat16", "float32", "int8")):
             layers = 2 if name == "draft_pool" else 1
             c = _case(port, runs, dtype=dtype, seed=250 + i, layers=layers,
@@ -5514,6 +5566,569 @@ def phase_layered_train(port):
     return train_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 41-44: sharded, elastic and disaggregated serving
+# ---------------------------------------------------------------------------
+
+SHARD_MESHES = ((2, 1), (1, 2), (2, 2))
+
+
+def _mesh_devices(n):
+    """``n`` names of one device: every replica and shard co-resident."""
+    return [f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE] * n
+
+
+def _cluster_ledgers_ok(eng):
+    return all(_ledger_ok(r.allocator) for r in eng.replicas)
+
+
+def _shard_traffic(vocab):
+    """Phase 3's 16 prompts, drawn as ``serve_engine`` and
+    ``serve_workload`` draw them (one warm-up prompt first)."""
+    rng = np.random.RandomState(0)
+    rng.randint(0, vocab, (64,))
+    return _serve_prompts(rng, vocab)
+
+
+def _drive_cluster(port, eng, prompts, new, per_tick=None, **kw):
+    """Submit every prompt at once and tick ``eng`` (a sharded or
+    disaggregated cluster) to idle, holding every replica's ledger after
+    each tick.  ``per_tick`` (a list) gets, each tick, (ragged launches,
+    fused steps of each replica).  Returns (requests, wall seconds, tick
+    seconds)."""
+    rpa = port["rpa"].ragged_paged_attention
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, new, **kw) for p in prompts]
+    ticks = []
+    while eng.placement.pending():
+        l0 = rpa.launches
+        f0 = [r._totals["fused_steps"] for r in eng.replicas]
+        t1 = time.perf_counter()
+        eng.step()
+        ticks.append(time.perf_counter() - t1)
+        if per_tick is not None:
+            per_tick.append((rpa.launches - l0, [
+                r._totals["fused_steps"] - f
+                for r, f in zip(eng.replicas, f0)]))
+        _check(_cluster_ledgers_ok(eng),
+               "free + used + spec + shared != capacity on a replica")
+        _check(len(ticks) < 20000, "the cluster made no progress")
+    port["torch"].cuda.synchronize()
+    return reqs, time.perf_counter() - t0, ticks
+
+
+def _profiled_step_ms(port, run):
+    """Device time of one ``run()`` under ``torch.profiler``: (all CUDA
+    kernels' ms, the ragged kernel's ms, device busy share of the wall),
+    or None when the profiler saw no device activity."""
+    torch = port["torch"]
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    # device activity only: the host events of a 2 s serve would take
+    # the profiler longer to sort than the run itself
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.is_user_annotation]
+    if not ks:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in ks)
+    busy, cs, ce = 0.0, None, None
+    for a, b in spans:
+        if ce is None or a > ce:
+            if ce is not None:
+                busy += ce - cs
+            cs, ce = a, b
+        else:
+            ce = max(ce, b)
+    busy += ce - cs
+    total = sum(e.time_range.elapsed_us() for e in ks) / 1e3
+    ragged = sum(e.time_range.elapsed_us() for e in ks
+                 if "ragged_paged_attention" in e.name.lower()) / 1e3
+    return total, ragged, busy / 1e6 / wall
+
+
+def _sharded_run(port, name, model, dp, mp, want, bound="bfloat16",
+                 profile_it=False, threads=False, **kw):
+    """One sharded serve of phase 3's traffic at (dp, mp); holds the
+    placement, launches, per-shard pools (an int8 pool's scales sharded
+    on the head axis), ledgers and parity (``GAP_BOUND[bound]`` against
+    ``want``, the single engine's output ids).  ``threads``: step the
+    co-resident replicas on the cluster's thread pool, as replicas on
+    disjoint cards step (its rule patched for this run).  Returns the
+    run's numbers."""
+    torch, s, sharded = port["torch"], port["serving"], port["sharded"]
+    cfg = model.config
+    before = sum(port["serving_mesh"].weight_bytes_by_device(model).values())
+    rule = sharded.steps_on_threads
+    if threads:
+        sharded.steps_on_threads = lambda meshes: True
+    try:
+        eng = s.ShardedServingEngine(model, dp=dp, mp=mp,
+                                     devices=_mesh_devices(dp * mp),
+                                     **_engine_kw(**kw))
+    finally:
+        sharded.steps_on_threads = rule
+    _check((eng._pool is not None) == (threads and dp > 1),
+           f"{name}: replicas on threads {eng._pool is not None}")
+    prompts = _shard_traffic(cfg.vocab_size)
+    eng.generate_batch([prompts[0][:64]] * dp, 2)        # warm-up
+    torch.cuda.synchronize()
+    f0 = eng.metrics()["fused_steps"]
+    _reset_launches(port)
+    per_tick = []
+    reqs, dt, ticks = _drive_cluster(port, eng, prompts, SERVE_NEW_TOKENS,
+                                     per_tick)
+    counts = _launch_counts(port)
+    launches = counts.pop("ragged")
+    met = eng.metrics()
+    fused = met["fused_steps"] - f0
+    _all_done(port, name, reqs, SERVE_NEW_TOKENS)
+    _check(not any(counts.values()), f"{name}: other kernels {counts}")
+    bad = [(ln, fs) for ln, fs in per_tick
+           if ln != sum(fs) * SERVE_LAYERS * mp or any(f > 1 for f in fs)]
+    _check(not bad and launches == fused * SERVE_LAYERS * mp,
+           f"{name}: ragged launches per tick != 24 x mp x replicas that "
+           f"stepped: {bad[:4]} (total {launches}, fused {fused})")
+    # all requests submitted before the first tick: least-loaded placement
+    # alternates on queue depth
+    _check([r.replica for r in reqs] == [i % dp for i in range(len(reqs))]
+           and met["routed"] == [len(reqs) // dp + 1] * dp,
+           f"{name}: replicas {[r.replica for r in reqs]}, routed "
+           f"{met['routed']}")
+    for rep in eng.replicas:
+        c = rep.cache
+        shards = c.shards if mp > 1 else [c]
+        _check(c.mesh_shards == mp and all(
+            sh.nbytes * mp == c.nbytes and sh.num_heads * mp
+            == cfg.num_heads for sh in shards),
+            f"{name}: per-shard pools {[sh.nbytes for sh in shards]} of "
+            f"{c.nbytes}")
+        _check(rep.allocator.used_pages == 0 and rep.allocator.spec_pages
+               == 0, f"{name}: pages left on a replica")
+        if c.quantized:
+            for sh in shards:
+                sc = (sh.k_scale, sh.v_scale)
+                _check(all(tuple(x.shape) == (
+                    SERVE_LAYERS, rep.num_pages, cfg.num_heads // mp)
+                    and bool(torch.isfinite(x).all()) for x in sc),
+                    f"{name}: scales {[tuple(x.shape) for x in sc]}")
+    for pm in met["per_replica"]:
+        _check(pm["cache_bytes_per_chip"] * mp == pm["cache_bytes"]
+               == met["cache_bytes"] // dp
+               and met["cache_bytes_per_chip"] == pm["cache_bytes_per_chip"],
+               f"{name}: cache_bytes_per_chip {pm['cache_bytes_per_chip']}"
+               f" of a replica's {pm['cache_bytes']}")
+    for rep in eng.replicas:
+        _no_recovery(name, rep)
+    tokens = sum(len(r.tokens) for r in reqs)
+    # weight bytes of replica 0: on the card (every shard co-resident),
+    # and what each shard's card would hold on distinct cards
+    srv = port["serving_mesh"]
+    card_bytes = sum(srv.weight_bytes_by_device(
+        eng.replicas[0].model).values())
+    shard_bytes = srv.shard_weight_bytes(eng.replicas[0].model)
+    _check(mp == 1 or (card_bytes <= before
+                       and max(shard_bytes) < card_bytes),
+           f"{name}: replica 0 holds {card_bytes} bytes of weights on the "
+           f"card ({before} unsharded), {shard_bytes} a shard")
+    prof = None
+    if profile_it:
+        def again():
+            _drive_cluster(port, eng, prompts, SERVE_NEW_TOKENS)
+        f1 = eng.metrics()["fused_steps"]
+        prof = _profiled_step_ms(port, again)
+        f2 = eng.metrics()["fused_steps"] - f1
+        if prof is not None:
+            prof = (prof[0] / f2, prof[1] / f2, prof[2])
+    got = [r.output_ids() for r in reqs]
+    eng.close()
+    # the gaps are read from the whole model (replica 0's weights)
+    srv.unshard_model(model)
+    same, _ = _parity(port, f"{name} vs the single engine", got, want,
+                      model, GAP_BOUND[bound], kw.get("kv_dtype", "bfloat16"))
+    out = dict(tps=tokens / dt, tick_ms=1e3 * float(np.mean(ticks)),
+               ticks=len(ticks), fused=fused, launches=launches,
+               per_chip=met["cache_bytes_per_chip"], prof=prof, same=same,
+               card_bytes=card_bytes, shard_bytes=shard_bytes)
+    print(f"[{name}] {len(reqs)} requests DONE, {tokens} tokens in "
+          f"{dt:.3f} s: {out['tps']:.1f} tokens/s; {len(ticks)} ticks, mean "
+          f"{out['tick_ms']:.2f} ms (host clock); {fused} replica fused "
+          f"steps; ragged launches {launches} ({SERVE_LAYERS} x {mp} a replica "
+          f"step); "
+          f"pools {met['cache_bytes']} bytes, {met['cache_bytes_per_chip']} "
+          f"a shard; replica 0's weights {card_bytes} bytes on the card, "
+          f"{shard_bytes} a shard's card on distinct cards"
+          + ("" if prof is None else
+             f"; device kernel time {prof[0]:.3f} ms per replica "
+             f"fused step, ragged {prof[1]:.3f} ms, busy "
+             f"{prof[2]:.3f} of the wall"))
+    return out
+
+
+def _single_outputs(port, model, **kw):
+    """Phase 3's engine and traffic over ``model``: the output ids."""
+    eng, rng = serve_engine(port, kw.get("kv_dtype", "bfloat16"),
+                            kw.get("weight_dtype"), model=model)
+    reqs, _, _ = serve_workload(port, eng, rng)
+    out = [r.output_ids() for r in reqs]
+    eng.close()
+    return out
+
+
+def phase_sharded_serve(port):
+    """Phase 41: both GPT classes at every mesh of ``SHARD_MESHES``.
+    Returns (ragged launches of the first run of each class's meshes, the
+    runs' numbers by (class, dp, mp))."""
+    torch = port["torch"]
+    cfg = port["gpt_1p3b"]()
+    launches, runs = 0, {}
+    for cls in ("GPT", "Layered"):
+        model = port[cls](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+        model.eval()
+        want = _single_outputs(port, model)
+        for dp, mp in SHARD_MESHES:
+            name = f"sharded_serve {cls} dp={dp} mp={mp}"
+            r = _sharded_run(port, name, model, dp, mp, want,
+                             profile_it=cls == "GPT")
+            launches += r["launches"]
+            runs[(cls, dp, mp)] = r
+            if cls == "GPT" and dp > 1 and mp == 1:
+                # the same replicas stepped from the thread pool (the
+                # rule steps co-resident replicas in order)
+                r = _sharded_run(port, name + " threads", model, dp, mp,
+                                 want, profile_it=True, threads=True)
+                launches += r["launches"]
+                runs[(cls, dp, mp, "threads")] = r
+        del model
+        torch.cuda.empty_cache()
+    return launches, runs
+
+
+def phase_sharded_int8(port):
+    """Phase 42: (2, 2) with an int8 pool and int8 weights against phase
+    13's engine on the same (quantized) weights.  Returns the int8 ragged
+    launches."""
+    torch = port["torch"]
+    cfg = port["gpt_1p3b"]()
+    model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    model.eval()
+    kw = dict(kv_dtype="int8", weight_dtype="int8")
+    want = _single_outputs(port, model, **kw)
+    # one replica of 2 shards meets the same chunked prefills as phase 13's
+    # engine, and the int8 products reduce exact int32 accumulators: the
+    # same tokens, every one
+    one = _sharded_run(port, "sharded_int8 dp=1 mp=2", model, 1, 2, want,
+                       bound="int8_weights", **kw)
+    _check(one["same"] == len(want), f"sharded int8 dp=1 mp=2: "
+           f"{one['same']}/{len(want)} requests token for token")
+    r = _sharded_run(port, "sharded_int8 dp=2 mp=2", model, 2, 2, want,
+                     bound="int8_weights", **kw)
+    del model
+    torch.cuda.empty_cache()
+    return one["launches"] + r["launches"], r
+
+
+def _time_handoff(port, model, pages=4):
+    """One hand-off of ``pages`` pages (a 380-token prompt) between two
+    pools of ``model``'s, timed with CUDA events over 20 calls issued
+    back to back: (ms a call, copies, bytes)."""
+    torch, s = port["torch"], port["serving"]
+    a = model.new_paged_kv_cache(9, 128, dtype="bfloat16")
+    b = model.new_paged_kv_cache(9, 128, dtype="bfloat16")
+    src, dst = list(range(1, pages + 1)), list(range(5, 5 + pages))
+    copies = 2 * len(a.pool_tensors())
+    nbytes = s.disagg.page_transfer_bytes(a, pages)
+
+    def run(i=0):
+        s.PageTransfer.copy_pages(a, b, src, dst)
+
+    # not held behind a sleep kernel: each call copies its page ids to the
+    # card from pageable memory, which waits for the stream
+    ms, _ = _time_ms(torch, run, 20, hold=False)
+    ok = all(torch.equal(d.select(ax, 5), t.select(ax, 1))
+             for (t, ax), (d, _) in zip(a.pool_tensors(), b.pool_tensors()))
+    _check(ok, "hand-off: a copied page differs from its source")
+    a.release()
+    b.release()
+    return ms, copies, nbytes
+
+
+def phase_disagg(port):
+    """Phase 43: prefill -> decode hand-off at full width and depth, bf16
+    then int8 pools, against the colocated cluster.  Returns the ragged
+    launches by pool dtype and the numbers."""
+    torch, s = port["torch"], port["serving"]
+    cfg = port["gpt_1p3b"]()
+    model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    model.eval()
+    prompts = _shard_traffic(cfg.vocab_size)
+    launches, nums = {}, {}
+    for kv in ("bfloat16", "int8"):
+        kw = _engine_kw(kv_dtype=kv)
+        col = s.ShardedServingEngine(model, dp=2, mp=1,
+                                     devices=_mesh_devices(2), **kw)
+        creqs, _, _ = _drive_cluster(port, col, prompts, SERVE_NEW_TOKENS)
+        col.close()
+        dis = s.DisaggServingEngine(model, roles=("prefill", "decode"),
+                                    devices=_mesh_devices(2), **kw)
+        dis.generate_batch([prompts[0][:64]], 2)             # warm-up
+        torch.cuda.synchronize()
+        m0 = dis.metrics()
+        _reset_launches(port)
+        reqs, dt, ticks = _drive_cluster(port, dis, prompts,
+                                         SERVE_NEW_TOKENS)
+        counts = _launch_counts(port)
+        m = dis.metrics()
+        _all_done(port, f"disagg {kv}", reqs, SERVE_NEW_TOKENS)
+        moved = m["transfers_total"] - m0["transfers_total"]
+        tin = m["transferred_in"] - m0["transferred_in"]
+        tout = m["transferred_out"] - m0["transferred_out"]
+        handed = sum(1 for r in reqs if r.replica == 1)
+        _check(moved > 0 and tin == tout == moved == handed
+               and m["transfers_failed"] == 0,
+               f"disagg {kv}: transfers {moved}, in {tin}, out {tout}, "
+               f"requests ending on the decode replica {handed}")
+        fused = m["fused_steps"] - m0["fused_steps"]
+        _check(counts["ragged"] == fused * SERVE_LAYERS,
+               f"disagg {kv}: {counts['ragged']} ragged launches for "
+               f"{fused} fused steps")
+        _parity(port, f"disagg {kv} vs the colocated cluster",
+                [r.output_ids() for r in reqs],
+                [r.output_ids() for r in creqs], model,
+                GAP_BOUND["bfloat16"], kv)
+        hist = dis._transfer_hist.summary()
+        pages = m["transfer_pages"] - m0["transfer_pages"]
+        tokens = sum(len(r.tokens) for r in reqs)
+        nums[kv] = dict(tps=tokens / dt, transfers=moved, pages=pages,
+                        handoff_ms=1e3 * hist["mean"],
+                        handoff_groups=int(hist["count"]))
+        print(f"[disagg] kv {kv}: {len(reqs)} requests DONE, {tokens} "
+              f"tokens in {dt:.3f} s: {tokens / dt:.1f} tokens/s; "
+              f"{len(ticks)} ticks; {moved} hand-offs moved {pages} pages "
+              f"in {int(hist['count'])} batches, {1e3 * hist['mean']:.3f} ms "
+              f"a batch (host clock, reserve -> copy -> commit -> release); "
+              f"ragged launches {counts['ragged']}")
+        launches[kv] = counts["ragged"]
+        dis.close()
+    layered = port["Layered"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    for name, m in (("stacked", model), ("layered", layered)):
+        ms, copies, nbytes = _time_handoff(port, m)
+        bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        nums[f"copy_{name}"] = dict(ms=ms, copies=copies, bytes=nbytes,
+                                    bound_ms=bound)
+        print(f"[disagg] one 4-page hand-off between {name} bf16 pools: "
+              f"{ms:.4f} ms a hand-off (CUDA events, 20 back to back), "
+              f"{copies} copies, {nbytes} bytes read and as many written; "
+              f"bound {bound:.4f} ms at 3.35 TB/s")
+    del model, layered
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
+# phase 44's traffic: phase 3's prompt lengths cut by 4 (the CPU half
+# runs 2 layers of full width in fp32 on the host)
+CLUSTER_PROMPT_LENS = (16, 50, 30, 95)
+CLUSTER_NEW = 8
+
+
+def _cluster_model(port, device, cls="GPT"):
+    cfg = port["gpt_1p3b"](num_layers=2)
+    return port[cls](cfg, device=device, dtype="float32", seed=1).eval()
+
+
+def _request_record(reqs):
+    return [(r.state, len(r.tokens), r.rehomed) for r in reqs]
+
+
+def _ledgers(eng):
+    return [(a.free_pages, a.used_pages, a.spec_pages, a.shared_pages)
+            for a in (r.allocator for r in eng.replicas)]
+
+
+def _cluster_script(port, model, lmodel, device):
+    """Phase 44's script on ``device`` (``model`` the stacked GPT,
+    ``lmodel`` the layered one): every decision it makes is a function of
+    queue depths, ledgers and a fake clock (the controller trusts no
+    latency sample), so the card and the CPU must agree on all of it.
+    Returns (record, {name: requests}, ragged launches)."""
+    s = port["serving"]
+    rng = np.random.RandomState(44)
+    vocab = model.config.vocab_size
+    prompts = [rng.randint(0, vocab, (CLUSTER_PROMPT_LENS[i % 4],))
+               for i in range(16)]
+    # a short context and prefill budget: the CPU half's plain attention
+    # gathers every page of the step's whole (padded) token axis
+    kw = dict(num_slots=2, page_size=128, max_context=256,
+              prefill_token_budget=32, cache_dtype="float32",
+              readmission_backoff_s=0.0)
+    rec, out = {}, {}
+    _reset_launches(port)
+    # (a) the elastic controller over dp=3, queue-driven, fake clock
+    eng = s.ShardedServingEngine(model, dp=3, mp=1,
+                                 devices=[device] * 3, **kw)
+    t = [0.0]
+    ctl = s.ElasticServingController(eng, s.ElasticConfig(
+        targets=s.SLOTargets(queue_high=1.0, queue_low=0.5),
+        min_samples=10 ** 9, cooldown_s=2.0, brownout_cooldown_s=1.0,
+        overload_sustain_s=1.0, underload_sustain_s=1.0,
+        drain_deadline_s=0.0, brownout_max_new=3), clock=lambda: t[0])
+    eng.drain_replica(2)
+    reqs, refused, states = [], [], []
+    for tick in range(90):
+        if tick in (0, 9):
+            for p in prompts[:12] if tick == 0 else prompts[12:]:
+                try:
+                    reqs.append(eng.submit(p, CLUSTER_NEW))
+                except s.Overloaded:
+                    refused.append(tick)
+        t[0] += 0.5
+        ctl.tick()
+        eng.step()
+        states.append(tuple(eng.replica_states()))
+        _check(_cluster_ledgers_ok(eng), "elastic: a ledger broke")
+    acts = [(type(a).__name__, getattr(a, "replica", None),
+             getattr(a, "rung", None)) for a in ctl.actions]
+    kinds = [k for k, _, _ in acts]
+    _check(kinds[:1] == ["ScaleUp"] and "Brownout" in kinds
+           and "Recover" in kinds and "ScaleDown" in kinds
+           and kinds.index("ScaleDown") > max(
+               i for i, k in enumerate(kinds) if k == "Recover"),
+           f"elastic: actions {acts}")
+    rungs = [r for k, _, r in acts if k == "Brownout"]
+    released = [r for k, _, r in acts if k == "Recover"]
+    _check(released == rungs[::-1], f"elastic: rungs {rungs}, released "
+           f"{released} (not LIFO)")
+    _check(not eng.placement.pending(), "elastic: requests still pending")
+    rec["elastic"] = dict(actions=acts, states=states, refused=refused,
+                          requests=_request_record(reqs),
+                          max_new=[r.max_new_tokens for r in reqs],
+                          ledgers=_ledgers(eng),
+                          routed=eng.metrics()["routed"])
+    out["elastic"] = reqs
+    ctl.close()
+    eng.close()
+    # (b) a drain of replica 1 at mid-run, then kill_replica(0)
+    eng = s.ShardedServingEngine(model, dp=3, mp=1,
+                                 devices=[device] * 3, **kw)
+    reqs = [eng.submit(p, CLUSTER_NEW) for p in prompts[:10]]
+    for tick in range(400):
+        if tick == 3:
+            eng.begin_drain_replica(1, deadline_s=0.0)
+        if tick == 6:
+            killed = eng.kill_replica(0)
+        if tick > 6 and not eng.placement.pending():
+            break
+        eng.step()
+        _check(all(_ledger_ok(r.allocator)
+                   for i, r in enumerate(eng.replicas) if i != 0),
+               "drain/kill: a survivor's ledger broke")
+    m = eng.metrics()
+    _check(eng.replica_states() == ["dead", "parked", "active"]
+           and m["rehomed"] > 0 and killed > 0,
+           f"drain/kill: states {eng.replica_states()}, rehomed "
+           f"{m['rehomed']}, killed {killed}")
+    rec["drain_kill"] = dict(states=eng.replica_states(),
+                             requests=_request_record(reqs),
+                             killed=killed, rehomed=m["rehomed"],
+                             ledgers=_ledgers(eng)[1:], routed=m["routed"])
+    out["drain_kill"] = reqs
+    eng.close()
+    # (c) a disaggregated pair under a transfer_error and a transfer_partial
+    dis = s.DisaggServingEngine(model, roles=("prefill", "decode"),
+                                devices=[device] * 2, **kw)
+    s.FaultInjector([
+        s.FaultPlan(kind="transfer_error", point="page_transfer", at=0),
+        s.FaultPlan(kind="transfer_partial", point="page_transfer", at=1),
+    ]).install(dis)
+    reqs = [dis.submit(p, CLUSTER_NEW) for p in prompts[:6]]
+    while dis.placement.pending():
+        dis.step()
+        _check(_cluster_ledgers_ok(dis), "disagg faults: a ledger broke")
+    m = dis.metrics()
+    _check(m["transfers_failed"] == 2 and m["transfers_total"] > 0,
+           f"disagg faults: failed {m['transfers_failed']}, total "
+           f"{m['transfers_total']}")
+    rec["transfer_faults"] = dict(
+        requests=_request_record(reqs), ledgers=_ledgers(dis),
+        transfers={k: m[k] for k in ("transfers_total", "transfers_failed",
+                                     "transfer_pages", "transfer_bytes",
+                                     "transferred_in", "transferred_out")})
+    out["transfer_faults"] = reqs
+    dis.close()
+    # (d) sharded: the stacked model at (dp, mp) = (2, 2) and the layered
+    # one at (1, 2), every shard's arithmetic held card against CPU
+    for part, m, dp in (("sharded_2x2", model, 2),
+                        ("sharded_layered_1x2", lmodel, 1)):
+        eng = s.ShardedServingEngine(m, dp=dp, mp=2, devices=[device] * 4,
+                                     **kw)
+        reqs = [eng.submit(p, CLUSTER_NEW) for p in prompts[:8]]
+        ticks = 0
+        while eng.placement.pending():
+            eng.step()
+            ticks += 1
+            _check(_cluster_ledgers_ok(eng), f"{part}: a ledger broke")
+        _check(all(r.cache.mesh_shards == 2 for r in eng.replicas),
+               f"{part}: the pools are not sharded")
+        met = eng.metrics()
+        rec[part] = dict(requests=_request_record(reqs),
+                         replicas=[r.replica for r in reqs],
+                         ledgers=_ledgers(eng), routed=met["routed"],
+                         ticks=ticks,
+                         per_chip=met["cache_bytes_per_chip"])
+        out[part] = reqs
+        eng.close()
+        # the parity gaps are read from the whole model
+        port["serving_mesh"].unshard_model(m)
+    return rec, out, _launch_counts(port)["ragged"]
+
+
+def phase_cluster_card_vs_cpu(port):
+    """Phase 44: the cluster script on the card and on the CPU.  Returns
+    the card's ragged launches."""
+    torch = port["torch"]
+    models = {}
+    for cls in ("GPT", "Layered"):
+        card = _cluster_model(port, DEVICE, cls)
+        cpu = _cluster_model(port, "cpu", cls)
+        cpu.load_state_dict({k: v.cpu()
+                             for k, v in card.state_dict().items()})
+        models[cls] = (card, cpu)
+    t0 = time.perf_counter()
+    crec, creqs, launches = _cluster_script(
+        port, models["GPT"][0], models["Layered"][0], DEVICE)
+    t1 = time.perf_counter()
+    prec, preqs, _ = _cluster_script(
+        port, models["GPT"][1], models["Layered"][1], "cpu")
+    t2 = time.perf_counter()
+    for part in crec:
+        _check(crec[part] == prec[part],
+               f"cluster {part}: card {crec[part]} != CPU {prec[part]}")
+        done = [i for i, r in enumerate(preqs[part]) if r.finished]
+        gap_model = models["Layered" if "layered" in part else "GPT"][0]
+        _parity(port, f"cluster {part} fp32 2 layers, card vs CPU",
+                [creqs[part][i].output_ids() for i in done],
+                [preqs[part][i].output_ids() for i in done], gap_model,
+                GAP_BOUND["float32"], "float32")
+    _check(launches > 0, "cluster: no ragged launch on the card")
+    acts = crec["elastic"]["actions"]
+    print(f"[cluster] card == CPU on every record; elastic actions {acts}; "
+          f"drain/kill {crec['drain_kill']['states']}, rehomed "
+          f"{crec['drain_kill']['rehomed']}; transfer faults "
+          f"{crec['transfer_faults']['transfers']}; sharded replicas "
+          f"(2, 2) {crec['sharded_2x2']['replicas']}, ticks stacked (2, 2) "
+          f"{crec['sharded_2x2']['ticks']}, layered (1, 2) "
+          f"{crec['sharded_layered_1x2']['ticks']}; card {t1 - t0:.2f} s, "
+          f"CPU {t2 - t1:.2f} s; card ragged launches {launches}")
+    del models, card, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5611,6 +6226,12 @@ def main() -> int:
     by_path["layered_paths_fp32"] = {
         "bfloat16": sum(phase_layered_paths(port).values())}
     ltrain = phase_layered_train(port)
+    # phases 41-44: sharded, elastic and disaggregated serving
+    by_path["sharded_serve"] = {"bfloat16": phase_sharded_serve(port)[0]}
+    by_path["sharded_int8"] = {"int8": phase_sharded_int8(port)[0]}
+    by_path["disagg"] = phase_disagg(port)[0]
+    # the fp32 launches ride the fp32/bf16 kernel's row
+    by_path["cluster_fp32"] = {"bfloat16": phase_cluster_card_vs_cpu(port)}
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}

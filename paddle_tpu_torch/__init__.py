@@ -36,17 +36,24 @@ crash-consistent training (``checkpoint``: ``CheckpointManager``,
 ``io.DevicePrefetcher``.  The layered GPT (``GPTForPretraining``, the
 reference's flagship class) generates, serves, quantizes (``Int8Linear``),
 takes LoRA adapters and drafts on the same kernels, and ``inference``'s
-Predictor runs a live model's decode and serving modes.
+Predictor runs a live model's decode and serving modes.  Cluster serving:
+``serving.ShardedServingEngine`` drives ``dp`` replicas of ``mp`` head
+shards from one process (``distributed.serving_mesh``: column/row-parallel
+weight slices, a pool sharded per head, the ragged kernel per shard at
+``H/mp`` heads), behind the placement layer, with the drain and elastic
+lifecycle (``serving.ElasticServingController``) and disaggregated
+prefill/decode replicas with page hand-off
+(``serving.DisaggServingEngine``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``); on the CPU every kernel is replaced by its plain
 PyTorch version.
 """
-__version__ = "0.12.0"
+__version__ = "0.13.0"
 
 from . import (
-    amp, checkpoint, core, incubate, inference, io, models, nn, optimizer,
-    serving, telemetry,
+    amp, checkpoint, core, distributed, incubate, inference, io, models, nn,
+    optimizer, serving, telemetry,
 )
 from .models import (
     BertConfig, BertForPretraining, BertModel, BertPretrainingCriterion,
@@ -57,7 +64,7 @@ from .models import (
 )
 from .serving import SamplingParams, ServingEngine
 
-__all__ = ["amp", "checkpoint", "core", "incubate", "inference", "io",
+__all__ = ["amp", "checkpoint", "core", "distributed", "incubate", "inference", "io",
            "models", "nn",
            "optimizer", "serving", "telemetry", "BertConfig", "BertModel", "BertForPretraining",
            "BertPretrainingCriterion", "bert_tiny", "bert_base",

@@ -1,4 +1,4 @@
-from .device import resolve_device
+from .device import canonical_device, resolve_device
 from .dtype import dtype_name, to_torch_dtype
 
-__all__ = ["resolve_device", "to_torch_dtype", "dtype_name"]
+__all__ = ["resolve_device", "canonical_device", "to_torch_dtype", "dtype_name"]

@@ -11,7 +11,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "canonical_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -25,4 +25,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "default; pass device='cpu' to run on the CPU explicitly")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}: expected cuda or cpu")
+    return dev
+
+
+def canonical_device(device: Union[str, torch.device]) -> torch.device:
+    """:func:`resolve_device` with the index filled in: ``cuda`` is the
+    current card (``cuda:0`` unless the caller chose another), so two
+    names of one card compare equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -88,9 +88,10 @@ from ..ops.kernels.flash_attention import (
 )
 from ..ops.kernels.paged_attention import gather_pages, paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
-from ..ops.lora import lora_delta_raw
+from ..ops.lora import lora_delta_raw, lora_down, lora_up
 from ..quantization.int8 import (
-    Int8Linear, k_major, quantize_weight, quantized_matmul,
+    Int8Linear, activation_scales, int8_accumulate, int8_epilogue, k_major,
+    quantize_weight, quantized_matmul,
 )
 from ..quantization.kv import quantize_kv_write
 from .generation import GenerationMixin, KVCache
@@ -250,6 +251,70 @@ def _layer_norm(x, g, b, eps):
     return F.layer_norm(x, (x.shape[-1],), g, b, eps)
 
 
+class BlockOps(NamedTuple):
+    """The rounding points of one GPT class's decoder block, shared by its
+    unsharded block and the sharded serving body
+    (:func:`sharded_paged_layers`), so each is written once:
+
+    - ``norm(x, g, beta)``: a LayerNorm and its output in the products'
+      input dtype;
+    - ``col(x, w, ws, bias, act)``: a product over whole input rows (the
+      int8 scales ``ws`` and static activation scale ``act``, or None);
+    - ``partial(x, w)``: a float row-parallel partial, without the bias
+      (added once, after the reduce);
+    - ``lora_in(x, a_dtype)`` / ``lora_out(delta)``: the LoRA delta's
+      input and the delta as the product adds it;
+    - ``residual(h, y)``: the residual add."""
+    norm: object
+    col: object
+    partial: object
+    lora_in: object
+    lora_out: object
+    residual: object
+
+
+def stacked_block_ops(eps: float, int8: bool, pdt) -> BlockOps:
+    """The stacked block's (the reference's ``_block_fn`` family): an fp32
+    LayerNorm feeding fp32 into ``quantized_matmul`` for int8 weights,
+    else the LayerNorm rounded to the products' dtype ``pdt`` and
+    ``addmm``; an int8 projection's LoRA input rounded to the slab dtype
+    and its delta added in fp32; the residual cast back to h's dtype."""
+    if int8:
+        def norm(x, g, beta):
+            return _layer_norm(x.float(), g.float(), beta.float(), eps)
+
+        def col(x, w, ws, bias, act=None):
+            return quantized_matmul(x, w, ws, bias=bias)
+    else:
+        def norm(x, g, beta):
+            return _layer_norm(x, g, beta, eps).to(pdt)
+
+        def col(x, w, ws, bias, act=None):
+            return torch.addmm(bias, x, w)
+    return BlockOps(
+        norm, col, torch.mm,
+        (lambda x, adt: x.to(adt)) if int8 else (lambda x, adt: x),
+        (lambda d: d.float()) if int8 else _identity,
+        lambda h, y: h + y.to(h.dtype))
+
+
+def layered_block_ops(eps: float) -> BlockOps:
+    """The layered block's: the bodies of ``LayerNorm.forward``,
+    ``Linear.forward`` and ``Int8Linear.forward`` (static activation
+    scale ``act``), the LoRA delta in the input's dtype, a plain residual
+    add."""
+    def norm(x, g, beta):
+        return NF.layer_norm(x, x.shape[-1], g, beta, eps)
+
+    def col(x, w, ws, bias, act=None):
+        if ws is not None:
+            return quantized_matmul(x, w, ws, bias=bias, act_scale=act)
+        return NF.linear(x, w, bias)
+
+    return BlockOps(norm, col, NF.linear, lambda x, adt: x, _identity,
+                    lambda h, y: h + y)
+
+
 class GPTEmbeddings(nn.Module):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
@@ -332,11 +397,6 @@ class GPTStackedDecoder(nn.Module):
         if int8:
             (l1g, l1b, qkvw, qkvs, qkvb, pw, pws, pb, l2g, l2b, f1w, f1s, f1b,
              f2w, f2s, f2b) = weights
-
-            def norm(x, g, beta):
-                return _layer_norm(x.float(), g.float(), beta.float(), eps)
-
-            proj = quantized_matmul
         else:
             (l1g, l1b, qkvw, qkvb, pw, pb, l2g, l2b, f1w, f1b, f2w,
              f2b) = weights
@@ -348,12 +408,9 @@ class GPTStackedDecoder(nn.Module):
                 qkvw, qkvb, pw, pb, f1w, f1b, f2w, f2b = (
                     t.to(cdt) for t in (qkvw, qkvb, pw, pb, f1w, f1b, f2w,
                                         f2b))
-
-            def norm(x, g, beta):
-                return _layer_norm(x, g, beta, eps)
-
-            def proj(x, w, ws, bias):
-                return torch.addmm(bias, x, w)
+        # the LayerNorm output is rounded to the projections' dtype (a
+        # no-op unless O1 casts the weights; int8 products take fp32)
+        ops = stacked_block_ops(eps, int8, qkvw.dtype)
         b, s, hidden = h.shape
         if lora is not None:
             slabs, ids, lscale = lora
@@ -361,30 +418,23 @@ class GPTStackedDecoder(nn.Module):
         def lin(x, w, ws, bias, j):
             """Projection ``j`` (qkv, out, fc1, fc2), with its delta (each
             row's ``s`` positions share the row's adapter)."""
-            y = proj(x, w, ws, bias)
+            y = ops.col(x, w, ws, bias)
             if lora is None:
                 return y
             a, bb = slabs[2 * j], slabs[2 * j + 1]
-            xr = x.view(b, s, x.shape[-1])
-            if int8:
-                d = lora_delta_raw(xr.to(a.dtype), a, bb, ids,
-                                   lscale).float()
-            else:
-                d = lora_delta_raw(xr, a, bb, ids, lscale)
+            xr = ops.lora_in(x.view(b, s, x.shape[-1]), a.dtype)
+            d = ops.lora_out(lora_delta_raw(xr, a, bb, ids, lscale))
             return y + d.view(b * s, -1)
 
-        # the LayerNorm output is rounded to the projections' dtype (a
-        # no-op unless O1 casts the weights; int8 products take fp32)
-        pdt = torch.float32 if int8 else qkvw.dtype
-        x = norm(h, l1g, l1b).to(pdt).reshape(b * s, hidden)
+        x = ops.norm(h, l1g, l1b).reshape(b * s, hidden)
         qkv = lin(x, qkvw, qkvs, qkvb, 0).view(b, s, 3, nh, hd)
         out = attend(*qkv.unbind(2))
         out = out.reshape(b * s, hidden).to(x.dtype)  # cache dtype may differ
-        h = h + drop(lin(out, pw, pws, pb, 1).view(b, s, hidden)).to(h.dtype)
-        y = norm(h, l2g, l2b).to(pdt).reshape(b * s, hidden)
+        h = ops.residual(h, drop(lin(out, pw, pws, pb, 1).view(b, s, hidden)))
+        y = ops.norm(h, l2g, l2b).reshape(b * s, hidden)
         y = F.gelu(lin(y, f1w, f1s, f1b, 2), approximate="tanh")
-        return h + drop(lin(y, f2w, f2s, f2b, 3).view(b, s, hidden)
-                        ).to(h.dtype)
+        return ops.residual(h, drop(lin(y, f2w, f2s, f2b, 3).view(b, s,
+                                                                  hidden)))
 
     def _train_attend(self, q, k, v, gen=None):
         """Causal attention of the training block, [B, S, H, D] views in
@@ -669,6 +719,184 @@ def attend_paged(q, k, v, *, kp, vp, ks, vs, geo: PagedGeometry,
     return out.transpose(1, 2)
 
 
+def _shard_pools(cache, num_layers: int):
+    """Per shard of a sharded pool, its (k, v, k_scale, v_scale) tensors
+    a layer."""
+    out = []
+    for sh in cache.shards:
+        if sh.stacked:
+            pools = [sh.k.unbind(0), sh.v.unbind(0)]
+            pools += ([sh.k_scale.unbind(0), sh.v_scale.unbind(0)]
+                      if sh.quantized else [[None] * num_layers] * 2)
+        else:
+            pools = [sh.k, sh.v]
+            pools += ([sh.k_scale, sh.v_scale] if sh.quantized
+                      else [[None] * num_layers] * 2)
+        out.append(list(zip(*pools)))
+    return out
+
+
+def sharded_paged_layers(model, h, cache, tables, pos, ragged_plan,
+                         lora=None):
+    """Every decoder layer of ``model`` over a pool sharded per head over
+    ``mp > 1`` devices (``cache.shards``; ``serving_mesh``).  ``h`` [S, C,
+    hidden] on ``mesh[0]``; returns the last layer's output there.
+
+    Each layer runs the reference's steps with the split explicit: the
+    replicated LayerNorm (on every device of the mesh); per shard the
+    column-parallel QKV product, :func:`attend_paged` over the shard's own
+    pool at ``H/mp`` heads, and the row-parallel output projection into a
+    partial; one reduce of the partials (``serving_mesh.reduce_sum``); the
+    bias, added once, and the residual add; the same for the MLP (fc1
+    column-parallel, GELU, fc2 row-parallel, reduce).  A row-parallel
+    int8 product reduces its exact int32 accumulators under the whole
+    row's activation scale, so it gives the unsharded product's bits.
+    Each class keeps its own rounding points: the :class:`BlockOps` its
+    unsharded block uses (``stacked_block_ops``, ``layered_block_ops``).
+
+    ``lora``: ``(LoRAAdapterPool, ids)`` as for the unsharded step.  A
+    column-parallel projection adds its delta through the B factor's
+    columns of the shard; a row-parallel one sums the shards' first
+    contractions (``u``, fp32) in the reduce and adds the delta once,
+    after the bias, on every device."""
+    from ..distributed.serving_mesh import (
+        broadcast, qkv_columns, reduce_max, reduce_sum, unique_devices,
+    )
+
+    mesh = tuple(sh.device for sh in cache.shards)
+    layers = getattr(model, "_serving_shards", None)
+    if layers is None or getattr(model, "_serving_mesh", None) != mesh:
+        raise ValueError(
+            f"the pool is sharded over {list(map(str, mesh))}: shard the "
+            "model for the same mesh first "
+            "(serving_mesh.shard_model_for_serving)")
+    cfg = model.config
+    stacked, int8 = model.stacked, model.weight_int8
+    mp = len(mesh)
+    hs, hd, eps = cfg.num_heads // mp, cfg.head_dim, cfg.layer_norm_eps
+    ops = (stacked_block_ops(eps, int8, model.decoder.ln1_g.dtype)
+           if stacked else layered_block_ops(eps))
+    b, c, hidden = h.shape
+    scale = float(1.0 / np.sqrt(hd))
+    devs = unique_devices(mesh)
+    geo, plan = {}, {}
+    for d in devs:
+        geo[d] = paged_geometry(tables.to(d), pos.to(d), c, cache.page_size,
+                                hs)
+        plan[d] = (None if ragged_plan is None
+                   else tuple(t.to(d) for t in ragged_plan))
+    pools = _shard_pools(cache, cfg.num_layers)
+    if lora is not None:
+        lpool, lids = lora
+        stacked_slabs = lpool.stacked_slabs() if stacked else None
+        lidx = lids.long()
+        nh, f = cfg.num_heads, cfg.ffn_size
+        cuts = {0: [qkv_columns(nh, hd, mp, i) for i in range(mp)],
+                1: [(i * hs * hd, hs * hd) for i in range(mp)],
+                2: [(i * (f // mp), f // mp) for i in range(mp)],
+                3: [(i * (f // mp), f // mp) for i in range(mp)]}
+
+    def shard_of(t, j, i, axis):
+        """Shard ``i``'s part of a gathered factor of projection ``j``."""
+        cut = cuts[j][i]
+        if j == 0:
+            return t.index_select(axis, cut.to(t.device))
+        return t.narrow(axis, *cut)
+
+    def col_lora(y, x, lg, j, i, d):
+        """``y`` + shard ``i``'s columns of projection ``j``'s delta."""
+        if lg is None:
+            return y
+        ag, bg, adt, bdt = lg[j]
+        lx = ops.lora_in(x, adt)
+        u = lora_down(lx.view(b, c, -1), ag.to(d), adt)
+        dl = lora_up(u, shard_of(bg, j, i, 2).to(d), bdt, lpool.scaling,
+                     lx.dtype).view(b * c, -1)
+        return y + ops.lora_out(dl)
+
+    def norm(x, g, beta):
+        return ops.norm(x, g, beta).reshape(b * c, hidden)
+
+    def row(layer, parts, name, lg, j):
+        """The row-parallel product of the shards' inputs ``parts``, its
+        reduce, its bias and its LoRA delta: ``{device: [S*C, hidden]}``."""
+        out = _row(layer, parts, name)
+        if lg is None:
+            return out
+        ag, bg, adt, bdt = lg[j]
+        lx = [ops.lora_in(p, adt) for p in parts]
+        u = reduce_sum([lora_down(x.view(b, c, -1),
+                                  shard_of(ag, j, i, 1).to(x.device), adt)
+                        for i, x in enumerate(lx)], mesh)
+        for d in devs:
+            dl = lora_up(u[d], bg.to(d), bdt, lpool.scaling,
+                         lx[0].dtype).view(b * c, -1)
+            out[d] = out[d] + ops.lora_out(dl)
+        return out
+
+    def _row(layer, parts, name):
+        w = [sh[name + "_w"] for sh in layer.shards]
+        act = layer.act[name]
+        if int8:
+            if act is None:
+                xs = reduce_max([activation_scales(p) for p in parts], mesh)
+            else:
+                xs = {d: activation_scales(parts[0], act).to(d)
+                      for d in devs}
+            acc = reduce_sum([int8_accumulate(p, wi, xs[p.device])
+                              for p, wi in zip(parts, w)], mesh)
+            return {d: int8_epilogue(acc[d], xs[d], r[name + "_s"],
+                                     r[name + "_b"])
+                    for d, r in layer.rep.items()}
+        tot = reduce_sum([ops.partial(p, wi) for p, wi in zip(parts, w)],
+                         mesh)
+        return {d: tot[d] + r[name + "_b"] for d, r in layer.rep.items()}
+
+    def residual(hh, y):
+        return ops.residual(hh, y.view(b, c, hidden))
+
+    hh = broadcast(h, mesh)
+    for li, layer in enumerate(layers):
+        lg = None
+        if lora is not None:
+            # this layer's factors, gathered per row once, as (A, B,
+            # A dtype, B dtype) for each of qkv, out, fc1 and fc2
+            slabs = ([t[li] for t in stacked_slabs] if stacked
+                     else lpool.layer_slabs(li))
+            idx = lidx.to(slabs[0].device)
+            lg = [(slabs[2 * j].index_select(0, idx).float(),
+                   slabs[2 * j + 1].index_select(0, idx).float(),
+                   slabs[2 * j].dtype, slabs[2 * j + 1].dtype)
+                  for j in range(4)]
+        x = {d: norm(hh[d], r["ln1_g"], r["ln1_b"])
+             for d, r in layer.rep.items()}
+        outs = []
+        for i, d in enumerate(mesh):
+            sh = layer.shards[i]
+            qkv = ops.col(x[d], sh["qkv_w"], sh.get("qkv_s"), sh["qkv_b"],
+                          layer.act["qkv"])
+            qkv = col_lora(qkv, x[d], lg, 0, i, d)
+            q, k, v = qkv.view(b, c, 3, hs, hd).unbind(2)
+            kp, vp, ks, vs = pools[i][li]
+            out = attend_paged(q, k, v, kp=kp, vp=vp, ks=ks, vs=vs,
+                               geo=geo[d], ragged_plan=plan[d], scale=scale)
+            outs.append(out.to(qkv.dtype).reshape(b * c, hs * hd))
+        attn = row(layer, outs, "proj", lg, 1)
+        hh = {d: residual(hh[d], attn[d]) for d in devs}
+        y = {d: norm(hh[d], r["ln2_g"], r["ln2_b"])
+             for d, r in layer.rep.items()}
+        us = [F.gelu(col_lora(ops.col(y[d], layer.shards[i]["fc1_w"],
+                                      layer.shards[i].get("fc1_s"),
+                                      layer.shards[i]["fc1_b"],
+                                      layer.act["fc1"]),
+                              y[d], lg, 2, i, d),
+                     approximate="tanh")
+              for i, d in enumerate(mesh)]
+        mlp = row(layer, us, "fc2", lg, 3)
+        hh = {d: residual(hh[d], mlp[d]) for d in devs}
+    return hh[mesh[0]]
+
+
 def _masked_attention(q, k, v, q_pos, scale: float) -> torch.Tensor:
     """Attention of queries at absolute positions ``q_pos`` ([S] shared by
     every row, or [B, S] per row) over a whole context ``k``/``v``
@@ -706,6 +934,16 @@ class _CacheContract(GenerationMixin):
 
     stacked: bool
 
+    def _require_whole_weights(self, what: str):
+        """Refuse ``what`` on a model sharded for serving at mp > 1, whose
+        tensor-parallel weights live only in its shards."""
+        if getattr(self, "_serving_released", False):
+            raise ValueError(
+                f"{what} needs the whole weights: this model's tensor-"
+                "parallel weights live in its serving shards over "
+                f"{list(map(str, self._serving_mesh))}; "
+                "serving_mesh.unshard_model(model) gathers them back")
+
     # -- GenerationMixin cache contract ------------------------------------
     def new_kv_cache(self, batch_size: int, max_seq: int,
                      dtype="bfloat16") -> KVCache:
@@ -720,13 +958,17 @@ class _CacheContract(GenerationMixin):
 
     # -- ServingEngine paged-cache contract --------------------------------
     def new_paged_kv_cache(self, num_pages: int, page_size: int,
-                           dtype="bfloat16"):
+                           dtype="bfloat16", mesh=None):
+        """A zeroed page pool in this class's layout on the model's device,
+        or, with a replica ``mesh`` of mp > 1 devices, sharded per head
+        over it (``serving_mesh``)."""
         from ..serving.paged_cache import PagedKVCache
 
         cfg = self.config
         return PagedKVCache(cfg.num_layers, num_pages, cfg.num_heads,
                             page_size, cfg.head_dim, dtype=dtype,
-                            stacked=self.stacked, device=self.device)
+                            stacked=self.stacked, device=self.device,
+                            mesh=mesh)
 
     def _paged_lm_logits(self, input_ids, paged_cache, page_tables,
                          positions, ragged_plan=None, out_rows=None,
@@ -822,6 +1064,7 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         Idempotent."""
         if self.weight_int8:
             return
+        self._require_whole_weights("quantize_weights")
         self.decoder.quantize_weights()
         q, s = quantize_weight(self.embeddings.word_embeddings.weight, 1)
         self.register_buffer("lm_head_int8", q.t())        # k_major already
@@ -897,6 +1140,8 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         if lora is not None and not getattr(kv_cache, "paged", False):
             raise ValueError("per-request LoRA adapters ride the paged "
                              "serving step (kv_cache + page_tables)")
+        if getattr(kv_cache, "shards", None) is None:
+            self._require_whole_weights("a forward without a sharded pool")
         if kv_cache is None:
             return self._forward_train(input_ids, labels, position_ids)
         cfg = self.config
@@ -923,11 +1168,16 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
             pos_ids = torch.clamp(pos[:, None] + rel, 0,
                                   cfg.max_position_embeddings - 1)
             h = self.embeddings(ids, pos_ids)                # [S, C, hidden]
-            # a pool without scales is a float pool
-            h = self.decoder.forward_paged(
-                h, kv_cache.k, kv_cache.v, page_tables, pos, ragged_plan,
-                getattr(kv_cache, "k_scale", None),
-                getattr(kv_cache, "v_scale", None), lora=lora)
+            if getattr(kv_cache, "shards", None) is not None:
+                # a pool sharded per head over mp devices
+                h = sharded_paged_layers(self, h, kv_cache, page_tables,
+                                         pos, ragged_plan, lora)
+            else:
+                # a pool without scales is a float pool
+                h = self.decoder.forward_paged(
+                    h, kv_cache.k, kv_cache.v, page_tables, pos,
+                    ragged_plan, getattr(kv_cache, "k_scale", None),
+                    getattr(kv_cache, "v_scale", None), lora=lora)
             if out_rows is not None:
                 # gather each slot's output row BEFORE the vocab
                 # projection: the LM head projects [S'] rows, not the
@@ -1225,6 +1475,7 @@ class GPTForPretraining(nn.Module, _CacheContract):
         with ``lm_head_scale`` [V].  Idempotent."""
         if self._weight_int8:
             return
+        self._require_whole_weights("quantize_weights")
         for layer in self.gpt.layers:
             for owner, name in ((layer.attn, "qkv_proj"),
                                 (layer.attn, "out_proj"),
@@ -1285,8 +1536,15 @@ class GPTForPretraining(nn.Module, _CacheContract):
                 kv_cache, "paged", False):
             raise ValueError("per-request LoRA adapters ride the paged "
                              "serving step (page_tables required)")
-        h = self.gpt(input_ids, position_ids, attn_mask, kv_cache,
-                     cache_index, page_tables, ragged_plan, lora)
+        if getattr(kv_cache, "shards", None) is None:
+            self._require_whole_weights("a forward without a sharded pool")
+        if getattr(kv_cache, "shards", None) is not None:
+            h = self._forward_sharded(input_ids, position_ids, kv_cache,
+                                      cache_index, page_tables, ragged_plan,
+                                      lora)
+        else:
+            h = self.gpt(input_ids, position_ids, attn_mask, kv_cache,
+                         cache_index, page_tables, ragged_plan, lora)
         if out_rows is not None:
             # gather each slot's output row BEFORE the vocab projection
             h = h[out_rows.long()]
@@ -1295,6 +1553,26 @@ class GPTForPretraining(nn.Module, _CacheContract):
         h, w = promote(*maybe_cast("matmul", h,
                                    self.gpt.embeddings.word_embeddings.weight))
         return h @ w.t()
+
+
+    def _forward_sharded(self, input_ids, position_ids, kv_cache,
+                         cache_index, page_tables, ragged_plan, lora):
+        """The paged forward over a pool sharded per head (mp > 1):
+        :func:`sharded_paged_layers` between the embeddings and the final
+        LayerNorm, at the positions :meth:`GPTModel._attends` gives."""
+        cfg, body = self.config, self.gpt
+        if page_tables is None:
+            raise ValueError("a paged KV cache needs page_tables "
+                             "([B, max_pages] int32 pool page ids)")
+        ids = input_ids.long()
+        if position_ids is None:
+            rel = torch.arange(ids.shape[-1], device=ids.device)
+            position_ids = torch.clamp(cache_index.long()[:, None] + rel, 0,
+                                       cfg.max_position_embeddings - 1)
+        h = body.embeddings(ids, position_ids.long().expand_as(ids))
+        h = sharded_paged_layers(self, h, kv_cache, page_tables, cache_index,
+                                 ragged_plan, lora)
+        return body.final_ln(h)
 
 
 def truncated_draft(model, num_layers: int = 1):
@@ -1310,6 +1588,7 @@ def truncated_draft(model, num_layers: int = 1):
     draft owns its own paged pool inside the engine."""
     import dataclasses
 
+    model._require_whole_weights("truncated_draft")
     cfg = model.config
     n = int(num_layers)
     if not 1 <= n <= cfg.num_layers:

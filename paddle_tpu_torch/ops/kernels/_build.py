@@ -29,7 +29,7 @@ import time
 from typing import Dict, List, Optional
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "KernelError", "sources", "build",
-           "library", "build_logs"]
+           "library", "build_logs", "count_launch"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -48,8 +48,17 @@ class KernelError(RuntimeError):
 
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
+
+
+def count_launch(fn) -> None:
+    """Add one to the wrapper's ``fn.launches`` under a lock: the replicas
+    of a sharded engine launch from several threads at once, and a bare
+    ``+=`` on an attribute is a read-modify-write that can lose a count."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def sources() -> List[str]:

@@ -35,12 +35,13 @@ differentiates through the cache.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Union
 
 import torch
 
 from . import _build
-from ._build import KernelError
+from ._build import KernelError, count_launch
 
 __all__ = [
     "decode_attention",
@@ -199,25 +200,33 @@ def workspace_shapes(rows: int, splits: int, head_dim: int
 
 # workspaces of the split kernels, by (device index, stream): fp32
 # partials grown as needed, int32 tickets zeroed when made (the kernels
-# leave them 0); launches on one stream run in order, so they share one
+# leave them 0); launches on one stream run in order, so they share one.
+# Replica threads of a sharded engine launch at once: the lock makes the
+# grow-and-replace atomic, and each caller gets its own dict of the
+# buffers, which keeps them alive until its launch is enqueued (a buffer
+# another thread replaces goes back to PyTorch's stream-ordered allocator,
+# so the stream's earlier launches still finish on it first).
 _workspaces: Dict[tuple, Dict[str, torch.Tensor]] = {}
+_workspaces_lock = threading.Lock()
 
 
 def workspace(dev: torch.device, stream: int, shapes: Dict[str, tuple]
               ) -> Dict[str, torch.Tensor]:
     """Cached buffers of at least ``shapes`` (fp32 ``partials``, zeroed
     int32 ``tickets``) on ``dev`` for launches on ``stream``; made with
-    ``torch.empty``/``torch.zeros``, with no host sync."""
+    ``torch.empty``/``torch.zeros``, with no host sync.  Safe from several
+    threads."""
     key = (dev.index, stream)
-    ws = _workspaces.get(key, {})
-    for name, shape in shapes.items():
-        t = ws.get(name)
-        if t is None or t.numel() < shape[0]:
-            ws[name] = (torch.zeros(shape, dtype=torch.int32, device=dev)
-                        if name == "tickets" else
-                        torch.empty(shape, dtype=torch.float32, device=dev))
-    _workspaces[key] = ws
-    return ws
+    with _workspaces_lock:
+        ws = _workspaces.setdefault(key, {})
+        for name, shape in shapes.items():
+            t = ws.get(name)
+            if t is None or t.numel() < shape[0]:
+                ws[name] = (torch.zeros(shape, dtype=torch.int32, device=dev)
+                            if name == "tickets" else
+                            torch.empty(shape, dtype=torch.float32,
+                                        device=dev))
+        return dict(ws)
 
 
 def q_dtype(cache_dtype: torch.dtype) -> torch.dtype:
@@ -373,7 +382,7 @@ def _launch(q, k_cache, v_cache, length, scale: float, k_scale=None,
     if err != 0:
         raise KernelError("decode_attention kernel launch failed: "
                         f"{err_str(err).decode()} (cudaError {err})")
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 

@@ -43,7 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from ._build import KernelError
+from ._build import KernelError, count_launch
 
 __all__ = [
     "flash_attention_bnsd",
@@ -300,7 +300,7 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float):
     out = _bsnd_empty(q)
     lse = torch.empty((b * n, s), dtype=torch.float32, device=q.device)
     _launch("fwd", causal, scale, dict(q=q, k=k, v=v, o=out), lse, None)
-    flash_attention_fwd.launches += 1
+    count_launch(flash_attention_fwd)
     return out, lse
 
 
@@ -322,7 +322,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool,
     dk, dv = _bsnd_empty(k), _bsnd_empty(v)
     _launch("bwd_dkv", causal, scale,
             dict(q=q, k=k, v=v, do=do, dk=dk, dv=dv), lse, delta)
-    flash_attention_bwd_dkv.launches += 1
+    count_launch(flash_attention_bwd_dkv)
     return dk, dv
 
 
@@ -336,7 +336,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool,
     dq = _bsnd_empty(q)
     _launch("bwd_dq", causal, scale, dict(q=q, k=k, v=v, do=do, dq=dq),
             lse, delta)
-    flash_attention_bwd_dq.launches += 1
+    count_launch(flash_attention_bwd_dq)
     return dq
 
 

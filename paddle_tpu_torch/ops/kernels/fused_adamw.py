@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from . import _build
-from ._build import KernelError
+from ._build import KernelError, count_launch
 
 __all__ = ["fused_adamw_update", "fused_adamw_plain", "adamw_scalars"]
 
@@ -215,7 +215,7 @@ def fused_adamw_update(p, g, m1, m2, lr, b1p, b2p, *, beta1=0.9,
                           finite=finite, pows=pows)
         return
     _launch(p, g, m1, m2, scalars, master=master, finite=finite, pows=pows)
-    fused_adamw_update.launches += 1
+    count_launch(fused_adamw_update)
 
 
 # kernel launches made through the wrapper (plain-version calls on the

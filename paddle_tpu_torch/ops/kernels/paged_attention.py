@@ -40,7 +40,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._build import KernelError
+from ._build import KernelError, count_launch
 from . import decode_attention as _decode
 from .decode_attention import (
     KERNEL_DTYPES, NEG_INF, scale_pointers, check_rows, check_scales,
@@ -248,7 +248,7 @@ def _launch(q, k_pool, v_pool, page_tables, lengths, scale: float,
     if err != 0:
         raise KernelError("paged_attention kernel launch failed: "
                         f"{err_str(err).decode()} (cudaError {err})")
-    paged_attention.launches += 1
+    count_launch(paged_attention)
     return out
 
 

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from . import _build
-from ._build import KernelError
+from ._build import KernelError, count_launch
 from .decode_attention import (
     SPLIT_KV_BYTES, check_scales, merge_partials, q_dtype, query_kernel_info,
     scale_pointers, workspace,
@@ -433,7 +433,7 @@ def _launch(q, k_pool, v_pool, plan, scale: float, k_scale=None,
     if err != 0:
         raise KernelError("ragged_paged_attention kernel launch failed: "
                         f"{err_str(err).decode()} (cudaError {err})")
-    ragged_paged_attention.launches += 1
+    count_launch(ragged_paged_attention)
     return out
 
 

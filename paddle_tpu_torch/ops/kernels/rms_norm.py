@@ -35,7 +35,7 @@ import ctypes
 import torch
 
 from . import _build
-from ._build import KernelError
+from ._build import KernelError, count_launch
 
 __all__ = ["fused_add_rms_norm", "fused_add_layer_norm",
            "fused_add_rms_norm_plain", "fused_add_layer_norm_plain",
@@ -147,7 +147,7 @@ def _launch(layer_norm: bool, x, residual, params, eps):
         raise KernelError("fused_add_norm kernel launch failed: "
                         f"{err_str(err).decode()} (cudaError {err})")
     counted = fused_add_layer_norm if layer_norm else fused_add_rms_norm
-    counted.launches += 1
+    count_launch(counted)
     return (out.reshape(x.shape).to(x.dtype), h.reshape(x.shape).to(x.dtype))
 
 

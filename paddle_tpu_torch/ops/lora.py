@@ -30,7 +30,22 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["lora_delta_raw"]
+__all__ = ["lora_delta_raw", "lora_down", "lora_up"]
+
+
+def lora_down(x, ag, a_dtype):
+    """The first contraction of :func:`lora_delta_raw`: x ``[T, S, in]``
+    rounded to the A-slab dtype ``a_dtype``, times the rows' gathered fp32
+    ``ag`` ``[T, in, r]`` -> fp32 ``u`` ``[T, S, r]``.  A contraction split
+    over shards of ``in`` sums its shards' ``u`` (sharded serving)."""
+    return torch.bmm(x.to(a_dtype).float(), ag)
+
+
+def lora_up(u, bg, b_dtype, scaling, dtype):
+    """The second half: ``u`` rounded to the B-slab dtype, times the
+    gathered fp32 ``bg`` ``[T, r, out]``, scaled, cast to ``dtype``."""
+    d = torch.bmm(u.to(b_dtype).float(), bg)
+    return (d * float(scaling)).to(dtype)
 
 
 def lora_delta_raw(x, a_slab, b_slab, ids, scaling):
@@ -40,6 +55,5 @@ def lora_delta_raw(x, a_slab, b_slab, ids, scaling):
     idx = ids.long()
     ag = a_slab.index_select(0, idx).float()            # [T, in, r]
     bg = b_slab.index_select(0, idx).float()            # [T, r, out]
-    u = torch.bmm(x.to(a_slab.dtype).float(), ag)       # [T, S, r]
-    d = torch.bmm(u.to(b_slab.dtype).float(), bg)       # [T, S, out]
-    return (d * float(scaling)).to(x.dtype)
+    return lora_up(lora_down(x, ag, a_slab.dtype), bg, b_slab.dtype,
+                   scaling, x.dtype)

@@ -17,7 +17,8 @@ from torch import nn
 from .kv import absmax_scale
 
 __all__ = ["quantize_weight", "quantized_matmul", "Int8Linear",
-           "quantize_for_serving", "int_mm_rows", "k_major"]
+           "quantize_for_serving", "int_mm_rows", "k_major",
+           "activation_scales", "int8_accumulate", "int8_epilogue"]
 
 # torch._int_mm on the card (CUDA, cuBLASLt; chip_smoke.py phase 12
 # probes the rules and prints them): PyTorch refuses 16 rows or fewer and
@@ -74,6 +75,40 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)
 
 
+def activation_scales(x: torch.Tensor,
+                      act_scale: Optional[float] = None) -> torch.Tensor:
+    """The activation scale of :func:`quantized_matmul`: one absmax a row
+    of ``x`` over its K features (``[..., 1]`` fp32), or the static
+    ``act_scale`` as a 0-d tensor."""
+    if act_scale is not None:
+        return torch.as_tensor(act_scale, dtype=torch.float32,
+                               device=x.device)
+    return absmax_scale(x.float(), -1, 1e-12, keepdim=True)
+
+
+def int8_accumulate(x: torch.Tensor, w_int8: torch.Tensor,
+                    xs: torch.Tensor) -> torch.Tensor:
+    """``int8(x / xs) @ w_int8``: the exact int32 ``[..., N]`` accumulator
+    of :func:`quantized_matmul`.  Integer sums are exact, so the
+    accumulators of a contraction split over shards add up to the whole
+    one's (the row-parallel int8 product of sharded serving)."""
+    xq = torch.clamp(torch.round(x.float() / xs), -127.0,
+                     127.0).to(torch.int8)
+    k = x.shape[-1]
+    return _int_mm(xq.reshape(-1, k), w_int8).reshape(*x.shape[:-1], -1)
+
+
+def int8_epilogue(acc: torch.Tensor, xs: torch.Tensor,
+                  w_scale: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fp32 epilogue in the reference's order, ``acc * xs * ws + b``,
+    one op at a time."""
+    out = acc.float() * xs * w_scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out
+
+
 def quantized_matmul(x: torch.Tensor, w_int8: torch.Tensor,
                      w_scale: torch.Tensor,
                      bias: Optional[torch.Tensor] = None,
@@ -87,18 +122,8 @@ def quantized_matmul(x: torch.Tensor, w_int8: torch.Tensor,
     features), so a token's quantization grid never depends on its batch
     neighbours.  The epilogue runs in the reference's order,
     ``acc * xs * ws + b``, one fp32 op at a time."""
-    xf = x.float()
-    if act_scale is not None:
-        xs = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
-    else:
-        xs = absmax_scale(xf, -1, 1e-12, keepdim=True)
-    xq = torch.clamp(torch.round(xf / xs), -127.0, 127.0).to(torch.int8)
-    k = x.shape[-1]
-    acc = _int_mm(xq.reshape(-1, k), w_int8)
-    out = acc.reshape(*x.shape[:-1], -1).float() * xs * w_scale.float()
-    if bias is not None:
-        out = out + bias.float()
-    return out
+    xs = activation_scales(x, act_scale)
+    return int8_epilogue(int8_accumulate(x, w_int8, xs), xs, w_scale, bias)
 
 
 class Int8Linear(nn.Module):

@@ -77,8 +77,18 @@ fused step writes them and dequantized inside the ragged kernel;
 ``weight_dtype="int8"`` quantizes the model's projections and LM head in
 place (``quantization.quantize_for_serving``) before the first step.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): mesh-sharded and disaggregated replicas (``mesh=``, ``role=``).
+Sharded and disaggregated replicas (``serving/sharded.py``,
+``serving/disagg.py``): ``mesh=`` (a tuple of ``torch.device``s, one per
+head shard) serves the model split over its devices
+(``distributed/serving_mesh.py``): the pool sharded per head, each shard's
+kernels at ``H/mp`` heads over its own pool; ``role=`` names the replica's
+disaggregation role and labels its metrics.  The drain API
+(``begin_drain``, ``resume_admission``, ``checkpoint_seated``,
+``requeue``) and the hand-off API (``adopt_transferred``,
+``release_transferred``) are the reference's: a drain stops admission and
+hands the queue back, a checkpoint folds a seated request's tokens into
+its prompt (``output_ids()`` unchanged) and stores the sampling
+generator's state on ``Request.rng_state``.
 """
 from __future__ import annotations
 
@@ -95,7 +105,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import dtype_name, to_torch_dtype
+from ..core import canonical_device, dtype_name, to_torch_dtype
+from ..distributed import serving_mesh as _srv_mesh
 from ..ops.kernels._build import KernelError
 from ..ops.kernels.ragged_paged_attention import (
     RAGGED_PLAN_FIELDS, TOKEN_BLOCK, build_ragged_plan,
@@ -211,6 +222,13 @@ class Request:
         self._t_last_token: Optional[float] = None   # ITL bookkeeping
         self.error: Optional[BaseException] = None
         self.callback_error: Optional[BaseException] = None
+        # drain/re-home bookkeeping: generated tokens folded into
+        # ``prompt`` by checkpoint_seated (output_ids() is invariant
+        # across the fold), the sampling generator's state at the
+        # checkpoint, and the replica that last queued the request
+        self.rehomed = 0
+        self.rng_state = None
+        self.replica: Optional[int] = None
         self._cancelled = False
         self._cb_warned = False
         self._done = threading.Event()
@@ -543,7 +561,17 @@ class ServingEngine:
     ``compile_budget_s`` (the budget of each step variant's first
     dispatch, 300 s), ``readmission_backoff_s`` (0.05 s) and
     ``backoff_max_s`` (5 s).  ``prefix_cache=True`` turns the prefix
-    cache on; ``lora`` takes a ``LoRAAdapterPool`` on the model's device."""
+    cache on; ``lora`` takes a ``LoRAAdapterPool`` on the model's device.
+
+    ``mesh``: the replica's devices, one per head shard
+    (``serving_mesh.replica_meshes``); the engine commits the model to it
+    (``shard_model_for_serving``), so the model serves from ``mesh[0]``,
+    and with more than one shard the pool is sharded per head (an
+    indivisible head count raises ``ValueError``) and the shards own the
+    projections (``serving_mesh.unshard_model`` gives the model its whole
+    weights back).  ``role``: "prefill",
+    "decode" or "colocated" (the default), for ``DisaggServingEngine``;
+    naming it adds a ``role`` label to every metric of the engine."""
 
     def __init__(self, model, *, num_slots: int = 4,
                  page_size: int = 128, max_context: Optional[int] = None,
@@ -562,15 +590,23 @@ class ServingEngine:
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
                  role: Optional[str] = None):
-        # knobs of the JAX engine that wait for a later slice, each with
-        # the ROADMAP.md queue-1 item that brings it
-        for knob, asked in (("mesh", mesh is not None),
-                            ("role", role is not None)):
-            if asked:
-                raise NotImplementedError(
-                    f"ServingEngine({knob}) is not ported yet: ROADMAP.md "
-                    "queue 1, item 9, sharded, elastic and disaggregated "
-                    "serving")
+        # disaggregated serving: the replica's role; naming it labels every
+        # per-engine metric child with it
+        self.role = role or "colocated"
+        self._role_label = {} if role is None else {"role": str(role)}
+        cfg = model.config
+        self.mesh = None
+        self._mp = 1
+        if mesh is not None:
+            if isinstance(mesh, (str, torch.device)) or not hasattr(
+                    mesh, "__len__") or not len(mesh):
+                raise TypeError(
+                    f"mesh={mesh!r}: expected a sequence of devices, one per "
+                    "head shard (serving_mesh.replica_meshes)")
+            self.mesh = tuple(canonical_device(d) for d in mesh)
+            self._mp = _srv_mesh.mp_size(self.mesh)
+            # an indivisible head axis cannot be sharded at all
+            _srv_mesh.validate_head_sharding(cfg.num_heads, self._mp)
         if kv_dtype is not None:
             cache_dtype = kv_dtype
         if weight_dtype is not None:
@@ -578,9 +614,15 @@ class ServingEngine:
                 raise ValueError(
                     f"weight_dtype={weight_dtype!r}: only 'int8' (or None "
                     "for the model's own weights) is supported")
+            if not model.weight_int8:
+                # quantizing reads the whole weights
+                _srv_mesh.unshard_model(model)
             quantize_for_serving(model)
-        cfg = model.config
-        if lora is not None and lora.device != model.device:
+        if self.mesh is not None:
+            # after quantizing: the shards slice the weights served
+            _srv_mesh.shard_model_for_serving(model, self.mesh)
+        if lora is not None and canonical_device(lora.device) \
+                != canonical_device(model.device):
             raise ValueError(f"the LoRA pool is on {lora.device}, the model "
                              f"on {model.device}")
         if lora is not None and lora.stacked != model.stacked:
@@ -635,6 +677,10 @@ class ServingEngine:
         self.queue = RequestQueue(max_depth=max_queue_depth)
         self._lock = threading.RLock()
         self._closed = False
+        # drain lifecycle: while draining, admission stops and submit
+        # refuses typed; seated requests keep stepping until they finish
+        # or checkpoint_seated() evicts them for re-homing
+        self._draining = False
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(seed))
 
@@ -698,7 +744,8 @@ class ServingEngine:
 
         # cumulative totals on the process-wide telemetry registry: each
         # key is the ``serving_<key>`` counter labeled with this engine
-        self._engine_label = {"engine": str(next(_ENGINE_SEQ))}
+        self._engine_label = {"engine": str(next(_ENGINE_SEQ)),
+                              **self._role_label}
         self._totals = _tmetrics.CounterSet(
             "serving", {"steps": 0, "tokens": 0, "admitted": 0,
                         "completed": 0,
@@ -711,7 +758,14 @@ class ServingEngine:
                         "padded_rows": 0, "padded_flops": 0,
                         "failed": 0, "cancelled": 0, "timed_out": 0,
                         "shed": 0, "quarantined": 0, "step_retries": 0,
-                        "recoveries": 0, "rebuilds": 0},
+                        "recoveries": 0, "rebuilds": 0,
+                        # requests checkpointed off this engine by a drain
+                        # or a replica loss (they end on the replica that
+                        # seats them again)
+                        "drained": 0,
+                        # requests whose filled pages left for a decode
+                        # replica / arrived from a prefill replica
+                        "transferred_out": 0, "transferred_in": 0},
             labels=self._engine_label)
         # per-request SLO histograms (seconds, log-bucketed): TTFT and e2e
         # are measured FROM SUBMISSION (queue time included), queue_wait
@@ -764,9 +818,11 @@ class ServingEngine:
         return []
 
     def _new_pool(self):
-        """A fresh page pool (at init and in ``_rebuild``)."""
-        return self.model.new_paged_kv_cache(self.num_pages, self.page_size,
-                                             dtype=self.cache_dtype)
+        """A fresh page pool (at init and in ``_rebuild``), sharded per head
+        over the mesh when it has more than one shard."""
+        return self.model.new_paged_kv_cache(
+            self.num_pages, self.page_size, dtype=self.cache_dtype,
+            mesh=self.mesh if self._mp > 1 else None)
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32, *,
@@ -779,8 +835,14 @@ class ServingEngine:
         so the step loop never meets an unseatable request.  A full
         bounded queue raises the typed ``Overloaded`` error (load shed);
         ``deadline_s`` bounds the request's total lifetime; ``adapter``
-        names a tenant of the engine's LoRA pool."""
+        names a tenant of the engine's LoRA pool.  A draining engine
+        refuses with ``Overloaded``, not counted as a shed."""
         self._check_open()
+        if self._draining:
+            # a routing event, not a capacity shed: the placement layer
+            # skips draining replicas before it calls their submit
+            raise Overloaded(
+                "engine draining: admission stopped — submit elsewhere")
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
@@ -1175,6 +1237,137 @@ class ServingEngine:
                 f"not complete ({detail})") from bad[0].error
         return [r.output_ids() for r in reqs]
 
+    # -- drain lifecycle: scale-down and replica-loss re-homing go through
+    # begin_drain -> [keep stepping] -> checkpoint_seated ------------------
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def drained(self) -> bool:
+        """True once a draining engine holds no work at all."""
+        return (self._draining and self.queue.depth == 0
+                and self.scheduler.active_slots == 0)
+
+    def begin_drain(self) -> List[Request]:
+        """Stop admission and hand back every QUEUED (never-seated) request
+        for re-routing.  Seated requests are untouched: ``step()`` keeps
+        decoding them; a caller that cannot wait evicts them with
+        ``checkpoint_seated()``."""
+        with self._lock:
+            self._check_open()
+            self._draining = True
+            return self.queue.remove_where(lambda r: True)
+
+    def resume_admission(self):
+        """Reverse ``begin_drain``: the engine admits again."""
+        with self._lock:
+            self._check_open()
+            self._draining = False
+
+    def checkpoint_seated(self) -> List[Request]:
+        """Evict every seated request as a re-admittable checkpoint and
+        return them.  Each one's generated tokens fold into its prompt
+        (``output_ids()`` is invariant; tokens already streamed through
+        ``on_token`` are never emitted again), its remaining
+        ``max_new_tokens`` shrinks by as many, and a sampling request
+        stores the engine generator's state on ``Request.rng_state`` (the
+        survivor draws from its own stream).  Pages, LoRA and prefix-cache
+        references are released here, so the 4-term page ledger holds at
+        once."""
+        with self._lock:
+            self._check_open()
+            return [self._checkpoint_slot(i)
+                    for i, _slot in self.scheduler.seated()]
+
+    def _checkpoint_slot(self, idx: int) -> Request:
+        req = self.scheduler.slots[idx].request
+        if req.sampling.do_sample:
+            req.rng_state = self._rng_checkpoint()
+        self.scheduler.retire(idx)         # pages + cache refs free NOW
+        self._clear_slot_mirrors(idx)      # the LoRA reference drops here
+        n_emitted = len(req.tokens)
+        req.prompt = np.concatenate(
+            [req.prompt, np.asarray(req.tokens, np.int64)])
+        req.max_new_tokens -= n_emitted
+        req.tokens = []
+        req.rehomed += n_emitted
+        req.state = RequestState.SUBMITTED
+        self._totals.inc("drained")
+        return req
+
+    def _rng_checkpoint(self):
+        """The sampling generator's state (a uint8 tensor)."""
+        return self._generator.get_state()
+
+    def requeue(self, req: Request) -> Request:
+        """Queue an EXISTING request (placement re-homing after a drain or
+        a replica loss): the same object keeps its id, callback, waiter and
+        absolute deadline; ``submit_t`` restarts now, so queue-wait
+        shedding measures time in THIS queue.  A draining engine, or a
+        request naming an adapter on an engine without a LoRA pool, raises
+        ``Overloaded``; so does a full bounded queue."""
+        self._check_open()
+        if self._draining:
+            raise Overloaded(
+                f"engine draining: request {req.id} not requeued")
+        if req.adapter is not None and self.lora is None:
+            raise Overloaded(
+                f"request {req.id} needs adapter {req.adapter!r} but this "
+                "replica has no LoRA pool")
+        req.submit_t = time.monotonic()
+        return self.queue.submit(req)
+
+    # -- disaggregated hand-off (serving/disagg.py) ------------------------
+    def adopt_transferred(self, req: Request, pages: List[int], pos: int,
+                          last_token: int) -> Optional[int]:
+        """Seat a mid-decode request whose KV pages a ``PageTransfer``
+        copied into this pool.  ``pages`` must already be committed in this
+        allocator (the transfer's reservation went spec -> allocated);
+        ``pos`` is every position the source wrote and ``last_token`` its
+        last sampled token, which the next step feeds at ``pos`` as the
+        source would have.  None (nothing changed) when this replica cannot
+        seat it now: draining, no free slot, or a missing adapter."""
+        with self._lock:
+            self._check_open()
+            if self._draining:
+                return None
+            page = 0
+            if req.adapter is not None:
+                if self.lora is None:
+                    return None
+                try:
+                    page = self.lora.acquire(req.adapter)
+                except ServingError:
+                    return None
+            idx = self.scheduler.adopt(req, pages, pos)
+            if idx is None:
+                if req.adapter is not None:
+                    self.lora.release(req.adapter)
+                return None
+            self._adapter[idx] = page
+            self._adapter_name[idx] = req.adapter
+            sp = req.sampling
+            self._temp[idx] = np.float32(sp.temperature)
+            self._top_p[idx] = np.float32(sp.top_p)
+            self._top_k[idx] = np.int32(sp.top_k)
+            self._do_sample[idx] = bool(sp.do_sample)
+            self._tokens[idx] = np.int64(last_token)
+            self._sampling_cache = None
+            req.state = RequestState.DECODE
+            self._totals.inc("transferred_in")
+            return idx
+
+    def release_transferred(self, idx: int):
+        """Source side of a committed hand-off: release slot ``idx`` with
+        no terminal transition (pages back to this pool, prefix-cache and
+        LoRA references dropped).  Called only after the destination
+        committed its copy: until then this slot owns the request."""
+        with self._lock:
+            self.scheduler.retire(idx)
+            self._clear_slot_mirrors(idx)
+            self._totals.inc("transferred_out")
+
     # -- internals ---------------------------------------------------------
     def _hook(self, point: str, ctx: Optional[dict] = None):
         if self._fault_hook is not None:
@@ -1254,6 +1447,8 @@ class ServingEngine:
         the uncached tail of the prompt parked on ``Slot.pending``; the
         same tick's fused step starts consuming it under the token
         budget."""
+        if self._draining:
+            return                        # drain: no new admissions
         if now < self._admit_after:
             return                        # re-admission backoff after recovery
         sched = self.scheduler
@@ -1473,10 +1668,14 @@ class ServingEngine:
         out.update(self._last_metrics)
         out["queue_depth"] = self.queue.depth
         out["active_slots"] = self.scheduler.active_slots
+        out["draining"] = self._draining
         out["pages_used"] = self.allocator.used_pages
         out["pages_capacity"] = self.allocator.capacity
         out["occupancy"] = self.scheduler.occupancy
         out["cache_bytes"] = self.cache.nbytes if not self._closed else 0
+        # the head-sharded pool puts 1/mp of the page bytes on each shard
+        out["mp"] = self._mp
+        out["cache_bytes_per_chip"] = out["cache_bytes"] // self._mp
         wc = self._totals["work_capacity"]
         rc = self._totals["block_row_capacity"]
         out["mean_grid_occupancy"] = (self._totals["work_items"] / wc

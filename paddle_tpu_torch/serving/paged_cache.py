@@ -20,17 +20,28 @@ are mutable, so the pool needs no donation to be updated without a copy.
 layout.  A scale row is addressed by the page id it describes, so it
 needs no allocator of its own: it travels with its page through every
 ledger transition.
+
+A pool made for a replica mesh of ``mp > 1`` shards (``mesh=``, or
+:meth:`PagedKVCache.shard`) holds no tensors of its own: ``shards[i]`` is
+a whole pool of ``H/mp`` heads on ``mesh[i]`` (the reference's per-head
+sharding over ``mp``), ``nbytes`` their sum.  A page id names the same
+page in every shard.  :meth:`PagedKVCache.gather_pages` and
+:meth:`PagedKVCache.scatter_pages` move pages between two pools of one
+geometry, per pool tensor and per shard, scales included (the
+disaggregated hand-off).
+
 ``BlockAllocator`` is host bookkeeping, copied whole from the JAX package
 with its 4-term ledger (free + used + spec + shared == capacity).
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core import dtype_name, resolve_device, to_torch_dtype
+from ..core import canonical_device, dtype_name, resolve_device, \
+    to_torch_dtype
 from ..models.generation import _KVBuffers
 
 __all__ = ["NULL_PAGE", "PagedKVCache", "BlockAllocator",
@@ -76,7 +87,7 @@ class PagedKVCache(_KVBuffers):
 
     def __init__(self, num_layers: int, num_pages: int, num_heads: int,
                  page_size: int, head_dim: int, dtype="bfloat16",
-                 stacked: bool = False, *, device=None):
+                 stacked: bool = False, *, device=None, mesh=None):
         if num_pages < 2:
             raise ValueError(
                 f"num_pages={num_pages}: the pool needs the null page plus "
@@ -88,8 +99,26 @@ class PagedKVCache(_KVBuffers):
         self.head_dim = head_dim
         self.dtype = dtype_name(dtype)
         self.stacked = bool(stacked)
-        self.device = resolve_device(device)
         self.quantized = self.dtype == "int8"
+        self.shards: Optional[List["PagedKVCache"]] = None
+        self.mesh_shards = 1
+        self.k = self.v = self.k_scale = self.v_scale = None
+        if mesh is not None and len(mesh) > 1:
+            mp = len(mesh)
+            if num_heads % mp:
+                raise ValueError(f"num_heads={num_heads} is not divisible "
+                                 f"by mp={mp}")
+            mesh = [canonical_device(d) for d in mesh]
+            self.device = mesh[0]
+            self.shards = [PagedKVCache(num_layers, num_pages,
+                                        num_heads // mp, page_size, head_dim,
+                                        dtype, stacked, device=d)
+                           for d in mesh]
+            self.mesh_shards = mp
+            return
+        if mesh is not None:
+            device = mesh[0]
+        self.device = resolve_device(device)
 
         def alloc(shape, td):
             if stacked:
@@ -101,15 +130,74 @@ class PagedKVCache(_KVBuffers):
         td = to_torch_dtype(dtype, storage=True)
         shape = (num_pages, num_heads, page_size, head_dim)
         self.k, self.v = alloc(shape, td), alloc(shape, td)
-        self.k_scale = self.v_scale = None
         if self.quantized:
             ss = (num_pages, num_heads)
             self.k_scale = alloc(ss, torch.float32)
             self.v_scale = alloc(ss, torch.float32)
 
+    def shard(self, mesh: Sequence[torch.device]) -> "PagedKVCache":
+        """Split this pool per head over ``mesh`` in place: shard ``i`` is
+        a contiguous pool of heads ``i*H/mp .. (i+1)*H/mp`` on ``mesh[i]``
+        (the pages' content and scales kept); one device moves the pool
+        there whole."""
+        if self.shards is not None:
+            raise ValueError("the pool is sharded already")
+        mp = len(mesh)
+        # the head axis of every pool tensor: [L, P, H, ...] stacked,
+        # [P, H, ...] a layer (pages and scales alike)
+        hax = 2 if self.stacked else 1
+        if mp == 1:
+            d = resolve_device(mesh[0])
+            for f in self._FIELDS:
+                t = getattr(self, f)
+                if isinstance(t, list):
+                    setattr(self, f, [x.to(d) for x in t])
+                elif t is not None:
+                    setattr(self, f, t.to(d))
+            self.device = d
+            return self
+        if self.num_heads % mp:
+            raise ValueError(f"num_heads={self.num_heads} is not divisible "
+                             f"by mp={mp}")
+        hs = self.num_heads // mp
+        shards = []
+        for i, d in enumerate(mesh):
+            c = PagedKVCache.__new__(PagedKVCache)
+            c.__dict__.update({k: v for k, v in self.__dict__.items()
+                               if k not in self._FIELDS})
+            c.num_heads, c.device = hs, canonical_device(d)
+            for f in self._FIELDS:
+                t = getattr(self, f)
+
+                def cut(x):
+                    return x.narrow(hax, i * hs, hs).contiguous().to(d)
+
+                if isinstance(t, list):
+                    setattr(c, f, [cut(x) for x in t])
+                else:
+                    setattr(c, f, None if t is None else cut(t))
+            shards.append(c)
+        for f in self._FIELDS:
+            setattr(self, f, None)
+        self.shards, self.mesh_shards = shards, mp
+        self.device = shards[0].device
+        return self
+
+    def _tensors(self):
+        if self.shards is not None:
+            return [t for s in self.shards for t in s._tensors()]
+        return super()._tensors()
+
+    def release(self):
+        if self.shards is not None:
+            for s in self.shards:
+                s.release()
+        super().release()
+
     def layer(self, i: int):
         """(k, v) pool tensors of layer ``i`` (the per-layer layout
         only)."""
+        self._check_whole("layer()")
         if self.stacked:
             raise ValueError("layer() is for the per-layer pool layout; "
                              "the stacked pool is read whole")
@@ -118,6 +206,7 @@ class PagedKVCache(_KVBuffers):
     def layer_scales(self, i: int):
         """(k_scale, v_scale) of layer ``i``, ``(None, None)`` for a float
         pool (the per-layer layout only)."""
+        self._check_whole("layer_scales()")
         if self.stacked:
             raise ValueError("layer_scales() is for the per-layer pool "
                              "layout; the stacked pool is read whole")
@@ -125,6 +214,58 @@ class PagedKVCache(_KVBuffers):
             return None, None
         return self.k_scale[i], self.v_scale[i]
 
+    def _check_whole(self, what: str):
+        if self.shards is not None:
+            raise ValueError(f"{what}: the pool is sharded over "
+                             f"{self.mesh_shards} devices; read "
+                             "cache.shards[i]")
+
+    # -- page moves (the disaggregated hand-off) ---------------------------
+    def pool_tensors(self) -> List[Tuple[torch.Tensor, int]]:
+        """Every tensor a page lives in, with its page axis: K and V (a
+        layer each, or the stacked pair), then an int8 pool's scales, shard
+        after shard.  Two pools of one geometry list them in the same
+        order."""
+        if self.shards is not None:
+            return [p for s in self.shards for p in s.pool_tensors()]
+        ax = 1 if self.stacked else 0
+        out = []
+        for f in self._FIELDS:
+            t = getattr(self, f)
+            if isinstance(t, list):
+                out.extend((x, ax) for x in t)
+            elif t is not None:
+                out.append((t, ax))
+        return out
+
+    def gather_pages(self, pages: Sequence[int]) -> List[torch.Tensor]:
+        """The content of ``pages`` (their K/V and scales), one block per
+        :meth:`pool_tensors` entry, on that tensor's device."""
+        out = []
+        idx = {}
+        for t, ax in self.pool_tensors():
+            if t.device not in idx:
+                idx[t.device] = torch.as_tensor(list(pages),
+                                                dtype=torch.long,
+                                                device=t.device)
+            out.append(t.index_select(ax, idx[t.device]))
+        return out
+
+    def scatter_pages(self, pages: Sequence[int],
+                      blocks: Sequence[torch.Tensor]):
+        """Write ``blocks`` (from :meth:`gather_pages` of a pool of the same
+        geometry, on any devices) into ``pages`` of this pool, in place."""
+        tensors = self.pool_tensors()
+        if len(blocks) != len(tensors):
+            raise ValueError(f"{len(blocks)} blocks for {len(tensors)} pool "
+                             "tensors: the pools' geometries differ")
+        idx = {}
+        for (t, ax), b in zip(tensors, blocks):
+            if t.device not in idx:
+                idx[t.device] = torch.as_tensor(list(pages),
+                                                dtype=torch.long,
+                                                device=t.device)
+            t.index_copy_(ax, idx[t.device], b.to(t.device))
 
 
 class BlockAllocator:

@@ -48,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import canonical_device
 from ..ops.kernels.ragged_paged_attention import (
     RAGGED_PLAN_FIELDS, build_ragged_plan,
 )
@@ -163,7 +164,7 @@ class _DraftShadow:
             raise ValueError(
                 f"draft vocab {cfg.vocab_size} != target vocab "
                 f"{e.model.config.vocab_size}")
-        if draft_model.device != e.device:
+        if canonical_device(draft_model.device) != canonical_device(e.device):
             raise ValueError(f"the draft model is on {draft_model.device}, "
                              f"the target on {e.device}")
         self.page_size = e.page_size
@@ -321,6 +322,12 @@ class SpeculativeEngine(ServingEngine):
         self._spec_last: Dict[int, dict] = {}
         self._zero_q = None
         super().__init__(model, **kw)
+        if self._mp > 1:
+            raise ValueError(
+                "SpeculativeEngine shards at the REPLICA level (each dp "
+                "replica may speculate); mp>1 head-sharding of the draft "
+                "pool is not supported — use ShardedServingEngine(dp=N, "
+                "mp=1, engine_factory=...)")
         self.draft = _DraftShadow(self, draft_model)
         reg = _tmetrics.registry()
         self._spec_totals = _tmetrics.CounterSet(

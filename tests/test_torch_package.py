@@ -105,10 +105,18 @@ def test_engine_follows_the_model_device():
     ("role", "prefill"),
 ])
 def test_unported_engine_knobs_raise(knob, value):
+    """``mesh`` and ``role`` were refused until sharded and disaggregated
+    serving was ported (ROADMAP.md queue 1, item 9).  Now a mesh that is
+    not a sequence of devices raises a ``TypeError`` saying what a mesh
+    is, and a role is taken and labels the engine's metrics."""
     m = GPTStackedForPretraining(gpt_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingEngine(m, num_slots=2, page_size=16, max_context=64,
-                      **{knob: value})
+    kw = dict(num_slots=2, page_size=16, max_context=64)
+    if knob == "mesh":
+        with pytest.raises(TypeError, match="sequence of devices"):
+            ServingEngine(m, **kw, mesh=value)
+        return
+    eng = ServingEngine(m, **kw, role=value)
+    assert eng.role == value and eng._engine_label["role"] == value
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -222,8 +230,6 @@ def _predictor(mode):
 
 # every refused knob: (how to provoke it, words its item's title must hold)
 REFUSALS = {
-    "engine mesh": (lambda: _engine(mesh=object()), "sharded"),
-    "engine role": (lambda: _engine(role="prefill"), "disaggregated"),
     "gpt n_micro": (
         lambda: GPTStackedForPretraining(gpt_tiny(), 2, device="cpu"),
         "training"),
@@ -237,6 +243,13 @@ REFUSALS = {
 # words its title must hold); each is now taken, and its item's title
 # says it is ported
 PORTED = {
+    "engine mesh": (lambda: _engine_step(mesh=("cpu", "cpu")), 9,
+                    "sharded"),
+    "engine role": (lambda: _engine_step(role="prefill"), 9,
+                    "disaggregated"),
+    "engine lora over head shards": (
+        lambda: _engine_step(mesh=("cpu", "cpu"), lora="pool"), 9,
+        "sharded"),
     "engine prefix_cache": (lambda: _engine_step(prefix_cache=True), 6,
                             "prefix cache"),
     "engine stall_budget_s": (lambda: _engine_step(stall_budget_s=1.0), 7,

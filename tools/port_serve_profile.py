@@ -15,11 +15,14 @@ adapters of rank 16 on all four targets, the requests spread over them
 and the null adapter); ``--spec-draft N`` through phase 28's speculative
 engine (k 4) with ``truncated_draft(model, N)`` as its draft.
 ``--layered`` serves the layered GPT (``GPTForPretraining``, phase 36;
-its LoRA pool in the layered layout) in place of the stacked one.  Run
-from the repository root:
+its LoRA pool in the layered layout) in place of the stacked one.
+``--dp N --mp M`` serves through phase 41's ``ShardedServingEngine``: N
+replicas of M head shards, all on ``cuda:0``; the per-step numbers are
+then per replica fused step (each launches the ragged kernel 24 x M
+times), the step times per cluster tick.  Run from the repository root:
 
     python3 tools/port_serve_profile.py [--layered] [--kv-dtype int8] \
-        [--weight-dtype int8] [--lora | --spec-draft N] \
+        [--weight-dtype int8] [--lora | --spec-draft N | --dp N --mp M] \
         [--trace serve_trace.json]
 """
 from __future__ import annotations
@@ -110,6 +113,17 @@ def _engine(port, args):
     model = port["Layered" if args.layered else "GPT"](
         cfg, device=cs.DEVICE, dtype="bfloat16", seed=0)
     model.eval()
+    if args.dp > 1 or args.mp > 1:
+        eng = port["serving"].ShardedServingEngine(
+            model, dp=args.dp, mp=args.mp,
+            devices=cs._mesh_devices(args.dp * args.mp),
+            **cs._engine_kw(kv_dtype=args.kv_dtype,
+                            weight_dtype=args.weight_dtype))
+        rng = np.random.RandomState(0)
+        eng.generate_batch([rng.randint(0, cfg.vocab_size, (64,))] * args.dp,
+                           2)
+        port["torch"].cuda.synchronize()
+        return eng, rng, lambda n: [None] * n
     if not args.lora and args.spec_draft is None:
         eng, rng = cs.serve_engine(port, args.kv_dtype, args.weight_dtype,
                                    model=model)
@@ -161,8 +175,15 @@ def main() -> int:
                     help="speculate with truncated_draft(model, N), k 4")
     ap.add_argument("--layered", action="store_true",
                     help="the layered GPT (GPTForPretraining)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="replicas of a ShardedServingEngine (phase 41)")
+    ap.add_argument("--mp", type=int, default=1,
+                    help="head shards of each replica (phase 41)")
     ap.add_argument("--trace", help="write the Chrome trace here")
     args = ap.parse_args()
+    sharded = args.dp > 1 or args.mp > 1
+    if sharded and (args.lora or args.spec_draft is not None):
+        ap.error("--dp/--mp serve the plain engine's replicas only")
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -172,10 +193,21 @@ def main() -> int:
     port = chip_smoke.import_port()
     print(f"card: {chip_smoke.card_line()}")
     eng, rng, adapters = _engine(port, args)
-    print(f"model {type(eng.model).__name__}, "
+    first = eng.replicas[0] if sharded else eng
+    print(f"model {type(first.model).__name__}, "
           f"kv {args.kv_dtype}, weights {args.weight_dtype or 'bfloat16'}, "
-          f"lora {args.lora}, speculative draft layers {args.spec_draft}")
-    if args.lora or args.spec_draft is not None:
+          f"lora {args.lora}, speculative draft layers {args.spec_draft}, "
+          f"dp {args.dp}, mp {args.mp}")
+    if sharded:
+        prompts = chip_smoke._shard_traffic(first.model.config.vocab_size)
+
+        def workload():
+            reqs, wall, ticks = chip_smoke._drive_cluster(
+                port, eng, prompts, chip_smoke.SERVE_NEW_TOKENS)
+            chip_smoke._all_done(port, "profile", reqs,
+                                 chip_smoke.SERVE_NEW_TOKENS)
+            return reqs, ticks, wall
+    elif args.lora or args.spec_draft is not None:
         def workload():
             return _workload(port, eng, rng, adapters)
     else:
@@ -200,7 +232,8 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         _, _, pwall = workload()
     fused = eng.metrics()["fused_steps"] - f0
-    if not report(prof, fused, pwall, _group, "fused step"):
+    if not report(prof, fused, pwall, _group,
+                  "replica fused step" if sharded else "fused step"):
         return 1
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)),
