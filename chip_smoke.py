@@ -378,7 +378,42 @@ result line:
    (2, 2) and the layered one at (1, 2).  The card must give the CPU's
    action sequence, replica states, request states and replicas, page
    counts, ticks and transfer counts exactly, and its tokens under the
-   fp32 parity rule.
+   fp32 parity rule;
+45. mesh kernels -- the flash kernels at a pipeline microbatch's shard
+   (``MESH_SHARD_FLASH``: B 2, H 8, S 1024, D 128, bf16, causal; q, k and
+   v the strided views of one fused QKV output, as a shard's block hands
+   them), held against their plain versions as in phase 5, and the AdamW
+   kernel on one shard of the QKV slab at (pp, mp) = (2, 2)
+   (``MESH_SHARD_ADAMW``), two steps against its plain version;
+46. mesh train -- GPT-3 1.3B at full width and depth, phase 6's
+   configuration (bf16, dropout 0, recompute every block, O1, AdamW with
+   bf16 moments, batch 8 x 1024, flash), placed on a training mesh with
+   every position on ``cuda:0``, at each of ``MESH_TRAIN_RUNS``: (dp, pp,
+   mp) = (1, 2, 2) with ``n_micro`` 4 for 3 steps, the same with
+   ``virtual_pp_degree`` 2 for 2, and (2, 2, 2) with ``n_micro`` 2 and
+   ``use_tensor_parallel`` (the word embeddings and the loss over the
+   vocabulary shards) for 2.
+   Against phase 6's unplaced model, optimizer and batches, both on the
+   card: step 1's gathered gradients within ``TRAIN_GRAD_NORM`` by
+   relative norm, tensor by tensor, and every step's loss within
+   ``MESH_LOSS_REL``; every step must launch the
+   flash forward exactly dp x n_micro x mp x 48 times and each backward
+   kernel dp x n_micro x mp x 24 times, and the AdamW kernel once a part;
+   replica 0's positions must hold the unplaced model's weight bytes.
+   Prints each run's step ms (host clock), device ms and busy share of
+   its last step under ``torch.profiler``, peak memory and the weight
+   bytes of each mesh position (``shards.weight_bytes_by_position``);
+47. mesh card vs CPU -- a 2-layer fp32 GPT (hidden 256, 4 heads) at (2,
+   2, 2), ``n_micro`` 2, ``use_tensor_parallel``, on the card and on the
+   CPU from the same weights: step 1's gathered gradients
+   (``MESH_GRAD_REL``), then 3 AdamW steps under a global-norm clip
+   (losses within ``TRAIN_LOSS_ATOL``; weights: the elements whose step-1
+   gradient is zero to rounding, ``MESH_ZERO_REL``, within two lr steps,
+   every other within 2 ``MESH_ZERO_REL`` lr steps + 1e-5 relative and
+   each tensor's 99.9th percentile within 1e-6); then on the card one
+   O1 step with a ``GradScaler`` and an inf in one shard's gradient:
+   every part, moment and beta power unchanged, one AdamW launch a part,
+   the scale halved.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -391,7 +426,9 @@ time, plain time and bound at the mixed served shape; the AdamW master
 form's row its times at BERT-base and, beside them, at GPT-3 1.3B; the
 fp32 form's row, launched by phase 31, its time with the flag and the
 library's with ``found_inf``; the flash rows their launches on phases 6,
-31 and 40, the forward's also on 35 and 37; the decode and paged rows,
+31 and 40, the forward's also on 35 and 37, and, with the bf16 AdamW
+row, on phase 46's mesh runs and (fp32) phase 47's; the fp32 AdamW row
+its launches on phases 31 and 47; the decode and paged rows,
 bf16 and int8, theirs on the stacked and the layered GPT's paths), and
 as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -535,7 +572,7 @@ def import_port():
     from paddle_tpu_torch.serving import RequestState, ServingEngine, \
         SpeculativeEngine
     from paddle_tpu_torch.serving import sharded
-    from paddle_tpu_torch.distributed import serving_mesh
+    from paddle_tpu_torch.distributed import mesh, serving_mesh, shards
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
                 gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
@@ -551,7 +588,8 @@ def import_port():
                 DevicePrefetcher=DevicePrefetcher, Layered=GPTForPretraining,
                 Criterion=GPTPretrainingCriterion,
                 Int8Linear=qi8.Int8Linear, inference=inference,
-                sharded=sharded, serving_mesh=serving_mesh)
+                sharded=sharded, serving_mesh=serving_mesh, mesh=mesh,
+                shards=shards)
 
 
 def _check(cond, msg):
@@ -4724,9 +4762,10 @@ def o1_host_batches(vocab, n, seed=31, batch=None):
 
 def _state_checksum(torch, tensors):
     """One int64 over the bits of every tensor (fp32 viewed as int32),
-    computed on the card."""
-    return torch.stack([t.detach().view(torch.int32).sum(dtype=torch.int64)
-                        for t in tensors]).sum()
+    computed on the cards, summed on the first tensor's."""
+    dev = tensors[0].device
+    return torch.stack([t.detach().view(torch.int32).sum(
+        dtype=torch.int64).to(dev) for t in tensors]).sum()
 
 
 def _o1_forced_overflow(port, model, opt, scaler, step, batches):
@@ -5619,18 +5658,20 @@ def _drive_cluster(port, eng, prompts, new, per_tick=None, **kw):
 
 def _profiled_step_ms(port, run):
     """Device time of one ``run()`` under ``torch.profiler``: (all CUDA
-    kernels' ms, the ragged kernel's ms, device busy share of the wall),
-    or None when the profiler saw no device activity."""
+    kernels' ms, the ragged kernel's ms, device busy share of the run's
+    wall, the run's wall ms), or None when the profiler saw no device
+    activity.  The wall is the run's and its synchronize, not the
+    profiler's teardown (which sorts every event)."""
     torch = port["torch"]
     from torch.profiler import ProfilerActivity, profile
 
-    t0 = time.perf_counter()
     # device activity only: the host events of a 2 s serve would take
     # the profiler longer to sort than the run itself
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     ks = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and not e.is_user_annotation]
@@ -5649,7 +5690,7 @@ def _profiled_step_ms(port, run):
     total = sum(e.time_range.elapsed_us() for e in ks) / 1e3
     ragged = sum(e.time_range.elapsed_us() for e in ks
                  if "ragged_paged_attention" in e.name.lower()) / 1e3
-    return total, ragged, busy / 1e6 / wall
+    return total, ragged, busy / 1e6 / wall, 1e3 * wall
 
 
 def _sharded_run(port, name, model, dp, mp, want, bound="bfloat16",
@@ -6129,6 +6170,358 @@ def phase_cluster_card_vs_cpu(port):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 45-47: hybrid dp x pp x mp training of the stacked GPT
+# ---------------------------------------------------------------------------
+
+# (name, (dp, pp, mp), n_micro, virtual_pp_degree, use_tensor_parallel,
+# steps): GPT-3 1.3B at full width and depth, every position on cuda:0;
+# the (2, 2, 2) run also cuts the word embeddings and the loss over mp
+MESH_TRAIN_RUNS = (("1x2x2", (1, 2, 2), 4, 1, False, 3),
+                   ("1x2x2_vpp2", (1, 2, 2), 4, 2, False, 2),
+                   ("2x2x2", (2, 2, 2), 2, 1, True, 2))
+# the flash kernels' shape on those runs: a microbatch of B / (dp n_micro)
+# = 2 rows at H / mp = 8 heads
+MESH_SHARD_FLASH = (2, 8, 1024, 128)
+# one shard of the QKV slab at (pp, mp) = (2, 2): 12 layers, 3 x 1024
+# columns
+MESH_SHARD_ADAMW = (12, 2048, 3072)
+MESH_CPU_STEPS = 3
+MESH_LR = 1e-4
+# phase 47's global-norm clip: below the 2-layer model's gradient norm
+# at init, so every step scales every part by one norm over all of them
+MESH_CLIP = 0.5
+# phase 47's step-1 gradients, card against CPU in fp32 with TF32 off:
+# the same arithmetic summed in another order (~1e-6 of a tensor's
+# largest gradient) and the fp32 flash kernels' gradients, within ~2e-5
+# of the plain version's (FLASH_GRAD_TOL); held at 1e-4 of each gathered
+# tensor's largest gradient
+MESH_GRAD_REL = 1e-4
+# phase 46: GPT-3 1.3B bf16 on a mesh against the unplaced model, both on
+# the card.  Each step's loss within MESH_LOSS_REL of the unplaced one's
+# (the two differ only where the mp partials round: 2e-6 at step 1, 3e-5
+# over 6 steps); step 1's gathered gradients per tensor by relative norm
+# within TRAIN_GRAD_NORM, phase 40's bf16 rule (a misplaced cut or a
+# dropped partial parts them by O(1))
+MESH_LOSS_REL = 1e-4
+# phase 47's weights after the AdamW steps.  An element whose step-1
+# gradient, card and CPU, parts by more than MESH_ZERO_REL of the CPU's is
+# zero to rounding there (the key third of qkv_b is zero in exact
+# arithmetic: softmax ignores a shift of a row's scores); AdamW divides
+# by the gradient's own size, so such an element may move by any share
+# of a step either way, and it is held only to two steps of the rate.
+# Every other element's update differs by at most ~MESH_ZERO_REL of a
+# step a step; it is held to twice that, plus 1e-5 relative, and each
+# tensor's 99.9th percentile to 1e-6 (phase 24's rule).  At most
+# MESH_ZERO_SHARE of the model may be zero to rounding.
+MESH_ZERO_REL = 1e-3
+MESH_ZERO_SHARE = 1e-2
+
+
+def _set_mesh(port, axes):
+    """The port's global mesh over ``axes``, every position on cuda:0 (or
+    on the CPU); None clears it."""
+    dm = port["mesh"]
+    if axes is None:
+        dm.set_mesh(None)
+        return
+    dm.set_mesh(dm.build_mesh(dict(zip(("dp", "pp", "mp"), axes)),
+                              _mesh_devices(int(np.prod(axes)))))
+
+
+def phase_mesh_kernels(port):
+    """Phase 45: the flash kernels at a shard's microbatch (bf16, causal,
+    q/k/v the strided views of a fused QKV output, as the block hands
+    them) and the AdamW kernel on one shard of a GPT-3 1.3B slab, each
+    against its plain version at its rows' tolerances."""
+    fwd, dkv, dq = _flash_compare(port, "bfloat16", MESH_SHARD_FLASH, True,
+                                  450)
+    adamw = _adamw_compare(port, MESH_SHARD_ADAMW, "bfloat16", 451)
+    return dict(fwd=fwd, dkv=dkv, dq=dq, adamw=adamw)
+
+
+def mesh_train_setup(port, axes, n_micro, vpp, tp):
+    """Phase 6's model, optimizer and step (GPT-3 1.3B bf16, seed 0,
+    recompute every block, O1), placed on the mesh ``axes``."""
+    cfg = port["gpt_1p3b"](hidden_dropout=0.0, attention_dropout=0.0,
+                           max_position_embeddings=1024,
+                           recompute_interval=1, use_flash_attention=True,
+                           virtual_pp_degree=vpp, use_tensor_parallel=tp)
+    _set_mesh(port, axes)
+    model = port["GPT"](cfg, n_micro, dtype="bfloat16", seed=0)
+    opt = port["AdamW"](parameters=model.parameters(), learning_rate=1e-4,
+                        weight_decay=0.01, multi_precision=False)
+    step = port["FusedTrainStep"](
+        lambda ids, labels: model(ids, labels=labels), opt, amp_level="O1")
+    return model, step
+
+
+def _o1_grads(port, model, ids, labels):
+    """One O1 forward and backward of ``model`` (no step): its loss and
+    gathered gradients (the parameters' own without a mesh), by name."""
+    with port["amp"].auto_cast(enable=True, level="O1", dtype="bfloat16"):
+        loss = model(ids, labels=labels)
+    loss.backward()
+    loss = loss.detach()
+    sharded = port["shards"].sharded_parameters(model)
+    grads = ({k: sp.gather([p.grad for p in sp]) for k, sp in sharded.items()}
+             if sharded else {k: p.grad for k, p in model.named_parameters()})
+    model.zero_grad(set_to_none=True)
+    return float(loss), grads
+
+
+def _grad_rel_norms(grads, ref):
+    return {k: ((g.float() - ref[k].float()).norm()
+                / ref[k].float().norm()).item() for k, g in grads.items()}
+
+
+def _mesh_run(port, name, axes, n_micro, vpp, tp, steps, batches, ref):
+    """One mesh run of phase 46: step 1's gathered gradients against the
+    unplaced model's, then ``steps`` steps, each loss against the unplaced
+    model's on the same batch, step 1's launches against the unplaced
+    step's times dp x n_micro x mp; later steps timed on the host clock,
+    the last under ``torch.profiler``."""
+    torch = port["torch"]
+    dp, pp, mp = axes
+    t0 = time.perf_counter()
+    model, step = mesh_train_setup(port, axes, n_micro, vpp, tp)
+    n_tensors = len(list(model.parameters()))
+    positions = port["shards"].weight_bytes_by_position(model)
+    build_s = time.perf_counter() - t0
+    _, grads = _o1_grads(port, model, *batches[0])
+    _check(set(grads) == set(ref["grads"]),
+           f"{name}: gathered {sorted(grads)}, unplaced "
+           f"{sorted(ref['grads'])}")
+    rels = _grad_rel_norms(grads, ref["grads"])
+    del grads
+    worst = max(rels, key=rels.get)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(port)
+    first, first_s = train_steps(port, step, batches, 1)
+    launches = _launch_counts(port)
+    want = {k: dp * n_micro * mp * ref["per_step"][k]
+            for k in ("fwd", "dkv", "dq")}
+    want["adamw"] = n_tensors
+    losses, wall = train_steps(port, step, batches, steps - 2, first=1) \
+        if steps > 2 else ([], 0.0)
+    prof = _profiled_step_ms(
+        port, lambda: losses.append(float(step(*batches[(steps - 1)
+                                                        % len(batches)]))))
+    _check(prof is not None, f"{name}: the profiler saw no device activity")
+    step_ms = 1e3 * wall / (steps - 2) if steps > 2 else prof[3]
+    total = _launch_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    replica0 = sum(v for k, v in positions.items() if k[0] == 0)
+    got = first + losses
+    loss_rels = [abs(a - b) / abs(b) for a, b in zip(got, ref["losses"])]
+    print(f"[mesh_train] {name}: (dp, pp, mp) = {axes}, n_micro {n_micro}, "
+          f"virtual_pp_degree {vpp}, use_tensor_parallel {tp}, {steps} "
+          f"steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}; set-up {build_s:.2f} s; step 1 gradients against "
+          f"the unplaced model's, relative norm max {rels[worst]:.4g} "
+          f"({worst}), median {float(np.median(list(rels.values()))):.4g} "
+          f"(tol {TRAIN_GRAD_NORM:.4g}); losses {got} against the unplaced "
+          f"model's {ref['losses'][:steps]} (relative {loss_rels}, tol "
+          f"{MESH_LOSS_REL:.3g}); step 1 {1e3 * first_s:.1f} ms with "
+          f"warm-up; launches step 1 {launches} (want {want}); "
+          f"step {step_ms:.2f} ms (host clock"
+          f"{'' if steps > 2 else ', under the profiler'}); last step "
+          f"under the profiler {prof[3]:.2f} ms, device {prof[0]:.2f} ms, "
+          f"busy {prof[2]:.3f} of it; "
+          f"peak {peak / 2**30:.2f} GiB; weight bytes by (r, s, i) "
+          f"{positions} (replica 0: {replica0})")
+    _check(all(np.isfinite(got)), f"{name}: non-finite losses")
+    _check(rels[worst] <= TRAIN_GRAD_NORM, f"{name}: step 1's gradient of "
+           f"{worst} is off the unplaced model's ({rels[worst]:.4g})")
+    _check(len(got) == steps and max(loss_rels) <= MESH_LOSS_REL,
+           f"{name}: losses {got} are off the unplaced model's "
+           f"{ref['losses'][:steps]}")
+    _check(all(launches[k] == want[k] for k in want),
+           f"{name}: launches {launches}, expected {want}")
+    _check(all(total[k] == steps * want[k] for k in want),
+           f"{name}: launches over {steps} steps {total}")
+    out = dict(launches=total, step_ms=step_ms, device_ms=prof[0],
+               busy=prof[2], profiled_ms=prof[3], peak=peak,
+               positions=positions, replica0=replica0)
+    del model, step
+    _set_mesh(port, None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_train(port, runs=MESH_TRAIN_RUNS):
+    """Phase 46: GPT-3 1.3B through ``FusedTrainStep`` on each mesh of
+    ``runs``, against phase 6's unplaced model, optimizer and batches
+    (``train_setup``): its step 1 gradients and the losses of as many
+    steps as the longest run takes."""
+    torch = port["torch"]
+    model, step, batches = train_setup(port)
+    whole = sum(t.numel() * t.element_size() for t in model.parameters())
+    ref_loss, grads = _o1_grads(port, model, *batches[0])
+    ref = dict(grads=grads)
+    ref["losses"], _ = train_steps(port, step, batches,
+                                   max(r[-1] for r in runs))
+    del model, step
+    torch.cuda.empty_cache()
+    L = port["gpt_1p3b"]().num_layers
+    ref["per_step"] = {"fwd": 2 * L, "dkv": L, "dq": L}
+    print(f"[mesh_train] unplaced GPT-3 1.3B bf16: step 1 loss "
+          f"{ref_loss!r} (no step), losses {ref['losses']}, {whole} weight "
+          f"bytes; per step {ref['per_step']}")
+    out = {}
+    for name, axes, n_micro, vpp, tp, steps in runs:
+        out[name] = _mesh_run(port, name, axes, n_micro, vpp, tp, steps,
+                              batches, ref)
+        _check(out[name]["replica0"] == whole,
+               f"{name}: replica 0's positions hold "
+               f"{out[name]['replica0']} bytes, the model {whole}")
+    return out
+
+
+def _gathered_grads(port, model):
+    return {k: sp.gather([p.grad for p in sp]).float().cpu()
+            for k, sp in port["shards"].sharded_parameters(model).items()}
+
+
+def phase_mesh_card_vs_cpu(port, devices=None):
+    """Phase 47: a 2-layer fp32 GPT (hidden 256, 4 heads: head_dim 64, 2
+    heads a shard) at (2, 2, 2), ``n_micro`` 2, ``use_tensor_parallel``,
+    TF32 off, the same weights on the CPU and on the card (its eight
+    positions on ``devices``, default all on one card): step 1's gathered
+    gradients, then ``MESH_CPU_STEPS`` AdamW steps under a global-norm
+    clip (``MESH_CLIP``): losses, then the weights by the rule at
+    ``MESH_ZERO_REL``; then one O1 step with a ``GradScaler`` on the card
+    with an inf put into one shard's gradient: every part, moment and
+    beta power must stay as it was, and the scale halve, as an unplaced
+    model's does."""
+    torch = port["torch"]
+    devices = _mesh_devices(8) if devices is None else list(devices)
+    cfg = port["gpt_tiny"](hidden_size=256, num_heads=4, num_layers=2,
+                           hidden_dropout=0.0, attention_dropout=0.0,
+                           use_tensor_parallel=True)
+    rng = np.random.RandomState(47)
+    batches = [(rng.randint(0, cfg.vocab_size, (4, 128)),
+                rng.randint(0, cfg.vocab_size, (4, 128)))
+               for _ in range(MESH_CPU_STEPS)]
+    models = {}
+    for dev in ("cpu", DEVICE):
+        port["mesh"].set_mesh(port["mesh"].build_mesh(
+            {"dp": 2, "pp": 2, "mp": 2},
+            ["cpu"] * 8 if dev == "cpu" else devices))
+        models[dev] = port["GPT"](cfg, 2, dtype="float32", seed=47)
+    _set_mesh(port, None)
+    models[DEVICE].load_state_dict(models["cpu"].state_dict())
+    _reset_launches(port)
+    grads, losses, weights = {}, {}, {}
+    t0 = time.perf_counter()
+    for dev, m in models.items():
+        ids, labels = (torch.from_numpy(x).to(m.device) for x in batches[0])
+        m(ids, labels=labels).backward()
+        grads[dev] = _gathered_grads(port, m)
+        m.zero_grad(set_to_none=True)
+        step = port["FusedTrainStep"](
+            lambda i, l, m=m: m(i, labels=l),
+            port["AdamW"](MESH_LR, parameters=m.parameters(),
+                          grad_clip=port["clip"].ClipGradByGlobalNorm(
+                              MESH_CLIP)))
+        losses[dev] = [float(step(*(torch.from_numpy(x).to(m.device)
+                                    for x in b))) for b in batches]
+        weights[dev] = {k: v.float().cpu() for k, v in m.state_dict().items()}
+    both_s = time.perf_counter() - t0
+    launches = _launch_counts(port)
+    gc, gg = grads["cpu"], grads[DEVICE]
+    _check(set(gc) == set(weights["cpu"]),
+           f"mesh card vs CPU: gradients of {sorted(gc)}, weights of "
+           f"{sorted(weights['cpu'])}")
+    gnorm = float(sum(g.double().pow(2).sum() for g in gc.values()) ** 0.5)
+    gerr = max(((gg[k] - g).abs().max() / g.abs().max()).item()
+               for k, g in gc.items())
+    loss_diff = max(abs(a - b) for a, b in zip(losses["cpu"],
+                                               losses[DEVICE]))
+    pc, pg = weights["cpu"], weights[DEVICE]
+    step_dw = MESH_LR * MESH_CPU_STEPS
+    n_zero = n_all = 0
+    over_kept = over_zero = bulk = -float("inf")
+    for n, w in pc.items():
+        d = (pg[n] - w).abs()
+        zero = (gg[n] - gc[n]).abs() > MESH_ZERO_REL * gc[n].abs()
+        n_zero += int(zero.sum())
+        n_all += zero.numel()
+        if zero.any():
+            over_zero = max(over_zero, (d - 2 * step_dw
+                                        - 1e-5 * w.abs())[zero].max().item())
+        kept = d[~zero]
+        over_kept = max(over_kept, (kept - 2 * MESH_ZERO_REL * step_dw
+                                    - 1e-5 * w.abs()[~zero]).max().item())
+        bulk = max(bulk, torch.quantile(kept[:2**24], 0.999).item())
+    print(f"[mesh_card_vs_cpu] 2 layers fp32 at (2, 2, 2), n_micro 2, "
+          f"vocab-parallel, positions on {sorted(set(map(str, devices)))} "
+          f"({both_s:.1f} s both): step 1 gradient norm {gnorm:.4f} (the "
+          f"clip {MESH_CLIP} scales it); step 1 gradients max "
+          f"|card - cpu| / max |cpu| {gerr!r} (tol {MESH_GRAD_REL}); losses "
+          f"cpu {losses['cpu']} card {losses[DEVICE]}, max diff "
+          f"{loss_diff!r} (tol {TRAIN_LOSS_ATOL}); weights: {n_zero} of "
+          f"{n_all} elements zero to rounding at step 1 (at most "
+          f"{MESH_ZERO_SHARE} of them), their excess over 2 lr steps + 1e-5 "
+          f"relative {over_zero!r}; the others' excess over "
+          f"{2 * MESH_ZERO_REL} lr steps + 1e-5 relative {over_kept!r} "
+          f"(both must be <= 0), their largest 99.9th percentile "
+          f"difference in a tensor {bulk!r} (tol 1e-6); card launches "
+          f"{launches}")
+    _check(gnorm > MESH_CLIP, "mesh card vs CPU: the clip does not engage")
+    _check(gerr <= MESH_GRAD_REL and loss_diff <= TRAIN_LOSS_ATOL,
+           "mesh card vs CPU: gradients or losses part")
+    _check(n_zero <= MESH_ZERO_SHARE * n_all and over_zero <= 0
+           and over_kept <= 0 and bulk <= 1e-6,
+           "mesh card vs CPU: weights part")
+    _check(all(launches[k] > 0 for k in ("fwd", "dkv", "dq", "adamw")),
+           "mesh card vs CPU: the card did not launch the flash and AdamW "
+           "kernels")
+    fp32_launches = launches["adamw"]
+    flash = {k: launches[k] for k in ("fwd", "dkv", "dq")}
+    # one O1 step with a scaler on the card, an inf in one shard's
+    # gradient (replica 1, stage 1, shard 1's fc1 columns)
+    m = models[DEVICE]
+    opt = port["AdamW"](MESH_LR, parameters=m.parameters())
+    scaler = port["amp"].GradScaler(enable=True,
+                                    init_loss_scaling=O1_INIT_SCALE,
+                                    device=DEVICE)
+    step = port["FusedTrainStep"](lambda i, l: m(i, labels=l), opt,
+                                  scaler=scaler, amp_level="O1",
+                                  amp_dtype="bfloat16")
+    dev_batch = [torch.from_numpy(x).to(m.device) for x in batches[0]]
+    step(*dev_batch)
+    _check(step.last_step_applied, "mesh O1: the first step was skipped")
+    parts = list(m.parameters())
+    # every part, its moments and every device's pair of beta powers
+    every = parts + [t for p in parts for t in opt.state[p].values()] \
+        + list(opt._pairs.values())
+    before = _state_checksum(torch, every)
+    scale = float(scaler._scale)
+    target = port["shards"].sharded_parameters(m)["decoder.fc1_w"].at(
+        (1, 1, 1))
+    hook = target.register_hook(lambda g: torch.full_like(g, float("inf")))
+    _reset_launches(port)
+    step(*dev_batch)
+    hook.remove()
+    skip_launches = _launch_counts(port)["adamw"]
+    after = _state_checksum(torch, every)
+    applied = step.last_step_applied
+    print(f"[mesh_card_vs_cpu] O1 + GradScaler, inf in one shard's "
+          f"gradient: applied {applied}, every part, moment and beta power "
+          f"unchanged {bool(before == after)}, scale {scale} -> "
+          f"{float(scaler._scale)}; AdamW launches {skip_launches} (one a "
+          f"part: {len(parts)})")
+    _check(not applied and bool(before == after)
+           and float(scaler._scale) == scale * 0.5
+           and skip_launches == len(parts),
+           "mesh O1: the overflow did not skip every shard")
+    del models, m, opt, step
+    torch.cuda.empty_cache()
+    return dict(flash=flash, adamw_fp32=fp32_launches,
+                adamw_fp32_skip=skip_launches)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6232,6 +6625,14 @@ def main() -> int:
     by_path["disagg"] = phase_disagg(port)[0]
     # the fp32 launches ride the fp32/bf16 kernel's row
     by_path["cluster_fp32"] = {"bfloat16": phase_cluster_card_vs_cpu(port)}
+    # phases 45-47: hybrid dp x pp x mp training of the stacked GPT
+    mk45 = phase_mesh_kernels(port)
+    for key in ("fwd", "dkv", "dq"):
+        tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"], mk45[key])
+    tk["adamw"]["max_abs_err"] = max(tk["adamw"]["max_abs_err"],
+                                     mk45["adamw"])
+    mesh_runs = phase_mesh_train(port)
+    mesh_cpu = phase_mesh_card_vs_cpu(port)
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -6265,24 +6666,36 @@ def main() -> int:
                         "source": csrc + source,
                         "replaces": pallas + replaces,
                         "launches": train_launches[key], **tk[key]})
+        # phase 46's mesh runs, each over all its steps
+        mesh_paths = {"train_mesh_" + name: run["launches"][key]
+                      for name, run in mesh_runs.items()}
         if key != "adamw":
             # phase 6's bf16-weight step, phase 31's O1 step and phase
             # 40's layered step; the forward also phase 35's layered
-            # prefill and phase 37's Predictor
+            # prefill and phase 37's Predictor; phase 47's fp32 mesh
             kernels[-1]["launches_by_path"] = {
                 "train_bf16": train_launches[key],
                 "train_o1_fp32_weights": o1_launches[key],
-                "train_layered": ltrain[key]}
+                "train_layered": ltrain[key], **mesh_paths,
+                "train_mesh_fp32_card_vs_cpu": mesh_cpu["flash"][key]}
             if key == "fwd":
                 kernels[-1]["launches_by_path"].update(
                     generate_layered=lgen["fwd"],
                     predictor_decode=pred["fwd"])
+        else:
+            kernels[-1]["launches_by_path"] = {
+                "train_bf16": train_launches[key], **mesh_paths}
     # the fp32 form (fp32 p, g and moments) with phase 31's device flag
     # and beta powers: launches from phase 31's O1 steps
     kernels.append({"name": "fused_adamw_fp32", "route": "cuda",
                     "source": csrc + "fused_adamw.cu",
                     "replaces": pallas + "fused_adamw.py:38",
-                    "launches": o1_launches["adamw"], **fk})
+                    "launches": o1_launches["adamw"],
+                    "launches_by_path": {
+                        "train_o1_fp32_weights": o1_launches["adamw"],
+                        "train_mesh_fp32_card_vs_cpu": mesh_cpu["adamw_fp32"],
+                        "train_mesh_o1_overflow": mesh_cpu["adamw_fp32_skip"]},
+                    **fk})
     # the fp32-master form: the same kernel library and TPU kernel, with
     # the arithmetic of the reference's composed master path; launches
     # from phase 21's BERT-base recipe steps, times at BERT-base's

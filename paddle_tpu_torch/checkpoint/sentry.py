@@ -74,16 +74,26 @@ def unscale_and_check(grads, scale):
 def unscale_and_check_(grads, scale) -> torch.Tensor:
     """:func:`unscale_and_check` in place: each gradient is overwritten
     with its unscaled value (one fp32 copy alive at a time), and the flag
-    (a 0-d bool tensor on the scale's device) is returned, not read."""
-    inv = 1.0 / scale.float()
-    finite = torch.ones((), dtype=torch.bool, device=scale.device)
+    (a 0-d bool tensor on the scale's device) is returned, not read.
+    Gradients on several devices (a model placed on a mesh) are unscaled
+    there; each device's flags are reduced on that device, and the
+    devices' flags then combined on the scale's."""
+    inv = {scale.device: 1.0 / scale.float()}
+    flags = {}
     for g in grads:
+        d = g.device
+        if d not in inv:
+            inv[d] = inv[scale.device].to(d)
         if g.dtype == torch.float32:
-            s = g.mul_(inv)
+            s = g.mul_(inv[d])
         else:
-            s = g.float() * inv
+            s = g.float() * inv[d]
             g.copy_(s)
-        finite = finite & torch.isfinite(s).all()
+        ok = torch.isfinite(s).all()
+        flags[d] = ok if d not in flags else flags[d] & ok
+    finite = torch.ones((), dtype=torch.bool, device=scale.device)
+    for d, ok in flags.items():
+        finite = finite & (ok if d == scale.device else ok.to(scale.device))
     return finite
 
 

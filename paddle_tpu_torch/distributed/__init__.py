@@ -1,14 +1,19 @@
-"""Multi-device helpers of the port (``paddle_tpu/distributed``): the
-serving mesh of ``dp`` replicas x ``mp`` head shards, driven by one
-process."""
-from . import serving_mesh
+"""Multi-device helpers of the port (``paddle_tpu/distributed``), driven by
+one process: the global mesh (``mesh``), the training placement's shards
+(``shards``), the microbatch pipeline (``pp_spmd``) and the serving mesh
+of ``dp`` replicas x ``mp`` head shards (``serving_mesh``)."""
+from . import mesh, pp_spmd, serving_mesh, shards
+from .mesh import build_mesh, get_mesh, has_mesh, set_mesh
 from .serving_mesh import (
     clone_model, mp_size, replica_meshes, shard_model_for_serving,
     shard_paged_cache, unshard_model, validate_head_sharding,
     shard_weight_bytes, weight_bytes_by_device,
 )
+from .shards import weight_bytes_by_position
 
-__all__ = ["serving_mesh", "replica_meshes", "mp_size",
+__all__ = ["mesh", "pp_spmd", "serving_mesh", "shards", "build_mesh",
+           "set_mesh", "get_mesh", "has_mesh", "replica_meshes", "mp_size",
            "validate_head_sharding", "shard_model_for_serving",
            "shard_paged_cache", "clone_model", "unshard_model",
-           "weight_bytes_by_device", "shard_weight_bytes"]
+           "weight_bytes_by_device", "shard_weight_bytes",
+           "weight_bytes_by_position"]

@@ -1,0 +1,206 @@
+"""Logical tensors held as shards on a mesh, by one process.
+
+A model placed on a training mesh (``GPTStackedForPretraining`` under
+``mesh.set_mesh``) holds each logical weight -- what the unplaced model
+holds as one parameter -- as a :class:`ShardedParameter`: a
+``ParameterList`` of parts, each its own ``nn.Parameter`` on its mesh
+position's device, each the elements of the whole at its ``region``
+(index lists along some dimensions).  No whole tensor stays beside the
+parts.  ``parameters()`` yields the parts, so an optimizer steps them;
+``state_dict()`` shows the whole tensor under the logical name, gathered
+from replica 0's parts, and :func:`load_state` cuts a whole tensor into
+every part.
+
+Each part carries ``part.shard = (owner, k)``: :func:`shard_info` reads
+it, so the optimizer can save and load moments as whole tensors and the
+global-norm clip can count each logical tensor once (replica 0's parts).
+
+The ``dp`` replicas of one part meet in :func:`tie_replicas`: identity
+in the forward; in the backward each replica receives the sum of all
+replicas' gradients, added in replica order, so every replica applies
+the same bits.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from .serving_mesh import reduce_sum
+
+__all__ = ["Part", "ShardedParameter", "shard_info", "sharded_parameters",
+           "load_state", "tie_replicas", "cut", "weight_bytes_by_position"]
+
+Region = Tuple[Tuple[int, torch.Tensor], ...]
+
+
+class Part(NamedTuple):
+    """Where one part lies: its mesh ``position`` (a tuple of axis
+    indices, the replica first), its ``device`` and its ``region``."""
+    position: Tuple[int, ...]
+    device: torch.device
+    region: Region
+
+    @property
+    def replica(self) -> int:
+        return self.position[0]
+
+
+def cut(whole: torch.Tensor, region: Region) -> torch.Tensor:
+    """The elements of ``whole`` at ``region``, in storage of their own."""
+    t = whole
+    for dim, idx in region:
+        t = t.index_select(dim, idx.to(t.device))
+    return t if region else t.clone()
+
+
+def _put(whole: torch.Tensor, region: Region, part: torch.Tensor):
+    """Write ``part`` into ``whole`` at ``region``."""
+    if not region:
+        whole.copy_(part)
+        return
+    (dim, idx), rest = region[0], region[1:]
+    idx = idx.to(whole.device)
+    part = part.to(whole.device)
+    if rest:
+        sub = whole.index_select(dim, idx)
+        _put(sub, rest, part)
+        part = sub
+    whole.index_copy_(dim, idx, part)
+
+
+class ShardedParameter(nn.ParameterList):
+    """One logical tensor of ``shape`` as parts (module docstring).  The
+    parts are made empty on their devices; fill them with
+    :meth:`load_whole`."""
+
+    def __init__(self, shape, dtype, parts: Sequence[Part]):
+        super().__init__()
+        self.whole_shape = tuple(shape)
+        self.whole_dtype = dtype
+        self.parts = list(parts)
+        self.index = {p.position: k for k, p in enumerate(self.parts)}
+        for k, p in enumerate(self.parts):
+            sub = [self.whole_shape[d] for d in range(len(self.whole_shape))]
+            for dim, idx in p.region:
+                sub[dim] = len(idx)
+            t = nn.Parameter(torch.empty(sub, dtype=dtype, device=p.device))
+            t.shard = (self, k)
+            self.append(t)
+
+    def at(self, position) -> torch.Tensor:
+        return self[self.index[tuple(position)]]
+
+    @torch.no_grad()
+    def gather(self, values: Optional[Sequence[torch.Tensor]] = None,
+               device=None) -> torch.Tensor:
+        """The whole tensor from replica 0's parts (or from ``values``,
+        one tensor a part in part order: their gradients or moments), on
+        ``device`` (default: the first part's)."""
+        values = list(self) if values is None else list(values)
+        device = self.parts[0].device if device is None else device
+        whole = torch.empty(self.whole_shape, dtype=values[0].dtype,
+                            device=device)
+        for p, v in zip(self.parts, values):
+            if p.replica == 0:
+                _put(whole, p.region, v.detach())
+        return whole
+
+    def cut_whole(self, whole: torch.Tensor) -> List[torch.Tensor]:
+        """Each part's elements of ``whole``, on the part's device."""
+        return [cut(whole, p.region).to(p.device) for p in self.parts]
+
+    @torch.no_grad()
+    def load_whole(self, whole: torch.Tensor):
+        if tuple(whole.shape) != self.whole_shape:
+            raise ValueError(f"shape {tuple(whole.shape)}, expected "
+                             f"{self.whole_shape}")
+        for t, p in zip(self, self.parts):
+            t.copy_(cut(whole, p.region).to(p.device))
+
+    # the logical name in the state dict: this module's own prefix
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        destination[prefix[:-1]] = self.gather()
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        # nn.Module.load_state_dict hands a child only the keys under its
+        # prefix, which the logical name is not: load_state()
+        # loads the parts
+        pass
+
+
+def load_state(module: nn.Module, state_dict, strict: bool = True):
+    """``module.load_state_dict`` for a module whose weights are all
+    :class:`ShardedParameter`s: each whole tensor of ``state_dict``
+    (keyed by its logical name) cut into its parts.  Returns
+    ``(missing, unexpected)`` keys; with ``strict`` either raises."""
+    owned = sharded_parameters(module)
+    missing = [k for k in owned if k not in state_dict]
+    unexpected = [k for k in state_dict if k not in owned]
+    if strict and (missing or unexpected):
+        raise RuntimeError(f"Error(s) in loading state_dict for "
+                           f"{type(module).__name__}: missing {missing}, "
+                           f"unexpected {unexpected}")
+    for key, sp in owned.items():
+        if key in state_dict:
+            sp.load_whole(torch.as_tensor(state_dict[key]).to(sp.whole_dtype))
+    return missing, unexpected
+
+
+def shard_info(p: torch.Tensor):
+    """``(owner ShardedParameter, part index)`` of a part, else None."""
+    return getattr(p, "shard", None)
+
+
+def sharded_parameters(module: nn.Module) -> Dict[str, ShardedParameter]:
+    """Every :class:`ShardedParameter` of ``module`` by its state-dict
+    key."""
+    return {name: m for name, m in module.named_modules()
+            if isinstance(m, ShardedParameter)}
+
+
+class _TieReplicas(torch.autograd.Function):
+    """Identity on the replicas' copies of one part; the backward gives
+    each the sum of all their gradients, in replica order."""
+
+    @staticmethod
+    def forward(ctx, *copies):
+        ctx.devices = [c.device for c in copies]
+        return tuple(c.view_as(c) for c in copies)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if all(g is None for g in grads):
+            return grads
+        grads = [torch.zeros((), device=d) if g is None else g
+                 for g, d in zip(grads, ctx.devices)]
+        sums = reduce_sum(grads, ctx.devices)
+        out, given = [], set()
+        for d in ctx.devices:
+            # co-resident replicas get copies: each leaf owns its .grad
+            out.append(sums[d].clone() if d in given else sums[d])
+            given.add(d)
+        return tuple(out)
+
+
+def tie_replicas(copies: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """:class:`_TieReplicas` over one part's replica copies (replica
+    order); one copy passes through."""
+    if len(copies) == 1:
+        return tuple(copies)
+    return _TieReplicas.apply(*copies)
+
+
+def weight_bytes_by_position(module: nn.Module) -> Dict[Tuple[int, ...], int]:
+    """Bytes of the parts each mesh position holds, counted from the part
+    tensors (what each position's device would hold on distinct
+    devices)."""
+    out: Dict[Tuple[int, ...], int] = {}
+    for sp in sharded_parameters(module).values():
+        for t, p in zip(sp, sp.parts):
+            out[p.position] = (out.get(p.position, 0)
+                               + t.numel() * t.element_size())
+    return dict(sorted(out.items()))

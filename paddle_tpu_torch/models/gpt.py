@@ -69,12 +69,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import (
-    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
-)
+from torch.utils.checkpoint import checkpoint
 
 from ..amp.auto_cast import amp_state, auto_cast, maybe_cast, o1_dtype
 from ..core import resolve_device, to_torch_dtype
+from ..distributed import mesh as _mesh
+from ..distributed.pp_spmd import (
+    RECOMPUTE_POLICIES, checkpointed, pipeline_blocks, stage_layers,
+)
+from ..distributed.serving_mesh import broadcast, reduce_sum
+from ..distributed.shards import (
+    Part, ShardedParameter, load_state, sharded_parameters, tie_replicas,
+)
 from ..nn import functional as NF
 from ..nn.functional import (
     cross_entropy, dropout, fused_linear_cross_entropy, promote,
@@ -114,26 +120,6 @@ __all__ = [
 ]
 
 
-_ATEN = torch.ops.aten
-# recompute_policy -> the products whose outputs a recomputed group keeps
-# (None: it keeps nothing)
-RECOMPUTE_POLICIES = {
-    None: None, "full": None,
-    "dots": (_ATEN.mm.default, _ATEN.addmm.default),
-    "dots_saveable": (_ATEN.mm.default, _ATEN.addmm.default,
-                      _ATEN.bmm.default),
-}
-
-
-def _save_ops_policy(ops):
-    """A selective-checkpoint policy: keep the outputs of ``ops``,
-    recompute every other op."""
-    def policy(ctx, op, *args, **kwargs):
-        return (CheckpointPolicy.MUST_SAVE if op in ops
-                else CheckpointPolicy.PREFER_RECOMPUTE)
-    return policy
-
-
 @dataclass
 class GPTConfig:
     vocab_size: int = 50304
@@ -146,6 +132,15 @@ class GPTConfig:
     attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
+    # on a mesh with an mp axis > 1 (``distributed.mesh.set_mesh``): the
+    # word embeddings cut by vocabulary rows over mp and the tied head's
+    # loss over the vocabulary shards (the reference's
+    # VocabParallelEmbedding and ParallelCrossEntropy); the decoder's
+    # projections are cut over mp either way
+    use_tensor_parallel: bool = False
+    # activations sharded by sequence over an 'sp' axis > 1: not ported
+    # (ROADMAP.md queue 1, item 9)
+    sequence_parallel: bool = False
     recompute_interval: int = 0         # 0 = off; k = remat every k blocks
     # what a recomputed group keeps (recompute_interval > 0): None or
     # "full" recompute the whole group in the backward; "dots" keeps the
@@ -154,6 +149,9 @@ class GPTConfig:
     # (aten.bmm) -- the reference's jax checkpoint policies
     # dots_with_no_batch_dims_saveable and dots_saveable
     recompute_policy: Optional[str] = None
+    # interleaved virtual pipeline stages per pp stage (chunk c of the
+    # layers on stage c % pp; distributed.pp_spmd.stage_layers)
+    virtual_pp_degree: int = 1
     # None or True: training attention runs through flash_attention_bnsd
     # (the kernels on the card, their plain version on the CPU) unless
     # attention dropout is active; False: the reference's plain causal
@@ -253,7 +251,8 @@ def _layer_norm(x, g, b, eps):
 
 class BlockOps(NamedTuple):
     """The rounding points of one GPT class's decoder block, shared by its
-    unsharded block and the sharded serving body
+    unsharded block, its tensor-parallel training block
+    (:func:`shard_block_ops`) and the sharded serving body
     (:func:`sharded_paged_layers`), so each is written once:
 
     - ``norm(x, g, beta)``: a LayerNorm and its output in the products'
@@ -262,15 +261,26 @@ class BlockOps(NamedTuple):
       int8 scales ``ws`` and static activation scale ``act``, or None);
     - ``partial(x, w)``: a float row-parallel partial, without the bias
       (added once, after the reduce);
+    - ``row(x, w, ws, bias, act)``: a row-parallel projection (``col``
+      unsharded; the shards' partials, their reduce and the bias under
+      tensor parallelism);
+    - ``each(fn, y)``: ``fn(y_i, i)`` on each shard ``i`` of a
+      column-parallel value (``fn(y, 0)`` unsharded);
     - ``lora_in(x, a_dtype)`` / ``lora_out(delta)``: the LoRA delta's
       input and the delta as the product adds it;
     - ``residual(h, y)``: the residual add."""
     norm: object
     col: object
     partial: object
+    row: object
+    each: object
     lora_in: object
     lora_out: object
     residual: object
+
+
+def _one_shard(fn, y):
+    return fn(y, 0)
 
 
 def stacked_block_ops(eps: float, int8: bool, pdt) -> BlockOps:
@@ -292,7 +302,7 @@ def stacked_block_ops(eps: float, int8: bool, pdt) -> BlockOps:
         def col(x, w, ws, bias, act=None):
             return torch.addmm(bias, x, w)
     return BlockOps(
-        norm, col, torch.mm,
+        norm, col, torch.mm, col, _one_shard,
         (lambda x, adt: x.to(adt)) if int8 else (lambda x, adt: x),
         (lambda d: d.float()) if int8 else _identity,
         lambda h, y: h + y.to(h.dtype))
@@ -311,8 +321,45 @@ def layered_block_ops(eps: float) -> BlockOps:
             return quantized_matmul(x, w, ws, bias=bias, act_scale=act)
         return NF.linear(x, w, bias)
 
-    return BlockOps(norm, col, NF.linear, lambda x, adt: x, _identity,
-                    lambda h, y: h + y)
+    return BlockOps(norm, col, NF.linear, col, _one_shard,
+                    lambda x, adt: x, _identity, lambda h, y: h + y)
+
+
+def shard_block_ops(base: BlockOps, devices) -> BlockOps:
+    """``base`` over ``mp`` shards on ``devices`` (one a shard; a device
+    may repeat), for float weights: the replicated values (the residual
+    stream, LayerNorm outputs, row-parallel sums) live on ``devices[0]``,
+    a column-parallel value is a list of shard tensors.  ``col`` runs
+    each shard's product on the LayerNorm output sent to its device;
+    ``row`` sums the shards' partials on ``devices[0]`` in shard order
+    (``serving_mesh.reduce_sum``) and adds the bias once."""
+    root = devices[0]
+
+    def col(x, w, ws, bias, act=None):
+        xs = broadcast(x, devices)
+        return [base.col(xs[d], wi, None, bi)
+                for d, wi, bi in zip(devices, w, bias)]
+
+    def row(x, w, ws, bias, act=None):
+        tot = reduce_sum([base.partial(xi, wi) for xi, wi in zip(x, w)],
+                         (root,))[root]
+        return tot + bias
+
+    def each(fn, y):
+        return [fn(t, i) for i, t in enumerate(y)]
+
+    return base._replace(col=col, row=row, each=each)
+
+
+def _cast(t, dtype):
+    """``t``, or each shard of a list, cast to ``dtype``."""
+    if isinstance(t, list):
+        return [x.to(dtype) for x in t]
+    return t.to(dtype)
+
+
+def _first(t):
+    return t[0] if isinstance(t, list) else t
 
 
 class GPTEmbeddings(nn.Module):
@@ -326,6 +373,90 @@ class GPTEmbeddings(nn.Module):
     def forward(self, input_ids, position_ids):
         return (self.word_embeddings(input_ids)
                 + self.position_embeddings(position_ids))
+
+
+def _part_seed(seed: int, part: int) -> int:
+    """A seed for one part of a layer's masks (a replica's or a
+    microbatch's rows, a shard's heads), derived from the layer's seed by
+    splitmix64: parts draw different masks, and a rerun the same."""
+    z = (seed + (part + 1) * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) % 2 ** 62
+
+
+# mesh axes a training placement reads; the others must have size 1
+_TRAIN_AXES = ("dp", "pp", "mp")
+# axes whose parallelism is not ported: sequence parallelism (sp, sep)
+# and ZeRO (sharding)
+_UNPORTED_AXES = ("sp", "sep", "sharding")
+
+
+class TrainMesh(NamedTuple):
+    """Where a model placed for training on a mesh holds what:
+    ``grid[r, s, i]`` is the device of replica ``r``, pipeline stage
+    ``s``, tensor-parallel shard ``i``; ``layers[s]`` the decoder layers
+    stage ``s`` holds, in the order it runs them
+    (``pp_spmd.stage_layers``); ``vocab_parallel``: the word embeddings
+    are cut by vocabulary rows over mp (``use_tensor_parallel``)."""
+    grid: np.ndarray
+    layers: list
+    vocab_parallel: bool
+
+    @property
+    def dp(self) -> int:
+        return self.grid.shape[0]
+
+    @property
+    def pp(self) -> int:
+        return self.grid.shape[1]
+
+    @property
+    def mp(self) -> int:
+        return self.grid.shape[2]
+
+    def dev(self, r: int, s: int, i: int = 0) -> torch.device:
+        return self.grid[r, s, i]
+
+    def tp(self, r: int, s: int):
+        """The shard devices of stage ``s`` of replica ``r`` (None at
+        mp = 1)."""
+        return None if self.mp == 1 else tuple(self.grid[r, s])
+
+
+def train_mesh(cfg: GPTConfig) -> Optional[TrainMesh]:
+    """The training placement the global mesh (``distributed.mesh``) asks
+    of a stacked GPT, or None: no mesh, or one whose dp, pp and mp are all
+    1.  Sequence parallelism and ZeRO (an sp, sep or sharding axis > 1)
+    raise ``NotImplementedError``; a shape the cuts cannot take raises
+    ``ValueError``."""
+    if not _mesh.has_mesh():
+        return None
+    mesh = _mesh.get_mesh()
+    shape = mesh.shape
+    big = [a for a in _UNPORTED_AXES if shape.get(a, 1) > 1]
+    if big:
+        raise NotImplementedError(
+            f"mesh axes {big} > 1: sequence parallelism (sp, sep) and ZeRO "
+            "(sharding) over a training mesh are not ported (ROADMAP.md "
+            "queue 1, item 9); dp, pp and mp are")
+    grid = mesh.grid(_TRAIN_AXES + _UNPORTED_AXES)[..., 0, 0, 0]
+    dp, pp, mp = grid.shape
+    if dp * pp * mp == 1:
+        return None
+    if mp > 1:
+        for what, n in (("num_heads", cfg.num_heads),
+                        ("ffn size", cfg.ffn_size)):
+            if n % mp:
+                raise ValueError(f"{what}={n} is not divisible by mp={mp}")
+        if cfg.use_tensor_parallel and cfg.vocab_size % mp:
+            raise ValueError(f"vocab_size={cfg.vocab_size} is not "
+                             f"divisible by mp={mp} (VocabParallelEmbedding)")
+    # without pipeline stages the interleave has no effect, as in the
+    # reference
+    vpp = cfg.virtual_pp_degree if pp > 1 else 1
+    return TrainMesh(grid, stage_layers(cfg.num_layers, pp, vpp),
+                     bool(cfg.use_tensor_parallel and mp > 1))
 
 
 class GPTStackedDecoder(nn.Module):
@@ -344,9 +475,25 @@ class GPTStackedDecoder(nn.Module):
                   "fc1_w_int8", "fc1_w_s", "fc1_b", "fc2_w_int8", "fc2_w_s",
                   "fc2_b")
 
+    # the tensor-parallel cuts on a mesh with mp > 1: name -> (the axis
+    # cut, what it cuts: QKV's heads, the ffn width or the hidden width)
+    TP_CUTS = {"qkv_w": (2, "qkv"), "qkv_b": (1, "qkv"), "fc1_w": (2, "ffn"),
+               "fc1_b": (1, "ffn"), "proj_w": (1, "hidden"),
+               "fc2_w": (1, "ffn")}
+
     def __init__(self, cfg: GPTConfig, **factory):
+        """Under a global training mesh (:func:`train_mesh`, read here as
+        the reference's ``_shard_params`` reads it) each slab is a
+        :class:`~paddle_tpu_torch.distributed.shards.ShardedParameter`:
+        stage ``s`` of each replica holds its layers' rows
+        (``mesh.layers[s]``) on its devices, the :data:`TP_CUTS` slabs cut
+        over the stage's mp shards -- QKV by head within each of q, k and
+        v (``serving_mesh.qkv_columns``), fc1 by contiguous columns, the
+        output projection and fc2 by rows -- and the LayerNorms and the
+        row-parallel biases whole on the stage's first shard."""
         super().__init__()
         self._cfg = cfg
+        self._mesh = mesh = train_mesh(cfg)
         self.weight_int8 = False
         L, h, f = cfg.num_layers, cfg.hidden_size, cfg.ffn_size
         shapes = {"ln1_g": (L, h), "ln1_b": (L, h), "qkv_w": (L, h, 3 * h),
@@ -354,11 +501,42 @@ class GPTStackedDecoder(nn.Module):
                   "ln2_g": (L, h), "ln2_b": (L, h), "fc1_w": (L, h, f),
                   "fc1_b": (L, f), "fc2_w": (L, f, h), "fc2_b": (L, h)}
         for name in self.PARAM_NAMES:
-            self.register_parameter(
-                name, nn.Parameter(torch.empty(shapes[name], **factory)))
+            if mesh is None:
+                self.register_parameter(
+                    name, nn.Parameter(torch.empty(shapes[name], **factory)))
+            else:
+                self.add_module(name, ShardedParameter(
+                    shapes[name], factory["dtype"], self._parts(name)))
+
+    def _parts(self, name: str):
+        """The :class:`Part` of every mesh position that holds a piece of
+        slab ``name``."""
+        from ..distributed.serving_mesh import qkv_columns
+
+        cfg, tm = self._cfg, self._mesh
+        mp = tm.mp
+        cut = self.TP_CUTS.get(name) if mp > 1 else None
+        parts = []
+        for r in range(tm.dp):
+            for s in range(tm.pp):
+                rows = (0, torch.tensor(tm.layers[s]))
+                if cut is None:
+                    parts.append(Part((r, s, 0), tm.dev(r, s), (rows,)))
+                    continue
+                axis, kind = cut
+                for i in range(mp):
+                    if kind == "qkv":
+                        idx = qkv_columns(cfg.num_heads, cfg.head_dim, mp, i)
+                    else:
+                        n = (cfg.ffn_size if kind == "ffn"
+                             else cfg.hidden_size) // mp
+                        idx = torch.arange(i * n, (i + 1) * n)
+                    parts.append(Part((r, s, i), tm.dev(r, s, i),
+                                      (rows, (axis, idx))))
+        return parts
 
     def _block(self, h, weights, attend, int8: bool = False,
-               drop=_identity, lora=None, cdt=None):
+               drop=_identity, lora=None, cdt=None, tp=None):
         """One block (the reference's ``_block_fn``, ``_cached_block_fn``
         and ``_paged_block_fn`` bodies): ``h`` [B, S, hidden] -> [B, S,
         hidden].  ``attend(q, k, v)`` takes the fresh [B, S, H, D] views
@@ -391,9 +569,19 @@ class GPTStackedDecoder(nn.Module):
         its product, while the LayerNorms and the residual stream keep
         h's dtype -- the reference's block under ``auto_cast``
         (``paddle_tpu/models/gpt.py`` ``_block_fn``); int8 projections
-        are never cast."""
+        are never cast.
+
+        ``tp``: the devices of ``mp > 1`` tensor-parallel shards (one a
+        shard; a device may repeat), or None.  Then the column-parallel
+        weights (``qkv_w``, ``qkv_b``, ``proj_w``, ``fc1_w``, ``fc1_b``,
+        ``fc2_w``) are lists of shard slices, ``attend`` a list of one
+        route a shard, and the same body runs through
+        :func:`shard_block_ops`: each shard's QKV product and attention
+        at ``H/mp`` heads, the output projection's partials summed on
+        ``tp[0]`` and its bias added once, then fc1 per shard and fc2's
+        partials likewise; ``h`` and the LayerNorms stay on ``tp[0]``."""
         cfg = self._cfg
-        nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
+        hd, eps = cfg.head_dim, cfg.layer_norm_eps
         if int8:
             (l1g, l1b, qkvw, qkvs, qkvb, pw, pws, pb, l2g, l2b, f1w, f1s, f1b,
              f2w, f2s, f2b) = weights
@@ -406,11 +594,13 @@ class GPTStackedDecoder(nn.Module):
                 # products run in the amp dtype, LayerNorm in the weights'
                 # (fp32) dtype, the residual stream stays in h's
                 qkvw, qkvb, pw, pb, f1w, f1b, f2w, f2b = (
-                    t.to(cdt) for t in (qkvw, qkvb, pw, pb, f1w, f1b, f2w,
-                                        f2b))
+                    _cast(t, cdt) for t in (qkvw, qkvb, pw, pb, f1w, f1b,
+                                            f2w, f2b))
         # the LayerNorm output is rounded to the projections' dtype (a
         # no-op unless O1 casts the weights; int8 products take fp32)
-        ops = stacked_block_ops(eps, int8, qkvw.dtype)
+        ops = stacked_block_ops(eps, int8, _first(qkvw).dtype)
+        if tp is not None:
+            ops = shard_block_ops(ops, tp)
         b, s, hidden = h.shape
         if lora is not None:
             slabs, ids, lscale = lora
@@ -418,7 +608,7 @@ class GPTStackedDecoder(nn.Module):
         def lin(x, w, ws, bias, j):
             """Projection ``j`` (qkv, out, fc1, fc2), with its delta (each
             row's ``s`` positions share the row's adapter)."""
-            y = ops.col(x, w, ws, bias)
+            y = (ops.row if j % 2 else ops.col)(x, w, ws, bias)
             if lora is None:
                 return y
             a, bb = slabs[2 * j], slabs[2 * j + 1]
@@ -426,13 +616,22 @@ class GPTStackedDecoder(nn.Module):
             d = ops.lora_out(lora_delta_raw(xr, a, bb, ids, lscale))
             return y + d.view(b * s, -1)
 
+        def heads(qkv, i):
+            """One shard's attention: its [B*S, 3, heads, D] QKV columns
+            -> [B*S, heads*D] in the products' dtype (the cache dtype may
+            differ)."""
+            route = attend if tp is None else attend[i]
+            out = route(*qkv.view(b, s, 3, -1, hd).unbind(2))
+            return out.reshape(b * s, -1).to(x.dtype)
+
+        def gelu(u, i):
+            return F.gelu(u, approximate="tanh")
+
         x = ops.norm(h, l1g, l1b).reshape(b * s, hidden)
-        qkv = lin(x, qkvw, qkvs, qkvb, 0).view(b, s, 3, nh, hd)
-        out = attend(*qkv.unbind(2))
-        out = out.reshape(b * s, hidden).to(x.dtype)  # cache dtype may differ
+        out = ops.each(heads, lin(x, qkvw, qkvs, qkvb, 0))
         h = ops.residual(h, drop(lin(out, pw, pws, pb, 1).view(b, s, hidden)))
         y = ops.norm(h, l2g, l2b).reshape(b * s, hidden)
-        y = F.gelu(lin(y, f1w, f1s, f1b, 2), approximate="tanh")
+        y = ops.each(gelu, lin(y, f1w, f1s, f1b, 2))
         return ops.residual(h, drop(lin(y, f2w, f2s, f2b, 3).view(b, s,
                                                                   hidden)))
 
@@ -453,25 +652,52 @@ class GPTStackedDecoder(nn.Module):
             out = flash_attention_bnsd(q, k, v, causal=True, sm_scale=scale)
         return out.transpose(1, 2)
 
-    def _blocks(self, h, seeds, cdt, *weights):
+    def _blocks(self, h, seeds, cdt, tp, *weights):
         """Consecutive training blocks; ``weights`` holds each block's 12
         slices, block after block; ``seeds`` one dropout seed per block,
-        or None without dropout; ``cdt`` the amp dtype for :meth:`_block`.
-        A block draws its masks from a generator
-        seeded with its seed, in block order: the attention probabilities,
-        the attention projection, the MLP output."""
+        or None without dropout; ``cdt`` the amp dtype and ``tp`` the
+        shard devices for :meth:`_block`.  A block draws its masks from a
+        generator seeded with its seed, in block order: the attention
+        probabilities, the attention projection, the MLP output; under
+        ``tp`` each shard draws its heads' attention masks from a seed of
+        its own (:func:`_part_seed`)."""
         n = len(self.PARAM_NAMES)
         hid_p = self._cfg.hidden_dropout
+        attend = (self._train_attend if tp is None
+                  else [self._train_attend] * len(tp))
         for j, i in enumerate(range(0, len(weights), n)):
             if seeds is None:
-                h = self._block(h, weights[i:i + n], self._train_attend,
-                                cdt=cdt)
+                h = self._block(h, weights[i:i + n], attend, cdt=cdt, tp=tp)
                 continue
             gen = _seeded(seeds[j], h.device)
+            if tp is None:
+                route = partial(self._train_attend, gen=gen)
+            else:
+                route = [partial(self._train_attend, gen=_seeded(
+                    _part_seed(seeds[j], k), d)) for k, d in enumerate(tp)]
             h = self._block(
-                h, weights[i:i + n],
-                lambda q, k, v: self._train_attend(q, k, v, gen),
-                drop=lambda x: dropout(x, hid_p, generator=gen), cdt=cdt)
+                h, weights[i:i + n], route,
+                drop=lambda x: dropout(x, hid_p, generator=gen), cdt=cdt,
+                tp=tp)
+        return h
+
+    def _scan(self, h, seeds, layers, cdt, tp=None):
+        """``h`` through ``layers`` (each a block's 12 weights) in order,
+        groups of ``recompute_interval`` blocks under activation
+        checkpointing in training (:meth:`forward`)."""
+        cfg = self._cfg
+        k = cfg.recompute_interval if self.training else 0
+        if k > 0 and len(layers) % k:
+            raise ValueError(f"recompute_interval={k} must divide "
+                             f"num_layers={len(layers)}")
+        if k <= 0:
+            return self._blocks(h, seeds, cdt, tp,
+                                *(w for layer in layers for w in layer))
+        group_fn = checkpointed(self._blocks, cfg.recompute_policy)
+        for g0 in range(0, len(layers), k):
+            group = [w for layer in layers[g0:g0 + k] for w in layer]
+            group_seeds = None if seeds is None else seeds[g0:g0 + k]
+            h = group_fn(h, group_seeds, cdt, tp, *group)
         return h
 
     def _layers(self, names=PARAM_NAMES):
@@ -528,29 +754,73 @@ class GPTStackedDecoder(nn.Module):
 
         Under ``amp.auto_cast`` O1 each block casts its projection
         weights to the amp dtype (:meth:`_block`)."""
-        cfg = self._cfg
         self._check_fp_weights("the training forward")
         if (seeds is not None) != self.dropout_active():
             raise ValueError("GPTStackedDecoder.forward: pass one dropout "
                              "seed per layer exactly when dropout is active")
-        k = cfg.recompute_interval if self.training else 0
-        if k > 0 and cfg.num_layers % k:
-            raise ValueError(f"recompute_interval={k} must divide "
-                             f"num_layers={cfg.num_layers}")
-        layers = list(self._layers())
-        cdt = o1_dtype()
-        if k <= 0:
-            return self._blocks(h, seeds, cdt,
-                                *(w for layer in layers for w in layer))
-        saved = RECOMPUTE_POLICIES[cfg.recompute_policy]
-        kw = {} if saved is None else dict(context_fn=partial(
-            create_selective_checkpoint_contexts, _save_ops_policy(saved)))
-        for g0 in range(0, cfg.num_layers, k):
-            group = [w for layer in layers[g0:g0 + k] for w in layer]
-            group_seeds = None if seeds is None else seeds[g0:g0 + k]
-            h = checkpoint(self._blocks, h, group_seeds, cdt, *group,
-                           use_reentrant=False, **kw)
-        return h
+        if self._mesh is not None:
+            raise ValueError("a decoder placed on a mesh runs through "
+                             "forward_mesh (GPTStackedForPretraining)")
+        return self._scan(h, seeds, list(self._layers()), o1_dtype())
+
+    def stage_weights(self, tied, r: int, s: int):
+        """The layers of stage ``s`` of replica ``r`` on a mesh, in run
+        order: each a block's 12 weights, a list of shard slices for the
+        :data:`TP_CUTS` slabs at mp > 1.  ``tied``: each slab's parts by
+        mesh position (after :func:`tie_replicas`); one unbind a part."""
+        tm = self._mesh
+        per_name = []
+        for name in self.PARAM_NAMES:
+            parts = tied[name]
+            if tm.mp > 1 and name in self.TP_CUTS:
+                shards = [parts[(r, s, i)].unbind(0) for i in range(tm.mp)]
+                per_name.append([list(x) for x in zip(*shards)])
+            else:
+                per_name.append(parts[(r, s, 0)].unbind(0))
+        return list(zip(*per_name))
+
+    def forward_mesh(self, h, tied, r: int, seeds, cdt, n_micro: int):
+        """Replica ``r``'s decoder on the mesh: ``h`` [b, S, hidden] on its
+        stage 0's first device -> the last stage's output there.
+        ``seeds``: one dropout seed per layer and part (``seeds(layer,
+        microbatch)``), or None.
+
+        Without pipeline stages (pp = 1) the layers run as
+        :meth:`forward` runs them, with the stage's shards (``n_micro``
+        has no effect, as in the reference).  With pp > 1 the batch splits
+        into ``n_micro`` microbatches through
+        ``pp_spmd.pipeline_blocks`` (interleaved over
+        ``virtual_pp_degree`` trips); under ``recompute_interval > 0``
+        each block is recomputed per microbatch, and the interval is not
+        read, as in the reference."""
+        cfg, tm = self._cfg, self._mesh
+        self._check_fp_weights("the training forward")
+        if tm.pp == 1:
+            layer_seeds = (None if seeds is None
+                           else [seeds(l, 0) for l in tm.layers[0]])
+            return self._scan(h, layer_seeds, self.stage_weights(tied, r, 0),
+                              cdt, tm.tp(r, 0))
+        b = h.shape[0]
+        if b % n_micro:
+            raise ValueError(f"the batch of {b} rows a replica does not "
+                             f"split into n_micro={n_micro} microbatches")
+        stages = [[(w, tm.tp(r, s), layer) for w, layer in zip(
+            self.stage_weights(tied, r, s), tm.layers[s])]
+            for s in range(tm.pp)]
+
+        def block(p, x, mb):
+            w, tp, layer = p
+            sd = None if seeds is None else [seeds(layer, mb)]
+            return self._blocks(x, sd, cdt, tp, *w)
+
+        remat = self.training and cfg.recompute_interval > 0
+        outs = pipeline_blocks(
+            block, stages, h.split(b // n_micro),
+            layers_per_stage=cfg.num_layers // tm.pp, remat=remat,
+            remat_policy=cfg.recompute_policy, block_takes_index=True,
+            n_virtual=cfg.virtual_pp_degree,
+            stage_devices=[tm.dev(r, s) for s in range(tm.pp)])
+        return torch.cat(outs)
 
     def forward_cached(self, h, k_cache, v_cache, pos):
         """Prefill or decode over a contiguous cache (the reference's
@@ -934,9 +1204,20 @@ class _CacheContract(GenerationMixin):
 
     stacked: bool
 
+    def _require_unplaced(self, what: str):
+        """Refuse ``what`` on a model placed on a training mesh."""
+        if getattr(self, "_train_mesh", None) is not None:
+            raise NotImplementedError(
+                f"{what} of a model placed on a training mesh is not ported "
+                "(ROADMAP.md queue 1, item 9): train it there, and load its "
+                "state_dict() into a model built without a mesh to "
+                "generate or serve")
+
     def _require_whole_weights(self, what: str):
         """Refuse ``what`` on a model sharded for serving at mp > 1, whose
-        tensor-parallel weights live only in its shards."""
+        tensor-parallel weights live only in its shards, and on a model
+        placed on a training mesh."""
+        self._require_unplaced(what)
         if getattr(self, "_serving_released", False):
             raise ValueError(
                 f"{what} needs the whole weights: this model's tensor-"
@@ -947,6 +1228,7 @@ class _CacheContract(GenerationMixin):
     # -- GenerationMixin cache contract ------------------------------------
     def new_kv_cache(self, batch_size: int, max_seq: int,
                      dtype="bfloat16") -> KVCache:
+        self._require_unplaced("generate()")
         cfg = self.config
         return KVCache(cfg.num_layers, batch_size, cfg.num_heads, max_seq,
                        cfg.head_dim, dtype=dtype, stacked=self.stacked,
@@ -964,6 +1246,7 @@ class _CacheContract(GenerationMixin):
         over it (``serving_mesh``)."""
         from ..serving.paged_cache import PagedKVCache
 
+        self._require_unplaced("serving")
         cfg = self.config
         return PagedKVCache(cfg.num_layers, num_pages, cfg.num_heads,
                             page_size, cfg.head_dim, dtype=dtype,
@@ -991,8 +1274,23 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
     (``None``: a CPU generator seeded with ``seed``).
 
     ``(cfg, n_micro=1)`` is the reference's order; the port's own
-    arguments are keyword-only.  ``n_micro`` > 1 (pipelined microbatches
-    over a mesh) raises.
+    arguments are keyword-only.
+
+    Under a global mesh (``distributed.mesh.set_mesh``) with dp, pp or mp
+    above 1 the model is placed for training (:class:`TrainMesh`), as the
+    reference's ``_shard_params`` places it: every logical weight is a
+    ``ShardedParameter`` whose parts live on their mesh positions' devices
+    (the decoder's as :class:`GPTStackedDecoder` cuts them; the word
+    embeddings whole on each replica's stage 0, or cut by vocabulary rows
+    over mp under ``use_tensor_parallel``; the position embeddings on
+    stage 0, the final LayerNorm on the last stage), made from the same
+    draws as the unplaced model of the same seed.  ``device`` is then
+    the mesh's first device.  ``parameters()`` yields the parts;
+    ``state_dict()`` and ``load_jax_state`` speak whole tensors under the
+    reference's names.  The training forward splits the batch over the dp
+    replicas and pipelines ``n_micro`` microbatches over pp stages
+    (:meth:`GPTStackedDecoder.forward_mesh`); ``generate()`` and serving
+    refuse the placed model (ROADMAP.md queue 1, item 9).
     """
 
     stacked = True        # the cache and LoRA layout this class reads
@@ -1001,37 +1299,83 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
                  dtype="float32", seed: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if n_micro != 1:
-            raise NotImplementedError(
-                f"GPTStackedForPretraining(n_micro={n_micro}): pipeline "
-                "training over a mesh is not ported (ROADMAP.md queue 1, "
-                "item 2, training)")
+        if int(n_micro) < 1:
+            raise ValueError(f"n_micro={n_micro} must be >= 1")
         self.config = cfg
-        self.n_micro = 1
+        self.n_micro = int(n_micro)
+        tm = self._train_mesh = train_mesh(cfg)
+        if tm is not None:
+            root, asked = tm.dev(0, 0), torch.device(device or tm.dev(0, 0))
+            if asked.type != root.type or asked.index not in (None,
+                                                              root.index):
+                raise ValueError(f"device={device}: a model placed on a mesh "
+                                 f"lives on the mesh's devices, first "
+                                 f"{root}")
+            device = tm.dev(0, 0)
         self.device = resolve_device(device)
         self.dtype = to_torch_dtype(dtype)
         self.generator = _host_generator(generator, seed)
         factory = dict(device=self.device, dtype=self.dtype)
-        self.embeddings = GPTEmbeddings(cfg, **factory)
+        if tm is None:
+            self.embeddings = GPTEmbeddings(cfg, **factory)
+            self.final_ln = nn.LayerNorm(cfg.hidden_size,
+                                         eps=cfg.layer_norm_eps, **factory)
+        else:
+            self._place_outer(tm)
         self.decoder = GPTStackedDecoder(cfg, **factory)
-        self.final_ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
-                                     **factory)
         self._init_weights(seed)
+
+    def _place_outer(self, tm: TrainMesh):
+        """The embeddings and the final LayerNorm on a mesh, under the
+        unplaced model's module names."""
+        cfg, dt = self.config, self.dtype
+        V, h = cfg.vocab_size, cfg.hidden_size
+        last = tm.pp - 1
+        if tm.vocab_parallel:
+            n = V // tm.mp
+            word = [Part((r, 0, i), tm.dev(r, 0, i),
+                         ((0, torch.arange(i * n, (i + 1) * n)),))
+                    for r in range(tm.dp) for i in range(tm.mp)]
+        else:
+            word = [Part((r, 0, 0), tm.dev(r, 0), ()) for r in range(tm.dp)]
+        first = [Part((r, 0, 0), tm.dev(r, 0), ()) for r in range(tm.dp)]
+        final = [Part((r, last, 0), tm.dev(r, last), ())
+                 for r in range(tm.dp)]
+        self.embeddings = nn.Module()
+        self.embeddings.word_embeddings = nn.Module()
+        self.embeddings.word_embeddings.weight = ShardedParameter(
+            (V, h), dt, word)
+        self.embeddings.position_embeddings = nn.Module()
+        self.embeddings.position_embeddings.weight = ShardedParameter(
+            (cfg.max_position_embeddings, h), dt, first)
+        self.final_ln = nn.Module()
+        self.final_ln.weight = ShardedParameter((h,), dt, final)
+        self.final_ln.bias = ShardedParameter((h,), dt, final)
 
     @torch.no_grad()
     def _init_weights(self, seed: int):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         std = self.config.initializer_range
-        for name, p in self.named_parameters():
+        if self._train_mesh is None:
+            items = self.named_parameters()
+        else:
+            # each whole tensor drawn on the first device, then cut
+            items = sharded_parameters(self).items()
+        for name, p in items:
             short = name.rsplit(".", 1)[-1]
+            placed = isinstance(p, ShardedParameter)
+            shape = p.whole_shape if placed else p.shape
             if short in ("ln1_g", "ln2_g") or name == "final_ln.weight":
-                p.fill_(1.0)
+                t = torch.ones(shape, device=self.device)
             elif short.endswith("_b") or name == "final_ln.bias":
-                p.zero_()
+                t = torch.zeros(shape, device=self.device)
             else:
-                p.copy_(torch.randn(p.shape, generator=gen,
-                                    device=self.device) * std)
+                t = torch.randn(shape, generator=gen, device=self.device) * std
+            if placed:
+                p.load_whole(t.to(self.dtype))
+            else:
+                p.copy_(t)
 
     @property
     def weight_int8(self) -> bool:
@@ -1078,7 +1422,10 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         JAX model's int8 buffers (``decoder.qkv_w_int8``, ...,
         ``lm_head_scale``), when present, are carried across unchanged and
         mark this model quantized.  Missing, unknown or mis-shaped keys
-        raise."""
+        raise.  A model placed on a mesh cuts each array onto its parts
+        (a quantized JAX model's buffers are refused there)."""
+        if self._train_mesh is not None:
+            return self._load_placed(state)
         int8_shapes = self._int8_shapes()
         int8 = {k: state[k] for k in int8_shapes if k in state}
         if int8 and len(int8) != len(int8_shapes):
@@ -1137,6 +1484,10 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         ``lora`` (paged cache only): ``(LoRAAdapterPool, ids)``, ``ids``
         [S] int the adapter page of each row (0 = the null adapter); every
         projection of every layer adds its row's low-rank delta."""
+        if self._train_mesh is not None:
+            if kv_cache is not None or lora is not None:
+                self._require_whole_weights("a cached or serving forward")
+            return self._forward_placed(input_ids, labels, position_ids)
         if lora is not None and not getattr(kv_cache, "paged", False):
             raise ValueError("per-request LoRA adapters ride the paged "
                              "serving step (kv_cache + page_tables)")
@@ -1211,6 +1562,153 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
                 h, w, labels, compute_dtype=st.dtype if st.enabled else None)
         h, w = maybe_cast("matmul", h, w)
         return h @ w.t()
+
+    # -- placed on a training mesh ------------------------------------------
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """``nn.Module.load_state_dict``; a model placed on a mesh cuts
+        each whole tensor into its parts (``shards.load_state``)."""
+        if self._train_mesh is None:
+            return super().load_state_dict(state_dict, strict, assign)
+        return nn.modules.module._IncompatibleKeys(
+            *load_state(self, state_dict, strict))
+
+    @torch.no_grad()
+    def _load_placed(self, state: Mapping[str, np.ndarray]):
+        owned = sharded_parameters(self)
+        missing = sorted(set(owned) - set(state))
+        unknown = sorted(set(state) - set(owned))
+        if missing or unknown:
+            raise KeyError(f"load_jax_state: missing {missing}, unknown "
+                           f"{unknown} (a placed model takes fp weights)")
+        arrays = {}
+        for name, sp in owned.items():
+            a = np.array(state[name], np.float32)
+            if tuple(a.shape) != sp.whole_shape:
+                raise ValueError(f"load_jax_state: {name} has shape "
+                                 f"{a.shape}, expected {sp.whole_shape}")
+            arrays[name] = torch.from_numpy(a)
+        load_state(self, arrays)
+
+    def _tied_parts(self):
+        """``{state-dict key: {mesh position: tensor}}``: every part, with
+        the dp replicas of each part tied (:func:`tie_replicas`: their
+        gradients are summed in replica order, and each applies the
+        sum)."""
+        out = {}
+        for key, sp in sharded_parameters(self).items():
+            groups = {}
+            for t, p in zip(sp, sp.parts):
+                groups.setdefault(p.position[1:], []).append((p.position, t))
+            out[key] = {}
+            for copies in groups.values():
+                tied = tie_replicas([t for _, t in copies])
+                out[key].update((pos, t) for (pos, _), t in zip(copies, tied))
+        return out
+
+    def _embed_placed(self, tied, r: int, ids, pos):
+        """Replica ``r``'s embeddings on its stage 0's first device.  Over
+        vocabulary shards (the reference's ``VocabParallelEmbedding``)
+        each shard looks up the ids in its rows, zeros the others, and the
+        parts are summed."""
+        tm = self._train_mesh
+        root = tm.dev(r, 0)
+        word = tied["embeddings.word_embeddings.weight"]
+        if tm.vocab_parallel:
+            parts = []
+            for i in range(tm.mp):
+                w = word[(r, 0, i)]
+                loc = ids.to(w.device) - i * w.shape[0]
+                ok = (loc >= 0) & (loc < w.shape[0])
+                e = F.embedding(torch.where(ok, loc, 0), w)
+                parts.append(torch.where(ok[..., None], e, 0.0))
+            h = reduce_sum(parts, (root,))[root]
+        else:
+            h = F.embedding(ids.to(root), word[(r, 0, 0)])
+        pe = tied["embeddings.position_embeddings.weight"][(r, 0, 0)]
+        return h + F.embedding(pos.to(root), pe)
+
+    def _head_placed(self, tied, r: int, h, labels):
+        """Replica ``r``'s tied head on its last stage: the mean token loss
+        of its rows with ``labels``, else its logits.  Over vocabulary
+        shards the loss is ``vocab_parallel_cross_entropy`` (a global max
+        and sum of exponentials over the shards' logits, token chunks as
+        the unsharded head takes them) and the logits are the shards'
+        side by side.  The table is read from stage 0's parts: its
+        gradient from both uses meets there."""
+        tm = self._train_mesh
+        last = tm.pp - 1
+        word = tied["embeddings.word_embeddings.weight"]
+        devs = [tm.dev(r, last, i) for i in range(tm.mp if tm.vocab_parallel
+                                                  else 1)]
+        ws = [word[(r, 0, i)].to(d) for i, d in enumerate(devs)]
+        if labels is not None:
+            st = amp_state()
+            cdt = st.dtype if st.enabled else None
+            if tm.vocab_parallel:
+                return NF.vocab_parallel_cross_entropy(
+                    h, ws, labels, devices=devs, compute_dtype=cdt)
+            return fused_linear_cross_entropy(h, ws[0], labels,
+                                              compute_dtype=cdt)
+        xs = broadcast(h, devs)
+        logits = []
+        for d, w in zip(devs, ws):
+            x, w = maybe_cast("matmul", xs[d], w)
+            logits.append((x @ w.t()).to(h.device))
+        return torch.cat(logits, -1)
+
+    def _forward_placed(self, input_ids, labels, position_ids=None):
+        """The training forward on the mesh: the batch's rows split
+        evenly over the dp replicas; each replica's embeddings, decoder
+        (:meth:`GPTStackedDecoder.forward_mesh`), final LayerNorm and
+        head on its own parts.  With ``labels`` returns the whole batch's
+        mean token loss (the replicas' means, summed in replica order over
+        dp) on ``self.device``; without, the [B, S, V] logits there.
+        Dropout draws the unplaced model's seeds; each replica and
+        microbatch of a layer derives its own from the layer's
+        (:func:`_part_seed`), unless there is one part."""
+        cfg, tm = self.config, self._train_mesh
+        ids = input_ids.long()
+        pos = (torch.arange(ids.shape[-1], device=ids.device)
+               if position_ids is None else position_ids.long())
+        pos = pos.expand_as(ids)
+        if ids.shape[0] % tm.dp:
+            raise ValueError(f"a batch of {ids.shape[0]} rows does not split "
+                             f"over dp={tm.dp} replicas")
+        b = ids.shape[0] // tm.dp
+        micro = self.n_micro if tm.pp > 1 else 1
+        parts = tm.dp * micro
+        seeds = None
+        if self.decoder.dropout_active():
+            seeds = _dropout_seeds(self.generator, cfg.num_layers + 1)
+        tied = self._tied_parts()
+        dec = {n: tied["decoder." + n] for n in GPTStackedDecoder.PARAM_NAMES}
+        cdt = o1_dtype()
+        outs = []
+        for r in range(tm.dp):
+            rows = slice(r * b, (r + 1) * b)
+            h = self._embed_placed(tied, r, ids[rows], pos[rows])
+            layer_seeds = None
+            if seeds is not None:
+                emb = seeds[0] if tm.dp == 1 else _part_seed(seeds[0], r)
+                h = dropout(h, cfg.hidden_dropout,
+                            generator=_seeded(emb, h.device))
+
+                def layer_seeds(layer, mb, r=r):
+                    seed = seeds[layer + 1]
+                    return seed if parts == 1 else _part_seed(
+                        seed, r * micro + mb)
+            h = self.decoder.forward_mesh(h, dec, r, layer_seeds, cdt,
+                                          micro)
+            fin = (tied["final_ln.weight"][(r, tm.pp - 1, 0)],
+                   tied["final_ln.bias"][(r, tm.pp - 1, 0)])
+            h = F.layer_norm(h, (cfg.hidden_size,), *fin, cfg.layer_norm_eps)
+            outs.append(self._head_placed(
+                tied, r, h, None if labels is None else labels[rows]))
+        if labels is None:
+            return torch.cat([o.to(self.device) for o in outs])
+        loss = reduce_sum(outs, (self.device,))[self.device]
+        return loss if tm.dp == 1 else loss / tm.dp
 
 
 class GPTAttention(nn.Module):

@@ -4,13 +4,15 @@
 a list of ``(param, grad)`` pairs and return a new one, as an optimizer's
 ``grad_clip`` consumes them (``AdamW.step`` applies it before any
 update); ``clip_grad_norm_`` scales the parameters' ``.grad`` in place.
-Every norm and scale stays a tensor on the gradients' device: clipping
-never waits for the card.  The arithmetic, dtypes included, is the
+Every norm and scale stays a tensor on the gradients' device (on a
+mesh, copies on each of them): clipping never waits for the card.  The arithmetic, dtypes included, is the
 reference's.
 """
 from __future__ import annotations
 
 import torch
+
+from ..distributed.shards import shard_info
 
 __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
            "clip_grad_norm_"]
@@ -53,20 +55,39 @@ class ClipGradByGlobalNorm:
     ``gn`` is the L2 norm of all of them together: the sum of squares of
     each gradient in fp32, summed over the gradients in order; each
     gradient is scaled in fp32 and rounded back to its own dtype.
-    ``group_name`` is accepted as the reference accepts it (one card: one
-    group)."""
+    ``group_name`` is accepted as the reference accepts it (one process:
+    one group).
+
+    On a model placed on a mesh (``distributed.shards``) the norm is the
+    logical tensors' norm, as the reference's ``HybridParallelOptimizer``
+    promises: each logical tensor's squares count once -- its replica-0
+    parts (the parts of one replica cover it exactly), not the other
+    replicas' copies.  The squares are summed on each device, in order,
+    and the devices' sums on the first device; each device scales its
+    gradients by its copy of the one scale."""
 
     def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = clip_norm
 
     def _global_norm_sq(self, params_grads):
-        """``gn ** 2`` as an fp32 0-d tensor on the gradients' device
-        (None without gradients)."""
-        sq = None
-        for _, g in params_grads:
-            if g is not None:
-                v = torch.sum(torch.square(g.float()))
-                sq = v if sq is None else sq + v
+        """``gn ** 2`` as an fp32 0-d tensor on the first gradient's
+        device (None without gradients)."""
+        by_dev = {}
+        for p, g in params_grads:
+            if g is None:
+                continue
+            info = shard_info(p)
+            if info is not None and info[0].parts[info[1]].replica != 0:
+                continue
+            v = torch.sum(torch.square(g.float()))
+            d = g.device
+            by_dev[d] = v if d not in by_dev else by_dev[d] + v
+        if not by_dev:
+            return None
+        devs = list(by_dev)
+        sq = by_dev[devs[0]]
+        for d in devs[1:]:
+            sq = sq + by_dev[d].to(devs[0])
         return sq
 
     def __call__(self, params_grads):
@@ -74,9 +95,16 @@ class ClipGradByGlobalNorm:
         if sq is None:
             return params_grads
         gn = torch.sqrt(sq)
-        scale = self.clip_norm / torch.clamp(gn, min=self.clip_norm)
-        return [(p, g if g is None else (g.float() * scale).to(g.dtype))
-                for p, g in params_grads]
+        scale = {sq.device: self.clip_norm / torch.clamp(
+            gn, min=self.clip_norm)}
+        out = []
+        for p, g in params_grads:
+            if g is not None:
+                if g.device not in scale:
+                    scale[g.device] = scale[sq.device].to(g.device)
+                g = (g.float() * scale[g.device]).to(g.dtype)
+            out.append((p, g))
+        return out
 
 
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0,

@@ -22,8 +22,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ...amp.auto_cast import maybe_cast
+from ...distributed.serving_mesh import broadcast, reduce_max, reduce_sum
 
-__all__ = ["cross_entropy", "fused_linear_cross_entropy"]
+__all__ = ["cross_entropy", "fused_linear_cross_entropy",
+           "vocab_parallel_cross_entropy"]
 
 
 def _reduce(loss, reduction: str):
@@ -145,5 +147,51 @@ def fused_linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
     lab = labels.reshape(-1).to(device=hidden.device, dtype=torch.long)
     losses = [checkpoint(_chunk_loss, h2[i:i + chunk_tokens], w,
                          lab[i:i + chunk_tokens], use_reentrant=False)
+              for i in range(0, h2.shape[0], chunk_tokens)]
+    return torch.cat(losses).mean()
+
+
+def _vocab_parallel_chunk(h, labels, devices, *ws):
+    """One token chunk's losses over vocabulary shards ``ws`` (shard
+    ``i`` on ``devices[i]``, rows in shard order): each shard's fp32
+    logits, the global row max and sum of exponentials (summed on h's
+    device in shard order), the label's logit from the shard that holds
+    it."""
+    root = h.device
+    hs, labs = broadcast(h, devices), broadcast(labels, devices)
+    zs = [_LMHeadDot.apply(hs[d], w) for d, w in zip(devices, ws)]
+    # the max only steadies the exponentials: it takes no gradient
+    m = reduce_max([z.detach().amax(-1) for z in zs], (root,))[root]
+    ms = broadcast(m, devices)
+    se = reduce_sum([torch.exp(z - ms[d][:, None]).sum(-1)
+                     for d, z in zip(devices, zs)], (root,))[root]
+    picked, off = [], 0
+    for d, z in zip(devices, zs):
+        loc = labs[d] - off
+        ok = (loc >= 0) & (loc < z.shape[-1])
+        v = z.gather(-1, torch.where(ok, loc, 0)[:, None])[:, 0]
+        picked.append(torch.where(ok, v, 0.0))
+        off += z.shape[-1]
+    return torch.log(se) + m - reduce_sum(picked, (root,))[root]
+
+
+def vocab_parallel_cross_entropy(hidden: torch.Tensor, weights, labels, *,
+                                 devices, chunk_tokens: int = 2048,
+                                 compute_dtype=None) -> torch.Tensor:
+    """:func:`fused_linear_cross_entropy` over a head cut by vocabulary
+    rows: ``weights[i]`` is rows ``[o_i, o_i + V_i)`` of the ``[V, H]``
+    table on ``devices[i]`` (the reference's ``ParallelCrossEntropy``
+    over ``VocabParallelEmbedding``'s shards).  The same token chunks,
+    each under ``torch.utils.checkpoint``; the mean on ``hidden``'s
+    device."""
+    hs = hidden.shape[-1]
+    cdt = hidden.dtype if compute_dtype is None else compute_dtype
+    h2 = hidden.reshape(-1, hs).to(cdt)
+    ws = [w.to(cdt) for w in weights]
+    lab = labels.reshape(-1).to(device=hidden.device, dtype=torch.long)
+    devices = tuple(devices)
+    losses = [checkpoint(_vocab_parallel_chunk, h2[i:i + chunk_tokens],
+                         lab[i:i + chunk_tokens], devices, *ws,
+                         use_reentrant=False)
               for i in range(0, h2.shape[0], chunk_tokens)]
     return torch.cat(losses).mean()

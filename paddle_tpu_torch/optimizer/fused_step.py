@@ -12,8 +12,9 @@ With an enabled ``GradScaler`` the reference's skip-on-overflow protocol
 runs without a host sync, as it does inside its one program: the
 gradients are unscaled in place and their finiteness reduced into one
 device flag (``checkpoint.sentry.unscale_and_check_``); ``AdamW.step``
-takes the flag, and its kernels write nothing when it is false, so a
-non-finite step leaves parameters, moments, fp32 masters and the beta
+takes the flag (and copies it to each device that holds parameters: a
+model placed on a mesh), and its kernels write nothing when it is false,
+so a non-finite step leaves parameters, moments, fp32 masters and the beta
 powers (then a device pair) bitwise unchanged; the scale and the
 good/bad counters update as device tensors by ``_traced_scaler_update``'s
 rules.  As in the reference, the scaler's host counters stay untouched

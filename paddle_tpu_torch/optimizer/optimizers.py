@@ -15,8 +15,17 @@ as launch arguments, as does the learning rate (a float, or an
 ``LRScheduler``'s value) -- until a step is gated by a device finiteness
 flag (``step(finite=)``, which ``FusedTrainStep`` passes under an enabled
 ``GradScaler``): from then on they live in a device fp32 pair that the
-kernel reads, so a skipped step needs no host sync.  ``grad_clip`` sees
-every ``(param, grad)`` pair before any update.
+kernel reads, so a skipped step needs no host sync.  Parameters on
+several devices (a model placed on a mesh) get one such pair on each
+device, advanced alike.  ``grad_clip`` sees every ``(param, grad)`` pair
+before any update.
+
+The parts of a logical tensor of a placed model
+(``distributed.shards.ShardedParameter``) save and load their moments
+and masters as the whole tensor, under the index the logical tensor
+first takes among the parameters: an optimizer over an unplaced model
+and one over the same model placed on any mesh have the same
+``state_dict()`` keys and shapes.
 
 Precision, as the reference's ``multi_precision``:
 
@@ -38,6 +47,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..distributed.shards import shard_info
 from ..ops.kernels.fused_adamw import fused_adamw_update
 from .lr import LRScheduler
 
@@ -111,9 +121,9 @@ class AdamW(torch.optim.Optimizer):
         self._multi_precision = bool(multi_precision)
         # beta1^t and beta2^t, fp32 as the reference keeps them: host
         # scalars, until a step gated by a device flag moves them into
-        # the device pair _pows (see step)
+        # a device pair on each parameters' device, _pairs (see step)
         self._host_pows = [np.float32(1.0), np.float32(1.0)]
-        self._pows = self._betas = None
+        self._pairs = self._betas = None
         # torch's constructor hands every group to add_param_group below
         super().__init__(parameters, defaults)
 
@@ -135,6 +145,11 @@ class AdamW(torch.optim.Optimizer):
     def beta2_pow(self, v):
         self._set_pow(1, v)
 
+    @property
+    def _pows(self):
+        """The first device's pair of beta powers (None on the host)."""
+        return next(iter(self._pairs.values())) if self._pairs else None
+
     def _pow(self, i):
         if self._pows is not None:
             return np.float32(self._pows[i].item())
@@ -142,8 +157,29 @@ class AdamW(torch.optim.Optimizer):
 
     def _set_pow(self, i, v):
         self._host_pows[i] = np.float32(v)
-        if self._pows is not None:
-            self._pows[i] = float(self._host_pows[i])
+        for pair in (self._pairs or {}).values():
+            pair[i] = float(self._host_pows[i])
+
+    def _device_pows(self, devices):
+        """The device pairs of beta powers (and betas), one on each of
+        ``devices``; a new one starts from the host values, or from the
+        first pair once the pairs have advanced."""
+        if self._pairs is None:
+            self._pairs, self._betas = {}, {}
+        for dev in devices:
+            if dev in self._pairs:
+                continue
+            pair = torch.empty(2, dtype=torch.float32, device=dev)
+            betas = torch.empty(2, dtype=torch.float32, device=dev)
+            if self._pairs:
+                pair.copy_(self._pows)
+            else:
+                # filled on the device (no host-to-device copy waits here)
+                for i in range(2):
+                    pair[i] = float(self._host_pows[i])
+            for i in range(2):
+                betas[i] = (self.beta1, self.beta2)[i]
+            self._pairs[dev], self._betas[dev] = pair, betas
 
     def add_param_group(self, param_group):
         """torch's ``add_param_group``, whose ``params`` may also be
@@ -195,33 +231,34 @@ class AdamW(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, *, finite=None):
         """One update of every parameter with a gradient.  ``finite``: a
-        0-d bool tensor on the parameters' device -- the step's
-        finiteness flag, as ``FusedTrainStep`` computes it under an
-        enabled ``GradScaler``.  With it, nothing waits for the card: the
-        beta powers move into a device fp32 pair (once) and advance there
-        as ``where(finite, pow * beta, pow)``; each kernel reads them and
-        the flag, and writes nothing when the flag is false, so a
-        non-finite step leaves parameters, moments, masters and the
-        powers bitwise unchanged.  Without it the powers are host scalars,
-        passed to each launch (or, once the pair exists, advanced there
+        0-d bool tensor, the step's finiteness flag, as ``FusedTrainStep``
+        computes it under an enabled ``GradScaler``; it is copied to each
+        parameters' device.  With it, nothing waits for the card: the beta
+        powers move into a device fp32 pair on each parameters' device
+        (once) and advance there as ``where(finite, pow * beta, pow)``;
+        each kernel reads its device's pair and flag,
+        and writes nothing when the flag is false, so a non-finite step
+        leaves parameters, moments, masters and the powers bitwise
+        unchanged.  Without it the powers are host scalars, passed to each
+        launch (or, once the pairs exist, advanced there
         unconditionally)."""
         params_grads = [(p, p.grad) for p in self._params()
                         if p.grad is not None]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
-        if finite is not None and self._pows is None and params_grads:
-            # filled on the device (no host-to-device copy waits here)
-            dev = params_grads[0][0].device
-            self._pows, self._betas = (
-                torch.empty(2, dtype=torch.float32, device=dev)
-                for _ in range(2))
-            for i in range(2):
-                self._pows[i] = float(self._host_pows[i])
-                self._betas[i] = (self.beta1, self.beta2)[i]
-        if self._pows is not None:
-            adv = self._pows * self._betas
-            self._pows.copy_(adv if finite is None
-                             else torch.where(finite, adv, self._pows))
+        devices = list(dict.fromkeys(p.device for p, _ in params_grads))
+        if (finite is not None and params_grads) or self._pairs is not None:
+            self._device_pows(devices)
+        flags = None
+        if finite is not None:
+            # each device's kernels read the flag's copy on that device
+            flags = {d: finite if finite.device == d else finite.to(d)
+                     for d in dict.fromkeys(list(self._pairs or ()) + devices)}
+        if self._pairs is not None:
+            for dev, pair in self._pairs.items():
+                adv = pair * self._betas[dev]
+                pair.copy_(adv if flags is None
+                           else torch.where(flags[dev], adv, pair))
             b1p = b2p = None
         else:
             self._host_pows = [
@@ -239,21 +276,50 @@ class AdamW(torch.optim.Optimizer):
                 p, g, state["moment1"], state["moment2"], lr, b1p, b2p,
                 beta1=self.beta1, beta2=self.beta2, eps=group["eps"],
                 wd=group["weight_decay"] if decay else 0.0, fp32_lr=fp32_lr,
-                master=state.get("master"), finite=finite, pows=self._pows)
+                master=state.get("master"),
+                finite=None if flags is None else flags[p.device],
+                pows=None if self._pairs is None else self._pairs[p.device])
+
+    def _logical(self):
+        """The parameters as the state dict indexes them: one entry a
+        logical tensor, in the order each first appears -- a parameter,
+        or a placed model's ``ShardedParameter`` (every part of it must be
+        in this optimizer)."""
+        out, seen = [], set()
+        for p in self._params():
+            info = shard_info(p)
+            if info is None:
+                out.append(p)
+            elif id(info[0]) not in seen:
+                seen.add(id(info[0]))
+                out.append(info[0])
+        return out
+
+    def _state_of(self, entry, name):
+        """``entry``'s state ``name`` (a whole tensor: a sharded entry's
+        is gathered from its replica-0 parts), or None."""
+        if isinstance(entry, torch.Tensor):
+            return self.state[entry].get(name)
+        parts = list(entry)
+        if name not in self.state[parts[0]]:
+            return None
+        return entry.gather([self.state[p][name] for p in parts])
 
     # -- the reference's state_dict --------------------------------------
     def state_dict(self):
         """The reference's keys: ``moment1_i``, ``moment2_i`` and, for a
         parameter with a master weight, ``master_i`` (i: the parameter's
-        index in the list the optimizer was built from); ``aux_0`` and
+        index in the list the optimizer was built from, counting a placed
+        model's logical tensor once: its whole state); ``aux_0`` and
         ``aux_1``, beta1^t and beta2^t as fp32 0-d tensors (on the card
         while the device pair holds them); and
         ``LR_Scheduler`` when the rate is a scheduler."""
         sd = {}
-        for i, p in enumerate(self._params()):
+        for i, entry in enumerate(self._logical()):
             for name in ("moment1", "moment2", "master"):
-                if name in self.state[p]:
-                    sd[f"{name}_{i}"] = self.state[p][name]
+                t = self._state_of(entry, name)
+                if t is not None:
+                    sd[f"{name}_{i}"] = t
         if self._pows is not None:
             sd["aux_0"], sd["aux_1"] = (t.clone() for t in self._pows)
         else:
@@ -270,19 +336,23 @@ class AdamW(torch.optim.Optimizer):
         resumes here with its moments, masters, beta powers and
         schedule.  Keys that name no state of this optimizer are
         ignored, as the reference ignores them."""
-        for i, p in enumerate(self._params()):
+        for i, entry in enumerate(self._logical()):
+            placed = not isinstance(entry, torch.Tensor)
+            parts = list(entry) if placed else [entry]
             for name in ("moment1", "moment2", "master"):
                 key = f"{name}_{i}"
-                if name in self.state[p] and key in state_dict:
-                    dst = self.state[p][name]
-                    v = state_dict[key]
-                    v = v if isinstance(v, torch.Tensor) else \
-                        torch.from_numpy(np.array(v, np.float32))
-                    if tuple(v.shape) != tuple(dst.shape):
-                        raise ValueError(f"set_state_dict: {key} has shape "
-                                         f"{tuple(v.shape)}, expected "
-                                         f"{tuple(dst.shape)}")
-                    dst.copy_(v)
+                if name not in self.state[parts[0]] or key not in state_dict:
+                    continue
+                v = state_dict[key]
+                v = v if isinstance(v, torch.Tensor) else \
+                    torch.from_numpy(np.array(v, np.float32))
+                shape = entry.whole_shape if placed else tuple(entry.shape)
+                if tuple(v.shape) != shape:
+                    raise ValueError(f"set_state_dict: {key} has shape "
+                                     f"{tuple(v.shape)}, expected {shape}")
+                cuts = entry.cut_whole(v) if placed else [v]
+                for p, c in zip(parts, cuts):
+                    self.state[p][name].copy_(c)
         for key, attr in (("aux_0", "beta1_pow"), ("aux_1", "beta2_pow")):
             if key in state_dict:
                 v = state_dict[key]

@@ -203,7 +203,9 @@ def test_adamw_takes_the_learning_rate_first():
 def test_gpt_takes_n_micro_second():
     """``GPTStackedForPretraining(cfg, 1)``: the second positional argument
     is ``n_micro``; the model gives the JAX model's logits on the same
-    weights.  More than one microbatch raises naming its roadmap item."""
+    weights.  More than one microbatch is taken since the pipeline was
+    ported: without a mesh it has no effect, as in the reference (the same
+    logits); ``n_micro`` below 1 raises."""
     cfg = dict(hidden_dropout=0.0, attention_dropout=0.0)
     pt.seed(0)
     jm = JaxGPT(jax_gpt_tiny(**cfg), 1)
@@ -218,5 +220,11 @@ def test_gpt_takes_n_micro_second():
         got = tm(torch.from_numpy(ids)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=1e-5 * np.abs(want).max())
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        GPTStackedForPretraining(gpt_tiny(**cfg), 2, device="cpu")
+    tm2 = GPTStackedForPretraining(gpt_tiny(**cfg), 2, device="cpu")
+    assert tm2.n_micro == 2
+    tm2.load_state_dict(tm.state_dict())
+    tm2.eval()
+    with torch.no_grad():
+        assert torch.equal(tm2(torch.from_numpy(ids)), torch.from_numpy(got))
+    with pytest.raises(ValueError, match="n_micro=0"):
+        GPTStackedForPretraining(gpt_tiny(**cfg), 0, device="cpu")

@@ -1,0 +1,561 @@
+"""The port's mesh training held against the JAX package on the CPU.
+
+The port drives a ``(dp, pp, mp)`` mesh from one process: every shard is
+a tensor on its device, and the CPU runs lay a mesh out over
+``["cpu"] * n`` (all shards on one device, as a one-card run puts them
+on ``cuda:0``).
+
+- ``pp_spmd.pipeline_blocks``: the port's plain function on tensors
+  against the JAX package's SPMD pipeline with the toy block on the JAX
+  ``(dp 2, pp 4)`` CPU mesh, forward and gradient, at V = 1 and V = 2
+  (fp32, 1e-6 and 1e-5).
+- ``GPTStackedForPretraining`` at 4 layers of ``gpt_tiny``, fp32, dropout
+  0, placed at ``(dp, pp, mp)`` = (1, 2, 1), (1, 1, 2), (2, 2, 2), (1, 2,
+  2) with ``virtual_pp_degree`` 2, and (1, 2, 2) with
+  ``use_tensor_parallel``: the loss, every gathered gradient and the
+  weights after 3 AdamW steps against the JAX model WITHOUT a mesh
+  carrying the same weights (``load_jax_state``), rtol 1e-5 with atol
+  1e-5 x the largest reference value (the JAX package asserts the same of
+  its own mesh run, ``tests/test_pipeline.py:75``).  AdamW divides each
+  moment by the root of the second, so an element whose gradient is zero
+  to rounding moves by whatever share of a step its rounding gives it
+  (the key third of ``qkv_b`` is zero in exact arithmetic: softmax
+  ignores a shift of a row's scores; one element of ``proj_w`` stands at
+  1e-6 of the tensor's largest gradient).  The elements whose step-1
+  gradients, the port's and JAX's, part by more than ``ZERO_REL`` of
+  JAX's are held only to two steps of the rate, and may be at most
+  ``ZERO_SHARE`` of the model; every other element to the tolerance.
+- Properties on the port alone: at pp only with ``n_micro = 1`` the loss
+  and gradients are the unplaced model's bit for bit, with and without
+  dropout; dp replicas stay bit-identical; a loss mask takes the whole
+  batch's denominator; dropout differs between microbatches and repeats
+  on a rerun; the global-norm clip counts each logical tensor once; no
+  whole slab is kept beside its shards, and the weight bytes of each
+  mesh position follow the layout; checkpoints move between meshes and
+  no mesh; O1 with a ``GradScaler`` skips the step on every shard when
+  one shard's gradient overflows; and the refusals.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import paddle_tpu as pt
+from paddle_tpu.distributed import mesh as JM
+from paddle_tpu.distributed.fleet.meta_parallel import pp_spmd as jpp
+from paddle_tpu.models import GPTStackedForPretraining as JaxGPT
+from paddle_tpu.models import gpt_tiny as jax_gpt_tiny
+
+from paddle_tpu_torch import amp
+from paddle_tpu_torch.checkpoint import CheckpointManager, TrainState
+from paddle_tpu_torch.distributed import mesh as M
+from paddle_tpu_torch.distributed import pp_spmd
+from paddle_tpu_torch.distributed.shards import (
+    sharded_parameters, weight_bytes_by_position,
+)
+from paddle_tpu_torch.models import (
+    GPTPretrainingCriterion, GPTStackedForPretraining, gpt_tiny,
+)
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
+
+torch.set_num_threads(2)
+
+CFG = dict(num_layers=4, hidden_dropout=0.0, attention_dropout=0.0)
+BATCH, SEQ, LR, STEPS = 4, 16, 1e-4, 3
+# an element whose gradient parts from the reference's by more than this
+# share of it is zero to rounding (its AdamW update is rounding's sign);
+# at most ZERO_SHARE of the elements may be
+ZERO_REL, ZERO_SHARE = 1e-3, 1e-2
+CPUS = ["cpu"] * 8
+# the decoder slabs cut over mp
+TP_NAMES = ("qkv_w", "qkv_b", "proj_w", "fc1_w", "fc1_b", "fc2_w")
+
+
+@pytest.fixture
+def mesh():
+    """Set the port's global mesh for a test, and clear it after."""
+    def set_(axes):
+        M.set_mesh(M.build_mesh(axes, CPUS))
+    yield set_
+    M.set_mesh(None)
+
+
+# ---------------------------------------------------------------------------
+# the pipeline function against the JAX SPMD pipeline
+# ---------------------------------------------------------------------------
+
+def _toy_inputs(L, V, seed):
+    h, mbs, mb, s = 8, 8, 2, 6
+    rng = np.random.RandomState(seed)
+    W = rng.randn(L, h, h).astype(np.float32) * 0.1
+    x = rng.randn(mbs, mb, s, h).astype(np.float32)
+    return W, x
+
+
+def _port_pipeline(W, x, V, n_stages=4):
+    Wt = torch.tensor(W, requires_grad=True)
+    L = W.shape[0]
+    stages = [[(Wt[layer],) for layer in ids]
+              for ids in pp_spmd.stage_layers(L, n_stages, V)]
+    out = pp_spmd.pipeline_blocks(
+        lambda p, h: torch.tanh(h @ p[0]), stages, torch.tensor(x),
+        layers_per_stage=L // n_stages, n_virtual=V)
+    return torch.stack(out), Wt
+
+
+@pytest.mark.parametrize("V", [1, 2])
+def test_pipeline_blocks_matches_jax(V):
+    L = 8 * V
+    W, x = _toy_inputs(L, V, seed=V)
+    prev = JM._global_mesh
+    try:
+        JM.set_mesh(JM.build_mesh({"dp": 2, "pp": 4}))
+
+        def block(params, h):
+            return jnp.tanh(h @ params[0])
+
+        def loss(Wj):
+            return jnp.sum(jpp.pipeline_blocks(
+                block, (Wj,), jnp.asarray(x), layers_per_stage=L // 4,
+                n_virtual=V) ** 2)
+
+        ref = jpp.pipeline_blocks(block, (jnp.asarray(W),), jnp.asarray(x),
+                                  layers_per_stage=L // 4, n_virtual=V)
+        gref = jax.grad(loss)(jnp.asarray(W))
+    finally:
+        JM._global_mesh = prev
+    out, Wt = _port_pipeline(W, x, V)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=1e-6, atol=1e-6)
+    (out ** 2).sum().backward()
+    np.testing.assert_allclose(Wt.grad.numpy(), np.asarray(gref),
+                               rtol=1e-5, atol=1e-5 * np.abs(gref).max())
+
+
+def test_pipeline_refusals():
+    W, x = _toy_inputs(8, 2, seed=0)
+    with pytest.raises(ValueError, match="n_micro"):
+        _port_pipeline(W, x[:3], 2)                  # M < S at V = 2
+    with pytest.raises(ValueError, match="divisible by n_virtual"):
+        pp_spmd.stage_layers(12, 4, 2)               # 3 layers a stage
+    with pytest.raises(ValueError, match="not divisible"):
+        pp_spmd.stage_layers(6, 4)
+
+
+# ---------------------------------------------------------------------------
+# GPT on a mesh against the JAX model without one
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def state():
+    """The JAX model's weights, every bias and LayerNorm gain moved off
+    its 0/1 init."""
+    prev = JM._global_mesh
+    JM._global_mesh = None
+    try:
+        pt.seed(0)
+        m = JaxGPT(jax_gpt_tiny(**CFG))
+        rng = np.random.RandomState(0)
+        out = {}
+        for k, v in m.state_dict().items():
+            a = np.asarray(v.numpy(), np.float32)
+            if k.endswith(("_b", "_g", "bias")) or k == "final_ln.weight":
+                a = a + 0.1 * rng.randn(*a.shape).astype(np.float32)
+            out[k] = a
+        return out
+    finally:
+        JM._global_mesh = prev
+
+
+def _batches(n, seed=1, batch=BATCH, seq=SEQ):
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, 1024, (batch, seq)),
+             rng.randint(0, 1024, (batch, seq))) for _ in range(n)]
+
+
+def _jt(a):
+    return pt.to_tensor(a, dtype="int64")
+
+
+@pytest.fixture(scope="module")
+def jax_run(state):
+    """The JAX model without a mesh: step 1's loss and gradients, then
+    the losses and weights of STEPS AdamW steps."""
+    prev = JM._global_mesh
+    JM._global_mesh = None
+    try:
+        batches = _batches(STEPS)
+        jm = JaxGPT(jax_gpt_tiny(**CFG))
+        jm.set_state_dict(state)
+        ids, labels = batches[0]
+        loss = jm(_jt(ids), labels=_jt(labels))
+        loss.backward()
+        grads = {n: np.asarray(p.grad.numpy(), np.float32)
+                 for n, p in jm.named_parameters()}
+        jm = JaxGPT(jax_gpt_tiny(**CFG))
+        jm.set_state_dict(state)
+        opt = pt.optimizer.AdamW(learning_rate=LR,
+                                 parameters=jm.parameters(),
+                                 multi_precision=False)
+        step = pt.optimizer.FusedTrainStep(lambda i, l: jm(i, labels=l), opt)
+        losses = [float(step(_jt(i), _jt(l))) for i, l in batches]
+        weights = {k: np.asarray(v.numpy(), np.float32)
+                   for k, v in jm.state_dict().items()}
+        return dict(loss=float(loss), grads=grads, losses=losses,
+                    weights=weights, batches=batches)
+    finally:
+        JM._global_mesh = prev
+
+
+# (mesh axes, n_micro, config overrides)
+MESH_CASES = {
+    "pp2": ({"dp": 1, "pp": 2, "mp": 1}, 2, {}),
+    "mp2": ({"dp": 1, "pp": 1, "mp": 2}, 1, {}),
+    "dp2_pp2_mp2": ({"dp": 2, "pp": 2, "mp": 2}, 2, {}),
+    "pp2_mp2_vpp2": ({"dp": 1, "pp": 2, "mp": 2}, 2,
+                     {"virtual_pp_degree": 2}),
+    "pp2_mp2_vocab_parallel": ({"dp": 1, "pp": 2, "mp": 2}, 2,
+                               {"use_tensor_parallel": True}),
+}
+
+
+def _placed(state, case, **kw):
+    axes, n_micro, over = MESH_CASES[case]
+    M.set_mesh(M.build_mesh(axes, CPUS))
+    m = GPTStackedForPretraining(gpt_tiny(**{**CFG, **over, **kw}), n_micro)
+    m.load_jax_state(state)
+    return m
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max(), err_msg=what)
+
+
+def _gathered_grads(model):
+    return {k: sp.gather([p.grad for p in sp]).numpy()
+            for k, sp in sharded_parameters(model).items()}
+
+
+@pytest.mark.parametrize("case", sorted(MESH_CASES))
+def test_mesh_loss_and_gradients_match_jax(state, jax_run, mesh, case):
+    m = _placed(state, case)
+    ids, labels = jax_run["batches"][0]
+    loss = m(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), jax_run["loss"],
+                               rtol=1e-5)
+    grads = _gathered_grads(m)
+    assert set(grads) == set(jax_run["grads"])
+    for name, want in jax_run["grads"].items():
+        _close(grads[name], want, name)
+
+
+@pytest.mark.parametrize("case", sorted(MESH_CASES))
+def test_mesh_three_steps_match_jax(state, jax_run, mesh, case):
+    m = _placed(state, case)
+    ids, labels = jax_run["batches"][0]
+    m(torch.from_numpy(ids), labels=torch.from_numpy(labels)).backward()
+    grads = _gathered_grads(m)
+    m.zero_grad(set_to_none=True)
+    step = FusedTrainStep(lambda i, l: m(i, labels=l),
+                          AdamW(LR, parameters=m.parameters(),
+                                multi_precision=False))
+    losses = [float(step(torch.from_numpy(i), torch.from_numpy(l)))
+              for i, l in jax_run["batches"]]
+    np.testing.assert_allclose(losses, jax_run["losses"], rtol=1e-5)
+    got = m.state_dict()
+    n_zero = n_all = 0
+    for name, want in jax_run["weights"].items():
+        g = jax_run["grads"][name]
+        zero = np.abs(grads[name] - g) > ZERO_REL * np.abs(g)
+        n_zero += int(zero.sum())
+        n_all += zero.size
+        err = np.abs(got[name].numpy() - want)
+        tol = 1e-5 * np.abs(want) + 1e-5 * np.abs(want).max()
+        assert (err <= tol)[~zero].all(), (name, float((err - tol).max()))
+        assert (err <= 2 * LR * STEPS)[zero].all(), name
+    assert n_zero <= ZERO_SHARE * n_all, (n_zero, n_all)
+
+
+# ---------------------------------------------------------------------------
+# properties of the port
+# ---------------------------------------------------------------------------
+
+def _ids(batch=BATCH, seed=5):
+    rng = np.random.RandomState(seed)
+    return (torch.from_numpy(rng.randint(0, 1024, (batch, SEQ))),
+            torch.from_numpy(rng.randint(0, 1024, (batch, SEQ))))
+
+
+def _loss_and_grads(model, ids, labels):
+    loss = model(ids, labels=labels)
+    loss.backward()
+    if not sharded_parameters(model):
+        return loss.detach(), {k: p.grad.clone()
+                               for k, p in model.named_parameters()}
+    return loss.detach(), {k: sp.gather([p.grad for p in sp])
+                           for k, sp in sharded_parameters(model).items()}
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_pp_only_one_microbatch_is_the_unplaced_run_bit_for_bit(mesh,
+                                                                dropout):
+    cfg = gpt_tiny(num_layers=4, hidden_dropout=dropout,
+                   attention_dropout=dropout, recompute_interval=1)
+    ids, labels = _ids()
+    want = _loss_and_grads(GPTStackedForPretraining(cfg, device="cpu",
+                                                    seed=2), ids, labels)
+    for pp in (2, 4):
+        mesh({"pp": pp})
+        got = _loss_and_grads(GPTStackedForPretraining(cfg, seed=2), ids,
+                              labels)
+        assert torch.equal(got[0], want[0])
+        for k in want[1]:
+            assert torch.equal(got[1][k], want[1][k]), (pp, k)
+
+
+def test_dp_replicas_stay_bit_identical(mesh):
+    mesh({"dp": 2, "pp": 2, "mp": 2})
+    cfg = gpt_tiny(num_layers=4, hidden_dropout=0.1, attention_dropout=0.1)
+    m = GPTStackedForPretraining(cfg, 2, seed=1)
+    step = FusedTrainStep(lambda i, l: m(i, labels=l),
+                          AdamW(1e-3, parameters=m.parameters()))
+    for i in range(3):
+        step(*_ids(seed=i))
+    opt = step._optimizer
+    for key, sp in sharded_parameters(m).items():
+        by_slot = {}
+        for t, p in zip(sp, sp.parts):
+            by_slot.setdefault(p.position[1:], []).append(t)
+        for copies in by_slot.values():
+            assert len(copies) == 2
+            assert torch.equal(copies[0], copies[1]), key
+            for name in ("moment1", "moment2"):
+                assert torch.equal(opt.state[copies[0]][name],
+                                   opt.state[copies[1]][name]), key
+
+
+def test_loss_mask_takes_the_whole_batch_denominator(mesh):
+    cfg = gpt_tiny(**CFG)
+    ids, labels = _ids()
+    mask = torch.zeros(BATCH, SEQ)
+    mask[0, :5] = 1.0          # 5 kept tokens in replica 0's rows, 9 in 1's
+    mask[3, 7:] = 1.0
+    crit = GPTPretrainingCriterion(cfg)
+    ref = GPTStackedForPretraining(cfg, device="cpu", seed=4)
+    want = crit(ref(ids), labels, loss_mask=mask)
+    want.backward()
+    mesh({"dp": 2, "pp": 2, "mp": 2})
+    m = GPTStackedForPretraining(gpt_tiny(**CFG, use_tensor_parallel=True),
+                                 2, seed=4)
+    got = crit(m(ids), labels, loss_mask=mask)
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want.detach()),
+                               rtol=1e-6)
+    grads = _gathered_grads(m)
+    for k, p in ref.named_parameters():
+        _close(grads[k], p.grad.numpy(), k)
+
+
+def test_dropout_differs_between_microbatches_and_repeats(mesh):
+    """Rows 0-1 and 2-3 of the batch are the same sequences, the two
+    microbatches at pp 2: in training they take different masks, in eval
+    the same output, and a rerun from the same generator state draws the
+    same masks."""
+    mesh({"pp": 2})
+    cfg = gpt_tiny(num_layers=2, hidden_dropout=0.5, attention_dropout=0.0)
+    m = GPTStackedForPretraining(cfg, 2, seed=3)
+    ids = _ids(batch=2)[0].repeat(2, 1)
+    gen = m.generator.get_state()
+    a = m(ids)
+    m.generator.set_state(gen)
+    b = m(ids)
+    assert torch.equal(a, b)
+    assert not torch.equal(a[:2], a[2:])
+    m.eval()
+    c = m(ids)
+    assert torch.equal(c[:2], c[2:])
+
+
+def test_global_clip_on_a_mesh_equals_the_unplaced_clip(mesh):
+    cfg = gpt_tiny(**CFG)
+    ids, labels = _ids()
+    ref = GPTStackedForPretraining(cfg, device="cpu", seed=6)
+    ref(ids, labels=labels).backward()
+    clip = ClipGradByGlobalNorm(1e-3)
+    want = dict(zip([k for k, _ in ref.named_parameters()],
+                    (g for _, g in clip(
+                        [(p, p.grad) for p in ref.parameters()]))))
+    mesh({"dp": 2, "pp": 2, "mp": 2})
+    m = GPTStackedForPretraining(gpt_tiny(**CFG, use_tensor_parallel=True),
+                                 2, seed=6)
+    m(ids, labels=labels).backward()
+    sq = clip._global_norm_sq([(p, p.grad) for p in m.parameters()])
+    ref_sq = clip._global_norm_sq([(p, p.grad) for p in ref.parameters()])
+    np.testing.assert_allclose(float(sq), float(ref_sq), rtol=1e-5)
+    clipped = dict(clip([(p, p.grad) for p in m.parameters()]))
+    for k, sp in sharded_parameters(m).items():
+        got = sp.gather([clipped[p] for p in sp])
+        _close(got.numpy(), want[k].numpy(), k)
+
+
+@pytest.mark.parametrize("axes,tp", [
+    ({"pp": 2}, False), ({"mp": 2}, False), ({"dp": 2, "pp": 2, "mp": 2},
+                                             True)])
+def test_no_whole_slab_beside_the_shards(mesh, axes, tp):
+    mesh(axes)
+    cfg = gpt_tiny(**CFG, use_tensor_parallel=tp)
+    m = GPTStackedForPretraining(cfg, 2, seed=0)
+    whole = {k: tuple(v.shape) for k, v in m.state_dict().items()}
+    pp, mp = axes.get("pp", 1), axes.get("mp", 1)
+    for name, p in m.named_parameters():
+        key = name.rsplit(".", 1)[0]
+        assert key in whole, name                     # every tensor a part
+        if key.startswith("decoder.") and pp > 1:
+            assert p.shape[0] == cfg.num_layers // pp, name
+        if key[len("decoder."):] in TP_NAMES and mp > 1:
+            assert p.numel() * mp == np.prod(whole[key]) // pp, name
+        if key == "embeddings.word_embeddings.weight" and tp:
+            assert p.shape[0] == cfg.vocab_size // mp
+    assert not list(m.buffers())
+
+
+def test_weight_bytes_per_position_follow_the_layout(mesh):
+    mesh({"dp": 2, "pp": 2, "mp": 2})
+    cfg = gpt_tiny(**CFG, use_tensor_parallel=True)
+    m = GPTStackedForPretraining(cfg, 2, seed=0)
+    got = weight_bytes_by_position(m)
+    L, h, f, V = (cfg.num_layers, cfg.hidden_size, cfg.ffn_size,
+                  cfg.vocab_size)
+    lps = L // 2
+    sliced = lps * (h * 3 * h + 3 * h + h * h + h * f + f + f * h) // 2
+    whole = lps * 6 * h                   # ln1, ln2, proj_b, fc2_b
+    word = V * h // 2
+    pos_emb = cfg.max_position_embeddings * h
+    for r in range(2):
+        for s in range(2):
+            for i in range(2):
+                want = sliced + (whole if i == 0 else 0)
+                if s == 0:
+                    want += word + (pos_emb if i == 0 else 0)
+                if s == 1 and i == 0:
+                    want += 2 * h                     # the final LayerNorm
+                assert got[(r, s, i)] == 4 * want, (r, s, i)
+    # one replica's positions hold the whole model once
+    one = sum(v for k, v in got.items() if k[0] == 0)
+    assert one == 4 * sum(v.numel() for v in m.state_dict().values())
+
+
+def _train(model, batches):
+    opt = AdamW(1e-3, parameters=model.parameters())
+    step = FusedTrainStep(lambda i, l: model(i, labels=l), opt)
+    return opt, [float(step(*b)) for b in batches]
+
+
+@pytest.mark.parametrize("first,second", [
+    ({"dp": 2, "pp": 2, "mp": 2}, None), (None, {"pp": 2, "mp": 2}),
+    ({"pp": 2}, {"dp": 2, "mp": 2})])
+def test_checkpoint_moves_between_meshes(tmp_path, mesh, first, second):
+    cfg = gpt_tiny(**CFG)
+    batches = [_ids(seed=i) for i in range(3)]
+
+    def build(axes):
+        M.set_mesh(None if axes is None else M.build_mesh(axes, CPUS))
+        return GPTStackedForPretraining(
+            cfg, 2, device="cpu" if axes is None else None, seed=8)
+
+    a = build(first)
+    opt_a, _ = _train(a, batches[:2])
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(TrainState(a, opt_a).capture({"step": 2}), step=2)
+    mgr.wait()
+    b = build(second)
+    opt_b = AdamW(1e-3, parameters=b.parameters())
+    tree, _ = mgr.restore()
+    assert TrainState(b, opt_b).restore(tree) == {"step": 2}
+    for k, v in a.state_dict().items():
+        assert torch.equal(b.state_dict()[k], v), k
+    sa, sb = opt_a.state_dict(), opt_b.state_dict()
+    assert set(sa) == set(sb)
+    for k in sa:
+        if k != "LR_Scheduler":
+            assert torch.equal(torch.as_tensor(sb[k]),
+                               torch.as_tensor(sa[k])), k
+    # one more step from the restored state on each side
+    la = FusedTrainStep(lambda i, l: a(i, labels=l), opt_a)(*batches[2])
+    lb = FusedTrainStep(lambda i, l: b(i, labels=l), opt_b)(*batches[2])
+    np.testing.assert_allclose(float(lb), float(la), rtol=1e-5)
+
+
+def test_o1_scaler_skips_every_shard_on_one_overflow(mesh):
+    mesh({"dp": 2, "pp": 2, "mp": 2})
+    cfg = gpt_tiny(**CFG, use_tensor_parallel=True)
+    m = GPTStackedForPretraining(cfg, 2, seed=9)
+    opt = AdamW(1e-3, parameters=m.parameters())
+    scaler = amp.GradScaler(device="cpu", init_loss_scaling=1024.0)
+    step = FusedTrainStep(lambda i, l: m(i, labels=l), opt, scaler=scaler,
+                          amp_level="O1")
+    step(*_ids(seed=0))
+    assert step.last_step_applied
+    before = {k: v.clone() for k, v in m.state_dict().items()}
+    moments = {k: v.clone() for k, v in opt.state_dict().items()
+               if isinstance(v, torch.Tensor)}
+    scale = float(scaler._scale)
+    # an inf in one shard's gradient: replica 1, stage 1, shard 1's fc1
+    target = sharded_parameters(m)["decoder.fc1_w"].at((1, 1, 1))
+    target.register_hook(lambda g: torch.full_like(g, float("inf")))
+    step(*_ids(seed=1))
+    assert not step.last_step_applied
+    for k, v in m.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    for k, v in opt.state_dict().items():
+        if k in moments:
+            assert torch.equal(v, moments[k]), k
+    assert float(scaler._scale) == scale * 0.5
+
+
+def test_refusals(mesh):
+    cfg = gpt_tiny(**CFG)
+    ids, labels = _ids()
+    mesh({"pp": 2})
+    m = GPTStackedForPretraining(cfg, 3)
+    with pytest.raises(ValueError, match="n_micro=3"):
+        m(ids, labels=labels)
+    m = GPTStackedForPretraining(gpt_tiny(**CFG, virtual_pp_degree=2), 1)
+    with pytest.raises(ValueError, match="n_micro"):
+        m(ids, labels=labels)
+    with pytest.raises(ValueError, match="divisible by n_virtual"):
+        GPTStackedForPretraining(gpt_tiny(**{**CFG, "num_layers": 6},
+                                          virtual_pp_degree=2), 4)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        m.generate(ids[:, :4].numpy(), 2, max_seq_len=16)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        m.new_paged_kv_cache(4, 16)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        m.quantize_weights()
+    with pytest.raises(ValueError, match="device=cuda"):
+        GPTStackedForPretraining(cfg, device="cuda")   # the mesh is the CPU
+    mesh({"dp": 3})
+    with pytest.raises(ValueError, match="split over dp=3"):
+        GPTStackedForPretraining(cfg)(ids, labels=labels)
+    for axes in ({"dp": 2, "sp": 2}, {"sharding": 2}, {"sep": 2}):
+        mesh(axes)
+        with pytest.raises(NotImplementedError, match="item 9"):
+            GPTStackedForPretraining(gpt_tiny(**CFG, sequence_parallel=True))
+    mesh({"dp": 2, "xp": 2})
+    with pytest.raises(ValueError, match="xp"):
+        GPTStackedForPretraining(cfg)
+
+
+def test_a_mesh_never_falls_back_to_the_cpu():
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="visible CUDA devices"):
+        M.build_mesh({"dp": cards + 1})
+    if not cards:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            M.get_mesh()
+    assert not M.has_mesh()

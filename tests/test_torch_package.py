@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch import inference
+from paddle_tpu_torch.distributed import mesh as M
 from paddle_tpu_torch.models import (
     GPTForPretraining, GPTStackedForPretraining, gpt_tiny,
 )
@@ -228,11 +229,31 @@ def _predictor(mode):
     assert tuple(out[0].shape) == (1, 5)
 
 
+def _sequence_parallel():
+    """``sequence_parallel`` over an sp axis of 2 (one process, two
+    positions on the CPU)."""
+    M.set_mesh(M.build_mesh({"dp": 1, "sp": 2}, ["cpu"] * 2))
+    try:
+        GPTStackedForPretraining(gpt_tiny(sequence_parallel=True))
+    finally:
+        M.set_mesh(None)
+
+
+def _pipelined():
+    """Four microbatches over two pipeline stages on the CPU."""
+    M.set_mesh(M.build_mesh({"pp": 2}, ["cpu"] * 2))
+    try:
+        m = GPTStackedForPretraining(gpt_tiny(hidden_dropout=0.0,
+                                              attention_dropout=0.0), 4)
+        ids = torch.zeros((4, 8), dtype=torch.long)
+        m(ids, labels=ids).backward()
+    finally:
+        M.set_mesh(None)
+
+
 # every refused knob: (how to provoke it, words its item's title must hold)
 REFUSALS = {
-    "gpt n_micro": (
-        lambda: GPTStackedForPretraining(gpt_tiny(), 2, device="cpu"),
-        "training"),
+    "gpt sequence_parallel": (_sequence_parallel, "mesh training"),
     "predictor saved program": (
         lambda: inference.create_predictor(inference.Config("model")),
         "long-tail"),
@@ -243,6 +264,7 @@ REFUSALS = {
 # words its title must hold); each is now taken, and its item's title
 # says it is ported
 PORTED = {
+    "gpt n_micro": (_pipelined, 2, "training"),
     "engine mesh": (lambda: _engine_step(mesh=("cpu", "cpu")), 9,
                     "sharded"),
     "engine role": (lambda: _engine_step(role="prefill"), 9,

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Mesh training on the card alone: ``chip_smoke.py``'s phases 45-47 (the
+kernels at a shard's shapes, GPT-3 1.3B on each mesh of
+``MESH_TRAIN_RUNS``, a 2-layer fp32 model at (2, 2, 2) against the CPU)
+in a fresh process, without the 44 phases before them.  ``--steps N``
+runs N steps of each mesh (at least 3: the first checks the loss and
+the launches, the middle ones are timed on the host clock, the last runs
+under ``torch.profiler``).  ``--cards N`` runs phase 47 alone with its
+eight mesh positions over N distinct cards (round-robin, replica 1's
+shifted by one card, so each part's replicas, stages and shards sit on
+different cards): the transfers, the per-device beta powers, flags and
+clip sums that one card never exercises.  ``--parent DIR`` first times
+phase 6 (GPT-3 1.3B without a mesh) in turns from another tree unpacked
+at DIR and from this one (parent, this, this, parent; each in its own
+process, which builds its tree's kernels), so the two compare within one
+call.  Run from the repository root:
+
+    python3 tools/port_mesh_probe.py [--steps N] [--parent DIR]
+    python3 tools/port_mesh_probe.py --cards 4
+
+It exits nonzero when a check fails or there is no card.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402  (the phases, defined once there)
+
+PHASE6 = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+cs.phase_train(cs.import_port())
+"""
+
+
+def _phase6_in_turns(parent: str):
+    for tree in (parent, ROOT, ROOT, parent):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", PHASE6], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
+        lines = [x for x in run.stdout.splitlines() if x.startswith("[train]")]
+        print(f"[mesh_probe] phase 6 from {tree}: rc {run.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        print("\n".join(lines) or run.stderr[-3000:], flush=True)
+        if run.returncode:
+            raise RuntimeError(f"phase 6 failed in {tree}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=0,
+                    help="steps of each mesh run (default: MESH_TRAIN_RUNS')")
+    ap.add_argument("--parent", default=None,
+                    help="a tree to time phase 6 against, in turns")
+    ap.add_argument("--cards", type=int, default=0,
+                    help="phase 47 alone over this many distinct cards")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("port_mesh_probe: no CUDA device", file=sys.stderr)
+        return 2
+    if args.steps and args.steps < 3:
+        ap.error("--steps must be at least 3")
+    if args.cards > torch.cuda.device_count():
+        ap.error(f"--cards {args.cards}: {torch.cuda.device_count()} visible")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {cs.card_line()}", flush=True)
+    if args.parent:
+        _phase6_in_turns(os.path.abspath(args.parent))
+    runs = tuple(r[:-1] + (args.steps or r[-1],)
+                 for r in cs.MESH_TRAIN_RUNS)
+    devices = None
+    port = cs.import_port()
+    phases = (("45", cs.phase_mesh_kernels),
+              ("46", lambda p: cs.phase_mesh_train(p, runs)),
+              ("47", lambda p: cs.phase_mesh_card_vs_cpu(p, devices)))
+    if args.cards:
+        n = args.cards
+        devices = [f"cuda:{(j + j // n) % n}" for j in range(8)]
+        phases = phases[2:]
+    for name, phase in phases:
+        t0 = time.perf_counter()
+        phase(port)
+        print(f"[mesh_probe] phase {name} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
