@@ -572,7 +572,9 @@ def import_port():
     from paddle_tpu_torch.serving import RequestState, ServingEngine, \
         SpeculativeEngine
     from paddle_tpu_torch.serving import sharded
-    from paddle_tpu_torch.distributed import mesh, serving_mesh, shards
+    from paddle_tpu_torch.distributed import fleet, mesh, serving_mesh, shards
+    from paddle_tpu_torch.models import gpt as gpt_blocks
+    from paddle_tpu_torch.nn.layers import LayerNorm, init_weights
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
                 gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
@@ -589,7 +591,8 @@ def import_port():
                 Criterion=GPTPretrainingCriterion,
                 Int8Linear=qi8.Int8Linear, inference=inference,
                 sharded=sharded, serving_mesh=serving_mesh, mesh=mesh,
-                shards=shards)
+                shards=shards, fleet=fleet, gpt_blocks=gpt_blocks,
+                LayerNorm=LayerNorm, init_weights=init_weights)
 
 
 def _check(cond, msg):
@@ -5670,7 +5673,8 @@ def _profiled_step_ms(port, run):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
         wall = time.perf_counter() - t0
     ks = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
@@ -6383,6 +6387,31 @@ def _gathered_grads(port, model):
             for k, sp in port["shards"].sharded_parameters(model).items()}
 
 
+def _mesh_weights_rule(torch, gc, gg, pc, pg, step_dw):
+    """Phase 47's rule on the weights after the steps, card (``pg``)
+    against CPU (``pc``), from step 1's gradients (``gg``, ``gc``), all
+    whole tensors by name; ``step_dw`` the rate times the steps.  Returns
+    (elements zero to rounding, all elements, their largest excess over
+    two steps of the rate + 1e-5 relative, the others' largest excess
+    over 2 MESH_ZERO_REL steps + 1e-5 relative, the others' largest 99.9th
+    percentile difference in a tensor)."""
+    n_zero = n_all = 0
+    over_kept = over_zero = bulk = -float("inf")
+    for n, w in pc.items():
+        d = (pg[n] - w).abs()
+        zero = (gg[n] - gc[n]).abs() > MESH_ZERO_REL * gc[n].abs()
+        n_zero += int(zero.sum())
+        n_all += zero.numel()
+        if zero.any():
+            over_zero = max(over_zero, (d - 2 * step_dw
+                                        - 1e-5 * w.abs())[zero].max().item())
+        kept = d[~zero]
+        over_kept = max(over_kept, (kept - 2 * MESH_ZERO_REL * step_dw
+                                    - 1e-5 * w.abs()[~zero]).max().item())
+        bulk = max(bulk, torch.quantile(kept[:2**24], 0.999).item())
+    return n_zero, n_all, over_zero, over_kept, bulk
+
+
 def phase_mesh_card_vs_cpu(port, devices=None):
     """Phase 47: a 2-layer fp32 GPT (hidden 256, 4 heads: head_dim 64, 2
     heads a shard) at (2, 2, 2), ``n_micro`` 2, ``use_tensor_parallel``,
@@ -6438,22 +6467,9 @@ def phase_mesh_card_vs_cpu(port, devices=None):
                for k, g in gc.items())
     loss_diff = max(abs(a - b) for a, b in zip(losses["cpu"],
                                                losses[DEVICE]))
-    pc, pg = weights["cpu"], weights[DEVICE]
-    step_dw = MESH_LR * MESH_CPU_STEPS
-    n_zero = n_all = 0
-    over_kept = over_zero = bulk = -float("inf")
-    for n, w in pc.items():
-        d = (pg[n] - w).abs()
-        zero = (gg[n] - gc[n]).abs() > MESH_ZERO_REL * gc[n].abs()
-        n_zero += int(zero.sum())
-        n_all += zero.numel()
-        if zero.any():
-            over_zero = max(over_zero, (d - 2 * step_dw
-                                        - 1e-5 * w.abs())[zero].max().item())
-        kept = d[~zero]
-        over_kept = max(over_kept, (kept - 2 * MESH_ZERO_REL * step_dw
-                                    - 1e-5 * w.abs()[~zero]).max().item())
-        bulk = max(bulk, torch.quantile(kept[:2**24], 0.999).item())
+    n_zero, n_all, over_zero, over_kept, bulk = _mesh_weights_rule(
+        torch, gc, gg, weights["cpu"], weights[DEVICE],
+        MESH_LR * MESH_CPU_STEPS)
     print(f"[mesh_card_vs_cpu] 2 layers fp32 at (2, 2, 2), n_micro 2, "
           f"vocab-parallel, positions on {sorted(set(map(str, devices)))} "
           f"({both_s:.1f} s both): step 1 gradient norm {gnorm:.4f} (the "
@@ -6520,6 +6536,310 @@ def phase_mesh_card_vs_cpu(port, devices=None):
     torch.cuda.empty_cache()
     return dict(flash=flash, adamw_fp32=fp32_launches,
                 adamw_fp32_skip=skip_launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 48: the fleet API over the layered GPT at TP=2 PP=2
+# ---------------------------------------------------------------------------
+
+# BASELINE.json config 3 ("GPT-3 1.3B Fleet hybrid-parallel TP=2 PP=2") by
+# the reference's recipe (tests/test_pipeline.py,
+# test_fleet_api_gpt_tp2_pp2_trains), its four positions on one device
+FLEET_HYBRID = {"dp_degree": 1, "pp_degree": 2, "mp_degree": 2}
+FLEET_PIPE = {"accumulate_steps": 4, "micro_batch_size": 2}
+FLEET_STEPS = 2
+FLEET_LR = 1e-4
+# the flash kernels' shape there: a microbatch of 2 rows at H / mp = 8
+# heads
+FLEET_SHARD_FLASH = (2, 8, 1024, 128)
+
+
+def fleet_part_count(cfg, mp):
+    """The tensors a fleet pipeline of the layered GPT holds at ``mp`` >
+    1 (one AdamW launch each a step): the word table in mp parts, the
+    position table, per layer 6 whole (the two LayerNorms' gains and
+    shifts, the out and fc2 biases) and 6 cut in mp parts (the QKV and
+    fc1 weights and biases, the out and fc2 weights), and the final
+    LayerNorm's 2."""
+    return mp + 1 + cfg.num_layers * (6 + 6 * mp) + 2
+
+
+def fleet_pipeline(port, cfg, devices, dtype, seed, grad_clip=None):
+    """The reference's recipe on ``devices`` (four names): the global
+    mesh (pp 2, mp 2) over them, ``fleet.init`` at FLEET_HYBRID, a
+    ``PipelineLayer`` of [GPTEmbeddings, L x GPTDecoderLayer, LayerNorm,
+    the tied GPTLMHead] in two stages with ``GPTPretrainingCriterion`` as
+    its loss, weights drawn from ``seed`` (``init_weights``: the unplaced
+    layered model's of that seed, on the same device), then
+    ``distributed_model`` and ``distributed_optimizer(AdamW)``.  Returns
+    (the ``PipelineParallel``, its ``PipelineLayer``, the optimizer)."""
+    torch, fleet, G = port["torch"], port["fleet"], port["gpt_blocks"]
+    dm = port["mesh"]
+    dm.set_mesh(dm.build_mesh({"pp": 2, "mp": 2}, devices))
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = dict(FLEET_HYBRID)
+    st.pipeline_configs = dict(FLEET_PIPE)
+    fleet.init(is_collective=True, strategy=st)
+    dt = getattr(torch, dtype)
+    emb = G.GPTEmbeddings(cfg, dtype=dt)
+    layers = [emb] + [G.GPTDecoderLayer(cfg, dtype=dt)
+                      for _ in range(cfg.num_layers)]
+    layers += [port["LayerNorm"](cfg.hidden_size, cfg.layer_norm_eps,
+                                 dtype=dt), G.GPTLMHead(emb)]
+    pl = fleet.meta_parallel.PipelineLayer(layers, num_stages=2,
+                                           loss_fn=port["Criterion"](cfg))
+    port["init_weights"](pl, seed, cfg.initializer_range)
+    model = fleet.distributed_model(pl)
+    opt = fleet.distributed_optimizer(port["AdamW"](
+        FLEET_LR, parameters=pl.parameters(), multi_precision=False,
+        grad_clip=grad_clip))
+    return model, pl, opt
+
+
+def _fleet_key(name, num_layers):
+    """The ``PipelineLayer``'s state-dict key of the unplaced layered
+    model's ``name``."""
+    if name.startswith("gpt.embeddings."):
+        return "run_function.0." + name[len("gpt.embeddings."):]
+    if name.startswith("gpt.final_ln."):
+        return (f"run_function.{num_layers + 1}."
+                + name[len("gpt.final_ln."):])
+    i, rest = name[len("gpt.layer_"):].split(".", 1)
+    return f"run_function.{int(i) + 1}.{rest}"
+
+
+def _fleet_grads(port, pl):
+    """Every gradient of ``pl``, whole (a cut tensor's gathered), by
+    state-dict key."""
+    shards = port["shards"]
+    out = {k: sp.gather([p.grad for p in sp])
+           for k, sp in shards.sharded_parameters(pl).items()}
+    out.update({k: p.grad for k, p in pl.named_parameters()
+                if shards.shard_info(p) is None})
+    return out
+
+
+class _GradCapture:
+    """The optimizer of a ``train_batch`` that keeps the gradients its
+    ``step`` sees (gathered by key) before stepping."""
+
+    def __init__(self, port, opt, pl):
+        self.port, self.opt, self.pl, self.grads = port, opt, pl, None
+
+    def step(self):
+        self.grads = _fleet_grads(self.port, self.pl)
+        self.opt.step()
+
+    def clear_grad(self, *args):
+        self.opt.clear_grad(*args)
+
+
+def _o1(port):
+    return port["amp"].auto_cast(enable=True, level="O1", dtype="bfloat16")
+
+
+def phase_fleet_train(port, devices=None):
+    """Phase 48: the flash kernels at the head shard's microbatch and the
+    AdamW kernel on the largest part tensor against their plain versions;
+    then GPT-3 1.3B bf16 (dropout 0, no recompute, O1 as phase 6) through
+    the fleet recipe at TP=2 PP=2, its four positions on ``devices``
+    (default: all on one card), batch
+    TRAIN_BATCH x TRAIN_SEQ in 4 microbatches of 2, FLEET_STEPS steps.
+    Step 1 is held against the unplaced layered model carrying the same
+    weights with the same batch accumulated over the same microbatches
+    (the loss to MESH_LOSS_REL, each gathered gradient by relative norm
+    to TRAIN_GRAD_NORM), which is then freed; the flash launches of a
+    step are exactly n_micro x mp x L of each kernel and the AdamW
+    launches the part tensors; step 2 runs under the profiler.  Then
+    :func:`_fleet_card_vs_cpu`."""
+    torch = port["torch"]
+    t_phase = time.perf_counter()
+    devices = _mesh_devices(4) if devices is None else list(devices)
+    cards = sorted(set(devices))
+    errs = dict(zip(("fwd", "dkv", "dq"), _flash_compare(
+        port, "bfloat16", FLEET_SHARD_FLASH, True, 480)))
+    cfg = port["gpt_1p3b"](hidden_dropout=0.0, attention_dropout=0.0,
+                           max_position_embeddings=1024,
+                           use_tensor_parallel=True, use_flash_attention=True)
+    mp = FLEET_HYBRID["mp_degree"]
+    errs["adamw"] = _adamw_compare(
+        port, (cfg.vocab_size // mp, cfg.hidden_size), "bfloat16", 481)
+    n_micro = FLEET_PIPE["accumulate_steps"]
+    L = cfg.num_layers
+    rng = np.random.RandomState(48)
+    ids, labels = (torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to(DEVICE)
+        for _ in range(2))
+    # the unplaced layered model: the batch over the same microbatches
+    _set_mesh(port, None)
+    ref = port["Layered"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    crit = port["Criterion"](cfg)
+    ref_loss = 0.0
+    rows = TRAIN_BATCH // n_micro
+    for x, y in zip(ids.split(rows), labels.split(rows)):
+        with _o1(port):
+            loss = crit(ref(x), y) * (1.0 / n_micro)
+        loss.backward()
+        ref_loss += float(loss.detach())
+    ref_grads = {k: p.grad for k, p in ref.named_parameters()}
+    whole = sum(t.numel() * t.element_size() for t in ref.parameters())
+    ref_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    model, pl, opt = fleet_pipeline(port, cfg, devices, "bfloat16", 0)
+    build_s = time.perf_counter() - t0
+    got = pl.state_dict()
+    same = all(torch.equal(got[_fleet_key(k, L)].to(v.device), v)
+               for k, v in ref.state_dict().items())
+    del got
+    n_parts = fleet_part_count(cfg, mp)
+    positions = port["shards"].weight_bytes_by_position(pl)
+    _check(same and len(ref_grads) == len(pl.state_dict()),
+           "fleet: the pipeline's weights are not the unplaced model's")
+    _check(len(list(pl.parameters())) == n_parts
+           and sum(positions.values()) == whole,
+           f"fleet: {len(list(pl.parameters()))} tensors of "
+           f"{sum(positions.values())} bytes, expected {n_parts} of {whole}")
+    torch.cuda.synchronize()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    _reset_launches(port)
+    cap = _GradCapture(port, opt, pl)
+    t0 = time.perf_counter()
+    with _o1(port):
+        losses = [float(model.train_batch((ids, labels), cap))]
+    for d in cards:
+        torch.cuda.synchronize(d)
+    step1_s = time.perf_counter() - t0
+    first = _launch_counts(port)
+    peak_inflight = model.last_peak_inflight
+    rels = {k: ((cap.grads[_fleet_key(k, L)].to(g.device).float()
+                 - g.float()).norm() / g.float().norm()).item()
+            for k, g in ref_grads.items()}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    del ref, ref_grads, cap
+    torch.cuda.empty_cache()
+
+    def step():
+        with _o1(port):
+            losses.append(float(model.train_batch((ids, labels), opt)))
+
+    prof = _profiled_step_ms(port, step)
+    _check(prof is not None, "fleet: the profiler saw no device activity")
+    total = _launch_counts(port)
+    peak = max(torch.cuda.max_memory_allocated(d) for d in cards)
+    want = {k: n_micro * mp * L for k in ("fwd", "dkv", "dq")}
+    want["adamw"] = n_parts
+    print(f"[fleet_train] GPT-3 1.3B bf16 (O1) through fleet.init, "
+          f"PipelineLayer (segments {pl.segment_bounds}), distributed_model "
+          f"and distributed_optimizer at {FLEET_HYBRID}, {FLEET_PIPE}, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, positions on "
+          f"{[str(d) for d in devices]}: kernel checks and the unplaced model "
+          f"{ref_s:.2f} s, set-up {build_s:.2f} s; step 1 loss "
+          f"{losses[0]!r} against the unplaced model's {ref_loss!r} "
+          f"(relative {loss_rel:.3g}, tol {MESH_LOSS_REL:.3g}); step 1 "
+          f"gradients relative norm max {rels[worst]:.4g} ({worst}), median "
+          f"{float(np.median(list(rels.values()))):.4g} (tol "
+          f"{TRAIN_GRAD_NORM:.4g}); last_peak_inflight {peak_inflight}; "
+          f"launches step 1 {first} (want {want}), over {FLEET_STEPS} steps "
+          f"{total}; step 1 {1e3 * step1_s:.1f} ms host clock (with warm-up "
+          f"and the gradient capture); step 2 under the profiler "
+          f"{prof[3]:.2f} ms host clock, device {prof[0]:.2f} ms, busy "
+          f"{prof[2]:.3f} of it; losses {losses}; peak "
+          f"{peak / 2**30:.2f} GiB (the most of one card); weight bytes by "
+          f"(r, s, i) {positions} "
+          f"(sum {sum(positions.values())}, the model {whole})")
+    _check(all(np.isfinite(losses)), f"fleet: non-finite losses {losses}")
+    _check(loss_rel <= MESH_LOSS_REL, "fleet: step 1's loss is off the "
+           "unplaced model's")
+    _check(rels[worst] <= TRAIN_GRAD_NORM, f"fleet: step 1's gradient of "
+           f"{worst} is off the unplaced model's ({rels[worst]:.4g})")
+    _check(peak_inflight == 2, f"fleet: last_peak_inflight {peak_inflight}")
+    _check(all(first[k] == want[k] and total[k] == FLEET_STEPS * want[k]
+               for k in want), f"fleet: launches {first} / {total}, "
+           f"expected {want} a step")
+    del model, pl, opt
+    _set_mesh(port, None)
+    port["fleet"].set_hybrid_communicate_group(None)
+    torch.cuda.empty_cache()
+    cpu = _fleet_card_vs_cpu(port, devices)
+    print(f"[time] phase 48 {time.perf_counter() - t_phase:.1f} s")
+    return dict(errs=errs, launches=total, cpu_launches=cpu)
+
+
+def _fleet_card_vs_cpu(port, devices):
+    """Phase 48's 2-layer fp32 copy (hidden 256, 4 heads: head_dim 64, 2
+    heads a shard) at TP=2 PP=2, TF32 off, the same weights on the CPU
+    (``["cpu"] * 4``) and on ``devices``: step 1's gathered gradients, then
+    MESH_CPU_STEPS ``train_batch`` steps of AdamW under a global-norm clip
+    (MESH_CLIP): losses, then the weights by phase 47's rule."""
+    torch = port["torch"]
+    cfg = port["gpt_tiny"](hidden_size=256, num_heads=4, num_layers=2,
+                           hidden_dropout=0.0, attention_dropout=0.0,
+                           use_tensor_parallel=True)
+    rng = np.random.RandomState(148)
+    batches = [tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                  (8, 128)))
+                     for _ in range(2)) for _ in range(MESH_CPU_STEPS)]
+    grads, losses, weights, state = {}, {}, {}, None
+    t0 = time.perf_counter()
+    for dev in ("cpu", DEVICE):
+        model, pl, opt = fleet_pipeline(
+            port, cfg, ["cpu"] * 4 if dev == "cpu" else devices,
+            "float32", 48,
+            grad_clip=port["clip"].ClipGradByGlobalNorm(MESH_CLIP))
+        if state is None:
+            # copies: a whole parameter's entry shares its storage, and
+            # the CPU run trains it in place
+            state = {k: v.clone() for k, v in pl.state_dict().items()}
+        else:
+            pl.set_state_dict(state)
+            _reset_launches(port)
+        cap = _GradCapture(port, opt, pl)
+        losses[dev] = [float(model.train_batch(b, cap if i == 0 else opt))
+                       for i, b in enumerate(batches)]
+        grads[dev] = {k: g.float().cpu() for k, g in cap.grads.items()}
+        weights[dev] = {k: v.float().cpu() for k, v in pl.state_dict().items()}
+        del model, pl, opt, cap
+    both_s = time.perf_counter() - t0
+    launches = _launch_counts(port)
+    _set_mesh(port, None)
+    port["fleet"].set_hybrid_communicate_group(None)
+    gc, gg = grads["cpu"], grads[DEVICE]
+    gnorm = float(sum(g.double().pow(2).sum() for g in gc.values()) ** 0.5)
+    gerr = max(((gg[k] - g).abs().max() / g.abs().max()).item()
+               for k, g in gc.items())
+    loss_diff = max(abs(a - b) for a, b in zip(losses["cpu"],
+                                               losses[DEVICE]))
+    n_zero, n_all, over_zero, over_kept, bulk = _mesh_weights_rule(
+        torch, gc, gg, weights["cpu"], weights[DEVICE],
+        FLEET_LR * MESH_CPU_STEPS)
+    per_step = 4 * 2 * cfg.num_layers
+    want = {"fwd": per_step, "dkv": per_step, "dq": per_step}
+    want = {k: MESH_CPU_STEPS * v for k, v in want.items()}
+    want["adamw"] = MESH_CPU_STEPS * fleet_part_count(cfg, 2)
+    print(f"[fleet_card_vs_cpu] 2 layers fp32 at TP=2 PP=2 ({both_s:.1f} s "
+          f"both): step 1 gradient norm {gnorm:.4f} (the clip {MESH_CLIP} "
+          f"scales it); step 1 gradients max |card - cpu| / max |cpu| "
+          f"{gerr!r} (tol {MESH_GRAD_REL}); losses cpu {losses['cpu']} card "
+          f"{losses[DEVICE]}, max diff {loss_diff!r} (tol "
+          f"{TRAIN_LOSS_ATOL}); weights: {n_zero} of {n_all} elements zero "
+          f"to rounding at step 1 (at most {MESH_ZERO_SHARE} of them), their "
+          f"excess over 2 lr steps + 1e-5 relative {over_zero!r}; the "
+          f"others' excess over {2 * MESH_ZERO_REL} lr steps + 1e-5 relative "
+          f"{over_kept!r} (both must be <= 0), their largest 99.9th "
+          f"percentile difference in a tensor {bulk!r} (tol 1e-6); card "
+          f"launches {launches} (want {want})")
+    _check(gnorm > MESH_CLIP, "fleet card vs CPU: the clip does not engage")
+    _check(gerr <= MESH_GRAD_REL and loss_diff <= TRAIN_LOSS_ATOL,
+           "fleet card vs CPU: gradients or losses part")
+    _check(n_zero <= MESH_ZERO_SHARE * n_all and over_zero <= 0
+           and over_kept <= 0 and bulk <= 1e-6,
+           "fleet card vs CPU: weights part")
+    _check(all(launches[k] == v for k, v in want.items()),
+           f"fleet card vs CPU: launches {launches}, expected {want}")
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in want}
 
 
 def card_line():
@@ -6633,6 +6953,10 @@ def main() -> int:
                                      mk45["adamw"])
     mesh_runs = phase_mesh_train(port)
     mesh_cpu = phase_mesh_card_vs_cpu(port)
+    # phase 48: the fleet API over the layered GPT at TP=2 PP=2
+    fl = phase_fleet_train(port)
+    for key in ("fwd", "dkv", "dq", "adamw"):
+        tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"], fl["errs"][key])
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -6669,6 +6993,8 @@ def main() -> int:
         # phase 46's mesh runs, each over all its steps
         mesh_paths = {"train_mesh_" + name: run["launches"][key]
                       for name, run in mesh_runs.items()}
+        # phase 48's fleet steps at TP=2 PP=2
+        mesh_paths["train_fleet_tp2_pp2"] = fl["launches"][key]
         if key != "adamw":
             # phase 6's bf16-weight step, phase 31's O1 step and phase
             # 40's layered step; the forward also phase 35's layered
@@ -6677,7 +7003,8 @@ def main() -> int:
                 "train_bf16": train_launches[key],
                 "train_o1_fp32_weights": o1_launches[key],
                 "train_layered": ltrain[key], **mesh_paths,
-                "train_mesh_fp32_card_vs_cpu": mesh_cpu["flash"][key]}
+                "train_mesh_fp32_card_vs_cpu": mesh_cpu["flash"][key],
+                "train_fleet_fp32_card_vs_cpu": fl["cpu_launches"][key]}
             if key == "fwd":
                 kernels[-1]["launches_by_path"].update(
                     generate_layered=lgen["fwd"],
@@ -6694,7 +7021,9 @@ def main() -> int:
                     "launches_by_path": {
                         "train_o1_fp32_weights": o1_launches["adamw"],
                         "train_mesh_fp32_card_vs_cpu": mesh_cpu["adamw_fp32"],
-                        "train_mesh_o1_overflow": mesh_cpu["adamw_fp32_skip"]},
+                        "train_mesh_o1_overflow": mesh_cpu["adamw_fp32_skip"],
+                        "train_fleet_fp32_card_vs_cpu":
+                            fl["cpu_launches"]["adamw"]},
                     **fk})
     # the fp32-master form: the same kernel library and TPU kernel, with
     # the arithmetic of the reference's composed master path; launches

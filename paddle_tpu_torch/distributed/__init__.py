@@ -1,7 +1,9 @@
 """Multi-device helpers of the port (``paddle_tpu/distributed``), driven by
 one process: the global mesh (``mesh``), the training placement's shards
-(``shards``), the microbatch pipeline (``pp_spmd``) and the serving mesh
-of ``dp`` replicas x ``mp`` head shards (``serving_mesh``)."""
+(``shards``), the microbatch pipeline (``pp_spmd``), the serving mesh
+of ``dp`` replicas x ``mp`` head shards (``serving_mesh``), and the fleet
+API (``fleet``: ``init``, the mpu layers, ``PipelineLayer`` and the
+1F1B ``PipelineParallel``), imported as ``distributed.fleet``."""
 from . import mesh, pp_spmd, serving_mesh, shards
 from .mesh import build_mesh, get_mesh, has_mesh, set_mesh
 from .serving_mesh import (

@@ -19,7 +19,7 @@ import torch
 from ..core import canonical_device
 
 __all__ = ["HYBRID_AXES", "Mesh", "build_mesh", "set_mesh", "get_mesh",
-           "has_mesh", "axis_size"]
+           "has_mesh", "axis_size", "stage_devices"]
 
 # canonical axis order for hybrid parallelism (the reference's topology
 # order: data, pipe, sharding, sep, model)
@@ -118,3 +118,12 @@ def axis_size(axis: str) -> int:
     mesh = get_mesh()
     return mesh.shape.get(axis, 1)
 
+
+
+def stage_devices(stage: int = 0) -> tuple:
+    """The devices of pipeline stage ``stage`` of replica 0 on the global
+    mesh, one a tensor-parallel shard, in shard order: where a layer of
+    that stage holds its parts (``mp`` of them; one without an mp
+    axis)."""
+    grid = get_mesh().grid(("dp", "pp", "sharding", "sep", "sp", "mp"))
+    return tuple(grid[0, stage, 0, 0, 0, :])

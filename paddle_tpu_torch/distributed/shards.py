@@ -19,18 +19,26 @@ The ``dp`` replicas of one part meet in :func:`tie_replicas`: identity
 in the forward; in the backward each replica receives the sum of all
 replicas' gradients, added in replica order, so every replica applies
 the same bits.
+
+The fleet API's layers (``distributed/fleet``) hold their cut weights
+the same way, beside whole parameters (LayerNorms, the position table):
+:func:`place_on_stage` moves a module to a pipeline stage's devices and
+marks each whole parameter's position, and :func:`load_state` loads
+both kinds.
 """
 from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from .serving_mesh import reduce_sum
 
 __all__ = ["Part", "ShardedParameter", "shard_info", "sharded_parameters",
-           "load_state", "tie_replicas", "cut", "weight_bytes_by_position"]
+           "load_state", "tie_replicas", "cut", "weight_bytes_by_position",
+           "place_on_stage"]
 
 Region = Tuple[Tuple[int, torch.Tensor], ...]
 
@@ -119,6 +127,18 @@ class ShardedParameter(nn.ParameterList):
         for t, p in zip(self, self.parts):
             t.copy_(cut(whole, p.region).to(p.device))
 
+    @torch.no_grad()
+    def relocate(self, stage: int, devices: Sequence[torch.device]):
+        """Move every part to pipeline stage ``stage`` of its replica: the
+        part of shard ``i`` to position ``(r, stage, i)`` on
+        ``devices[i]``."""
+        for k, (t, p) in enumerate(zip(self, self.parts)):
+            r, _, i = p.position
+            if t.device != devices[i]:
+                t.data = t.data.to(devices[i])
+            self.parts[k] = Part((r, stage, i), devices[i], p.region)
+        self.index = {p.position: k for k, p in enumerate(self.parts)}
+
     # the logical name in the state dict: this module's own prefix
     def _save_to_state_dict(self, destination, prefix, keep_vars):
         destination[prefix[:-1]] = self.gather()
@@ -133,21 +153,39 @@ class ShardedParameter(nn.ParameterList):
 
 
 def load_state(module: nn.Module, state_dict, strict: bool = True):
-    """``module.load_state_dict`` for a module whose weights are all
+    """``module.load_state_dict`` for a module that holds
     :class:`ShardedParameter`s: each whole tensor of ``state_dict``
-    (keyed by its logical name) cut into its parts.  Returns
-    ``(missing, unexpected)`` keys; with ``strict`` either raises."""
-    owned = sharded_parameters(module)
+    (keyed by its logical name) cut into its parts, every other
+    parameter copied in its own dtype and device.  Returns ``(missing,
+    unexpected)`` keys; with ``strict`` either raises."""
+    owned = {**sharded_parameters(module), **_plain_parameters(module)}
     missing = [k for k in owned if k not in state_dict]
     unexpected = [k for k in state_dict if k not in owned]
     if strict and (missing or unexpected):
         raise RuntimeError(f"Error(s) in loading state_dict for "
                            f"{type(module).__name__}: missing {missing}, "
                            f"unexpected {unexpected}")
-    for key, sp in owned.items():
-        if key in state_dict:
-            sp.load_whole(torch.as_tensor(state_dict[key]).to(sp.whole_dtype))
+    for key, t in owned.items():
+        if key not in state_dict:
+            continue
+        v = state_dict[key]
+        v = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.array(v))
+        if isinstance(t, ShardedParameter):
+            t.load_whole(v.to(t.whole_dtype))
+            continue
+        if tuple(v.shape) != tuple(t.shape):
+            raise ValueError(f"{key} has shape {tuple(v.shape)}, expected "
+                             f"{tuple(t.shape)}")
+        with torch.no_grad():
+            t.copy_(v.to(t.dtype))
     return missing, unexpected
+
+
+def _plain_parameters(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The parameters of ``module`` that are not parts, by name."""
+    return {n: p for n, p in module.named_parameters()
+            if shard_info(p) is None}
 
 
 def shard_info(p: torch.Tensor):
@@ -194,13 +232,46 @@ def tie_replicas(copies: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     return _TieReplicas.apply(*copies)
 
 
+def place_on_stage(module: nn.Module, stage: int,
+                   devices: Sequence[torch.device]):
+    """Place ``module`` on pipeline stage ``stage`` of replica 0, whose
+    tensor-parallel shards lie on ``devices``: every
+    :class:`ShardedParameter`'s parts there (:meth:`ShardedParameter.
+    relocate`); every other parameter and buffer on ``devices[0]``, each
+    parameter marked with its mesh position ``(0, stage, 0)``
+    (``mesh_position``, which :func:`weight_bytes_by_position` reads);
+    and each submodule with a ``stage_devices`` attribute told
+    ``devices``."""
+    devices = tuple(devices)
+    root = devices[0]
+    for m in module.modules():
+        if isinstance(m, ShardedParameter):
+            m.relocate(stage, devices)
+        if hasattr(m, "stage_devices"):
+            m.stage_devices = devices
+        for name, b in m._buffers.items():
+            if b is not None and b.device != root:
+                m._buffers[name] = b.to(root)
+    for p in _plain_parameters(module).values():
+        if p.device != root:
+            p.data = p.data.to(root)
+        p.mesh_position = (0, stage, 0)
+
+
 def weight_bytes_by_position(module: nn.Module) -> Dict[Tuple[int, ...], int]:
-    """Bytes of the parts each mesh position holds, counted from the part
-    tensors (what each position's device would hold on distinct
+    """Bytes of the parameters each mesh position holds: the parts, and
+    the whole parameters :func:`place_on_stage` marked, counted from
+    their tensors (what each position's device would hold on distinct
     devices)."""
     out: Dict[Tuple[int, ...], int] = {}
+
+    def add(position, t):
+        out[position] = out.get(position, 0) + t.numel() * t.element_size()
+
     for sp in sharded_parameters(module).values():
         for t, p in zip(sp, sp.parts):
-            out[p.position] = (out.get(p.position, 0)
-                               + t.numel() * t.element_size())
+            add(p.position, t)
+    for p in _plain_parameters(module).values():
+        if getattr(p, "mesh_position", None) is not None:
+            add(p.mesh_position, p)
     return dict(sorted(out.items()))

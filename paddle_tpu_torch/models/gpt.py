@@ -9,7 +9,11 @@ follow the layered code (LayerNorm in the input's dtype, ``Int8Linear``
 after ``quantize_weights``).  Both classes attend through the same
 module-level bodies, :func:`attend_with_cache` and :func:`attend_paged`
 (the reference's ``_raw_attend_with_cache`` and ``_attend_paged_shard``),
-so every route below and every kernel is shared.
+so every route below and every kernel is shared.  Under a mesh with mp > 1
+and ``use_tensor_parallel`` its blocks are built of the fleet API's mpu
+layers (:func:`layered_tp`), as the reference's are, and stack into a
+``PipelineLayer`` with :class:`GPTLMHead`, the head tied to the word
+table, for the fleet recipe.
 
 ``GPTStackedForPretraining`` keeps the JAX model's layout: every decoder
 weight is one ``[L, ...]`` slab (``x @ w`` with ``w`` as ``[in, out]``, not
@@ -72,14 +76,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..amp.auto_cast import amp_state, auto_cast, maybe_cast, o1_dtype
-from ..core import resolve_device, to_torch_dtype
+from ..core import canonical_device, resolve_device, to_torch_dtype
 from ..distributed import mesh as _mesh
 from ..distributed.pp_spmd import (
     RECOMPUTE_POLICIES, checkpointed, pipeline_blocks, stage_layers,
 )
-from ..distributed.serving_mesh import broadcast, reduce_sum
+from ..distributed.fleet.layers.mpu.mp_layers import (
+    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    ShardedTensor, VocabParallelEmbedding, vocab_parallel_lookup,
+)
+from ..distributed.serving_mesh import broadcast, qkv_columns, reduce_sum
 from ..distributed.shards import (
-    Part, ShardedParameter, load_state, sharded_parameters, tie_replicas,
+    Part, ShardedParameter, load_state, place_on_stage, sharded_parameters,
+    tie_replicas,
 )
 from ..nn import functional as NF
 from ..nn.functional import (
@@ -111,6 +120,7 @@ __all__ = [
     "GPTDecoderLayer",
     "GPTStackedForPretraining",
     "GPTPretrainingCriterion",
+    "GPTLMHead",
     "causal_attention_plain",
     "gpt_tiny",
     "gpt_small",
@@ -133,10 +143,12 @@ class GPTConfig:
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     # on a mesh with an mp axis > 1 (``distributed.mesh.set_mesh``): the
-    # word embeddings cut by vocabulary rows over mp and the tied head's
-    # loss over the vocabulary shards (the reference's
-    # VocabParallelEmbedding and ParallelCrossEntropy); the decoder's
-    # projections are cut over mp either way
+    # stacked model cuts the word embeddings by vocabulary rows over mp and
+    # the tied head's loss over the vocabulary shards (the reference's
+    # VocabParallelEmbedding and ParallelCrossEntropy), its decoder's
+    # projections being cut over mp either way; the layered model's
+    # blocks are built of the mpu layers (``layered_tp``), and without it
+    # stay whole
     use_tensor_parallel: bool = False
     # activations sharded by sequence over an 'sp' axis > 1: not ported
     # (ROADMAP.md queue 1, item 9)
@@ -362,15 +374,59 @@ def _first(t):
     return t[0] if isinstance(t, list) else t
 
 
+def layered_tp(cfg: GPTConfig, factory: dict):
+    """The tensor-parallel placement the global mesh asks of the layered
+    blocks: ``(devices, factory)`` -- stage 0's shard devices
+    (``mesh.stage_devices``) and ``factory`` with their first as the
+    device of the whole parameters -- when ``use_tensor_parallel`` is set
+    and the mesh's mp > 1 (the reference's mpu layers), else ``(None,
+    factory)``.  dp and pp keep the reference's meaning: a bare block
+    neither shards its batch nor pipelines (``PipelineLayer`` and the
+    fleet wrappers do); an sp, sep or sharding axis > 1 raises
+    ``NotImplementedError``, as the stacked model's :func:`train_mesh`
+    does (the reference's layered block takes ring attention at sp > 1)."""
+    if not _mesh.has_mesh():
+        return None, factory
+    shape = _mesh.get_mesh().shape
+    _refuse_unported_axes(shape, "of the layered GPT")
+    mp = shape.get("mp", 1)
+    if not (cfg.use_tensor_parallel and mp > 1):
+        return None, factory
+    for what, n in (("num_heads", cfg.num_heads), ("ffn size", cfg.ffn_size),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % mp:
+            raise ValueError(f"{what}={n} is not divisible by mp={mp}")
+    devs = _mesh.stage_devices(0)
+    asked = factory.get("device")
+    if asked is not None and canonical_device(asked) != devs[0]:
+        raise ValueError(f"device={asked}: a block placed on a mesh lives "
+                         f"on the mesh's devices, first {devs[0]}")
+    return devs, dict(factory, device=devs[0])
+
+
 class GPTEmbeddings(nn.Module):
+    """The word and position tables.  Under tensor parallelism
+    (:func:`layered_tp`) the word table is a ``VocabParallelEmbedding``
+    and the position table stays whole on the first shard's device.
+    ``position_ids`` default to ``0 .. S-1``."""
+
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                            **factory)
+        devs, factory = layered_tp(cfg, factory)
+        if devs is None:
+            self.word_embeddings = nn.Embedding(cfg.vocab_size,
+                                                cfg.hidden_size, **factory)
+        else:
+            self.word_embeddings = VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size, dtype=factory.get("dtype"))
         self.position_embeddings = nn.Embedding(
             cfg.max_position_embeddings, cfg.hidden_size, **factory)
 
-    def forward(self, input_ids, position_ids):
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[-1],
+                                        device=input_ids.device)
+            position_ids = position_ids.expand_as(input_ids)
         return (self.word_embeddings(input_ids)
                 + self.position_embeddings(position_ids))
 
@@ -390,6 +446,17 @@ _TRAIN_AXES = ("dp", "pp", "mp")
 # axes whose parallelism is not ported: sequence parallelism (sp, sep)
 # and ZeRO (sharding)
 _UNPORTED_AXES = ("sp", "sep", "sharding")
+
+
+def _refuse_unported_axes(shape, what: str):
+    """Raise when the mesh ``shape`` asks for an axis the port does not
+    take: sequence parallelism (sp, sep) or ZeRO (sharding) > 1."""
+    big = [a for a in _UNPORTED_AXES if shape.get(a, 1) > 1]
+    if big:
+        raise NotImplementedError(
+            f"mesh axes {big} > 1: sequence parallelism (sp, sep) and ZeRO "
+            f"(sharding) {what} are not ported (ROADMAP.md queue 1, item "
+            "9); dp, pp and mp are")
 
 
 class TrainMesh(NamedTuple):
@@ -433,13 +500,7 @@ def train_mesh(cfg: GPTConfig) -> Optional[TrainMesh]:
     if not _mesh.has_mesh():
         return None
     mesh = _mesh.get_mesh()
-    shape = mesh.shape
-    big = [a for a in _UNPORTED_AXES if shape.get(a, 1) > 1]
-    if big:
-        raise NotImplementedError(
-            f"mesh axes {big} > 1: sequence parallelism (sp, sep) and ZeRO "
-            "(sharding) over a training mesh are not ported (ROADMAP.md "
-            "queue 1, item 9); dp, pp and mp are")
+    _refuse_unported_axes(mesh.shape, "over a training mesh")
     grid = mesh.grid(_TRAIN_AXES + _UNPORTED_AXES)[..., 0, 0, 0]
     dp, pp, mp = grid.shape
     if dp * pp * mp == 1:
@@ -1615,14 +1676,8 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         root = tm.dev(r, 0)
         word = tied["embeddings.word_embeddings.weight"]
         if tm.vocab_parallel:
-            parts = []
-            for i in range(tm.mp):
-                w = word[(r, 0, i)]
-                loc = ids.to(w.device) - i * w.shape[0]
-                ok = (loc >= 0) & (loc < w.shape[0])
-                e = F.embedding(torch.where(ok, loc, 0), w)
-                parts.append(torch.where(ok[..., None], e, 0.0))
-            h = reduce_sum(parts, (root,))[root]
+            h = vocab_parallel_lookup(
+                ids, [word[(r, 0, i)] for i in range(tm.mp)], root)
         else:
             h = F.embedding(ids.to(root), word[(r, 0, 0)])
         pe = tied["embeddings.position_embeddings.weight"][(r, 0, 0)]
@@ -1722,18 +1777,40 @@ class GPTAttention(nn.Module):
     :func:`attend_paged` bound to the layer's cache).  ``lora``: ``(slabs,
     ids, scaling)``, the layer's eight adapter slabs (``serving/lora.py``
     order): qkv and out each add their gathered low-rank delta on the
-    same input as the base product."""
+    same input as the base product.
+
+    Under tensor parallelism (:func:`layered_tp`) QKV is a
+    ``ColumnParallelLinear`` cut by heads (shard ``i`` holds the q, k and
+    v columns of its ``heads/mp`` heads, ``serving_mesh.qkv_columns``)
+    and the output projection a ``RowParallelLinear``: each shard attends
+    over its heads on its device, and the output projection sums the
+    shards' partials.  Only the training forward runs there (no cache,
+    no LoRA); attention dropout draws each shard's masks from a generator
+    of its own, seeded from ``generator``'s seed and the shard."""
 
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
         self._cfg = cfg
         h = cfg.hidden_size
-        self.qkv_proj = Linear(h, 3 * h, **factory)
-        self.out_proj = Linear(h, h, **factory)
+        devs, factory = layered_tp(cfg, factory)
+        self._tp = devs is not None
+        if self._tp:
+            dtype = factory.get("dtype")
+            self.qkv_proj = ColumnParallelLinear(
+                h, 3 * h, gather_output=False, dtype=dtype,
+                columns=lambda i, mp: qkv_columns(cfg.num_heads,
+                                                  cfg.head_dim, mp, i))
+            self.out_proj = RowParallelLinear(h, h, input_is_parallel=True,
+                                              dtype=dtype)
+        else:
+            self.qkv_proj = Linear(h, 3 * h, **factory)
+            self.out_proj = Linear(h, h, **factory)
         self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x, attn_mask=None, attend=None, lora=None,
                 generator=None):
+        if self._tp:
+            return self._forward_tp(x, attn_mask, attend, lora, generator)
         cfg = self._cfg
         b, s = x.shape[0], x.shape[1]
         nh, hd = cfg.num_heads, cfg.head_dim
@@ -1762,20 +1839,64 @@ class GPTAttention(nn.Module):
             proj = proj + lora_delta_raw(out, slabs[2], slabs[3], ids, lscale)
         return self.dropout(proj, generator)
 
+    def _forward_tp(self, x, attn_mask, attend, lora, generator):
+        if attend is not None or lora is not None:
+            raise ValueError("a tensor-parallel layered block runs the "
+                             "training forward only (no cache, no LoRA)")
+        cfg = self._cfg
+        b, s = x.shape[0], x.shape[1]
+        hd = cfg.head_dim
+
+        def heads(qkv, i):
+            q, k, v = qkv.view(b, s, 3, -1, hd).unbind(2)
+            n = q.shape[2]
+            mask = attn_mask
+            if mask is not None:
+                if mask.dim() == 4 and mask.shape[1] > 1:
+                    mask = mask[:, i * n:(i + 1) * n]
+                mask = mask.to(q.device)
+            gen = None if generator is None else _seeded(
+                _part_seed(generator.initial_seed(), i), q.device)
+            out = NF.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=cfg.attention_dropout,
+                is_causal=mask is None, training=self.training,
+                use_flash=cfg.use_flash_attention, generator=gen)
+            return out.reshape(b, s, n * hd)
+
+        proj = self.out_proj(self.qkv_proj(x).map(heads))
+        return self.dropout(proj, generator)
+
 
 class GPTMLP(nn.Module):
     """``fc2(gelu_tanh(fc1(x)))`` and the hidden dropout, with the LoRA
-    deltas of fc1 and fc2 (slabs 4-7) when ``lora`` is given."""
+    deltas of fc1 and fc2 (slabs 4-7) when ``lora`` is given.  Under
+    tensor parallelism (:func:`layered_tp`) fc1 is a
+    ``ColumnParallelLinear`` and fc2 a ``RowParallelLinear``, the gelu
+    per shard."""
 
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
         h, f = cfg.hidden_size, cfg.ffn_size
-        self.fc1 = Linear(h, f, **factory)
-        self.fc2 = Linear(f, h, **factory)
+        devs, factory = layered_tp(cfg, factory)
+        if devs is not None:
+            dtype = factory.get("dtype")
+            self.fc1 = ColumnParallelLinear(h, f, gather_output=False,
+                                            dtype=dtype)
+            self.fc2 = RowParallelLinear(f, h, input_is_parallel=True,
+                                         dtype=dtype)
+        else:
+            self.fc1 = Linear(h, f, **factory)
+            self.fc2 = Linear(f, h, **factory)
         self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x, lora=None, generator=None):
         u = self.fc1(x)
+        if isinstance(u, ShardedTensor):
+            if lora is not None:
+                raise ValueError("a tensor-parallel layered block runs the "
+                                 "training forward only (no LoRA)")
+            g = u.map(lambda t, i: NF.gelu(t, approximate=True))
+            return self.dropout(self.fc2(g), generator)
         if lora is not None:
             slabs, ids, lscale = lora
             u = u + lora_delta_raw(x, slabs[4], slabs[5], ids, lscale)
@@ -1790,18 +1911,20 @@ class GPTDecoderLayer(nn.Module):
     """Pre-LN decoder block: ``x + attn(ln1(x))``, then ``x +
     mlp(ln2(x))``.  The LayerNorms are the port's ``LayerNorm`` in the
     input's dtype (the reference's layered ``layer_norm``), not the
-    stacked block's fp32 ``_ln_f32``.  ``seed``: the layer's dropout seed
-    when dropout is active; its masks are drawn, in order (attention
-    probabilities, attention projection, MLP output), from a generator on
-    the activations' device seeded with it, so a recompute redraws
-    them."""
+    stacked block's fp32 ``_ln_f32``; under tensor parallelism they stay
+    whole on the first shard's device, where the residual stream lives.
+    ``seed``: the layer's dropout seed when dropout is active; its masks
+    are drawn, in order (attention probabilities, attention projection,
+    MLP output), from a generator on the activations' device seeded with
+    it, so a recompute redraws them."""
 
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
-        self.ln1 = LayerNorm(h, eps, **factory)
+        _, whole = layered_tp(cfg, factory)
+        self.ln1 = LayerNorm(h, eps, **whole)
         self.attn = GPTAttention(cfg, **factory)
-        self.ln2 = LayerNorm(h, eps, **factory)
+        self.ln2 = LayerNorm(h, eps, **whole)
         self.mlp = GPTMLP(cfg, **factory)
 
     def forward(self, x, attn_mask=None, attend=None, lora=None, seed=None):
@@ -1830,8 +1953,9 @@ class GPTModel(nn.Module):
         self.embeddings = GPTEmbeddings(cfg, **factory)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", GPTDecoderLayer(cfg, **factory))
+        _, whole = layered_tp(cfg, factory)
         self.final_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
-                                  **factory)
+                                  **whole)
 
     @property
     def layers(self):
@@ -1922,6 +2046,37 @@ def _amp_replayed(fn, st):
     return run
 
 
+class GPTLMHead(nn.Module):
+    """The LM head tied to ``embeddings``' word table: ``h @ E^T``.  The
+    table is read, not owned: the head has no parameters and its
+    ``state_dict`` is empty, so the table is one tensor (or one set of
+    parts) however many stages read it, and its gradient sums the
+    lookup's and the head's.  Over a ``VocabParallelEmbedding`` the
+    logits are a ``ShardedTensor`` cut by vocabulary, each shard's on
+    ``stage_devices[i]`` (the table's own devices until
+    ``shards.place_on_stage`` gives the head its stage's): the head's
+    stage reads the table's parts across devices."""
+
+    def __init__(self, embeddings: GPTEmbeddings):
+        super().__init__()
+        self._tied = (embeddings,)          # a tuple: not a submodule
+        w = embeddings.word_embeddings.weight
+        self.stage_devices = (tuple(p.device for p in w.parts)
+                              if isinstance(w, ShardedParameter) else None)
+
+    def forward(self, h):
+        w = self._tied[0].word_embeddings.weight
+        if not isinstance(w, ShardedParameter):
+            h, w = promote(*maybe_cast("matmul", h, w.to(h.device)))
+            return h @ w.t()
+        hs = broadcast(h, self.stage_devices)
+        logits = []
+        for d, part in zip(self.stage_devices, w):
+            x, wd = promote(*maybe_cast("matmul", hs[d], part.to(d)))
+            logits.append(x @ wd.t())
+        return ShardedTensor(logits)
+
+
 class GPTForPretraining(nn.Module, _CacheContract):
     """The layered GPT (the reference's ``GPTForPretraining``): ``gpt``, a
     :class:`GPTModel`, and the LM head tied to the word embeddings.  Its
@@ -1942,7 +2097,22 @@ class GPTForPretraining(nn.Module, _CacheContract):
     N(0, initializer_range) from ``torch.Generator(seed)`` on the model's
     device, in module order (LayerNorm gains 1, biases 0).  Dropout seeds
     come from ``generator``, a CPU ``torch.Generator`` (``None``: one
-    seeded with ``seed``)."""
+    seeded with ``seed``).
+
+    Under a global mesh with mp > 1 and ``use_tensor_parallel``
+    (:func:`layered_tp`) the model is placed, as the reference places it:
+    QKV, the output projection, fc1, fc2 and the word table are mpu
+    layers holding one part on each mp device of stage 0 of replica 0
+    and no whole tensor (the same seed draws the unplaced model's
+    weights, then cuts them); the LayerNorms, the position table and the
+    row-parallel biases stay whole on the first of them, ``device``.
+    ``forward`` returns the logits gathered there; ``state_dict()``
+    gathers each whole tensor and ``load_jax_state`` /
+    ``load_state_dict`` cut them.  It only trains: generation, serving,
+    quantization and LoRA raise (ROADMAP.md queue 1, item 9).  dp and pp
+    keep the reference's meaning: the bare model neither shards its batch
+    nor pipelines (a ``PipelineLayer`` of its blocks and the fleet
+    wrappers do).  An sp, sep or sharding axis > 1 raises."""
 
     stacked = False       # the cache and LoRA layout this class reads
 
@@ -1950,11 +2120,16 @@ class GPTForPretraining(nn.Module, _CacheContract):
                  seed: int = 0, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = cfg
-        self.device = resolve_device(device)
+        devs, _ = layered_tp(cfg, {"device": device})
+        self._train_mesh = devs
+        self.device = devs[0] if devs else resolve_device(device)
         self.dtype = to_torch_dtype(dtype)
         self.generator = _host_generator(generator, seed)
         self.gpt = GPTModel(cfg, self.generator, device=self.device,
                             dtype=self.dtype)
+        self.lm_head = GPTLMHead(self.gpt.embeddings)
+        if devs:
+            place_on_stage(self, 0, devs)
         self._weight_int8 = False
         init_weights(self, seed, cfg.initializer_range)
 
@@ -2014,6 +2189,15 @@ class GPTForPretraining(nn.Module, _CacheContract):
         load_jax_state(self, {k: v for k, v in state.items()
                               if k not in bufs})
 
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        """``nn.Module.load_state_dict``; a placed model cuts each whole
+        tensor into its parts (``shards.load_state``)."""
+        if self._train_mesh is None:
+            return super().load_state_dict(state_dict, strict, assign)
+        return nn.modules.module._IncompatibleKeys(
+            *load_state(self, state_dict, strict))
+
     def forward(self, input_ids, position_ids=None, attn_mask=None,
                 kv_cache=None, cache_index=None, page_tables=None,
                 ragged_plan=None, out_rows=None, lora=None):
@@ -2030,6 +2214,11 @@ class GPTForPretraining(nn.Module, _CacheContract):
         [S'] selects the rows the head projects).  ``lora``:
         ``(LoRAAdapterPool, ids)``, ``ids`` [B] the adapter page of each
         row; a contiguous cache refuses it."""
+        if self._train_mesh is not None:
+            if kv_cache is not None or lora is not None:
+                self._require_unplaced("a cached or serving forward")
+            return self.lm_head(self.gpt(input_ids, position_ids,
+                                         attn_mask)).gather()
         if lora is not None and kv_cache is not None and not getattr(
                 kv_cache, "paged", False):
             raise ValueError("per-request LoRA adapters ride the paged "
@@ -2048,9 +2237,7 @@ class GPTForPretraining(nn.Module, _CacheContract):
             h = h[out_rows.long()]
         if self._weight_int8:
             return quantized_matmul(h, self.lm_head_int8, self.lm_head_scale)
-        h, w = promote(*maybe_cast("matmul", h,
-                                   self.gpt.embeddings.word_embeddings.weight))
-        return h @ w.t()
+        return self.lm_head(h)
 
 
     def _forward_sharded(self, input_ids, position_ids, kv_cache,
@@ -2110,13 +2297,22 @@ class GPTPretrainingCriterion(nn.Module):
     ``GPTPretrainingCriterion``): the mean of the per-token losses, or
     ``sum(loss * mask) / max(sum(mask), 1)`` with ``loss_mask``.
     ``logits`` [B, S, V], ``labels`` [B, S] (used as given, no shift).
-    ``cfg`` is accepted, as the reference takes it."""
+    With ``cfg.use_tensor_parallel`` the per-token losses come from
+    ``ParallelCrossEntropy``, as in the reference: the logits may then be
+    a ``ShardedTensor`` cut by vocabulary (``GPTLMHead`` over a
+    ``VocabParallelEmbedding``)."""
 
     def __init__(self, cfg: Optional[GPTConfig] = None):
         super().__init__()
+        tp = bool(cfg and cfg.use_tensor_parallel)
+        self.loss_fn = ParallelCrossEntropy() if tp else None
 
     def forward(self, logits, labels, loss_mask=None):
-        losses = cross_entropy(logits, labels, reduction="none").reshape(-1)
+        if self.loss_fn is not None:
+            losses = self.loss_fn(logits, labels).reshape(-1)
+        else:
+            losses = cross_entropy(logits, labels,
+                                   reduction="none").reshape(-1)
         if loss_mask is None:
             return losses.mean()
         mask = loss_mask.reshape(-1).to(losses.dtype)

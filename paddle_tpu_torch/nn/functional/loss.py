@@ -25,7 +25,7 @@ from ...amp.auto_cast import maybe_cast
 from ...distributed.serving_mesh import broadcast, reduce_max, reduce_sum
 
 __all__ = ["cross_entropy", "fused_linear_cross_entropy",
-           "vocab_parallel_cross_entropy"]
+           "vocab_parallel_cross_entropy", "sharded_softmax_losses"]
 
 
 def _reduce(loss, reduction: str):
@@ -129,8 +129,11 @@ def _chunk_loss(h, w, labels):
 def fused_linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
                                labels: torch.Tensor, *,
                                chunk_tokens: int = 2048,
-                               compute_dtype=None) -> torch.Tensor:
-    """Mean over tokens of ``logsumexp(h w^T) - (h w^T)[label]``.
+                               compute_dtype=None,
+                               reduction: str = "mean") -> torch.Tensor:
+    """Each token's ``logsumexp(h w^T) - (h w^T)[label]``, reduced by
+    ``reduction``: "mean" over tokens, "sum", or "none" (the per-token
+    losses, flat ``[N]``), the reference's three cases.
 
     hidden: ``[..., H]``; weight: ``[V, H]`` (the tied LM head); labels:
     integer ``[...]``, used as given (no shift).  ``compute_dtype``: the
@@ -140,6 +143,9 @@ def fused_linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
     fp32 either way.  Tokens are taken ``chunk_tokens`` at a time, each
     chunk under ``torch.utils.checkpoint``; the last chunk may be
     shorter."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"reduction {reduction!r}: expected 'mean', 'sum' "
+                         "or 'none'")
     hs = hidden.shape[-1]
     cdt = hidden.dtype if compute_dtype is None else compute_dtype
     h2 = hidden.reshape(-1, hs).to(cdt)
@@ -148,18 +154,17 @@ def fused_linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
     losses = [checkpoint(_chunk_loss, h2[i:i + chunk_tokens], w,
                          lab[i:i + chunk_tokens], use_reentrant=False)
               for i in range(0, h2.shape[0], chunk_tokens)]
-    return torch.cat(losses).mean()
+    return _reduce(torch.cat(losses), reduction)
 
 
-def _vocab_parallel_chunk(h, labels, devices, *ws):
-    """One token chunk's losses over vocabulary shards ``ws`` (shard
-    ``i`` on ``devices[i]``, rows in shard order): each shard's fp32
-    logits, the global row max and sum of exponentials (summed on h's
-    device in shard order), the label's logit from the shard that holds
-    it."""
-    root = h.device
-    hs, labs = broadcast(h, devices), broadcast(labels, devices)
-    zs = [_LMHeadDot.apply(hs[d], w) for d, w in zip(devices, ws)]
+def sharded_softmax_losses(zs, labels, devices, root) -> torch.Tensor:
+    """Each row's softmax cross entropy ``logsumexp(z) - z[label]`` over
+    logits cut by class: ``zs[i]`` [N, V_i] fp32, shard ``i``'s classes
+    (in shard order) on ``devices[i]``; ``labels`` [N].  The global row
+    max and sum of exponentials, summed on ``root`` in shard order, and
+    the label's logit from the shard that holds it.  [N] fp32 on
+    ``root``."""
+    labs = broadcast(labels, devices)
     # the max only steadies the exponentials: it takes no gradient
     m = reduce_max([z.detach().amax(-1) for z in zs], (root,))[root]
     ms = broadcast(m, devices)
@@ -173,6 +178,15 @@ def _vocab_parallel_chunk(h, labels, devices, *ws):
         picked.append(torch.where(ok, v, 0.0))
         off += z.shape[-1]
     return torch.log(se) + m - reduce_sum(picked, (root,))[root]
+
+
+def _vocab_parallel_chunk(h, labels, devices, *ws):
+    """One token chunk's losses over vocabulary shards ``ws`` (shard
+    ``i`` on ``devices[i]``, rows in shard order): each shard's fp32
+    logits, then :func:`sharded_softmax_losses` on h's device."""
+    hs = broadcast(h, devices)
+    zs = [_LMHeadDot.apply(hs[d], w) for d, w in zip(devices, ws)]
+    return sharded_softmax_losses(zs, labels, devices, h.device)
 
 
 def vocab_parallel_cross_entropy(hidden: torch.Tensor, weights, labels, *,

@@ -104,26 +104,48 @@ class PortModule(nn.Module):
 @torch.no_grad()
 def init_weights(module: nn.Module, seed: int, std: Optional[float] = None):
     """Fresh weights for every ``Linear`` and ``nn.Embedding`` of
-    ``module``, drawn in module order from ``torch.Generator(seed)`` on
-    the parameters' device: N(0, ``std``), or with ``std`` None
-    Xavier-uniform over a Linear's ``[in, out]``.  Biases 0; LayerNorms
-    keep gain 1, shift 0."""
+    ``module`` (and every mpu layer: ``ColumnParallelLinear`` and
+    ``RowParallelLinear`` as a ``Linear``, ``VocabParallelEmbedding`` as
+    an embedding, each whole tensor drawn and then cut into its parts),
+    drawn in module order from ``torch.Generator(seed)`` on the first
+    weight's device (and copied to each weight's own): N(0, ``std``), or
+    with ``std`` None Xavier-uniform over a Linear's ``[in, out]``.
+    Biases 0; LayerNorms keep gain 1, shift 0."""
+    from ..distributed.fleet.layers.mpu.mp_layers import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    )
+    from ..distributed.shards import ShardedParameter
+
+    linears = (Linear, ColumnParallelLinear, RowParallelLinear)
     gen = None
     for m in module.modules():
-        if isinstance(m, (Linear, nn.Embedding)):
-            w = m.weight
-            if gen is None:
-                gen = torch.Generator(device=w.device)
-                gen.manual_seed(int(seed))
-            if std is None and isinstance(m, Linear):
-                bound = math.sqrt(6.0 / sum(w.shape))
-                w.copy_((torch.rand(w.shape, generator=gen, device=w.device)
-                         * 2.0 - 1.0) * bound)
-            else:
-                w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
-                        * (1.0 if std is None else std))
-            if getattr(m, "bias", None) is not None:
-                m.bias.zero_()
+        if not isinstance(m, linears + (nn.Embedding,
+                                        VocabParallelEmbedding)):
+            continue
+        w = m.weight
+        placed = isinstance(w, ShardedParameter)
+        shape = w.whole_shape if placed else w.shape
+        if gen is None:
+            gen = torch.Generator(
+                device=w.parts[0].device if placed else w.device)
+            gen.manual_seed(int(seed))
+        if std is None and isinstance(m, linears):
+            bound = math.sqrt(6.0 / sum(shape))
+            t = (torch.rand(shape, generator=gen, device=gen.device) * 2.0
+                 - 1.0) * bound
+        else:
+            t = (torch.randn(shape, generator=gen, device=gen.device)
+                 * (1.0 if std is None else std))
+        if placed:
+            w.load_whole(t.to(w.whole_dtype))
+        else:
+            w.copy_(t)
+        bias = getattr(m, "bias", None)
+        if isinstance(bias, ShardedParameter):
+            bias.load_whole(torch.zeros(bias.whole_shape,
+                                        dtype=bias.whole_dtype))
+        elif bias is not None:
+            bias.zero_()
 
 
 @torch.no_grad()
@@ -132,9 +154,15 @@ def load_jax_state(module: nn.Module, state: Mapping[str, np.ndarray]):
     JAX module's ``state_dict()`` to a numpy array (or anything
     ``np.asarray`` takes) of the port parameter's shape; the values are
     cast to the parameter's dtype.  ``Linear`` weights keep the JAX
-    ``[in, out]`` layout, so nothing is transposed.  Missing, unknown or
-    mis-shaped keys raise."""
-    own = dict(module.named_parameters())
+    ``[in, out]`` layout, so nothing is transposed.  A ``ShardedParameter``
+    (an mpu layer's weight) takes the whole tensor under its logical key
+    and cuts it into its parts.  Missing, unknown or mis-shaped keys
+    raise."""
+    from ..distributed.shards import shard_info, sharded_parameters
+
+    own = {n: p for n, p in module.named_parameters()
+           if shard_info(p) is None}
+    own.update(sharded_parameters(module))
     missing = sorted(set(own) - set(state))
     unknown = sorted(set(state) - set(own))
     if missing or unknown:
@@ -143,9 +171,13 @@ def load_jax_state(module: nn.Module, state: Mapping[str, np.ndarray]):
     arrays = {}
     for name, p in own.items():
         a = np.array(state[name], np.float32)
-        if tuple(a.shape) != tuple(p.shape):
+        shape = getattr(p, "whole_shape", None) or tuple(p.shape)
+        if tuple(a.shape) != shape:
             raise ValueError(f"load_jax_state: {name} has shape {a.shape}, "
-                             f"expected {tuple(p.shape)}")
-        arrays[name] = a
+                             f"expected {shape}")
+        arrays[name] = torch.from_numpy(a)
     for name, p in own.items():
-        p.copy_(torch.from_numpy(arrays[name]).to(p.dtype))
+        if hasattr(p, "whole_shape"):
+            p.load_whole(arrays[name].to(p.whole_dtype))
+        else:
+            p.copy_(arrays[name].to(p.dtype))

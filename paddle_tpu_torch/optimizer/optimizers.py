@@ -363,3 +363,11 @@ class AdamW(torch.optim.Optimizer):
             self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
 
     load_state_dict = set_state_dict
+
+    def clear_grad(self, set_to_zero=False):
+        """The reference's ``clear_grad``: drop every gradient, or with
+        ``set_to_zero`` zero those that exist (the next backward adds
+        into them)."""
+        self.zero_grad(set_to_none=not set_to_zero)
+
+    clear_gradients = clear_grad

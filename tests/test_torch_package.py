@@ -251,9 +251,101 @@ def _pipelined():
         M.set_mesh(None)
 
 
+def _layered_on(axes):
+    """The layered GPT built under a mesh of ``axes`` (CPU positions)."""
+    M.set_mesh(M.build_mesh(axes, ["cpu"] * int(np.prod(list(axes.values())))))
+    try:
+        GPTForPretraining(gpt_tiny(use_tensor_parallel=True))
+    finally:
+        M.set_mesh(None)
+
+
+def _fleet(hybrid, use, **flags):
+    """``use(fleet, strategy)`` after ``fleet.init`` at ``hybrid`` degrees
+    on a mesh of CPU positions; ``flags`` set on the strategy."""
+    from paddle_tpu_torch.distributed import fleet
+
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = dict(hybrid)
+    st.pipeline_configs = {"accumulate_steps": 2, "micro_batch_size": 1}
+    for k, v in flags.items():
+        setattr(st, k, v)
+    axes = {k[:-len("_degree")]: v for k, v in hybrid.items()}
+    M.set_mesh(M.build_mesh(axes, ["cpu"] * int(np.prod(list(axes.values())))))
+    try:
+        fleet.init(is_collective=True, strategy=st)
+        return use(fleet, st)
+    finally:
+        M.set_mesh(None)
+        fleet.set_hybrid_communicate_group(None)
+
+
+def _pipeline_layer(**kw):
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer,
+    )
+    from paddle_tpu_torch.nn.layers import Linear
+
+    return PipelineLayer([LayerDesc(Linear, 4, 4, device="cpu")
+                          for _ in range(2)], num_stages=2,
+                         loss_fn=lambda o, y: ((o - y) ** 2).mean(), **kw)
+
+
+def _fleet_train_batch(fleet, st):
+    """The fleet recipe at pp 2 x mp 2 runs a train_batch."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineLayer,
+    )
+    from paddle_tpu_torch.models.gpt import (
+        GPTDecoderLayer, GPTEmbeddings, GPTLMHead, GPTPretrainingCriterion,
+    )
+    from paddle_tpu_torch.nn.layers import LayerNorm, init_weights
+
+    cfg = gpt_tiny(use_tensor_parallel=True, hidden_dropout=0.0,
+                   attention_dropout=0.0)
+    emb = GPTEmbeddings(cfg)
+    pl = PipelineLayer([emb, GPTDecoderLayer(cfg), GPTDecoderLayer(cfg),
+                        LayerNorm(cfg.hidden_size), GPTLMHead(emb)],
+                       num_stages=2, loss_fn=GPTPretrainingCriterion(cfg))
+    init_weights(pl, 0, cfg.initializer_range)
+    model = fleet.distributed_model(pl)
+    opt = fleet.distributed_optimizer(AdamW(parameters=pl.parameters()))
+    ids = torch.zeros((2, 8), dtype=torch.long)
+    assert torch.isfinite(model.train_batch((ids, ids), opt))
+
+
+_PP_MP = {"dp_degree": 1, "pp_degree": 2, "mp_degree": 2}
+
+
 # every refused knob: (how to provoke it, words its item's title must hold)
 REFUSALS = {
     "gpt sequence_parallel": (_sequence_parallel, "mesh training"),
+    "layered gpt on an sp axis": (lambda: _layered_on({"mp": 2, "sp": 2}),
+                                  "mesh training"),
+    "layered gpt on a sep axis": (lambda: _layered_on({"sep": 2}),
+                                  "mesh training"),
+    "layered gpt on a sharding axis": (
+        lambda: _layered_on({"sharding": 2}), "mesh training"),
+    "fleet distributed_model dp": (
+        lambda: _fleet({"dp_degree": 2, "pp_degree": 2},
+                       lambda f, st: f.distributed_model(_pipeline_layer())),
+        "fleet"),
+    "pipeline layer recompute_interval": (
+        lambda: _pipeline_layer(recompute_interval=1), "fleet"),
+    "pipeline layer virtual stages": (
+        lambda: _pipeline_layer(num_virtual_pipeline_stages=2), "fleet"),
+    "fleet lars": (lambda: _fleet(_PP_MP, lambda f, st: (
+        f.distributed_optimizer(AdamW(parameters=_params()))), lars=True),
+        "long-tail"),
+    "fleet dgc": (lambda: _fleet(_PP_MP, lambda f, st: (
+        f.distributed_optimizer(AdamW(parameters=_params()))), dgc=True),
+        "long-tail"),
+    "fleet localsgd": (lambda: _fleet(_PP_MP, lambda f, st: (
+        f.distributed_optimizer(AdamW(parameters=_params()))),
+        localsgd=True), "long-tail"),
+    "fleet init_server": (
+        lambda: __import__("paddle_tpu_torch.distributed.fleet",
+                           fromlist=["x"]).init_server(), "long-tail"),
     "predictor saved program": (
         lambda: inference.create_predictor(inference.Config("model")),
         "long-tail"),
@@ -301,6 +393,8 @@ PORTED = {
         lambda: _predictor("decode"), 3, "predictor"),
     "predictor serving mode": (
         lambda: _predictor("serving"), 3, "predictor"),
+    "fleet train_batch at pp 2 x mp 2": (
+        lambda: _fleet(_PP_MP, _fleet_train_batch), 9, "fleet"),
 }
 
 

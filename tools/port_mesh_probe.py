@@ -13,10 +13,14 @@ clip sums that one card never exercises.  ``--parent DIR`` first times
 phase 6 (GPT-3 1.3B without a mesh) in turns from another tree unpacked
 at DIR and from this one (parent, this, this, parent; each in its own
 process, which builds its tree's kernels), so the two compare within one
-call.  Run from the repository root:
+call.  ``--fleet`` runs phase 48 alone (the fleet recipe over the
+layered GPT at TP=2 PP=2, and its 2-layer copy against the CPU); with
+``--cards 4`` its four positions are four distinct cards, one a
+position, as config 3 lays them out.  Run from the repository root:
 
     python3 tools/port_mesh_probe.py [--steps N] [--parent DIR]
     python3 tools/port_mesh_probe.py --cards 4
+    python3 tools/port_mesh_probe.py --fleet [--cards 4]
 
 It exits nonzero when a check fails or there is no card.
 """
@@ -63,6 +67,8 @@ def main() -> int:
                     help="a tree to time phase 6 against, in turns")
     ap.add_argument("--cards", type=int, default=0,
                     help="phase 47 alone over this many distinct cards")
+    ap.add_argument("--fleet", action="store_true",
+                    help="phase 48 alone")
     args = ap.parse_args()
     import torch
 
@@ -85,7 +91,11 @@ def main() -> int:
     phases = (("45", cs.phase_mesh_kernels),
               ("46", lambda p: cs.phase_mesh_train(p, runs)),
               ("47", lambda p: cs.phase_mesh_card_vs_cpu(p, devices)))
-    if args.cards:
+    if args.fleet:
+        cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
+                 else None)
+        phases = (("48", lambda p: cs.phase_fleet_train(p, cards)),)
+    elif args.cards:
         n = args.cards
         devices = [f"cuda:{(j + j // n) % n}" for j in range(8)]
         phases = phases[2:]
