@@ -567,7 +567,7 @@ def import_port():
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
-    from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep, lr
+    from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep, Momentum, lr
     from paddle_tpu_torch.quantization import int8 as qi8
     from paddle_tpu_torch.serving import RequestState, ServingEngine, \
         SpeculativeEngine
@@ -592,12 +592,26 @@ def import_port():
                 Int8Linear=qi8.Int8Linear, inference=inference,
                 sharded=sharded, serving_mesh=serving_mesh, mesh=mesh,
                 shards=shards, fleet=fleet, gpt_blocks=gpt_blocks,
-                LayerNorm=LayerNorm, init_weights=init_weights)
+                LayerNorm=LayerNorm, init_weights=init_weights,
+                Momentum=Momentum)
 
 
 def _check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def _kept(port, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a kernel check, which must leave the
+    calling thread's current CUDA device as it found it: every C launcher
+    gives the caller's device back (``csrc/device_guard.cuh``)."""
+    torch = port["torch"]
+    before = torch.cuda.current_device()
+    out = fn(*args, **kwargs)
+    now = torch.cuda.current_device()
+    _check(now == before, f"{fn.__name__} left the current device at "
+           f"{now}, not {before}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6564,21 +6578,29 @@ def fleet_part_count(cfg, mp):
     return mp + 1 + cfg.num_layers * (6 + 6 * mp) + 2
 
 
-def fleet_pipeline(port, cfg, devices, dtype, seed, grad_clip=None):
-    """The reference's recipe on ``devices`` (four names): the global
-    mesh (pp 2, mp 2) over them, ``fleet.init`` at FLEET_HYBRID, a
+def fleet_pipeline(port, cfg, devices, dtype, seed, grad_clip=None,
+                   hybrid=FLEET_HYBRID, pipe=FLEET_PIPE, recompute_interval=0,
+                   virtual=None, flags=None, make_opt=None):
+    """The reference's recipe on ``devices`` (dp x pp x mp names): the
+    global mesh (dp, pp, mp of ``hybrid``) over them, ``fleet.init`` at
+    ``hybrid`` and ``pipe`` (and the strategy ``flags``), a
     ``PipelineLayer`` of [GPTEmbeddings, L x GPTDecoderLayer, LayerNorm,
-    the tied GPTLMHead] in two stages with ``GPTPretrainingCriterion`` as
-    its loss, weights drawn from ``seed`` (``init_weights``: the unplaced
-    layered model's of that seed, on the same device), then
-    ``distributed_model`` and ``distributed_optimizer(AdamW)``.  Returns
-    (the ``PipelineParallel``, its ``PipelineLayer``, the optimizer)."""
+    the tied GPTLMHead] in two stages (``recompute_interval``,
+    ``virtual`` stages) with ``GPTPretrainingCriterion`` as its loss,
+    weights drawn from ``seed`` (``init_weights``: the unplaced layered
+    model's of that seed, on the same device), then ``distributed_model``
+    and ``distributed_optimizer`` of ``make_opt(parameters)`` (default
+    ``AdamW``).  Returns (the ``PipelineParallel``, its ``PipelineLayer``,
+    the optimizer)."""
     torch, fleet, G = port["torch"], port["fleet"], port["gpt_blocks"]
     dm = port["mesh"]
-    dm.set_mesh(dm.build_mesh({"pp": 2, "mp": 2}, devices))
+    dm.set_mesh(dm.build_mesh({a: hybrid.get(f"{a}_degree", 1)
+                               for a in ("dp", "pp", "mp")}, devices))
     st = fleet.DistributedStrategy()
-    st.hybrid_configs = dict(FLEET_HYBRID)
-    st.pipeline_configs = dict(FLEET_PIPE)
+    st.hybrid_configs = dict(hybrid)
+    st.pipeline_configs = dict(pipe)
+    for k, v in (flags or {}).items():
+        setattr(st, k, v)
     fleet.init(is_collective=True, strategy=st)
     dt = getattr(torch, dtype)
     emb = G.GPTEmbeddings(cfg, dtype=dt)
@@ -6586,14 +6608,18 @@ def fleet_pipeline(port, cfg, devices, dtype, seed, grad_clip=None):
                       for _ in range(cfg.num_layers)]
     layers += [port["LayerNorm"](cfg.hidden_size, cfg.layer_norm_eps,
                                  dtype=dt), G.GPTLMHead(emb)]
-    pl = fleet.meta_parallel.PipelineLayer(layers, num_stages=2,
-                                           loss_fn=port["Criterion"](cfg))
+    pl = fleet.meta_parallel.PipelineLayer(
+        layers, num_stages=2, loss_fn=port["Criterion"](cfg),
+        recompute_interval=recompute_interval,
+        num_virtual_pipeline_stages=virtual)
     port["init_weights"](pl, seed, cfg.initializer_range)
     model = fleet.distributed_model(pl)
-    opt = fleet.distributed_optimizer(port["AdamW"](
-        FLEET_LR, parameters=pl.parameters(), multi_precision=False,
-        grad_clip=grad_clip))
-    return model, pl, opt
+    if make_opt is None:
+        opt = port["AdamW"](FLEET_LR, parameters=pl.parameters(),
+                            multi_precision=False, grad_clip=grad_clip)
+    else:
+        opt = make_opt(pl.parameters())
+    return model, pl, fleet.distributed_optimizer(opt)
 
 
 def _fleet_key(name, num_layers):
@@ -6615,7 +6641,8 @@ def _fleet_grads(port, pl):
     out = {k: sp.gather([p.grad for p in sp])
            for k, sp in shards.sharded_parameters(pl).items()}
     out.update({k: p.grad for k, p in pl.named_parameters()
-                if shards.shard_info(p) is None})
+                if shards.shard_info(p) is None
+                and shards.replica_of(p) is None})
     return out
 
 
@@ -6656,14 +6683,16 @@ def phase_fleet_train(port, devices=None):
     t_phase = time.perf_counter()
     devices = _mesh_devices(4) if devices is None else list(devices)
     cards = sorted(set(devices))
-    errs = dict(zip(("fwd", "dkv", "dq"), _flash_compare(
-        port, "bfloat16", FLEET_SHARD_FLASH, True, 480)))
+    errs = dict(zip(("fwd", "dkv", "dq"), _kept(
+        port, _flash_compare, port, "bfloat16", FLEET_SHARD_FLASH, True,
+        480)))
     cfg = port["gpt_1p3b"](hidden_dropout=0.0, attention_dropout=0.0,
                            max_position_embeddings=1024,
                            use_tensor_parallel=True, use_flash_attention=True)
     mp = FLEET_HYBRID["mp_degree"]
-    errs["adamw"] = _adamw_compare(
-        port, (cfg.vocab_size // mp, cfg.hidden_size), "bfloat16", 481)
+    errs["adamw"] = _kept(port, _adamw_compare, port,
+                          (cfg.vocab_size // mp, cfg.hidden_size),
+                          "bfloat16", 481)
     n_micro = FLEET_PIPE["accumulate_steps"]
     L = cfg.num_layers
     rng = np.random.RandomState(48)
@@ -6767,27 +6796,45 @@ def phase_fleet_train(port, devices=None):
     return dict(errs=errs, launches=total, cpu_launches=cpu)
 
 
-def _fleet_card_vs_cpu(port, devices):
-    """Phase 48's 2-layer fp32 copy (hidden 256, 4 heads: head_dim 64, 2
-    heads a shard) at TP=2 PP=2, TF32 off, the same weights on the CPU
-    (``["cpu"] * 4``) and on ``devices``: step 1's gathered gradients, then
-    MESH_CPU_STEPS ``train_batch`` steps of AdamW under a global-norm clip
-    (MESH_CLIP): losses, then the weights by phase 47's rule."""
-    torch = port["torch"]
-    cfg = port["gpt_tiny"](hidden_size=256, num_heads=4, num_layers=2,
-                           hidden_dropout=0.0, attention_dropout=0.0,
-                           use_tensor_parallel=True)
-    rng = np.random.RandomState(148)
-    batches = [tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
-                                                  (8, 128)))
-                     for _ in range(2)) for _ in range(MESH_CPU_STEPS)]
-    grads, losses, weights, state = {}, {}, {}, None
-    t0 = time.perf_counter()
+def _fleet_tiny(port):
+    """Phases 48 and 49's 2-layer fp32 copy of GPT-3 1.3B's recipe (hidden
+    256, 4 heads: head_dim 64, 2 heads a shard)."""
+    return port["gpt_tiny"](hidden_size=256, num_heads=4, num_layers=2,
+                            hidden_dropout=0.0, attention_dropout=0.0,
+                            use_tensor_parallel=True)
+
+
+def _first_applied(port, opt, pl):
+    """A dict that the innermost optimizer under ``opt`` (below the hybrid
+    wrapper and a meta-optimizer's ``_inner``) fills, at its first
+    ``step``, with the gradients that step applies, gathered by key: step
+    1's, or under ``gradient_merge`` the merged ones."""
+    inner = opt._inner_opt
+    while hasattr(inner, "_inner"):
+        inner = inner._inner
+    seen, step = {}, inner.step
+
+    def capturing(*args, **kwargs):
+        if not seen:
+            seen.update(_fleet_grads(port, pl))
+        return step(*args, **kwargs)
+
+    inner.step = capturing
+    return seen
+
+
+def _fleet_both(port, cfg, devices, batches, seed, **kw):
+    """The recipe (``fleet_pipeline(**kw)``, fp32) on the CPU and on
+    ``devices``, the same weights (the CPU's, drawn from ``seed``) and
+    ``batches``, one ``train_batch`` each: per device, the step-1
+    gradients, the gradients the first update applies
+    (:func:`_first_applied`), the losses, the weights before and after;
+    and the card's launches."""
+    grads, applied, losses, weights, state = {}, {}, {}, {}, None
     for dev in ("cpu", DEVICE):
         model, pl, opt = fleet_pipeline(
-            port, cfg, ["cpu"] * 4 if dev == "cpu" else devices,
-            "float32", 48,
-            grad_clip=port["clip"].ClipGradByGlobalNorm(MESH_CLIP))
+            port, cfg, ["cpu"] * len(devices) if dev == "cpu" else devices,
+            "float32", seed, **kw)
         if state is None:
             # copies: a whole parameter's entry shares its storage, and
             # the CPU run trains it in place
@@ -6796,24 +6843,59 @@ def _fleet_card_vs_cpu(port, devices):
             pl.set_state_dict(state)
             _reset_launches(port)
         cap = _GradCapture(port, opt, pl)
+        first = _first_applied(port, opt, pl)
         losses[dev] = [float(model.train_batch(b, cap if i == 0 else opt))
                        for i, b in enumerate(batches)]
         grads[dev] = {k: g.float().cpu() for k, g in cap.grads.items()}
+        applied[dev] = {k: g.float().cpu() for k, g in first.items()}
         weights[dev] = {k: v.float().cpu() for k, v in pl.state_dict().items()}
+        if dev != "cpu" and pl.num_replicas > 1:
+            _check(_replicas_equal(port, pl), "fleet card vs CPU: the "
+                   "replicas part")
         del model, pl, opt, cap
-    both_s = time.perf_counter() - t0
     launches = _launch_counts(port)
     _set_mesh(port, None)
     port["fleet"].set_hybrid_communicate_group(None)
+    return grads, applied, losses, state, weights, launches
+
+
+def _fleet_compare(port, grads, applied, losses, weights, step_dw):
+    """Card against CPU: (the step-1 gradient norm, the gradients' largest
+    |card - cpu| / max |cpu|, the losses' largest difference, and phase
+    47's weight rule with ``step_dw``, an element zero to rounding where
+    the gradients the first update applies part)."""
+    torch = port["torch"]
     gc, gg = grads["cpu"], grads[DEVICE]
     gnorm = float(sum(g.double().pow(2).sum() for g in gc.values()) ** 0.5)
     gerr = max(((gg[k] - g).abs().max() / g.abs().max()).item()
                for k, g in gc.items())
     loss_diff = max(abs(a - b) for a, b in zip(losses["cpu"],
                                                losses[DEVICE]))
-    n_zero, n_all, over_zero, over_kept, bulk = _mesh_weights_rule(
-        torch, gc, gg, weights["cpu"], weights[DEVICE],
-        FLEET_LR * MESH_CPU_STEPS)
+    rule = _mesh_weights_rule(torch, applied["cpu"], applied[DEVICE],
+                              weights["cpu"], weights[DEVICE], step_dw)
+    return gnorm, gerr, loss_diff, rule
+
+
+def _fleet_card_vs_cpu(port, devices):
+    """Phase 48's 2-layer fp32 copy (:func:`_fleet_tiny`) at TP=2 PP=2,
+    TF32 off, the same weights on the CPU (``["cpu"] * 4``) and on
+    ``devices``: step 1's gathered gradients, then MESH_CPU_STEPS
+    ``train_batch`` steps of AdamW under a global-norm clip (MESH_CLIP):
+    losses, then the weights by phase 47's rule."""
+    torch = port["torch"]
+    cfg = _fleet_tiny(port)
+    rng = np.random.RandomState(148)
+    batches = [tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                  (8, 128)))
+                     for _ in range(2)) for _ in range(MESH_CPU_STEPS)]
+    t0 = time.perf_counter()
+    grads, applied, losses, _, weights, launches = _fleet_both(
+        port, cfg, devices, batches, 48,
+        grad_clip=port["clip"].ClipGradByGlobalNorm(MESH_CLIP))
+    both_s = time.perf_counter() - t0
+    gnorm, gerr, loss_diff, (n_zero, n_all, over_zero, over_kept, bulk) = \
+        _fleet_compare(port, grads, applied, losses, weights,
+                       FLEET_LR * MESH_CPU_STEPS)
     per_step = 4 * 2 * cfg.num_layers
     want = {"fwd": per_step, "dkv": per_step, "dq": per_step}
     want = {k: MESH_CPU_STEPS * v for k, v in want.items()}
@@ -6842,6 +6924,257 @@ def _fleet_card_vs_cpu(port, devices):
     return {k: launches[k] for k in want}
 
 
+# ---------------------------------------------------------------------------
+# phase 49: the rest of the fleet API at dp 2 x pp 2 x mp 2
+# ---------------------------------------------------------------------------
+
+# BASELINE.json config 3 through the fleet recipe with its users' other
+# calls: two data-parallel replicas of the pipeline, recompute of every
+# layer item and two virtual stages a card (Paddle's interleaved 1F1B);
+# 16 rows in 4 microbatches of 4, each split 2 + 2 over the replicas, so
+# flash runs at phase 48's head shard (2, 8, 1024, 128)
+FLEET_DP_HYBRID = {"dp_degree": 2, "pp_degree": 2, "mp_degree": 2}
+FLEET_DP_PIPE = {"accumulate_steps": 4, "micro_batch_size": 4}
+FLEET_DP_BATCH = 16
+FLEET_DP_RECOMPUTE, FLEET_DP_VIRTUAL = 1, 2
+FLEET_DP_STEPS = 2
+# the 2-layer fp32 meta-optimizer runs, card against CPU, each
+# MESH_CPU_STEPS steps: (name, inner optimizer, strategy flags)
+FLEET_META_RUNS = (
+    ("gradient_merge", "AdamW", dict(
+        gradient_merge=True,
+        gradient_merge_configs={"k_steps": 2, "avg": True})),
+    ("localsgd", "AdamW", dict(localsgd=True,
+                               localsgd_configs={"k_steps": 2})),
+    ("lars", "Momentum", dict(lars=True)),
+    ("dgc", "Momentum", dict(dgc=True, dgc_configs={
+        "rampup_begin_step": 1, "sparsity": [0.999]})))
+FLEET_META_MOMENTUM_LR = 0.05
+
+
+def _replicas_equal(port, pl):
+    """Every dp replica copy of ``pl`` holds its replica-0 source's bits
+    (and there is one)."""
+    torch, shards = port["torch"], port["shards"]
+    copies = [(p, shards.replica_of(p)) for p in pl.parameters()
+              if shards.replica_of(p) is not None]
+    return bool(copies) and all(torch.equal(p, s.to(p.device))
+                                for p, s in copies)
+
+
+def phase_fleet_dp(port, devices=None):
+    """Phase 49: GPT-3 1.3B bf16 (dropout 0, O1 as phase 6) through the
+    fleet recipe at FLEET_DP_HYBRID, every layer item under
+    ``fleet.recompute`` (FLEET_DP_RECOMPUTE) and FLEET_DP_VIRTUAL virtual
+    stages, its dp x 4 positions on ``devices`` (default: all on one
+    card), FLEET_DP_BATCH x TRAIN_SEQ in 4 microbatches, FLEET_DP_STEPS
+    steps.  Step 1 is held
+    against the unplaced layered model carrying the same weights with the
+    same rows over the same microbatches (the loss to MESH_LOSS_REL, each
+    gathered gradient by relative norm to TRAIN_GRAD_NORM); the flash
+    launches of a step are exactly dp x n_micro x mp x L x 2 forward (the
+    recompute runs each forward twice; x 1 without it) and dp x n_micro x
+    mp x L of each backward kernel, the AdamW launches one a part tensor
+    of every replica; after step 2 the replicas hold the same bits; step 2 runs
+    under the profiler.  Phase 48's kernel checks cover these shapes.
+    Then :func:`_fleet_meta_card_vs_cpu`."""
+    torch = port["torch"]
+    t_phase = time.perf_counter()
+    dp, mp = FLEET_DP_HYBRID["dp_degree"], FLEET_DP_HYBRID["mp_degree"]
+    n_micro = FLEET_DP_PIPE["accumulate_steps"]
+    devices = _mesh_devices(4 * dp) if devices is None else list(devices)
+    cards = sorted(set(devices))
+    cfg = port["gpt_1p3b"](hidden_dropout=0.0, attention_dropout=0.0,
+                           max_position_embeddings=1024,
+                           use_tensor_parallel=True, use_flash_attention=True)
+    L = cfg.num_layers
+    rng = np.random.RandomState(49)
+    ids, labels = (torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (FLEET_DP_BATCH, TRAIN_SEQ))).to(DEVICE)
+        for _ in range(2))
+    _set_mesh(port, None)
+    ref = port["Layered"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    crit = port["Criterion"](cfg)
+    ref_loss = 0.0
+    rows = FLEET_DP_BATCH // n_micro
+    for x, y in zip(ids.split(rows), labels.split(rows)):
+        with _o1(port):
+            loss = crit(ref(x), y) * (1.0 / n_micro)
+        loss.backward()
+        ref_loss += float(loss.detach())
+    ref_grads = {k: p.grad for k, p in ref.named_parameters()}
+    whole = sum(t.numel() * t.element_size() for t in ref.parameters())
+    ref_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    model, pl, opt = fleet_pipeline(
+        port, cfg, devices, "bfloat16", 0, hybrid=FLEET_DP_HYBRID,
+        pipe=FLEET_DP_PIPE, recompute_interval=FLEET_DP_RECOMPUTE,
+        virtual=FLEET_DP_VIRTUAL)
+    build_s = time.perf_counter() - t0
+    got = pl.state_dict()
+    same = all(torch.equal(got[_fleet_key(k, L)].to(v.device), v)
+               for k, v in ref.state_dict().items())
+    del got
+    # stated before the run: one AdamW launch a part tensor of each
+    # replica, every whole parameter copied once a replica
+    n_parts = dp * fleet_part_count(cfg, mp)
+    positions = port["shards"].weight_bytes_by_position(pl)
+    _check(same and len(ref_grads) == len(pl.state_dict())
+           and _replicas_equal(port, pl),
+           "fleet dp: the pipeline's weights are not the unplaced model's")
+    _check(len(list(pl.parameters())) == n_parts
+           and sum(positions.values()) == dp * whole
+           and len(positions) == dp * 2 * mp,
+           f"fleet dp: {len(list(pl.parameters()))} tensors of "
+           f"{sum(positions.values())} bytes at {len(positions)} positions, "
+           f"expected {n_parts} of {dp * whole} at {dp * 2 * mp}")
+    torch.cuda.synchronize()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    _reset_launches(port)
+    cap = _GradCapture(port, opt, pl)
+    t0 = time.perf_counter()
+    with _o1(port):
+        losses = [float(model.train_batch((ids, labels), cap))]
+    for d in cards:
+        torch.cuda.synchronize(d)
+    step1_s = time.perf_counter() - t0
+    first = _launch_counts(port)
+    peak_inflight = model.last_peak_inflight
+    rels = {k: ((cap.grads[_fleet_key(k, L)].to(g.device).float()
+                 - g.float()).norm() / g.float().norm()).item()
+            for k, g in ref_grads.items()}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    del ref, ref_grads, cap
+    torch.cuda.empty_cache()
+
+    def step():
+        with _o1(port):
+            losses.append(float(model.train_batch((ids, labels), opt)))
+
+    prof = _profiled_step_ms(port, step)
+    _check(prof is not None, "fleet dp: the profiler saw no device activity")
+    total = _launch_counts(port)
+    peak = max(torch.cuda.max_memory_allocated(d) for d in cards)
+    equal = _replicas_equal(port, pl)
+    per = dp * n_micro * mp * L
+    want = {"fwd": (2 if FLEET_DP_RECOMPUTE else 1) * per, "dkv": per,
+            "dq": per, "adamw": n_parts}
+    S, V = FLEET_DP_HYBRID["pp_degree"], FLEET_DP_VIRTUAL or 1
+    # Paddle's warm-up forwards, then one more before the first backward
+    inflight_bound = min((S - 1 if V == 1 else 2 * (S - 1) + (V - 1) * S)
+                         + 1, n_micro * V)
+    print(f"[fleet_dp] GPT-3 1.3B bf16 (O1) through the fleet recipe at "
+          f"{FLEET_DP_HYBRID}, {FLEET_DP_PIPE}, recompute_interval "
+          f"{FLEET_DP_RECOMPUTE}, {FLEET_DP_VIRTUAL} virtual stages "
+          f"(chunks {pl.segment_bounds}), {FLEET_DP_BATCH} x {TRAIN_SEQ}, "
+          f"positions on {[str(d) for d in devices]}: the unplaced model "
+          f"{ref_s:.2f} s, set-up {build_s:.2f} s; step 1 loss "
+          f"{losses[0]!r} against the unplaced model's {ref_loss!r} "
+          f"(relative {loss_rel:.3g}, tol {MESH_LOSS_REL:.3g}); step 1 "
+          f"gradients relative norm max {rels[worst]:.4g} ({worst}), median "
+          f"{float(np.median(list(rels.values()))):.4g} (tol "
+          f"{TRAIN_GRAD_NORM:.4g}); last_peak_inflight {peak_inflight} "
+          f"(Paddle's interleaved bound {inflight_bound}); launches step 1 "
+          f"{first} (want {want}), over {FLEET_DP_STEPS} steps {total}; "
+          f"step 1 {1e3 * step1_s:.1f} ms host clock (with warm-up and the "
+          f"gradient capture); step 2 under the profiler {prof[3]:.2f} ms "
+          f"host clock, device {prof[0]:.2f} ms, busy {prof[2]:.3f} of it; "
+          f"losses {losses}; replicas bit-equal after step 2: {equal}; peak "
+          f"{peak / 2**30:.2f} GiB (the most of one card); weight bytes by "
+          f"(r, s, i) {positions} (sum {sum(positions.values())}, dp x the "
+          f"model {dp * whole})")
+    _check(all(np.isfinite(losses)), f"fleet dp: non-finite losses {losses}")
+    _check(loss_rel <= MESH_LOSS_REL, "fleet dp: step 1's loss is off the "
+           "unplaced model's")
+    _check(rels[worst] <= TRAIN_GRAD_NORM, f"fleet dp: step 1's gradient of "
+           f"{worst} is off the unplaced model's ({rels[worst]:.4g})")
+    _check(peak_inflight == inflight_bound,
+           f"fleet dp: last_peak_inflight {peak_inflight}")
+    _check(equal, "fleet dp: the replicas part after step 2")
+    _check(all(first[k] == want[k] and total[k] == FLEET_DP_STEPS * want[k]
+               for k in want), f"fleet dp: launches {first} / {total}, "
+           f"expected {want} a step")
+    del model, pl, opt
+    _set_mesh(port, None)
+    port["fleet"].set_hybrid_communicate_group(None)
+    torch.cuda.empty_cache()
+    cpu = _fleet_meta_card_vs_cpu(port, devices)
+    print(f"[time] phase 49 {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=total, cpu_launches=cpu)
+
+
+def _fleet_meta_card_vs_cpu(port, devices):
+    """Phase 49's 2-layer fp32 copy (:func:`_fleet_tiny`) at
+    FLEET_DP_HYBRID, TF32 off, once a meta-optimizer of FLEET_META_RUNS
+    (``gradient_merge`` and ``localsgd`` over ``AdamW``, ``lars`` and
+    ``dgc`` over ``Momentum``), the same weights on the CPU (``["cpu"] *
+    8``) and on ``devices``, MESH_CPU_STEPS steps: step 1's gathered
+    gradients and the losses to phase 48's tolerances, the weights by
+    phase 47's rule with the CPU run's largest weight change as the step
+    scale (an element zero to rounding where the gradients the first
+    update applies part: the merged ones under ``gradient_merge``), the
+    replicas bit-equal, and the exact launches (flash each
+    step; the fp32 AdamW kernel once a part of both replicas on each
+    step the inner AdamW takes: every step under ``localsgd``, every
+    second under ``gradient_merge``; none under LARS and DGC, which the
+    JAX package computes outside any Pallas kernel).  Returns the launches
+    by run."""
+    torch = port["torch"]
+    cfg = _fleet_tiny(port)
+    dp = FLEET_DP_HYBRID["dp_degree"]
+    rng = np.random.RandomState(149)
+    batches = [tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                  (8, 128)))
+                     for _ in range(2)) for _ in range(MESH_CPU_STEPS)]
+    out = {}
+    for name, inner, flags in FLEET_META_RUNS:
+        t0 = time.perf_counter()
+        if inner == "AdamW":
+            def make(params):
+                return port["AdamW"](FLEET_LR, parameters=params,
+                                     multi_precision=False)
+        else:
+            def make(params):
+                return port["Momentum"](FLEET_META_MOMENTUM_LR, 0.9,
+                                        parameters=params)
+        grads, applied, losses, state, weights, launches = _fleet_both(
+            port, cfg, devices, batches, 49, hybrid=FLEET_DP_HYBRID,
+            flags=flags, make_opt=make)
+        both_s = time.perf_counter() - t0
+        moved = max((weights["cpu"][k] - v.float().cpu()).abs().max().item()
+                    for k, v in state.items())
+        gnorm, gerr, loss_diff, (n_zero, n_all, over_zero, over_kept,
+                                 bulk) = _fleet_compare(
+            port, grads, applied, losses, weights, moved)
+        per_step = dp * FLEET_PIPE["accumulate_steps"] * 2 * cfg.num_layers
+        steps_taken = {"gradient_merge": MESH_CPU_STEPS // 2,
+                       "localsgd": MESH_CPU_STEPS}.get(name, 0)
+        want = {k: MESH_CPU_STEPS * per_step for k in ("fwd", "dkv", "dq")}
+        want["adamw"] = steps_taken * dp * fleet_part_count(cfg, 2)
+        print(f"[fleet_meta] {name} over {inner}, 2 layers fp32 at "
+              f"{FLEET_DP_HYBRID} ({both_s:.1f} s both): step 1 gradient "
+              f"norm {gnorm:.4f}, max |card - cpu| / max |cpu| {gerr!r} "
+              f"(tol {MESH_GRAD_REL}); losses cpu {losses['cpu']} card "
+              f"{losses[DEVICE]}, max diff {loss_diff!r} (tol "
+              f"{TRAIN_LOSS_ATOL}); largest weight change {moved!r}; "
+              f"weights: {n_zero} of {n_all} elements zero to rounding (at "
+              f"most {MESH_ZERO_SHARE} of them), their excess {over_zero!r}, "
+              f"the others' {over_kept!r} (both <= 0), 99.9th percentile "
+              f"{bulk!r} (tol 1e-6); card launches {launches} (want {want})")
+        _check(gerr <= MESH_GRAD_REL and loss_diff <= TRAIN_LOSS_ATOL,
+               f"fleet {name}: gradients or losses part")
+        _check(n_zero <= MESH_ZERO_SHARE * n_all and over_zero <= 0
+               and over_kept <= 0 and bulk <= 1e-6,
+               f"fleet {name}: weights part")
+        _check(all(launches[k] == v for k, v in want.items()),
+               f"fleet {name}: launches {launches}, expected {want}")
+        out[name] = {k: launches[k] for k in want}
+    torch.cuda.empty_cache()
+    return out
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6865,13 +7198,13 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card}")
     phase_build(port)
-    k = phase_kernels(port)
+    k = _kept(port, phase_kernels, port)
     launches, serve_tps = phase_serve(port)
     phase_card_vs_cpu(port)
-    tk = phase_train_kernels(port)
+    tk = _kept(port, phase_train_kernels, port)
     train_launches, train_o2 = phase_train(port)
     phase_train_card_vs_cpu(port)
-    dk = phase_decode_kernels(port)
+    dk = _kept(port, phase_decode_kernels, port)
     # the flash forward's error over phase 5 and its ragged lengths here
     tk["fwd"]["max_abs_err"] = max(tk["fwd"]["max_abs_err"],
                                    dk["flash_ragged_err"])
@@ -6879,26 +7212,26 @@ def main() -> int:
         port)
     paged_launches = phase_paged(port, model, ids, out, logits)
     phase_generate_card_vs_cpu(port)
-    ik = phase_int8_kernels(port)
+    ik = _kept(port, phase_int8_kernels, port)
     ragged_int8_launches = phase_serve_int8(port)
     # phase 9's model, kept for phase 14, which quantizes it
     paged_int8_launches = phase_paged_int8(port, model, ids, out, logits)
     del model, ids, out, logits
     torch.cuda.empty_cache()
     phase_int8_card_vs_cpu(port)
-    nk = phase_norm_kernels(port)
+    nk = _kept(port, phase_norm_kernels, port)
     # the flash forward's error over phases 5 and 8 and BERT's shape here
     tk["fwd"]["max_abs_err"] = max(tk["fwd"]["max_abs_err"], nk["flash_err"])
     tk["fwd"].update(nk["bert_flash"])
     ln_launches = phase_encoder(port)
     phase_bert(port)
     phase_bert_card_vs_cpu(port)
-    mk = phase_adamw_master(port)
+    mk = _kept(port, phase_adamw_master, port)
     master_launches = phase_bert_train(port)
     phase_train_dropout(port)
     phase_determinism(port)
     phase_recipe_card_vs_cpu(port)
-    npk = phase_new_plans(port)
+    npk = _kept(port, phase_new_plans, port)
     k["max_abs_err"] = max(k["max_abs_err"], npk["float"])
     ik["ragged"]["max_abs_err"] = max(ik["ragged"]["max_abs_err"],
                                       npk["int8"])
@@ -6946,7 +7279,7 @@ def main() -> int:
     # the fp32 launches ride the fp32/bf16 kernel's row
     by_path["cluster_fp32"] = {"bfloat16": phase_cluster_card_vs_cpu(port)}
     # phases 45-47: hybrid dp x pp x mp training of the stacked GPT
-    mk45 = phase_mesh_kernels(port)
+    mk45 = _kept(port, phase_mesh_kernels, port)
     for key in ("fwd", "dkv", "dq"):
         tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"], mk45[key])
     tk["adamw"]["max_abs_err"] = max(tk["adamw"]["max_abs_err"],
@@ -6957,6 +7290,8 @@ def main() -> int:
     fl = phase_fleet_train(port)
     for key in ("fwd", "dkv", "dq", "adamw"):
         tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"], fl["errs"][key])
+    # phase 49: dp replicas, recompute, virtual stages, meta-optimizers
+    fdp = phase_fleet_dp(port)
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -6993,8 +7328,10 @@ def main() -> int:
         # phase 46's mesh runs, each over all its steps
         mesh_paths = {"train_mesh_" + name: run["launches"][key]
                       for name, run in mesh_runs.items()}
-        # phase 48's fleet steps at TP=2 PP=2
+        # phase 48's fleet steps at TP=2 PP=2; phase 49's at dp 2 x pp 2 x
+        # mp 2 with recompute and virtual stages
         mesh_paths["train_fleet_tp2_pp2"] = fl["launches"][key]
+        mesh_paths["train_fleet_dp_recompute"] = fdp["launches"][key]
         if key != "adamw":
             # phase 6's bf16-weight step, phase 31's O1 step and phase
             # 40's layered step; the forward also phase 35's layered
@@ -7004,7 +7341,9 @@ def main() -> int:
                 "train_o1_fp32_weights": o1_launches[key],
                 "train_layered": ltrain[key], **mesh_paths,
                 "train_mesh_fp32_card_vs_cpu": mesh_cpu["flash"][key],
-                "train_fleet_fp32_card_vs_cpu": fl["cpu_launches"][key]}
+                "train_fleet_fp32_card_vs_cpu": fl["cpu_launches"][key],
+                **{f"train_fleet_{name}_fp32_card_vs_cpu": run[key]
+                   for name, run in fdp["cpu_launches"].items()}}
             if key == "fwd":
                 kernels[-1]["launches_by_path"].update(
                     generate_layered=lgen["fwd"],
@@ -7023,7 +7362,10 @@ def main() -> int:
                         "train_mesh_fp32_card_vs_cpu": mesh_cpu["adamw_fp32"],
                         "train_mesh_o1_overflow": mesh_cpu["adamw_fp32_skip"],
                         "train_fleet_fp32_card_vs_cpu":
-                            fl["cpu_launches"]["adamw"]},
+                            fl["cpu_launches"]["adamw"],
+                        **{f"train_fleet_{name}_fp32_card_vs_cpu":
+                           fdp["cpu_launches"][name]["adamw"]
+                           for name in ("gradient_merge", "localsgd")}},
                     **fk})
     # the fp32-master form: the same kernel library and TPU kernel, with
     # the arithmetic of the reference's composed master path; launches

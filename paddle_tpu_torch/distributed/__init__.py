@@ -3,8 +3,10 @@ one process: the global mesh (``mesh``), the training placement's shards
 (``shards``), the microbatch pipeline (``pp_spmd``), the serving mesh
 of ``dp`` replicas x ``mp`` head shards (``serving_mesh``), and the fleet
 API (``fleet``: ``init``, the mpu layers, ``PipelineLayer`` and the
-1F1B ``PipelineParallel``), imported as ``distributed.fleet``."""
+1F1B ``PipelineParallel``), imported as ``distributed.fleet``, and
+``DataParallel`` (``parallel``)."""
 from . import mesh, pp_spmd, serving_mesh, shards
+from .parallel import DataParallel
 from .mesh import build_mesh, get_mesh, has_mesh, set_mesh
 from .serving_mesh import (
     clone_model, mp_size, replica_meshes, shard_model_for_serving,
@@ -13,8 +15,9 @@ from .serving_mesh import (
 )
 from .shards import weight_bytes_by_position
 
-__all__ = ["mesh", "pp_spmd", "serving_mesh", "shards", "build_mesh",
-           "set_mesh", "get_mesh", "has_mesh", "replica_meshes", "mp_size",
+__all__ = ["DataParallel", "mesh", "pp_spmd", "serving_mesh", "shards",
+           "build_mesh", "set_mesh", "get_mesh", "has_mesh",
+           "replica_meshes", "mp_size",
            "validate_head_sharding", "shard_model_for_serving",
            "shard_paged_cache", "clone_model", "unshard_model",
            "weight_bytes_by_device", "shard_weight_bytes",

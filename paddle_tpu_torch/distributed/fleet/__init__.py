@@ -1,16 +1,19 @@
 """The fleet API (port of ``paddle_tpu/distributed/fleet``): ``init``,
-``distributed_model``, ``distributed_optimizer`` and the worker queries.
+``distributed_model``, ``distributed_optimizer``, ``recompute`` and the
+worker queries.
 
 One process drives every mesh position: ``init`` holds the global mesh
 to the strategy's ``hybrid_configs`` (``base/topology.py``), the mpu
 layers cut the weights over its ``mp`` axis, ``PipelineLayer`` places
-stages on its ``pp`` axis, and ``PipelineParallel.train_batch`` runs
-1F1B.  The recipe on one card::
+chunks on its ``pp`` axis and replicas on its ``dp`` axis, and
+``PipelineParallel.train_batch`` runs 1F1B (interleaved with virtual
+stages).  The recipe on one card::
 
     from paddle_tpu_torch.distributed import fleet, mesh
-    mesh.set_mesh(mesh.build_mesh({"pp": 2, "mp": 2}, ["cuda:0"] * 4))
+    mesh.set_mesh(mesh.build_mesh({"dp": 2, "pp": 2, "mp": 2},
+                                  ["cuda:0"] * 8))
     strategy = fleet.DistributedStrategy()
-    strategy.hybrid_configs = {"dp_degree": 1, "pp_degree": 2,
+    strategy.hybrid_configs = {"dp_degree": 2, "pp_degree": 2,
                                "mp_degree": 2}
     strategy.pipeline_configs = {"accumulate_steps": 4,
                                  "micro_batch_size": 2}
@@ -19,11 +22,9 @@ stages on its ``pp`` axis, and ``PipelineParallel.train_batch`` runs
     opt = fleet.distributed_optimizer(AdamW(...))
     loss = model.train_batch((ids, labels), opt)
 
-Not ported, and raising: replicas (dp > 1) of a generic
-``PipelineLayer``, ZeRO (sharding > 1) and sequence parallelism (sep >
-1) through the wrappers (ROADMAP.md queue 1, item 9); the meta-optimizers
-``lars``, ``dgc`` and ``localsgd`` and the parameter-server calls (item
-10).
+Not ported, and raising: ZeRO (sharding > 1) and sequence parallelism
+(sep > 1) through the wrappers (ROADMAP.md queue 1, item 9, steps 2 and
+3); the parameter-server calls (item 10).
 """
 from __future__ import annotations
 
@@ -34,17 +35,21 @@ from .base.topology import (
     CommunicateTopology, HybridCommunicateGroup,
     get_hybrid_communicate_group, set_hybrid_communicate_group,
 )
-from . import meta_parallel  # noqa: F401
+from . import meta_optimizers, meta_parallel  # noqa: F401
+from .meta_optimizers import apply_strategy_meta_optimizers
 from .meta_parallel import (  # noqa: F401
     HybridParallelOptimizer, PipelineLayer, PipelineParallel, TensorParallel,
 )
+from .recompute import recompute, recompute_sequential  # noqa: F401
+from ..parallel import DataParallel
 
 __all__ = ["DistributedStrategy", "CommunicateTopology",
            "HybridCommunicateGroup", "get_hybrid_communicate_group",
            "set_hybrid_communicate_group", "init", "distributed_model",
            "distributed_optimizer", "worker_index", "worker_num",
            "is_first_worker", "init_server", "run_server", "stop_worker",
-           "barrier_worker", "save_model"]
+           "barrier_worker", "save_model", "recompute",
+           "recompute_sequential"]
 
 _user_strategy: Optional[DistributedStrategy] = None
 
@@ -82,44 +87,37 @@ def worker_num():
 
 
 def distributed_model(model):
-    """The wrapper the topology asks for: ``PipelineParallel`` at pp > 1,
-    ``TensorParallel`` at mp > 1, else ``model`` itself."""
+    """The wrapper the topology asks for: ``PipelineParallel`` at pp > 1
+    (its ``PipelineLayer`` holds the dp replicas), ``TensorParallel`` at
+    mp > 1, ``DataParallel`` at dp > 1, else ``model`` itself."""
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         return model
     big = {name: n for name, n in (
-        ("dp", hcg.get_data_parallel_world_size()),
         ("sharding", hcg.get_sharding_parallel_world_size()),
         ("sep", hcg.get_sep_parallel_world_size())) if n > 1}
     if big:
         raise NotImplementedError(
-            f"fleet.distributed_model at {big}: replicas of a PipelineLayer "
-            "(dp), ZeRO (sharding) and sequence parallelism (sep) through "
-            "the fleet wrappers are not ported (ROADMAP.md queue 1, item "
-            "9); GPTStackedForPretraining takes dp on a mesh")
+            f"fleet.distributed_model at {big}: ZeRO (sharding, step 2) and "
+            "sequence parallelism (sep, step 3) through the fleet wrappers "
+            "are not ported (ROADMAP.md queue 1, item 9)")
     mode = hcg.get_parallel_mode()
     if mode == "pipeline":
         return PipelineParallel(model, hcg, _user_strategy)
     if mode == "model":
         return TensorParallel(model, hcg)
+    if hcg.get_data_parallel_world_size() > 1:
+        return DataParallel(model)
     return model
 
 
-_META_OPTIMIZERS = ("lars", "dgc", "localsgd")
-
-
 def distributed_optimizer(optimizer, strategy=None):
-    """``optimizer`` in a ``HybridParallelOptimizer`` (itself without a
-    topology).  The meta-optimizer flags ``lars``, ``dgc`` and
-    ``localsgd`` raise."""
+    """The reference's meta-optimizer selection pass over ``optimizer``
+    (``meta_optimizers.apply_strategy_meta_optimizers``: ``lars``,
+    ``dgc``, ``localsgd``, ``gradient_merge``), in a
+    ``HybridParallelOptimizer`` when a topology is set."""
     strategy = strategy or _user_strategy
-    asked = [f for f in _META_OPTIMIZERS
-             if strategy is not None and getattr(strategy, f, False)]
-    if asked:
-        raise NotImplementedError(
-            f"DistributedStrategy {asked}: the meta-optimizers (with the "
-            "SGD and Momentum they wrap) are not ported (ROADMAP.md queue "
-            "1, item 10)")
+    optimizer = apply_strategy_meta_optimizers(optimizer, strategy)
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         return optimizer

@@ -1,9 +1,9 @@
 """``DistributedStrategy`` (port of
 ``paddle_tpu/distributed/fleet/base/distributed_strategy.py``): a plain
 config object carrying the reference's knobs and defaults.  The fleet
-API reads ``hybrid_configs`` and ``pipeline_configs``; the meta-optimizer
-flags ``lars``, ``dgc`` and ``localsgd`` make
-``fleet.distributed_optimizer`` raise."""
+API reads ``hybrid_configs``, ``pipeline_configs`` and the meta-optimizer
+flags ``lars``, ``dgc``, ``localsgd`` and ``gradient_merge`` with their
+configs (``fleet.distributed_optimizer``)."""
 from __future__ import annotations
 
 import copy

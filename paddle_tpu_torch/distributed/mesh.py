@@ -119,11 +119,10 @@ def axis_size(axis: str) -> int:
     return mesh.shape.get(axis, 1)
 
 
-
-def stage_devices(stage: int = 0) -> tuple:
-    """The devices of pipeline stage ``stage`` of replica 0 on the global
-    mesh, one a tensor-parallel shard, in shard order: where a layer of
-    that stage holds its parts (``mp`` of them; one without an mp
-    axis)."""
+def stage_devices(stage: int = 0, replica: int = 0) -> tuple:
+    """The devices of pipeline stage ``stage`` of replica ``replica`` (a
+    position on the ``dp`` axis) on the global mesh, one a
+    tensor-parallel shard, in shard order: where a layer of that stage
+    holds its parts (``mp`` of them; one without an mp axis)."""
     grid = get_mesh().grid(("dp", "pp", "sharding", "sep", "sp", "mp"))
-    return tuple(grid[0, stage, 0, 0, 0, :])
+    return tuple(grid[replica, stage, 0, 0, 0, :])

@@ -24,10 +24,18 @@ The fleet API's layers (``distributed/fleet``) hold their cut weights
 the same way, beside whole parameters (LayerNorms, the position table):
 :func:`place_on_stage` moves a module to a pipeline stage's devices and
 marks each whole parameter's position, and :func:`load_state` loads
-both kinds.
+both kinds.  Their ``dp`` replicas are whole copies of replica 0's
+modules (:func:`replicate`): each copied tensor carries ``replica_of``,
+its replica-0 source, so the state dict, the loaders, the optimizer's
+state and the global-norm clip see one logical tensor, while the
+optimizer steps every copy.  A replica runs with its parameter slots
+bound (:class:`Bound`) to its copies tied across replicas
+(:func:`tie_slots`), so each copy applies the sum of the replicas'
+gradients.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,7 +46,9 @@ from .serving_mesh import reduce_sum
 
 __all__ = ["Part", "ShardedParameter", "shard_info", "sharded_parameters",
            "load_state", "tie_replicas", "cut", "weight_bytes_by_position",
-           "place_on_stage"]
+           "place_on_stage", "replica_of", "replicate", "sync_replicas",
+           "param_slots", "tie_slots", "Bound", "bound_now",
+           "logical_owner", "covers_once"]
 
 Region = Tuple[Tuple[int, torch.Tensor], ...]
 
@@ -128,15 +138,16 @@ class ShardedParameter(nn.ParameterList):
             t.copy_(cut(whole, p.region).to(p.device))
 
     @torch.no_grad()
-    def relocate(self, stage: int, devices: Sequence[torch.device]):
-        """Move every part to pipeline stage ``stage`` of its replica: the
-        part of shard ``i`` to position ``(r, stage, i)`` on
-        ``devices[i]``."""
+    def relocate(self, stage: int, devices: Sequence[torch.device],
+                 replica: int):
+        """Move every part to pipeline stage ``stage`` of replica
+        ``replica``: the part of shard ``i`` to position ``(replica,
+        stage, i)`` on ``devices[i]``."""
         for k, (t, p) in enumerate(zip(self, self.parts)):
-            r, _, i = p.position
+            i = p.position[2]
             if t.device != devices[i]:
                 t.data = t.data.to(devices[i])
-            self.parts[k] = Part((r, stage, i), devices[i], p.region)
+            self.parts[k] = Part((replica, stage, i), devices[i], p.region)
         self.index = {p.position: k for k, p in enumerate(self.parts)}
 
     # the logical name in the state dict: this module's own prefix
@@ -179,13 +190,15 @@ def load_state(module: nn.Module, state_dict, strict: bool = True):
                              f"{tuple(t.shape)}")
         with torch.no_grad():
             t.copy_(v.to(t.dtype))
+    sync_replicas(module)
     return missing, unexpected
 
 
 def _plain_parameters(module: nn.Module) -> Dict[str, torch.Tensor]:
-    """The parameters of ``module`` that are not parts, by name."""
+    """The parameters of ``module`` that are neither parts nor replica
+    copies, by name."""
     return {n: p for n, p in module.named_parameters()
-            if shard_info(p) is None}
+            if shard_info(p) is None and replica_of(p) is None}
 
 
 def shard_info(p: torch.Tensor):
@@ -195,9 +208,34 @@ def shard_info(p: torch.Tensor):
 
 def sharded_parameters(module: nn.Module) -> Dict[str, ShardedParameter]:
     """Every :class:`ShardedParameter` of ``module`` by its state-dict
-    key."""
+    key, replica copies (:func:`replicate`) left out."""
     return {name: m for name, m in module.named_modules()
-            if isinstance(m, ShardedParameter)}
+            if isinstance(m, ShardedParameter) and replica_of(m) is None}
+
+
+def logical_owner(p):
+    """The logical tensor ``p`` is a piece of: the :class:`ShardedParameter`
+    owning it (or its replica-0 source), else that source, else ``p``."""
+    src = replica_of(p)
+    src = p if src is None else src
+    info = shard_info(src)
+    return src if info is None else info[0]
+
+
+def covers_once(p) -> bool:
+    """Whether ``p`` is among the tensors that hold its logical tensor
+    exactly once: not a replica copy (:func:`replicate`), and not a part
+    of a replica other than 0."""
+    if replica_of(p) is not None:
+        return False
+    info = shard_info(p)
+    return info is None or info[0].parts[info[1]].replica == 0
+
+
+def replica_of(p):
+    """The replica-0 tensor (or :class:`ShardedParameter`) a replica copy
+    (:func:`replicate`) was made from, else None."""
+    return getattr(p, "replica_of", None)
 
 
 class _TieReplicas(torch.autograd.Function):
@@ -233,12 +271,12 @@ def tie_replicas(copies: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
 
 
 def place_on_stage(module: nn.Module, stage: int,
-                   devices: Sequence[torch.device]):
-    """Place ``module`` on pipeline stage ``stage`` of replica 0, whose
-    tensor-parallel shards lie on ``devices``: every
+                   devices: Sequence[torch.device], replica: int = 0):
+    """Place ``module`` on pipeline stage ``stage`` of replica
+    ``replica``, whose tensor-parallel shards lie on ``devices``: every
     :class:`ShardedParameter`'s parts there (:meth:`ShardedParameter.
     relocate`); every other parameter and buffer on ``devices[0]``, each
-    parameter marked with its mesh position ``(0, stage, 0)``
+    parameter marked with its mesh position ``(replica, stage, 0)``
     (``mesh_position``, which :func:`weight_bytes_by_position` reads);
     and each submodule with a ``stage_devices`` attribute told
     ``devices``."""
@@ -246,32 +284,141 @@ def place_on_stage(module: nn.Module, stage: int,
     root = devices[0]
     for m in module.modules():
         if isinstance(m, ShardedParameter):
-            m.relocate(stage, devices)
+            m.relocate(stage, devices, replica)
         if hasattr(m, "stage_devices"):
             m.stage_devices = devices
         for name, b in m._buffers.items():
             if b is not None and b.device != root:
                 m._buffers[name] = b.to(root)
-    for p in _plain_parameters(module).values():
+    for p in module.parameters():
+        if shard_info(p) is not None:
+            continue
         if p.device != root:
             p.data = p.data.to(root)
-        p.mesh_position = (0, stage, 0)
+        p.mesh_position = (replica, stage, 0)
 
 
 def weight_bytes_by_position(module: nn.Module) -> Dict[Tuple[int, ...], int]:
     """Bytes of the parameters each mesh position holds: the parts, and
-    the whole parameters :func:`place_on_stage` marked, counted from
-    their tensors (what each position's device would hold on distinct
-    devices)."""
+    the whole parameters :func:`place_on_stage` marked, of every replica,
+    counted from their tensors (what each position's device would hold
+    on distinct devices)."""
     out: Dict[Tuple[int, ...], int] = {}
 
     def add(position, t):
         out[position] = out.get(position, 0) + t.numel() * t.element_size()
 
-    for sp in sharded_parameters(module).values():
-        for t, p in zip(sp, sp.parts):
-            add(p.position, t)
-    for p in _plain_parameters(module).values():
-        if getattr(p, "mesh_position", None) is not None:
+    for sp in module.modules():
+        if isinstance(sp, ShardedParameter):
+            for t, p in zip(sp, sp.parts):
+                add(p.position, t)
+    for p in module.parameters():
+        if (shard_info(p) is None
+                and getattr(p, "mesh_position", None) is not None):
             add(p.mesh_position, p)
     return dict(sorted(out.items()))
+
+
+# ---------------------------------------------------------------------------
+# dp replicas of a module tree
+# ---------------------------------------------------------------------------
+
+def replicate(obj):
+    """A deep copy of ``obj`` (a module, or a list or tuple holding
+    modules; references between them are kept inside the copy) whose
+    every parameter carries ``replica_of``: the parameter it was copied
+    from.  The copy's :class:`ShardedParameter` parts point at their own
+    owner (``shard``); place the copy with :func:`place_on_stage`."""
+    memo: dict = {}
+    out = copy.deepcopy(obj, memo)
+    roots = obj if isinstance(obj, (list, tuple)) else [obj]
+    for root in roots:
+        if not isinstance(root, nn.Module):
+            continue
+        for p in root.parameters():
+            c = memo.get(id(p))
+            if c is not None:
+                c.replica_of = replica_of(p) if replica_of(p) is not None \
+                    else p
+        for m in root.modules():
+            if isinstance(m, ShardedParameter) and id(m) in memo:
+                c = memo[id(m)]
+                # a plain attribute: a module assigned as one would
+                # register as a submodule
+                object.__setattr__(c, "replica_of", m)
+                for k, t in enumerate(c):
+                    t.shard = (c, k)
+    return out
+
+
+@torch.no_grad()
+def sync_replicas(module: nn.Module):
+    """Copy every replica copy's source (``replica_of``) into it: the
+    replicas of ``module`` hold replica 0's values again."""
+    for p in module.parameters():
+        src = replica_of(p)
+        if src is not None:
+            p.copy_(src if src.device == p.device else src.to(p.device))
+
+
+def param_slots(modules: Sequence[nn.Module]) -> List[Tuple[nn.Module, str]]:
+    """Every ``(module, name)`` holding a parameter under ``modules``, in
+    module order (each module once): the slots :class:`Bound` fills.  The
+    copies :func:`replicate` makes list theirs in the same order."""
+    slots, seen = [], set()
+    for root in modules:
+        for m in root.modules():
+            if id(m) in seen:
+                continue
+            seen.add(id(m))
+            slots.extend((m, n) for n, t in m._parameters.items()
+                         if t is not None)
+    return slots
+
+
+def tie_slots(replica_slots: Sequence[Sequence[Tuple[nn.Module, str]]]
+              ) -> List[List[torch.Tensor]]:
+    """The tensors of each replica's slots tied slot by slot
+    (:func:`tie_replicas`): ``out[r][k]`` stands for replica ``r``'s
+    tensor in slot ``k``; in the backward every replica's copy receives
+    the sum of all replicas' gradients, added in replica order."""
+    copies = [[m._parameters[n] for m, n in slots] for slots in replica_slots]
+    tied = [tie_replicas(list(ts)) for ts in zip(*copies)]
+    return [list(ts) for ts in zip(*tied)] if tied else [[] for _ in copies]
+
+
+_BOUND: List["Bound"] = []
+
+
+class Bound:
+    """A context in which ``slots`` hold ``tensors`` (their ``_parameters``
+    entries swapped, and put back on leaving): a replica's modules run on
+    its tied views.  Entering an active one again is a no-op, so a
+    recompute (``fleet.recompute``) re-enters the contexts its forward
+    ran in (:func:`bound_now`)."""
+
+    def __init__(self, slots, tensors):
+        self.slots, self.tensors = list(slots), list(tensors)
+        self._depth, self._saved = 0, None
+
+    def __enter__(self):
+        if self._depth == 0:
+            self._saved = [m._parameters[n] for m, n in self.slots]
+            for (m, n), t in zip(self.slots, self.tensors):
+                m._parameters[n] = t
+            _BOUND.append(self)
+        self._depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        self._depth -= 1
+        if self._depth == 0:
+            for (m, n), t in zip(self.slots, self._saved):
+                m._parameters[n] = t
+            self._saved = None
+            _BOUND.remove(self)
+
+
+def bound_now() -> Tuple[Bound, ...]:
+    """The :class:`Bound` contexts active now, outermost first."""
+    return tuple(_BOUND)

@@ -65,6 +65,7 @@ per-layer key.  Nothing is read back from the card.
 """
 from __future__ import annotations
 
+from contextlib import ExitStack
 from dataclasses import dataclass
 from functools import partial
 from typing import Mapping, NamedTuple, Optional
@@ -87,8 +88,8 @@ from ..distributed.fleet.layers.mpu.mp_layers import (
 )
 from ..distributed.serving_mesh import broadcast, qkv_columns, reduce_sum
 from ..distributed.shards import (
-    Part, ShardedParameter, load_state, place_on_stage, sharded_parameters,
-    tie_replicas,
+    Part, ShardedParameter, bound_now, load_state, place_on_stage,
+    sharded_parameters, tie_replicas,
 )
 from ..nn import functional as NF
 from ..nn.functional import (
@@ -2034,15 +2035,21 @@ class GPTModel(nn.Module):
 
 
 def _amp_replayed(fn, st):
-    """``fn`` run under the amp state ``st`` had when this was made: a
-    recompute runs in the backward, outside the forward's ``auto_cast``,
-    and must cast as the forward did."""
+    """``fn`` run under the amp state ``st`` had when this was made, and
+    in the replica bindings active then (``shards.bound_now``: a dp
+    replica's tied copies): a recompute runs in the backward, outside the
+    forward's ``auto_cast`` and bindings, and must run as the forward
+    did."""
     state = (st.enabled, st.custom_white, st.custom_black, st.level,
              st.dtype)
+    bindings = bound_now()
 
     def run(*args):
-        with auto_cast(*state):
-            return fn(*args)
+        with ExitStack() as stack:
+            for b in bindings:
+                stack.enter_context(b)
+            with auto_cast(*state):
+                return fn(*args)
     return run
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..distributed.shards import shard_info
+from ..distributed.shards import covers_once
 
 __all__ = ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
            "clip_grad_norm_"]
@@ -62,9 +62,10 @@ class ClipGradByGlobalNorm:
     logical tensors' norm, as the reference's ``HybridParallelOptimizer``
     promises: each logical tensor's squares count once -- its replica-0
     parts (the parts of one replica cover it exactly), not the other
-    replicas' copies.  The squares are summed on each device, in order,
-    and the devices' sums on the first device; each device scales its
-    gradients by its copy of the one scale."""
+    replicas' parts or copies (``shards.covers_once``).  The squares are
+    summed on each device, in order, and the devices' sums on the first
+    device; each device scales its gradients by its copy of the one
+    scale."""
 
     def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = clip_norm
@@ -76,8 +77,7 @@ class ClipGradByGlobalNorm:
         for p, g in params_grads:
             if g is None:
                 continue
-            info = shard_info(p)
-            if info is not None and info[0].parts[info[1]].replica != 0:
+            if not covers_once(p):
                 continue
             v = torch.sum(torch.square(g.float()))
             d = g.device

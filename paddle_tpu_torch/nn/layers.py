@@ -110,11 +110,14 @@ def init_weights(module: nn.Module, seed: int, std: Optional[float] = None):
     drawn in module order from ``torch.Generator(seed)`` on the first
     weight's device (and copied to each weight's own): N(0, ``std``), or
     with ``std`` None Xavier-uniform over a Linear's ``[in, out]``.
-    Biases 0; LayerNorms keep gain 1, shift 0."""
+    Biases 0; LayerNorms keep gain 1, shift 0.  A dp replica's copies
+    (``shards.replicate``) draw nothing: they take replica 0's values."""
     from ..distributed.fleet.layers.mpu.mp_layers import (
         ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     )
-    from ..distributed.shards import ShardedParameter
+    from ..distributed.shards import (
+        ShardedParameter, replica_of, sync_replicas,
+    )
 
     linears = (Linear, ColumnParallelLinear, RowParallelLinear)
     gen = None
@@ -123,6 +126,8 @@ def init_weights(module: nn.Module, seed: int, std: Optional[float] = None):
                                         VocabParallelEmbedding)):
             continue
         w = m.weight
+        if replica_of(w) is not None:
+            continue
         placed = isinstance(w, ShardedParameter)
         shape = w.whole_shape if placed else w.shape
         if gen is None:
@@ -146,6 +151,7 @@ def init_weights(module: nn.Module, seed: int, std: Optional[float] = None):
                                         dtype=bias.whole_dtype))
         elif bias is not None:
             bias.zero_()
+    sync_replicas(module)
 
 
 @torch.no_grad()

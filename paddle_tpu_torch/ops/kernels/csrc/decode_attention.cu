@@ -84,6 +84,7 @@
 
 #include <type_traits>
 
+#include "device_guard.cuh"
 #include "vec16.cuh"
 
 namespace {
@@ -532,7 +533,8 @@ int run_split(int device, int dtype, int head_dim, const SplitArgs<Addr>& a,
   // scales with an int8 cache, and only then
   if ((dtype == 2) != (a.k_scale != nullptr && a.v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.err;
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_split<float, float>(head_dim, a, capacity, keys_per_split, s);
@@ -579,7 +581,8 @@ int info_head_dim(int head_dim, int* info) {
 
 template <typename Addr>
 int kernel_info(int device, int dtype, int head_dim, int* info) {
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.err;
   if (e != cudaSuccess) return (int)e;
   if (dtype == 0) return info_head_dim<float, float, Addr>(head_dim, info);
   if (dtype == 1) return info_head_dim<__nv_bfloat16, __nv_bfloat16, Addr>(head_dim, info);

@@ -101,6 +101,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "vec16.cuh"
 
 namespace {
@@ -1325,7 +1326,8 @@ int run(int which, int device, int dtype, int head_dim, int causal, int batch, i
   if (seq < 1 || (which != FWD && seq % BLK != 0) || batch < 1 || heads < 1 ||
       (long long)batch * heads > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.err;
   if (e != cudaSuccess) return (int)e;
   Args a;
   for (int i = 0; i < NUM_OPERANDS; ++i)
@@ -1391,7 +1393,8 @@ int flash_attention_bwd_dq(int device, int dtype, int head_dim, int causal, int 
 int flash_attention_kernel_info(int device, int which, int dtype, int head_dim, int* info) {
   const Kernel k = select(which, dtype, head_dim);
   if (!k.fn) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.err;
   if (e == cudaSuccess) e = allow_smem(k);
   cudaFuncAttributes attr;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, k.fn);

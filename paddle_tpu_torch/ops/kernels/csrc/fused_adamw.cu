@@ -54,6 +54,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "vec16.cuh"
 
 namespace {
@@ -215,7 +216,8 @@ int fused_adamw(int device, int dtype, void* p, const void* g, void* m1, void* m
                 long long n, const float* scalars, const unsigned char* finite,
                 const float* pows, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.err;
   if (e != cudaSuccess) return (int)e;
   const int vec = ((uintptr_t)p | (uintptr_t)g | (uintptr_t)m1 | (uintptr_t)m2) % 16 == 0;
   const Args a = make_args(p, g, m1, m2, n, vec, scalars, finite, pows);
@@ -238,7 +240,8 @@ int fused_adamw_master(int device, int dtype, void* p, const void* g, float* mas
                        float* m1, float* m2, long long n, const float* scalars,
                        const unsigned char* finite, const float* pows, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.err;
   if (e != cudaSuccess) return (int)e;
   const int vec = ((uintptr_t)p | (uintptr_t)g | (uintptr_t)master | (uintptr_t)m1 |
                    (uintptr_t)m2) % 16 == 0;

@@ -94,6 +94,8 @@
 
 #include <type_traits>
 
+#include "device_guard.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -887,7 +889,8 @@ int rpa_forward(int device, int dtype, const void* q, const void* k_pool,
       q_row_stride < (long long)num_heads * head_dim ||
       (dtype == 2) != (k_scale != nullptr && v_scale != nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.err;
   if (e != cudaSuccess) return (int)e;
   const Args a{q, k_pool, v_pool, k_scale, v_scale, out, blk_tok, tok_blk, tok_row, blk_base,
                blk_rows, wl_blk, wl_page, wl_pageslot, n_items, workspace, tickets,
@@ -904,7 +907,8 @@ int rpa_forward(int device, int dtype, const void* q, const void* k_pool,
 // CTA (bytes), [1] registers per thread, [2] CTAs resident per SM, [3]
 // threads per CTA, [4] local memory per thread (bytes), [5] keys per split.
 int rpa_kernel_info(int device, int dtype, int head_dim, int* info) {
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.err;
   if (e != cudaSuccess) return (int)e;
   if (dtype == 0) return info_head_dim<float, float>(head_dim, info);
   if (dtype == 1) return info_head_dim<bf16, bf16>(head_dim, info);

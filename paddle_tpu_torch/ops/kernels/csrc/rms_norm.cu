@@ -33,6 +33,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "vec16.cuh"
 
 namespace {
@@ -246,7 +247,8 @@ int fused_add_norm(int device, int layer_norm, int dtype, int param_dtype, const
                    const void* r, const void* g, const void* b, void* out, void* h,
                    long long rows, int hidden, float eps, void* stream) {
   if (rows < 1 || rows > 0x7fffffffLL || hidden < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t e = guard.err;
   if (e != cudaSuccess) return (int)e;
   const int item = dtype == 0 ? 4 : 2;
   const bool vec = ((uintptr_t)x | (uintptr_t)r | (uintptr_t)out | (uintptr_t)h) % 16 == 0 &&

@@ -1,5 +1,5 @@
 from . import lr
 from .fused_step import FusedTrainStep
-from .optimizers import AdamW
+from .optimizers import AdamW, Momentum, SGD
 
-__all__ = ["AdamW", "FusedTrainStep", "lr"]
+__all__ = ["AdamW", "FusedTrainStep", "Momentum", "SGD", "lr"]

@@ -1,5 +1,6 @@
 """AdamW with decoupled weight decay (port of ``AdamW``/``Adam`` of
-``paddle_tpu/optimizer/optimizers.py``), as a ``torch.optim.Optimizer``.
+``paddle_tpu/optimizer/optimizers.py``), as a ``torch.optim.Optimizer``,
+and ``SGD`` and ``Momentum`` (:class:`SGD`, :class:`Momentum`).
 
 Every parameter's update is one call of
 ``ops/kernels/fused_adamw.fused_adamw_update``: the Hopper kernel for a
@@ -47,11 +48,11 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..distributed.shards import shard_info
+from ..distributed.shards import replica_of, shard_info
 from ..ops.kernels.fused_adamw import fused_adamw_update
 from .lr import LRScheduler
 
-__all__ = ["AdamW"]
+__all__ = ["AdamW", "SGD", "Momentum", "PlainOptimizer"]
 
 _LOW = (torch.bfloat16, torch.float16)
 
@@ -70,6 +71,19 @@ def _split_names(parameters):
         params.append(p)
         names.append(name)
     return params, names
+
+
+@torch.no_grad()
+def copy_replica_state(opt, names):
+    """Give each dp replica copy among ``opt``'s parameters the state
+    ``names`` of its replica-0 source (after a load)."""
+    for p in (p for g in opt.param_groups for p in g["params"]):
+        src = replica_of(p)
+        if src is None:
+            continue
+        for name in names:
+            if name in opt.state[p] and name in opt.state[src]:
+                opt.state[p][name].copy_(opt.state[src][name])
 
 
 class AdamW(torch.optim.Optimizer):
@@ -284,9 +298,11 @@ class AdamW(torch.optim.Optimizer):
         """The parameters as the state dict indexes them: one entry a
         logical tensor, in the order each first appears -- a parameter,
         or a placed model's ``ShardedParameter`` (every part of it must be
-        in this optimizer)."""
+        in this optimizer); a dp replica's copies are left out."""
         out, seen = [], set()
         for p in self._params():
+            if replica_of(p) is not None:
+                continue
             info = shard_info(p)
             if info is None:
                 out.append(p)
@@ -353,6 +369,7 @@ class AdamW(torch.optim.Optimizer):
                 cuts = entry.cut_whole(v) if placed else [v]
                 for p, c in zip(parts, cuts):
                     self.state[p][name].copy_(c)
+        copy_replica_state(self, ("moment1", "moment2", "master"))
         for key, attr in (("aux_0", "beta1_pow"), ("aux_1", "beta2_pow")):
             if key in state_dict:
                 v = state_dict[key]
@@ -371,3 +388,189 @@ class AdamW(torch.optim.Optimizer):
         self.zero_grad(set_to_none=not set_to_zero)
 
     clear_gradients = clear_grad
+
+
+class PlainOptimizer(torch.optim.Optimizer):
+    """The base of the optimizers the JAX package updates with plain array
+    expressions, outside any Pallas kernel (:class:`SGD`,
+    :class:`Momentum`, the fleet meta-optimizers): the reference's
+    ``Optimizer`` protocol as a ``torch.optim.Optimizer``.
+
+    - ``parameters`` (required): parameters, ``(name, param)`` pairs or
+      dicts of either as param groups, as :class:`AdamW` takes them;
+    - ``learning_rate``: a float or an ``LRScheduler``, read at every
+      ``step()``;
+    - ``weight_decay``: None, or a float ``c``: the reference's L2 term
+      ``g + c * p`` (``_decayed_grad``) added to each gradient; a
+      regularizer object raises;
+    - ``grad_clip`` sees every ``(param, grad)`` pair before any update.
+
+    Each of :attr:`ACCUMULATORS` is an fp32 zero tensor a parameter, made
+    when the parameter joins; updates run in fp32 and are cast back to
+    the parameter's dtype.  ``state_dict()`` keys them ``{name}_{i}``
+    (``i`` a logical tensor's index, as :class:`AdamW` counts them) with
+    ``LR_Scheduler`` under a scheduler."""
+
+    ACCUMULATORS: tuple = ()
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None):
+        if parameters is None:
+            raise ValueError(f"{type(self).__name__}: pass parameters= (the "
+                             "port has no global program to take them "
+                             "from)")
+        if weight_decay is not None and not isinstance(weight_decay,
+                                                       (int, float)):
+            raise NotImplementedError(
+                f"{type(self).__name__}(weight_decay="
+                f"{type(weight_decay).__name__}): regularizer objects are "
+                "not ported (ROADMAP.md queue 1, item 10); a float is the "
+                "L2 coefficient")
+        self._learning_rate = learning_rate
+        self._weight_decay = (None if weight_decay is None
+                              else float(weight_decay))
+        self._grad_clip = grad_clip
+        self._names = {}
+        sched = isinstance(learning_rate, LRScheduler)
+        super().__init__(parameters, dict(
+            lr=learning_rate() if sched else float(learning_rate)))
+
+    def add_param_group(self, param_group):
+        items = param_group["params"]
+        items = [items] if isinstance(items, torch.Tensor) else list(items)
+        params, names = _split_names(items)
+        super().add_param_group({**param_group, "params": params})
+        for p, name in zip(params, names):
+            self._names[id(p)] = name
+            for acc in self.ACCUMULATORS:
+                self.state[p][acc] = torch.zeros_like(
+                    p, dtype=torch.float32,
+                    memory_format=torch.contiguous_format)
+
+    def _params(self):
+        return [p for g in self.param_groups for p in g["params"]]
+
+    @property
+    def _parameter_list(self):
+        return self._params()
+
+    def name_of(self, p) -> str:
+        return self._names[id(p)]
+
+    def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
+        return float(self.param_groups[0]["lr"])
+
+    def _decayed_grad(self, p, g32):
+        """The reference's ``_decayed_grad``: ``g + c * p``, the product in
+        the parameter's dtype."""
+        if self._weight_decay is None:
+            return g32
+        return g32 + self._weight_decay * p
+
+    @torch.no_grad()
+    def step(self):
+        params_grads = [(p, p.grad) for p in self._params()
+                        if p.grad is not None]
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        self._update(params_grads)
+
+    def _update(self, params_grads):
+        lr = self.get_lr()
+        for p, g in params_grads:
+            self._apply_one(p, g, lr)
+
+    def _apply_one(self, p, g, lr):
+        raise NotImplementedError
+
+    def clear_grad(self, set_to_zero=False):
+        self.zero_grad(set_to_none=not set_to_zero)
+
+    clear_gradients = clear_grad
+
+    def _logical(self):
+        out, seen = [], set()
+        for p in self._params():
+            if replica_of(p) is not None:
+                continue
+            info = shard_info(p)
+            entry = p if info is None else info[0]
+            if id(entry) not in seen:
+                seen.add(id(entry))
+                out.append(entry)
+        return out
+
+    def state_dict(self):
+        sd = {}
+        entries = self._logical()
+        for name in self.ACCUMULATORS:
+            for i, entry in enumerate(entries):
+                if isinstance(entry, torch.Tensor):
+                    sd[f"{name}_{i}"] = self.state[entry][name]
+                else:
+                    sd[f"{name}_{i}"] = entry.gather(
+                        [self.state[p][name] for p in entry])
+        if isinstance(self._learning_rate, LRScheduler):
+            sd["LR_Scheduler"] = self._learning_rate.state_dict()
+        return sd
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict: Mapping):
+        for i, entry in enumerate(self._logical()):
+            placed = not isinstance(entry, torch.Tensor)
+            parts = list(entry) if placed else [entry]
+            for name in self.ACCUMULATORS:
+                key = f"{name}_{i}"
+                if key not in state_dict:
+                    continue
+                v = state_dict[key]
+                v = v if isinstance(v, torch.Tensor) else \
+                    torch.from_numpy(np.array(v, np.float32))
+                cuts = entry.cut_whole(v) if placed else [v]
+                for p, c in zip(parts, cuts):
+                    self.state[p][name].copy_(c)
+        copy_replica_state(self, self.ACCUMULATORS)
+        if "LR_Scheduler" in state_dict and isinstance(self._learning_rate,
+                                                       LRScheduler):
+            self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
+
+    load_state_dict = set_state_dict
+
+
+class SGD(PlainOptimizer):
+    """``SGD(learning_rate=0.001, parameters=None, weight_decay=None,
+    grad_clip=None, name=None)``: ``p - lr * (g + c p)`` in fp32."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _apply_one(self, p, g, lr):
+        g32 = self._decayed_grad(p, g.float())
+        p.copy_((p.float() - lr * g32).to(p.dtype))
+
+
+class Momentum(PlainOptimizer):
+    """``Momentum(learning_rate=0.001, momentum=0.9, parameters=None,
+    use_nesterov=False, weight_decay=None, grad_clip=None, name=None)``:
+    ``v = m v + g``; ``p - lr * v``, or with ``use_nesterov`` ``p - lr *
+    (g + m v)``, in fp32 (``g`` with the L2 term)."""
+
+    ACCUMULATORS = ("velocity",)
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        self._momentum = momentum
+        self._nesterov = bool(use_nesterov)
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _apply_one(self, p, g, lr):
+        v = self.state[p]["velocity"]
+        g32 = self._decayed_grad(p, g.float())
+        new_v = self._momentum * v + g32
+        update = g32 + self._momentum * new_v if self._nesterov else new_v
+        v.copy_(new_v)
+        p.copy_((p.float() - lr * update).to(p.dtype))

@@ -287,7 +287,7 @@ def _pipeline_layer(**kw):
     from paddle_tpu_torch.nn.layers import Linear
 
     return PipelineLayer([LayerDesc(Linear, 4, 4, device="cpu")
-                          for _ in range(2)], num_stages=2,
+                          for _ in range(4)], num_stages=2,
                          loss_fn=lambda o, y: ((o - y) ** 2).mean(), **kw)
 
 
@@ -314,6 +314,42 @@ def _fleet_train_batch(fleet, st):
     assert torch.isfinite(model.train_batch((ids, ids), opt))
 
 
+def _toy_train_batch(fleet, st, **kw):
+    """The toy pipeline (with ``kw``) through ``distributed_model`` (under
+    ``fleet.init``) or ``PipelineParallel`` runs a train_batch."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineParallel,
+    )
+    from paddle_tpu_torch.nn.layers import init_weights
+
+    pl = _pipeline_layer(**kw)
+    init_weights(pl, 0)
+
+    class _Pipe:
+        pipeline_configs = {"accumulate_steps": 2}
+
+    model = fleet.distributed_model(pl) if fleet else PipelineParallel(
+        pl, strategy=_Pipe())
+    x = torch.ones((4, 4))
+    assert torch.isfinite(model.train_batch(
+        (x, x), AdamW(parameters=pl.parameters())))
+
+
+def _meta_step(flag, want, **configs):
+    """``distributed_optimizer`` under ``flag`` wraps ``Momentum`` in the
+    meta-optimizer ``want``, which steps."""
+    from paddle_tpu_torch.optimizer import Momentum
+
+    def use(fleet, st):
+        p = _params()
+        opt = fleet.distributed_optimizer(Momentum(0.1, parameters=p))
+        assert type(opt._inner_opt).__name__ == want
+        p[0].grad = torch.ones(4)
+        opt.step()
+        assert bool((p[0] != 0).any()) or flag == "gradient_merge"
+    _fleet(_PP_MP, use, **{flag: True}, **configs)
+
+
 _PP_MP = {"dp_degree": 1, "pp_degree": 2, "mp_degree": 2}
 
 
@@ -326,23 +362,14 @@ REFUSALS = {
                                   "mesh training"),
     "layered gpt on a sharding axis": (
         lambda: _layered_on({"sharding": 2}), "mesh training"),
-    "fleet distributed_model dp": (
-        lambda: _fleet({"dp_degree": 2, "pp_degree": 2},
+    "fleet distributed_model sharding": (
+        lambda: _fleet({"sharding_degree": 2},
                        lambda f, st: f.distributed_model(_pipeline_layer())),
         "fleet"),
-    "pipeline layer recompute_interval": (
-        lambda: _pipeline_layer(recompute_interval=1), "fleet"),
-    "pipeline layer virtual stages": (
-        lambda: _pipeline_layer(num_virtual_pipeline_stages=2), "fleet"),
-    "fleet lars": (lambda: _fleet(_PP_MP, lambda f, st: (
-        f.distributed_optimizer(AdamW(parameters=_params()))), lars=True),
-        "long-tail"),
-    "fleet dgc": (lambda: _fleet(_PP_MP, lambda f, st: (
-        f.distributed_optimizer(AdamW(parameters=_params()))), dgc=True),
-        "long-tail"),
-    "fleet localsgd": (lambda: _fleet(_PP_MP, lambda f, st: (
-        f.distributed_optimizer(AdamW(parameters=_params()))),
-        localsgd=True), "long-tail"),
+    "fleet distributed_model sep": (
+        lambda: _fleet({"sep_degree": 2},
+                       lambda f, st: f.distributed_model(_pipeline_layer())),
+        "fleet"),
     "fleet init_server": (
         lambda: __import__("paddle_tpu_torch.distributed.fleet",
                            fromlist=["x"]).init_server(), "long-tail"),
@@ -395,6 +422,23 @@ PORTED = {
         lambda: _predictor("serving"), 3, "predictor"),
     "fleet train_batch at pp 2 x mp 2": (
         lambda: _fleet(_PP_MP, _fleet_train_batch), 9, "fleet"),
+    "fleet distributed_model dp": (
+        lambda: _fleet({"dp_degree": 2, "pp_degree": 2}, _toy_train_batch),
+        9, "fleet"),
+    "pipeline layer recompute_interval": (
+        lambda: _toy_train_batch(None, None, recompute_interval=1), 9,
+        "fleet"),
+    "pipeline layer virtual stages": (
+        lambda: _toy_train_batch(None, None, num_virtual_pipeline_stages=2),
+        9, "fleet"),
+    "fleet lars": (lambda: _meta_step("lars", "LarsMomentum"), 9, "fleet"),
+    "fleet dgc": (lambda: _meta_step("dgc", "DGCMomentum"), 9, "fleet"),
+    "fleet localsgd": (lambda: _meta_step("localsgd", "LocalSGD"), 9,
+                       "fleet"),
+    "fleet gradient_merge": (
+        lambda: _meta_step("gradient_merge", "GradientMerge",
+                           gradient_merge_configs={"k_steps": 2}), 9,
+        "fleet"),
 }
 
 
@@ -409,6 +453,15 @@ def test_lora_pool_defaults_to_the_layered_layout():
         with pytest.raises(ValueError, match="layout"):
             ServingEngine(cls(cfg, device="cpu"), lora=pool, num_slots=2,
                           page_size=16, max_context=64)
+
+
+@pytest.mark.parametrize("flag", ["lars", "dgc"])
+def test_lars_and_dgc_refuse_adamw(flag):
+    """The reference's selection pass: LARS and DGC take a momentum-family
+    optimizer; ``AdamW`` raises its ``ValueError``."""
+    with pytest.raises(ValueError, match="momentum-family"):
+        _fleet(_PP_MP, lambda f, st: f.distributed_optimizer(
+            AdamW(parameters=_params())), **{flag: True})
 
 
 @pytest.mark.parametrize("knob", sorted(REFUSALS) + sorted(PORTED))

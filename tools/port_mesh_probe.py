@@ -16,11 +16,19 @@ process, which builds its tree's kernels), so the two compare within one
 call.  ``--fleet`` runs phase 48 alone (the fleet recipe over the
 layered GPT at TP=2 PP=2, and its 2-layer copy against the CPU); with
 ``--cards 4`` its four positions are four distinct cards, one a
-position, as config 3 lays them out.  Run from the repository root:
+position, as config 3 lays them out.  ``--fleet`` with ``--dp N``,
+``--recompute-interval K`` or ``--virtual V`` runs phase 49 alone at
+that layout instead (dp N x pp 2 x mp 2, 8 N rows; phase 49's own is
+``--dp 2 --recompute-interval 1 --virtual 2``), its meta-optimizer runs
+at the same dp; with ``--cards 4`` its 4 N positions take the four cards
+in mesh order, N of them a card (a (shard 0, shard 1) pair a card at N
+= 2).  Run from the repository root:
 
     python3 tools/port_mesh_probe.py [--steps N] [--parent DIR]
     python3 tools/port_mesh_probe.py --cards 4
     python3 tools/port_mesh_probe.py --fleet [--cards 4]
+    python3 tools/port_mesh_probe.py --fleet --dp 2 --recompute-interval 1 \
+        --virtual 2 [--cards 4]
 
 It exits nonzero when a check fails or there is no card.
 """
@@ -68,8 +76,19 @@ def main() -> int:
     ap.add_argument("--cards", type=int, default=0,
                     help="phase 47 alone over this many distinct cards")
     ap.add_argument("--fleet", action="store_true",
-                    help="phase 48 alone")
+                    help="phase 48 alone (phase 49 with --dp, "
+                    "--recompute-interval or --virtual)")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="phase 49's replicas (with --fleet)")
+    ap.add_argument("--recompute-interval", type=int, default=None,
+                    help="phase 49's recompute_interval (with --fleet)")
+    ap.add_argument("--virtual", type=int, default=None,
+                    help="phase 49's virtual stages (with --fleet)")
     args = ap.parse_args()
+    dp_run = bool(args.dp) or args.recompute_interval is not None \
+        or args.virtual is not None
+    if dp_run and not args.fleet:
+        ap.error("--dp, --recompute-interval and --virtual go with --fleet")
     import torch
 
     if not torch.cuda.is_available():
@@ -91,7 +110,18 @@ def main() -> int:
     phases = (("45", cs.phase_mesh_kernels),
               ("46", lambda p: cs.phase_mesh_train(p, runs)),
               ("47", lambda p: cs.phase_mesh_card_vs_cpu(p, devices)))
-    if args.fleet:
+    if args.fleet and dp_run:
+        dp = args.dp or cs.FLEET_DP_HYBRID["dp_degree"]
+        cs.FLEET_DP_HYBRID = dict(cs.FLEET_DP_HYBRID, dp_degree=dp)
+        cs.FLEET_DP_BATCH = 8 * dp
+        if args.recompute_interval is not None:
+            cs.FLEET_DP_RECOMPUTE = args.recompute_interval
+        if args.virtual is not None:
+            cs.FLEET_DP_VIRTUAL = args.virtual
+        cards = ([f"cuda:{j // dp}" for j in range(4 * dp)]
+                 if args.cards >= 4 else None)
+        phases = (("49", lambda p: cs.phase_fleet_dp(p, cards)),)
+    elif args.fleet:
         cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
                  else None)
         phases = (("48", lambda p: cs.phase_fleet_train(p, cards)),)
