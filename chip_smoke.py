@@ -413,7 +413,17 @@ result line:
    each tensor's 99.9th percentile within 1e-6); then on the card one
    O1 step with a ``GradScaler`` and an inf in one shard's gradient:
    every part, moment and beta power unchanged, one AdamW launch a part,
-   the scale halved.
+   the scale halved;
+48-50. fleet -- ``BASELINE.json`` config 3 through the reference's fleet
+   recipe: at TP=2 PP=2 (48); at dp 2 with recompute, virtual stages
+   and the meta-optimizers (49); through ``group_sharded_parallel`` at pp
+   2 x sharding 2 x mp 2, ZeRO ``os`` then ``p_g_os`` from the same
+   weights (50: step 1 against the unplaced layered model, exact flash
+   launches and one AdamW launch a slice, each level's parameter,
+   gradient and state bytes against their arithmetic, the levels
+   bit-equal, ``p_g_os``'s peak below ``os``'s); each with a 2-layer fp32
+   copy on the card against the CPU (phase 50's at every level, the dp
+   fallback, a skipped ``GradScaler`` step and the stacked GPT).
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -427,14 +437,16 @@ form's row its times at BERT-base and, beside them, at GPT-3 1.3B; the
 fp32 form's row, launched by phase 31, its time with the flag and the
 library's with ``found_inf``; the flash rows their launches on phases 6,
 31 and 40, the forward's also on 35 and 37, and, with the bf16 AdamW
-row, on phase 46's mesh runs and (fp32) phase 47's; the fp32 AdamW row
-its launches on phases 31 and 47; the decode and paged rows,
+row, on phase 46's mesh runs and (fp32) phase 47's, and on phases
+48-50's fleet steps (``train_fleet_*``); the fp32 AdamW row its launches
+on phases 31, 47 and 48-50's fp32 copies; the decode and paged rows,
 bf16 and int8, theirs on the stacked and the layered GPT's paths), and
 as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -573,6 +585,7 @@ def import_port():
         SpeculativeEngine
     from paddle_tpu_torch.serving import sharded
     from paddle_tpu_torch.distributed import fleet, mesh, serving_mesh, shards
+    from paddle_tpu_torch.distributed import sharding
     from paddle_tpu_torch.models import gpt as gpt_blocks
     from paddle_tpu_torch.nn.layers import LayerNorm, init_weights
 
@@ -593,7 +606,7 @@ def import_port():
                 sharded=sharded, serving_mesh=serving_mesh, mesh=mesh,
                 shards=shards, fleet=fleet, gpt_blocks=gpt_blocks,
                 LayerNorm=LayerNorm, init_weights=init_weights,
-                Momentum=Momentum)
+                Momentum=Momentum, sharding=sharding)
 
 
 def _check(cond, msg):
@@ -6581,8 +6594,9 @@ def fleet_part_count(cfg, mp):
 def fleet_pipeline(port, cfg, devices, dtype, seed, grad_clip=None,
                    hybrid=FLEET_HYBRID, pipe=FLEET_PIPE, recompute_interval=0,
                    virtual=None, flags=None, make_opt=None):
-    """The reference's recipe on ``devices`` (dp x pp x mp names): the
-    global mesh (dp, pp, mp of ``hybrid``) over them, ``fleet.init`` at
+    """The reference's recipe on ``devices`` (dp x pp x sharding x mp
+    names): the global mesh (dp, pp, sharding, mp of ``hybrid``) over
+    them, ``fleet.init`` at
     ``hybrid`` and ``pipe`` (and the strategy ``flags``), a
     ``PipelineLayer`` of [GPTEmbeddings, L x GPTDecoderLayer, LayerNorm,
     the tied GPTLMHead] in two stages (``recompute_interval``,
@@ -6595,7 +6609,8 @@ def fleet_pipeline(port, cfg, devices, dtype, seed, grad_clip=None,
     torch, fleet, G = port["torch"], port["fleet"], port["gpt_blocks"]
     dm = port["mesh"]
     dm.set_mesh(dm.build_mesh({a: hybrid.get(f"{a}_degree", 1)
-                               for a in ("dp", "pp", "mp")}, devices))
+                               for a in ("dp", "pp", "sharding", "mp")},
+                              devices))
     st = fleet.DistributedStrategy()
     st.hybrid_configs = dict(hybrid)
     st.pipeline_configs = dict(pipe)
@@ -6635,15 +6650,9 @@ def _fleet_key(name, num_layers):
 
 
 def _fleet_grads(port, pl):
-    """Every gradient of ``pl``, whole (a cut tensor's gathered), by
-    state-dict key."""
-    shards = port["shards"]
-    out = {k: sp.gather([p.grad for p in sp])
-           for k, sp in shards.sharded_parameters(pl).items()}
-    out.update({k: p.grad for k, p in pl.named_parameters()
-                if shards.shard_info(p) is None
-                and shards.replica_of(p) is None})
-    return out
+    """Every gradient of ``pl``, whole (a cut tensor's gathered, under ZeRO
+    from the slices), by state-dict key."""
+    return port["sharding"].gathered_grads(pl)
 
 
 class _GradCapture:
@@ -7175,6 +7184,501 @@ def _fleet_meta_card_vs_cpu(port, devices):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 50: ZeRO (group_sharded_parallel) at pp 2 x sharding 2 x mp 2
+# ---------------------------------------------------------------------------
+
+# BASELINE.json config 3 through phase 48's recipe, then
+# group_sharded_parallel over a sharding axis of 2 (its users' answer to
+# replicas whose optimizer state does not fit): 16 rows in 4 microbatches
+# of 4, each split 2 + 2 over the two sharding replicas, so flash runs at
+# phase 48's head shard (2, 8, 1024, 128); FLEET_ZERO_STEPS steps at each
+# of FLEET_ZERO_LEVELS from the same weights and batches
+FLEET_ZERO_HYBRID = {"dp_degree": 1, "pp_degree": 2, "sharding_degree": 2,
+                     "mp_degree": 2}
+FLEET_ZERO_PIPE = {"accumulate_steps": 4, "micro_batch_size": 4}
+FLEET_ZERO_BATCH = 16
+FLEET_ZERO_STEPS = 2
+FLEET_ZERO_LEVELS = ("os", "p_g_os")
+# the dp fallback's layout (no sharding axis: ZeRO cuts over dp)
+FLEET_ZERO_DP_HYBRID = {"dp_degree": 2, "pp_degree": 2, "mp_degree": 2}
+
+
+def zero_slice_count(cfg, mp, n=2):
+    """The AdamW launches of one ZeRO step over one ZeRO group, stated
+    before the run: one a slice, every one of a replica's
+    ``fleet_part_count`` part tensors cut into ``n`` (each holds at least
+    n x 16 bytes at GPT-3 1.3B and at the 2-layer copy)."""
+    return n * fleet_part_count(cfg, mp)
+
+
+def zero_bytes_want(level, W, replicas=2):
+    """(parameter, gradient, optimizer-state) bytes over every position of
+    the fleet recipe with ``replicas`` replicas in one ZeRO group, ``W``
+    one replica's weight bytes and moments in the weights' dtype: whole
+    copies until p_g_os, whole gradients until os_g, the two moments per
+    replica without ZeRO and once with it."""
+    R = replicas
+    return {None: (R * W, R * W, 2 * R * W), "os": (R * W, R * W, 2 * W),
+            "os_g": (R * W, W, 2 * W), "p_g_os": (W, W, 2 * W)}[level]
+
+
+def _byte_totals(by_position):
+    return tuple(sum(r[k] for r in by_position.values())
+                 for k in ("params", "grads", "state"))
+
+
+class _ZeroCapture:
+    """The optimizer of a ``train_batch`` that keeps, before stepping, the
+    gradients its ``step`` sees (gathered whole by key, from the slices
+    under ZeRO) and ``state_bytes_by_position`` then."""
+
+    def __init__(self, port, opt, model):
+        self.port, self.opt, self.model = port, opt, model
+        self.grads = self.bytes = None
+
+    def step(self):
+        self.grads = _fleet_grads(self.port, self.model)
+        self.bytes = self.port["shards"].state_bytes_by_position(
+            self.model, self.opt)
+        self.opt.step()
+
+    def clear_grad(self, *args):
+        self.opt.clear_grad(*args)
+
+
+def _to_host(sd):
+    import torch
+
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in sd.items()}
+
+
+def _same_bits(a, b):
+    """The keys of ``a`` and ``b`` and, under each, the same bits."""
+    import torch
+
+    if set(a) != set(b):
+        return False
+    for k, v in a.items():
+        w = b[k]
+        if isinstance(v, dict):
+            if not _same_bits(v, w):
+                return False
+        elif isinstance(v, torch.Tensor):
+            if not torch.equal(v, w.to(v.device)):
+                return False
+        elif v != w:
+            return False
+    return True
+
+
+def phase_fleet_zero(port, devices=None):
+    """Phase 50: the AdamW kernel at the largest ZeRO slice against its
+    plain version; then GPT-3 1.3B bf16 (dropout 0, O1 as phase 6) through
+    phase 48's recipe at FLEET_ZERO_HYBRID and ``group_sharded_parallel``,
+    its 8 positions on ``devices`` (default: all on one card),
+    FLEET_ZERO_BATCH x TRAIN_SEQ in 4 microbatches, FLEET_ZERO_STEPS steps
+    at each of FLEET_ZERO_LEVELS from the same weights.  Step 1 is held
+    against the unplaced layered model carrying the same weights with the
+    same rows over the same microbatches (the loss to MESH_LOSS_REL, each
+    gathered gradient by relative norm to TRAIN_GRAD_NORM); the flash
+    launches of a step are exactly replicas x n_micro x mp x L, the AdamW
+    launches one a slice (``zero_slice_count``); the parameter, gradient
+    and state bytes summed over the positions are exactly
+    ``zero_bytes_want``; after the last step the levels' gathered weights
+    and optimizer state are bit-equal, and ``p_g_os``'s peak memory is
+    below ``os``'s; step 2 runs under the profiler.  Then
+    :func:`_fleet_zero_card_vs_cpu`."""
+    torch, sh = port["torch"], port["sharding"]
+    t_phase = time.perf_counter()
+    mp = FLEET_ZERO_HYBRID["mp_degree"]
+    R = FLEET_ZERO_HYBRID["dp_degree"] * FLEET_ZERO_HYBRID["sharding_degree"]
+    n_micro = FLEET_ZERO_PIPE["accumulate_steps"]
+    devices = _mesh_devices(4 * R) if devices is None else list(devices)
+    cards = sorted(set(devices))
+    cfg = port["gpt_1p3b"](hidden_dropout=0.0, attention_dropout=0.0,
+                           max_position_embeddings=1024,
+                           use_tensor_parallel=True, use_flash_attention=True)
+    L = cfg.num_layers
+    # the largest slice: half of a word-table part, flat
+    errs = {"adamw": _kept(port, _adamw_compare, port,
+                           (cfg.vocab_size // mp * cfg.hidden_size // 2,),
+                           "bfloat16", 500)}
+    rng = np.random.RandomState(50)
+    ids, labels = (torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (FLEET_ZERO_BATCH, TRAIN_SEQ))).to(DEVICE)
+        for _ in range(2))
+    _set_mesh(port, None)
+    ref = port["Layered"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    crit = port["Criterion"](cfg)
+    ref_loss = 0.0
+    rows = FLEET_ZERO_BATCH // n_micro
+    for x, y in zip(ids.split(rows), labels.split(rows)):
+        with _o1(port):
+            loss = crit(ref(x), y) * (1.0 / n_micro)
+        loss.backward()
+        ref_loss += float(loss.detach())
+    ref_grads = {k: p.grad for k, p in ref.named_parameters()}
+    W = sum(t.numel() * t.element_size() for t in ref.parameters())
+    # the pieces, slices and ties of a ZeRO model refer to each other (as
+    # a ShardedParameter's parts do): a level's memory comes back at a
+    # collection, which each level's base and peak wait for
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+    per = R * n_micro * mp * L
+    n_slices = zero_slice_count(cfg, mp,
+                                n=FLEET_ZERO_HYBRID["sharding_degree"])
+    want = {"fwd": per, "dkv": per, "dq": per, "adamw": n_slices}
+    runs = {}
+    for level in FLEET_ZERO_LEVELS:
+        # what the card holds for others (the unplaced model's gradients,
+        # the earlier levels' state dicts): a level's own peak is above it
+        outside = max(torch.cuda.memory_allocated(d) for d in cards)
+        t0 = time.perf_counter()
+        model, pl, opt = fleet_pipeline(
+            port, cfg, devices, "bfloat16", 0, hybrid=FLEET_ZERO_HYBRID,
+            pipe=FLEET_ZERO_PIPE)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        model, opt, _ = sh.group_sharded_parallel(model, opt, level)
+        held = sum(len(g["params"]) for g in opt.param_groups)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        base = max(torch.cuda.memory_allocated(d) for d in cards)
+        _reset_launches(port)
+        cap = _ZeroCapture(port, opt, model)
+        t0 = time.perf_counter()
+        with _o1(port):
+            losses = [float(model.train_batch((ids, labels), cap))]
+        for d in cards:
+            torch.cuda.synchronize(d)
+        step1_s = time.perf_counter() - t0
+        first = _launch_counts(port)
+        rels = {k: ((cap.grads[_fleet_key(k, L)].to(g.device).float()
+                     - g.float()).norm() / g.float().norm()).item()
+                for k, g in ref_grads.items()}
+        by_pos = cap.bytes
+        cap.grads = None
+
+        def step():
+            with _o1(port):
+                losses.append(float(model.train_batch((ids, labels), opt)))
+
+        for _ in range(FLEET_ZERO_STEPS - 2):
+            step()
+        prof = _profiled_step_ms(port, step)
+        _check(prof is not None,
+               f"fleet zero {level}: the profiler saw no device activity")
+        total = _launch_counts(port)
+        peak = max(torch.cuda.max_memory_allocated(d) for d in cards) \
+            - outside
+        # whole copies on the card, for the levels' comparison
+        after = {k: v.detach().clone() for k, v in pl.state_dict().items()}
+        after_opt = {k: v.detach().clone() if isinstance(v, torch.Tensor)
+                     else v for k, v in opt.state_dict().items()}
+        worst = max(rels, key=rels.get)
+        runs[level] = dict(losses=losses, first=first, total=total,
+                           prof=prof, peak=peak, base=base - outside,
+                           rels=rels, worst=worst, by_pos=by_pos,
+                           after=after, after_opt=after_opt, held=held)
+        loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+        runs[level]["loss_rel"] = loss_rel
+        print(f"[fleet_zero] GPT-3 1.3B bf16 (O1) through phase 48's recipe "
+              f"and group_sharded_parallel(level={level!r}) at "
+              f"{FLEET_ZERO_HYBRID}, {FLEET_ZERO_PIPE}, {FLEET_ZERO_BATCH} x "
+              f"{TRAIN_SEQ}, positions on {[str(d) for d in devices]}: set-up "
+              f"{build_s:.2f} s (the recipe {pipe_s:.2f} s, then "
+              f"{held} slices in the optimizer); step 1 "
+              f"loss {losses[0]!r} against the unplaced model's "
+              f"{ref_loss!r} (relative {loss_rel:.3g}, tol "
+              f"{MESH_LOSS_REL:.3g}); step 1 gradients relative norm max "
+              f"{rels[worst]:.4g} ({worst}), median "
+              f"{float(np.median(list(rels.values()))):.4g} (tol "
+              f"{TRAIN_GRAD_NORM:.4g}); launches step 1 {first} (want "
+              f"{want}), over {FLEET_ZERO_STEPS} steps {total}; step 1 "
+              f"{1e3 * step1_s:.1f} ms host clock (with warm-up and the "
+              f"gradient capture); step {FLEET_ZERO_STEPS} under the "
+              f"profiler {prof[3]:.2f} ms host clock, device {prof[0]:.2f} "
+              f"ms, busy {prof[2]:.3f} of it; losses {losses}; peak "
+              f"{peak / 2**30:.3f} GiB ({peak} bytes above the {outside} "
+              f"held for others; {base - outside} of it allocated when "
+              f"step 1 began); state bytes by (r, s, i) at step 1 {by_pos}, "
+              f"summed (params, grads, state) {_byte_totals(by_pos)} (want "
+              f"{zero_bytes_want(level, W, R)}, W = {W})")
+        del model, pl, opt, cap, step
+        _set_mesh(port, None)
+        port["fleet"].set_hybrid_communicate_group(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref_grads
+    # the levels against the first (one level alone: tools/port_mesh_probe.py)
+    a = runs[FLEET_ZERO_LEVELS[0]]
+    same = all(b["losses"] == a["losses"]
+               and _same_bits(a["after"], b["after"])
+               and _same_bits(a["after_opt"], b["after_opt"])
+               for b in runs.values())
+    for run in runs.values():
+        del run["after"], run["after_opt"]
+    torch.cuda.empty_cache()
+    print(f"[fleet_zero] after {FLEET_ZERO_STEPS} steps {FLEET_ZERO_LEVELS} "
+          f"bit-equal (losses, gathered weights, optimizer state): {same}; "
+          f"peaks {[r['peak'] for r in runs.values()]} bytes")
+    for level, run in runs.items():
+        _check(all(np.isfinite(run["losses"])),
+               f"fleet zero {level}: non-finite losses {run['losses']}")
+        _check(run["loss_rel"] <= MESH_LOSS_REL,
+               f"fleet zero {level}: step 1's loss is off the unplaced "
+               "model's")
+        _check(run["rels"][run["worst"]] <= TRAIN_GRAD_NORM,
+               f"fleet zero {level}: step 1's gradient of {run['worst']} is "
+               f"off the unplaced model's")
+        _check(all(run["first"][k] == want[k]
+                   and run["total"][k] == FLEET_ZERO_STEPS * want[k]
+                   for k in want) and run["held"] == n_slices,
+               f"fleet zero {level}: launches {run['first']} / "
+               f"{run['total']}, expected {want} a step")
+        _check(_byte_totals(run["by_pos"]) == zero_bytes_want(level, W, R)
+               and len(run["by_pos"]) == 4 * R,
+               f"fleet zero {level}: state bytes {run['by_pos']}")
+    _check(same, f"fleet zero: {FLEET_ZERO_LEVELS} part after "
+           f"{FLEET_ZERO_STEPS} steps")
+    if "os" in runs and "p_g_os" in runs:
+        _check(runs["p_g_os"]["peak"] < runs["os"]["peak"],
+               "fleet zero: p_g_os's peak is not below os's")
+    cpu = _fleet_zero_card_vs_cpu(port, devices)
+    print(f"[time] phase 50 {time.perf_counter() - t_phase:.1f} s "
+          f"(the unplaced model {ref_s:.1f} s)")
+    return dict(errs=errs, launches={lv: runs[lv]["total"]
+                                     for lv in FLEET_ZERO_LEVELS},
+                cpu_launches=cpu)
+
+
+def _zero_run(port, cfg, devices, hybrid, level, batches, state,
+              scaler=None, inject=None):
+    """The 2-layer fp32 recipe (``fleet_pipeline``, seed 50) at ``hybrid``
+    on ``devices`` with ZeRO at ``level`` (None: without), the weights
+    ``state`` when given, one ``train_batch`` a batch (with ``scaler``;
+    ``inject(opt)`` runs before the scaler unscales): the weights before
+    (``init``), the step-1 gradients gathered, the losses, the weights and
+    optimizer state after, the state bytes at step 1, the optimizer's
+    tensor count and the card's launches."""
+    torch, sh = port["torch"], port["sharding"]
+    model, pl, opt = fleet_pipeline(port, cfg, devices, "float32", 50,
+                                    hybrid=hybrid)
+    if state is not None:
+        pl.set_state_dict(state)
+    # copies: a whole parameter's entry shares its storage
+    init = {k: v.clone() for k, v in pl.state_dict().items()}
+    if level is not None:
+        model, opt, _ = sh.group_sharded_parallel(model, opt, level)
+    if inject is not None:
+        unscale = scaler.unscale_
+
+        def unscale_(o):
+            inject(opt)
+            unscale(o)
+
+        scaler.unscale_ = unscale_
+    _reset_launches(port)
+    cap = _ZeroCapture(port, opt, model)
+    # the scaler steps the optimizer itself: no capture
+    losses = [float(model.train_batch(
+        b, opt if i or scaler is not None else cap, scaler=scaler))
+        for i, b in enumerate(batches)]
+    out = dict(
+        grads={k: g.float().cpu() for k, g in (cap.grads or {}).items()},
+        losses=losses, bytes=cap.bytes,
+        weights={k: v.float().cpu() for k, v in pl.state_dict().items()},
+        opt=_to_host(opt.state_dict()), launches=_launch_counts(port),
+        held=sum(len(g["params"]) for g in opt.param_groups), init=init)
+    del model, pl, opt, cap
+    _set_mesh(port, None)
+    port["fleet"].set_hybrid_communicate_group(None)
+    return out
+
+
+def _zero_stacked(port, cfg, devices, axes, batches, state):
+    """The stacked GPT (``cfg``, fp32) on ``devices`` at mesh ``axes`` at
+    ``p_g_os``, the weights ``state`` (numpy, by key) when given: the
+    weights before (``init``), step 1's gathered gradients, then one
+    ``FusedTrainStep`` a batch: the losses, the weights after, whether
+    every copy is freed, the optimizer's slice count and the card's
+    launches."""
+    torch, sh = port["torch"], port["sharding"]
+    dm = port["mesh"]
+    dm.set_mesh(dm.build_mesh(axes, devices))
+    model = port["GPT"](cfg, 1, dtype="float32", seed=50)
+    if state is not None:
+        model.load_jax_state(state)
+    init = {k: v.cpu().numpy().copy() for k, v in model.state_dict().items()}
+    opt = port["AdamW"](FLEET_LR, parameters=model.parameters(),
+                        multi_precision=False)
+    sh.group_sharded_parallel(model, opt, "p_g_os")
+    _reset_launches(port)
+    batches = [(i.to(devices[0]), t.to(devices[0])) for i, t in batches]
+    ids, labels = batches[0]
+    model(ids, labels=labels).backward()
+    grads = {k: g.float().cpu() for k, g in sh.gathered_grads(model).items()}
+    opt.clear_grad()
+    step = port["FusedTrainStep"](lambda i, l: model(i, labels=l), opt)
+    losses = [float(step(i, l)) for i, l in batches]
+    out = dict(grads=grads, losses=losses,
+               weights={k: v.float().cpu()
+                        for k, v in model.state_dict().items()},
+               launches=_launch_counts(port),
+               held=sum(len(g["params"]) for g in opt.param_groups),
+               freed=all(p.untyped_storage().nbytes() == 0
+                         for p in model.parameters()), init=init)
+    del model, opt, step
+    dm.set_mesh(None)
+    return out
+
+
+def _fleet_zero_card_vs_cpu(port, devices):
+    """Phase 50's 2-layer fp32 copy (:func:`_fleet_tiny`), TF32 off,
+    MESH_CPU_STEPS ``train_batch`` steps a run: at FLEET_ZERO_HYBRID the
+    CPU (``["cpu"] * 8``, without ZeRO) against the card without ZeRO
+    (phase 48's tolerances and phase 47's weight rule), and the card at
+    os, os_g and p_g_os bit-equal to the card without ZeRO (losses, step-1
+    gradients, weights, optimizer state) with the state bytes of each
+    level exactly ``zero_bytes_want``; the dp fallback
+    (FLEET_ZERO_DP_HYBRID at p_g_os on the card against the CPU without
+    ZeRO); ``GradScaler`` at os_g with an inf written into one slice's
+    gradient: every position bit-unchanged, no AdamW launch; the stacked
+    GPT at ``{"sharding": 2, "mp": 2}`` at p_g_os, card against CPU.
+    Returns the card's launches by run."""
+    torch = port["torch"]
+    cfg = _fleet_tiny(port)
+    rng = np.random.RandomState(150)
+    batches = [tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                  (8, 128)))
+                     for _ in range(2)) for _ in range(MESH_CPU_STEPS)]
+    t0 = time.perf_counter()
+    cpu = _zero_run(port, cfg, ["cpu"] * 8, FLEET_ZERO_HYBRID, None, batches,
+                    None)
+    state = cpu["init"]
+    card, out = {}, {}
+    for level in (None, "os", "os_g", "p_g_os"):
+        card[level] = _zero_run(port, cfg, devices, FLEET_ZERO_HYBRID, level,
+                                batches, state)
+    W = sum(v.numel() * v.element_size() for v in state.values())
+
+    def compare(c, g):
+        return _fleet_compare(
+            port, {"cpu": c["grads"], DEVICE: g["grads"]},
+            {"cpu": c["grads"], DEVICE: g["grads"]},
+            {"cpu": c["losses"], DEVICE: g["losses"]},
+            {"cpu": c["weights"], DEVICE: g["weights"]},
+            FLEET_LR * MESH_CPU_STEPS)
+
+    gnorm, gerr, loss_diff, (n_zero, n_all, over_zero, over_kept, bulk) = \
+        compare(cpu, card[None])
+    per_run = 2 * FLEET_PIPE["accumulate_steps"] * 2 * cfg.num_layers \
+        * MESH_CPU_STEPS
+    slices = zero_slice_count(cfg, 2)
+    bits = {}
+    for level, run in card.items():
+        bits[level] = (run["losses"] == card[None]["losses"]
+                       and _same_bits(run["grads"], card[None]["grads"])
+                       and _same_bits(run["weights"], card[None]["weights"])
+                       and _same_bits(run["opt"], card[None]["opt"]))
+        out[f"zero_{level or 'none'}"] = run["launches"]
+        _check(_byte_totals(run["bytes"]) == zero_bytes_want(level, W),
+               f"fleet zero fp32 {level}: state bytes {run['bytes']}")
+        _check(all(run["launches"][k] == per_run
+                   for k in ("fwd", "dkv", "dq"))
+               and run["launches"]["adamw"] == MESH_CPU_STEPS * slices
+               and (level is None or run["held"] == slices),
+               f"fleet zero fp32 {level}: launches {run['launches']}")
+    # the dp fallback: ZeRO over dp
+    dp_cpu = _zero_run(port, cfg, ["cpu"] * 8, FLEET_ZERO_DP_HYBRID, None,
+                       batches, state)
+    dp_card = _zero_run(port, cfg, devices, FLEET_ZERO_DP_HYBRID, "p_g_os",
+                        batches, state)
+    _, dgerr, dloss, drule = compare(dp_cpu, dp_card)
+    out["zero_dp_fallback_p_g_os"] = dp_card["launches"]
+    # GradScaler at os_g: an inf in one slice's gradient skips every
+    # position
+    scaler = port["amp"].GradScaler(init_loss_scaling=2.0 ** 8,
+                                    device=DEVICE)
+    seen = {}
+
+    def inject(opt):
+        held = [p for g in opt.param_groups for p in g["params"]]
+        seen["before"] = [t.detach().clone() for t in held]
+        seen["held"] = held
+        held[len(held) // 2].grad.view(-1)[0] = float("inf")
+
+    skip = _zero_run(port, cfg, devices, FLEET_ZERO_HYBRID, "os_g",
+                     batches[:1], state, scaler=scaler, inject=inject)
+    unchanged = all(torch.equal(skip["weights"][k], v.float().cpu())
+                    for k, v in state.items()) and all(
+        torch.equal(a, b) for a, b in zip(seen["before"], seen["held"]))
+    out["zero_scaler_skip"] = skip["launches"]
+    # the stacked GPT at {"sharding": 2, "mp": 2}
+    axes = {"sharding": 2, "mp": 2}
+    st_cpu = _zero_stacked(port, cfg, ["cpu"] * 4, axes, batches, None)
+    st_card = _zero_stacked(port, cfg, devices[:4], axes, batches,
+                            st_cpu["init"])
+    _, sgerr, sloss, srule = compare(st_cpu, st_card)
+    out["zero_stacked_p_g_os"] = st_card["launches"]
+    both_s = time.perf_counter() - t0
+    print(f"[fleet_zero_card_vs_cpu] 2 layers fp32 at {FLEET_ZERO_HYBRID} "
+          f"({both_s:.1f} s all runs): card without ZeRO against the CPU: "
+          f"step 1 gradient norm {gnorm:.4f}, max |card - cpu| / max |cpu| "
+          f"{gerr!r} (tol {MESH_GRAD_REL}); losses cpu {cpu['losses']} card "
+          f"{card[None]['losses']}, max diff {loss_diff!r} (tol "
+          f"{TRAIN_LOSS_ATOL}); weights: {n_zero} of {n_all} elements zero "
+          f"to rounding, their excess {over_zero!r}, the others' "
+          f"{over_kept!r} (both <= 0), 99.9th percentile {bulk!r} (tol "
+          f"1e-6); card levels bit-equal to the card without ZeRO {bits}; "
+          f"state bytes summed {[_byte_totals(card[lv]['bytes']) for lv in card]}"
+          f" (W = {W}); launches {[card[lv]['launches'] for lv in card]} "
+          f"(want {per_run} flash, {MESH_CPU_STEPS * slices} adamw a run); "
+          f"dp fallback at p_g_os against the CPU: gradients {dgerr!r}, "
+          f"losses {dloss!r}, weights {drule}, launches {dp_card['launches']}"
+          f"; the scaler's skipped step: weights unchanged {unchanged}, "
+          f"launches {skip['launches']}, scale {scaler.get_loss_scaling()}; "
+          f"stacked GPT at {axes} p_g_os against the CPU: gradients "
+          f"{sgerr!r}, losses {sloss!r}, weights {srule}, copies freed "
+          f"{st_card['freed']}, launches {st_card['launches']}")
+    _check(gerr <= MESH_GRAD_REL and loss_diff <= TRAIN_LOSS_ATOL,
+           "fleet zero card vs CPU: gradients or losses part")
+    _check(n_zero <= MESH_ZERO_SHARE * n_all and over_zero <= 0
+           and over_kept <= 0 and bulk <= 1e-6,
+           "fleet zero card vs CPU: weights part")
+    _check(all(bits.values()), f"fleet zero fp32: levels part {bits}")
+    for name, (e, ld, rule) in {"dp fallback": (dgerr, dloss, drule),
+                                "stacked": (sgerr, sloss, srule)}.items():
+        nz, na, oz, ok, bk = rule
+        _check(e <= MESH_GRAD_REL and ld <= TRAIN_LOSS_ATOL
+               and nz <= MESH_ZERO_SHARE * na and oz <= 0 and ok <= 0
+               and bk <= 1e-6, f"fleet zero {name}: card and CPU part")
+    _check(unchanged and skip["launches"]["adamw"] == 0
+           and scaler.get_loss_scaling() == 2.0 ** 7,
+           "fleet zero: the scaler's skipped step moved a position")
+    # the stacked model's flash: 2 replicas x 2 shards x L, over the
+    # gradient pass and the steps
+    st_flash = (MESH_CPU_STEPS + 1) * 2 * 2 * cfg.num_layers
+    _check(st_card["freed"] and st_card["launches"]["adamw"]
+           == MESH_CPU_STEPS * st_card["held"]
+           and all(st_card["launches"][k] == st_flash
+                   for k in ("fwd", "dkv", "dq")), "fleet zero stacked: "
+           f"copies kept or launches {st_card['launches']}")
+    _check(all(dp_card["launches"][k] == per_run
+               for k in ("fwd", "dkv", "dq"))
+           and dp_card["launches"]["adamw"] == MESH_CPU_STEPS * slices,
+           f"fleet zero dp fallback: launches {dp_card['launches']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7197,6 +7701,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"[card] {card}")
+    marks = [t_start]
+
+    def mark(phases):
+        """The seconds of a group of phases, for the run's budget."""
+        now = time.perf_counter()
+        print(f"[time] phases {phases} {now - marks[-1]:.1f} s "
+              f"({now - t_start:.1f} s since the start)")
+        marks.append(now)
+
     phase_build(port)
     k = _kept(port, phase_kernels, port)
     launches, serve_tps = phase_serve(port)
@@ -7231,6 +7744,7 @@ def main() -> int:
     phase_train_dropout(port)
     phase_determinism(port)
     phase_recipe_card_vs_cpu(port)
+    mark("1-24")
     npk = _kept(port, phase_new_plans, port)
     k["max_abs_err"] = max(k["max_abs_err"], npk["float"])
     ik["ragged"]["max_abs_err"] = max(ik["ragged"]["max_abs_err"],
@@ -7251,11 +7765,13 @@ def main() -> int:
                                                   fp32_model).values())}
     del model, fp32_model
     torch.cuda.empty_cache()
+    mark("25-29")
     fk = phase_adamw_flag(port)
     o1_launches, o1 = phase_train_o1(port, train_o2)
     phase_o1_card_vs_cpu(port)
     phase_recompute_policies(port)
     phase_resume(port)
+    mark("30-34")
     # phases 35-40: the layered GPT, phase 35's model through 38
     lmodel, lids, lout, llogits, lgen = phase_layered_generate(port,
                                                                gen_stats)
@@ -7272,12 +7788,14 @@ def main() -> int:
     by_path["layered_paths_fp32"] = {
         "bfloat16": sum(phase_layered_paths(port).values())}
     ltrain = phase_layered_train(port)
+    mark("35-40")
     # phases 41-44: sharded, elastic and disaggregated serving
     by_path["sharded_serve"] = {"bfloat16": phase_sharded_serve(port)[0]}
     by_path["sharded_int8"] = {"int8": phase_sharded_int8(port)[0]}
     by_path["disagg"] = phase_disagg(port)[0]
     # the fp32 launches ride the fp32/bf16 kernel's row
     by_path["cluster_fp32"] = {"bfloat16": phase_cluster_card_vs_cpu(port)}
+    mark("41-44")
     # phases 45-47: hybrid dp x pp x mp training of the stacked GPT
     mk45 = _kept(port, phase_mesh_kernels, port)
     for key in ("fwd", "dkv", "dq"):
@@ -7286,12 +7804,17 @@ def main() -> int:
                                      mk45["adamw"])
     mesh_runs = phase_mesh_train(port)
     mesh_cpu = phase_mesh_card_vs_cpu(port)
+    mark("45-47")
     # phase 48: the fleet API over the layered GPT at TP=2 PP=2
     fl = phase_fleet_train(port)
     for key in ("fwd", "dkv", "dq", "adamw"):
         tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"], fl["errs"][key])
     # phase 49: dp replicas, recompute, virtual stages, meta-optimizers
     fdp = phase_fleet_dp(port)
+    # phase 50: ZeRO at pp 2 x sharding 2 x mp 2
+    fz = phase_fleet_zero(port)
+    tk["adamw"]["max_abs_err"] = max(tk["adamw"]["max_abs_err"],
+                                     fz["errs"]["adamw"])
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -7332,6 +7855,9 @@ def main() -> int:
         # mp 2 with recompute and virtual stages
         mesh_paths["train_fleet_tp2_pp2"] = fl["launches"][key]
         mesh_paths["train_fleet_dp_recompute"] = fdp["launches"][key]
+        # phase 50's ZeRO steps at pp 2 x sharding 2 x mp 2
+        mesh_paths.update({f"train_fleet_zero_{level}": run[key]
+                           for level, run in fz["launches"].items()})
         if key != "adamw":
             # phase 6's bf16-weight step, phase 31's O1 step and phase
             # 40's layered step; the forward also phase 35's layered
@@ -7343,7 +7869,9 @@ def main() -> int:
                 "train_mesh_fp32_card_vs_cpu": mesh_cpu["flash"][key],
                 "train_fleet_fp32_card_vs_cpu": fl["cpu_launches"][key],
                 **{f"train_fleet_{name}_fp32_card_vs_cpu": run[key]
-                   for name, run in fdp["cpu_launches"].items()}}
+                   for name, run in fdp["cpu_launches"].items()},
+                **{f"train_fleet_{name}_fp32_card_vs_cpu": run[key]
+                   for name, run in fz["cpu_launches"].items()}}
             if key == "fwd":
                 kernels[-1]["launches_by_path"].update(
                     generate_layered=lgen["fwd"],
@@ -7365,7 +7893,10 @@ def main() -> int:
                             fl["cpu_launches"]["adamw"],
                         **{f"train_fleet_{name}_fp32_card_vs_cpu":
                            fdp["cpu_launches"][name]["adamw"]
-                           for name in ("gradient_merge", "localsgd")}},
+                           for name in ("gradient_merge", "localsgd")},
+                        **{f"train_fleet_{name}_fp32_card_vs_cpu":
+                           run["adamw"]
+                           for name, run in fz["cpu_launches"].items()}},
                     **fk})
     # the fp32-master form: the same kernel library and TPU kernel, with
     # the arithmetic of the reference's composed master path; launches

@@ -21,7 +21,13 @@ __all__ = ["all_finite", "tree_all_finite", "unscale_and_check",
 
 def grads_of(optimizer):
     """Every gradient of ``optimizer``'s parameters, group after group
-    (parameters without one are skipped)."""
+    (parameters without one are skipped); under ZeRO the slices', given
+    them first (``distributed.sharding``)."""
+    from ..distributed.shards import _optimizer_chain
+
+    zero = getattr(_optimizer_chain(optimizer)[-1], "_zero", None)
+    if zero is not None:
+        zero.prepare_grads()
     return [p.grad for g in optimizer.param_groups for p in g["params"]
             if p.grad is not None]
 

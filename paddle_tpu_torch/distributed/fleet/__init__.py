@@ -22,9 +22,12 @@ stages).  The recipe on one card::
     opt = fleet.distributed_optimizer(AdamW(...))
     loss = model.train_batch((ids, labels), opt)
 
-Not ported, and raising: ZeRO (sharding > 1) and sequence parallelism
-(sep > 1) through the wrappers (ROADMAP.md queue 1, item 9, steps 2 and
-3); the parameter-server calls (item 10).
+A ``sharding`` axis is a data axis: the wrappers hold replicas over dp x
+sharding, and ``distributed.sharding.group_sharded_parallel`` cuts
+their optimizer state, gradients and parameters over it (ZeRO).  Not
+ported, and raising: sequence parallelism (sep > 1) through the wrappers
+(ROADMAP.md queue 1, item 9, step 3); the parameter-server calls (item
+10).
 """
 from __future__ import annotations
 
@@ -87,26 +90,26 @@ def worker_num():
 
 
 def distributed_model(model):
-    """The wrapper the topology asks for: ``PipelineParallel`` at pp > 1
-    (its ``PipelineLayer`` holds the dp replicas), ``TensorParallel`` at
-    mp > 1, ``DataParallel`` at dp > 1, else ``model`` itself."""
+    """The wrapper the topology asks for, in the reference's order:
+    ``PipelineParallel`` at pp > 1 (its ``PipelineLayer`` holds the
+    replicas), ``TensorParallel`` at mp > 1, ``DataParallel`` over the dp
+    x sharding replicas at sharding > 1 or dp > 1, else ``model``
+    itself.  sep > 1 raises."""
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         return model
-    big = {name: n for name, n in (
-        ("sharding", hcg.get_sharding_parallel_world_size()),
-        ("sep", hcg.get_sep_parallel_world_size())) if n > 1}
-    if big:
+    sep = hcg.get_sep_parallel_world_size()
+    if sep > 1:
         raise NotImplementedError(
-            f"fleet.distributed_model at {big}: ZeRO (sharding, step 2) and "
-            "sequence parallelism (sep, step 3) through the fleet wrappers "
-            "are not ported (ROADMAP.md queue 1, item 9)")
+            f"fleet.distributed_model at sep={sep}: sequence parallelism "
+            "through the fleet wrappers is not ported (ROADMAP.md queue 1, "
+            "item 9, step 3)")
     mode = hcg.get_parallel_mode()
     if mode == "pipeline":
         return PipelineParallel(model, hcg, _user_strategy)
     if mode == "model":
         return TensorParallel(model, hcg)
-    if hcg.get_data_parallel_world_size() > 1:
+    if mode == "sharding" or hcg.get_data_parallel_world_size() > 1:
         return DataParallel(model)
     return model
 

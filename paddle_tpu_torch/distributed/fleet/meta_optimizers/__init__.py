@@ -11,7 +11,8 @@ parameter's dtype.  On a placed model a logical tensor is held as parts
 DGC's threshold are the logical tensor's -- squares summed, or values
 gathered, over the pieces that hold it once (``shards.covers_once``) --
 and every piece gets the same scalar, so each equals the update of the
-whole tensor.
+whole tensor.  Under ZeRO (``distributed.sharding``) the pieces are the
+slices, and ``GradientMerge``'s accumulators are sliced with them.
 """
 from __future__ import annotations
 
@@ -20,9 +21,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ....optimizer.optimizers import Momentum, PlainOptimizer, SGD
+from ....optimizer.optimizers import (
+    Momentum, PlainOptimizer, SGD, _logical_entries,
+)
 from ...shards import (
-    ShardedParameter, covers_once, logical_owner, replica_of, shard_info,
+    ShardedParameter, _optimizer_chain, covers_once, held_cuts,
+    logical_owner, logical_value, replica_of, shard_info, slice_info,
 )
 
 __all__ = ["LarsMomentum", "DGCMomentum", "LocalSGD", "GradientMerge",
@@ -182,6 +186,11 @@ def _replica_sets(params):
     are left out."""
     sets: Dict[tuple, list] = {}
     for p in params:
+        sl = slice_info(p)
+        if sl is not None:
+            # a ZeRO slice and its counterparts in the other groups
+            sets.setdefault(("slice", id(sl.owner), sl.index), []).append(p)
+            continue
         src = replica_of(p)
         if src is not None:
             key = ("copy", id(src))
@@ -283,6 +292,9 @@ class GradientMerge(_Wrapper):
         if self._k <= 1:
             self._inner.step()
             return
+        zero = getattr(_optimizer_chain(self)[-1], "_zero", None)
+        if zero is not None:
+            zero.prepare_grads()
         self._step += 1
         for p in self._parameter_list:
             if p.grad is not None:
@@ -299,25 +311,12 @@ class GradientMerge(_Wrapper):
             acc.zero_()
 
     def _logical(self):
-        out, seen = [], set()
-        for p in self._parameter_list:
-            if replica_of(p) is not None:
-                continue
-            entry = logical_owner(p)
-            if id(entry) not in seen:
-                seen.add(id(entry))
-                out.append(entry)
-        return out
+        return _logical_entries(self._parameter_list)
 
     def state_dict(self):
         sd = dict(self._inner.state_dict())
-        acc = []
-        for entry in self._logical():
-            if isinstance(entry, torch.Tensor):
-                acc.append(self._acc[id(entry)].cpu().numpy())
-            else:
-                acc.append(entry.gather([self._acc[id(t)] for t in entry],
-                                        device="cpu").numpy())
+        acc = [logical_value(entry, lambda t: self._acc.get(id(t)))
+               .cpu().numpy() for entry in self._logical()]
         sd["gradient_merge"] = {"step": np.asarray(self._step, np.int32),
                                 "acc": acc}
         return sd
@@ -332,12 +331,9 @@ class GradientMerge(_Wrapper):
         self._step = int(np.asarray(gm["step"]))
         for entry, a in zip(self._logical(), gm["acc"]):
             whole = torch.as_tensor(np.asarray(a, np.float32))
-            if isinstance(entry, torch.Tensor):
-                pieces, cuts = [entry], [whole]
-            else:
-                pieces, cuts = list(entry), entry.cut_whole(whole)
-            for t, c in zip(pieces, cuts):
-                self._acc[id(t)].copy_(c)
+            for t, c in held_cuts(entry, whole):
+                if id(t) in self._acc:
+                    self._acc[id(t)].copy_(c.reshape(self._acc[id(t)].shape))
         for p in self._parameter_list:
             src = replica_of(p)
             if src is not None:
@@ -350,7 +346,8 @@ def apply_strategy_meta_optimizers(optimizer, strategy):
     """The reference's meta-optimizer selection pass: ``lars``, then
     ``dgc``, then ``localsgd``, then ``gradient_merge`` with ``k_steps >
     1`` picks a wrapped optimizer; LARS and DGC take only an optimizer of
-    the momentum family (``ValueError`` otherwise)."""
+    the momentum family (``ValueError`` otherwise), and step its
+    parameters (under ZeRO its slices, with its layout)."""
     if strategy is None:
         return optimizer
     lars = getattr(strategy, "lars", False)
@@ -366,21 +363,24 @@ def apply_strategy_meta_optimizers(optimizer, strategy):
         momentum = getattr(optimizer, "_momentum", 0.9)
     if lars:
         cfg = getattr(strategy, "lars_configs", {}) or {}
-        return LarsMomentum(
+        made = LarsMomentum(
             learning_rate=optimizer._learning_rate, momentum=momentum,
             parameters=params, lars_coeff=cfg.get("lars_coeff", 0.001),
             lars_weight_decay=cfg.get("lars_weight_decay", 0.0005),
             epsilon=cfg.get("epsilon", 1e-9),
             exclude_from_weight_decay=cfg.get("exclude_from_weight_decay"),
             grad_clip=optimizer._grad_clip)
-    if dgc:
+    elif dgc:
         cfg = getattr(strategy, "dgc_configs", {}) or {}
-        return DGCMomentum(
+        made = DGCMomentum(
             learning_rate=optimizer._learning_rate, momentum=momentum,
             parameters=params,
             rampup_begin_step=cfg.get("rampup_begin_step", 0),
             sparsity=(cfg.get("sparsity", [0.999]) or [0.999])[-1],
             grad_clip=optimizer._grad_clip)
+    if lars or dgc:
+        made._zero = getattr(optimizer, "_zero", None)
+        return made
     if getattr(strategy, "localsgd", False):
         cfg = getattr(strategy, "localsgd_configs", {}) or {}
         return LocalSGD(optimizer, k_steps=cfg.get("k_steps", 4))

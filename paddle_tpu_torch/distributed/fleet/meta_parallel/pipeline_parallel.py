@@ -13,7 +13,8 @@ items of a chunk that holds parameters runs under ``fleet.recompute``
 (as Paddle's ``PipelineLayer`` does; the JAX ``PipelineLayer`` takes the
 knob and does not read it, which gives the same losses and gradients).
 
-On a mesh with dp > 1 the layer holds a copy of every chunk for each
+On a mesh with dp x sharding > 1 (the data replicas,
+``mesh.replica_count``) the layer holds a copy of every chunk for each
 further replica (``shards.replicate``) on positions ``(r, stage, i)``;
 ``state_dict()`` shows replica 0's, every copy is among
 ``parameters()`` (an optimizer steps each), and a batch's rows split
@@ -182,8 +183,9 @@ class PipelineLayer(nn.Module):
 
     def _place(self):
         """Each chunk's layers on its stage's mesh position (none without
-        a mesh), and at dp > 1 a placed copy for each further replica;
-        per replica, the first shard device of each chunk, or None."""
+        a mesh), and at dp x sharding > 1 a placed copy for each further
+        replica; per replica, the first shard device of each chunk, or
+        None."""
         chunks = self.num_chunks
         if not _mesh.has_mesh():
             return [[None] * chunks]
@@ -191,7 +193,7 @@ class PipelineLayer(nn.Module):
         if pp > 1 and pp != self._num_stages:
             raise ValueError(f"num_stages={self._num_stages} on a mesh of "
                              f"pp={pp}")
-        dp = _mesh.axis_size("dp")
+        dp = _mesh.replica_count()
         stage = [self.chunk_stage(c) if pp > 1 else 0 for c in range(chunks)]
         for r in range(1, dp):
             copies = replicate(self.run_function)
@@ -331,9 +333,9 @@ class PipelineLayer(nn.Module):
 class PipelineParallel(nn.Module):
     """The 1F1B runtime over a :class:`PipelineLayer` (module docstring).
     ``strategy.pipeline_configs["accumulate_steps"]`` microbatches a
-    ``train_batch``; at dp > 1 each microbatch's rows split evenly over
-    the replicas (a batch that does not split into dp x accumulate_steps
-    equal parts raises).  ``last_peak_inflight`` is the most units
+    ``train_batch``; with dp x sharding > 1 replicas each microbatch's
+    rows split evenly over them (a batch that does not split into
+    replicas x accumulate_steps equal parts raises).  ``last_peak_inflight`` is the most units
     (microbatch, round) whose activations were live at once in the last
     one: microbatches without virtual stages."""
 
@@ -342,12 +344,14 @@ class PipelineParallel(nn.Module):
         if not isinstance(layers, PipelineLayer):
             raise TypeError(f"PipelineParallel wraps a PipelineLayer, got "
                             f"{type(layers).__name__}")
-        dp = hcg.get_data_parallel_world_size() if hcg is not None else \
-            layers.num_replicas
+        dp = (hcg.get_data_parallel_world_size()
+              * hcg.get_sharding_parallel_world_size()
+              if hcg is not None else layers.num_replicas)
         if dp != layers.num_replicas:
             raise ValueError(f"the PipelineLayer holds {layers.num_replicas} "
-                             f"replicas, the topology asks dp={dp}: build it "
-                             "under the mesh fleet.init holds")
+                             f"replicas, the topology asks dp x sharding = "
+                             f"{dp}: build it under the mesh fleet.init "
+                             "holds")
         self._layers = layers
         self._hcg = hcg
         cfg = strategy.pipeline_configs if strategy is not None else {}
@@ -426,9 +430,9 @@ class PipelineParallel(nn.Module):
         """One optimizer step over ``data`` = (inputs, labels) in
         :func:`schedule`'s order; returns the sum of the microbatches'
         losses (each divided by their count), detached: the reference's
-        loss.  At dp > 1 each replica's loss is the mean over its rows
-        divided by dp, so the replicas' gradients sum to the gradient of
-        the microbatch's mean.  ``scaler``: the loss is scaled, and
+        loss.  With R = dp x sharding replicas each replica's loss is the
+        mean over its rows divided by R, so the replicas' gradients sum to
+        the gradient of the microbatch's mean.  ``scaler``: the loss is scaled, and
         ``scaler.step(optimizer)`` unscales and steps; ``lr_scheduler`` is
         stepped after the optimizer."""
         layers = self._layers

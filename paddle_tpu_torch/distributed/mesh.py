@@ -19,7 +19,7 @@ import torch
 from ..core import canonical_device
 
 __all__ = ["HYBRID_AXES", "Mesh", "build_mesh", "set_mesh", "get_mesh",
-           "has_mesh", "axis_size", "stage_devices"]
+           "has_mesh", "axis_size", "replica_count", "stage_devices"]
 
 # canonical axis order for hybrid parallelism (the reference's topology
 # order: data, pipe, sharding, sep, model)
@@ -119,10 +119,23 @@ def axis_size(axis: str) -> int:
     return mesh.shape.get(axis, 1)
 
 
+def replica_count() -> int:
+    """The data replicas the global mesh asks for: dp x sharding (a
+    ``sharding`` axis is a data axis, as in Paddle's hybrid topology;
+    ZeRO cuts state over it, ``distributed.sharding``); 1 without a
+    mesh."""
+    if not has_mesh():
+        return 1
+    return axis_size("dp") * axis_size("sharding")
+
+
 def stage_devices(stage: int = 0, replica: int = 0) -> tuple:
-    """The devices of pipeline stage ``stage`` of replica ``replica`` (a
-    position on the ``dp`` axis) on the global mesh, one a
-    tensor-parallel shard, in shard order: where a layer of that stage
-    holds its parts (``mp`` of them; one without an mp axis)."""
-    grid = get_mesh().grid(("dp", "pp", "sharding", "sep", "sp", "mp"))
-    return tuple(grid[replica, stage, 0, 0, 0, :])
+    """The devices of pipeline stage ``stage`` of replica ``replica`` on
+    the global mesh, one a tensor-parallel shard, in shard order: where a
+    layer of that stage holds its parts (``mp`` of them; one without an
+    mp axis).  Replicas run over dp x sharding, dp major: replica ``d *
+    sharding + k`` is position ``d`` on ``dp`` and ``k`` on
+    ``sharding``."""
+    grid = get_mesh().grid(("dp", "sharding", "pp", "sep", "sp", "mp"))
+    grid = grid.reshape((-1,) + grid.shape[2:])
+    return tuple(grid[replica, stage, 0, 0, :])

@@ -4,7 +4,9 @@ stages or tensor parallelism.
 
 The reference shards the batch over the mesh's ``dp`` axis and lets XLA
 sum the gradients.  One process of the port holds a replica of the
-module on each dp position of the global mesh: replica 0 is the module
+module on each data position of the global mesh -- dp x sharding, as in
+Paddle's hybrid topology (``mesh.replica_count``; ZeRO cuts state over
+the sharding axis, ``distributed.sharding``): replica 0 is the module
 itself, placed on the first position (``mesh.stage_devices(0)``), and
 each further replica a copy on its own (``shards.replicate``).  The
 batch's rows split evenly over the replicas; each runs on its copies
@@ -55,15 +57,15 @@ def _join(outs):
 
 
 class ReplicatedModule(nn.Module):
-    """A module with a copy on each dp position of the global mesh (module
-    docstring); one replica, the module itself, without a mesh or at dp
-    = 1."""
+    """A module with a copy on each data position (dp x sharding) of the
+    global mesh (module docstring); one replica, the module itself,
+    without a mesh or at dp = sharding = 1."""
 
     def __init__(self, layers):
         super().__init__()
         self._layers = layers
         self._replicas = nn.ModuleList()
-        dp = _mesh.axis_size("dp") if _mesh.has_mesh() else 1
+        dp = _mesh.replica_count()
         if dp > 1:
             place_on_stage(layers, 0, _mesh.stage_devices(0, 0), 0)
             for r in range(1, dp):

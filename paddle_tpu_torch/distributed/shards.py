@@ -32,10 +32,20 @@ optimizer steps every copy.  A replica runs with its parameter slots
 bound (:class:`Bound`) to its copies tied across replicas
 (:func:`tie_slots`), so each copy applies the sum of the replicas'
 gradients.
+
+ZeRO (``distributed.sharding``) cuts each tensor replica 0 holds -- a
+*piece*: a whole parameter or a part -- into flat slices over the ZeRO
+axis (:class:`Slice`, :func:`slice_info`), kept by a :class:`ZeroPiece`
+that every replica's copy of the piece points at (``copy.zero = (piece,
+replica)``).  The helpers here read a logical tensor's value from
+whatever holds it (:func:`logical_value`, :func:`held_cuts`), so the
+optimizers' state dicts, the clip and the meta-optimizers see whole
+tensors at every level.
 """
 from __future__ import annotations
 
 import copy
+from contextlib import nullcontext
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,7 +58,9 @@ __all__ = ["Part", "ShardedParameter", "shard_info", "sharded_parameters",
            "load_state", "tie_replicas", "cut", "weight_bytes_by_position",
            "place_on_stage", "replica_of", "replicate", "sync_replicas",
            "param_slots", "tie_slots", "Bound", "bound_now",
-           "logical_owner", "covers_once"]
+           "logical_owner", "covers_once", "Slice", "ZeroPiece",
+           "slice_info", "position_of", "logical_value", "held_cuts",
+           "state_bytes_by_position"]
 
 Region = Tuple[Tuple[int, torch.Tensor], ...]
 
@@ -118,7 +130,9 @@ class ShardedParameter(nn.ParameterList):
         ``device`` (default: the first part's)."""
         values = list(self) if values is None else list(values)
         device = self.parts[0].device if device is None else device
-        whole = torch.empty(self.whole_shape, dtype=values[0].dtype,
+        first = next((v for v, p in zip(values, self.parts)
+                      if p.replica == 0), values[0])
+        whole = torch.empty(self.whole_shape, dtype=first.dtype,
                             device=device)
         for p, v in zip(self.parts, values):
             if p.replica == 0:
@@ -176,6 +190,15 @@ def load_state(module: nn.Module, state_dict, strict: bool = True):
         raise RuntimeError(f"Error(s) in loading state_dict for "
                            f"{type(module).__name__}: missing {missing}, "
                            f"unexpected {unexpected}")
+    # under ZeRO the copies are whole while loading, and the slices take
+    # the loaded values after
+    plan = getattr(module, "_zero_plan", None)
+    with plan.writing() if plan is not None else nullcontext():
+        _load_owned(module, owned, state_dict)
+    return missing, unexpected
+
+
+def _load_owned(module, owned, state_dict):
     for key, t in owned.items():
         if key not in state_dict:
             continue
@@ -191,7 +214,6 @@ def load_state(module: nn.Module, state_dict, strict: bool = True):
         with torch.no_grad():
             t.copy_(v.to(t.dtype))
     sync_replicas(module)
-    return missing, unexpected
 
 
 def _plain_parameters(module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -215,7 +237,11 @@ def sharded_parameters(module: nn.Module) -> Dict[str, ShardedParameter]:
 
 def logical_owner(p):
     """The logical tensor ``p`` is a piece of: the :class:`ShardedParameter`
-    owning it (or its replica-0 source), else that source, else ``p``."""
+    owning it (or its replica-0 source), else that source, else ``p``; a
+    ZeRO slice's is its piece's."""
+    sl = slice_info(p)
+    if sl is not None:
+        return logical_owner(sl.owner)
     src = replica_of(p)
     src = p if src is None else src
     info = shard_info(src)
@@ -224,8 +250,12 @@ def logical_owner(p):
 
 def covers_once(p) -> bool:
     """Whether ``p`` is among the tensors that hold its logical tensor
-    exactly once: not a replica copy (:func:`replicate`), and not a part
-    of a replica other than 0."""
+    exactly once: not a replica copy (:func:`replicate`), not a part of a
+    replica other than 0, and not a ZeRO slice of a group other than 0
+    (group 0's slices of replica 0's pieces cover each element once)."""
+    sl = slice_info(p)
+    if sl is not None:
+        return sl.group == 0 and covers_once(sl.owner)
     if replica_of(p) is not None:
         return False
     info = shard_info(p)
@@ -238,6 +268,192 @@ def replica_of(p):
     return getattr(p, "replica_of", None)
 
 
+# ---------------------------------------------------------------------------
+# ZeRO slices
+# ---------------------------------------------------------------------------
+
+class Slice(NamedTuple):
+    """One ZeRO slice: ``tensor`` holds elements ``[lo, hi)`` of the
+    flattened ``owner`` (the piece: replica 0's whole parameter or part)
+    at mesh ``position`` (the holding replica, then the piece's stage and
+    shard), as slice ``index`` of ZeRO group ``group``.  At ``os`` and
+    ``os_g`` ``tensor`` is a view into the holding replica's copy (where
+    that replica exists on the slice's device), else storage of its
+    own."""
+    tensor: torch.Tensor
+    owner: torch.Tensor
+    position: Tuple[int, ...]
+    group: int
+    index: int
+    lo: int
+    hi: int
+
+
+def slice_info(t) -> Optional[Slice]:
+    """The :class:`Slice` ``t`` holds, else None."""
+    return getattr(t, "zero_slice", None)
+
+
+class ZeroPiece:
+    """The ZeRO layout of one piece: ``copies[r]``, its copy in replica
+    ``r`` (replica 0's is the piece); ``group[r]``, the ZeRO group of
+    replica ``r``; ``slices[g]``, group ``g``'s :class:`Slice`s in index
+    order; ``views``, the slices that view a copy, ``{(g, j): r}``.
+
+    At ``p_g_os`` the copies keep their shape and no storage: a use
+    acquires a copy (its storage is allocated and filled from its group's
+    slices: the all-gather) and releases it after; the last release frees
+    the storage again.  Autograd's saved views of a copy share that
+    storage, so a backward acquires again before reading them
+    (:meth:`acquire` with ``backward=True``) and the gradient's arrival at
+    the tie releases (:meth:`release_backward`)."""
+
+    def __init__(self, level: str, copies, group, slices, views):
+        self.level = level
+        self.copies = list(copies)
+        self.group = list(group)
+        self.slices = [list(g) for g in slices]
+        self.views = dict(views)
+        self.uses = [0] * len(self.copies)
+        self._backward = [0] * len(self.copies)
+
+    @property
+    def stored_as_slices(self) -> bool:
+        return self.level == "p_g_os"
+
+    @torch.no_grad()
+    def fill(self, r: int):
+        """Write replica ``r``'s group's slices into its copy (through
+        ``.data``: autograd's saved views of the copy see the values, and
+        their version stays)."""
+        flat = self.copies[r].data.view(-1)
+        for sl in self.slices[self.group[r]]:
+            if self.views.get((sl.group, sl.index)) != r:
+                flat[sl.lo:sl.hi].copy_(sl.tensor.reshape(-1))
+
+    def acquire(self, r: int, backward: bool = False):
+        if not self.stored_as_slices:
+            return
+        if self.uses[r] == 0:
+            c = self.copies[r]
+            c.untyped_storage().resize_(c.numel() * c.element_size())
+            self.fill(r)
+        self.uses[r] += 1
+        if backward:
+            self._backward[r] += 1
+
+    def release(self, r: int, n: int = 1):
+        if not self.stored_as_slices:
+            return
+        self.uses[r] -= n
+        if self.uses[r] == 0:
+            self.copies[r].untyped_storage().resize_(0)
+
+    def release_backward(self):
+        """Release what the backward acquired (every use's gradient has
+        arrived)."""
+        for r, n in enumerate(self._backward):
+            if n:
+                self._backward[r] = 0
+                self.release(r, n)
+
+    def free(self):
+        for r, c in enumerate(self.copies):
+            if self.uses[r] == 0:
+                c.untyped_storage().resize_(0)
+
+    @torch.no_grad()
+    def scatter_grad(self, sums: Dict[torch.device, torch.Tensor]):
+        """Add slice ``[lo, hi)`` of the replicas' summed gradient
+        (``sums``: on each device of the copies) into every slice's
+        ``.grad``, the first addition a copy: what accumulating the whole
+        sum into a whole gradient gives, element for element."""
+        first = next(iter(sums.values()))
+        for group in self.slices:
+            for sl in group:
+                t = sl.tensor
+                whole = sums.get(t.device, first)
+                v = whole.reshape(-1)[sl.lo:sl.hi].to(t.device)
+                if t.grad is None:
+                    t.grad = v.clone()
+                else:
+                    t.grad.add_(v)
+
+    @torch.no_grad()
+    def push(self):
+        """Replica 0's copy (whole now) into every slice that is not a
+        view: after a load."""
+        flat = self.copies[0].detach().reshape(-1)
+        for group in self.slices:
+            for sl in group:
+                if (sl.group, sl.index) not in self.views:
+                    sl.tensor.copy_(flat[sl.lo:sl.hi].to(sl.tensor.device)
+                                    .view_as(sl.tensor))
+
+    @torch.no_grad()
+    def all_gather(self):
+        """After an update at ``os`` or ``os_g``: each slice into every
+        copy of its group that does not hold it already."""
+        for r, c in enumerate(self.copies):
+            flat = c.data.view(-1)
+            for sl in self.slices[self.group[r]]:
+                if self.views.get((sl.group, sl.index)) != r:
+                    flat[sl.lo:sl.hi].copy_(sl.tensor.reshape(-1).to(
+                        c.device))
+
+
+def _piece_value(piece, value_of):
+    """``value_of`` read for ``piece``: its own, or, for a piece ZeRO
+    holds, its group-0 slices' joined into the piece's shape (None where
+    a slice has none)."""
+    zero = getattr(piece, "zero", None)
+    if zero is None:
+        return value_of(piece)
+    vals = [value_of(sl.tensor) for sl in zero[0].slices[0]]
+    if any(v is None for v in vals):
+        return None
+    root = vals[0].device
+    return torch.cat([v.reshape(-1).to(root) for v in vals]).view(
+        piece.shape)
+
+
+def logical_value(entry, value_of):
+    """The whole value of logical tensor ``entry`` (a parameter or a
+    :class:`ShardedParameter`), from ``value_of(t)`` of the tensors that
+    hold it once: replica 0's parts or the parameter, or their ZeRO
+    slices of group 0.  ``value_of`` gives a held tensor's value (its
+    gradient, a moment, ...) or None; so does this."""
+    if isinstance(entry, ShardedParameter):
+        vals = [_piece_value(t, value_of) if p.replica == 0 else None
+                for t, p in zip(entry, entry.parts)]
+        if any(v is None for v, p in zip(vals, entry.parts)
+               if p.replica == 0):
+            return None
+        return entry.gather(vals)
+    return _piece_value(entry, value_of)
+
+
+def held_cuts(entry, whole: torch.Tensor):
+    """``(held tensor, its elements of whole)`` for every tensor an
+    optimizer steps for logical tensor ``entry``: each part (or the
+    parameter), or, under ZeRO, each slice of every group (the copies of
+    other replicas are left out)."""
+    if isinstance(entry, ShardedParameter):
+        pieces = list(zip(entry, entry.cut_whole(whole)))
+    else:
+        pieces = [(entry, whole)]
+    out = []
+    for t, v in pieces:
+        zero = getattr(t, "zero", None)
+        if zero is None:
+            out.append((t, v))
+        elif zero[1] == 0:
+            flat = v.reshape(-1)
+            out.extend((sl.tensor, flat[sl.lo:sl.hi])
+                       for group in zero[0].slices for sl in group)
+    return out
+
+
 class _TieReplicas(torch.autograd.Function):
     """Identity on the replicas' copies of one part; the backward gives
     each the sum of all their gradients, in replica order."""
@@ -245,15 +461,26 @@ class _TieReplicas(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *copies):
         ctx.devices = [c.device for c in copies]
+        ctx.zero = getattr(copies[0], "zero", None)
         return tuple(c.view_as(c) for c in copies)
 
     @staticmethod
     def backward(ctx, *grads):
+        zero = None if ctx.zero is None or ctx.zero[0].level == "os" \
+            else ctx.zero[0]
         if all(g is None for g in grads):
+            if zero is not None:
+                zero.release_backward()
             return grads
         grads = [torch.zeros((), device=d) if g is None else g
                  for g, d in zip(grads, ctx.devices)]
         sums = reduce_sum(grads, ctx.devices)
+        if zero is not None:
+            # os_g and p_g_os: the sum lands in the slices (the
+            # reduce-scatter); no copy keeps a whole gradient
+            zero.scatter_grad(sums)
+            zero.release_backward()
+            return (None,) * len(grads)
         out, given = [], set()
         for d in ctx.devices:
             # co-resident replicas get copies: each leaf owns its .grad
@@ -264,8 +491,10 @@ class _TieReplicas(torch.autograd.Function):
 
 def tie_replicas(copies: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """:class:`_TieReplicas` over one part's replica copies (replica
-    order); one copy passes through."""
-    if len(copies) == 1:
+    order); one copy passes through, unless ZeRO reduce-scatters its
+    gradient (``os_g``, ``p_g_os``)."""
+    zero = getattr(copies[0], "zero", None)
+    if len(copies) == 1 and (zero is None or zero[0].level == "os"):
         return tuple(copies)
     return _TieReplicas.apply(*copies)
 
@@ -298,24 +527,115 @@ def place_on_stage(module: nn.Module, stage: int,
         p.mesh_position = (replica, stage, 0)
 
 
+def _held_bytes(t: torch.Tensor) -> int:
+    """Bytes ``t`` holds: none while ZeRO keeps it only as slices (its
+    storage freed)."""
+    if t.untyped_storage().nbytes() == 0:
+        return 0
+    return t.numel() * t.element_size()
+
+
+def position_of(t) -> Tuple[int, ...]:
+    """The mesh position holding ``t``: a slice's, a part's, a whole
+    parameter's mark (:func:`place_on_stage`), else ``(0, 0, 0)``."""
+    sl = slice_info(t)
+    if sl is not None:
+        return sl.position
+    info = shard_info(t)
+    if info is not None:
+        return info[0].parts[info[1]].position
+    return getattr(t, "mesh_position", None) or (0, 0, 0)
+
+
+def _zero_target(model):
+    """The module holding every replica: through ``PipelineParallel`` to
+    its ``PipelineLayer`` (a replicated module holds its replicas
+    itself)."""
+    while not hasattr(model, "_replicas") and isinstance(
+            getattr(model, "_layers", None), nn.Module):
+        model = model._layers
+    return model
+
+
 def weight_bytes_by_position(module: nn.Module) -> Dict[Tuple[int, ...], int]:
     """Bytes of the parameters each mesh position holds: the parts, and
     the whole parameters :func:`place_on_stage` marked, of every replica,
     counted from their tensors (what each position's device would hold
-    on distinct devices)."""
+    on distinct devices).  Under ZeRO (``module._zero_plan``) every
+    parameter counts (an unmarked one at ``(0, 0, 0)``), a copy stored
+    only as slices counts nothing, and each slice with storage of its own
+    counts at its position."""
+    module = _zero_target(module)
+    plan = getattr(module, "_zero_plan", None)
     out: Dict[Tuple[int, ...], int] = {}
 
-    def add(position, t):
-        out[position] = out.get(position, 0) + t.numel() * t.element_size()
+    def add(position, n):
+        out[position] = out.get(position, 0) + n
 
     for sp in module.modules():
         if isinstance(sp, ShardedParameter):
             for t, p in zip(sp, sp.parts):
-                add(p.position, t)
+                add(p.position, _held_bytes(t))
     for p in module.parameters():
-        if (shard_info(p) is None
-                and getattr(p, "mesh_position", None) is not None):
-            add(p.mesh_position, p)
+        if shard_info(p) is None and (
+                plan is not None
+                or getattr(p, "mesh_position", None) is not None):
+            add(position_of(p), _held_bytes(p))
+    for sl in plan.slices if plan is not None else ():
+        if sl.tensor._base is None:
+            add(sl.position, _held_bytes(sl.tensor))
+    return dict(sorted(out.items()))
+
+
+def _optimizer_chain(optimizer) -> list:
+    """``optimizer`` and each optimizer it wraps (a hybrid wrapper's
+    ``_inner_opt``, a meta-optimizer's ``_inner``), outermost first."""
+    chain = [optimizer]
+    while True:
+        attrs = vars(chain[-1])
+        nxt = attrs.get("_inner_opt", attrs.get("_inner"))
+        if nxt is None:
+            return chain
+        chain.append(nxt)
+
+
+def state_bytes_by_position(model, optimizer
+                            ) -> Dict[Tuple[int, ...], Dict[str, int]]:
+    """Per mesh position, the bytes of parameters
+    (:func:`weight_bytes_by_position`), of the gradients that exist now
+    (every copy's ``.grad``; a ZeRO slice's, where it has storage of its
+    own) and of optimizer state (the innermost optimizer's ``state`` and
+    a meta-optimizer's accumulators, at their tensors' positions):
+    ``{position: {"params": n, "grads": n, "state": n}}``."""
+    model = _zero_target(model)
+    plan = getattr(model, "_zero_plan", None)
+    out: Dict[Tuple[int, ...], Dict[str, int]] = {}
+
+    def add(position, kind, t):
+        row = out.setdefault(position, {"params": 0, "grads": 0, "state": 0})
+        row[kind] += _held_bytes(t)
+
+    for pos, n in weight_bytes_by_position(model).items():
+        out.setdefault(pos, {"params": 0, "grads": 0, "state": 0})
+        out[pos]["params"] += n
+    for p in model.parameters():
+        if p.grad is not None:
+            add(position_of(p), "grads", p.grad)
+    for sl in plan.slices if plan is not None else ():
+        g = sl.tensor.grad
+        if g is not None and g._base is None:
+            add(sl.position, "grads", g)
+    chain = _optimizer_chain(optimizer)
+    inner = chain[-1]
+    params = [p for g in inner.param_groups for p in g["params"]]
+    for p in params:
+        for v in inner.state.get(p, {}).values():
+            if isinstance(v, torch.Tensor) and v.dim() > 0:
+                add(position_of(p), "state", v)
+        for opt in chain[:-1]:
+            acc = vars(opt).get("_acc", {}).get(id(p))
+            if acc is not None:
+                add(position_of(p), "state", acc)
     return dict(sorted(out.items()))
 
 
@@ -354,10 +674,11 @@ def replicate(obj):
 @torch.no_grad()
 def sync_replicas(module: nn.Module):
     """Copy every replica copy's source (``replica_of``) into it: the
-    replicas of ``module`` hold replica 0's values again."""
+    replicas of ``module`` hold replica 0's values again (a copy ZeRO
+    keeps only as slices is left alone)."""
     for p in module.parameters():
         src = replica_of(p)
-        if src is not None:
+        if src is not None and _held_bytes(p) and _held_bytes(src):
             p.copy_(src if src.device == p.device else src.to(p.device))
 
 

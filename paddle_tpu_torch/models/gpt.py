@@ -381,9 +381,9 @@ def layered_tp(cfg: GPTConfig, factory: dict):
     (``mesh.stage_devices``) and ``factory`` with their first as the
     device of the whole parameters -- when ``use_tensor_parallel`` is set
     and the mesh's mp > 1 (the reference's mpu layers), else ``(None,
-    factory)``.  dp and pp keep the reference's meaning: a bare block
-    neither shards its batch nor pipelines (``PipelineLayer`` and the
-    fleet wrappers do); an sp, sep or sharding axis > 1 raises
+    factory)``.  dp, sharding and pp keep the reference's meaning: a
+    bare block neither shards its batch nor pipelines (``PipelineLayer``
+    and the fleet wrappers do); an sp or sep axis > 1 raises
     ``NotImplementedError``, as the stacked model's :func:`train_mesh`
     does (the reference's layered block takes ring attention at sp > 1)."""
     if not _mesh.has_mesh():
@@ -442,27 +442,28 @@ def _part_seed(seed: int, part: int) -> int:
     return (z ^ (z >> 31)) % 2 ** 62
 
 
-# mesh axes a training placement reads; the others must have size 1
-_TRAIN_AXES = ("dp", "pp", "mp")
+# mesh axes a training placement reads (dp x sharding the replicas); the
+# others must have size 1
+_TRAIN_AXES = ("dp", "sharding", "pp", "mp")
 # axes whose parallelism is not ported: sequence parallelism (sp, sep)
-# and ZeRO (sharding)
-_UNPORTED_AXES = ("sp", "sep", "sharding")
+_UNPORTED_AXES = ("sp", "sep")
 
 
 def _refuse_unported_axes(shape, what: str):
     """Raise when the mesh ``shape`` asks for an axis the port does not
-    take: sequence parallelism (sp, sep) or ZeRO (sharding) > 1."""
+    take: sequence parallelism (sp, sep) > 1."""
     big = [a for a in _UNPORTED_AXES if shape.get(a, 1) > 1]
     if big:
         raise NotImplementedError(
-            f"mesh axes {big} > 1: sequence parallelism (sp, sep) and ZeRO "
-            f"(sharding) {what} are not ported (ROADMAP.md queue 1, item "
-            "9); dp, pp and mp are")
+            f"mesh axes {big} > 1: sequence parallelism (sp, sep) {what} "
+            "is not ported (ROADMAP.md queue 1, item 9, step 3); dp, "
+            "sharding, pp and mp are")
 
 
 class TrainMesh(NamedTuple):
     """Where a model placed for training on a mesh holds what:
-    ``grid[r, s, i]`` is the device of replica ``r``, pipeline stage
+    ``grid[r, s, i]`` is the device of replica ``r`` (over dp x sharding,
+    dp major, as ``mesh.stage_devices`` counts them), pipeline stage
     ``s``, tensor-parallel shard ``i``; ``layers[s]`` the decoder layers
     stage ``s`` holds, in the order it runs them
     (``pp_spmd.stage_layers``); ``vocab_parallel``: the word embeddings
@@ -494,15 +495,18 @@ class TrainMesh(NamedTuple):
 
 def train_mesh(cfg: GPTConfig) -> Optional[TrainMesh]:
     """The training placement the global mesh (``distributed.mesh``) asks
-    of a stacked GPT, or None: no mesh, or one whose dp, pp and mp are all
-    1.  Sequence parallelism and ZeRO (an sp, sep or sharding axis > 1)
-    raise ``NotImplementedError``; a shape the cuts cannot take raises
+    of a stacked GPT, or None: no mesh, or one whose dp, sharding, pp and
+    mp are all 1.  The replicas run over dp x sharding (ZeRO,
+    ``distributed.sharding``, cuts their state over the sharding axis).
+    Sequence parallelism (an sp or sep axis > 1) raises
+    ``NotImplementedError``; a shape the cuts cannot take raises
     ``ValueError``."""
     if not _mesh.has_mesh():
         return None
     mesh = _mesh.get_mesh()
     _refuse_unported_axes(mesh.shape, "over a training mesh")
-    grid = mesh.grid(_TRAIN_AXES + _UNPORTED_AXES)[..., 0, 0, 0]
+    grid = mesh.grid(_TRAIN_AXES + _UNPORTED_AXES)[..., 0, 0]
+    grid = grid.reshape((-1,) + grid.shape[2:])
     dp, pp, mp = grid.shape
     if dp * pp * mp == 1:
         return None
@@ -1338,8 +1342,9 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
     ``(cfg, n_micro=1)`` is the reference's order; the port's own
     arguments are keyword-only.
 
-    Under a global mesh (``distributed.mesh.set_mesh``) with dp, pp or mp
-    above 1 the model is placed for training (:class:`TrainMesh`), as the
+    Under a global mesh (``distributed.mesh.set_mesh``) with dp, sharding,
+    pp or mp above 1 the model is placed for training (:class:`TrainMesh`;
+    the replicas over dp x sharding), as the
     reference's ``_shard_params`` places it: every logical weight is a
     ``ShardedParameter`` whose parts live on their mesh positions' devices
     (the decoder's as :class:`GPTStackedDecoder` cuts them; the word
@@ -1352,10 +1357,13 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
     reference's names.  The training forward splits the batch over the dp
     replicas and pipelines ``n_micro`` microbatches over pp stages
     (:meth:`GPTStackedDecoder.forward_mesh`); ``generate()`` and serving
-    refuse the placed model (ROADMAP.md queue 1, item 9).
+    refuse the placed model (ROADMAP.md queue 1, item 9).  Under ZeRO at
+    ``p_g_os`` (``distributed.sharding``) the forward gathers every part
+    before it runs and frees them after (``_zero_unit``).
     """
 
     stacked = True        # the cache and LoRA layout this class reads
+    _zero_unit = True     # ZeRO p_g_os gathers the whole tree around a call
 
     def __init__(self, cfg: GPTConfig, n_micro: int = 1, *, device=None,
                  dtype="float32", seed: int = 0,

@@ -12,6 +12,7 @@ which draws fresh ones from a seed.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Mapping, Optional
 
@@ -182,8 +183,12 @@ def load_jax_state(module: nn.Module, state: Mapping[str, np.ndarray]):
             raise ValueError(f"load_jax_state: {name} has shape {a.shape}, "
                              f"expected {shape}")
         arrays[name] = torch.from_numpy(a)
-    for name, p in own.items():
-        if hasattr(p, "whole_shape"):
-            p.load_whole(arrays[name].to(p.whole_dtype))
-        else:
-            p.copy_(arrays[name].to(p.dtype))
+    # under ZeRO (distributed.sharding) the copies are whole while loading
+    # and the slices take the values after
+    plan = getattr(module, "_zero_plan", None)
+    with plan.writing() if plan is not None else contextlib.nullcontext():
+        for name, p in own.items():
+            if hasattr(p, "whole_shape"):
+                p.load_whole(arrays[name].to(p.whole_dtype))
+            else:
+                p.copy_(arrays[name].to(p.dtype))

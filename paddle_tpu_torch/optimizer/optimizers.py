@@ -26,7 +26,12 @@ The parts of a logical tensor of a placed model
 and masters as the whole tensor, under the index the logical tensor
 first takes among the parameters: an optimizer over an unplaced model
 and one over the same model placed on any mesh have the same
-``state_dict()`` keys and shapes.
+``state_dict()`` keys and shapes.  Under ZeRO
+(``distributed.sharding.group_sharded_parallel``) the optimizer steps
+flat slices of the pieces, each with its own state, and ``_zero`` (the
+layout) gives the slices their gradients before a step, copies the
+updated slices into the replicas after it (``os``, ``os_g``), and clears
+the replicas' gradients with the slices'; the state dict stays whole.
 
 Precision, as the reference's ``multi_precision``:
 
@@ -48,7 +53,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..distributed.shards import replica_of, shard_info
+from ..distributed.shards import (
+    held_cuts, logical_owner, logical_value, replica_of, slice_info,
+)
 from ..ops.kernels.fused_adamw import fused_adamw_update
 from .lr import LRScheduler
 
@@ -238,7 +245,8 @@ class AdamW(torch.optim.Optimizer):
         sched = isinstance(self._learning_rate, LRScheduler)
         lr = np.float32(self._learning_rate()) if sched else group["lr"]
         if self._lr_ratio is not None:
-            ratio = self._lr_ratio(p)
+            sl = slice_info(p)
+            ratio = self._lr_ratio(p if sl is None else sl.owner)
             lr = np.float32(lr * np.float32(ratio)) if sched else lr * ratio
         return lr, sched
 
@@ -256,6 +264,9 @@ class AdamW(torch.optim.Optimizer):
         unchanged.  Without it the powers are host scalars, passed to each
         launch (or, once the pairs exist, advanced there
         unconditionally)."""
+        zero = getattr(self, "_zero", None)
+        if zero is not None:
+            zero.prepare_grads()
         params_grads = [(p, p.grad) for p in self._params()
                         if p.grad is not None]
         if self._grad_clip is not None:
@@ -293,33 +304,17 @@ class AdamW(torch.optim.Optimizer):
                 master=state.get("master"),
                 finite=None if flags is None else flags[p.device],
                 pows=None if self._pairs is None else self._pairs[p.device])
+        if zero is not None:
+            zero.after_step()
 
     def _logical(self):
-        """The parameters as the state dict indexes them: one entry a
-        logical tensor, in the order each first appears -- a parameter,
-        or a placed model's ``ShardedParameter`` (every part of it must be
-        in this optimizer); a dp replica's copies are left out."""
-        out, seen = [], set()
-        for p in self._params():
-            if replica_of(p) is not None:
-                continue
-            info = shard_info(p)
-            if info is None:
-                out.append(p)
-            elif id(info[0]) not in seen:
-                seen.add(id(info[0]))
-                out.append(info[0])
-        return out
+        return _logical_entries(self._params())
 
     def _state_of(self, entry, name):
         """``entry``'s state ``name`` (a whole tensor: a sharded entry's
-        is gathered from its replica-0 parts), or None."""
-        if isinstance(entry, torch.Tensor):
-            return self.state[entry].get(name)
-        parts = list(entry)
-        if name not in self.state[parts[0]]:
-            return None
-        return entry.gather([self.state[p][name] for p in parts])
+        is gathered from its replica-0 parts or ZeRO slices), or None."""
+        return logical_value(entry,
+                             lambda t: self.state.get(t, {}).get(name))
 
     # -- the reference's state_dict --------------------------------------
     def state_dict(self):
@@ -354,10 +349,9 @@ class AdamW(torch.optim.Optimizer):
         ignored, as the reference ignores them."""
         for i, entry in enumerate(self._logical()):
             placed = not isinstance(entry, torch.Tensor)
-            parts = list(entry) if placed else [entry]
             for name in ("moment1", "moment2", "master"):
                 key = f"{name}_{i}"
-                if name not in self.state[parts[0]] or key not in state_dict:
+                if key not in state_dict:
                     continue
                 v = state_dict[key]
                 v = v if isinstance(v, torch.Tensor) else \
@@ -366,9 +360,7 @@ class AdamW(torch.optim.Optimizer):
                 if tuple(v.shape) != shape:
                     raise ValueError(f"set_state_dict: {key} has shape "
                                      f"{tuple(v.shape)}, expected {shape}")
-                cuts = entry.cut_whole(v) if placed else [v]
-                for p, c in zip(parts, cuts):
-                    self.state[p][name].copy_(c)
+                _load_cuts(self, entry, name, v)
         copy_replica_state(self, ("moment1", "moment2", "master"))
         for key, attr in (("aux_0", "beta1_pow"), ("aux_1", "beta2_pow")):
             if key in state_dict:
@@ -381,6 +373,10 @@ class AdamW(torch.optim.Optimizer):
 
     load_state_dict = set_state_dict
 
+    def zero_grad(self, set_to_none: bool = True):
+        super().zero_grad(set_to_none=set_to_none)
+        _clear_zero_grads(self, set_to_none)
+
     def clear_grad(self, set_to_zero=False):
         """The reference's ``clear_grad``: drop every gradient, or with
         ``set_to_zero`` zero those that exist (the next backward adds
@@ -388,6 +384,41 @@ class AdamW(torch.optim.Optimizer):
         self.zero_grad(set_to_none=not set_to_zero)
 
     clear_gradients = clear_grad
+
+
+def _logical_entries(params):
+    """The parameters as a state dict indexes them: one entry a logical
+    tensor, in the order each first appears -- a parameter, or a placed
+    model's ``ShardedParameter`` (every part of it must be in the
+    optimizer); a dp replica's copies, and ZeRO slices of groups other
+    than 0, are left out."""
+    out, seen = [], set()
+    for p in params:
+        sl = slice_info(p)
+        if replica_of(p) is not None or (sl is not None and sl.group):
+            continue
+        entry = logical_owner(p)
+        if id(entry) not in seen:
+            seen.add(id(entry))
+            out.append(entry)
+    return out
+
+
+@torch.no_grad()
+def _load_cuts(opt, entry, name, whole):
+    """``whole`` (a logical tensor's state ``name``) into every tensor the
+    optimizer holds it in: the parts, or the ZeRO slices of every
+    group."""
+    for t, v in held_cuts(entry, whole):
+        st = opt.state.get(t, {}).get(name)
+        if st is not None:
+            st.copy_(v.reshape(st.shape))
+
+
+def _clear_zero_grads(opt, set_to_none):
+    zero = getattr(opt, "_zero", None)
+    if zero is not None:
+        zero.clear_grads(set_to_none)
 
 
 class PlainOptimizer(torch.optim.Optimizer):
@@ -471,11 +502,16 @@ class PlainOptimizer(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self):
+        zero = getattr(self, "_zero", None)
+        if zero is not None:
+            zero.prepare_grads()
         params_grads = [(p, p.grad) for p in self._params()
                         if p.grad is not None]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._update(params_grads)
+        if zero is not None:
+            zero.after_step()
 
     def _update(self, params_grads):
         lr = self.get_lr()
@@ -485,33 +521,25 @@ class PlainOptimizer(torch.optim.Optimizer):
     def _apply_one(self, p, g, lr):
         raise NotImplementedError
 
+    def zero_grad(self, set_to_none: bool = True):
+        super().zero_grad(set_to_none=set_to_none)
+        _clear_zero_grads(self, set_to_none)
+
     def clear_grad(self, set_to_zero=False):
         self.zero_grad(set_to_none=not set_to_zero)
 
     clear_gradients = clear_grad
 
     def _logical(self):
-        out, seen = [], set()
-        for p in self._params():
-            if replica_of(p) is not None:
-                continue
-            info = shard_info(p)
-            entry = p if info is None else info[0]
-            if id(entry) not in seen:
-                seen.add(id(entry))
-                out.append(entry)
-        return out
+        return _logical_entries(self._params())
 
     def state_dict(self):
         sd = {}
         entries = self._logical()
         for name in self.ACCUMULATORS:
             for i, entry in enumerate(entries):
-                if isinstance(entry, torch.Tensor):
-                    sd[f"{name}_{i}"] = self.state[entry][name]
-                else:
-                    sd[f"{name}_{i}"] = entry.gather(
-                        [self.state[p][name] for p in entry])
+                sd[f"{name}_{i}"] = logical_value(
+                    entry, lambda t: self.state.get(t, {}).get(name))
         if isinstance(self._learning_rate, LRScheduler):
             sd["LR_Scheduler"] = self._learning_rate.state_dict()
         return sd
@@ -519,8 +547,6 @@ class PlainOptimizer(torch.optim.Optimizer):
     @torch.no_grad()
     def set_state_dict(self, state_dict: Mapping):
         for i, entry in enumerate(self._logical()):
-            placed = not isinstance(entry, torch.Tensor)
-            parts = list(entry) if placed else [entry]
             for name in self.ACCUMULATORS:
                 key = f"{name}_{i}"
                 if key not in state_dict:
@@ -528,9 +554,7 @@ class PlainOptimizer(torch.optim.Optimizer):
                 v = state_dict[key]
                 v = v if isinstance(v, torch.Tensor) else \
                     torch.from_numpy(np.array(v, np.float32))
-                cuts = entry.cut_whole(v) if placed else [v]
-                for p, c in zip(parts, cuts):
-                    self.state[p][name].copy_(c)
+                _load_cuts(self, entry, name, v)
         copy_replica_state(self, self.ACCUMULATORS)
         if "LR_Scheduler" in state_dict and isinstance(self._learning_rate,
                                                        LRScheduler):

@@ -766,10 +766,13 @@ def test_tensor_parallel_wrapper_delegates(mesh):
         np.testing.assert_array_equal(v.numpy(), state[k], err_msg=k)
 
 
-@pytest.mark.parametrize("axes", [{"sp": 2}, {"sep": 2}, {"sharding": 2}])
+@pytest.mark.parametrize("axes", [{"sp": 2}, {"sep": 2},
+                                  {"sharding": 2, "sp": 2}])
 def test_layered_gpt_refuses_unported_axes(mesh, axes):
-    """Fault 6: sequence parallelism and ZeRO axes raise naming item 9,
-    with ``use_tensor_parallel`` or without."""
+    """Fault 6: sequence parallelism axes raise naming item 9, with
+    ``use_tensor_parallel`` or without, a sharding axis beside them too (a
+    sharding axis alone is a data axis since ZeRO was ported:
+    ``tests/test_torch_zero.py``)."""
     mesh(axes)
     for tp in (True, False):
         with pytest.raises(NotImplementedError,

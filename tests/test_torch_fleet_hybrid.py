@@ -256,19 +256,25 @@ def test_data_parallel_matches_jax(mesh):
 
 
 def test_fleet_distributed_model_data_mode(mesh):
-    """dp > 1 alone gives ``DataParallel``; sharding and sep still raise,
-    naming item 9."""
+    """dp > 1 alone gives ``DataParallel``; so does sharding > 1, over the
+    dp x sharding replicas (ZeRO's data axis); sep still raises, naming
+    item 9."""
     st = _strategy(fleet.DistributedStrategy,
                    {"dp_degree": 2, "pp_degree": 1, "mp_degree": 1})
     mesh({"dp": 2})
     fleet.init(is_collective=True, strategy=st)
     assert isinstance(fleet.distributed_model(_mlp_port()), DataParallel)
-    for axis in ("sharding", "sep"):
-        st = _strategy(fleet.DistributedStrategy, {f"{axis}_degree": 2})
-        mesh({axis: 2})
-        fleet.init(is_collective=True, strategy=st)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fleet.distributed_model(_mlp_port())
+    st = _strategy(fleet.DistributedStrategy,
+                   {"dp_degree": 2, "sharding_degree": 2})
+    mesh({"dp": 2, "sharding": 2})
+    fleet.init(is_collective=True, strategy=st)
+    dp = fleet.distributed_model(_mlp_port())
+    assert isinstance(dp, DataParallel) and dp.num_replicas == 4
+    st = _strategy(fleet.DistributedStrategy, {"sep_degree": 2})
+    mesh({"sep": 2})
+    fleet.init(is_collective=True, strategy=st)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        fleet.distributed_model(_mlp_port())
 
 
 # ---------------------------------------------------------------------------

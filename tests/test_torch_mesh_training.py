@@ -542,7 +542,9 @@ def test_refusals(mesh):
     mesh({"dp": 3})
     with pytest.raises(ValueError, match="split over dp=3"):
         GPTStackedForPretraining(cfg)(ids, labels=labels)
-    for axes in ({"dp": 2, "sp": 2}, {"sharding": 2}, {"sep": 2}):
+    # a sharding axis is a data axis now (ZeRO, tests/test_torch_zero.py):
+    # beside sep it does not lift sep's refusal
+    for axes in ({"dp": 2, "sp": 2}, {"sharding": 2, "sep": 2}, {"sep": 2}):
         mesh(axes)
         with pytest.raises(NotImplementedError, match="item 9"):
             GPTStackedForPretraining(gpt_tiny(**CFG, sequence_parallel=True))

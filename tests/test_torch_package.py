@@ -251,11 +251,11 @@ def _pipelined():
         M.set_mesh(None)
 
 
-def _layered_on(axes):
+def _layered_on(axes, **factory):
     """The layered GPT built under a mesh of ``axes`` (CPU positions)."""
     M.set_mesh(M.build_mesh(axes, ["cpu"] * int(np.prod(list(axes.values())))))
     try:
-        GPTForPretraining(gpt_tiny(use_tensor_parallel=True))
+        GPTForPretraining(gpt_tiny(use_tensor_parallel=True), **factory)
     finally:
         M.set_mesh(None)
 
@@ -353,6 +353,22 @@ def _meta_step(flag, want, **configs):
 _PP_MP = {"dp_degree": 1, "pp_degree": 2, "mp_degree": 2}
 
 
+def _sharded_step(fleet, st):
+    """``distributed_model`` at sharding 2 gives ``DataParallel`` over two
+    replicas, and ``group_sharded_parallel`` at ``p_g_os`` steps it."""
+    from paddle_tpu_torch.distributed import DataParallel
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.nn.layers import Linear
+
+    model = fleet.distributed_model(Linear(4, 4, device="cpu"))
+    assert isinstance(model, DataParallel) and model.num_replicas == 2
+    opt = fleet.distributed_optimizer(AdamW(parameters=model.parameters()))
+    model, opt, _ = group_sharded_parallel(model, opt, "p_g_os")
+    model(torch.ones((2, 4))).sum().backward()
+    opt.step()
+    assert torch.isfinite(model.state_dict()["weight"]).all()
+
+
 # every refused knob: (how to provoke it, words its item's title must hold)
 REFUSALS = {
     "gpt sequence_parallel": (_sequence_parallel, "mesh training"),
@@ -360,14 +376,12 @@ REFUSALS = {
                                   "mesh training"),
     "layered gpt on a sep axis": (lambda: _layered_on({"sep": 2}),
                                   "mesh training"),
-    "layered gpt on a sharding axis": (
-        lambda: _layered_on({"sharding": 2}), "mesh training"),
-    "fleet distributed_model sharding": (
-        lambda: _fleet({"sharding_degree": 2},
-                       lambda f, st: f.distributed_model(_pipeline_layer())),
-        "fleet"),
     "fleet distributed_model sep": (
         lambda: _fleet({"sep_degree": 2},
+                       lambda f, st: f.distributed_model(_pipeline_layer())),
+        "fleet"),
+    "fleet distributed_model sep with sharding": (
+        lambda: _fleet({"sharding_degree": 2, "sep_degree": 2},
                        lambda f, st: f.distributed_model(_pipeline_layer())),
         "fleet"),
     "fleet init_server": (
@@ -439,6 +453,11 @@ PORTED = {
         lambda: _meta_step("gradient_merge", "GradientMerge",
                            gradient_merge_configs={"k_steps": 2}), 9,
         "fleet"),
+    "layered gpt on a sharding axis": (
+        lambda: _layered_on({"sharding": 2}, device="cpu"), 9,
+        "mesh training"),
+    "fleet distributed_model sharding": (
+        lambda: _fleet({"sharding_degree": 2}, _sharded_step), 9, "fleet"),
 }
 
 

@@ -22,13 +22,21 @@ that layout instead (dp N x pp 2 x mp 2, 8 N rows; phase 49's own is
 ``--dp 2 --recompute-interval 1 --virtual 2``), its meta-optimizer runs
 at the same dp; with ``--cards 4`` its 4 N positions take the four cards
 in mesh order, N of them a card (a (shard 0, shard 1) pair a card at N
-= 2).  Run from the repository root:
+= 2).  ``--fleet --sharding N`` runs phase 50 alone instead (ZeRO
+through ``group_sharded_parallel`` at pp 2 x sharding N x mp 2, 8 N rows,
+at ``--level`` os, os_g or p_g_os, or at phase 50's os and p_g_os
+without it), printing the parameter, gradient and optimizer-state bytes
+of each mesh position and the peak memory; with ``--cards 4`` its 4 N
+positions take the four cards in mesh order, N of them a card (a
+(shard 0, shard 1) pair a card at N = 2).  Run from the repository root:
 
     python3 tools/port_mesh_probe.py [--steps N] [--parent DIR]
     python3 tools/port_mesh_probe.py --cards 4
     python3 tools/port_mesh_probe.py --fleet [--cards 4]
     python3 tools/port_mesh_probe.py --fleet --dp 2 --recompute-interval 1 \
         --virtual 2 [--cards 4]
+    python3 tools/port_mesh_probe.py --fleet --sharding 2 \
+        [--level os|os_g|p_g_os] [--cards 4]
 
 It exits nonzero when a check fails or there is no card.
 """
@@ -84,11 +92,22 @@ def main() -> int:
                     help="phase 49's recompute_interval (with --fleet)")
     ap.add_argument("--virtual", type=int, default=None,
                     help="phase 49's virtual stages (with --fleet)")
+    ap.add_argument("--sharding", type=int, default=0,
+                    help="phase 50's sharding degree (with --fleet)")
+    ap.add_argument("--level", choices=("os", "os_g", "p_g_os"),
+                    default=None,
+                    help="phase 50's one ZeRO level (with --sharding)")
     args = ap.parse_args()
     dp_run = bool(args.dp) or args.recompute_interval is not None \
         or args.virtual is not None
-    if dp_run and not args.fleet:
-        ap.error("--dp, --recompute-interval and --virtual go with --fleet")
+    if (dp_run or args.sharding) and not args.fleet:
+        ap.error("--dp, --recompute-interval, --virtual and --sharding go "
+                 "with --fleet")
+    if args.level and not args.sharding:
+        ap.error("--level goes with --sharding")
+    if dp_run and args.sharding:
+        ap.error("--sharding runs phase 50: no --dp, --recompute-interval "
+                 "or --virtual")
     import torch
 
     if not torch.cuda.is_available():
@@ -110,7 +129,16 @@ def main() -> int:
     phases = (("45", cs.phase_mesh_kernels),
               ("46", lambda p: cs.phase_mesh_train(p, runs)),
               ("47", lambda p: cs.phase_mesh_card_vs_cpu(p, devices)))
-    if args.fleet and dp_run:
+    if args.fleet and args.sharding:
+        n = args.sharding
+        cs.FLEET_ZERO_HYBRID = dict(cs.FLEET_ZERO_HYBRID, sharding_degree=n)
+        cs.FLEET_ZERO_BATCH = 8 * n
+        if args.level:
+            cs.FLEET_ZERO_LEVELS = (args.level,)
+        cards = ([f"cuda:{j // n}" for j in range(4 * n)]
+                 if args.cards >= 4 else None)
+        phases = (("50", lambda p: cs.phase_fleet_zero(p, cards)),)
+    elif args.fleet and dp_run:
         dp = args.dp or cs.FLEET_DP_HYBRID["dp_degree"]
         cs.FLEET_DP_HYBRID = dict(cs.FLEET_DP_HYBRID, dp_degree=dp)
         cs.FLEET_DP_BATCH = 8 * dp
