@@ -354,8 +354,8 @@ result line:
    weights on the card must not exceed the unsharded model's (the whole
    projections are dropped once the shards hold them).  Prints tokens/s,
    the mean tick, the launches, replica 0's weight bytes a shard's card
-   would hold on distinct cards and, for the stacked GPT, the device time
-   per fused step under ``torch.profiler``;
+   would hold on distinct cards and, for the stacked GPT at (2, 2), the
+   device time per fused step under ``torch.profiler``;
 42. sharded int8 -- an int8 pool and int8 weights at (dp, mp) = (1, 2),
    whose tokens must be phase 13's engine's, every one (the int8 products
    reduce exact int32 accumulators), then at (2, 2) under the parity rule
@@ -369,7 +369,7 @@ result line:
    host ms per hand-off; then one 4-page hand-off (a 380-token prompt)
    timed alone with CUDA events between the stacked pools (4 copies) and
    the layered ones (96) beside the bytes bound;
-44. cluster fp32 -- 2 layers of GPT-3 1.3B's width in fp32, the same
+44. cluster fp32 -- 1 layer of GPT-3 1.3B's width in fp32, the same
    script on the card and on the CPU: the elastic controller (fake clock,
    queue-driven) through scale-up, the four brownout rungs, their LIFO
    release and scale-down; a drain of replica 1 at mid-run and
@@ -423,7 +423,21 @@ result line:
    gradient and state bytes against their arithmetic, the levels
    bit-equal, ``p_g_os``'s peak below ``os``'s); each with a 2-layer fp32
    copy on the card against the CPU (phase 50's at every level, the dp
-   fallback, a skipped ``GradScaler`` step and the stacked GPT).
+   fallback, a skipped ``GradScaler`` step and the stacked GPT);
+51. sequence parallelism -- the flash kernels at the ring's blocks
+   (``SP_FLASH``: a part's 1024 rows at 16 and at 8 heads, bf16, causal
+   and full) and ``RingAttention`` at sp 2 and 4 (``SP_RING_CASES``)
+   against their plain versions, each block pair one launch of each
+   kernel; GPT-3 1.3B bf16 (O1, dropout 0, 2048 positions) with
+   ``sequence_parallel`` at batch 4 x 2048 on ``{"sp": 2}`` and ``{"sp":
+   2, "mp": 2}``, every position on one card, 2 steps each: step 1's loss
+   (``MESH_LOSS_REL``) and gradients (``TRAIN_GRAD_NORM``) against the
+   unplaced layered model on the same weights and batch, exactly mp x 24
+   x sp (sp + 1) / 2 launches of each flash kernel and one AdamW launch
+   a tensor a step; a 2-layer fp32 copy (head_dim 64) at sp 2, sp 4 and
+   sp 2 x mp 2 on the card against the CPU, and the axes no model reads
+   (sp without ``sequence_parallel``, sep; the stacked GPT and the fleet
+   recipe at sep 2) bit for bit their runs without the axis.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -438,14 +452,16 @@ fp32 form's row, launched by phase 31, its time with the flag and the
 library's with ``found_inf``; the flash rows their launches on phases 6,
 31 and 40, the forward's also on 35 and 37, and, with the bf16 AdamW
 row, on phase 46's mesh runs and (fp32) phase 47's, and on phases
-48-50's fleet steps (``train_fleet_*``); the fp32 AdamW row its launches
-on phases 31, 47 and 48-50's fp32 copies; the decode and paged rows,
+48-50's fleet steps (``train_fleet_*``) and phase 51's
+(``train_sequence_parallel_*``); the fp32 AdamW row its launches on
+phases 31, 47, 48-50 and 51's fp32 copies; the decode and paged rows,
 bf16 and int8, theirs on the stacked and the layered GPT's paths), and
 as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import re
@@ -588,6 +604,7 @@ def import_port():
     from paddle_tpu_torch.distributed import sharding
     from paddle_tpu_torch.models import gpt as gpt_blocks
     from paddle_tpu_torch.nn.layers import LayerNorm, init_weights
+    from paddle_tpu_torch.nn.functional import ring_attention as ring
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
                 gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
@@ -606,7 +623,7 @@ def import_port():
                 sharded=sharded, serving_mesh=serving_mesh, mesh=mesh,
                 shards=shards, fleet=fleet, gpt_blocks=gpt_blocks,
                 LayerNorm=LayerNorm, init_weights=init_weights,
-                Momentum=Momentum, sharding=sharding)
+                Momentum=Momentum, sharding=sharding, ring=ring)
 
 
 def _check(cond, msg):
@@ -5865,15 +5882,17 @@ def phase_sharded_serve(port):
         want = _single_outputs(port, model)
         for dp, mp in SHARD_MESHES:
             name = f"sharded_serve {cls} dp={dp} mp={mp}"
+            # one profiled mesh: the profiler's teardown of a serve
+            # takes ~12 s of the run's budget
             r = _sharded_run(port, name, model, dp, mp, want,
-                             profile_it=cls == "GPT")
+                             profile_it=cls == "GPT" and (dp, mp) == (2, 2))
             launches += r["launches"]
             runs[(cls, dp, mp)] = r
             if cls == "GPT" and dp > 1 and mp == 1:
                 # the same replicas stepped from the thread pool (the
                 # rule steps co-resident replicas in order)
                 r = _sharded_run(port, name + " threads", model, dp, mp,
-                                 want, profile_it=True, threads=True)
+                                 want, threads=True)
                 launches += r["launches"]
                 runs[(cls, dp, mp, "threads")] = r
         del model
@@ -6009,7 +6028,9 @@ CLUSTER_NEW = 8
 
 
 def _cluster_model(port, device, cls="GPT"):
-    cfg = port["gpt_1p3b"](num_layers=2)
+    # one layer: the script's decisions read queue depths, ledgers and a
+    # fake clock, not the depth, and its CPU half is most of the phase
+    cfg = port["gpt_1p3b"](num_layers=1)
     return port[cls](cfg, device=device, dtype="float32", seed=1).eval()
 
 
@@ -6182,7 +6203,7 @@ def phase_cluster_card_vs_cpu(port):
                f"cluster {part}: card {crec[part]} != CPU {prec[part]}")
         done = [i for i, r in enumerate(preqs[part]) if r.finished]
         gap_model = models["Layered" if "layered" in part else "GPT"][0]
-        _parity(port, f"cluster {part} fp32 2 layers, card vs CPU",
+        _parity(port, f"cluster {part} fp32 1 layer, card vs CPU",
                 [creqs[part][i].output_ids() for i in done],
                 [preqs[part][i].output_ids() for i in done], gap_model,
                 GAP_BOUND["float32"], "float32")
@@ -6302,7 +6323,7 @@ def _o1_grads(port, model, ids, labels):
 
 
 def _grad_rel_norms(grads, ref):
-    return {k: ((g.float() - ref[k].float()).norm()
+    return {k: ((g.float() - ref[k].to(g.device).float()).norm()
                 / ref[k].float().norm()).item() for k, g in grads.items()}
 
 
@@ -6609,8 +6630,8 @@ def fleet_pipeline(port, cfg, devices, dtype, seed, grad_clip=None,
     torch, fleet, G = port["torch"], port["fleet"], port["gpt_blocks"]
     dm = port["mesh"]
     dm.set_mesh(dm.build_mesh({a: hybrid.get(f"{a}_degree", 1)
-                               for a in ("dp", "pp", "sharding", "mp")},
-                              devices))
+                               for a in ("dp", "pp", "sharding", "sep",
+                                         "mp")}, devices))
     st = fleet.DistributedStrategy()
     st.hybrid_configs = dict(hybrid)
     st.pipeline_configs = dict(pipe)
@@ -7679,6 +7700,448 @@ def _fleet_zero_card_vs_cpu(port, devices):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 51: sequence parallelism with ring attention, the layered GPT
+# ---------------------------------------------------------------------------
+
+# GPT-3 1.3B at its published 2048 positions, batch SP_BATCH x SP_SEQ, with
+# sequence_parallel on each mesh of SP_RUNS (name, axes), every position
+# on one card; SP_STEPS steps each
+SP_BATCH, SP_SEQ = 4, 2048
+SP_RUNS = (("sp2", {"sp": 2}), ("sp2_mp2", {"sp": 2, "mp": 2}))
+SP_STEPS = 2
+SP_LR = 1e-4
+# the flash kernels' blocks on that path: a part's S / sp = 1024 rows at
+# the 16 heads, and at a head shard's 8 (bf16, causal and full)
+SP_FLASH = ((SP_BATCH, 16, SP_SEQ // 2, 128), (SP_BATCH, 8, SP_SEQ // 2, 128))
+# RingAttention against ring_attention_plain on the card: (sp, [B, S, N,
+# D] of the whole sequence), bf16 operands, the plain version in fp32 on
+# the same values
+SP_RING_CASES = ((2, (SP_BATCH, SP_SEQ, 16, 128)),
+                 (4, (SP_BATCH, 2 * SP_SEQ, 8, 128)))
+# the Function against the plain ring, by relative norm over each
+# output: O and the gradients round every block's partial to bf16 before
+# the fp32 merge (~2^-9 of the norm, as one flash kernel's O against its
+# plain version: FLASH_O_NORM); lse is fp32 on both sides.  A dropped,
+# repeated or misplaced block parts them by O(1)
+SP_RING_NORM = {"O": 2.0 ** -8, "lse": 1e-6, "dq": 2.0 ** -7,
+                "dk": 2.0 ** -7, "dv": 2.0 ** -7}
+# phase 51's 2-layer fp32 copy against the CPU: (name, axes), head_dim
+# 64, every part a 128-multiple at batch 2 x SP_CPU_SEQ
+SP_CPU_RUNS = (("sp2", {"sp": 2}), ("sp4", {"sp": 4}),
+               ("sp2_mp2", {"sp": 2, "mp": 2}))
+SP_CPU_SEQ = 512
+
+
+def _sp_mesh(port, axes, devices=None):
+    """The global mesh over ``axes`` (a dict), every position on one card
+    (or on ``devices``); None clears it."""
+    dm = port["mesh"]
+    if axes is None:
+        dm.set_mesh(None)
+        return
+    n = int(np.prod(list(axes.values())))
+    dm.set_mesh(dm.build_mesh(dict(axes), _mesh_devices(n) if devices is None
+                              else devices))
+
+
+def _ring_compare(port, sp, shape, seed, devices=None):
+    """``RingAttention`` on bf16 shards against ``ring_attention_plain`` in
+    fp32 on the same values (O, lse, dQ, dK, dV by relative norm,
+    SP_RING_NORM); each block pair counted once a kernel; shard ``r`` on
+    ``devices[r]`` (default: all on the card).  Returns (max abs errors:
+    forward, dK/dV, dQ; ms of the ring's forward and of the flash forward
+    over the whole sequence, causal)."""
+    torch, R, fa = port["torch"], port["ring"], port["fa"]
+    b, s, n, d = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE)
+                   .to(torch.bfloat16) for _ in range(4))
+    loc = s // sp
+    devs = devices or [DEVICE] * sp
+
+    def shards(t, dtype):
+        return [x.to(dev, dtype).detach().requires_grad_(True)
+                for x, dev in zip(t.split(loc, 1), devs)]
+
+    def cut(t, dtype):
+        return [x.to(dev, dtype) for x, dev in zip(t.split(loc, 1), devs)]
+
+    pairs = sp * (sp + 1) // 2
+    kq, kk, kv = (shards(t, torch.bfloat16) for t in (q, k, v))
+    _reset_launches(port)
+    res = R.RingAttention.apply(True, *kq, *kk, *kv)
+    outs, lses = res[:sp], res[sp:]
+    torch.autograd.backward(outs, cut(do, torch.bfloat16))
+    for dev in set(devs):
+        torch.cuda.synchronize(dev)
+    counts = _launch_counts(port)
+    pq, pk, pv = (shards(t, torch.float32) for t in (q, k, v))
+    pouts, plses = R.ring_attention_plain(pq, pk, pv, True)
+    torch.autograd.backward(pouts, cut(do, torch.float32))
+    got = {"O": outs, "lse": lses, "dq": [t.grad for t in kq],
+           "dk": [t.grad for t in kk], "dv": [t.grad for t in kv]}
+    want = {"O": pouts, "lse": plses, "dq": [t.grad for t in pq],
+            "dk": [t.grad for t in pk], "dv": [t.grad for t in pv]}
+    errs, rels = {}, {}
+    for name in got:
+        a = torch.cat([x.detach().float().reshape(-1).to(DEVICE)
+                       for x in got[name]])
+        w = torch.cat([x.detach().float().reshape(-1).to(DEVICE)
+                       for x in want[name]])
+        _check(bool(torch.isfinite(a).all()), f"ring sp={sp}: {name} not "
+               "finite")
+        errs[name] = (a - w).abs().max().item()
+        rels[name] = ((a - w).norm() / w.norm()).item()
+    scale = 1.0 / d ** 0.5
+    def ring_fwd(i):
+        return R.RingAttention.apply(
+            True, *[x.detach() for x in kq], *[x.detach() for x in kk],
+            *[x.detach() for x in kv])
+
+    if devices is None:
+        ring_ms, _ = _time_ms(torch, ring_fwd, 10)
+        clock = "device"
+    else:
+        # shards on several cards: the host clock over 10 calls, every
+        # card synchronised at both ends
+        ring_fwd(0)
+        for dev in set(devs):
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for i in range(10):
+            ring_fwd(i)
+        for dev in set(devs):
+            torch.cuda.synchronize(dev)
+        ring_ms = 1e3 * (time.perf_counter() - t0) / 10
+        clock = "host clock, the cards synchronised"
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    whole_ms, _ = _time_ms(torch, lambda i: fa.flash_attention_fwd(
+        qh, kh, vh, True, scale), 10)
+    where = "one card" if devices is None else f"shards on {devs}"
+    print(f"[sequence_parallel] RingAttention sp={sp} {shape} bf16 causal "
+          f"({where}) against ring_attention_plain (fp32): max abs "
+          f"{ {k: round(v, 8) for k, v in errs.items()} }, relative norm "
+          f"{ {k: float(f'{v:.4g}') for k, v in rels.items()} } (tol "
+          f"{SP_RING_NORM}); launches {counts} (want {pairs} of each flash "
+          f"kernel); forward {ring_ms:.4f} ms {clock} against the flash "
+          f"forward over the whole sequence {whole_ms:.4f} ms")
+    _check(all(counts[k] == pairs for k in ("fwd", "dkv", "dq")),
+           f"ring sp={sp}: launches {counts}, expected {pairs} each")
+    for name, rel in rels.items():
+        _check(rel <= SP_RING_NORM[name], f"ring sp={sp}: {name} relative "
+               f"norm {rel:.4g} over {SP_RING_NORM[name]}")
+    return (max(errs["O"], errs["lse"]), max(errs["dk"], errs["dv"]),
+            errs["dq"], ring_ms, whole_ms)
+
+
+def _sp_run(port, name, axes, cfg, ids, labels, ref, devices=None):
+    """One mesh of phase 51: GPT-3 1.3B bf16 with ``sequence_parallel`` on
+    ``axes`` (``use_tensor_parallel`` at mp > 1), seed 0, AdamW through
+    ``FusedTrainStep`` under O1 (as phases 48-50: the loss in fp32),
+    SP_STEPS steps on one batch, every position on the card (or the mesh
+    over ``devices``: the sp positions' cards of their own, each from 1
+    on holding a tied copy).  Step 1's loss and gradients (captured
+    before its update) against the unplaced model's (``ref``); exact
+    launches a step; step 2 under the profiler; the copies equal their
+    sources after the steps."""
+    torch = port["torch"]
+    sp, mp = axes["sp"], axes.get("mp", 1)
+    cards = sorted({str(d) for d in devices or [DEVICE]})
+    t0 = time.perf_counter()
+    _sp_mesh(port, axes, devices)
+    run_cfg = dataclasses.replace(cfg, use_tensor_parallel=mp > 1)
+    model = port["Layered"](run_cfg, dtype="bfloat16", seed=0, **(
+        {} if mp > 1 else {"device": devices[0] if devices else DEVICE}))
+    _check(model.gpt.sequence_parts == sp, f"{name}: sequence parts "
+           f"{model.gpt.sequence_parts}")
+    n_copies = len(model.gpt.sequence_copies)
+    _check(n_copies == (sp - 1 if devices else 0), f"{name}: {n_copies} "
+           "sp copies")
+    got = model.state_dict()
+    same = set(got) == set(ref["state"]) and all(
+        torch.equal(got[k], v) for k, v in ref["state"].items())
+    del got
+    _check(same, f"{name}: the weights are not the unplaced model's")
+    opt = port["AdamW"](SP_LR, parameters=model.parameters(),
+                        multi_precision=False)
+    crit = port["Criterion"](run_cfg)
+    step = port["FusedTrainStep"](lambda x, y: crit(model(x), y), opt,
+                                  amp_level="O1")
+    captured, apply = {}, opt.step
+
+    def capturing(*args, **kwargs):
+        if not captured:
+            captured.update(port["sharding"].gathered_grads(model))
+        return apply(*args, **kwargs)
+
+    opt.step = capturing
+    n_tensors = len(list(model.parameters()))
+    build_s = time.perf_counter() - t0
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    _reset_launches(port)
+    t0 = time.perf_counter()
+    losses = [float(step(ids, labels))]
+    for d in cards:
+        torch.cuda.synchronize(d)
+    step1_s = time.perf_counter() - t0
+    first = _launch_counts(port)
+    rels = _grad_rel_norms(captured, ref["grads"])
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
+    captured.clear()
+    prof = _profiled_step_ms(port, lambda: losses.append(
+        float(step(ids, labels))))
+    _check(prof is not None, f"{name}: the profiler saw no device activity")
+    total = _launch_counts(port)
+    peaks = {d: torch.cuda.max_memory_allocated(d) / 2**30 for d in cards}
+    peak = max(peaks.values()) * 2**30
+    copies_equal = all(torch.equal(p, p.replica_of.to(p.device))
+                       for p in model.parameters()
+                       if getattr(p, "replica_of", None) is not None)
+    L = cfg.num_layers
+    want = {k: mp * L * sp * (sp + 1) // 2 for k in ("fwd", "dkv", "dq")}
+    want["adamw"] = n_tensors
+    print(f"[sequence_parallel] {name}: GPT-3 1.3B bf16 (O1), "
+          f"sequence_parallel "
+          f"on {axes} (use_tensor_parallel {mp > 1}), positions on "
+          f"{devices or DEVICE} ({n_copies} tied sp copies), {SP_BATCH} x "
+          f"{SP_SEQ}, {SP_STEPS} steps: set-up "
+          f"{build_s:.2f} s; step 1 loss {losses[0]!r} against the unplaced "
+          f"model's {ref['loss']!r} (relative {loss_rel:.3g}, tol "
+          f"{MESH_LOSS_REL:.3g}); step 1 gradients relative norm max "
+          f"{rels[worst]:.4g} ({worst}), median "
+          f"{float(np.median(list(rels.values()))):.4g} (tol "
+          f"{TRAIN_GRAD_NORM:.4g}); launches step 1 {first} (want {want}), "
+          f"over {SP_STEPS} steps {total}; step 1 {1e3 * step1_s:.1f} ms "
+          f"host clock (with warm-up and the gradient capture); step 2 "
+          f"under the profiler {prof[3]:.2f} ms host clock, device "
+          f"{prof[0]:.2f} ms, busy {prof[2]:.3f} of it; losses {losses}; "
+          f"peak GiB by card "
+          f"{ {d: round(v, 2) for d, v in peaks.items()} }; {n_tensors} "
+          f"tensors; copies equal their sources after the steps "
+          f"{copies_equal}")
+    _check(all(np.isfinite(losses)), f"{name}: non-finite losses {losses}")
+    _check(copies_equal, f"{name}: an sp copy parted from its source")
+    _check(loss_rel <= MESH_LOSS_REL, f"{name}: step 1's loss is off the "
+           "unplaced model's")
+    _check(rels[worst] <= TRAIN_GRAD_NORM, f"{name}: step 1's gradient of "
+           f"{worst} is off the unplaced model's ({rels[worst]:.4g})")
+    _check(all(first[k] == want[k] and total[k] == SP_STEPS * want[k]
+               for k in want), f"{name}: launches {first} / {total}, "
+           f"expected {want} a step")
+    del model, opt, step, crit
+    _sp_mesh(port, None)
+    torch.cuda.empty_cache()
+    return dict(launches=total, host_ms=prof[3], device_ms=prof[0],
+                busy=prof[2], peak=peak, loss_rel=loss_rel,
+                grad_rel=rels[worst], step1_ms=1e3 * step1_s)
+
+
+def phase_sequence_parallel(port, cards=None):
+    """Phase 51: (a) the flash kernels at the ring's block shapes
+    (SP_FLASH, causal and full) and ``RingAttention`` at SP_RING_CASES
+    against their plain versions; (b) GPT-3 1.3B bf16 (dropout 0, 2048
+    positions) with ``sequence_parallel`` at each mesh of SP_RUNS, held
+    to the unplaced layered model on the same weights and batch
+    (:func:`_sp_run`); (c) :func:`_sp_card_vs_cpu`.  With ``cards`` (a
+    device a mesh position, in mesh order) the ring's shards and the
+    meshes' positions lie on those cards, the sp positions on cards of
+    their own."""
+    torch = port["torch"]
+    t_phase = time.perf_counter()
+    errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    for i, (shape, causal) in enumerate(
+            (s, c) for s in SP_FLASH for c in (True, False)):
+        e = _kept(port, _flash_compare, port, "bfloat16", shape, causal,
+                  510 + i)
+        errs = {k: max(errs[k], x) for k, x in zip(errs, e)}
+    # the Function's errors are against the fp32 ring, not a kernel's own
+    # plain version: kept apart from the kernels' rows
+    ring = {sp: _kept(port, _ring_compare, port, sp, shape, 520 + sp,
+                      cards and cards[:sp])
+            for sp, shape in SP_RING_CASES}
+    kernels_s = time.perf_counter() - t_phase
+    cfg = port["gpt_1p3b"](hidden_dropout=0.0, attention_dropout=0.0,
+                           max_position_embeddings=2048,
+                           sequence_parallel=True)
+    rng = np.random.RandomState(51)
+    ids, labels = (torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (SP_BATCH, SP_SEQ))).to(DEVICE) for _ in range(2))
+    t0 = time.perf_counter()
+    _sp_mesh(port, None)
+    model = port["Layered"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
+    _reset_launches(port)
+    with _o1(port):
+        loss = port["Criterion"](cfg)(model(ids), labels)
+    loss.backward()
+    base = _launch_counts(port)
+    ref = dict(loss=loss.item(), state=model.state_dict(),
+               grads={k: p.grad for k, p in model.named_parameters()})
+    del model, loss
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    print(f"[sequence_parallel] unplaced layered GPT-3 1.3B bf16 (O1) at "
+          f"{SP_BATCH} x {SP_SEQ}: loss {ref['loss']!r}, launches of its "
+          f"forward and backward {base} ({ref_s:.2f} s with the build; "
+          f"kernel checks {kernels_s:.2f} s)")
+    runs = {name: _sp_run(port, name, axes, cfg, ids, labels, ref,
+                          cards and cards[:int(np.prod(list(axes.values())))])
+            for name, axes in SP_RUNS}
+    del ref
+    torch.cuda.empty_cache()
+    cpu = _sp_card_vs_cpu(port, cards)
+    print(f"[time] phase 51 {time.perf_counter() - t_phase:.1f} s")
+    return dict(errs=errs, runs=runs, cpu_launches=cpu, ring=ring)
+
+
+def _sp_tiny(port, tp=False, **kw):
+    """Phase 51's 2-layer fp32 copy (hidden 256, 4 heads: head_dim 64)."""
+    return port["gpt_tiny"](hidden_size=256, num_heads=4, num_layers=2,
+                            max_position_embeddings=SP_CPU_SEQ,
+                            hidden_dropout=0.0, attention_dropout=0.0,
+                            use_tensor_parallel=tp, **kw)
+
+
+def _sp_tiny_run(port, cfg, axes, device, state, batches, cards=None):
+    """The layered 2-layer copy with ``cfg`` on ``axes`` over ``device``
+    positions (or over ``cards``, one a position; no mesh: None),
+    ``state`` loaded: step 1's loss and gathered gradients, then an
+    AdamW step and the next batch's loss."""
+    torch = port["torch"]
+    if axes is None:
+        _sp_mesh(port, None)
+    else:
+        n = int(np.prod(list(axes.values())))
+        _sp_mesh(port, axes, cards[:n] if cards else
+                 [device if device == "cpu" else f"{device}:0"] * n)
+    placed = axes is not None and cfg.use_tensor_parallel
+    model = port["Layered"](cfg, **({} if placed else {
+        "device": cards[0] if cards else device}))
+    model.load_state_dict({k: v.to(model.device) for k, v in state.items()})
+    crit = port["Criterion"](cfg)
+    opt = port["AdamW"](SP_LR, parameters=model.parameters())
+    (x, y), (x2, y2) = ((a.to(model.device), b.to(model.device))
+                        for a, b in batches)
+    loss = crit(model(x), y)
+    loss.backward()
+    grads = {k: g.float().cpu()
+             for k, g in port["sharding"].gathered_grads(model).items()}
+    opt.step()
+    opt.clear_grad()
+    with torch.no_grad():
+        loss2 = crit(model(x2), y2)
+    _sp_mesh(port, None)
+    return loss.item(), loss2.item(), grads
+
+
+def _sp_card_vs_cpu(port, cards=None):
+    """Phase 51's 2-layer fp32 copy on the card (or with its mesh
+    positions on ``cards``, one a position) against the CPU at each mesh
+    of SP_CPU_RUNS (TF32 off): step 1's loss and gradients (within
+    MESH_GRAD_REL of each tensor's largest), the loss after one AdamW
+    step (TRAIN_LOSS_ATOL); the card's flash launches exactly mp x L x
+    sp (sp + 1) / 2 of each kernel a forward and backward, and as many
+    forward launches again for the second loss.  Then, on one card, the
+    axes no model reads: sp without ``sequence_parallel`` and sep for the
+    layered model, sep for the stacked GPT at pp 2 and for the fleet
+    recipe at pp 2 x mp 2, each bit for bit its run without the axis.
+    Returns the card's launches by run."""
+    torch = port["torch"]
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(151)
+    batches = [tuple(torch.from_numpy(rng.randint(0, 1024, (2, SP_CPU_SEQ)))
+                     for _ in range(2)) for _ in range(2)]
+    base = port["Layered"](_sp_tiny(port), device="cpu", seed=5)
+    state = {k: v.clone() for k, v in base.state_dict().items()}
+    del base
+    out, lines = {}, []
+    for name, axes in SP_CPU_RUNS:
+        mp = axes.get("mp", 1)
+        cfg = _sp_tiny(port, mp > 1, sequence_parallel=True)
+        cl, cl2, cg = _sp_tiny_run(port, cfg, axes, "cpu", state, batches)
+        _reset_launches(port)
+        gl, gl2, gg = _sp_tiny_run(port, cfg, axes, DEVICE, state, batches,
+                                   cards)
+        counts = _launch_counts(port)
+        sp = axes["sp"]
+        per = mp * cfg.num_layers * sp * (sp + 1) // 2
+        # a forward and backward, then the next batch's forward
+        want = {"fwd": 2 * per, "dkv": per, "dq": per}
+        gerr = max(((gg[k] - g).abs().max() / g.abs().max()).item()
+                   for k, g in cg.items())
+        ldiff = max(abs(cl - gl), abs(cl2 - gl2))
+        used = cards and cards[:int(np.prod(list(axes.values())))]
+        lines.append(f"{name}{' on cards ' + str(used) if cards else ''}"
+                     f": losses cpu {[cl, cl2]} card {[gl, gl2]} (max "
+                     f"diff {ldiff!r}), gradients max |card - cpu| / max "
+                     f"|cpu| {gerr!r}, launches {counts} (want {want})")
+        _check(set(gg) == set(cg) and gerr <= MESH_GRAD_REL
+               and ldiff <= TRAIN_LOSS_ATOL,
+               f"sequence parallel card vs CPU {name}: gradients or losses "
+               "part")
+        _check(all(counts[k] == v for k, v in want.items()),
+               f"sequence parallel card vs CPU {name}: launches {counts}")
+        out[name] = {k: counts[k] for k in ("fwd", "dkv", "dq", "adamw")}
+    if cards:
+        print(f"[sequence_parallel_card_vs_cpu] 2 layers fp32, batch 2 x "
+              f"{SP_CPU_SEQ} ({time.perf_counter() - t0:.1f} s): "
+              + "; ".join(lines))
+        torch.cuda.empty_cache()
+        return out
+    # axes no model reads, on the card: the run without the axis bit for
+    # bit
+    bits = {}
+    for name, cfg, axes, without in (
+            ("layered sp without sequence_parallel", _sp_tiny(port),
+             {"sp": 2}, None),
+            ("layered sep at mp 2", _sp_tiny(port, True),
+             {"sep": 2, "mp": 2}, {"mp": 2})):
+        a = _sp_tiny_run(port, cfg, axes, DEVICE, state, batches)
+        b = _sp_tiny_run(port, cfg, without, DEVICE, state, batches)
+        bits[name] = a[:2] == b[:2] and all(torch.equal(a[2][k], b[2][k])
+                                            for k in b[2])
+    cfg = _sp_tiny(port)
+    stacked = []
+    for axes in ({"pp": 2, "sep": 2}, {"pp": 2}):
+        _sp_mesh(port, axes)
+        m = port["GPT"](cfg, 2, device=_mesh_devices(1)[0], seed=5)
+        x, y = (t.to(DEVICE) for t in batches[0])
+        loss = m(x, labels=y)
+        loss.backward()
+        stacked.append((loss.detach(), [p.grad for p in m.parameters()]))
+        del m
+    _sp_mesh(port, None)
+    bits["stacked sep at pp 2"] = torch.equal(stacked[0][0], stacked[1][0]) \
+        and all(torch.equal(a, b) for a, b in zip(stacked[0][1],
+                                                  stacked[1][1]))
+    fleet = []
+    fleet_batch = tuple(torch.from_numpy(rng.randint(0, 1024, (8, 128)))
+                        .to(DEVICE) for _ in range(2))
+    for hybrid in (dict(FLEET_HYBRID, sep_degree=2), FLEET_HYBRID):
+        n = int(np.prod(list(hybrid.values())))
+        model, pl, opt = fleet_pipeline(
+            port, _fleet_tiny(port), _mesh_devices(n), "float32", 48,
+            hybrid=hybrid)
+        cap = _GradCapture(port, opt, pl)
+        loss = model.train_batch(fleet_batch, cap)
+        fleet.append((float(loss), cap.grads))
+        del model, pl, opt, cap
+        _sp_mesh(port, None)
+        port["fleet"].set_hybrid_communicate_group(None)
+    bits["fleet sep at pp 2 x mp 2"] = fleet[0][0] == fleet[1][0] and all(
+        torch.equal(fleet[0][1][k], v) for k, v in fleet[1][1].items())
+    print(f"[sequence_parallel_card_vs_cpu] 2 layers fp32, batch 2 x "
+          f"{SP_CPU_SEQ} ({time.perf_counter() - t0:.1f} s): "
+          + "; ".join(lines) + f"; the run without the axis bit for bit: "
+          f"{bits}")
+    _check(all(bits.values()), f"axes no model reads: {bits}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7709,6 +8172,12 @@ def main() -> int:
         print(f"[time] phases {phases} {now - marks[-1]:.1f} s "
               f"({now - t_start:.1f} s since the start)")
         marks.append(now)
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] phase {phase} {time.perf_counter() - t0:.1f} s")
+        return out
 
     phase_build(port)
     k = _kept(port, phase_kernels, port)
@@ -7790,11 +8259,14 @@ def main() -> int:
     ltrain = phase_layered_train(port)
     mark("35-40")
     # phases 41-44: sharded, elastic and disaggregated serving
-    by_path["sharded_serve"] = {"bfloat16": phase_sharded_serve(port)[0]}
-    by_path["sharded_int8"] = {"int8": phase_sharded_int8(port)[0]}
-    by_path["disagg"] = phase_disagg(port)[0]
+    by_path["sharded_serve"] = {"bfloat16": timed(
+        41, phase_sharded_serve, port)[0]}
+    by_path["sharded_int8"] = {"int8": timed(42, phase_sharded_int8,
+                                             port)[0]}
+    by_path["disagg"] = timed(43, phase_disagg, port)[0]
     # the fp32 launches ride the fp32/bf16 kernel's row
-    by_path["cluster_fp32"] = {"bfloat16": phase_cluster_card_vs_cpu(port)}
+    by_path["cluster_fp32"] = {"bfloat16": timed(
+        44, phase_cluster_card_vs_cpu, port)}
     mark("41-44")
     # phases 45-47: hybrid dp x pp x mp training of the stacked GPT
     mk45 = _kept(port, phase_mesh_kernels, port)
@@ -7815,6 +8287,13 @@ def main() -> int:
     fz = phase_fleet_zero(port)
     tk["adamw"]["max_abs_err"] = max(tk["adamw"]["max_abs_err"],
                                      fz["errs"]["adamw"])
+    mark("48-50")
+    # phase 51: sequence parallelism with ring attention on the flash
+    # kernels, the layered GPT at sp 2 and sp 2 x mp 2
+    fsp = phase_sequence_parallel(port)
+    for key in ("fwd", "dkv", "dq"):
+        tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"],
+                                     fsp["errs"][key])
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -7858,6 +8337,10 @@ def main() -> int:
         # phase 50's ZeRO steps at pp 2 x sharding 2 x mp 2
         mesh_paths.update({f"train_fleet_zero_{level}": run[key]
                            for level, run in fz["launches"].items()})
+        # phase 51's steps with sequence_parallel at sp 2, sp 2 x mp 2
+        mesh_paths.update({f"train_sequence_parallel_{name}":
+                           run["launches"][key]
+                           for name, run in fsp["runs"].items()})
         if key != "adamw":
             # phase 6's bf16-weight step, phase 31's O1 step and phase
             # 40's layered step; the forward also phase 35's layered
@@ -7871,7 +8354,9 @@ def main() -> int:
                 **{f"train_fleet_{name}_fp32_card_vs_cpu": run[key]
                    for name, run in fdp["cpu_launches"].items()},
                 **{f"train_fleet_{name}_fp32_card_vs_cpu": run[key]
-                   for name, run in fz["cpu_launches"].items()}}
+                   for name, run in fz["cpu_launches"].items()},
+                **{f"train_sequence_parallel_{name}_fp32_card_vs_cpu":
+                   run[key] for name, run in fsp["cpu_launches"].items()}}
             if key == "fwd":
                 kernels[-1]["launches_by_path"].update(
                     generate_layered=lgen["fwd"],
@@ -7896,7 +8381,10 @@ def main() -> int:
                            for name in ("gradient_merge", "localsgd")},
                         **{f"train_fleet_{name}_fp32_card_vs_cpu":
                            run["adamw"]
-                           for name, run in fz["cpu_launches"].items()}},
+                           for name, run in fz["cpu_launches"].items()},
+                        **{f"train_sequence_parallel_{name}_fp32_card_vs_cpu":
+                           run["adamw"]
+                           for name, run in fsp["cpu_launches"].items()}},
                     **fk})
     # the fp32-master form: the same kernel library and TPU kernel, with
     # the arithmetic of the reference's composed master path; launches

@@ -24,10 +24,12 @@ stages).  The recipe on one card::
 
 A ``sharding`` axis is a data axis: the wrappers hold replicas over dp x
 sharding, and ``distributed.sharding.group_sharded_parallel`` cuts
-their optimizer state, gradients and parameters over it (ZeRO).  Not
-ported, and raising: sequence parallelism (sep > 1) through the wrappers
-(ROADMAP.md queue 1, item 9, step 3); the parameter-server calls (item
-10).
+their optimizer state, gradients and parameters over it (ZeRO).  A
+``sep`` axis is a mesh axis no wrapper or model reads, as in the
+reference: the result is the run's without it (sequence parallelism is
+the layered GPT's, on an ``sp`` axis with ``sequence_parallel``).  Not
+ported, and raising: the parameter-server calls (ROADMAP.md queue 1,
+item 10).
 """
 from __future__ import annotations
 
@@ -94,16 +96,10 @@ def distributed_model(model):
     ``PipelineParallel`` at pp > 1 (its ``PipelineLayer`` holds the
     replicas), ``TensorParallel`` at mp > 1, ``DataParallel`` over the dp
     x sharding replicas at sharding > 1 or dp > 1, else ``model``
-    itself.  sep > 1 raises."""
+    itself.  sep is not read (the reference's has no sep branch)."""
     hcg = get_hybrid_communicate_group()
     if hcg is None:
         return model
-    sep = hcg.get_sep_parallel_world_size()
-    if sep > 1:
-        raise NotImplementedError(
-            f"fleet.distributed_model at sep={sep}: sequence parallelism "
-            "through the fleet wrappers is not ported (ROADMAP.md queue 1, "
-            "item 9, step 3)")
     mode = hcg.get_parallel_mode()
     if mode == "pipeline":
         return PipelineParallel(model, hcg, _user_strategy)

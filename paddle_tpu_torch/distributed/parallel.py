@@ -28,8 +28,8 @@ from torch import nn
 
 from . import mesh as _mesh
 from .shards import (
-    Bound, load_state, param_slots, place_on_stage, replicate, sync_replicas,
-    tie_slots,
+    Bound, load_state, param_slots, place_on_stage, refuse_sequence_copies,
+    replicate, sync_replicas, tie_slots,
 )
 
 __all__ = ["DataParallel", "ReplicatedModule"]
@@ -67,6 +67,7 @@ class ReplicatedModule(nn.Module):
         self._replicas = nn.ModuleList()
         dp = _mesh.replica_count()
         if dp > 1:
+            refuse_sequence_copies(layers, "dp replicas")
             place_on_stage(layers, 0, _mesh.stage_devices(0, 0), 0)
             for r in range(1, dp):
                 copy = replicate(layers)

@@ -59,7 +59,8 @@ from .. import mesh as _mesh
 from ..shards import (
     Bound, ShardedParameter, Slice, ZeroPiece, _optimizer_chain,
     _plain_parameters, _zero_target, logical_value, param_slots,
-    replica_of, shard_info, sharded_parameters, tie_slots,
+    refuse_sequence_copies, replica_of, shard_info, sharded_parameters,
+    tie_slots,
 )
 
 __all__ = ["group_sharded_parallel", "save_group_sharded_model",
@@ -464,6 +465,7 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
     if axis is None:
         return model, optimizer, scaler
     target = _zero_target(model)
+    refuse_sequence_copies(target, "ZeRO")
     if getattr(target, "_zero_plan", None) is not None:
         raise ValueError("group_sharded_parallel: the model is sharded "
                          "already")

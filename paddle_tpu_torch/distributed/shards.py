@@ -56,7 +56,8 @@ from .serving_mesh import reduce_sum
 
 __all__ = ["Part", "ShardedParameter", "shard_info", "sharded_parameters",
            "load_state", "tie_replicas", "cut", "weight_bytes_by_position",
-           "place_on_stage", "replica_of", "replicate", "sync_replicas",
+           "place_on_stage", "refuse_sequence_copies", "replica_of",
+           "replicate", "sync_replicas",
            "param_slots", "tie_slots", "Bound", "bound_now",
            "logical_owner", "covers_once", "Slice", "ZeroPiece",
            "slice_info", "position_of", "logical_value", "held_cuts",
@@ -669,6 +670,17 @@ def replicate(obj):
                 for k, t in enumerate(c):
                     t.shard = (c, k)
     return out
+
+
+def refuse_sequence_copies(module: nn.Module, what: str):
+    """Refuse ``what`` over a module holding sp copies on cards of their
+    own (the layered GPT's ``sequence_copies``): replicas of such a model
+    are not ported."""
+    if any(len(getattr(m, "sequence_copies", ())) for m in module.modules()):
+        raise NotImplementedError(
+            f"{what} of a layered GPT whose sp positions hold copies on "
+            "cards of their own is not ported (ROADMAP.md queue 1, item 9, "
+            "step 3): put every sp position on its replica's cards")
 
 
 @torch.no_grad()

@@ -76,7 +76,7 @@ class DevicePrefetcher:
         if sharding is not None:
             raise NotImplementedError(
                 "DevicePrefetcher(sharding=): batches placed over a mesh "
-                "are ROADMAP.md queue 1, item 9")
+                "are ROADMAP.md queue 1, item 9, step 4")
         self.depth = int(depth)
         self.device = resolve_device(device)
         self._wrap = wrap_tensors

@@ -65,7 +65,8 @@ per-layer key.  Nothing is read back from the card.
 """
 from __future__ import annotations
 
-from contextlib import ExitStack
+from collections import OrderedDict
+from contextlib import ExitStack, contextmanager
 from dataclasses import dataclass
 from functools import partial
 from typing import Mapping, NamedTuple, Optional
@@ -88,8 +89,8 @@ from ..distributed.fleet.layers.mpu.mp_layers import (
 )
 from ..distributed.serving_mesh import broadcast, qkv_columns, reduce_sum
 from ..distributed.shards import (
-    Part, ShardedParameter, bound_now, load_state, place_on_stage,
-    sharded_parameters, tie_replicas,
+    Bound, Part, ShardedParameter, bound_now, load_state, param_slots,
+    place_on_stage, replicate, sharded_parameters, tie_replicas, tie_slots,
 )
 from ..nn import functional as NF
 from ..nn.functional import (
@@ -98,6 +99,7 @@ from ..nn.functional import (
 from ..nn.layers import (
     Dropout, LayerNorm, Linear, init_weights, load_jax_state,
 )
+from ..nn.functional.ring_attention import RingAttention
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import (
     flash_attention_bnsd, flash_attention_fwd,
@@ -151,8 +153,10 @@ class GPTConfig:
     # blocks are built of the mpu layers (``layered_tp``), and without it
     # stay whole
     use_tensor_parallel: bool = False
-    # activations sharded by sequence over an 'sp' axis > 1: not ported
-    # (ROADMAP.md queue 1, item 9)
+    # on a mesh with an 'sp' axis > 1: the layered model holds its
+    # activations as sp sequence parts and attends over them by ring
+    # attention (``layered_sp``); the stacked model, as the reference's
+    # stacked block, does not read it
     sequence_parallel: bool = False
     recompute_interval: int = 0         # 0 = off; k = remat every k blocks
     # what a recomputed group keeps (recompute_interval > 0): None or
@@ -383,14 +387,11 @@ def layered_tp(cfg: GPTConfig, factory: dict):
     and the mesh's mp > 1 (the reference's mpu layers), else ``(None,
     factory)``.  dp, sharding and pp keep the reference's meaning: a
     bare block neither shards its batch nor pipelines (``PipelineLayer``
-    and the fleet wrappers do); an sp or sep axis > 1 raises
-    ``NotImplementedError``, as the stacked model's :func:`train_mesh`
-    does (the reference's layered block takes ring attention at sp > 1)."""
+    and the fleet wrappers do); sp and sep are read at coordinate 0 (the
+    sequence parts are :func:`layered_sp`'s)."""
     if not _mesh.has_mesh():
         return None, factory
-    shape = _mesh.get_mesh().shape
-    _refuse_unported_axes(shape, "of the layered GPT")
-    mp = shape.get("mp", 1)
+    mp = _mesh.get_mesh().shape.get("mp", 1)
     if not (cfg.use_tensor_parallel and mp > 1):
         return None, factory
     for what, n in (("num_heads", cfg.num_heads), ("ffn size", cfg.ffn_size),
@@ -403,6 +404,30 @@ def layered_tp(cfg: GPTConfig, factory: dict):
         raise ValueError(f"device={asked}: a block placed on a mesh lives "
                          f"on the mesh's devices, first {devs[0]}")
     return devs, dict(factory, device=devs[0])
+
+
+def layered_sp(cfg: GPTConfig) -> int:
+    """The sequence parts the global mesh asks of the layered GPT: its
+    ``sp`` axis with ``sequence_parallel`` (the reference's ``_seq_shard``
+    and ring attention), else 1.  Where the sp positions name devices of
+    their own (:func:`_sp_rows`) each position from 1 on holds a copy of
+    the weights (:meth:`GPTModel.copy_over_sp`); else the parts share the
+    one set."""
+    if not (cfg.sequence_parallel and _mesh.has_mesh()):
+        return 1
+    return _mesh.get_mesh().shape.get("sp", 1)
+
+
+def _sp_rows(cfg: GPTConfig):
+    """The devices of each sp position of the global mesh (stage 0 of
+    replica 0): one a tensor-parallel shard under :func:`layered_tp`,
+    else the first alone.  None where every position names position 0's
+    devices (one card named for each, as ``["cuda:0"] * n`` does)."""
+    grid = _mesh.get_mesh().grid(("dp", "sharding", "pp", "sep", "sp", "mp"))
+    grid = grid.reshape((-1,) + grid.shape[2:])[0, 0, 0]
+    tp = layered_tp(cfg, {})[0] is not None
+    rows = [tuple(row) if tp else (row[0],) for row in grid]
+    return rows if any(row != rows[0] for row in rows) else None
 
 
 class GPTEmbeddings(nn.Module):
@@ -445,19 +470,9 @@ def _part_seed(seed: int, part: int) -> int:
 # mesh axes a training placement reads (dp x sharding the replicas); the
 # others must have size 1
 _TRAIN_AXES = ("dp", "sharding", "pp", "mp")
-# axes whose parallelism is not ported: sequence parallelism (sp, sep)
-_UNPORTED_AXES = ("sp", "sep")
-
-
-def _refuse_unported_axes(shape, what: str):
-    """Raise when the mesh ``shape`` asks for an axis the port does not
-    take: sequence parallelism (sp, sep) > 1."""
-    big = [a for a in _UNPORTED_AXES if shape.get(a, 1) > 1]
-    if big:
-        raise NotImplementedError(
-            f"mesh axes {big} > 1: sequence parallelism (sp, sep) {what} "
-            "is not ported (ROADMAP.md queue 1, item 9, step 3); dp, "
-            "sharding, pp and mp are")
+# axes the stacked model reads at coordinate 0: the reference's stacked
+# block never reads them
+_SEQUENCE_AXES = ("sp", "sep")
 
 
 class TrainMesh(NamedTuple):
@@ -498,14 +513,12 @@ def train_mesh(cfg: GPTConfig) -> Optional[TrainMesh]:
     of a stacked GPT, or None: no mesh, or one whose dp, sharding, pp and
     mp are all 1.  The replicas run over dp x sharding (ZeRO,
     ``distributed.sharding``, cuts their state over the sharding axis).
-    Sequence parallelism (an sp or sep axis > 1) raises
-    ``NotImplementedError``; a shape the cuts cannot take raises
-    ``ValueError``."""
+    An sp or sep axis is read at coordinate 0: the result is the run's
+    without it.  A shape the cuts cannot take raises ``ValueError``."""
     if not _mesh.has_mesh():
         return None
     mesh = _mesh.get_mesh()
-    _refuse_unported_axes(mesh.shape, "over a training mesh")
-    grid = mesh.grid(_TRAIN_AXES + _UNPORTED_AXES)[..., 0, 0]
+    grid = mesh.grid(_TRAIN_AXES + _SEQUENCE_AXES)[..., 0, 0]
     grid = grid.reshape((-1,) + grid.shape[2:])
     dp, pp, mp = grid.shape
     if dp * pp * mp == 1:
@@ -1275,9 +1288,9 @@ class _CacheContract(GenerationMixin):
         if getattr(self, "_train_mesh", None) is not None:
             raise NotImplementedError(
                 f"{what} of a model placed on a training mesh is not ported "
-                "(ROADMAP.md queue 1, item 9): train it there, and load its "
-                "state_dict() into a model built without a mesh to "
-                "generate or serve")
+                "(ROADMAP.md queue 1, item 9, step 5): train it there, and "
+                "load its state_dict() into a model built without a mesh "
+                "to generate or serve")
 
     def _require_whole_weights(self, what: str):
         """Refuse ``what`` on a model sharded for serving at mp > 1, whose
@@ -1775,6 +1788,23 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         return loss if tm.dp == 1 else loss / tm.dp
 
 
+def _head_mask(mask, i: int, n: int, device):
+    """The attention mask of head group ``i`` of ``n`` heads (a mask of one
+    head, or none, serves every group), on ``device``."""
+    if mask is None:
+        return None
+    if mask.dim() == 4 and mask.shape[1] > 1:
+        mask = mask[:, i * n:(i + 1) * n]
+    return mask.to(device)
+
+
+def _shard_generator(generator, i: int, device):
+    """Tensor-parallel shard ``i``'s dropout generator, seeded from
+    ``generator``'s seed and the shard (None without one)."""
+    return None if generator is None else _seeded(
+        _part_seed(generator.initial_seed(), i), device)
+
+
 class GPTAttention(nn.Module):
     """Causal multi-head self-attention of the layered GPT (the
     reference's ``GPTAttention``): the fused QKV ``Linear(h, 3h)``, its
@@ -1859,21 +1889,73 @@ class GPTAttention(nn.Module):
         def heads(qkv, i):
             q, k, v = qkv.view(b, s, 3, -1, hd).unbind(2)
             n = q.shape[2]
-            mask = attn_mask
-            if mask is not None:
-                if mask.dim() == 4 and mask.shape[1] > 1:
-                    mask = mask[:, i * n:(i + 1) * n]
-                mask = mask.to(q.device)
-            gen = None if generator is None else _seeded(
-                _part_seed(generator.initial_seed(), i), q.device)
-            out = NF.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, dropout_p=cfg.attention_dropout,
-                is_causal=mask is None, training=self.training,
-                use_flash=cfg.use_flash_attention, generator=gen)
+            out = self._sdpa(q, k, v, _head_mask(attn_mask, i, n, q.device),
+                             _shard_generator(generator, i, q.device))
             return out.reshape(b, s, n * hd)
 
         proj = self.out_proj(self.qkv_proj(x).map(heads))
         return self.dropout(proj, generator)
+
+    def _sdpa(self, q, k, v, mask, generator):
+        cfg = self._cfg
+        return NF.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=cfg.attention_dropout,
+            is_causal=mask is None, training=self.training,
+            use_flash=cfg.use_flash_attention, generator=generator)
+
+    def forward_parts(self, xs, attn_mask=None, generators=None,
+                      copies=None):
+        """The training forward over sequence parts (:func:`layered_sp`):
+        ``xs`` the sp parts ``[B, S/sp, H]`` in sequence order, part ``r``
+        on ``copies[r]`` (this module, or its copy on the part's sp
+        position; default this module for every part); returns each
+        part's output projection after the hidden dropout (part ``r``'s
+        drawn from ``generators[r]``).  The projections run per part;
+        attention runs per head group (all heads, or each tensor-parallel
+        shard's) over the parts' q, k and v, as the reference's layered
+        block attends: by ring attention
+        (:class:`~paddle_tpu_torch.nn.functional.ring_attention.
+        RingAttention`) without a mask and without attention dropout,
+        else over q, k and v gathered along the sequence on part 0's
+        device, on the route :meth:`forward` takes, the output cut back
+        into the parts."""
+        gens = list(generators or [None] * len(xs))
+        copies = list(copies or [self] * len(xs))
+        qkv = [c.qkv_proj(x) for c, x in zip(copies, xs)]
+        if self._tp:
+            mp = len(qkv[0].parts)
+            by_shard = [self._attend_parts([t.parts[i] for t in qkv],
+                                           attn_mask, gens[0], i)
+                        for i in range(mp)]
+            outs = [ShardedTensor([by_shard[i][r] for i in range(mp)])
+                    for r in range(len(xs))]
+        else:
+            outs = self._attend_parts(qkv, attn_mask, gens[0], None)
+        return [c.dropout(c.out_proj(o), g)
+                for c, o, g in zip(copies, outs, gens)]
+
+    def _attend_parts(self, qkv, attn_mask, generator, shard):
+        """One head group's attention over the parts' fused QKV outputs
+        ``[B, S/sp, 3 n hd]`` (``shard``: its tensor-parallel shard, None
+        for all heads): the parts' ``[B, S/sp, n hd]`` outputs."""
+        cfg = self._cfg
+        b, n, hd = qkv[0].shape[0], qkv[0].shape[1], cfg.head_dim
+        split = [t.view(b, n, 3, -1, hd).unbind(2) for t in qkv]
+        heads = split[0][0].shape[2]
+        if attn_mask is None and cfg.attention_dropout == 0.0:
+            outs = RingAttention.apply(
+                True, *(p[j] for j in range(3) for p in split))[:len(qkv)]
+        else:
+            dev = qkv[0].device
+            q, k, v = (torch.cat([p[j].to(dev) for p in split], 1)
+                       for j in range(3))
+            i = 0 if shard is None else shard
+            gen = generator if shard is None else _shard_generator(
+                generator, shard, dev)
+            out = self._sdpa(q, k, v, _head_mask(attn_mask, i, heads, dev),
+                             gen)
+            outs = [o.to(t.device) for o, t in zip(out.split(n, 1), qkv)]
+        return [o.reshape(b, n, heads * hd) for o in outs]
 
 
 class GPTMLP(nn.Module):
@@ -1941,6 +2023,24 @@ class GPTDecoderLayer(nn.Module):
         x = x + self.attn(self.ln1(x), attn_mask, attend, lora, gen)
         return x + self.mlp(self.ln2(x), lora, gen)
 
+    def forward_parts(self, xs, attn_mask=None, seed=None, copies=None):
+        """The training forward over sequence parts (:func:`layered_sp`):
+        ``xs`` the sp parts ``[B, S/sp, H]`` in sequence order, part ``r``
+        on ``copies[r]`` (this layer, or its copy on the part's sp
+        position; default this layer for every part), each part's masks
+        drawn from a generator seeded from ``seed`` and the part (the
+        gathered attention's from part 0's)."""
+        copies = list(copies or [self] * len(xs))
+        gens = [None if seed is None else _seeded(_part_seed(seed, r),
+                                                  p.device)
+                for r, p in enumerate(xs)]
+        att = self.attn.forward_parts(
+            [c.ln1(p) for c, p in zip(copies, xs)], attn_mask, gens,
+            [c.attn for c in copies])
+        xs = [p + a for p, a in zip(xs, att)]
+        return [p + c.mlp(c.ln2(p), None, g)
+                for c, p, g in zip(copies, xs, gens)]
+
 
 class GPTModel(nn.Module):
     """The layered decoder body (the reference's ``GPTModel``): embeddings,
@@ -1952,19 +2052,26 @@ class GPTModel(nn.Module):
     eager per-layer ``recompute``; ``recompute_policy`` is the stacked
     path's, as in the reference).  The cache paths route each layer's
     attention through :func:`attend_with_cache` or :func:`attend_paged`
-    bound to its cache tensors (``kv_cache.layer(i)``)."""
+    bound to its cache tensors (``kv_cache.layer(i)``).  Under sequence
+    parallelism (``sequence_parts`` > 1, :func:`layered_sp`) the forward
+    without a cache runs on the sequence parts (:meth:`_forward_parts`)
+    and joins them; ``sequence_copies`` holds the body's copies on sp
+    positions of their own (:meth:`copy_over_sp`)."""
 
     def __init__(self, cfg: GPTConfig, generator: torch.Generator,
                  **factory):
         super().__init__()
         self.config = cfg
         self.generator = generator
+        self.sequence_parts = layered_sp(cfg)
         self.embeddings = GPTEmbeddings(cfg, **factory)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", GPTDecoderLayer(cfg, **factory))
         _, whole = layered_tp(cfg, factory)
         self.final_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                   **whole)
+        self.sequence_copies = nn.ModuleList()
+        self._tied = False
 
     @property
     def layers(self):
@@ -2016,30 +2123,149 @@ class GPTModel(nn.Module):
     def forward(self, input_ids, position_ids=None, attn_mask=None,
                 kv_cache=None, cache_index=None, page_tables=None,
                 ragged_plan=None, lora=None):
+        if self.sequence_parts > 1 and kv_cache is None and lora is None:
+            with self.tied_copies():
+                return self._forward_parts(input_ids, position_ids,
+                                           attn_mask)
         cfg = self.config
         ids = input_ids.long()
         pos_ids, attends = self._attends(ids, position_ids, kv_cache,
                                          cache_index, page_tables,
                                          ragged_plan)
         h = self.embeddings(ids, pos_ids)
-        seeds = [None] * (cfg.num_layers + 1)
-        if self.dropout_active():
-            seeds = _dropout_seeds(self.generator, cfg.num_layers + 1)
+        seeds = self._seeds()
+        if seeds[0] is not None:
             h = dropout(h, cfg.hidden_dropout,
                         generator=_seeded(seeds[0], h.device))
-        k = cfg.recompute_interval if self.training else 0
-        for i, (layer, attend) in enumerate(zip(self.layers, attends)):
+
+        def step(i, x):
             lr = None
             if lora is not None:
                 pool_, ids_ = lora
                 lr = (pool_.layer_slabs(i), ids_, pool_.scaling)
-            if attend is None and k and i % k == 0:
-                h = checkpoint(_amp_replayed(layer, amp_state()), h,
-                               attn_mask, None, None, seeds[i + 1],
-                               use_reentrant=False)
+            return self.layers[i](x, attn_mask, attends[i], lr, seeds[i + 1])
+
+        return self.final_ln(self._layer_loop(h, step, kv_cache is None))
+
+    def _seeds(self):
+        """A forward's dropout seeds (the embeddings', then each layer's)
+        drawn from ``generator`` while dropout is active, else Nones."""
+        n = self.config.num_layers + 1
+        if not self.dropout_active():
+            return [None] * n
+        return _dropout_seeds(self.generator, n)
+
+    def _layer_loop(self, h, step, recompute: bool):
+        """``h`` through the layers, ``step(i, h)`` running layer ``i``;
+        with ``recompute`` in training, layers 0, k, 2k, ... (k =
+        ``recompute_interval`` > 0) under ``torch.utils.checkpoint``."""
+        cfg = self.config
+        k = cfg.recompute_interval if self.training and recompute else 0
+        for i in range(cfg.num_layers):
+            if k and i % k == 0:
+                h = checkpoint(_amp_replayed(partial(step, i), amp_state()),
+                               h, use_reentrant=False)
             else:
-                h = layer(h, attn_mask, attend, lr, seeds[i + 1])
-        return self.final_ln(h)
+                h = step(i, h)
+        return h
+
+    def _forward_parts(self, input_ids, position_ids, attn_mask):
+        """The forward without a cache under sequence parallelism
+        (``sequence_parts`` > 1, :func:`layered_sp`): ``input_ids`` [B, S]
+        cut into sp parts of S/sp tokens, each at its own positions (part
+        ``r`` at ``r S/sp ..``, or its slice of ``position_ids``), part
+        ``r`` on sp position ``r``'s copy of the body (:meth:`_bodies`);
+        the embeddings, every layer (:meth:`GPTDecoderLayer.forward_parts`)
+        and the final LayerNorm run per part, attention over all of them.
+        Returns the final hidden states, the parts joined on part 0's
+        device.  Dropout draws the unplaced model's seeds, each part its
+        own masks from them (:func:`_part_seed`)."""
+        cfg, sp = self.config, self.sequence_parts
+        ids = input_ids.long()
+        s = ids.shape[-1]
+        if s % sp:
+            raise ValueError(f"a sequence of {s} tokens does not split into "
+                             f"sp={sp} parts")
+        pos = (torch.arange(s, device=ids.device) if position_ids is None
+               else position_ids.long()).expand_as(ids)
+        n, bodies = s // sp, self._bodies()
+        h = []
+        for r, body in enumerate(bodies):
+            dev = body[0].position_embeddings.weight.device
+            h.append(body[0](ids[..., r * n:(r + 1) * n].to(dev),
+                             pos[..., r * n:(r + 1) * n].to(dev)))
+        seeds = self._seeds()
+        if seeds[0] is not None:
+            h = [dropout(x, cfg.hidden_dropout, generator=_seeded(
+                _part_seed(seeds[0], r), x.device)) for r, x in enumerate(h)]
+
+        def step(i, xs):
+            return self.layers[i].forward_parts(
+                xs, attn_mask, seeds[i + 1], [b[1 + i] for b in bodies])
+
+        h = self._layer_loop(h, step, True)
+        return torch.cat([b[-1](x).to(h[0].device)
+                          for b, x in zip(bodies, h)], -2)
+
+    def _bodies(self):
+        """Each sequence part's modules, in run order (embeddings, layers,
+        final LayerNorm): part 0's this model's, the others' their sp
+        position's copy (:meth:`copy_over_sp`), or without copies this
+        model's again."""
+        body = [self.embeddings, *self.layers, self.final_ln]
+        if not len(self.sequence_copies):
+            return [body] * self.sequence_parts
+        return [body] + [list(c) for c in self.sequence_copies]
+
+    def copy_over_sp(self) -> bool:
+        """Where the global mesh's sp positions name devices of their own
+        (:func:`_sp_rows`), a copy of the body (``shards.replicate``) on
+        each position from 1 on, placed there as a dp replica is
+        (``shards.place_on_stage``, the replica index the sp position):
+        the sequence parts run on their position's copy, tied to the
+        others while they run (:meth:`tied_copies`), so every copy
+        applies the sum of the parts' gradients.  The copies are
+        parameters of the model and stay out of its ``state_dict``.
+        Returns whether copies were made."""
+        rows = _sp_rows(self.config) if self.sequence_parts > 1 else None
+        if rows is None or len(self.sequence_copies):
+            return False
+        body = self._bodies()[0]
+        for r in range(1, len(rows)):
+            copy = _SequenceCopy(replicate(body))
+            place_on_stage(copy, 0, rows[r], r)
+            self.sequence_copies.append(copy)
+        return True
+
+    @contextmanager
+    def tied_copies(self):
+        """Each sp position's body bound to its views tied over the
+        positions (``shards.tie_slots``, ``shards.Bound``): in the
+        backward every copy receives the sum of all the copies'
+        gradients.  A no-op without copies, or inside an active
+        binding."""
+        if not len(self.sequence_copies) or self._tied:
+            yield
+            return
+        slots = [param_slots(b) for b in self._bodies()]
+        with ExitStack() as stack:
+            for s, v in zip(slots, tie_slots(slots)):
+                stack.enter_context(Bound(s, v))
+            self._tied = True
+            try:
+                yield
+            finally:
+                self._tied = False
+
+
+class _SequenceCopy(nn.ModuleList):
+    """One sp position's copy of the layered body
+    (:meth:`GPTModel.copy_over_sp`): trained with the model, and left out
+    of its ``state_dict``, which is the unplaced model's."""
+
+    def state_dict(self, *args, destination=None, prefix="",
+                   keep_vars=False):
+        return OrderedDict() if destination is None else destination
 
 
 def _amp_replayed(fn, st):
@@ -2127,7 +2353,19 @@ class GPTForPretraining(nn.Module, _CacheContract):
     quantization and LoRA raise (ROADMAP.md queue 1, item 9).  dp and pp
     keep the reference's meaning: the bare model neither shards its batch
     nor pipelines (a ``PipelineLayer`` of its blocks and the fleet
-    wrappers do).  An sp, sep or sharding axis > 1 raises."""
+    wrappers do).
+
+    With ``sequence_parallel`` on a mesh whose sp axis is > 1
+    (:func:`layered_sp`) the body's forward without a cache runs on sp
+    sequence parts and joins them; the head runs on the joined hidden
+    states.  Attention is ring attention under the reference's
+    condition, and under mp > 1 per head shard.  The weights are one set
+    (the state dict is the unplaced model's), each gradient the sum over
+    the parts: where the sp positions name cards of their own
+    (:func:`_sp_rows`) each from 1 on holds a copy of the body
+    (:meth:`GPTModel.copy_over_sp`), tied to the others in every forward,
+    and the model, so placed, only trains.  sep, and sp without
+    ``sequence_parallel``, are read at coordinate 0."""
 
     stacked = False       # the cache and LoRA layout this class reads
 
@@ -2145,6 +2383,10 @@ class GPTForPretraining(nn.Module, _CacheContract):
         self.lm_head = GPTLMHead(self.gpt.embeddings)
         if devs:
             place_on_stage(self, 0, devs)
+        if self.gpt.copy_over_sp() and devs is None:
+            # a model with copies on other cards trains only, as a model
+            # placed by tensor parallelism does
+            self._train_mesh = (self.device,)
         self._weight_int8 = False
         init_weights(self, seed, cfg.initializer_range)
 
@@ -2229,11 +2471,15 @@ class GPTForPretraining(nn.Module, _CacheContract):
         [S'] selects the rows the head projects).  ``lora``:
         ``(LoRAAdapterPool, ids)``, ``ids`` [B] the adapter page of each
         row; a contiguous cache refuses it."""
+        if self._train_mesh is not None and (kv_cache is not None
+                                             or lora is not None):
+            self._require_unplaced("a cached or serving forward")
         if self._train_mesh is not None:
-            if kv_cache is not None or lora is not None:
-                self._require_unplaced("a cached or serving forward")
-            return self.lm_head(self.gpt(input_ids, position_ids,
-                                         attn_mask)).gather()
+            # the head reads the word table: inside the binding, so the
+            # sp copies' tables receive its gradient too
+            with self.gpt.tied_copies():
+                return self._logits(self.gpt(input_ids, position_ids,
+                                             attn_mask))
         if lora is not None and kv_cache is not None and not getattr(
                 kv_cache, "paged", False):
             raise ValueError("per-request LoRA adapters ride the paged "
@@ -2250,10 +2496,16 @@ class GPTForPretraining(nn.Module, _CacheContract):
         if out_rows is not None:
             # gather each slot's output row BEFORE the vocab projection
             h = h[out_rows.long()]
+        return self._logits(h)
+
+    def _logits(self, h):
+        """The head on final hidden states ``h``: the int8 product after
+        :meth:`quantize_weights`, else the tied head, its vocabulary
+        shards gathered under tensor parallelism."""
         if self._weight_int8:
             return quantized_matmul(h, self.lm_head_int8, self.lm_head_scale)
-        return self.lm_head(h)
-
+        out = self.lm_head(h)
+        return out.gather() if isinstance(out, ShardedTensor) else out
 
     def _forward_sharded(self, input_ids, position_ids, kv_cache,
                          cache_index, page_tables, ragged_plan, lora):

@@ -163,12 +163,15 @@ def load_jax_state(module: nn.Module, state: Mapping[str, np.ndarray]):
     cast to the parameter's dtype.  ``Linear`` weights keep the JAX
     ``[in, out]`` layout, so nothing is transposed.  A ``ShardedParameter``
     (an mpu layer's weight) takes the whole tensor under its logical key
-    and cuts it into its parts.  Missing, unknown or mis-shaped keys
+    and cuts it into its parts; replica copies (``shards.replicate``)
+    take their sources' values.  Missing, unknown or mis-shaped keys
     raise."""
-    from ..distributed.shards import shard_info, sharded_parameters
+    from ..distributed.shards import (
+        replica_of, shard_info, sharded_parameters, sync_replicas,
+    )
 
     own = {n: p for n, p in module.named_parameters()
-           if shard_info(p) is None}
+           if shard_info(p) is None and replica_of(p) is None}
     own.update(sharded_parameters(module))
     missing = sorted(set(own) - set(state))
     unknown = sorted(set(state) - set(own))
@@ -192,3 +195,5 @@ def load_jax_state(module: nn.Module, state: Mapping[str, np.ndarray]):
                 p.load_whole(arrays[name].to(p.whole_dtype))
             else:
                 p.copy_(arrays[name].to(p.dtype))
+        # replica copies (dp replicas, sp copies) take their sources'
+        sync_replicas(module)

@@ -769,15 +769,28 @@ def test_tensor_parallel_wrapper_delegates(mesh):
 @pytest.mark.parametrize("axes", [{"sp": 2}, {"sep": 2},
                                   {"sharding": 2, "sp": 2}])
 def test_layered_gpt_refuses_unported_axes(mesh, axes):
-    """Fault 6: sequence parallelism axes raise naming item 9, with
-    ``use_tensor_parallel`` or without, a sharding axis beside them too (a
-    sharding axis alone is a data axis since ZeRO was ported:
-    ``tests/test_torch_zero.py``)."""
-    mesh(axes)
+    """Fault 6's axes, taken since sequence parallelism was ported: an sp
+    axis without ``sequence_parallel`` and a sep axis are read at
+    coordinate 0, as the reference's layered model reads them, with
+    ``use_tensor_parallel`` or without, a sharding axis beside them too:
+    the model holds the unplaced model's whole weights and gives its
+    logits and gradients bit for bit (``sequence_parallel`` on an sp axis
+    is ``tests/test_torch_sequence_parallel.py``'s)."""
+    ids = torch.from_numpy(np.random.RandomState(5).randint(0, 1024, (2, 8)))
     for tp in (True, False):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue 1, item 9"):
-            GPTForPretraining(gpt_tiny(use_tensor_parallel=tp))
+        cfg = gpt_tiny(use_tensor_parallel=tp)
+        M.set_mesh(None)
+        ref = GPTForPretraining(cfg, device="cpu", seed=4).eval()
+        mesh(axes)
+        m = GPTForPretraining(cfg, device="cpu", seed=4).eval()
+        assert not sharded_parameters(m) and m.gpt.sequence_parts == 1
+        got, want = m(ids), ref(ids)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        got.sum().backward()
+        want.sum().backward()
+        for (k, p), q in zip(m.named_parameters(), ref.parameters()):
+            torch.testing.assert_close(p.grad, q.grad, rtol=0, atol=0,
+                                       msg=k)
 
 
 def test_layered_gpt_under_dp_and_pp_stays_whole(mesh):

@@ -257,8 +257,9 @@ def test_data_parallel_matches_jax(mesh):
 
 def test_fleet_distributed_model_data_mode(mesh):
     """dp > 1 alone gives ``DataParallel``; so does sharding > 1, over the
-    dp x sharding replicas (ZeRO's data axis); sep still raises, naming
-    item 9."""
+    dp x sharding replicas (ZeRO's data axis); sep, refused until
+    sequence parallelism was ported, is read by no wrapper, as in the
+    reference: the module itself, its output unchanged."""
     st = _strategy(fleet.DistributedStrategy,
                    {"dp_degree": 2, "pp_degree": 1, "mp_degree": 1})
     mesh({"dp": 2})
@@ -273,8 +274,16 @@ def test_fleet_distributed_model_data_mode(mesh):
     st = _strategy(fleet.DistributedStrategy, {"sep_degree": 2})
     mesh({"sep": 2})
     fleet.init(is_collective=True, strategy=st)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fleet.distributed_model(_mlp_port())
+    mlp = _mlp_port()
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.copy_(torch.linspace(-1.0, 1.0, p.numel()).view_as(p))
+    x = torch.from_numpy(np.random.RandomState(3).randn(4, 8)
+                         .astype(np.float32))
+    want = mlp(x)
+    model = fleet.distributed_model(mlp)
+    assert model is mlp
+    assert torch.equal(model(x), want)
 
 
 # ---------------------------------------------------------------------------

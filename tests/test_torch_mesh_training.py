@@ -542,12 +542,26 @@ def test_refusals(mesh):
     mesh({"dp": 3})
     with pytest.raises(ValueError, match="split over dp=3"):
         GPTStackedForPretraining(cfg)(ids, labels=labels)
-    # a sharding axis is a data axis now (ZeRO, tests/test_torch_zero.py):
-    # beside sep it does not lift sep's refusal
-    for axes in ({"dp": 2, "sp": 2}, {"sharding": 2, "sep": 2}, {"sep": 2}):
-        mesh(axes)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            GPTStackedForPretraining(gpt_tiny(**CFG, sequence_parallel=True))
+    # sp and sep, refused until sequence parallelism was ported: the
+    # stacked model reads them at coordinate 0, as the reference's stacked
+    # block never reads them, with sequence_parallel too; the loss and the
+    # gradients are the mesh's without the axis, bit for bit
+    for axes, without in (({"dp": 2, "sp": 2}, {"dp": 2}),
+                          ({"sharding": 2, "sep": 2}, {"sharding": 2}),
+                          ({"sep": 2}, None)):
+        runs = []
+        for ax in (axes, without):
+            M.set_mesh(None)
+            if ax is not None:
+                mesh(ax)
+            sm = GPTStackedForPretraining(gpt_tiny(
+                **CFG, sequence_parallel=True), device="cpu")
+            loss = sm(ids, labels=labels)
+            loss.backward()
+            runs.append((loss, [p.grad for p in sm.parameters()]))
+        (a, ga), (b, gb) = runs
+        assert torch.equal(a, b) and len(ga) == len(gb), axes
+        assert all(torch.equal(x, y) for x, y in zip(ga, gb)), axes
     mesh({"dp": 2, "xp": 2})
     with pytest.raises(ValueError, match="xp"):
         GPTStackedForPretraining(cfg)

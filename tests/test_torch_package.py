@@ -229,14 +229,83 @@ def _predictor(mode):
     assert tuple(out[0].shape) == (1, 5)
 
 
-def _sequence_parallel():
-    """``sequence_parallel`` over an sp axis of 2 (one process, two
-    positions on the CPU)."""
-    M.set_mesh(M.build_mesh({"dp": 1, "sp": 2}, ["cpu"] * 2))
+def _sequence_parallel(cls=GPTStackedForPretraining, axes=(("sp", 2),),
+                       own=False, **cfg):
+    """``sequence_parallel`` over an sp axis (one process, every position
+    on the CPU, or with ``own`` on CPU devices of their own, ``cpu:i``,
+    as on distinct cards): a training forward equals the unplaced
+    model's (the stacked model does not read sp; the layered one runs
+    ring attention over the sequence parts)."""
+    cfg = gpt_tiny(sequence_parallel=True, hidden_dropout=0.0,
+                   attention_dropout=0.0, **cfg)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 1024, (2, 16)))
+
+    def loss(m):
+        if cls is GPTStackedForPretraining:
+            return m(ids, labels=ids)
+        return torch.nn.functional.cross_entropy(
+            m(ids).flatten(0, 1), ids.flatten())
+
+    want = loss(cls(cfg, device="cpu", seed=1))
+    axes = dict(axes)
+    n = int(np.prod(list(axes.values())))
+    M.set_mesh(M.build_mesh(axes, [f"cpu:{i}" for i in range(n)] if own
+                            else ["cpu"] * n))
     try:
-        GPTStackedForPretraining(gpt_tiny(sequence_parallel=True))
+        m = cls(cfg, seed=1, **({} if cfg.use_tensor_parallel else
+                                {"device": "cpu"}))
+        got = loss(m)
+        got.backward()
     finally:
         M.set_mesh(None)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _sp_copies_replicated(axis):
+    """dp replicas (``axis`` "dp") or ZeRO (``axis`` "sharding") of a
+    layered GPT whose sp positions hold copies on devices of their
+    own."""
+    from paddle_tpu_torch.distributed import DataParallel
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+
+    M.set_mesh(M.build_mesh({axis: 2, "sp": 2},
+                            [f"cpu:{i}" for i in range(4)]))
+    try:
+        m = GPTForPretraining(gpt_tiny(sequence_parallel=True), device="cpu")
+        if axis == "dp":
+            DataParallel(m)
+        else:
+            group_sharded_parallel(m, AdamW(parameters=m.parameters()), "os")
+    finally:
+        M.set_mesh(None)
+
+
+def _placed_generate():
+    """``generate()`` of the layered GPT placed on an mp mesh."""
+    M.set_mesh(M.build_mesh({"mp": 2}, ["cpu"] * 2))
+    try:
+        m = GPTForPretraining(gpt_tiny(use_tensor_parallel=True))
+        m.generate(np.array([[1, 2]]), 2, max_seq_len=16)
+    finally:
+        M.set_mesh(None)
+
+
+def _sharded_prefetch():
+    from paddle_tpu_torch.io import DevicePrefetcher
+
+    DevicePrefetcher(iter([]), device="cpu", sharding=("dp",))
+
+
+def _sep_step(fleet, st):
+    """At sep 2 ``distributed_model`` gives the module itself, whose
+    output is the module's."""
+    from paddle_tpu_torch.nn.layers import Linear
+
+    lin = Linear(4, 4, device="cpu")
+    model = fleet.distributed_model(lin)
+    assert model is lin
+    x = torch.ones((2, 4))
+    assert torch.equal(model(x), lin(x))
 
 
 def _pipelined():
@@ -371,19 +440,12 @@ def _sharded_step(fleet, st):
 
 # every refused knob: (how to provoke it, words its item's title must hold)
 REFUSALS = {
-    "gpt sequence_parallel": (_sequence_parallel, "mesh training"),
-    "layered gpt on an sp axis": (lambda: _layered_on({"mp": 2, "sp": 2}),
-                                  "mesh training"),
-    "layered gpt on a sep axis": (lambda: _layered_on({"sep": 2}),
-                                  "mesh training"),
-    "fleet distributed_model sep": (
-        lambda: _fleet({"sep_degree": 2},
-                       lambda f, st: f.distributed_model(_pipeline_layer())),
-        "fleet"),
-    "fleet distributed_model sep with sharding": (
-        lambda: _fleet({"sharding_degree": 2, "sep_degree": 2},
-                       lambda f, st: f.distributed_model(_pipeline_layer())),
-        "fleet"),
+    "layered gpt sp copies under dp replicas": (
+        lambda: _sp_copies_replicated("dp"), "sequence parallelism"),
+    "layered gpt sp copies under zero": (
+        lambda: _sp_copies_replicated("sharding"), "sequence parallelism"),
+    "layered gpt generate on a mesh": (_placed_generate, "mesh training"),
+    "device prefetcher sharding": (_sharded_prefetch, "mesh training"),
     "fleet init_server": (
         lambda: __import__("paddle_tpu_torch.distributed.fleet",
                            fromlist=["x"]).init_server(), "long-tail"),
@@ -458,6 +520,25 @@ PORTED = {
         "mesh training"),
     "fleet distributed_model sharding": (
         lambda: _fleet({"sharding_degree": 2}, _sharded_step), 9, "fleet"),
+    "gpt sequence_parallel": (_sequence_parallel, 9, "sequence parallelism"),
+    "layered gpt on an sp axis": (
+        lambda: _sequence_parallel(GPTForPretraining,
+                                   (("sp", 2), ("mp", 2)),
+                                   use_tensor_parallel=True), 9,
+        "sequence parallelism"),
+    "layered gpt sp positions on cards of their own": (
+        lambda: _sequence_parallel(GPTForPretraining,
+                                   (("sp", 2), ("mp", 2)), own=True,
+                                   use_tensor_parallel=True), 9,
+        "sequence parallelism"),
+    "layered gpt on a sep axis": (
+        lambda: _layered_on({"sep": 2}, device="cpu"), 9,
+        "sequence parallelism"),
+    "fleet distributed_model sep": (
+        lambda: _fleet({"sep_degree": 2}, _sep_step), 9, "fleet"),
+    "fleet distributed_model sep with sharding": (
+        lambda: _fleet({"sharding_degree": 2, "sep_degree": 2},
+                       _sharded_step), 9, "fleet"),
 }
 
 

@@ -845,7 +845,9 @@ def test_replicas_run_over_dp_x_sharding(mesh):
     > 1 gives ``DataParallel`` over dp x sharding replicas, the stacked
     model's ``train_mesh`` and the pipeline hold that many, and the
     layered model builds (it neither shards its batch nor pipelines);
-    sep > 1 beside it still raises, naming item 9."""
+    sep > 1 beside it, refused until sequence parallelism was ported, is
+    read by no wrapper: the replicas over sharding alone, their output
+    the module's."""
     from paddle_tpu_torch.models import GPTForPretraining
 
     st = fleet.DistributedStrategy()
@@ -861,5 +863,9 @@ def test_replicas_run_over_dp_x_sharding(mesh):
     st.hybrid_configs = {"sharding_degree": 2, "sep_degree": 2}
     mesh({"sharding": 2, "sep": 2})
     fleet.init(is_collective=True, strategy=st)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fleet.distributed_model(torch.nn.Linear(2, 2))
+    lin = torch.nn.Linear(2, 2)
+    x = torch.arange(8.0).reshape(4, 2)
+    want = lin(x)
+    dp = fleet.distributed_model(lin)
+    assert isinstance(dp, DataParallel) and dp.num_replicas == 2
+    assert torch.equal(dp(x), want)

@@ -28,7 +28,14 @@ at ``--level`` os, os_g or p_g_os, or at phase 50's os and p_g_os
 without it), printing the parameter, gradient and optimizer-state bytes
 of each mesh position and the peak memory; with ``--cards 4`` its 4 N
 positions take the four cards in mesh order, N of them a card (a
-(shard 0, shard 1) pair a card at N = 2).  Run from the repository root:
+(shard 0, shard 1) pair a card at N = 2).  ``--sp`` runs phase 51 alone
+(the flash kernels at the ring's block shapes and ``RingAttention``
+against their plain versions, GPT-3 1.3B with ``sequence_parallel`` at
+sp 2 and sp 2 x mp 2 against the unplaced layered model, the 2-layer
+copy against the CPU and the axes no model reads); with ``--cards 4``
+its mesh positions take the four cards in mesh order, so each sp
+position holds a tied copy on a card of its own, and the ring's shards
+lie on cards of their own.  Run from the repository root:
 
     python3 tools/port_mesh_probe.py [--steps N] [--parent DIR]
     python3 tools/port_mesh_probe.py --cards 4
@@ -37,6 +44,7 @@ positions take the four cards in mesh order, N of them a card (a
         --virtual 2 [--cards 4]
     python3 tools/port_mesh_probe.py --fleet --sharding 2 \
         [--level os|os_g|p_g_os] [--cards 4]
+    python3 tools/port_mesh_probe.py --sp [--cards 4]
 
 It exits nonzero when a check fails or there is no card.
 """
@@ -97,6 +105,8 @@ def main() -> int:
     ap.add_argument("--level", choices=("os", "os_g", "p_g_os"),
                     default=None,
                     help="phase 50's one ZeRO level (with --sharding)")
+    ap.add_argument("--sp", action="store_true",
+                    help="phase 51 alone (sequence parallelism)")
     args = ap.parse_args()
     dp_run = bool(args.dp) or args.recompute_interval is not None \
         or args.virtual is not None
@@ -129,7 +139,11 @@ def main() -> int:
     phases = (("45", cs.phase_mesh_kernels),
               ("46", lambda p: cs.phase_mesh_train(p, runs)),
               ("47", lambda p: cs.phase_mesh_card_vs_cpu(p, devices)))
-    if args.fleet and args.sharding:
+    if args.sp:
+        cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
+                 else None)
+        phases = (("51", lambda p: cs.phase_sequence_parallel(p, cards)),)
+    elif args.fleet and args.sharding:
         n = args.sharding
         cs.FLEET_ZERO_HYBRID = dict(cs.FLEET_ZERO_HYBRID, sharding_degree=n)
         cs.FLEET_ZERO_BATCH = 8 * n
