@@ -2099,7 +2099,10 @@ def phase_generate(port):
 # phase 10: the paged step without a plan at full width
 # ---------------------------------------------------------------------------
 
-def phase_paged(port, model, ids, out, logits):
+def phase_paged(port, model, ids, out, logits, per_step_launches=None):
+    """Phase 10 on ``model`` against ``logits`` (``out``'s tokens
+    teacher-forced); ``per_step_launches``: the paged launches a step
+    (default one a layer; mp a layer for a model placed at mp > 1)."""
     torch = port["torch"]
     cfg = model.config
     b = GEN_BATCH
@@ -2144,7 +2147,7 @@ def phase_paged(port, model, ids, out, logits):
         compare(got[:, 0], j + 1)
     torch.cuda.synchronize()
     launches = _launch_counts(port)
-    L = cfg.num_layers
+    L = per_step_launches or cfg.num_layers
     print(f"[paged] 8 slots, page {GEN_PAGE}, chunks of {GEN_CHUNK}, then "
           f"{GEN_PAGED_STEPS} teacher-forced decode steps: logits vs phase 9 "
           f"max norm {max(r for r, _ in diffs):.4g} (tol {GEN_NORM:.4g}), "
@@ -5157,6 +5160,10 @@ STACKED_OF_LAYERED = {
 # the requests, their prompt tokens and the new tokens each CPU run
 # serves (a cut of phase 3's traffic, so the CPU halves take seconds)
 LAYERED_CPU_REQUESTS, LAYERED_CPU_PROMPT, LAYERED_CPU_NEW = 4, 48, 8
+# its engines' context: one page holds a request (two with the prefix
+# head); the CPU's plain ragged attention gathers every page of a
+# token's table, so the pool's pages set the CPU half's time
+LAYERED_CPU_CONTEXT = 128
 # phase 40: bf16 on the card against fp32 on the CPU, from the same bf16
 # weights.  bf16 keeps 8 bits: each rounded activation, product output
 # and attention probability carries up to 2^-9 relative error, of both
@@ -5433,7 +5440,7 @@ def phase_layered_paths(port):
     vocab = cfg.vocab_size
     prompts = [p[:LAYERED_CPU_PROMPT] for p in _serve_prompts(
         np.random.RandomState(38), vocab, LAYERED_CPU_REQUESTS)]
-    kw = _engine_kw(kv_dtype="float32")
+    kw = _engine_kw(kv_dtype="float32", max_context=LAYERED_CPU_CONTEXT)
     launches = {}
     # LoRA over the layered slabs (the default layout: page axis first)
     pools = {}
@@ -5459,7 +5466,8 @@ def phase_layered_paths(port):
     head = np.random.RandomState(381).randint(0, vocab, (128,))
 
     def prefix_engine(m):
-        eng = se(m, prefix_cache=True, **kw)
+        eng = se(m, prefix_cache=True,
+                 **dict(kw, max_context=2 * LAYERED_CPU_CONTEXT))
         eng.generate_batch([head], 2)            # registers the head's pages
         return eng
 
@@ -5481,7 +5489,7 @@ def phase_layered_paths(port):
     def faulted(m):
         # 2 slots: the seated pair fails, the rest are served after the
         # rebuild
-        eng = se(m, **_engine_kw(kv_dtype="float32", num_slots=2))
+        eng = se(m, **dict(kw, num_slots=2))
         (s.FaultInjector()
          .inject("before_decode", at=3, times=2, kind="step_exception",
                  state_intact=False)
@@ -6232,6 +6240,12 @@ def phase_cluster_card_vs_cpu(port):
 MESH_TRAIN_RUNS = (("1x2x2", (1, 2, 2), 4, 1, False, 3),
                    ("1x2x2_vpp2", (1, 2, 2), 4, 2, False, 2),
                    ("2x2x2", (2, 2, 2), 2, 1, True, 2))
+# the trained models phase 52 generates and serves from (1x2x2) and
+# phase 53 feeds placed batches (2x2x2)
+MESH_KEEP = ("1x2x2", "2x2x2")
+# phase 46's recompute: every block, as phase 6's (the math is the same
+# without it)
+MESH_RECOMPUTE_INTERVAL = 1
 # the flash kernels' shape on those runs: a microbatch of B / (dp n_micro)
 # = 2 rows at H / mp = 8 heads
 MESH_SHARD_FLASH = (2, 8, 1024, 128)
@@ -6294,10 +6308,12 @@ def phase_mesh_kernels(port):
 
 def mesh_train_setup(port, axes, n_micro, vpp, tp):
     """Phase 6's model, optimizer and step (GPT-3 1.3B bf16, seed 0,
-    recompute every block, O1), placed on the mesh ``axes``."""
+    recompute every ``MESH_RECOMPUTE_INTERVAL`` blocks, O1), placed on the
+    mesh ``axes``."""
     cfg = port["gpt_1p3b"](hidden_dropout=0.0, attention_dropout=0.0,
                            max_position_embeddings=1024,
-                           recompute_interval=1, use_flash_attention=True,
+                           recompute_interval=MESH_RECOMPUTE_INTERVAL,
+                           use_flash_attention=True,
                            virtual_pp_degree=vpp, use_tensor_parallel=tp)
     _set_mesh(port, axes)
     model = port["GPT"](cfg, n_micro, dtype="bfloat16", seed=0)
@@ -6323,16 +6339,19 @@ def _o1_grads(port, model, ids, labels):
 
 
 def _grad_rel_norms(grads, ref):
-    return {k: ((g.float() - ref[k].to(g.device).float()).norm()
-                / ref[k].float().norm()).item() for k, g in grads.items()}
+    # as Python floats: the two norms may lie on different cards
+    return {k: (g.float() - ref[k].to(g.device).float()).norm().item()
+            / ref[k].float().norm().item() for k, g in grads.items()}
 
 
-def _mesh_run(port, name, axes, n_micro, vpp, tp, steps, batches, ref):
+def _mesh_run(port, name, axes, n_micro, vpp, tp, steps, batches, ref,
+              keep=None):
     """One mesh run of phase 46: step 1's gathered gradients against the
     unplaced model's, then ``steps`` steps, each loss against the unplaced
     model's on the same batch, step 1's launches against the unplaced
     step's times dp x n_micro x mp; later steps timed on the host clock,
-    the last under ``torch.profiler``."""
+    the last under ``torch.profiler``.  ``keep`` (a dict): the trained
+    model is kept there under ``name`` (its optimizer is dropped)."""
     torch = port["torch"]
     dp, pp, mp = axes
     t0 = time.perf_counter()
@@ -6395,17 +6414,21 @@ def _mesh_run(port, name, axes, n_micro, vpp, tp, steps, batches, ref):
     out = dict(launches=total, step_ms=step_ms, device_ms=prof[0],
                busy=prof[2], profiled_ms=prof[3], peak=peak,
                positions=positions, replica0=replica0)
+    if keep is not None:
+        keep[name] = model
     del model, step
     _set_mesh(port, None)
     torch.cuda.empty_cache()
     return out
 
 
-def phase_mesh_train(port, runs=MESH_TRAIN_RUNS):
+def phase_mesh_train(port, runs=MESH_TRAIN_RUNS, keep=None):
     """Phase 46: GPT-3 1.3B through ``FusedTrainStep`` on each mesh of
     ``runs``, against phase 6's unplaced model, optimizer and batches
     (``train_setup``): its step 1 gradients and the losses of as many
-    steps as the longest run takes."""
+    steps as the longest run takes.  ``keep`` (a dict): the trained
+    models of the runs it names (``MESH_KEEP``) and the batches, for
+    phases 52-53."""
     torch = port["torch"]
     model, step, batches = train_setup(port)
     whole = sum(t.numel() * t.element_size() for t in model.parameters())
@@ -6416,17 +6439,22 @@ def phase_mesh_train(port, runs=MESH_TRAIN_RUNS):
     del model, step
     torch.cuda.empty_cache()
     L = port["gpt_1p3b"]().num_layers
-    ref["per_step"] = {"fwd": 2 * L, "dkv": L, "dq": L}
+    # a recomputed block runs its flash forward twice
+    ref["per_step"] = {"fwd": (1 + bool(MESH_RECOMPUTE_INTERVAL)) * L,
+                       "dkv": L, "dq": L}
     print(f"[mesh_train] unplaced GPT-3 1.3B bf16: step 1 loss "
           f"{ref_loss!r} (no step), losses {ref['losses']}, {whole} weight "
           f"bytes; per step {ref['per_step']}")
     out = {}
     for name, axes, n_micro, vpp, tp, steps in runs:
-        out[name] = _mesh_run(port, name, axes, n_micro, vpp, tp, steps,
-                              batches, ref)
+        out[name] = _mesh_run(
+            port, name, axes, n_micro, vpp, tp, steps, batches, ref,
+            keep if keep is not None and name in MESH_KEEP else None)
         _check(out[name]["replica0"] == whole,
                f"{name}: replica 0's positions hold "
                f"{out[name]['replica0']} bytes, the model {whole}")
+    if keep is not None:
+        keep["batches"] = batches
     return out
 
 
@@ -8142,6 +8170,398 @@ def _sp_card_vs_cpu(port, cards=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 52: generation and serving from phase 46's trained (1, 2, 2) model
+# ---------------------------------------------------------------------------
+
+# the kernels at the per-shard generation shapes (H / mp = 8 heads): the
+# prefill's flash forward at the prompt's length, the decode kernel over
+# the cache
+MESH_GEN_FLASH = (GEN_BATCH, 8, GEN_PROMPT, 128)
+MESH_GEN_DECODE = (GEN_BATCH, 8, GEN_MAX_SEQ, 128)
+# the 2-layer fp32 copy, card against CPU, at these (dp, pp, mp); int8
+# weights at the mp = 1 one
+MESH_GEN_CPU_MESHES = ((1, 2, 2), (2, 2, 2), (1, 2, 1))
+MESH_GEN_CPU_BATCH, MESH_GEN_CPU_PROMPT, MESH_GEN_CPU_NEW = 2, 40, 8
+# the layered GPT's placement (phase 35's weights, use_tensor_parallel)
+MESH_GEN_LAYERED_MP = 2
+# the generate run under the profiler: a quarter of GEN_NEW (the
+# profiler's teardown grows with its events, and the run has a budget)
+MESH_GEN_PROFILED_NEW = GEN_NEW // 4
+# the 2-layer copies' engine: one page a request (CLUSTER_PROMPT_LENS
+# plus CLUSTER_NEW fit in 128) and prefill chunks of 32 tokens (the CPU
+# half's plain ragged attention gathers every page of each token's table)
+MESH_GEN_CPU_ENGINE = dict(num_slots=4, page_size=128, max_context=128,
+                           prefill_token_budget=32)
+
+
+def _gen_prompts(torch, vocab):
+    """Phase 9's prompts (``generate_setup``'s draw)."""
+    rng = np.random.RandomState(9)
+    return torch.from_numpy(rng.randint(0, vocab, (GEN_BATCH, GEN_PROMPT))
+                            ).to(DEVICE)
+
+
+def _placed_generate(port, name, model, ref, ids, per_layer):
+    """``generate()`` of the placed ``model`` against ``ref`` (the
+    unplaced model carrying its weights) at phase 9's shape: exact flash
+    and decode launches (``per_layer`` a layer: mp x L), tokens under the
+    parity rule, logits by norm before any parting; timed on the host
+    clock, then ``MESH_GEN_PROFILED_NEW`` tokens under the profiler.
+    Returns (the reference's tokens and logits, the numbers)."""
+    torch = port["torch"]
+    cfg = model.config
+    t0 = time.perf_counter()
+    model.generate(ids, 1, **GEN_KW)                 # the prefill alone
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(port)
+    t0 = time.perf_counter()
+    out, logits = model.generate(ids, GEN_NEW, return_logits=True, **GEN_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profiled_step_ms(port, lambda: model.generate(
+        ids, MESH_GEN_PROFILED_NEW, **GEN_KW))
+    model.clear_decode_cache()
+    want, wlogits = ref.generate(ids, GEN_NEW, return_logits=True, **GEN_KW)
+    ref.clear_decode_cache()
+    L = per_layer * cfg.num_layers
+    same, total = _parity(port, f"{name} generate vs the unplaced model",
+                          list(out.cpu().numpy()), list(want.cpu().numpy()),
+                          ref, GAP_BOUND["bfloat16"], "bfloat16")
+    rel = ((logits[:, 0] - wlogits[:, 0]).norm()
+           / wlogits[:, 0].norm()).item()
+    err = (logits[:, 0] - wlogits[:, 0]).abs().max().item()
+    decode_ms = 1e3 * (wall - prefill_s) / (GEN_NEW - 1)
+    nums = dict(decode_ms=decode_ms, prefill_ms=1e3 * prefill_s,
+                tps=GEN_BATCH * GEN_NEW / wall, peak=peak,
+                device_ms=None if prof is None
+                else prof[0] / MESH_GEN_PROFILED_NEW,
+                busy=None if prof is None else prof[2], rel=rel, err=err,
+                same=same, launches=launches)
+    print(f"[mesh_generate] {name}: batch {GEN_BATCH} prompt {GEN_PROMPT} + "
+          f"{GEN_NEW} new tokens: {1e3 * wall:.2f} ms, prefill "
+          f"{1e3 * prefill_s:.2f} ms, mean decode {decode_ms:.3f} ms a token "
+          f"(host clock), {nums['tps']:.1f} tokens/s; under the profiler "
+          + ("no device activity" if prof is None else
+             f"{prof[0] / MESH_GEN_PROFILED_NEW:.3f} ms of kernels a "
+             f"generated token over {MESH_GEN_PROFILED_NEW} (prefill "
+             f"included), busy {prof[2]:.3f} of {prof[3]:.2f} ms")
+          + f"; launches {launches} (want flash {L}, decode "
+          f"{L * (GEN_NEW - 1)}); prefill logits against the unplaced "
+          f"model's: relative norm {rel:.4g}, max {err:.4g} (tol "
+          f"{GEN_NORM:.4g}, {GEN_ATOL}); peak {peak / 2**30:.2f} GiB")
+    _check(tuple(out.shape) == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
+           and bool(torch.isfinite(logits).all()),
+           f"{name}: generate output shape / logits not finite")
+    _check(launches["fwd"] == L and launches["decode"] == L * (GEN_NEW - 1)
+           and not any(launches[k] for k in launches
+                       if k not in ("fwd", "decode")),
+           f"{name}: generate launches {launches}, expected flash forward "
+           f"{L} and decode {L * (GEN_NEW - 1)}")
+    _check(rel <= GEN_NORM and err <= GEN_ATOL,
+           f"{name}: prefill logits off the unplaced model's ({rel}, {err})")
+    _check(prof is not None, f"{name}: the profiler saw no device activity")
+    return want, wlogits, nums
+
+
+def _placed_serve(port, name, model, ref, kv_dtype, per_layer):
+    """Phase 3's engine and traffic over the placed ``model``: every
+    fused step launches the ragged kernel ``per_layer`` times a layer,
+    every page comes back, the ids are the unplaced ``ref`` engine's
+    under the parity rule.  Returns the numbers."""
+    want = _single_outputs(port, ref, kv_dtype=kv_dtype)
+    eng, rng = serve_engine(port, kv_dtype, model=model)
+    f0 = eng.metrics()["fused_steps"]
+    _reset_launches(port)
+    per_step = []
+    reqs, step_s, dt = serve_workload(port, eng, rng, per_step)
+    counts = _launch_counts(port)
+    m = eng.metrics()
+    fused = m["fused_steps"] - f0
+    tokens = sum(len(q.tokens) for q in reqs)
+    L = per_layer * SERVE_LAYERS
+    placed = eng.cache.groups is not None
+    got = [q.output_ids() for q in reqs]
+    free = eng.allocator.free_pages == eng.allocator.capacity
+    eng.close()
+    same, _ = _parity(port, f"{name} serve {kv_dtype} vs the unplaced "
+                      "engine", got, want, ref, GAP_BOUND["bfloat16"],
+                      kv_dtype)
+    print(f"[mesh_serve] {name} {kv_dtype} pool: {len(reqs)} requests DONE, "
+          f"{tokens} tokens in {dt:.3f} s: {tokens / dt:.1f} tokens/s; "
+          f"{fused} fused steps, mean {1e3 * float(np.mean(step_s)):.2f} ms "
+          f"(host clock); ragged launches {counts['ragged']} ({L} a step: "
+          f"{sorted(set(per_step))}); pool {m['cache_bytes']} bytes placed "
+          f"{placed}; ledger free {free}")
+    _check(placed and free and fused == len(per_step)
+           and set(per_step) == {L} and counts["ragged"] == fused * L
+           and not any(v for k, v in counts.items() if k != "ragged"),
+           f"{name} serve {kv_dtype}: launches a step {sorted(set(per_step))}"
+           f" (want {L}), other kernels {counts}, placed {placed}, ledger "
+           f"free {free}")
+    return dict(tps=tokens / dt, step_ms=1e3 * float(np.mean(step_s)),
+                fused=fused, launches=counts["ragged"], same=same)
+
+
+def _mesh_gen_cpu(port):
+    """The 2-layer fp32 copy (GPT-3 1.3B's width, TF32 off) placed on the
+    card and on the CPU at each mesh of ``MESH_GEN_CPU_MESHES`` from the
+    same weights: greedy generate and a serve of four prompts, tokens
+    under the fp32 parity rule; at mp = 1 again with int8 weights and an
+    int8 pool.  Returns the card's (flash, decode, ragged, int8 ragged)
+    launches."""
+    torch, dm = port["torch"], port["mesh"]
+    cfg = port["gpt_1p3b"](num_layers=2, hidden_dropout=0.0,
+                           attention_dropout=0.0, max_position_embeddings=512)
+    rng = np.random.RandomState(52)
+    ids = rng.randint(0, cfg.vocab_size,
+                      (MESH_GEN_CPU_BATCH, MESH_GEN_CPU_PROMPT))
+    prompts = [rng.randint(0, cfg.vocab_size, (n,))
+               for n in CLUSTER_PROMPT_LENS]
+    kw = MESH_GEN_CPU_ENGINE
+    counts = dict(fwd=0, decode=0, ragged=0, ragged_int8=0)
+    for axes in MESH_GEN_CPU_MESHES:
+        n = int(np.prod(axes))
+        models = {}
+        for dev in ("cpu", DEVICE):
+            names = ["cpu"] * n if dev == "cpu" else _mesh_devices(n)
+            dm.set_mesh(dm.build_mesh(dict(zip(("dp", "pp", "mp"), axes)),
+                                      names))
+            models[dev] = port["GPT"](cfg, dtype="float32", seed=5).eval()
+            dm.set_mesh(None)
+        card, cpu = models[DEVICE], models["cpu"]
+        card.load_state_dict(cpu.state_dict())
+        runs = [("float32", None)] + ([("int8", "int8")] if axes[2] == 1
+                                      else [])
+        for kv, weights in runs:
+            res = {}
+            for dev, m in models.items():
+                if weights:
+                    port["qi8"].quantize_for_serving(m)
+                _reset_launches(port)
+                gen = m.generate(torch.from_numpy(ids).to(m.device),
+                                 MESH_GEN_CPU_NEW, max_seq_len=128,
+                                 cache_dtype="float32") if not weights \
+                    else None
+                eng = port["ServingEngine"](m, kv_dtype=kv, **kw)
+                reqs, _, _ = _drive(port, eng, prompts, CLUSTER_NEW)
+                eng.close()
+                _all_done(port, f"mesh generate fp32 {axes} {dev}", reqs,
+                          CLUSTER_NEW)
+                res[dev] = (gen, [r.output_ids() for r in reqs])
+                if dev == DEVICE:
+                    c = _launch_counts(port)
+                    counts["fwd"] += c["fwd"]
+                    counts["decode"] += c["decode"]
+                    counts["ragged_int8" if weights else "ragged"] += \
+                        c["ragged"]
+            bound = GAP_BOUND["int8_weights" if weights else "float32"]
+            if not weights:
+                _parity(port, f"mesh generate 2 layers fp32 {axes}, card vs "
+                        "CPU", list(res[DEVICE][0].cpu().numpy()),
+                        list(res["cpu"][0].numpy()), card, bound, "float32")
+            _parity(port, f"mesh serve 2 layers {kv} pool "
+                    f"{'int8 weights ' if weights else ''}{axes}, card vs "
+                    "CPU", res[DEVICE][1], res["cpu"][1], card, bound, kv)
+        del models, card, cpu
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _same_grads(torch, a, b):
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_mesh_generate(port, kept, cpu=True):
+    """Phase 52: phase 46's trained (1, 2, 2) GPT-3 1.3B (``kept``) held
+    against the unplaced model loaded with its ``state_dict()``:
+    ``generate()`` (exactly mp x L flash and mp x L x (new - 1) decode
+    launches), phase 10's paged step without a plan, phase 3's serve from
+    a bf16 and an int8 pool (mp x L ragged launches a fused step); a
+    training step after all of it gives the loss and gradients it gave
+    before; then the layered GPT-3 1.3B at {"mp": 2} with
+    ``use_tensor_parallel`` loaded from phase 35's model the same way; the
+    2-layer fp32 copy against the CPU; the kernels at the per-shard
+    shapes.  ``cpu=False`` leaves the 2-layer copy out.  Returns the
+    numbers and the launches by path."""
+    torch = port["torch"]
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap(what):
+        """The seconds of each part of the phase, for the run's budget."""
+        now = time.perf_counter()
+        print(f"[time] phase 52 {what} {now - laps[-1]:.1f} s")
+        laps.append(now)
+
+    errs = dict(
+        fwd=_flash_ragged_case(port, "bfloat16", MESH_GEN_FLASH, True, 520),
+        decode=_decode_case(port, "bfloat16", MESH_GEN_DECODE,
+                            (1, GEN_PROMPT, GEN_PROMPT + 1,
+                             GEN_PROMPT + GEN_NEW), 521))
+    model, batches = kept["1x2x2"], kept["batches"]
+    tm = model._train_mesh
+    cfg = model.config
+    _set_mesh(port, None)
+    ref = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=1).eval()
+    ref.load_state_dict(model.state_dict())
+    before = _o1_grads(port, model, *batches[0])
+    lap("kernel checks, the unplaced twin, a training step")
+    ids = _gen_prompts(torch, cfg.vocab_size)
+    out = {"stacked": {}, "layered": {}}
+    launches = dict(fwd=0, decode=0, paged=0, ragged=0, ragged_int8=0)
+    want, wlogits, out["stacked"]["generate"] = _placed_generate(
+        port, "stacked (1, 2, 2)", model, ref, ids, tm.mp)
+    launches["fwd"] += out["stacked"]["generate"]["launches"]["fwd"]
+    launches["decode"] += out["stacked"]["generate"]["launches"]["decode"]
+    launches["paged"] += phase_paged(port, model, ids, want, wlogits,
+                                     per_step_launches=tm.mp * SERVE_LAYERS)
+    lap("stacked generate and paged step")
+    for kv in ("bfloat16", "int8"):
+        r = out["stacked"][kv] = _placed_serve(
+            port, "stacked (1, 2, 2)", model, ref, kv, tm.mp)
+        launches["ragged" if kv == "bfloat16" else "ragged_int8"] += \
+            r["launches"]
+    lap("stacked serves")
+    after = _o1_grads(port, model, *batches[0])
+    same_grads = _same_grads(torch, after[1], before[1])
+    print(f"[mesh_generate] training after generation and serving: "
+          f"loss {after[0]!r} (before {before[0]!r}), gradients "
+          f"bit-equal {same_grads}")
+    _check(after[0] == before[0] and same_grads,
+           "a training step after generation differs from one before it")
+    del after
+    del before, ref, want, wlogits
+    torch.cuda.empty_cache()
+    # the layered GPT: phase 35's weights (its seed), placed at mp 2
+    lcfg = port["gpt_1p3b"]()
+    lref = port["Layered"](lcfg, device=DEVICE, dtype="bfloat16",
+                           seed=0).eval()
+    _sp_mesh(port, {"mp": MESH_GEN_LAYERED_MP})
+    lmodel = port["Layered"](port["gpt_1p3b"](use_tensor_parallel=True),
+                             dtype="bfloat16", seed=1).eval()
+    _sp_mesh(port, None)
+    lmodel.load_state_dict(lref.state_dict())
+    lap("training after generation, the layered models")
+    _, _, out["layered"]["generate"] = _placed_generate(
+        port, "layered mp 2", lmodel, lref, ids, MESH_GEN_LAYERED_MP)
+    launches["fwd"] += out["layered"]["generate"]["launches"]["fwd"]
+    launches["decode"] += out["layered"]["generate"]["launches"]["decode"]
+    for kv in ("bfloat16", "int8"):
+        r = out["layered"][kv] = _placed_serve(
+            port, "layered mp 2", lmodel, lref, kv, MESH_GEN_LAYERED_MP)
+        launches["ragged" if kv == "bfloat16" else "ragged_int8"] += \
+            r["launches"]
+    del lref, lmodel
+    torch.cuda.empty_cache()
+    lap("layered generate and serves")
+    cpu = _mesh_gen_cpu(port) if cpu else {}
+    lap("2-layer copies, card and CPU")
+    print(f"[time] phase 52 {time.perf_counter() - t_phase:.1f} s "
+          f"(kernel errors {errs}; card launches {launches}, 2-layer card vs "
+          f"CPU {cpu})")
+    return dict(errs=errs, launches=launches, cpu_launches=cpu, runs=out)
+
+
+# ---------------------------------------------------------------------------
+# phase 53: batches placed over the mesh (io.DevicePrefetcher(sharding=))
+# ---------------------------------------------------------------------------
+
+# the sequence-parallel layered GPT fed (None, "sp") blocks: 2 layers of
+# GPT-3 1.3B's width, bf16, at {"sp": 2}, a batch of 2 x 1024
+PLACED_SP_LAYERS, PLACED_SP_BATCH, PLACED_SP_SEQ = 2, 2, 1024
+
+
+def _placed_bytes(port, host, axis):
+    """The bytes a prefetcher copies for the arrays ``host`` cut over
+    ``axis`` of the global mesh: each block once on each distinct device
+    of the positions that hold it (the batch once on one card)."""
+    mesh = port["mesh"].get_mesh()
+    k = mesh.axis_names.index(axis)
+    n = mesh.devices.shape[k]
+    held = sum(len({str(d) for d in
+                    np.take(mesh.devices, [r], axis=k).flat})
+               for r in range(n))
+    return sum(a.nbytes // n * held for a in host)
+
+
+def phase_placed_batches(port, kept):
+    """Phase 53: phase 46's trained (2, 2, 2) model's O1 step fed phase
+    6's batch whole and through ``DevicePrefetcher(sharding=("dp",))``:
+    the loss and gathered gradients bit-equal, the bytes copied to the
+    card the batch's once; then the sequence-parallel layered GPT at
+    {"sp": 2} fed ``(None, "sp")`` blocks the same way.  Returns the
+    flash launches of the placed-batch runs."""
+    torch = port["torch"]
+    t_phase = time.perf_counter()
+    model, batches = kept["2x2x2"], kept["batches"]
+    host = tuple(t.cpu().numpy() for t in batches[0])
+    _set_mesh(port, (2, 2, 2))
+    whole = _o1_grads(port, model, *batches[0])
+    _reset_launches(port)
+    with port["DevicePrefetcher"](iter([host]), sharding=("dp",)) as pf:
+        ids, labels = next(pf)
+        placed = _o1_grads(port, model, ids, labels)
+        copied = pf.bytes_copied
+    launches = _launch_counts(port)
+    want_bytes = _placed_bytes(port, host, "dp")
+    _set_mesh(port, None)
+    blocks = sorted((idx, str(d)) for idx, d in ids.blocks)
+    same = whole[0] == placed[0] and _same_grads(torch, whole[1], placed[1])
+    print(f"[placed_batches] (2, 2, 2) O1 step fed ('dp',) blocks {blocks}: "
+          f"loss {placed[0]!r} (whole batch {whole[0]!r}), gradients "
+          f"bit-equal {same}; bytes copied {copied} (the batch "
+          f"{sum(a.nbytes for a in host)}, each block once a device that "
+          f"holds it: {want_bytes})")
+    _check(same, "the placed batch's loss or gradients differ from the "
+           "whole batch's")
+    _check(copied == want_bytes, f"placed batch: {copied} bytes copied, "
+           f"expected {want_bytes}")
+    del whole, placed
+    torch.cuda.empty_cache()
+    cfg = port["gpt_1p3b"](num_layers=PLACED_SP_LAYERS,
+                           sequence_parallel=True, hidden_dropout=0.0,
+                           attention_dropout=0.0,
+                           max_position_embeddings=PLACED_SP_SEQ)
+    _sp_mesh(port, {"sp": 2})
+    sp_model = port["Layered"](cfg, device=DEVICE, dtype="bfloat16", seed=4)
+    crit = port["Criterion"](cfg)
+    rng = np.random.RandomState(53)
+    host = tuple(rng.randint(0, cfg.vocab_size,
+                             (PLACED_SP_BATCH, PLACED_SP_SEQ))
+                 for _ in range(2))
+
+    def grads(i, lab):
+        loss = crit(sp_model(i), lab)
+        loss.backward()
+        g = {k: p.grad.clone() for k, p in sp_model.named_parameters()}
+        sp_model.zero_grad(set_to_none=True)
+        return float(loss.detach()), g
+
+    whole = grads(*(torch.from_numpy(a).to(DEVICE) for a in host))
+    with port["DevicePrefetcher"](iter([host]), sharding=(None, "sp")) as pf:
+        placed = grads(*next(pf))
+        copied = pf.bytes_copied
+    want_bytes = _placed_bytes(port, host, "sp")
+    _sp_mesh(port, None)
+    same = whole[0] == placed[0] and _same_grads(torch, whole[1], placed[1])
+    print(f"[placed_batches] sp 2 layered, {PLACED_SP_LAYERS} layers, fed "
+          f"(None, 'sp') blocks: loss {placed[0]!r} (whole {whole[0]!r}), "
+          f"gradients bit-equal {same}; bytes copied {copied} (the batch "
+          f"{sum(a.nbytes for a in host)}, each block once a device that "
+          f"holds it: {want_bytes})")
+    _check(same and copied == want_bytes, "sp 2 placed batch differs from "
+           "the whole batch")
+    del sp_model, whole, placed
+    torch.cuda.empty_cache()
+    print(f"[time] phase 53 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8274,9 +8694,25 @@ def main() -> int:
         tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"], mk45[key])
     tk["adamw"]["max_abs_err"] = max(tk["adamw"]["max_abs_err"],
                                      mk45["adamw"])
-    mesh_runs = phase_mesh_train(port)
+    mesh_kept = {}
+    mesh_runs = phase_mesh_train(port, keep=mesh_kept)
     mesh_cpu = phase_mesh_card_vs_cpu(port)
     mark("45-47")
+    # phases 52-53: generation and serving from phase 46's trained (1, 2,
+    # 2) model, and batches placed over the mesh fed to its (2, 2, 2) one
+    mg = _kept(port, phase_mesh_generate, port, mesh_kept)
+    tk["fwd"]["max_abs_err"] = max(tk["fwd"]["max_abs_err"], mg["errs"]["fwd"])
+    dk["decode"]["max_abs_err"] = max(dk["decode"]["max_abs_err"],
+                                      mg["errs"]["decode"])
+    by_path["generate_mesh"] = {"bfloat16": mg["launches"]["ragged"],
+                                "int8": mg["launches"]["ragged_int8"]}
+    by_path["generate_mesh_fp32_card_vs_cpu"] = {
+        "bfloat16": mg["cpu_launches"]["ragged"],
+        "int8": mg["cpu_launches"]["ragged_int8"]}
+    placed_launches = timed(53, phase_placed_batches, port, mesh_kept)
+    del mesh_kept
+    torch.cuda.empty_cache()
+    mark("52-53")
     # phase 48: the fleet API over the layered GPT at TP=2 PP=2
     fl = phase_fleet_train(port)
     for key in ("fwd", "dkv", "dq", "adamw"):
@@ -8341,6 +8777,8 @@ def main() -> int:
         mesh_paths.update({f"train_sequence_parallel_{name}":
                            run["launches"][key]
                            for name, run in fsp["runs"].items()})
+        # phase 53's O1 step fed a batch placed over dp (no update)
+        mesh_paths["train_placed_batch_2x2x2"] = placed_launches[key]
         if key != "adamw":
             # phase 6's bf16-weight step, phase 31's O1 step and phase
             # 40's layered step; the forward also phase 35's layered
@@ -8358,9 +8796,12 @@ def main() -> int:
                 **{f"train_sequence_parallel_{name}_fp32_card_vs_cpu":
                    run[key] for name, run in fsp["cpu_launches"].items()}}
             if key == "fwd":
+                # phase 52's prefills from the placed models, per shard
                 kernels[-1]["launches_by_path"].update(
                     generate_layered=lgen["fwd"],
-                    predictor_decode=pred["fwd"])
+                    predictor_decode=pred["fwd"],
+                    generate_mesh=mg["launches"]["fwd"],
+                    generate_mesh_fp32_card_vs_cpu=mg["cpu_launches"]["fwd"])
         else:
             kernels[-1]["launches_by_path"] = {
                 "train_bf16": train_launches[key], **mesh_paths}
@@ -8399,10 +8840,14 @@ def main() -> int:
             ("decode", "decode_attention", "decode_attention.py:86",
              decode_launches, {"generate": decode_launches,
                                "generate_layered": lgen["decode"],
-                               "predictor_decode": pred["decode"]}),
+                               "predictor_decode": pred["decode"],
+                               "generate_mesh": mg["launches"]["decode"],
+                               "generate_mesh_fp32_card_vs_cpu":
+                                   mg["cpu_launches"]["decode"]}),
             ("paged", "paged_attention", "paged_attention.py:83",
              paged_launches, {"paged": paged_launches,
-                              "paged_layered": lpaged})):
+                              "paged_layered": lpaged,
+                              "paged_mesh": mg["launches"]["paged"]})):
         kernels.append({"name": name, "route": "cuda",
                         "source": csrc + "decode_attention.cu",
                         "replaces": pallas + replaces, "launches": launched,

@@ -8,10 +8,16 @@ device, and partial results meet in ``serving_mesh.reduce_sum``, with no
 collective library.  A device may appear more than once: naming one
 card n times puts n mesh positions on it together, which is how the CPU
 tests (``["cpu"] * n``) and a one-card run lay out a mesh.
+
+:class:`NamedSharding` is the counterpart of the reference's
+``NamedSharding(mesh, PartitionSpec(...))``: how a batch lies over the
+mesh.  :class:`PlacedTensor` is such a batch leaf, held as one block for
+each distinct (block, device) pair (``io.DevicePrefetcher(sharding=)``
+makes them).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +25,8 @@ import torch
 from ..core import canonical_device
 
 __all__ = ["HYBRID_AXES", "Mesh", "build_mesh", "set_mesh", "get_mesh",
-           "has_mesh", "axis_size", "replica_count", "stage_devices"]
+           "has_mesh", "axis_size", "replica_count", "stage_devices",
+           "NamedSharding", "PlacedTensor"]
 
 # canonical axis order for hybrid parallelism (the reference's topology
 # order: data, pipe, sharding, sep, model)
@@ -139,3 +146,215 @@ def stage_devices(stage: int = 0, replica: int = 0) -> tuple:
     grid = get_mesh().grid(("dp", "sharding", "pp", "sep", "sp", "mp"))
     grid = grid.reshape((-1,) + grid.shape[2:])
     return tuple(grid[replica, stage, 0, 0, :])
+
+
+# ---------------------------------------------------------------------------
+# batches placed over a mesh
+# ---------------------------------------------------------------------------
+
+class NamedSharding:
+    """How a leaf lies over ``mesh`` (default: the global mesh): ``spec``
+    names, for each leading dimension, a mesh axis, a tuple of axes (the
+    dimension cut over their product, the first axis major, as a
+    ``PartitionSpec`` entry cuts it) or None (whole).  Axes the spec does
+    not name replicate: every position along them holds the same block.
+    A spec that is not a tuple or list raises ``TypeError``; an axis the
+    mesh lacks, or one named twice, ``ValueError``."""
+
+    def __init__(self, mesh: Optional[Mesh] = None, spec=()):
+        if not isinstance(spec, (tuple, list)):
+            raise TypeError(f"sharding spec {spec!r}: expected a tuple of "
+                            "mesh axes, tuples of axes or None, one a "
+                            "leading dimension")
+        self.mesh = get_mesh() if mesh is None else mesh
+        dims, seen = [], set()
+        for entry in spec:
+            axes = ((entry,) if isinstance(entry, str) else
+                    () if entry is None else entry)
+            if not isinstance(axes, (tuple, list)) or not all(
+                    isinstance(a, str) for a in axes):
+                raise TypeError(f"sharding spec {tuple(spec)!r}: entry "
+                                f"{entry!r} is not an axis name, a tuple of "
+                                "them or None")
+            for a in axes:
+                if a not in self.mesh.axis_names:
+                    raise ValueError(f"sharding spec {tuple(spec)!r}: the "
+                                     f"mesh has no axis {a!r} (axes "
+                                     f"{self.mesh.axis_names})")
+                if a in seen:
+                    raise ValueError(f"sharding spec {tuple(spec)!r} names "
+                                     f"axis {a!r} twice")
+                seen.add(a)
+            dims.append(tuple(axes))
+        self.spec = tuple(dims)
+
+    def cuts(self, shape) -> Tuple[int, ...]:
+        """The blocks along each dimension the spec names, for a leaf of
+        ``shape``; a rank below the spec's, or a dimension its axes do not
+        divide, raises ``ValueError`` (as ``jax.device_put`` refuses)."""
+        if len(shape) < len(self.spec):
+            raise ValueError(f"sharding spec {self.spec} names "
+                             f"{len(self.spec)} dimensions; the leaf has "
+                             f"shape {tuple(shape)}")
+        sizes = self.mesh.shape
+        out = []
+        for k, axes in enumerate(self.spec):
+            n = int(np.prod([sizes[a] for a in axes], dtype=np.int64))
+            if shape[k] % n:
+                raise ValueError(
+                    f"dimension {k} of shape {tuple(shape)} is not divisible "
+                    f"by {n}, the size of mesh axes {axes}")
+            out.append(n)
+        return tuple(out)
+
+    def positions(self):
+        """``(coordinates, device)`` of every mesh position, in the mesh's
+        row-major order."""
+        for coords in np.ndindex(*self.mesh.devices.shape):
+            yield coords, self.mesh.devices[coords]
+
+    def block_of(self, coords) -> Tuple[int, ...]:
+        """The block index along each named dimension held at the mesh
+        position ``coords``."""
+        sizes, names = self.mesh.shape, self.mesh.axis_names
+        out = []
+        for axes in self.spec:
+            i = 0
+            for a in axes:
+                i = i * sizes[a] + int(coords[names.index(a)])
+            out.append(i)
+        return tuple(out)
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh!r}, {self.spec})"
+
+
+class PlacedTensor:
+    """A leaf of ``shape`` placed by ``sharding``: ``blocks[(block index,
+    device)]`` holds each distinct block once on each device of the
+    positions that hold it.  It stands for the whole tensor.  A model's
+    placed forward reads each part where it lies (:meth:`take`); any
+    other consumer -- a torch function, a tensor method, an operator, an
+    index -- gets the whole tensor, gathered on the first position's
+    device (:meth:`gather`) once and kept."""
+
+    def __init__(self, sharding: NamedSharding, shape, dtype, blocks):
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.blocks = dict(blocks)
+        self.cuts = sharding.cuts(self.shape)
+        self.wholes = {}          # device -> the gathered whole there
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.sharding.positions()))[1]
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def size(self, dim: Optional[int] = None):
+        return self.shape if dim is None else self.shape[dim]
+
+    def block(self, index, device) -> torch.Tensor:
+        """Block ``index`` on ``device``: its copy there, else a copy of
+        another device's."""
+        device = canonical_device(device)
+        t = self.blocks.get((tuple(index), device))
+        if t is not None:
+            return t
+        for (idx, _), t in self.blocks.items():
+            if idx == tuple(index):
+                return t.to(device)
+        raise KeyError(f"no block {tuple(index)}")
+
+    def on(self, coords) -> torch.Tensor:
+        """The block the mesh position ``coords`` holds, on its device."""
+        coords = tuple(coords)
+        return self.block(self.sharding.block_of(coords),
+                          self.sharding.mesh.devices[coords])
+
+    def take(self, dim: int, lo: int, hi: int, device) -> torch.Tensor:
+        """Elements ``lo .. hi - 1`` along ``dim`` on ``device``: a view of
+        the block there when one block along ``dim`` holds them and no
+        other dimension is cut, else from the gathered whole."""
+        cuts = self.cuts + (1,) * (len(self.shape) - len(self.cuts))
+        if all(n == 1 for k, n in enumerate(cuts) if k != dim):
+            size = self.shape[dim] // cuts[dim]
+            k = lo // size
+            if (hi - 1) // size == k:
+                idx = tuple(k if j == dim else 0
+                            for j in range(len(self.cuts)))
+                return self.block(idx, device).narrow(dim, lo - k * size,
+                                                      hi - lo)
+        return self.gather(device).narrow(dim, lo, hi - lo)
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device`` (default: the first position's),
+        the blocks joined in order; built once a device and kept."""
+        device = self.device if device is None else canonical_device(device)
+        if device in self.wholes:
+            return self.wholes[device]
+
+        def build(prefix):
+            k = len(prefix)
+            if k == len(self.cuts):
+                return self.block(prefix, device)
+            parts = [build(prefix + (i,)) for i in range(self.cuts[k])]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, k)
+        self.wholes[device] = build(())
+        return self.wholes[device]
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        def whole(x):
+            if isinstance(x, PlacedTensor):
+                return x.gather()
+            if isinstance(x, (list, tuple)):
+                return type(x)(whole(v) for v in x)
+            return x
+        return func(*whole(args), **{k: whole(v)
+                                     for k, v in (kwargs or {}).items()})
+
+    def __getattr__(self, name):
+        # only names the class lacks land here; its own fields missing
+        # (a half-built copy) must not recurse through gather()
+        if name.startswith("__") or name in ("sharding", "shape", "dtype",
+                                             "blocks", "cuts", "wholes"):
+            raise AttributeError(name)
+        return getattr(self.gather(), name)
+
+    def __getitem__(self, index):
+        return self.gather()[index]
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __array__(self, dtype=None):
+        a = self.gather().cpu().numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    def __repr__(self):
+        return (f"PlacedTensor(shape={tuple(self.shape)}, dtype={self.dtype}"
+                f", spec={self.sharding.spec}, {len(self.blocks)} blocks)")
+
+    __hash__ = object.__hash__
+
+
+def _whole_op(name):
+    def op(self, *args):
+        return getattr(self.gather(), name)(*args)
+    op.__name__ = name
+    return op
+
+
+# the operators, on the whole tensor
+for _name in ("add", "radd", "sub", "rsub", "mul", "rmul", "truediv",
+              "rtruediv", "floordiv", "rfloordiv", "mod", "pow", "matmul",
+              "rmatmul", "and", "or", "xor", "eq", "ne", "lt", "le", "gt",
+              "ge", "neg", "invert", "abs"):
+    setattr(PlacedTensor, f"__{_name}__", _whole_op(f"__{_name}__"))

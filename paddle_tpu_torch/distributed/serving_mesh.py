@@ -442,6 +442,10 @@ def shard_model_for_serving(model, mesh):
     docstring).  Idempotent for one mesh and one weight dtype; a model
     sharded for another mesh, or quantized since, is gathered first
     (:func:`unshard_model`)."""
+    if getattr(model, "_train_mesh", None) is not None:
+        raise ValueError(
+            "the model is placed on a training mesh and serves from its "
+            "placement: build its engine without mesh=")
     mesh = tuple(canonical_device(d) for d in mesh)
     mp = len(mesh)
     cfg = model.config

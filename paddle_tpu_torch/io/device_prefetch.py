@@ -17,6 +17,15 @@ into the telemetry histogram ``train_input_stall_seconds`` and into
 
 On the CPU (``device="cpu"``) numpy leaves become CPU tensors, copied, on
 the same thread discipline, with no stream.
+
+``sharding=`` places each batch over a mesh (the reference's
+``jax.device_put(leaf, NamedSharding(...))``): a
+:class:`~paddle_tpu_torch.distributed.mesh.NamedSharding`, or its spec
+alone over the global mesh.  Each leaf becomes a
+:class:`~paddle_tpu_torch.distributed.mesh.PlacedTensor`: one copy of
+each distinct (block, device) pair of the mesh's positions, made on a
+side stream of that device, one event a device for the batch.  The bytes
+copied are counted in ``bytes_copied``.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from ..core import resolve_device
+from ..distributed.mesh import NamedSharding, PlacedTensor
 
 __all__ = ["DevicePrefetcher"]
 
@@ -52,6 +62,8 @@ def _tensors(obj):
     elif isinstance(obj, dict):
         for o in obj.values():
             yield from _tensors(o)
+    elif isinstance(obj, PlacedTensor):
+        yield from obj.blocks.values()
 
 
 class DevicePrefetcher:
@@ -62,8 +74,13 @@ class DevicePrefetcher:
     (``None``: the card) as tensors; CPU tensors are copied the same way;
     tensors already on the device and other leaves (numpy scalars, ints)
     pass through.  ``wrap_tensors`` is accepted, as the reference takes
-    it: the port's batches are torch tensors either way.  ``sharding``
-    (a mesh placement) is not ported.
+    it: the port's batches are torch tensors either way.  ``sharding``: a
+    ``NamedSharding``, or a spec over the global mesh (``("dp",)``,
+    ``(("dp", "sharding"),)``, ``(None, "sp")``, ``()``): every numpy or
+    tensor leaf becomes a ``PlacedTensor`` (module docstring), and
+    ``device`` is not read.  A malformed spec raises ``TypeError`` or
+    ``ValueError``; a leaf whose dimension the spec's axes do not divide,
+    ``ValueError`` in the consumer.
 
     Errors in the source or the copies re-raise in the consumer;
     ``close()`` (also on ``with`` exit) retires the thread without
@@ -73,15 +90,17 @@ class DevicePrefetcher:
                  wrap_tensors: bool = True, *, device=None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
-        if sharding is not None:
-            raise NotImplementedError(
-                "DevicePrefetcher(sharding=): batches placed over a mesh "
-                "are ROADMAP.md queue 1, item 9, step 4")
+        if sharding is not None and not isinstance(sharding,
+                                                   NamedSharding):
+            sharding = NamedSharding(None, sharding)
         self.depth = int(depth)
-        self.device = resolve_device(device)
+        self._sharding = sharding
+        self.device = None if sharding is not None else resolve_device(
+            device)
         self._wrap = wrap_tensors
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        self._streams = {}               # one side stream a card
+        self._used = set()               # cards the current batch went to
+        self.bytes_copied = 0
         self._q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         self._sentinel = object()
         self._err: list = []
@@ -95,17 +114,47 @@ class DevicePrefetcher:
         self._thread.start()
 
     # -- producer ----------------------------------------------------------
+    def _copy(self, t: torch.Tensor, device) -> torch.Tensor:
+        """``t`` copied to ``device``: from pinned memory on the card's side
+        stream, a plain copy elsewhere."""
+        self.bytes_copied += t.numel() * t.element_size()
+        if device.type != "cuda":
+            return t.to(device, copy=True)
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device)
+        self._used.add(device)
+        src = t.contiguous() if t.device.type != "cpu" else \
+            t.contiguous().pin_memory()
+        with torch.cuda.stream(self._streams[device]):
+            return src.to(device, non_blocking=True)
+
+    def _place(self, t: torch.Tensor) -> PlacedTensor:
+        """One copy of each distinct (block, device) pair of the mesh's
+        positions."""
+        sh = self._sharding
+        cuts = sh.cuts(t.shape)
+        blocks = {}
+        for coords, device in sh.positions():
+            idx = sh.block_of(coords)
+            if (idx, device) not in blocks:
+                part = t
+                for k, (i, n) in enumerate(zip(idx, cuts)):
+                    size = t.shape[k] // n
+                    part = part.narrow(k, i * size, size)
+                blocks[(idx, device)] = self._copy(part, device)
+        return PlacedTensor(sh, t.shape, t.dtype, blocks)
+
     def _put(self, obj):
-        """Host tree -> device tree (on the side stream when on the
-        card)."""
+        """Host tree -> device tree (on the side streams when on the
+        card), or each leaf placed over the mesh with ``sharding``."""
         if isinstance(obj, np.ndarray):
             obj = torch.from_numpy(obj)
         if isinstance(obj, torch.Tensor):
+            if self._sharding is not None:
+                return self._place(obj)
             if obj.device == self.device:
                 return obj
-            if self._stream is None:
-                return obj.to(self.device, copy=True)
-            return obj.pin_memory().to(self.device, non_blocking=True)
+            return self._copy(obj, self.device)
         if isinstance(obj, (list, tuple)):
             return type(obj)(self._put(o) for o in obj)
         if isinstance(obj, dict):
@@ -115,17 +164,15 @@ class DevicePrefetcher:
     def _producer(self, it: Iterator):
         try:
             for batch in it:
-                event = None
-                if self._stream is None:
-                    dev = self._put(batch)
-                else:
-                    with torch.cuda.stream(self._stream):
-                        dev = self._put(batch)
-                        event = torch.cuda.Event()
-                        event.record(self._stream)
+                self._used = set()
+                dev = self._put(batch)
+                events = {}
+                for d in self._used:
+                    events[d] = torch.cuda.Event()
+                    events[d].record(self._streams[d])
                 while not self._stop.is_set():
                     try:
-                        self._q.put((dev, event), timeout=0.1)
+                        self._q.put((dev, events), timeout=0.1)
                         break
                     except queue.Full:
                         continue
@@ -169,12 +216,12 @@ class DevicePrefetcher:
             if self._err:
                 raise self._err[0]
             raise StopIteration
-        batch, event = item
-        if event is not None:
-            cur = torch.cuda.current_stream(self.device)
+        batch, events = item
+        for d, event in events.items():
+            cur = torch.cuda.current_stream(d)
             cur.wait_event(event)
             for t in _tensors(batch):
-                if t.device == self.device:
+                if t.device == d:
                     t.record_stream(cur)
         self._stall_total += stall
         self._batches += 1

@@ -53,8 +53,14 @@ class _KVBuffers:
     a tensor (the stacked layout), a list of them (one a layer) or None."""
 
     _FIELDS = ("k", "v")
+    # a cache placed over a training mesh (:meth:`_place`): ``(layers,
+    # shard caches)`` a group; None for a cache of its own tensors
+    groups = None
 
     def _tensors(self) -> List[torch.Tensor]:
+        if self.groups is not None:
+            return [t for _, subs in self.groups for s in subs
+                    for t in s._tensors()]
         out = []
         for t in (getattr(self, f) for f in self._FIELDS):
             if isinstance(t, list):
@@ -62,6 +68,37 @@ class _KVBuffers:
             elif t is not None:
                 out.append(t)
         return out
+
+    def _place(self, placement, num_heads: int, make):
+        """Hold the cache as the groups of ``placement`` -- ``(layers,
+        devices)`` pairs: the layers each group holds and the devices of
+        their tensor-parallel shards -- each shard a cache of ``make(n
+        layers, heads, device)`` in the stacked layout, cut by heads
+        (``num_heads / len(devices)`` a shard).  Layer ``l``'s tensors on
+        each shard are read through :meth:`layer_shards`."""
+        groups, where = [], {}
+        for layers, devs in placement:
+            devs = tuple(devs)
+            if num_heads % len(devs):
+                raise ValueError(f"num_heads={num_heads} is not divisible "
+                                 f"by mp={len(devs)}")
+            hs = num_heads // len(devs)
+            for j, layer in enumerate(layers):
+                where[int(layer)] = (len(groups), j)
+            groups.append((tuple(int(x) for x in layers),
+                           [make(len(layers), hs, d) for d in devs]))
+        self.groups, self._where = groups, where
+        self.device = groups[0][1][0].device
+
+    def layer_shards(self, i: int) -> list:
+        """Layer ``i``'s tensors of a placed cache, one tuple a
+        tensor-parallel shard in shard order: each field of the cache
+        (``(k, v)``; a page pool's ``(k, v, k_scale, v_scale)``, None for
+        a float pool's scales) as the layer's view."""
+        g, j = self._where[i]
+        return [tuple(None if t is None else t[j]
+                      for t in (getattr(s, f) for f in self._FIELDS))
+                for s in self.groups[g][1]]
 
     @property
     def nbytes(self) -> int:
@@ -72,6 +109,9 @@ class _KVBuffers:
         """Drop the cache's tensors now; their memory goes back to
         PyTorch's allocator for the next allocation.  The cache is unusable
         afterwards."""
+        for _, subs in self.groups or ():
+            for sub in subs:
+                sub.release()
         for f in self._FIELDS:
             setattr(self, f, None)
 
@@ -85,6 +125,11 @@ class KVCache(_KVBuffers):
     of ``[L, B, H, max_seq, D]`` tensors read whole, layer ``l``'s cache
     the view ``k[l]``.
 
+    ``placement`` (a model placed on a training mesh): ``(layers,
+    devices)`` groups (:meth:`_KVBuffers._place`): each group's layers
+    cut by heads over its shard devices, one stacked cache a shard, read
+    through :meth:`layer_shards`; ``k``/``v`` are then None.
+
     Stale content past the current length is never read by the kernels
     (every read is length-bounded), so a cache is reused across
     ``generate()`` calls without re-zeroing."""
@@ -93,7 +138,7 @@ class KVCache(_KVBuffers):
 
     def __init__(self, num_layers: int, batch_size: int, num_heads: int,
                  max_seq: int, head_dim: int, dtype="bfloat16",
-                 stacked: bool = False, *, device=None):
+                 stacked: bool = False, *, device=None, placement=None):
         self.num_layers = num_layers
         self.batch_size = batch_size
         self.num_heads = num_heads
@@ -101,6 +146,12 @@ class KVCache(_KVBuffers):
         self.head_dim = head_dim
         self.dtype = dtype_name(dtype)
         self.stacked = bool(stacked)
+        if placement is not None:
+            self.k = self.v = None
+            self._place(placement, num_heads, lambda n, hs, d: KVCache(
+                n, batch_size, hs, max_seq, head_dim, dtype, True,
+                device=d))
+            return
         self.device = resolve_device(device)
         td = to_torch_dtype(dtype)
         shape = (batch_size, num_heads, max_seq, head_dim)
@@ -112,6 +163,9 @@ class KVCache(_KVBuffers):
 
     def layer(self, i: int):
         """(k, v) of layer ``i`` (the per-layer layout only)."""
+        if self.groups is not None:
+            raise ValueError("layer(): the cache is placed over a mesh; "
+                             "read layer_shards(i)")
         if self.stacked:
             raise ValueError("layer() is for the per-layer cache layout; "
                              "the stacked cache is read whole")

@@ -66,7 +66,7 @@ per-layer key.  Nothing is read back from the card.
 from __future__ import annotations
 
 from collections import OrderedDict
-from contextlib import ExitStack, contextmanager
+from contextlib import ExitStack, contextmanager, nullcontext
 from dataclasses import dataclass
 from functools import partial
 from typing import Mapping, NamedTuple, Optional
@@ -109,7 +109,7 @@ from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
 from ..ops.lora import lora_delta_raw, lora_down, lora_up
 from ..quantization.int8 import (
     Int8Linear, activation_scales, int8_accumulate, int8_epilogue, k_major,
-    quantize_weight, quantized_matmul,
+    quantize_weight, quantized_matmul, refuse_tensor_parallel,
 )
 from ..quantization.kv import quantize_kv_write
 from .generation import GenerationMixin, KVCache
@@ -801,13 +801,37 @@ class GPTStackedDecoder(nn.Module):
         reads only the int8 ones).  Each int8 ``[in, out]`` matrix is stored
         :func:`k_major` (its values and shape are the reference's).
         Idempotent; a quantized decoder serves only: training and the
-        contiguous-cache path refuse it."""
+        contiguous-cache path refuse it.
+
+        Under a global mesh with mp > 1, or placed at mp > 1, it raises the
+        reference's ``ValueError``.  Placed at mp = 1 (dp, sharding or pp
+        only), each pipeline stage quantizes replica 0's rows of its layers
+        on the stage's device (:attr:`stage_int8`, beside the parts and
+        out of the state dict); the scales are per layer and output
+        channel, so the values are the unplaced model's."""
         if self.weight_int8:
             return
-        for name in self.QUANTIZED:
-            q, s = quantize_weight(getattr(self, name), 1)   # [L, in, out]
-            self.register_buffer(name + "_int8", k_major(q))
-            self.register_buffer(name + "_s", s)
+        tm = self._mesh
+        if (_mesh.has_mesh() and _mesh.get_mesh().shape.get("mp", 1) > 1) \
+                or (tm is not None and tm.mp > 1):
+            raise ValueError(
+                "quantize_weights: the stacked projection weights are "
+                "mp-sharded; per-channel PTQ over gathered shards is not "
+                "supported — serve tensor-parallel models with fp weights")
+        if tm is None:
+            for name in self.QUANTIZED:
+                q, s = quantize_weight(getattr(self, name), 1)  # [L, in, out]
+                self.register_buffer(name + "_int8", k_major(q))
+                self.register_buffer(name + "_s", s)
+        else:
+            self.stage_int8 = []
+            for st in range(tm.pp):
+                slabs = {}
+                for name in self.QUANTIZED:
+                    q, s = quantize_weight(
+                        getattr(self, name).at((0, st, 0)), 1)
+                    slabs[name + "_int8"], slabs[name + "_s"] = k_major(q), s
+                self.stage_int8.append(slabs)
         self.weight_int8 = True
 
     def dropout_active(self) -> bool:
@@ -900,6 +924,38 @@ class GPTStackedDecoder(nn.Module):
             n_virtual=cfg.virtual_pp_degree,
             stage_devices=[tm.dev(r, s) for s in range(tm.pp)])
         return torch.cat(outs)
+
+    def forward_placed(self, h, held, routes):
+        """Replica 0's layers on the mesh for the cache paths: ``h`` [B, S,
+        hidden] on its stage 0's first device through layers 0 .. L-1 in
+        order (a plain scan, not pipelined, as the reference's cached
+        path), each on the devices of its stage's parts -- the training
+        block (:meth:`_block`) at mp > 1 with each shard attending over its
+        heads -- the hidden state moved to a stage's first device where
+        the layers cross to it.  ``held``: each slab's parts by mesh
+        position; ``routes``: each layer's attention route (a list of one
+        a shard at mp > 1, :func:`placed_routes`).  After
+        :meth:`quantize_weights` (mp = 1) each layer runs its stage's int8
+        slabs.  Returns the last layer's output on its device."""
+        tm, cdt = self._mesh, o1_dtype()
+        dec = {n: held["decoder." + n] for n in self.PARAM_NAMES}
+        stages = []
+        for st in range(tm.pp):
+            if not self.weight_int8:
+                stages.append(self.stage_weights(dec, 0, st))
+                continue
+            slabs = self.stage_int8[st]
+            stages.append(list(zip(*(
+                (slabs[n] if n in slabs else dec[n][(0, st, 0)]).unbind(0)
+                for n in self.INT8_NAMES))))
+        where = {layer: (st, j) for st in range(tm.pp)
+                 for j, layer in enumerate(tm.layers[st])}
+        for layer in range(self._cfg.num_layers):
+            st, j = where[layer]
+            h = h.to(tm.dev(0, st))
+            h = self._block(h, stages[st][j], routes[layer],
+                            int8=self.weight_int8, cdt=cdt, tp=tm.tp(0, st))
+        return h
 
     def forward_cached(self, h, k_cache, v_cache, pos):
         """Prefill or decode over a contiguous cache (the reference's
@@ -1068,6 +1124,54 @@ def attend_paged(q, k, v, *, kp, vp, ks, vs, geo: PagedGeometry,
     return out.transpose(1, 2)
 
 
+def paged_step_on(devices, tables, pos, c: int, page_size: int,
+                  num_heads: int, ragged_plan) -> dict:
+    """``{device: (geometry, ragged plan)}``: a paged step's
+    :func:`paged_geometry` at ``num_heads`` (a head shard's) and its
+    ``ragged_plan``, sent to each of ``devices`` once."""
+    return {d: (paged_geometry(tables.to(d), pos.to(d), c, page_size,
+                               num_heads),
+                None if ragged_plan is None
+                else tuple(t.to(d) for t in ragged_plan))
+            for d in devices}
+
+
+def placed_routes(kv_cache, ids_device, s: int, pos, page_tables,
+                  ragged_plan, scale: float) -> list:
+    """Each layer's attention route over a cache placed on a training mesh
+    (``kv_cache.layer_shards``): :func:`attend_with_cache` over each
+    shard's contiguous cache, or :func:`attend_paged` over its pages, on
+    the shard's device at ``H/mp`` heads -- one callable a layer at mp =
+    1, a list of one a shard above.  ``s``: the step's tokens a row;
+    ``pos``: the contiguous cache's position (the Python int 0 or a 0-d
+    tensor on ``ids_device``) or the paged rows' [S] positions; the
+    positions, tables and plan are sent to each device once."""
+    shards = [kv_cache.layer_shards(layer)
+              for layer in range(kv_cache.num_layers)]
+    devices = list(dict.fromkeys(sh[0].device for ls in shards for sh in ls))
+    if kv_cache.paged:
+        at = paged_step_on(devices, page_tables, pos, s, kv_cache.page_size,
+                           shards[0][0][0].shape[1], ragged_plan)
+    else:
+        idx = cache_positions(s, pos, ids_device)
+        at = {d: (pos if isinstance(pos, int) else pos.to(d), idx.to(d))
+              for d in devices}
+
+    def route(sh):
+        d = sh[0].device
+        if not kv_cache.paged:
+            return partial(attend_with_cache, kc=sh[0], vc=sh[1],
+                           pos=at[d][0], idx=at[d][1], scale=scale)
+        return partial(attend_paged, kp=sh[0], vp=sh[1], ks=sh[2], vs=sh[3],
+                       geo=at[d][0], ragged_plan=at[d][1], scale=scale)
+
+    out = []
+    for ls in shards:
+        routes = [route(sh) for sh in ls]
+        out.append(routes[0] if len(routes) == 1 else routes)
+    return out
+
+
 def _shard_pools(cache, num_layers: int):
     """Per shard of a sharded pool, its (k, v, k_scale, v_scale) tensors
     a layer."""
@@ -1128,12 +1232,8 @@ def sharded_paged_layers(model, h, cache, tables, pos, ragged_plan,
     b, c, hidden = h.shape
     scale = float(1.0 / np.sqrt(hd))
     devs = unique_devices(mesh)
-    geo, plan = {}, {}
-    for d in devs:
-        geo[d] = paged_geometry(tables.to(d), pos.to(d), c, cache.page_size,
-                                hs)
-        plan[d] = (None if ragged_plan is None
-                   else tuple(t.to(d) for t in ragged_plan))
+    at = paged_step_on(devs, tables, pos, c, cache.page_size, hs,
+                       ragged_plan)
     pools = _shard_pools(cache, cfg.num_layers)
     if lora is not None:
         lpool, lids = lora
@@ -1228,7 +1328,8 @@ def sharded_paged_layers(model, h, cache, tables, pos, ragged_plan,
             q, k, v = qkv.view(b, c, 3, hs, hd).unbind(2)
             kp, vp, ks, vs = pools[i][li]
             out = attend_paged(q, k, v, kp=kp, vp=vp, ks=ks, vs=vs,
-                               geo=geo[d], ragged_plan=plan[d], scale=scale)
+                               geo=at[d][0], ragged_plan=at[d][1],
+                               scale=scale)
             outs.append(out.to(qkv.dtype).reshape(b * c, hs * hd))
         attn = row(layer, outs, "proj", lg, 1)
         hh = {d: residual(hh[d], attn[d]) for d in devs}
@@ -1265,6 +1366,15 @@ def _masked_attention(q, k, v, q_pos, scale: float) -> torch.Tensor:
                         v.float()).to(v.dtype).to(q.dtype)
 
 
+def _span(x, dim: int, lo: int, hi: int, device):
+    """Elements ``lo .. hi - 1`` of ``x`` along ``dim``: of a batch placed
+    over the mesh (``mesh.PlacedTensor``) the block that lies on
+    ``device``, else a slice of ``x`` where it is."""
+    if isinstance(x, _mesh.PlacedTensor):
+        return x.take(dim, lo, hi, device)
+    return x.narrow(dim, lo, hi - lo)
+
+
 def _host_generator(generator, seed: int) -> torch.Generator:
     """The CPU generator a module draws its dropout seeds from."""
     if generator is None:
@@ -1283,20 +1393,29 @@ class _CacheContract(GenerationMixin):
 
     stacked: bool
 
-    def _require_unplaced(self, what: str):
-        """Refuse ``what`` on a model placed on a training mesh."""
-        if getattr(self, "_train_mesh", None) is not None:
-            raise NotImplementedError(
-                f"{what} of a model placed on a training mesh is not ported "
-                "(ROADMAP.md queue 1, item 9, step 5): train it there, and "
-                "load its state_dict() into a model built without a mesh "
-                "to generate or serve")
+    def cache_placement(self):
+        """Where the caches of a model placed on a training mesh hold each
+        layer: ``(layers, shard devices)`` groups (``KVCache`` and
+        ``PagedKVCache``'s ``placement``), or None for an unplaced
+        model."""
+        return None
+
+    def _refuse_sequence_parts(self):
+        """The reference's failure at the first decode step of a model
+        whose activations run as sequence parts: one token does not split
+        over sp."""
+        sp = getattr(getattr(self, "gpt", None), "sequence_parts", 1)
+        if sp > 1:
+            raise ValueError(
+                f"a one-token decode step does not split over sp={sp} "
+                "sequence parts: generation and serving of a "
+                "sequence_parallel model on an sp axis > 1 fail, as in the "
+                "reference; load its state_dict() into a model built "
+                "without the sp axis to generate or serve")
 
     def _require_whole_weights(self, what: str):
         """Refuse ``what`` on a model sharded for serving at mp > 1, whose
-        tensor-parallel weights live only in its shards, and on a model
-        placed on a training mesh."""
-        self._require_unplaced(what)
+        tensor-parallel weights live only in its shards."""
         if getattr(self, "_serving_released", False):
             raise ValueError(
                 f"{what} needs the whole weights: this model's tensor-"
@@ -1307,38 +1426,39 @@ class _CacheContract(GenerationMixin):
     # -- GenerationMixin cache contract ------------------------------------
     def new_kv_cache(self, batch_size: int, max_seq: int,
                      dtype="bfloat16") -> KVCache:
-        self._require_unplaced("generate()")
+        self._refuse_sequence_parts()
         cfg = self.config
         return KVCache(cfg.num_layers, batch_size, cfg.num_heads, max_seq,
                        cfg.head_dim, dtype=dtype, stacked=self.stacked,
-                       device=self.device)
+                       device=self.device, placement=self.cache_placement())
 
+    # the cached steps call the module, not forward(): ZeRO at p_g_os
+    # gathers a model's parts around its calls
     def _cached_lm_logits(self, input_ids, kv_cache, cache_index):
-        return self.forward(input_ids, kv_cache=kv_cache,
-                            cache_index=cache_index)
+        return self(input_ids, kv_cache=kv_cache, cache_index=cache_index)
 
     # -- ServingEngine paged-cache contract --------------------------------
     def new_paged_kv_cache(self, num_pages: int, page_size: int,
                            dtype="bfloat16", mesh=None):
         """A zeroed page pool in this class's layout on the model's device,
         or, with a replica ``mesh`` of mp > 1 devices, sharded per head
-        over it (``serving_mesh``)."""
+        over it (``serving_mesh``); for a model placed on a training mesh,
+        placed as its layers are (:meth:`cache_placement`)."""
         from ..serving.paged_cache import PagedKVCache
 
-        self._require_unplaced("serving")
+        self._refuse_sequence_parts()
         cfg = self.config
         return PagedKVCache(cfg.num_layers, num_pages, cfg.num_heads,
                             page_size, cfg.head_dim, dtype=dtype,
                             stacked=self.stacked, device=self.device,
-                            mesh=mesh)
+                            mesh=mesh, placement=self.cache_placement())
 
     def _paged_lm_logits(self, input_ids, paged_cache, page_tables,
                          positions, ragged_plan=None, out_rows=None,
                          lora=None):
-        return self.forward(input_ids, kv_cache=paged_cache,
-                            cache_index=positions, page_tables=page_tables,
-                            ragged_plan=ragged_plan, out_rows=out_rows,
-                            lora=lora)
+        return self(input_ids, kv_cache=paged_cache, cache_index=positions,
+                    page_tables=page_tables, ragged_plan=ragged_plan,
+                    out_rows=out_rows, lora=lora)
 
 
 class GPTStackedForPretraining(nn.Module, _CacheContract):
@@ -1369,10 +1489,13 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
     ``state_dict()`` and ``load_jax_state`` speak whole tensors under the
     reference's names.  The training forward splits the batch over the dp
     replicas and pipelines ``n_micro`` microbatches over pp stages
-    (:meth:`GPTStackedDecoder.forward_mesh`); ``generate()`` and serving
-    refuse the placed model (ROADMAP.md queue 1, item 9).  Under ZeRO at
-    ``p_g_os`` (``distributed.sharding``) the forward gathers every part
-    before it runs and frees them after (``_zero_unit``).
+    (:meth:`GPTStackedDecoder.forward_mesh`).  ``generate()`` and serving
+    run from replica 0's parts (:meth:`_forward_placed_cached`): each
+    layer on its stage's devices, per head shard at mp > 1, over caches
+    placed the same way (:meth:`cache_placement`); at mp = 1
+    ``quantize_weights`` quantizes each stage's slabs on its device.
+    Under ZeRO at ``p_g_os`` (``distributed.sharding``) every call gathers
+    every part before it runs and frees them after (``_zero_unit``).
     """
 
     stacked = True        # the cache and LoRA layout this class reads
@@ -1488,14 +1611,30 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         quantize_weights``) and the tied LM head to int8 for serving: the
         head as ``lm_head_int8`` [hidden, V] (the transposed embedding) with
         ``lm_head_scale`` [V], one absmax scale per vocabulary row.
-        Idempotent."""
+        Idempotent.  A config with ``use_tensor_parallel``, or a mesh with
+        mp > 1, raises the reference's ``ValueError``.  A model placed on
+        a training mesh at mp = 1 quantizes each stage's slabs
+        (:meth:`GPTStackedDecoder.quantize_weights`) and the head on its
+        last stage (:attr:`placed_head_int8`); its state dict stays the fp
+        weights it trains."""
         if self.weight_int8:
             return
+        refuse_tensor_parallel(self)
         self._require_whole_weights("quantize_weights")
-        self.decoder.quantize_weights()
-        q, s = quantize_weight(self.embeddings.word_embeddings.weight, 1)
-        self.register_buffer("lm_head_int8", q.t())        # k_major already
-        self.register_buffer("lm_head_scale", s)
+        tm = self._train_mesh
+        if tm is None:
+            self.decoder.quantize_weights()
+            q, s = quantize_weight(self.embeddings.word_embeddings.weight, 1)
+            self.register_buffer("lm_head_int8", q.t())    # k_major already
+            self.register_buffer("lm_head_scale", s)
+            return
+        plan = getattr(self, "_zero_plan", None)
+        with plan.reading() if plan is not None else nullcontext():
+            self.decoder.quantize_weights()
+            q, s = quantize_weight(
+                self.embeddings.word_embeddings.weight.at((0, 0, 0)), 1)
+        last = tm.dev(0, tm.pp - 1)
+        self.placed_head_int8 = (q.t().to(last), s.to(last))
 
     def load_jax_state(self, state: Mapping[str, np.ndarray]):
         """Carry the JAX model's weights across: ``state`` maps every key
@@ -1567,41 +1706,29 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         ``lora`` (paged cache only): ``(LoRAAdapterPool, ids)``, ``ids``
         [S] int the adapter page of each row (0 = the null adapter); every
         projection of every layer adds its row's low-rank delta."""
+        if kv_cache is None:
+            if lora is not None:
+                raise ValueError("per-request LoRA adapters ride the paged "
+                                 "serving step (kv_cache + page_tables)")
+            if self._train_mesh is not None:
+                return self._forward_placed(input_ids, labels, position_ids)
+            self._require_whole_weights("a forward without a sharded pool")
+            return self._forward_train(input_ids, labels, position_ids)
+        ids, pos, pos_ids = self._cached_positions(
+            input_ids, position_ids, kv_cache, cache_index, page_tables)
         if self._train_mesh is not None:
-            if kv_cache is not None or lora is not None:
-                self._require_whole_weights("a cached or serving forward")
-            return self._forward_placed(input_ids, labels, position_ids)
-        if lora is not None and not getattr(kv_cache, "paged", False):
+            return self._forward_placed_cached(ids, pos, pos_ids, kv_cache,
+                                               page_tables, ragged_plan,
+                                               out_rows, lora)
+        if lora is not None and not kv_cache.paged:
             raise ValueError("per-request LoRA adapters ride the paged "
                              "serving step (kv_cache + page_tables)")
         if getattr(kv_cache, "shards", None) is None:
             self._require_whole_weights("a forward without a sharded pool")
-        if kv_cache is None:
-            return self._forward_train(input_ids, labels, position_ids)
-        cfg = self.config
-        ids = input_ids.long()
-        s = ids.shape[1]
-        rel = torch.arange(s, device=ids.device)
-        if not getattr(kv_cache, "paged", False):
-            pos = int(cache_index) if isinstance(
-                cache_index, (int, np.integer)) else cache_index.reshape(())
-            pos_ids = (rel + pos).expand_as(ids) if position_ids is None \
-                else position_ids.long().expand_as(ids)
-            h = self.embeddings(ids, pos_ids)                # [B, S, hidden]
+        h = self.embeddings(ids, pos_ids)          # [B or S, S or C, hidden]
+        if not kv_cache.paged:
             h = self.decoder.forward_cached(h, kv_cache.k, kv_cache.v, pos)
         else:
-            if page_tables is None:
-                raise ValueError("a paged KV cache needs page_tables")
-            pos = cache_index.long()
-            if position_ids is not None and not torch.equal(
-                    position_ids.long().expand_as(ids), pos[:, None] + rel):
-                raise ValueError(
-                    "position_ids disagree with cache_index: the paged and "
-                    "ragged paths place each token at cache_index[s] + "
-                    "arange(C), and read positions from there")
-            pos_ids = torch.clamp(pos[:, None] + rel, 0,
-                                  cfg.max_position_embeddings - 1)
-            h = self.embeddings(ids, pos_ids)                # [S, C, hidden]
             if getattr(kv_cache, "shards", None) is not None:
                 # a pool sharded per head over mp devices
                 h = sharded_paged_layers(self, h, kv_cache, page_tables,
@@ -1623,6 +1750,32 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
             return quantized_matmul(h, self.lm_head_int8, self.lm_head_scale)
         h, w = maybe_cast("matmul", h, self.embeddings.word_embeddings.weight)
         return h @ w.t()
+
+    def _cached_positions(self, input_ids, position_ids, kv_cache,
+                          cache_index, page_tables):
+        """``(ids, pos, pos_ids)`` of a cached step (:meth:`forward`'s
+        arguments): the contiguous cache's position (the Python int 0 or
+        a 0-d tensor) or the paged rows' [S] positions, and the position
+        embeddings' ids; a paged step's ``position_ids`` must agree."""
+        ids = input_ids.long()
+        rel = torch.arange(ids.shape[1], device=ids.device)
+        if not kv_cache.paged:
+            pos = int(cache_index) if isinstance(
+                cache_index, (int, np.integer)) else cache_index.reshape(())
+            pos_ids = (rel + pos).expand_as(ids) if position_ids is None \
+                else position_ids.long().expand_as(ids)
+            return ids, pos, pos_ids
+        if page_tables is None:
+            raise ValueError("a paged KV cache needs page_tables")
+        pos = cache_index.long()
+        if position_ids is not None and not torch.equal(
+                position_ids.long().expand_as(ids), pos[:, None] + rel):
+            raise ValueError(
+                "position_ids disagree with cache_index: the paged and "
+                "ragged paths place each token at cache_index[s] + "
+                "arange(C), and read positions from there")
+        return ids, pos, torch.clamp(pos[:, None] + rel, 0,
+                                     self.config.max_position_embeddings - 1)
 
     def _forward_train(self, input_ids, labels, position_ids=None):
         cfg = self.config
@@ -1647,6 +1800,57 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         return h @ w.t()
 
     # -- placed on a training mesh ------------------------------------------
+    def cache_placement(self):
+        """Each pipeline stage's layers and the devices of replica 0's
+        shards of that stage; None unplaced."""
+        tm = self._train_mesh
+        if tm is None:
+            return None
+        return [(tm.layers[s], tuple(tm.grid[0, s])) for s in range(tm.pp)]
+
+    def _held_parts(self):
+        """``{state-dict key: {mesh position: part}}``: replica 0's parts,
+        untied (the cached paths run no backward)."""
+        return {key: {p.position: t for t, p in zip(sp, sp.parts)
+                      if p.replica == 0}
+                for key, sp in sharded_parameters(self).items()}
+
+    def _forward_placed_cached(self, ids, pos, pos_ids, kv_cache,
+                               page_tables, ragged_plan, out_rows, lora):
+        """The cached forward on the mesh (contiguous or paged, at the
+        positions :meth:`_cached_positions` gives): replica 0's embeddings
+        on its stage 0, the layers in order on their stages' devices
+        (:meth:`GPTStackedDecoder.forward_placed`) over ``kv_cache``
+        placed as :meth:`cache_placement` places it, the final LayerNorm
+        and the tied head on the last stage (the head over the vocabulary
+        shards under ``use_tensor_parallel``, the int8 head after
+        ``quantize_weights``).  The other replicas hold the same weights
+        and do not run.  Returns the logits on ``self.device``."""
+        if lora is not None:
+            raise NotImplementedError(
+                "per-request LoRA adapters over a model placed on a "
+                "training mesh are not ported (ROADMAP.md queue 1, item 9)")
+        if getattr(kv_cache, "groups", None) is None:
+            raise ValueError("a model placed on a training mesh reads a cache "
+                             "placed as its layers are: make it with "
+                             "new_kv_cache or new_paged_kv_cache")
+        cfg, tm = self.config, self._train_mesh
+        routes = placed_routes(kv_cache, ids.device, ids.shape[1], pos,
+                               page_tables, ragged_plan,
+                               float(1.0 / np.sqrt(cfg.head_dim)))
+        held = self._held_parts()
+        h = self._embed_placed(held, 0, ids, pos_ids)
+        h = self.decoder.forward_placed(h, held, routes)
+        if out_rows is not None:
+            h = h[out_rows.to(h.device).long()]
+        last = (0, tm.pp - 1, 0)
+        h = F.layer_norm(h, (cfg.hidden_size,), held["final_ln.weight"][last],
+                         held["final_ln.bias"][last], cfg.layer_norm_eps)
+        if self.weight_int8:
+            return quantized_matmul(h, *self.placed_head_int8).to(
+                self.device)
+        return self._head_placed(held, 0, h, None).to(self.device)
+
     def load_state_dict(self, state_dict, strict: bool = True,
                         assign: bool = False):
         """``nn.Module.load_state_dict``; a model placed on a mesh cuts
@@ -1743,16 +1947,22 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         dp) on ``self.device``; without, the [B, S, V] logits there.
         Dropout draws the unplaced model's seeds; each replica and
         microbatch of a layer derives its own from the layer's
-        (:func:`_part_seed`), unless there is one part."""
+        (:func:`_part_seed`), unless there is one part.
+
+        ``input_ids`` and ``labels`` may be batches placed over the mesh
+        (``mesh.PlacedTensor``, ``io.DevicePrefetcher(sharding=("dp",))``
+        or ``(("dp", "sharding"),)``): each replica reads its rows from the
+        block on its stage 0's device (the labels from its last stage's),
+        with no further copy."""
         cfg, tm = self.config, self._train_mesh
-        ids = input_ids.long()
-        pos = (torch.arange(ids.shape[-1], device=ids.device)
+        n_rows, seq = input_ids.shape
+        pos = (torch.arange(seq, device=self.device)
                if position_ids is None else position_ids.long())
-        pos = pos.expand_as(ids)
-        if ids.shape[0] % tm.dp:
-            raise ValueError(f"a batch of {ids.shape[0]} rows does not split "
+        pos = pos.expand(n_rows, seq)
+        if n_rows % tm.dp:
+            raise ValueError(f"a batch of {n_rows} rows does not split "
                              f"over dp={tm.dp} replicas")
-        b = ids.shape[0] // tm.dp
+        b = n_rows // tm.dp
         micro = self.n_micro if tm.pp > 1 else 1
         parts = tm.dp * micro
         seeds = None
@@ -1764,7 +1974,8 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         outs = []
         for r in range(tm.dp):
             rows = slice(r * b, (r + 1) * b)
-            h = self._embed_placed(tied, r, ids[rows], pos[rows])
+            ids = _span(input_ids, 0, r * b, (r + 1) * b, tm.dev(r, 0))
+            h = self._embed_placed(tied, r, ids.long(), pos[rows])
             layer_seeds = None
             if seeds is not None:
                 emb = seeds[0] if tm.dp == 1 else _part_seed(seeds[0], r)
@@ -1781,7 +1992,8 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
                    tied["final_ln.bias"][(r, tm.pp - 1, 0)])
             h = F.layer_norm(h, (cfg.hidden_size,), *fin, cfg.layer_norm_eps)
             outs.append(self._head_placed(
-                tied, r, h, None if labels is None else labels[rows]))
+                tied, r, h, None if labels is None else _span(
+                    labels, 0, r * b, (r + 1) * b, tm.dev(r, tm.pp - 1))))
         if labels is None:
             return torch.cat([o.to(self.device) for o in outs])
         loss = reduce_sum(outs, (self.device,))[self.device]
@@ -1823,8 +2035,9 @@ class GPTAttention(nn.Module):
     v columns of its ``heads/mp`` heads, ``serving_mesh.qkv_columns``)
     and the output projection a ``RowParallelLinear``: each shard attends
     over its heads on its device, and the output projection sums the
-    shards' partials.  Only the training forward runs there (no cache,
-    no LoRA); attention dropout draws each shard's masks from a generator
+    shards' partials.  With a cache ``attend`` is a list of one route a
+    shard (:func:`placed_routes`), each over its heads' cache; LoRA is
+    refused.  Attention dropout draws each shard's masks from a generator
     of its own, seeded from ``generator``'s seed and the shard."""
 
     def __init__(self, cfg: GPTConfig, **factory):
@@ -1879,9 +2092,12 @@ class GPTAttention(nn.Module):
         return self.dropout(proj, generator)
 
     def _forward_tp(self, x, attn_mask, attend, lora, generator):
-        if attend is not None or lora is not None:
-            raise ValueError("a tensor-parallel layered block runs the "
-                             "training forward only (no cache, no LoRA)")
+        if lora is not None:
+            raise ValueError("a tensor-parallel layered block takes no LoRA "
+                             "adapters")
+        if attend is not None and attn_mask is not None:
+            raise ValueError("attn_mask is not supported on the KV-cache "
+                             "path (it is causal+length-masked)")
         cfg = self._cfg
         b, s = x.shape[0], x.shape[1]
         hd = cfg.head_dim
@@ -1889,8 +2105,12 @@ class GPTAttention(nn.Module):
         def heads(qkv, i):
             q, k, v = qkv.view(b, s, 3, -1, hd).unbind(2)
             n = q.shape[2]
-            out = self._sdpa(q, k, v, _head_mask(attn_mask, i, n, q.device),
-                             _shard_generator(generator, i, q.device))
+            if attend is not None:
+                out = attend[i](q, k, v).to(q.dtype)
+            else:
+                out = self._sdpa(q, k, v,
+                                 _head_mask(attn_mask, i, n, q.device),
+                                 _shard_generator(generator, i, q.device))
             return out.reshape(b, s, n * hd)
 
         proj = self.out_proj(self.qkv_proj(x).map(heads))
@@ -2093,11 +2313,15 @@ class GPTModel(nn.Module):
             pos_ids = rel if position_ids is None else position_ids.long()
             return pos_ids.expand_as(ids), [None] * cfg.num_layers
         scale = float(1.0 / np.sqrt(cfg.head_dim))
+        placed = getattr(kv_cache, "groups", None) is not None
         if not getattr(kv_cache, "paged", False):
             pos = int(cache_index) if isinstance(
                 cache_index, (int, np.integer)) else cache_index.reshape(())
             idx = cache_positions(s, pos, ids.device)
             pos_ids = idx if position_ids is None else position_ids.long()
+            if placed:
+                return pos_ids.expand_as(ids), placed_routes(
+                    kv_cache, ids.device, s, pos, None, None, scale)
             return pos_ids.expand_as(ids), [
                 partial(attend_with_cache, kc=kc, vc=vc, pos=pos, idx=idx,
                         scale=scale)
@@ -2111,6 +2335,10 @@ class GPTModel(nn.Module):
             # embedding lookup in range too
             position_ids = torch.clamp(cache_index.long()[:, None] + rel, 0,
                                        cfg.max_position_embeddings - 1)
+        if placed:
+            return position_ids.long().expand_as(ids), placed_routes(
+                kv_cache, ids.device, s, cache_index, page_tables,
+                ragged_plan, scale)
         geo = paged_geometry(page_tables, cache_index, s,
                              kv_cache.page_size, cfg.num_heads)
         return position_ids.long().expand_as(ids), [
@@ -2179,20 +2407,23 @@ class GPTModel(nn.Module):
         and the final LayerNorm run per part, attention over all of them.
         Returns the final hidden states, the parts joined on part 0's
         device.  Dropout draws the unplaced model's seeds, each part its
-        own masks from them (:func:`_part_seed`)."""
+        own masks from them (:func:`_part_seed`).  ``input_ids`` may be
+        placed over the mesh as ``(None, "sp")`` (``mesh.PlacedTensor``):
+        each part reads its tokens from the block on its device."""
         cfg, sp = self.config, self.sequence_parts
-        ids = input_ids.long()
-        s = ids.shape[-1]
+        shape = input_ids.shape
+        s, last = shape[-1], len(shape) - 1
         if s % sp:
             raise ValueError(f"a sequence of {s} tokens does not split into "
                              f"sp={sp} parts")
-        pos = (torch.arange(s, device=ids.device) if position_ids is None
-               else position_ids.long()).expand_as(ids)
+        pos = (torch.arange(s, device=input_ids.device) if position_ids is None
+               else position_ids.long()).expand(shape)
         n, bodies = s // sp, self._bodies()
         h = []
         for r, body in enumerate(bodies):
             dev = body[0].position_embeddings.weight.device
-            h.append(body[0](ids[..., r * n:(r + 1) * n].to(dev),
+            ids = _span(input_ids, last, r * n, (r + 1) * n, dev)
+            h.append(body[0](ids.long().to(dev),
                              pos[..., r * n:(r + 1) * n].to(dev)))
         seeds = self._seeds()
         if seeds[0] is not None:
@@ -2349,8 +2580,11 @@ class GPTForPretraining(nn.Module, _CacheContract):
     row-parallel biases stay whole on the first of them, ``device``.
     ``forward`` returns the logits gathered there; ``state_dict()``
     gathers each whole tensor and ``load_jax_state`` /
-    ``load_state_dict`` cut them.  It only trains: generation, serving,
-    quantization and LoRA raise (ROADMAP.md queue 1, item 9).  dp and pp
+    ``load_state_dict`` cut them.  It generates and serves from its parts:
+    each layer's mpu layers attend per head shard over caches cut by heads
+    on the shards' devices (:meth:`cache_placement`); quantization raises
+    the reference's ``ValueError`` (``use_tensor_parallel``) and LoRA
+    raises naming ROADMAP.md queue 1, item 9.  dp and pp
     keep the reference's meaning: the bare model neither shards its batch
     nor pipelines (a ``PipelineLayer`` of its blocks and the fleet
     wrappers do).
@@ -2363,9 +2597,11 @@ class GPTForPretraining(nn.Module, _CacheContract):
     (the state dict is the unplaced model's), each gradient the sum over
     the parts: where the sp positions name cards of their own
     (:func:`_sp_rows`) each from 1 on holds a copy of the body
-    (:meth:`GPTModel.copy_over_sp`), tied to the others in every forward,
-    and the model, so placed, only trains.  sep, and sp without
-    ``sequence_parallel``, are read at coordinate 0."""
+    (:meth:`GPTModel.copy_over_sp`), tied to the others in every forward.
+    Generation, serving and quantization of a model whose sp axis is > 1
+    raise the reference's ``ValueError``: a one-token step does not split
+    over sp.  sep, and sp without ``sequence_parallel``, are read at
+    coordinate 0."""
 
     stacked = False       # the cache and LoRA layout this class reads
 
@@ -2402,9 +2638,13 @@ class GPTForPretraining(nn.Module, _CacheContract):
         qkv_proj, out_proj, fc1 and fc2 of every layer become
         ``Int8Linear`` (per-output-channel absmax int8 weights, the fp
         weights dropped), and the tied head ``lm_head_int8`` [hidden, V]
-        with ``lm_head_scale`` [V].  Idempotent."""
+        with ``lm_head_scale`` [V].  Idempotent.  A config with
+        ``use_tensor_parallel`` raises the reference's ``ValueError``, as
+        does a model whose sp axis is > 1 (it cannot serve)."""
         if self._weight_int8:
             return
+        refuse_tensor_parallel(self)
+        self._refuse_sequence_parts()
         self._require_whole_weights("quantize_weights")
         for layer in self.gpt.layers:
             for owner, name in ((layer.attn, "qkv_proj"),
@@ -2446,6 +2686,14 @@ class GPTForPretraining(nn.Module, _CacheContract):
         load_jax_state(self, {k: v for k, v in state.items()
                               if k not in bufs})
 
+    def cache_placement(self):
+        """One group a layer on the mp shard devices of a model placed by
+        tensor parallelism (:func:`layered_tp`); None otherwise."""
+        if self._train_mesh is None:
+            return None
+        devs = tuple(self._train_mesh)
+        return [((layer,), devs) for layer in range(self.config.num_layers)]
+
     def load_state_dict(self, state_dict, strict: bool = True,
                         assign: bool = False):
         """``nn.Module.load_state_dict``; a placed model cuts each whole
@@ -2471,15 +2719,22 @@ class GPTForPretraining(nn.Module, _CacheContract):
         [S'] selects the rows the head projects).  ``lora``:
         ``(LoRAAdapterPool, ids)``, ``ids`` [B] the adapter page of each
         row; a contiguous cache refuses it."""
-        if self._train_mesh is not None and (kv_cache is not None
-                                             or lora is not None):
-            self._require_unplaced("a cached or serving forward")
+        if kv_cache is not None:
+            self._refuse_sequence_parts()
         if self._train_mesh is not None:
+            if lora is not None:
+                raise NotImplementedError(
+                    "per-request LoRA adapters over a model placed on a "
+                    "training mesh are not ported (ROADMAP.md queue 1, "
+                    "item 9)")
             # the head reads the word table: inside the binding, so the
             # sp copies' tables receive its gradient too
             with self.gpt.tied_copies():
-                return self._logits(self.gpt(input_ids, position_ids,
-                                             attn_mask))
+                h = self.gpt(input_ids, position_ids, attn_mask, kv_cache,
+                             cache_index, page_tables, ragged_plan)
+                if out_rows is not None:
+                    h = h[out_rows.to(h.device).long()]
+                return self._logits(h)
         if lora is not None and kv_cache is not None and not getattr(
                 kv_cache, "paged", False):
             raise ValueError("per-request LoRA adapters ride the paged "
@@ -2540,6 +2795,11 @@ def truncated_draft(model, num_layers: int = 1):
     draft owns its own paged pool inside the engine."""
     import dataclasses
 
+    if getattr(model, "_train_mesh", None) is not None:
+        raise NotImplementedError(
+            "truncated_draft of a model placed on a training mesh is not "
+            "ported (ROADMAP.md queue 1, item 9): speculative serving takes "
+            "an unplaced model")
     model._require_whole_weights("truncated_draft")
     cfg = model.config
     n = int(num_layers)

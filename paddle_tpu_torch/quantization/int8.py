@@ -18,7 +18,8 @@ from .kv import absmax_scale
 
 __all__ = ["quantize_weight", "quantized_matmul", "Int8Linear",
            "quantize_for_serving", "int_mm_rows", "k_major",
-           "activation_scales", "int8_accumulate", "int8_epilogue"]
+           "activation_scales", "int8_accumulate", "int8_epilogue",
+           "refuse_tensor_parallel"]
 
 # torch._int_mm on the card (CUDA, cuBLASLt; chip_smoke.py phase 12
 # probes the rules and prints them): PyTorch refuses 16 rows or fewer and
@@ -149,15 +150,29 @@ class Int8Linear(nn.Module):
                                 bias=self.bias, act_scale=self._act_scale)
 
 
+def refuse_tensor_parallel(model):
+    """The reference's refusal of a model whose config sets
+    ``use_tensor_parallel``: its Linear layers are cut over mp, and
+    per-channel scales need the whole weights."""
+    cfg = getattr(model, "config", None)
+    if cfg is not None and getattr(cfg, "use_tensor_parallel", False):
+        raise ValueError(
+            "quantize_for_serving: tensor-parallel Linear layers are "
+            "sharded — per-channel PTQ needs the unsharded weights; "
+            "serve TP models with fp weights")
+
+
 def quantize_for_serving(model):
     """Quantize the serving hot path's projections (qkv, out, fc1 and fc2
     of every block) and the tied LM head to int8 with per-output-channel
     absmax scales, in place, for ``weight_dtype="int8"`` serving: the
     model's own ``quantize_weights`` (the stacked GPT's int8 slabs, the
-    layered GPT's :class:`Int8Linear` layers).  Idempotent; returns
-    ``model``."""
+    layered GPT's :class:`Int8Linear` layers).  Idempotent; a model whose
+    config sets ``use_tensor_parallel`` raises the reference's
+    ``ValueError`` (:func:`refuse_tensor_parallel`).  Returns ``model``."""
     if getattr(model, "weight_int8", False):
         return model
+    refuse_tensor_parallel(model)
     if not hasattr(model, "quantize_weights"):
         raise ValueError(
             "quantize_for_serving: expected a GPTForPretraining or "

@@ -30,6 +30,14 @@ page in every shard.  :meth:`PagedKVCache.gather_pages` and
 geometry, per pool tensor and per shard, scales included (the
 disaggregated hand-off).
 
+A pool made for a model placed on a training mesh (``placement=``)
+holds layer ``l``'s pages cut by heads on the devices that hold layer
+``l``'s shards: one stacked pool a shard for each group of layers (a
+pipeline stage of the stacked GPT, one layer of the layered GPT), an int8
+pool's ``[P, H/mp]`` scales on the same cut, read through
+:meth:`PagedKVCache.layer_shards`.  The page ids and their ledger are
+the same for every group.
+
 ``BlockAllocator`` is host bookkeeping, copied whole from the JAX package
 with its 4-term ledger (free + used + spec + shared == capacity).
 """
@@ -87,7 +95,8 @@ class PagedKVCache(_KVBuffers):
 
     def __init__(self, num_layers: int, num_pages: int, num_heads: int,
                  page_size: int, head_dim: int, dtype="bfloat16",
-                 stacked: bool = False, *, device=None, mesh=None):
+                 stacked: bool = False, *, device=None, mesh=None,
+                 placement=None):
         if num_pages < 2:
             raise ValueError(
                 f"num_pages={num_pages}: the pool needs the null page plus "
@@ -103,6 +112,14 @@ class PagedKVCache(_KVBuffers):
         self.shards: Optional[List["PagedKVCache"]] = None
         self.mesh_shards = 1
         self.k = self.v = self.k_scale = self.v_scale = None
+        if placement is not None:
+            if mesh is not None:
+                raise ValueError("a pool placed over a training mesh takes "
+                                 "no serving mesh")
+            self._place(placement, num_heads, lambda n, hs, d: PagedKVCache(
+                n, num_pages, hs, page_size, head_dim, dtype, True,
+                device=d))
+            return
         if mesh is not None and len(mesh) > 1:
             mp = len(mesh)
             if num_heads % mp:
@@ -140,7 +157,7 @@ class PagedKVCache(_KVBuffers):
         a contiguous pool of heads ``i*H/mp .. (i+1)*H/mp`` on ``mesh[i]``
         (the pages' content and scales kept); one device moves the pool
         there whole."""
-        if self.shards is not None:
+        if self.shards is not None or self.groups is not None:
             raise ValueError("the pool is sharded already")
         mp = len(mesh)
         # the head axis of every pool tensor: [L, P, H, ...] stacked,
@@ -215,6 +232,9 @@ class PagedKVCache(_KVBuffers):
         return self.k_scale[i], self.v_scale[i]
 
     def _check_whole(self, what: str):
+        if self.groups is not None:
+            raise ValueError(f"{what}: the pool is placed over a training "
+                             "mesh; read layer_shards(i)")
         if self.shards is not None:
             raise ValueError(f"{what}: the pool is sharded over "
                              f"{self.mesh_shards} devices; read "
@@ -228,6 +248,9 @@ class PagedKVCache(_KVBuffers):
         order."""
         if self.shards is not None:
             return [p for s in self.shards for p in s.pool_tensors()]
+        if self.groups is not None:
+            return [p for _, subs in self.groups for s in subs
+                    for p in s.pool_tensors()]
         ax = 1 if self.stacked else 0
         out = []
         for f in self._FIELDS:

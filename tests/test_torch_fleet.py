@@ -736,8 +736,13 @@ def test_layered_gpt_under_mp_holds_parts(mesh):
     grads = _gathered_grads(m)
     for k, p in ref.named_parameters():
         _close(grads[k], p.grad.numpy(), k)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        m.generate(ids.numpy(), 2, max_seq_len=32)
+    # generation from the placed parts (ROADMAP.md item 9, step 5): the
+    # unplaced model's tokens and logits
+    kw = dict(max_seq_len=32, cache_dtype="float32", return_logits=True)
+    out, lg = m.generate(ids.numpy(), 2, **kw)
+    want, wlg = ref.generate(ids.numpy(), 2, **kw)
+    assert torch.equal(out, want)
+    _close(lg.numpy(), wlg.numpy(), "generate logits")
 
 
 def test_tensor_parallel_wrapper_delegates(mesh):

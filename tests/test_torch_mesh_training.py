@@ -531,12 +531,30 @@ def test_refusals(mesh):
     with pytest.raises(ValueError, match="divisible by n_virtual"):
         GPTStackedForPretraining(gpt_tiny(**{**CFG, "num_layers": 6},
                                           virtual_pp_degree=2), 4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        m.generate(ids[:, :4].numpy(), 2, max_seq_len=16)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        m.new_paged_kv_cache(4, 16)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        m.quantize_weights()
+    # generation, the paged pool and quantization, refused until item 9's
+    # step 5: at pp 2 (virtual stages 2) they run from the placed parts
+    # and match the unplaced model carrying the same weights
+    placed_on = M.get_mesh()
+    M.set_mesh(None)
+    ref = GPTStackedForPretraining(gpt_tiny(**CFG), device="cpu", seed=7)
+    M.set_mesh(placed_on)
+    m.load_state_dict(ref.state_dict())
+    kw = dict(max_seq_len=16, cache_dtype="float32", return_logits=True)
+    out, lg = m.generate(ids[:, :4].numpy(), 2, **kw)
+    want, wlg = ref.generate(ids[:, :4].numpy(), 2, **kw)
+    assert torch.equal(out, want)
+    np.testing.assert_allclose(lg.numpy(), wlg.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    pool = m.new_paged_kv_cache(4, 16)
+    assert [sorted(g[0]) for g in pool.groups] == [[0, 2], [1, 3]]
+    assert pool.nbytes == ref.new_paged_kv_cache(4, 16).nbytes
+    m.quantize_weights()
+    ref.quantize_weights()
+    for name in ref.decoder.QUANTIZED:
+        for st, layers in enumerate(([0, 2], [1, 3])):
+            for key in (name + "_int8", name + "_s"):
+                assert torch.equal(m.decoder.stage_int8[st][key],
+                                   getattr(ref.decoder, key)[layers])
     with pytest.raises(ValueError, match="device=cuda"):
         GPTStackedForPretraining(cfg, device="cuda")   # the mesh is the CPU
     mesh({"dp": 3})

@@ -285,15 +285,23 @@ def _placed_generate():
     M.set_mesh(M.build_mesh({"mp": 2}, ["cpu"] * 2))
     try:
         m = GPTForPretraining(gpt_tiny(use_tensor_parallel=True))
-        m.generate(np.array([[1, 2]]), 2, max_seq_len=16)
+        out = m.generate(np.array([[1, 2]]), 2, max_seq_len=16)
+        assert tuple(out.shape) == (1, 4)
     finally:
         M.set_mesh(None)
 
 
 def _sharded_prefetch():
+    """A batch placed over the dp axis: one block a replica."""
     from paddle_tpu_torch.io import DevicePrefetcher
 
-    DevicePrefetcher(iter([]), device="cpu", sharding=("dp",))
+    M.set_mesh(M.build_mesh({"dp": 2}, ["cpu"] * 2))
+    try:
+        batch = next(DevicePrefetcher(iter([np.arange(4)]),
+                                      sharding=("dp",)))
+        assert batch.on((1,)).tolist() == [2, 3]
+    finally:
+        M.set_mesh(None)
 
 
 def _sep_step(fleet, st):
@@ -444,8 +452,6 @@ REFUSALS = {
         lambda: _sp_copies_replicated("dp"), "sequence parallelism"),
     "layered gpt sp copies under zero": (
         lambda: _sp_copies_replicated("sharding"), "sequence parallelism"),
-    "layered gpt generate on a mesh": (_placed_generate, "mesh training"),
-    "device prefetcher sharding": (_sharded_prefetch, "mesh training"),
     "fleet init_server": (
         lambda: __import__("paddle_tpu_torch.distributed.fleet",
                            fromlist=["x"]).init_server(), "long-tail"),
@@ -539,6 +545,9 @@ PORTED = {
     "fleet distributed_model sep with sharding": (
         lambda: _fleet({"sharding_degree": 2, "sep_degree": 2},
                        _sharded_step), 9, "fleet"),
+    "layered gpt generate on a mesh": (
+        _placed_generate, 9, "generation from a training mesh"),
+    "device prefetcher sharding": (_sharded_prefetch, 9, "placed batches"),
 }
 
 

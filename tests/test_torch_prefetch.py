@@ -4,8 +4,8 @@ source gives the same batches in the same order (values equal, numpy
 leaves as tensors, other leaves passed through), one stall observation
 per batch in the ``train_input_stall_seconds`` histogram, a source error
 raised in the consumer, ``close()`` retiring the producer, an invalid
-depth refused, and a mesh placement (``sharding=``) refused naming its
-roadmap item.  On the CPU the port copies each numpy leaf into a CPU
+depth and a malformed mesh placement refused; and batches placed over a
+mesh (``sharding=``) against the JAX prefetcher's shards.  On the CPU the port copies each numpy leaf into a CPU
 tensor (``device="cpu"``); the card's side-stream copies are
 ``chip_smoke.py``'s."""
 import numpy as np
@@ -109,5 +109,144 @@ def test_invalid_depth_and_sharding_raise():
         DevicePrefetcher(iter(()), depth=0, device="cpu")
     with pytest.raises(ValueError):
         JaxPrefetcher(iter(()), depth=0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    # a placement is taken since item 9's step 4; a malformed one raises
+    with pytest.raises(TypeError):
         DevicePrefetcher(iter(()), sharding=object(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# batches placed over a mesh (ROADMAP.md item 9, step 4)
+# ---------------------------------------------------------------------------
+
+PLACED = [({"dp": 2, "pp": 2, "mp": 2}, ("dp",)),
+          ({"dp": 2, "pp": 2, "mp": 2}, (("dp", "mp"),)),
+          ({"dp": 2, "sp": 2, "mp": 2}, (None, "sp")),
+          ({"dp": 2, "pp": 2, "mp": 2}, ())]
+
+
+@pytest.mark.parametrize("axes, spec", PLACED,
+                         ids=["dp", "dp_mp", "none_sp", "replicated"])
+def test_placed_parts_match_jax_shards(axes, spec):
+    """Every mesh position's part is the data the JAX prefetcher puts on
+    that position's device; each distinct (block, device) pair is one
+    copy, so on one device the bytes copied are the batch's once."""
+    from jax.sharding import NamedSharding as JaxSharding
+    from jax.sharding import PartitionSpec
+
+    from paddle_tpu.distributed import mesh as JM
+
+    from paddle_tpu_torch.distributed import mesh as M
+
+    x = np.arange(8 * 6 * 4, dtype=np.float32).reshape(8, 6, 4)
+    jm = JM.build_mesh(axes)
+    jb = next(iter(JaxPrefetcher(iter([x]), sharding=JaxSharding(
+        jm, PartitionSpec(*spec)))))
+    by_device = {s.device: np.asarray(s.data)
+                 for s in getattr(jb, "_value", jb).addressable_shards}
+    M.set_mesh(M.build_mesh(axes, ["cpu"] * 8))
+    try:
+        pf = DevicePrefetcher(iter([x]), sharding=spec)
+        got = next(pf)
+        pf.close()
+    finally:
+        M.set_mesh(None)
+    assert isinstance(got, M.PlacedTensor)
+    for coords in np.ndindex(*jm.devices.shape):
+        np.testing.assert_array_equal(got.on(coords).numpy(),
+                                      by_device[jm.devices[coords]])
+    assert pf.bytes_copied == x.nbytes
+    # any other consumer gets the whole batch
+    np.testing.assert_array_equal(got.gather().numpy(), x)
+    np.testing.assert_array_equal((got + 1).numpy(), x + 1)
+    assert torch.equal(torch.as_tensor(np.asarray(got)), torch.from_numpy(x))
+
+
+def test_placed_spec_errors():
+    from paddle_tpu_torch.distributed import mesh as M
+
+    M.set_mesh(M.build_mesh({"dp": 2, "mp": 2}, ["cpu"] * 4))
+    try:
+        for spec, err in ((("pp",), ValueError), (("dp", "dp"), ValueError),
+                          ((3,), TypeError), ("dp", TypeError)):
+            with pytest.raises(err):
+                DevicePrefetcher(iter(()), sharding=spec)
+        # a dimension the axes do not divide raises in the consumer, as
+        # jax.device_put refuses it
+        pf = DevicePrefetcher(iter([np.zeros((3, 2))]),
+                              sharding=(("dp", "mp"),))
+        with pytest.raises(ValueError, match="not divisible"):
+            next(pf)
+    finally:
+        M.set_mesh(None)
+
+
+def _grads(model, ids, labels, loss_fn=None):
+    from paddle_tpu_torch.distributed.shards import sharded_parameters
+
+    loss = (model(ids, labels=labels) if loss_fn is None
+            else loss_fn(model(ids), labels))
+    loss.backward()
+    parts = sharded_parameters(model)
+    grads = ({k: sp.gather([p.grad for p in sp]) for k, sp in parts.items()}
+             if parts else {k: p.grad.clone()
+                            for k, p in model.named_parameters()})
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+@pytest.mark.parametrize("axes, spec", [
+    ({"dp": 2, "pp": 2, "mp": 2}, ("dp",)),
+    ({"dp": 2, "sharding": 2, "pp": 2}, (("dp", "sharding"),)),
+    ({"dp": 2, "sharding": 2, "pp": 2}, ("dp",))],
+    ids=["dp2pp2mp2-dp", "dp2sh2pp2-dp_sharding", "dp2sh2pp2-dp"])
+def test_placed_forward_bit_equal(axes, spec):
+    """The stacked GPT's placed forward fed a placed batch reads each
+    replica's rows where they lie: the loss and gradients of the batch fed
+    whole, bit for bit."""
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_tiny
+
+    rng = np.random.RandomState(0)
+    ids, labels = (rng.randint(0, 1024, (8, 16)) for _ in range(2))
+    M.set_mesh(M.build_mesh(axes, ["cpu"] * 8))
+    try:
+        m = GPTStackedForPretraining(gpt_tiny(
+            num_layers=4, hidden_dropout=0.0, attention_dropout=0.0,
+            use_tensor_parallel=True), 2)
+        whole = _grads(m, torch.from_numpy(ids), torch.from_numpy(labels))
+        with DevicePrefetcher(iter([(ids, labels)]), sharding=spec) as pf:
+            placed = _grads(m, *next(pf))
+    finally:
+        M.set_mesh(None)
+    assert torch.equal(whole[0], placed[0])
+    for k, g in whole[1].items():
+        assert torch.equal(g, placed[1][k]), k
+
+
+def test_sequence_parts_fed_placed_batch():
+    """The layered GPT's sequence parts at sp 2 read ``(None, "sp")``
+    blocks where they lie: the whole batch's loss and gradients; the
+    criterion, another consumer, gets the whole labels."""
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.models import (
+        GPTForPretraining, GPTPretrainingCriterion, gpt_tiny,
+    )
+
+    rng = np.random.RandomState(1)
+    ids, labels = (rng.randint(0, 1024, (2, 16)) for _ in range(2))
+    cfg = gpt_tiny(sequence_parallel=True, hidden_dropout=0.0,
+                   attention_dropout=0.0)
+    M.set_mesh(M.build_mesh({"sp": 2}, ["cpu"] * 2))
+    try:
+        m = GPTForPretraining(cfg, device="cpu")
+        crit = GPTPretrainingCriterion(cfg)
+        whole = _grads(m, torch.from_numpy(ids), torch.from_numpy(labels),
+                       crit)
+        with DevicePrefetcher(iter([(ids, labels)]),
+                              sharding=(None, "sp")) as pf:
+            placed = _grads(m, *next(pf), crit)
+    finally:
+        M.set_mesh(None)
+    assert torch.equal(whole[0], placed[0])
+    for k, g in whole[1].items():
+        assert torch.equal(g, placed[1][k]), k

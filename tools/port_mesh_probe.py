@@ -35,7 +35,20 @@ sp 2 and sp 2 x mp 2 against the unplaced layered model, the 2-layer
 copy against the CPU and the axes no model reads); with ``--cards 4``
 its mesh positions take the four cards in mesh order, so each sp
 position holds a tied copy on a card of its own, and the ring's shards
-lie on cards of their own.  Run from the repository root:
+lie on cards of their own.  ``--generate`` runs phase 46's (1, 2, 2) and
+(2, 2, 2) runs, then phases 52-53 (generation and serving from the
+trained (1, 2, 2) model against the unplaced one, the layered GPT at mp
+2, the 2-layer copy against the CPU; batches placed over the mesh); with
+``--cards 4`` the same with every mesh position on its own card
+(round-robin) and without the CPU copy, phase 46 trained without
+recompute and without ``use_tensor_parallel``: a checkpoint whose
+backward spans distinct cards (a recomputed block, a chunk of the
+vocabulary-parallel loss) stops in ``torch.utils.checkpoint``
+(ROADMAP.md queue 3, fault 10).  With
+``--parent DIR`` as well, it first runs phase 46's (1, 2, 2) run with
+recompute over four cards from the tree unpacked at DIR, in a process of
+its own, and prints how it ended.
+Run from the repository root:
 
     python3 tools/port_mesh_probe.py [--steps N] [--parent DIR]
     python3 tools/port_mesh_probe.py --cards 4
@@ -45,6 +58,7 @@ lie on cards of their own.  Run from the repository root:
     python3 tools/port_mesh_probe.py --fleet --sharding 2 \
         [--level os|os_g|p_g_os] [--cards 4]
     python3 tools/port_mesh_probe.py --sp [--cards 4]
+    python3 tools/port_mesh_probe.py --generate [--cards 4 [--parent DIR]]
 
 It exits nonzero when a check fails or there is no card.
 """
@@ -83,6 +97,33 @@ def _phase6_in_turns(parent: str):
             raise RuntimeError(f"phase 6 failed in {tree}")
 
 
+RECOMPUTE_OVER_CARDS = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+cs._mesh_devices = lambda n: [f"cuda:{j % 4}" for j in range(n)]
+torch.backends.cuda.matmul.allow_tf32 = False
+cs.phase_mesh_train(cs.import_port(),
+                    tuple(r for r in cs.MESH_TRAIN_RUNS if r[0] == "1x2x2"))
+"""
+
+
+def _recompute_over_cards(tree: str):
+    """Phase 46's (1, 2, 2) run with recompute, its positions on four
+    cards, from ``tree`` in a process of its own: how it ended."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", RECOMPUTE_OVER_CARDS],
+                         cwd=tree, capture_output=True, text=True,
+                         timeout=900)
+    errs = [x for x in run.stderr.splitlines() if "Error" in x]
+    print(f"[mesh_probe] phase 46 (1, 2, 2) with recompute over four cards "
+          f"from {tree}: rc {run.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s; last error: "
+          f"{errs[-1] if errs else None}", flush=True)
+    print("\n".join(x for x in run.stdout.splitlines()
+                    if x.startswith("[mesh_train]")), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=0,
@@ -107,6 +148,8 @@ def main() -> int:
                     help="phase 50's one ZeRO level (with --sharding)")
     ap.add_argument("--sp", action="store_true",
                     help="phase 51 alone (sequence parallelism)")
+    ap.add_argument("--generate", action="store_true",
+                    help="phases 52-53 after phase 46's kept runs")
     args = ap.parse_args()
     dp_run = bool(args.dp) or args.recompute_interval is not None \
         or args.virtual is not None
@@ -130,7 +173,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {cs.card_line()}", flush=True)
-    if args.parent:
+    if args.parent and args.generate and args.cards >= 4:
+        _recompute_over_cards(os.path.abspath(args.parent))
+    elif args.parent:
         _phase6_in_turns(os.path.abspath(args.parent))
     runs = tuple(r[:-1] + (args.steps or r[-1],)
                  for r in cs.MESH_TRAIN_RUNS)
@@ -139,7 +184,26 @@ def main() -> int:
     phases = (("45", cs.phase_mesh_kernels),
               ("46", lambda p: cs.phase_mesh_train(p, runs)),
               ("47", lambda p: cs.phase_mesh_card_vs_cpu(p, devices)))
-    if args.sp:
+    if args.generate:
+        kept = {}
+        keep_runs = tuple(r for r in runs if r[0] in cs.MESH_KEEP)
+        phases = (("46", lambda p: cs.phase_mesh_train(p, keep_runs, kept)),
+                  ("52", lambda p: cs.phase_mesh_generate(p, kept)),
+                  ("53", lambda p: cs.phase_placed_batches(p, kept)))
+        if args.cards >= 4:
+            # every mesh position on its own card, round-robin
+            cs._mesh_devices = lambda n: [f"cuda:{j % 4}" for j in range(n)]
+            # fault 10: a checkpoint whose backward spans cards stops, so
+            # no block recompute and no vocabulary-parallel head (its
+            # chunked loss checkpoints over the shards' cards)
+            cs.MESH_RECOMPUTE_INTERVAL = 0
+            card_runs = tuple(r[:4] + (False,) + r[5:] for r in keep_runs)
+            phases = (("46", lambda p: cs.phase_mesh_train(p, card_runs,
+                                                           kept)),
+                      ("52", lambda p: cs.phase_mesh_generate(p, kept,
+                                                              cpu=False)),
+                      phases[2])
+    elif args.sp:
         cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
                  else None)
         phases = (("51", lambda p: cs.phase_sequence_parallel(p, cards)),)
