@@ -437,7 +437,26 @@ result line:
    a tensor a step; a 2-layer fp32 copy (head_dim 64) at sp 2, sp 4 and
    sp 2 x mp 2 on the card against the CPU, and the axes no model reads
    (sp without ``sequence_parallel``, sep; the stacked GPT and the fleet
-   recipe at sep 2) bit for bit their runs without the axis.
+   recipe at sep 2) bit for bit their runs without the axis;
+54. recompute across devices -- an MLP at GPT-3 1.3B width whose down
+   projection is cut by rows over ``cuda:0`` and the CPU (the CPU half's
+   output brought back and summed), under each of the port's
+   checkpointing entries (``core.recompute.checkpoint``,
+   ``pp_spmd.checkpointed`` full and "dots", ``fleet.recompute``):
+   autograd runs the two halves' backward on two threads, and every
+   backward must recompute once, with gradients bit-equal to the run
+   without recompute;
+55. auto_parallel -- the layered ``GPTModel`` at GPT-3 1.3B widths (2
+   layers, bf16) over ``ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"])`` on
+   the one card, its weights placed by ``shard_tensor`` at Megatron
+   placements, the forward captured on fake tensors and propagated (the
+   Megatron specs on every product and attention node), run per position
+   by ``apply_propagation``: exactly 8 flash forward launches at (4, 8,
+   1024, 128), the output within ``AUTO_NORM`` of the unplaced forward, a
+   2-layer fp32 copy within ``AUTO_CPU_NORM`` on the CPU and the card,
+   the placed weights through ``save_distributed_checkpoint`` and
+   ``load_distributed_checkpoint`` under (dp 1, mp 4) bit for bit,
+   ``graph_cost``'s FLOPs the count by hand.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -450,8 +469,9 @@ time, plain time and bound at the mixed served shape; the AdamW master
 form's row its times at BERT-base and, beside them, at GPT-3 1.3B; the
 fp32 form's row, launched by phase 31, its time with the flag and the
 library's with ``found_inf``; the flash rows their launches on phases 6,
-31 and 40, the forward's also on 35 and 37, and, with the bf16 AdamW
-row, on phase 46's mesh runs and (fp32) phase 47's, and on phases
+31 and 40, the forward's also on 35, 37 and 55
+(``auto_parallel_dp2_mp2``), and, with the bf16 AdamW row, on phase
+46's mesh runs and (fp32) phase 47's, and on phases
 48-50's fleet steps (``train_fleet_*``) and phase 51's
 (``train_sequence_parallel_*``); the fp32 AdamW row its launches on
 phases 31, 47, 48-50 and 51's fp32 copies; the decode and paged rows,
@@ -605,6 +625,8 @@ def import_port():
     from paddle_tpu_torch.models import gpt as gpt_blocks
     from paddle_tpu_torch.nn.layers import LayerNorm, init_weights
     from paddle_tpu_torch.nn.functional import ring_attention as ring
+    from paddle_tpu_torch.core import recompute
+    from paddle_tpu_torch.distributed import auto_parallel, pp_spmd
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
                 gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
@@ -623,7 +645,9 @@ def import_port():
                 sharded=sharded, serving_mesh=serving_mesh, mesh=mesh,
                 shards=shards, fleet=fleet, gpt_blocks=gpt_blocks,
                 LayerNorm=LayerNorm, init_weights=init_weights,
-                Momentum=Momentum, sharding=sharding, ring=ring)
+                Momentum=Momentum, sharding=sharding, ring=ring,
+                recompute=recompute, pp_spmd=pp_spmd,
+                auto_parallel=auto_parallel)
 
 
 def _check(cond, msg):
@@ -6253,6 +6277,9 @@ MESH_SHARD_FLASH = (2, 8, 1024, 128)
 # columns
 MESH_SHARD_ADAMW = (12, 2048, 3072)
 MESH_CPU_STEPS = 3
+# phase 47's recompute (tools/port_mesh_probe.py --cards N
+# --recompute-interval K sets it over distinct cards)
+MESH_CPU_RECOMPUTE = 0
 MESH_LR = 1e-4
 # phase 47's global-norm clip: below the 2-layer model's gradient norm
 # at init, so every step scales every part by one norm over all of them
@@ -6503,7 +6530,8 @@ def phase_mesh_card_vs_cpu(port, devices=None):
     devices = _mesh_devices(8) if devices is None else list(devices)
     cfg = port["gpt_tiny"](hidden_size=256, num_heads=4, num_layers=2,
                            hidden_dropout=0.0, attention_dropout=0.0,
-                           use_tensor_parallel=True)
+                           use_tensor_parallel=True,
+                           recompute_interval=MESH_CPU_RECOMPUTE)
     rng = np.random.RandomState(47)
     batches = [(rng.randint(0, cfg.vocab_size, (4, 128)),
                 rng.randint(0, cfg.vocab_size, (4, 128)))
@@ -8562,6 +8590,342 @@ def phase_placed_batches(port, kept):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 54: a recompute whose backward spans the card and the CPU
+# ---------------------------------------------------------------------------
+
+# GPT-3 1.3B's MLP widths over a few tokens; the down projection cut by
+# rows over cuda:0 and the CPU, as a tensor-parallel row split over two
+# devices, so autograd runs the two halves' backward on its card thread
+# and the CPU thread at once
+RECOMPUTE_HIDDEN, RECOMPUTE_FFN, RECOMPUTE_TOKENS = 2048, 8192, 512
+RECOMPUTE_TRIALS = 3
+
+
+def recompute_cases(port):
+    """(name, checkpoint(fn, *args)) of each of the port's checkpointing
+    entries phase 54 drives."""
+    ckpt = port["recompute"].checkpoint
+    checkpointed = port["pp_spmd"].checkpointed
+    recompute = port["fleet"].recompute
+    return (("checkpoint", ckpt),
+            ("pp_spmd.checkpointed full",
+             lambda fn, *a: checkpointed(fn, None)(*a)),
+            ("pp_spmd.checkpointed dots",
+             lambda fn, *a: checkpointed(fn, "dots")(*a)),
+            ("fleet.recompute", recompute))
+
+
+def phase_recompute_across_devices(torch, cases, strict=True):
+    """Phase 54: an MLP at GPT-3 1.3B width, its up projection on the card
+    and its down projection cut by rows between ``cuda:0`` and the CPU,
+    the CPU half's output brought back to the card and summed, under each
+    checkpoint of ``cases``; ``RECOMPUTE_TRIALS`` backward passes each.
+    A counter inside the function counts its calls: each backward must
+    recompute once, and every gradient must equal the run without
+    recompute.  ``strict=False`` records how each case ended instead of
+    raising (a tree whose checkpoint is not guarded).  Returns {case:
+    outcome}."""
+    t_phase = time.perf_counter()
+    H, F, T = RECOMPUTE_HIDDEN, RECOMPUTE_FFN, RECOMPUTE_TOKENS
+    gen = torch.Generator().manual_seed(54)
+    card = torch.device(DEVICE, 0) if DEVICE == "cuda" else DEVICE
+
+    def param(shape, device, scale):
+        return (torch.randn(shape, generator=gen) * scale).to(device) \
+            .requires_grad_()
+
+    x = param((T, H), card, 1.0)
+    w1 = param((H, F), card, H ** -0.5)
+    w2a = param((F // 2, H), card, F ** -0.5)
+    w2b = param((F // 2, H), "cpu", F ** -0.5)
+    g_out = torch.randn((T, H), generator=gen).to(card)
+    calls = [0]
+
+    def mlp(x):
+        calls[0] += 1
+        h = torch.nn.functional.gelu(x @ w1)
+        a = h[:, :F // 2] @ w2a
+        b = torch.tanh(h[:, F // 2:].to("cpu") @ w2b)
+        return a + b.to(x.device)
+
+    leaves = (x, w1, w2a, w2b)
+
+    def run(ckpt):
+        for t in leaves:
+            t.grad = None
+        calls[0] = 0
+        y = mlp(x) if ckpt is None else ckpt(mlp, x)
+        (y * g_out).sum().backward()
+        torch.cuda.synchronize()
+        return calls[0], [t.grad.clone() for t in leaves]
+
+    _, ref = run(None)
+    out = {}
+    for name, ckpt in cases:
+        record = []
+        for trial in range(RECOMPUTE_TRIALS):
+            t0 = time.perf_counter()
+            try:
+                n, grads = run(ckpt)
+            except Exception as e:  # noqa: BLE001 (strict=False records it)
+                if strict:
+                    raise
+                record.append(f"stopped: {type(e).__name__}: "
+                              f"{str(e).splitlines()[0][:160]}")
+                continue
+            ms = (time.perf_counter() - t0) * 1e3
+            bitwise = all(torch.equal(a, b) for a, b in zip(grads, ref))
+            rel = max(_rel(a, b) for a, b in zip(grads, ref))
+            record.append(f"recomputes {n - 1}, gradients bit-equal "
+                          f"{bitwise} (max relative norm {rel:.3g}), "
+                          f"{ms:.1f} ms")
+            print(f"[recompute] {name} trial {trial}: {record[-1]}")
+            if strict:
+                _check(n - 1 == 1, f"{name}: {n - 1} recomputes in one "
+                       "backward, expected 1")
+                _check(bitwise, f"{name}: gradients differ from the run "
+                       f"without recompute (relative norm {rel:.3g})")
+        out[name] = record
+        if not strict:
+            print(f"[recompute] {name}: {record}")
+    print(f"[recompute] torch {torch.__version__}, MLP {T} x {H} -> {F} "
+          f"-> {H}, down projection rows {F // 2} on {card} and {F // 2} on "
+          f"the CPU, {RECOMPUTE_TRIALS} backward passes a case")
+    print(f"[time] phase 54 {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 55: auto_parallel's annotations through a captured graph
+# ---------------------------------------------------------------------------
+
+AUTO_LAYERS = 2
+AUTO_BATCH, AUTO_SEQ = TRAIN_BATCH, TRAIN_SEQ
+AUTO_MESH = ((0, 1), (2, 3))                     # dp 2 x mp 2, one card
+AUTO_LOAD_MESH = ((0, 1, 2, 3),)                 # dp 1 x mp 4
+# the placed forward against the unplaced one on the card, relative
+# Frobenius norm: bf16 products of half width summed in another order
+# (the row-parallel partials), through two layers
+AUTO_NORM = 2e-2
+# the fp32 copy (hidden 256, 4 heads of 64, batch 4 x 128), placed against
+# unplaced on the CPU and placed on the card against placed on the CPU
+AUTO_CPU_NORM = 1e-5
+AUTO_CPU_CFG = dict(hidden_size=256, num_heads=4, num_layers=AUTO_LAYERS,
+                    max_position_embeddings=128)
+AUTO_CPU_BATCH, AUTO_CPU_SEQ = 4, 128
+AUTO_CKPT = "chip_smoke_ckpt/auto_parallel"
+
+
+def megatron_placements(port, name):
+    """The placement list over (dp, mp) of a layered GPT weight named
+    ``name`` (``[in, out]`` layout): QKV and FFN-up column-parallel, out
+    and FFN-down row-parallel, the rest replicated."""
+    ap = port["auto_parallel"]
+    if name.endswith(("qkv_proj.weight", "fc1.weight")):
+        return [ap.Replicate(), ap.Shard(1)]
+    if name.endswith(("qkv_proj.bias", "fc1.bias", "out_proj.weight",
+                      "fc2.weight")):
+        return [ap.Replicate(), ap.Shard(0)]
+    return [ap.Replicate(), ap.Replicate()]
+
+
+def _op_shapes(op):
+    """A dispatch mode that records the first operand's shape of every
+    call of ``op`` (so it sees the executed graph's attention node)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpShapes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is op:
+                self.shapes.append(tuple(args[0].shape))
+            return func(*args, **(kwargs or {}))
+    return OpShapes()
+
+
+def _auto_run(port, body, mesh, ids, fake):
+    """(run, placed weights, in specs) of ``body`` over ``mesh``: the
+    weights placed by ``shard_tensor`` at Megatron placements, the ids on
+    dp, the forward captured on fake tensors (no weights copied)."""
+    torch, ap = port["torch"], port["auto_parallel"]
+    fn, names, tensors = ap.parameters_as_inputs(body)
+    placed = [ap.shard_tensor(t, mesh, megatron_placements(port, n))
+              for n, t in zip(names, tensors)]
+    pids = ap.shard_tensor(ids, mesh, [ap.Shard(0), ap.Replicate()])
+    specs = [ap.DistSpec(tuple(p.sharding.spec)) for p in placed + [pids]]
+    if fake:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        mode = FakeTensorMode()
+        example = [mode.from_tensor(t) for t in tensors + [ids]]
+    else:
+        example = tensors + [ids]
+    run = ap.apply_propagation(fn, mesh, specs, *example)
+    return run, dict(zip(names, placed)), placed + [pids], fn, tensors
+
+
+def _auto_products(port, run):
+    """Each layer's [qkv, out, fc1, fc2] products' specs and the attention
+    nodes' specs, in graph order."""
+    prop = run.propagation
+    prods, attn = [], []
+    for n in prop.graph.graph.nodes:
+        if n.op != "call_function":
+            continue
+        name = getattr(getattr(n.target, "_overloadpacket", None),
+                       "__name__", "")
+        if name in ("mm", "addmm"):
+            prods.append(prop.var_specs[n])
+        elif name == "flash_attention":
+            attn.append(prop.var_specs[n])
+    return prods, attn
+
+
+def phase_auto_parallel(port):
+    """Phase 55: the layered ``GPTModel`` at GPT-3 1.3B widths (2 layers,
+    bf16, dropout 0) over ``ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"])``,
+    its four positions on the one card: the weights placed by
+    ``shard_tensor`` at Megatron placements, the forward captured on fake
+    tensors on the card and propagated; every product and attention node
+    must carry the Megatron specs (QKV and FFN-up (dp, mp), out and
+    FFN-down (dp, -) with an mp partial, attention (dp, mp, -, -));
+    ``apply_propagation`` runs the graph per position and must launch the
+    flash forward exactly positions x layers = 8 times, each at the local
+    (4, 8, 1024, 128), and give the unplaced forward's output within
+    ``AUTO_NORM``; a 2-layer fp32 copy placed on the CPU and on the card
+    against the unplaced CPU forward within ``AUTO_CPU_NORM``; the placed
+    weights saved by ``save_distributed_checkpoint`` and loaded under (dp
+    1, mp 4) bit for bit; ``graph_cost``'s FLOPs the count by hand.
+    Returns the flash forward's launches."""
+    torch, ap, fa = port["torch"], port["auto_parallel"], port["fa"]
+    t_phase = time.perf_counter()
+    cfg = port["gpt_1p3b"](num_layers=AUTO_LAYERS, hidden_dropout=0.0,
+                           attention_dropout=0.0)
+    body = port["Layered"](cfg, device=DEVICE, dtype="bfloat16",
+                           seed=55).gpt.eval()
+    # process ids to visible cards, as the reference maps them to devices
+    on = None if DEVICE == "cuda" else DEVICE
+    mesh = ap.ProcessMesh(np.array(AUTO_MESH), ["dp", "mp"], device=on)
+    n_pos = mesh.mesh.devices.size
+    ids = torch.from_numpy(np.random.RandomState(55).randint(
+        0, cfg.vocab_size, (AUTO_BATCH, AUTO_SEQ))).to(DEVICE)
+    t0 = time.perf_counter()
+    run, weights, args, fn, tensors = _auto_run(port, body, mesh, ids, True)
+    t_capture = time.perf_counter() - t0
+    prods, attn = _auto_products(port, run)
+    # the CPU Megatron test's checks: the dims of every product, an mp
+    # partial on the row-parallel ones (the pass lets partials flow on,
+    # as the reference's does; the executor sums them where it must)
+    want = [("dp", "mp"), ("dp", None)] * 2 * AUTO_LAYERS
+    got = [tuple(p.dims) for p in prods]
+    print(f"[auto_parallel] gpt_1p3b {AUTO_LAYERS} layers bf16 over "
+          f"{mesh} on {DEVICE}: captured on fake tensors in {t_capture:.2f} "
+          f"s ({len(run.propagation.graph.graph.nodes)} nodes, "
+          f"{len(run.propagation.reshards)} reshards); products {prods}; "
+          f"attention {[tuple(a.dims) for a in attn]}")
+    _check(got == want and all("mp" in p.partial for p in prods[1::2]),
+           f"auto_parallel: product specs {prods}, expected dims {want} and "
+           "an mp partial on every row-parallel product")
+    _check([tuple(a.dims) for a in attn] == [("dp", "mp", None, None)]
+           * AUTO_LAYERS, f"auto_parallel: attention specs {attn}")
+    torch.cuda.synchronize()
+    _reset_launches(port)
+    shapes = _op_shapes(fa.flash_attention_node)
+    t0 = time.perf_counter()
+    with shapes:
+        out = run(*args)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = _launch_counts(port)
+    local = (AUTO_BATCH // 2, cfg.num_heads // 2, AUTO_SEQ, cfg.head_dim)
+    with torch.no_grad():
+        ref = body(ids)
+    rel = _rel(out.gather(), ref)
+    print(f"[auto_parallel] executed in {t_run:.2f} s (host clock): flash "
+          f"forward launches {launches['fwd']} (positions x layers = "
+          f"{n_pos * AUTO_LAYERS}) at {sorted(set(shapes.shapes))}; output "
+          f"{tuple(out.shape)} spec {out.sharding.spec} against the "
+          f"unplaced forward: relative norm {rel:.3g} (bound {AUTO_NORM})")
+    _check(launches["fwd"] == n_pos * AUTO_LAYERS, f"auto_parallel: "
+           f"{launches['fwd']} flash launches, expected {n_pos * AUTO_LAYERS}")
+    _check(shapes.shapes == [local] * (n_pos * AUTO_LAYERS),
+           f"auto_parallel: attention at {shapes.shapes}, expected {local}")
+    _check(all(v == 0 for k, v in launches.items() if k != "fwd"),
+           f"auto_parallel: other launches {launches}")
+    _check(rel <= AUTO_NORM, f"auto_parallel: relative norm {rel} against "
+           "the unplaced forward")
+    T, H = AUTO_BATCH * AUTO_SEQ, cfg.hidden_size
+    flops = AUTO_LAYERS * (2 * T * H * (3 * H + H + 2 * cfg.ffn_size)
+                           + 4 * AUTO_BATCH * AUTO_SEQ ** 2 * H)
+    cost = ap.graph_cost(run.propagation.graph)
+    print(f"[auto_parallel] graph_cost FLOPs {cost['flops']:.6g} (by hand "
+          f"{flops:.6g}), bytes {cost['bytes']:.6g}")
+    _check(cost["flops"] == flops, f"auto_parallel: graph_cost FLOPs "
+           f"{cost['flops']}, by hand {flops}")
+    del out, ref
+    # the checkpoint: saved at (dp 2, mp 2), loaded under (dp 1, mp 4)
+    t0 = time.perf_counter()
+    ap.save_distributed_checkpoint(weights, AUTO_CKPT)
+    prev = port["mesh"]._global_mesh
+    try:
+        ap.ProcessMesh(np.array(AUTO_LOAD_MESH), ["dp", "mp"],
+                       device=on).activate()
+        loaded = ap.load_distributed_checkpoint(AUTO_CKPT)
+    finally:
+        port["mesh"].set_mesh(prev)
+        import shutil
+        shutil.rmtree(AUTO_CKPT, ignore_errors=True)
+    same = all(torch.equal(loaded[k].gather().to(t.device), t)
+               for k, t in zip(weights, tensors))
+    specs4 = {tuple(loaded[k].sharding.spec) for k in loaded}
+    print(f"[auto_parallel] {len(weights)} placed weights saved at (dp 2, "
+          f"mp 2) and loaded under (dp 1, mp 4) in "
+          f"{time.perf_counter() - t0:.2f} s: bit-equal {same}, specs "
+          f"{sorted(specs4)}")
+    _check(same, "auto_parallel: the converter's round trip differs")
+    del loaded, weights, args, run, body
+    torch.cuda.empty_cache()
+    # the fp32 copy: placed on the CPU and on the card against unplaced
+    cpu_rel, card_rel = _auto_card_vs_cpu(port)
+    print(f"[auto_parallel] fp32 copy {AUTO_CPU_CFG} at {AUTO_CPU_BATCH} x "
+          f"{AUTO_CPU_SEQ}: placed on the CPU against unplaced {cpu_rel:.3g}, "
+          f"placed on the card against placed on the CPU {card_rel:.3g} "
+          f"(bound {AUTO_CPU_NORM})")
+    _check(cpu_rel <= AUTO_CPU_NORM and card_rel <= AUTO_CPU_NORM,
+           "auto_parallel: the fp32 copy differs")
+    print(f"[time] phase 55 {time.perf_counter() - t_phase:.1f} s")
+    return launches["fwd"]
+
+
+def _auto_card_vs_cpu(port):
+    torch, ap = port["torch"], port["auto_parallel"]
+    cfg = port["gpt_tiny"](hidden_dropout=0.0, attention_dropout=0.0,
+                           **AUTO_CPU_CFG)
+    ids = torch.from_numpy(np.random.RandomState(56).randint(
+        0, cfg.vocab_size, (AUTO_CPU_BATCH, AUTO_CPU_SEQ)))
+    outs, state = {}, None
+    for device in ("cpu", DEVICE):
+        body = port["Layered"](cfg, device=device, dtype="float32",
+                               seed=56).gpt.eval()
+        if state is None:
+            state = body.state_dict()
+        else:
+            body.load_state_dict(state)
+        mesh = ap.ProcessMesh(np.array(AUTO_MESH), ["dp", "mp"],
+                              device=device)
+        run, _, args, fn, tensors = _auto_run(port, body, mesh,
+                                              ids.to(device), False)
+        outs[device] = run(*args).gather().cpu()
+        if device == "cpu":
+            with torch.no_grad():
+                ref = body(ids)
+    return _rel(outs["cpu"], ref), _rel(outs[DEVICE], outs["cpu"])
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8730,6 +9094,14 @@ def main() -> int:
     for key in ("fwd", "dkv", "dq"):
         tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"],
                                      fsp["errs"][key])
+    mark("51")
+    # phase 54: a recompute whose backward spans the card and the CPU,
+    # through each of the port's checkpointing entries
+    phase_recompute_across_devices(torch, recompute_cases(port))
+    # phase 55: auto_parallel's annotations, propagated over the captured
+    # layered GPT and run per mesh position through the flash kernel
+    auto_launches = _kept(port, phase_auto_parallel, port)
+    mark("54-55")
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -8798,6 +9170,7 @@ def main() -> int:
             if key == "fwd":
                 # phase 52's prefills from the placed models, per shard
                 kernels[-1]["launches_by_path"].update(
+                    auto_parallel_dp2_mp2=auto_launches,
                     generate_layered=lgen["fwd"],
                     predictor_decode=pred["fwd"],
                     generate_mesh=mg["launches"]["fwd"],

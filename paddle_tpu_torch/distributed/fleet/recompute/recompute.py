@@ -3,7 +3,8 @@
 activations are dropped after the forward and computed again in the
 backward.
 
-The port runs ``torch.utils.checkpoint`` without re-entry, so tensors
+The port runs its own checkpoint (``core.recompute``, PyTorch's design
+without re-entry, guarded for backward passes that span devices), so tensors
 the function reads without taking them as arguments (a module's
 parameters) get their gradients: the run without recompute's.  The
 reference's eager recompute hands only the tensor arguments to its
@@ -27,9 +28,9 @@ from functools import partial
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ....amp.auto_cast import amp_state, auto_cast
+from ....core.recompute import checkpoint
 from ...shards import bound_now
 from ..layers.mpu.random import get_rng_state_tracker
 
@@ -142,8 +143,7 @@ def recompute(function, *args, preserve_rng_state=True, use_reentrant=True,
             if now is not None:
                 now.restore()
 
-    return checkpoint(run, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+    return checkpoint(run, *args, preserve_rng_state=False)
 
 
 def recompute_sequential(ctx, functions, *args, **kwargs):

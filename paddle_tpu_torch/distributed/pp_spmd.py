@@ -22,8 +22,10 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import (
-    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    CheckpointPolicy, create_selective_checkpoint_contexts,
 )
+
+from ..core.recompute import checkpoint
 
 __all__ = ["RECOMPUTE_POLICIES", "checkpointed", "stage_layers",
            "pipeline_blocks"]
@@ -49,9 +51,10 @@ def _save_ops_policy(ops):
 
 
 def checkpointed(fn: Callable, policy: Optional[str]) -> Callable:
-    """``fn`` under ``torch.utils.checkpoint`` with the named policy (the
-    reference's ``_checkpoint``): None or "full" recompute everything in
-    the backward; "dots"/"dots_saveable" keep the products' outputs."""
+    """``fn`` under the port's checkpoint (``core.recompute``) with the
+    named policy (the reference's ``_checkpoint``): None or "full"
+    recompute everything in the backward; "dots"/"dots_saveable" keep the
+    products' outputs."""
     if policy not in RECOMPUTE_POLICIES:
         raise ValueError(
             f"unknown remat policy {policy!r}; expected one of "
@@ -61,7 +64,7 @@ def checkpointed(fn: Callable, policy: Optional[str]) -> Callable:
         create_selective_checkpoint_contexts, _save_ops_policy(saved)))
 
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return checkpoint(fn, *args, **kw)
     return run
 
 
@@ -107,7 +110,7 @@ def pipeline_blocks(block_fn: Callable, stages: Sequence[Sequence],
     - ``n_virtual`` V > 1: chunks of ``layers_per_stage / V`` blocks, and
       microbatches make V trips around the stages (needs ``M >= S``, so
       a trip's first tick never outruns the previous trip's drain);
-    - ``remat``: each block under ``torch.utils.checkpoint`` with
+    - ``remat``: each block under the port's checkpoint with
       ``remat_policy`` (per block and microbatch, as the reference
       checkpoints the block inside its tick scan);
     - ``stage_devices[s]``: where stage ``s`` takes its input (an

@@ -75,10 +75,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..amp.auto_cast import amp_state, auto_cast, maybe_cast, o1_dtype
 from ..core import canonical_device, resolve_device, to_torch_dtype
+from ..core.recompute import checkpoint
 from ..distributed import mesh as _mesh
 from ..distributed.pp_spmd import (
     RECOMPUTE_POLICIES, checkpointed, pipeline_blocks, stage_layers,
@@ -846,11 +846,11 @@ class GPTStackedDecoder(nn.Module):
         ``seeds``: one dropout seed per layer (a list of ints), given
         exactly when :meth:`dropout_active`.  With ``recompute_interval``
         k > 0 (and the module in training mode) each group of k blocks
-        runs under ``torch.utils.checkpoint``: the backward recomputes the
+        runs under the port's checkpoint: the backward recomputes the
         group's forward from its input and its seeds instead of keeping
         its activations -- all of it, or, under ``recompute_policy``
         "dots"/"dots_saveable", all but the products the policy keeps
-        (``torch.utils.checkpoint``'s selective checkpoint).  The flash
+        (PyTorch's selective checkpoint contexts).  The flash
         kernels and the dropout masks are recomputed under every policy:
         the kernels launch outside PyTorch's dispatcher, and each block
         reseeds its generator from its seed.
@@ -2268,7 +2268,7 @@ class GPTModel(nn.Module):
     final hidden states.  ``generator``: the CPU generator a training
     forward draws its dropout seeds from (one for the embeddings, one per
     layer).  With ``recompute_interval`` k > 0 in training, layers 0, k,
-    2k, ... each run under ``torch.utils.checkpoint`` (the reference's
+    2k, ... each run under the port's checkpoint (the reference's
     eager per-layer ``recompute``; ``recompute_policy`` is the stacked
     path's, as in the reference).  The cache paths route each layer's
     attention through :func:`attend_with_cache` or :func:`attend_paged`
@@ -2386,13 +2386,14 @@ class GPTModel(nn.Module):
     def _layer_loop(self, h, step, recompute: bool):
         """``h`` through the layers, ``step(i, h)`` running layer ``i``;
         with ``recompute`` in training, layers 0, k, 2k, ... (k =
-        ``recompute_interval`` > 0) under ``torch.utils.checkpoint``."""
+        ``recompute_interval`` > 0) under the port's checkpoint
+        (``core.recompute``)."""
         cfg = self.config
         k = cfg.recompute_interval if self.training and recompute else 0
         for i in range(cfg.num_layers):
             if k and i % k == 0:
                 h = checkpoint(_amp_replayed(partial(step, i), amp_state()),
-                               h, use_reentrant=False)
+                               h)
             else:
                 h = step(i, h)
         return h

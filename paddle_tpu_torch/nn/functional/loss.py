@@ -19,9 +19,9 @@ the dW/dh products, as the reference's custom VJP does.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ...amp.auto_cast import maybe_cast
+from ...core.recompute import checkpoint
 from ...distributed.serving_mesh import broadcast, reduce_max, reduce_sum
 
 __all__ = ["cross_entropy", "fused_linear_cross_entropy",
@@ -141,8 +141,8 @@ def fused_linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
     ``compute_dtype``, which the stacked GPT passes under ``auto_cast``);
     ``None`` keeps hidden's dtype for both.  The logits are summed in
     fp32 either way.  Tokens are taken ``chunk_tokens`` at a time, each
-    chunk under ``torch.utils.checkpoint``; the last chunk may be
-    shorter."""
+    chunk under the port's checkpoint (``core.recompute``); the last
+    chunk may be shorter."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction {reduction!r}: expected 'mean', 'sum' "
                          "or 'none'")
@@ -152,7 +152,7 @@ def fused_linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
     w = weight.to(cdt)
     lab = labels.reshape(-1).to(device=hidden.device, dtype=torch.long)
     losses = [checkpoint(_chunk_loss, h2[i:i + chunk_tokens], w,
-                         lab[i:i + chunk_tokens], use_reentrant=False)
+                         lab[i:i + chunk_tokens])
               for i in range(0, h2.shape[0], chunk_tokens)]
     return _reduce(torch.cat(losses), reduction)
 
@@ -196,7 +196,7 @@ def vocab_parallel_cross_entropy(hidden: torch.Tensor, weights, labels, *,
     rows: ``weights[i]`` is rows ``[o_i, o_i + V_i)`` of the ``[V, H]``
     table on ``devices[i]`` (the reference's ``ParallelCrossEntropy``
     over ``VocabParallelEmbedding``'s shards).  The same token chunks,
-    each under ``torch.utils.checkpoint``; the mean on ``hidden``'s
+    each under the port's checkpoint; the mean on ``hidden``'s
     device."""
     hs = hidden.shape[-1]
     cdt = hidden.dtype if compute_dtype is None else compute_dtype
@@ -205,7 +205,6 @@ def vocab_parallel_cross_entropy(hidden: torch.Tensor, weights, labels, *,
     lab = labels.reshape(-1).to(device=hidden.device, dtype=torch.long)
     devices = tuple(devices)
     losses = [checkpoint(_vocab_parallel_chunk, h2[i:i + chunk_tokens],
-                         lab[i:i + chunk_tokens], devices, *ws,
-                         use_reentrant=False)
+                         lab[i:i + chunk_tokens], devices, *ws)
               for i in range(0, h2.shape[0], chunk_tokens)]
     return torch.cat(losses).mean()

@@ -21,7 +21,10 @@ Port of ``paddle_tpu/ops/pallas_kernels/flash_attention.py``.  Parts:
   runs the two backward kernels, with ``delta = rowsum(dO * O)`` as a
   plain torch op outside them, as the JAX package computes it outside
   Pallas;
-- the public ``flash_attention_bnsd(q, k, v, *, causal, sm_scale)``.
+- the public ``flash_attention_bnsd(q, k, v, *, causal, sm_scale)``;
+- ``flash_attention_node``, the forward registered as the operator
+  ``torch.ops.paddle_tpu_torch.flash_attention``, which a graph captured
+  with fake tensors holds as one node.
 
 Every wrapper takes its plain version on CPU tensors and counts no
 launch (``flash_attention_bnsd`` lets autograd differentiate the plain
@@ -41,12 +44,14 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from . import _build
 from ._build import KernelError, count_launch
 
 __all__ = [
     "flash_attention_bnsd",
+    "flash_attention_node",
     "flash_attention_plain",
     "flash_attention_bwd_dkv_plain",
     "flash_attention_bwd_dq_plain",
@@ -378,6 +383,38 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _flash_node(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, scale: float) -> torch.Tensor:
+    """The attention node's body: the forward kernel (counted) on the
+    card, its plain version on the CPU."""
+    return flash_attention_fwd(q, k, v, causal, scale)[0]
+
+
+def _flash_node_fake(q, k, v, causal, scale):
+    return _bsnd_empty(q)
+
+
+def _register_flash_node():
+    """``torch.ops.paddle_tpu_torch.flash_attention(q, k, v, causal,
+    scale)``: the flash forward as one operator, so a graph captured with
+    fake tensors (``distributed.auto_parallel.capture_graph``) holds
+    attention as one node, which launches the kernel when the graph runs.
+    Its fake version only makes the output's shape: a capture counts no
+    launch.  Registered once a process (a second copy of this module
+    takes the first one's)."""
+    try:
+        return torch.ops.paddle_tpu_torch.flash_attention.default
+    except (AttributeError, RuntimeError):
+        pass
+    op = torch.library.custom_op("paddle_tpu_torch::flash_attention",
+                                 _flash_node, mutates_args=())
+    op.register_fake(_flash_node_fake)
+    return torch.ops.paddle_tpu_torch.flash_attention.default
+
+
+flash_attention_node = _register_flash_node()
+
+
 def flash_attention_bnsd(q, k, v, *, causal: bool = False,
                          sm_scale: Optional[float] = None) -> torch.Tensor:
     """q/k/v: ``[B, N, S, D]`` -> ``[B, N, S, D]`` (head-major), the
@@ -388,9 +425,13 @@ def flash_attention_bnsd(q, k, v, *, causal: bool = False,
     backward kernels (counted in ``flash_attention_fwd.launches``,
     ``flash_attention_bwd_dkv.launches`` and
     ``flash_attention_bwd_dq.launches``), or raises: a shape or dtype the
-    kernels do not take raises ``ValueError`` with the reason."""
+    kernels do not take raises ``ValueError`` with the reason.  Fake
+    tensors (a graph capture) take ``flash_attention_node``, the forward
+    as one operator."""
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
+    if is_fake(q):
+        return flash_attention_node(q, k, v, bool(causal), scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale)[0]
     return FlashAttention.apply(q, k, v, bool(causal), scale)

@@ -16,8 +16,8 @@ are numpy draws from fixed seeds.
   gate passes: the flash kernels' plain versions here).  The gradients
   are held against the JAX model's without recompute: its eager
   ``fleet.recompute`` leaves the recomputed layers' parameters without a
-  gradient (``grad`` None), where the port's ``torch.utils.checkpoint``
-  gives the gradients the recompute must reproduce.
+  gradient (``grad`` None), where the port's checkpoint
+  (``core.recompute``) gives the gradients the recompute must reproduce.
 - The cached decode reproduces the full forward for fp32 and bf16 caches
   (the reference's tolerances: 5e-5 and 0.08 absolute, 1e-2 relative),
   and the chunked prefill does too (5e-5, 1e-4).

@@ -446,6 +446,43 @@ def _sharded_step(fleet, st):
     assert torch.isfinite(model.state_dict()["weight"]).all()
 
 
+def _auto_parallel_placed():
+    """``shard_tensor`` then ``reshard`` on a CPU ``ProcessMesh``."""
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+
+    pm = ap.ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"], device="cpu")
+    x = torch.arange(32.0).reshape(4, 8)
+    placed = ap.shard_tensor(x, pm, [ap.Shard(0), ap.Shard(1)])
+    assert placed.on((1, 1)).shape == (2, 4)
+    assert torch.equal(ap.reshard(placed, pm, [ap.Replicate(),
+                                               ap.Shard(0)]).gather(), x)
+
+
+def _auto_parallel_converter():
+    """A placed tensor saved and merged back by the converter."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+
+    pm = ap.ProcessMesh([0, 1], ["mp"], device="cpu")
+    x = torch.arange(8.0).reshape(2, 4)
+    with tempfile.TemporaryDirectory() as d:
+        ap.save_distributed_checkpoint(
+            {"w": ap.shard_tensor(x, pm, [ap.Shard(1)])}, d)
+        assert torch.equal(ap.Converter.load(d).merge("w"), x)
+
+
+def _auto_parallel_propagated():
+    """A captured product propagated and run over a CPU mesh."""
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+
+    pm = ap.ProcessMesh([0, 1], ["mp"], device="cpu")
+    x, w = torch.ones((2, 4)), torch.ones((4, 6))
+    run = ap.apply_propagation(torch.mm, pm, [None, ap.DistSpec((None, "mp"))],
+                               x, w)
+    assert torch.equal(run(x, w).gather(), x @ w)
+
+
 # every refused knob: (how to provoke it, words its item's title must hold)
 REFUSALS = {
     "layered gpt sp copies under dp replicas": (
@@ -458,6 +495,13 @@ REFUSALS = {
     "predictor saved program": (
         lambda: inference.create_predictor(inference.Config("model")),
         "long-tail"),
+    "auto_parallel engine": (
+        lambda: __import__("paddle_tpu_torch.distributed.auto_parallel",
+                           fromlist=["x"]).Engine(model=None),
+        "auto_parallel"),
+    "auto_parallel strategy": (
+        lambda: __import__("paddle_tpu_torch.distributed.auto_parallel",
+                           fromlist=["x"]).Strategy(), "auto_parallel"),
 }
 
 
@@ -548,6 +592,12 @@ PORTED = {
     "layered gpt generate on a mesh": (
         _placed_generate, 9, "generation from a training mesh"),
     "device prefetcher sharding": (_sharded_prefetch, 9, "placed batches"),
+    "auto_parallel shard_tensor and reshard": (_auto_parallel_placed, 9,
+                                               "auto_parallel"),
+    "auto_parallel converter": (_auto_parallel_converter, 9,
+                                "auto_parallel"),
+    "auto_parallel propagation": (_auto_parallel_propagated, 9,
+                                  "auto_parallel"),
 }
 
 

@@ -40,14 +40,20 @@ lie on cards of their own.  ``--generate`` runs phase 46's (1, 2, 2) and
 trained (1, 2, 2) model against the unplaced one, the layered GPT at mp
 2, the 2-layer copy against the CPU; batches placed over the mesh); with
 ``--cards 4`` the same with every mesh position on its own card
-(round-robin) and without the CPU copy, phase 46 trained without
-recompute and without ``use_tensor_parallel``: a checkpoint whose
-backward spans distinct cards (a recomputed block, a chunk of the
-vocabulary-parallel loss) stops in ``torch.utils.checkpoint``
-(ROADMAP.md queue 3, fault 10).  With
+(round-robin) and without the CPU copy, phase 46 with its recompute and
+the (2, 2, 2) run's ``use_tensor_parallel`` head, whose checkpoints'
+backward spans distinct cards.  With
 ``--parent DIR`` as well, it first runs phase 46's (1, 2, 2) run with
 recompute over four cards from the tree unpacked at DIR, in a process of
-its own, and prints how it ended.
+its own, and prints how it ended.  ``--cards N --recompute-interval K``
+runs phase 47 with recompute every K blocks.  ``--recompute`` runs phase
+54 alone (a recompute whose backward spans the card and the CPU, through
+each of the port's checkpointing entries); with ``--parent DIR`` it
+first runs the same MLP through the tree at DIR's ``pp_spmd.checkpointed``
+and ``fleet.recompute`` (and ``torch.utils.checkpoint`` itself), in a
+process of its own, and prints how each ended.  ``--auto-parallel`` runs
+phase 55 alone (auto_parallel's annotations over the captured layered
+GPT, run per mesh position through the flash kernel).
 Run from the repository root:
 
     python3 tools/port_mesh_probe.py [--steps N] [--parent DIR]
@@ -59,6 +65,9 @@ Run from the repository root:
         [--level os|os_g|p_g_os] [--cards 4]
     python3 tools/port_mesh_probe.py --sp [--cards 4]
     python3 tools/port_mesh_probe.py --generate [--cards 4 [--parent DIR]]
+    python3 tools/port_mesh_probe.py --cards 4 --recompute-interval 1
+    python3 tools/port_mesh_probe.py --recompute [--parent DIR]
+    python3 tools/port_mesh_probe.py --auto-parallel
 
 It exits nonzero when a check fails or there is no card.
 """
@@ -124,6 +133,39 @@ def _recompute_over_cards(tree: str):
                     if x.startswith("[mesh_train]")), flush=True)
 
 
+RECOMPUTE_AT_PARENT = """
+import importlib.util, sys, torch
+sys.path.insert(0, ".")
+spec = importlib.util.spec_from_file_location("cs", {smoke!r})
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+torch.backends.cuda.matmul.allow_tf32 = False
+from torch.utils.checkpoint import checkpoint
+from paddle_tpu_torch.distributed import fleet, pp_spmd
+cases = (("torch.utils.checkpoint",
+          lambda fn, *a: checkpoint(fn, *a, use_reentrant=False)),
+         ("pp_spmd.checkpointed full",
+          lambda fn, *a: pp_spmd.checkpointed(fn, None)(*a)),
+         ("pp_spmd.checkpointed dots",
+          lambda fn, *a: pp_spmd.checkpointed(fn, "dots")(*a)),
+         ("fleet.recompute", fleet.recompute))
+cs.phase_recompute_across_devices(torch, cases, strict=False)
+"""
+
+
+def _recompute_at(tree: str):
+    """Phase 54's MLP through the checkpoints of the tree at ``tree`` (and
+    ``torch.utils.checkpoint``), in a process of its own: how each case
+    ended, recorded rather than raised."""
+    code = RECOMPUTE_AT_PARENT.format(
+        smoke=os.path.join(ROOT, "chip_smoke.py"))
+    run = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                         capture_output=True, text=True, timeout=600)
+    print(f"[mesh_probe] phase 54's MLP through the checkpoints of {tree}: "
+          f"rc {run.returncode}", flush=True)
+    print(run.stdout[-6000:] or run.stderr[-3000:], flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=0,
@@ -150,12 +192,21 @@ def main() -> int:
                     help="phase 51 alone (sequence parallelism)")
     ap.add_argument("--generate", action="store_true",
                     help="phases 52-53 after phase 46's kept runs")
+    ap.add_argument("--recompute", action="store_true",
+                    help="phase 54 alone (a recompute across devices)")
+    ap.add_argument("--auto-parallel", action="store_true",
+                    help="phase 55 alone (auto_parallel)")
     args = ap.parse_args()
-    dp_run = bool(args.dp) or args.recompute_interval is not None \
+    dp_run = bool(args.dp) or (args.recompute_interval is not None
+                               and not args.cards) \
         or args.virtual is not None
+    if args.cards and args.recompute_interval is not None \
+            and not args.fleet:
+        cs.MESH_CPU_RECOMPUTE = args.recompute_interval
+        dp_run = bool(args.dp) or args.virtual is not None
     if (dp_run or args.sharding) and not args.fleet:
-        ap.error("--dp, --recompute-interval, --virtual and --sharding go "
-                 "with --fleet")
+        ap.error("--dp, --recompute-interval (without --cards), --virtual "
+                 "and --sharding go with --fleet")
     if args.level and not args.sharding:
         ap.error("--level goes with --sharding")
     if dp_run and args.sharding:
@@ -173,7 +224,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {cs.card_line()}", flush=True)
-    if args.parent and args.generate and args.cards >= 4:
+    if args.parent and args.recompute:
+        _recompute_at(os.path.abspath(args.parent))
+    elif args.parent and args.generate and args.cards >= 4:
         _recompute_over_cards(os.path.abspath(args.parent))
     elif args.parent:
         _phase6_in_turns(os.path.abspath(args.parent))
@@ -193,16 +246,16 @@ def main() -> int:
         if args.cards >= 4:
             # every mesh position on its own card, round-robin
             cs._mesh_devices = lambda n: [f"cuda:{j % 4}" for j in range(n)]
-            # fault 10: a checkpoint whose backward spans cards stops, so
-            # no block recompute and no vocabulary-parallel head (its
-            # chunked loss checkpoints over the shards' cards)
-            cs.MESH_RECOMPUTE_INTERVAL = 0
-            card_runs = tuple(r[:4] + (False,) + r[5:] for r in keep_runs)
-            phases = (("46", lambda p: cs.phase_mesh_train(p, card_runs,
+            phases = (("46", lambda p: cs.phase_mesh_train(p, keep_runs,
                                                            kept)),
                       ("52", lambda p: cs.phase_mesh_generate(p, kept,
                                                               cpu=False)),
                       phases[2])
+    elif args.recompute:
+        phases = (("54", lambda p: cs.phase_recompute_across_devices(
+            p["torch"], cs.recompute_cases(p))),)
+    elif args.auto_parallel:
+        phases = (("55", cs.phase_auto_parallel),)
     elif args.sp:
         cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
                  else None)
