@@ -340,11 +340,12 @@ result line:
    CPU's in fp32 from the same weights (``TRAIN_LOSS_REL``,
    ``TRAIN_GRAD_NORM``);
 41. sharded serve -- ``ShardedServingEngine`` over GPT-3 1.3B bf16 at
-   full width and depth (seed 0; the stacked and the layered GPT) at
+   full width and ``SHARD_LAYERS`` = 4 of its 24 layers (seed 0; the
+   stacked and the layered GPT) at
    (dp, mp) in ``SHARD_MESHES``, every replica and shard on ``cuda:0``
    (``devices=["cuda:0"] * dp * mp``), phase 3's engine and traffic.  Each
    request must sit on the replica least-loaded placement gives it, each
-   tick launch the ragged kernel exactly 24 x mp times per replica that
+   tick launch the ragged kernel exactly 4 x mp times per replica that
    ran a fused step, each shard's pool hold ``nbytes / mp``
    (``cache_bytes_per_chip`` too), every ledger come back to zero, and
    the tokens follow the parity rule against phase 3's engine on the same
@@ -361,14 +362,14 @@ result line:
    reduce exact int32 accumulators), then at (2, 2) under the parity rule
    (two replicas chunk the prompts otherwise, and a page's int8 scale
    follows its writes): the scales sharded ``[L, P, H/mp]`` and finite,
-   24 x 2 int8 ragged launches per replica step;
+   4 x 2 int8 ragged launches per replica step;
 43. disaggregated -- ``DisaggServingEngine`` roles (prefill, decode) with
    bf16 pools, then int8 pools: tokens against the colocated (dp 2)
    cluster under the parity rule, ``transferred_in`` = ``transferred_out``
    = the hand-offs, both ledgers exact after every tick; pages copied and
    host ms per hand-off; then one 4-page hand-off (a 380-token prompt)
    timed alone with CUDA events between the stacked pools (4 copies) and
-   the layered ones (96) beside the bytes bound;
+   the layered ones (16) beside the bytes bound;
 44. cluster fp32 -- 1 layer of GPT-3 1.3B's width in fp32, the same
    script on the card and on the CPU: the elastic controller (fake clock,
    queue-driven) through scale-up, the four brownout rungs, their LIFO
@@ -456,7 +457,21 @@ result line:
    2-layer fp32 copy within ``AUTO_CPU_NORM`` on the CPU and the card,
    the placed weights through ``save_distributed_checkpoint`` and
    ``load_distributed_checkpoint`` under (dp 1, mp 4) bit for bit,
-   ``graph_cost``'s FLOPs the count by hand.
+   ``graph_cost``'s FLOPs the count by hand;
+56. auto_parallel's Engine -- ``Engine.cost`` of GPT-3 13B (40 layers)
+   over eight H100s (pure dp infeasible); the layered GPT at GPT-3 13B
+   widths (hidden 5120, 40 heads of 128, vocab 50304), 2 layers, bf16,
+   dropout 0, planned by ``Engine.plan`` over four positions of the one
+   card (an HBM that makes pure dp infeasible: dp 2 x mp 2) and trained
+   3 steps of 8 x 1024 tokens by ``Engine.fit`` through the propagation
+   executor, against an Engine with no plan (``ENGINE_LOSS_REL``,
+   ``ENGINE_GRAD_NORM``): exactly positions x layers launches of each
+   flash kernel a step at (4, 20, 1024, 128) and one bf16 AdamW launch a
+   parameter tensor (28); the node's backward against the plain version
+   (``ENGINE_BWD_ATOL``); ``evaluate``, ``predict``; the checkpoint into a
+   fresh Engine bit for bit; the fp32 copy planned on the CPU and on the
+   card against each other and the unplanned CPU run
+   (``ENGINE_CPU_TOL``).
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -592,6 +607,9 @@ FLASH_RAGGED_CASES = (
 # full cache
 DECODE_TIMED_LENGTHS = (GEN_PROMPT + GEN_NEW, GEN_MAX_SEQ)
 SERVE_LAYERS = 24
+# phases 41-43's depth: GPT-3 1.3B's width at 4 of its layers (the
+# cluster's placement, lifecycle and hand-off do not grow with depth)
+SHARD_LAYERS = 4
 DEVICE = "cuda"
 
 
@@ -604,7 +622,7 @@ def import_port():
     from paddle_tpu_torch.models import BertForPretraining, BertModel, \
         BertPretrainingCriterion, GPTForPretraining, \
         GPTPretrainingCriterion, GPTStackedForPretraining, bert_base, \
-        bert_tiny, gpt_1p3b, gpt_tiny, truncated_draft
+        bert_tiny, gpt_13b, gpt_1p3b, gpt_tiny, truncated_draft
     from paddle_tpu_torch.io import DevicePrefetcher
     from paddle_tpu_torch.nn import clip
     from paddle_tpu_torch.nn import functional as F
@@ -629,8 +647,8 @@ def import_port():
     from paddle_tpu_torch.distributed import auto_parallel, pp_spmd
 
     return dict(torch=torch, GPT=GPTStackedForPretraining, gpt_1p3b=gpt_1p3b,
-                gpt_tiny=gpt_tiny, build=_build, rpa=rpa, fa=fa, fw=fw,
-                da=da, pa=pa, qi8=qi8, rn=rn, F=F, incubate=incubate,
+                gpt_13b=gpt_13b, gpt_tiny=gpt_tiny, build=_build, rpa=rpa,
+                fa=fa, fw=fw, da=da, pa=pa, qi8=qi8, rn=rn, F=F, incubate=incubate,
                 BertModel=BertModel, BertForPretraining=BertForPretraining,
                 BertPretrainingCriterion=BertPretrainingCriterion,
                 bert_base=bert_base, bert_tiny=bert_tiny,
@@ -5810,10 +5828,11 @@ def _sharded_run(port, name, model, dp, mp, want, bound="bfloat16",
     fused = met["fused_steps"] - f0
     _all_done(port, name, reqs, SERVE_NEW_TOKENS)
     _check(not any(counts.values()), f"{name}: other kernels {counts}")
+    L = cfg.num_layers
     bad = [(ln, fs) for ln, fs in per_tick
-           if ln != sum(fs) * SERVE_LAYERS * mp or any(f > 1 for f in fs)]
-    _check(not bad and launches == fused * SERVE_LAYERS * mp,
-           f"{name}: ragged launches per tick != 24 x mp x replicas that "
+           if ln != sum(fs) * L * mp or any(f > 1 for f in fs)]
+    _check(not bad and launches == fused * L * mp,
+           f"{name}: ragged launches per tick != {L} x mp x replicas that "
            f"stepped: {bad[:4]} (total {launches}, fused {fused})")
     # all requests submitted before the first tick: least-loaded placement
     # alternates on queue depth
@@ -5835,7 +5854,7 @@ def _sharded_run(port, name, model, dp, mp, want, bound="bfloat16",
             for sh in shards:
                 sc = (sh.k_scale, sh.v_scale)
                 _check(all(tuple(x.shape) == (
-                    SERVE_LAYERS, rep.num_pages, cfg.num_heads // mp)
+                    L, rep.num_pages, cfg.num_heads // mp)
                     and bool(torch.isfinite(x).all()) for x in sc),
                     f"{name}: scales {[tuple(x.shape) for x in sc]}")
     for pm in met["per_replica"]:
@@ -5879,7 +5898,7 @@ def _sharded_run(port, name, model, dp, mp, want, bound="bfloat16",
     print(f"[{name}] {len(reqs)} requests DONE, {tokens} tokens in "
           f"{dt:.3f} s: {out['tps']:.1f} tokens/s; {len(ticks)} ticks, mean "
           f"{out['tick_ms']:.2f} ms (host clock); {fused} replica fused "
-          f"steps; ragged launches {launches} ({SERVE_LAYERS} x {mp} a replica "
+          f"steps; ragged launches {launches} ({L} x {mp} a replica "
           f"step); "
           f"pools {met['cache_bytes']} bytes, {met['cache_bytes_per_chip']} "
           f"a shard; replica 0's weights {card_bytes} bytes on the card, "
@@ -5906,7 +5925,7 @@ def phase_sharded_serve(port):
     Returns (ragged launches of the first run of each class's meshes, the
     runs' numbers by (class, dp, mp))."""
     torch = port["torch"]
-    cfg = port["gpt_1p3b"]()
+    cfg = port["gpt_1p3b"](num_layers=SHARD_LAYERS)
     launches, runs = 0, {}
     for cls in ("GPT", "Layered"):
         model = port[cls](cfg, device=DEVICE, dtype="bfloat16", seed=0)
@@ -5937,7 +5956,7 @@ def phase_sharded_int8(port):
     13's engine on the same (quantized) weights.  Returns the int8 ragged
     launches."""
     torch = port["torch"]
-    cfg = port["gpt_1p3b"]()
+    cfg = port["gpt_1p3b"](num_layers=SHARD_LAYERS)
     model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
     model.eval()
     kw = dict(kv_dtype="int8", weight_dtype="int8")
@@ -5982,11 +6001,12 @@ def _time_handoff(port, model, pages=4):
 
 
 def phase_disagg(port):
-    """Phase 43: prefill -> decode hand-off at full width and depth, bf16
+    """Phase 43: prefill -> decode hand-off at full width (``SHARD_LAYERS``
+    layers), bf16
     then int8 pools, against the colocated cluster.  Returns the ragged
     launches by pool dtype and the numbers."""
     torch, s = port["torch"], port["serving"]
-    cfg = port["gpt_1p3b"]()
+    cfg = port["gpt_1p3b"](num_layers=SHARD_LAYERS)
     model = port["GPT"](cfg, device=DEVICE, dtype="bfloat16", seed=0)
     model.eval()
     prompts = _shard_traffic(cfg.vocab_size)
@@ -6017,7 +6037,7 @@ def phase_disagg(port):
                f"disagg {kv}: transfers {moved}, in {tin}, out {tout}, "
                f"requests ending on the decode replica {handed}")
         fused = m["fused_steps"] - m0["fused_steps"]
-        _check(counts["ragged"] == fused * SERVE_LAYERS,
+        _check(counts["ragged"] == fused * cfg.num_layers,
                f"disagg {kv}: {counts['ragged']} ragged launches for "
                f"{fused} fused steps")
         _parity(port, f"disagg {kv} vs the colocated cluster",
@@ -8732,7 +8752,9 @@ def megatron_placements(port, name):
 
 def _op_shapes(op):
     """A dispatch mode that records the first operand's shape of every
-    call of ``op`` (so it sees the executed graph's attention node)."""
+    call of ``op`` on real tensors (so it sees the executed graph's
+    attention node, and not a capture's calls on fake tensors)."""
+    from torch._subclasses.fake_tensor import is_fake
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class OpShapes(TorchDispatchMode):
@@ -8741,7 +8763,7 @@ def _op_shapes(op):
             self.shapes = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func is op:
+            if func is op and not is_fake(args[0]):
                 self.shapes.append(tuple(args[0].shape))
             return func(*args, **(kwargs or {}))
     return OpShapes()
@@ -8781,7 +8803,7 @@ def _auto_products(port, run):
         if name in ("mm", "addmm"):
             prods.append(prop.var_specs[n])
         elif name == "flash_attention":
-            attn.append(prop.var_specs[n])
+            attn.append(prop.var_specs[n][0])           # O of (O, lse)
     return prods, attn
 
 
@@ -8924,6 +8946,365 @@ def _auto_card_vs_cpu(port):
             with torch.no_grad():
                 ref = body(ids)
     return _rel(outs["cpu"], ref), _rel(outs[DEVICE], outs["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# phase 56: auto_parallel's Engine at config 4's widths
+# ---------------------------------------------------------------------------
+
+ENGINE_LAYERS = 2
+ENGINE_BATCH, ENGINE_SEQ = 8, 1024
+ENGINE_STEPS = 3
+ENGINE_LR = 1e-4
+# four mesh positions on the one card: the explicit one-card layout
+ENGINE_DEVICES = ("cuda:0",) * 4
+# the planned fit against an unplanned Engine on the same weights and
+# batches: step 1's loss, then steps 2-3 (relative); every gradient after
+# step 1 by relative norm (phase 46's bf16 mesh gradients were 0.0195 of
+# the unplaced model's)
+ENGINE_LOSS_REL = (5e-3, 2e-2)
+ENGINE_GRAD_NORM = 2e-2
+# the attention node's backward kernels (dK/dV, dQ) at the local shape
+# against their plain versions on the node's lse and delta: max abs
+# error, the bounds of phase 51's flash checks at a part's shapes; and
+# the node's gradients against autograd of the plain forward (bf16)
+# elementwise by FLASH_GRAD_TOL, phase 5's rule
+ENGINE_BWD_ATOL = {"dk": 0.015625, "dv": 0.015625, "dq": 0.00391}
+# the fp32 copy (AUTO_CPU_CFG, 4 x 128 tokens) planned on the CPU and on
+# the card against each other and the unplanned CPU run: losses
+# (relative) and gradients (relative norm)
+ENGINE_CPU_TOL = 1e-5
+# the copy's cluster: compute dominates its cost, as it does the 13B
+# widths' on the H100 (a 1 TFLOP/s rate), so the planner picks the same
+# (dp 2, mp 2) for the small model
+ENGINE_CPU_FLOPS = 1e12
+ENGINE_CKPT = "chip_smoke_ckpt/engine"
+
+
+class _ConfigOnly:
+    """A model the planner reads only the config of (the full 40-layer
+    GPT-3 13B, which one card cannot hold)."""
+
+    def __init__(self, cfg):
+        self.config = cfg
+
+    def parameters(self):
+        return iter(())
+
+
+def _first_grads(model, opt):
+    """Wrap ``opt.step`` so that its first call keeps a copy of every
+    gradient of ``model`` (what step 1 applies); returns that dict."""
+    kept, step = {}, opt.step
+    named = list(model.named_parameters())
+
+    def first(*a, **k):
+        if not kept:
+            kept.update({n: p.grad.detach().clone() for n, p in named
+                         if p.grad is not None})
+        return step(*a, **k)
+    opt.step = first
+    return kept
+
+
+def _engine_batches(torch, vocab, batch, seq, n, device, seed):
+    """``n`` (inputs, next-token labels) batches of random ids."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = torch.from_numpy(rng.randint(0, vocab, (batch, seq + 1)))
+        out.append((ids[:, :-1].contiguous().to(device),
+                    ids[:, 1:].contiguous().to(device)))
+    return out
+
+
+def _engine(port, cfg, dtype, device, seed, devices=None, bf16_adamw=True):
+    """(Engine, model, optimizer) over a fresh layered GPT of ``cfg``."""
+    ap = port["auto_parallel"]
+    model = port["Layered"](cfg, device=device, dtype=dtype, seed=seed)
+    opt = port["AdamW"](learning_rate=ENGINE_LR,
+                        parameters=model.parameters(),
+                        multi_precision=not bf16_adamw)
+    eng = ap.Engine(model=model, loss=port["Criterion"](cfg), optimizer=opt,
+                    device=device, devices=devices)
+    return eng, model, opt
+
+
+def _engine_node_compare(port, shape):
+    """The attention node's forward and backward on bf16 q, k, v at the
+    local ``shape``: (max abs errors of O and of the dK, dV and dQ kernels
+    against their plain versions on the node's lse and delta; how far the
+    node's gradients exceed FLASH_GRAD_TOL against autograd of the plain
+    forward on the same bf16 values, the worst of the three)."""
+    torch, fa = port["torch"], port["fa"]
+    (q, k, v), do = _qkv(torch, shape, "bfloat16", 56)
+    b, n, s, _ = shape
+    scale = 1.0 / shape[-1] ** 0.5
+    kq, kk, kv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out, lse = fa.flash_attention_node(kq, kk, kv, True, scale)
+    out.backward(do)
+    args = (q, k, v, do, lse.detach().view(b * n, s),
+            fa.backward_delta(do, out.detach()), True, scale)
+    pdk, pdv = fa.flash_attention_bwd_dkv_plain(*args)
+    pdq = fa.flash_attention_bwd_dq_plain(*args)
+    want = fa.flash_attention_plain(q, k, v, True, scale)[0]
+    pq, pk, pv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    fa.flash_attention_plain(pq, pk, pv, True, scale)[0].backward(do)
+    torch.cuda.synchronize()
+    errs = {n: (a.float() - b.float()).abs().max().item()
+            for n, a, b in (("O", out, want), ("dk", kk.grad, pdk),
+                            ("dv", kv.grad, pdv), ("dq", kq.grad, pdq))}
+    _check(all(np.isfinite(list(errs.values()))), f"engine node: {errs}")
+    over = max(_over(a, b, FLASH_GRAD_TOL["bfloat16"][:2])[1]
+               for a, b in ((kq.grad, pq.grad), (kk.grad, pk.grad),
+                            (kv.grad, pv.grad)))
+    return errs, over
+
+
+def _engine_fp32_copy(port, plan_mesh, devices):
+    """The fp32 copy: an unplanned Engine on the CPU, then the same plan's
+    fit on ``["cpu"] * 4`` and on the card's ``devices`` from the same
+    weights and batches.  Returns (worst loss and gradient differences,
+    the card run's launches)."""
+    torch, ap = port["torch"], port["auto_parallel"]
+    cfg = port["gpt_tiny"](hidden_dropout=0.0, attention_dropout=0.0,
+                           **AUTO_CPU_CFG)
+    batches = {}
+    runs, state = {}, None
+    for name, device, devices in (("unplanned", "cpu", None),
+                                  ("cpu", "cpu", ["cpu"] * 4),
+                                  ("card", DEVICE, list(devices))):
+        eng, model, opt = _engine(port, cfg, "float32", device, 56, devices,
+                                  bf16_adamw=False)
+        if state is None:
+            state = {k: v.detach().clone() for k, v in
+                     model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        if devices is not None:
+            n = sum(p.numel() for p in model.parameters())
+            best = eng.plan(batch=AUTO_CPU_BATCH, cluster=ap.ClusterSpec(
+                n_devices=4, hbm_bytes=8.0 * n, flops=ENGINE_CPU_FLOPS))
+            _check(best.mesh == plan_mesh, f"engine fp32 copy: plan "
+                   f"{best.mesh}, the bf16 run's {plan_mesh}")
+        grads = _first_grads(model, opt)
+        batches.setdefault(device, _engine_batches(
+            torch, cfg.vocab_size, AUTO_CPU_BATCH, AUTO_CPU_SEQ,
+            ENGINE_STEPS, device, 57))
+        _reset_launches(port)
+        hist = eng.fit(batches[device], verbose=0)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        runs[name] = (hist["loss"], {k: g.cpu() for k, g in grads.items()},
+                      _launch_counts(port))
+        port["mesh"].set_mesh(None)
+    worst = 0.0
+    for a, b in (("cpu", "unplanned"), ("card", "unplanned"),
+                 ("card", "cpu")):
+        la, ga, _ = runs[a]
+        lb, gb, _ = runs[b]
+        worst = max([worst] + [abs(x - y) / abs(y) for x, y in zip(la, lb)]
+                    + list(_grad_rel_norms(ga, gb).values()))
+    return worst, runs["card"][2], {k: v[0] for k, v in runs.items()}
+
+
+def phase_engine(port, devices=None):
+    """Phase 56: auto_parallel's ``Engine`` at ``BASELINE.json`` config
+    4's widths (GPT-3 13B: hidden 5120, 40 heads of 128, vocab 50304) at 2
+    layers, bf16, dropout 0, seed 56.  ``Engine.cost`` ranks the full
+    40-layer model over eight H100s (pure dp must be infeasible);
+    ``Engine.plan`` over four positions (``devices``, default
+    ``ENGINE_DEVICES``: the one card four times) with an HBM that makes
+    pure dp infeasible must choose mp x pp > 1; ``Engine.fit`` trains 3
+    steps of 8 x 1024 tokens through the propagation executor, against an
+    Engine with no plan on the same weights and batches
+    (``ENGINE_LOSS_REL``, ``ENGINE_GRAD_NORM``), with exactly positions x
+    layers launches of each flash kernel a step at the local (8/dp, 40/mp,
+    1024, 128) and one bf16 AdamW launch a parameter tensor; the node's
+    backward kernels against the plain version (``ENGINE_BWD_ATOL``);
+    ``evaluate`` and ``predict``; ``save_checkpoint``/``load_checkpoint``
+    into a fresh Engine bit for bit; the fp32 copy planned on the CPU and
+    on the card (``ENGINE_CPU_TOL``).  Returns the launches and errors."""
+    torch, ap, fa = port["torch"], port["auto_parallel"], port["fa"]
+    t_phase = time.perf_counter()
+    devices = list(devices or ENGINE_DEVICES)
+    full = port["gpt_13b"]()
+    cost = ap.Engine(model=_ConfigOnly(full), device=DEVICE).cost(
+        batch=ENGINE_BATCH, cluster=ap.ClusterSpec(n_devices=8))
+    ranking = [(c["mesh"], round(1e3 * c["step_time"], 3),
+                round(c["mem_bytes"] / 1e9, 2), c["feasible"])
+               for c in cost["candidates"]]
+    pure = next(c for c in cost["candidates"]
+                if c["mesh"] == {"dp": 8, "mp": 1, "pp": 1})
+    print(f"[engine] Engine.cost of GPT-3 13B (40 layers, batch "
+          f"{ENGINE_BATCH} x {full.max_position_embeddings}) over 8 H100s "
+          f"(ClusterSpec defaults): best {cost['best']}; ranking (mesh, "
+          f"step ms, GB a card, feasible) {ranking}")
+    _check(not pure["feasible"] and cost["candidates"][0]["feasible"]
+           and cost["best"]["mp"] * cost["best"]["pp"] > 1,
+           f"engine: pure dp of GPT-3 13B {pure}, best {cost['best']}")
+    cfg = port["gpt_13b"](num_layers=ENGINE_LAYERS, hidden_dropout=0.0,
+                          attention_dropout=0.0)
+    batches = _engine_batches(torch, cfg.vocab_size, ENGINE_BATCH,
+                              ENGINE_SEQ, ENGINE_STEPS, DEVICE, 56)
+    # the reference: an Engine with no plan, eager on the card
+    ref, ref_model, ref_opt = _engine(port, cfg, "bfloat16", DEVICE, 56)
+    ref_grads = _first_grads(ref_model, ref_opt)
+    ref_ms = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        ref_hist = ref.fit([batch], verbose=0)
+        torch.cuda.synchronize()
+        ref_ms.append(1e3 * (time.perf_counter() - t0))
+    del ref, ref_model, ref_opt
+    torch.cuda.empty_cache()
+    eng, model, opt = _engine(port, cfg, "bfloat16", DEVICE, 56, devices)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    prev = port["mesh"]._global_mesh
+    try:
+        best = eng.plan(batch=ENGINE_BATCH, cluster=ap.ClusterSpec(
+            n_devices=4, hbm_bytes=8.0 * n_params))
+        mesh = dict(best.mesh)
+        positions = int(np.prod(list(mesh.values())))
+        print(f"[engine] Engine.plan of the {ENGINE_LAYERS}-layer model "
+              f"({n_params} parameters in {n_tensors} tensors) over "
+              f"{devices} with hbm {8.0 * n_params:.6g} bytes: {mesh} "
+              f"({eng._planned[1]} parameters placed), step "
+              f"{1e3 * best.step_time:.3f} ms, {best.mem_bytes / 1e9:.3f} GB "
+              f"a card (cost model)")
+        _check(mesh["mp"] * mesh["pp"] > 1 and positions == len(devices),
+               f"engine: plan {mesh}")
+        grads = _first_grads(model, opt)
+        local = (ENGINE_BATCH // mesh["dp"], cfg.num_heads // mesh["mp"],
+                 ENGINE_SEQ, cfg.head_dim)
+        want = positions * ENGINE_LAYERS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        host_ms, per_step, prof = [], [], None
+        for i, batch in enumerate(batches):
+            _reset_launches(port)
+            shapes = _op_shapes(fa.flash_attention_node)
+            t0 = time.perf_counter()
+            if i == 0:
+                with shapes:
+                    eng.fit([batch], verbose=0)
+            elif i == len(batches) - 1:
+                prof = _profiled_step_ms(
+                    port, lambda: eng.fit([batch], verbose=0))
+            else:
+                eng.fit([batch], verbose=0)
+            torch.cuda.synchronize()
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            per_step.append(_launch_counts(port))
+            if i == 0:
+                _check(shapes.shapes == [local] * want, f"engine: attention "
+                       f"at {shapes.shapes}, expected {want} x {local}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        run = eng._exec[1]
+        reshards = run.propagation.reshards
+        for i, c in enumerate(per_step):
+            _check(all(c[k] == want for k in ("fwd", "dkv", "dq"))
+                   and c["adamw"] == n_tensors
+                   and not any(v for k, v in c.items()
+                               if k not in ("fwd", "dkv", "dq", "adamw")),
+                   f"engine: step {i + 1} launches {c}, expected {want} of "
+                   f"each flash kernel and {n_tensors} AdamW")
+        losses = eng.history["loss"]
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                        ref_hist["loss"])]
+        grad_rel = _grad_rel_norms(grads, ref_grads)
+        worst_grad = max(grad_rel.items(), key=lambda kv: kv[1])
+        print(f"[engine] fit {ENGINE_STEPS} steps of {ENGINE_BATCH} x "
+              f"{ENGINE_SEQ} over {mesh}: losses {losses} against the "
+              f"unplanned Engine's {ref_hist['loss']} (relative "
+              f"{[float(f'{x:.3g}') for x in loss_rel]}, bounds "
+              f"{ENGINE_LOSS_REL}); step 1's gradients against the "
+              f"unplanned: worst {worst_grad[0]} {worst_grad[1]:.4g} (bound "
+              f"{ENGINE_GRAD_NORM}); the unplanned Engine's host ms a step "
+              f"{[round(x, 2) for x in ref_ms]}; launches a step "
+              f"{per_step[0]} (flash "
+              f"{want} = positions x layers, each at {local}; AdamW "
+              f"{n_tensors}); host ms a step {[round(x, 2) for x in host_ms]}"
+              f" (step 1 with the capture and a dispatch-mode shape check, "
+              f"step 3 under the profiler); capture and pass "
+              f"{run.capture_seconds:.2f} s ({len(run.propagation.graph.graph.nodes)}"
+              f" nodes, {len(reshards)} reshards, "
+              f"{sum(r.bytes for r in reshards):.6g} bytes); peak "
+              f"{peak:.2f} GiB"
+              + ("" if prof is None else
+                 f"; step 3 device kernel time {prof[0]:.3f} ms, busy "
+                 f"{prof[2]:.3f} of its {prof[3]:.2f} ms wall"))
+        _check(loss_rel[0] <= ENGINE_LOSS_REL[0]
+               and max(loss_rel[1:]) <= ENGINE_LOSS_REL[1],
+               f"engine: losses {losses} against {ref_hist['loss']}")
+        _check(worst_grad[1] <= ENGINE_GRAD_NORM,
+               f"engine: gradient {worst_grad}")
+        del grads, ref_grads
+        errs, over = _engine_node_compare(port, local)
+        print(f"[engine] the attention node at {local} bf16 causal: its "
+              f"kernels against their plain versions, max abs {errs} "
+              f"(bounds {ENGINE_BWD_ATOL}); its gradients against autograd "
+              f"of the plain forward, worst excess over FLASH_GRAD_TOL "
+              f"{over:.3g} (<= 0 holds)")
+        _check(all(errs[k] <= b for k, b in ENGINE_BWD_ATOL.items())
+               and over <= 0, f"engine: node backward {errs}, {over}")
+        ev = eng.evaluate([batches[0]], verbose=0)
+        logits = eng.predict([batches[0][0]])[0]
+        print(f"[engine] evaluate {ev}; predict {tuple(logits.shape)} "
+              f"{logits.dtype}")
+        _check(np.isfinite(ev["eval_loss"]) and tuple(logits.shape) == (
+            ENGINE_BATCH, ENGINE_SEQ, cfg.vocab_size),
+            f"engine: evaluate {ev}, predict {tuple(logits.shape)}")
+        del logits
+        # the checkpoint: saved, then loaded into a fresh Engine
+        t0 = time.perf_counter()
+        eng.save_checkpoint(ENGINE_CKPT, step=ENGINE_STEPS, blocking=True)
+        t_save = time.perf_counter() - t0
+        fresh, fmodel, fopt = _engine(port, cfg, "bfloat16", DEVICE, 57,
+                                      devices)
+        pos = fresh.load_checkpoint(ENGINE_CKPT)
+        t_ckpt = time.perf_counter() - t0
+        sa, sb = model.state_dict(), fmodel.state_dict()
+        same_w = sa.keys() == sb.keys() and all(
+            torch.equal(sa[k], sb[k]) for k in sa)
+        same_m = all(
+            torch.equal(opt.state[p][m], fopt.state[q][m])
+            for p, q in zip(opt._params(), fopt._params())
+            for m in ("moment1", "moment2")) and \
+            (opt.beta1_pow, opt.beta2_pow) == (fopt.beta1_pow,
+                                               fopt.beta2_pow)
+        print(f"[engine] save_checkpoint (blocking) {t_save:.2f} s, "
+              f"load_checkpoint into a fresh Engine {t_ckpt - t_save:.2f} s: "
+              f"position {pos}, weights bit-equal {same_w}, moments and "
+              f"beta powers bit-equal {same_m}")
+        _check(pos == {"epoch": 0, "step": ENGINE_STEPS} and same_w
+               and same_m, "engine: the checkpoint round trip differs")
+        del fresh, fmodel, fopt, sa, sb
+    finally:
+        port["mesh"].set_mesh(prev)
+        import shutil
+        shutil.rmtree(ENGINE_CKPT, ignore_errors=True)
+    del eng, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst, cpu_launches, cpu_losses = _engine_fp32_copy(port, mesh,
+                                                        devices)
+    print(f"[engine] fp32 copy {AUTO_CPU_CFG} at {AUTO_CPU_BATCH} x "
+          f"{AUTO_CPU_SEQ}, {ENGINE_STEPS} steps over {mesh}: losses "
+          f"{cpu_losses}; worst loss or gradient difference among the "
+          f"planned CPU, planned card and unplanned CPU runs {worst:.3g} "
+          f"(bound {ENGINE_CPU_TOL}); card launches {cpu_launches}")
+    _check(worst <= ENGINE_CPU_TOL, "engine: the fp32 copy differs")
+    print(f"[time] phase 56 {time.perf_counter() - t_phase:.1f} s")
+    total = {k: sum(c[k] for c in per_step)
+             for k in ("fwd", "dkv", "dq", "adamw")}
+    return dict(launches=total, cpu_launches=cpu_launches,
+                errs={"dkv": max(errs["dk"], errs["dv"]), "dq": errs["dq"],
+                      "fwd": errs["O"]},
+                host_ms=host_ms, ref_ms=ref_ms, prof=prof, peak=peak,
+                mesh=mesh,
+                losses=losses)
 
 
 def card_line():
@@ -9102,6 +9483,13 @@ def main() -> int:
     # layered GPT and run per mesh position through the flash kernel
     auto_launches = _kept(port, phase_auto_parallel, port)
     mark("54-55")
+    # phase 56: auto_parallel's Engine at GPT-3 13B widths (2 layers),
+    # planned over four positions of the card and trained through the
+    # propagation executor on the flash forward and backward kernels
+    fe = _kept(port, phase_engine, port)
+    for key in ("fwd", "dkv", "dq"):
+        tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"], fe["errs"][key])
+    mark("56")
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -9151,6 +9539,8 @@ def main() -> int:
                            for name, run in fsp["runs"].items()})
         # phase 53's O1 step fed a batch placed over dp (no update)
         mesh_paths["train_placed_batch_2x2x2"] = placed_launches[key]
+        # phase 56's Engine.fit over its plan, each over all its steps
+        mesh_paths["auto_parallel_fit"] = fe["launches"][key]
         if key != "adamw":
             # phase 6's bf16-weight step, phase 31's O1 step and phase
             # 40's layered step; the forward also phase 35's layered
@@ -9166,7 +9556,9 @@ def main() -> int:
                 **{f"train_fleet_{name}_fp32_card_vs_cpu": run[key]
                    for name, run in fz["cpu_launches"].items()},
                 **{f"train_sequence_parallel_{name}_fp32_card_vs_cpu":
-                   run[key] for name, run in fsp["cpu_launches"].items()}}
+                   run[key] for name, run in fsp["cpu_launches"].items()},
+                "auto_parallel_fit_fp32_card_vs_cpu":
+                    fe["cpu_launches"][key]}
             if key == "fwd":
                 # phase 52's prefills from the placed models, per shard
                 kernels[-1]["launches_by_path"].update(
@@ -9198,7 +9590,9 @@ def main() -> int:
                            for name, run in fz["cpu_launches"].items()},
                         **{f"train_sequence_parallel_{name}_fp32_card_vs_cpu":
                            run["adamw"]
-                           for name, run in fsp["cpu_launches"].items()}},
+                           for name, run in fsp["cpu_launches"].items()},
+                        "auto_parallel_fit_fp32_card_vs_cpu":
+                            fe["cpu_launches"]["adamw"]},
                     **fk})
     # the fp32-master form: the same kernel library and TPU kernel, with
     # the arithmetic of the reference's composed master path; launches

@@ -40,8 +40,21 @@ at every position and cut by its spec.  A pending partial sum is summed
 across its axes (``serving_mesh.reduce_sum``) before any consumer that is
 not linear in it, even where the pass's spec still carries the partial
 (the reference lets partials flow into elementwise ops, which GSPMD
-corrects silently), and at the graph's outputs.  The executor runs a
-forward: gradients through it are not supported.
+corrects silently), and at the graph's outputs.  Random nodes
+(dropout's ``native_dropout``, ``bernoulli``, the ``rand*`` factories)
+draw once, on the first position's device, and every position takes its
+block of that one draw: one global mask, as GSPMD draws it.  A dimension
+an output's axes do not divide is held whole: the node runs whole and its
+output is cut by the axes that do divide it.
+
+The executor runs a forward under ``torch.no_grad``, or with
+``grad=True`` on autograd's tape: every block op, gather, cut (``narrow``),
+move (``.to``) and partial sum is then recorded, so the gradient of a
+whole tensor given as an argument lands on that tensor.  The attention
+node's autograd formula runs the flash backward kernels.  A graph
+captured with in-place nodes is captured again through
+``torch.func.functionalize``, so no node overwrites a value autograd
+saved; an in-place update of an argument still raises.
 
 :func:`graph_cost` reads FLOPs (products from their shapes; the
 attention node as the two products of the plain expression, 4 B N S^2 D),
@@ -49,6 +62,7 @@ bytes, and reshard bytes off the same walk.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import operator
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -214,6 +228,11 @@ _SCATTER_ADD = {"scatter_add", "index_add"}
 _SCANS = {"cumsum", "cumprod", "cummax", "cummin", "logcumsumexp", "sort",
           "argsort"}
 _PRODUCTS = {"mm", "addmm", "bmm", "baddbmm"}
+# random ops: the executor draws each once (module docstring)
+_RANDOM = {"native_dropout", "bernoulli", "rand", "randn", "rand_like",
+           "randn_like", "randint", "randint_like", "randperm", "normal",
+           "uniform", "multinomial", "exponential", "geometric",
+           "log_normal", "cauchy", "poisson", "random"}
 # ops the executor runs on blocks with a pending partial kept (linear in
 # each operand; add/sub only when every operand carries the same partial)
 _LINEAR_LAYOUT = {"view", "_unsafe_view", "reshape", "view_copy", "permute",
@@ -394,7 +413,10 @@ def _dot(ls, rs, lc, rc, lb, rb):
     """dist_matmul analog (``_rule_dot_general``): free dims inherit their
     operand's axes; contracting dims cut by the SAME axes on both sides
     give a partial (pending sum); a one-sided or mismatched contracting
-    cut is a conflict -> that operand is gathered on the dim."""
+    cut is a conflict -> that operand is gathered on the dim.  An axis
+    that cuts free dims of both operands cuts the output's first of them
+    only, so the other operand is gathered on its dim (GSPMD's runtime
+    does that gather; the executor runs on the operands' blocks)."""
     lhs, rhs = list(ls.dims), list(rs.dims)
     partial = set(ls.partial | rs.partial)
     for bl, br in zip(lb, rb):
@@ -406,10 +428,12 @@ def _dot(ls, rs, lc, rc, lb, rb):
             partial.update(_ax(a))
         elif a != b:
             lhs[cl] = rhs[cr] = None
-    out = ([lhs[i] for i in lb]
-           + [lhs[i] for i in range(len(lhs)) if i not in lc and i not in lb]
-           + [rhs[i] for i in range(len(rhs)) if i not in rc and i not in rb])
-    out = _dedup_axes(out)
+    srcs = ([(lhs, i) for i in lb]
+            + [(lhs, i) for i in range(len(lhs)) if i not in lc and i not in lb]
+            + [(rhs, i) for i in range(len(rhs)) if i not in rc and i not in rb])
+    out = _dedup_axes([side[i] for side, i in srcs])
+    for (side, i), d in zip(srcs, out):
+        side[i] = d
     return (DistSpec(out, frozenset(partial)),
             [DistSpec(tuple(lhs), ls.partial), DistSpec(tuple(rhs),
                                                        rs.partial)])
@@ -584,13 +608,15 @@ def _rule_expand(spec, in_shape, out_shape):
 
 
 def _rule_attention(specs):
-    """The flash attention node over [B, N, S, D] q, k and v: batch and
-    head dims keep their shards (unified over the three), the sequence
-    and head_dim dims must be whole."""
+    """The flash attention node over [B, N, S, D] q, k and v, giving O
+    [B, N, S, D] and lse [B, N, S]: batch and head dims keep their shards
+    (unified over the three), the sequence and head_dim dims must be
+    whole."""
     lead = _unify([tuple(s.dims[:2]) for s in specs])
     need = [DistSpec(tuple(lead) + (None, None), s.partial) for s in specs]
-    return [DistSpec(tuple(lead) + (None, None),
-                     frozenset().union(*[s.partial for s in specs]))], need
+    partial = frozenset().union(*[s.partial for s in specs])
+    return [DistSpec(tuple(lead) + (None, None), partial),
+            DistSpec(tuple(lead) + (None,), partial)], need
 
 
 def _rule_scatter(name, node, specs):
@@ -624,6 +650,21 @@ def _rule_scan(name, node, spec, shape):
         dims[_norm_dim(dim, len(shape))] = None
     return [DistSpec(tuple(dims), need.partial)] * len(_out_vals(node)), \
         [need]
+
+
+def _fit(dims, shape, sizes) -> tuple:
+    """``dims`` with each dimension's axes cut back to those whose product
+    divides its size (major first)."""
+    out = []
+    for d, n in zip(dims, shape):
+        kept, prod = [], 1
+        for a in _ax(d):
+            if n % (prod * sizes.get(a, 1)):
+                break
+            kept.append(a)
+            prod *= sizes.get(a, 1)
+        out.append(_ent(kept))
+    return tuple(out)
 
 
 def _replicated_outs(node):
@@ -680,9 +721,10 @@ def _propagate(gm: fx.GraphModule, in_specs, sizes):
             specs[node] = specs[src][i]
             continue
         if _is_inplace(name):
-            raise ValueError(f"the captured graph has the in-place op "
-                             f"{node.target}; write the function without "
-                             "in-place updates")
+            # capture_graph functionalizes every other in-place node
+            raise ValueError(f"the captured graph updates an argument in "
+                             f"place ({node.target}); write the function "
+                             "without updating its arguments")
         ops = _operands(node)
         ins = [spec_of(a) for a in ops]
         shapes = [_shape(a) for a in ops]
@@ -774,6 +816,14 @@ def _propagate(gm: fx.GraphModule, in_specs, sizes):
         n_out = len(_out_vals(node))
         outs = list(outs)[:n_out] + [DistSpec(())] * (n_out - len(outs))
         outs = [DistSpec(_dedup_axes(o.dims), o.partial) for o in outs]
+        if sizes is not None:
+            # an axis that does not divide an output dim: run whole and
+            # hold that dim whole
+            fitted = [DistSpec(_fit(o.dims, v.shape, sizes), o.partial)
+                      if isinstance(v, torch.Tensor) else o
+                      for o, v in zip(outs, _out_vals(node))]
+            if fitted != outs:
+                outs, whole = fitted, True
         specs[node] = outs[0] if not isinstance(_val(node), (list, tuple)) \
             else outs
         plan[node] = (name, need, whole, linear)
@@ -787,12 +837,22 @@ def _propagate(gm: fx.GraphModule, in_specs, sizes):
 def capture_graph(fn, *example_args) -> fx.GraphModule:
     """The aten-level graph of ``fn`` at the example arguments' shapes
     (``make_fx`` with fake tensors: nothing is computed, and fake example
-    tensors hold no memory).  numpy arrays are taken as tensors."""
+    tensors hold no memory).  numpy arrays are taken as tensors.  A graph
+    with in-place nodes is captured again through
+    ``torch.func.functionalize``: each becomes its out-of-place op, with
+    the aliases it updated rebuilt, so running the graph never overwrites
+    a value (one autograd saved); an update of an argument stays, as a
+    ``copy_`` the propagation pass refuses."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     args = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
             for a in example_args]
-    return make_fx(fn, tracing_mode="fake")(*args)
+    gm = make_fx(fn, tracing_mode="fake")(*args)
+    if any(n.op == "call_function" and _is_inplace(_op_name(n))
+           for n in gm.graph.nodes):
+        gm = make_fx(torch.func.functionalize(fn), tracing_mode="fake")(
+            *args)
+    return gm
 
 
 def parameters_as_inputs(module: torch.nn.Module):
@@ -1074,10 +1134,18 @@ class _Executor:
         per_dev = {}
         for c in self.coords:
             dev = self.device(c)
-            if dev not in per_dev:
-                local = {a: w[dev] for a, w in zip(ops, wholes)}
-                per_dev[dev] = self.call(node, node.args, dict(node.kwargs),
-                                         local, c)
+            if dev in per_dev:
+                continue
+            if per_dev and _op_name(node) in _RANDOM:
+                # one draw, on the first position's device
+                first = next(iter(per_dev.values()))
+                per_dev[dev] = torch.utils._pytree.tree_map(
+                    lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                    else t, first)
+                continue
+            local = {a: w[dev] for a, w in zip(ops, wholes)}
+            per_dev[dev] = self.call(node, node.args, dict(node.kwargs),
+                                     local, c)
         outs = []
         many = isinstance(_val(node), (list, tuple))
         for i, (s, v) in enumerate(zip(out_specs, out_vals)):
@@ -1147,25 +1215,28 @@ class _Executor:
 
 
 def apply_propagation(fn, mesh, in_specs: Sequence[Optional[DistSpec]],
-                      *example_args):
+                      *example_args, grad: bool = False):
     """A callable that evaluates ``fn`` over ``mesh`` (a ``ProcessMesh``
     or the port's ``Mesh``) as the pass decided (module docstring):
     arguments whole or placed, outputs ``PlacedTensor``s; ``run.
     propagation`` holds the :class:`PropagationResult`.  A mesh of one
     position (or none) runs the plain function.  The run is a forward
-    under ``torch.no_grad``."""
+    under ``torch.no_grad``; with ``grad=True`` it is recorded by
+    autograd, and a ``backward()`` from an output's ``gather()`` reaches
+    the arguments."""
     m = getattr(mesh, "mesh", mesh)
     gm = capture_graph(fn, *example_args)
     result = propagate_graph(gm, in_specs, m)
+    mode = contextlib.nullcontext if grad else torch.no_grad
     if m is None or m.devices.size <= 1:
         def run(*args):
-            with torch.no_grad():
+            with mode():
                 return fn(*args)
     else:
         ex = _Executor(m, result)
 
         def run(*args):
-            with torch.no_grad():
+            with mode():
                 return ex.run(args)
     run.propagation = result
     return run

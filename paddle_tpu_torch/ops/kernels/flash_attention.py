@@ -23,8 +23,9 @@ Port of ``paddle_tpu/ops/pallas_kernels/flash_attention.py``.  Parts:
   Pallas;
 - the public ``flash_attention_bnsd(q, k, v, *, causal, sm_scale)``;
 - ``flash_attention_node``, the forward registered as the operator
-  ``torch.ops.paddle_tpu_torch.flash_attention``, which a graph captured
-  with fake tensors holds as one node.
+  ``torch.ops.paddle_tpu_torch.flash_attention`` returning ``(O, lse)``,
+  which a graph captured with fake tensors holds as one node; its
+  autograd formula runs the same backward calls as ``FlashAttention``.
 
 Every wrapper takes its plain version on CPU tensors and counts no
 launch (``flash_attention_bnsd`` lets autograd differentiate the plain
@@ -384,24 +385,72 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _flash_node(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                causal: bool, scale: float) -> torch.Tensor:
-    """The attention node's body: the forward kernel (counted) on the
-    card, its plain version on the CPU."""
-    return flash_attention_fwd(q, k, v, causal, scale)[0]
+                causal: bool, scale: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The attention node's body: ``(O, lse [B, N, S] fp32)`` from the
+    forward kernel (counted) on the card, its plain version on the
+    CPU."""
+    b, n, s, _ = q.shape
+    out, lse = flash_attention_fwd(q, k, v, causal, scale)
+    return out, lse.view(b, n, s)
 
 
 def _flash_node_fake(q, k, v, causal, scale):
-    return _bsnd_empty(q)
+    b, n, s, _ = q.shape
+    return _bsnd_empty(q), q.new_empty((b, n, s), dtype=torch.float32)
+
+
+def _flash_node_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    # a shape the backward kernels refuse raises before any backward runs
+    # (the forward kernel takes more head dims than they do)
+    if q.device.type != "cpu":
+        reason = kernel_unsupported_reason(q.shape[2], q.shape[3], q.dtype)
+        if reason is not None:
+            raise ValueError(f"flash_attention kernel: {reason}")
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_node_backward(ctx, dout, dlse):
+    """dQ, dK and dV of ``(O, lse)``: on the card ``backward_delta``, the
+    dK/dV kernel and the dQ kernel, as ``FlashAttention.backward`` runs
+    them, with lse's gradient folded into delta (``d lse / d S = P``, so
+    ``dS = P (dP - (delta - dlse))``); on the CPU autograd through the
+    plain forward.  Autograd passes zeros for an output no loss reads
+    (lse, on the training path)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    b, n, s, _ = q.shape
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o, l = flash_attention_plain(*leaves, ctx.causal, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(
+                (o, l), leaves, (dout, dlse.reshape(b * n, s)))
+        return dq, dk, dv, None, None
+    # the dO rows must be contiguous for the kernels' 16-byte loads
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    delta = backward_delta(dout, out) - dlse.reshape(b * n, s)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse.view(b * n, s),
+                                     delta, ctx.causal, ctx.scale)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse.view(b * n, s), delta,
+                                ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None
 
 
 def _register_flash_node():
     """``torch.ops.paddle_tpu_torch.flash_attention(q, k, v, causal,
-    scale)``: the flash forward as one operator, so a graph captured with
-    fake tensors (``distributed.auto_parallel.capture_graph``) holds
-    attention as one node, which launches the kernel when the graph runs.
-    Its fake version only makes the output's shape: a capture counts no
-    launch.  Registered once a process (a second copy of this module
-    takes the first one's)."""
+    scale) -> (O, lse)``: the flash forward as one operator, so a graph
+    captured with fake tensors (``distributed.auto_parallel.
+    capture_graph``) holds attention as one node, which launches the
+    kernel when the graph runs.  It returns lse ([B, N, S] fp32, what
+    ``FlashAttention.forward`` saves) so that its autograd formula runs
+    the two backward kernels without a second forward launch.  Its fake
+    version only makes the outputs' shapes: a capture counts no launch.
+    Registered once a process (a second copy of this module takes the
+    first one's)."""
     try:
         return torch.ops.paddle_tpu_torch.flash_attention.default
     except (AttributeError, RuntimeError):
@@ -409,6 +458,8 @@ def _register_flash_node():
     op = torch.library.custom_op("paddle_tpu_torch::flash_attention",
                                  _flash_node, mutates_args=())
     op.register_fake(_flash_node_fake)
+    op.register_autograd(_flash_node_backward,
+                         setup_context=_flash_node_setup)
     return torch.ops.paddle_tpu_torch.flash_attention.default
 
 
@@ -427,11 +478,11 @@ def flash_attention_bnsd(q, k, v, *, causal: bool = False,
     ``flash_attention_bwd_dq.launches``), or raises: a shape or dtype the
     kernels do not take raises ``ValueError`` with the reason.  Fake
     tensors (a graph capture) take ``flash_attention_node``, the forward
-    as one operator."""
+    as one operator (its output 0)."""
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
     if is_fake(q):
-        return flash_attention_node(q, k, v, bool(causal), scale)
+        return flash_attention_node(q, k, v, bool(causal), scale)[0]
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale)[0]
     return FlashAttention.apply(q, k, v, bool(causal), scale)

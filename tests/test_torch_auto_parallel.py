@@ -144,10 +144,15 @@ def test_dtensor_from_fn_and_shard_op():
 
 
 def test_engine_and_strategy_are_not_ported_yet():
-    for cls in (A.Engine, A.Strategy):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue 1, item 9"):
-            cls()
+    """Step 6b has since ported them (the name is the stubs' test's): the
+    package exports the working ``Engine`` and ``Strategy``, no stub
+    raises ``NotImplementedError``; ``tests/test_torch_engine.py`` holds
+    them against the JAX package."""
+    from paddle_tpu_torch.distributed.auto_parallel import engine, strategy
+
+    assert A.Engine is engine.Engine and A.Strategy is strategy.Strategy
+    assert A.Strategy().to_dict() == JA.Strategy().to_dict()
+    assert A.Engine(device="cpu").history == {"loss": []}
 
 
 # ---------------------------------------------------------------------------

@@ -307,9 +307,11 @@ def _sharded_prefetch():
 def _sep_step(fleet, st):
     """At sep 2 ``distributed_model`` gives the module itself, whose
     output is the module's."""
-    from paddle_tpu_torch.nn.layers import Linear
+    from paddle_tpu_torch.nn.layers import Linear, init_weights
 
     lin = Linear(4, 4, device="cpu")
+    # drawn weights: an allocated one may hold NaN, which equals nothing
+    init_weights(lin, 0)
     model = fleet.distributed_model(lin)
     assert model is lin
     x = torch.ones((2, 4))
@@ -435,9 +437,11 @@ def _sharded_step(fleet, st):
     replicas, and ``group_sharded_parallel`` at ``p_g_os`` steps it."""
     from paddle_tpu_torch.distributed import DataParallel
     from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
-    from paddle_tpu_torch.nn.layers import Linear
+    from paddle_tpu_torch.nn.layers import Linear, init_weights
 
-    model = fleet.distributed_model(Linear(4, 4, device="cpu"))
+    lin = Linear(4, 4, device="cpu")
+    init_weights(lin, 0)          # an allocated weight may not be finite
+    model = fleet.distributed_model(lin)
     assert isinstance(model, DataParallel) and model.num_replicas == 2
     opt = fleet.distributed_optimizer(AdamW(parameters=model.parameters()))
     model, opt, _ = group_sharded_parallel(model, opt, "p_g_os")
@@ -483,6 +487,38 @@ def _auto_parallel_propagated():
     assert torch.equal(run(x, w).gather(), x @ w)
 
 
+def _auto_parallel_engine():
+    """``Engine.plan`` over four CPU positions, then one ``fit`` step
+    through the propagation executor."""
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0)
+    model = GPTForPretraining(cfg, device="cpu")
+    eng = ap.Engine(model=model, loss=GPTPretrainingCriterion(cfg),
+                    optimizer=AdamW(parameters=model.parameters()),
+                    device="cpu", devices=["cpu"] * 4)
+    n = sum(p.numel() for p in model.parameters())
+    try:
+        best = eng.plan(cluster=ap.ClusterSpec(n_devices=4, hbm_bytes=8 * n,
+                                               flops=1e12))
+        ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (4, 16))
+        hist = eng.fit([(ids, ids)], verbose=0)
+    finally:
+        M.set_mesh(None)
+    assert best.mesh["mp"] > 1 and np.isfinite(hist["loss"]).all()
+
+
+def _auto_parallel_strategy():
+    """A ``Strategy`` from a nested dict, and its refusal of a key."""
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+
+    st = ap.Strategy({"amp": {"enable": True}, "seed": 3})
+    assert st.amp.enable and st.to_dict()["seed"] == 3
+    with pytest.raises(ValueError, match="unknown Strategy keys"):
+        ap.Strategy({"bogus": 1})
+
+
 # every refused knob: (how to provoke it, words its item's title must hold)
 REFUSALS = {
     "layered gpt sp copies under dp replicas": (
@@ -495,13 +531,6 @@ REFUSALS = {
     "predictor saved program": (
         lambda: inference.create_predictor(inference.Config("model")),
         "long-tail"),
-    "auto_parallel engine": (
-        lambda: __import__("paddle_tpu_torch.distributed.auto_parallel",
-                           fromlist=["x"]).Engine(model=None),
-        "auto_parallel"),
-    "auto_parallel strategy": (
-        lambda: __import__("paddle_tpu_torch.distributed.auto_parallel",
-                           fromlist=["x"]).Strategy(), "auto_parallel"),
 }
 
 
@@ -598,6 +627,8 @@ PORTED = {
                                 "auto_parallel"),
     "auto_parallel propagation": (_auto_parallel_propagated, 9,
                                   "auto_parallel"),
+    "auto_parallel engine": (_auto_parallel_engine, 9, "auto_parallel"),
+    "auto_parallel strategy": (_auto_parallel_strategy, 9, "auto_parallel"),
 }
 
 

@@ -25,8 +25,9 @@ both axes, ("dp", "mp"), in one dim.  The port's pass is given the (2,
 - the JAX scan tests, unrolled: the same 3-slab loop in Python;
 - the port's 2-layer layered GPT captured whole at (dp 2, mp 2): a spec
   for every node and a replicated scalar loss (the JAX counterpart goes
-  through its ``Engine``, which is not ported yet); at head_dim 64 and 128
-  positions its attention is one flash node, head-sharded, which the
+  through its ``Engine``; ``tests/test_torch_engine.py`` holds the
+  port's); at head_dim 64 and 128 positions its attention is one flash
+  node (output 0 of ``(O, lse)``), head-sharded, which the
   executor runs once a position and layer on the position's block, with
   no call during the capture, and the output equals the unplaced model's
   (rtol 1e-4, atol 1e-5), a vocabulary-parallel word table included.
@@ -411,7 +412,9 @@ def test_flash_node_is_one_head_sharded_node_run_on_blocks(monkeypatch):
     run = apply_propagation(fwd, mesh, specs, *tensors, ids)
     res = run.propagation
     for n in _nodes(res.graph, "flash_attention"):
-        assert res.var_specs[n].dims == ("dp", "mp", None, None)
+        out_spec, lse_spec = res.var_specs[n]           # (O, lse)
+        assert out_spec.dims == ("dp", "mp", None, None)
+        assert lse_spec.dims == ("dp", "mp", None)
     assert calls == []
     out = run(*tensors, torch.from_numpy(ids))
     assert calls == [(2, 2, 128, 64)] * (4 * 2)       # positions x layers

@@ -53,7 +53,16 @@ first runs the same MLP through the tree at DIR's ``pp_spmd.checkpointed``
 and ``fleet.recompute`` (and ``torch.utils.checkpoint`` itself), in a
 process of its own, and prints how each ended.  ``--auto-parallel`` runs
 phase 55 alone (auto_parallel's annotations over the captured layered
-GPT, run per mesh position through the flash kernel).
+GPT, run per mesh position through the flash kernel).  ``--engine`` runs
+phase 56 alone (auto_parallel's ``Engine`` at GPT-3 13B widths, 2 layers:
+``cost``, ``plan`` over four positions of the card, ``fit`` through the
+propagation executor against an unplanned Engine, the checkpoint and the
+fp32 copy); with ``--cards 4`` the plan's four positions, and the fp32
+copy's, are four distinct cards.  ``--serve-cluster`` times phases 41-44
+(sharded, int8, disaggregated and elastic serving) in a process of its
+own after the kernels are built; with ``--parent DIR`` in turns from the
+tree unpacked at DIR and from this one (parent, this, this, parent), so
+the two compare on one machine.
 Run from the repository root:
 
     python3 tools/port_mesh_probe.py [--steps N] [--parent DIR]
@@ -68,6 +77,8 @@ Run from the repository root:
     python3 tools/port_mesh_probe.py --cards 4 --recompute-interval 1
     python3 tools/port_mesh_probe.py --recompute [--parent DIR]
     python3 tools/port_mesh_probe.py --auto-parallel
+    python3 tools/port_mesh_probe.py --engine [--cards 4]
+    python3 tools/port_mesh_probe.py --serve-cluster [--parent DIR]
 
 It exits nonzero when a check fails or there is no card.
 """
@@ -166,6 +177,37 @@ def _recompute_at(tree: str):
     print(run.stdout[-6000:] or run.stderr[-3000:], flush=True)
 
 
+SERVE_CLUSTER = """
+import sys, time, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+port = cs.import_port()
+port["build"].build()
+for n, fn in ((41, cs.phase_sharded_serve), (42, cs.phase_sharded_int8),
+              (43, cs.phase_disagg), (44, cs.phase_cluster_card_vs_cpu)):
+    t0 = time.perf_counter()
+    fn(port)
+    print(f"[time] phase {n} {time.perf_counter() - t0:.1f} s", flush=True)
+"""
+
+
+def _serve_cluster(trees):
+    """Phases 41-44 from each tree in ``trees``, each in a process of its
+    own (which builds its tree's kernels first, untimed): their times."""
+    for tree in trees:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", SERVE_CLUSTER], cwd=tree,
+                             capture_output=True, text=True, timeout=1200)
+        lines = [x for x in run.stdout.splitlines() if x.startswith("[time]")]
+        print(f"[mesh_probe] phases 41-44 from {tree}: rc {run.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s with the build; "
+              + "; ".join(lines), flush=True)
+        if run.returncode:
+            print(run.stderr[-3000:], flush=True)
+            raise RuntimeError(f"phases 41-44 failed in {tree}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=0,
@@ -196,6 +238,10 @@ def main() -> int:
                     help="phase 54 alone (a recompute across devices)")
     ap.add_argument("--auto-parallel", action="store_true",
                     help="phase 55 alone (auto_parallel)")
+    ap.add_argument("--engine", action="store_true",
+                    help="phase 56 alone (auto_parallel's Engine)")
+    ap.add_argument("--serve-cluster", action="store_true",
+                    help="phases 41-44's times (with --parent, in turns)")
     args = ap.parse_args()
     dp_run = bool(args.dp) or (args.recompute_interval is not None
                                and not args.cards) \
@@ -224,6 +270,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {cs.card_line()}", flush=True)
+    if args.serve_cluster:
+        _serve_cluster([os.path.abspath(args.parent), ROOT, ROOT,
+                        os.path.abspath(args.parent)] if args.parent
+                       else [ROOT])
+        return 0
     if args.parent and args.recompute:
         _recompute_at(os.path.abspath(args.parent))
     elif args.parent and args.generate and args.cards >= 4:
@@ -256,6 +307,10 @@ def main() -> int:
             p["torch"], cs.recompute_cases(p))),)
     elif args.auto_parallel:
         phases = (("55", cs.phase_auto_parallel),)
+    elif args.engine:
+        cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
+                 else None)
+        phases = (("56", lambda p: cs.phase_engine(p, cards)),)
     elif args.sp:
         cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
                  else None)
