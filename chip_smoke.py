@@ -610,6 +610,10 @@ SERVE_LAYERS = 24
 # phases 41-43's depth: GPT-3 1.3B's width at 4 of its layers (the
 # cluster's placement, lifecycle and hand-off do not grow with depth)
 SHARD_LAYERS = 4
+# phases 26-29's depth: GPT-3 1.3B's width at 4 of its layers
+# (the prefix cache, the watchdog, speculation and LoRA do not grow with
+# depth; phase 57 serves LoRA and speculation at all 24, placed and not)
+PATHS_LAYERS = 4
 DEVICE = "cuda"
 
 
@@ -4136,9 +4140,10 @@ def phase_prefix_cache(port, model, fp32_model):
         n_launch = counts.pop("ragged")
         m = eng.metrics()
         fused = m["fused_steps"] - m0["fused_steps"]
-        _check(n_launch == fused * SERVE_LAYERS and not any(counts.values()),
+        L = model.config.num_layers
+        _check(n_launch == fused * L and not any(counts.values()),
                f"prefix {kv}: ragged launches {n_launch} != fused steps "
-               f"{fused} x 24 (others {counts})")
+               f"{fused} x {L} (others {counts})")
         _all_done(port, f"prefix {kv}", reqs, SERVE_NEW_TOKENS)
         _no_recovery(f"prefix {kv}", eng)
         hits = {k: m[k] - m0[k] for k in ("prefix_hits",
@@ -4325,10 +4330,11 @@ def phase_watchdog(port, model, fp32_model):
                and d["failed"] == sum(v for k, v in by_error.items()
                                       if k != "DONE"),
                f"watchdog {kv}: the implicated requests {by_error}")
-        _check(n_launch == d["fused_steps"] * SERVE_LAYERS
+        L = model.config.num_layers
+        _check(n_launch == d["fused_steps"] * L
                and not any(counts.values()),
                f"watchdog {kv}: launches {n_launch} != fused steps "
-               f"{d['fused_steps']} x 24 ({counts})")
+               f"{d['fused_steps']} x {L} ({counts})")
         _check(mem1 - mem0 < pool_bytes // 2,
                f"watchdog {kv}: device memory did not come back "
                f"({mem0} -> {mem1})")
@@ -4402,7 +4408,7 @@ def phase_speculative(port, model, fp32_model, serve_tps):
     """Phase 28; ``serve_tps``: phase 3's tokens/s, printed beside."""
     torch = port["torch"]
     se, spe = port["ServingEngine"], port["SpeculativeEngine"]
-    vocab = model.config.vocab_size
+    vocab, L = model.config.vocab_size, model.config.num_layers
     prompts = _serve_prompts(np.random.RandomState(28), vocab)
     launches = {}
     truncated = port["truncated_draft"](model, 2)
@@ -4418,12 +4424,11 @@ def phase_speculative(port, model, fp32_model, serve_tps):
               f"phase 3: {serve_tps:.1f} tokens/s)")
         drafts = [("truncated_draft(target, 2)", truncated, 2)]
         if kv == "bfloat16":
-            drafts.append(("the target itself", model, SERVE_LAYERS))
+            drafts.append(("the target itself", model, L))
             # all but the last block: a draft that agrees in part, so
             # verify runs commit partial acceptances on the card too
-            drafts.append((f"truncated_draft(target, {SERVE_LAYERS - 1})",
-                           port["truncated_draft"](model, SERVE_LAYERS - 1),
-                           SERVE_LAYERS - 1))
+            drafts.append((f"truncated_draft(target, {L - 1})",
+                           port["truncated_draft"](model, L - 1), L - 1))
         launches[kv] = 0
         for name, draft, dl in drafts:
             eng = spe(model, draft, spec_k=SPEC_K, **_engine_kw(kv_dtype=kv))
@@ -4456,12 +4461,12 @@ def phase_speculative(port, model, fp32_model, serve_tps):
                   f"run; ragged launches: target {target_l}, draft "
                   f"{draft_l}")
             _check(d["spec_verify_steps"] == d["fused_steps"]
-                   and target_l == d["spec_verify_steps"] * SERVE_LAYERS
+                   and target_l == d["spec_verify_steps"] * L
                    and draft_l == d["spec_draft_steps"] * dl
                    and not any(counts.values()),
                    f"speculative {kv} {name}: launches {total} (draft "
                    f"{draft_l}) against verify {d['spec_verify_steps']} x "
-                   f"24 + draft {d['spec_draft_steps']} x {dl} ({counts})")
+                   f"{L} + draft {d['spec_draft_steps']} x {dl} ({counts})")
             if draft is model:
                 # the draft is the target: a proposal is rejected only
                 # where the draft's bf16 argmax and the verify run's part,
@@ -4560,8 +4565,10 @@ def phase_lora(port, model, fp32_model):
         fused = eng.metrics()["fused_steps"] - m0["fused_steps"]
         _all_done(port, f"lora {tag}", reqs, SERVE_NEW_TOKENS)
         _no_recovery(f"lora {tag}", eng)
-        _check(n_launch == fused * SERVE_LAYERS and not any(counts.values()),
-               f"lora {tag}: launches {n_launch} != {fused} x 24")
+        _check(n_launch == fused * cfg.num_layers
+               and not any(counts.values()),
+               f"lora {tag}: launches {n_launch} != {fused} x "
+               f"{cfg.num_layers}")
         # evicting a seated tenant is refused, typed
         r = eng.submit(prompts[1][:64], 4, adapter=names[1])
         eng.step()
@@ -5792,14 +5799,16 @@ def _profiled_step_ms(port, run):
 
 
 def _sharded_run(port, name, model, dp, mp, want, bound="bfloat16",
-                 profile_it=False, threads=False, **kw):
+                 profile_it=False, threads=False, profile_short=False, **kw):
     """One sharded serve of phase 3's traffic at (dp, mp); holds the
     placement, launches, per-shard pools (an int8 pool's scales sharded
     on the head axis), ledgers and parity (``GAP_BOUND[bound]`` against
     ``want``, the single engine's output ids).  ``threads``: step the
     co-resident replicas on the cluster's thread pool, as replicas on
-    disjoint cards step (its rule patched for this run).  Returns the
-    run's numbers."""
+    disjoint cards step (its rule patched for this run).  ``profile_it``
+    profiles the whole traffic again, ``profile_short`` a short drive
+    (``PLACED_PROFILED``: its kernel ms a tick).  Returns the run's
+    numbers."""
     torch, s, sharded = port["torch"], port["serving"], port["sharded"]
     cfg = model.config
     before = sum(port["serving_mesh"].weight_bytes_by_device(model).values())
@@ -5867,12 +5876,15 @@ def _sharded_run(port, name, model, dp, mp, want, bound="bfloat16",
         _no_recovery(name, rep)
     tokens = sum(len(r.tokens) for r in reqs)
     # weight bytes of replica 0: on the card (every shard co-resident),
-    # and what each shard's card would hold on distinct cards
+    # and what each shard's card would hold on distinct cards (where the
+    # shards do lie on distinct cards, each holds a copy of the replicated
+    # tensors, so only the shards' share is below the whole)
     srv = port["serving_mesh"]
     card_bytes = sum(srv.weight_bytes_by_device(
         eng.replicas[0].model).values())
     shard_bytes = srv.shard_weight_bytes(eng.replicas[0].model)
-    _check(mp == 1 or (card_bytes <= before
+    co_resident = len(set(eng.meshes[0])) == 1
+    _check(mp == 1 or ((card_bytes <= before or not co_resident)
                        and max(shard_bytes) < card_bytes),
            f"{name}: replica 0 holds {card_bytes} bytes of weights on the "
            f"card ({before} unsharded), {shard_bytes} a shard")
@@ -5885,6 +5897,10 @@ def _sharded_run(port, name, model, dp, mp, want, bound="bfloat16",
         f2 = eng.metrics()["fused_steps"] - f1
         if prof is not None:
             prof = (prof[0] / f2, prof[1] / f2, prof[2])
+    if profile_short:
+        n, new = PLACED_PROFILED
+        prof = _steps_profiled(port, lambda: len(_drive_cluster(
+            port, eng, prompts[:n], new)[2]))
     got = [r.output_ids() for r in reqs]
     eng.close()
     # the gaps are read from the whole model (replica 0's weights)
@@ -8352,7 +8368,7 @@ def _placed_serve(port, name, model, ref, kv_dtype, per_layer):
            f" (want {L}), other kernels {counts}, placed {placed}, ledger "
            f"free {free}")
     return dict(tps=tokens / dt, step_ms=1e3 * float(np.mean(step_s)),
-                fused=fused, launches=counts["ragged"], same=same)
+                fused=fused, launches=counts["ragged"], same=same, want=want)
 
 
 def _mesh_gen_cpu(port):
@@ -8434,8 +8450,10 @@ def phase_mesh_generate(port, kept, cpu=True):
     before; then the layered GPT-3 1.3B at {"mp": 2} with
     ``use_tensor_parallel`` loaded from phase 35's model the same way; the
     2-layer fp32 copy against the CPU; the kernels at the per-shard
-    shapes.  ``cpu=False`` leaves the 2-layer copy out.  Returns the
-    numbers and the launches by path."""
+    shapes.  ``cpu=False`` leaves the 2-layer copy out.  Keeps in
+    ``kept`` for phase 57 the unplaced twin (``"ref"``) and the layered
+    models with the unplaced one's bf16 serve (``"layered"``).  Returns
+    the numbers and the launches by path."""
     torch = port["torch"]
     t_phase = time.perf_counter()
     laps = [t_phase]
@@ -8483,7 +8501,8 @@ def phase_mesh_generate(port, kept, cpu=True):
     _check(after[0] == before[0] and same_grads,
            "a training step after generation differs from one before it")
     del after
-    del before, ref, want, wlogits
+    del before, want, wlogits
+    kept["ref"] = ref
     torch.cuda.empty_cache()
     # the layered GPT: phase 35's weights (its seed), placed at mp 2
     lcfg = port["gpt_1p3b"]()
@@ -8504,8 +8523,7 @@ def phase_mesh_generate(port, kept, cpu=True):
             port, "layered mp 2", lmodel, lref, kv, MESH_GEN_LAYERED_MP)
         launches["ragged" if kv == "bfloat16" else "ragged_int8"] += \
             r["launches"]
-    del lref, lmodel
-    torch.cuda.empty_cache()
+    kept["layered"] = (lmodel, lref, out["layered"]["bfloat16"].pop("want"))
     lap("layered generate and serves")
     cpu = _mesh_gen_cpu(port) if cpu else {}
     lap("2-layer copies, card and CPU")
@@ -8608,6 +8626,331 @@ def phase_placed_batches(port, kept):
     torch.cuda.empty_cache()
     print(f"[time] phase 53 {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 57: fault 11 on one card, then serving from the placed models with
+# per-request LoRA, a speculative draft and the sharded engine
+# ---------------------------------------------------------------------------
+
+# fault 11's run: phase 50's 2-layer recipe at dp 2 x pp 2, replica 0's
+# stages on the card and replica 1's on the CPU (the CPU half ~1 s)
+SCALER_HYBRID = {"dp_degree": 2, "pp_degree": 2}
+SCALER_DEVICES = (f"{DEVICE}:0", f"{DEVICE}:0", "cpu", "cpu")
+# a profiled drive: this many of a path's prompts, this many new tokens
+# (the profiler's teardown grows with its events)
+PLACED_PROFILED = (4, 8)
+# the agreeing drafts' drive (all but the target's last two layers, and
+# its whole depth): this many of phase 28's prompts, this many new tokens
+PLACED_AGREEING = (4, 16)
+
+
+def phase_scaler_across_devices(port):
+    """Phase 57a, fault 11: the recipe (``_zero_run``, no ZeRO) at
+    ``SCALER_HYBRID`` over ``SCALER_DEVICES`` with a ``GradScaler`` on the
+    card; replica 1's losses lie on its last stage's device (the CPU).  A
+    step whose gradient there holds an inf (phase 50's skipped-step
+    check) leaves every position of both replicas bit-unchanged, launches
+    no AdamW and halves the scale; the scale's copy on each other device a
+    loss lies on is the master's bits after it; a finite step then gives
+    the all-card run's loss (``TRAIN_LOSS_ATOL``).  At the parent the
+    scaler raised on the first loss off the card."""
+    torch = port["torch"]
+    t0 = time.perf_counter()
+    cfg = _fleet_tiny(port)
+    rng = np.random.RandomState(157)
+    batches = [tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                  (8, 128)))
+                     for _ in range(2)) for _ in range(2)]
+    devices = list(SCALER_DEVICES)
+    # each replica's last stage: where its losses lie
+    last = [torch.device(devices[1]), torch.device(devices[3])]
+    scaler = port["amp"].GradScaler(init_loss_scaling=2.0 ** 8,
+                                    device=DEVICE)
+    seen = {}
+
+    def inject(opt):
+        held = [p for g in opt.param_groups for p in g["params"]]
+        seen["before"] = [t.detach().clone() for t in held]
+        seen["held"] = held
+        there = [p for p in held if p.device == last[1]]
+        seen["there"] = len(there)
+        there[len(there) // 2].grad.view(-1)[0] = float("inf")
+
+    skip = _zero_run(port, cfg, devices, SCALER_HYBRID, None, batches[:1],
+                     None, scaler=scaler, inject=inject)
+    state = skip["init"]
+    unchanged = all(torch.equal(skip["weights"][k], v.float().cpu())
+                    for k, v in state.items()) and all(
+        torch.equal(a, b) for a, b in zip(seen["before"], seen["held"]))
+    master = scaler._scale
+    copies = {str(d): torch.equal(c.cpu(), master.cpu())
+              for d, c in scaler._copies.items()}
+    want_copies = sorted({str(d) for d in last if d != master.device})
+    skipped_scale = scaler.get_loss_scaling()
+    runs = {}
+    for name, devs in (("mixed", devices), ("card", _mesh_devices(4))):
+        sc = port["amp"].GradScaler(init_loss_scaling=2.0 ** 8,
+                                    device=DEVICE)
+        runs[name] = _zero_run(port, cfg, devs, SCALER_HYBRID, None,
+                               batches[1:], state, scaler=sc)
+        runs[name]["scale"] = sc.get_loss_scaling()
+    diff = abs(runs["mixed"]["losses"][0] - runs["card"]["losses"][0])
+    print(f"[scaler_across_devices] fault 11: {cfg.num_layers}-layer recipe "
+          f"at {SCALER_HYBRID} over {devices} ({time.perf_counter() - t0:.1f}"
+          f" s): the step with an inf in one of replica 1's {seen['there']} "
+          f"gradients on {last[1]}: weights unchanged {unchanged}, launches "
+          f"{skip['launches']}, scale {skipped_scale} (from {2.0 ** 8}); the "
+          f"scale's copies bit-equal to the master {copies}; a finite step "
+          f"mixed {runs['mixed']['losses']} against the card "
+          f"{runs['card']['losses']} (diff {diff!r}, tol {TRAIN_LOSS_ATOL}), "
+          f"scales {runs['mixed']['scale']} and {runs['card']['scale']}")
+    _check(unchanged and skip["launches"]["adamw"] == 0
+           and skipped_scale == 2.0 ** 7 and seen["there"] > 0,
+           "fault 11: the scaler's skipped step moved a position")
+    _check(sorted(copies) == want_copies and all(copies.values()),
+           f"fault 11: the scale's copies {copies}, want {want_copies}")
+    _check(diff <= TRAIN_LOSS_ATOL
+           and runs["mixed"]["scale"] == runs["card"]["scale"] == 2.0 ** 8,
+           "fault 11: the mixed step parts from the card's")
+    return skip["launches"]
+
+
+def _steps_profiled(port, drive):
+    """``drive()`` (returning its engine steps) under the profiler: (all
+    kernels' ms a step, the ragged kernel's ms a step, busy share, steps),
+    or None when the profiler saw no device activity."""
+    box = {}
+    prof = _profiled_step_ms(port, lambda: box.setdefault("n", drive()))
+    if prof is None:
+        return None
+    n = box["n"]
+    return prof[0] / n, prof[1] / n, prof[2], n
+
+
+def _profiled_serve(port, eng, prompts, adapters=None):
+    """A short drive of ``eng`` (``PLACED_PROFILED``) under the profiler
+    (:func:`_steps_profiled`)."""
+    n, new = PLACED_PROFILED
+    return _steps_profiled(port, lambda: _drive(
+        port, eng, prompts[:n], new, adapters and adapters[:n])[2])
+
+
+def _placed_path(port, name, eng, prompts, adapters=None, draft=None,
+                 new=SERVE_NEW_TOKENS, profile=True):
+    """Phase 3's drive of ``eng`` (``prompts``, ``new`` tokens each, a
+    warm-up first): the output ids, tokens/s, host ms a step, the
+    engine's step counts and ragged launches (``draft``: the draft's
+    apart, :func:`_count_draft`), and with ``profile`` a profiled short
+    drive."""
+    torch = port["torch"]
+    eng.generate_batch([prompts[0][:64]], 2,
+                       **({"adapter": adapters[0]} if adapters else {}))
+    box = [0]
+    if draft:
+        _count_draft(port, eng, box)
+    m0 = eng.metrics()
+    _reset_launches(port)
+    box[0] = 0
+    reqs, dt, steps = _drive(port, eng, prompts, new, adapters)
+    counts = _launch_counts(port)
+    m = eng.metrics()
+    d = {k: m[k] - m0[k] for k in ("fused_steps", "spec_verify_steps",
+                                    "spec_draft_steps",
+                                    "spec_proposed_tokens",
+                                    "spec_accepted_tokens") if k in m}
+    _all_done(port, name, reqs, new)
+    _no_recovery(name, eng)
+    tokens = len(reqs) * new
+    out = dict(got=[r.output_ids() for r in reqs], tps=tokens / dt,
+               step_ms=1e3 * dt / steps, steps=steps, draft=box[0],
+               ragged=counts.pop("ragged"), other=counts, **d)
+    prof = out["prof"] = (_profiled_serve(port, eng, prompts, adapters)
+                          if profile else None)
+    eng.close()
+    torch.cuda.empty_cache()
+    print(f"[placed_serving] {name}: {len(reqs)} requests DONE, "
+          f"{out['tps']:.1f} tokens/s, {steps} steps, {out['step_ms']:.2f} "
+          f"ms a step (host clock); {d}; ragged launches {out['ragged']}"
+          + (f" (draft {out['draft']})" if draft else "")
+          + ("" if not profile else
+             "; the profiler saw no device activity" if prof is None else
+             f"; a profiled drive of {PLACED_PROFILED[0]} requests x "
+             f"{PLACED_PROFILED[1]} tokens: {prof[0]:.3f} ms of kernels a "
+             f"step (ragged {prof[1]:.3f}), busy {prof[2]:.3f}, {prof[3]} "
+             "steps"))
+    return out
+
+
+def _lora_parity(port, name, got, want, tenants, pool, base):
+    """Each tenant's tokens of ``got`` against ``want`` under the parity
+    rule; where a tenant's request parts, the gap is read from ``base``
+    with the tenant's merged weights (the null adapter's from ``base``)."""
+    for t in sorted(set(tenants), key=str):
+        idx = [i for i, x in enumerate(tenants) if x == t]
+        g, w = [got[i] for i in idx], [want[i] for i in idx]
+        oracle = base
+        if t is not None and any(not np.array_equal(a, b)
+                                 for a, b in zip(g, w)):
+            oracle = port["GPT"](base.config, device=DEVICE,
+                                 dtype="bfloat16", seed=0)
+            oracle.load_state_dict(pool.merged_state_dict(base, t))
+        _parity(port, f"{name} adapter {t}", g, w, oracle,
+                GAP_BOUND["bfloat16"], "bfloat16")
+
+
+def _spec_held(port, name, runs, ref, mp, layers, depth):
+    """The placed and unplaced speculative runs of :func:`_placed_path`
+    (``runs``): each verify step ``mp x layers`` ragged launches placed
+    (``layers`` unplaced), each draft step ``mp x depth`` (``depth``),
+    nothing else launched, proposals made; the placed tokens against the
+    unplaced ones under the parity rule (the gap read from ``ref``)."""
+    want, got = runs["unplaced"], runs["placed (1, 2, 2)"]
+    for g, per_layer in ((want, 1), (got, mp)):
+        _check(g["spec_verify_steps"] == g["fused_steps"]
+               and g["ragged"] - g["draft"] == g["fused_steps"] * per_layer
+               * layers
+               and g["draft"] == g["spec_draft_steps"] * per_layer * depth
+               and not any(g["other"].values()) and g["spec_proposed_tokens"],
+               f"{name}: launches {g['ragged']} (draft {g['draft']}) "
+               f"against verify {g['spec_verify_steps']} and draft "
+               f"{g['spec_draft_steps']} steps at {per_layer} x "
+               f"({layers}, {depth})")
+    _parity(port, f"{name} vs unplaced", got["got"], want["got"], ref,
+            GAP_BOUND["bfloat16"], "bfloat16")
+
+
+def phase_placed_serving(port, kept):
+    """Phase 57b-d: phase 46's trained (1, 2, 2) GPT-3 1.3B (``kept``,
+    placed) against its unplaced twin (phase 52's ``kept["ref"]``, loaded
+    from its ``state_dict()``), each serving: phase 29's four adapters and
+    traffic (every fused step mp x L ragged launches placed, L unplaced);
+    phase 28's traffic speculatively with ``truncated_draft(model, 2)``
+    (placed over the same mesh: a verify step mp x L launches, a draft
+    step mp x 2), and short drives of it with drafts of L - 2 and L
+    layers, which agree with the target often enough that verify steps
+    commit accepted proposals (mp x depth a draft step; the whole depth
+    must have some accepted); then the layered GPT-3 1.3B placed at mp 2 (phase 52's)
+    through a ``ShardedServingEngine`` at (dp 1, mp 2) over the card twice
+    against the same engine over the unplaced layered model (mp x L a
+    replica step), after which the model has left its training mesh and
+    refuses training.  Tokens under the parity rule against the unplaced
+    runs.  Returns the ragged launches by path."""
+    torch, s = port["torch"], port["serving"]
+    se, spe = port["ServingEngine"], port["SpeculativeEngine"]
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[time] phase 57 {what} {now - laps[-1]:.1f} s")
+        laps.append(now)
+
+    model, ref = kept["1x2x2"], kept["ref"]
+    tm, cfg = model._train_mesh, model.config
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    launches = {}
+    # 57b: per-request LoRA, phase 29's adapters and traffic
+    pool = s.LoRAAdapterPool(cfg, num_adapter_pages=LORA_ADAPTERS,
+                             rank=LORA_RANK, dtype="bfloat16", stacked=True,
+                             device=DEVICE)
+    names = [f"tenant{i}" for i in range(LORA_ADAPTERS)]
+    for i, name in enumerate(names):
+        pool.register(name, s.random_adapter(cfg, LORA_RANK,
+                                             np.random.RandomState(290 + i)))
+    prompts = _serve_prompts(np.random.RandomState(29), vocab)
+    tenants = [names[i % 5] if i % 5 < LORA_ADAPTERS else None
+               for i in range(len(prompts))]
+    lora = {which: _placed_path(port, f"lora {which}", se(
+        m, lora=pool, **_engine_kw()), prompts, tenants)
+        for which, m in (("unplaced", ref), ("placed (1, 2, 2)", model))}
+    want, got = lora["unplaced"], lora["placed (1, 2, 2)"]
+    _check(want["ragged"] == want["fused_steps"] * L
+           and got["ragged"] == got["fused_steps"] * tm.mp * L
+           and not any(got["other"].values()),
+           f"placed lora: launches {got['ragged']} for "
+           f"{got['fused_steps']} fused steps (want {tm.mp} x {L} a step), "
+           f"{got['other']}")
+    _lora_parity(port, "placed lora vs unplaced", got["got"], want["got"],
+                 tenants, pool, ref)
+    launches["placed_lora"] = got["ragged"]
+    del pool
+    lap("LoRA")
+    # 57c: speculative decoding, phase 28's traffic, drafts of 2 layers
+    prompts = _serve_prompts(np.random.RandomState(28), vocab)
+    _set_mesh(port, (tm.dp, tm.pp, tm.mp))
+    draft = port["truncated_draft"](model, 2)
+    _set_mesh(port, None)
+    dm = draft._train_mesh
+    _check(dm is not None and (dm.pp, dm.mp) == (tm.pp, tm.mp),
+           f"the placed model's draft is placed at {dm}")
+    spec = {which: _placed_path(port, f"speculative k {SPEC_K} {which}", spe(
+        target, d, spec_k=SPEC_K, **_engine_kw()), prompts, draft=True)
+        for which, target, d in (
+            ("unplaced", ref, port["truncated_draft"](ref, 2)),
+            ("placed (1, 2, 2)", model, draft))}
+    _spec_held(port, "placed speculative", spec, ref, tm.mp, L, 2)
+    launches["placed_speculative"] = spec["placed (1, 2, 2)"]["ragged"]
+    del draft
+    torch.cuda.empty_cache()
+    # drafts that agree with the target: the verify step commits accepted
+    # proposals (and rolls the others back); the whole depth must
+    n, new = PLACED_AGREEING
+    agree = {}
+    for deep in (L - 2, L):
+        _set_mesh(port, (tm.dp, tm.pp, tm.mp))
+        draft = port["truncated_draft"](model, deep)
+        _set_mesh(port, None)
+        runs = agree[deep] = {which: _placed_path(
+            port, f"speculative k {SPEC_K} draft of {deep} layers {which}",
+            spe(target, d, spec_k=SPEC_K, **_engine_kw()), prompts[:n],
+            draft=True, new=new, profile=False)
+            for which, target, d in (
+                ("unplaced", ref, port["truncated_draft"](ref, deep)),
+                ("placed (1, 2, 2)", model, draft))}
+        _spec_held(port, f"placed speculative, draft of {deep}", runs, ref,
+                   tm.mp, L, deep)
+        launches[f"placed_speculative_draft_{deep}"] = \
+            runs["placed (1, 2, 2)"]["ragged"]
+        del draft
+        torch.cuda.empty_cache()
+    for which, g in agree[L].items():
+        _check(g["spec_accepted_tokens"] > 0,
+               f"speculative {which}: the whole-depth draft's "
+               f"{g['spec_proposed_tokens']} proposals, none accepted")
+    torch.cuda.empty_cache()
+    lap("speculative")
+    # 57d: the sharded engine over the placed layered model
+    lmodel, lref, lwant = kept.pop("layered")
+    parts = list(lmodel.parameters())
+    runs = {which: _sharded_run(port, f"placed_serving sharded {which}", m,
+                                1, MESH_GEN_LAYERED_MP, lwant,
+                                profile_short=True)
+            for which, m in (("unplaced layered", lref),
+                             ("placed layered mp 2", lmodel))}
+    freed = all(p.untyped_storage().nbytes() == 0 for p in parts)
+    ids = torch.from_numpy(np.random.RandomState(57).randint(
+        0, vocab, (1, 16))).to(DEVICE)
+    try:
+        lmodel(ids)
+        refused = False
+    except NotImplementedError as e:
+        refused = "queue 1, item 9" in str(e)
+    print(f"[placed_serving] the sharded engine took the layered model off "
+          f"its training mesh: placement {lmodel._train_mesh}, its "
+          f"{len(parts)} parts freed {freed}; training it again refused "
+          f"naming item 9: {refused}")
+    _check(lmodel._train_mesh is None and freed and refused,
+           "placed sharded: the training placement stayed or training ran")
+    launches["placed_sharded"] = runs["placed layered mp 2"]["launches"]
+    del lmodel, lref, parts
+    torch.cuda.empty_cache()
+    lap("sharded")
+    nums = {"lora": lora, "speculative": spec, "agreeing draft": agree,
+            "sharded": runs}
+    print(f"[time] phase 57 {time.perf_counter() - t_phase:.1f} s "
+          f"(launches {launches})")
+    return launches, nums
 
 
 # ---------------------------------------------------------------------------
@@ -9061,11 +9404,46 @@ def _engine_node_compare(port, shape):
     return errs, over
 
 
+def _engine_ckpt_round_trip(port, eng, model, opt, fresh):
+    """``eng``'s blocking ``save_checkpoint`` after its fit, loaded into
+    ``fresh()`` (a new (Engine, model, optimizer)): the position, the
+    weights, both moments and the beta powers must come back bit for bit.
+    Returns the save's and the load's seconds."""
+    torch = port["torch"]
+    try:
+        t0 = time.perf_counter()
+        eng.save_checkpoint(ENGINE_CKPT, step=ENGINE_STEPS, blocking=True)
+        t_save = time.perf_counter() - t0
+        _, fmodel, fopt = feng = fresh()
+        pos = feng[0].load_checkpoint(ENGINE_CKPT)
+        t_load = time.perf_counter() - t0 - t_save
+        sa, sb = model.state_dict(), fmodel.state_dict()
+        same_w = sa.keys() == sb.keys() and all(
+            torch.equal(sa[k], sb[k]) for k in sa)
+        same_m = all(
+            torch.equal(opt.state[p][m], fopt.state[q][m])
+            for p, q in zip(opt._params(), fopt._params())
+            for m in ("moment1", "moment2")) and \
+            (opt.beta1_pow, opt.beta2_pow) == (fopt.beta1_pow,
+                                               fopt.beta2_pow)
+    finally:
+        import shutil
+        shutil.rmtree(ENGINE_CKPT, ignore_errors=True)
+    print(f"[engine] save_checkpoint (blocking) {t_save:.2f} s, "
+          f"load_checkpoint into a fresh Engine {t_load:.2f} s: position "
+          f"{pos}, weights bit-equal {same_w}, moments and beta powers "
+          f"bit-equal {same_m}")
+    _check(pos == {"epoch": 0, "step": ENGINE_STEPS} and same_w and same_m,
+           "engine: the checkpoint round trip differs")
+    return t_save, t_load
+
+
 def _engine_fp32_copy(port, plan_mesh, devices):
     """The fp32 copy: an unplanned Engine on the CPU, then the same plan's
     fit on ``["cpu"] * 4`` and on the card's ``devices`` from the same
-    weights and batches.  Returns (worst loss and gradient differences,
-    the card run's launches)."""
+    weights and batches, the card's checkpoint round trip
+    (:func:`_engine_ckpt_round_trip`).  Returns (worst loss and gradient
+    differences, the card run's launches)."""
     torch, ap = port["torch"], port["auto_parallel"]
     cfg = port["gpt_tiny"](hidden_dropout=0.0, attention_dropout=0.0,
                            **AUTO_CPU_CFG)
@@ -9097,6 +9475,9 @@ def _engine_fp32_copy(port, plan_mesh, devices):
             torch.cuda.synchronize()
         runs[name] = (hist["loss"], {k: g.cpu() for k, g in grads.items()},
                       _launch_counts(port))
+        if name == "card":
+            _engine_ckpt_round_trip(port, eng, model, opt, lambda: _engine(
+                port, cfg, "float32", DEVICE, 57, devices, bf16_adamw=False))
         port["mesh"].set_mesh(None)
     worst = 0.0
     for a, b in (("cpu", "unplanned"), ("card", "unplanned"),
@@ -9122,9 +9503,11 @@ def phase_engine(port, devices=None):
     layers launches of each flash kernel a step at the local (8/dp, 40/mp,
     1024, 128) and one bf16 AdamW launch a parameter tensor; the node's
     backward kernels against the plain version (``ENGINE_BWD_ATOL``);
-    ``evaluate`` and ``predict``; ``save_checkpoint``/``load_checkpoint``
-    into a fresh Engine bit for bit; the fp32 copy planned on the CPU and
-    on the card (``ENGINE_CPU_TOL``).  Returns the launches and errors."""
+    ``evaluate`` and ``predict``; the fp32 copy planned on the CPU and on
+    the card (``ENGINE_CPU_TOL``), and the card's
+    ``save_checkpoint``/``load_checkpoint`` into a fresh Engine bit for bit
+    (at the copy's widths: the bf16 model's 5.4 GB took ~45 s).
+    Returns the launches and errors."""
     torch, ap, fa = port["torch"], port["auto_parallel"], port["fa"]
     t_phase = time.perf_counter()
     devices = list(devices or ENGINE_DEVICES)
@@ -9257,34 +9640,8 @@ def phase_engine(port, devices=None):
             ENGINE_BATCH, ENGINE_SEQ, cfg.vocab_size),
             f"engine: evaluate {ev}, predict {tuple(logits.shape)}")
         del logits
-        # the checkpoint: saved, then loaded into a fresh Engine
-        t0 = time.perf_counter()
-        eng.save_checkpoint(ENGINE_CKPT, step=ENGINE_STEPS, blocking=True)
-        t_save = time.perf_counter() - t0
-        fresh, fmodel, fopt = _engine(port, cfg, "bfloat16", DEVICE, 57,
-                                      devices)
-        pos = fresh.load_checkpoint(ENGINE_CKPT)
-        t_ckpt = time.perf_counter() - t0
-        sa, sb = model.state_dict(), fmodel.state_dict()
-        same_w = sa.keys() == sb.keys() and all(
-            torch.equal(sa[k], sb[k]) for k in sa)
-        same_m = all(
-            torch.equal(opt.state[p][m], fopt.state[q][m])
-            for p, q in zip(opt._params(), fopt._params())
-            for m in ("moment1", "moment2")) and \
-            (opt.beta1_pow, opt.beta2_pow) == (fopt.beta1_pow,
-                                               fopt.beta2_pow)
-        print(f"[engine] save_checkpoint (blocking) {t_save:.2f} s, "
-              f"load_checkpoint into a fresh Engine {t_ckpt - t_save:.2f} s: "
-              f"position {pos}, weights bit-equal {same_w}, moments and "
-              f"beta powers bit-equal {same_m}")
-        _check(pos == {"epoch": 0, "step": ENGINE_STEPS} and same_w
-               and same_m, "engine: the checkpoint round trip differs")
-        del fresh, fmodel, fopt, sa, sb
     finally:
         port["mesh"].set_mesh(prev)
-        import shutil
-        shutil.rmtree(ENGINE_CKPT, ignore_errors=True)
     del eng, model, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -9383,10 +9740,10 @@ def main() -> int:
     k["max_abs_err"] = max(k["max_abs_err"], npk["float"])
     ik["ragged"]["max_abs_err"] = max(ik["ragged"]["max_abs_err"],
                                       npk["int8"])
-    # phases 26-29 share GPT-3 1.3B bf16 (seed 0), and a 2-layer fp32 copy
-    # of its width for the exact checks
-    model = port["GPT"](port["gpt_1p3b"](), device=DEVICE, dtype="bfloat16",
-                        seed=0)
+    # phases 26-29 share GPT-3 1.3B bf16 (seed 0) at PATHS_LAYERS of its
+    # layers, and a 2-layer fp32 copy of its width for the exact checks
+    model = port["GPT"](port["gpt_1p3b"](num_layers=PATHS_LAYERS),
+                        device=DEVICE, dtype="bfloat16", seed=0)
     fp32_model = port["GPT"](port["gpt_1p3b"](num_layers=2), device=DEVICE,
                              dtype="float32", seed=1)
     by_path = {"serve": {"bfloat16": launches,
@@ -9455,9 +9812,17 @@ def main() -> int:
         "bfloat16": mg["cpu_launches"]["ragged"],
         "int8": mg["cpu_launches"]["ragged_int8"]}
     placed_launches = timed(53, phase_placed_batches, port, mesh_kept)
+    mark("52-53")
+    # phase 57: fault 11 (a GradScaler over replicas' losses on the card
+    # and the CPU), then serving from phase 46's placed (1, 2, 2) model
+    # and phase 52's placed layered one with LoRA, a speculative draft and
+    # the sharded engine
+    f11 = timed("57a", phase_scaler_across_devices, port)
+    placed_serving, _ = _kept(port, phase_placed_serving, port, mesh_kept)
+    by_path.update({p: {"bfloat16": n} for p, n in placed_serving.items()})
     del mesh_kept
     torch.cuda.empty_cache()
-    mark("52-53")
+    mark("57")
     # phase 48: the fleet API over the layered GPT at TP=2 PP=2
     fl = phase_fleet_train(port)
     for key in ("fwd", "dkv", "dq", "adamw"):
@@ -9539,6 +9904,8 @@ def main() -> int:
                            for name, run in fsp["runs"].items()})
         # phase 53's O1 step fed a batch placed over dp (no update)
         mesh_paths["train_placed_batch_2x2x2"] = placed_launches[key]
+        # phase 57a's skipped scaler step, replica 0 on the card
+        mesh_paths["train_fleet_scaler_card_and_cpu"] = f11[key]
         # phase 56's Engine.fit over its plan, each over all its steps
         mesh_paths["auto_parallel_fit"] = fe["launches"][key]
         if key != "adamw":

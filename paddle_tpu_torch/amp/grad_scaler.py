@@ -8,6 +8,12 @@ scale`` in fp32, cast back to its dtype, finiteness of the fp32 values)
 followed by one host read of the flag.  ``FusedTrainStep(scaler=)`` runs
 the same check without that read, keeping the flag and the counters on
 the device (``optimizer/fused_step.py``).
+
+The scale is one master tensor, which the checks read.  A loss that lies
+on another device (a pipeline whose data replicas end on different
+cards) is scaled by a copy of the master made there on its first use,
+as ``AdamW`` keeps its beta powers per device; every change of the
+master is copied to each copy, so they are equal bit for bit.
 """
 from __future__ import annotations
 
@@ -41,6 +47,9 @@ class AmpScaler:
         self._good_steps = 0
         self._bad_steps = 0
         self._found_inf = False
+        # device -> the master scale's copy there (``scale`` of a loss on
+        # another device)
+        self._copies = {}
 
     def is_enable(self) -> bool:
         return self._enable
@@ -56,10 +65,24 @@ class AmpScaler:
         """``var * scale`` (``var`` unchanged when disabled)."""
         if not self._enable:
             return var
-        if var.device != self._scale.device:
-            raise ValueError(f"GradScaler: the loss is on {var.device}, the "
-                             f"scale on {self._scale.device} (pass device=)")
-        return var * self._scale
+        return var * self._scale_on(var.device)
+
+    def _scale_on(self, device):
+        """The master scale, or its copy on ``device``: made from the
+        master on first use (to the host that copy waits for the card
+        once), then kept equal to it by :meth:`_set_scale`."""
+        if device == self._scale.device:
+            return self._scale
+        copy = self._copies.get(device)
+        if copy is None:
+            copy = self._copies[device] = self._scale.to(device)
+        return copy
+
+    def _set_scale(self, value):
+        """Write ``value`` into the master scale and each of its copies."""
+        self._scale.copy_(value)
+        for copy in self._copies.values():
+            copy.copy_(self._scale, non_blocking=copy.is_cuda)
 
     def unscale_(self, optimizer):
         """Unscale every gradient of ``optimizer`` in place and set
@@ -96,14 +119,14 @@ class AmpScaler:
             self._bad_steps += 1
             self._good_steps = 0
             if self._bad_steps >= self._decr_every:
-                self._scale.copy_(torch.clamp(
-                    self._scale * self._decr_ratio, min=1.0))
+                self._set_scale(torch.clamp(self._scale * self._decr_ratio,
+                                            min=1.0))
                 self._bad_steps = 0
         else:
             self._good_steps += 1
             self._bad_steps = 0
             if self._good_steps >= self._incr_every:
-                self._scale.mul_(self._incr_ratio)
+                self._set_scale(self._scale * self._incr_ratio)
                 self._good_steps = 0
         self._found_inf = False
 
@@ -123,8 +146,7 @@ class AmpScaler:
     def load_state_dict(self, state):
         """Take :meth:`state_dict`'s scale (a tensor, an array or a
         number) into this scaler's device tensor, and its counters."""
-        self._scale.copy_(torch.as_tensor(state["scale"],
-                                          dtype=torch.float32))
+        self._set_scale(torch.as_tensor(state["scale"], dtype=torch.float32))
         self._good_steps = int(state.get("good_steps", 0))
         self._bad_steps = int(state.get("bad_steps", 0))
 

@@ -17,14 +17,17 @@ __all__ = ["resolve_device", "canonical_device"]
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """``None`` -> ``cuda``; raises when a CUDA device is asked for and
-    none is present."""
+    none is present.  ``meta`` builds a module's skeleton (no storage,
+    nothing drawn), whose tensors are assigned after
+    (``load_state_dict(..., assign=True)``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available: the port runs on the card by "
             "default; pass device='cpu' to run on the CPU explicitly")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}: expected cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}: expected cuda, cpu or "
+                         "meta")
     return dev
 
 

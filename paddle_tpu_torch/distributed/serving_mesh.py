@@ -47,7 +47,7 @@ __all__ = [
     "shard_model_for_serving", "shard_paged_cache", "clone_model",
     "reduce_sum", "reduce_max", "broadcast", "unique_devices",
     "qkv_columns", "ShardedLayer", "unshard_model", "weight_bytes_by_device",
-    "shard_weight_bytes",
+    "shard_weight_bytes", "take_weights",
 ]
 
 Mesh = Tuple[torch.device, ...]
@@ -441,11 +441,10 @@ def shard_model_for_serving(model, mesh):
     forward) and the whole tensors they were cut from are dropped (module
     docstring).  Idempotent for one mesh and one weight dtype; a model
     sharded for another mesh, or quantized since, is gathered first
-    (:func:`unshard_model`)."""
-    if getattr(model, "_train_mesh", None) is not None:
-        raise ValueError(
-            "the model is placed on a training mesh and serves from its "
-            "placement: build its engine without mesh=")
+    (:func:`unshard_model`).  A model placed on a training mesh leaves
+    it first (its ``leave_training_mesh``), as the reference commits its
+    parameters from wherever they were placed."""
+    model.leave_training_mesh()
     mesh = tuple(canonical_device(d) for d in mesh)
     mp = len(mesh)
     cfg = model.config
@@ -494,7 +493,8 @@ def clone_model(model, model_factory=None):
     a sharded model's tensor-parallel weights are gathered from its
     shards into the clone.  ``model_factory`` builds the fresh instance
     instead, for classes that cannot be copied; the weights are then
-    copied into it by state-dict key.  The mode (train/eval) is copied."""
+    loaded into it by state-dict key (:func:`take_weights`).  The mode (train/eval) is
+    copied."""
     if model_factory is None:
         memo = {}
         if getattr(model, "_serving_shards", None) is not None:
@@ -506,15 +506,43 @@ def clone_model(model, model_factory=None):
             unshard_model(fresh)
         return fresh
     fresh = model_factory()
-    if model.weight_int8 and not fresh.weight_int8:
-        fresh.quantize_weights()           # the structure; values below
     whole = model
     if getattr(model, "_serving_released", False):
         whole = clone_model(model)
-    with torch.no_grad():
-        src = whole.state_dict()
-        for name, t in fresh.state_dict().items():
-            if src[name].device.type != "meta":   # a dropped fp slab
-                t.copy_(src[name])
+    take_weights(fresh, whole)
     fresh.train(model.training)
     return fresh
+
+
+@torch.no_grad()
+def take_weights(fresh, model):
+    """Load ``model``'s weights into ``fresh``, a new instance of its class
+    (a clone, or a truncated draft: each stacked ``[L, ...]`` slab cut to
+    ``fresh``'s first layers), by state-dict key through ``fresh``'s
+    ``load_state_dict`` (which cuts them onto a placed model's parts), and
+    quantize ``fresh`` as ``model`` is.  Where the int8 weights are state-
+    dict keys (an unplaced ``fresh``) it takes the quantized structure
+    first and then ``model``'s int8 values; a model placed on a training
+    mesh keeps them beside its parts, so a placed ``fresh`` quantizes
+    after loading the fp weights (the same values: the scales are per
+    layer and channel).  A tensor ``model`` dropped (on ``meta``: a sharded
+    quantized decoder's fp slabs, which serving never reads) stays as
+    ``fresh`` drew it."""
+    placed = getattr(fresh, "_train_mesh", None) is not None
+    int8 = model.weight_int8 and not fresh.weight_int8
+    if int8 and not placed:
+        fresh.quantize_weights()
+    src = model.state_dict()
+    want = fresh.state_dict()
+    lost = sorted(k for k in want if k not in src)
+    if lost:
+        raise ValueError(
+            f"the {type(model).__name__} holds no {lost} in its state dict: "
+            "a quantized model placed on a training mesh keeps its int8 "
+            "weights beside its parts; build the copy under that mesh")
+    fresh.load_state_dict(
+        {k: src[k] if src[k].shape == t.shape else src[k][:t.shape[0]]
+         for k, t in want.items() if src[k].device.type != "meta"},
+        strict=False)
+    if int8 and placed:
+        fresh.quantize_weights()

@@ -68,7 +68,7 @@ from __future__ import annotations
 from collections import OrderedDict
 from contextlib import ExitStack, contextmanager, nullcontext
 from dataclasses import dataclass
-from functools import partial
+from functools import lru_cache, partial
 from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
@@ -87,7 +87,9 @@ from ..distributed.fleet.layers.mpu.mp_layers import (
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
     ShardedTensor, VocabParallelEmbedding, vocab_parallel_lookup,
 )
-from ..distributed.serving_mesh import broadcast, qkv_columns, reduce_sum
+from ..distributed.serving_mesh import (
+    broadcast, qkv_columns, reduce_sum, take_weights,
+)
 from ..distributed.shards import (
     Bound, Part, ShardedParameter, bound_now, load_state, param_slots,
     place_on_stage, replicate, sharded_parameters, tie_replicas, tie_slots,
@@ -106,7 +108,7 @@ from ..ops.kernels.flash_attention import (
 )
 from ..ops.kernels.paged_attention import gather_pages, paged_attention
 from ..ops.kernels.ragged_paged_attention import ragged_paged_attention
-from ..ops.lora import lora_delta_raw, lora_down, lora_up
+from ..ops.lora import lora_down, lora_up
 from ..quantization.int8 import (
     Int8Linear, activation_scales, int8_accumulate, int8_epilogue, k_major,
     quantize_weight, quantized_matmul, refuse_tensor_parallel,
@@ -368,6 +370,114 @@ def shard_block_ops(base: BlockOps, devices) -> BlockOps:
     return base._replace(col=col, row=row, each=each)
 
 
+def lora_cuts(cfg: GPTConfig, mp: int, device) -> dict:
+    """What shard ``i`` of ``mp`` tensor-parallel shards holds of each
+    projection ``j`` (qkv, out, fc1, fc2), for its LoRA factors on
+    ``device``: the fused QKV's columns (its heads of q, k and v,
+    ``serving_mesh.qkv_columns``, on ``device``), then ``(offset,
+    length)`` of the output projection's rows and of fc1's columns and
+    fc2's rows.  Made once for each widths, mp and device."""
+    return _lora_cuts(cfg.num_heads, cfg.head_dim, cfg.ffn_size, int(mp),
+                      torch.device(device))
+
+
+@lru_cache(maxsize=None)
+def _lora_cuts(nh: int, hd: int, f: int, mp: int, device) -> dict:
+    hs = nh // mp
+    return {0: [qkv_columns(nh, hd, mp, i, device) for i in range(mp)],
+            1: [(i * hs * hd, hs * hd) for i in range(mp)],
+            2: [(i * (f // mp), f // mp) for i in range(mp)],
+            3: [(i * (f // mp), f // mp) for i in range(mp)]}
+
+
+def _lora_shard(t, cuts: dict, j: int, i: int, axis: int):
+    """Shard ``i``'s part of a gathered factor of projection ``j`` along
+    ``axis`` (``cuts`` made for ``t``'s device)."""
+    cut = cuts[j][i]
+    if j == 0:
+        return t.index_select(axis, cut)
+    return t.narrow(axis, *cut)
+
+
+class LayerLoRA(NamedTuple):
+    """One layer's adapter factors for a step (``ops/lora.py``'s
+    arithmetic, its rounding points those of the block's
+    :class:`BlockOps`): ``factors[j]`` for each of qkv, out, fc1 and fc2
+    is ``(A [T, in, r], B [T, r, out], A dtype, B dtype)``, the slabs
+    gathered at each row's adapter page and widened to fp32.  The delta
+    of a whole projection (:meth:`whole`), and under tensor parallelism
+    each shard's (:meth:`cols`, :meth:`row`), as the reference's GSPMD
+    computes the whole one: a column-parallel shard adds its columns of
+    the delta, a row-parallel projection sums the shards' first
+    contractions (fp32 ``u``) and adds the delta once.  Factors move to
+    the device that reads them (a no-op on one card); ``cuts`` is
+    :func:`lora_cuts` for :attr:`device`."""
+    factors: list
+    scaling: float
+
+    @classmethod
+    def gather(cls, slabs, ids, scaling) -> "LayerLoRA":
+        """The eight slabs of one layer (``serving/lora.py`` order) at
+        ``ids`` [T], each row's adapter page."""
+        idx = ids.long().to(slabs[0].device)
+        return cls([(slabs[2 * j].index_select(0, idx).float(),
+                     slabs[2 * j + 1].index_select(0, idx).float(),
+                     slabs[2 * j].dtype, slabs[2 * j + 1].dtype)
+                    for j in range(4)], float(scaling))
+
+    @property
+    def device(self) -> torch.device:
+        """The device the factors lie on (the pool's)."""
+        return self.factors[0][0].device
+
+    def whole(self, ops, x, j: int):
+        """Projection ``j``'s delta of ``x`` [T, S, in] on its device."""
+        a, b, adt, bdt = self.factors[j]
+        lx = ops.lora_in(x, adt)
+        d = x.device
+        u = lora_down(lx, a.to(d), adt)
+        return ops.lora_out(lora_up(u, b.to(d), bdt, self.scaling,
+                                    lx.dtype))
+
+    def cols(self, ops, cuts: dict, x, j: int, devices) -> list:
+        """Each shard's columns of column-parallel projection ``j``'s
+        delta of the whole input ``x`` [T, S, in], shard ``i``'s on
+        ``devices[i]``: the first contraction once, on ``x``'s device, and
+        its rank-wide result moved to each shard for the second."""
+        a, b, adt, bdt = self.factors[j]
+        lx = ops.lora_in(x, adt)
+        u = lora_down(lx, a.to(x.device), adt)
+        return [ops.lora_out(lora_up(
+            u.to(d), _lora_shard(b, cuts, j, i, 2).to(d), bdt, self.scaling,
+            lx.dtype)) for i, d in enumerate(devices)]
+
+    def row(self, ops, cuts: dict, parts, j: int, mesh) -> dict:
+        """Row-parallel projection ``j``'s delta from the shards' inputs
+        ``parts`` ([T, S, in/mp] each on its shard's device): each
+        shard's first contraction over its rows of A, summed in shard
+        order on every device of ``mesh`` (``serving_mesh.reduce_sum``),
+        then the second product there: ``{device: [T, S, out]}``."""
+        a, b, adt, bdt = self.factors[j]
+        lx = [ops.lora_in(p, adt) for p in parts]
+        u = reduce_sum([lora_down(x, _lora_shard(a, cuts, j, i, 1).to(
+            x.device), adt) for i, x in enumerate(lx)], mesh)
+        return {d: ops.lora_out(lora_up(ud, b.to(d), bdt, self.scaling,
+                                        lx[0].dtype))
+                for d, ud in u.items()}
+
+
+def stacked_loras(lora, num_layers: int):
+    """Each layer's :class:`LayerLoRA` from ``lora``, ``(a stacked
+    LoRAAdapterPool, ids)``, gathered as the layer's turn comes (an
+    iterator: one layer's gathered factors alive at a time); Nones
+    without ``lora``."""
+    if lora is None:
+        return [None] * num_layers
+    pool, ids = lora
+    return (LayerLoRA.gather(sl, ids, pool.scaling)
+            for sl in zip(*(t.unbind(0) for t in pool.stacked_slabs())))
+
+
 def _cast(t, dtype):
     """``t``, or each shard of a list, cast to ``dtype``."""
     if isinstance(t, list):
@@ -531,6 +641,11 @@ def train_mesh(cfg: GPTConfig) -> Optional[TrainMesh]:
         if cfg.use_tensor_parallel and cfg.vocab_size % mp:
             raise ValueError(f"vocab_size={cfg.vocab_size} is not "
                              f"divisible by mp={mp} (VocabParallelEmbedding)")
+    if cfg.num_layers % pp:
+        # the reference's stacked decoder refuses it, in these words
+        raise ValueError(
+            f"num_layers={cfg.num_layers} must be divisible by the pp mesh "
+            f"axis size {pp} (uniform stage segmenting)")
     # without pipeline stages the interleave has no effect, as in the
     # reference
     vpp = cfg.virtual_pp_degree if pp > 1 else 1
@@ -633,13 +748,13 @@ class GPTStackedDecoder(nn.Module):
         residual adds are cast back to ``h``'s dtype, as the reference's
         ``_paged_block_fn`` does.
 
-        ``lora``: ``(slabs, ids, scaling)`` -- this layer's eight adapter
-        slabs (``serving/lora.py`` order), one adapter-page id per token
-        row of ``h`` and the pool's scaling.  Each projection then adds
-        its gathered low-rank delta (``ops/lora.py``) on the same input as
-        its base product: in the weight dtype, or, for int8 projections,
-        on the fp32 input rounded to the slab dtype, added in fp32 (the
-        reference's ``_paged_block_fn``).
+        ``lora``: this layer's :class:`LayerLoRA`, one row a token row of
+        ``h``.  Each projection then adds its low-rank delta
+        (``ops/lora.py``) on the same input as its base product: in the
+        weight dtype, or, for int8 projections, on the fp32 input rounded
+        to the slab dtype, added in fp32 (the reference's
+        ``_paged_block_fn``); under ``tp`` each shard's part of it
+        (:meth:`LayerLoRA.col`, :meth:`LayerLoRA.row`).
         ``cdt``: the amp dtype of an ``auto_cast`` at O1 the caller read
         (:func:`~paddle_tpu_torch.amp.auto_cast.o1_dtype`; passed, not read
         here, because a recompute runs outside the ``auto_cast`` block),
@@ -681,8 +796,11 @@ class GPTStackedDecoder(nn.Module):
         if tp is not None:
             ops = shard_block_ops(ops, tp)
         b, s, hidden = h.shape
-        if lora is not None:
-            slabs, ids, lscale = lora
+        if lora is not None and tp is not None:
+            cuts = lora_cuts(cfg, len(tp), lora.device)
+
+        def rows(t):
+            return t.view(b, s, t.shape[-1])
 
         def lin(x, w, ws, bias, j):
             """Projection ``j`` (qkv, out, fc1, fc2), with its delta (each
@@ -690,10 +808,14 @@ class GPTStackedDecoder(nn.Module):
             y = (ops.row if j % 2 else ops.col)(x, w, ws, bias)
             if lora is None:
                 return y
-            a, bb = slabs[2 * j], slabs[2 * j + 1]
-            xr = ops.lora_in(x.view(b, s, x.shape[-1]), a.dtype)
-            d = ops.lora_out(lora_delta_raw(xr, a, bb, ids, lscale))
-            return y + d.view(b * s, -1)
+            if tp is None:
+                return y + lora.whole(ops, rows(x), j).view(b * s, -1)
+            if j % 2:
+                d = lora.row(ops, cuts, [rows(p) for p in x], j,
+                             tp[:1])[tp[0]]
+                return y + d.view(b * s, -1)
+            ds = lora.cols(ops, cuts, rows(x), j, tp)
+            return [yi + di.view(b * s, -1) for yi, di in zip(y, ds)]
 
         def heads(qkv, i):
             """One shard's attention: its [B*S, 3, heads, D] QKV columns
@@ -925,7 +1047,7 @@ class GPTStackedDecoder(nn.Module):
             stage_devices=[tm.dev(r, s) for s in range(tm.pp)])
         return torch.cat(outs)
 
-    def forward_placed(self, h, held, routes):
+    def forward_placed(self, h, held, routes, lora=None):
         """Replica 0's layers on the mesh for the cache paths: ``h`` [B, S,
         hidden] on its stage 0's first device through layers 0 .. L-1 in
         order (a plain scan, not pipelined, as the reference's cached
@@ -936,7 +1058,9 @@ class GPTStackedDecoder(nn.Module):
         position; ``routes``: each layer's attention route (a list of one
         a shard at mp > 1, :func:`placed_routes`).  After
         :meth:`quantize_weights` (mp = 1) each layer runs its stage's int8
-        slabs.  Returns the last layer's output on its device."""
+        slabs.  ``lora``: ``(a stacked LoRAAdapterPool, ids)``, each
+        layer's delta on its stage's devices (per shard at mp > 1).
+        Returns the last layer's output on its device."""
         tm, cdt = self._mesh, o1_dtype()
         dec = {n: held["decoder." + n] for n in self.PARAM_NAMES}
         stages = []
@@ -950,11 +1074,13 @@ class GPTStackedDecoder(nn.Module):
                 for n in self.INT8_NAMES))))
         where = {layer: (st, j) for st in range(tm.pp)
                  for j, layer in enumerate(tm.layers[st])}
-        for layer in range(self._cfg.num_layers):
+        loras = stacked_loras(lora, self._cfg.num_layers)
+        for layer, lr in zip(range(self._cfg.num_layers), loras):
             st, j = where[layer]
             h = h.to(tm.dev(0, st))
             h = self._block(h, stages[st][j], routes[layer],
-                            int8=self.weight_int8, cdt=cdt, tp=tm.tp(0, st))
+                            int8=self.weight_int8, lora=lr, cdt=cdt,
+                            tp=tm.tp(0, st))
         return h
 
     def forward_cached(self, h, k_cache, v_cache, pos):
@@ -1000,12 +1126,7 @@ class GPTStackedDecoder(nn.Module):
         pools = [k_pool.unbind(0), v_pool.unbind(0)]
         pools += ([k_scale.unbind(0), v_scale.unbind(0)]
                   if k_scale is not None else [[None] * cfg.num_layers] * 2)
-        if lora is not None:
-            pool_, ids = lora
-            layer_slabs = zip(*(t.unbind(0) for t in pool_.stacked_slabs()))
-            loras = [(sl, ids, pool_.scaling) for sl in layer_slabs]
-        else:
-            loras = [None] * cfg.num_layers
+        loras = stacked_loras(lora, cfg.num_layers)
         cdt = o1_dtype()
         for weights, kp, vp, ks, vs, lr in zip(self._layers(names), *pools,
                                                loras):
@@ -1212,9 +1333,7 @@ def sharded_paged_layers(model, h, cache, tables, pos, ragged_plan,
     columns of the shard; a row-parallel one sums the shards' first
     contractions (``u``, fp32) in the reduce and adds the delta once,
     after the bias, on every device."""
-    from ..distributed.serving_mesh import (
-        broadcast, qkv_columns, reduce_max, reduce_sum, unique_devices,
-    )
+    from ..distributed.serving_mesh import reduce_max, unique_devices
 
     mesh = tuple(sh.device for sh in cache.shards)
     layers = getattr(model, "_serving_shards", None)
@@ -1237,51 +1356,34 @@ def sharded_paged_layers(model, h, cache, tables, pos, ragged_plan,
     pools = _shard_pools(cache, cfg.num_layers)
     if lora is not None:
         lpool, lids = lora
-        stacked_slabs = lpool.stacked_slabs() if stacked else None
-        lidx = lids.long()
-        nh, f = cfg.num_heads, cfg.ffn_size
-        cuts = {0: [qkv_columns(nh, hd, mp, i) for i in range(mp)],
-                1: [(i * hs * hd, hs * hd) for i in range(mp)],
-                2: [(i * (f // mp), f // mp) for i in range(mp)],
-                3: [(i * (f // mp), f // mp) for i in range(mp)]}
+        loras = (stacked_loras(lora, cfg.num_layers) if stacked
+                 else (LayerLoRA.gather(lpool.layer_slabs(li), lids,
+                                        lpool.scaling)
+                       for li in range(cfg.num_layers)))
+    else:
+        loras = [None] * cfg.num_layers
 
-    def shard_of(t, j, i, axis):
-        """Shard ``i``'s part of a gathered factor of projection ``j``."""
-        cut = cuts[j][i]
-        if j == 0:
-            return t.index_select(axis, cut.to(t.device))
-        return t.narrow(axis, *cut)
-
-    def col_lora(y, x, lg, j, i, d):
-        """``y`` + shard ``i``'s columns of projection ``j``'s delta."""
-        if lg is None:
-            return y
-        ag, bg, adt, bdt = lg[j]
-        lx = ops.lora_in(x, adt)
-        u = lora_down(lx.view(b, c, -1), ag.to(d), adt)
-        dl = lora_up(u, shard_of(bg, j, i, 2).to(d), bdt, lpool.scaling,
-                     lx.dtype).view(b * c, -1)
-        return y + ops.lora_out(dl)
+    def col_lora(ys, x, lr, j):
+        """The shards' column-parallel outputs ``ys`` of projection ``j``
+        plus each one's columns of its delta of ``x`` (on ``mesh[0]``)."""
+        if lr is None:
+            return ys
+        ds = lr.cols(ops, lora_cuts(cfg, mp, lr.device), x.view(b, c, -1),
+                     j, mesh)
+        return [y + d.view(b * c, -1) for y, d in zip(ys, ds)]
 
     def norm(x, g, beta):
         return ops.norm(x, g, beta).reshape(b * c, hidden)
 
-    def row(layer, parts, name, lg, j):
+    def row(layer, parts, name, lr, j):
         """The row-parallel product of the shards' inputs ``parts``, its
         reduce, its bias and its LoRA delta: ``{device: [S*C, hidden]}``."""
         out = _row(layer, parts, name)
-        if lg is None:
+        if lr is None:
             return out
-        ag, bg, adt, bdt = lg[j]
-        lx = [ops.lora_in(p, adt) for p in parts]
-        u = reduce_sum([lora_down(x.view(b, c, -1),
-                                  shard_of(ag, j, i, 1).to(x.device), adt)
-                        for i, x in enumerate(lx)], mesh)
-        for d in devs:
-            dl = lora_up(u[d], bg.to(d), bdt, lpool.scaling,
-                         lx[0].dtype).view(b * c, -1)
-            out[d] = out[d] + ops.lora_out(dl)
-        return out
+        dl = lr.row(ops, lora_cuts(cfg, mp, lr.device),
+                    [p.view(b, c, -1) for p in parts], j, mesh)
+        return {d: out[d] + dl[d].view(b * c, -1) for d in devs}
 
     def _row(layer, parts, name):
         w = [sh[name + "_w"] for sh in layer.shards]
@@ -1305,26 +1407,15 @@ def sharded_paged_layers(model, h, cache, tables, pos, ragged_plan,
         return ops.residual(hh, y.view(b, c, hidden))
 
     hh = broadcast(h, mesh)
-    for li, layer in enumerate(layers):
-        lg = None
-        if lora is not None:
-            # this layer's factors, gathered per row once, as (A, B,
-            # A dtype, B dtype) for each of qkv, out, fc1 and fc2
-            slabs = ([t[li] for t in stacked_slabs] if stacked
-                     else lpool.layer_slabs(li))
-            idx = lidx.to(slabs[0].device)
-            lg = [(slabs[2 * j].index_select(0, idx).float(),
-                   slabs[2 * j + 1].index_select(0, idx).float(),
-                   slabs[2 * j].dtype, slabs[2 * j + 1].dtype)
-                  for j in range(4)]
+    for li, (layer, lg) in enumerate(zip(layers, loras)):
         x = {d: norm(hh[d], r["ln1_g"], r["ln1_b"])
              for d, r in layer.rep.items()}
+        qkvs = col_lora([ops.col(x[d], sh["qkv_w"], sh.get("qkv_s"),
+                                 sh["qkv_b"], layer.act["qkv"])
+                         for sh, d in zip(layer.shards, mesh)],
+                        x[mesh[0]], lg, 0)
         outs = []
-        for i, d in enumerate(mesh):
-            sh = layer.shards[i]
-            qkv = ops.col(x[d], sh["qkv_w"], sh.get("qkv_s"), sh["qkv_b"],
-                          layer.act["qkv"])
-            qkv = col_lora(qkv, x[d], lg, 0, i, d)
+        for i, (d, qkv) in enumerate(zip(mesh, qkvs)):
             q, k, v = qkv.view(b, c, 3, hs, hd).unbind(2)
             kp, vp, ks, vs = pools[i][li]
             out = attend_paged(q, k, v, kp=kp, vp=vp, ks=ks, vs=vs,
@@ -1335,13 +1426,10 @@ def sharded_paged_layers(model, h, cache, tables, pos, ragged_plan,
         hh = {d: residual(hh[d], attn[d]) for d in devs}
         y = {d: norm(hh[d], r["ln2_g"], r["ln2_b"])
              for d, r in layer.rep.items()}
-        us = [F.gelu(col_lora(ops.col(y[d], layer.shards[i]["fc1_w"],
-                                      layer.shards[i].get("fc1_s"),
-                                      layer.shards[i]["fc1_b"],
-                                      layer.act["fc1"]),
-                              y[d], lg, 2, i, d),
-                     approximate="tanh")
-              for i, d in enumerate(mesh)]
+        us = [F.gelu(u, approximate="tanh") for u in col_lora(
+            [ops.col(y[d], sh["fc1_w"], sh.get("fc1_s"), sh["fc1_b"],
+                     layer.act["fc1"]) for sh, d in zip(layer.shards, mesh)],
+            y[mesh[0]], lg, 2)]
         mlp = row(layer, us, "fc2", lg, 3)
         hh = {d: residual(hh[d], mlp[d]) for d in devs}
     return hh[mesh[0]]
@@ -1412,6 +1500,69 @@ class _CacheContract(GenerationMixin):
                 "sequence_parallel model on an sp axis > 1 fail, as in the "
                 "reference; load its state_dict() into a model built "
                 "without the sp axis to generate or serve")
+
+    @torch.no_grad()
+    def leave_training_mesh(self):
+        """Take a model placed on a training mesh off it, as a serving
+        mesh takes it (``serving_mesh.shard_model_for_serving``: the
+        reference commits every parameter to the serving mesh): replica
+        0's whole weights (:meth:`state_dict` gathers them onto the
+        model's device) become the tensors of this class's unplaced
+        modules, built as a skeleton on ``meta`` without the global mesh
+        (nothing drawn, nothing copied), and a quantized model quantizes
+        them again (the same values: the scales are per layer and
+        channel).  Every part of the placement, the other replicas'
+        copies included, is freed (its storage emptied: an optimizer over
+        the parts holds nothing) before the skeleton is filled, so the
+        peak is the placement and one gathered copy.  A no-op for an
+        unplaced model.  Returns the model.
+
+        Training the model afterwards raises (:meth:`_refuse_training`):
+        its optimizer holds the freed parts.  Under ZeRO
+        (``group_sharded_parallel``) it raises; both are ROADMAP.md queue
+        1, item 9."""
+        if self._train_mesh is None:
+            return self
+        if getattr(self, "_zero_plan", None) is not None:
+            raise NotImplementedError(
+                "taking a model under ZeRO (group_sharded_parallel) off its "
+                "training mesh for a serving mesh is not ported (ROADMAP.md "
+                "queue 1, item 9)")
+        int8 = self.weight_int8
+        state = {k: v.to(self.device) for k, v in self.state_dict().items()}
+        for p in self.parameters():
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        saved = _mesh.get_mesh() if _mesh.has_mesh() else None
+        _mesh.set_mesh(None)
+        try:
+            kw = {"n_micro": self.n_micro} if self.stacked else {}
+            fresh = type(self)(self.config, device="meta", dtype=self.dtype,
+                               generator=self.generator, **kw)
+        finally:
+            _mesh.set_mesh(saved)
+        fresh.load_state_dict(state, assign=True)
+        del state
+        for name, child in list(fresh.named_children()):
+            setattr(self, name, child)
+        self._train_mesh = None
+        self.__dict__.pop("placed_head_int8", None)
+        self._left_training_mesh = True
+        if int8:
+            self.quantize_weights()
+        return self.train(self.training)
+
+    def _refuse_training(self):
+        """Refuse a forward without a cache that builds a graph on a model
+        :meth:`leave_training_mesh` took off its mesh: an optimizer over
+        its parts would silently step nothing."""
+        if getattr(self, "_left_training_mesh", False) \
+                and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "training a model that a serving mesh took off its training "
+                "mesh is not ported (ROADMAP.md queue 1, item 9): its "
+                "optimizer holds the freed parts of the placement; build "
+                "the placed model again and load this model's state_dict(), "
+                "or run the forward under torch.no_grad()")
 
     def _require_whole_weights(self, what: str):
         """Refuse ``what`` on a model sharded for serving at mp > 1, whose
@@ -1492,10 +1643,14 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
     (:meth:`GPTStackedDecoder.forward_mesh`).  ``generate()`` and serving
     run from replica 0's parts (:meth:`_forward_placed_cached`): each
     layer on its stage's devices, per head shard at mp > 1, over caches
-    placed the same way (:meth:`cache_placement`); at mp = 1
-    ``quantize_weights`` quantizes each stage's slabs on its device.
-    Under ZeRO at ``p_g_os`` (``distributed.sharding``) every call gathers
-    every part before it runs and frees them after (``_zero_unit``).
+    placed the same way (:meth:`cache_placement`), with per-request LoRA
+    and speculative drafts (``truncated_draft`` builds a placed draft); at
+    mp = 1 ``quantize_weights`` quantizes each stage's slabs on its
+    device.  A serving mesh (``ServingEngine(mesh=)``,
+    ``ShardedServingEngine``) takes it off its training mesh
+    (:meth:`leave_training_mesh`).  Under ZeRO at ``p_g_os``
+    (``distributed.sharding``) every call gathers every part before it
+    runs and frees them after (``_zero_unit``).
     """
 
     stacked = True        # the cache and LoRA layout this class reads
@@ -1560,6 +1715,8 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
 
     @torch.no_grad()
     def _init_weights(self, seed: int):
+        if self.device.type == "meta":
+            return                  # a skeleton: its tensors are assigned
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         std = self.config.initializer_range
@@ -1710,6 +1867,7 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
             if lora is not None:
                 raise ValueError("per-request LoRA adapters ride the paged "
                                  "serving step (kv_cache + page_tables)")
+            self._refuse_training()
             if self._train_mesh is not None:
                 return self._forward_placed(input_ids, labels, position_ids)
             self._require_whole_weights("a forward without a sharded pool")
@@ -1824,12 +1982,13 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
         placed as :meth:`cache_placement` places it, the final LayerNorm
         and the tied head on the last stage (the head over the vocabulary
         shards under ``use_tensor_parallel``, the int8 head after
-        ``quantize_weights``).  The other replicas hold the same weights
-        and do not run.  Returns the logits on ``self.device``."""
-        if lora is not None:
-            raise NotImplementedError(
-                "per-request LoRA adapters over a model placed on a "
-                "training mesh are not ported (ROADMAP.md queue 1, item 9)")
+        ``quantize_weights``).  ``lora``: each layer's delta on its
+        stage's devices (:meth:`GPTStackedDecoder.forward_placed`).  The
+        other replicas hold the same weights and do not run.  Returns the
+        logits on ``self.device``."""
+        if lora is not None and not kv_cache.paged:
+            raise ValueError("per-request LoRA adapters ride the paged "
+                             "serving step (kv_cache + page_tables)")
         if getattr(kv_cache, "groups", None) is None:
             raise ValueError("a model placed on a training mesh reads a cache "
                              "placed as its layers are: make it with "
@@ -1840,7 +1999,7 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
                                float(1.0 / np.sqrt(cfg.head_dim)))
         held = self._held_parts()
         h = self._embed_placed(held, 0, ids, pos_ids)
-        h = self.decoder.forward_placed(h, held, routes)
+        h = self.decoder.forward_placed(h, held, routes, lora)
         if out_rows is not None:
             h = h[out_rows.to(h.device).long()]
         last = (0, tm.pp - 1, 0)
@@ -2025,10 +2184,9 @@ class GPTAttention(nn.Module):
     cache) the route is ``scaled_dot_product_attention`` (the flash
     kernels where the JAX flash gate takes the shape, the plain expression
     elsewhere); with it, ``attend(q, k, v)`` (:func:`attend_with_cache` or
-    :func:`attend_paged` bound to the layer's cache).  ``lora``: ``(slabs,
-    ids, scaling)``, the layer's eight adapter slabs (``serving/lora.py``
-    order): qkv and out each add their gathered low-rank delta on the
-    same input as the base product.
+    :func:`attend_paged` bound to the layer's cache).  ``lora``: the
+    layer's :class:`LayerLoRA`: qkv and out each add their low-rank delta
+    on the same input as the base product.
 
     Under tensor parallelism (:func:`layered_tp`) QKV is a
     ``ColumnParallelLinear`` cut by heads (shard ``i`` holds the q, k and
@@ -2036,9 +2194,12 @@ class GPTAttention(nn.Module):
     and the output projection a ``RowParallelLinear``: each shard attends
     over its heads on its device, and the output projection sums the
     shards' partials.  With a cache ``attend`` is a list of one route a
-    shard (:func:`placed_routes`), each over its heads' cache; LoRA is
-    refused.  Attention dropout draws each shard's masks from a generator
-    of its own, seeded from ``generator``'s seed and the shard."""
+    shard (:func:`placed_routes`), each over its heads' cache, and with
+    ``lora`` each QKV shard adds its columns of the delta, the output
+    projection the delta of the shards' summed first contractions.
+    Attention dropout draws each shard's masks
+    from a generator of its own, seeded from ``generator``'s seed and the
+    shard."""
 
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
@@ -2068,8 +2229,7 @@ class GPTAttention(nn.Module):
         nh, hd = cfg.num_heads, cfg.head_dim
         qkv = self.qkv_proj(x)                               # [B, S, 3H]
         if lora is not None:
-            slabs, ids, lscale = lora
-            qkv = qkv + lora_delta_raw(x, slabs[0], slabs[1], ids, lscale)
+            qkv = qkv + _whole_lora(lora, cfg, x, 0)
         q, k, v = qkv.view(b, s, 3, nh, hd).unbind(2)        # [B, S, nh, hd]
         if attend is not None:
             if attn_mask is not None:
@@ -2088,13 +2248,10 @@ class GPTAttention(nn.Module):
         out = out.reshape(b, s, nh * hd)
         proj = self.out_proj(out)
         if lora is not None:
-            proj = proj + lora_delta_raw(out, slabs[2], slabs[3], ids, lscale)
+            proj = proj + _whole_lora(lora, cfg, out, 1)
         return self.dropout(proj, generator)
 
     def _forward_tp(self, x, attn_mask, attend, lora, generator):
-        if lora is not None:
-            raise ValueError("a tensor-parallel layered block takes no LoRA "
-                             "adapters")
         if attend is not None and attn_mask is not None:
             raise ValueError("attn_mask is not supported on the KV-cache "
                              "path (it is causal+length-masked)")
@@ -2113,7 +2270,13 @@ class GPTAttention(nn.Module):
                                  _shard_generator(generator, i, q.device))
             return out.reshape(b, s, n * hd)
 
-        proj = self.out_proj(self.qkv_proj(x).map(heads))
+        qkv = self.qkv_proj(x)
+        if lora is not None:
+            qkv = _col_lora(lora, cfg, x, qkv, 0)
+        out = qkv.map(heads)
+        proj = self.out_proj(out)
+        if lora is not None:
+            proj = _row_lora(lora, cfg, out, proj, 1)
         return self.dropout(proj, generator)
 
     def _sdpa(self, q, k, v, mask, generator):
@@ -2178,15 +2341,44 @@ class GPTAttention(nn.Module):
         return [o.reshape(b, n, heads * hd) for o in outs]
 
 
+def _whole_lora(lora: LayerLoRA, cfg: GPTConfig, x, j: int):
+    """The layered block's projection ``j``'s delta of ``x``, in its
+    dtype."""
+    return lora.whole(layered_block_ops(cfg.layer_norm_eps), x, j)
+
+
+def _col_lora(lora: LayerLoRA, cfg: GPTConfig, x, y: ShardedTensor,
+              j: int) -> ShardedTensor:
+    """The column-parallel output ``y`` of the layered block's projection
+    ``j`` with each shard's columns of its delta of the whole input
+    ``x``."""
+    ops = layered_block_ops(cfg.layer_norm_eps)
+    ds = lora.cols(ops, lora_cuts(cfg, len(y.parts), lora.device), x, j,
+                   y.devices)
+    return y.map(lambda t, i: t + ds[i])
+
+
+def _row_lora(lora: LayerLoRA, cfg: GPTConfig, parts: ShardedTensor, y,
+              j: int):
+    """The row-parallel output ``y`` (on its first shard's device) of the
+    layered block's projection ``j`` plus its delta from the shards'
+    inputs ``parts``."""
+    ops = layered_block_ops(cfg.layer_norm_eps)
+    return y + lora.row(ops, lora_cuts(cfg, len(parts.parts), lora.device),
+                        parts.parts, j, (y.device,))[y.device]
+
+
 class GPTMLP(nn.Module):
     """``fc2(gelu_tanh(fc1(x)))`` and the hidden dropout, with the LoRA
-    deltas of fc1 and fc2 (slabs 4-7) when ``lora`` is given.  Under
+    deltas of fc1 and fc2 when ``lora`` (the layer's :class:`LayerLoRA`)
+    is given.  Under
     tensor parallelism (:func:`layered_tp`) fc1 is a
     ``ColumnParallelLinear`` and fc2 a ``RowParallelLinear``, the gelu
     per shard."""
 
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
+        self._cfg = cfg
         h, f = cfg.hidden_size, cfg.ffn_size
         devs, factory = layered_tp(cfg, factory)
         if devs is not None:
@@ -2204,17 +2396,18 @@ class GPTMLP(nn.Module):
         u = self.fc1(x)
         if isinstance(u, ShardedTensor):
             if lora is not None:
-                raise ValueError("a tensor-parallel layered block runs the "
-                                 "training forward only (no LoRA)")
+                u = _col_lora(lora, self._cfg, x, u, 2)
             g = u.map(lambda t, i: NF.gelu(t, approximate=True))
-            return self.dropout(self.fc2(g), generator)
+            y = self.fc2(g)
+            if lora is not None:
+                y = _row_lora(lora, self._cfg, g, y, 3)
+            return self.dropout(y, generator)
         if lora is not None:
-            slabs, ids, lscale = lora
-            u = u + lora_delta_raw(x, slabs[4], slabs[5], ids, lscale)
+            u = u + _whole_lora(lora, self._cfg, x, 2)
         g = NF.gelu(u, approximate=True)
         y = self.fc2(g)
         if lora is not None:
-            y = y + lora_delta_raw(g, slabs[6], slabs[7], ids, lscale)
+            y = y + _whole_lora(lora, self._cfg, g, 3)
         return self.dropout(y, generator)
 
 
@@ -2370,7 +2563,8 @@ class GPTModel(nn.Module):
             lr = None
             if lora is not None:
                 pool_, ids_ = lora
-                lr = (pool_.layer_slabs(i), ids_, pool_.scaling)
+                lr = LayerLoRA.gather(pool_.layer_slabs(i), ids_,
+                                      pool_.scaling)
             return self.layers[i](x, attn_mask, attends[i], lr, seeds[i + 1])
 
         return self.final_ln(self._layer_loop(h, step, kv_cache is None))
@@ -2583,9 +2777,11 @@ class GPTForPretraining(nn.Module, _CacheContract):
     gathers each whole tensor and ``load_jax_state`` /
     ``load_state_dict`` cut them.  It generates and serves from its parts:
     each layer's mpu layers attend per head shard over caches cut by heads
-    on the shards' devices (:meth:`cache_placement`); quantization raises
-    the reference's ``ValueError`` (``use_tensor_parallel``) and LoRA
-    raises naming ROADMAP.md queue 1, item 9.  dp and pp
+    on the shards' devices (:meth:`cache_placement`), per-request LoRA
+    adding each shard's part of the deltas (:class:`LayerLoRA`);
+    quantization raises the reference's ``ValueError``
+    (``use_tensor_parallel``).  A serving mesh takes it off its training
+    mesh (:meth:`leave_training_mesh`).  dp and pp
     keep the reference's meaning: the bare model neither shards its batch
     nor pipelines (a ``PipelineLayer`` of its blocks and the fleet
     wrappers do).
@@ -2625,7 +2821,8 @@ class GPTForPretraining(nn.Module, _CacheContract):
             # placed by tensor parallelism does
             self._train_mesh = (self.device,)
         self._weight_int8 = False
-        init_weights(self, seed, cfg.initializer_range)
+        if self.device.type != "meta":   # a skeleton's tensors are assigned
+            init_weights(self, seed, cfg.initializer_range)
 
     @property
     def weight_int8(self) -> bool:
@@ -2722,17 +2919,17 @@ class GPTForPretraining(nn.Module, _CacheContract):
         row; a contiguous cache refuses it."""
         if kv_cache is not None:
             self._refuse_sequence_parts()
+        else:
+            self._refuse_training()
         if self._train_mesh is not None:
-            if lora is not None:
-                raise NotImplementedError(
-                    "per-request LoRA adapters over a model placed on a "
-                    "training mesh are not ported (ROADMAP.md queue 1, "
-                    "item 9)")
+            if lora is not None and not getattr(kv_cache, "paged", False):
+                raise ValueError("per-request LoRA adapters ride the paged "
+                                 "serving step (page_tables required)")
             # the head reads the word table: inside the binding, so the
             # sp copies' tables receive its gradient too
             with self.gpt.tied_copies():
                 h = self.gpt(input_ids, position_ids, attn_mask, kv_cache,
-                             cache_index, page_tables, ragged_plan)
+                             cache_index, page_tables, ragged_plan, lora)
                 if out_rows is not None:
                     h = h[out_rows.to(h.device).long()]
                 return self._logits(h)
@@ -2788,19 +2985,20 @@ def truncated_draft(model, num_layers: int = 1):
     (``serving/speculative.py``; the reference's ``truncated_draft``): the
     same class and config but only the first ``num_layers`` decoder
     blocks, with the target's embeddings, final LayerNorm and tied head.
-    The weights are copied from ``model`` by state-dict key (the layered
-    model's ``gpt.layer_{i}`` for i < ``num_layers``; the stacked slabs
-    sliced on their layer axis), on its device and in its dtype.  A model
-    quantized for serving gives a draft quantized the same way: the draft
-    takes the quantized structure, then the target's int8 buffers.  The
-    draft owns its own paged pool inside the engine."""
+    The weights are loaded from ``model`` by state-dict key
+    (``serving_mesh.take_weights``: the layered model's ``gpt.layer_{i}``
+    for i < ``num_layers``; the stacked slabs sliced on their layer axis),
+    on its device and in its dtype.  A model quantized for serving gives a
+    draft quantized the same way.  The draft owns its own paged pool
+    inside the engine.
+
+    As in the reference, the draft is built under the active global mesh:
+    the draft of a model placed on a training mesh is placed on it too
+    (the stacked draft's layers over its pp stages, which raises the
+    reference's ``ValueError`` where ``num_layers`` does not divide into
+    them), and takes the target's whole weights cut onto its parts."""
     import dataclasses
 
-    if getattr(model, "_train_mesh", None) is not None:
-        raise NotImplementedError(
-            "truncated_draft of a model placed on a training mesh is not "
-            "ported (ROADMAP.md queue 1, item 9): speculative serving takes "
-            "an unplaced model")
     model._require_whole_weights("truncated_draft")
     cfg = model.config
     n = int(num_layers)
@@ -2809,13 +3007,7 @@ def truncated_draft(model, num_layers: int = 1):
                          f"[1, {cfg.num_layers}]")
     draft = type(model)(dataclasses.replace(cfg, num_layers=n),
                         device=model.device, dtype=model.dtype)
-    if model.weight_int8:
-        draft.quantize_weights()
-    src = model.state_dict()
-    with torch.no_grad():
-        for name, t in draft.state_dict().items():
-            s = src[name]
-            t.copy_(s[:n] if s.shape != t.shape else s)
+    take_weights(draft, model)
     draft.eval()
     return draft
 

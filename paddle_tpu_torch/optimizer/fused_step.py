@@ -111,7 +111,7 @@ class FusedTrainStep:
                             scale)
         self._good_t.copy_(torch.where(incr, 0, good2))
         self._bad_t.copy_(torch.where(decr, 0, bad2))
-        s._scale.copy_(scale)
+        s._set_scale(scale)
 
     def __call__(self, *batch) -> torch.Tensor:
         loss = self._forward(*batch)

@@ -569,7 +569,8 @@ class ServingEngine:
     and with more than one shard the pool is sharded per head (an
     indivisible head count raises ``ValueError``) and the shards own the
     projections (``serving_mesh.unshard_model`` gives the model its whole
-    weights back).  ``role``: "prefill",
+    weights back); a model placed on a training mesh leaves it first
+    (its ``leave_training_mesh``).  ``role``: "prefill",
     "decode" or "colocated" (the default), for ``DisaggServingEngine``;
     naming it adds a ``role`` label to every metric of the engine."""
 

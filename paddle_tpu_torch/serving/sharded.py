@@ -82,7 +82,8 @@ class ShardedServingEngine:
     ``model`` becomes replica 0 (moved to replica 0's first device and
     split over its mesh, its whole projections dropped at mp > 1: the
     engine takes ownership of its placement; ``serving_mesh.
-    unshard_model`` gives them back);
+    unshard_model`` gives them back; a model placed on a training mesh
+    leaves it first, its ``leave_training_mesh``);
     further replicas are copies with its exact weights
     (``serving_mesh.clone_model``; ``model_factory`` builds the fresh
     instance for classes whose ``__init__`` needs more than the config).
@@ -108,7 +109,9 @@ class ShardedServingEngine:
         self.meshes = _srv_mesh.replica_meshes(dp, mp, devices)
         self.replicas: List[ServingEngine] = []
         # every copy is made before replica 0 is sharded (a sharded
-        # model's weights would be gathered back for each)
+        # model's weights would be gathered back for each), and after it
+        # left a training mesh (each copy would hold the placement)
+        model.leave_training_mesh()
         models = [model] + [_srv_mesh.clone_model(model, model_factory)
                             for _ in range(dp - 1)]
         for i, (rm, mesh) in enumerate(zip(models, self.meshes)):

@@ -27,7 +27,15 @@ package on the CPU.
   fp32 master, both moments and the beta powers bitwise unchanged and
   halves the scale; the next finite steps apply (the parameter within
   one fp16 rounding of the JAX step's) and regrow the scale, as JAX's
-  fused step does."""
+  fused step does.
+- Fault 11: a loss on another device than the scale (a pipeline whose
+  data replicas end on different cards) is scaled by a copy of the scale
+  made there (the ``meta`` device stands for the other card: every CPU
+  device compares equal); each copy equals the master bit for bit after
+  ``update()`` (finite and non-finite), ``load_state_dict`` and
+  ``FusedTrainStep``'s traced update; the toy pipeline at dp 2 x pp 2
+  with ``scaler=`` skips a non-finite step as the JAX pipeline does and
+  then takes the JAX pipeline's step."""
 import threading
 
 import numpy as np
@@ -38,14 +46,25 @@ import jax.numpy as jnp
 
 import paddle_tpu as pt
 from paddle_tpu.amp.auto_cast import _maybe_cast_inputs, amp_state
+from paddle_tpu.distributed import fleet as jfleet
+from paddle_tpu.distributed import mesh as JM
+from paddle_tpu.distributed.fleet.base import topology as jtopo
+from paddle_tpu.distributed.fleet.meta_parallel import pipeline_parallel as jpp
 from paddle_tpu.models import GPTStackedForPretraining as JaxGPT
 from paddle_tpu.models import gpt_tiny as jax_gpt_tiny
 from paddle_tpu.nn import functional as jF
+from paddle_tpu.nn.modules.common import Linear as JaxLinear
 
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.amp.auto_cast import maybe_cast
+from paddle_tpu_torch.distributed import fleet
+from paddle_tpu_torch.distributed import mesh as M
+from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+    LayerDesc, PipelineLayer, PipelineParallel,
+)
 from paddle_tpu_torch.models import GPTStackedForPretraining, gpt_tiny
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layers import Linear
 from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
 
 torch.set_num_threads(2)
@@ -400,3 +419,147 @@ def test_fused_step_scaler_skips_nonfinite_step():
     assert tstep.dispatch_count == 3
     # the host counters stay untouched, as in the reference's fused mode
     assert (tsc._good_steps, tsc._bad_steps) == (0, 0)
+
+
+# ---------------------------------------------------------------------------
+# fault 11: losses on another device than the scale
+# ---------------------------------------------------------------------------
+
+OTHER = torch.device("meta")
+
+
+def test_fault11_loss_on_another_device_scales():
+    """The parent raised "the loss is on ..., the scale on ..."."""
+    ts = amp.GradScaler(init_loss_scaling=8.0, device="cpu")
+    loss = torch.ones((), device=OTHER)
+    out = ts.scale(loss)
+    assert out.device == OTHER and out.shape == () \
+        and out.dtype == torch.float32
+    assert list(ts._copies) == [OTHER]
+    assert ts._scale.device == torch.device("cpu")
+    # the master's device takes the master, with no copy
+    assert float(ts.scale(torch.ones(()))) == 8.0 and len(ts._copies) == 1
+
+
+def _with_copy(**kw):
+    """A scaler on the CPU with a copy of its scale under a second device
+    key; the copy is a CPU tensor, so its values can be read."""
+    ts = amp.GradScaler(device="cpu", **kw)
+    ts.scale(torch.ones((), device=OTHER))
+    ts._copies[OTHER] = ts._scale.clone()
+    return ts
+
+
+def _copy_is_master(ts):
+    return torch.equal(ts._copies[OTHER], ts._scale)
+
+
+def test_fault11_copies_follow_update_and_load():
+    ts = _with_copy(init_loss_scaling=64.0, incr_every_n_steps=2)
+    for bad, want in ((True, 32.0), (False, 32.0), (False, 64.0),
+                      (True, 32.0)):
+        ts._found_inf = bad
+        ts.update()
+        assert ts.get_loss_scaling() == want and _copy_is_master(ts)
+    ts.load_state_dict({**ts.state_dict(), "scale": np.float32(3.0)})
+    assert ts.get_loss_scaling() == 3.0 and _copy_is_master(ts)
+
+
+def test_fault11_copies_follow_the_traced_update():
+    kw = dict(init_loss_scaling=2.0 ** 14, incr_every_n_steps=1)
+    ts = _with_copy(**kw)
+    tp = torch.nn.Parameter(torch.ones((4, 4), dtype=torch.float16))
+    step = FusedTrainStep(lambda x: (tp * x).float().sum(),
+                          AdamW(0.1, parameters=[tp]), scaler=ts)
+    step(torch.full((4, 4), 60000.0, dtype=torch.float16))   # overflows
+    assert not step.last_step_applied
+    assert ts.get_loss_scaling() == 2.0 ** 13 and _copy_is_master(ts)
+    step(torch.full((4, 4), 0.01, dtype=torch.float16))
+    assert ts.get_loss_scaling() == 2.0 ** 14 and _copy_is_master(ts)
+
+
+class _Pipe:
+    pipeline_configs = {"accumulate_steps": 4, "micro_batch_size": 2}
+
+
+def _jax_strategy():
+    st = jfleet.DistributedStrategy()
+    st.hybrid_configs = {"dp_degree": 2, "pp_degree": 2, "mp_degree": 1,
+                         "order": ["dp", "pp", "sharding", "sep", "mp"]}
+    st.pipeline_configs = dict(_Pipe.pipeline_configs)
+    return st
+
+
+def _toy_batches():
+    """A batch with an inf in one row (every gradient non-finite), then a
+    finite one."""
+    rng = np.random.RandomState(11)
+    bad = rng.randn(8, 8).astype(np.float32)
+    bad[5, 3] = np.inf
+    return [(bad, rng.randn(8, 8).astype(np.float32)),
+            (rng.randn(8, 8).astype(np.float32),
+             rng.randn(8, 8).astype(np.float32))]
+
+
+def test_fault11_pipeline_dp2_skips_as_jax():
+    """The toy pipeline at dp 2 x pp 2 with ``scaler=``: the non-finite
+    step leaves every weight (both replicas) unchanged and halves the
+    scale, as the JAX pipeline's; the next step is the JAX one's."""
+    batches = _toy_batches()
+    mesh, hcg = JM._global_mesh, jtopo.get_hybrid_communicate_group()
+    JM._global_mesh = None
+    jtopo.set_hybrid_communicate_group(None)
+    try:
+        jfleet.init(is_collective=True, strategy=_jax_strategy())
+        pt.seed(7)
+        jl = jpp.PipelineLayer(
+            [jpp.LayerDesc(JaxLinear, 8, 8) for _ in range(4)],
+            num_stages=2, loss_fn=lambda o, y: pt.ops.mean((o - y) ** 2))
+        state = {k: np.asarray(v.numpy(), np.float32)
+                 for k, v in jl.state_dict().items()}
+        jpipe = jfleet.distributed_model(jl)
+        jopt = pt.optimizer.AdamW(learning_rate=0.1,
+                                  parameters=jl.parameters())
+        jsc = pt.amp.GradScaler(init_loss_scaling=256.0)
+        jwant = []
+        for x, y in batches:
+            loss = jpipe.train_batch((pt.to_tensor(x), pt.to_tensor(y)),
+                                     jopt, scaler=jsc)
+            jwant.append((float(loss), jsc.get_loss_scaling(),
+                          {k: np.asarray(v.numpy(), np.float32)
+                           for k, v in jl.state_dict().items()}))
+    finally:
+        JM._global_mesh = mesh
+        jtopo.set_hybrid_communicate_group(hcg)
+    M.set_mesh(M.build_mesh({"dp": 2, "pp": 2}, ["cpu"] * 4))
+    try:
+        pl = PipelineLayer([LayerDesc(Linear, 8, 8, device="cpu")
+                            for _ in range(4)], num_stages=2,
+                           loss_fn=lambda o, y: ((o - y) ** 2).mean())
+        pl.load_jax_state(state)
+        pipe = PipelineParallel(pl, strategy=_Pipe())
+        opt = AdamW(0.1, parameters=pl.parameters())
+        ts = amp.GradScaler(init_loss_scaling=256.0, device="cpu")
+        copies = [p.detach().clone() for p in pl.parameters()]
+        for i, ((x, y), (jloss, jscale, jafter)) in enumerate(
+                zip(batches, jwant)):
+            loss = pipe.train_batch((torch.from_numpy(x),
+                                     torch.from_numpy(y)), opt, scaler=ts)
+            assert ts.get_loss_scaling() == jscale
+            after = {k: v.numpy() for k, v in pl.state_dict().items()}
+            if i == 0:
+                assert not np.isfinite(float(loss)) \
+                    and not np.isfinite(jloss)
+                assert jscale == 128.0
+                for k, v in after.items():
+                    np.testing.assert_array_equal(v, state[k], err_msg=k)
+                assert all(torch.equal(p, c) for p, c in
+                           zip(pl.parameters(), copies))
+            else:
+                np.testing.assert_allclose(float(loss), jloss, rtol=1e-6)
+                for k, v in jafter.items():
+                    np.testing.assert_allclose(after[k], v, rtol=1e-5,
+                                               atol=1e-6, err_msg=k)
+    finally:
+        M.set_mesh(None)
+        fleet.set_hybrid_communicate_group(None)

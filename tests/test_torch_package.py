@@ -18,12 +18,12 @@ import torch
 from paddle_tpu_torch import inference
 from paddle_tpu_torch.distributed import mesh as M
 from paddle_tpu_torch.models import (
-    GPTForPretraining, GPTStackedForPretraining, gpt_tiny,
+    GPTForPretraining, GPTStackedForPretraining, gpt_tiny, truncated_draft,
 )
 from paddle_tpu_torch.optimizer import AdamW, FusedTrainStep
 from paddle_tpu_torch.quantization import quantize_for_serving
 from paddle_tpu_torch.serving import (
-    LoRAAdapterPool, ServingEngine, random_adapter,
+    LoRAAdapterPool, ServingEngine, SpeculativeEngine, random_adapter,
 )
 
 torch.set_num_threads(2)
@@ -291,6 +291,44 @@ def _placed_generate():
         M.set_mesh(None)
 
 
+def _placed_serving(knob):
+    """Serving from the stacked GPT placed on a pp x mp mesh: per-request
+    LoRA, a placed ``truncated_draft`` for speculation, or a serving mesh
+    (``mesh=``), which takes the model off its training mesh."""
+    M.set_mesh(M.build_mesh({"pp": 2, "mp": 2}, ["cpu"] * 4))
+    try:
+        m = GPTStackedForPretraining(gpt_tiny())
+        kw = dict(num_slots=2, page_size=16, max_context=64)
+        if knob == "lora":
+            eng = ServingEngine(m, lora=_lora_pool(m.config), **kw)
+            out = eng.generate_batch([[1, 2, 3]], 2, adapter="a")
+        elif knob == "draft":
+            eng = SpeculativeEngine(m, truncated_draft(m, 2), spec_k=2, **kw)
+            out = eng.generate_batch([[1, 2, 3]], 2)
+            assert eng.draft.model._train_mesh is not None
+        else:
+            out = ServingEngine(m, mesh=("cpu", "cpu"), **kw).generate_batch(
+                [[1, 2, 3]], 2)
+            assert m._train_mesh is None
+        assert len(out[0]) == 5
+    finally:
+        M.set_mesh(None)
+
+
+def _train_after_serving_mesh():
+    """A training forward of a placed GPT after a serving mesh took it off
+    its training mesh (its optimizer would hold the freed parts)."""
+    M.set_mesh(M.build_mesh({"pp": 2}, ["cpu"] * 2))
+    try:
+        m = GPTStackedForPretraining(gpt_tiny())
+        ServingEngine(m, mesh=("cpu",), num_slots=2, page_size=16,
+                      max_context=64)
+        ids = torch.zeros(2, 8, dtype=torch.long)
+        m(ids, labels=ids)
+    finally:
+        M.set_mesh(None)
+
+
 def _sharded_prefetch():
     """A batch placed over the dp axis: one block a replica."""
     from paddle_tpu_torch.io import DevicePrefetcher
@@ -525,6 +563,8 @@ REFUSALS = {
         lambda: _sp_copies_replicated("dp"), "sequence parallelism"),
     "layered gpt sp copies under zero": (
         lambda: _sp_copies_replicated("sharding"), "sequence parallelism"),
+    "training a placed gpt after a serving mesh took it": (
+        _train_after_serving_mesh, "sharded engine"),
     "fleet init_server": (
         lambda: __import__("paddle_tpu_torch.distributed.fleet",
                            fromlist=["x"]).init_server(), "long-tail"),
@@ -620,6 +660,12 @@ PORTED = {
                        _sharded_step), 9, "fleet"),
     "layered gpt generate on a mesh": (
         _placed_generate, 9, "generation from a training mesh"),
+    "placed gpt lora": (lambda: _placed_serving("lora"), 9,
+                        "placed model with lora"),
+    "placed gpt truncated_draft": (lambda: _placed_serving("draft"), 9,
+                                   "drafts"),
+    "engine mesh over a placed gpt": (lambda: _placed_serving("mesh"), 9,
+                                      "sharded engine"),
     "device prefetcher sharding": (_sharded_prefetch, 9, "placed batches"),
     "auto_parallel shard_tensor and reshard": (_auto_parallel_placed, 9,
                                                "auto_parallel"),

@@ -62,7 +62,13 @@ copy's, are four distinct cards.  ``--serve-cluster`` times phases 41-44
 (sharded, int8, disaggregated and elastic serving) in a process of its
 own after the kernels are built; with ``--parent DIR`` in turns from the
 tree unpacked at DIR and from this one (parent, this, this, parent), so
-the two compare on one machine.
+the two compare on one machine.  ``--placed-serving`` runs phase 57
+after what it reads (phase 46's (1, 2, 2) run and phase 52 without its
+CPU copy): fault 11's recipe with replica 1 on the CPU, then LoRA, a
+speculative draft and the sharded engine over the placed models against
+the unplaced ones; with ``--cards 4`` every mesh position on its own card
+(round-robin) and fault 11's replicas on cards of their own (replica 0's
+stages on cards 0 and 1, replica 1's on 2 and 3).
 Run from the repository root:
 
     python3 tools/port_mesh_probe.py [--steps N] [--parent DIR]
@@ -79,6 +85,7 @@ Run from the repository root:
     python3 tools/port_mesh_probe.py --auto-parallel
     python3 tools/port_mesh_probe.py --engine [--cards 4]
     python3 tools/port_mesh_probe.py --serve-cluster [--parent DIR]
+    python3 tools/port_mesh_probe.py --placed-serving [--cards 4]
 
 It exits nonzero when a check fails or there is no card.
 """
@@ -240,6 +247,8 @@ def main() -> int:
                     help="phase 55 alone (auto_parallel)")
     ap.add_argument("--engine", action="store_true",
                     help="phase 56 alone (auto_parallel's Engine)")
+    ap.add_argument("--placed-serving", action="store_true",
+                    help="phase 57 after phases 46 (1, 2, 2) and 52")
     ap.add_argument("--serve-cluster", action="store_true",
                     help="phases 41-44's times (with --parent, in turns)")
     args = ap.parse_args()
@@ -302,6 +311,17 @@ def main() -> int:
                       ("52", lambda p: cs.phase_mesh_generate(p, kept,
                                                               cpu=False)),
                       phases[2])
+    elif args.placed_serving:
+        kept = {}
+        keep_runs = tuple(r for r in runs if r[0] == "1x2x2")
+        if args.cards >= 4:
+            cs._mesh_devices = lambda n: [f"cuda:{j % 4}" for j in range(n)]
+            cs.SCALER_DEVICES = tuple(f"cuda:{j}" for j in range(4))
+        phases = (("46", lambda p: cs.phase_mesh_train(p, keep_runs, kept)),
+                  ("52", lambda p: cs.phase_mesh_generate(p, kept,
+                                                          cpu=False)),
+                  ("57a", cs.phase_scaler_across_devices),
+                  ("57", lambda p: cs.phase_placed_serving(p, kept)))
     elif args.recompute:
         phases = (("54", lambda p: cs.phase_recompute_across_devices(
             p["torch"], cs.recompute_cases(p))),)
