@@ -471,7 +471,29 @@ result line:
    (``ENGINE_BWD_ATOL``); ``evaluate``, ``predict``; the checkpoint into a
    fresh Engine bit for bit; the fp32 copy planned on the CPU and on the
    card against each other and the unplanned CPU run
-   (``ENGINE_CPU_TOL``).
+   (``ENGINE_CPU_TOL``);
+57e. a serving mesh over a model under ZeRO (after phase 57) -- the
+   stacked GPT at GPT-3 1.3B widths (2 layers, fp32) on ``{"sharding":
+   2, "mp": 2}`` under ``p_g_os`` after one training step, taken off its
+   training mesh by ``ServingEngine(mesh=)`` and serving phase 29's
+   traffic (16 requests x 32 tokens) beside an unplaced twin loaded with
+   its ``state_dict()``: tokens under the fp32 parity rule, exactly L
+   ragged launches a fused step, no part, copy or slice left with
+   storage, the engine's peak within one gathered copy and one tensor,
+   training afterwards refused;
+58. dp replicas and ZeRO over sp copies (last) -- the fp32 flash kernels
+   at a part's blocks and the fp32 AdamW kernel at the word table against
+   their plain versions; the layered GPT at GPT-3 1.3B widths (2 layers,
+   fp32, ``sequence_parallel``, batch 2 x 1024) under ``DataParallel`` at
+   ``{"dp": 2, "sp": 2}`` and under ZeRO ``os`` and ``p_g_os`` at
+   ``{"sharding": 2, "sp": 2}``, its positions ``SPR_DEVICES`` (each
+   replica's sp position 1 a copy on the CPU), one step a run (two at
+   ``os``, the second under the profiler), against one step of the same
+   mesh all on the card: step 1's loss and gradients, every copy on its
+   position's device and within ``SPR_COPY_REL`` of its source after each
+   step (bit-equal under ZeRO), the flash launches of the ring's pairs on
+   the card and one AdamW launch a tensor (or slice) on the card exactly;
+   host ms a step, and device ms and busy share of the profiled step.
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -488,8 +510,10 @@ library's with ``found_inf``; the flash rows their launches on phases 6,
 (``auto_parallel_dp2_mp2``), and, with the bf16 AdamW row, on phase
 46's mesh runs and (fp32) phase 47's, and on phases
 48-50's fleet steps (``train_fleet_*``) and phase 51's
-(``train_sequence_parallel_*``); the fp32 AdamW row its launches on
-phases 31, 47, 48-50 and 51's fp32 copies; the decode and paged rows,
+(``train_sequence_parallel_*``), and with the fp32 AdamW row on phase
+58's (``train_sp_replicas_*``); the fp32 AdamW row its launches on
+phases 31, 47, 48-50 and 51's fp32 copies; the ragged row also phase
+57e's (``zero_serving_fp32``); the decode and paged rows,
 bf16 and int8, theirs on the stacked and the layered GPT's paths), and
 as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
@@ -642,7 +666,8 @@ def import_port():
     from paddle_tpu_torch.serving import RequestState, ServingEngine, \
         SpeculativeEngine
     from paddle_tpu_torch.serving import sharded
-    from paddle_tpu_torch.distributed import fleet, mesh, serving_mesh, shards
+    from paddle_tpu_torch.distributed import DataParallel, fleet, mesh, \
+        serving_mesh, shards
     from paddle_tpu_torch.distributed import sharding
     from paddle_tpu_torch.models import gpt as gpt_blocks
     from paddle_tpu_torch.nn.layers import LayerNorm, init_weights
@@ -669,7 +694,7 @@ def import_port():
                 LayerNorm=LayerNorm, init_weights=init_weights,
                 Momentum=Momentum, sharding=sharding, ring=ring,
                 recompute=recompute, pp_spmd=pp_spmd,
-                auto_parallel=auto_parallel)
+                auto_parallel=auto_parallel, DataParallel=DataParallel)
 
 
 def _check(cond, msg):
@@ -9664,6 +9689,359 @@ def phase_engine(port, devices=None):
                 losses=losses)
 
 
+# ---------------------------------------------------------------------------
+# phase 57e: a serving mesh over a stacked GPT under ZeRO
+# ---------------------------------------------------------------------------
+
+# GPT-3 1.3B widths at ZS_LAYERS layers, fp32 (TF32 off), dropout 0, the
+# stacked GPT on ZS_AXES (every position on the card) under ZeRO
+# ``p_g_os``, one AdamW step on a ZS_BATCH batch; then phase 29's traffic
+ZS_LAYERS = 2
+ZS_AXES = {"sharding": 2, "mp": 2}
+ZS_BATCH = (2, 512)
+ZS_LR = 1e-4
+
+
+def phase_zero_serving(port):
+    """Phase 57e: the stacked GPT at GPT-3 1.3B widths (ZS_LAYERS layers,
+    fp32) placed on ZS_AXES, under ZeRO at ``p_g_os`` after one
+    ``FusedTrainStep``, taken off its training mesh by
+    ``ServingEngine(mesh=)`` (``leave_training_mesh``: the plan dissolved
+    piece by piece into replica 0's copies, their whole weights gathered,
+    every part, copy and slice freed), then phase 29's traffic
+    (SERVE_REQUESTS x SERVE_NEW_TOKENS, phase 3's prompt lengths) against
+    an unplaced twin loaded with the same ``state_dict()``, under the
+    parity rule (fp32 cache, ``GAP_BOUND``): exactly L ragged launches a
+    fused step on both, no storage left in the placement, the engine's
+    peak above what the card held before it within one gathered copy
+    (the twin's weight bytes) and one tensor's temporary (its largest;
+    the pool, allocated after the placement is freed, is smaller than a
+    copy), and a training forward afterwards raising naming ROADMAP.md
+    queue 1, item 9.  Returns the ragged launches of both drives."""
+    torch, dm = port["torch"], port["mesh"]
+    t0 = time.perf_counter()
+    cfg = port["gpt_1p3b"](num_layers=ZS_LAYERS, hidden_dropout=0.0,
+                           attention_dropout=0.0)
+    dm.set_mesh(dm.build_mesh(ZS_AXES, [DEVICE] * 4))
+    try:
+        model = port["GPT"](cfg, 1, dtype="float32", seed=57)
+        opt = port["AdamW"](ZS_LR, parameters=model.parameters(),
+                            multi_precision=False)
+        port["sharding"].group_sharded_parallel(model, opt, "p_g_os")
+        rng = np.random.RandomState(57)
+        ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, ZS_BATCH)
+                               ).to(DEVICE)
+        step = port["FusedTrainStep"](lambda i, l: model(i, labels=l), opt)
+        loss = float(step(ids, ids))
+    finally:
+        dm.set_mesh(None)
+    plan = model._zero_plan
+    _check(plan is not None and plan.level == "p_g_os" and np.isfinite(loss),
+           f"zero serving: the model under ZeRO p_g_os (loss {loss})")
+    placement = [p for g in opt.param_groups for p in g["params"]] + list(
+        model.parameters()) + [c for rec in plan.pieces for c in rec.copies]
+    twin = port["GPT"](cfg, device=DEVICE, dtype="float32", seed=58)
+    twin.load_state_dict(model.state_dict())
+    twin.eval()
+    sizes = [v.numel() * v.element_size() for v in twin.state_dict().values()]
+    whole = sum(sizes)
+    prompts = _serve_prompts(np.random.RandomState(29), cfg.vocab_size)
+    kw = _engine_kw(cache_dtype="float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    eng = port["ServingEngine"](model, mesh=(DEVICE,), **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    pool = eng.cache.nbytes
+    left = model._train_mesh is None and getattr(model, "_zero_plan",
+                                                  None) is None
+    freed = all(t.untyped_storage().nbytes() == 0 for t in placement)
+    got = _placed_path(port, "zero serving p_g_os", eng, prompts,
+                       profile=False)
+    want = _placed_path(port, "zero serving unplaced twin",
+                        port["ServingEngine"](twin, **kw), prompts,
+                        profile=False)
+    same, total = _parity(port, "zero serving", got["got"], want["got"], twin,
+                          GAP_BOUND["float32"], "float32")
+    L = cfg.num_layers
+    model.train()
+    try:
+        model(ids[:1, :8], labels=ids[:1, :8])
+        refused = False
+    except NotImplementedError as e:
+        refused = "queue 1, item 9" in str(e)
+    model.eval()
+    print(f"[zero_serving] the stacked GPT at GPT-3 1.3B widths, {L} "
+          f"layers fp32, on {ZS_AXES} under ZeRO p_g_os, step loss "
+          f"{loss!r}, left its training mesh through ServingEngine(mesh=) "
+          f"({time.perf_counter() - t0:.1f} s): placement gone {left}, "
+          f"{len(placement)} parts, copies and slices freed {freed}; peak "
+          f"{peak} bytes above the {before} held before (one gathered copy "
+          f"{whole}, its largest tensor {max(sizes)}, the pool {pool}: "
+          f"{peak / whole:.3f} copies); "
+          f"{same}/{total} requests token for token against the unplaced "
+          f"twin; ragged launches {got['ragged']} over {got['fused_steps']} "
+          f"fused steps (twin {want['ragged']} over {want['fused_steps']}; "
+          f"want {L} a step); training afterwards refused {refused}")
+    _check(left and freed, "zero serving: the placement or a slice stayed")
+    _check(peak <= whole + max(sizes) and pool <= whole,
+           f"zero serving: peak {peak} above one copy {whole} and its "
+           f"largest tensor {max(sizes)} (the pool {pool})")
+    _check(got["ragged"] == got["fused_steps"] * L
+           and want["ragged"] == want["fused_steps"] * L
+           and got["ragged"] > 0 and not any(got["other"].values()),
+           f"zero serving: ragged launches {got['ragged']} / "
+           f"{want['ragged']}")
+    _check(refused, "zero serving: training after the serving mesh ran")
+    del model, opt, step, twin, eng, placement
+    torch.cuda.empty_cache()
+    return got["ragged"] + want["ragged"]
+
+
+# ---------------------------------------------------------------------------
+# phase 58: dp replicas and ZeRO over a layered GPT whose sp positions hold
+# copies of their own
+# ---------------------------------------------------------------------------
+
+# GPT-3 1.3B widths at SPR_LAYERS layers, fp32, dropout 0, a batch of
+# SPR_BATCH x SPR_SEQ: one row a replica at dp 2, SPR_SEQ / 2 positions a
+# part.  The mesh positions in dp-major order (dp r, sp s) -> SPR_DEVICES[2
+# r + s]: each replica's sp position 1 a copy on the CPU beside the card's
+# sp position 0 (which holds the joined head)
+SPR_LAYERS = 2
+SPR_BATCH, SPR_SEQ = 2, 1024
+SPR_DEVICES = (f"{DEVICE}:0", "cpu", f"{DEVICE}:0", "cpu")
+# (name, mesh axes, ZeRO level or None for DataParallel, steps).  The CPU
+# position's fp32 work is most of the phase (a DataParallel step ~9 s, a
+# ZeRO step ~3 s, on an 8-core host), so only the os run takes a second
+# step, which the profiler reads; tools/port_mesh_probe.py --sp runs every
+# run for 2 steps
+SPR_RUNS = (("dp2_sp2", {"dp": 2, "sp": 2}, None, 1),
+            ("sharding2_sp2_os", {"sharding": 2, "sp": 2}, "os", 2),
+            ("sharding2_sp2_p_g_os", {"sharding": 2, "sp": 2}, "p_g_os", 1))
+SPR_LR = 1e-4
+# a copy on the CPU is stepped by the plain AdamW and its source on the
+# card by the fused kernel, so without ZeRO they may part by rounding:
+# held to SPR_COPY_REL of each tensor's largest value after each step.
+# Under ZeRO every copy is gathered from the same slices: bit-equal
+SPR_COPY_REL = 1e-6
+
+
+def _spr_pairs(rows, on_card):
+    """The flash launches of one layer's causal ring over one replica's sp
+    positions ``rows`` (a device each): the forward and dQ on the query
+    part's device, dK/dV on the key part's (``RingAttention``)."""
+    n = {"fwd": 0, "dkv": 0, "dq": 0}
+    for i in range(len(rows)):
+        for j in range(i + 1):
+            n["fwd"] += on_card(rows[i])
+            n["dq"] += on_card(rows[i])
+            n["dkv"] += on_card(rows[j])
+    return n
+
+
+def _spr_run(port, axes, level, devices, state, batch, steps):
+    """One run of phase 58: the layered model of ``state`` with
+    ``sequence_parallel`` on ``axes`` over ``devices`` (one a mesh
+    position), under ``DataParallel`` (``level`` None) or
+    ``group_sharded_parallel`` at ``level``, ``steps`` AdamW steps on
+    ``batch``: the losses, step 1's gathered gradients, the copies'
+    placement and distance from their sources after each step, each
+    step's host ms (step 1's without the gathering of its gradients),
+    the last step's device ms and busy share under the profiler where
+    there are 2 steps or more, and the card's launches a step."""
+    torch, dm, sh = port["torch"], port["mesh"], port["shards"]
+    dm.set_mesh(dm.build_mesh(axes, list(devices)))
+    cfg = port["gpt_1p3b"](num_layers=SPR_LAYERS, hidden_dropout=0.0,
+                           attention_dropout=0.0,
+                           max_position_embeddings=SPR_SEQ,
+                           sequence_parallel=True)
+    m = port["Layered"](cfg, device=devices[0], dtype="float32")
+    m.load_state_dict(state)
+    crit = port["Criterion"](cfg)
+    model = port["DataParallel"](m) if level is None else m
+    opt = port["AdamW"](SPR_LR, parameters=model.parameters(),
+                        multi_precision=False)
+    if level is not None:
+        port["sharding"].group_sharded_parallel(model, opt, level)
+    ids, labels = (t.to(devices[0]) for t in batch)
+    copies = [p for p in model.parameters() if sh.replica_of(p) is not None]
+    placed = {}
+    for p in copies:
+        key = sh.copy_key(sh.position_of(p))
+        placed.setdefault(key, set()).add(p.device.type)
+    cards = sorted({str(torch.device(d)) for d in devices
+                    if torch.device(d).type != "cpu"})
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    out = dict(losses=[], host_ms=[], copy_rel=[], launches=[],
+               sp_copies=len(m.gpt.sequence_copies), placed=placed,
+               n_copies=len(copies), prof=None,
+               held=sum(len(g["params"]) for g in opt.param_groups))
+
+    def step(capture):
+        loss = crit(model(ids), labels)
+        loss.backward()
+        spent = 0.0
+        if capture:
+            sync()
+            t0 = time.perf_counter()
+            out["grads"] = {k: g.float().cpu() for k, g in
+                            port["sharding"].gathered_grads(m).items()}
+            spent = time.perf_counter() - t0
+        opt.step()
+        opt.clear_grad()
+        out["losses"].append(loss.item())
+        return spent
+
+    for i in range(steps):
+        _reset_launches(port)
+        t0 = time.perf_counter()
+        if i and i == steps - 1:
+            out["prof"] = _profiled_step_ms(port, lambda: step(False))
+            spent = 0.0
+        else:
+            spent = step(i == 0)
+        sync()
+        out["host_ms"].append(1e3 * (time.perf_counter() - t0 - spent))
+        out["launches"].append(_launch_counts(port))
+        rel = 0.0
+        for p in copies:
+            if not p.untyped_storage().nbytes():
+                continue
+            src = sh.replica_of(p)
+            diff = (p.detach() - src.detach().to(p.device)).abs().max()
+            rel = max(rel, diff.item() / src.detach().abs().max().item())
+        out["copy_rel"].append(rel)
+    del model, m, opt, copies
+    dm.set_mesh(None)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sp_replicas(port, devices=SPR_DEVICES, steps=None):
+    """Phase 58: the flash kernels in fp32 at a part's blocks (SPR_BATCH
+    rows at SPR_SEQ / 2 positions and 16 heads, causal and full) and the
+    fp32 AdamW kernel at the word table's [50304, 2048] against their
+    plain versions; then the layered GPT at GPT-3 1.3B widths
+    (SPR_LAYERS layers, fp32, dropout 0, ``sequence_parallel``) on each
+    mesh of SPR_RUNS (its steps, or ``steps`` for every run), its
+    positions on ``devices`` (dp major: each replica's sp position 1 a
+    copy on its own device), and for one step on the card alone (no
+    copies), from the same weights and batch, TF32 off: step 1's loss
+    (TRAIN_LOSS_ATOL) and gathered gradients (MESH_GRAD_REL of each
+    tensor's largest) against the card-only step (one for both ZeRO
+    levels, which phase 50 holds bit-equal on the card); every sp copy
+    on its position's device; each copy within SPR_COPY_REL of its
+    source after each step (bit-equal under ZeRO); the card's flash
+    launches exactly what the ring's block pairs on the card give
+    (``_spr_pairs``) for each layer and replica, and one AdamW launch for
+    each tensor on the card a step (one a slice under ZeRO).  Prints
+    host ms a step, and device ms and busy share of each run's last step
+    where it has two.  Returns the kernels' max errors and the mixed
+    runs' launches over their steps."""
+    torch = port["torch"]
+    t_phase = time.perf_counter()
+    cfg = port["gpt_1p3b"](num_layers=SPR_LAYERS, hidden_dropout=0.0,
+                           attention_dropout=0.0,
+                           max_position_embeddings=SPR_SEQ)
+    errs = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    for i, causal in enumerate((True, False)):
+        shape = (SPR_BATCH, cfg.num_heads, SPR_SEQ // 2, cfg.head_dim)
+        e = _kept(port, _flash_compare, port, "float32", shape, causal,
+                  580 + i)
+        errs = {k: max(errs[k], x) for k, x in zip(errs, e)}
+    errs["adamw"] = _kept(port, _adamw_compare, port,
+                          (cfg.vocab_size, cfg.hidden_size), "float32", 584)
+    torch.cuda.empty_cache()
+    base = port["Layered"](cfg, device=DEVICE, dtype="float32", seed=58)
+    state = {k: v.clone() for k, v in base.state_dict().items()}
+    n_body = len(list(base.parameters()))
+    del base
+    rng = np.random.RandomState(58)
+    batch = tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                               (SPR_BATCH, SPR_SEQ)))
+                  for _ in range(2))
+    card = f"{DEVICE}:0"
+
+    def on_card(d):
+        return int(torch.device(d).type != "cpu")
+
+    out, lines, refs = {}, [], {}
+    for name, axes, level, n_steps in SPR_RUNS:
+        n_steps = steps or n_steps
+        R = axes.get("dp", 1) if level is None else 1
+        key = (tuple(axes.items()), level is None)
+        if key not in refs:
+            refs[key] = _spr_run(port, axes, level, [card] * 4, state,
+                                 batch, 1)
+        ref = refs[key]
+        got = _spr_run(port, axes, level, devices, state, batch, n_steps)
+        gerr = max(((got["grads"][k] - g).abs().max() / g.abs().max())
+                   .item() for k, g in ref["grads"].items())
+        ldiff = abs(got["losses"][0] - ref["losses"][0])
+        want = {k: 0 for k in ("fwd", "dkv", "dq")}
+        for r in range(R):
+            rows = devices[2 * r:2 * r + 2]
+            for k, v in _spr_pairs(rows, on_card).items():
+                want[k] += SPR_LAYERS * v
+        # the card's tensors: each body or copy on a card, or the slices
+        want["adamw"] = got["held"] if level is not None else sum(
+            on_card(d) for d in devices[:2 * R]) * n_body
+        firsts = got["launches"]
+        sp_on = {key: types for key, types in got["placed"].items()
+                 if key[1]}
+        placed_ok = got["sp_copies"] == 1 and sp_on and all(
+            types == {torch.device(devices[2 * key[0] + key[1]]).type}
+            for key, types in sp_on.items()) and ref["sp_copies"] == 0
+        # bit-equal under ZeRO, or where every copy's device is a card
+        tol = 0.0 if level is not None or all(map(on_card, devices)) \
+            else SPR_COPY_REL
+        prof = got["prof"]
+        lines.append(
+            f"{name}: losses {got['losses']} against the card alone "
+            f"{ref['losses']} (step 1 diff {ldiff!r}, tol "
+            f"{TRAIN_LOSS_ATOL}); gradients max |mixed - card| / max |card| "
+            f"{gerr!r} (tol {MESH_GRAD_REL}); {got['sp_copies']} sp copy a "
+            f"replica, {got['n_copies']} copy tensors, sp positions by "
+            f"(replica, sp) {sorted(sp_on)} on "
+            f"{sorted({t for v in sp_on.values() for t in v})}; copies' "
+            f"largest distance from their sources after each step "
+            f"{got['copy_rel']} (tol {tol}); launches a step {firsts} "
+            f"(want {want}); host ms a step {got['host_ms']} (card alone, "
+            f"step 1: {ref['host_ms']})"
+            + ("" if n_steps < 2 else
+               f"; step {n_steps} under the profiler: "
+               + ("no device activity" if prof is None else
+                  f"device {prof[0]:.2f} ms, busy {prof[2]:.3f}, host "
+                  f"{prof[3]:.1f} ms")))
+        _check(all(np.isfinite(got["losses"])),
+               f"sp replicas {name}: non-finite losses {got['losses']}")
+        _check(gerr <= MESH_GRAD_REL and ldiff <= TRAIN_LOSS_ATOL,
+               f"sp replicas {name}: gradients or losses part from the "
+               "card alone")
+        _check(placed_ok, f"sp replicas {name}: copies {got['placed']}")
+        _check(all(r <= tol for r in got["copy_rel"]),
+               f"sp replicas {name}: a copy parted from its source "
+               f"{got['copy_rel']}")
+        _check(all(c[k] == v for c in firsts for k, v in want.items()),
+               f"sp replicas {name}: launches {firsts}, want {want} a step")
+        _check(n_steps < 2 or prof is not None,
+               f"sp replicas {name}: the profiler saw no device activity")
+        out[name] = {k: sum(c[k] for c in firsts)
+                     for k in ("fwd", "dkv", "dq", "adamw")}
+    print(f"[sp_replicas] the layered GPT at GPT-3 1.3B widths, "
+          f"{SPR_LAYERS} layers fp32, sequence_parallel, batch {SPR_BATCH} "
+          f"x {SPR_SEQ}, positions {list(devices)} (dp major): "
+          + "; ".join(lines))
+    print(f"[time] phase 58 {time.perf_counter() - t_phase:.1f} s")
+    return dict(errs=errs, launches=out)
+
+
 def card_line():
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -9822,7 +10200,11 @@ def main() -> int:
     by_path.update({p: {"bfloat16": n} for p, n in placed_serving.items()})
     del mesh_kept
     torch.cuda.empty_cache()
-    mark("57")
+    # phase 57e: a serving mesh over a stacked GPT under ZeRO p_g_os (fp32
+    # launches ride the fp32/bf16 kernel's row)
+    by_path["zero_serving_fp32"] = {"bfloat16": timed(
+        "57e", phase_zero_serving, port)}
+    mark("57, 57e")
     # phase 48: the fleet API over the layered GPT at TP=2 PP=2
     fl = phase_fleet_train(port)
     for key in ("fwd", "dkv", "dq", "adamw"):
@@ -9855,6 +10237,14 @@ def main() -> int:
     for key in ("fwd", "dkv", "dq"):
         tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"], fe["errs"][key])
     mark("56")
+    # phase 58: dp replicas and ZeRO over the layered GPT whose sp
+    # positions hold copies of their own, a copy on the CPU beside the card
+    spr = phase_sp_replicas(port)
+    for key in ("fwd", "dkv", "dq"):
+        tk[key]["max_abs_err"] = max(tk[key]["max_abs_err"],
+                                     spr["errs"][key])
+    fk["max_abs_err"] = max(fk["max_abs_err"], spr["errs"]["adamw"])
+    mark("58")
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -9925,7 +10315,10 @@ def main() -> int:
                 **{f"train_sequence_parallel_{name}_fp32_card_vs_cpu":
                    run[key] for name, run in fsp["cpu_launches"].items()},
                 "auto_parallel_fit_fp32_card_vs_cpu":
-                    fe["cpu_launches"][key]}
+                    fe["cpu_launches"][key],
+                # phase 58's fp32 steps, a copy on the CPU beside the card
+                **{f"train_sp_replicas_{name}_fp32": run[key]
+                   for name, run in spr["launches"].items()}}
             if key == "fwd":
                 # phase 52's prefills from the placed models, per shard
                 kernels[-1]["launches_by_path"].update(
@@ -9959,7 +10352,9 @@ def main() -> int:
                            run["adamw"]
                            for name, run in fsp["cpu_launches"].items()},
                         "auto_parallel_fit_fp32_card_vs_cpu":
-                            fe["cpu_launches"]["adamw"]},
+                            fe["cpu_launches"]["adamw"],
+                        **{f"train_sp_replicas_{name}_fp32": run["adamw"]
+                           for name, run in spr["launches"].items()}},
                     **fk})
     # the fp32-master form: the same kernel library and TPU kernel, with
     # the arithmetic of the reference's composed master path; launches

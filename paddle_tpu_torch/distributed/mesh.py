@@ -136,16 +136,16 @@ def replica_count() -> int:
     return axis_size("dp") * axis_size("sharding")
 
 
-def stage_devices(stage: int = 0, replica: int = 0) -> tuple:
-    """The devices of pipeline stage ``stage`` of replica ``replica`` on
-    the global mesh, one a tensor-parallel shard, in shard order: where a
-    layer of that stage holds its parts (``mp`` of them; one without an
-    mp axis).  Replicas run over dp x sharding, dp major: replica ``d *
-    sharding + k`` is position ``d`` on ``dp`` and ``k`` on
-    ``sharding``."""
+def stage_devices(stage: int = 0, replica: int = 0, sp: int = 0) -> tuple:
+    """The devices of pipeline stage ``stage`` of replica ``replica`` at
+    coordinate ``sp`` of the sp axis on the global mesh, one a
+    tensor-parallel shard, in shard order: where a layer of that stage
+    holds its parts (``mp`` of them; one without an mp axis).  Replicas
+    run over dp x sharding, dp major: replica ``d * sharding + k`` is
+    position ``d`` on ``dp`` and ``k`` on ``sharding``."""
     grid = get_mesh().grid(("dp", "sharding", "pp", "sep", "sp", "mp"))
     grid = grid.reshape((-1,) + grid.shape[2:])
-    return tuple(grid[replica, stage, 0, 0, :])
+    return tuple(grid[replica, stage, 0, sp, :])
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,14 @@ batch's rows split evenly over the replicas; each runs on its copies
 tied across the replicas (``shards.tie_slots``), so every copy applies
 the sum of the replicas' gradients, bit for bit the same, and the
 outputs are joined in row order on replica 0's device: a loss over them
-is the reference's.  ``scale_loss`` and ``apply_collective_grads`` keep
-the reference's meaning (the loss is already the batch's mean, the
+is the reference's.  A model whose sp positions hold copies on devices
+of their own (the layered GPT's ``sequence_copies``) is replicated with
+them: replica ``r``'s copy for sp position ``s`` is placed on the
+mesh's devices at (replica ``r``, sp ``s``) (``mesh.stage_devices``,
+handed to ``shards.place_on_stage``), and the replica's own sp ties run
+inside its dp binding, so every copy applies the sum over all dp x sp
+parts.  ``scale_loss`` and ``apply_collective_grads`` keep the
+reference's meaning (the loss is already the batch's mean, the
 gradients already summed).
 
 Build the optimizer over the wrapper's ``parameters()``, which hold
@@ -28,8 +34,8 @@ from torch import nn
 
 from . import mesh as _mesh
 from .shards import (
-    Bound, load_state, param_slots, place_on_stage, refuse_sequence_copies,
-    replicate, sync_replicas, tie_slots,
+    Bound, load_state, param_slots, place_on_stage, replicate, sync_replicas,
+    tie_slots,
 )
 
 __all__ = ["DataParallel", "ReplicatedModule"]
@@ -67,11 +73,13 @@ class ReplicatedModule(nn.Module):
         self._replicas = nn.ModuleList()
         dp = _mesh.replica_count()
         if dp > 1:
-            refuse_sequence_copies(layers, "dp replicas")
             place_on_stage(layers, 0, _mesh.stage_devices(0, 0), 0)
+            sps = range(1, _mesh.axis_size("sp"))
             for r in range(1, dp):
                 copy = replicate(layers)
-                place_on_stage(copy, 0, _mesh.stage_devices(0, r), r)
+                place_on_stage(copy, 0, _mesh.stage_devices(0, r), r,
+                               sp_devices={s: _mesh.stage_devices(0, r, s)
+                                           for s in sps})
                 self._replicas.append(copy)
 
     @property

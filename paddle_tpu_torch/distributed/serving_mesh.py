@@ -493,8 +493,17 @@ def clone_model(model, model_factory=None):
     a sharded model's tensor-parallel weights are gathered from its
     shards into the clone.  ``model_factory`` builds the fresh instance
     instead, for classes that cannot be copied; the weights are then
-    loaded into it by state-dict key (:func:`take_weights`).  The mode (train/eval) is
-    copied."""
+    loaded into it by state-dict key (:func:`take_weights`).  A model under
+    ZeRO (``group_sharded_parallel``), whose copies and hooks belong to
+    its plan, gives an unplaced clone of replica 0's whole weights (its
+    ``_unplaced_twin``), quantized as the model is.  The mode (train/eval)
+    is copied."""
+    if model_factory is None and getattr(model, "_zero_plan",
+                                         None) is not None:
+        fresh = model._unplaced_twin()
+        if model.weight_int8:
+            fresh.quantize_weights()
+        return fresh.train(model.training)
     if model_factory is None:
         memo = {}
         if getattr(model, "_serving_shards", None) is not None:

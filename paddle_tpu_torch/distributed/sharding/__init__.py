@@ -27,13 +27,21 @@ position 0.  The levels:
   whole gradient is kept;
 - ``p_g_os``: also the parameters: every copy keeps its shape and no
   storage.  A module that reads a copy (one holding parameters, an mp
-  layer's parts, or a module that names another's in ``_tied``: the tied
-  LM head) gathers it from its group's slices before its forward and
+  layer's parts, or a module that names another's in
+  ``_zero_tied_modules``: the tied LM head) gathers it from its group's slices before its forward and
   frees it after; autograd's saved views share the copy's storage, so
   the first gradient of the module's outputs gathers it again, and the
   piece's summed gradient reaching its slices frees it.  A module
   marked ``_zero_unit`` (the stacked GPT) gathers its whole tree around
   its forward in the same way.
+
+A model whose sp positions hold copies on devices of their own (the
+layered GPT's ``sequence_copies``) gives each piece, beside its
+replicas' copies, one copy for each (replica, sp position) from sp 1 on:
+each is filled from its replica's group (gathered around its use at
+``p_g_os``, written after each update at ``os`` and ``os_g``), and its
+gradient, which the replica's sp tie already summed into the replica's
+copy, lands in no slice.
 
 Every level sums the replicas' gradients in the same order as the same
 mesh without ZeRO and runs the same elementwise updates, so the levels
@@ -58,9 +66,8 @@ from torch import nn
 from .. import mesh as _mesh
 from ..shards import (
     Bound, ShardedParameter, Slice, ZeroPiece, _optimizer_chain,
-    _plain_parameters, _zero_target, logical_value, param_slots,
-    refuse_sequence_copies, replica_of, shard_info, sharded_parameters,
-    tie_slots,
+    _plain_parameters, _zero_target, copy_key, logical_value, param_slots,
+    position_of, replica_of, shard_info, sharded_parameters, tie_slots,
 )
 
 __all__ = ["group_sharded_parallel", "save_group_sharded_model",
@@ -94,14 +101,6 @@ def _ranges(numel: int, elem: int, n: int) -> List[tuple]:
             if j * per < numel]
 
 
-def _replica_index(p) -> int:
-    info = shard_info(p)
-    if info is not None:
-        return info[0].parts[info[1]].position[0]
-    pos = getattr(p, "mesh_position", None)
-    return 0 if pos is None else pos[0]
-
-
 def _piece(p):
     """The replica-0 tensor that ``p`` is a copy of."""
     src = replica_of(p)
@@ -129,6 +128,29 @@ class ZeroPlan:
         self.level, self.axis, self.pieces = level, axis, pieces
         self.slices: List[Slice] = [sl for rec in pieces
                                     for g in rec.slices for sl in g]
+        self.roots: List[nn.Module] = []      # the modules marked _zero_plan
+        self.hooks: list = []                 # the hooks' removable handles
+
+    @torch.no_grad()
+    def dissolve(self):
+        """Hand the model back without ZeRO (a model leaving its training
+        mesh: ``leave_training_mesh``): the plan's hooks go, then piece by
+        piece replica 0's copy keeps its whole value (gathered from the
+        slices where ``p_g_os`` freed it) and the piece's slices and other
+        copies are freed, so the peak is the placement and one piece; then
+        ``_zero_plan`` goes from its modules.  The optimizer keeps the
+        freed slices: stepping it again steps nothing."""
+        for h in self.hooks:
+            h.remove()
+        self.hooks = []
+        for rec in self.pieces:
+            rec.acquire(0)
+            for t in [sl.tensor for g in rec.slices for sl in g] + \
+                    rec.copies[1:]:
+                t.data = torch.empty(0, dtype=t.dtype, device=t.device)
+                t.grad = None
+        for m in self.roots:
+            m._zero_plan = None
 
     # -- the optimizer's side ------------------------------------------
     @torch.no_grad()
@@ -197,13 +219,13 @@ class ZeroPlan:
 
 
 def _build_plan(target: nn.Module, level: str, axis: str) -> ZeroPlan:
-    copies: Dict[int, Dict[int, torch.Tensor]] = {}
+    copies: Dict[int, Dict[tuple, torch.Tensor]] = {}
     pieces = {}
     for p in target.parameters():
         piece = _piece(p)
         pieces[id(piece)] = piece
-        copies.setdefault(id(piece), {})[_replica_index(p)] = p
-    R = 1 + max(r for c in copies.values() for r in c)
+        copies.setdefault(id(piece), {})[copy_key(position_of(p))] = p
+    R = 1 + max(r for c in copies.values() for r, _ in c)
     dp, S = _mesh.axis_size("dp"), _mesh.axis_size("sharding")
     n = _mesh.axis_size(axis)
     if R == 1:
@@ -221,11 +243,16 @@ def _build_plan(target: nn.Module, level: str, axis: str) -> ZeroPlan:
     out = []
     for key, piece in pieces.items():
         have = copies[key]
-        if sorted(have) != list(range(R)):
+        got = sorted({r for r, _ in have})
+        sps = sorted({s for _, s in have})
+        if got != list(range(R)) or len(have) != R * len(sps):
             raise ValueError(f"group_sharded_parallel: a tensor of shape "
-                             f"{tuple(piece.shape)} has copies in replicas "
-                             f"{sorted(have)} of {R}")
-        reps = [have[r] for r in range(R)]
+                             f"{tuple(piece.shape)} has copies at (replica, "
+                             f"sp) {sorted(have)}, not at each sp position "
+                             f"of each of {R} replicas")
+        reps = [have[(r, 0)] for r in range(R)]
+        # the sp copies, each filled from its replica's group
+        extra = [(r, have[(r, s)]) for r, s in sorted(have) if s]
         pos = _position(piece)
         flat0 = piece.detach().reshape(-1)
         slices, views = [], {}
@@ -245,9 +272,10 @@ def _build_plan(target: nn.Module, level: str, axis: str) -> ZeroPlan:
                 sl = Slice(t, piece, (h,) + pos[1:], g, j, lo, hi)
                 t.zero_slice = sl
                 slices[-1].append(sl)
-        rec = ZeroPiece(level, reps, group, slices, views)
-        for r, c in enumerate(reps):
-            c.zero = (rec, r)
+        rec = ZeroPiece(level, R, reps + [c for _, c in extra],
+                        group + [group[r] for r, _ in extra], slices, views)
+        for k, c in enumerate(rec.copies):
+            c.zero = (rec, k)
         out.append(rec)
     return ZeroPlan(level, axis, out)
 
@@ -354,34 +382,37 @@ def _gather_around(module: nn.Module, slots):
         for rec, r in held:
             rec.release(r)
 
-    module.register_forward_pre_hook(pre)
-    module.register_forward_hook(post, always_call=True)
+    return [module.register_forward_pre_hook(pre),
+            module.register_forward_hook(post, always_call=True)]
 
 
-def _install_gathers(root: nn.Module):
-    seen = set()
+def _install_gathers(root: nn.Module) -> list:
+    """p_g_os: :func:`_gather_around` every module that reads a copy;
+    returns the hooks' handles."""
+    seen, handles = set(), []
 
     def visit(m):
         if id(m) in seen or isinstance(m, ShardedParameter):
             return
         seen.add(id(m))
         if getattr(m, "_zero_unit", False):
-            _gather_around(m, param_slots([m]))
+            handles.extend(_gather_around(m, param_slots([m])))
             return
         slots = [(m, n) for n, t in m._parameters.items() if t is not None]
         for c in m._modules.values():
             if isinstance(c, ShardedParameter):
                 slots += [(c, n) for n, t in c._parameters.items()
                           if t is not None]
-        for tied in getattr(m, "_tied", ()):
+        for tied in getattr(m, "_zero_tied_modules", ()):
             slots += param_slots([tied])
         if slots:
-            _gather_around(m, slots)
+            handles.extend(_gather_around(m, slots))
         for c in m._modules.values():
             if c is not None:
                 visit(c)
 
     visit(root)
+    return handles
 
 
 def _bind_one_replica(root: nn.Module):
@@ -398,8 +429,8 @@ def _bind_one_replica(root: nn.Module):
     def post(mod, args, out):
         active.pop().__exit__(None, None, None)
 
-    root.register_forward_pre_hook(pre, prepend=True)
-    root.register_forward_hook(post, always_call=True)
+    return [root.register_forward_pre_hook(pre, prepend=True),
+            root.register_forward_hook(post, always_call=True)]
 
 
 def _whole_state_dicts(root: nn.Module, plan: ZeroPlan):
@@ -429,10 +460,11 @@ def _whole_state_dicts(root: nn.Module, plan: ZeroPlan):
     def after_load(mod, incompatible):
         writing.pop().__exit__(None, None, None)
 
-    root.register_state_dict_pre_hook(before_save)
-    root._register_state_dict_hook(after_save)
-    root._register_load_state_dict_pre_hook(before_load, with_module=True)
-    root.register_load_state_dict_post_hook(after_load)
+    return [root.register_state_dict_pre_hook(before_save),
+            root._register_state_dict_hook(after_save),
+            root._register_load_state_dict_pre_hook(before_load,
+                                                    with_module=True),
+            root.register_load_state_dict_post_hook(after_load)]
 
 
 def _unwrap_optimizer(optimizer):
@@ -465,7 +497,6 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
     if axis is None:
         return model, optimizer, scaler
     target = _zero_target(model)
-    refuse_sequence_copies(target, "ZeRO")
     if getattr(target, "_zero_plan", None) is not None:
         raise ValueError("group_sharded_parallel: the model is sharded "
                          "already")
@@ -477,12 +508,13 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
         getattr(target, "_layers", None), nn.Module) else [])
     for m in roots:
         m._zero_plan = plan
-    single = len(plan.pieces[0].copies) == 1 if plan.pieces else False
+    plan.roots = roots
+    single = plan.pieces[0].replicas == 1 if plan.pieces else False
     if level != "os" and single:
-        _bind_one_replica(target)
+        plan.hooks += _bind_one_replica(target)
     if level == "p_g_os":
-        _install_gathers(target)
-        _whole_state_dicts(roots[-1], plan)
+        plan.hooks += _install_gathers(target)
+        plan.hooks += _whole_state_dicts(roots[-1], plan)
         for rec in plan.pieces:
             rec.free()
     return model, optimizer, scaler

@@ -33,6 +33,16 @@ bound (:class:`Bound`) to its copies tied across replicas
 (:func:`tie_slots`), so each copy applies the sum of the replicas'
 gradients.
 
+A module may hold copies of its own on sp positions of their own (the
+layered GPT's ``sequence_copies``, each marked ``sp_coordinate``): they
+lie at mesh position ``(replica, stage, shard, sp)`` -- a fourth
+coordinate only for sp from 1 on, so every other position stays
+``(replica, stage, shard)`` -- and :func:`place_on_stage` puts each on
+the devices its caller names for that sp coordinate.  The sp ties
+(inside a replica) and the dp ties (across replicas, over each slot of
+body and copies alike) together give every copy the sum over all dp x sp
+parts once.
+
 ZeRO (``distributed.sharding``) cuts each tensor replica 0 holds -- a
 *piece*: a whole parameter or a part -- into flat slices over the ZeRO
 axis (:class:`Slice`, :func:`slice_info`), kept by a :class:`ZeroPiece`
@@ -56,7 +66,7 @@ from .serving_mesh import reduce_sum
 
 __all__ = ["Part", "ShardedParameter", "shard_info", "sharded_parameters",
            "load_state", "tie_replicas", "cut", "weight_bytes_by_position",
-           "place_on_stage", "refuse_sequence_copies", "replica_of",
+           "place_on_stage", "copy_key", "replica_of",
            "replicate", "sync_replicas",
            "param_slots", "tie_slots", "Bound", "bound_now",
            "logical_owner", "covers_once", "Slice", "ZeroPiece",
@@ -67,8 +77,9 @@ Region = Tuple[Tuple[int, torch.Tensor], ...]
 
 
 class Part(NamedTuple):
-    """Where one part lies: its mesh ``position`` (a tuple of axis
-    indices, the replica first), its ``device`` and its ``region``."""
+    """Where one part lies: its mesh ``position`` (``(replica, stage,
+    shard)``, with the sp coordinate fourth on an sp copy: module
+    docstring), its ``device`` and its ``region``."""
     position: Tuple[int, ...]
     device: torch.device
     region: Region
@@ -99,6 +110,18 @@ def _put(whole: torch.Tensor, region: Region, part: torch.Tensor):
         _put(sub, rest, part)
         part = sub
     whole.index_copy_(dim, idx, part)
+
+
+def _position(replica: int, stage: int, shard: int, sp: int = 0
+              ) -> Tuple[int, ...]:
+    """A mesh position: the sp coordinate fourth only from 1 on."""
+    return (replica, stage, shard) + ((sp,) if sp else ())
+
+
+def copy_key(position) -> Tuple[int, int]:
+    """``(replica, sp coordinate)`` of a mesh position: which dp replica's
+    copy, and which of its sp positions', a tensor there is."""
+    return position[0], (position[3] if len(position) > 3 else 0)
 
 
 class ShardedParameter(nn.ParameterList):
@@ -154,15 +177,17 @@ class ShardedParameter(nn.ParameterList):
 
     @torch.no_grad()
     def relocate(self, stage: int, devices: Sequence[torch.device],
-                 replica: int):
+                 replica: int, sp: int = 0):
         """Move every part to pipeline stage ``stage`` of replica
-        ``replica``: the part of shard ``i`` to position ``(replica,
-        stage, i)`` on ``devices[i]``."""
+        ``replica`` at sp coordinate ``sp``: the part of shard ``i`` to
+        position ``(replica, stage, i)`` (``sp`` fourth where it is not
+        0) on ``devices[i]``."""
         for k, (t, p) in enumerate(zip(self, self.parts)):
             i = p.position[2]
             if t.device != devices[i]:
                 t.data = t.data.to(devices[i])
-            self.parts[k] = Part((replica, stage, i), devices[i], p.region)
+            self.parts[k] = Part(_position(replica, stage, i, sp),
+                                 devices[i], p.region)
         self.index = {p.position: k for k, p in enumerate(self.parts)}
 
     # the logical name in the state dict: this module's own prefix
@@ -296,10 +321,15 @@ def slice_info(t) -> Optional[Slice]:
 
 
 class ZeroPiece:
-    """The ZeRO layout of one piece: ``copies[r]``, its copy in replica
-    ``r`` (replica 0's is the piece); ``group[r]``, the ZeRO group of
-    replica ``r``; ``slices[g]``, group ``g``'s :class:`Slice`s in index
-    order; ``views``, the slices that view a copy, ``{(g, j): r}``.
+    """The ZeRO layout of one piece: ``copies[r]`` for ``r <
+    replicas``, its copy in replica ``r`` (replica 0's is the piece),
+    then the copies on sp positions of their own (module docstring), each
+    filled from its replica's group; ``group[k]``, the ZeRO group of copy
+    ``k``; ``slices[g]``, group ``g``'s :class:`Slice`s in index order;
+    ``views``, the slices that view a copy, ``{(g, j): r}``.  An sp
+    copy's gradient is the one its replica's copy receives (the sp tie
+    gave both the same sum), so only the replicas' ties land gradients in
+    the slices (:class:`_TieReplicas`).
 
     At ``p_g_os`` the copies keep their shape and no storage: a use
     acquires a copy (its storage is allocated and filled from its group's
@@ -309,8 +339,9 @@ class ZeroPiece:
     (:meth:`acquire` with ``backward=True``) and the gradient's arrival at
     the tie releases (:meth:`release_backward`)."""
 
-    def __init__(self, level: str, copies, group, slices, views):
-        self.level = level
+    def __init__(self, level: str, replicas: int, copies, group, slices,
+                 views):
+        self.level, self.replicas = level, replicas
         self.copies = list(copies)
         self.group = list(group)
         self.slices = [list(g) for g in slices]
@@ -324,7 +355,7 @@ class ZeroPiece:
 
     @torch.no_grad()
     def fill(self, r: int):
-        """Write replica ``r``'s group's slices into its copy (through
+        """Write copy ``r``'s group's slices into it (through
         ``.data``: autograd's saved views of the copy see the values, and
         their version stays)."""
         flat = self.copies[r].data.view(-1)
@@ -394,7 +425,8 @@ class ZeroPiece:
     @torch.no_grad()
     def all_gather(self):
         """After an update at ``os`` or ``os_g``: each slice into every
-        copy of its group that does not hold it already."""
+        copy of its group (sp copies included) that does not hold it
+        already."""
         for r, c in enumerate(self.copies):
             flat = c.data.view(-1)
             for sl in self.slices[self.group[r]]:
@@ -469,6 +501,11 @@ class _TieReplicas(torch.autograd.Function):
     def backward(ctx, *grads):
         zero = None if ctx.zero is None or ctx.zero[0].level == "os" \
             else ctx.zero[0]
+        if zero is not None and ctx.zero[1] >= zero.replicas:
+            # sp copies: their replicas' ties carry the same sums into
+            # the slices
+            zero.release_backward()
+            return (None,) * len(grads)
         if all(g is None for g in grads):
             if zero is not None:
                 zero.release_backward()
@@ -500,32 +537,63 @@ def tie_replicas(copies: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     return _TieReplicas.apply(*copies)
 
 
+def _own_modules(module: nn.Module, copies: list) -> list:
+    """``module`` and its submodules, each once, without the subtrees of
+    the sp copies below it (``sp_coordinate``), which go to ``copies``."""
+    out, seen, stack = [], set(), [module]
+    while stack:
+        m = stack.pop()
+        if id(m) in seen:
+            continue
+        seen.add(id(m))
+        if m is not module and getattr(m, "sp_coordinate", 0):
+            copies.append(m)
+            continue
+        out.append(m)
+        stack.extend(c for c in m._modules.values() if c is not None)
+    return out
+
+
 def place_on_stage(module: nn.Module, stage: int,
-                   devices: Sequence[torch.device], replica: int = 0):
+                   devices: Sequence[torch.device], replica: int = 0,
+                   sp: int = 0,
+                   sp_devices: Optional[Dict[int, Sequence[torch.device]]]
+                   = None):
     """Place ``module`` on pipeline stage ``stage`` of replica
-    ``replica``, whose tensor-parallel shards lie on ``devices``: every
-    :class:`ShardedParameter`'s parts there (:meth:`ShardedParameter.
-    relocate`); every other parameter and buffer on ``devices[0]``, each
-    parameter marked with its mesh position ``(replica, stage, 0)``
+    ``replica`` at sp coordinate ``sp``, whose tensor-parallel shards lie
+    on ``devices``: every :class:`ShardedParameter`'s parts there
+    (:meth:`ShardedParameter.relocate`); every other parameter and buffer
+    on ``devices[0]``, each parameter marked with its mesh position
+    ``(replica, stage, 0)``, ``sp`` fourth where it is not 0
     (``mesh_position``, which :func:`weight_bytes_by_position` reads);
     and each submodule with a ``stage_devices`` attribute told
-    ``devices``."""
+    ``devices``.  An sp copy below ``module`` (a submodule marked
+    ``sp_coordinate`` s) is not placed with it: ``sp_devices[s]``, where
+    the caller gives it, places the copy at the same replica and stage
+    at sp coordinate s; else the copy stays where it is."""
     devices = tuple(devices)
     root = devices[0]
-    for m in module.modules():
+    copies: list = []
+    own = _own_modules(module, copies)
+    for m in own:
         if isinstance(m, ShardedParameter):
-            m.relocate(stage, devices, replica)
+            m.relocate(stage, devices, replica, sp)
         if hasattr(m, "stage_devices"):
             m.stage_devices = devices
         for name, b in m._buffers.items():
             if b is not None and b.device != root:
                 m._buffers[name] = b.to(root)
-    for p in module.parameters():
-        if shard_info(p) is not None:
-            continue
-        if p.device != root:
-            p.data = p.data.to(root)
-        p.mesh_position = (replica, stage, 0)
+    for m in own:
+        for p in m._parameters.values():
+            if p is None or shard_info(p) is not None:
+                continue
+            if p.device != root:
+                p.data = p.data.to(root)
+            p.mesh_position = _position(replica, stage, 0, sp)
+    for c in copies:
+        s = c.sp_coordinate
+        if sp_devices is not None:
+            place_on_stage(c, stage, sp_devices[s], replica, s)
 
 
 def _held_bytes(t: torch.Tensor) -> int:
@@ -538,7 +606,8 @@ def _held_bytes(t: torch.Tensor) -> int:
 
 def position_of(t) -> Tuple[int, ...]:
     """The mesh position holding ``t``: a slice's, a part's, a whole
-    parameter's mark (:func:`place_on_stage`), else ``(0, 0, 0)``."""
+    parameter's mark (:func:`place_on_stage`; an sp copy's names its sp
+    coordinate fourth), else ``(0, 0, 0)``."""
     sl = slice_info(t)
     if sl is not None:
         return sl.position
@@ -560,9 +629,10 @@ def _zero_target(model):
 
 def weight_bytes_by_position(module: nn.Module) -> Dict[Tuple[int, ...], int]:
     """Bytes of the parameters each mesh position holds: the parts, and
-    the whole parameters :func:`place_on_stage` marked, of every replica,
-    counted from their tensors (what each position's device would hold
-    on distinct devices).  Under ZeRO (``module._zero_plan``) every
+    the whole parameters :func:`place_on_stage` marked, of every replica
+    and every sp copy (at ``(replica, stage, shard, sp)``), counted from
+    their tensors (what each position's device would hold on distinct
+    devices).  Under ZeRO (``module._zero_plan``) every
     parameter counts (an unmarked one at ``(0, 0, 0)``), a copy stored
     only as slices counts nothing, and each slice with storage of its own
     counts at its position."""
@@ -648,8 +718,10 @@ def replicate(obj):
     """A deep copy of ``obj`` (a module, or a list or tuple holding
     modules; references between them are kept inside the copy) whose
     every parameter carries ``replica_of``: the parameter it was copied
-    from.  The copy's :class:`ShardedParameter` parts point at their own
-    owner (``shard``); place the copy with :func:`place_on_stage`."""
+    from, or that one's own source (a copy of a copy, as a dp replica's
+    sp copies are, points at replica 0's body).  The copy's
+    :class:`ShardedParameter` parts point at their own owner
+    (``shard``); place the copy with :func:`place_on_stage`."""
     memo: dict = {}
     out = copy.deepcopy(obj, memo)
     roots = obj if isinstance(obj, (list, tuple)) else [obj]
@@ -670,17 +742,6 @@ def replicate(obj):
                 for k, t in enumerate(c):
                     t.shard = (c, k)
     return out
-
-
-def refuse_sequence_copies(module: nn.Module, what: str):
-    """Refuse ``what`` over a module holding sp copies on cards of their
-    own (the layered GPT's ``sequence_copies``): replicas of such a model
-    are not ported."""
-    if any(len(getattr(m, "sequence_copies", ())) for m in module.modules()):
-        raise NotImplementedError(
-            f"{what} of a layered GPT whose sp positions hold copies on "
-            "cards of their own is not ported (ROADMAP.md queue 1, item 9, "
-            "step 3): put every sp position on its replica's cards")
 
 
 @torch.no_grad()

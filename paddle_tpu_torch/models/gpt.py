@@ -1514,24 +1514,50 @@ class _CacheContract(GenerationMixin):
         channel).  Every part of the placement, the other replicas'
         copies included, is freed (its storage emptied: an optimizer over
         the parts holds nothing) before the skeleton is filled, so the
-        peak is the placement and one gathered copy.  A no-op for an
-        unplaced model.  Returns the model.
+        peak is the placement and one gathered copy (and a temporary of
+        one tensor at most).  A model under ZeRO
+        (``group_sharded_parallel``, any level) first leaves its plan
+        (``ZeroPlan.dissolve``: the hooks go, and piece by piece replica
+        0's copy takes its whole value from the slices where ``p_g_os``
+        keeps only slices, while the piece's slices and other copies are
+        freed), then gives replica 0's weights the same way, at the same
+        peak.  A no-op for an unplaced model.  Returns the model.
 
-        Training the model afterwards raises (:meth:`_refuse_training`):
-        its optimizer holds the freed parts.  Under ZeRO
-        (``group_sharded_parallel``) it raises; both are ROADMAP.md queue
-        1, item 9."""
+        Training the model afterwards raises (:meth:`_refuse_training`,
+        naming ROADMAP.md queue 1, item 9): its optimizer holds the freed
+        parts (and, under ZeRO, the freed slices)."""
         if self._train_mesh is None:
             return self
-        if getattr(self, "_zero_plan", None) is not None:
-            raise NotImplementedError(
-                "taking a model under ZeRO (group_sharded_parallel) off its "
-                "training mesh for a serving mesh is not ported (ROADMAP.md "
-                "queue 1, item 9)")
         int8 = self.weight_int8
+        fresh = self._unplaced_twin(free=True)
+        for name, child in list(fresh.named_children()):
+            setattr(self, name, child)
+        self._train_mesh = None
+        self.__dict__.pop("placed_head_int8", None)
+        self._left_training_mesh = True
+        if int8:
+            self.quantize_weights()
+        return self.train(self.training)
+
+    @torch.no_grad()
+    def _unplaced_twin(self, free: bool = False):
+        """An unplaced model of this class holding replica 0's whole fp
+        weights (:meth:`state_dict`, gathered onto the model's device),
+        built as a skeleton on ``meta`` without the global mesh (nothing
+        drawn, nothing copied) and filled by assignment.  With ``free``
+        the ZeRO plan, if any, is dissolved first, and every part and copy
+        of this model is freed before the skeleton is filled
+        (:meth:`leave_training_mesh`); without it the weights are copies
+        and this model is untouched."""
+        plan = getattr(self, "_zero_plan", None) if free else None
+        if plan is not None:
+            plan.dissolve()
         state = {k: v.to(self.device) for k, v in self.state_dict().items()}
-        for p in self.parameters():
-            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        if free:
+            for p in self.parameters():
+                p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        else:
+            state = {k: v.clone() for k, v in state.items()}
         saved = _mesh.get_mesh() if _mesh.has_mesh() else None
         _mesh.set_mesh(None)
         try:
@@ -1541,15 +1567,7 @@ class _CacheContract(GenerationMixin):
         finally:
             _mesh.set_mesh(saved)
         fresh.load_state_dict(state, assign=True)
-        del state
-        for name, child in list(fresh.named_children()):
-            setattr(self, name, child)
-        self._train_mesh = None
-        self.__dict__.pop("placed_head_int8", None)
-        self._left_training_mesh = True
-        if int8:
-            self.quantize_weights()
-        return self.train(self.training)
+        return fresh
 
     def _refuse_training(self):
         """Refuse a forward without a cache that builds a graph on a model
@@ -1648,9 +1666,9 @@ class GPTStackedForPretraining(nn.Module, _CacheContract):
     mp = 1 ``quantize_weights`` quantizes each stage's slabs on its
     device.  A serving mesh (``ServingEngine(mesh=)``,
     ``ShardedServingEngine``) takes it off its training mesh
-    (:meth:`leave_training_mesh`).  Under ZeRO at ``p_g_os``
-    (``distributed.sharding``) every call gathers every part before it
-    runs and frees them after (``_zero_unit``).
+    (:meth:`leave_training_mesh`), under ZeRO too.  Under ZeRO at
+    ``p_g_os`` (``distributed.sharding``) every call gathers every part
+    before it runs and frees them after (``_zero_unit``).
     """
 
     stacked = True        # the cache and LoRA layout this class reads
@@ -2484,7 +2502,7 @@ class GPTModel(nn.Module):
         self.final_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                   **whole)
         self.sequence_copies = nn.ModuleList()
-        self._tied = False
+        self._copies_tied = False
 
     @property
     def layers(self):
@@ -2646,20 +2664,22 @@ class GPTModel(nn.Module):
     def copy_over_sp(self) -> bool:
         """Where the global mesh's sp positions name devices of their own
         (:func:`_sp_rows`), a copy of the body (``shards.replicate``) on
-        each position from 1 on, placed there as a dp replica is
-        (``shards.place_on_stage``, the replica index the sp position):
+        each position s from 1 on, placed there at mesh position (replica
+        0, stage 0, shard, s) (``shards.place_on_stage`` with ``sp``):
         the sequence parts run on their position's copy, tied to the
         others while they run (:meth:`tied_copies`), so every copy
         applies the sum of the parts' gradients.  The copies are
-        parameters of the model and stay out of its ``state_dict``.
+        parameters of the model and stay out of its ``state_dict``.  dp
+        replicas (``DataParallel``, ZeRO's replicas) copy them with the
+        model, each replica's onto its own sp positions' devices.
         Returns whether copies were made."""
         rows = _sp_rows(self.config) if self.sequence_parts > 1 else None
         if rows is None or len(self.sequence_copies):
             return False
         body = self._bodies()[0]
-        for r in range(1, len(rows)):
-            copy = _SequenceCopy(replicate(body))
-            place_on_stage(copy, 0, rows[r], r)
+        for s in range(1, len(rows)):
+            copy = _SequenceCopy(replicate(body), s)
+            place_on_stage(copy, 0, rows[s], 0, s)
             self.sequence_copies.append(copy)
         return True
 
@@ -2670,24 +2690,29 @@ class GPTModel(nn.Module):
         backward every copy receives the sum of all the copies'
         gradients.  A no-op without copies, or inside an active
         binding."""
-        if not len(self.sequence_copies) or self._tied:
+        if not len(self.sequence_copies) or self._copies_tied:
             yield
             return
         slots = [param_slots(b) for b in self._bodies()]
         with ExitStack() as stack:
             for s, v in zip(slots, tie_slots(slots)):
                 stack.enter_context(Bound(s, v))
-            self._tied = True
+            self._copies_tied = True
             try:
                 yield
             finally:
-                self._tied = False
+                self._copies_tied = False
 
 
 class _SequenceCopy(nn.ModuleList):
     """One sp position's copy of the layered body
-    (:meth:`GPTModel.copy_over_sp`): trained with the model, and left out
-    of its ``state_dict``, which is the unplaced model's."""
+    (:meth:`GPTModel.copy_over_sp`), at sp coordinate ``sp_coordinate``
+    (which ``shards.place_on_stage`` reads): trained with the model, and
+    left out of its ``state_dict``, which is the unplaced model's."""
+
+    def __init__(self, modules, sp: int):
+        super().__init__(modules)
+        self.sp_coordinate = sp
 
     def state_dict(self, *args, destination=None, prefix="",
                    keep_vars=False):
@@ -2697,9 +2722,9 @@ class _SequenceCopy(nn.ModuleList):
 def _amp_replayed(fn, st):
     """``fn`` run under the amp state ``st`` had when this was made, and
     in the replica bindings active then (``shards.bound_now``: a dp
-    replica's tied copies): a recompute runs in the backward, outside the
-    forward's ``auto_cast`` and bindings, and must run as the forward
-    did."""
+    replica's tied copies, and inside it the ties of its sp copies): a
+    recompute runs in the backward, outside the forward's ``auto_cast``
+    and bindings, and must run as the forward did."""
     state = (st.enabled, st.custom_white, st.custom_black, st.level,
              st.dtype)
     bindings = bound_now()
@@ -2730,6 +2755,12 @@ class GPTLMHead(nn.Module):
         w = embeddings.word_embeddings.weight
         self.stage_devices = (tuple(p.device for p in w.parts)
                               if isinstance(w, ShardedParameter) else None)
+
+    @property
+    def _zero_tied_modules(self):
+        """The modules whose parameters the head reads: ZeRO's
+        ``p_g_os`` gathers them around its forward."""
+        return self._tied
 
     def forward(self, h):
         w = self._tied[0].word_embeddings.weight
@@ -2781,7 +2812,7 @@ class GPTForPretraining(nn.Module, _CacheContract):
     adding each shard's part of the deltas (:class:`LayerLoRA`);
     quantization raises the reference's ``ValueError``
     (``use_tensor_parallel``).  A serving mesh takes it off its training
-    mesh (:meth:`leave_training_mesh`).  dp and pp
+    mesh (:meth:`leave_training_mesh`), under ZeRO too.  dp and pp
     keep the reference's meaning: the bare model neither shards its batch
     nor pipelines (a ``PipelineLayer`` of its blocks and the fleet
     wrappers do).
@@ -2795,10 +2826,14 @@ class GPTForPretraining(nn.Module, _CacheContract):
     the parts: where the sp positions name cards of their own
     (:func:`_sp_rows`) each from 1 on holds a copy of the body
     (:meth:`GPTModel.copy_over_sp`), tied to the others in every forward.
-    Generation, serving and quantization of a model whose sp axis is > 1
-    raise the reference's ``ValueError``: a one-token step does not split
-    over sp.  sep, and sp without ``sequence_parallel``, are read at
-    coordinate 0."""
+    ``DataParallel`` (fleet's ``TensorParallel`` too) and
+    ``group_sharded_parallel`` take such a model: each dp replica holds
+    its own copies on its own sp positions' devices, and every copy
+    applies the sum over all dp x sp parts; under ZeRO each copy is
+    filled from its replica's slices.  Generation, serving and
+    quantization of a model whose sp axis is > 1 raise the reference's
+    ``ValueError``: a one-token step does not split over sp.  sep, and
+    sp without ``sequence_parallel``, are read at coordinate 0."""
 
     stacked = False       # the cache and LoRA layout this class reads
 

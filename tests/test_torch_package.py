@@ -263,19 +263,25 @@ def _sequence_parallel(cls=GPTStackedForPretraining, axes=(("sp", 2),),
 
 def _sp_copies_replicated(axis):
     """dp replicas (``axis`` "dp") or ZeRO (``axis`` "sharding") of a
-    layered GPT whose sp positions hold copies on devices of their
-    own."""
+    layered GPT whose sp positions hold copies on devices of their own:
+    built, each copy at its own (replica, sp) position."""
     from paddle_tpu_torch.distributed import DataParallel
     from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.distributed.shards import (
+        copy_key, weight_bytes_by_position,
+    )
 
     M.set_mesh(M.build_mesh({axis: 2, "sp": 2},
                             [f"cpu:{i}" for i in range(4)]))
     try:
         m = GPTForPretraining(gpt_tiny(sequence_parallel=True), device="cpu")
         if axis == "dp":
-            DataParallel(m)
+            m = DataParallel(m)
         else:
             group_sharded_parallel(m, AdamW(parameters=m.parameters()), "os")
+        # ZeRO's bare model is one replica; its slice 1 lies at sharding 1
+        want = [(0, 0), (0, 1), (1, 0)] + ([(1, 1)] if axis == "dp" else [])
+        assert [copy_key(k) for k in weight_bytes_by_position(m)] == want
     finally:
         M.set_mesh(None)
 
@@ -559,10 +565,6 @@ def _auto_parallel_strategy():
 
 # every refused knob: (how to provoke it, words its item's title must hold)
 REFUSALS = {
-    "layered gpt sp copies under dp replicas": (
-        lambda: _sp_copies_replicated("dp"), "sequence parallelism"),
-    "layered gpt sp copies under zero": (
-        lambda: _sp_copies_replicated("sharding"), "sequence parallelism"),
     "training a placed gpt after a serving mesh took it": (
         _train_after_serving_mesh, "sharded engine"),
     "fleet init_server": (
@@ -579,6 +581,11 @@ REFUSALS = {
 # says it is ported
 PORTED = {
     "gpt n_micro": (_pipelined, 2, "training"),
+    "layered gpt sp copies under dp replicas": (
+        lambda: _sp_copies_replicated("dp"), 9, "sequence parallelism"),
+    "layered gpt sp copies under zero": (
+        lambda: _sp_copies_replicated("sharding"), 9,
+        "sequence parallelism"),
     "engine mesh": (lambda: _engine_step(mesh=("cpu", "cpu")), 9,
                     "sharded"),
     "engine role": (lambda: _engine_step(role="prefill"), 9,

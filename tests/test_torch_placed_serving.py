@@ -30,8 +30,11 @@ wrong heads gives other logits.
   the model has left its training mesh (no placement, every part freed);
   training it again raises naming ROADMAP.md queue 1, item 9, and a
   forward under ``torch.no_grad()`` gives the unplaced model's logits.
-- Step 3's refusals (dp replicas and ZeRO over sp copies) still raise,
-  naming item 9, step 3.
+- Step 3's leftover (dp replicas and ZeRO over sp copies, once refused
+  naming item 9, step 3): on the same ``{axis: 2, "sp": 2}`` mesh over
+  ``cpu:i`` the replicas, or the ZeRO plan, are built with one copy for
+  each (replica, sp position) (``tests/test_torch_sp_replicas.py`` holds
+  their training to the JAX package).
 """
 import numpy as np
 import pytest
@@ -512,17 +515,36 @@ def test_int8_sharded_engine_over_placed_model_matches_jax(dp, mp,
 
 
 # ---------------------------------------------------------------------------
-# step 3's refusals stay
+# step 3's leftover: what was refused is built
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("axis", ["dp", "sharding"])
 def test_step3_refusals_still_raise(axis, clean_mesh):
+    """Once refused (ROADMAP.md queue 1, item 9, step 3), now built: dp
+    replicas hold a copy of the body for each (replica, sp position);
+    ZeRO's plan gives each piece one copy for
+    each sp position of its one replica, the sp copy filled from the
+    replica's group.  No two copies share a mesh position."""
+    from paddle_tpu_torch.distributed.shards import (
+        copy_key, position_of, replica_of,
+    )
+
     M.set_mesh(M.build_mesh({axis: 2, "sp": 2},
                             [f"cpu:{i}" for i in range(4)]))
     m = GPTForPretraining(gpt_tiny(sequence_parallel=True), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"queue 1, item 9, step 3"):
-        if axis == "dp":
-            DataParallel(m)
-        else:
-            group_sharded_parallel(m, AdamW(parameters=m.parameters()), "os")
+    body = len([p for p in m.parameters() if replica_of(p) is None])
+    if axis == "dp":
+        wrapped = DataParallel(m)
+        keys = [(r, s) for r in range(2) for s in range(2)]
+    else:
+        wrapped = m
+        opt = AdamW(parameters=m.parameters())
+        group_sharded_parallel(m, opt, "os")
+        keys = [(0, 0), (0, 1)]
+        assert all(len(rec.copies) == 2 and rec.replicas == 1
+                   for rec in m._zero_plan.pieces)
+    by_key = {}
+    for p in wrapped.parameters():
+        by_key.setdefault(copy_key(position_of(p)), []).append(p)
+    assert sorted(by_key) == keys
+    assert all(len(ps) == body for ps in by_key.values())

@@ -28,14 +28,22 @@ at ``--level`` os, os_g or p_g_os, or at phase 50's os and p_g_os
 without it), printing the parameter, gradient and optimizer-state bytes
 of each mesh position and the peak memory; with ``--cards 4`` its 4 N
 positions take the four cards in mesh order, N of them a card (a
-(shard 0, shard 1) pair a card at N = 2).  ``--sp`` runs phase 51 alone
-(the flash kernels at the ring's block shapes and ``RingAttention``
+(shard 0, shard 1) pair a card at N = 2).  ``--zero-serving`` runs
+phase 57e alone (a serving mesh over a stacked GPT under ZeRO
+``p_g_os``).  ``--sp`` runs phase 51 alone (the flash kernels at the ring's block shapes and ``RingAttention``
 against their plain versions, GPT-3 1.3B with ``sequence_parallel`` at
 sp 2 and sp 2 x mp 2 against the unplaced layered model, the 2-layer
 copy against the CPU and the axes no model reads); with ``--cards 4``
 its mesh positions take the four cards in mesh order, so each sp
 position holds a tied copy on a card of its own, and the ring's shards
-lie on cards of their own.  ``--generate`` runs phase 46's (1, 2, 2) and
+lie on cards of their own.  ``--sp --dp 2`` runs phase 58's
+``DataParallel`` run alone (dp replicas of the layered GPT whose sp
+positions hold copies of their own, each replica's sp position 1 a copy
+on the CPU beside the card), ``--sp --sharding 2`` its two
+``group_sharded_parallel`` runs (``--level`` one of them, or os_g), each
+for 2 steps, the second under the profiler; with ``--cards 4`` every
+replica's every sp position is a card of its own, so the copies must
+equal their sources bit for bit.  ``--generate`` runs phase 46's (1, 2, 2) and
 (2, 2, 2) runs, then phases 52-53 (generation and serving from the
 trained (1, 2, 2) model against the unplaced one, the layered GPT at mp
 2, the 2-layer copy against the CPU; batches placed over the mesh); with
@@ -79,6 +87,10 @@ Run from the repository root:
     python3 tools/port_mesh_probe.py --fleet --sharding 2 \
         [--level os|os_g|p_g_os] [--cards 4]
     python3 tools/port_mesh_probe.py --sp [--cards 4]
+    python3 tools/port_mesh_probe.py --sp --dp 2 [--cards 4]
+    python3 tools/port_mesh_probe.py --sp --sharding 2 \
+        [--level os|os_g|p_g_os] [--cards 4]
+    python3 tools/port_mesh_probe.py --zero-serving
     python3 tools/port_mesh_probe.py --generate [--cards 4 [--parent DIR]]
     python3 tools/port_mesh_probe.py --cards 4 --recompute-interval 1
     python3 tools/port_mesh_probe.py --recompute [--parent DIR]
@@ -227,13 +239,15 @@ def main() -> int:
                     help="phase 48 alone (phase 49 with --dp, "
                     "--recompute-interval or --virtual)")
     ap.add_argument("--dp", type=int, default=0,
-                    help="phase 49's replicas (with --fleet)")
+                    help="phase 49's replicas (with --fleet); 2 with --sp: "
+                    "phase 58's DataParallel run")
     ap.add_argument("--recompute-interval", type=int, default=None,
                     help="phase 49's recompute_interval (with --fleet)")
     ap.add_argument("--virtual", type=int, default=None,
                     help="phase 49's virtual stages (with --fleet)")
     ap.add_argument("--sharding", type=int, default=0,
-                    help="phase 50's sharding degree (with --fleet)")
+                    help="phase 50's sharding degree (with --fleet); 2 "
+                    "with --sp: phase 58's ZeRO runs")
     ap.add_argument("--level", choices=("os", "os_g", "p_g_os"),
                     default=None,
                     help="phase 50's one ZeRO level (with --sharding)")
@@ -249,6 +263,9 @@ def main() -> int:
                     help="phase 56 alone (auto_parallel's Engine)")
     ap.add_argument("--placed-serving", action="store_true",
                     help="phase 57 after phases 46 (1, 2, 2) and 52")
+    ap.add_argument("--zero-serving", action="store_true",
+                    help="phase 57e alone (a serving mesh over a stacked "
+                    "GPT under ZeRO)")
     ap.add_argument("--serve-cluster", action="store_true",
                     help="phases 41-44's times (with --parent, in turns)")
     args = ap.parse_args()
@@ -259,9 +276,13 @@ def main() -> int:
             and not args.fleet:
         cs.MESH_CPU_RECOMPUTE = args.recompute_interval
         dp_run = bool(args.dp) or args.virtual is not None
-    if (dp_run or args.sharding) and not args.fleet:
+    sp_replicas = args.sp and (args.dp or args.sharding)
+    if sp_replicas and (args.dp or args.sharding) != 2:
+        ap.error("--sp takes --dp 2 or --sharding 2 (phase 58's meshes)")
+    if (dp_run or args.sharding) and not (args.fleet or sp_replicas):
         ap.error("--dp, --recompute-interval (without --cards), --virtual "
-                 "and --sharding go with --fleet")
+                 "and --sharding go with --fleet (--dp 2 and --sharding 2 "
+                 "also with --sp)")
     if args.level and not args.sharding:
         ap.error("--level goes with --sharding")
     if dp_run and args.sharding:
@@ -331,6 +352,18 @@ def main() -> int:
         cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
                  else None)
         phases = (("56", lambda p: cs.phase_engine(p, cards)),)
+    elif sp_replicas:
+        axis = "dp" if args.dp else "sharding"
+        cs.SPR_RUNS = tuple(r for r in cs.SPR_RUNS if axis in r[1] and (
+            args.level is None or r[2] in (None, args.level)))
+        if args.level and not cs.SPR_RUNS:
+            cs.SPR_RUNS = ((f"sharding2_sp2_{args.level}",
+                            {"sharding": 2, "sp": 2}, args.level, 2),)
+        cards = (tuple(f"cuda:{j}" for j in range(4)) if args.cards >= 4
+                 else cs.SPR_DEVICES)
+        phases = (("58", lambda p: cs.phase_sp_replicas(p, cards, 2)),)
+    elif args.zero_serving:
+        phases = (("57e", cs.phase_zero_serving),)
     elif args.sp:
         cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
                  else None)
