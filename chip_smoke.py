@@ -464,14 +464,17 @@ result line:
    dropout 0, planned by ``Engine.plan`` over four positions of the one
    card (an HBM that makes pure dp infeasible: dp 2 x mp 2) and trained
    3 steps of 8 x 1024 tokens by ``Engine.fit`` through the propagation
-   executor, against an Engine with no plan (``ENGINE_LOSS_REL``,
-   ``ENGINE_GRAD_NORM``): exactly positions x layers launches of each
-   flash kernel a step at (4, 20, 1024, 128) and one bf16 AdamW launch a
-   parameter tensor (28); the node's backward against the plain version
-   (``ENGINE_BWD_ATOL``); ``evaluate``, ``predict``; the checkpoint into a
-   fresh Engine bit for bit; the fp32 copy planned on the CPU and on the
-   card against each other and the unplanned CPU run
-   (``ENGINE_CPU_TOL``);
+   executor over the placed blocks (each position its own, no whole copy
+   of a cut tensor), against an Engine with no plan
+   (``ENGINE_LOSS_REL``, ``ENGINE_GRAD_NORM``): exactly positions x
+   layers launches of each flash kernel a step at (4, 20, 1024, 128) and
+   one bf16 AdamW launch a block (4 x 28), the bytes each position holds
+   at rest (``state_bytes_by_position``) the count by hand; the node's
+   backward against the plain version (``ENGINE_BWD_ATOL``); ``evaluate``
+   and ``predict`` through the executor against the unplanned Engine's;
+   the checkpoint into a fresh planned Engine bit for bit; the fp32 copy
+   planned on the CPU and on the card against each other and the
+   unplanned CPU run (``ENGINE_CPU_TOL``);
 57e. a serving mesh over a model under ZeRO (after phase 57) -- the
    stacked GPT at GPT-3 1.3B widths (2 layers, fp32) on ``{"sharding":
    2, "mp": 2}`` under ``p_g_os`` after one training step, taken off its
@@ -493,7 +496,18 @@ result line:
    position's device and within ``SPR_COPY_REL`` of its source after each
    step (bit-equal under ZeRO), the flash launches of the ring's pairs on
    the card and one AdamW launch a tensor (or slice) on the card exactly;
-   host ms a step, and device ms and busy share of the profiled step.
+   host ms a step, and device ms and busy share of the profiled step;
+59. the Engine's plan under ZeRO -- phase 56's model and plan (seed 59)
+   trained 2 steps by ``Engine.fit`` under the Strategy's sharding at
+   ``os_g`` and at ``p_g_os`` over the placed blocks, against 2 steps of
+   an Engine with no plan (``ENGINE_LOSS_REL``, ``ENGINE_GRAD_NORM``):
+   exactly positions x layers launches of each flash kernel and one bf16
+   AdamW launch a ZeRO slice a step, the bytes each position holds at
+   rest the count by hand at each level, ``p_g_os``'s peak device memory
+   in step 2 below ``os_g``'s; ``evaluate`` and ``predict`` under the
+   plan against the unplanned Engine's; the fp32 copy at ``os``, ``os_g``
+   and ``p_g_os`` planned on the card against the same on the CPU
+   (``ENGINE_CPU_TOL``).
 
 TF32 is off throughout: fp32 runs in full fp32 on the card.
 
@@ -9360,19 +9374,57 @@ class _ConfigOnly:
         return iter(())
 
 
-def _first_grads(model, opt):
+def _first_grads(model, opt, eng=None):
     """Wrap ``opt.step`` so that its first call keeps a copy of every
-    gradient of ``model`` (what step 1 applies); returns that dict."""
+    gradient of ``model`` (what step 1 applies), whole: under ``eng``'s
+    plan gathered from the blocks or ZeRO slices where they landed;
+    returns that dict."""
     kept, step = {}, opt.step
     named = list(model.named_parameters())
 
     def first(*a, **k):
         if not kept:
-            kept.update({n: p.grad.detach().clone() for n, p in named
-                         if p.grad is not None})
+            placed = getattr(eng, "placement", None)
+            if placed is not None:
+                from paddle_tpu_torch.distributed.sharding import \
+                    gathered_grads
+                kept.update({n: g.detach().clone() for n, g in
+                             gathered_grads(placed).items()
+                             if g is not None})
+            else:
+                kept.update({n: p.grad.detach().clone() for n, p in named
+                             if p.grad is not None})
         return step(*a, **k)
     opt.step = first
     return kept
+
+
+def _engine_blocks_by_hand(eng, param_bytes, state_bytes, level=None):
+    """The bytes each mesh position holds at rest under ``eng``'s plan,
+    counted from the specs: each tensor's block (its elements over the
+    cuts of its spec) at ``param_bytes`` and ``state_bytes`` an element,
+    the state a ZeRO group's share at every level, the block too at
+    ``p_g_os`` (every block here splits evenly over dp)."""
+    placed = eng.placement
+    mesh = placed.mesh
+    dp = mesh.shape.get("dp", 1)
+    params = state = 0
+    for e in placed.entries.values():
+        n = e.tensor.numel() // int(np.prod(e.sharding.cuts(e.tensor.shape)))
+        params += param_bytes * n
+        state += state_bytes * n
+    if level is not None:
+        state //= dp
+    if level == "p_g_os":
+        params //= dp
+    return {tuple(int(x) for x in pos): {"params": params, "grads": 0,
+                                         "state": state}
+            for pos in sorted({p.position for e in placed.entries.values()
+                               for p in e.blocks.parts})}
+
+
+def _rel_norm(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
 
 
 def _engine_batches(torch, vocab, batch, seq, n, device, seed):
@@ -9386,15 +9438,20 @@ def _engine_batches(torch, vocab, batch, seq, n, device, seed):
     return out
 
 
-def _engine(port, cfg, dtype, device, seed, devices=None, bf16_adamw=True):
-    """(Engine, model, optimizer) over a fresh layered GPT of ``cfg``."""
+def _engine(port, cfg, dtype, device, seed, devices=None, bf16_adamw=True,
+            level=None):
+    """(Engine, model, optimizer) over a fresh layered GPT of ``cfg``;
+    ``level``: the Strategy's ZeRO stage of that name."""
     ap = port["auto_parallel"]
     model = port["Layered"](cfg, device=device, dtype=dtype, seed=seed)
     opt = port["AdamW"](learning_rate=ENGINE_LR,
                         parameters=model.parameters(),
                         multi_precision=not bf16_adamw)
+    stage = {"os": 1, "os_g": 2, "p_g_os": 3}.get(level)
+    strategy = ap.Strategy({"sharding": {"enable": True, "stage": stage}}
+                           if stage else {})
     eng = ap.Engine(model=model, loss=port["Criterion"](cfg), optimizer=opt,
-                    device=device, devices=devices)
+                    strategy=strategy, device=device, devices=devices)
     return eng, model, opt
 
 
@@ -9431,9 +9488,11 @@ def _engine_node_compare(port, shape):
 
 def _engine_ckpt_round_trip(port, eng, model, opt, fresh):
     """``eng``'s blocking ``save_checkpoint`` after its fit, loaded into
-    ``fresh()`` (a new (Engine, model, optimizer)): the position, the
-    weights, both moments and the beta powers must come back bit for bit.
-    Returns the save's and the load's seconds."""
+    ``fresh()`` (a new (Engine, model, optimizer), planned as ``eng`` is:
+    the load cuts into its blocks): the position, the weights, both
+    moments and the beta powers must come back bit for bit, read whole
+    through the state dicts.  Returns the save's and the load's
+    seconds."""
     torch = port["torch"]
     try:
         t0 = time.perf_counter()
@@ -9445,10 +9504,11 @@ def _engine_ckpt_round_trip(port, eng, model, opt, fresh):
         sa, sb = model.state_dict(), fmodel.state_dict()
         same_w = sa.keys() == sb.keys() and all(
             torch.equal(sa[k], sb[k]) for k in sa)
-        same_m = all(
-            torch.equal(opt.state[p][m], fopt.state[q][m])
-            for p, q in zip(opt._params(), fopt._params())
-            for m in ("moment1", "moment2")) and \
+        oa, ob = opt.state_dict(), fopt.state_dict()
+        same_m = oa.keys() == ob.keys() and any(
+            k.startswith("moment") for k in oa) and all(
+            torch.equal(oa[k], ob[k]) for k in oa
+            if k.startswith("moment")) and \
             (opt.beta1_pow, opt.beta2_pow) == (fopt.beta1_pow,
                                                fopt.beta2_pow)
     finally:
@@ -9463,34 +9523,44 @@ def _engine_ckpt_round_trip(port, eng, model, opt, fresh):
     return t_save, t_load
 
 
-def _engine_fp32_copy(port, plan_mesh, devices):
-    """The fp32 copy: an unplanned Engine on the CPU, then the same plan's
-    fit on ``["cpu"] * 4`` and on the card's ``devices`` from the same
-    weights and batches, the card's checkpoint round trip
-    (:func:`_engine_ckpt_round_trip`).  Returns (worst loss and gradient
-    differences, the card run's launches)."""
-    torch, ap = port["torch"], port["auto_parallel"]
+def _engine_plan_copy(port, eng, model, plan_mesh):
+    """Plan the fp32 copy's ``eng`` over its four positions: the mesh
+    must be ``plan_mesh``, the bf16 run's."""
+    n = sum(p.numel() for p in model.parameters())
+    best = eng.plan(batch=AUTO_CPU_BATCH, cluster=port["auto_parallel"]
+                    .ClusterSpec(n_devices=4, hbm_bytes=8.0 * n,
+                                 flops=ENGINE_CPU_FLOPS))
+    _check(best.mesh == plan_mesh, f"engine fp32 copy: plan {best.mesh}, "
+           f"the bf16 run's {plan_mesh}")
+
+
+def _engine_fp32_copy(port, plan_mesh, devices, level=None):
+    """The fp32 copy (at ZeRO ``level``, or without ZeRO): an unplanned
+    Engine on the CPU (without ZeRO only), then the same plan's fit on
+    ``["cpu"] * 4`` and on the card's ``devices`` from the same weights
+    and batches, and without ZeRO the card's checkpoint round trip into a
+    fresh planned Engine (:func:`_engine_ckpt_round_trip`).  Returns
+    (worst loss and gradient differences, the card run's launches, the
+    runs' losses)."""
+    torch = port["torch"]
     cfg = port["gpt_tiny"](hidden_dropout=0.0, attention_dropout=0.0,
                            **AUTO_CPU_CFG)
     batches = {}
     runs, state = {}, None
-    for name, device, devices in (("unplanned", "cpu", None),
-                                  ("cpu", "cpu", ["cpu"] * 4),
-                                  ("card", DEVICE, list(devices))):
-        eng, model, opt = _engine(port, cfg, "float32", device, 56, devices,
-                                  bf16_adamw=False)
+    order = (("cpu", "cpu", ["cpu"] * 4), ("card", DEVICE, list(devices)))
+    if level is None:
+        order = (("unplanned", "cpu", None),) + order
+    for name, device, devs in order:
+        eng, model, opt = _engine(port, cfg, "float32", device, 56, devs,
+                                  bf16_adamw=False, level=level)
         if state is None:
             state = {k: v.detach().clone() for k, v in
                      model.state_dict().items()}
         else:
             model.load_state_dict(state)
-        if devices is not None:
-            n = sum(p.numel() for p in model.parameters())
-            best = eng.plan(batch=AUTO_CPU_BATCH, cluster=ap.ClusterSpec(
-                n_devices=4, hbm_bytes=8.0 * n, flops=ENGINE_CPU_FLOPS))
-            _check(best.mesh == plan_mesh, f"engine fp32 copy: plan "
-                   f"{best.mesh}, the bf16 run's {plan_mesh}")
-        grads = _first_grads(model, opt)
+        if devs is not None:
+            _engine_plan_copy(port, eng, model, plan_mesh)
+        grads = _first_grads(model, opt, eng)
         batches.setdefault(device, _engine_batches(
             torch, cfg.vocab_size, AUTO_CPU_BATCH, AUTO_CPU_SEQ,
             ENGINE_STEPS, device, 57))
@@ -9500,13 +9570,18 @@ def _engine_fp32_copy(port, plan_mesh, devices):
             torch.cuda.synchronize()
         runs[name] = (hist["loss"], {k: g.cpu() for k, g in grads.items()},
                       _launch_counts(port))
-        if name == "card":
-            _engine_ckpt_round_trip(port, eng, model, opt, lambda: _engine(
-                port, cfg, "float32", DEVICE, 57, devices, bf16_adamw=False))
+        if name == "card" and level is None:
+            def fresh():
+                f = _engine(port, cfg, "float32", DEVICE, 57, devs,
+                            bf16_adamw=False)
+                _engine_plan_copy(port, f[0], f[1], plan_mesh)
+                return f
+            _engine_ckpt_round_trip(port, eng, model, opt, fresh)
         port["mesh"].set_mesh(None)
     worst = 0.0
-    for a, b in (("cpu", "unplanned"), ("card", "unplanned"),
-                 ("card", "cpu")):
+    pairs = (("card", "cpu"),) if level else (
+        ("cpu", "unplanned"), ("card", "unplanned"), ("card", "cpu"))
+    for a, b in pairs:
         la, ga, _ = runs[a]
         lb, gb, _ = runs[b]
         worst = max([worst] + [abs(x - y) / abs(y) for x, y in zip(la, lb)]
@@ -9526,13 +9601,15 @@ def phase_engine(port, devices=None):
     Engine with no plan on the same weights and batches
     (``ENGINE_LOSS_REL``, ``ENGINE_GRAD_NORM``), with exactly positions x
     layers launches of each flash kernel a step at the local (8/dp, 40/mp,
-    1024, 128) and one bf16 AdamW launch a parameter tensor; the node's
-    backward kernels against the plain version (``ENGINE_BWD_ATOL``);
-    ``evaluate`` and ``predict``; the fp32 copy planned on the CPU and on
-    the card (``ENGINE_CPU_TOL``), and the card's
-    ``save_checkpoint``/``load_checkpoint`` into a fresh Engine bit for bit
-    (at the copy's widths: the bf16 model's 5.4 GB took ~45 s).
-    Returns the launches and errors."""
+    1024, 128); the node's backward kernels against the plain version
+    (``ENGINE_BWD_ATOL``); the plan places the model (each position its
+    own blocks, no whole copy of a cut tensor, one bf16 AdamW launch a
+    block, the bytes a position holds at rest the count by hand); ``evaluate`` and ``predict``
+    through the executor against the unplanned Engine's; the fp32 copy
+    planned on the CPU and on the card (``ENGINE_CPU_TOL``), and the
+    card's ``save_checkpoint``/``load_checkpoint`` into a fresh planned
+    Engine bit for bit (at the copy's widths: the bf16 model's 5.4 GB
+    took ~45 s).  Returns the launches and errors."""
     torch, ap, fa = port["torch"], port["auto_parallel"], port["fa"]
     t_phase = time.perf_counter()
     devices = list(devices or ENGINE_DEVICES)
@@ -9564,6 +9641,8 @@ def phase_engine(port, devices=None):
         ref_hist = ref.fit([batch], verbose=0)
         torch.cuda.synchronize()
         ref_ms.append(1e3 * (time.perf_counter() - t0))
+    ref_ev = ref.evaluate([batches[0]], verbose=0)["eval_loss"]
+    ref_logits = ref.predict([batches[0][0]])[0]
     del ref, ref_model, ref_opt
     torch.cuda.empty_cache()
     eng, model, opt = _engine(port, cfg, "bfloat16", DEVICE, 56, devices)
@@ -9583,7 +9662,15 @@ def phase_engine(port, devices=None):
               f"a card (cost model)")
         _check(mesh["mp"] * mesh["pp"] > 1 and positions == len(devices),
                f"engine: plan {mesh}")
-        grads = _first_grads(model, opt)
+        # each position holds its blocks; no whole copy of a cut tensor
+        n_blocks = sum(len(e.blocks) for e in eng.placement.entries.values())
+        _check(n_blocks == positions * n_tensors
+               and not eng.placement.whole_copies()
+               and all(p.untyped_storage().nbytes() == 0
+                       for p in model.parameters()),
+               f"engine: {n_blocks} blocks, whole copies "
+               f"{eng.placement.whole_copies()}")
+        grads = _first_grads(model, opt, eng)
         local = (ENGINE_BATCH // mesh["dp"], cfg.num_heads // mesh["mp"],
                  ENGINE_SEQ, cfg.head_dim)
         want = positions * ENGINE_LAYERS
@@ -9609,15 +9696,22 @@ def phase_engine(port, devices=None):
                 _check(shapes.shapes == [local] * want, f"engine: attention "
                        f"at {shapes.shapes}, expected {want} x {local}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        run = eng._exec[1]
+        run = eng._execs["train"][1]
         reshards = run.propagation.reshards
         for i, c in enumerate(per_step):
             _check(all(c[k] == want for k in ("fwd", "dkv", "dq"))
-                   and c["adamw"] == n_tensors
+                   and c["adamw"] == n_blocks
                    and not any(v for k, v in c.items()
                                if k not in ("fwd", "dkv", "dq", "adamw")),
                    f"engine: step {i + 1} launches {c}, expected {want} of "
-                   f"each flash kernel and {n_tensors} AdamW")
+                   f"each flash kernel and {n_blocks} AdamW")
+        # bf16 blocks and two bf16 moments (multi_precision off)
+        held = eng.placement.state_bytes(opt)
+        by_hand = _engine_blocks_by_hand(eng, 2, 4)
+        print(f"[engine] state_bytes_by_position at rest: {held}; by hand "
+              f"{by_hand[next(iter(by_hand))]} at each position")
+        _check(held == by_hand, "engine: the bytes a position holds differ "
+               "from the count by hand")
         losses = eng.history["loss"]
         loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses,
                                                         ref_hist["loss"])]
@@ -9633,7 +9727,7 @@ def phase_engine(port, devices=None):
               f"{[round(x, 2) for x in ref_ms]}; launches a step "
               f"{per_step[0]} (flash "
               f"{want} = positions x layers, each at {local}; AdamW "
-              f"{n_tensors}); host ms a step {[round(x, 2) for x in host_ms]}"
+              f"{n_blocks}, one a block); host ms a step {[round(x, 2) for x in host_ms]}"
               f" (step 1 with the capture and a dispatch-mode shape check, "
               f"step 3 under the profiler); capture and pass "
               f"{run.capture_seconds:.2f} s ({len(run.propagation.graph.graph.nodes)}"
@@ -9659,12 +9753,21 @@ def phase_engine(port, devices=None):
                and over <= 0, f"engine: node backward {errs}, {over}")
         ev = eng.evaluate([batches[0]], verbose=0)
         logits = eng.predict([batches[0][0]])[0]
-        print(f"[engine] evaluate {ev}; predict {tuple(logits.shape)} "
-              f"{logits.dtype}")
-        _check(np.isfinite(ev["eval_loss"]) and tuple(logits.shape) == (
-            ENGINE_BATCH, ENGINE_SEQ, cfg.vocab_size),
-            f"engine: evaluate {ev}, predict {tuple(logits.shape)}")
-        del logits
+        ev_rel = abs(ev["eval_loss"] - ref_ev) / abs(ref_ev)
+        logits_rel = _rel_norm(logits, ref_logits)
+        print(f"[engine] evaluate {ev} and predict {tuple(logits.shape)} "
+              f"{logits.dtype} through the executor "
+              f"({sorted(eng._execs)}): against the unplanned Engine's "
+              f"{ref_ev}, relative {ev_rel:.3g} (bound "
+              f"{ENGINE_LOSS_REL[1]}); logits by relative norm "
+              f"{logits_rel:.3g} (bound {ENGINE_GRAD_NORM})")
+        _check({"eval", "predict"} <= set(eng._execs)
+               and ev_rel <= ENGINE_LOSS_REL[1]
+               and logits_rel <= ENGINE_GRAD_NORM
+               and tuple(logits.shape) == (ENGINE_BATCH, ENGINE_SEQ,
+                                           cfg.vocab_size),
+               f"engine: evaluate {ev}, predict {tuple(logits.shape)}")
+        del logits, ref_logits
     finally:
         port["mesh"].set_mesh(prev)
     del eng, model, opt
@@ -9687,6 +9790,174 @@ def phase_engine(port, devices=None):
                 host_ms=host_ms, ref_ms=ref_ms, prof=prof, peak=peak,
                 mesh=mesh,
                 losses=losses)
+
+
+# ---------------------------------------------------------------------------
+# phase 59: the Engine's plan under ZeRO at config 4's widths
+# ---------------------------------------------------------------------------
+
+ENGINE_ZERO_STEPS = 2
+# os_g first: p_g_os's step-2 peak must fall below it
+ENGINE_ZERO_LEVELS = ("os_g", "p_g_os")
+ENGINE_ZERO_CPU_LEVELS = ("os", "os_g", "p_g_os")
+
+
+def _engine_zero_run(port, cfg, level, devices, train, ref_hist, ref_grads,
+                     n_tensors, layers):
+    """One planned ``Engine.fit`` under ZeRO ``level`` for phase 59:
+    (the engine, its optimizer, the step-2 peak bytes, host ms a step,
+    launches a step); every check but the peak's made here."""
+    torch, ap = port["torch"], port["auto_parallel"]
+    before = torch.cuda.memory_allocated()
+    eng, model, opt = _engine(port, cfg, "bfloat16", DEVICE, 59, devices,
+                              level=level)
+    n_params = sum(p.numel() for p in model.parameters())
+    best = eng.plan(batch=ENGINE_BATCH, cluster=ap.ClusterSpec(
+        n_devices=len(devices), hbm_bytes=8.0 * n_params))
+    mesh = dict(best.mesh)
+    positions = int(np.prod(list(mesh.values())))
+    grads = _first_grads(model, opt, eng)
+    want = positions * layers
+    cards = sorted({torch.device(d).index or 0 for d in devices})
+    peaks, host_ms, per_step = [], [], []
+    for batch in train:
+        for i in cards:
+            torch.cuda.synchronize(i)
+            torch.cuda.reset_peak_memory_stats(i)
+        _reset_launches(port)
+        t0 = time.perf_counter()
+        eng.fit([batch], verbose=0)
+        for i in cards:
+            torch.cuda.synchronize(i)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        # each card's peak of the step
+        peaks.append([torch.cuda.max_memory_allocated(i) for i in cards])
+        per_step.append(_launch_counts(port))
+    rest = torch.cuda.memory_allocated()
+    plan = eng.placement._zero_plan
+    n_slices = sum(len(g) for rec in plan.pieces for g in rec.slices)
+    held = eng.placement.state_bytes(opt)
+    by_hand = _engine_blocks_by_hand(eng, 2, 4, level)
+    losses = eng.history["loss"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_hist)]
+    grad_rel = _grad_rel_norms(grads, ref_grads)
+    worst = max(grad_rel.items(), key=lambda kv: kv[1])
+    print(f"[engine_zero] {level} over {mesh} on {devices}: losses {losses} "
+          f"against the unplanned Engine's {ref_hist} (relative "
+          f"{[float(f'{x:.3g}') for x in loss_rel]}, bounds "
+          f"{ENGINE_LOSS_REL}); step 1's gradients worst {worst[0]} "
+          f"{worst[1]:.4g} (bound {ENGINE_GRAD_NORM}); launches a step "
+          f"{per_step} (flash {want}, AdamW one a slice: {n_slices}); host "
+          f"ms a step {[round(x, 2) for x in host_ms]} (step 1 with the "
+          f"capture and the slicing); each card's peak a step "
+          f"{[[round(x / 2 ** 30, 3) for x in p] for p in peaks]} GiB "
+          f"(cards {cards}); card 0 holds {before / 2 ** 30:.3f} GiB "
+          f"before the Engine and {rest / 2 ** 30:.3f} at rest after "
+          f"step 2; bytes at rest "
+          f"{held}, by hand {by_hand[next(iter(by_hand))]} a position")
+    _check(mesh == {"dp": 2, "mp": 2, "pp": 1} and plan.level == level,
+           f"engine_zero: plan {mesh}, level {plan.level}")
+    for i, c in enumerate(per_step):
+        _check(all(c[k] == want for k in ("fwd", "dkv", "dq"))
+               and c["adamw"] == n_slices == positions * n_tensors
+               and not any(v for k, v in c.items()
+                           if k not in ("fwd", "dkv", "dq", "adamw")),
+               f"engine_zero: {level} step {i + 1} launches {c}, expected "
+               f"{want} of each flash kernel and {n_slices} AdamW")
+    _check(loss_rel[0] <= ENGINE_LOSS_REL[0]
+           and max(loss_rel[1:]) <= ENGINE_LOSS_REL[1]
+           and worst[1] <= ENGINE_GRAD_NORM,
+           f"engine_zero: {level} losses {losses}, gradient {worst}")
+    _check(held == by_hand, f"engine_zero: {level} bytes {held}, by hand "
+           f"{by_hand}")
+    _check(not eng.placement.whole_copies(), "engine_zero: a whole copy")
+    return eng, opt, peaks[-1], host_ms, per_step
+
+
+def phase_engine_zero(port, devices=None, layers=ENGINE_LAYERS,
+                      levels=ENGINE_ZERO_LEVELS, cpu_levels=
+                      ENGINE_ZERO_CPU_LEVELS):
+    """Phase 59: phase 56's layered GPT (GPT-3 13B widths, ``layers``
+    layers, bf16, dropout 0, seed 59) planned over four positions
+    (``devices``, default ``ENGINE_DEVICES``) and trained 2 steps of 8 x
+    1024 tokens by ``Engine.fit`` under the Strategy's sharding at each of
+    ``levels`` over the placed blocks, against an Engine with no plan on
+    the same weights and batches (:func:`_engine_zero_run`); at
+    ``p_g_os`` the step-2 peak device memory must fall below ``os_g``'s,
+    and ``evaluate`` and ``predict`` under the plan are held to the
+    unplanned Engine's; then the fp32 copy at each of ``cpu_levels`` on
+    the card against the CPU.  Returns the launches by level, errors
+    and times."""
+    torch = port["torch"]
+    t_phase = time.perf_counter()
+    devices = list(devices or ENGINE_DEVICES)
+    cfg = port["gpt_13b"](num_layers=layers, hidden_dropout=0.0,
+                          attention_dropout=0.0)
+    batches = _engine_batches(torch, cfg.vocab_size, ENGINE_BATCH,
+                              ENGINE_SEQ, ENGINE_ZERO_STEPS + 1, DEVICE, 59)
+    train, held_out = batches[:-1], batches[-1]
+    ref, ref_model, ref_opt = _engine(port, cfg, "bfloat16", DEVICE, 59)
+    n_tensors = len(list(ref_model.parameters()))
+    ref_grads = _first_grads(ref_model, ref_opt)
+    ref_hist = list(ref.fit(train, verbose=0)["loss"])
+    ref_ev = ref.evaluate([held_out], verbose=0)["eval_loss"]
+    ref_logits = ref.predict([held_out[0]])[0]
+    del ref, ref_model, ref_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks, launches, host = {}, {}, {}
+    prev = port["mesh"]._global_mesh
+    try:
+        for level in levels:
+            eng, opt, peaks[level], host[level], per_step = \
+                _engine_zero_run(port, cfg, level, devices, train, ref_hist,
+                                 ref_grads, n_tensors, layers)
+            launches[level] = {k: sum(c[k] for c in per_step)
+                               for k in ("fwd", "dkv", "dq", "adamw")}
+            if level == "p_g_os":
+                ev = eng.evaluate([held_out], verbose=0)["eval_loss"]
+                logits = eng.predict([held_out[0]])[0]
+                ev_rel = abs(ev - ref_ev) / abs(ref_ev)
+                logits_rel = _rel_norm(logits, ref_logits)
+                print(f"[engine_zero] p_g_os evaluate {ev} and predict "
+                      f"through the executor: against the unplanned "
+                      f"Engine's {ref_ev}, relative {ev_rel:.3g} (bound "
+                      f"{ENGINE_LOSS_REL[1]}); logits by relative norm "
+                      f"{logits_rel:.3g} (bound {ENGINE_GRAD_NORM})")
+                _check({"eval", "predict"} <= set(eng._execs)
+                       and ev_rel <= ENGINE_LOSS_REL[1]
+                       and logits_rel <= ENGINE_GRAD_NORM,
+                       f"engine_zero: evaluate {ev}, logits {logits_rel}")
+                del logits
+            port["mesh"].set_mesh(None)
+            del eng, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        port["mesh"].set_mesh(prev)
+    del ref_logits, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "os_g" in peaks and "p_g_os" in peaks:
+        print(f"[engine_zero] step-2 peak a card: p_g_os "
+              f"{[round(x / 2 ** 30, 3) for x in peaks['p_g_os']]} GiB "
+              f"against os_g's "
+              f"{[round(x / 2 ** 30, 3) for x in peaks['os_g']]} GiB")
+        _check(all(a < b for a, b in zip(peaks["p_g_os"], peaks["os_g"])),
+               f"engine_zero: p_g_os peaks {peaks['p_g_os']} not below "
+               f"os_g's {peaks['os_g']}")
+    cpu_launches = {}
+    for level in cpu_levels:
+        worst, cpu_launches[level], cpu_losses = _engine_fp32_copy(
+            port, {"dp": 2, "mp": 2, "pp": 1}, devices, level)
+        print(f"[engine_zero] fp32 copy at {level}: losses {cpu_losses}; "
+              f"card against CPU worst {worst:.3g} (bound "
+              f"{ENGINE_CPU_TOL}); card launches {cpu_launches[level]}")
+        _check(worst <= ENGINE_CPU_TOL,
+               f"engine_zero: the fp32 copy at {level} differs")
+    print(f"[time] phase 59 {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, cpu_launches=cpu_launches, peaks=peaks,
+                host_ms=host, ref_hist=ref_hist)
 
 
 # ---------------------------------------------------------------------------
@@ -10245,6 +10516,10 @@ def main() -> int:
                                      spr["errs"][key])
     fk["max_abs_err"] = max(fk["max_abs_err"], spr["errs"]["adamw"])
     mark("58")
+    # phase 59: the Engine's plan under ZeRO (os_g, p_g_os) at config 4's
+    # widths, the p_g_os blocks gathered around the executor's reads
+    fz59 = phase_engine_zero(port)
+    mark("59")
     ragged_launches = {
         kv: sum(p.get(kv, 0) for p in by_path.values())
         for kv in ("bfloat16", "int8")}
@@ -10298,6 +10573,9 @@ def main() -> int:
         mesh_paths["train_fleet_scaler_card_and_cpu"] = f11[key]
         # phase 56's Engine.fit over its plan, each over all its steps
         mesh_paths["auto_parallel_fit"] = fe["launches"][key]
+        # phase 59's Engine.fit over its plan under ZeRO, by level
+        mesh_paths.update({f"auto_parallel_fit_zero_{level}": run[key]
+                           for level, run in fz59["launches"].items()})
         if key != "adamw":
             # phase 6's bf16-weight step, phase 31's O1 step and phase
             # 40's layered step; the forward also phase 35's layered
@@ -10316,6 +10594,8 @@ def main() -> int:
                    run[key] for name, run in fsp["cpu_launches"].items()},
                 "auto_parallel_fit_fp32_card_vs_cpu":
                     fe["cpu_launches"][key],
+                **{f"auto_parallel_fit_zero_{level}_fp32_card_vs_cpu":
+                   run[key] for level, run in fz59["cpu_launches"].items()},
                 # phase 58's fp32 steps, a copy on the CPU beside the card
                 **{f"train_sp_replicas_{name}_fp32": run[key]
                    for name, run in spr["launches"].items()}}
@@ -10353,6 +10633,9 @@ def main() -> int:
                            for name, run in fsp["cpu_launches"].items()},
                         "auto_parallel_fit_fp32_card_vs_cpu":
                             fe["cpu_launches"]["adamw"],
+                        **{f"auto_parallel_fit_zero_{level}_fp32_card_vs_cpu":
+                           run["adamw"] for level, run
+                           in fz59["cpu_launches"].items()},
                         **{f"train_sp_replicas_{name}_fp32": run["adamw"]
                            for name, run in spr["launches"].items()}},
                     **fk})

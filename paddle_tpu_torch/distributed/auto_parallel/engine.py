@@ -10,25 +10,39 @@ The reference's pipeline, as the port runs it:
   parameters as inputs (``propagation.capture_graph``);
 - ``_plan`` (the Completer's propagation): :meth:`Engine.plan` picks the
   mesh factorization by the planner's cost model, builds the mesh over
-  ``devices`` and installs it, and gives each parameter the Megatron
-  placement (``planner.placement_decisions``) as a ``DistSpec``;
+  ``devices`` and installs it, gives each parameter the Megatron
+  placement (``planner.placement_decisions``) as a ``DistSpec``, and
+  places the model (``placed.place_model``): every parameter and buffer
+  becomes one block a mesh position, cut where its spec cuts it, on the
+  position's device, and the model's whole tensors give up their
+  storage.  The optimizer the caller passed is moved in place to the
+  blocks (``placed.repoint_optimizer``: its groups, its state cut the
+  same way, its names and ``lr_ratio`` kept).  A second ``plan()``
+  gathers the whole values back and places them again;
 - ``_parallel`` (the Partitioner and Resharder): the propagation
   executor (``propagation.apply_propagation``) runs the captured graph
-  per mesh position on local blocks, its gathers and partial sums
-  inserted where the pass decided, with ``grad=True``: autograd records
-  the blocks, and the gradients land on the whole parameters;
+  per mesh position on the blocks, with no cut, its gathers and partial
+  sums inserted where the pass decided; with ``grad=True`` autograd
+  records the blocks, and the parts of each block are tied, so every
+  part receives the sum of all their gradients once;
 - the passes: the Strategy's ``amp`` runs the port's ``auto_cast``,
-  ``sharding`` its ``group_sharded_parallel``, ``gradient_merge`` wraps
-  the optimizer in ``GradientMerge``.
+  ``sharding`` its ``group_sharded_parallel`` (over the placed blocks
+  under a plan: the ZeRO axis is ``dp``, a group the positions that hold
+  one block and differ only along it; at ``p_g_os`` the executor gathers
+  each block from its slices at the graph's first read and frees it
+  after the last, and again for the backward; on a mesh without dp it
+  does nothing), ``gradient_merge`` wraps the optimizer in
+  ``GradientMerge``.
 
-``fit`` under a plan of more than one position runs each step through
-the executor, then ``backward()`` on the gathered loss and the
-optimizer's step; without a plan, or over one position, it is the plain
-eager loop on the model's device.  The parameters stay whole on the
-model's device between steps and are cut every step (on one card each
-position's block is a view).  ``evaluate`` and ``predict`` run the model
-eagerly.  The port has one process, so a checkpoint directory is used as
-given (the JAX Engine's per-host suffix waits for the multi-process
+``fit``, ``evaluate`` and ``predict`` under a plan of more than one
+position run through the executor, each on a graph captured for its
+mode (``evaluate`` and ``predict`` under ``torch.no_grad``); without a
+plan, or over one position, they run the model eagerly on its device.
+``model.state_dict()``/``load_state_dict()`` (and so ``save``/``load``
+and the checkpoints) read and write whole tensors under the model's
+names while it is placed: gathered from the blocks, and cut straight
+into them.  The port has one process, so a checkpoint directory is used
+as given (the JAX Engine's per-host suffix waits for the multi-process
 runtime, ROADMAP.md queue 1, item 10).
 """
 from __future__ import annotations
@@ -79,7 +93,9 @@ class Engine:
         self._gm_applied = False
         self._plan_mesh = None
         self._plan_specs = {}
-        self._exec = None
+        self._placement = None      # the placed blocks (placed.PlacedModel)
+        self._placement_hooks = []
+        self._execs = {}            # mode -> (key, run, names)
         self._n_labels = 1
         self.history = {"loss": []}
         if model is not None:
@@ -136,11 +152,11 @@ class Engine:
         return self._plan_mesh is not None and \
             self._plan_mesh.devices.size > 1
 
-    def _inputs_fn(self):
+    def _inputs_fn(self, mode="train"):
         """``(fn, names, live)``: ``fn(*params_and_buffers, *batch)`` gives
-        the loss, with the model's parameters and buffers (``names``)
-        taken from the leading arguments; ``live`` the model's own
-        tensors in that order."""
+        the loss (``mode`` "predict": the model's outputs), with the
+        model's parameters and buffers (``names``) taken from the leading
+        arguments; ``live`` the model's own tensors in that order."""
         from .propagation import parameters_as_inputs
 
         fwd, names, _ = parameters_as_inputs(self._model)
@@ -150,10 +166,26 @@ class Engine:
 
         def fn(*args):
             data = args[n_p:]
+            if mode == "predict":
+                return fwd(*args[:n_p], *data)
             n_in = len(data) - self._n_labels
             out = fwd(*args[:n_p], *data[:n_in])
             return self._loss_value(out, data[n_in:])
         return fn, names, [state[k] for k in names]
+
+    @staticmethod
+    def _fake(tensors, device=None):
+        """Fake copies of ``tensors`` (shape, dtype and device, or
+        ``device``; no memory): a placed model's whole tensors have no
+        storage."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        mode = FakeTensorMode()
+        if device is None:
+            return [mode.from_tensor(t.detach()) for t in tensors]
+        with mode:
+            return [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                        device=device) for t in tensors]
 
     @staticmethod
     def _dp_specs(shapes, dp):
@@ -166,35 +198,50 @@ class Engine:
                 if len(s) >= 1 and (dp is None or (dp > 1 and s[0] % dp == 0))
                 else None for s in shapes]
 
-    def _executor(self, batch):
-        """The propagation executor of the loss over the plan's mesh for
-        batches of ``batch``'s shapes (and label count), captured and
-        propagated once."""
+    def _executor(self, batch, mode="train"):
+        """``(run, names)``: the propagation executor of the loss (of the
+        outputs, for "predict") over the plan's mesh for batches of
+        ``batch``'s shapes and label count, captured and propagated once
+        a mode; "train" records autograd, the others run under
+        ``torch.no_grad``."""
         from .propagation import apply_propagation
 
-        key = (self._n_labels,) + tuple((tuple(t.shape), t.dtype)
-                                        for t in batch)
-        if self._exec is not None and self._exec[0] == key:
-            return self._exec[1:]
-        fn, names, live = self._inputs_fn()
+        key = (mode, self._n_labels) + tuple((tuple(t.shape), t.dtype)
+                                             for t in batch)
+        hit = self._execs.get(mode)
+        if hit is not None and hit[0] == key:
+            return hit[1], hit[2]
+        fn, names, live = self._inputs_fn(mode)
         specs = [self._plan_specs.get(k) for k in names] + self._dp_specs(
             [tuple(t.shape) for t in batch],
             self._plan_mesh.shape.get("dp", 1))
-        example = [t.detach() for t in live] + list(batch)
+        # captured on the mesh's first device, where the graph runs (a
+        # model on the CPU planned over cards takes the cards' kernels)
+        example = self._fake(list(live) + list(batch),
+                             self._plan_mesh.devices.flat[0])
         t0 = time.perf_counter()
         with self._amp():
             run = apply_propagation(fn, self._plan_mesh, specs, *example,
-                                    grad=True)
+                                    grad=mode == "train")
         # host seconds of the capture and the pass, read by the smoke run
         run.capture_seconds = time.perf_counter() - t0
-        self._exec = (key, run, live)
-        return run, live
+        self._execs[mode] = (key, run, names)
+        return run, names
+
+    def _run_placed(self, batch, mode):
+        """The executor of ``mode`` over the placed blocks and ``batch``:
+        its outputs gathered whole."""
+        from ..mesh import PlacedTensor
+
+        run, names = self._executor(batch, mode)
+        out = run(*self._placement.inputs(names), *batch)
+        return torch.utils._pytree.tree_map(
+            lambda a: a.gather() if isinstance(a, PlacedTensor) else a, out)
 
     def _train_step(self, batch):
         opt = self._optimizer
         if self._placed():
-            run, live = self._executor(batch)
-            loss = run(*live, *batch).gather()
+            loss = self._run_placed(batch, "train")
         else:
             n_in = len(batch) - self._n_labels
             with self._amp():
@@ -226,20 +273,19 @@ class Engine:
 
     def _apply_passes(self):
         strat = self._strategy
-        if strat.sharding.enable:
-            if self._placed():
-                raise ValueError(
-                    "Engine: the Strategy's sharding (ZeRO) cannot be "
-                    "combined with a plan of more than one mesh position "
-                    "yet: the executor cuts whole parameters that ZeRO "
-                    "slices (ROADMAP.md queue 1, item 9)")
         if strat.sharding.enable and not self._sharding_applied:
             from ..sharding import group_sharded_parallel
 
             level = {1: "os", 2: "os_g", 3: "p_g_os"}[int(
                 strat.sharding.stage)]
-            self._model, self._optimizer, _ = group_sharded_parallel(
-                self._model, self._optimizer, level)
+            if self._placement is not None:
+                # over the placed blocks; the executors read them anew
+                group_sharded_parallel(self._placement, self._optimizer,
+                                       level)
+                self._execs = {}
+            else:
+                self._model, self._optimizer, _ = group_sharded_parallel(
+                    self._model, self._optimizer, level)
             self._sharding_applied = True
         gm = strat.gradient_merge
         if gm.enable and gm.k_steps > 1 and not self._gm_applied:
@@ -291,6 +337,9 @@ class Engine:
             if steps is not None and step_idx >= steps:
                 break
             batch = self._to_batch(batch)
+            if self._placed():
+                losses.append(float(self._run_placed(batch, "eval")))
+                continue
             n_in = len(batch) - n_labels
             with torch.no_grad(), self._amp():
                 out = self._model(*batch[:n_in])
@@ -307,6 +356,10 @@ class Engine:
         for step_idx, batch in enumerate(test_data):
             if steps is not None and step_idx >= steps:
                 break
+            if self._placed():
+                outs.append(self._run_placed(self._to_batch(batch),
+                                             "predict"))
+                continue
             with torch.no_grad(), self._amp():
                 outs.append(self._model(*self._to_batch(batch)))
         if was_training:
@@ -412,7 +465,7 @@ class Engine:
         sample = self._to_batch(sample_batch)
         fn, names, live = self._inputs_fn()
         with self._amp():
-            gm = capture_graph(fn, *[t.detach() for t in live], *sample)
+            gm = capture_graph(fn, *self._fake(list(live) + list(sample)))
         self._captured = (gm, names, live, len(sample))
         return gm
 
@@ -513,13 +566,49 @@ class Engine:
         mesh_axes = {ax: n for ax, n in best.mesh.items() if n > 1} or \
             {"dp": 1}
         mesh = _mesh.build_mesh(mesh_axes, devices)
+        self._unplace()
         _mesh.set_mesh(mesh)
         self._plan_specs = {}
         n_placed = apply_placement_rules(self._model, best.mesh,
                                          self._plan_specs)
         self._planned = (best, n_placed)
         self._plan_mesh = mesh
-        self._exec = None
+        self._execs = {}
+        if self._placed():
+            self._place()
         if hasattr(self, "_captured"):
             self.propagate(mesh_axes)
         return best
+
+    # -- placement ---------------------------------------------------------
+    def _place(self):
+        """The model's tensors as blocks over the plan's mesh, the
+        optimizer moved to them, and the model's state dicts whole
+        (module docstring)."""
+        from .placed import place_model, repoint_optimizer, state_dict_hooks
+
+        self._placement = place_model(self._model, self._plan_mesh,
+                                      self._plan_specs)
+        if self._optimizer is not None:
+            repoint_optimizer(self._optimizer, self._placement)
+        self._placement_hooks = state_dict_hooks(self._model,
+                                                 self._placement)
+
+    def _unplace(self):
+        """The model whole on its device again, the optimizer with it and
+        ZeRO undone (it is applied again over the next placement)."""
+        if self._placement is None:
+            return
+        for h in self._placement_hooks:
+            h.remove()
+        self._placement_hooks = []
+        self._placement.unplace(self._optimizer)
+        self._placement = None
+        self._sharding_applied = False
+        self._execs = {}
+
+    @property
+    def placement(self):
+        """The placed blocks (``placed.PlacedModel``) under a plan of more
+        than one position, else None."""
+        return self._placement

@@ -47,6 +47,12 @@ block of that one draw: one global mask, as GSPMD draws it.  A dimension
 an output's axes do not divide is held whole: the node runs whole and its
 output is cut by the axes that do divide it.
 
+An argument may also be a :class:`HeldBlocks`: one block a mesh position
+that its owner hands over at the graph's first read of it (tied, or
+gathered from ZeRO slices), frees after the last node that reads it or a
+view of it, and gathers again when a gradient first reaches such a
+node's outputs (``auto_parallel.placed``, the Engine's placed model).
+
 The executor runs a forward under ``torch.no_grad``, or with
 ``grad=True`` on autograd's tape: every block op, gather, cut (``narrow``),
 move (``.to``) and partial sum is then recorded, so the gradient of a
@@ -65,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import math
 import operator
+import threading
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,7 +83,7 @@ from ..serving_mesh import reduce_sum
 
 __all__ = ["DistSpec", "PropagationResult", "Reshard", "propagate_graph",
            "apply_propagation", "graph_cost", "capture_graph",
-           "parameters_as_inputs"]
+           "parameters_as_inputs", "HeldBlocks"]
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +247,13 @@ _LINEAR_LAYOUT = {"view", "_unsafe_view", "reshape", "view_copy", "permute",
                   "clone", "alias", "detach", "contiguous", "lift_fresh_copy",
                   "split", "split_with_sizes", "unbind", "slice", "select",
                   "narrow", "chunk", "cat", "neg"}
+# ops whose output may share its input's storage: a held input's storage
+# must outlive every node that reads it through them (HeldBlocks)
+_ALIASING = {"view", "_unsafe_view", "reshape", "_reshape_alias", "permute",
+             "t", "transpose", "expand", "unsqueeze", "squeeze", "alias",
+             "detach", "split", "split_with_sizes", "unbind", "slice",
+             "select", "narrow", "chunk", "as_strided", "diagonal",
+             "getitem", "view_as"}
 
 
 def _op_name(node) -> str:
@@ -264,21 +278,35 @@ def _is_tensor_node(a) -> bool:
     return isinstance(a, fx.Node) and isinstance(_val(a), torch.Tensor)
 
 
+def _visit_operands(a, out: list):
+    if _is_tensor_node(a):
+        out.append(a)
+    elif isinstance(a, (list, tuple)):
+        for x in a:
+            _visit_operands(x, out)
+
+
 def _operands(node) -> List[fx.Node]:
     """The node's tensor operands, in argument order (lists flattened)."""
-    out = []
-
-    def visit(a):
-        if _is_tensor_node(a):
-            out.append(a)
-        elif isinstance(a, (list, tuple)):
-            for x in a:
-                visit(x)
+    out: List[fx.Node] = []
     for a in node.args:
-        visit(a)
+        _visit_operands(a, out)
     for a in node.kwargs.values():
-        visit(a)
+        _visit_operands(a, out)
     return out
+
+
+def _substitute(a, local):
+    """``a`` (an argument: a node, or lists and tuples of them) with each
+    node in ``local`` replaced by its value there.  A module function, not
+    a closure that calls itself: that would be a reference cycle holding
+    ``local``'s tensors, and their autograd graph, until a garbage
+    collection."""
+    if isinstance(a, fx.Node):
+        return local[a] if a in local else a
+    if isinstance(a, (list, tuple)):
+        return type(a)(_substitute(x, local) for x in a)
+    return a
 
 
 def _shape(node) -> tuple:
@@ -888,6 +916,38 @@ def propagate_graph(gm: fx.GraphModule, in_specs: Sequence[Optional[DistSpec]],
 # executor: the graph per mesh position on local blocks
 # ---------------------------------------------------------------------------
 
+class HeldBlocks(_mesh.PlacedTensor):
+    """A leaf held as one block a mesh position (``at[coords]``), laid
+    out by ``sharding``, which the executor reads through calls to its
+    owner: ``bind()`` at the first node that reads it gives the blocks to
+    read (``{coords: tensor}``; the owner may tie them for the backward,
+    or gather them from slices first); ``release()`` after the last node
+    that reads it or a view of it; ``again()`` (optional) when a
+    gradient first reaches an output of such a node in the backward, so
+    the owner can gather what that node saved.  Without an owner's calls
+    ``bind()`` gives ``at`` and ``release()`` does nothing."""
+
+    def __init__(self, sharding, shape, dtype, at, bind=None, release=None,
+                 again=None):
+        at = {tuple(c): t for c, t in at.items()}
+        blocks = {}
+        for c, t in at.items():
+            blocks.setdefault((sharding.block_of(c), t.device), t)
+        super().__init__(sharding, shape, dtype, blocks)
+        self.at = at
+        self._bind, self._release, self.again = bind, release, again
+
+    def bind(self):
+        return self._bind() if self._bind is not None else dict(self.at)
+
+    def release(self):
+        if self._release is not None:
+            self._release()
+
+    def on(self, coords) -> torch.Tensor:
+        return self.at[tuple(coords)]
+
+
 class _Value:
     """A node's value over the mesh: ``blocks[coords]`` each position's
     block, laid out by ``dims``, with a pending sum over ``partial``."""
@@ -999,8 +1059,14 @@ class _Executor:
         specs, plan = self.result.var_specs, self.result.plan
         env: Dict[fx.Node, Any] = {}
         placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
+        held = {}
         for n, a in zip(placeholders, args):
-            env[n] = self.place_input(a, specs[n])
+            if isinstance(a, HeldBlocks):
+                self.check_held(a, specs[n])
+                held[n] = a
+            else:
+                env[n] = self.place_input(a, specs[n])
+        reads, last = self.held_reads(gm, held)
         for node in gm.graph.nodes:
             if node.op == "get_attr":
                 t = getattr(gm, node.target)
@@ -1008,16 +1074,90 @@ class _Executor:
                                     for c in self.coords},
                                    (None,) * t.dim(), (), t.shape, t.dtype)
             elif node.op == "call_function":
+                for a in _operands(node):
+                    if a in held and a not in env:
+                        # bound at the first node that reads it
+                        h, s = held[a], specs[a]
+                        env[a] = _Value(h.bind(), s.dims, (), h.shape,
+                                        h.dtype)
                 if node.target is operator.getitem:
                     src, i = node.args
                     env[node] = env[src][i]
                 else:
                     env[node] = self.node(node, env, plan[node],
                                           specs[node])
+                if node in reads:
+                    self.hook_again(env[node], [held[a] for a in reads[node]])
+                for a in last.get(node, ()):
+                    held[a].release()
         out_node = next(n for n in gm.graph.nodes if n.op == "output")
         return torch.utils._pytree.tree_map(
             lambda a: self.placed(env[a]) if isinstance(a, fx.Node) else a,
             out_node.args[0])
+
+    def check_held(self, h: "HeldBlocks", spec: DistSpec):
+        want = tuple(_ax(d) for d in spec.dims)
+        have = tuple(h.sharding.spec) + ((),) * (len(want) -
+                                               len(h.sharding.spec))
+        if have != want or h.sharding.mesh is not self.mesh:
+            raise ValueError(f"held input laid out {h.sharding.spec} on "
+                             f"{h.sharding.mesh!r}; the pass needs {want} "
+                             f"on {self.mesh!r}")
+
+    @staticmethod
+    def held_reads(gm, held):
+        """``(reads, last)``: the held inputs each node reads, directly or
+        through nodes that may alias them (:data:`_ALIASING`), and the
+        held inputs whose last such reader each node is."""
+        if not held:
+            return {}, {}
+        alias = {n: {n} for n in held}        # node -> held inputs it may be
+        reads: Dict[fx.Node, set] = {}
+        for node in gm.graph.nodes:
+            if node.op != "call_function":
+                continue
+            srcs = set().union(*[alias.get(a, set())
+                                 for a in _operands(node)])
+            if node.target is operator.getitem:
+                srcs |= alias.get(node.args[0], set())
+            if srcs:
+                reads[node] = srcs
+                if _op_name(node) in _ALIASING:
+                    alias[node] = srcs
+        last: Dict[fx.Node, list] = {}
+        seen = set()
+        for node in reversed(list(reads)):
+            new = [a for a in held if a in reads[node] and a not in seen]
+            seen.update(new)
+            if new:
+                last[node] = new
+        return {n: sorted(r, key=list(held).index)
+                for n, r in reads.items()}, last
+
+    @staticmethod
+    def hook_again(value, inputs):
+        """In the backward, the first gradient to reach an output of a
+        node that read ``inputs`` calls their ``again()`` once, before
+        the node's own backward reads what it saved of them.  Positions
+        on distinct cards run their backward on threads of their own, so
+        every output's hook waits until that call has finished."""
+        inputs = [h for h in inputs if h.again is not None]
+        if not inputs or not torch.is_grad_enabled():
+            return
+        done, lock = [], threading.Lock()
+
+        def again(grad):
+            with lock:
+                if not done:
+                    for h in inputs:
+                        h.again()
+                    done.append(True)
+        vals = value if isinstance(value, list) else [value]
+        for v in vals:
+            if isinstance(v, _Value):
+                for t in v.blocks.values():
+                    if isinstance(t, torch.Tensor) and t.requires_grad:
+                        t.register_hook(again)
 
     def place_input(self, a, spec: DistSpec) -> _Value:
         if isinstance(a, np.ndarray):
@@ -1111,17 +1251,10 @@ class _Executor:
 
     def call(self, node, args, kwargs, local, coords, target=None):
         dev = self.device(coords)
-
-        def sub(a):
-            if isinstance(a, fx.Node):
-                return local[a] if a in local else a
-            if isinstance(a, (list, tuple)):
-                return type(a)(sub(x) for x in a)
-            return a
-        kw = {k: sub(v) for k, v in kwargs.items()}
+        kw = {k: _substitute(v, local) for k, v in kwargs.items()}
         if "device" in kw:
             kw["device"] = dev
-        return (target or node.target)(*sub(args), **kw)
+        return (target or node.target)(*_substitute(args, local), **kw)
 
     def contraction(self, vals, name):
         lhs, rhs = vals

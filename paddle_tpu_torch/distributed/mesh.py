@@ -297,17 +297,22 @@ class PlacedTensor:
         """The whole tensor on ``device`` (default: the first position's),
         the blocks joined in order; built once a device and kept."""
         device = self.device if device is None else canonical_device(device)
-        if device in self.wholes:
-            return self.wholes[device]
-
-        def build(prefix):
-            k = len(prefix)
-            if k == len(self.cuts):
-                return self.block(prefix, device)
-            parts = [build(prefix + (i,)) for i in range(self.cuts[k])]
-            return parts[0] if len(parts) == 1 else torch.cat(parts, k)
-        self.wholes[device] = build(())
+        if device not in self.wholes:
+            self.wholes[device] = self._join((), device)
         return self.wholes[device]
+
+    def _join(self, prefix, device) -> torch.Tensor:
+        """The blocks whose index starts with ``prefix`` joined along the
+        remaining cut dimensions (a method, not a nested closure: a
+        closure that calls itself is a reference cycle, which would keep
+        the gathered whole, and any autograd graph it carries, until a
+        garbage collection)."""
+        k = len(prefix)
+        if k == len(self.cuts):
+            return self.block(prefix, device)
+        parts = [self._join(prefix + (i,), device)
+                 for i in range(self.cuts[k])]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, k)
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):

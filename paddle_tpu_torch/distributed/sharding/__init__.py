@@ -43,6 +43,13 @@ each is filled from its replica's group (gathered around its use at
 gradient, which the replica's sp tie already summed into the replica's
 copy, lands in no slice.
 
+A model placed by ``auto_parallel``'s Engine (``auto_parallel.placed``:
+one part a mesh position, at ``(dp, pp, mp)``) is laid out by its
+blocks (``_build_block_plan``): each block is a piece whose copies are
+every position holding it, and a ZeRO group the copies that differ only
+along ``dp``; its executor ties and gathers the copies itself, so no
+module hook is installed there.
+
 Every level sums the replicas' gradients in the same order as the same
 mesh without ZeRO and runs the same elementwise updates, so the levels
 and the run without ZeRO hold the same bits.  ``state_dict()``, the
@@ -280,6 +287,60 @@ def _build_plan(target: nn.Module, level: str, axis: str) -> ZeroPlan:
     return ZeroPlan(level, axis, out)
 
 
+def _build_block_plan(target: nn.Module, level: str, axis: str
+                      ) -> ZeroPlan:
+    """The ZeRO layout of a model placed by ``auto_parallel``'s Engine
+    (``auto_parallel.placed``: one part a mesh position at ``(dp, pp,
+    mp)``, the parts that hold one block pointing at the first by
+    ``replica_of``).  Each block is a piece, its copies every part that
+    holds it, in position order; a ZeRO group is the copies that differ
+    only along ``axis``, and slice ``j`` of a group lies at its copy whose
+    coordinate on the axis is ``j``."""
+    if axis != "dp":
+        raise ValueError(f"group_sharded_parallel: a placed model's ZeRO "
+                         f"axis is dp, not {axis}")
+    n = _mesh.axis_size(axis)
+    out = []
+    for sp in target.modules():
+        if not isinstance(sp, ShardedParameter) or \
+                not sp[0].requires_grad:
+            continue
+        blocks: Dict[int, list] = {}
+        for t, part in zip(sp, sp.parts):
+            src = replica_of(t)
+            blocks.setdefault(id(t if src is None else src), []).append(
+                (t, part.position))
+        for members in blocks.values():
+            copies = [t for t, _ in members]
+            piece = copies[0]
+            keys: Dict[tuple, int] = {}
+            group = [keys.setdefault(pos[1:], len(keys))
+                     for _, pos in members]
+            at = {(g, pos[0]): r for r, (g, (_, pos)) in
+                  enumerate(zip(group, members))}
+            flat0 = piece.detach().reshape(-1)
+            slices, views = [], {}
+            for g in range(len(keys)):
+                slices.append([])
+                for j, lo, hi in _ranges(piece.numel(),
+                                         piece.element_size(), n):
+                    r = at[(g, j)]
+                    if level != "p_g_os":
+                        t = copies[r].detach().view(-1)[lo:hi]
+                        views[(g, j)] = r
+                    else:
+                        t = flat0[lo:hi].to(copies[r].device).clone()
+                    sl = Slice(t, piece, members[r][1], g, j, lo, hi)
+                    t.zero_slice = sl
+                    slices[-1].append(sl)
+            rec = ZeroPiece(level, len(copies), copies, group, slices,
+                            views)
+            for k, c in enumerate(copies):
+                c.zero = (rec, k)
+            out.append(rec)
+    return ZeroPlan(level, axis, out)
+
+
 def _cut_state(v, sl: Slice):
     if isinstance(v, torch.Tensor) and v.numel() == sl.owner.numel() \
             and v.dim() > 0:
@@ -501,7 +562,9 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
         raise ValueError("group_sharded_parallel: the model is sharded "
                          "already")
     chain = _unwrap_optimizer(optimizer)
-    plan = _build_plan(target, level, axis)
+    blocks = getattr(target, "_position_blocks", False)
+    plan = (_build_block_plan if blocks else _build_plan)(target, level,
+                                                          axis)
     _shard_optimizer(chain, plan)
     # a replicated wrapper's state dicts are its replica 0's, ``_layers``
     roots = [target] + ([target._layers] if isinstance(
@@ -509,11 +572,13 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
     for m in roots:
         m._zero_plan = plan
     plan.roots = roots
+    # a placed model's executor ties and gathers its blocks itself
     single = plan.pieces[0].replicas == 1 if plan.pieces else False
-    if level != "os" and single:
+    if level != "os" and single and not blocks:
         plan.hooks += _bind_one_replica(target)
     if level == "p_g_os":
-        plan.hooks += _install_gathers(target)
+        if not blocks:
+            plan.hooks += _install_gathers(target)
         plan.hooks += _whole_state_dicts(roots[-1], plan)
         for rec in plan.pieces:
             rec.free()

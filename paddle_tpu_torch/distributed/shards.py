@@ -55,6 +55,7 @@ tensors at every level.
 from __future__ import annotations
 
 import copy
+import threading
 from contextlib import nullcontext
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -154,14 +155,21 @@ class ShardedParameter(nn.ParameterList):
         ``device`` (default: the first part's)."""
         values = list(self) if values is None else list(values)
         device = self.parts[0].device if device is None else device
-        first = next((v for v, p in zip(values, self.parts)
-                      if p.replica == 0), values[0])
+        first = next((v for v, k in zip(values, self._covering())
+                      if k), values[0])
         whole = torch.empty(self.whole_shape, dtype=first.dtype,
                             device=device)
-        for p, v in zip(self.parts, values):
-            if p.replica == 0:
+        for p, v, k in zip(self.parts, values, self._covering()):
+            if k:
                 _put(whole, p.region, v.detach())
         return whole
+
+    def _covering(self) -> List[bool]:
+        """Which parts a gather reads: replica 0's, less those that copy
+        another part of this tensor (``replica_of``: a block several mesh
+        positions hold, ``auto_parallel.placed``)."""
+        return [p.replica == 0 and replica_of(t) is None
+                for t, p in zip(self, self.parts)]
 
     def cut_whole(self, whole: torch.Tensor) -> List[torch.Tensor]:
         """Each part's elements of ``whole``, on the part's device."""
@@ -366,28 +374,31 @@ class ZeroPiece:
     def acquire(self, r: int, backward: bool = False):
         if not self.stored_as_slices:
             return
-        if self.uses[r] == 0:
-            c = self.copies[r]
-            c.untyped_storage().resize_(c.numel() * c.element_size())
-            self.fill(r)
-        self.uses[r] += 1
-        if backward:
-            self._backward[r] += 1
+        with _ZERO_LOCK:
+            if self.uses[r] == 0:
+                c = self.copies[r]
+                c.untyped_storage().resize_(c.numel() * c.element_size())
+                self.fill(r)
+            self.uses[r] += 1
+            if backward:
+                self._backward[r] += 1
 
     def release(self, r: int, n: int = 1):
         if not self.stored_as_slices:
             return
-        self.uses[r] -= n
-        if self.uses[r] == 0:
-            self.copies[r].untyped_storage().resize_(0)
+        with _ZERO_LOCK:
+            self.uses[r] -= n
+            if self.uses[r] == 0:
+                self.copies[r].untyped_storage().resize_(0)
 
     def release_backward(self):
         """Release what the backward acquired (every use's gradient has
         arrived)."""
-        for r, n in enumerate(self._backward):
-            if n:
-                self._backward[r] = 0
-                self.release(r, n)
+        with _ZERO_LOCK:
+            for r, n in enumerate(self._backward):
+                if n:
+                    self._backward[r] = 0
+                    self.release(r, n)
 
     def free(self):
         for r, c in enumerate(self.copies):
@@ -435,6 +446,12 @@ class ZeroPiece:
                         c.device))
 
 
+# A backward over distinct cards acquires and releases copies from the
+# threads autograd runs each card's work on.  Module-level, not a field:
+# a ZeroPiece rides on its copies' attributes, which a deep copy visits.
+_ZERO_LOCK = threading.RLock()
+
+
 def _piece_value(piece, value_of):
     """``value_of`` read for ``piece``: its own, or, for a piece ZeRO
     holds, its group-0 slices' joined into the piece's shape (None where
@@ -457,10 +474,10 @@ def logical_value(entry, value_of):
     slices of group 0.  ``value_of`` gives a held tensor's value (its
     gradient, a moment, ...) or None; so does this."""
     if isinstance(entry, ShardedParameter):
-        vals = [_piece_value(t, value_of) if p.replica == 0 else None
-                for t, p in zip(entry, entry.parts)]
-        if any(v is None for v, p in zip(vals, entry.parts)
-               if p.replica == 0):
+        covering = entry._covering()
+        vals = [_piece_value(t, value_of) if k else None
+                for t, k in zip(entry, covering)]
+        if any(v is None for v, k in zip(vals, covering) if k):
             return None
         return entry.gather(vals)
     return _piece_value(entry, value_of)

@@ -106,7 +106,9 @@ class AdamW(torch.optim.Optimizer):
       parameter's ``p.name``, ``""`` without one);
     - ``learning_rate``: a float or an ``LRScheduler``, read at every
       ``step()`` (the caller steps the scheduler);
-    - ``lr_ratio(p)``: a factor on each parameter's rate;
+    - ``lr_ratio(p)``: a factor on each parameter's rate (called with
+      the parameter the optimizer was given, also once an Engine's plan
+      or ZeRO steps its blocks or slices);
     - ``apply_decay_param_fun(name)``: whether a parameter is decayed
       (every parameter is, without it);
     - ``grad_clip``: a ``ClipGradBy*`` object, applied to every
@@ -245,8 +247,10 @@ class AdamW(torch.optim.Optimizer):
         sched = isinstance(self._learning_rate, LRScheduler)
         lr = np.float32(self._learning_rate()) if sched else group["lr"]
         if self._lr_ratio is not None:
+            # a ZeRO slice's piece, a placed block's whole parameter
             sl = slice_info(p)
-            ratio = self._lr_ratio(p if sl is None else sl.owner)
+            held = p if sl is None else sl.owner
+            ratio = self._lr_ratio(getattr(held, "placed_from", held))
             lr = np.float32(lr * np.float32(ratio)) if sched else lr * ratio
         return lr, sched
 

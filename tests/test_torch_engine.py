@@ -26,8 +26,8 @@ dropout 0) into the port's layered GPT by ``load_jax_state``.
   same mesh, 4 steps' losses within 1e-5 relative of the JAX
   ``Engine.fit``, and within 1e-6 of the port's unplanned fit;
 - ``evaluate`` and ``predict``, ``gradient_merge`` (k = 2) and ZeRO
-  stage 1 over a dp mesh without a plan against the JAX Engine's; ZeRO
-  under a plan of several positions raises naming ROADMAP.md;
+  stage 1 over a dp mesh without a plan against the JAX Engine's (ZeRO
+  under a plan: ``tests/test_torch_engine_placed.py``);
 - the counterparts of ``test_engine_fit_descends``,
   ``test_engine_save_load`` and ``TestEngineCheckpoint``; the Strategy's
   amp and the one-time notes; ``plan`` over too few devices raises; an
@@ -377,14 +377,6 @@ def test_zero_stage_1_over_a_dp_mesh_equals_the_jax_engines(jax_state):
     hist = e.fit(_batches(2), verbose=0)["loss"]
     assert m._zero_plan is not None
     _close(hist, jhist, LOSS_REL)
-
-
-def test_zero_under_a_plan_of_several_positions_raises(jax_state):
-    e, _ = _port_engine(jax_state, Strategy({"sharding": {"enable": True}}),
-                        devices=["cpu"] * 4)
-    e.plan(cluster=ClusterSpec(**PLANS["compute_bound_4"][0]()))
-    with pytest.raises(ValueError, match=r"ROADMAP\.md queue 1, item 9"):
-        e.fit(_batches(1), verbose=0)
 
 
 # ---------------------------------------------------------------------------

@@ -64,9 +64,19 @@ phase 55 alone (auto_parallel's annotations over the captured layered
 GPT, run per mesh position through the flash kernel).  ``--engine`` runs
 phase 56 alone (auto_parallel's ``Engine`` at GPT-3 13B widths, 2 layers:
 ``cost``, ``plan`` over four positions of the card, ``fit`` through the
-propagation executor against an unplanned Engine, the checkpoint and the
-fp32 copy); with ``--cards 4`` the plan's four positions, and the fp32
-copy's, are four distinct cards.  ``--serve-cluster`` times phases 41-44
+propagation executor over the placed blocks against an unplanned
+Engine, the checkpoint and the fp32 copy); with ``--cards 4`` the plan's
+four positions, and the fp32 copy's, are four distinct cards.  ``--engine
+--level os|os_g|p_g_os`` runs phase 59 alone at that ZeRO level (at
+``p_g_os`` beside ``os_g``, whose step-2 peak it must undercut), each
+card's peak and host ms a step; with ``--parent DIR`` it first runs the
+tree at DIR's phase 56 over the same cards in a process of its own and
+prints each card's peak over it.  ``--layers N[,M...]`` then trains
+this tree's Engine at GPT-3 13B widths and N layers (then M, ... until
+one trains), the model built on the CPU and planned over the cards under
+``--level``, 2 steps, each card's peak and host ms a step; with
+``--parent DIR`` the tree at DIR's Engine at that depth, its model on
+card 0, in a process of its own, and how it ended.  ``--serve-cluster`` times phases 41-44
 (sharded, int8, disaggregated and elastic serving) in a process of its
 own after the kernels are built; with ``--parent DIR`` in turns from the
 tree unpacked at DIR and from this one (parent, this, this, parent), so
@@ -96,6 +106,8 @@ Run from the repository root:
     python3 tools/port_mesh_probe.py --recompute [--parent DIR]
     python3 tools/port_mesh_probe.py --auto-parallel
     python3 tools/port_mesh_probe.py --engine [--cards 4]
+    python3 tools/port_mesh_probe.py --engine --level os|os_g|p_g_os \
+        [--cards 4] [--parent DIR] [--layers 40[,32,...]]
     python3 tools/port_mesh_probe.py --serve-cluster [--parent DIR]
     python3 tools/port_mesh_probe.py --placed-serving [--cards 4]
 
@@ -227,6 +239,114 @@ def _serve_cluster(trees):
             raise RuntimeError(f"phases 41-44 failed in {tree}")
 
 
+ENGINE_AT_PARENT = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+cards = {cards!r}
+cs.phase_engine(cs.import_port(), cards)
+print("[mesh_probe] the parent's phase 56: each card's peak GiB",
+      [round(torch.cuda.max_memory_allocated(i) / 2 ** 30, 3)
+       for i in range(torch.cuda.device_count())], "(card 0 since its "
+      "fit's reset, the "
+      "others over the process)", flush=True)
+"""
+
+ENGINE_DEPTH_AT_PARENT = """
+import sys, time, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+port = cs.import_port()
+cfg = port["gpt_13b"](num_layers={layers}, hidden_dropout=0.0,
+                      attention_dropout=0.0)
+cards = {cards!r}
+end = "trained"
+try:
+    eng, model, opt = cs._engine(port, cfg, "bfloat16", "cuda:0", 59, cards)
+    n = sum(p.numel() for p in model.parameters())
+    eng.plan(batch=cs.ENGINE_BATCH, cluster=port["auto_parallel"]
+             .ClusterSpec(n_devices=len(cards), hbm_bytes=8.0 * n))
+    for b in cs._engine_batches(torch, cfg.vocab_size, cs.ENGINE_BATCH,
+                                cs.ENGINE_SEQ, 2, "cuda:0", 59):
+        eng.fit([b], verbose=0)
+    end += f" {{eng.history['loss']}}"
+except torch.OutOfMemoryError as e:
+    end = "out of memory: " + str(e).splitlines()[0]
+print("[mesh_probe] the parent's Engine at {layers} layers:", end,
+      "; each card's peak GiB",
+      [round(torch.cuda.max_memory_allocated(i) / 2 ** 30, 3)
+       for i in range(torch.cuda.device_count())], flush=True)
+"""
+
+
+def _in_tree(tree: str, code: str, what: str):
+    """``code`` run from ``tree`` in a process of its own: its
+    ``[mesh_probe]``, ``[engine]`` and ``[time]`` lines, and how it
+    ended."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                         capture_output=True, text=True, timeout=1800)
+    print(f"[mesh_probe] {what} from {tree}: rc {run.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print("\n".join(x for x in run.stdout.splitlines()
+                    if x.startswith(("[mesh_probe]", "[engine]", "[time]"))),
+          flush=True)
+    if run.returncode:
+        print(run.stderr[-3000:], flush=True)
+
+
+def _engine_depth(port, layers: int, level: str, cards) -> bool:
+    """This tree's Engine at GPT-3 13B widths and ``layers`` layers: the
+    model built on the CPU (whole, with the optimizer's state) and
+    planned over ``cards``, 2 steps under ZeRO ``level``; prints each
+    card's peak and host ms a step and the bytes a position holds, and
+    returns whether both steps ran (a step out of memory is recorded)."""
+    torch, ap = port["torch"], port["auto_parallel"]
+    cfg = port["gpt_13b"](num_layers=layers, hidden_dropout=0.0,
+                          attention_dropout=0.0)
+    t0 = time.perf_counter()
+    eng, model, opt = cs._engine(port, cfg, "bfloat16", "cpu", 59, cards,
+                                 level=level)
+    n = sum(p.numel() for p in model.parameters())
+    t_build = time.perf_counter() - t0
+    best = eng.plan(batch=cs.ENGINE_BATCH, cluster=ap.ClusterSpec(
+        n_devices=len(cards), hbm_bytes=8.0 * n))
+    t_plan = time.perf_counter() - t0 - t_build
+    batches = cs._engine_batches(torch, cfg.vocab_size, cs.ENGINE_BATCH,
+                                 cs.ENGINE_SEQ, 2, "cpu", 59)
+    idx = sorted({torch.device(d).index or 0 for d in cards})
+    host, peaks, end = [], [], "trained"
+    try:
+        for b in batches:
+            for i in idx:
+                torch.cuda.synchronize(i)
+                torch.cuda.reset_peak_memory_stats(i)
+            t1 = time.perf_counter()
+            eng.fit([b], verbose=0)
+            for i in idx:
+                torch.cuda.synchronize(i)
+            host.append(round(1e3 * (time.perf_counter() - t1), 1))
+            peaks.append([round(torch.cuda.max_memory_allocated(i) / 2 ** 30,
+                                3) for i in idx])
+    except torch.OutOfMemoryError as e:
+        end = "out of memory: " + str(e).splitlines()[0]
+    held = eng.placement.state_bytes(opt)
+    print(f"[mesh_probe] this tree's Engine at {layers} layers ({n} "
+          f"parameters), {level} over {dict(best.mesh)} on {cards}: {end}; "
+          f"losses {eng.history['loss']}; host ms a step {host} (step 1 "
+          f"with the capture and the slicing); each card's peak a step "
+          f"{peaks} GiB; built on the CPU in {t_build:.1f} s, planned in "
+          f"{t_plan:.1f} s; bytes at rest by position {held}", flush=True)
+    ok = end == "trained"
+    del eng, model, opt
+    cs.gc.collect()
+    torch.cuda.empty_cache()
+    port["mesh"].set_mesh(None)
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=0,
@@ -250,7 +370,11 @@ def main() -> int:
                     "with --sp: phase 58's ZeRO runs")
     ap.add_argument("--level", choices=("os", "os_g", "p_g_os"),
                     default=None,
-                    help="phase 50's one ZeRO level (with --sharding)")
+                    help="phase 50's one ZeRO level (with --sharding); "
+                    "with --engine, phase 59 at that level")
+    ap.add_argument("--layers", default=None,
+                    help="with --engine --level: depths to train at GPT-3 "
+                    "13B widths, tried in turn until one trains")
     ap.add_argument("--sp", action="store_true",
                     help="phase 51 alone (sequence parallelism)")
     ap.add_argument("--generate", action="store_true",
@@ -283,8 +407,10 @@ def main() -> int:
         ap.error("--dp, --recompute-interval (without --cards), --virtual "
                  "and --sharding go with --fleet (--dp 2 and --sharding 2 "
                  "also with --sp)")
-    if args.level and not args.sharding:
-        ap.error("--level goes with --sharding")
+    if args.level and not (args.sharding or args.engine):
+        ap.error("--level goes with --sharding or --engine")
+    if args.layers and not (args.engine and args.level):
+        ap.error("--layers goes with --engine --level")
     if dp_run and args.sharding:
         ap.error("--sharding runs phase 50: no --dp, --recompute-interval "
                  "or --virtual")
@@ -309,6 +435,11 @@ def main() -> int:
         _recompute_at(os.path.abspath(args.parent))
     elif args.parent and args.generate and args.cards >= 4:
         _recompute_over_cards(os.path.abspath(args.parent))
+    elif args.parent and args.engine:
+        n = args.cards if args.cards >= 4 else 0
+        cards = [f"cuda:{j}" for j in range(n)] or None
+        _in_tree(os.path.abspath(args.parent),
+                 ENGINE_AT_PARENT.format(cards=cards), "phase 56")
     elif args.parent:
         _phase6_in_turns(os.path.abspath(args.parent))
     runs = tuple(r[:-1] + (args.steps or r[-1],)
@@ -348,6 +479,26 @@ def main() -> int:
             p["torch"], cs.recompute_cases(p))),)
     elif args.auto_parallel:
         phases = (("55", cs.phase_auto_parallel),)
+    elif args.engine and args.level:
+        cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
+                 else None)
+        levels = ("os_g", "p_g_os") if args.level == "p_g_os" \
+            else (args.level,)
+        phases = (("59", lambda p: cs.phase_engine_zero(
+            p, cards, levels=levels, cpu_levels=(args.level,))),)
+        if args.layers:
+            depth_cards = cards or ["cuda:0"] * 4
+
+            def deepest(p):
+                for n in (int(x) for x in args.layers.split(",")):
+                    if _engine_depth(p, n, args.level, depth_cards):
+                        break
+                if args.parent:
+                    _in_tree(os.path.abspath(args.parent),
+                             ENGINE_DEPTH_AT_PARENT.format(
+                                 layers=n, cards=depth_cards),
+                             f"the Engine at {n} layers")
+            phases += (("59 depth", deepest),)
     elif args.engine:
         cards = ([f"cuda:{j}" for j in range(4)] if args.cards >= 4
                  else None)
